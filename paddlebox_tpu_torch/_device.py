@@ -15,19 +15,13 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda``. A CUDA device without CUDA present raises.
-
-    On a CUDA device this also turns TF32 off for float32 matmuls and
-    convolutions (process-wide): the JAX reference computes the dense tower
-    in full float32, and TF32 keeps only about three decimal digits."""
+    """``None`` -> ``cuda``. A CUDA device without CUDA present raises."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' to run the port "
                 "on the host")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -5,8 +5,8 @@ shared library with a plain C interface, ``build/lib<name>-<digest>.so`` at
 the root of the checkout, which the wrapper loads with ``ctypes``. The
 digest covers the source and the flags, so an edited source never loads a
 stale library. Building happens at first use (or up front through
-``build``, which starts one ``nvcc`` per source, all at once) and needs
-only the sources in the repository and the CUDA toolkit.
+``build``) and needs only the sources in the repository and the CUDA
+toolkit.
 """
 
 from __future__ import annotations
@@ -19,12 +19,11 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
-SOURCES = ("seqpool_cvm",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -49,35 +48,23 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build(names: Sequence[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
-    """Compile every library of ``names`` that is not built yet, one
-    ``nvcc`` per source, all started together. Returns
-    ``{name: (seconds, compiler log)}`` for the ones it built."""
-    missing = [n for n in names if not library_path(n).exists()]
-    if not missing:
-        return {}
-    nvcc = _nvcc()
+def build(name: str) -> Optional[Tuple[float, str]]:
+    """Compile ``csrc/<name>.cu`` unless it is built already. Returns
+    ``(seconds, compiler log)`` when it compiled, else None."""
+    dst = library_path(name)
+    if dst.exists():
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in missing:
-        dst = library_path(name)
-        tmp = dst.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, dst, time.perf_counter())
-    done: Dict[str, Tuple[float, str]] = {}
-    failed = []
-    for name, (proc, tmp, dst, t0) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, dst)
-        done[name] = (time.perf_counter() - t0, log)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return done
+    tmp = dst.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
+                           f"{res.returncode}\n{res.stdout}")
+    os.replace(tmp, dst)
+    return time.perf_counter() - t0, res.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -85,7 +72,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            build([name])
+            build(name)
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib

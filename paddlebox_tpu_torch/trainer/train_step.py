@@ -20,6 +20,10 @@ from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
 class TrainStep:
     def __init__(self, table_conf: TableConfig, batch_size: int,
                  num_slots: int, dense_dim: int = 0, use_cvm: bool = True):
+        # The model's matmuls run in full float32, as in the JAX reference:
+        # TF32 keeps about three decimal digits. The flags are process-wide.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         self.table_conf = table_conf
         self.batch_size = batch_size
         self.num_slots = num_slots
