@@ -11,15 +11,20 @@ Phases, each fatal on failure:
              source with ``nvcc``.
 2. kernel  — hold ``seqpool_cvm_cuda`` against its plain PyTorch version on
              the card at the serving shape (B=512, S=26, D=11, Npad from the
-             bucket) and at edge shapes; show/clk sums must be exact.
+             bucket), at the multi-key shape (B=4096, 1-3 keys a slot) and
+             at edge shapes aimed at the kernel's 128-key tiles; show/clk
+             sums must be exact.
 3. serve   — write a seeded synthetic Criteo file, export a DeepFM
              (hidden 512-256-128) bundle whose table has >= 4M rows, serve
              every batch through ``CTRPredictor(device="cuda")``; the kernel's
              launch count must equal the batch count, and the scores must
              match the same predictor with a plain pool, and the predictor on
              the CPU.
-4. timing  — kernel, plain and library times with the kernel's bound;
-             scoring time per batch.
+   Scoring time per batch and a device profile of the serving loop.
+4. timing  — at the serving and the multi-key shape: kernel, plain and
+             ``segment_reduce`` times, per call and in a CUDA graph, beside
+             the kernel's bound; and the launch floor, the graph time of
+             ``torch.cuda._sleep(0)``.
 
 Prints the card's ``name, power.limit`` line, then one JSON line of
 per-kernel numbers, then ``{"ok": true, "device": {...}}`` last. Exits
@@ -46,7 +51,8 @@ from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
                                                      save_inference_model)
 from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
 from paddlebox_tpu_torch.ops import _build
-from paddlebox_tpu_torch.ops.seqpool_kernel import (seqpool_cvm_cuda,
+from paddlebox_tpu_torch.ops.seqpool_kernel import (bulk_loads,
+                                                    seqpool_cvm_cuda,
                                                     seqpool_cvm_plain)
 from paddlebox_tpu_torch.ps.table import state_dim
 
@@ -62,6 +68,7 @@ RTOL, ATOL = 1e-6, 1e-5
 SCORE_ATOL = 1e-5
 HIDDEN = (512, 256, 128)
 B, S, D = 512, 26, 11
+MK_B = 4096                  # batch of the multi-key (training-sized) shape
 BATCHES = 16                 # Criteo batches of B served on the main path
 TABLE_ROWS = 1 << 22         # rows of the served table snapshot
 ITERS = 200                  # calls per timing
@@ -115,8 +122,9 @@ def graph_ms(fn, reps: int = 50) -> float:
 
 
 def device_profile(fn) -> None:
-    """Print the device's busy share over one call of ``fn`` and its five
-    largest device activities, from a torch.profiler trace."""
+    """Print the device's busy share over one call of ``fn``, its five
+    largest device activities and the seqpool kernel's, from a
+    torch.profiler trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -138,7 +146,8 @@ def device_profile(fn) -> None:
     print(f"profile serve: wall {wall_us:.0f} us, device busy {busy:.0f} us "
           f"({100 * busy / wall_us:.1f}%; overlapping activities counted "
           "twice)")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for name, us in top[:5] + [kv for kv in top[5:] if KERNEL in kv[0]]:
         print(f"  {us:10.1f} us  {name[:90]}")
 
 
@@ -160,18 +169,21 @@ def phase_build() -> None:
 # -- phase 2 -----------------------------------------------------------------
 
 def make_pool_inputs(rng, batch: int, slots: int, dim: int, lengths,
-                     npad: int):
+                     npad: int, offset_rows: int = 0):
     """emb [npad, dim] (show/clk integer-valued), sorted segment ids; the
-    padding rows hold garbage the pool must ignore."""
+    padding rows hold garbage the pool must ignore. With ``offset_rows``
+    emb is a view that many rows into its allocation."""
     n = min(int(lengths.sum()), npad)
     segs = np.full(npad, batch * slots, dtype=np.int32)
     segs[:n] = np.repeat(np.arange(batch * slots, dtype=np.int32),
                          lengths)[:n]
-    emb = (rng.normal(size=(npad, dim)) * 0.3).astype(np.float32)
-    emb[:, 0] = rng.integers(1, 30, size=npad)
-    emb[:, 1] = rng.integers(0, 2, size=npad)
-    emb[n:] = rng.normal(size=(npad - n, dim)) * 1e3
-    return (torch.from_numpy(emb).cuda(), torch.from_numpy(segs).cuda(), n)
+    emb = (rng.normal(size=(npad + offset_rows, dim)) * 0.3).astype(
+        np.float32)
+    emb[:, 0] = rng.integers(1, 30, size=npad + offset_rows)
+    emb[:, 1] = rng.integers(0, 2, size=npad + offset_rows)
+    emb[offset_rows + n:] = rng.normal(size=(npad - n, dim)) * 1e3
+    emb = torch.from_numpy(emb).cuda()[offset_rows:]
+    return emb, torch.from_numpy(segs).cuda(), n
 
 
 def check_kernel(name: str, emb, segs, batch: int, slots: int,
@@ -194,19 +206,28 @@ def check_kernel(name: str, emb, segs, batch: int, slots: int,
     exact = (host[:batch * slots] + pad_value).astype(np.float32)
     require(np.array_equal(raw.reshape(-1, emb.shape[1])[:, :2].cpu().numpy(),
                            exact), f"{name}: show/clk sums are not exact")
+    loads = "tma" if bulk_loads(emb, segs) else "cp.async"
     print(f"kernel check {name}: B={batch} S={slots} D={emb.shape[1]} "
           f"Npad={emb.shape[0]} use_cvm={use_cvm} cvm_offset={cvm_offset} "
-          f"pad={pad_value} max_abs_err={err:.3e} ok")
+          f"pad={pad_value} loads={loads} max_abs_err={err:.3e} ok")
     return err
 
 
-def phase_kernel(rng) -> dict:
+def phase_kernel(rng):
+    """Kernel vs plain at the two timing shapes and at edge shapes. Returns
+    the largest error and the inputs of the timing shapes."""
     bucket = batch_bucket_spec()
     # serving shape: Criteo-like, one key per (row, slot) 95% of the time
     lengths = (rng.uniform(size=B * S) > 0.05).astype(np.int64)
     npad = bucket.bucket(int(lengths.sum()))
-    emb, segs, n = make_pool_inputs(rng, B, S, D, lengths, npad)
-    err = check_kernel("serving", emb, segs, B, S, True, 2, 0.0)
+    serving = make_pool_inputs(rng, B, S, D, lengths, npad)
+    err = check_kernel("serving", serving[0], serving[1], B, S, True, 2, 0.0)
+    # training-sized shape: 1-3 keys a slot (__graft_entry__._synth)
+    mk_lengths = rng.integers(1, 4, size=MK_B * S)
+    multikey = make_pool_inputs(rng, MK_B, S, D, mk_lengths,
+                                bucket.bucket(int(mk_lengths.sum())))
+    err = max(err, check_kernel("multi-key", multikey[0], multikey[1], MK_B,
+                                S, True, 2, 0.0))
 
     cases = []
     few = rng.integers(0, 4, size=64 * S) * (rng.uniform(size=64 * S) < 0.5)
@@ -220,45 +241,48 @@ def phase_kernel(rng) -> dict:
     cases.append(("pad-value", B, S, D, lengths, npad, True, 2, 0.5))
     cases.append(("no-keys", 4, 3, D, np.zeros(12, np.int64), 0, True, 2,
                   0.0))
+    # a 500-key segment (over three 128-key tiles) starting mid-tile
+    long = rng.integers(0, 3, size=32)
+    long[5] = 500
+    cases.append(("long-segment", 8, 4, D, long,
+                  bucket.bucket(int(long.sum())), True, 2, 0.0))
+    # segment boundaries exactly on tile edges (keys 128, 256, 384, 512)
+    edges = np.array([128, 64, 64, 1, 127, 0, 3, 125, 2] + [1] * 23)
+    cases.append(("tile-edges", 8, 4, D, edges, 1024, True, 2, 0.0))
+    # no padding key (Npad == n, last segment non-empty), n % 4 == 3 so
+    # the last tile's TMA copies leave sub-16-byte tails
+    full = rng.integers(1, 4, size=64 * S)
+    full[0] += (3 - int(full.sum())) % 4
+    cases.append(("no-padding", 64, S, D, full, int(full.sum()), True, 2,
+                  0.0))
+    # every key in the last segment
+    tail = np.zeros(16 * S, np.int64)
+    tail[-1] = 300
+    cases.append(("last-segment", 16, S, D, tail, 1024, True, 2, 0.0))
+    cases.append(("d16", 64, S, 16, rng.integers(1, 4, size=64 * S), 8192,
+                  True, 3, 0.0))
+    # long segments among more tiles than SMs (the kernel's other block
+    # size), one of them with rows of 200 columns
+    many = rng.integers(1, 4, size=2048 * S)
+    many[1000] = 700
+    cases.append(("long-segment-many-tiles", 2048, S, D, many,
+                  bucket.bucket(int(many.sum())), True, 2, 0.0))
+    wide = rng.integers(1, 4, size=512 * S)
+    wide[77] = 400
+    cases.append(("long-segment-d200", 512, S, 200, wide,
+                  bucket.bucket(int(wide.sum())), False, 3, 0.0))
+    # rows wide enough to need over 48 KB of shared memory
+    cases.append(("d100", 16, S, 100, rng.integers(0, 4, size=16 * S), 1024,
+                  False, 3, 0.0))
     for name, b, s, d, lens, npd, use_cvm, off, pad in cases:
         e, sg, _ = make_pool_inputs(rng, b, s, d, lens, npd)
         err = max(err, check_kernel(name, e, sg, b, s, use_cvm, off, pad))
-
-    # timings at the serving shape
-    ms = cuda_ms(lambda: seqpool_cvm_cuda(emb, segs, B, S, True, 2, 0.0),
-                 ITERS)
-    plain_ms = cuda_ms(lambda: seqpool_cvm_plain(emb, segs, B, S, True, 2,
-                                                 0.0), ITERS)
-    seg_lengths = torch.bincount(segs[:n].long(), minlength=B * S)
-    valid = emb[:n]
-    library_ms = cuda_ms(lambda: torch.segment_reduce(
-        valid, "sum", lengths=seg_lengths, unsafe=True), ITERS)
-    graph_kernel = graph_ms(lambda: seqpool_cvm_cuda(emb, segs, B, S, True,
-                                                     2, 0.0))
-    graph_plain = graph_ms(lambda: seqpool_cvm_plain(emb, segs, B, S, True,
-                                                     2, 0.0))
-    graph_library = graph_ms(lambda: torch.segment_reduce(
-        valid, "sum", lengths=seg_lengths, unsafe=True))
-    # the kernel loads the rows and ids of the n valid keys only (padding
-    # rows are never read), and writes the whole output once
-    nbytes = n * D * 4 + n * 4 + B * S * D * 4
-    ops = n * D + B * S * 4        # adds over the keys, +pad, 2 logs, 1 sub
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    print(f"timing seqpool_cvm (B={B} S={S} D={D} Npad={npad} keys={n}): "
-          f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-          f"segment_reduce {library_ms:.5f} ms, bound {max(bytes_ms, ops_ms):.6f}"
-          f" ms ({nbytes} bytes)")
-    print(f"timing seqpool_cvm in a CUDA graph (device time, no launch "
-          f"gaps): kernel {graph_kernel:.5f} ms, plain {graph_plain:.5f} ms, "
-          f"segment_reduce {graph_library:.5f} ms")
-    return {"name": "seqpool_cvm", "route": "cuda",
-            "source": "paddlebox_tpu_torch/csrc/seqpool_cvm.cu",
-            "replaces": "paddlebox_tpu/ops/pallas_seqpool.py:123",
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms}
+    # emb a view one row into its allocation: not 16-byte aligned, so the
+    # kernel loads by cp.async instead of TMA
+    e, sg, _ = make_pool_inputs(rng, B, S, D, lengths, npad, offset_rows=1)
+    require(not bulk_loads(e, sg), "the offset view is 16-byte aligned")
+    err = max(err, check_kernel("misaligned", e, sg, B, S, True, 2, 0.0))
+    return err, {"serving": (B, serving), "multikey": (MK_B, multikey)}
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -303,7 +327,7 @@ def reference_scores(pred: CTRPredictor, batch) -> np.ndarray:
     return p.cpu().numpy()[:batch.num_rows]
 
 
-def phase_serve(rng, seed: int) -> dict:
+def phase_serve(rng, seed: int) -> int:
     os.makedirs(WORK, exist_ok=True)
     data = os.path.join(WORK, "criteo.txt")
     t0 = time.perf_counter()
@@ -367,7 +391,55 @@ def phase_serve(rng, seed: int) -> dict:
           f"{n_rows / secs:.1f} examples/s (B={B}, predict_batch incl. pull, "
           "host copies)")
     device_profile(lambda: [pred.predict_batch(b) for b in batches])
-    return {"launches": launches}
+    return launches
+
+
+# -- phase 4 -----------------------------------------------------------------
+
+def time_shape(tag: str, batch: int, inputs) -> dict:
+    """Kernel, plain and ``segment_reduce`` per call and in a CUDA graph,
+    beside the kernel's bound, at one shape."""
+    emb, segs, n = inputs
+    kernel = lambda: seqpool_cvm_cuda(emb, segs, batch, S, True, 2, 0.0)
+    plain = lambda: seqpool_cvm_plain(emb, segs, batch, S, True, 2, 0.0)
+    seg_lengths = torch.bincount(segs[:n].long(), minlength=batch * S)
+    valid = emb[:n]
+    library = lambda: torch.segment_reduce(valid, "sum", lengths=seg_lengths,
+                                           unsafe=True)
+    t = {"ms": cuda_ms(kernel, ITERS), "plain_ms": cuda_ms(plain, ITERS),
+         "library_ms": cuda_ms(library, ITERS), "graph_ms": graph_ms(kernel),
+         "plain_graph_ms": graph_ms(plain),
+         "library_graph_ms": graph_ms(library)}
+    # the kernel must load the rows and ids of the n valid keys (padding
+    # rows are not needed) and write the whole output once
+    dim = emb.shape[1]
+    nbytes = n * dim * 4 + n * 4 + batch * S * dim * 4
+    ops = n * dim + batch * S * 4  # adds over the keys, +pad, 2 logs, 1 sub
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    t["bound_ms"] = max(bytes_ms, ops_ms)
+    t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"timing seqpool_cvm {tag} (B={batch} S={S} D={dim} "
+          f"Npad={emb.shape[0]} keys={n}): per call: kernel {t['ms']:.5f} "
+          f"ms, plain {t['plain_ms']:.5f} ms, segment_reduce "
+          f"{t['library_ms']:.5f} ms; bound {t['bound_ms']:.6f} ms "
+          f"({nbytes} bytes)")
+    print(f"timing seqpool_cvm {tag} in a CUDA graph (device time, no launch "
+          f"gaps): kernel {t['graph_ms']:.5f} ms "
+          f"({100 * t['bound_ms'] / t['graph_ms']:.1f}% of bound), plain "
+          f"{t['plain_graph_ms']:.5f} ms, segment_reduce "
+          f"{t['library_graph_ms']:.5f} ms")
+    return t
+
+
+def phase_timing(shapes: dict) -> dict:
+    row = time_shape("serving", *shapes["serving"])
+    row["launch_floor_ms"] = graph_ms(lambda: torch.cuda._sleep(0))
+    print(f"timing launch floor: torch.cuda._sleep(0) in a CUDA graph "
+          f"{row['launch_floor_ms']:.5f} ms")
+    mk = time_shape("multi-key", *shapes["multikey"])
+    row.update({f"multikey_{k}": v for k, v in mk.items()})
+    return row
 
 
 def main() -> int:
@@ -382,14 +454,19 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     try:
         phase_build()
-        row = phase_kernel(rng)
-        row.update(phase_serve(rng, args.seed))
+        err, shapes = phase_kernel(rng)
+        launches = phase_serve(rng, args.seed)
+        timing = phase_timing(shapes)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip())
+    row = {"name": KERNEL, "route": "cuda",
+           "source": "paddlebox_tpu_torch/csrc/seqpool_cvm.cu",
+           "replaces": "paddlebox_tpu/ops/pallas_seqpool.py:123",
+           "launches": launches, "max_abs_err": err, **timing}
     print(json.dumps({"kernels": [row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

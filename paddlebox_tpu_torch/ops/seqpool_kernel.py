@@ -20,6 +20,17 @@ import torch
 
 from paddlebox_tpu_torch.ops import _build
 
+# widest row the kernel takes: a tile of 128 rows and its halo of 16 sit in
+# shared memory (MAX_DIM in csrc/seqpool_cvm.cu)
+MAX_DIM = 256
+
+
+def bulk_loads(emb: torch.Tensor, segment_ids: torch.Tensor) -> bool:
+    """Whether the kernel loads its tiles by TMA bulk copy: both pointers
+    16-byte aligned. Otherwise (a view that starts mid-allocation) it takes
+    its 4-byte cp.async path; both run in the kernel."""
+    return emb.data_ptr() % 16 == 0 and segment_ids.data_ptr() % 16 == 0
+
 
 def _cvm(pooled: torch.Tensor, use_cvm: bool,
          cvm_offset: int) -> torch.Tensor:
@@ -52,7 +63,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pbx_seqpool_cvm_fwd
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.pbx_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pbx_cuda_error_string.restype = ctypes.c_char_p
@@ -84,6 +96,8 @@ def seqpool_cvm_cuda(emb: torch.Tensor, segment_ids: torch.Tensor,
     if not (emb.is_contiguous() and segment_ids.is_contiguous()):
         raise ValueError("emb and segment_ids must be contiguous")
     D = emb.shape[1]
+    if not 1 <= D <= MAX_DIM:
+        raise ValueError(f"the kernel takes 1 <= D <= {MAX_DIM}, got {D}")
     if use_cvm and D < 2:
         raise ValueError(f"use_cvm needs D >= 2 (show, clk), got {D}")
     if not use_cvm and not 0 <= cvm_offset < D:
@@ -99,7 +113,7 @@ def seqpool_cvm_cuda(emb: torch.Tensor, segment_ids: torch.Tensor,
     rc = lib.pbx_seqpool_cvm_fwd(emb.data_ptr(), segment_ids.data_ptr(),
                                  out.data_ptr(), emb.shape[0], D, n_seg,
                                  int(use_cvm), cvm_offset, float(pad_value),
-                                 stream)
+                                 int(bulk_loads(emb, segment_ids)), stream)
     if rc != 0:
         raise RuntimeError("seqpool_cvm kernel launch failed: "
                            f"{lib.pbx_cuda_error_string(rc).decode()}")

@@ -56,6 +56,63 @@ def test_matches_jax_and_pallas(B, S, D, npad, use_cvm, cvm_offset,
     np.testing.assert_allclose(got, pallas, **TOL)
 
 
+def tile_edge_lengths(kind, B, S, rng):
+    """Segment lengths aimed at the CUDA kernel's tiles of 128 keys."""
+    lengths = rng.integers(0, 3, size=B * S)
+    if kind == "segment-of-300-keys":
+        lengths[5] = 300
+    elif kind == "all-keys-in-last-segment":
+        lengths[:] = 0
+        lengths[-1] = 300
+    elif kind == "boundary-at-key-128":
+        lengths[:4] = [100, 28, 64, 64]    # boundaries at keys 128 and 256
+    return lengths
+
+
+@pytest.mark.parametrize("use_cvm,cvm_offset,pad_value",
+                         [(True, 2, 0.0), (False, 3, 0.5)])
+@pytest.mark.parametrize("kind", ["segment-of-300-keys", "no-padding-key",
+                                  "all-keys-in-last-segment",
+                                  "boundary-at-key-128"])
+def test_tile_edge_shapes_match_jax_and_pallas(kind, use_cvm, cvm_offset,
+                                               pad_value):
+    """Embeddings on a 2^-11 grid and at most 3 in size: sums of up to 300
+    keys are exact in any order, so the sides agree to the tolerance."""
+    B, S, D = 8, 4, 11
+    rng = np.random.default_rng(7)
+    lengths = tile_edge_lengths(kind, B, S, rng)
+    n = int(lengths.sum())
+    npad = n if kind == "no-padding-key" else n + 61
+    segs = np.full(npad, B * S, dtype=np.int32)
+    segs[:n] = np.repeat(np.arange(B * S, dtype=np.int32), lengths)
+    assert kind != "no-padding-key" or (segs < B * S).all()
+    emb = np.round(rng.normal(size=(npad, D)) * 1024) / 2048
+    emb = np.clip(emb, -3, 3).astype(np.float32)
+    emb[:, 0] = rng.integers(1, 30, size=npad)
+    emb[:, 1] = rng.integers(0, 2, size=npad)
+    cvm = rng.normal(size=(B, cvm_offset)).astype(np.float32)
+    got = port(emb, segs, cvm, B, S, use_cvm, cvm_offset, pad_value)
+    want = np.asarray(jax_fused(emb, segs, cvm, B, S, use_cvm, cvm_offset,
+                                pad_value))
+    np.testing.assert_allclose(got, want, **TOL)
+    pallas = np.asarray(pallas_seqpool_cvm(emb, segs, cvm, B, S, use_cvm,
+                                           cvm_offset, pad_value,
+                                           interpret=True))
+    np.testing.assert_allclose(got, pallas, **TOL)
+
+
+def test_bulk_loads_needs_both_pointers_16_byte_aligned():
+    emb = torch.zeros((65, 11))
+    segs = torch.zeros(65, dtype=torch.int32)
+    assert emb.data_ptr() % 16 == 0 and segs.data_ptr() % 16 == 0
+    assert seqpool_kernel.bulk_loads(emb, segs)
+    # one row in: 44 bytes past an aligned allocation
+    assert not seqpool_kernel.bulk_loads(emb[1:], segs[1:])
+    assert not seqpool_kernel.bulk_loads(emb[1:], segs[:-1])
+    # four rows of 11 floats (176 bytes) and four ids land on 16 again
+    assert seqpool_kernel.bulk_loads(emb[4:], segs[4:])
+
+
 @pytest.mark.parametrize("variant", [
     dict(need_filter=True),
     dict(need_filter=True, threshold=5.0, show_coeff=0.5),
