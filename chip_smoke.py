@@ -7,24 +7,35 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases, each fatal on failure:
 
-1. build   — compile the serving path's CUDA kernel from the repository's
-             source with ``nvcc``.
-2. kernel  — hold ``seqpool_cvm_cuda`` against its plain PyTorch version on
-             the card at the serving shape (B=512, S=26, D=11, Npad from the
-             bucket), at the multi-key shape (B=4096, 1-3 keys a slot) and
-             at edge shapes aimed at the kernel's 128-key tiles; show/clk
-             sums must be exact.
+1. build   — compile the port's three CUDA kernels from the repository's
+             sources with ``nvcc``, one process each, all at once: the
+             seqpool+CVM forward, its backward (the gather) and the push.
+2. kernel  — hold each kernel against its plain PyTorch version on the
+             card. Forward: the serving shape (B=512, S=26, D=11, Npad from
+             the bucket), the multi-key shape (B=4096, 1-3 keys a slot) and
+             edge shapes aimed at its 128-key tiles; show/clk sums exact.
+             Backward: the training shape (B=2048, S=24, D=11, Npad=102,400)
+             and edge shapes; bit-exact. Push: the training shape with sgd,
+             adagrad and adam, duplicate keys, key 0, unknown keys and rows
+             crossing the embedx threshold, and edge shapes; show/clk exact,
+             the rest within 1e-6.
 3. serve   — write a seeded synthetic Criteo file, export a DeepFM
              (hidden 512-256-128) bundle whose table has >= 4M rows, serve
-             every batch through ``CTRPredictor(device="cuda")``; the kernel's
-             launch count must equal the batch count, and the scores must
-             match the same predictor with a plain pool, and the predictor on
-             the CPU.
+             every batch through ``CTRPredictor(device="cuda")``; the
+             forward kernel's launch count must equal the batch count, and
+             the scores must match the same predictor with a plain pool,
+             and the predictor on the CPU.
    Scoring time per batch and a device profile of the serving loop.
-4. timing  — at the serving and the multi-key shape: kernel, plain and
-             ``segment_reduce`` times, per call and in a CUDA graph, beside
-             the kernel's bound; and the launch floor, the graph time of
-             ``torch.cuda._sleep(0)``.
+4. train   — the flagship DeepFM (hidden 512-256-128, adam dense, adagrad
+             table of 4,194,304 prepopulated rows) for 16 steps of B=2048
+             through ``FusedTrainStep`` on the card: each kernel must launch
+             once a step, losses finite, and the first 2 steps must match
+             the same step on the CPU from the same init and batches.
+   Time per step, examples/s and a device profile of the training loop.
+5. timing  — forward at the serving and the multi-key shape; backward and
+             push at the training shape: kernel, plain and library times,
+             per call and in a CUDA graph, beside each kernel's bound; and
+             the launch floor, the graph time of ``torch.cuda._sleep(0)``.
 
 Prints the card's ``name, power.limit`` line, then one JSON line of
 per-kernel numbers, then ``{"ok": true, "device": {...}}`` last. Exits
@@ -34,17 +45,20 @@ nonzero, printing no result, without CUDA.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from paddlebox_tpu_torch.config import TableConfig, batch_bucket_spec
+from paddlebox_tpu_torch.config import (BucketSpec, TableConfig,
+                                        TrainerConfig, batch_bucket_spec)
 from paddlebox_tpu_torch.data.criteo import (CriteoReader, criteo_feed_config,
                                              make_synthetic_criteo)
 from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
@@ -53,8 +67,15 @@ from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
 from paddlebox_tpu_torch.ops import _build
 from paddlebox_tpu_torch.ops.seqpool_kernel import (bulk_loads,
                                                     seqpool_cvm_cuda,
+                                                    seqpool_cvm_grad_cuda,
+                                                    seqpool_cvm_grad_plain,
                                                     seqpool_cvm_plain)
+from paddlebox_tpu_torch.ops.sparse_push import (merge_order,
+                                                 sparse_push_cuda,
+                                                 sparse_push_plain)
+from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.ps.table import state_dim
+from paddlebox_tpu_torch.trainer.fused_step import FusedTrainStep
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -66,13 +87,26 @@ FP32_OPS_PER_S = 67e12
 RTOL, ATOL = 1e-6, 1e-5
 # scores: float32 GEMMs on the card vs another summation order
 SCORE_ATOL = 1e-5
+# push kernel vs plain: show/clk exact, the rest summed in another order
+PUSH_ATOL = 1e-6
+# training on the card vs the CPU, 2 steps: float32 GEMMs and sums in
+# another order
+TRAIN_RTOL, TRAIN_ATOL = 1e-5, 1e-5
 HIDDEN = (512, 256, 128)
 B, S, D = 512, 26, 11
 MK_B = 4096                  # batch of the multi-key (training-sized) shape
 BATCHES = 16                 # Criteo batches of B served on the main path
 TABLE_ROWS = 1 << 22         # rows of the served table snapshot
+# training shape (bench.py): B=2048, 24 slots of 1-3 keys, Npad 102,400,
+# keys uniform over a prepopulated table of 4,194,304 rows
+TB, TS, TNPAD = 2048, 24, 102400
+HOT_VOCAB = 1 << 22
+TRAIN_STEPS = 16             # counted steps on the main path
+CPU_STEPS = 2                # of them, held against the CPU
 ITERS = 200                  # calls per timing
 KERNEL = "seqpool_cvm"
+GRAD = "seqpool_cvm_grad"
+PUSH = "sparse_push"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -121,9 +155,9 @@ def graph_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / (10 * reps)
 
 
-def device_profile(fn) -> None:
+def device_profile(tag: str, fn, kernels=(KERNEL,)) -> None:
     """Print the device's busy share over one call of ``fn``, its five
-    largest device activities and the seqpool kernel's, from a
+    largest device activities and those of ``kernels``, from a
     torch.profiler trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -135,48 +169,72 @@ def device_profile(fn) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
+    spans: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a record_function span shows on the host and, as an annotation
+        # over the kernels it launched, on the device: it is not a kernel
+        if e.name.startswith("train_step."):
+            if e.device_type == DeviceType.CPU:
+                spans[e.name] = spans.get(e.name, 0.0) + \
+                    e.time_range.elapsed_us()
+        elif e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us()
+    if spans:
+        print(f"profile {tag}: host time by phase: " + ", ".join(
+            f"{k[len('train_step.'):]} {v:.0f} us" for k, v in spans.items()))
     busy = sum(by_name.values())
     if not busy:
-        print("profile serve: device time not measured (no device events)")
+        print(f"profile {tag}: device time not measured (no device events)")
         return
-    print(f"profile serve: wall {wall_us:.0f} us, device busy {busy:.0f} us "
+    print(f"profile {tag}: wall {wall_us:.0f} us, device busy {busy:.0f} us "
           f"({100 * busy / wall_us:.1f}%; overlapping activities counted "
           "twice)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    for name, us in top[:5] + [kv for kv in top[5:] if KERNEL in kv[0]]:
+    for name, us in top[:8] + [kv for kv in top[8:]
+                               if any(k in kv[0] for k in kernels)]:
         print(f"  {us:10.1f} us  {name[:90]}")
 
 
 # -- phase 1 -----------------------------------------------------------------
 
 def phase_build() -> None:
-    built = _build.build(KERNEL)
-    require(_build.library_path(KERNEL).exists(), f"{KERNEL} was not built")
-    if built is None:
-        print(f"build: {KERNEL} already built")
-        return
-    secs, log = built
-    print(f"build: {KERNEL} {secs:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    """One nvcc process per source, all started together."""
+    names = (KERNEL, GRAD, PUSH)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(_build.build, names))
+    for name, res in zip(names, built):
+        require(_build.library_path(name).exists(), f"{name} was not built")
+        if res is None:
+            print(f"build: {name} already built")
+            continue
+        secs, log = res
+        print(f"build: {name} {secs:.2f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+    print(f"build: all {time.perf_counter() - t0:.2f} s")
 
 
 # -- phase 2 -----------------------------------------------------------------
+
+def segment_layout(batch: int, slots: int, lengths, npad: int):
+    """Sorted segment ids [npad] int32 for keys of ``lengths`` a (row,
+    slot), padding id ``batch * slots``, and the count of real keys."""
+    n = min(int(lengths.sum()), npad)
+    segs = np.full(npad, batch * slots, dtype=np.int32)
+    segs[:n] = np.repeat(np.arange(batch * slots, dtype=np.int32),
+                         lengths)[:n]
+    return segs, n
+
 
 def make_pool_inputs(rng, batch: int, slots: int, dim: int, lengths,
                      npad: int, offset_rows: int = 0):
     """emb [npad, dim] (show/clk integer-valued), sorted segment ids; the
     padding rows hold garbage the pool must ignore. With ``offset_rows``
     emb is a view that many rows into its allocation."""
-    n = min(int(lengths.sum()), npad)
-    segs = np.full(npad, batch * slots, dtype=np.int32)
-    segs[:n] = np.repeat(np.arange(batch * slots, dtype=np.int32),
-                         lengths)[:n]
+    segs, n = segment_layout(batch, slots, lengths, npad)
     emb = (rng.normal(size=(npad + offset_rows, dim)) * 0.3).astype(
         np.float32)
     emb[:, 0] = rng.integers(1, 30, size=npad + offset_rows)
@@ -285,6 +343,165 @@ def phase_kernel(rng):
     return err, {"serving": (B, serving), "multikey": (MK_B, multikey)}
 
 
+def check_grad(rng, name: str, batch: int, slots: int, dim: int, lengths,
+               npad: int, use_cvm: bool, cvm_offset: int):
+    """Backward kernel vs plain, bit for bit. Returns the inputs."""
+    segs, n = segment_layout(batch, slots, lengths, npad)
+    width = dim if use_cvm else dim - cvm_offset
+    g = torch.from_numpy(rng.normal(size=(batch, slots, width)).astype(
+        np.float32)).cuda()
+    cvm = torch.from_numpy(rng.integers(0, 3, size=(batch, cvm_offset))
+                           .astype(np.float32)).cuda()
+    segs = torch.from_numpy(segs).cuda()
+    got = seqpool_cvm_grad_cuda(g, segs, cvm, batch, slots, use_cvm,
+                                cvm_offset)
+    torch.cuda.synchronize()
+    want = seqpool_cvm_grad_plain(g, segs, cvm, batch, slots, use_cvm,
+                                  cvm_offset)
+    require(got.shape == want.shape == (npad, dim),
+            f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    require(torch.equal(got, want),
+            f"{name}: backward kernel vs plain max abs err {err}")
+    print(f"kernel check {GRAD} {name}: B={batch} S={slots} D={dim} "
+          f"Npad={npad} keys={n} use_cvm={use_cvm} cvm_offset={cvm_offset} "
+          "bit-exact ok")
+    return g, segs, cvm
+
+
+def phase_kernel_grad(rng):
+    """Backward kernel vs plain at the training shape and edge shapes.
+    Returns the largest error (0: bit-exact) and the training inputs."""
+    train = check_grad(rng, "training", TB, TS, D, rng.integers(
+        1, 4, size=TB * TS), TNPAD, True, 2)
+    few = rng.integers(0, 4, size=64 * S) * (rng.uniform(size=64 * S) < 0.5)
+    full = rng.integers(1, 4, size=64 * S)
+    cases = [
+        ("no-cvm", TB, TS, D, rng.integers(1, 4, size=TB * TS), TNPAD,
+         False, 3),
+        ("cvm-offset-3", 256, TS, D, rng.integers(1, 4, size=256 * TS),
+         16384, True, 3),
+        ("empty-segments", 64, S, D, few, 1024, True, 2),
+        ("no-padding", 64, S, D, full, int(full.sum()), True, 2),
+        ("all-padding", 16, S, D, np.zeros(16 * S, np.int64), 1024, True, 2),
+        ("no-keys", 4, 3, D, np.zeros(12, np.int64), 0, True, 2),
+        ("d67", 64, S, 67, rng.integers(0, 4, size=64 * S), 8192, True, 2),
+    ]
+    for case in cases:
+        check_grad(rng, *case)
+    return 0.0, train
+
+
+def push_table(rng, conf: TableConfig, vocab: int, upad_min: int):
+    """A card table of ``vocab`` prepopulated rows whose show/clk straddle
+    the embedx threshold and whose optimizer state is warm."""
+    table = DeviceTable(conf, capacity=vocab + 1, device="cuda",
+                        uniq_buckets=BucketSpec(min_size=upad_min,
+                                                max_size=1 << 18))
+    table.prepopulate(vocab)
+    top = max(2 * conf.embedx_threshold, 4.0)
+    show = torch.randint(0, int(top), (vocab,), device="cuda").float()
+    table.values[1:, 0] = show
+    table.values[1:, 1] = torch.floor(show * 0.3)
+    st = table.state[1:]
+    if conf.optimizer == "adagrad":
+        st.uniform_(0.0, 2.0)
+    elif conf.optimizer == "adam":
+        st.uniform_(0.0, 0.1)
+        for gi in range(len(table.layout.groups)):
+            t_col = int(table.layout.state_offsets[gi])
+            st[:, t_col] = torch.randint(0, 5, (vocab,),
+                                         device="cuda").float()
+    return table
+
+
+def check_push(rng, name: str, conf: TableConfig, vocab: int, npad: int,
+               n_keys: int, hot: int = 0, unknown: int = 0,
+               upad_min: int = 1024):
+    """Push kernel vs plain on one batch: ``n_keys`` keys uniform over the
+    table, ``hot`` more copies of one key, ``unknown`` keys absent from it
+    (they map to the null row), padding keys 0. Returns the largest error
+    off show/clk and the inputs."""
+    table = push_table(rng, conf, vocab, upad_min)
+    keys = np.zeros(npad, np.uint64)
+    keys[:n_keys] = rng.integers(1, vocab + 1, size=n_keys)
+    if hot:
+        keys[rng.choice(n_keys, size=hot, replace=False)] = 1 + vocab // 2
+    if unknown:
+        keys[rng.choice(n_keys, size=unknown, replace=False)] = \
+            vocab + 1 + rng.integers(0, 1000, size=unknown)
+    idx = table.prepare_batch(keys, create=False)
+    # grads at the scale of a training step's (a mean loss over B=2048)
+    demb = (rng.normal(size=(npad, table.dim)) * 0.01).astype(np.float32)
+    demb[:, 0] = 1.0
+    demb[:, 1] = rng.integers(0, 2, size=npad)
+    demb[n_keys:] = 0.0
+    demb = torch.from_numpy(demb).cuda()
+    inv = torch.from_numpy(idx.inverse).cuda()
+    urows = torch.from_numpy(idx.uniq_rows).cuda()
+    umask = torch.from_numpy(idx.uniq_mask).cuda()
+    layout = table.layout
+    v1, s1 = table.values.clone(), table.state.clone()
+    v2, s2 = table.values.clone(), table.state.clone()
+    sparse_push_cuda(layout, v1, s1, demb, inv, urows, umask)
+    torch.cuda.synchronize()
+    sparse_push_plain(layout, v2, s2, demb, inv, urows, umask)
+    require(torch.equal(v1[:, :2], v2[:, :2]),
+            f"{name}: show/clk differ between the push kernel and plain")
+    require(torch.equal(v1[0], table.values[0]) and
+            torch.equal(s1[0], table.state[0]), f"{name}: null row written")
+    err = max(float((v1 - v2).abs().max()), float((s1 - s2).abs().max()))
+    require(err <= PUSH_ATOL, f"{name}: push kernel vs plain max abs err "
+                              f"{err} > {PUSH_ATOL}")
+    live = umask > 0
+    rows = urows[live].long()
+    old_show = table.values[rows, 0]
+    crossed = int(((old_show < conf.embedx_threshold) &
+                   (v1[rows, 0] >= conf.embedx_threshold)).sum())
+    changed = int((v1[rows, 2:] != table.values[rows, 2:]).any(1).sum())
+    print(f"kernel check {PUSH} {name}: {conf.optimizer} D={table.dim} "
+          f"state={table.state.shape[1]} Npad={npad} keys={n_keys} "
+          f"uniques={int(live.sum())}/{idx.num_uniq} rows crossing the "
+          f"threshold={crossed} rows trained={changed} "
+          f"max_abs_err={err:.3e} ok")
+    return err, (layout, table.values, table.state, demb, inv, urows, umask)
+
+
+def phase_kernel_push(rng):
+    """Push kernel vs plain at the training shape with each optimizer, and
+    at edge shapes. Returns the largest error and the adagrad training
+    inputs."""
+    n_train = TB * TS * 2  # 1-3 keys a slot
+    err, train = 0.0, None
+    for opt in ("adagrad", "sgd", "adam"):
+        conf = TableConfig(embedx_dim=8, cvm_offset=3, embedx_threshold=10.0,
+                           optimizer=opt, seed=7)
+        e, inputs = check_push(rng, f"training-{opt}", conf, HOT_VOCAB,
+                               TNPAD, n_train, hot=500, unknown=50,
+                               upad_min=TNPAD)
+        err = max(err, e)
+        if opt == "adagrad":
+            train = inputs
+    cases = [
+        ("all-padding", TableConfig(embedx_threshold=10.0), 4096, 1024, 0),
+        ("one-key", TableConfig(embedx_threshold=10.0), 4096, 1024, 1000),
+        ("threshold-0", TableConfig(embedx_threshold=0.0), 4096, 2048, 1500),
+        ("no-embed-w-expand", TableConfig(cvm_offset=2, expand_dim=4,
+                                          optimizer="adam",
+                                          embedx_threshold=10.0),
+         4096, 2048, 1500),
+        ("d67-adagrad", TableConfig(embedx_dim=64, embedx_threshold=10.0),
+         4096, 2048, 1500),
+        ("d67-adam", TableConfig(embedx_dim=64, optimizer="adam",
+                                 embedx_threshold=10.0), 4096, 2048, 1500),
+    ]
+    for name, conf, vocab, npad, n in cases:
+        hot = n - 1 if name == "one-key" else 0
+        e, _ = check_push(rng, name, conf, vocab, npad, n, hot=hot)
+        err = max(err, e)
+    return err, train
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 def random_deepfm(rng, in_dim: int):
@@ -390,45 +607,185 @@ def phase_serve(rng, seed: int) -> int:
     print(f"timing serve: {secs / (reps * len(batches)) * 1e3:.4f} ms/batch, "
           f"{n_rows / secs:.1f} examples/s (B={B}, predict_batch incl. pull, "
           "host copies)")
-    device_profile(lambda: [pred.predict_batch(b) for b in batches])
+    device_profile("serve", lambda: [pred.predict_batch(b) for b in batches])
     return launches
 
 
 # -- phase 4 -----------------------------------------------------------------
 
+def make_train_batches(rng, n: int):
+    """``bench.py``'s batches: B=2048 rows of 24 slots with 1-3 keys each,
+    keys uniform over the prepopulated table, random labels."""
+    out = []
+    for _ in range(n):
+        lengths = rng.integers(1, 4, size=TB * TS)
+        segs, nk = segment_layout(TB, TS, lengths, TNPAD)
+        keys = np.zeros(TNPAD, dtype=np.uint64)
+        keys[:nk] = rng.integers(1, HOT_VOCAB, size=nk)
+        labels = rng.integers(0, 2, size=TB).astype(np.float32)
+        out.append((keys, segs, labels))
+    return out
+
+
+def train_steps(fs, state, batches):
+    """Run ``fs`` over ``batches``; returns the new (params, opt, auc) and
+    the losses (device scalars)."""
+    dense = np.zeros((TB, 0), np.float32)
+    row_mask = np.ones(TB, np.float32)
+    params, opt, auc = state
+    losses = []
+    for keys, segs, labels in batches:
+        cvm = np.stack([np.ones(TB, np.float32), labels], axis=1)
+        params, opt, auc, loss, _ = fs(params, opt, auc, keys, segs, cvm,
+                                       labels, dense, row_mask)
+        losses.append(loss)
+    return (params, opt, auc), losses
+
+
+def phase_train(rng) -> dict:
+    conf = TableConfig(embedx_dim=8, cvm_offset=3, embedx_threshold=0.0,
+                       seed=7)
+    tconf = TrainerConfig(dense_optimizer="adam", dense_learning_rate=1e-3)
+    buckets = BucketSpec(min_size=TNPAD, max_size=1 << 18)
+    t0 = time.perf_counter()
+    table = DeviceTable(conf, capacity=HOT_VOCAB + 1, uniq_buckets=buckets,
+                        device="cuda")
+    table.prepopulate(HOT_VOCAB)
+    model = random_deepfm(rng, TS * conf.pull_dim)
+    batches = make_train_batches(rng, TRAIN_STEPS)
+    # the CPU twin starts from the same arena and weights
+    cpu_table = DeviceTable(conf, capacity=1, uniq_buckets=buckets,
+                            device="cpu")
+    cpu_table.load_arena(table.values.cpu().numpy(),
+                         table.state.cpu().numpy(), table.row_keys())
+    cpu_model = copy.deepcopy(model)
+    fs = FusedTrainStep(model, table, tconf, TB, TS)
+    state = (*fs.init(), fs.init_auc_state())
+    torch.cuda.synchronize()
+    print(f"train: table of {len(table)} rows ({table.memory_bytes()} B on "
+          f"the card) + model + {len(batches)} batches + CPU twin "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # the main path, counted
+    wrappers = (seqpool_cvm_cuda, seqpool_cvm_grad_cuda, sparse_push_cuda)
+    for w in wrappers:
+        w.launches = 0
+    state, losses = train_steps(fs, state, batches[:CPU_STEPS])
+    touched = np.unique(np.concatenate([
+        table.prepare_batch(k, create=False).uniq_rows
+        for k, _, _ in batches[:CPU_STEPS]]))
+    touched = torch.from_numpy(touched[touched > 0].astype(np.int64))
+    after = (table.values[touched.cuda()].cpu(),
+             table.state[touched.cuda()].cpu(),
+             [p.detach().cpu().clone() for p in state[0].parameters()])
+    state, more = train_steps(fs, state, batches[CPU_STEPS:])
+    losses += more
+    launches = {w.__name__: w.launches for w in wrappers}
+    for name, n in launches.items():
+        require(n == TRAIN_STEPS, f"train: {name} launched {n} times in "
+                                  f"{TRAIN_STEPS} steps")
+    losses = [float(x) for x in losses]
+    require(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+    require(not bool(fs.bad_flag), "train: the numeric sentinel tripped")
+    print(f"train: {TRAIN_STEPS} steps, launches {launches}, losses "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+
+    # the same 2 steps on the CPU
+    cfs = FusedTrainStep(cpu_model, cpu_table, tconf, TB, TS)
+    _, cpu_losses = train_steps(cfs, (*cfs.init(), cfs.init_auc_state()),
+                                batches[:CPU_STEPS])
+    cpu_losses = [float(x) for x in cpu_losses]
+    require(np.allclose(losses[:CPU_STEPS], cpu_losses, rtol=TRAIN_RTOL,
+                        atol=0), f"train: losses card {losses[:CPU_STEPS]} "
+                                 f"vs CPU {cpu_losses}")
+    vals, st, params = after
+    cvals, cst = cpu_table.values[touched], cpu_table.state[touched]
+    require(torch.equal(vals[:, :2], cvals[:, :2]),
+            "train: show/clk of touched rows differ between card and CPU")
+    row_err = max(float((vals - cvals).abs().max()),
+                  float((st - cst).abs().max()))
+    dense_err = max(float((a - b.detach()).abs().max())
+                    for a, b in zip(params, cpu_model.parameters()))
+    require(row_err <= TRAIN_ATOL, f"train: table rows card vs CPU {row_err}")
+    require(dense_err <= TRAIN_ATOL,
+            f"train: dense params card vs CPU {dense_err}")
+    print(f"train: card vs CPU over {CPU_STEPS} steps: losses {losses[:2]} "
+          f"vs {cpu_losses}, {touched.numel()} touched rows (show/clk "
+          f"exact, max abs err {row_err:.3e}), dense max abs err "
+          f"{dense_err:.3e}")
+
+    t0 = time.perf_counter()
+    for keys, _, _ in batches:
+        table.prepare_batch(keys, create=False)
+    prep_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = train_steps(fs, state, batches)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ms = secs / len(batches) * 1e3
+    print(f"timing train: {ms:.4f} ms/step, {TB * len(batches) / secs:.1f} "
+          f"examples/s (B={TB}, FusedTrainStep.__call__ incl. host "
+          f"prepare_batch {prep_ms:.4f} ms/step and uploads)")
+    device_profile("train, 4 steps",
+                   lambda: train_steps(fs, state, batches[:4]),
+                   kernels=(KERNEL, PUSH))
+    return {"launches": launches, "ms_per_step": ms,
+            "examples_per_s": TB * len(batches) / secs,
+            "prepare_batch_ms": prep_ms}
+
+
+# -- phase 5 -----------------------------------------------------------------
+
+def timed(kernel, plain, library) -> dict:
+    """Kernel, plain and library call, per call and in a CUDA graph."""
+    return {"ms": cuda_ms(kernel, ITERS), "plain_ms": cuda_ms(plain, ITERS),
+            "library_ms": cuda_ms(library, ITERS),
+            "graph_ms": graph_ms(kernel), "plain_graph_ms": graph_ms(plain),
+            "library_graph_ms": graph_ms(library)}
+
+
+def with_bound(t: dict, nbytes: int, ops: int) -> dict:
+    """Add the least time the card could take: the larger of the bytes
+    over HBM bandwidth and the operations over the float32 rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    t["bound_ms"] = max(bytes_ms, ops_ms)
+    t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    t["bound_bytes"] = nbytes
+    return t
+
+
+def print_timing(name: str, tag: str, shape: str, library: str,
+                 t: dict) -> None:
+    print(f"timing {name} {tag} ({shape}): per call: kernel {t['ms']:.5f} "
+          f"ms, plain {t['plain_ms']:.5f} ms, {library} "
+          f"{t['library_ms']:.5f} ms; bound {t['bound_ms']:.6f} ms "
+          f"({t['bound_bytes']} bytes)")
+    print(f"timing {name} {tag} in a CUDA graph (device time, no launch "
+          f"gaps): kernel {t['graph_ms']:.5f} ms "
+          f"({100 * t['bound_ms'] / t['graph_ms']:.1f}% of bound), plain "
+          f"{t['plain_graph_ms']:.5f} ms, {library} "
+          f"{t['library_graph_ms']:.5f} ms")
+
+
 def time_shape(tag: str, batch: int, inputs) -> dict:
-    """Kernel, plain and ``segment_reduce`` per call and in a CUDA graph,
-    beside the kernel's bound, at one shape."""
+    """Forward kernel, plain and ``segment_reduce`` at one shape."""
     emb, segs, n = inputs
-    kernel = lambda: seqpool_cvm_cuda(emb, segs, batch, S, True, 2, 0.0)
-    plain = lambda: seqpool_cvm_plain(emb, segs, batch, S, True, 2, 0.0)
     seg_lengths = torch.bincount(segs[:n].long(), minlength=batch * S)
     valid = emb[:n]
-    library = lambda: torch.segment_reduce(valid, "sum", lengths=seg_lengths,
-                                           unsafe=True)
-    t = {"ms": cuda_ms(kernel, ITERS), "plain_ms": cuda_ms(plain, ITERS),
-         "library_ms": cuda_ms(library, ITERS), "graph_ms": graph_ms(kernel),
-         "plain_graph_ms": graph_ms(plain),
-         "library_graph_ms": graph_ms(library)}
+    t = timed(lambda: seqpool_cvm_cuda(emb, segs, batch, S, True, 2, 0.0),
+              lambda: seqpool_cvm_plain(emb, segs, batch, S, True, 2, 0.0),
+              lambda: torch.segment_reduce(valid, "sum", lengths=seg_lengths,
+                                           unsafe=True))
     # the kernel must load the rows and ids of the n valid keys (padding
     # rows are not needed) and write the whole output once
     dim = emb.shape[1]
     nbytes = n * dim * 4 + n * 4 + batch * S * dim * 4
     ops = n * dim + batch * S * 4  # adds over the keys, +pad, 2 logs, 1 sub
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    t["bound_ms"] = max(bytes_ms, ops_ms)
-    t["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"timing seqpool_cvm {tag} (B={batch} S={S} D={dim} "
-          f"Npad={emb.shape[0]} keys={n}): per call: kernel {t['ms']:.5f} "
-          f"ms, plain {t['plain_ms']:.5f} ms, segment_reduce "
-          f"{t['library_ms']:.5f} ms; bound {t['bound_ms']:.6f} ms "
-          f"({nbytes} bytes)")
-    print(f"timing seqpool_cvm {tag} in a CUDA graph (device time, no launch "
-          f"gaps): kernel {t['graph_ms']:.5f} ms "
-          f"({100 * t['bound_ms'] / t['graph_ms']:.1f}% of bound), plain "
-          f"{t['plain_graph_ms']:.5f} ms, segment_reduce "
-          f"{t['library_graph_ms']:.5f} ms")
+    with_bound(t, nbytes, ops)
+    print_timing(KERNEL, tag, f"B={batch} S={S} D={dim} Npad={emb.shape[0]} "
+                 f"keys={n}", "segment_reduce", t)
     return t
 
 
@@ -442,6 +799,64 @@ def phase_timing(shapes: dict) -> dict:
     return row
 
 
+def time_grad(inputs) -> dict:
+    """Backward kernel at the training shape. Library yardstick:
+    ``index_select`` of the zero-padded tail of g by segment id, which
+    computes the non-CVM columns only."""
+    g, segs, cvm = inputs
+    off = cvm.shape[1]
+    tail = torch.cat([g.reshape(TB * TS, -1)[:, off:],
+                      g.new_zeros((1, g.shape[-1] - off))])
+    t = timed(lambda: seqpool_cvm_grad_cuda(g, segs, cvm, TB, TS, True, off),
+              lambda: seqpool_cvm_grad_plain(g, segs, cvm, TB, TS, True, off),
+              lambda: torch.index_select(tail, 0, segs))
+    # write d_emb once; read the ids, the tail columns of g and cvm_in once
+    npad, dim = segs.shape[0], g.shape[-1]
+    nbytes = npad * dim * 4 + npad * 4 + TB * TS * (dim - off) * 4 + \
+        cvm.numel() * 4
+    with_bound(t, nbytes, 0)
+    print_timing(GRAD, "training", f"B={TB} S={TS} D={dim} Npad={npad}",
+                 "index_select", t)
+    return t
+
+
+def time_push(inputs) -> dict:
+    """Push at the training shape (adagrad), the wrapper's sort of
+    ``inverse`` included; the sort alone is timed beside it. Library
+    yardstick: ``index_add_`` of demb into [Upad, D], the merge only.
+    Each call trains the arena copies further; the work per call stays."""
+    layout, values, state, demb, inv, urows, umask = inputs
+    pv, ps = values.clone(), state.clone()
+    merged = torch.zeros((urows.shape[0], demb.shape[1]), device="cuda")
+    inv_l = inv.long()
+    t = timed(lambda: sparse_push_cuda(layout, values, state, demb, inv,
+                                       urows, umask),
+              lambda: sparse_push_plain(layout, pv, ps, demb, inv, urows,
+                                        umask),
+              lambda: merged.index_add_(0, inv_l, demb))
+    t["sort_ms"] = cuda_ms(lambda: merge_order(inv, urows.shape[0]), ITERS)
+    t["sort_graph_ms"] = graph_ms(lambda: merge_order(inv, urows.shape[0]))
+    # read the grads of the keys of live uniques (the others are never
+    # read), inverse, uniq_rows and uniq_mask once; read and write the
+    # value and state rows of the live uniques once
+    npad, dim = demb.shape
+    live = int((umask > 0).sum())
+    live_keys = int((umask[inv_l] > 0).sum())
+    sd = max(layout.state_dim, 1)
+    nbytes = live_keys * dim * 4 + npad * 4 + urows.shape[0] * 8 + \
+        live * (dim + sd) * 4 * 2
+    # merge adds, show/clk, and ~6 operations a trained column
+    ops = live_keys * dim + live * (2 + 6 * (dim - 2))
+    with_bound(t, nbytes, ops)
+    print_timing(PUSH, "training", f"Npad={npad} D={dim} Upad="
+                 f"{urows.shape[0]} live={live} {layout.conf.optimizer}",
+                 "index_add_", t)
+    print(f"timing {PUSH} training: its sort of inverse, per call "
+          f"{t['sort_ms']:.5f} ms, in a CUDA graph {t['sort_graph_ms']:.5f} "
+          "ms (included in the kernel's times)")
+    return t
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -452,22 +867,47 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
     try:
         phase_build()
         err, shapes = phase_kernel(rng)
-        launches = phase_serve(rng, args.seed)
+        grad_err, grad_inputs = phase_kernel_grad(rng)
+        push_err, push_inputs = phase_kernel_push(rng)
+        serve_launches = phase_serve(rng, args.seed)
+        train = phase_train(rng)
         timing = phase_timing(shapes)
+        grad_timing = time_grad(grad_inputs)
+        push_timing = time_push(push_inputs)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(f"chip_smoke: all phases {time.perf_counter() - t_start:.1f} s; "
+          f"train {train['ms_per_step']:.4f} ms/step, "
+          f"{train['examples_per_s']:.1f} examples/s")
     print(smi.stdout.strip())
-    row = {"name": KERNEL, "route": "cuda",
-           "source": "paddlebox_tpu_torch/csrc/seqpool_cvm.cu",
-           "replaces": "paddlebox_tpu/ops/pallas_seqpool.py:123",
-           "launches": launches, "max_abs_err": err, **timing}
-    print(json.dumps({"kernels": [row]}))
+    launches = train["launches"]
+    fwd_train = launches[seqpool_cvm_cuda.__name__]
+    rows = [
+        {"name": KERNEL, "route": "cuda",
+         "source": "paddlebox_tpu_torch/csrc/seqpool_cvm.cu",
+         "replaces": "paddlebox_tpu/ops/pallas_seqpool.py:123",
+         "launches": serve_launches + fwd_train,
+         "launches_by_path": {"serve": serve_launches, "train": fwd_train},
+         "max_abs_err": err, **timing},
+        {"name": GRAD, "route": "cuda",
+         "source": "paddlebox_tpu_torch/csrc/seqpool_cvm_grad.cu",
+         "replaces": "paddlebox_tpu/ops/seqpool_cvm.py:109",
+         "launches": launches[seqpool_cvm_grad_cuda.__name__],
+         "max_abs_err": grad_err, **grad_timing},
+        {"name": PUSH, "route": "cuda",
+         "source": "paddlebox_tpu_torch/csrc/sparse_push.cu",
+         "replaces": "paddlebox_tpu/ps/device_table.py:189",
+         "launches": launches[sparse_push_cuda.__name__],
+         "max_abs_err": push_err, **push_timing},
+    ]
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

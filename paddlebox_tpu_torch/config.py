@@ -1,7 +1,8 @@
 """Typed configuration objects (counterpart of ``paddlebox_tpu/config.py``).
 
-The port's own copy of the dataclasses the serving path reads:
-``SlotConfig``, ``DataFeedConfig``, ``TableConfig`` and ``BucketSpec``.
+The port's own copy of the dataclasses the serving and training paths
+read: ``SlotConfig``, ``DataFeedConfig``, ``TableConfig``,
+``TrainerConfig`` and ``BucketSpec``.
 Field names and defaults match the reference, so a bundle's ``model.json``
 written by either package loads in the other. The port has no flag
 registry yet: ``batch_bucket_spec`` uses the reference flag default as a
@@ -113,6 +114,32 @@ class TableConfig:
     def pull_dim(self) -> int:
         """Width of one pulled value."""
         return self.cvm_offset + self.embedx_dim + self.expand_dim
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    """Dense-side training settings (the reference's ``TrainerConfig``)."""
+
+    # dense optimizer, in optax's math: "adam" | "adamw" | "sgd" | "adagrad"
+    # ("lars" and "lamb" are not ported yet)
+    dense_optimizer: str = "adam"
+    dense_learning_rate: float = 1e-3
+    # weight decay for lars/lamb/adamw (others ignore it)
+    dense_weight_decay: float = 0.0
+    # sync dense params every k steps (0 = every step)
+    dense_sync_steps: int = 0
+    # use bf16 for dense compute
+    bf16: bool = False
+    # accumulate k micro-batches before one optimizer update; 0/1 = off
+    grad_merge_steps: int = 0
+    # rematerialize the dense tower on backward
+    recompute: bool = False
+    # names of metric phases to compute
+    metrics: List[str] = dataclasses.field(default_factory=lambda: ["auc"])
+    # number of data-parallel devices (0 = all visible)
+    num_devices: int = 0
+    # profiler on/off
+    profile: bool = False
 
 
 @dataclasses.dataclass

@@ -36,6 +36,12 @@ class CsrBatch:
     num_rows: int             # real instances (<= batch_size; rest is padding)
     search_ids: Optional[np.ndarray] = None
 
+    def row_mask(self) -> np.ndarray:
+        """[B] float32: 1.0 for the real instances, 0.0 for padding rows."""
+        m = np.zeros(self.batch_size, dtype=np.float32)
+        m[:self.num_rows] = 1.0
+        return m
+
 
 class BatchAssembler:
     """Builds fixed-shape CsrBatches from SlotRecords."""

@@ -1,11 +1,13 @@
-"""Carry DeepFM weights between the flax leaf list and the torch module.
+"""Carry DeepFM and Wide&Deep weights between the flax leaf list and the
+torch module.
 
 The reference stores dense params as the flat leaf list of its flax pytree
 (``dense.npz``, keys ``leaf_%05d``), in ``jax.tree_util`` order: dict keys
 sorted as strings. For DeepFM that is ``MLP_0/Dense_i/{bias, kernel}`` for
 each layer ``i`` in the string order of ``Dense_<i>``, then the scalar
-``bias``. flax kernels are ``[in, out]``; ``nn.Linear.weight`` is
-``[out, in]``.
+``bias``; for Wide&Deep ``deep/Dense_i/{bias, kernel}``, then
+``wide/{bias, kernel}``. flax kernels are ``[in, out]``;
+``nn.Linear.weight`` is ``[out, in]``.
 """
 
 from __future__ import annotations
@@ -15,12 +17,32 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from torch import nn
+
 from paddlebox_tpu_torch.models.deepfm import DeepFM
+from paddlebox_tpu_torch.models.wide_deep import WideDeep
 
 
 def _layer_order(n_layers: int) -> List[int]:
     # Dense_10 sorts before Dense_2 in the pytree's key order
     return sorted(range(n_layers), key=lambda i: f"Dense_{i}")
+
+
+def _set_linear(layer: nn.Linear, kernel: np.ndarray, bias: np.ndarray,
+                name: str) -> None:
+    want = (layer.out_features, layer.in_features)
+    if kernel.shape[::-1] != want or bias.shape != (layer.out_features,):
+        raise ValueError(f"{name}: kernel {kernel.shape} / bias {bias.shape} "
+                         f"do not fit Linear{want[::-1]}")
+    with torch.no_grad():
+        layer.weight.copy_(torch.from_numpy(np.array(kernel.T,
+                                                     dtype=np.float32)))
+        layer.bias.copy_(torch.from_numpy(np.array(bias, dtype=np.float32)))
+
+
+def _linear_leaves(layer: nn.Linear) -> List[np.ndarray]:
+    return [layer.bias.detach().cpu().numpy().copy(),
+            layer.weight.detach().cpu().numpy().T.copy()]
 
 
 def deepfm_from_flax_leaves(leaves: Sequence[np.ndarray],
@@ -31,23 +53,12 @@ def deepfm_from_flax_leaves(leaves: Sequence[np.ndarray],
     if len(leaves) != 2 * n_layers + 1:
         raise ValueError(f"DeepFM with hidden={tuple(hidden)} has "
                          f"{2 * n_layers + 1} leaves, got {len(leaves)}")
-    order = _layer_order(n_layers)
-    kernels = {}
-    biases = {}
-    for j, i in enumerate(order):
-        biases[i] = np.array(leaves[2 * j], dtype=np.float32)
-        kernels[i] = np.array(leaves[2 * j + 1], dtype=np.float32)
-    model = DeepFM(kernels[0].shape[0], hidden, cvm_offset)
+    layers = {i: (np.asarray(leaves[2 * j + 1]), np.asarray(leaves[2 * j]))
+              for j, i in enumerate(_layer_order(n_layers))}
+    model = DeepFM(layers[0][0].shape[0], hidden, cvm_offset)
+    for i, layer in enumerate(model.mlp.layers):
+        _set_linear(layer, *layers[i], f"Dense_{i}")
     with torch.no_grad():
-        for i, layer in enumerate(model.mlp.layers):
-            want = (layer.out_features, layer.in_features)
-            if kernels[i].shape[::-1] != want or \
-                    biases[i].shape != (layer.out_features,):
-                raise ValueError(
-                    f"Dense_{i}: kernel {kernels[i].shape} / bias "
-                    f"{biases[i].shape} do not fit Linear{want[::-1]}")
-            layer.weight.copy_(torch.from_numpy(kernels[i].T.copy()))
-            layer.bias.copy_(torch.from_numpy(biases[i]))
         model.bias.copy_(torch.tensor(np.asarray(leaves[-1])))
     return model
 
@@ -57,7 +68,32 @@ def flax_leaves_from_deepfm(model: DeepFM) -> List[np.ndarray]:
     layers = model.mlp.layers
     out: List[np.ndarray] = []
     for i in _layer_order(len(layers)):
-        out.append(layers[i].bias.detach().cpu().numpy().copy())
-        out.append(layers[i].weight.detach().cpu().numpy().T.copy())
+        out += _linear_leaves(layers[i])
     out.append(model.bias.detach().cpu().numpy().copy())
     return out
+
+
+def widedeep_from_flax_leaves(leaves: Sequence[np.ndarray],
+                              hidden: Sequence[int]) -> WideDeep:
+    """A CPU ``WideDeep`` holding the weights of the flax leaf list."""
+    n_layers = len(hidden) + 1
+    if len(leaves) != 2 * n_layers + 2:
+        raise ValueError(f"WideDeep with hidden={tuple(hidden)} has "
+                         f"{2 * n_layers + 2} leaves, got {len(leaves)}")
+    deep = {i: (np.asarray(leaves[2 * j + 1]), np.asarray(leaves[2 * j]))
+            for j, i in enumerate(_layer_order(n_layers))}
+    wide_bias, wide_kernel = (np.asarray(x) for x in leaves[-2:])
+    model = WideDeep(wide_kernel.shape[0], hidden)
+    for i, layer in enumerate(model.deep.layers):
+        _set_linear(layer, *deep[i], f"deep/Dense_{i}")
+    _set_linear(model.wide, wide_kernel, wide_bias, "wide")
+    return model
+
+
+def flax_leaves_from_widedeep(model: WideDeep) -> List[np.ndarray]:
+    """The flax leaf list (host float32 arrays) of ``model``'s weights."""
+    layers = model.deep.layers
+    out: List[np.ndarray] = []
+    for i in _layer_order(len(layers)):
+        out += _linear_leaves(layers[i])
+    return out + _linear_leaves(model.wide)

@@ -1,0 +1,29 @@
+"""Wide&Deep over pooled slot embeddings
+(counterpart of ``paddlebox_tpu/models/wide_deep.py``).
+
+``wide`` is one ``Linear`` to a logit over the flattened inputs, ``deep``
+an ``MLP`` over the same; the logit is their sum.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from paddlebox_tpu_torch.models.base import MLP, CTRModel
+
+
+class WideDeep(CTRModel):
+    def __init__(self, in_dim: int, hidden: Sequence[int] = (256, 128, 64)):
+        super().__init__()
+        self.in_dim = in_dim
+        self.hidden = tuple(hidden)
+        self.wide = nn.Linear(in_dim, 1)
+        self.deep = MLP(in_dim, self.hidden, 1)
+
+    def forward(self, sparse: torch.Tensor,
+                dense: Optional[torch.Tensor] = None) -> torch.Tensor:
+        flat = self.flatten_inputs(sparse.float(), dense)
+        return self.wide(flat)[:, 0] + self.deep(flat)[:, 0]

@@ -11,8 +11,14 @@ before the pool.
 The default variant goes to ``ops.seqpool_kernel.seqpool_cvm`` (the CUDA
 kernel on the card); the filter and quant variants are plain PyTorch on
 every device, as they are XLA code and not a TPU kernel in the reference.
-The backward (the gather that carries ``cvm_in`` into the show/clk grad
-columns) comes with the training path.
+
+The backward is the reference's straight-through rule (``_bwd``), not the
+derivative of the forward: every key of (b, s) takes the pooled output's
+grad, except that columns < cvm_offset carry the instance's ``cvm_in``
+(the channel by which show/clk counts reach the push) and padding keys get
+zero rows. The derivative of the CVM log columns is discarded, and the
+filter and quant options do not change the backward. It runs
+``ops.seqpool_kernel.seqpool_cvm_grad`` (the CUDA kernel on the card).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from paddlebox_tpu_torch.ops.seqpool_kernel import (seqpool_cvm,
+                                                    seqpool_cvm_grad,
                                                     seqpool_cvm_plain)
 
 
@@ -38,6 +45,15 @@ def fused_seqpool_cvm(emb: torch.Tensor, segment_ids: torch.Tensor,
         raise ValueError(
             f"cvm_in width {cvm_in.shape[-1]} != cvm_offset {cvm_offset}; "
             "the backward pass writes cvm_in into grad columns <cvm_offset")
+    return _FusedSeqpoolCvm.apply(
+        emb, segment_ids, cvm_in, batch_size, num_slots, use_cvm, cvm_offset,
+        pad_value, need_filter, show_coeff, clk_coeff, threshold,
+        embed_threshold, quant_ratio)
+
+
+def _forward(emb, segment_ids, batch_size, num_slots, use_cvm, cvm_offset,
+             pad_value, need_filter, show_coeff, clk_coeff, threshold,
+             embed_threshold, quant_ratio):
     if not need_filter and quant_ratio <= 0:
         return seqpool_cvm(emb, segment_ids, batch_size, num_slots, use_cvm,
                            cvm_offset, pad_value)
@@ -58,3 +74,23 @@ def fused_seqpool_cvm(emb: torch.Tensor, segment_ids: torch.Tensor,
         x = torch.cat([x[:, :cvm_offset], tail], dim=-1)
     return seqpool_cvm_plain(x, segment_ids, batch_size, num_slots, use_cvm,
                              cvm_offset, pad_value)
+
+
+class _FusedSeqpoolCvm(torch.autograd.Function):
+    """The forward above with the straight-through backward."""
+
+    @staticmethod
+    def forward(ctx, emb, segment_ids, cvm_in, batch_size, num_slots,
+                use_cvm, cvm_offset, pad_value, need_filter, show_coeff,
+                clk_coeff, threshold, embed_threshold, quant_ratio):
+        ctx.save_for_backward(segment_ids, cvm_in)
+        ctx.dims = (batch_size, num_slots, use_cvm, cvm_offset)
+        return _forward(emb, segment_ids, batch_size, num_slots, use_cvm,
+                        cvm_offset, pad_value, need_filter, show_coeff,
+                        clk_coeff, threshold, embed_threshold, quant_ratio)
+
+    @staticmethod
+    def backward(ctx, g):
+        segment_ids, cvm_in = ctx.saved_tensors
+        d_emb = seqpool_cvm_grad(g, segment_ids, cvm_in, *ctx.dims)
+        return (d_emb,) + (None,) * 13

@@ -1,10 +1,12 @@
-"""Seqpool+CVM forward: the CUDA kernel and its plain version.
+"""Seqpool+CVM forward and backward: the CUDA kernels and their plain
+versions.
 
 Counterpart of ``paddlebox_tpu/ops/pallas_seqpool.py``
-(``pallas_seqpool_cvm``, the TPU kernel). ``seqpool_cvm`` takes the plain
-version for a tensor on the CPU and the hand-written kernel
-(``csrc/seqpool_cvm.cu``) for a tensor on the card; there is no fallback
-between the two.
+(``pallas_seqpool_cvm``, the TPU kernel, and the gather backward its
+custom_vjp shares with ``ops/seqpool_cvm.py``). ``seqpool_cvm`` and
+``seqpool_cvm_grad`` take the plain version for a tensor on the CPU and the
+hand-written kernel (``csrc/seqpool_cvm.cu``, ``csrc/seqpool_cvm_grad.cu``)
+for a tensor on the card; there is no fallback between the two.
 
 Shapes: ``emb [Npad, D]`` float32, ``segment_ids [Npad]`` int32 in
 ``[0, B*S]`` (``B*S`` marks padding keys, which are discarded) ->
@@ -135,3 +137,112 @@ def seqpool_cvm(emb: torch.Tensor, segment_ids: torch.Tensor,
         raise ValueError(f"seqpool_cvm: unsupported device {emb.device}")
     return seqpool_cvm_plain(emb, segment_ids, batch_size, num_slots,
                              use_cvm, cvm_offset, pad_value)
+
+
+# -- backward -----------------------------------------------------------------
+#
+# The straight-through gather of ``paddlebox_tpu/ops/seqpool_cvm.py::_bwd``
+# (an XLA function there, reused by the TPU kernel's custom_vjp): each key
+# takes its segment's pooled grad, except that columns < cvm_offset carry
+# the instance's ``cvm_in`` and padding keys get zero rows. Shapes:
+# ``g [B, S, D]`` (use_cvm) or ``[B, S, D - cvm_offset]``, ``segment_ids
+# [Npad]`` int32, ``cvm_in [B, cvm_offset]`` -> ``d_emb [Npad, D]``.
+
+
+def seqpool_cvm_grad_plain(g: torch.Tensor, segment_ids: torch.Tensor,
+                           cvm_in: torch.Tensor, batch_size: int,
+                           num_slots: int, use_cvm: bool = True,
+                           cvm_offset: int = 2) -> torch.Tensor:
+    """Plain PyTorch version, line for line the reference's ``_bwd``."""
+    B, S = batch_size, num_slots
+    tail = g.reshape(B * S, -1)
+    if use_cvm:
+        tail = tail[:, cvm_offset:]
+    tail = torch.cat([tail, tail.new_zeros((1, tail.shape[-1]))], dim=0)
+    seg = segment_ids.long()
+    d_tail = tail[seg]
+    cvm_pad = torch.cat([cvm_in, cvm_in.new_zeros((1, cvm_in.shape[-1]))],
+                        dim=0)
+    d_cvm = cvm_pad[torch.clamp(seg // S, max=B)]
+    d_cvm = torch.where((seg < B * S)[:, None], d_cvm,
+                        d_cvm.new_zeros(()))
+    return torch.cat([d_cvm, d_tail], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _grad_lib() -> ctypes.CDLL:
+    lib = _build.load("seqpool_cvm_grad")
+    fn = lib.pbx_seqpool_cvm_grad
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.pbx_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pbx_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def seqpool_cvm_grad_cuda(g: torch.Tensor, segment_ids: torch.Tensor,
+                          cvm_in: torch.Tensor, batch_size: int,
+                          num_slots: int, use_cvm: bool = True,
+                          cvm_offset: int = 2) -> torch.Tensor:
+    """Launch the backward kernel (``csrc/seqpool_cvm_grad.cu``) on the
+    current stream. Precondition, not checked: ids in ``[0, B*S]``. Counts
+    each launch in ``seqpool_cvm_grad_cuda.launches``."""
+    B, S = batch_size, num_slots
+    dev = segment_ids.device
+    if not (segment_ids.is_cuda and g.device == dev and cvm_in.device == dev):
+        raise ValueError("seqpool_cvm_grad_cuda needs g, segment_ids and "
+                         f"cvm_in on one CUDA device, got {g.device}, {dev} "
+                         f"and {cvm_in.device}")
+    if g.dtype != torch.float32 or cvm_in.dtype != torch.float32:
+        raise ValueError(f"g and cvm_in must be float32, got {g.dtype} and "
+                         f"{cvm_in.dtype}")
+    if segment_ids.dtype != torch.int32 or segment_ids.dim() != 1:
+        raise ValueError("segment_ids must be 1-D int32, got "
+                         f"{segment_ids.dtype} {tuple(segment_ids.shape)}")
+    if g.dim() != 3 or g.shape[:2] != (B, S):
+        raise ValueError(f"g must be [{B}, {S}, D'], got {tuple(g.shape)}")
+    if cvm_in.shape != (B, cvm_offset):
+        raise ValueError(f"cvm_in must be [{B}, {cvm_offset}], got "
+                         f"{tuple(cvm_in.shape)}")
+    D = g.shape[-1] + (0 if use_cvm else cvm_offset)
+    if not 0 <= cvm_offset < D:
+        raise ValueError(f"cvm_offset {cvm_offset} out of range for D={D}")
+    g = g.contiguous()
+    cvm_in = cvm_in.contiguous()
+    segment_ids = segment_ids.contiguous()
+    n_keys = segment_ids.shape[0]
+    d_emb = torch.empty((n_keys, D), dtype=torch.float32, device=dev)
+    if n_keys == 0:
+        return d_emb
+    lib = _grad_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.pbx_seqpool_cvm_grad(g.data_ptr(), segment_ids.data_ptr(),
+                                  cvm_in.data_ptr(), d_emb.data_ptr(),
+                                  n_keys, D, B * S, S, int(use_cvm),
+                                  cvm_offset, stream)
+    if rc != 0:
+        raise RuntimeError("seqpool_cvm_grad kernel launch failed: "
+                           f"{lib.pbx_cuda_error_string(rc).decode()}")
+    seqpool_cvm_grad_cuda.launches += 1
+    return d_emb
+
+
+seqpool_cvm_grad_cuda.launches = 0
+
+
+def seqpool_cvm_grad(g: torch.Tensor, segment_ids: torch.Tensor,
+                     cvm_in: torch.Tensor, batch_size: int, num_slots: int,
+                     use_cvm: bool = True,
+                     cvm_offset: int = 2) -> torch.Tensor:
+    """The backward kernel for CUDA tensors, the plain version for CPU ones."""
+    if segment_ids.is_cuda:
+        return seqpool_cvm_grad_cuda(g, segment_ids, cvm_in, batch_size,
+                                     num_slots, use_cvm, cvm_offset)
+    if segment_ids.device.type != "cpu":
+        raise ValueError(f"seqpool_cvm_grad: unsupported device "
+                         f"{segment_ids.device}")
+    return seqpool_cvm_grad_plain(g, segment_ids, cvm_in, batch_size,
+                                  num_slots, use_cvm, cvm_offset)

@@ -1,1 +1,2 @@
-"""Embedding tables of the port (the serving subset so far)."""
+"""Embedding tables of the port: the host table's serving subset and the
+device-resident table of the training path."""

@@ -27,6 +27,7 @@ import torch
 
 from paddlebox_tpu_torch._device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.config import TableConfig
+from paddlebox_tpu_torch.ops import sparse_optim
 
 
 def state_dim(conf: TableConfig) -> int:
@@ -34,13 +35,7 @@ def state_dim(conf: TableConfig) -> int:
     each trainable group (embed_w, embedx, expand)."""
     widths = [w for w in (conf.cvm_offset - 2, conf.embedx_dim,
                           conf.expand_dim) if w]
-    if conf.optimizer == "sgd":
-        return 0
-    if conf.optimizer == "adagrad":
-        return len(widths)
-    if conf.optimizer == "adam":
-        return sum(1 + 2 * w for w in widths)
-    raise ValueError(f"unknown sparse optimizer {conf.optimizer!r}")
+    return sum(sparse_optim.state_width(conf, w) for w in widths)
 
 
 class EmbeddingTable:

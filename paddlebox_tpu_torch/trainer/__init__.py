@@ -1,1 +1,2 @@
-"""Step engines of the port (forward half so far)."""
+"""Step engines of the port: the forward half of ``TrainStep`` and the
+fused training step over a device-resident table."""

@@ -1,6 +1,7 @@
 """The port stands alone: no jax, flax, optax or paddlebox_tpu import, in
-the package or in chip_smoke.py; its entry points default to the card and
-raise without one; its kernel module imports without a CUDA toolkit."""
+the package or in chip_smoke.py; it serves and trains with them blocked;
+its entry points default to the card and raise without one; its kernel
+modules import without a CUDA toolkit."""
 
 import ast
 import os
@@ -91,6 +92,54 @@ def test_imports_and_serves_with_jax_blocked(tmp_path):
     assert "SERVED 40" in res.stdout
 
 
+def test_trains_one_step_with_jax_blocked():
+    """The training path (FusedTrainStep over a DeviceTable, the backward
+    and push wrappers, the AUC) imports and runs one CPU step with jax and
+    paddlebox_tpu blocked."""
+    res = _run(f"""
+        import sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        from paddlebox_tpu_torch.config import TableConfig, TrainerConfig
+        from paddlebox_tpu_torch.metrics import AucCalculator
+        from paddlebox_tpu_torch.models import DeepFM
+        from paddlebox_tpu_torch.ops.seqpool_kernel import (
+            seqpool_cvm_grad_cuda)
+        from paddlebox_tpu_torch.ops.sparse_push import sparse_push_cuda
+        from paddlebox_tpu_torch.ps.device_table import DeviceTable
+        from paddlebox_tpu_torch.trainer.fused_step import FusedTrainStep
+        B, S = 8, 3
+        table = DeviceTable(TableConfig(embedx_dim=4), capacity=64,
+                            device="cpu")
+        fs = FusedTrainStep(DeepFM(S * 7, (8,)), table, TrainerConfig(),
+                            B, S)
+        params, opt = fs.init()
+        auc = fs.init_auc_state()
+        rng = np.random.default_rng(0)
+        keys = np.zeros(1024, np.uint64)
+        keys[:B * S] = rng.integers(1, 50, size=B * S)
+        segs = np.full(1024, B * S, np.int32)
+        segs[:B * S] = np.arange(B * S)
+        labels = (rng.uniform(size=B) < 0.5).astype(np.float32)
+        cvm = np.stack([np.ones(B, np.float32), labels], axis=1)
+        params, opt, auc, loss, preds = fs(
+            params, opt, auc, keys, segs, cvm, labels,
+            np.zeros((B, 0), np.float32), np.ones(B, np.float32))
+        calc = AucCalculator()
+        calc.absorb(auc)
+        assert np.isfinite(float(loss)) and preds.shape == (B,)
+        assert calc.compute()["ins_num"] == B and len(table) > 0
+        assert seqpool_cvm_grad_cuda.launches == sparse_push_cuda.launches == 0
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("TRAINED", float(loss))
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "TRAINED" in res.stdout
+
+
 def test_entry_points_default_to_cuda(tmp_path):
     from paddlebox_tpu_torch import resolve_device
     from paddlebox_tpu_torch.inference import CTRPredictor
@@ -100,6 +149,13 @@ def test_entry_points_default_to_cuda(tmp_path):
         resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CTRPredictor(str(tmp_path))
+    from paddlebox_tpu_torch.config import TableConfig
+    from paddlebox_tpu_torch.metrics import new_auc_state
+    from paddlebox_tpu_torch.ps.device_table import DeviceTable
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceTable(TableConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        new_auc_state()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -109,20 +165,25 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
         import sys
         sys.path.insert(0, {ROOT!r})
         import torch
-        from paddlebox_tpu_torch.ops import _build, seqpool_kernel
+        from paddlebox_tpu_torch.ops import _build, seqpool_kernel, sparse_push
         e = torch.ones(4, 11)
         s = torch.tensor([0, 0, 1, 2], dtype=torch.int32)
         out = seqpool_kernel.seqpool_cvm(e, s, 1, 2)
         assert out.shape == (1, 2, 11)
+        grad = seqpool_kernel.seqpool_cvm_grad(out, s, torch.ones(1, 2), 1, 2)
+        assert grad.shape == (4, 11)
         assert seqpool_kernel.seqpool_cvm_cuda.launches == 0
-        try:
-            _build.load("seqpool_cvm")
-        except RuntimeError as e:
-            assert "nvcc" in str(e), e
-            print("NO_NVCC_OK")
+        assert seqpool_kernel.seqpool_cvm_grad_cuda.launches == 0
+        assert sparse_push.sparse_push_cuda.launches == 0
+        for name in ("seqpool_cvm", "seqpool_cvm_grad", "sparse_push"):
+            try:
+                _build.load(name)
+            except RuntimeError as e:
+                assert "nvcc" in str(e), e
+                print("NO_NVCC_OK", name)
     """, env=env)
     assert res.returncode == 0, res.stderr
-    assert "NO_NVCC_OK" in res.stdout
+    assert res.stdout.count("NO_NVCC_OK") == 3
 
 
 def test_chip_smoke_refuses_without_cuda():
