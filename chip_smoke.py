@@ -12,8 +12,9 @@ Phases, each fatal on failure:
              seqpool+CVM forward, its backward (the gather) and the push.
 2. kernel  — hold each kernel against its plain PyTorch version on the
              card. Forward: the serving shape (B=512, S=26, D=11, Npad from
-             the bucket), the multi-key shape (B=4096, 1-3 keys a slot) and
-             edge shapes aimed at its 128-key tiles; show/clk sums exact.
+             the bucket), the multi-key shape (B=4096, 1-3 keys a slot),
+             the training shape (B=2048, S=24, Npad=102,400) and edge
+             shapes aimed at its 128-key tiles; show/clk sums exact.
              Backward: the training shape (B=2048, S=24, D=11, Npad=102,400)
              and edge shapes; bit-exact. Push: the training shape with sgd,
              adagrad and adam, duplicate keys, key 0, unknown keys and rows
@@ -92,6 +93,10 @@ PUSH_ATOL = 1e-6
 # training on the card vs the CPU, 2 steps: float32 GEMMs and sums in
 # another order
 TRAIN_RTOL, TRAIN_ATOL = 1e-5, 1e-5
+# the steps' change to the touched rows (~1e-6 on values of ~1e-4): card
+# vs CPU within this share of the change's largest entry. A push that is
+# skipped or has the wrong sign is off by the whole change.
+TRAIN_DELTA_RTOL = 1e-3
 HIDDEN = (512, 256, 128)
 B, S, D = 512, 26, 11
 MK_B = 4096                  # batch of the multi-key (training-sized) shape
@@ -286,6 +291,12 @@ def phase_kernel(rng):
                                 bucket.bucket(int(mk_lengths.sum())))
     err = max(err, check_kernel("multi-key", multikey[0], multikey[1], MK_B,
                                 S, True, 2, 0.0))
+    # the train phase's shape and options: B=2048, 24 slots of 1-3 keys,
+    # Npad 102,400
+    tr = make_pool_inputs(rng, TB, TS, D, rng.integers(1, 4, size=TB * TS),
+                          TNPAD)
+    err = max(err, check_kernel("training", tr[0], tr[1], TB, TS, True, 2,
+                                0.0))
 
     cases = []
     few = rng.integers(0, 4, size=64 * S) * (rng.uniform(size=64 * S) < 0.5)
@@ -345,7 +356,8 @@ def phase_kernel(rng):
 
 def check_grad(rng, name: str, batch: int, slots: int, dim: int, lengths,
                npad: int, use_cvm: bool, cvm_offset: int):
-    """Backward kernel vs plain, bit for bit. Returns the inputs."""
+    """Backward kernel vs plain, bit for bit. Returns the largest error
+    and the inputs."""
     segs, n = segment_layout(batch, slots, lengths, npad)
     width = dim if use_cvm else dim - cvm_offset
     g = torch.from_numpy(rng.normal(size=(batch, slots, width)).astype(
@@ -366,13 +378,13 @@ def check_grad(rng, name: str, batch: int, slots: int, dim: int, lengths,
     print(f"kernel check {GRAD} {name}: B={batch} S={slots} D={dim} "
           f"Npad={npad} keys={n} use_cvm={use_cvm} cvm_offset={cvm_offset} "
           "bit-exact ok")
-    return g, segs, cvm
+    return err, (g, segs, cvm)
 
 
 def phase_kernel_grad(rng):
     """Backward kernel vs plain at the training shape and edge shapes.
     Returns the largest error (0: bit-exact) and the training inputs."""
-    train = check_grad(rng, "training", TB, TS, D, rng.integers(
+    err, train = check_grad(rng, "training", TB, TS, D, rng.integers(
         1, 4, size=TB * TS), TNPAD, True, 2)
     few = rng.integers(0, 4, size=64 * S) * (rng.uniform(size=64 * S) < 0.5)
     full = rng.integers(1, 4, size=64 * S)
@@ -388,8 +400,8 @@ def phase_kernel_grad(rng):
         ("d67", 64, S, 67, rng.integers(0, 4, size=64 * S), 8192, True, 2),
     ]
     for case in cases:
-        check_grad(rng, *case)
-    return 0.0, train
+        err = max(err, check_grad(rng, *case)[0])
+    return err, train
 
 
 def push_table(rng, conf: TableConfig, vocab: int, upad_min: int):
@@ -690,7 +702,9 @@ def phase_train(rng) -> dict:
     print(f"train: {TRAIN_STEPS} steps, launches {launches}, losses "
           f"{losses[0]:.6f} -> {losses[-1]:.6f}")
 
-    # the same 2 steps on the CPU
+    # the same 2 steps on the CPU, whose table still holds the initial rows
+    before = (cpu_table.values[touched].clone(),
+              cpu_table.state[touched].clone())
     cfs = FusedTrainStep(cpu_model, cpu_table, tconf, TB, TS)
     _, cpu_losses = train_steps(cfs, (*cfs.init(), cfs.init_auc_state()),
                                 batches[:CPU_STEPS])
@@ -709,10 +723,23 @@ def phase_train(rng) -> dict:
     require(row_err <= TRAIN_ATOL, f"train: table rows card vs CPU {row_err}")
     require(dense_err <= TRAIN_ATOL,
             f"train: dense params card vs CPU {dense_err}")
+    changes = []
+    for what, got, want, init in (
+            ("values", vals[:, 2:], cvals[:, 2:], before[0][:, 2:]),
+            ("state", st, cst, before[1])):
+        scale = float((want - init).abs().max())
+        derr = float(((got - init) - (want - init)).abs().max())
+        require(scale > 0, f"train: the steps left the touched rows' {what} "
+                           "unchanged")
+        require(derr <= TRAIN_DELTA_RTOL * scale,
+                f"train: change of the touched rows' {what} card vs CPU "
+                f"{derr} > {TRAIN_DELTA_RTOL} * {scale}")
+        changes.append(f"{what} max abs err {derr:.3e} of a largest "
+                       f"change {scale:.3e}")
     print(f"train: card vs CPU over {CPU_STEPS} steps: losses {losses[:2]} "
           f"vs {cpu_losses}, {touched.numel()} touched rows (show/clk "
-          f"exact, max abs err {row_err:.3e}), dense max abs err "
-          f"{dense_err:.3e}")
+          f"exact, max abs err {row_err:.3e}; their change: "
+          f"{', '.join(changes)}), dense max abs err {dense_err:.3e}")
 
     t0 = time.perf_counter()
     for keys, _, _ in batches:
@@ -730,9 +757,28 @@ def phase_train(rng) -> dict:
     device_profile("train, 4 steps",
                    lambda: train_steps(fs, state, batches[:4]),
                    kernels=(KERNEL, PUSH))
+
+    # the host index when 5% of a batch's keys are new to the table: each
+    # batch that inserts keys copies the whole sorted key and row arrays
+    fresh, new_ms = HOT_VOCAB + 1, []
+    for keys, _, _ in batches[:5]:
+        keys = keys.copy()
+        nk = int((keys > 0).sum())
+        pick = rng.choice(nk, size=nk // 20, replace=False)
+        keys[pick] = np.arange(fresh, fresh + pick.size, dtype=np.uint64)
+        fresh += pick.size
+        t0 = time.perf_counter()
+        table.prepare_batch(keys, create=True)
+        torch.cuda.synchronize()
+        new_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"timing train: prepare_batch with 5% new keys: {new_ms[0]:.4f} "
+          f"ms the first batch (the arena grows to {table.capacity} rows), "
+          f"then {np.mean(new_ms[1:]):.4f} ms/batch over {len(new_ms) - 1} "
+          f"batches ({len(table)} rows; without new keys {prep_ms:.4f} ms)")
     return {"launches": launches, "ms_per_step": ms,
             "examples_per_s": TB * len(batches) / secs,
-            "prepare_batch_ms": prep_ms}
+            "prepare_batch_ms": prep_ms,
+            "prepare_batch_new_keys_ms": float(np.mean(new_ms[1:]))}
 
 
 # -- phase 5 -----------------------------------------------------------------

@@ -118,7 +118,10 @@ class TableConfig:
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """Dense-side training settings (the reference's ``TrainerConfig``)."""
+    """Dense-side training settings (the reference's ``TrainerConfig``).
+    ``dense_sync_steps``, ``metrics``, ``num_devices`` and ``profile`` are
+    read by the trainer loop, which is not ported yet: ``FusedTrainStep``
+    refuses values other than their defaults."""
 
     # dense optimizer, in optax's math: "adam" | "adamw" | "sgd" | "adagrad"
     # ("lars" and "lamb" are not ported yet)

@@ -74,6 +74,18 @@ class FusedTrainStep:
             raise NotImplementedError(
                 "recompute is not ported yet (ROADMAP A.2: lars, lamb, "
                 "MultiSteps, recompute)")
+        # fields that only the trainer loop reads
+        for field, ported in (
+                ("dense_sync_steps", trainer_conf.dense_sync_steps == 0),
+                ("metrics", trainer_conf.metrics == ["auc"]),
+                ("num_devices", trainer_conf.num_devices in (0, 1)),
+                ("profile", not trainer_conf.profile)):
+            if not ported:
+                raise NotImplementedError(
+                    f"TrainerConfig.{field}="
+                    f"{getattr(trainer_conf, field)!r}: only CTRTrainer "
+                    "reads it, and it is not ported yet (ROADMAP A.2, "
+                    "CTRTrainer)")
         full_float32_matmuls()
         self.model = model
         self.table = table

@@ -199,7 +199,9 @@ def test_unported_options_raise():
     model = torch.nn.Linear(1, 1)
     for bad in ({"dense_optimizer": "lars"}, {"dense_optimizer": "lamb"},
                 {"grad_merge_steps": 2}, {"bf16": True},
-                {"recompute": True}):
+                {"recompute": True}, {"dense_sync_steps": 4},
+                {"metrics": ["auc", "mae"]}, {"num_devices": 4},
+                {"profile": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FusedTrainStep(model, table, TrainerConfig(**bad), B, S)
     with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
