@@ -7,9 +7,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases, each fatal on failure:
 
-1. build   — compile the port's three CUDA kernels from the repository's
-             sources with ``nvcc``, one process each, all at once: the
-             seqpool+CVM forward, its backward (the gather) and the push.
+1. build   — compile the port's three CUDA sources from the repository
+             with ``nvcc``, one process each, all at once: the seqpool+CVM
+             forward, its backward (the gather) and the push (with its
+             boundary kernel); print each kernel's ptxas report
+             (registers, spills, shared memory).
 2. kernel  — hold each kernel against its plain PyTorch version on the
              card. Forward: the serving shape (B=512, S=26, D=11, Npad from
              the bucket), the multi-key shape (B=4096, 1-3 keys a slot),
@@ -18,8 +20,13 @@ Phases, each fatal on failure:
              Backward: the training shape (B=2048, S=24, D=11, Npad=102,400)
              and edge shapes; bit-exact. Push: the training shape with sgd,
              adagrad and adam, duplicate keys, key 0, unknown keys and rows
-             crossing the embedx threshold, and edge shapes; show/clk exact,
-             the rest within 1e-6.
+             crossing the embedx threshold, edge shapes, every lane geometry
+             (D = 4, 5, 16, 33, 129, 256, each optimizer), a Upad off the
+             uniques a warp holds, warps that mix live, dead and padding
+             uniques, one unique with nearly every key; show/clk exact, the
+             rest within 1e-6, and two launches bit-identical. The boundary
+             kernel's offsets (and the sorted order) equal
+             ``merge_order_plain``'s.
 3. serve   — write a seeded synthetic Criteo file, export a DeepFM
              (hidden 512-256-128) bundle whose table has >= 4M rows, serve
              every batch through ``CTRPredictor(device="cuda")``; the
@@ -29,14 +36,16 @@ Phases, each fatal on failure:
    Scoring time per batch and a device profile of the serving loop.
 4. train   — the flagship DeepFM (hidden 512-256-128, adam dense, adagrad
              table of 4,194,304 prepopulated rows) for 16 steps of B=2048
-             through ``FusedTrainStep`` on the card: each kernel must launch
-             once a step, losses finite, and the first 2 steps must match
+             through ``FusedTrainStep`` on the card: each of the four kernels
+             must launch once a step, losses finite, and the first 2 steps must match
              the same step on the CPU from the same init and batches.
    Time per step, examples/s and a device profile of the training loop.
-5. timing  — forward at the serving and the multi-key shape; backward and
-             push at the training shape: kernel, plain and library times,
-             per call and in a CUDA graph, beside each kernel's bound; and
-             the launch floor, the graph time of ``torch.cuda._sleep(0)``.
+5. timing  — forward at the serving and the multi-key shape; backward,
+             push and boundary kernel at the training shape: kernel, plain
+             and library times, per call and in a CUDA graph, beside each
+             kernel's bound; the push kernel alone beside the push with its
+             merge order, adam beside adagrad; and the launch floor, the
+             graph time of ``torch.cuda._sleep(0)``.
 
 Prints the card's ``name, power.limit`` line, then one JSON line of
 per-kernel numbers, then ``{"ok": true, "device": {...}}`` last. Exits
@@ -49,11 +58,13 @@ import argparse
 import copy
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -71,7 +82,11 @@ from paddlebox_tpu_torch.ops.seqpool_kernel import (bulk_loads,
                                                     seqpool_cvm_grad_cuda,
                                                     seqpool_cvm_grad_plain,
                                                     seqpool_cvm_plain)
-from paddlebox_tpu_torch.ops.sparse_push import (merge_order,
+from paddlebox_tpu_torch.ops.sparse_push import (merge_offsets,
+                                                 merge_offsets_plain,
+                                                 merge_order,
+                                                 merge_order_plain,
+                                                 push_geometry, push_rows,
                                                  sparse_push_cuda,
                                                  sparse_push_plain)
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
@@ -112,6 +127,7 @@ ITERS = 200                  # calls per timing
 KERNEL = "seqpool_cvm"
 GRAD = "seqpool_cvm_grad"
 PUSH = "sparse_push"
+OFFSETS = "merge_offsets"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -203,23 +219,58 @@ def device_profile(tag: str, fn, kernels=(KERNEL,)) -> None:
 
 # -- phase 1 -----------------------------------------------------------------
 
-def phase_build() -> None:
-    """One nvcc process per source, all started together."""
+def ptxas_report(log: str) -> list:
+    """One entry per kernel in an ``nvcc -Xptxas=-v`` log: its name (with
+    its integer template arguments), registers a thread, spill stores and
+    loads, stack frame and static shared memory in bytes."""
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = re.search(r"(?<=\d)[a-z][a-z_]*_kernel", m.group(1))
+            args = re.findall(r"Li(-?\d+)E", m.group(1))
+            out.append({"name": (name.group() if name else m.group(1))
+                        + (f"<{','.join(args)}>" if args else ""),
+                        "registers": None, "spill_stores": 0,
+                        "spill_loads": 0, "stack": 0, "smem": 0})
+        elif out:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                out[-1]["stack"], out[-1]["spill_stores"], \
+                    out[-1]["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[-1]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                out[-1]["smem"] = int(m.group(1))
+    return out
+
+
+def phase_build() -> dict:
+    """One nvcc process per source, all started together. Returns each
+    source's ptxas report (empty for a library built by an earlier run)."""
     names = (KERNEL, GRAD, PUSH)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
+    reports = {}
     for name, res in zip(names, built):
         require(_build.library_path(name).exists(), f"{name} was not built")
         if res is None:
-            print(f"build: {name} already built")
+            print(f"build: {name} already built (no ptxas report)")
+            reports[name] = []
             continue
-        secs, log = res
-        print(f"build: {name} {secs:.2f} s")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+        print(f"build: {name} {res[0]:.2f} s")
+        reports[name] = ptxas_report(res[1])
+        for r in reports[name]:
+            print(f"  ptxas: {r['name']}: {r['registers']} registers, "
+                  f"spill stores {r['spill_stores']} B, spill loads "
+                  f"{r['spill_loads']} B, stack {r['stack']} B, smem "
+                  f"{r['smem']} B")
     print(f"build: all {time.perf_counter() - t0:.2f} s")
+    return reports
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -427,13 +478,15 @@ def push_table(rng, conf: TableConfig, vocab: int, upad_min: int):
     return table
 
 
-def check_push(rng, name: str, conf: TableConfig, vocab: int, npad: int,
-               n_keys: int, hot: int = 0, unknown: int = 0,
-               upad_min: int = 1024):
-    """Push kernel vs plain on one batch: ``n_keys`` keys uniform over the
-    table, ``hot`` more copies of one key, ``unknown`` keys absent from it
-    (they map to the null row), padding keys 0. Returns the largest error
-    off show/clk and the inputs."""
+def push_batch(rng, conf: TableConfig, vocab: int, npad: int, n_keys: int,
+               hot: int = 0, unknown: int = 0, upad_min: int = 1024,
+               exact: bool = False):
+    """A table (``push_table``) and one batch through ``prepare_batch``:
+    ``n_keys`` keys uniform over the table, ``hot`` more copies of one key,
+    ``unknown`` keys absent from it (they map to the null row), padding
+    keys 0. With ``exact`` the grads lie on a 2^-10 grid, so every order of
+    summation gives the same sums. Returns the table and the numpy inputs
+    (demb, inverse, uniq_rows, uniq_mask)."""
     table = push_table(rng, conf, vocab, upad_min)
     keys = np.zeros(npad, np.uint64)
     keys[:n_keys] = rng.integers(1, vocab + 1, size=n_keys)
@@ -443,57 +496,106 @@ def check_push(rng, name: str, conf: TableConfig, vocab: int, npad: int,
         keys[rng.choice(n_keys, size=unknown, replace=False)] = \
             vocab + 1 + rng.integers(0, 1000, size=unknown)
     idx = table.prepare_batch(keys, create=False)
-    # grads at the scale of a training step's (a mean loss over B=2048)
-    demb = (rng.normal(size=(npad, table.dim)) * 0.01).astype(np.float32)
+    return table, (push_grads(rng, npad, table.dim, n_keys, exact),
+                   idx.inverse, idx.uniq_rows, idx.uniq_mask)
+
+
+def push_grads(rng, npad: int, dim: int, n_keys: int, exact: bool = False):
+    """Grads at the scale of a training step's (a mean loss over B=2048):
+    show 1, clk 0/1, zero past the ``n_keys`` real keys."""
+    demb = (rng.normal(size=(npad, dim)) * 0.01).astype(np.float32)
+    if exact:
+        demb = np.round(demb * 1024) / 1024
     demb[:, 0] = 1.0
     demb[:, 1] = rng.integers(0, 2, size=npad)
     demb[n_keys:] = 0.0
-    demb = torch.from_numpy(demb).cuda()
-    inv = torch.from_numpy(idx.inverse).cuda()
-    urows = torch.from_numpy(idx.uniq_rows).cuda()
-    umask = torch.from_numpy(idx.uniq_mask).cuda()
+    return demb
+
+
+def mixed_batch(rng, conf: TableConfig, vocab: int, upad: int):
+    """Uniques of three kinds in random order, so that groups of one warp
+    diverge: live (a distinct row), dead (row 0, with keys: key 0 or an
+    unknown key) and padding (row 0, no keys). Returns the table and the
+    numpy inputs."""
+    table = push_table(rng, conf, vocab, 1024)
+    kind = rng.choice(3, size=upad, p=[0.6, 0.2, 0.2])
+    live = kind == 0
+    urows = np.zeros(upad, np.int32)
+    urows[live] = rng.choice(np.arange(1, vocab + 1), size=int(live.sum()),
+                             replace=False)
+    umask = live.astype(np.float32)
+    with_keys = np.flatnonzero(kind != 2)
+    inv = rng.permutation(np.repeat(with_keys, rng.integers(
+        1, 4, size=with_keys.size))).astype(np.int32)
+    return table, (push_grads(rng, inv.size, table.dim, inv.size), inv,
+                   urows, umask)
+
+
+def check_push(name: str, table, inputs):
+    """Push kernel vs plain on one batch; a second launch on the same
+    inputs must give the same bits. Returns the largest error off
+    show/clk and the card inputs."""
+    demb, inv, urows, umask = (torch.from_numpy(np.ascontiguousarray(x))
+                               .cuda() for x in inputs)
     layout = table.layout
-    v1, s1 = table.values.clone(), table.state.clone()
-    v2, s2 = table.values.clone(), table.state.clone()
-    sparse_push_cuda(layout, v1, s1, demb, inv, urows, umask)
+    got, again, want = [(table.values.clone(), table.state.clone())
+                        for _ in range(3)]
+    sparse_push_cuda(layout, *got, demb, inv, urows, umask)
+    sparse_push_cuda(layout, *again, demb, inv, urows, umask)
     torch.cuda.synchronize()
-    sparse_push_plain(layout, v2, s2, demb, inv, urows, umask)
-    require(torch.equal(v1[:, :2], v2[:, :2]),
+    sparse_push_plain(layout, *want, demb, inv, urows, umask)
+    (gv, gs), (wv, ws) = got, want
+    require(torch.equal(gv, again[0]) and torch.equal(gs, again[1]),
+            f"{name}: two launches on the same inputs differ")
+    require(torch.equal(gv[:, :2], wv[:, :2]),
             f"{name}: show/clk differ between the push kernel and plain")
-    require(torch.equal(v1[0], table.values[0]) and
-            torch.equal(s1[0], table.state[0]), f"{name}: null row written")
-    err = max(float((v1 - v2).abs().max()), float((s1 - s2).abs().max()))
+    require(torch.equal(gv[0], table.values[0]) and
+            torch.equal(gs[0], table.state[0]), f"{name}: null row written")
+    err = max(float((gv - wv).abs().max()), float((gs - ws).abs().max()))
     require(err <= PUSH_ATOL, f"{name}: push kernel vs plain max abs err "
                               f"{err} > {PUSH_ATOL}")
+    conf = layout.conf
     live = umask > 0
     rows = urows[live].long()
     old_show = table.values[rows, 0]
     crossed = int(((old_show < conf.embedx_threshold) &
-                   (v1[rows, 0] >= conf.embedx_threshold)).sum())
-    changed = int((v1[rows, 2:] != table.values[rows, 2:]).any(1).sum())
+                   (gv[rows, 0] >= conf.embedx_threshold)).sum())
+    changed = int((gv[rows, 2:] != table.values[rows, 2:]).any(1).sum())
+    lanes, cols = push_geometry(table.dim)
     print(f"kernel check {PUSH} {name}: {conf.optimizer} D={table.dim} "
-          f"state={table.state.shape[1]} Npad={npad} keys={n_keys} "
-          f"uniques={int(live.sum())}/{idx.num_uniq} rows crossing the "
-          f"threshold={crossed} rows trained={changed} "
-          f"max_abs_err={err:.3e} ok")
+          f"G={lanes} C={cols} state={table.state.shape[1]} "
+          f"Npad={demb.shape[0]} Upad={urows.shape[0]} "
+          f"live={int(live.sum())} rows crossing the threshold={crossed} "
+          f"rows trained={changed} max_abs_err={err:.3e} deterministic ok")
     return err, (layout, table.values, table.state, demb, inv, urows, umask)
+
+
+# one table config per lane geometry (D = pull_dim): G = 1, 2, 4, 16, 32, 32
+GEOMETRY_CASES = {
+    4: dict(cvm_offset=2, embedx_dim=2),
+    5: dict(cvm_offset=3, embedx_dim=2),
+    16: dict(cvm_offset=3, embedx_dim=8, expand_dim=5),
+    33: dict(cvm_offset=3, embedx_dim=30),
+    129: dict(cvm_offset=3, embedx_dim=64, expand_dim=62),
+    256: dict(cvm_offset=3, embedx_dim=125, expand_dim=128),
+}
 
 
 def phase_kernel_push(rng):
     """Push kernel vs plain at the training shape with each optimizer, and
-    at edge shapes. Returns the largest error and the adagrad training
-    inputs."""
+    at edge shapes. Returns the largest error and the adagrad and adam
+    training inputs."""
     n_train = TB * TS * 2  # 1-3 keys a slot
-    err, train = 0.0, None
+    err, train = 0.0, {}
     for opt in ("adagrad", "sgd", "adam"):
         conf = TableConfig(embedx_dim=8, cvm_offset=3, embedx_threshold=10.0,
                            optimizer=opt, seed=7)
-        e, inputs = check_push(rng, f"training-{opt}", conf, HOT_VOCAB,
-                               TNPAD, n_train, hot=500, unknown=50,
-                               upad_min=TNPAD)
+        e, inputs = check_push(f"training-{opt}", *push_batch(
+            rng, conf, HOT_VOCAB, TNPAD, n_train, hot=500, unknown=50,
+            upad_min=TNPAD))
         err = max(err, e)
-        if opt == "adagrad":
-            train = inputs
+        if opt != "sgd":
+            train[opt] = inputs
     cases = [
         ("all-padding", TableConfig(embedx_threshold=10.0), 4096, 1024, 0),
         ("one-key", TableConfig(embedx_threshold=10.0), 4096, 1024, 1000),
@@ -507,11 +609,73 @@ def phase_kernel_push(rng):
         ("d67-adam", TableConfig(embedx_dim=64, optimizer="adam",
                                  embedx_threshold=10.0), 4096, 2048, 1500),
     ]
+    for dim, kw in GEOMETRY_CASES.items():
+        for opt in ("sgd", "adagrad", "adam"):
+            cases.append((f"d{dim}-{opt}", TableConfig(
+                optimizer=opt, embedx_threshold=10.0, **kw), 4096, 2048,
+                1500))
     for name, conf, vocab, npad, n in cases:
         hot = n - 1 if name == "one-key" else 0
-        e, _ = check_push(rng, name, conf, vocab, npad, n, hot=hot)
-        err = max(err, e)
+        table, inputs = push_batch(rng, conf, vocab, npad, n, hot=hot,
+                                   unknown=20 if n > 1000 else 0)
+        err = max(err, check_push(name, table, inputs)[0])
+    d11 = TableConfig(embedx_dim=8, cvm_offset=3, embedx_threshold=10.0)
+    # Upad off the 8 uniques a warp holds at D=11 (and off a block's 64)
+    table, (demb, inv, urows, umask) = push_batch(rng, d11, 4096, 2048, 1500,
+                                                  unknown=20)
+    upad = int(inv.max()) + 1
+    upad += 3 if (upad + 3) % 8 else 5
+    err = max(err, check_push("upad-odd", table, (
+        demb, inv, urows[:upad], umask[:upad]))[0])
+    # warps whose groups are live, dead and padding uniques, G = 4, 16, 2
+    for tag, conf, upad in (
+            ("d11-adagrad", d11, 1003),
+            ("d33-adam", TableConfig(optimizer="adam", embedx_threshold=10.0,
+                                     **GEOMETRY_CASES[33]), 1001),
+            ("d5-sgd", TableConfig(optimizer="sgd", embedx_threshold=10.0,
+                                   **GEOMETRY_CASES[5]), 999)):
+        err = max(err, check_push(f"mixed-warps-{tag}", *mixed_batch(
+            rng, conf, 4096, upad))[0])
+    # one unique holds 100,000 of the batch's 101,000 keys
+    n_hot = TNPAD - 1400
+    err = max(err, check_push("hot-unique", *push_batch(
+        rng, d11, HOT_VOCAB, TNPAD, n_hot, hot=n_hot - 1000, exact=True))[0])
     return err, train
+
+
+def phase_kernel_offsets(rng, train_inverse: torch.Tensor, upad: int):
+    """The merge order on the card (stable sort + boundary kernel) vs
+    ``merge_order_plain``, exactly: the training batch's inverse and edge
+    cases. Returns the largest absolute difference of order or offsets."""
+    gaps = rng.integers(0, 5000, size=20000)
+    cases = [
+        ("training", train_inverse, upad),
+        ("padding-uniques", rng.integers(0, 5000, size=20000), 8192),
+        ("interior-gaps", gaps[gaps % 7 != 3], 5000),
+        ("one-unique", np.full(50000, 7), 1024),
+        ("upad-above-max", rng.integers(0, 10, size=300), 100000),
+        ("no-keys", np.zeros(0, np.int64), 64),
+        ("last-unique", np.full(300, 4095), 4096),
+    ]
+    err = 0.0
+    for name, inv, upd in cases:
+        if isinstance(inv, np.ndarray):
+            inv = torch.from_numpy(inv.astype(np.int32)).cuda()
+        order, offsets = merge_order(inv, upd)
+        torch.cuda.synchronize()
+        want_order, want_offsets = merge_order_plain(inv, upd)
+        require(torch.equal(offsets, want_offsets),
+                f"{OFFSETS} {name}: offsets differ from merge_order_plain")
+        require(torch.equal(order, want_order),
+                f"{OFFSETS} {name}: order differs from merge_order_plain")
+        # "no-keys" has an empty order
+        case_err = max(float((got.long() - want.long()).abs().max())
+                       for got, want in ((offsets, want_offsets),
+                                         (order, want_order)) if got.numel())
+        err = max(err, case_err)
+        print(f"kernel check {OFFSETS} {name}: Npad={inv.shape[0]} "
+              f"Upad={upd} max abs err {case_err} ok")
+    return err
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -679,7 +843,8 @@ def phase_train(rng) -> dict:
           f"{time.perf_counter() - t0:.2f} s")
 
     # the main path, counted
-    wrappers = (seqpool_cvm_cuda, seqpool_cvm_grad_cuda, sparse_push_cuda)
+    wrappers = (seqpool_cvm_cuda, seqpool_cvm_grad_cuda, sparse_push_cuda,
+                merge_offsets)
     for w in wrappers:
         w.launches = 0
     state, losses = train_steps(fs, state, batches[:CPU_STEPS])
@@ -866,40 +1031,90 @@ def time_grad(inputs) -> dict:
     return t
 
 
+def push_bound(layout, demb, inv, urows, umask) -> Tuple[int, int]:
+    """Bytes and operations of one push: read the grads of the keys of live
+    uniques (the others are never read), inverse, uniq_rows and uniq_mask
+    once; read and write the value and state rows of the live uniques
+    once; the merge's adds, show/clk and ~6 operations a trained column."""
+    npad, dim = demb.shape
+    live = int((umask > 0).sum())
+    live_keys = int((umask[inv.long()] > 0).sum())
+    sd = max(layout.state_dim, 1)
+    nbytes = live_keys * dim * 4 + npad * 4 + urows.shape[0] * 8 + \
+        live * (dim + sd) * 4 * 2
+    return nbytes, live_keys * dim + live * (2 + 6 * (dim - 2))
+
+
 def time_push(inputs) -> dict:
-    """Push at the training shape (adagrad), the wrapper's sort of
-    ``inverse`` included; the sort alone is timed beside it. Library
-    yardstick: ``index_add_`` of demb into [Upad, D], the merge only.
-    Each call trains the arena copies further; the work per call stays."""
+    """Push at the training shape, the wrapper's merge order (stable sort
+    of ``inverse`` and the boundary kernel) included, and the push kernel
+    alone on a precomputed merge order; the sort alone beside them.
+    Library yardstick: ``index_add_`` of demb into [Upad, D], the merge
+    only. Each call trains the arena copies further; the work per call
+    stays."""
     layout, values, state, demb, inv, urows, umask = inputs
+    upad = urows.shape[0]
     pv, ps = values.clone(), state.clone()
-    merged = torch.zeros((urows.shape[0], demb.shape[1]), device="cuda")
+    merged = torch.zeros((upad, demb.shape[1]), device="cuda")
     inv_l = inv.long()
     t = timed(lambda: sparse_push_cuda(layout, values, state, demb, inv,
                                        urows, umask),
               lambda: sparse_push_plain(layout, pv, ps, demb, inv, urows,
                                         umask),
               lambda: merged.index_add_(0, inv_l, demb))
-    t["sort_ms"] = cuda_ms(lambda: merge_order(inv, urows.shape[0]), ITERS)
-    t["sort_graph_ms"] = graph_ms(lambda: merge_order(inv, urows.shape[0]))
-    # read the grads of the keys of live uniques (the others are never
-    # read), inverse, uniq_rows and uniq_mask once; read and write the
-    # value and state rows of the live uniques once
-    npad, dim = demb.shape
-    live = int((umask > 0).sum())
-    live_keys = int((umask[inv_l] > 0).sum())
-    sd = max(layout.state_dim, 1)
-    nbytes = live_keys * dim * 4 + npad * 4 + urows.shape[0] * 8 + \
-        live * (dim + sd) * 4 * 2
-    # merge adds, show/clk, and ~6 operations a trained column
-    ops = live_keys * dim + live * (2 + 6 * (dim - 2))
-    with_bound(t, nbytes, ops)
-    print_timing(PUSH, "training", f"Npad={npad} D={dim} Upad="
-                 f"{urows.shape[0]} live={live} {layout.conf.optimizer}",
+    order, offsets = merge_order(inv, upad)
+
+    def kernel():
+        push_rows(layout, values, state, demb, order, offsets, urows, umask)
+
+    t["kernel_ms"] = cuda_ms(kernel, ITERS)
+    t["kernel_graph_ms"] = graph_ms(kernel)
+    t["sort_ms"] = cuda_ms(lambda: torch.sort(inv, stable=True), ITERS)
+    t["sort_graph_ms"] = graph_ms(lambda: torch.sort(inv, stable=True))
+    with_bound(t, *push_bound(layout, demb, inv, urows, umask))
+    t["state_columns"] = state.shape[1]
+    opt = layout.conf.optimizer
+    print_timing(PUSH, f"training {opt}", f"Npad={demb.shape[0]} "
+                 f"D={demb.shape[1]} Upad={upad} live="
+                 f"{int((umask > 0).sum())} state columns {state.shape[1]}",
                  "index_add_", t)
-    print(f"timing {PUSH} training: its sort of inverse, per call "
-          f"{t['sort_ms']:.5f} ms, in a CUDA graph {t['sort_graph_ms']:.5f} "
-          "ms (included in the kernel's times)")
+    print(f"timing {PUSH} training {opt}: the push kernel alone (merge "
+          f"order precomputed), per call {t['kernel_ms']:.5f} ms, in a CUDA "
+          f"graph {t['kernel_graph_ms']:.5f} ms "
+          f"({100 * t['bound_ms'] / t['kernel_graph_ms']:.1f}% of bound); "
+          f"the stable sort of inverse alone, per call {t['sort_ms']:.5f} "
+          f"ms, in a CUDA graph {t['sort_graph_ms']:.5f} ms")
+    return t
+
+
+def time_offsets(inputs) -> dict:
+    """The boundary kernel at the training shape, on the sorted inverse.
+    Plain: ``merge_offsets_plain`` (``bincount`` reads the largest id back
+    to the host, so it cannot be captured in a CUDA graph); library:
+    ``searchsorted`` of each unique in the sorted inverse."""
+    inv, urows = inputs[4], inputs[5]
+    upad = urows.shape[0]
+    sorted_inv = torch.sort(inv, stable=True).values
+    grid = torch.arange(upad + 1, dtype=inv.dtype, device=inv.device)
+    kernel = lambda: merge_offsets(sorted_inv, upad)  # noqa: E731
+    library = lambda: torch.searchsorted(  # noqa: E731
+        sorted_inv, grid, out_int32=True)
+    t = {"ms": cuda_ms(kernel, ITERS),
+         "plain_ms": cuda_ms(lambda: merge_offsets_plain(sorted_inv, upad),
+                             ITERS),
+         "library_ms": cuda_ms(library, ITERS),
+         "graph_ms": graph_ms(kernel), "plain_graph_ms": None,
+         "library_graph_ms": graph_ms(library)}
+    # read the sorted inverse once, write the offsets once
+    with_bound(t, inv.numel() * 4 + (upad + 1) * 4, 0)
+    print(f"timing {OFFSETS} training (Npad={inv.numel()} Upad={upad}): per "
+          f"call: kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
+          f"searchsorted {t['library_ms']:.5f} ms; bound "
+          f"{t['bound_ms']:.6f} ms ({t['bound_bytes']} bytes); in a CUDA "
+          f"graph: kernel {t['graph_ms']:.5f} ms "
+          f"({100 * t['bound_ms'] / t['graph_ms']:.1f}% of bound), "
+          f"searchsorted {t['library_graph_ms']:.5f} ms (plain: not "
+          "capturable)")
     return t
 
 
@@ -915,15 +1130,20 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
     try:
-        phase_build()
+        ptxas = phase_build()
         err, shapes = phase_kernel(rng)
         grad_err, grad_inputs = phase_kernel_grad(rng)
         push_err, push_inputs = phase_kernel_push(rng)
+        train_inputs = push_inputs["adagrad"]
+        offsets_err = phase_kernel_offsets(rng, train_inputs[4],
+                                           train_inputs[5].shape[0])
         serve_launches = phase_serve(rng, args.seed)
         train = phase_train(rng)
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
-        push_timing = time_push(push_inputs)
+        push_timing = time_push(train_inputs)
+        push_timing["adam"] = time_push(push_inputs["adam"])
+        offsets_timing = time_offsets(train_inputs)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     smi = subprocess.run(
@@ -951,7 +1171,14 @@ def main() -> int:
          "source": "paddlebox_tpu_torch/csrc/sparse_push.cu",
          "replaces": "paddlebox_tpu/ps/device_table.py:189",
          "launches": launches[sparse_push_cuda.__name__],
-         "max_abs_err": push_err, **push_timing},
+         "max_abs_err": push_err, **push_timing,
+         "ptxas": [r for r in ptxas[PUSH] if r["name"].startswith(
+             f"sparse_push_kernel<{push_geometry(D)[1]},")]},
+        {"name": OFFSETS, "route": "cuda",
+         "source": "paddlebox_tpu_torch/csrc/sparse_push.cu",
+         "replaces": "paddlebox_tpu/ps/device_table.py:189",
+         "launches": launches[merge_offsets.__name__],
+         "max_abs_err": offsets_err, **offsets_timing},
     ]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,10 @@ them. ``sparse_push`` takes the plain version for tensors on the CPU and the
 hand-written kernel (``csrc/sparse_push.cu``) for tensors on the card; there
 is no fallback between the two.
 
+The kernel's merge order comes from a stable sort of ``inverse`` and a
+boundary kernel (``merge_order``); ``merge_order_plain`` is its plain
+version. ``push_geometry`` fixes how the kernel spreads a row over lanes.
+
 Inputs: ``values [cap, D]``, ``state [cap, max(state_dim, 1)]``,
 ``demb [Npad, D]`` (columns 0, 1 carry the show/clk increments),
 ``inverse [Npad]`` int32 position of each key's unique, ``uniq_rows
@@ -74,30 +78,140 @@ def sparse_push_plain(layout: "ArenaLayout", values: torch.Tensor,
     return values, state
 
 
+MAX_DIM = 256  # csrc/sparse_push.cu kMaxDim
+
+
+def push_geometry(dim: int) -> Tuple[int, int]:
+    """``(G, C)`` of the push kernel for rows of ``dim`` columns: a group of
+    G lanes holds one unique's row, each lane C columns of it in registers,
+    interleaved (lane l holds columns l, l + G, ...). G is the smallest power
+    of two with ``4 G >= dim``, at most 32; ``C = ceil(dim / G)``."""
+    if not 2 <= dim <= MAX_DIM:
+        raise ValueError(f"push rows of {dim} columns: the kernel takes 2 to "
+                         f"{MAX_DIM}")
+    lanes = 1
+    while 4 * lanes < dim and lanes < 32:
+        lanes *= 2
+    return lanes, -(-dim // lanes)
+
+
+def group_desc(layout: "ArenaLayout") -> ctypes.Array:
+    """The kernel's column-group descriptor, (start, width, gated, state
+    offset) per group, as a C int array (``ArenaLayout`` builds it once)."""
+    desc = []
+    for gi, (start, width, gated) in enumerate(layout.groups):
+        desc += [start, width, int(gated), int(layout.state_offsets[gi])]
+    return (ctypes.c_int * max(len(desc), 1))(*desc)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("sparse_push")
     fn = lib.pbx_sparse_push
     fn.argtypes = [ctypes.c_void_p] * 7 + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.pbx_merge_offsets.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_int64, ctypes.c_int64,
+                                      ctypes.c_void_p]
+    lib.pbx_merge_offsets.restype = ctypes.c_int
     lib.pbx_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pbx_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def merge_order(inverse: torch.Tensor, upad: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``order`` [Npad] int32, the key positions grouped by unique and
+def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.pbx_cuda_error_string(rc).decode()}")
+
+
+def merge_offsets_plain(inverse: torch.Tensor, upad: int) -> torch.Tensor:
+    """``offsets`` [upad + 1] int32: where each unique's keys start in the
+    keys grouped by unique (``inverse`` sorted or not, in ``[0, upad)``)."""
+    counts = torch.bincount(inverse.long(), minlength=upad)
+    if counts.shape[0] != upad:
+        raise ValueError(f"inverse holds a unique >= upad {upad}")
+    offsets = torch.zeros(upad + 1, dtype=torch.int32, device=inverse.device)
+    offsets[1:] = counts.cumsum(0)
+    return offsets
+
+
+def merge_offsets(sorted_inv: torch.Tensor, upad: int) -> torch.Tensor:
+    """The boundary kernel: ``merge_offsets_plain`` of the sorted inverse
+    (int32, on the card), on the current stream. Counts each launch in
+    ``merge_offsets.launches``."""
+    if not sorted_inv.is_cuda or sorted_inv.dtype != torch.int32 or \
+            sorted_inv.dim() != 1 or not sorted_inv.is_contiguous():
+        raise ValueError("merge_offsets: sorted_inv must be a contiguous 1-D "
+                         "int32 CUDA tensor")
+    offsets = torch.empty(upad + 1, dtype=torch.int32,
+                          device=sorted_inv.device)
+    lib = _lib()
+    stream = torch.cuda.current_stream(sorted_inv.device).cuda_stream
+    _raise_on(lib, lib.pbx_merge_offsets(sorted_inv.data_ptr(),
+                                         offsets.data_ptr(),
+                                         sorted_inv.shape[0], upad, stream),
+              "merge_offsets")
+    merge_offsets.launches += 1
+    return offsets
+
+
+merge_offsets.launches = 0
+
+
+def merge_order_plain(inverse: torch.Tensor, upad: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``order`` [Npad] int64, the key positions grouped by unique and
     ascending within each (a stable sort of ``inverse``), and ``offsets``
     [upad + 1] int32, where each unique's keys start in ``order``."""
+    return (torch.sort(inverse, stable=True).indices,
+            merge_offsets_plain(inverse, upad))
+
+
+def merge_order(inverse: torch.Tensor, upad: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``merge_order_plain`` for a CPU ``inverse``; on the card a stable
+    sort and the boundary kernel."""
+    if not inverse.is_cuda:
+        return merge_order_plain(inverse, upad)
     sorted_inv, order = torch.sort(inverse, stable=True)
-    offsets = torch.searchsorted(
-        sorted_inv, torch.arange(upad + 1, dtype=inverse.dtype,
-                                 device=inverse.device), out_int32=True)
-    return order.int(), offsets
+    return order, merge_offsets(sorted_inv, upad)
+
+
+def push_rows(layout: "ArenaLayout", values: torch.Tensor,
+              state: torch.Tensor, demb: torch.Tensor, order: torch.Tensor,
+              offsets: torch.Tensor, uniq_rows: torch.Tensor,
+              uniq_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the push kernel on the current stream, given the merge order
+    of ``merge_order``; the other inputs as ``sparse_push_cuda`` checks
+    them. Counts each launch in ``sparse_push_cuda.launches``."""
+    upad = uniq_rows.shape[0]
+    if order.dtype != torch.int64 or order.shape != (demb.shape[0],) or \
+            offsets.dtype != torch.int32 or offsets.shape != (upad + 1,):
+        raise ValueError("push_rows: order must be int64 [Npad] and offsets "
+                         "int32 [Upad + 1]")
+    for name, t in (("order", order), ("offsets", offsets)):
+        if t.device != values.device or not t.is_contiguous():
+            raise ValueError(f"push_rows: {name} must be contiguous on "
+                             f"{values.device}")
+    conf = layout.conf
+    dim = values.shape[1]
+    lanes, cols = push_geometry(dim)
+    lib = _lib()
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    _raise_on(lib, lib.pbx_sparse_push(
+        values.data_ptr(), state.data_ptr(), demb.data_ptr(),
+        order.data_ptr(), offsets.data_ptr(), uniq_rows.data_ptr(),
+        uniq_mask.data_ptr(), upad, dim, state.shape[1], len(layout.groups),
+        layout.push_desc, _OPTIMIZERS[conf.optimizer], lanes, cols,
+        conf.learning_rate, conf.initial_g2sum, conf.embedx_threshold,
+        stream), "sparse_push")
+    sparse_push_cuda.launches += 1
+    return values, state
 
 
 def sparse_push_cuda(layout: "ArenaLayout", values: torch.Tensor,
@@ -105,10 +219,11 @@ def sparse_push_cuda(layout: "ArenaLayout", values: torch.Tensor,
                      inverse: torch.Tensor, uniq_rows: torch.Tensor,
                      uniq_mask: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sort ``inverse`` on the card, then launch the push kernel on the
-    current stream. Precondition, not checked: the live uniques' rows are
-    distinct and below the arena's capacity, and ``inverse`` is in
-    ``[0, Upad)``. Counts each launch in ``sparse_push_cuda.launches``."""
+    """Sort ``inverse`` on the card, find each unique's keys with the
+    boundary kernel, then launch the push kernel, all on the current
+    stream. Precondition, not checked: the live uniques' rows are distinct
+    and below the arena's capacity, and ``inverse`` is in ``[0, Upad)``.
+    Counts each launch in ``sparse_push_cuda.launches``."""
     dev = values.device
     tensors = dict(values=values, state=state, demb=demb, inverse=inverse,
                    uniq_rows=uniq_rows, uniq_mask=uniq_mask)
@@ -137,29 +252,12 @@ def sparse_push_cuda(layout: "ArenaLayout", values: torch.Tensor,
                          f"{layout.state_dim}")
     if uniq_mask.shape != uniq_rows.shape:
         raise ValueError("uniq_mask and uniq_rows differ in shape")
-    conf = layout.conf
     upad = uniq_rows.shape[0]
     if upad == 0:
         return values, state
     order, offsets = merge_order(inverse, upad)
-    desc = []
-    for gi, (start, width, gated) in enumerate(layout.groups):
-        desc += [start, width, int(gated), int(layout.state_offsets[gi])]
-    desc_arr = (ctypes.c_int * max(len(desc), 1))(*desc)
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.pbx_sparse_push(
-        values.data_ptr(), state.data_ptr(), demb.data_ptr(),
-        order.data_ptr(), offsets.data_ptr(), uniq_rows.data_ptr(),
-        uniq_mask.data_ptr(), upad, dim, state.shape[1],
-        len(layout.groups), desc_arr, _OPTIMIZERS[conf.optimizer],
-        conf.learning_rate, conf.initial_g2sum, conf.embedx_threshold,
-        stream)
-    if rc != 0:
-        raise RuntimeError("sparse_push kernel launch failed: "
-                           f"{lib.pbx_cuda_error_string(rc).decode()}")
-    sparse_push_cuda.launches += 1
-    return values, state
+    return push_rows(layout, values, state, demb, order, offsets, uniq_rows,
+                     uniq_mask)
 
 
 sparse_push_cuda.launches = 0

@@ -38,7 +38,7 @@ import torch
 from paddlebox_tpu_torch._device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.config import BucketSpec, TableConfig
 from paddlebox_tpu_torch.ops import sparse_optim
-from paddlebox_tpu_torch.ops.sparse_push import sparse_push
+from paddlebox_tpu_torch.ops.sparse_push import group_desc, sparse_push
 from paddlebox_tpu_torch.utils.checkpoint import write_npz
 
 
@@ -82,6 +82,7 @@ class ArenaLayout:
                              for g in self.groups]
         self.state_offsets = np.cumsum([0] + self.state_widths)
         self.state_dim = int(self.state_offsets[-1])
+        self.push_desc = group_desc(self)
 
     def alloc(self, cap: int, generator: torch.Generator,
               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
