@@ -12,13 +12,20 @@ Phases, each fatal on failure:
              forward, its backward (the gather) and the push (with its
              boundary kernel); print each kernel's ptxas report
              (registers, spills, shared memory).
-2. kernel  — hold each kernel against its plain PyTorch version on the
-             card. Forward: the serving shape (B=512, S=26, D=11, Npad from
-             the bucket), the multi-key shape (B=4096, 1-3 keys a slot),
-             the training shape (B=2048, S=24, Npad=102,400) and edge
-             shapes aimed at its 128-key tiles; show/clk sums exact.
-             Backward: the training shape (B=2048, S=24, D=11, Npad=102,400)
-             and edge shapes; bit-exact. Push: the training shape with sgd,
+2. kernel  — hold each kernel, launched on the card, against its plain
+             PyTorch version (the forward's on the host, which sums in the
+             kernel's key order). Forward: the serving shape (B=512, S=26,
+             D=11, Npad from the bucket), the multi-key shape (B=4096, 1-3
+             keys a slot), the training shape (B=2048, S=24, Npad=102,400)
+             and edge shapes aimed at its 128-key tiles; show/clk sums
+             exact.
+             Backward, bit-exact: the training shape (B=2048, S=24, D=11,
+             Npad=102,400), the training ids in random order, a warp's
+             chunk holding segment 0 and segment B*S-1, every key in the
+             first or last segment, Npad % 4 == 3, one key past whole
+             blocks, 1, 2, 4 and 8 threads a key (D = 11, 24, 50, 67, 200),
+             and g, ids and cvm_in one element into their allocations.
+             Push: the training shape with sgd,
              adagrad and adam, duplicate keys, key 0, unknown keys and rows
              crossing the embedx threshold, edge shapes, every lane geometry
              (D = 4, 5, 16, 33, 129, 256, each optimizer), a Upad off the
@@ -40,12 +47,12 @@ Phases, each fatal on failure:
              must launch once a step, losses finite, and the first 2 steps must match
              the same step on the CPU from the same init and batches.
    Time per step, examples/s and a device profile of the training loop.
-5. timing  — forward at the serving and the multi-key shape; backward,
-             push and boundary kernel at the training shape: kernel, plain
-             and library times, per call and in a CUDA graph, beside each
-             kernel's bound; the push kernel alone beside the push with its
-             merge order, adam beside adagrad; and the launch floor, the
-             graph time of ``torch.cuda._sleep(0)``.
+5. timing  — forward at the serving, the multi-key and the training
+             shape; backward, push and boundary kernel at the training
+             shape: kernel, plain and library times, per call and in a CUDA
+             graph, beside each kernel's bound; the push kernel alone beside
+             the push with its merge order, adam beside adagrad; and the
+             launch floor, the graph time of ``torch.cuda._sleep(0)``.
 
 Prints the card's ``name, power.limit`` line, then one JSON line of
 per-kernel numbers, then ``{"ok": true, "device": {...}}`` last. Exits
@@ -77,7 +84,7 @@ from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
                                                      save_inference_model)
 from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
 from paddlebox_tpu_torch.ops import _build
-from paddlebox_tpu_torch.ops.seqpool_kernel import (bulk_loads,
+from paddlebox_tpu_torch.ops.seqpool_kernel import (bulk_loads, grad_lanes,
                                                     seqpool_cvm_cuda,
                                                     seqpool_cvm_grad_cuda,
                                                     seqpool_cvm_grad_plain,
@@ -98,8 +105,11 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 # H100 SXM data sheet: HBM3 bandwidth and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# kernel vs plain: both sum in float32, in another order (index_add_ on CUDA
-# is atomic); show/clk are integer-valued and must be exact before the log
+# forward kernel vs plain: both sum in float32, the plain version on the
+# host, whose index_add_ adds in key order as the kernel does (on the card
+# index_add_ adds by atomics in an order that changes from run to run, up
+# to ~1.5e-5 away on a 700-key segment); the logs may differ in the last
+# bits; show/clk are integer-valued and must be exact before the log
 RTOL, ATOL = 1e-6, 1e-5
 # scores: float32 GEMMs on the card vs another summation order
 SCORE_ATOL = 1e-5
@@ -303,10 +313,9 @@ def make_pool_inputs(rng, batch: int, slots: int, dim: int, lengths,
 def check_kernel(name: str, emb, segs, batch: int, slots: int,
                  use_cvm: bool, cvm_offset: int, pad_value: float) -> float:
     got = seqpool_cvm_cuda(emb, segs, batch, slots, use_cvm, cvm_offset,
-                           pad_value)
-    torch.cuda.synchronize()
-    want = seqpool_cvm_plain(emb, segs, batch, slots, use_cvm, cvm_offset,
-                             pad_value)
+                           pad_value).cpu()
+    want = seqpool_cvm_plain(emb.cpu(), segs.cpu(), batch, slots, use_cvm,
+                             cvm_offset, pad_value)
     require(got.shape == want.shape,
             f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     err = float((got - want).abs().max()) if got.numel() else 0.0
@@ -402,20 +411,34 @@ def phase_kernel(rng):
     e, sg, _ = make_pool_inputs(rng, B, S, D, lengths, npad, offset_rows=1)
     require(not bulk_loads(e, sg), "the offset view is 16-byte aligned")
     err = max(err, check_kernel("misaligned", e, sg, B, S, True, 2, 0.0))
-    return err, {"serving": (B, serving), "multikey": (MK_B, multikey)}
+    return err, {"serving": (B, serving), "multikey": (MK_B, multikey),
+                 "training": (TB, tr)}
+
+
+def on_card(x: np.ndarray, offset: int) -> torch.Tensor:
+    """``x`` on the card, as a view ``offset`` elements into its
+    allocation (not 16-byte aligned for an offset of 1 to 3)."""
+    buf = torch.from_numpy(np.concatenate([np.zeros(offset, x.dtype),
+                                           x.ravel()])).cuda()
+    return buf[offset:].view(x.shape)
 
 
 def check_grad(rng, name: str, batch: int, slots: int, dim: int, lengths,
-               npad: int, use_cvm: bool, cvm_offset: int):
-    """Backward kernel vs plain, bit for bit. Returns the largest error
-    and the inputs."""
+               npad: int, use_cvm: bool, cvm_offset: int, shuffle=None,
+               offset: int = 0):
+    """Backward kernel vs plain, bit for bit, on the sorted segment ids of
+    ``lengths`` (reordered by ``shuffle``); with ``offset`` g, the ids and
+    cvm_in are views that many elements into their allocations. Returns the
+    largest error and the inputs."""
     segs, n = segment_layout(batch, slots, lengths, npad)
+    if shuffle is not None:
+        segs = shuffle(segs)
     width = dim if use_cvm else dim - cvm_offset
-    g = torch.from_numpy(rng.normal(size=(batch, slots, width)).astype(
-        np.float32)).cuda()
-    cvm = torch.from_numpy(rng.integers(0, 3, size=(batch, cvm_offset))
-                           .astype(np.float32)).cuda()
-    segs = torch.from_numpy(segs).cuda()
+    g = on_card(rng.normal(size=(batch, slots, width)).astype(np.float32),
+                offset)
+    cvm = on_card(rng.integers(0, 3, size=(batch, cvm_offset)).astype(
+        np.float32), offset)
+    segs = on_card(segs, offset)
     got = seqpool_cvm_grad_cuda(g, segs, cvm, batch, slots, use_cvm,
                                 cvm_offset)
     torch.cuda.synchronize()
@@ -428,17 +451,30 @@ def check_grad(rng, name: str, batch: int, slots: int, dim: int, lengths,
             f"{name}: backward kernel vs plain max abs err {err}")
     print(f"kernel check {GRAD} {name}: B={batch} S={slots} D={dim} "
           f"Npad={npad} keys={n} use_cvm={use_cvm} cvm_offset={cvm_offset} "
-          "bit-exact ok")
+          f"lanes={grad_lanes(dim)} offset={offset} bit-exact ok")
     return err, (g, segs, cvm)
 
 
 def phase_kernel_grad(rng):
     """Backward kernel vs plain at the training shape and edge shapes.
     Returns the largest error (0: bit-exact) and the training inputs."""
-    err, train = check_grad(rng, "training", TB, TS, D, rng.integers(
-        1, 4, size=TB * TS), TNPAD, True, 2)
+    train_lengths = rng.integers(1, 4, size=TB * TS)
+    err, train = check_grad(rng, "training", TB, TS, D, train_lengths, TNPAD,
+                            True, 2)
     few = rng.integers(0, 4, size=64 * S) * (rng.uniform(size=64 * S) < 0.5)
     full = rng.integers(1, 4, size=64 * S)
+    # every key in the first or the last segment
+    ends = np.zeros(TB * TS, np.int64)
+    ends[0], ends[-1] = 300, 5000
+
+    def ends_in_one_chunk(segs):
+        """The training ids with the last real key's id (n_seg - 1) moved
+        to position 1: one warp's chunk holds segment 0 and n_seg - 1."""
+        segs = segs.copy()
+        last = int(np.flatnonzero(segs < TB * TS)[-1])
+        segs[1], segs[last] = segs[last], segs[1]
+        return segs
+
     cases = [
         ("no-cvm", TB, TS, D, rng.integers(1, 4, size=TB * TS), TNPAD,
          False, 3),
@@ -449,9 +485,36 @@ def phase_kernel_grad(rng):
         ("all-padding", 16, S, D, np.zeros(16 * S, np.int64), 1024, True, 2),
         ("no-keys", 4, 3, D, np.zeros(12, np.int64), 0, True, 2),
         ("d67", 64, S, 67, rng.integers(0, 4, size=64 * S), 8192, True, 2),
+        ("d200", 512, S, 200, rng.integers(0, 4, size=512 * S), 16384, True,
+         3),
+        ("d200-no-cvm", 512, S, 200, rng.integers(0, 4, size=512 * S), 16384,
+         False, 3),
+        # the training ids in random order
+        ("unsorted", TB, TS, D, train_lengths, TNPAD, True, 2,
+         rng.permutation),
+        ("first-and-last-in-a-chunk", TB, TS, D, train_lengths, TNPAD, True,
+         2, ends_in_one_chunk),
+        ("first-and-last-segment", TB, TS, D, ends, 8192, True, 2),
+        # Npad % 4 == 3 (the last warp's chunk is ragged), and one key past
+        # 800 whole blocks of 128 keys
+        ("npad-mod-4-is-3", TB, TS, D, train_lengths, TNPAD - 1, True, 2),
+        ("one-key-past-whole-blocks", TB, TS, D, rng.integers(
+            1, 4, size=TB * TS), TNPAD + 1, True, 2),
+        # 2 and 4 lanes a key (d67 and d200 take 8), ragged last chunks
+        ("d24-lanes-2", 64, S, 24, rng.integers(0, 4, size=64 * S), 4099,
+         True, 3),
+        ("d50-lanes-4", 64, S, 50, rng.integers(0, 4, size=64 * S), 2050,
+         False, 2),
     ]
     for case in cases:
         err = max(err, check_grad(rng, *case)[0])
+    # g, the ids and cvm_in one element into their allocations, at the
+    # training shape and at D=200
+    err = max(err, check_grad(rng, "misaligned", TB, TS, D, train_lengths,
+                              TNPAD, True, 2, offset=1)[0])
+    err = max(err, check_grad(rng, "misaligned-d200", 512, S, 200,
+                              rng.integers(0, 4, size=512 * S), 16384, False,
+                              3, offset=1)[0])
     return err, train
 
 
@@ -980,23 +1043,25 @@ def print_timing(name: str, tag: str, shape: str, library: str,
           f"{t['library_graph_ms']:.5f} ms")
 
 
-def time_shape(tag: str, batch: int, inputs) -> dict:
+def time_shape(tag: str, batch: int, inputs, slots: int = S) -> dict:
     """Forward kernel, plain and ``segment_reduce`` at one shape."""
     emb, segs, n = inputs
-    seg_lengths = torch.bincount(segs[:n].long(), minlength=batch * S)
+    seg_lengths = torch.bincount(segs[:n].long(), minlength=batch * slots)
     valid = emb[:n]
-    t = timed(lambda: seqpool_cvm_cuda(emb, segs, batch, S, True, 2, 0.0),
-              lambda: seqpool_cvm_plain(emb, segs, batch, S, True, 2, 0.0),
+    t = timed(lambda: seqpool_cvm_cuda(emb, segs, batch, slots, True, 2, 0.0),
+              lambda: seqpool_cvm_plain(emb, segs, batch, slots, True, 2,
+                                        0.0),
               lambda: torch.segment_reduce(valid, "sum", lengths=seg_lengths,
                                            unsafe=True))
     # the kernel must load the rows and ids of the n valid keys (padding
     # rows are not needed) and write the whole output once
     dim = emb.shape[1]
-    nbytes = n * dim * 4 + n * 4 + batch * S * dim * 4
-    ops = n * dim + batch * S * 4  # adds over the keys, +pad, 2 logs, 1 sub
+    nbytes = n * dim * 4 + n * 4 + batch * slots * dim * 4
+    # adds over the keys, +pad, 2 logs, 1 sub
+    ops = n * dim + batch * slots * 4
     with_bound(t, nbytes, ops)
-    print_timing(KERNEL, tag, f"B={batch} S={S} D={dim} Npad={emb.shape[0]} "
-                 f"keys={n}", "segment_reduce", t)
+    print_timing(KERNEL, tag, f"B={batch} S={slots} D={dim} "
+                 f"Npad={emb.shape[0]} keys={n}", "segment_reduce", t)
     return t
 
 
@@ -1007,6 +1072,8 @@ def phase_timing(shapes: dict) -> dict:
           f"{row['launch_floor_ms']:.5f} ms")
     mk = time_shape("multi-key", *shapes["multikey"])
     row.update({f"multikey_{k}": v for k, v in mk.items()})
+    tr = time_shape("training", *shapes["training"], TS)
+    row.update({f"training_{k}": v for k, v in tr.items()})
     return row
 
 
@@ -1021,14 +1088,19 @@ def time_grad(inputs) -> dict:
     t = timed(lambda: seqpool_cvm_grad_cuda(g, segs, cvm, TB, TS, True, off),
               lambda: seqpool_cvm_grad_plain(g, segs, cvm, TB, TS, True, off),
               lambda: torch.index_select(tail, 0, segs))
-    # write d_emb once; read the ids, the tail columns of g and cvm_in once
-    npad, dim = segs.shape[0], g.shape[-1]
-    nbytes = npad * dim * 4 + npad * 4 + TB * TS * (dim - off) * 4 + \
-        cvm.numel() * 4
-    with_bound(t, nbytes, 0)
-    print_timing(GRAD, "training", f"B={TB} S={TS} D={dim} Npad={npad}",
-                 "index_select", t)
+    with_bound(t, grad_bytes(g, segs, cvm), 0)
+    print_timing(GRAD, "training", f"B={TB} S={TS} D={g.shape[-1]} "
+                 f"Npad={segs.shape[0]}", "index_select", t)
     return t
+
+
+def grad_bytes(g, segs, cvm) -> int:
+    """Bytes of one backward with use_cvm: write d_emb once; read the ids,
+    the tail columns of g and cvm_in once."""
+    npad, dim = segs.shape[0], g.shape[-1]
+    n_seg = g.shape[0] * g.shape[1]
+    return npad * dim * 4 + npad * 4 + n_seg * (dim - cvm.shape[1]) * 4 + \
+        cvm.numel() * 4
 
 
 def push_bound(layout, demb, inv, urows, umask) -> Tuple[int, int]:
@@ -1166,7 +1238,7 @@ def main() -> int:
          "source": "paddlebox_tpu_torch/csrc/seqpool_cvm_grad.cu",
          "replaces": "paddlebox_tpu/ops/seqpool_cvm.py:109",
          "launches": launches[seqpool_cvm_grad_cuda.__name__],
-         "max_abs_err": grad_err, **grad_timing},
+         "max_abs_err": grad_err, **grad_timing, "ptxas": ptxas[GRAD]},
         {"name": PUSH, "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/sparse_push.cu",
          "replaces": "paddlebox_tpu/ps/device_table.py:189",

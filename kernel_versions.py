@@ -1,0 +1,307 @@
+"""Development script: a kernel of the package against earlier versions of
+its source, on the card. Not part of the package or of ``chip_smoke.py``.
+
+    mkdir -p build/old
+    git show 043fc54:paddlebox_tpu_torch/csrc/sparse_push.cu \\
+        > build/old/push_v1.cu
+    python3 kernel_versions.py push --old build/old/push_v1.cu
+    git show 8ff1c7d:paddlebox_tpu_torch/csrc/seqpool_cvm_grad.cu \\
+        > build/old/grad_v1.cu
+    python3 kernel_versions.py grad --old build/old/grad_v1.cu
+
+The script builds the earlier sources and the package's kernel, one
+``nvcc`` each, all at once, and prints each one's ptxas report (registers,
+spills, shared memory). It holds each against the plain version at the
+training shape (B=2048, S=24, D=11, Npad=102,400), then times them in turns
+in one process on one card: the earlier ones in the order given, the
+package's kernel twice, the earlier ones in reverse order. Run it from the
+root of a checkout, before anything has built the package's kernel (or it
+prints no ptxas report for it): it takes its inputs and timers from
+``chip_smoke.py``.
+
+``push``: each earlier source has version 1's C interface, ``pbx_sparse_push``
+taking an int32 ``order`` and ``offsets`` from ``searchsorted``, with no
+lane geometry (the kernel of commit 043fc54). Checks: adagrad and adam with
+one key 500 times in the batch, and adagrad with keys uniform over the
+table; show/clk exact, the rest within 1e-6. Each turn reads the kernel
+alone and the push with its merge order in a CUDA graph, and the push per
+call between CUDA events, beside the byte bound.
+
+``grad``: each earlier source has version 1's C interface,
+``pbx_seqpool_cvm_grad(g, ids, cvm_in, d_emb, n_keys, dim, n_seg,
+num_slots, use_cvm, cvm_offset, stream)`` (the kernel of commit 8ff1c7d),
+or version 2's, which takes ``lanes`` before ``stream``; the script reads
+which from the source. Checks: bit for bit, use_cvm, cvm_offset 2. Each
+turn reads a CUDA graph (device time) and a per-call time between CUDA
+events (the host's launch rate), beside the byte bound that
+``chip_smoke.py`` counts and ``index_select``'s time, read before and after
+the turns.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+from paddlebox_tpu_torch.config import TableConfig
+from paddlebox_tpu_torch.ops import _build
+from paddlebox_tpu_torch.ops.seqpool_kernel import (grad_lanes,
+                                                    seqpool_cvm_grad_cuda,
+                                                    seqpool_cvm_grad_plain)
+from paddlebox_tpu_torch.ops.sparse_push import (_OPTIMIZERS, merge_order,
+                                                 push_rows, sparse_push_cuda,
+                                                 sparse_push_plain)
+
+# the package's source of each kernel
+SOURCES = {"push": "sparse_push", "grad": "seqpool_cvm_grad"}
+
+
+def build_old(kernel: str, src: Path) -> Tuple[ctypes.CDLL, str]:
+    """Compiles an earlier source; returns the library and nvcc's output."""
+    work = _build.BUILD_DIR / "kernel_versions" / kernel
+    work.mkdir(parents=True, exist_ok=True)
+    out = work / f"lib{src.stem}.so"
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                          str(src)], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"{src} build failed:\n{res.stderr}")
+    return ctypes.CDLL(str(out)), res.stdout + res.stderr
+
+
+def turns(tags: List[str]) -> List[str]:
+    return tags + ["new", "new"] + tags[::-1]
+
+
+# -- push ---------------------------------------------------------------------
+
+
+class OldPush:
+    """An earlier push kernel, with the merge order its wrapper built: a
+    stable sort, ``searchsorted`` for the offsets and an int32 cast of the
+    order."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        lib.pbx_sparse_push.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_float,
+            ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        lib.pbx_sparse_push.restype = ctypes.c_int
+        self.lib = lib
+
+    @staticmethod
+    def merge_order(inv: torch.Tensor, upad: int):
+        sorted_inv, order = torch.sort(inv, stable=True)
+        offsets = torch.searchsorted(
+            sorted_inv, torch.arange(upad + 1, dtype=inv.dtype,
+                                     device=inv.device), out_int32=True)
+        return order.int(), offsets
+
+    def push_rows(self, layout, values, state, demb, order, offsets, urows,
+                  umask) -> None:
+        conf = layout.conf
+        rc = self.lib.pbx_sparse_push(
+            values.data_ptr(), state.data_ptr(), demb.data_ptr(),
+            order.data_ptr(), offsets.data_ptr(), urows.data_ptr(),
+            umask.data_ptr(), urows.shape[0], values.shape[1],
+            state.shape[1], len(layout.groups), layout.push_desc,
+            _OPTIMIZERS[conf.optimizer], conf.learning_rate,
+            conf.initial_g2sum, conf.embedx_threshold,
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"old push kernel launch failed: {rc}")
+
+    def push(self, layout, values, state, demb, inv, urows, umask) -> None:
+        self.push_rows(layout, values, state, demb,
+                       *self.merge_order(inv, urows.shape[0]), urows, umask)
+
+
+class NewPush:
+    """The package's push, through its wrappers."""
+
+    merge_order = staticmethod(merge_order)
+    push_rows = staticmethod(push_rows)
+    push = staticmethod(sparse_push_cuda)
+
+
+def check_push(name: str, ver, inputs) -> float:
+    layout, values, state, demb, inv, urows, umask = inputs
+    got = (values.clone(), state.clone())
+    want = (values.clone(), state.clone())
+    ver.push(layout, *got, demb, inv, urows, umask)
+    torch.cuda.synchronize()
+    sparse_push_plain(layout, *want, demb, inv, urows, umask)
+    cs.require(torch.equal(got[0][:, :2], want[0][:, :2]),
+               f"{name}: show/clk differ from plain")
+    err = max(float((got[0] - want[0]).abs().max()),
+              float((got[1] - want[1]).abs().max()))
+    cs.require(err <= cs.PUSH_ATOL, f"{name}: max abs err {err}")
+    return err
+
+
+def push_readings(ver, inputs) -> Tuple[float, float, float]:
+    """Kernel alone (graph), push with merge order (graph), per call."""
+    layout, values, state, demb, inv, urows, umask = inputs
+    order, offsets = ver.merge_order(inv, urows.shape[0])
+    alone = cs.graph_ms(lambda: ver.push_rows(layout, values, state, demb,
+                                              order, offsets, urows, umask))
+    full = cs.graph_ms(lambda: ver.push(layout, values, state, demb, inv,
+                                        urows, umask))
+    call = cs.cuda_ms(lambda: ver.push(layout, values, state, demb, inv,
+                                       urows, umask), cs.ITERS)
+    return alone, full, call
+
+
+def run_push(olds: Dict[str, ctypes.CDLL], rng, smi: str) -> None:
+    versions = {tag: OldPush(lib) for tag, lib in olds.items()}
+    versions["new"] = NewPush
+    # chip_smoke.py's timing batch (a key 500 times, 50 unknown keys), and
+    # the training phase's (keys uniform over the table)
+    for opt, hot, unknown in (("adagrad", 500, 50), ("adagrad", 0, 0),
+                              ("adam", 500, 50)):
+        conf = TableConfig(embedx_dim=8, cvm_offset=3, embedx_threshold=10.0,
+                           optimizer=opt, seed=7)
+        table, batch = cs.push_batch(rng, conf, cs.HOT_VOCAB, cs.TNPAD,
+                                     cs.TB * cs.TS * 2, hot=hot,
+                                     unknown=unknown, upad_min=cs.TNPAD)
+        opt = f"{opt} hot={hot}"
+        demb, inv, urows, umask = (torch.from_numpy(x).cuda() for x in batch)
+        nbytes, ops = cs.push_bound(table.layout, demb, inv, urows, umask)
+        bound_ms = cs.with_bound({}, nbytes, ops)["bound_ms"]
+        inputs = {tag: (table.layout, table.values.clone(),
+                        table.state.clone(), demb, inv, urows, umask)
+                  for tag in versions}
+        for tag, ver in versions.items():
+            err = check_push(f"{tag} {opt}", ver, inputs[tag])
+            print(f"check {tag} {opt}: show/clk exact, max abs err "
+                  f"{err:.3e} ok")
+        print(f"{opt}: Npad={cs.TNPAD} D={table.dim} Upad={urows.shape[0]} "
+              f"live={int((umask > 0).sum())} state columns "
+              f"{table.state.shape[1]}; bound {bound_ms:.6f} ms ({nbytes} "
+              f"bytes) on {smi}")
+        for turn, tag in enumerate(turns(list(olds))):
+            alone, full, call = push_readings(versions[tag], inputs[tag])
+            print(f"turn {turn} {tag} {opt}: kernel alone {alone:.5f} ms "
+                  f"({100 * bound_ms / alone:.1f}% of bound), with merge "
+                  f"order {full:.5f} ms (CUDA graph); per call {call:.5f} ms")
+
+
+# -- grad ---------------------------------------------------------------------
+
+
+class OldGrad:
+    """An earlier backward kernel, through version 1's or version 2's C
+    interface."""
+
+    def __init__(self, lib: ctypes.CDLL, src: Path):
+        self.lanes = re.search(r"pbx_seqpool_cvm_grad\([^)]*\blanes\b",
+                               src.read_text()) is not None
+        lib.pbx_seqpool_cvm_grad.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int] + [ctypes.c_int] * self.lanes + [
+            ctypes.c_void_p]
+        lib.pbx_seqpool_cvm_grad.restype = ctypes.c_int
+        self.lib, self.tag = lib, src.stem
+
+    def __call__(self, g, segs, cvm, batch, slots, use_cvm, cvm_offset):
+        dim = g.shape[-1] + (0 if use_cvm else cvm_offset)
+        d_emb = torch.empty((segs.shape[0], dim), device=g.device)
+        lanes = (grad_lanes(dim),) if self.lanes else ()
+        rc = self.lib.pbx_seqpool_cvm_grad(
+            g.data_ptr(), segs.data_ptr(), cvm.data_ptr(), d_emb.data_ptr(),
+            segs.shape[0], dim, batch * slots, slots, int(use_cvm),
+            cvm_offset, *lanes, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.tag} launch failed: {rc}")
+        return d_emb
+
+
+def run_grad(olds: Dict[str, ctypes.CDLL], srcs: List[Path], rng,
+             smi: str) -> None:
+    versions = {src.stem: OldGrad(olds[src.stem], src) for src in srcs}
+    versions["new"] = seqpool_cvm_grad_cuda
+    # checks the package's kernel against plain, bit for bit
+    _, (g, segs, cvm) = cs.check_grad(rng, "training", cs.TB, cs.TS, cs.D,
+                                      rng.integers(1, 4, size=cs.TB * cs.TS),
+                                      cs.TNPAD, True, 2)
+    args = (g, segs, cvm, cs.TB, cs.TS, True, 2)
+    want = seqpool_cvm_grad_plain(*args)
+    for tag in olds:
+        got = versions[tag](*args)
+        torch.cuda.synchronize()
+        cs.require(torch.equal(got, want), f"{tag}: differs from plain")
+        print(f"check {tag}: bit-exact against plain ok")
+    nbytes = cs.grad_bytes(g, segs, cvm)
+    bound_ms = cs.with_bound({}, nbytes, 0)["bound_ms"]
+    tail = torch.cat([g.reshape(cs.TB * cs.TS, -1)[:, 2:],
+                      g.new_zeros((1, g.shape[-1] - 2))])
+
+    def library():
+        torch.index_select(tail, 0, segs)
+
+    print(f"training shape B={cs.TB} S={cs.TS} D={cs.D} Npad={cs.TNPAD}: "
+          f"bound {bound_ms:.6f} ms ({nbytes} bytes) on {smi}")
+    print(f"index_select before: {cs.graph_ms(library):.5f} ms (CUDA graph); "
+          f"per call {cs.cuda_ms(library, cs.ITERS):.5f} ms")
+    for turn, tag in enumerate(turns(list(olds))):
+        fn = versions[tag]
+        graph = cs.graph_ms(lambda: fn(*args))
+        call = cs.cuda_ms(lambda: fn(*args), cs.ITERS)
+        print(f"turn {turn} {tag}: {graph:.5f} ms ({100 * bound_ms / graph:.1f}"
+              f"% of bound) (CUDA graph); per call {call:.5f} ms")
+    print(f"index_select after: {cs.graph_ms(library):.5f} ms (CUDA graph); "
+          f"per call {cs.cuda_ms(library, cs.ITERS):.5f} ms")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("kernel", choices=sorted(SOURCES))
+    ap.add_argument("--old", required=True, type=Path, nargs="+",
+                    help="earlier sources of the kernel (see the module's "
+                         "docstring for the C interfaces they may have)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_versions: CUDA is not available", file=sys.stderr)
+        return 1
+    tags = [src.stem for src in args.old]
+    if "new" in tags or len(set(tags)) != len(tags):
+        ap.error("earlier sources need distinct file names other than new.cu")
+    with ThreadPoolExecutor(len(args.old) + 1) as pool:
+        old_f = [pool.submit(build_old, args.kernel, src) for src in args.old]
+        new_f = pool.submit(_build.build, SOURCES[args.kernel])
+        built = [f.result() for f in old_f]
+        new = new_f.result()
+    olds = {tag: lib for tag, (lib, _) in zip(tags, built)}
+    logs = {tag: log for tag, (_, log) in zip(tags, built)}
+    logs["new"] = new[1] if new else ""
+    for tag, log in logs.items():
+        for r in cs.ptxas_report(log) or [{"name": "already built, no "
+                                                   "report"}]:
+            print(f"ptxas {tag}: {r['name']}: {r.get('registers')} "
+                  f"registers, spill stores {r.get('spill_stores')} B, "
+                  f"spill loads {r.get('spill_loads')} B, stack "
+                  f"{r.get('stack')} B, smem {r.get('smem')} B")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi)
+    rng = np.random.default_rng(args.seed)
+    if args.kernel == "push":
+        run_push(olds, rng, smi)
+    else:
+        run_grad(olds, args.old, rng, smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -22,8 +22,9 @@ import torch
 
 from paddlebox_tpu_torch.ops import _build
 
-# widest row the kernel takes: a tile of 128 rows and its halo of 16 sit in
-# shared memory (MAX_DIM in csrc/seqpool_cvm.cu)
+# widest row the kernels take (MAX_DIM in csrc/seqpool_cvm.cu and
+# csrc/seqpool_cvm_grad.cu): the forward keeps a tile of 128 rows and its
+# halo of 16 in shared memory
 MAX_DIM = 256
 
 
@@ -169,6 +170,17 @@ def seqpool_cvm_grad_plain(g: torch.Tensor, segment_ids: torch.Tensor,
     return torch.cat([d_cvm, d_tail], dim=-1)
 
 
+def grad_lanes(dim: int) -> int:
+    """Threads a key of the backward kernel, for rows of ``dim`` columns:
+    the least power of two that leaves each thread at most 16 of them, but
+    at most 8, so that a warp owns at least 4 keys and a block's chunks
+    stay within 16 KB of shared memory."""
+    lanes = 1
+    while lanes * 16 < dim and lanes < 8:
+        lanes *= 2
+    return lanes
+
+
 @functools.lru_cache(maxsize=None)
 def _grad_lib() -> ctypes.CDLL:
     lib = _build.load("seqpool_cvm_grad")
@@ -176,7 +188,7 @@ def _grad_lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.pbx_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pbx_cuda_error_string.restype = ctypes.c_char_p
@@ -188,8 +200,9 @@ def seqpool_cvm_grad_cuda(g: torch.Tensor, segment_ids: torch.Tensor,
                           num_slots: int, use_cvm: bool = True,
                           cvm_offset: int = 2) -> torch.Tensor:
     """Launch the backward kernel (``csrc/seqpool_cvm_grad.cu``) on the
-    current stream. Precondition, not checked: ids in ``[0, B*S]``. Counts
-    each launch in ``seqpool_cvm_grad_cuda.launches``."""
+    current stream. Ids may come in any order. Precondition, not checked:
+    ids in ``[0, B*S]``. Counts each launch in
+    ``seqpool_cvm_grad_cuda.launches``."""
     B, S = batch_size, num_slots
     dev = segment_ids.device
     if not (segment_ids.is_cuda and g.device == dev and cvm_in.device == dev):
@@ -210,6 +223,8 @@ def seqpool_cvm_grad_cuda(g: torch.Tensor, segment_ids: torch.Tensor,
     D = g.shape[-1] + (0 if use_cvm else cvm_offset)
     if not 0 <= cvm_offset < D:
         raise ValueError(f"cvm_offset {cvm_offset} out of range for D={D}")
+    if not 1 <= D <= MAX_DIM:
+        raise ValueError(f"the kernel takes 1 <= D <= {MAX_DIM}, got {D}")
     g = g.contiguous()
     cvm_in = cvm_in.contiguous()
     segment_ids = segment_ids.contiguous()
@@ -222,7 +237,7 @@ def seqpool_cvm_grad_cuda(g: torch.Tensor, segment_ids: torch.Tensor,
     rc = lib.pbx_seqpool_cvm_grad(g.data_ptr(), segment_ids.data_ptr(),
                                   cvm_in.data_ptr(), d_emb.data_ptr(),
                                   n_keys, D, B * S, S, int(use_cvm),
-                                  cvm_offset, stream)
+                                  cvm_offset, grad_lanes(D), stream)
     if rc != 0:
         raise RuntimeError("seqpool_cvm_grad kernel launch failed: "
                            f"{lib.pbx_cuda_error_string(rc).decode()}")

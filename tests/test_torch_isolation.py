@@ -1,5 +1,6 @@
 """The port stands alone: no jax, flax, optax or paddlebox_tpu import, in
-the package, in chip_smoke.py or in push_versions.py; it serves and trains with them blocked;
+the package, in chip_smoke.py or in kernel_versions.py; it serves and
+trains with them blocked;
 its entry points default to the card and raise without one; its kernel
 modules import without a CUDA toolkit."""
 
@@ -19,7 +20,7 @@ FORBIDDEN = {"jax", "flax", "optax", "paddlebox_tpu"}
 
 def _port_files():
     out = [os.path.join(ROOT, f) for f in ("chip_smoke.py",
-                                           "push_versions.py")]
+                                           "kernel_versions.py")]
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -135,3 +135,79 @@ def test_kernel_wrapper_refuses_cpu_tensors():
             torch.zeros(1, 2, 11), torch.zeros(4, dtype=torch.int32),
             torch.zeros(1, 2), 1, 2)
     assert seqpool_kernel.seqpool_cvm_grad_cuda.launches == 0
+
+
+def layout_lengths(kind, B, S):
+    """Segment lengths of layouts away from the training batch's."""
+    n_seg = B * S
+    lengths = np.zeros(n_seg, np.int64)
+    if kind == "empty-runs":
+        # long runs of empty segments between a few full ones
+        lengths[::37] = 3
+        lengths[5] = 40
+    elif kind == "first-and-last":
+        lengths[0] = 50
+        lengths[-1] = 70
+    return lengths
+
+
+@pytest.mark.parametrize("use_cvm,cvm_offset", [(True, 2), (False, 3)])
+@pytest.mark.parametrize("kind", ["unsorted", "empty-runs",
+                                  "first-and-last"])
+def test_plain_backward_matches_jax_vjp_on_other_layouts(kind, use_cvm,
+                                                         cvm_offset):
+    """Layouts the card's checks also run: unsorted ids (a permutation,
+    padding keys among them), long runs of empty segments, and every key
+    in the first and the last segment. The JAX op takes ids in any order;
+    atol 0."""
+    B, S, D, npad = 16, 6, 11, 512
+    lengths = None if kind == "unsorted" else layout_lengths(kind, B, S)
+    rng, emb, segs, cvm = make_inputs(5, B, S, D, npad, cvm_offset,
+                                      lengths=lengths)
+    if kind == "unsorted":
+        perm = rng.permutation(npad)
+        segs, emb = segs[perm], emb[perm]
+    width = D if use_cvm else D - cvm_offset
+    g = rng.normal(size=(B, S, width)).astype(np.float32)
+    args = (B, S, use_cvm, cvm_offset)
+    got = port_grad(emb, segs, cvm, g, *args)
+    np.testing.assert_array_equal(
+        got, jax_grad(jax_fused, emb, segs, cvm, g, *args))
+    real = segs < B * S
+    assert real.any() and (~real).any()
+    assert not got[~real].any()
+
+
+@pytest.mark.parametrize("dim,lanes", [
+    (1, 1), (11, 1), (16, 1),     # the flagship's D=11: a thread a key
+    (17, 2), (24, 2), (32, 2),
+    (33, 4), (50, 4), (64, 4),
+    (65, 8), (200, 8), (256, 8),  # at most 8: a warp keeps 4 keys
+])
+def test_grad_lanes_values(dim, lanes):
+    assert seqpool_kernel.grad_lanes(dim) == lanes
+
+
+def test_grad_lanes_chunks_fit_every_width():
+    """Every row width the kernel takes: a power of two of at most 8
+    lanes, at most 16 columns a lane below 8 lanes, a warp's chunk of a
+    multiple of 4 keys, and a block's 4 chunks within 16 KB of shared
+    memory."""
+    for dim in range(1, seqpool_kernel.MAX_DIM + 1):
+        lanes = seqpool_kernel.grad_lanes(dim)
+        assert lanes in (1, 2, 4, 8)
+        assert lanes == 8 or -(-dim // lanes) <= 16
+        keys = 32 // lanes
+        assert keys % 4 == 0
+        assert 4 * keys * dim * 4 <= 16 * 1024
+
+
+def test_dispatch_refuses_devices_other_than_cpu_and_cuda():
+    """``seqpool_cvm_grad`` takes the kernel for CUDA tensors and the plain
+    version for CPU ones; any other device raises, and nothing launches."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        seqpool_kernel.seqpool_cvm_grad(
+            torch.zeros(1, 2, 11, device="meta"),
+            torch.zeros(4, dtype=torch.int32, device="meta"),
+            torch.zeros(1, 2, device="meta"), 1, 2)
+    assert seqpool_kernel.seqpool_cvm_grad_cuda.launches == 0
