@@ -7,10 +7,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases, each fatal on failure:
 
-1. build   — compile the port's three CUDA sources from the repository
-             with ``nvcc``, one process each, all at once: the seqpool+CVM
-             forward, its backward (the gather) and the push (with its
-             boundary kernel); print each kernel's ptxas report
+1. build   — compile the port's native sources from the repository, one
+             process each, all at once: with ``nvcc`` the seqpool+CVM
+             forward, its backward (the gather), the push (with its
+             boundary kernel) and the in-step key dedup and mirror probe
+             (``csrc/device_index.cu``); with ``g++`` the host key index
+             (``csrc/pbx_index.cpp``). Print each kernel's ptxas report
              (registers, spills, shared memory).
 2. kernel  — hold each kernel, launched on the card, against its plain
              PyTorch version (the forward's on the host, which sums in the
@@ -34,6 +36,12 @@ Phases, each fatal on failure:
              rest within 1e-6, and two launches bit-identical. The boundary
              kernel's offsets (and the sorted order) equal
              ``merge_order_plain``'s.
+             Dedup (K5) and probe (K6), bit-exact, and against
+             ``np.unique`` and the host index: the training batch over the
+             4,194,304-key mirror (2^24 + 64 slots, 268 MB), keys at or
+             above 2^63 beside small ones, all padding, one key N times,
+             ragged tails, keys absent from the mirror, a cluster whose run
+             reaches slot 63 of its window and a run that ends in the guard.
 3. serve   — write a seeded synthetic Criteo file, export a DeepFM
              (hidden 512-256-128) bundle whose table has >= 4M rows, serve
              every batch through ``CTRPredictor(device="cuda")``; the
@@ -42,17 +50,27 @@ Phases, each fatal on failure:
              and the predictor on the CPU.
    Scoring time per batch and a device profile of the serving loop.
 4. train   — the flagship DeepFM (hidden 512-256-128, adam dense, adagrad
-             table of 4,194,304 prepopulated rows) for 16 steps of B=2048
-             through ``FusedTrainStep`` on the card: each of the four kernels
-             must launch once a step, losses finite, and the first 2 steps must match
-             the same step on the CPU from the same init and batches.
-   Time per step, examples/s and a device profile of the training loop.
+             table of 4,194,304 prepopulated rows), 16 steps of B=2048, on
+             two paths, each counted from 0:
+             host prep over the numpy index (``FusedTrainStep.__call__``):
+             the forward, backward, push and boundary kernels launch once a
+             step; device prep over the native index and its mirror
+             (``FusedTrainStep.step_device``, "ensure" mode): the dedup,
+             probe, forward, backward and push launch once a step and the
+             boundary kernel never. Losses finite, the sentinel untripped;
+             the first 2 steps match the CPU (host prep), and the host-prep
+             step on the card and the device-prep step on the CPU (device
+             prep).
+   Time per step and examples/s of device prep, of host prep over each
+   index, host time by phase and a device profile; ``ensure_keys`` and
+   ``prepare_batch`` on batches with 5% new keys.
 5. timing  — forward at the serving, the multi-key and the training
-             shape; backward, push and boundary kernel at the training
-             shape: kernel, plain and library times, per call and in a CUDA
-             graph, beside each kernel's bound; the push kernel alone beside
-             the push with its merge order, adam beside adagrad; and the
-             launch floor, the graph time of ``torch.cuda._sleep(0)``.
+             shape; backward, push, boundary kernel, dedup and probe at the
+             training shape: kernel, plain and library times, per call and
+             in a CUDA graph, beside each kernel's bound; the push kernel
+             alone beside the push with its merge order, adam beside
+             adagrad; the dedup's passes beside its sort; and the launch
+             floor, the graph time of ``torch.cuda._sleep(0)``.
 
 Prints the card's ``name, power.limit`` line, then one JSON line of
 per-kernel numbers, then ``{"ok": true, "device": {...}}`` last. Exits
@@ -96,7 +114,16 @@ from paddlebox_tpu_torch.ops.sparse_push import (merge_offsets,
                                                  push_geometry, push_rows,
                                                  sparse_push_cuda,
                                                  sparse_push_plain)
+from paddlebox_tpu_torch.ops.device_index_kernel import (SIGN,
+                                                         device_dedup_cuda,
+                                                         device_probe_cuda)
+from paddlebox_tpu_torch.ps.device_index import (DeviceIndexMirror,
+                                                 device_dedup_plain,
+                                                 device_hash,
+                                                 device_probe_plain,
+                                                 host_hash, key_halves)
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
+from paddlebox_tpu_torch.ps.native import NativeIndex
 from paddlebox_tpu_torch.ps.table import state_dim
 from paddlebox_tpu_torch.trainer.fused_step import FusedTrainStep
 
@@ -138,6 +165,10 @@ KERNEL = "seqpool_cvm"
 GRAD = "seqpool_cvm_grad"
 PUSH = "sparse_push"
 OFFSETS = "merge_offsets"
+DEDUP = "device_dedup"
+PROBE = "device_probe"
+INDEX = "device_index"      # csrc/device_index.cu: K5 and K6
+HOST_INDEX = "pbx_index"    # csrc/pbx_index.cpp: the host key index (g++)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -261,7 +292,7 @@ def ptxas_report(log: str) -> list:
 def phase_build() -> dict:
     """One nvcc process per source, all started together. Returns each
     source's ptxas report (empty for a library built by an earlier run)."""
-    names = (KERNEL, GRAD, PUSH)
+    names = (KERNEL, GRAD, PUSH, INDEX, HOST_INDEX)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -272,7 +303,7 @@ def phase_build() -> dict:
             print(f"build: {name} already built (no ptxas report)")
             reports[name] = []
             continue
-        print(f"build: {name} {res[0]:.2f} s")
+        print(f"build: {name} ({_build.source(name).name}) {res[0]:.2f} s")
         reports[name] = ptxas_report(res[1])
         for r in reports[name]:
             print(f"  ptxas: {r['name']}: {r['registers']} registers, "
@@ -741,6 +772,146 @@ def phase_kernel_offsets(rng, train_inverse: torch.Tensor, upad: int):
     return err
 
 
+def check_dedup(name: str, keys: np.ndarray):
+    """K5 vs its plain version on the card, every output exactly, and both
+    against ``np.unique`` of the uint64 keys. Returns the kernel's
+    result."""
+    kt = torch.from_numpy(np.ascontiguousarray(keys, np.uint64).view(
+        np.int64)).cuda()
+    got = device_dedup_cuda(kt)
+    torch.cuda.synchronize()
+    want = device_dedup_plain(kt)
+    err = 0.0
+    for field in got._fields:
+        a, b = getattr(got, field), getattr(want, field)
+        require(a.shape == b.shape and a.dtype == b.dtype,
+                f"{DEDUP} {name}: {field} shape or type differs")
+        if a.numel():
+            err = max(err, float((a.long() - b.long()).abs().max()))
+        require(torch.equal(a, b),
+                f"{DEDUP} {name}: {field} differs from the plain version")
+    uniq, inverse = np.unique(keys, return_inverse=True)
+    nu = int(got.n_uniq)
+    require(nu == uniq.size, f"{DEDUP} {name}: n_uniq {nu} != {uniq.size}")
+    host_uniq = got.uniq_keys.cpu().numpy().view(np.uint64)
+    require(np.array_equal(host_uniq[:nu], uniq) and not host_uniq[nu:].any(),
+            f"{DEDUP} {name}: uniques differ from np.unique's")
+    require(np.array_equal(got.inverse.cpu().numpy(), inverse),
+            f"{DEDUP} {name}: inverse differs from np.unique's")
+    require(torch.equal(got.offsets, merge_offsets_plain(got.inverse,
+                                                         keys.size)),
+            f"{DEDUP} {name}: offsets are not the uniques' boundaries")
+    print(f"kernel check {DEDUP} {name}: N={keys.size} n_uniq={nu} "
+          "bit-exact ok")
+    return got, err
+
+
+def check_probe(name: str, mirror, keys: torch.Tensor, n_valid=None,
+                want_rows=None):
+    """K6 vs its plain version on the card, rows and found exactly; with
+    ``want_rows`` (numpy) also against the host index's answer."""
+    args = (mirror.tab, mirror.mask, mirror.window, keys, n_valid)
+    rows, found = device_probe_cuda(*args)
+    torch.cuda.synchronize()
+    prow, pfound = device_probe_plain(*args)
+    err = max(float((rows.long() - prow.long()).abs().max()),
+              float((found.long() - pfound.long()).abs().max()))
+    require(torch.equal(rows, prow) and torch.equal(found, pfound),
+            f"{PROBE} {name}: rows/found differ from the plain version")
+    if want_rows is not None:
+        require(np.array_equal(rows.cpu().numpy(), want_rows),
+                f"{PROBE} {name}: rows differ from the host index's")
+    print(f"kernel check {PROBE} {name}: N={keys.shape[0]} slots="
+          f"{mirror.tab.shape[0]} found={int(found.sum())} bit-exact ok")
+    return err
+
+
+def colliding_keys(mask: int, home: int, n: int, rng) -> np.ndarray:
+    """``n`` distinct non-zero keys whose ``Map64::hash & mask`` is
+    ``home``."""
+    out = []
+    while len(out) < n:
+        cand = rng.integers(1, np.iinfo(np.uint64).max, size=1 << 20,
+                            dtype=np.uint64)
+        out += list(cand[(host_hash(cand) & np.uint32(mask)) == home])
+    return np.unique(np.array(out[:n], dtype=np.uint64))
+
+
+def phase_kernel_index(rng, train_keys: np.ndarray):
+    """K5 and K6 vs their plain versions at the training shape over the
+    4,194,304-key mirror and at edge cases. Returns the largest error (0:
+    bit-exact) of each and the training batch's dedup and mirror for
+    timing."""
+    index = NativeIndex()  # as DeviceTable.prepopulate(HOT_VOCAB) builds it
+    index.rebuild(np.concatenate([
+        np.array([np.iinfo(np.uint64).max - 1], np.uint64),
+        np.arange(1, HOT_VOCAB + 1, dtype=np.uint64)]))
+    mirror = DeviceIndexMirror(index, "cuda")
+    require(mirror.tab.shape == (index.capacity + index.guard, 4) and
+            mirror.window == 64, "mirror layout")
+    print(f"kernel check: mirror of {len(index)} keys, "
+          f"{mirror.tab.shape[0]} slots, {mirror.memory_bytes()} B on the "
+          "card")
+    # the training batch: dedup, then its uniques probed (key k is row k)
+    dd, dedup_err = check_dedup("training", train_keys)
+    want = dd.uniq_keys.cpu().numpy().astype(np.int32)
+    probe_err = check_probe("training", mirror, dd.uniq_keys, dd.n_uniq,
+                            want)
+    high = np.uint64(1) << np.uint64(63)
+    mixed = rng.integers(0, 1 << 62, size=20000).astype(np.uint64)
+    mixed[::3] |= high
+    mixed[::7] = 0
+    mixed[1::5] = mixed[2::5][:mixed[1::5].size]
+    mixed[-1] = np.iinfo(np.uint64).max
+    for name, keys in (
+            ("high-bit-keys", mixed),
+            ("all-padding", np.zeros(TNPAD, np.uint64)),
+            ("one-key-repeated", np.full(TNPAD, 12345, np.uint64)),
+            ("one-key", np.array([7], np.uint64)),
+            ("tile-plus-one", rng.integers(0, 300, size=1025).astype(
+                np.uint64)),
+            ("ragged", rng.integers(0, 1 << 40, size=5003).astype(
+                np.uint64))):
+        dedup_err = max(dedup_err, check_dedup(name, keys)[1])
+    # keys absent from the mirror, high keys and key 0 beside present ones
+    probe_keys = np.concatenate([
+        rng.integers(HOT_VOCAB + 1, 1 << 62, size=4000).astype(np.uint64),
+        mixed, rng.integers(1, HOT_VOCAB + 1, size=4000).astype(np.uint64)])
+    want = np.where(probe_keys <= HOT_VOCAB, probe_keys, 0).astype(np.int32)
+    probe_err = max(probe_err, check_probe(
+        "absent-and-present", mirror, torch.from_numpy(
+            probe_keys.view(np.int64)).cuda(), want_rows=want))
+    # a small map: 64 keys with one home slot (the last lands on slot 63
+    # of its window), a run into the guard, high keys, and a 65th
+    # colliding key that is absent (its walk ends at the window)
+    small = NativeIndex()
+    cap = small.capacity
+    run = colliding_keys(cap - 1, 100, 65, rng)
+    tail = colliding_keys(cap - 1, cap - 3, 10, rng)
+    highs = rng.integers(0, 1 << 62, size=50).astype(np.uint64) | high
+    present = np.concatenate([run[:64], tail, highs])
+    rows, _ = small.lookup(present, True, True, 1)
+    require(small.capacity == cap, "the small map grew")
+    slots = small.export_slots()
+    at = lambda k: int(np.flatnonzero(  # noqa: E731
+        (slots[:, 0] == (k >> np.uint64(32))) &
+        (slots[:, 1] == (k & np.uint64(0xFFFFFFFF))))[0])
+    require(max(at(k) for k in run[:64]) == 100 + 63,
+            "the cluster does not reach slot 63 of its window")
+    require(max(at(k) for k in tail) >= cap, "no run ends in the guard")
+    small_mirror = DeviceIndexMirror(small, "cuda")
+    query = np.concatenate([present, run[64:], np.array([0, 5], np.uint64),
+                            rng.integers(1, 1 << 63, size=100).astype(
+                                np.uint64)])
+    want, _ = small.lookup(query, False, True, 0)
+    probe_err = max(probe_err, check_probe(
+        "cluster-window-and-guard", small_mirror, torch.from_numpy(
+            query.view(np.int64)).cuda(), want_rows=np.maximum(
+                want, 0).astype(np.int32)))
+    return (dedup_err, probe_err), {"dedup": dd, "mirror": mirror,
+                                    "keys": train_keys}
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 def random_deepfm(rng, in_dim: int):
@@ -866,147 +1037,301 @@ def make_train_batches(rng, n: int):
     return out
 
 
-def train_steps(fs, state, batches):
-    """Run ``fs`` over ``batches``; returns the new (params, opt, auc) and
-    the losses (device scalars)."""
+def train_steps(fs, state, batches, step=None):
+    """Run ``step`` (``fs`` itself, host prep, by default) over
+    ``batches``; returns the new (params, opt, auc) and the losses (device
+    scalars)."""
+    step = step or fs
     dense = np.zeros((TB, 0), np.float32)
     row_mask = np.ones(TB, np.float32)
     params, opt, auc = state
     losses = []
     for keys, segs, labels in batches:
         cvm = np.stack([np.ones(TB, np.float32), labels], axis=1)
-        params, opt, auc, loss, _ = fs(params, opt, auc, keys, segs, cvm,
-                                       labels, dense, row_mask)
+        params, opt, auc, loss, _ = step(params, opt, auc, keys, segs, cvm,
+                                         labels, dense, row_mask)
         losses.append(loss)
     return (params, opt, auc), losses
 
 
-def phase_train(rng) -> dict:
-    conf = TableConfig(embedx_dim=8, cvm_offset=3, embedx_threshold=0.0,
-                       seed=7)
-    tconf = TrainerConfig(dense_optimizer="adam", dense_learning_rate=1e-3)
-    buckets = BucketSpec(min_size=TNPAD, max_size=1 << 18)
-    t0 = time.perf_counter()
-    table = DeviceTable(conf, capacity=HOT_VOCAB + 1, uniq_buckets=buckets,
-                        device="cuda")
-    table.prepopulate(HOT_VOCAB)
-    model = random_deepfm(rng, TS * conf.pull_dim)
-    batches = make_train_batches(rng, TRAIN_STEPS)
-    # the CPU twin starts from the same arena and weights
-    cpu_table = DeviceTable(conf, capacity=1, uniq_buckets=buckets,
-                            device="cpu")
-    cpu_table.load_arena(table.values.cpu().numpy(),
-                         table.state.cpu().numpy(), table.row_keys())
-    cpu_model = copy.deepcopy(model)
-    fs = FusedTrainStep(model, table, tconf, TB, TS)
-    state = (*fs.init(), fs.init_auc_state())
-    torch.cuda.synchronize()
-    print(f"train: table of {len(table)} rows ({table.memory_bytes()} B on "
-          f"the card) + model + {len(batches)} batches + CPU twin "
-          f"{time.perf_counter() - t0:.2f} s")
+def train_confs():
+    """The flagship's table (adagrad), dense optimizer (adam) and the
+    uniques' bucket of the host-prep path."""
+    return (TableConfig(embedx_dim=8, cvm_offset=3, embedx_threshold=0.0,
+                        seed=7),
+            TrainerConfig(dense_optimizer="adam", dense_learning_rate=1e-3),
+            BucketSpec(min_size=TNPAD, max_size=1 << 18))
 
-    # the main path, counted
-    wrappers = (seqpool_cvm_cuda, seqpool_cvm_grad_cuda, sparse_push_cuda,
-                merge_offsets)
-    for w in wrappers:
-        w.launches = 0
-    state, losses = train_steps(fs, state, batches[:CPU_STEPS])
+
+def twin_table(table: DeviceTable, device: str, backend: str) -> DeviceTable:
+    """A table on ``device`` that starts from ``table``'s arena and rows."""
+    conf, _, buckets = train_confs()
+    twin = DeviceTable(conf, capacity=1, uniq_buckets=buckets, device=device,
+                       backend=backend, index_threads=1)
+    twin.load_arena(table.values.cpu().numpy(), table.state.cpu().numpy(),
+                    table.row_keys())
+    return twin
+
+
+def touched_rows(table: DeviceTable, batches) -> torch.Tensor:
     touched = np.unique(np.concatenate([
-        table.prepare_batch(k, create=False).uniq_rows
-        for k, _, _ in batches[:CPU_STEPS]]))
-    touched = torch.from_numpy(touched[touched > 0].astype(np.int64))
-    after = (table.values[touched.cuda()].cpu(),
-             table.state[touched.cuda()].cpu(),
-             [p.detach().cpu().clone() for p in state[0].parameters()])
-    state, more = train_steps(fs, state, batches[CPU_STEPS:])
-    losses += more
-    launches = {w.__name__: w.launches for w in wrappers}
-    for name, n in launches.items():
-        require(n == TRAIN_STEPS, f"train: {name} launched {n} times in "
-                                  f"{TRAIN_STEPS} steps")
-    losses = [float(x) for x in losses]
-    require(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
-    require(not bool(fs.bad_flag), "train: the numeric sentinel tripped")
-    print(f"train: {TRAIN_STEPS} steps, launches {launches}, losses "
-          f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+        table.prepare_batch(k, create=False).uniq_rows for k, _, _ in
+        batches]))
+    return torch.from_numpy(touched[touched > 0].astype(np.int64))
 
-    # the same 2 steps on the CPU, whose table still holds the initial rows
-    before = (cpu_table.values[touched].clone(),
-              cpu_table.state[touched].clone())
-    cfs = FusedTrainStep(cpu_model, cpu_table, tconf, TB, TS)
-    _, cpu_losses = train_steps(cfs, (*cfs.init(), cfs.init_auc_state()),
-                                batches[:CPU_STEPS])
-    cpu_losses = [float(x) for x in cpu_losses]
-    require(np.allclose(losses[:CPU_STEPS], cpu_losses, rtol=TRAIN_RTOL,
-                        atol=0), f"train: losses card {losses[:CPU_STEPS]} "
-                                 f"vs CPU {cpu_losses}")
-    vals, st, params = after
-    cvals, cst = cpu_table.values[touched], cpu_table.state[touched]
+
+def snapshot_rows(table: DeviceTable, rows: torch.Tensor, model=None):
+    """Host copies of ``rows``' values and state (and the dense params)."""
+    idx = rows.to(table.device)
+    return (table.values[idx].cpu(), table.state[idx].cpu(),
+            None if model is None else
+            [p.detach().cpu().clone() for p in model.parameters()])
+
+
+def compare_twin(tag: str, losses, after, twin_losses, twin_after,
+                 before) -> None:
+    """The first steps of the main path vs its twin's, from the same init:
+    losses (rtol), the touched rows (show/clk exact, the rest and their
+    change from ``before``), the dense params."""
+    losses = [float(x) for x in losses[:CPU_STEPS]]
+    twin_losses = [float(x) for x in twin_losses]
+    require(np.allclose(losses, twin_losses, rtol=TRAIN_RTOL, atol=0),
+            f"{tag}: losses {losses} vs {twin_losses}")
+    (vals, st, params), (cvals, cst, cparams) = after, twin_after
     require(torch.equal(vals[:, :2], cvals[:, :2]),
-            "train: show/clk of touched rows differ between card and CPU")
+            f"{tag}: show/clk of the touched rows differ")
     row_err = max(float((vals - cvals).abs().max()),
                   float((st - cst).abs().max()))
-    dense_err = max(float((a - b.detach()).abs().max())
-                    for a, b in zip(params, cpu_model.parameters()))
-    require(row_err <= TRAIN_ATOL, f"train: table rows card vs CPU {row_err}")
-    require(dense_err <= TRAIN_ATOL,
-            f"train: dense params card vs CPU {dense_err}")
+    dense_err = max(float((a - b).abs().max())
+                    for a, b in zip(params, cparams))
+    require(row_err <= TRAIN_ATOL, f"{tag}: table rows {row_err}")
+    require(dense_err <= TRAIN_ATOL, f"{tag}: dense params {dense_err}")
     changes = []
     for what, got, want, init in (
             ("values", vals[:, 2:], cvals[:, 2:], before[0][:, 2:]),
             ("state", st, cst, before[1])):
         scale = float((want - init).abs().max())
         derr = float(((got - init) - (want - init)).abs().max())
-        require(scale > 0, f"train: the steps left the touched rows' {what} "
+        require(scale > 0, f"{tag}: the steps left the touched rows' {what} "
                            "unchanged")
         require(derr <= TRAIN_DELTA_RTOL * scale,
-                f"train: change of the touched rows' {what} card vs CPU "
-                f"{derr} > {TRAIN_DELTA_RTOL} * {scale}")
+                f"{tag}: change of the touched rows' {what} {derr} > "
+                f"{TRAIN_DELTA_RTOL} * {scale}")
         changes.append(f"{what} max abs err {derr:.3e} of a largest "
                        f"change {scale:.3e}")
-    print(f"train: card vs CPU over {CPU_STEPS} steps: losses {losses[:2]} "
-          f"vs {cpu_losses}, {touched.numel()} touched rows (show/clk "
-          f"exact, max abs err {row_err:.3e}; their change: "
-          f"{', '.join(changes)}), dense max abs err {dense_err:.3e}")
+    print(f"{tag} over {CPU_STEPS} steps: losses {losses} vs {twin_losses}, "
+          f"{vals.shape[0]} touched rows (show/clk exact, max abs err "
+          f"{row_err:.3e}; their change: {', '.join(changes)}), dense max "
+          f"abs err {dense_err:.3e}")
 
-    t0 = time.perf_counter()
-    for keys, _, _ in batches:
-        table.prepare_batch(keys, create=False)
-    prep_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+
+def run_counted(fs, state, batches, wrappers, step=None):
+    """The main path, counted: every wrapper's count set to 0, the steps,
+    the counts read. The first CPU_STEPS steps' touched rows and dense
+    params are kept for the twins. Returns (state, losses, launches,
+    touched rows, their rows after CPU_STEPS steps)."""
+    for w in wrappers:
+        w.launches = 0
+    state, losses = train_steps(fs, state, batches[:CPU_STEPS], step)
+    touched = touched_rows(fs.table, batches[:CPU_STEPS])
+    after = snapshot_rows(fs.table, touched, state[0])
+    state, more = train_steps(fs, state, batches[CPU_STEPS:], step)
+    launches = {w.__name__: w.launches for w in wrappers}
+    losses = [float(x) for x in losses + more]
+    require(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+    require(not bool(fs.bad_flag), "train: the numeric sentinel tripped")
+    return state, losses, launches, touched, after
+
+
+def run_twin(tag: str, table: DeviceTable, model, device_prep: bool,
+             batches, touched, losses, after) -> None:
+    """CPU_STEPS steps of a twin from the same init, held against the main
+    path's."""
+    _, tconf, _ = train_confs()
+    before = snapshot_rows(table, touched)
+    tfs = FusedTrainStep(model, table, tconf, TB, TS,
+                         device_prep=device_prep)
+    _, twin_losses = train_steps(tfs, (*tfs.init(), tfs.init_auc_state()),
+                                 batches[:CPU_STEPS],
+                                 tfs.step_device if device_prep else None)
+    compare_twin(tag, losses, after, twin_losses,
+                 snapshot_rows(table, touched, model), before)
+
+
+def time_steps(fs, state, batches, step=None):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, losses = train_steps(fs, state, batches)
+    state, _ = train_steps(fs, state, batches, step)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    ms = secs / len(batches) * 1e3
-    print(f"timing train: {ms:.4f} ms/step, {TB * len(batches) / secs:.1f} "
-          f"examples/s (B={TB}, FusedTrainStep.__call__ incl. host "
-          f"prepare_batch {prep_ms:.4f} ms/step and uploads)")
-    device_profile("train, 4 steps",
-                   lambda: train_steps(fs, state, batches[:4]),
-                   kernels=(KERNEL, PUSH))
+    return state, secs / len(batches) * 1e3, TB * len(batches) / secs
 
-    # the host index when 5% of a batch's keys are new to the table: each
-    # batch that inserts keys copies the whole sorted key and row arrays
-    fresh, new_ms = HOT_VOCAB + 1, []
-    for keys, _, _ in batches[:5]:
+
+def with_new_keys(rng, batches, fresh: int):
+    """The batches' keys with 5% of each batch's replaced by keys new to
+    the table, from ``fresh`` on."""
+    out = []
+    for keys, _, _ in batches:
         keys = keys.copy()
         nk = int((keys > 0).sum())
         pick = rng.choice(nk, size=nk // 20, replace=False)
         keys[pick] = np.arange(fresh, fresh + pick.size, dtype=np.uint64)
         fresh += pick.size
+        out.append(keys)
+    return out
+
+
+def time_inserts(tag: str, fn, key_sets) -> float:
+    """``fn(keys)`` for batches with 5% new keys: the first call (which
+    grows the arena) and the mean of the rest, in ms."""
+    ms = []
+    for keys in key_sets:
         t0 = time.perf_counter()
-        table.prepare_batch(keys, create=True)
+        fn(keys)
         torch.cuda.synchronize()
-        new_ms.append((time.perf_counter() - t0) * 1e3)
-    print(f"timing train: prepare_batch with 5% new keys: {new_ms[0]:.4f} "
-          f"ms the first batch (the arena grows to {table.capacity} rows), "
-          f"then {np.mean(new_ms[1:]):.4f} ms/batch over {len(new_ms) - 1} "
-          f"batches ({len(table)} rows; without new keys {prep_ms:.4f} ms)")
-    return {"launches": launches, "ms_per_step": ms,
-            "examples_per_s": TB * len(batches) / secs,
+        ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"timing {tag} with 5% new keys: {ms[0]:.4f} ms the first batch "
+          f"(the arena grows), then {np.mean(ms[1:]):.4f} ms/batch over "
+          f"{len(ms) - 1} batches")
+    return float(np.mean(ms[1:]))
+
+
+TRAIN_WRAPPERS = (seqpool_cvm_cuda, seqpool_cvm_grad_cuda, sparse_push_cuda,
+                  merge_offsets)
+
+
+def phase_train(rng) -> dict:
+    """Host prep over the numpy index, as in earlier slices."""
+    conf, tconf, buckets = train_confs()
+    t0 = time.perf_counter()
+    table = DeviceTable(conf, capacity=HOT_VOCAB + 1, uniq_buckets=buckets,
+                        device="cuda", backend="numpy")
+    table.prepopulate(HOT_VOCAB)
+    model = random_deepfm(rng, TS * conf.pull_dim)
+    batches = make_train_batches(rng, TRAIN_STEPS)
+    # the CPU twin starts from the same arena and weights, and so does the
+    # device-prep phase
+    cpu_table = twin_table(table, "cpu", "numpy")
+    cpu_model = copy.deepcopy(model)
+    init = (copy.deepcopy(model), batches)
+    fs = FusedTrainStep(model, table, tconf, TB, TS)
+    state = (*fs.init(), fs.init_auc_state())
+    torch.cuda.synchronize()
+    print(f"train: table of {len(table)} rows ({table.memory_bytes()} B on "
+          f"the card, numpy index) + model + {len(batches)} batches + CPU "
+          f"twin {time.perf_counter() - t0:.2f} s")
+
+    state, losses, launches, touched, after = run_counted(
+        fs, state, batches, TRAIN_WRAPPERS)
+    for name, n in launches.items():
+        require(n == TRAIN_STEPS, f"train: {name} launched {n} times in "
+                                  f"{TRAIN_STEPS} steps")
+    print(f"train: {TRAIN_STEPS} steps, launches {launches}, losses "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+    # the same 2 steps on the CPU, whose table still holds the initial rows
+    run_twin("train: card vs CPU", cpu_table, cpu_model, False, batches,
+             touched, losses, after)
+
+    t0 = time.perf_counter()
+    for keys, _, _ in batches:
+        table.prepare_batch(keys, create=False)
+    prep_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    state, ms, eps = time_steps(fs, state, batches)
+    print(f"timing train: {ms:.4f} ms/step, {eps:.1f} examples/s (B={TB}, "
+          f"FusedTrainStep.__call__ over the numpy index incl. host "
+          f"prepare_batch {prep_ms:.4f} ms/step and uploads)")
+    device_profile("train, 4 steps",
+                   lambda: train_steps(fs, state, batches[:4]),
+                   kernels=(KERNEL, PUSH))
+    # each batch that inserts keys copies the whole sorted key and row
+    # arrays
+    new_ms = time_inserts("train: prepare_batch (numpy index)",
+                          table.prepare_batch,
+                          with_new_keys(rng, batches[:5], HOT_VOCAB + 1))
+    return {"launches": launches, "ms_per_step": ms, "examples_per_s": eps,
             "prepare_batch_ms": prep_ms,
-            "prepare_batch_new_keys_ms": float(np.mean(new_ms[1:]))}
+            "prepare_batch_new_keys_ms": new_ms}, init
+
+
+DEVICE_PREP_WRAPPERS = TRAIN_WRAPPERS + (device_dedup_cuda, device_probe_cuda)
+
+
+def phase_train_device(rng, init) -> dict:
+    """The reference's flagship engine: device prep ("ensure") over the
+    native index and its 268 MB mirror, from the host-prep phase's initial
+    weights and batches (and, seeded alike, its arena). Twins: host prep on
+    the card over the native index, device prep on the CPU."""
+    conf, tconf, buckets = train_confs()
+    t0 = time.perf_counter()
+    table = DeviceTable(conf, capacity=HOT_VOCAB + 1, uniq_buckets=buckets,
+                        device="cuda", backend="native", index_threads=1)
+    table.prepopulate(HOT_VOCAB)
+    model, batches = copy.deepcopy(init[0]), init[1]
+    host_table = twin_table(table, "cuda", "native")
+    cpu_table = twin_table(table, "cpu", "native")
+    host_model, cpu_model = copy.deepcopy(model), copy.deepcopy(model)
+    fs = FusedTrainStep(model, table, tconf, TB, TS, device_prep=True)
+    state = (*fs.init(), fs.init_auc_state())
+    torch.cuda.synchronize()
+    print(f"train device-prep: table of {len(table)} rows "
+          f"({table.memory_bytes()} B) + index mirror of "
+          f"{table.mirror.tab.shape[0]} slots ({table.mirror.memory_bytes()} "
+          f"B) on the card + twins {time.perf_counter() - t0:.2f} s")
+
+    state, losses, launches, touched, after = run_counted(
+        fs, state, batches, DEVICE_PREP_WRAPPERS, fs.step_device)
+    for name, n in launches.items():
+        want = 0 if name == merge_offsets.__name__ else TRAIN_STEPS
+        require(n == want, f"train device-prep: {name} launched {n} times "
+                           f"in {TRAIN_STEPS} steps, expected {want}")
+    print(f"train device-prep: {TRAIN_STEPS} steps, launches {launches}, "
+          f"losses {losses[0]:.6f} -> {losses[-1]:.6f}")
+    run_twin("train device-prep vs host-prep on the card", host_table,
+             host_model, False, batches, touched, losses, after)
+    run_twin("train device-prep: card vs CPU", cpu_table, cpu_model, True,
+             batches, touched, losses, after)
+    del cpu_table, cpu_model
+
+    state, ms, eps = time_steps(fs, state, batches, fs.step_device)
+    print(f"timing train device-prep: {ms:.4f} ms/step, {eps:.1f} "
+          f"examples/s (B={TB}, FusedTrainStep.step_device incl. host "
+          f"ensure_keys and uploads)")
+    device_profile("train device-prep, 4 steps",
+                   lambda: train_steps(fs, state, batches[:4],
+                                       fs.step_device),
+                   kernels=(KERNEL, PUSH, "dedup", "probe"))
+    host_fs = FusedTrainStep(host_model, host_table, tconf, TB, TS)
+    host_state = (*host_fs.init(), host_fs.init_auc_state())
+    t0 = time.perf_counter()
+    for keys, _, _ in batches:
+        host_table.prepare_batch(keys, create=False)
+    prep_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    _, host_ms, host_eps = time_steps(host_fs, host_state, batches)
+    print(f"timing train host-prep, native index: {host_ms:.4f} ms/step, "
+          f"{host_eps:.1f} examples/s (FusedTrainStep.__call__ incl. host "
+          f"prepare_batch {prep_ms:.4f} ms/step)")
+
+    # 5% new keys: the host inserts them into its index and the mirror
+    fresh = with_new_keys(rng, batches[:5], HOT_VOCAB + 1)
+    ensure_ms = time_inserts("train device-prep: ensure_keys",
+                             table.ensure_keys, fresh)
+    new = np.unique(np.concatenate(fresh))
+    new = new[new > HOT_VOCAB]
+    rows, found = table.mirror.probe(torch.from_numpy(new.view(
+        np.int64)).cuda())
+    want, _ = table._index.lookup(new, False, True, 0)
+    require(bool(found.all()) and np.array_equal(rows.cpu().numpy(), want),
+            "train device-prep: the mirror lacks inserted keys")
+    new_prep_ms = time_inserts(
+        "train host-prep: prepare_batch (native index)",
+        host_table.prepare_batch,
+        with_new_keys(rng, batches[:5], HOT_VOCAB + 1))
+    return {"launches": launches, "ms_per_step": ms, "examples_per_s": eps,
+            "host_prep_native_ms_per_step": host_ms,
+            "host_prep_native_examples_per_s": host_eps,
+            "prepare_batch_native_ms": prep_ms,
+            "ensure_keys_new_keys_ms": ensure_ms,
+            "prepare_batch_native_new_keys_ms": new_prep_ms}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1190,6 +1515,81 @@ def time_offsets(inputs) -> dict:
     return t
 
 
+def probe_bound(mirror, keys: torch.Tensor, n_valid: torch.Tensor) -> int:
+    """Bytes of one probe: the valid keys read, the 16-byte quads each
+    non-zero key walks until its match or the first empty quad (at most
+    the window), rows and found written for all N keys."""
+    n, nv = keys.shape[0], int(n_valid)
+    valid = keys[:nv]
+    khi, klo = key_halves(valid)
+    start = device_hash(khi, klo) & mirror.mask
+    idx = start[:, None] + torch.arange(mirror.window, device=keys.device)
+    win = mirror.tab[idx]
+    stop = ((win[..., 0] == -1) & (win[..., 1] == -1)) | (
+        ((win[..., 0].long() & 0xFFFFFFFF) == khi[:, None]) &
+        ((win[..., 1].long() & 0xFFFFFFFF) == klo[:, None]))
+    walked = torch.where(stop.any(1), stop.int().argmax(1) + 1,
+                         mirror.window)
+    quads = int(walked[valid != 0].sum())
+    return nv * 8 + quads * 16 + n * 5 + 4, quads
+
+
+def time_index(inputs) -> Tuple[dict, dict]:
+    """K5 and K6 at the training shape. K5: the hand-written passes on the
+    sorted keys (``ms``, against the bound of their own bytes), the
+    wrapper with its sort, the sort alone; plain and ``torch.unique`` read
+    values back to the host, so they are not captured in a graph. K6: the
+    probe of the batch's uniques over the 4,194,304-key mirror; no single
+    PyTorch call computes it."""
+    dd, mirror, keys = inputs["dedup"], inputs["mirror"], inputs["keys"]
+    kt = torch.from_numpy(keys.view(np.int64)).cuda()
+    packed = kt ^ SIGN
+    presorted = torch.sort(packed, stable=True)
+    n = keys.size
+    k5 = {"ms": cuda_ms(lambda: device_dedup_cuda(kt, presorted), ITERS),
+          "graph_ms": graph_ms(lambda: device_dedup_cuda(kt, presorted)),
+          "with_sort_ms": cuda_ms(lambda: device_dedup_cuda(kt), ITERS),
+          "with_sort_graph_ms": graph_ms(lambda: device_dedup_cuda(kt)),
+          "sort_ms": cuda_ms(lambda: torch.sort(packed, stable=True), ITERS),
+          "sort_graph_ms": graph_ms(lambda: torch.sort(packed, stable=True)),
+          "plain_ms": cuda_ms(lambda: device_dedup_plain(kt), ITERS),
+          "plain_graph_ms": None,
+          "library_ms": cuda_ms(lambda: torch.unique(
+              packed, sorted=True, return_inverse=True), ITERS),
+          "library_graph_ms": None}
+    tiles = -(-n // 1024)
+    # sorted keys and sidx read, inverse, uniques, offsets and n_uniq
+    # written, the tile counts written and read
+    with_bound(k5, n * 16 + n * 4 + n * 8 + (n + 1) * 4 + 4 + tiles * 8, 0)
+    print(f"timing {DEDUP} training (N={n}, n_uniq={int(dd.n_uniq)}): the "
+          f"passes on sorted keys per call {k5['ms']:.5f} ms, in a CUDA "
+          f"graph {k5['graph_ms']:.5f} ms "
+          f"({100 * k5['bound_ms'] / k5['graph_ms']:.1f}% of bound "
+          f"{k5['bound_ms']:.6f} ms, {k5['bound_bytes']} bytes); with its "
+          f"sort per call {k5['with_sort_ms']:.5f} ms, in a graph "
+          f"{k5['with_sort_graph_ms']:.5f} ms; the sort alone per call "
+          f"{k5['sort_ms']:.5f} ms, in a graph {k5['sort_graph_ms']:.5f} "
+          f"ms; plain {k5['plain_ms']:.5f} ms, torch.unique "
+          f"{k5['library_ms']:.5f} ms per call (neither capturable)")
+    args = (mirror.tab, mirror.mask, mirror.window, dd.uniq_keys, dd.n_uniq)
+    k6 = {"ms": cuda_ms(lambda: device_probe_cuda(*args), ITERS),
+          "graph_ms": graph_ms(lambda: device_probe_cuda(*args)),
+          "plain_ms": cuda_ms(lambda: device_probe_plain(*args), ITERS),
+          "plain_graph_ms": graph_ms(lambda: device_probe_plain(*args)),
+          "library_ms": None, "library_graph_ms": None}
+    nbytes, quads = probe_bound(mirror, dd.uniq_keys, dd.n_uniq)
+    with_bound(k6, nbytes, 0)
+    k6["quads_walked"] = quads
+    print(f"timing {PROBE} training (N={n}, {int(dd.n_uniq)} uniques, "
+          f"{quads} quads walked, mirror {mirror.tab.shape[0]} slots): per "
+          f"call: kernel {k6['ms']:.5f} ms, plain {k6['plain_ms']:.5f} ms; "
+          f"bound {k6['bound_ms']:.6f} ms ({k6['bound_bytes']} bytes); in a "
+          f"CUDA graph: kernel {k6['graph_ms']:.5f} ms "
+          f"({100 * k6['bound_ms'] / k6['graph_ms']:.1f}% of bound), plain "
+          f"{k6['plain_graph_ms']:.5f} ms; no library call")
+    return k5, k6
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1209,48 +1609,76 @@ def main() -> int:
         train_inputs = push_inputs["adagrad"]
         offsets_err = phase_kernel_offsets(rng, train_inputs[4],
                                            train_inputs[5].shape[0])
+        # the phases added since draw from generators of their own, so the
+        # earlier phases keep their inputs
+        index_rng = np.random.default_rng([args.seed, 7])
+        index_err, index_inputs = phase_kernel_index(
+            index_rng, make_train_batches(index_rng, 1)[0][0])
         serve_launches = phase_serve(rng, args.seed)
-        train = phase_train(rng)
+        train, train_init = phase_train(rng)
+        train_dev = phase_train_device(np.random.default_rng([args.seed, 8]),
+                                       train_init)
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
         push_timing["adam"] = time_push(push_inputs["adam"])
         offsets_timing = time_offsets(train_inputs)
+        dedup_timing, probe_timing = time_index(index_inputs)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(f"chip_smoke: all phases {time.perf_counter() - t_start:.1f} s; "
-          f"train {train['ms_per_step']:.4f} ms/step, "
-          f"{train['examples_per_s']:.1f} examples/s")
+          f"train host-prep (numpy index) {train['ms_per_step']:.4f} "
+          f"ms/step, {train['examples_per_s']:.1f} examples/s; host-prep "
+          f"(native index) {train_dev['host_prep_native_ms_per_step']:.4f} "
+          f"ms/step; device-prep {train_dev['ms_per_step']:.4f} ms/step, "
+          f"{train_dev['examples_per_s']:.1f} examples/s")
     print(smi.stdout.strip())
-    launches = train["launches"]
-    fwd_train = launches[seqpool_cvm_cuda.__name__]
+    host, dev = train["launches"], train_dev["launches"]
+
+    def by_path(wrapper, **more) -> dict:
+        """Launches on each main path (each counted from 0)."""
+        paths = {**more, "train_host_prep": host.get(wrapper.__name__, 0),
+                 "train_device_prep": dev[wrapper.__name__]}
+        return {"launches": sum(paths.values()), "launches_by_path": paths}
+
     rows = [
         {"name": KERNEL, "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/seqpool_cvm.cu",
          "replaces": "paddlebox_tpu/ops/pallas_seqpool.py:123",
-         "launches": serve_launches + fwd_train,
-         "launches_by_path": {"serve": serve_launches, "train": fwd_train},
+         **by_path(seqpool_cvm_cuda, serve=serve_launches),
          "max_abs_err": err, **timing},
         {"name": GRAD, "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/seqpool_cvm_grad.cu",
          "replaces": "paddlebox_tpu/ops/seqpool_cvm.py:109",
-         "launches": launches[seqpool_cvm_grad_cuda.__name__],
+         **by_path(seqpool_cvm_grad_cuda),
          "max_abs_err": grad_err, **grad_timing, "ptxas": ptxas[GRAD]},
         {"name": PUSH, "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/sparse_push.cu",
          "replaces": "paddlebox_tpu/ps/device_table.py:189",
-         "launches": launches[sparse_push_cuda.__name__],
+         **by_path(sparse_push_cuda),
          "max_abs_err": push_err, **push_timing,
          "ptxas": [r for r in ptxas[PUSH] if r["name"].startswith(
              f"sparse_push_kernel<{push_geometry(D)[1]},")]},
         {"name": OFFSETS, "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/sparse_push.cu",
          "replaces": "paddlebox_tpu/ps/device_table.py:189",
-         "launches": launches[merge_offsets.__name__],
+         **by_path(merge_offsets),
          "max_abs_err": offsets_err, **offsets_timing},
+        {"name": DEDUP, "route": "cuda",
+         "source": "paddlebox_tpu_torch/csrc/device_index.cu",
+         "replaces": "paddlebox_tpu/ps/device_index.py:112",
+         **by_path(device_dedup_cuda),
+         "max_abs_err": index_err[0], **dedup_timing,
+         "ptxas": [r for r in ptxas[INDEX] if "dedup" in r["name"]]},
+        {"name": PROBE, "route": "cuda",
+         "source": "paddlebox_tpu_torch/csrc/device_index.cu",
+         "replaces": "paddlebox_tpu/ps/device_index.py:133",
+         **by_path(device_probe_cuda),
+         "max_abs_err": index_err[1], **probe_timing,
+         "ptxas": [r for r in ptxas[INDEX] if "probe" in r["name"]]},
     ]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

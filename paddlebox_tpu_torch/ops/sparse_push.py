@@ -11,8 +11,9 @@ hand-written kernel (``csrc/sparse_push.cu``) for tensors on the card; there
 is no fallback between the two.
 
 The kernel's merge order comes from a stable sort of ``inverse`` and a
-boundary kernel (``merge_order``); ``merge_order_plain`` is its plain
-version. ``push_geometry`` fixes how the kernel spreads a row over lanes.
+boundary kernel (``merge_order``; ``merge_order_plain`` is its plain
+version), or from the caller: device-prep's dedup gives it.
+``push_geometry`` fixes how the kernel spreads a row over lanes.
 
 Inputs: ``values [cap, D]``, ``state [cap, max(state_dim, 1)]``,
 ``demb [Npad, D]`` (columns 0, 1 carry the show/clk increments),
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import TYPE_CHECKING, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
 
@@ -217,13 +218,16 @@ def push_rows(layout: "ArenaLayout", values: torch.Tensor,
 def sparse_push_cuda(layout: "ArenaLayout", values: torch.Tensor,
                      state: torch.Tensor, demb: torch.Tensor,
                      inverse: torch.Tensor, uniq_rows: torch.Tensor,
-                     uniq_mask: torch.Tensor
+                     uniq_mask: torch.Tensor,
+                     merge: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort ``inverse`` on the card, find each unique's keys with the
     boundary kernel, then launch the push kernel, all on the current
-    stream. Precondition, not checked: the live uniques' rows are distinct
-    and below the arena's capacity, and ``inverse`` is in ``[0, Upad)``.
-    Counts each launch in ``sparse_push_cuda.launches``."""
+    stream; ``merge`` gives the merge order (``order``, ``offsets``) in
+    place of the sort and the boundary kernel. Precondition, not checked:
+    the live uniques' rows are distinct and below the arena's capacity,
+    ``inverse`` is in ``[0, Upad)`` and ``merge`` is ``merge_order``'s of
+    it. Counts each launch in ``sparse_push_cuda.launches``."""
     dev = values.device
     tensors = dict(values=values, state=state, demb=demb, inverse=inverse,
                    uniq_rows=uniq_rows, uniq_mask=uniq_mask)
@@ -255,7 +259,8 @@ def sparse_push_cuda(layout: "ArenaLayout", values: torch.Tensor,
     upad = uniq_rows.shape[0]
     if upad == 0:
         return values, state
-    order, offsets = merge_order(inverse, upad)
+    order, offsets = merge if merge is not None else \
+        merge_order(inverse, upad)
     return push_rows(layout, values, state, demb, order, offsets, uniq_rows,
                      uniq_mask)
 
@@ -266,12 +271,14 @@ sparse_push_cuda.launches = 0
 def sparse_push(layout: "ArenaLayout", values: torch.Tensor,
                 state: torch.Tensor, demb: torch.Tensor,
                 inverse: torch.Tensor, uniq_rows: torch.Tensor,
-                uniq_mask: torch.Tensor
+                uniq_mask: torch.Tensor,
+                merge: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel for CUDA tensors, the plain version for CPU ones."""
+    """The kernel for CUDA tensors (with ``merge`` as the merge order when
+    given), the plain version for CPU ones."""
     if values.is_cuda:
         return sparse_push_cuda(layout, values, state, demb, inverse,
-                                uniq_rows, uniq_mask)
+                                uniq_rows, uniq_mask, merge)
     if values.device.type != "cpu":
         raise ValueError(f"sparse_push: unsupported device {values.device}")
     return sparse_push_plain(layout, values, state, demb, inverse, uniq_rows,

@@ -1,27 +1,40 @@
 """The fused train step over a device-resident table (counterpart of
-``paddlebox_tpu/trainer/fused_step.py::FusedTrainStep``, host-prepared
-index: ``device_prep=False``).
+``paddlebox_tpu/trainer/fused_step.py::FusedTrainStep``).
 
-One call does, in the reference's order: host ``prepare_batch`` -> pull
-(gather + embedx gating) -> seqpool+CVM (CUDA kernel) -> model -> masked
-BCE loss -> backward (the seqpool's gather backward is a CUDA kernel) ->
-dense optimizer -> push (merge + in-table optimizer, a CUDA kernel) -> AUC
-update. The arenas never leave the device and are updated in place. The
-host ships two packed arrays a step, as the reference's wire does:
+Two entries share one step body, in the reference's order: pull (gather +
+embedx gating) -> seqpool+CVM (CUDA kernel) -> model -> masked BCE loss ->
+backward (the seqpool's gather backward is a CUDA kernel) -> dense
+optimizer -> push (merge + in-table optimizer, a CUDA kernel) -> AUC
+update. The arenas never leave the device and are updated in place.
 
-    int32   [Npad + Npad + Upad]: segment_ids | inverse | uniq_rows
-    float32 [B * (cvm + T + Dd + 1)]: cvm_in | labels | dense | row_mask
+- ``__call__``, host prep (``device_prep=False``): the host's
+  ``prepare_batch`` dedups the keys and maps them to rows, and the host
+  ships two packed arrays, as the reference's wire does:
 
-and the device rebuilds ``rows = uniq_rows[inverse]`` and ``uniq_mask =
-uniq_rows > 0``. Each phase runs in a ``torch.profiler.record_function``
-span named ``train_step.<phase>``, so a profile splits the step's host
-time by phase.
+      int32   [Npad + Npad + Upad]: segment_ids | inverse | uniq_rows
+      float32 [B * (cvm + T + Dd + 1)]: cvm_in | labels | dense | row_mask
+
+- ``step_device``, device prep (``device_prep=True``, the reference's
+  flagship engine, ``insert_mode="ensure"``): the host inserts the batch's
+  new keys into its index and the index's device mirror
+  (``DeviceTable.ensure_keys``), then ships the raw keys (uint64 viewed as
+  int64) beside the int32 segment ids and the float32 block. On the device
+  the dedup (K5) numbers the uniques, in ascending key order with Upad =
+  Npad, and the mirror probe (K6) gives their rows; the dedup's sorted
+  positions and offsets are the push's merge order, so the push sorts
+  nothing itself.
+
+Both rebuild ``rows = uniq_rows[inverse]`` and ``uniq_mask = uniq_rows > 0``
+on the device. Each phase runs in a ``torch.profiler.record_function`` span
+named ``train_step.<phase>``, so a profile splits the step's host time by
+phase.
 
 ``params`` is the ``nn.Module`` that holds the dense weights; the dense
 optimizer updates it in place, and ``opt_state`` is the optimizer's state
-(``trainer.train_step.DenseOptimizer``). Not ported yet: ``device_prep``
-(ROADMAP A.3), bf16 dense compute, recompute, and the chunked and streamed
-entry points (``train_chunk``, ``train_stream``).
+(``trainer.train_step.DenseOptimizer``). Not ported yet: the "deferred"
+insert mode with its device miss ring (ROADMAP A.3b), bf16 dense compute,
+recompute, and the chunked and streamed entry points (``train_chunk``,
+``train_stream``).
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from torch.profiler import record_function
 from paddlebox_tpu_torch.config import TrainerConfig
 from paddlebox_tpu_torch.metrics.auc import auc_update, new_auc_state
 from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
+from paddlebox_tpu_torch.ps.device_index import device_dedup
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.trainer.train_step import (full_float32_matmuls,
                                                     make_dense_optimizer,
@@ -62,11 +76,13 @@ class FusedTrainStep:
                  num_slots: int, dense_dim: int = 0, use_cvm: bool = True,
                  num_auc_buckets: int = 0,
                  seqpool_kwargs: Optional[Dict[str, Any]] = None,
-                 device_prep: bool = False):
-        if device_prep:
+                 device_prep: bool = False, insert_mode: str = "ensure"):
+        if insert_mode not in ("ensure", "deferred"):
+            raise ValueError(f"unknown insert_mode {insert_mode!r}")
+        if insert_mode == "deferred":
             raise NotImplementedError(
-                "device_prep (in-step key dedup and hash probe) is not "
-                "ported yet (ROADMAP A.3)")
+                "insert_mode='deferred' (the device miss ring, poll_misses) "
+                "is not ported yet (ROADMAP A.3b)")
         if trainer_conf.bf16:
             raise NotImplementedError(
                 "bf16 dense compute is not ported yet (ROADMAP A.2)")
@@ -104,6 +120,9 @@ class FusedTrainStep:
         self.optimizer = make_dense_optimizer(trainer_conf)
         # the last step's numeric sentinel (a device bool)
         self.bad_flag: Optional[torch.Tensor] = None
+        self.device_prep = device_prep
+        if device_prep:
+            table.enable_device_index()
 
     def init(self) -> Tuple[nn.Module, Dict[str, Any]]:
         """The model, moved to the table's device, and a fresh optimizer
@@ -117,27 +136,24 @@ class FusedTrainStep:
 
     # -- internals -----------------------------------------------------------
 
-    def _upload(self, segment_ids, inverse, uniq_rows, cvm_in, labels,
-                dense, row_mask):
-        """Two host->device copies: the int32 and the float32 block."""
+    def _upload(self, ints, cvm_in, labels, dense, row_mask):
+        """Two host->device copies: the int32 arrays ``ints``, packed, and
+        the float32 block. Returns the arrays of ``ints`` on the device,
+        then cvm_in, labels, dense and row_mask."""
         B = self.batch_size
-        npad = int(np.shape(segment_ids)[0])
-        upad = int(np.shape(uniq_rows)[0])
+        ints = [np.asarray(x, dtype=np.int32) for x in ints]
         labels = np.asarray(labels, dtype=np.float32)
         labels_t = 1 if labels.ndim == 1 else labels.shape[1]
-        pi = torch.from_numpy(np.concatenate([
-            np.asarray(segment_ids, dtype=np.int32),
-            np.asarray(inverse, dtype=np.int32),
-            np.asarray(uniq_rows, dtype=np.int32)])).to(self.device)
+        pi = torch.from_numpy(np.concatenate(ints)).to(self.device)
         pf = torch.from_numpy(np.concatenate([
             np.asarray(cvm_in, np.float32).ravel(), labels.ravel(),
             np.asarray(dense, np.float32).ravel(),
             np.asarray(row_mask, np.float32).ravel()])).to(self.device)
-        segs, inv, urows = pi[:npad], pi[npad:2 * npad], pi[2 * npad:]
         sizes = [B * self.cvm_dim, B * labels_t, B * self.dense_dim, B]
         cvm, lab, dns, mask = torch.split(pf, sizes)
         lab = lab if labels_t == 1 else lab.reshape(B, labels_t)
-        return (segs, inv, urows[:upad], cvm.reshape(B, self.cvm_dim), lab,
+        return (torch.split(pi, [x.size for x in ints]),
+                cvm.reshape(B, self.cvm_dim), lab,
                 dns.reshape(B, self.dense_dim), mask)
 
     def _forward(self, params: nn.Module, emb: torch.Tensor,
@@ -150,29 +166,23 @@ class FusedTrainStep:
 
     # -- public --------------------------------------------------------------
 
-    def __call__(self, params: nn.Module, opt_state: Dict[str, Any],
-                 auc_state: Dict[str, torch.Tensor], keys: np.ndarray,
-                 segment_ids, cvm_in, labels, dense, row_mask):
-        """Host entry: prepares the batch index against the table's key
-        map, runs the step on the table's device and updates the arenas.
-        ``keys`` is the padded [Npad] uint64 array (padding = key 0).
-        Returns ``(params, opt_state, auc_state, loss, preds)``, the last
-        two as device tensors."""
+    def _step(self, params: nn.Module, opt_state: Dict[str, Any],
+              auc_state: Dict[str, torch.Tensor], segs: torch.Tensor,
+              inverse: torch.Tensor, uniq_rows: torch.Tensor,
+              cvm: torch.Tensor, labels: torch.Tensor, dense: torch.Tensor,
+              mask: torch.Tensor, merge=None):
+        """The step body both entries share, from the device index arrays
+        on: pull, forward, backward, dense update, push (with ``merge`` as
+        its merge order when given), metrics."""
         t = self.table
-        with record_function("train_step.prepare_batch"):
-            idx = t.prepare_batch(keys)
-        with record_function("train_step.upload"):
-            (segs, inverse, uniq_rows, cvm, labels_d, dense_d,
-             mask) = self._upload(segment_ids, idx.inverse, idx.uniq_rows,
-                                  cvm_in, labels, dense, row_mask)
         with record_function("train_step.forward"):
             uniq_mask = (uniq_rows > 0).float()
             rows = uniq_rows[inverse.long()]
             # grads are taken against the pulled rows, not through the pull
             emb = t.device_pull(t.values, rows).requires_grad_(True)
             params.zero_grad(set_to_none=True)
-            logits = self._forward(params, emb, segs, cvm, dense_d)
-            loss, preds = masked_bce_loss(logits, labels_d, mask)
+            logits = self._forward(params, emb, segs, cvm, dense)
+            loss, preds = masked_bce_loss(logits, labels, mask)
         with record_function("train_step.backward"):
             loss.backward()
             demb = emb.grad
@@ -180,17 +190,61 @@ class FusedTrainStep:
             opt_state = self.optimizer.update(params, opt_state)
         with record_function("train_step.push"):
             t.device_push(t.values, t.state, demb, inverse, uniq_rows,
-                          uniq_mask)
+                          uniq_mask, merge)
         with record_function("train_step.metrics"):
             preds = preds.detach()
             p0 = preds if preds.dim() == 1 else preds[:, 0]
-            l0 = labels_d if labels_d.dim() == 1 else labels_d[:, 0]
+            l0 = labels if labels.dim() == 1 else labels[:, 0]
             auc_state = auc_update(auc_state, p0, l0, mask)
             loss = loss.detach()
             self.bad_flag = numeric_sentinel(
                 loss, (p.grad for p in params.parameters()
                        if p.grad is not None), demb)
         return params, opt_state, auc_state, loss, preds
+
+    # -- public --------------------------------------------------------------
+
+    def __call__(self, params: nn.Module, opt_state: Dict[str, Any],
+                 auc_state: Dict[str, torch.Tensor], keys: np.ndarray,
+                 segment_ids, cvm_in, labels, dense, row_mask):
+        """Host-prep entry: prepares the batch index against the table's
+        key map, runs the step on the table's device and updates the
+        arenas. ``keys`` is the padded [Npad] uint64 array (padding = key
+        0). Returns ``(params, opt_state, auc_state, loss, preds)``, the
+        last two as device tensors."""
+        with record_function("train_step.prepare_batch"):
+            idx = self.table.prepare_batch(keys)
+        with record_function("train_step.upload"):
+            ((segs, inverse, uniq_rows), cvm, labels_d, dense_d,
+             mask) = self._upload([segment_ids, idx.inverse, idx.uniq_rows],
+                                  cvm_in, labels, dense, row_mask)
+        return self._step(params, opt_state, auc_state, segs, inverse,
+                          uniq_rows, cvm, labels_d, dense_d, mask)
+
+    def step_device(self, params: nn.Module, opt_state: Dict[str, Any],
+                    auc_state: Dict[str, torch.Tensor], keys: np.ndarray,
+                    segment_ids, cvm_in, labels, dense, row_mask):
+        """Device-prep entry ("ensure" mode): inserts the batch's new keys
+        on the host, ships the raw keys, and dedups and resolves them on
+        the device (K5, K6) before the shared step body. Arguments and
+        result as ``__call__``'s."""
+        if not self.device_prep:
+            raise RuntimeError("step_device needs FusedTrainStep("
+                               "device_prep=True)")
+        t = self.table
+        with record_function("train_step.ensure_keys"):
+            t.ensure_keys(keys)
+        with record_function("train_step.upload"):
+            keys_d = torch.from_numpy(np.ascontiguousarray(
+                keys, dtype=np.uint64).view(np.int64)).to(self.device)
+            (segs,), cvm, labels_d, dense_d, mask = self._upload(
+                [segment_ids], cvm_in, labels, dense, row_mask)
+        with record_function("train_step.dedup_probe"):
+            dd = device_dedup(keys_d)
+            uniq_rows, _ = t.mirror.probe(dd.uniq_keys, dd.n_uniq)
+        return self._step(params, opt_state, auc_state, segs, dd.inverse,
+                          uniq_rows, cvm, labels_d, dense_d, mask,
+                          merge=(dd.order, dd.offsets))
 
     @torch.inference_mode()
     def predict(self, params: nn.Module, keys: np.ndarray, segment_ids,

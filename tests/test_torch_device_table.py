@@ -30,7 +30,7 @@ def pair(capacity=64, upad_min=8, **kw):
                         backend="numpy")
     pt = DeviceTable(TableConfig(**kw), capacity=capacity,
                      uniq_buckets=BucketSpec(min_size=upad_min),
-                     device="cpu")
+                     device="cpu", backend="numpy")
     return jt, pt
 
 

@@ -1,13 +1,17 @@
 """Port's FusedTrainStep (on the CPU, plain versions of the kernels) vs the
 JAX package's ``FusedTrainStep`` over a numpy-backend ``DeviceTable``, from
-the same flax params and the same arena, on the same numpy batches; plus
-the dense optimizers against optax, the masked loss, and a torch port of
+the same flax params and the same arena, on the same numpy batches; the
+device-prep step (``step_device``, native index and its mirror) against the
+reference's and against the port's host-prep step; plus the dense
+optimizers against optax, the masked loss, and a torch port of
 ``tests/test_criteo_golden.py::test_widedeep_reaches_auc``.
 
 Tolerances: per-step loss rtol 1e-5; dense params after 5 steps rtol 1e-4,
 atol 1e-6; table rows by key with show/clk exact and the rest atol 1e-6
 (float32 GEMMs and reductions in another order, compounded over 5
-steps)."""
+steps). Device prep, 4 steps with new keys: loss, dense params and rows
+within 1e-5 (as ``tests/test_device_index.py`` holds the reference's two
+modes), show/clk exact."""
 
 import jax
 import numpy as np
@@ -32,7 +36,9 @@ from paddlebox_tpu_torch.models.convert import (deepfm_from_flax_leaves,
                                                 flax_leaves_from_deepfm,
                                                 flax_leaves_from_widedeep,
                                                 widedeep_from_flax_leaves)
-from paddlebox_tpu_torch.ops import seqpool_kernel, sparse_push
+from paddlebox_tpu.ps import native as ref_native
+from paddlebox_tpu_torch.ops import (device_index_kernel, seqpool_kernel,
+                                     sparse_push)
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.trainer.fused_step import FusedTrainStep
 from paddlebox_tpu_torch.trainer.train_step import (make_dense_optimizer,
@@ -57,14 +63,14 @@ def leaves_of(params):
     return [np.asarray(x) for x in jax.tree_util.tree_leaves(params)]
 
 
-def make_batches(seed, n):
+def make_batches(seed, n, vocab=80):
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
         lengths = rng.integers(1, 4, size=B * S)
         k = int(lengths.sum())
         keys = np.zeros(NPAD, np.uint64)
-        keys[:k] = rng.integers(1, 80, size=k)
+        keys[:k] = rng.integers(1, vocab, size=k)
         segs = np.full(NPAD, B * S, np.int32)
         segs[:k] = np.repeat(np.arange(B * S, dtype=np.int32), lengths)
         labels = (rng.uniform(size=B) < 0.4).astype(np.float32)
@@ -90,7 +96,8 @@ def worlds(dense_opt, dense_lr, **table_kw):
                   B, S, dense_dim=DD, num_auc_buckets=AUC_BUCKETS)
     jp, jo = jfs.init(jax.random.PRNGKey(0))
     pt = DeviceTable(TableConfig(**kw), capacity=1024,
-                     uniq_buckets=BucketSpec(min_size=256), device="cpu")
+                     uniq_buckets=BucketSpec(min_size=256), device="cpu",
+                     backend="numpy")
     pt.load_arena(np.asarray(jt.values), np.asarray(jt.state),
                   jt._index.dump_keys(jt._size))
     model = deepfm_from_flax_leaves(leaves_of(jp), HIDDEN)
@@ -150,6 +157,107 @@ def test_step_launches_each_kernel_path_once_and_predicts():
                                atol=1e-6)
 
 
+needs_native = pytest.mark.skipif(not ref_native.available(),
+                                  reason="native backend unavailable")
+DP_TABLE = dict(embedx_dim=EDIM, cvm_offset=3, embedx_threshold=0.0,
+                initial_range=0.05, seed=11)
+DP_VOCAB = 1300  # keys above the 1000 prepopulated rows are new
+
+
+def device_prep_worlds():
+    """The reference's device-prep step over a native table of 1000
+    prepopulated rows, and the port's device-prep and host-prep steps over
+    native tables holding the same arena and rows, from the same weights."""
+    tconf = dict(dense_optimizer="adam", dense_learning_rate=1e-3)
+    jt = JaxDeviceTable(JaxTableConfig(**DP_TABLE), capacity=1 << 12,
+                        backend="native", index_threads=1)
+    jt.prepopulate(1000)
+    jfs = JaxStep(FlaxDeepFM(hidden=HIDDEN), jt, JaxTrainerConfig(**tconf),
+                  B, S, dense_dim=DD, num_auc_buckets=AUC_BUCKETS,
+                  device_prep=True)
+    jp, jo = jfs.init(jax.random.PRNGKey(5))
+    ports = []
+    for device_prep in (True, False):
+        pt = DeviceTable(TableConfig(**DP_TABLE), capacity=1, device="cpu",
+                         backend="native", index_threads=1)
+        pt.load_arena(np.asarray(jt.values), np.asarray(jt.state),
+                      jt._index.dump_keys(jt._size))
+        pfs = FusedTrainStep(deepfm_from_flax_leaves(leaves_of(jp), HIDDEN),
+                             pt, TrainerConfig(**tconf), B, S, dense_dim=DD,
+                             num_auc_buckets=AUC_BUCKETS,
+                             device_prep=device_prep)
+        ports.append((pfs, pt, [*pfs.init(), pfs.init_auc_state()]))
+    return (jfs, jt, [jp, jo, jfs.init_auc_state()]), ports
+
+
+def assert_rows_close(pt, jt, atol):
+    assert len(pt) == len(jt)
+    n = len(pt) + 1
+    pv, jv = pt.values[:n].numpy(), np.asarray(jt.values)[:n]
+    np.testing.assert_array_equal(pv[:, :2], jv[:, :2])
+    np.testing.assert_allclose(pv, jv, rtol=0, atol=atol)
+    np.testing.assert_allclose(pt.state[:n].numpy(),
+                               np.asarray(jt.state)[:n], rtol=0, atol=atol)
+
+
+@needs_native
+def test_step_device_matches_jax():
+    """Four device-prep steps whose batches hold new keys ("ensure" mode
+    inserts them before the step): loss, dense params and every row within
+    1e-5 of the reference's ``step_device``."""
+    (jfs, jt, js), ((pfs, pt, ps), _) = device_prep_worlds()
+    for batch in make_batches(7, 4, vocab=DP_VOCAB):
+        *js, jloss, jpreds = jfs.step_device(*js, *batch)
+        *ps, loss, preds = pfs.step_device(*ps, *batch)
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(preds.numpy(), np.asarray(jpreds),
+                                   rtol=0, atol=1e-5)
+    assert len(pt) > 1000
+    for got, want in zip(flax_leaves_from_deepfm(ps[0]), leaves_of(js[0])):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert_rows_close(pt, jt, 1e-5)
+    np.testing.assert_array_equal(pt.row_keys()[1:],
+                                  jt._index.dump_keys(jt._size)[1:])
+    assert not bool(pfs.bad_flag)
+    assert device_index_kernel.device_dedup_cuda.launches == 0
+    assert device_index_kernel.device_probe_cuda.launches == 0
+
+
+@needs_native
+def test_step_device_matches_host_prep():
+    """The port's two entries on the same batches (new keys included) give
+    the same rows to the same keys and train alike."""
+    _, ((dfs, dt, ds), (hfs, ht, hs)) = device_prep_worlds()
+    for batch in make_batches(8, 4, vocab=DP_VOCAB):
+        *ds, dloss, _ = dfs.step_device(*ds, *batch)
+        *hs, hloss, _ = hfs(*hs, *batch)
+        np.testing.assert_allclose(float(dloss), float(hloss), rtol=0,
+                                   atol=1e-5)
+    np.testing.assert_array_equal(dt.row_keys(), ht.row_keys())
+    for a, b in zip(ds[0].parameters(), hs[0].parameters()):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=0, atol=1e-5)
+    n = len(dt) + 1
+    np.testing.assert_array_equal(dt.values[:n, :2], ht.values[:n, :2])
+    np.testing.assert_allclose(dt.values[:n].numpy(), ht.values[:n].numpy(),
+                               rtol=0, atol=1e-5)
+
+
+def test_step_device_needs_device_prep():
+    table = DeviceTable(TableConfig(embedx_dim=EDIM), capacity=16,
+                        device="cpu", backend="numpy")
+    fs = FusedTrainStep(torch.nn.Linear(1, 1), table, TrainerConfig(), B, S)
+    with pytest.raises(RuntimeError, match="device_prep=True"):
+        fs.step_device(None, None, None, *make_batches(0, 1)[0])
+    with pytest.raises(RuntimeError, match="backend='native'"):
+        FusedTrainStep(torch.nn.Linear(1, 1), table, TrainerConfig(), B, S,
+                       device_prep=True)
+    with pytest.raises(ValueError, match="insert_mode"):
+        FusedTrainStep(torch.nn.Linear(1, 1), table, TrainerConfig(), B, S,
+                       insert_mode="eager")
+
+
 @pytest.mark.parametrize("name", ["adam", "adamw", "sgd", "adagrad"])
 def test_dense_optimizer_matches_optax(name):
     """Three steps of random grads on a small module; optax's adagrad
@@ -204,8 +312,9 @@ def test_unported_options_raise():
                 {"profile": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FusedTrainStep(model, table, TrainerConfig(**bad), B, S)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        FusedTrainStep(model, table, TrainerConfig(), B, S, device_prep=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.3b"):
+        FusedTrainStep(model, table, TrainerConfig(), B, S, device_prep=True,
+                       insert_mode="deferred")
 
 
 def test_widedeep_converter_round_trips_flax():

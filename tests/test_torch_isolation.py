@@ -142,6 +142,58 @@ def test_trains_one_step_with_jax_blocked():
     assert "TRAINED" in res.stdout
 
 
+def test_device_prep_step_with_jax_blocked():
+    """Device-prep training (the native index built from the port's own
+    source, its mirror, the dedup and probe) runs one CPU step with jax and
+    paddlebox_tpu blocked."""
+    res = _run(f"""
+        import sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        from paddlebox_tpu_torch.config import TableConfig, TrainerConfig
+        from paddlebox_tpu_torch.models import DeepFM
+        from paddlebox_tpu_torch.ops import _build
+        from paddlebox_tpu_torch.ops.device_index_kernel import (
+            device_dedup_cuda, device_probe_cuda)
+        from paddlebox_tpu_torch.ps import native
+        from paddlebox_tpu_torch.ps.device_table import DeviceTable
+        from paddlebox_tpu_torch.trainer.fused_step import FusedTrainStep
+        if not native.available():
+            print("NO_NATIVE", native.build_error())
+            sys.exit(0)
+        assert _build.source("pbx_index").parent.parent.name == \\
+            "paddlebox_tpu_torch"
+        B, S = 8, 3
+        table = DeviceTable(TableConfig(embedx_dim=4), capacity=64,
+                            device="cpu", backend="native", index_threads=1)
+        table.prepopulate(20)
+        fs = FusedTrainStep(DeepFM(S * 7, (8,)), table, TrainerConfig(),
+                            B, S, device_prep=True)
+        params, opt = fs.init()
+        auc = fs.init_auc_state()
+        rng = np.random.default_rng(0)
+        keys = np.zeros(256, np.uint64)
+        keys[:B * S] = rng.integers(1, 50, size=B * S)
+        segs = np.full(256, B * S, np.int32)
+        segs[:B * S] = np.arange(B * S)
+        labels = (rng.uniform(size=B) < 0.5).astype(np.float32)
+        cvm = np.stack([np.ones(B, np.float32), labels], axis=1)
+        params, opt, auc, loss, preds = fs.step_device(
+            params, opt, auc, keys, segs, cvm, labels,
+            np.zeros((B, 0), np.float32), np.ones(B, np.float32))
+        assert np.isfinite(float(loss)) and preds.shape == (B,)
+        assert len(table) == 20 + np.unique(keys[keys > 20]).size
+        assert device_dedup_cuda.launches == device_probe_cuda.launches == 0
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("DEVICE_PREP", float(loss))
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "DEVICE_PREP" in res.stdout
+
+
 def test_entry_points_default_to_cuda(tmp_path):
     from paddlebox_tpu_torch import resolve_device
     from paddlebox_tpu_torch.inference import CTRPredictor
@@ -167,7 +219,8 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
         import sys
         sys.path.insert(0, {ROOT!r})
         import torch
-        from paddlebox_tpu_torch.ops import _build, seqpool_kernel, sparse_push
+        from paddlebox_tpu_torch.ops import (_build, device_index_kernel,
+                                             seqpool_kernel, sparse_push)
         e = torch.ones(4, 11)
         s = torch.tensor([0, 0, 1, 2], dtype=torch.int32)
         out = seqpool_kernel.seqpool_cvm(e, s, 1, 2)
@@ -177,7 +230,9 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
         assert seqpool_kernel.seqpool_cvm_cuda.launches == 0
         assert seqpool_kernel.seqpool_cvm_grad_cuda.launches == 0
         assert sparse_push.sparse_push_cuda.launches == 0
-        for name in ("seqpool_cvm", "seqpool_cvm_grad", "sparse_push"):
+        assert device_index_kernel.device_dedup_cuda.launches == 0
+        for name in ("seqpool_cvm", "seqpool_cvm_grad", "sparse_push",
+                     "device_index"):
             try:
                 _build.load(name)
             except RuntimeError as e:
@@ -185,7 +240,7 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
                 print("NO_NVCC_OK", name)
     """, env=env)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.count("NO_NVCC_OK") == 3
+    assert res.stdout.count("NO_NVCC_OK") == 4
 
 
 def test_chip_smoke_refuses_without_cuda():

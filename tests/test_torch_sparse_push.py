@@ -124,7 +124,8 @@ def test_push_matches_jax_at_flagship_width(optimizer):
                         uniq_buckets=JaxBucketSpec(min_size=64),
                         backend="numpy")
     pt = DeviceTable(TableConfig(**kw), capacity=256,
-                     uniq_buckets=BucketSpec(min_size=64), device="cpu")
+                     uniq_buckets=BucketSpec(min_size=64), device="cpu",
+                     backend="numpy")
     jt.prepare_batch(np.arange(1, 201, dtype=np.uint64))
     vals = np.asarray(jt.values).copy()
     shows = rng.integers(5, 15, size=200).astype(np.float32)
