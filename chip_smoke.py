@@ -42,6 +42,11 @@ Phases, each fatal on failure:
              above 2^63 beside small ones, all padding, one key N times,
              ragged tails, keys absent from the mirror, a cluster whose run
              reaches slot 63 of its window and a run that ends in the guard.
+             K5 also on keys that differ in one byte (each of the eight),
+             keys straddling 2^63, N = 2047, 2048, 2049, the training batch
+             with one key 500 times and 102,400 keys over all 64 bits; its
+             radix sort against ``torch.sort``, its plan (the active digits,
+             printed) against the plain plan.
 3. serve   — write a seeded synthetic Criteo file, export a DeepFM
              (hidden 512-256-128) bundle whose table has >= 4M rows, serve
              every batch through ``CTRPredictor(device="cuda")``; the
@@ -69,8 +74,10 @@ Phases, each fatal on failure:
              training shape: kernel, plain and library times, per call and
              in a CUDA graph, beside each kernel's bound; the push kernel
              alone beside the push with its merge order, adam beside
-             adagrad; the dedup's passes beside its sort; and the launch
-             floor, the graph time of ``torch.cuda._sleep(0)``.
+             adagrad; the dedup on the training keys and on keys over all
+             64 bits, whole, its sort half and its numbering half, beside
+             ``torch.sort`` and ``torch.unique``; and the launch floor, the
+             graph time of ``torch.cuda._sleep(0)``.
 
 Prints the card's ``name, power.limit`` line, then one JSON line of
 per-kernel numbers, then ``{"ok": true, "device": {...}}`` last. Exits
@@ -114,14 +121,17 @@ from paddlebox_tpu_torch.ops.sparse_push import (merge_offsets,
                                                  push_geometry, push_rows,
                                                  sparse_push_cuda,
                                                  sparse_push_plain)
-from paddlebox_tpu_torch.ops.device_index_kernel import (SIGN,
+from paddlebox_tpu_torch.ops.device_index_kernel import (DIGITS, SIGN,
+                                                         dedup_number_cuda,
+                                                         dedup_sort_cuda,
                                                          device_dedup_cuda,
                                                          device_probe_cuda)
 from paddlebox_tpu_torch.ps.device_index import (DeviceIndexMirror,
                                                  device_dedup_plain,
                                                  device_hash,
                                                  device_probe_plain,
-                                                 host_hash, key_halves)
+                                                 host_hash, key_halves,
+                                                 radix_plan_plain)
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.ps.native import NativeIndex
 from paddlebox_tpu_torch.ps.table import state_dim
@@ -161,6 +171,7 @@ HOT_VOCAB = 1 << 22
 TRAIN_STEPS = 16             # counted steps on the main path
 CPU_STEPS = 2                # of them, held against the CPU
 ITERS = 200                  # calls per timing
+DEDUP_REPEATS = 10           # K5 launches per check case, all identical
 KERNEL = "seqpool_cvm"
 GRAD = "seqpool_cvm_grad"
 PUSH = "sparse_push"
@@ -772,13 +783,37 @@ def phase_kernel_offsets(rng, train_inverse: torch.Tensor, upad: int):
     return err
 
 
+def radix_cases(rng) -> dict:
+    """Batches aimed at K5's radix sort (the CPU tests hold the plain dedup
+    against the reference's on the same ones): keys that differ in one
+    byte only, for each of the eight; keys straddling 2^63 whose lowest
+    digit is one bin; N one below, at and one above a sort tile."""
+    cases = {}
+    base = rng.integers(0, 1 << 64, dtype=np.uint64)
+    for b in range(DIGITS):
+        shift = np.uint64(8 * b)
+        vals = rng.integers(0, 256, size=3000).astype(np.uint64)
+        cases[f"byte-{b}"] = (base & ~(np.uint64(0xFF) << shift)) | (
+            vals << shift)
+    offs = rng.integers(-2000, 2000, size=4000) * 256 + 0x5A
+    cases["straddle-2^63"] = (np.uint64(1) << np.uint64(63)) + \
+        offs.astype(np.uint64)
+    for n in (2047, 2048, 2049):
+        keys = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
+        keys[rng.integers(0, n, n // 4)] = keys[rng.integers(0, n, n // 4)]
+        cases[f"n-{n}"] = keys
+    return cases
+
+
 def check_dedup(name: str, keys: np.ndarray):
     """K5 vs its plain version on the card, every output exactly, and both
-    against ``np.unique`` of the uint64 keys. Returns the kernel's
-    result."""
+    against ``np.unique`` of the uint64 keys; its sort half against
+    ``torch.sort`` and its plan against the plain plan; DEDUP_REPEATS
+    launches bit-identical. Returns the kernel's result."""
     kt = torch.from_numpy(np.ascontiguousarray(keys, np.uint64).view(
         np.int64)).cuda()
     got = device_dedup_cuda(kt)
+    srt = dedup_sort_cuda(kt)
     torch.cuda.synchronize()
     want = device_dedup_plain(kt)
     err = 0.0
@@ -790,19 +825,35 @@ def check_dedup(name: str, keys: np.ndarray):
             err = max(err, float((a.long() - b.long()).abs().max()))
         require(torch.equal(a, b),
                 f"{DEDUP} {name}: {field} differs from the plain version")
+    # a race between a pass's threads shows in some launches only
+    for _ in range(DEDUP_REPEATS - 1):
+        again = device_dedup_cuda(kt)
+        require(all(torch.equal(a, b) for a, b in zip(again, got)),
+                f"{DEDUP} {name}: two launches differ")
+    plan = srt.plan.cpu()
+    require(torch.equal(plan, radix_plan_plain(kt.cpu())),
+            f"{DEDUP} {name}: the sort's plan {plan.tolist()} differs from "
+            "the plain plan")
+    sorted_keys, pos = srt.result()
+    want_keys, want_pos = torch.sort(kt ^ SIGN, stable=True)
+    require(torch.equal(sorted_keys, want_keys) and
+            torch.equal(pos.long(), want_pos),
+            f"{DEDUP} {name}: the radix sort differs from torch.sort's")
     uniq, inverse = np.unique(keys, return_inverse=True)
     nu = int(got.n_uniq)
     require(nu == uniq.size, f"{DEDUP} {name}: n_uniq {nu} != {uniq.size}")
     host_uniq = got.uniq_keys.cpu().numpy().view(np.uint64)
     require(np.array_equal(host_uniq[:nu], uniq) and not host_uniq[nu:].any(),
             f"{DEDUP} {name}: uniques differ from np.unique's")
-    require(np.array_equal(got.inverse.cpu().numpy(), inverse),
+    require(np.array_equal(got.inverse.cpu().numpy(), inverse.ravel()),
             f"{DEDUP} {name}: inverse differs from np.unique's")
     require(torch.equal(got.offsets, merge_offsets_plain(got.inverse,
                                                          keys.size)),
             f"{DEDUP} {name}: offsets are not the uniques' boundaries")
-    print(f"kernel check {DEDUP} {name}: N={keys.size} n_uniq={nu} "
-          "bit-exact ok")
+    active = [d for d, on in enumerate(plan[:DIGITS].tolist()) if on]
+    print(f"kernel check {DEDUP} {name}: N={keys.size} n_uniq={nu} active "
+          f"digits {active} bit-exact ok, {DEDUP_REPEATS} launches "
+          "identical")
     return got, err
 
 
@@ -837,10 +888,12 @@ def colliding_keys(mask: int, home: int, n: int, rng) -> np.ndarray:
     return np.unique(np.array(out[:n], dtype=np.uint64))
 
 
-def phase_kernel_index(rng, train_keys: np.ndarray):
+def phase_kernel_index(rng, train_keys: np.ndarray, radix_rng):
     """K5 and K6 vs their plain versions at the training shape over the
-    4,194,304-key mirror and at edge cases. Returns the largest error (0:
-    bit-exact) of each and the training batch's dedup and mirror for
+    4,194,304-key mirror and at edge cases; K5 also on ``radix_cases``,
+    the training batch with one key 500 times and N keys over all 64 bits
+    (from ``radix_rng``). Returns the largest error (0: bit-exact) of each,
+    and the training batch's dedup and mirror and the 64-bit keys for
     timing."""
     index = NativeIndex()  # as DeviceTable.prepopulate(HOT_VOCAB) builds it
     index.rebuild(np.concatenate([
@@ -872,6 +925,14 @@ def phase_kernel_index(rng, train_keys: np.ndarray):
                 np.uint64)),
             ("ragged", rng.integers(0, 1 << 40, size=5003).astype(
                 np.uint64))):
+        dedup_err = max(dedup_err, check_dedup(name, keys)[1])
+    hot = train_keys.copy()
+    n_valid = int(np.count_nonzero(hot))
+    hot[radix_rng.choice(n_valid, 500, replace=False)] = hot[0]
+    keys64 = radix_rng.integers(0, 1 << 64, size=TNPAD, dtype=np.uint64)
+    for name, keys in (*radix_cases(radix_rng).items(),
+                       ("training-one-key-500-times", hot),
+                       ("keys-over-64-bits", keys64)):
         dedup_err = max(dedup_err, check_dedup(name, keys)[1])
     # keys absent from the mirror, high keys and key 0 beside present ones
     probe_keys = np.concatenate([
@@ -909,7 +970,7 @@ def phase_kernel_index(rng, train_keys: np.ndarray):
             query.view(np.int64)).cuda(), want_rows=np.maximum(
                 want, 0).astype(np.int32)))
     return (dedup_err, probe_err), {"dedup": dd, "mirror": mirror,
-                                    "keys": train_keys}
+                                    "keys": train_keys, "keys64": keys64}
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -1299,7 +1360,7 @@ def phase_train_device(rng, init) -> dict:
     device_profile("train device-prep, 4 steps",
                    lambda: train_steps(fs, state, batches[:4],
                                        fs.step_device),
-                   kernels=(KERNEL, PUSH, "dedup", "probe"))
+                   kernels=(KERNEL, PUSH, "radix", "dedup", "probe"))
     host_fs = FusedTrainStep(host_model, host_table, tconf, TB, TS)
     host_state = (*host_fs.init(), host_fs.init_auc_state())
     t0 = time.perf_counter()
@@ -1534,43 +1595,58 @@ def probe_bound(mirror, keys: torch.Tensor, n_valid: torch.Tensor) -> int:
     return nv * 8 + quads * 16 + n * 5 + 4, quads
 
 
+def time_dedup(tag: str, keys: np.ndarray) -> dict:
+    """K5 on one batch: whole, per call and in a CUDA graph; its sort half
+    and its numbering half; ``torch.sort`` of the packed keys (the sort's
+    library call); plain and ``torch.unique`` (the function's library
+    call), per call only: they read values back to the host, so they are
+    not captured in a graph."""
+    kt = torch.from_numpy(keys.view(np.int64)).cuda()
+    packed = kt ^ SIGN
+    srt = dedup_sort_cuda(kt)
+    active = [d for d, on in enumerate(srt.plan[:DIGITS].tolist()) if on]
+    n = keys.size
+    t = {"ms": cuda_ms(lambda: device_dedup_cuda(kt), ITERS),
+         "graph_ms": graph_ms(lambda: device_dedup_cuda(kt)),
+         "sort_ms": cuda_ms(lambda: dedup_sort_cuda(kt), ITERS),
+         "sort_graph_ms": graph_ms(lambda: dedup_sort_cuda(kt)),
+         "number_ms": cuda_ms(lambda: dedup_number_cuda(srt), ITERS),
+         "number_graph_ms": graph_ms(lambda: dedup_number_cuda(srt)),
+         "library_sort_ms": cuda_ms(lambda: torch.sort(packed, stable=True),
+                                    ITERS),
+         "library_sort_graph_ms": graph_ms(
+             lambda: torch.sort(packed, stable=True)),
+         "plain_ms": cuda_ms(lambda: device_dedup_plain(kt), ITERS),
+         "plain_graph_ms": None,
+         "library_ms": cuda_ms(lambda: torch.unique(
+             packed, sorted=True, return_inverse=True), ITERS),
+         "library_graph_ms": None, "active_digits": active}
+    # the keys read once; inverse, uniques, order, offsets and n_uniq
+    # written once
+    with_bound(t, n * 8 + n * 4 + n * 8 + n * 8 + (n + 1) * 4 + 4, 0)
+    print(f"timing {DEDUP} {tag} (N={n}, active digits {active}): per call "
+          f"{t['ms']:.5f} ms, in a CUDA graph {t['graph_ms']:.5f} ms "
+          f"({100 * t['bound_ms'] / t['graph_ms']:.1f}% of bound "
+          f"{t['bound_ms']:.6f} ms, {t['bound_bytes']} bytes); its sort "
+          f"{t['sort_ms']:.5f} per call, {t['sort_graph_ms']:.5f} in a graph; "
+          f"its numbering {t['number_ms']:.5f} per call, "
+          f"{t['number_graph_ms']:.5f} in a graph; torch.sort(stable) "
+          f"{t['library_sort_ms']:.5f} per call, "
+          f"{t['library_sort_graph_ms']:.5f} in a graph; plain "
+          f"{t['plain_ms']:.5f}, torch.unique {t['library_ms']:.5f} per call "
+          "(neither capturable)")
+    return t
+
+
 def time_index(inputs) -> Tuple[dict, dict]:
-    """K5 and K6 at the training shape. K5: the hand-written passes on the
-    sorted keys (``ms``, against the bound of their own bytes), the
-    wrapper with its sort, the sort alone; plain and ``torch.unique`` read
-    values back to the host, so they are not captured in a graph. K6: the
+    """K5 and K6 at the training shape. K5 (``time_dedup``) on the training
+    batch (keys in [1, 2^22]) and on as many keys over all 64 bits. K6: the
     probe of the batch's uniques over the 4,194,304-key mirror; no single
     PyTorch call computes it."""
     dd, mirror, keys = inputs["dedup"], inputs["mirror"], inputs["keys"]
-    kt = torch.from_numpy(keys.view(np.int64)).cuda()
-    packed = kt ^ SIGN
-    presorted = torch.sort(packed, stable=True)
     n = keys.size
-    k5 = {"ms": cuda_ms(lambda: device_dedup_cuda(kt, presorted), ITERS),
-          "graph_ms": graph_ms(lambda: device_dedup_cuda(kt, presorted)),
-          "with_sort_ms": cuda_ms(lambda: device_dedup_cuda(kt), ITERS),
-          "with_sort_graph_ms": graph_ms(lambda: device_dedup_cuda(kt)),
-          "sort_ms": cuda_ms(lambda: torch.sort(packed, stable=True), ITERS),
-          "sort_graph_ms": graph_ms(lambda: torch.sort(packed, stable=True)),
-          "plain_ms": cuda_ms(lambda: device_dedup_plain(kt), ITERS),
-          "plain_graph_ms": None,
-          "library_ms": cuda_ms(lambda: torch.unique(
-              packed, sorted=True, return_inverse=True), ITERS),
-          "library_graph_ms": None}
-    tiles = -(-n // 1024)
-    # sorted keys and sidx read, inverse, uniques, offsets and n_uniq
-    # written, the tile counts written and read
-    with_bound(k5, n * 16 + n * 4 + n * 8 + (n + 1) * 4 + 4 + tiles * 8, 0)
-    print(f"timing {DEDUP} training (N={n}, n_uniq={int(dd.n_uniq)}): the "
-          f"passes on sorted keys per call {k5['ms']:.5f} ms, in a CUDA "
-          f"graph {k5['graph_ms']:.5f} ms "
-          f"({100 * k5['bound_ms'] / k5['graph_ms']:.1f}% of bound "
-          f"{k5['bound_ms']:.6f} ms, {k5['bound_bytes']} bytes); with its "
-          f"sort per call {k5['with_sort_ms']:.5f} ms, in a graph "
-          f"{k5['with_sort_graph_ms']:.5f} ms; the sort alone per call "
-          f"{k5['sort_ms']:.5f} ms, in a graph {k5['sort_graph_ms']:.5f} "
-          f"ms; plain {k5['plain_ms']:.5f} ms, torch.unique "
-          f"{k5['library_ms']:.5f} ms per call (neither capturable)")
+    k5 = time_dedup("training", keys)
+    k5["keys64"] = time_dedup("keys over 64 bits", inputs["keys64"])
     args = (mirror.tab, mirror.mask, mirror.window, dd.uniq_keys, dd.n_uniq)
     k6 = {"ms": cuda_ms(lambda: device_probe_cuda(*args), ITERS),
           "graph_ms": graph_ms(lambda: device_probe_cuda(*args)),
@@ -1613,7 +1689,8 @@ def main() -> int:
         # earlier phases keep their inputs
         index_rng = np.random.default_rng([args.seed, 7])
         index_err, index_inputs = phase_kernel_index(
-            index_rng, make_train_batches(index_rng, 1)[0][0])
+            index_rng, make_train_batches(index_rng, 1)[0][0],
+            np.random.default_rng([args.seed, 9]))
         serve_launches = phase_serve(rng, args.seed)
         train, train_init = phase_train(rng)
         train_dev = phase_train_device(np.random.default_rng([args.seed, 8]),
@@ -1672,7 +1749,8 @@ def main() -> int:
          "replaces": "paddlebox_tpu/ps/device_index.py:112",
          **by_path(device_dedup_cuda),
          "max_abs_err": index_err[0], **dedup_timing,
-         "ptxas": [r for r in ptxas[INDEX] if "dedup" in r["name"]]},
+         "ptxas": [r for r in ptxas[INDEX] if "dedup" in r["name"] or
+                   "radix" in r["name"]]},
         {"name": PROBE, "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/device_index.cu",
          "replaces": "paddlebox_tpu/ps/device_index.py:133",

@@ -5,6 +5,12 @@ Counterparts of ``paddlebox_tpu/ps/device_index.py::device_dedup`` and
 ``csrc/device_index.cu``. Their plain versions, and the functions that pick
 one or the other by device, are in ``ps/device_index.py``.
 
+K5 runs in two halves, each its own C entry: ``dedup_sort_cuda``, the
+hand-written stable LSD radix sort of the packed keys (8 digits of 8 bits;
+a digit whose one bin holds every key is skipped on the card, by the plan
+the sort writes there), and ``dedup_number_cuda``, the count and write
+passes over the sorted keys. ``device_dedup_cuda`` runs both.
+
 Keys are uint64 bit patterns in int64 tensors. Each wrapper launches on the
 current stream, does not synchronize, and counts its launches in
 ``<wrapper>.launches``.
@@ -22,6 +28,8 @@ from paddlebox_tpu_torch.ops import _build
 
 # k ^ SIGN as int64 sorts in the unsigned order of k
 SIGN = -(1 << 63)
+# the radix sort's digits: DIGITS of RADIX_BITS bits, the lowest first
+DIGITS, RADIX_BITS = 8, 8
 
 
 class Dedup(NamedTuple):
@@ -37,14 +45,40 @@ class Dedup(NamedTuple):
     #                          order; N from n_uniq on
 
 
+class RadixSort(NamedTuple):
+    """``dedup_sort_cuda``'s result, for N keys."""
+
+    keys: torch.Tensor  # [2, N] int64: buffers A and B of packed keys
+    pos: torch.Tensor   # [2, N] int32: their positions
+    plan: torch.Tensor  # [2 * DIGITS + 1] int32: digit d active ([d]), the
+    #                     buffer pass d reads ([DIGITS + d]; 0 = A, 1 = B),
+    #                     the buffer holding the sorted keys ([2 * DIGITS])
+    work: torch.Tensor  # int32 scratch of the numbering passes
+
+    def result(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The sorted packed keys and their positions (reads the plan on
+        the host)."""
+        final = int(self.plan[2 * DIGITS])
+        return self.keys[final], self.pos[final]
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("device_index")
     vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.pbx_dedup_tile.argtypes = []
-    lib.pbx_dedup_tile.restype = ctypes.c_int
-    lib.pbx_device_dedup.argtypes = [vp, vp, i64] + [vp] * 6
-    lib.pbx_device_dedup.restype = ctypes.c_int
+    for name in ("pbx_dedup_tile", "pbx_dedup_sort_tile",
+                 "pbx_dedup_sort_bins", "pbx_dedup_digits"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    # the wrapper sizes the histogram and the plan by these
+    if (lib.pbx_dedup_digits(), lib.pbx_dedup_sort_bins()) != (
+            DIGITS, 1 << RADIX_BITS):
+        raise RuntimeError("csrc/device_index.cu's radix sort differs from "
+                           "its wrapper's digits")
+    lib.pbx_dedup_sort.argtypes = [vp, i64] + [vp] * 6
+    lib.pbx_dedup_sort.restype = ctypes.c_int
+    lib.pbx_dedup_number.argtypes = [vp, vp, vp, i64] + [vp] * 7
+    lib.pbx_dedup_number.restype = ctypes.c_int
     lib.pbx_device_probe.argtypes = [vp, i64, i64, ctypes.c_int, vp, vp, i64,
                                      vp, vp, vp]
     lib.pbx_device_probe.restype = ctypes.c_int
@@ -67,36 +101,65 @@ def _check_keys(keys: torch.Tensor, what: str) -> None:
                          f"{keys.device}")
 
 
-def device_dedup_cuda(keys: torch.Tensor,
-                      presorted: Optional[Tuple[torch.Tensor,
-                                                torch.Tensor]] = None
-                      ) -> Dedup:
-    """K5: a stable ``torch.sort`` of the packed keys (``keys ^ SIGN``),
-    then the hand-written count and write passes. ``presorted``, that
-    sort's (values, indices), skips it."""
+def dedup_sort_cuda(keys: torch.Tensor) -> RadixSort:
+    """K5's sort half: the packed keys ``keys ^ SIGN`` and their positions,
+    sorted stably by the hand-written radix sort, for N >= 1 keys. Two
+    allocations: the key buffers, and one int32 tensor for the rest."""
+    _check_keys(keys, "dedup_sort_cuda")
+    n = keys.shape[0]
+    if n == 0:
+        raise ValueError("dedup_sort_cuda: no keys")
+    dev = keys.device
+    lib = _lib()
+    bins = 1 << RADIX_BITS
+    # tile counts first: the kernel reads them 16 bytes at a time
+    sizes = (-(-n // lib.pbx_dedup_sort_tile()) * bins, 2 * n,
+             DIGITS * bins + 1, 2 * DIGITS + 1, -(-n // lib.pbx_dedup_tile()))
+    counts, pos, hist, plan, work = torch.empty(
+        sum(sizes), dtype=torch.int32, device=dev).split(sizes)
+    out = RadixSort(torch.empty((2, n), dtype=torch.int64, device=dev),
+                    pos.view(2, n), plan, work)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(lib, lib.pbx_dedup_sort(
+        keys.data_ptr(), n, out.keys.data_ptr(), pos.data_ptr(),
+        hist.data_ptr(), counts.data_ptr(), plan.data_ptr(), stream),
+        "dedup_sort")
+    return out
+
+
+def dedup_number_cuda(srt: RadixSort) -> Dedup:
+    """K5's numbering half: the count and write passes over
+    ``dedup_sort_cuda``'s result. Its outputs share two allocations."""
+    n = srt.keys.shape[1]
+    dev = srt.keys.device
+    lib = _lib()
+    uniq, order = torch.empty((2, n), dtype=torch.int64, device=dev)
+    inverse, offsets, n_uniq = torch.empty(
+        2 * n + 2, dtype=torch.int32, device=dev).split((n, n + 1, 1))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(lib, lib.pbx_dedup_number(
+        srt.keys.data_ptr(), srt.pos.data_ptr(), srt.plan.data_ptr(), n,
+        srt.work.data_ptr(), inverse.data_ptr(), uniq.data_ptr(),
+        order.data_ptr(), offsets.data_ptr(), n_uniq.data_ptr(), stream),
+        "dedup_number")
+    return Dedup(inverse, uniq, n_uniq.reshape(()), order, offsets)
+
+
+def device_dedup_cuda(keys: torch.Tensor) -> Dedup:
+    """K5: the hand-written radix sort of the packed keys, then the
+    hand-written count and write passes."""
     _check_keys(keys, "device_dedup_cuda")
     n = keys.shape[0]
-    dev = keys.device
-    sorted_keys, order = presorted if presorted is not None else \
-        torch.sort(keys ^ SIGN, stable=True)
-    inverse = torch.empty(n, dtype=torch.int32, device=dev)
-    uniq = torch.empty(n, dtype=torch.int64, device=dev)
-    offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
-    n_uniq = torch.empty(1, dtype=torch.int32, device=dev)
     if n == 0:
-        offsets.zero_()
-        n_uniq.zero_()
-        return Dedup(inverse, uniq, n_uniq.reshape(()), order, offsets)
-    lib = _lib()
-    tile = lib.pbx_dedup_tile()
-    counts = torch.empty(-(-n // tile), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _raise_on(lib, lib.pbx_device_dedup(
-        sorted_keys.data_ptr(), order.data_ptr(), n, counts.data_ptr(),
-        inverse.data_ptr(), uniq.data_ptr(), offsets.data_ptr(),
-        n_uniq.data_ptr(), stream), "device_dedup")
+        dev = keys.device
+        return Dedup(torch.empty(0, dtype=torch.int32, device=dev),
+                     torch.empty(0, dtype=torch.int64, device=dev),
+                     torch.zeros((), dtype=torch.int32, device=dev),
+                     torch.empty(0, dtype=torch.int64, device=dev),
+                     torch.zeros(1, dtype=torch.int32, device=dev))
+    out = dedup_number_cuda(dedup_sort_cuda(keys))
     device_dedup_cuda.launches += 1
-    return Dedup(inverse, uniq, n_uniq.reshape(()), order, offsets)
+    return out
 
 
 device_dedup_cuda.launches = 0

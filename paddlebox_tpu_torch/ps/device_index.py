@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from paddlebox_tpu_torch._device import DeviceLike, resolve_device
-from paddlebox_tpu_torch.ops.device_index_kernel import (SIGN, Dedup,
+from paddlebox_tpu_torch.ops.device_index_kernel import (DIGITS, RADIX_BITS,
+                                                         SIGN, Dedup,
                                                          device_dedup_cuda,
                                                          device_probe_cuda)
 from paddlebox_tpu_torch.ps.native import NativeIndex
@@ -114,6 +115,24 @@ def device_dedup_plain(keys: torch.Tensor) -> Dedup:
     offsets = torch.full((n + 1,), n, dtype=torch.int32, device=dev)
     offsets[heads] = torch.arange(n, dtype=torch.int32, device=dev)[first]
     return Dedup(inverse, uniq, n_uniq, order, offsets)
+
+
+def radix_plan_plain(keys: torch.Tensor) -> torch.Tensor:
+    """Plain version of the plan that K5's radix sort writes on the card:
+    [2 * DIGITS + 1] int32, digit d active (no one bin holds every key),
+    the buffer pass d reads (0 = A, 1 = B; an active pass writes the other
+    one), the buffer holding the sorted keys. Digits are those of the
+    uint64 keys, the lowest first."""
+    n = keys.shape[0]
+    bins = 1 << RADIX_BITS
+    active, src, cur = [], [], 0
+    for d in range(DIGITS):
+        digit = (keys >> (RADIX_BITS * d)) & (bins - 1)
+        on = int(torch.bincount(digit, minlength=bins).max()) < n
+        active.append(int(on))
+        src.append(cur)
+        cur ^= int(on)
+    return torch.tensor(active + src + [cur], dtype=torch.int32)
 
 
 def device_dedup(keys: torch.Tensor) -> Dedup:

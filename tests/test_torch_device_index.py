@@ -8,11 +8,14 @@ against these plain versions.
 
 The mirror tests need both packages' index cores (g++)."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from paddlebox_tpu.ps import device_index as ref
 from paddlebox_tpu.ps import native as ref_native
 from paddlebox_tpu_torch.ops import device_index_kernel as kernel
@@ -69,9 +72,7 @@ def dedup_cases():
             "one-key": np.array([HIGH], np.uint64)}
 
 
-@pytest.mark.parametrize("case", sorted(dedup_cases()))
-def test_dedup_plain_matches_reference(case):
-    keys = dedup_cases()[case]
+def check_dedup_against_reference(keys):
     got = device_index.device_dedup(as_torch(keys))
     jhi, jlo = ref.split_keys(keys)
     inv, uhi, ulo, nu = ref.device_dedup(jnp.asarray(jhi), jnp.asarray(jlo))
@@ -85,6 +86,66 @@ def test_dedup_plain_matches_reference(case):
     order, offsets = merge_order_plain(got.inverse, keys.size)
     np.testing.assert_array_equal(got.order.numpy(), order.numpy())
     np.testing.assert_array_equal(got.offsets.numpy(), offsets.numpy())
+
+
+@pytest.mark.parametrize("case", sorted(dedup_cases()))
+def test_dedup_plain_matches_reference(case):
+    check_dedup_against_reference(dedup_cases()[case])
+
+
+@functools.lru_cache(maxsize=None)
+def radix_cases():
+    """The batches ``chip_smoke.py`` runs through K5 at its default seed."""
+    return chip_smoke.radix_cases(np.random.default_rng([0, 9]))
+
+
+def active_digits(keys):
+    plan = device_index.radix_plan_plain(as_torch(keys))
+    assert plan.dtype == torch.int32 and plan.shape == (2 * kernel.DIGITS
+                                                        + 1,)
+    return [d for d in range(kernel.DIGITS) if plan[d]]
+
+
+@pytest.mark.parametrize("byte", range(8))
+def test_dedup_plain_keys_differing_in_one_byte(byte):
+    """Only the varying byte's digit is active: the seven passes skipped
+    on the card must leave the keys where the one before left them."""
+    keys = radix_cases()[f"byte-{byte}"]
+    assert active_digits(keys) == [byte]
+    check_dedup_against_reference(keys)
+
+
+def test_dedup_plain_keys_straddling_the_sign_bit():
+    """Keys on both sides of 2^63 (byte 7 is 0x7F or 0x80) with one bin of
+    the lowest digit: unsigned order puts 2^63 and above last."""
+    keys = radix_cases()["straddle-2^63"]
+    high = keys >= HIGH
+    assert high.any() and (~high).any()
+    assert 0 not in active_digits(keys) and 7 in active_digits(keys)
+    check_dedup_against_reference(keys)
+    got = device_index.device_dedup(as_torch(keys))
+    uniq = got.uniq_keys[:int(got.n_uniq)].numpy().view(np.uint64)
+    assert (np.diff(uniq) > 0).all() and uniq[-1] >= HIGH > uniq[0]
+
+
+@pytest.mark.parametrize("n", [2047, 2048, 2049])
+def test_dedup_plain_around_a_sort_tile(n):
+    keys = radix_cases()[f"n-{n}"]
+    assert keys.size == n
+    assert active_digits(keys) == list(range(8))
+    check_dedup_against_reference(keys)
+
+
+def test_radix_plan_plain_skips_digits_with_one_bin():
+    """The plan: inactive digits move nothing, so each active pass reads
+    the buffer the active pass before it wrote."""
+    keys = np.array([0x0102, 0x0103, 0x0502], np.uint64)
+    plan = device_index.radix_plan_plain(as_torch(keys)).tolist()
+    assert plan[:8] == [1, 1, 0, 0, 0, 0, 0, 0]
+    assert plan[8:16] == [0, 1, 0, 0, 0, 0, 0, 0]
+    assert plan[16] == 0
+    plan = device_index.radix_plan_plain(as_torch(np.zeros(5, np.uint64)))
+    assert plan.tolist() == [0] * 17
 
 
 def test_dedup_of_no_keys():
