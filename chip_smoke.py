@@ -10,8 +10,9 @@ Phases, each fatal on failure:
 1. build   — compile the port's native sources from the repository, one
              process each, all at once: with ``nvcc`` the seqpool+CVM
              forward, its backward (the gather), the push (with its
-             boundary kernel) and the in-step key dedup and mirror probe
-             (``csrc/device_index.cu``); with ``g++`` the host key index
+             boundary kernel) and the in-step key dedup and mirror probe,
+             alone and fused (``csrc/device_index.cu``); with ``g++`` the
+             host key index
              (``csrc/pbx_index.cpp``). Print each kernel's ptxas report
              (registers, spills, shared memory).
 2. kernel  — hold each kernel, launched on the card, against its plain
@@ -46,7 +47,11 @@ Phases, each fatal on failure:
              keys straddling 2^63, N = 2047, 2048, 2049, the training batch
              with one key 500 times and 102,400 keys over all 64 bits; its
              radix sort against ``torch.sort``, its plan (the active digits,
-             printed) against the plain plan.
+             printed) against the plain plan. The fused dedup and probe
+             (K5 whose write pass walks the mirror), bit-exact against its
+             plain version over the training mirror in every K5 case, 10
+             launches each, and on the probe cases; the training batch's
+             rows against the host index's.
 3. serve   — write a seeded synthetic Criteo file, export a DeepFM
              (hidden 512-256-128) bundle whose table has >= 4M rows, serve
              every batch through ``CTRPredictor(device="cuda")``; the
@@ -60,15 +65,19 @@ Phases, each fatal on failure:
              host prep over the numpy index (``FusedTrainStep.__call__``):
              the forward, backward, push and boundary kernels launch once a
              step; device prep over the native index and its mirror
-             (``FusedTrainStep.step_device``, "ensure" mode): the dedup,
-             probe, forward, backward and push launch once a step and the
-             boundary kernel never. Losses finite, the sentinel untripped;
+             (``FusedTrainStep.step_device``, "ensure" mode): the fused
+             dedup and probe (K5's sort, count pass and fused write pass),
+             forward, backward and push launch once a step, K6 alone and
+             the boundary kernel never (the profile shows the fused pass
+             and no ``probe_kernel``). Losses finite, the sentinel untripped;
              the first 2 steps match the CPU (host prep), and the host-prep
              step on the card and the device-prep step on the CPU (device
              prep).
    Time per step and examples/s of device prep, of host prep over each
    index, host time by phase and a device profile; ``ensure_keys`` and
-   ``prepare_batch`` on batches with 5% new keys.
+   ``prepare_batch`` on batches with 5% new keys, then each batch's new
+   keys looked up in the mirror (``DeviceIndexMirror.probe``, K6 alone)
+   against the host index.
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -76,8 +85,10 @@ Phases, each fatal on failure:
              alone beside the push with its merge order, adam beside
              adagrad; the dedup on the training keys and on keys over all
              64 bits, whole, its sort half and its numbering half, beside
-             ``torch.sort`` and ``torch.unique``; and the launch floor, the
-             graph time of ``torch.cuda._sleep(0)``.
+             ``torch.sort`` and ``torch.unique``; the fused dedup and probe
+             whole and its numbering half beside the pair it replaces (K5
+             then K6), in turns, the numbering also with cold caches; and
+             the launch floor, the graph time of ``torch.cuda._sleep(0)``.
 
 Prints the card's ``name, power.limit`` line, then one JSON line of
 per-kernel numbers, then ``{"ok": true, "device": {...}}`` last. Exits
@@ -121,13 +132,13 @@ from paddlebox_tpu_torch.ops.sparse_push import (merge_offsets,
                                                  push_geometry, push_rows,
                                                  sparse_push_cuda,
                                                  sparse_push_plain)
-from paddlebox_tpu_torch.ops.device_index_kernel import (DIGITS, SIGN,
-                                                         dedup_number_cuda,
-                                                         dedup_sort_cuda,
-                                                         device_dedup_cuda,
-                                                         device_probe_cuda)
+from paddlebox_tpu_torch.ops.device_index_kernel import (
+    DIGITS, SIGN, dedup_number_cuda, dedup_number_probe_cuda,
+    dedup_sort_cuda, device_dedup_cuda, device_dedup_probe_cuda,
+    device_probe_cuda)
 from paddlebox_tpu_torch.ps.device_index import (DeviceIndexMirror,
                                                  device_dedup_plain,
+                                                 device_dedup_probe_plain,
                                                  device_hash,
                                                  device_probe_plain,
                                                  host_hash, key_halves,
@@ -171,14 +182,16 @@ HOT_VOCAB = 1 << 22
 TRAIN_STEPS = 16             # counted steps on the main path
 CPU_STEPS = 2                # of them, held against the CPU
 ITERS = 200                  # calls per timing
-DEDUP_REPEATS = 10           # K5 launches per check case, all identical
+DEDUP_REPEATS = 10           # K5 (and fused) launches a check case, all
+#                              identical
 KERNEL = "seqpool_cvm"
 GRAD = "seqpool_cvm_grad"
 PUSH = "sparse_push"
 OFFSETS = "merge_offsets"
 DEDUP = "device_dedup"
 PROBE = "device_probe"
-INDEX = "device_index"      # csrc/device_index.cu: K5 and K6
+DEDUP_PROBE = "device_dedup_probe"
+INDEX = "device_index"      # csrc/device_index.cu: K5, K6 and the fused pass
 HOST_INDEX = "pbx_index"    # csrc/pbx_index.cpp: the host key index (g++)
 
 
@@ -228,10 +241,42 @@ def graph_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / (10 * reps)
 
 
-def device_profile(tag: str, fn, kernels=(KERNEL,)) -> None:
-    """Print the device's busy share over one call of ``fn``, its five
+def cold_graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` in ms with cold caches: the call
+    captured in a CUDA graph and replayed ``reps`` times, each replay after
+    a write of twice the card's L2 that evicts it. The write also keeps the
+    card busy while the host launches the replay, so no launch gap is
+    timed."""
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 << 20)
+    flush = torch.empty(2 * l2 // 4, dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def device_profile(tag: str, fn, kernels=(KERNEL,)) -> dict:
+    """Print the device's busy share over one call of ``fn``, its eight
     largest device activities and those of ``kernels``, from a
-    torch.profiler trace."""
+    torch.profiler trace. Returns the device time (us) by activity name,
+    empty if the trace holds no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -259,7 +304,7 @@ def device_profile(tag: str, fn, kernels=(KERNEL,)) -> None:
     busy = sum(by_name.values())
     if not busy:
         print(f"profile {tag}: device time not measured (no device events)")
-        return
+        return by_name
     print(f"profile {tag}: wall {wall_us:.0f} us, device busy {busy:.0f} us "
           f"({100 * busy / wall_us:.1f}%; overlapping activities counted "
           "twice)")
@@ -267,6 +312,7 @@ def device_profile(tag: str, fn, kernels=(KERNEL,)) -> None:
     for name, us in top[:8] + [kv for kv in top[8:]
                                if any(k in kv[0] for k in kernels)]:
         print(f"  {us:10.1f} us  {name[:90]}")
+    return by_name
 
 
 # -- phase 1 -----------------------------------------------------------------
@@ -877,6 +923,46 @@ def check_probe(name: str, mirror, keys: torch.Tensor, n_valid=None,
     return err
 
 
+def dedup_probe_fields(out) -> tuple:
+    """``(Dedup, rows, found)`` as one flat tuple, with the field names."""
+    return (*out[0], *out[1:]), (*out[0]._fields, "rows", "found")
+
+
+def check_dedup_probe(name: str, keys: np.ndarray, mirror, want_rows=None):
+    """The fused dedup and probe vs its plain version on the card, every
+    output exactly, DEDUP_REPEATS launches bit-identical; with
+    ``want_rows`` (numpy, by uid) also against the host index's rows.
+    Returns the largest error (0: bit-exact)."""
+    kt = torch.from_numpy(np.ascontiguousarray(keys, np.uint64).view(
+        np.int64)).cuda()
+    args = (mirror.tab, mirror.mask, mirror.window)
+    got, fields = dedup_probe_fields(device_dedup_probe_cuda(kt, *args))
+    torch.cuda.synchronize()
+    want, _ = dedup_probe_fields(device_dedup_probe_plain(kt, *args))
+    err = 0.0
+    for field, a, b in zip(fields, got, want):
+        require(a.shape == b.shape and a.dtype == b.dtype,
+                f"{DEDUP_PROBE} {name}: {field} shape or type differs")
+        if a.numel():
+            err = max(err, float((a.long() - b.long()).abs().max()))
+        require(torch.equal(a, b),
+                f"{DEDUP_PROBE} {name}: {field} differs from the plain "
+                "version")
+    for _ in range(DEDUP_REPEATS - 1):
+        again, _ = dedup_probe_fields(device_dedup_probe_cuda(kt, *args))
+        require(all(torch.equal(a, b) for a, b in zip(again, got)),
+                f"{DEDUP_PROBE} {name}: two launches differ")
+    rows, found = got[-2], got[-1]
+    if want_rows is not None:
+        require(np.array_equal(rows.cpu().numpy(), want_rows),
+                f"{DEDUP_PROBE} {name}: rows differ from the host index's")
+    print(f"kernel check {DEDUP_PROBE} {name}: N={keys.size} n_uniq="
+          f"{int(got[2])} slots={mirror.tab.shape[0]} found="
+          f"{int(found.sum())} bit-exact ok, {DEDUP_REPEATS} launches "
+          "identical")
+    return err
+
+
 def colliding_keys(mask: int, home: int, n: int, rng) -> np.ndarray:
     """``n`` distinct non-zero keys whose ``Map64::hash & mask`` is
     ``home``."""
@@ -888,18 +974,26 @@ def colliding_keys(mask: int, home: int, n: int, rng) -> np.ndarray:
     return np.unique(np.array(out[:n], dtype=np.uint64))
 
 
-def phase_kernel_index(rng, train_keys: np.ndarray, radix_rng):
-    """K5 and K6 vs their plain versions at the training shape over the
-    4,194,304-key mirror and at edge cases; K5 also on ``radix_cases``,
-    the training batch with one key 500 times and N keys over all 64 bits
-    (from ``radix_rng``). Returns the largest error (0: bit-exact) of each,
-    and the training batch's dedup and mirror and the 64-bit keys for
-    timing."""
-    index = NativeIndex()  # as DeviceTable.prepopulate(HOT_VOCAB) builds it
+def training_mirror():
+    """The host index of the training table, as
+    ``DeviceTable.prepopulate(HOT_VOCAB)`` builds it (key k is row k), and
+    its mirror on the card (2^24 + 64 slots, 268 MB)."""
+    index = NativeIndex()
     index.rebuild(np.concatenate([
         np.array([np.iinfo(np.uint64).max - 1], np.uint64),
         np.arange(1, HOT_VOCAB + 1, dtype=np.uint64)]))
-    mirror = DeviceIndexMirror(index, "cuda")
+    return index, DeviceIndexMirror(index, "cuda")
+
+
+def phase_kernel_index(rng, train_keys: np.ndarray, radix_rng):
+    """K5, K6 and the fused dedup and probe vs their plain versions at the
+    training shape over the 4,194,304-key mirror and at edge cases; K5 and
+    the fused pass also on ``radix_cases``, the training batch with one key
+    500 times and N keys over all 64 bits (from ``radix_rng``), the fused
+    pass also on K6's cases. Returns the largest error (0: bit-exact) of
+    each, and the training batch's dedup and mirror and the 64-bit keys for
+    timing."""
+    index, mirror = training_mirror()
     require(mirror.tab.shape == (index.capacity + index.guard, 4) and
             mirror.window == 64, "mirror layout")
     print(f"kernel check: mirror of {len(index)} keys, "
@@ -910,6 +1004,7 @@ def phase_kernel_index(rng, train_keys: np.ndarray, radix_rng):
     want = dd.uniq_keys.cpu().numpy().astype(np.int32)
     probe_err = check_probe("training", mirror, dd.uniq_keys, dd.n_uniq,
                             want)
+    fused_err = check_dedup_probe("training", train_keys, mirror, want)
     high = np.uint64(1) << np.uint64(63)
     mixed = rng.integers(0, 1 << 62, size=20000).astype(np.uint64)
     mixed[::3] |= high
@@ -926,6 +1021,7 @@ def phase_kernel_index(rng, train_keys: np.ndarray, radix_rng):
             ("ragged", rng.integers(0, 1 << 40, size=5003).astype(
                 np.uint64))):
         dedup_err = max(dedup_err, check_dedup(name, keys)[1])
+        fused_err = max(fused_err, check_dedup_probe(name, keys, mirror))
     hot = train_keys.copy()
     n_valid = int(np.count_nonzero(hot))
     hot[radix_rng.choice(n_valid, 500, replace=False)] = hot[0]
@@ -934,6 +1030,7 @@ def phase_kernel_index(rng, train_keys: np.ndarray, radix_rng):
                        ("training-one-key-500-times", hot),
                        ("keys-over-64-bits", keys64)):
         dedup_err = max(dedup_err, check_dedup(name, keys)[1])
+        fused_err = max(fused_err, check_dedup_probe(name, keys, mirror))
     # keys absent from the mirror, high keys and key 0 beside present ones
     probe_keys = np.concatenate([
         rng.integers(HOT_VOCAB + 1, 1 << 62, size=4000).astype(np.uint64),
@@ -942,6 +1039,11 @@ def phase_kernel_index(rng, train_keys: np.ndarray, radix_rng):
     probe_err = max(probe_err, check_probe(
         "absent-and-present", mirror, torch.from_numpy(
             probe_keys.view(np.int64)).cuda(), want_rows=want))
+    uniq = np.unique(probe_keys)
+    want = np.zeros(probe_keys.size, np.int32)
+    want[:uniq.size] = np.where(uniq <= HOT_VOCAB, uniq, 0)
+    fused_err = max(fused_err, check_dedup_probe(
+        "absent-and-present", probe_keys, mirror, want))
     # a small map: 64 keys with one home slot (the last lands on slot 63
     # of its window), a run into the guard, high keys, and a 65th
     # colliding key that is absent (its walk ends at the window)
@@ -969,8 +1071,13 @@ def phase_kernel_index(rng, train_keys: np.ndarray, radix_rng):
         "cluster-window-and-guard", small_mirror, torch.from_numpy(
             query.view(np.int64)).cuda(), want_rows=np.maximum(
                 want, 0).astype(np.int32)))
-    return (dedup_err, probe_err), {"dedup": dd, "mirror": mirror,
-                                    "keys": train_keys, "keys64": keys64}
+    uniq = np.unique(query)
+    want = np.zeros(query.size, np.int32)
+    want[:uniq.size] = np.maximum(small.lookup(uniq, False, True, 0)[0], 0)
+    fused_err = max(fused_err, check_dedup_probe(
+        "cluster-window-and-guard", query, small_mirror, want))
+    return (dedup_err, probe_err, fused_err), {
+        "dedup": dd, "mirror": mirror, "keys": train_keys, "keys64": keys64}
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -1314,7 +1421,14 @@ def phase_train(rng) -> dict:
             "prepare_batch_new_keys_ms": new_ms}, init
 
 
-DEVICE_PREP_WRAPPERS = TRAIN_WRAPPERS + (device_dedup_cuda, device_probe_cuda)
+# device prep launches K5's sort (counted by dedup_sort_cuda) and the fused
+# numbering and probe (device_dedup_probe_cuda); K5 whole and K6 alone never
+DEVICE_PREP_WRAPPERS = TRAIN_WRAPPERS + (
+    dedup_sort_cuda, device_dedup_probe_cuda, device_dedup_cuda,
+    device_probe_cuda)
+DEVICE_PREP_IDLE = (merge_offsets, device_dedup_cuda, device_probe_cuda)
+# K6's kernel in a profile's names, not the fused pass's
+ALONE_PROBE = re.compile(r"(?<!\w)probe_kernel")
 
 
 def phase_train_device(rng, init) -> dict:
@@ -1341,8 +1455,9 @@ def phase_train_device(rng, init) -> dict:
 
     state, losses, launches, touched, after = run_counted(
         fs, state, batches, DEVICE_PREP_WRAPPERS, fs.step_device)
+    idle = {w.__name__ for w in DEVICE_PREP_IDLE}
     for name, n in launches.items():
-        want = 0 if name == merge_offsets.__name__ else TRAIN_STEPS
+        want = 0 if name in idle else TRAIN_STEPS
         require(n == want, f"train device-prep: {name} launched {n} times "
                            f"in {TRAIN_STEPS} steps, expected {want}")
     print(f"train device-prep: {TRAIN_STEPS} steps, launches {launches}, "
@@ -1357,10 +1472,16 @@ def phase_train_device(rng, init) -> dict:
     print(f"timing train device-prep: {ms:.4f} ms/step, {eps:.1f} "
           f"examples/s (B={TB}, FusedTrainStep.step_device incl. host "
           f"ensure_keys and uploads)")
-    device_profile("train device-prep, 4 steps",
-                   lambda: train_steps(fs, state, batches[:4],
-                                       fs.step_device),
-                   kernels=(KERNEL, PUSH, "radix", "dedup", "probe"))
+    by_name = device_profile("train device-prep, 4 steps",
+                             lambda: train_steps(fs, state, batches[:4],
+                                                 fs.step_device),
+                             kernels=(KERNEL, PUSH, "radix", "dedup",
+                                      "probe"))
+    if by_name:
+        require(any("dedup_write_probe_kernel" in k for k in by_name) and
+                not any(ALONE_PROBE.search(k) for k in by_name),
+                "train device-prep: the profile does not show the fused "
+                "pass in place of probe_kernel")
     host_fs = FusedTrainStep(host_model, host_table, tconf, TB, TS)
     host_state = (*host_fs.init(), host_fs.init_auc_state())
     t0 = time.perf_counter()
@@ -1376,18 +1497,26 @@ def phase_train_device(rng, init) -> dict:
     fresh = with_new_keys(rng, batches[:5], HOT_VOCAB + 1)
     ensure_ms = time_inserts("train device-prep: ensure_keys",
                              table.ensure_keys, fresh)
-    new = np.unique(np.concatenate(fresh))
-    new = new[new > HOT_VOCAB]
-    rows, found = table.mirror.probe(torch.from_numpy(new.view(
-        np.int64)).cuda())
-    want, _ = table._index.lookup(new, False, True, 0)
-    require(bool(found.all()) and np.array_equal(rows.cpu().numpy(), want),
-            "train device-prep: the mirror lacks inserted keys")
+    # each batch's new keys looked up in the mirror: K6 alone
+    device_probe_cuda.launches = 0
+    for keys in fresh:
+        new = np.unique(keys[keys > HOT_VOCAB])
+        rows, found = table.mirror.probe(torch.from_numpy(new.view(
+            np.int64)).cuda())
+        want, _ = table._index.lookup(new, False, True, 0)
+        require(bool(found.all()) and
+                np.array_equal(rows.cpu().numpy(), want),
+                "train device-prep: the mirror lacks inserted keys")
+    probe_launches = device_probe_cuda.launches
+    require(probe_launches == len(fresh),
+            f"mirror probe: {probe_launches} launches for {len(fresh)} "
+            "batches")
     new_prep_ms = time_inserts(
         "train host-prep: prepare_batch (native index)",
         host_table.prepare_batch,
         with_new_keys(rng, batches[:5], HOT_VOCAB + 1))
     return {"launches": launches, "ms_per_step": ms, "examples_per_s": eps,
+            "mirror_probe_launches": probe_launches,
             "host_prep_native_ms_per_step": host_ms,
             "host_prep_native_examples_per_s": host_eps,
             "prepare_batch_native_ms": prep_ms,
@@ -1638,11 +1767,88 @@ def time_dedup(tag: str, keys: np.ndarray) -> dict:
     return t
 
 
-def time_index(inputs) -> Tuple[dict, dict]:
-    """K5 and K6 at the training shape. K5 (``time_dedup``) on the training
-    batch (keys in [1, 2^22]) and on as many keys over all 64 bits. K6: the
-    probe of the batch's uniques over the 4,194,304-key mirror; no single
-    PyTorch call computes it."""
+def in_turns(a, b, timer=graph_ms) -> Tuple[list, list]:
+    """``timer``'s readings of ``a`` and ``b`` taken in turns (a, b, b,
+    a): two each, in the same state of the card."""
+    ra, rb = [timer(a)], [timer(b)]
+    rb.append(timer(b))
+    ra.append(timer(a))
+    return ra, rb
+
+
+def time_dedup_probe(inputs, quads: int) -> dict:
+    """The fused dedup and probe on the training batch over the
+    4,194,304-key mirror, whole and its numbering half, beside the pair it
+    replaces (K5 then K6), each per call and in a CUDA graph, the graphs in
+    turns. Plain: per call only (it reads a count back). No single PyTorch
+    call computes it."""
+    mirror, keys = inputs["mirror"], inputs["keys"]
+    kt = torch.from_numpy(keys.view(np.int64)).cuda()
+    m = (mirror.tab, mirror.mask, mirror.window)
+    srt = dedup_sort_cuda(kt)
+
+    def fused():
+        device_dedup_probe_cuda(kt, *m)
+
+    def fused_number():
+        dedup_number_probe_cuda(srt, *m)
+
+    def pair():
+        dd = device_dedup_cuda(kt)
+        device_probe_cuda(*m, dd.uniq_keys, dd.n_uniq)
+
+    def pair_number():
+        dd = dedup_number_cuda(srt)
+        device_probe_cuda(*m, dd.uniq_keys, dd.n_uniq)
+
+    whole = in_turns(fused, pair)
+    number = in_turns(fused_number, pair_number)
+    cold = in_turns(fused_number, pair_number, cold_graph_ms)
+    t = {"ms": cuda_ms(fused, ITERS), "graph_ms": float(np.mean(whole[0])),
+         "number_ms": cuda_ms(fused_number, ITERS),
+         "number_graph_ms": float(np.mean(number[0])),
+         "pair_ms": cuda_ms(pair, ITERS),
+         "pair_graph_ms": float(np.mean(whole[1])),
+         "pair_number_ms": cuda_ms(pair_number, ITERS),
+         "pair_number_graph_ms": float(np.mean(number[1])),
+         "number_cold_ms": float(np.mean(cold[0])),
+         "pair_number_cold_ms": float(np.mean(cold[1])),
+         "graph_readings": {"whole": whole[0], "number": number[0],
+                            "pair": whole[1], "pair_number": number[1],
+                            "number_cold": cold[0],
+                            "pair_number_cold": cold[1]},
+         "plain_ms": cuda_ms(lambda: device_dedup_probe_plain(kt, *m),
+                             ITERS),
+         "plain_graph_ms": None, "library_ms": None,
+         "library_graph_ms": None, "quads_walked": quads}
+    # K5's bytes (keys read; inverse, uniques, order, offsets, n_uniq
+    # written), the quads walked, rows and found written for all N
+    n = keys.size
+    with_bound(t, n * 8 + n * 4 + n * 8 + n * 8 + (n + 1) * 4 + 4 +
+               quads * 16 + n * 5, 0)
+    print(f"timing {DEDUP_PROBE} training (N={n}, {quads} quads walked): "
+          f"whole per call {t['ms']:.5f} ms, in a CUDA graph "
+          f"{t['graph_ms']:.5f} ({100 * t['bound_ms'] / t['graph_ms']:.1f}% "
+          f"of bound {t['bound_ms']:.6f} ms, {t['bound_bytes']} bytes), "
+          f"readings {whole[0]}; its numbering {t['number_ms']:.5f} per "
+          f"call, {t['number_graph_ms']:.5f} in a graph, readings "
+          f"{number[0]}; the pair it replaces (K5, then K6): whole "
+          f"{t['pair_ms']:.5f} per call, {t['pair_graph_ms']:.5f} in a graph "
+          f"{whole[1]}, numbering then K6 {t['pair_number_ms']:.5f} per "
+          f"call, {t['pair_number_graph_ms']:.5f} in a graph {number[1]}; "
+          f"with cold caches (L2 flushed before each replay): numbering "
+          f"{t['number_cold_ms']:.5f} {cold[0]}, numbering then K6 "
+          f"{t['pair_number_cold_ms']:.5f} {cold[1]}; plain "
+          f"{t['plain_ms']:.5f} per call (not capturable)")
+    return t
+
+
+def time_index(inputs) -> Tuple[dict, dict, dict]:
+    """K5, K6 and the fused dedup and probe at the training shape. K5
+    (``time_dedup``) on the training batch (keys in [1, 2^22]) and on as
+    many keys over all 64 bits. K6: the probe of the batch's uniques over
+    the 4,194,304-key mirror; no single PyTorch call computes it. The
+    fused pass: ``time_dedup_probe``."""
     dd, mirror, keys = inputs["dedup"], inputs["mirror"], inputs["keys"]
     n = keys.size
     k5 = time_dedup("training", keys)
@@ -1663,7 +1869,7 @@ def time_index(inputs) -> Tuple[dict, dict]:
           f"CUDA graph: kernel {k6['graph_ms']:.5f} ms "
           f"({100 * k6['bound_ms'] / k6['graph_ms']:.1f}% of bound), plain "
           f"{k6['plain_graph_ms']:.5f} ms; no library call")
-    return k5, k6
+    return k5, k6, time_dedup_probe(inputs, quads)
 
 
 def main() -> int:
@@ -1700,7 +1906,7 @@ def main() -> int:
         push_timing = time_push(train_inputs)
         push_timing["adam"] = time_push(push_inputs["adam"])
         offsets_timing = time_offsets(train_inputs)
-        dedup_timing, probe_timing = time_index(index_inputs)
+        dedup_timing, probe_timing, fused_timing = time_index(index_inputs)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     smi = subprocess.run(
@@ -1719,7 +1925,8 @@ def main() -> int:
         """Launches on each main path (each counted from 0)."""
         paths = {**more, "train_host_prep": host.get(wrapper.__name__, 0),
                  "train_device_prep": dev[wrapper.__name__]}
-        return {"launches": sum(paths.values()), "launches_by_path": paths}
+        return {"launches": sum(paths.values()), "launches_by_path": paths,
+                "counted_by": wrapper.__name__}
 
     rows = [
         {"name": KERNEL, "route": "cuda",
@@ -1744,19 +1951,29 @@ def main() -> int:
          "replaces": "paddlebox_tpu/ps/device_table.py:189",
          **by_path(merge_offsets),
          "max_abs_err": offsets_err, **offsets_timing},
+        # device prep launches K5's sort and count pass through the fused
+        # entry: its launches are the sort's
         {"name": DEDUP, "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/device_index.cu",
          "replaces": "paddlebox_tpu/ps/device_index.py:112",
-         **by_path(device_dedup_cuda),
+         **by_path(dedup_sort_cuda),
          "max_abs_err": index_err[0], **dedup_timing,
-         "ptxas": [r for r in ptxas[INDEX] if "dedup" in r["name"] or
-                   "radix" in r["name"]]},
+         "ptxas": [r for r in ptxas[INDEX] if ("dedup" in r["name"] or
+                   "radix" in r["name"]) and "probe" not in r["name"]]},
         {"name": PROBE, "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/device_index.cu",
          "replaces": "paddlebox_tpu/ps/device_index.py:133",
-         **by_path(device_probe_cuda),
+         **by_path(device_probe_cuda, mirror_probe_new_keys=train_dev[
+             "mirror_probe_launches"]),
          "max_abs_err": index_err[1], **probe_timing,
-         "ptxas": [r for r in ptxas[INDEX] if "probe" in r["name"]]},
+         "ptxas": [r for r in ptxas[INDEX] if r["name"] == "probe_kernel"]},
+        {"name": DEDUP_PROBE, "route": "cuda",
+         "source": "paddlebox_tpu_torch/csrc/device_index.cu",
+         "replaces": "paddlebox_tpu/trainer/fused_step.py:362",
+         **by_path(device_dedup_probe_cuda),
+         "max_abs_err": index_err[2], **fused_timing,
+         "ptxas": [r for r in ptxas[INDEX]
+                   if r["name"] == "dedup_write_probe_kernel"]},
     ]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

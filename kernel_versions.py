@@ -8,6 +8,7 @@ its source, on the card. Not part of the package or of ``chip_smoke.py``.
     git show 8ff1c7d:paddlebox_tpu_torch/csrc/seqpool_cvm_grad.cu \\
         > build/old/grad_v1.cu
     python3 kernel_versions.py grad --old build/old/grad_v1.cu
+    python3 kernel_versions.py index --old build/old/first2.cu
 
 The script builds the earlier sources and the package's kernel, one
 ``nvcc`` each, all at once, and prints each one's ptxas report (registers,
@@ -36,6 +37,17 @@ turn reads a CUDA graph (device time) and a per-call time between CUDA
 events (the host's launch rate), beside the byte bound that
 ``chip_smoke.py`` counts and ``index_select``'s time, read before and after
 the turns.
+
+``index``: each earlier source of ``csrc/device_index.cu`` has this
+version's C interface (``pbx_dedup_sort``, ``pbx_dedup_number_probe``) and
+runs through the package's wrappers with its library swapped in. Checks:
+the fused dedup and probe bit for bit against ``device_dedup_probe_plain``
+on ``chip_smoke.py``'s training batch and on as many keys over all 64 bits,
+over the training table's 4,194,304-key mirror, 10 launches each. Each
+turn reads the fused numbering (count pass and fused write pass, on a
+sort made beforehand) and the whole fused dedup and probe in a CUDA graph,
+the numbering with cold caches (``chip_smoke.cold_graph_ms``), and the
+whole per call, beside the byte bound ``chip_smoke.py`` counts.
 """
 
 from __future__ import annotations
@@ -55,15 +67,18 @@ import torch
 import chip_smoke as cs
 from paddlebox_tpu_torch.config import TableConfig
 from paddlebox_tpu_torch.ops import _build
+from paddlebox_tpu_torch.ops import device_index_kernel as dik
 from paddlebox_tpu_torch.ops.seqpool_kernel import (grad_lanes,
                                                     seqpool_cvm_grad_cuda,
                                                     seqpool_cvm_grad_plain)
 from paddlebox_tpu_torch.ops.sparse_push import (_OPTIMIZERS, merge_order,
                                                  push_rows, sparse_push_cuda,
                                                  sparse_push_plain)
+from paddlebox_tpu_torch.ps.device_index import device_dedup_probe_plain
 
 # the package's source of each kernel
-SOURCES = {"push": "sparse_push", "grad": "seqpool_cvm_grad"}
+SOURCES = {"push": "sparse_push", "grad": "seqpool_cvm_grad",
+           "index": "device_index"}
 
 
 def build_old(kernel: str, src: Path) -> Tuple[ctypes.CDLL, str]:
@@ -262,6 +277,75 @@ def run_grad(olds: Dict[str, ctypes.CDLL], srcs: List[Path], rng,
           f"per call {cs.cuda_ms(library, cs.ITERS):.5f} ms")
 
 
+# -- index --------------------------------------------------------------------
+
+
+class IndexVersion:
+    """A build of ``csrc/device_index.cu`` behind the package's wrappers:
+    an earlier source's library stands in for the package's during each
+    call."""
+
+    def __init__(self, lib=None):
+        self.lib = dik.bind(lib) if lib is not None else None
+
+    def __call__(self, fn, *args):
+        if self.lib is None:
+            return fn(*args)
+        saved = dik._lib
+        dik._lib = lambda: self.lib
+        try:
+            return fn(*args)
+        finally:
+            dik._lib = saved
+
+
+def run_index(olds: Dict[str, ctypes.CDLL], seed: int, smi: str) -> None:
+    versions = {tag: IndexVersion(lib) for tag, lib in olds.items()}
+    versions["new"] = IndexVersion()
+    _, mirror = cs.training_mirror()
+    m = (mirror.tab, mirror.mask, mirror.window)
+    # chip_smoke.py's training batch and 64-bit keys at the same seed
+    train = cs.make_train_batches(np.random.default_rng([seed, 7]), 1)[0][0]
+    keys64 = np.random.default_rng([seed, 9]).integers(
+        0, 1 << 64, size=cs.TNPAD, dtype=np.uint64)
+    cases = {name: torch.from_numpy(keys.view(np.int64)).cuda()
+             for name, keys in (("training", train), ("keys64", keys64))}
+    for name, kt in cases.items():
+        want, _ = cs.dedup_probe_fields(device_dedup_probe_plain(kt, *m))
+        for tag, ver in versions.items():
+            for _ in range(cs.DEDUP_REPEATS):
+                got, _ = cs.dedup_probe_fields(
+                    ver(dik.device_dedup_probe_cuda, kt, *m))
+                cs.require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                           f"{tag} {name}: differs from plain")
+            print(f"check {tag} {name}: bit-exact against plain, "
+                  f"{cs.DEDUP_REPEATS} launches, ok")
+    kt = cases["training"]
+    dd = device_dedup_probe_plain(kt, *m)[0]
+    nbytes_probe, quads = cs.probe_bound(mirror, dd.uniq_keys, dd.n_uniq)
+    n = kt.shape[0]
+    nbytes = n * 8 + n * 4 + n * 8 + n * 8 + (n + 1) * 4 + 4 + quads * 16 + \
+        n * 5
+    bound_ms = cs.with_bound({}, nbytes, 0)["bound_ms"]
+    print(f"training batch N={n} n_uniq={int(dd.n_uniq)}, {quads} quads "
+          f"walked: bound {bound_ms:.6f} ms ({nbytes} bytes) on {smi}")
+    sorts = {tag: ver(dik.dedup_sort_cuda, kt)
+             for tag, ver in versions.items()}
+    for turn, tag in enumerate(turns(list(olds))):
+        ver, srt = versions[tag], sorts[tag]
+        number = cs.graph_ms(lambda: ver(dik.dedup_number_probe_cuda, srt,
+                                         *m))
+        whole = cs.graph_ms(lambda: ver(dik.device_dedup_probe_cuda, kt, *m))
+        cold = cs.cold_graph_ms(lambda: ver(dik.dedup_number_probe_cuda,
+                                            srt, *m))
+        call = cs.cuda_ms(lambda: ver(dik.device_dedup_probe_cuda, kt, *m),
+                          cs.ITERS)
+        print(f"turn {turn} {tag}: numbering {number:.5f} ms, whole "
+              f"{whole:.5f} ms ({100 * bound_ms / whole:.1f}% of bound) "
+              f"(CUDA graph); numbering with cold caches {cold:.5f} ms; "
+              f"whole per call {call:.5f} ms")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("kernel", choices=sorted(SOURCES))
@@ -298,8 +382,10 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     if args.kernel == "push":
         run_push(olds, rng, smi)
-    else:
+    elif args.kernel == "grad":
         run_grad(olds, args.old, rng, smi)
+    else:
+        run_index(olds, args.seed, smi)
     return 0
 
 

@@ -57,6 +57,19 @@
 // because the map never deletes and bounds its runs without wraparound, so a
 // present key has no empty slot between its home and itself. It writes row
 // (0 if absent) and found; key 0 and the reserved key ~0 are never found.
+// The walk (probe_home, probe_walk) has two callers:
+//
+//   probe_kernel              one thread a key of any list (K6 alone)
+//   dedup_write_probe_kernel  dedup_write_kernel that also walks each unique
+//                             it numbers, from the key it holds in a
+//                             register, and writes rows[u] and found[u]
+//                             (row 0, not found for u in [n_uniq, n)): the
+//                             reference's dedup and probe of one jitted
+//                             step (trainer/fused_step.py:362-363) with no
+//                             probe launch and no second read of the keys.
+//                             A thread first issues the home-quad load of
+//                             each unique it holds, then compares; only a
+//                             key whose run goes on loads again.
 //
 // What bounds them on an H100, at the training shape (N = Npad = 102,400,
 // ~97k uniques, a 2^24 + 64-slot mirror at load 0.25): K5 must read the keys
@@ -72,7 +85,10 @@
 // write pass scatters `inverse` 4 bytes at a time. K6 reads ~1.2 quads a
 // key, 16 bytes each, scattered over a 268 MB table, so each key is one or
 // two dependent round trips to HBM; one thread a key puts all of them in
-// flight at once (~400 blocks, one wave).
+// flight at once (~400 blocks, one wave). Folded into the write pass (100
+// blocks, four keys a thread) it saves a launch (~1 us in a graph) and the
+// uniques' read (~0.8 MB); its round trips overlap the pass's scan, but a
+// warp still waits for the longest walk of its 128 keys.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -410,6 +426,54 @@ radix_scatter_kernel(const int* __restrict__ plan, int d,
   }
 }
 
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85ebca6bu;
+  x ^= x >> 13;
+  x *= 0xc2b2ae35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// K6's walk, in two parts. probe_home gives key k's home slot (k != 0),
+// Map64::hash(k) & mask; the caller loads the quad there itself, so that a
+// thread can put the home loads of all its keys in flight before it
+// compares any of them. probe_walk, given that quad, walks on a quad at a
+// time to the match, to the first empty quad or to `window` quads, and
+// returns (row, 1) on a match, else (0, 0).
+__device__ __forceinline__ size_t probe_home(unsigned long long k,
+                                             uint32_t mask) {
+  const uint32_t lo = static_cast<uint32_t>(k);
+  const uint32_t hi = static_cast<uint32_t>(k >> 32);
+  return fmix32(hi ^ fmix32(lo)) & mask;
+}
+
+__device__ __forceinline__ int2 probe_walk(const int4* __restrict__ tab,
+                                           int window, unsigned long long k,
+                                           size_t start, int4 q) {
+  const uint32_t lo = static_cast<uint32_t>(k);
+  const uint32_t hi = static_cast<uint32_t>(k >> 32);
+  for (int j = 1;; ++j) {
+    if (q.x == -1 && q.y == -1) return make_int2(0, 0);  // the run ends
+    if (static_cast<uint32_t>(q.x) == hi &&
+        static_cast<uint32_t>(q.y) == lo) {
+      return make_int2(q.z, 1);
+    }
+    if (j == window) return make_int2(0, 0);
+    q = __ldg(&tab[start + j]);
+  }
+}
+
+// The mirror that dedup_write_probe_kernel resolves the uniques against,
+// and its outputs.
+struct Mirror {
+  const int4* tab;
+  uint32_t mask;
+  int window;
+  int* rows;
+  bool* found;
+};
+
 // First-occurrence flags of the thread's kItems sorted keys, as bits.
 __device__ unsigned first_flags(const long long* __restrict__ sorted, int n,
                                 int i0, long long* keys) {
@@ -441,14 +505,16 @@ dedup_count_kernel(const int* __restrict__ plan, const long long* keys_a,
   if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
 }
 
-__global__ void __launch_bounds__(kThreads)
-dedup_write_kernel(const int* __restrict__ plan, const long long* keys_a,
-                   const long long* keys_b, const int* pos_a,
-                   const int* pos_b, int n,
-                   const int* __restrict__ tile_counts, int n_tiles,
-                   int* __restrict__ inverse, long long* __restrict__ uniq,
-                   int64_t* __restrict__ order, int* __restrict__ offsets,
-                   int* __restrict__ n_uniq_out) {
+// The write pass; with kProbe it also resolves each unique it numbers
+// against the mirror m.
+template <bool kProbe>
+__device__ __forceinline__ void dedup_write(
+    const int* __restrict__ plan, const long long* keys_a,
+    const long long* keys_b, const int* pos_a, const int* pos_b, int n,
+    const int* __restrict__ tile_counts, int n_tiles,
+    int* __restrict__ inverse, long long* __restrict__ uniq,
+    int64_t* __restrict__ order, int* __restrict__ offsets,
+    int* __restrict__ n_uniq_out, const Mirror& m) {
   __shared__ int warp_sums[kWarps];
   const bool in_b = __ldg(&plan[kPlanFinal]) != 0;
   const long long* sorted = in_b ? keys_b : keys_a;
@@ -467,6 +533,24 @@ dedup_write_kernel(const int* __restrict__ plan, const long long* keys_a,
   long long keys[kItems];
   const int i0 = blockIdx.x * kTile + threadIdx.x * kItems;
   const unsigned flags = first_flags(sorted, n, i0, keys);
+  // the home quads of the thread's non-zero uniques, all in flight before
+  // the scan and before any compare (a home slot is at most mask < 2^32:
+  // held as 64 bits, the four of them cost a spill)
+  unsigned walks = 0;
+  uint32_t start[kItems];
+  int4 q[kItems];
+  if (kProbe) {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const unsigned long long k =
+          static_cast<unsigned long long>(keys[j] ^ kSign);
+      if (((flags >> j) & 1u) && k != 0) {
+        walks |= 1u << j;
+        start[j] = probe_home(k, m.mask);
+        q[j] = __ldg(&m.tab[start[j]]);
+      }
+    }
+  }
   int ignored;
   int seen = prefix + block_exclusive_scan<kThreads>(__popc(flags),
                                                      warp_sums, &ignored);
@@ -481,8 +565,19 @@ dedup_write_kernel(const int* __restrict__ plan, const long long* keys_a,
       order[i] = p;
       inverse[p] = u;
       if (first) {
-        uniq[u] = keys[j] ^ kSign;
+        const long long k = keys[j] ^ kSign;
+        uniq[u] = k;
         offsets[u] = i;
+        if (kProbe) {
+          const int2 hit =
+              ((walks >> j) & 1u)
+                  ? probe_walk(m.tab, m.window,
+                               static_cast<unsigned long long>(k), start[j],
+                               q[j])
+                  : make_int2(0, 0);
+          m.rows[u] = hit.x;
+          m.found[u] = hit.y != 0;
+        }
       }
     }
   }
@@ -491,19 +586,43 @@ dedup_write_kernel(const int* __restrict__ plan, const long long* keys_a,
        u += gridDim.x * kThreads) {
     if (u >= n_uniq) {
       offsets[u] = n;
-      if (u < n) uniq[u] = 0;
+      if (u < n) {
+        uniq[u] = 0;
+        if (kProbe) {
+          m.rows[u] = 0;
+          m.found[u] = false;
+        }
+      }
     }
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) *n_uniq_out = n_uniq;
 }
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85ebca6bu;
-  x ^= x >> 13;
-  x *= 0xc2b2ae35u;
-  x ^= x >> 16;
-  return x;
+__global__ void __launch_bounds__(kThreads)
+dedup_write_kernel(const int* __restrict__ plan, const long long* keys_a,
+                   const long long* keys_b, const int* pos_a,
+                   const int* pos_b, int n,
+                   const int* __restrict__ tile_counts, int n_tiles,
+                   int* __restrict__ inverse, long long* __restrict__ uniq,
+                   int64_t* __restrict__ order, int* __restrict__ offsets,
+                   int* __restrict__ n_uniq_out) {
+  dedup_write<false>(plan, keys_a, keys_b, pos_a, pos_b, n, tile_counts,
+                     n_tiles, inverse, uniq, order, offsets, n_uniq_out,
+                     Mirror{});
+}
+
+__global__ void __launch_bounds__(kThreads)
+dedup_write_probe_kernel(const int* __restrict__ plan,
+                         const long long* keys_a, const long long* keys_b,
+                         const int* pos_a, const int* pos_b, int n,
+                         const int* __restrict__ tile_counts, int n_tiles,
+                         int* __restrict__ inverse,
+                         long long* __restrict__ uniq,
+                         int64_t* __restrict__ order,
+                         int* __restrict__ offsets,
+                         int* __restrict__ n_uniq_out, Mirror m) {
+  dedup_write<true>(plan, keys_a, keys_b, pos_a, pos_b, n, tile_counts,
+                    n_tiles, inverse, uniq, order, offsets, n_uniq_out, m);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -514,29 +633,58 @@ probe_kernel(const int4* __restrict__ tab, uint32_t mask, int window,
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const int limit = n_valid != nullptr ? __ldg(n_valid) : n;
-  int row = 0;
-  bool hit = false;
+  int2 hit = make_int2(0, 0);
   if (i < limit) {
     const unsigned long long k =
         static_cast<unsigned long long>(__ldg(&keys[i]));
     if (k != 0) {
-      const uint32_t lo = static_cast<uint32_t>(k);
-      const uint32_t hi = static_cast<uint32_t>(k >> 32);
-      const size_t start = fmix32(hi ^ fmix32(lo)) & mask;
-      for (int j = 0; j < window; ++j) {
-        const int4 q = __ldg(&tab[start + j]);
-        if (q.x == -1 && q.y == -1) break;  // empty: the run ends
-        if (static_cast<uint32_t>(q.x) == hi &&
-            static_cast<uint32_t>(q.y) == lo) {
-          row = q.z;
-          hit = true;
-          break;
-        }
-      }
+      const size_t start = probe_home(k, mask);
+      hit = probe_walk(tab, window, k, start, __ldg(&tab[start]));
     }
   }
-  rows[i] = row;
-  found[i] = hit;
+  rows[i] = hit.x;
+  found[i] = hit.y != 0;
+}
+
+bool bad_size(int64_t n) { return n <= 0 || n >= INT32_MAX - kSortTile; }
+
+// The mirror's precondition: every walk stays in the table's n_slots.
+bool bad_mirror(int64_t n_slots, int64_t mask, int window) {
+  return mask < 0 || mask >= (int64_t(1) << 32) || window < 1 ||
+         mask + window > n_slots;
+}
+
+// The count pass, then the write pass (with `m`, the fused one).
+int number(const void* keys_ab, const void* pos_ab, const void* plan,
+           int64_t n, void* tile_counts, void* inverse, void* uniq,
+           void* order, void* offsets, void* n_uniq, const Mirror* m,
+           void* stream) {
+  const int tiles = static_cast<int>((n + kTile - 1) / kTile);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long* keys_a = static_cast<const long long*>(keys_ab);
+  const int* pos_a = static_cast<const int*>(pos_ab);
+  const int* p = static_cast<const int*>(plan);
+  dedup_count_kernel<<<tiles, kThreads, 0, s>>>(
+      p, keys_a, keys_a + n, static_cast<int>(n),
+      static_cast<int*>(tile_counts));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (m == nullptr) {
+    dedup_write_kernel<<<tiles, kThreads, 0, s>>>(
+        p, keys_a, keys_a + n, pos_a, pos_a + n, static_cast<int>(n),
+        static_cast<const int*>(tile_counts), tiles,
+        static_cast<int*>(inverse), static_cast<long long*>(uniq),
+        static_cast<int64_t*>(order), static_cast<int*>(offsets),
+        static_cast<int*>(n_uniq));
+  } else {
+    dedup_write_probe_kernel<<<tiles, kThreads, 0, s>>>(
+        p, keys_a, keys_a + n, pos_a, pos_a + n, static_cast<int>(n),
+        static_cast<const int*>(tile_counts), tiles,
+        static_cast<int*>(inverse), static_cast<long long*>(uniq),
+        static_cast<int64_t*>(order), static_cast<int*>(offsets),
+        static_cast<int*>(n_uniq), *m);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -557,9 +705,7 @@ int pbx_dedup_digits() { return kDigits; }
 // launched).
 int pbx_dedup_sort(const void* keys, int64_t n, void* keys_ab, void* pos_ab,
                    void* hist, void* tile_counts, void* plan, void* stream) {
-  if (n <= 0 || n >= INT32_MAX - kSortTile) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bad_size(n)) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = static_cast<int>((n + kSortTile - 1) / kSortTile);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   long long* keys_a = static_cast<long long*>(keys_ab);
@@ -598,37 +744,38 @@ int pbx_dedup_number(const void* keys_ab, const void* pos_ab,
                      const void* plan, int64_t n, void* tile_counts,
                      void* inverse, void* uniq, void* order, void* offsets,
                      void* n_uniq, void* stream) {
-  if (n <= 0 || n >= INT32_MAX - kSortTile) {
+  if (bad_size(n)) return static_cast<int>(cudaErrorInvalidValue);
+  return number(keys_ab, pos_ab, plan, n, tile_counts, inverse, uniq, order,
+                offsets, n_uniq, nullptr, stream);
+}
+
+// pbx_dedup_number, whose write pass also resolves each unique against the
+// mirror tab [n_slots, 4] int32: writes rows [n] int32 and found [n] bool,
+// as pbx_device_probe of uniq with n_valid = n_uniq would. Returns a
+// cudaError_t (0 = launched).
+int pbx_dedup_number_probe(const void* keys_ab, const void* pos_ab,
+                           const void* plan, int64_t n, void* tile_counts,
+                           void* inverse, void* uniq, void* order,
+                           void* offsets, void* n_uniq, const void* tab,
+                           int64_t n_slots, int64_t mask, int window,
+                           void* rows, void* found, void* stream) {
+  if (bad_size(n) || bad_mirror(n_slots, mask, window)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int tiles = static_cast<int>((n + kTile - 1) / kTile);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long* keys_a = static_cast<const long long*>(keys_ab);
-  const int* pos_a = static_cast<const int*>(pos_ab);
-  const int* p = static_cast<const int*>(plan);
-  dedup_count_kernel<<<tiles, kThreads, 0, s>>>(
-      p, keys_a, keys_a + n, static_cast<int>(n),
-      static_cast<int*>(tile_counts));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dedup_write_kernel<<<tiles, kThreads, 0, s>>>(
-      p, keys_a, keys_a + n, pos_a, pos_a + n, static_cast<int>(n),
-      static_cast<const int*>(tile_counts), tiles,
-      static_cast<int*>(inverse), static_cast<long long*>(uniq),
-      static_cast<int64_t*>(order), static_cast<int*>(offsets),
-      static_cast<int*>(n_uniq));
-  return static_cast<int>(cudaGetLastError());
+  const Mirror m{static_cast<const int4*>(tab), static_cast<uint32_t>(mask),
+                 window, static_cast<int*>(rows), static_cast<bool*>(found)};
+  return number(keys_ab, pos_ab, plan, n, tile_counts, inverse, uniq, order,
+                offsets, n_uniq, &m, stream);
 }
 
 // tab [n_slots, 4] int32, keys [n] int64, n_valid [1] int32 or null (all n
-// keys valid); writes rows [n] int32 and found [n] bool. The wrapper checks
-// mask + window <= n_slots. Returns a cudaError_t (0 = launched).
+// keys valid); writes rows [n] int32 and found [n] bool. Returns a
+// cudaError_t (0 = launched).
 int pbx_device_probe(const void* tab, int64_t n_slots, int64_t mask,
                      int window, const void* keys, const void* n_valid,
                      int64_t n, void* rows, void* found, void* stream) {
-  if (n <= 0 || n >= INT32_MAX - kThreads || mask < 0 ||
-      mask >= (int64_t(1) << 32) || window < 1 ||
-      mask + window > n_slots) {
+  if (n <= 0 || n >= INT32_MAX - kThreads ||
+      bad_mirror(n_slots, mask, window)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int blocks = static_cast<int>((n + kThreads - 1) / kThreads);

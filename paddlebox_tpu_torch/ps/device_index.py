@@ -12,10 +12,11 @@ probe of device-prep training (counterpart of
   map's ``generation`` then differs from the mirror's and the mirror
   resyncs in full.
 - ``device_dedup`` sorts a batch's keys on the device and numbers their
-  uniques (K5); ``device_probe`` resolves each unique against the mirror
-  (K6). Each has a plain PyTorch version here, which runs for tensors on
-  the CPU; a CUDA tensor takes the hand-written kernel
-  (``ops/device_index_kernel.py``) or raises.
+  uniques (K5); ``device_probe`` resolves keys against the mirror (K6);
+  ``device_dedup_probe``, what the training step runs, does both with the
+  probe folded into K5's write pass. Each has a plain PyTorch version
+  here, which runs for tensors on the CPU; a CUDA tensor takes the
+  hand-written kernel (``ops/device_index_kernel.py``) or raises.
 
 **One level, not two.** The reference keeps a second, 2M-slot "mini" table
 for new keys and folds it into the main mirror now and then, because a JAX
@@ -39,10 +40,9 @@ import numpy as np
 import torch
 
 from paddlebox_tpu_torch._device import DeviceLike, resolve_device
-from paddlebox_tpu_torch.ops.device_index_kernel import (DIGITS, RADIX_BITS,
-                                                         SIGN, Dedup,
-                                                         device_dedup_cuda,
-                                                         device_probe_cuda)
+from paddlebox_tpu_torch.ops.device_index_kernel import (
+    DIGITS, RADIX_BITS, SIGN, Dedup, device_dedup_cuda,
+    device_dedup_probe_cuda, device_probe_cuda)
 from paddlebox_tpu_torch.ps.native import NativeIndex
 
 MASK32 = 0xFFFFFFFF
@@ -180,6 +180,31 @@ def device_probe(tab: torch.Tensor, mask: int, window: int,
     return device_probe_plain(tab, mask, window, keys, n_valid)
 
 
+def device_dedup_probe_plain(keys: torch.Tensor, tab: torch.Tensor,
+                             mask: int, window: int
+                             ) -> Tuple[Dedup, torch.Tensor, torch.Tensor]:
+    """Plain version of the fused dedup and probe: ``device_dedup_plain``,
+    then ``device_probe_plain`` of the uniques with n_valid = n_uniq."""
+    dd = device_dedup_plain(keys)
+    rows, found = device_probe_plain(tab, mask, window, dd.uniq_keys,
+                                     dd.n_uniq)
+    return dd, rows, found
+
+
+def device_dedup_probe(keys: torch.Tensor, tab: torch.Tensor, mask: int,
+                       window: int
+                       ) -> Tuple[Dedup, torch.Tensor, torch.Tensor]:
+    """``(Dedup, rows [N] int32, found [N] bool)`` of [N] int64 keys, each
+    unique resolved in a mirror table: K5 with K6 folded into its write
+    pass on the card, the plain version on the CPU."""
+    if keys.is_cuda:
+        return device_dedup_probe_cuda(keys, tab, mask, window)
+    if keys.device.type != "cpu":
+        raise ValueError(
+            f"device_dedup_probe: unsupported device {keys.device}")
+    return device_dedup_probe_plain(keys, tab, mask, window)
+
+
 class DeviceIndexMirror:
     """Passive device copy of a ``NativeIndex``, kept in lockstep by the
     insert records of ``prepare_dev``."""
@@ -234,3 +259,8 @@ class DeviceIndexMirror:
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``device_probe`` of int64 keys on the mirror's device."""
         return device_probe(self.tab, self.mask, self.window, keys, n_valid)
+
+    def dedup_probe(self, keys: torch.Tensor
+                    ) -> Tuple[Dedup, torch.Tensor, torch.Tensor]:
+        """``device_dedup_probe`` of int64 keys on the mirror's device."""
+        return device_dedup_probe(keys, self.tab, self.mask, self.window)

@@ -20,9 +20,9 @@ update. The arenas never leave the device and are updated in place.
   (``DeviceTable.ensure_keys``), then ships the raw keys (uint64 viewed as
   int64) beside the int32 segment ids and the float32 block. On the device
   the dedup (K5) numbers the uniques, in ascending key order with Upad =
-  Npad, and the mirror probe (K6) gives their rows; the dedup's sorted
-  positions and offsets are the push's merge order, so the push sorts
-  nothing itself.
+  Npad, and its write pass probes the mirror for their rows (K6 folded
+  in); the dedup's sorted positions and offsets are the push's merge
+  order, so the push sorts nothing itself.
 
 Both rebuild ``rows = uniq_rows[inverse]`` and ``uniq_mask = uniq_rows > 0``
 on the device. Each phase runs in a ``torch.profiler.record_function`` span
@@ -49,7 +49,6 @@ from torch.profiler import record_function
 from paddlebox_tpu_torch.config import TrainerConfig
 from paddlebox_tpu_torch.metrics.auc import auc_update, new_auc_state
 from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
-from paddlebox_tpu_torch.ps.device_index import device_dedup
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.trainer.train_step import (full_float32_matmuls,
                                                     make_dense_optimizer,
@@ -226,8 +225,8 @@ class FusedTrainStep:
                     segment_ids, cvm_in, labels, dense, row_mask):
         """Device-prep entry ("ensure" mode): inserts the batch's new keys
         on the host, ships the raw keys, and dedups and resolves them on
-        the device (K5, K6) before the shared step body. Arguments and
-        result as ``__call__``'s."""
+        the device (K5 with K6 folded in) before the shared step body.
+        Arguments and result as ``__call__``'s."""
         if not self.device_prep:
             raise RuntimeError("step_device needs FusedTrainStep("
                                "device_prep=True)")
@@ -240,8 +239,7 @@ class FusedTrainStep:
             (segs,), cvm, labels_d, dense_d, mask = self._upload(
                 [segment_ids], cvm_in, labels, dense, row_mask)
         with record_function("train_step.dedup_probe"):
-            dd = device_dedup(keys_d)
-            uniq_rows, _ = t.mirror.probe(dd.uniq_keys, dd.n_uniq)
+            dd, uniq_rows, _ = t.mirror.dedup_probe(keys_d)
         return self._step(params, opt_state, auc_state, segs, dd.inverse,
                           uniq_rows, cvm, labels_d, dense_d, mask,
                           merge=(dd.order, dd.offsets))

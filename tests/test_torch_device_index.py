@@ -2,9 +2,11 @@
 the CPU against the reference's (``paddlebox_tpu/ps/device_index.py``):
 the plain hash bit for bit, the plain dedup exactly, and the plain probe
 over the port's one-level mirror exactly as the reference's two-level
-mirror answers, after inserts and after a growth. The CUDA wrappers refuse
-CPU tensors (no fallback); on the card ``chip_smoke.py`` holds K5 and K6
-against these plain versions.
+mirror answers, after inserts and after a growth; the plain fused dedup
+and probe exactly as the reference's dedup followed by its probe of the
+uniques. The CUDA wrappers refuse CPU tensors (no fallback); on the card
+``chip_smoke.py`` holds K5, K6 and the fused pass against these plain
+versions.
 
 The mirror tests need both packages' index cores (g++)."""
 
@@ -72,8 +74,11 @@ def dedup_cases():
             "one-key": np.array([HIGH], np.uint64)}
 
 
-def check_dedup_against_reference(keys):
-    got = device_index.device_dedup(as_torch(keys))
+def check_dedup_against_reference(keys, got=None):
+    """``got`` (the port's plain dedup of ``keys`` by default) against the
+    reference's ``device_dedup``; returns the reference's uniques."""
+    if got is None:
+        got = device_index.device_dedup(as_torch(keys))
     jhi, jlo = ref.split_keys(keys)
     inv, uhi, ulo, nu = ref.device_dedup(jnp.asarray(jhi), jnp.asarray(jlo))
     np.testing.assert_array_equal(got.inverse.numpy(), np.asarray(inv))
@@ -86,6 +91,7 @@ def check_dedup_against_reference(keys):
     order, offsets = merge_order_plain(got.inverse, keys.size)
     np.testing.assert_array_equal(got.order.numpy(), order.numpy())
     np.testing.assert_array_equal(got.offsets.numpy(), offsets.numpy())
+    return uhi, ulo
 
 
 @pytest.mark.parametrize("case", sorted(dedup_cases()))
@@ -231,6 +237,78 @@ def test_probe_after_growth_resync_matches_reference():
     np.testing.assert_array_equal(rows[keys.size:], b[0])
 
 
+def mirror_pair(keys):
+    """The reference's and the port's index and mirror over the same
+    keys."""
+    ri, pi = ref_native.NativeIndex(), native.NativeIndex()
+    ri.prepare(keys, True, True, 1)
+    pi.prepare(keys, True, True, 1)
+    return (ri, ref.DeviceIndexMirror(ri)), (pi, device_index.DeviceIndexMirror(
+        pi, "cpu"))
+
+
+def dedup_probe_cases():
+    """Each case: (keys the index holds, a batch of keys)."""
+    rng = np.random.default_rng(10)
+    vocab = np.arange(1, 5001, dtype=np.uint64)
+    batch = rng.integers(1, 5001, size=4096).astype(np.uint64)
+    batch[-400:] = 0  # the padding of a bucket
+    highs = insertable(high_keys(rng, 3000))
+    mixed = np.concatenate([rng.choice(highs, 2000), high_keys(rng, 500)])
+    absent = np.concatenate([
+        rng.integers(5001, 1 << 62, size=2000).astype(np.uint64),
+        rng.integers(1, 5001, size=500).astype(np.uint64),
+        np.array([0, 0, 7], np.uint64)])
+    # 64 keys with one home slot fill its window; the 65th is absent and
+    # its walk ends at the window
+    run = chip_smoke.colliding_keys(native.NativeIndex().capacity - 1, 100,
+                                    65, rng)
+    crowd = np.concatenate([run, run[::-3], np.zeros(1, np.uint64)])
+    assert all(k.dtype == np.uint64 for k in (mixed, absent, crowd))
+    return {"training-like": (vocab, batch),
+            "high-keys": (highs, mixed[rng.permutation(mixed.size)]),
+            "all-padding": (vocab, np.zeros(1000, np.uint64)),
+            "absent-keys": (vocab, absent[rng.permutation(absent.size)]),
+            "colliding-run-to-window": (run[:64], crowd)}
+
+
+@needs_native
+@pytest.mark.parametrize("case", sorted(dedup_probe_cases()))
+def test_dedup_probe_plain_matches_reference(case):
+    """The fused dedup and probe's plain version against the reference's
+    ``device_dedup`` followed by ``device_probe`` of its uniques, over the
+    same index: every field of the dedup, rows and found exactly."""
+    held, keys = dedup_probe_cases()[case]
+    (ri, rm), (pi, pm) = mirror_pair(held)
+    if case == "colliding-run-to-window":
+        cap = pi.capacity
+        slots = pi.export_slots()
+        last = max(int(np.flatnonzero(
+            (slots[:, 0] == (k >> np.uint64(32))) &
+            (slots[:, 1] == (k & np.uint64(0xFFFFFFFF))))[0]) for k in held)
+        assert cap == native.NativeIndex().capacity and last == 100 + 63
+    dd, rows, found = device_index.device_dedup_probe_plain(
+        as_torch(keys), pm.tab, pm.mask, pm.window)
+    uhi, ulo = check_dedup_against_reference(keys, dd)
+    rrow, rfound = ref.device_probe(rm.tab, rm.mask, rm.window, uhi, ulo)
+    rrow, rfound = np.array(rrow), np.array(rfound)
+    uniq = dd.uniq_keys.numpy().view(np.uint64)
+    rfound &= (uniq != 0) & (uniq != RESERVED)  # as in probe_both
+    assert rows.dtype == torch.int32 and found.dtype == torch.bool
+    np.testing.assert_array_equal(rows.numpy(), rrow)
+    np.testing.assert_array_equal(found.numpy(), rfound)
+    nu = int(dd.n_uniq)
+    assert not rows[nu:].any() and not found[nu:].any()
+    # the mirror's entry is the same function
+    got = pm.dedup_probe(as_torch(keys))
+    for a, b in zip((*got[0], *got[1:]), (*dd, rows, found)):
+        assert torch.equal(a, b)
+    if case == "training-like":
+        assert found[1:nu].all() and not found[0]  # uid 0 is the padding
+    if case == "colliding-run-to-window":
+        assert int(found.sum()) == 64
+
+
 def test_mirror_needs_the_single_map():
     if not native.available():
         pytest.skip("native backend unavailable")
@@ -243,8 +321,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     keys = as_torch(np.arange(8, dtype=np.uint64))
     with pytest.raises(ValueError, match="CUDA"):
         kernel.device_dedup_cuda(keys)
+    tab = torch.zeros((128, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        kernel.device_probe_cuda(torch.zeros((128, 4), dtype=torch.int32),
-                                 63, 64, keys)
+        kernel.device_probe_cuda(tab, 63, 64, keys)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.device_dedup_probe_cuda(keys, tab, 63, 64)
     assert kernel.device_dedup_cuda.launches == 0
     assert kernel.device_probe_cuda.launches == 0
+    assert kernel.device_dedup_probe_cuda.launches == 0
+    assert kernel.dedup_sort_cuda.launches == 0

@@ -222,6 +222,7 @@ def test_step_device_matches_jax():
     assert not bool(pfs.bad_flag)
     assert device_index_kernel.device_dedup_cuda.launches == 0
     assert device_index_kernel.device_probe_cuda.launches == 0
+    assert device_index_kernel.device_dedup_probe_cuda.launches == 0
 
 
 @needs_native
