@@ -78,6 +78,21 @@ Phases, each fatal on failure:
    ``prepare_batch`` on batches with 5% new keys, then each batch's new
    keys looked up in the mirror (``DeviceIndexMirror.probe``, K6 alone)
    against the host index.
+4b. trainer — the reference's entry point: two seeded MultiSlot files of
+             8 batches of B=2048 (a label and 24 slots of 1-3 keys; the
+             first file's keys uniform over the 4,194,304 prepopulated
+             rows, 5% of the second's new) -> ``SlotDataset`` (Npad
+             102,400) -> ``CTRTrainer.train_from_dataset``, device prep
+             over the native index (``index_threads=1``) and its mirror:
+             forward, backward, push, K5's sort and the fused dedup and
+             probe launch once a batch, the boundary kernel, K5 whole and
+             K6 alone never; losses, pass metrics, the whole arena and the
+             dense params equal a hand loop of ``step_device`` over the
+             same batches on a twin table bit for bit; ``evaluate``
+             launches the forward once a batch.
+   Seconds of ``load_into_memory``, ms a batch of ``BatchAssembler``, and
+   the trainer's ms/step and examples/s beside the hand loop's, in turns,
+   with the ``SpanTimer`` report.
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -99,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import os
 import re
@@ -112,10 +128,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from paddlebox_tpu_torch.config import (BucketSpec, TableConfig,
+from paddlebox_tpu_torch.config import (BucketSpec, DataFeedConfig,
+                                        SlotConfig, TableConfig,
                                         TrainerConfig, batch_bucket_spec)
 from paddlebox_tpu_torch.data.criteo import (CriteoReader, criteo_feed_config,
                                              make_synthetic_criteo)
+from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
                                                      save_inference_model)
 from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
@@ -146,7 +164,9 @@ from paddlebox_tpu_torch.ps.device_index import (DeviceIndexMirror,
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.ps.native import NativeIndex
 from paddlebox_tpu_torch.ps.table import state_dim
+from paddlebox_tpu_torch.metrics import AucCalculator
 from paddlebox_tpu_torch.trainer.fused_step import FusedTrainStep
+from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -1524,6 +1544,236 @@ def phase_train_device(rng, init) -> dict:
             "prepare_batch_native_new_keys_ms": new_prep_ms}
 
 
+# -- the trainer entry -------------------------------------------------------
+
+TRAINER_FILES = 2            # MultiSlot files of the trainer's pass
+TRAINER_FILE_BATCHES = 8     # batches of TB rows in each file
+TRAINER_HEADROOM = 1 << 17   # arena rows beyond the prepopulated ones
+
+
+def trainer_feed_conf() -> DataFeedConfig:
+    """The training shape as a MultiSlot feed: a label and TS sparse
+    slots, batch TB."""
+    slots = [SlotConfig("label", type="float", is_dense=True, dim=1)]
+    slots += [SlotConfig(f"s{i}") for i in range(TS)]
+    return DataFeedConfig(slots=slots, batch_size=TB, label_slot="label")
+
+
+def write_trainer_file(rng, path: str, fresh: int) -> int:
+    """TRAINER_FILE_BATCHES * TB MultiSlot lines of TS slots with 1-3 keys
+    each, keys uniform over the prepopulated rows; with ``fresh`` > 0, 5%
+    of the keys are replaced by new ones from ``fresh`` on. Returns the
+    count of new keys."""
+    rows = TRAINER_FILE_BATCHES * TB
+    lengths = rng.integers(1, 4, size=(rows, TS))
+    keys = rng.integers(1, HOT_VOCAB, size=int(lengths.sum()),
+                        dtype=np.uint64)
+    n_new = 0
+    if fresh:
+        pick = rng.choice(keys.size, size=keys.size // 20, replace=False)
+        keys[pick] = np.arange(fresh, fresh + pick.size, dtype=np.uint64)
+        n_new = pick.size
+    labels = rng.integers(0, 2, size=rows)
+    toks = keys.astype(str)
+    lens = lengths.astype(str)
+    pos = 0
+    with open(path, "w") as f:
+        for r in range(rows):
+            parts = ["1", str(labels[r])]
+            for j in range(TS):
+                n = int(lengths[r, j])
+                parts.append(lens[r, j])
+                parts.extend(toks[pos:pos + n])
+                pos += n
+            f.write(" ".join(parts) + "\n")
+    return n_new
+
+
+def hand_loop(fs, state, batches):
+    """``FusedTrainStep.step_device`` over assembled ``CsrBatch``es, as
+    the trainer calls it; returns the new state and the losses (device
+    scalars)."""
+    params, opt, auc = state
+    losses = []
+    for b in batches:
+        cvm = np.stack([np.ones(TB, np.float32), b.labels], axis=1)
+        params, opt, auc, loss, _ = fs.step_device(
+            params, opt, auc, b.keys, b.segment_ids, cvm, b.labels, b.dense,
+            b.row_mask())
+        losses.append(loss)
+    return (params, opt, auc), losses
+
+
+def timed_secs(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def phase_trainer(rng) -> dict:
+    """The reference's entry point: MultiSlot files -> ``SlotDataset`` ->
+    ``CTRTrainer.train_from_dataset`` (device prep over the native index
+    and its mirror, "ensure" mode) -> ``evaluate``. Checked bit for bit
+    against a hand loop of ``step_device`` over the same batches on a twin
+    table from the same arena and weights; then both timed in turns."""
+    conf, tconf, buckets = train_confs()
+    feed = trainer_feed_conf()
+    t0 = time.perf_counter()
+    os.makedirs(WORK, exist_ok=True)
+    files = [os.path.join(WORK, f"trainer-part-{i}")
+             for i in range(TRAINER_FILES)]
+    n_new = [write_trainer_file(rng, path, i * (HOT_VOCAB + 1))
+             for i, path in enumerate(files)]
+    write_s = time.perf_counter() - t0
+    ds = SlotDataset(feed, buckets=BucketSpec(min_size=TNPAD,
+                                              max_size=1 << 18))
+    ds.set_filelist(files)
+    load_s, _ = timed_secs(ds.load_into_memory)
+    n_batches = ds.num_instances() // TB
+    require(n_batches == TRAINER_FILES * TRAINER_FILE_BATCHES,
+            f"trainer: {ds.num_instances()} records loaded")
+    asm_s, batches = timed_secs(lambda: list(ds.batches()))
+    asm_ms = asm_s / n_batches * 1e3
+    require(all(b.padded_keys == TNPAD and b.num_rows == TB
+                for b in batches), "trainer: batches not at the training "
+                                   "shape")
+    print(f"trainer: wrote {TRAINER_FILES} files of "
+          f"{TRAINER_FILE_BATCHES * TB} lines ({n_new[-1]} new keys in the "
+          f"last) {write_s:.2f} s; load_into_memory {load_s:.4f} s; "
+          f"BatchAssembler {asm_ms:.4f} ms/batch over {n_batches} batches "
+          f"of {min(b.num_keys for b in batches)}-"
+          f"{max(b.num_keys for b in batches)} keys")
+
+    table = DeviceTable(conf, capacity=HOT_VOCAB + 1 + TRAINER_HEADROOM,
+                        uniq_buckets=buckets, device="cuda",
+                        backend="native", index_threads=1)
+    table.prepopulate(HOT_VOCAB)
+    model = random_deepfm(rng, TS * conf.pull_dim)
+    twin = twin_table(table, "cuda", "native")
+    twin_fs = FusedTrainStep(copy.deepcopy(model), twin, tconf, TB, TS,
+                             device_prep=True)
+    twin_state = (*twin_fs.init(), twin_fs.init_auc_state())
+    trainer = CTRTrainer(model, feed, conf, tconf, table=table)
+    require(trainer.step.device_prep, "trainer: device prep resolved off "
+                                      "over a one-thread native index")
+
+    losses = []
+    for w in DEVICE_PREP_WRAPPERS:
+        w.launches = 0
+    pass_s, metrics = timed_secs(lambda: trainer.train_from_dataset(
+        ds, fetch_handler=lambda s, loss, p: losses.append(loss)))
+    launches = {w.__name__: w.launches for w in DEVICE_PREP_WRAPPERS}
+    idle = {w.__name__ for w in DEVICE_PREP_IDLE}
+    for name, n in launches.items():
+        want = 0 if name in idle else n_batches
+        require(n == want, f"trainer: {name} launched {n} times in "
+                           f"{n_batches} batches, expected {want}")
+    require(np.isfinite(losses).all() and not bool(trainer.step.bad_flag),
+            f"trainer: losses {losses}")
+    require(metrics["ins_num"] == n_batches * TB,
+            f"trainer: ins_num {metrics['ins_num']}")
+    print(f"trainer: one pass of {n_batches} batches, launches {launches}, "
+          f"losses {losses[0]:.6f} -> {losses[-1]:.6f}, auc "
+          f"{metrics['auc']:.6f}; {pass_s / n_batches * 1e3:.4f} ms/step "
+          f"with the fetch handler (a sync a batch)")
+
+    twin_state, twin_losses = hand_loop(twin_fs, twin_state, batches)
+    calc = AucCalculator()
+    calc.absorb(twin_state[2])
+    twin_losses = [float(x) for x in twin_losses]
+    require(losses == twin_losses,
+            f"trainer vs hand loop: losses {losses} vs {twin_losses}")
+    require(metrics == calc.compute(), f"trainer vs hand loop: metrics "
+                                       f"{metrics} vs {calc.compute()}")
+    require(len(table) == len(twin) == HOT_VOCAB + sum(n_new) and
+            np.array_equal(table.row_keys(), twin.row_keys()),
+            "trainer vs hand loop: the tables hold other keys")
+    require(torch.equal(table.values, twin.values) and
+            torch.equal(table.state, twin.state),
+            "trainer vs hand loop: the arenas differ")
+    require(all(torch.equal(a, b) for a, b in zip(
+        trainer.params.parameters(), twin_state[0].parameters())),
+        "trainer vs hand loop: the dense params differ")
+    print(f"trainer vs hand loop of step_device (twin table): losses, "
+          f"pass metrics, the whole arena ({len(table)} rows) and the dense "
+          f"params bit for bit")
+
+    seqpool_cvm_cuda.launches = 0
+    ev = trainer.evaluate(ds)
+    eval_launches = seqpool_cvm_cuda.launches
+    require(eval_launches == n_batches, f"evaluate: the forward launched "
+                                        f"{eval_launches} times")
+    require(ev["ins_num"] == n_batches * TB and 0.0 <= ev["auc"] <= 1.0,
+            f"evaluate: {ev}")
+    print(f"trainer: evaluate over {n_batches} batches, forward launches "
+          f"{eval_launches}, auc {ev['auc']:.6f}")
+
+    # the entry point (assembly, step, drain, metrics) and the hand loop
+    # over the pre-assembled batches, in turns
+    times = {"trainer": [], "hand": []}
+    for who in ("trainer", "hand", "hand", "trainer"):
+        if who == "trainer":
+            trainer.reset_metrics()
+            secs, _ = timed_secs(lambda: trainer.train_from_dataset(ds))
+        else:
+            secs, (twin_state, _) = timed_secs(
+                lambda: hand_loop(twin_fs, twin_state, batches))
+        times[who].append(secs / n_batches * 1e3)
+    ms = float(np.mean(times["trainer"]))
+    hand_ms = float(np.mean(times["hand"]))
+    print(f"timing trainer: train_from_dataset {times['trainer']} ms/step "
+          f"({TB * 1e3 / ms:.1f} examples/s); hand loop of step_device "
+          f"{times['hand']} ms/step ({TB * 1e3 / hand_ms:.1f} examples/s); "
+          f"BatchAssembler {asm_ms:.4f} ms/batch; load_into_memory "
+          f"{load_s:.4f} s for {TRAINER_FILES} files")
+    print(f"trainer SpanTimer (last pass): {trainer.timer.report()}")
+    # the pass end's share: the host's AUC metrics over 2^20 buckets
+    compute_s, _ = timed_secs(trainer.calc.compute)
+    print(f"timing trainer: AucCalculator.compute at the pass end "
+          f"{compute_s * 1e3:.4f} ms")
+    # one more pass, with the assembly and Python's garbage collections
+    # timed where they run, to split the pass beyond the "main" span
+    in_pass = {"assemble": [], "gc": []}
+    assemble = ds.assembler.assemble
+
+    def timed_assemble(records):
+        t = time.perf_counter()
+        out = assemble(records)
+        in_pass["assemble"].append(time.perf_counter() - t)
+        return out
+
+    def on_gc(phase, info):
+        in_pass["gc"].append((phase, time.perf_counter()))
+
+    ds.assembler.assemble = timed_assemble
+    gc.callbacks.append(on_gc)
+    try:
+        trainer.reset_metrics()
+        secs, _ = timed_secs(lambda: trainer.train_from_dataset(ds))
+    finally:
+        gc.callbacks.remove(on_gc)
+        del ds.assembler.assemble
+    marks = in_pass["gc"]
+    gc_s = sum(b - a for (pa, a), (pb, b) in zip(marks[::2], marks[1::2])
+               if pa == "start" and pb == "stop")
+    split = {"pass": secs / n_batches * 1e3,
+             "main": trainer.timer.mean_ms("main"),
+             "assemble": float(np.mean(in_pass["assemble"])) * 1e3,
+             "gc": gc_s / n_batches * 1e3,
+             "metrics": compute_s / n_batches * 1e3}
+    split["rest"] = (split["pass"] - split["main"] - split["assemble"] -
+                     split["metrics"])
+    print(f"timing trainer, one more pass split (ms/step): {split}; "
+          f"{len(marks) // 2} garbage collections")
+    return {"launches": launches, "eval_launches": eval_launches,
+            "ms_per_step": ms, "examples_per_s": TB * 1e3 / ms,
+            "hand_ms_per_step": hand_ms, "assemble_ms": asm_ms,
+            "load_s": load_s, "compute_ms": compute_s * 1e3,
+            "split_ms": split}
+
+
 # -- phase 5 -----------------------------------------------------------------
 
 def timed(kernel, plain, library) -> dict:
@@ -1901,6 +2151,7 @@ def main() -> int:
         train, train_init = phase_train(rng)
         train_dev = phase_train_device(np.random.default_rng([args.seed, 8]),
                                        train_init)
+        trainer = phase_trainer(np.random.default_rng([args.seed, 11]))
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
@@ -1917,14 +2168,20 @@ def main() -> int:
           f"ms/step, {train['examples_per_s']:.1f} examples/s; host-prep "
           f"(native index) {train_dev['host_prep_native_ms_per_step']:.4f} "
           f"ms/step; device-prep {train_dev['ms_per_step']:.4f} ms/step, "
-          f"{train_dev['examples_per_s']:.1f} examples/s")
+          f"{train_dev['examples_per_s']:.1f} examples/s; trainer "
+          f"(CTRTrainer.train_from_dataset, device prep) "
+          f"{trainer['ms_per_step']:.4f} ms/step, "
+          f"{trainer['examples_per_s']:.1f} examples/s, hand loop "
+          f"{trainer['hand_ms_per_step']:.4f} ms/step")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
 
     def by_path(wrapper, **more) -> dict:
         """Launches on each main path (each counted from 0)."""
         paths = {**more, "train_host_prep": host.get(wrapper.__name__, 0),
-                 "train_device_prep": dev[wrapper.__name__]}
+                 "train_device_prep": dev[wrapper.__name__],
+                 "trainer_device_prep": trainer["launches"][
+                     wrapper.__name__]}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}
 
@@ -1932,7 +2189,8 @@ def main() -> int:
         {"name": KERNEL, "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/seqpool_cvm.cu",
          "replaces": "paddlebox_tpu/ops/pallas_seqpool.py:123",
-         **by_path(seqpool_cvm_cuda, serve=serve_launches),
+         **by_path(seqpool_cvm_cuda, serve=serve_launches,
+                   trainer_evaluate=trainer["eval_launches"]),
          "max_abs_err": err, **timing},
         {"name": GRAD, "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/seqpool_cvm_grad.cu",

@@ -5,10 +5,18 @@ module layout and names so each counterpart is easy to find. It imports
 ``torch`` and numpy only — never ``jax`` and nothing of ``paddlebox_tpu``:
 what it needs of the reference's host code it keeps as its own copy.
 
-Ported so far: the serving path of the flagship DeepFM —
-``inference.predictor.CTRPredictor`` -> host pull (``ps.table``) ->
-``trainer.train_step.TrainStep.predict`` -> ``ops.seqpool_cvm`` (a CUDA
-kernel on the card) -> ``models.deepfm.DeepFM``.
+Ported so far:
+
+- serving of the flagship DeepFM: ``inference.predictor.CTRPredictor`` ->
+  host pull (``ps.table``) -> ``trainer.train_step.TrainStep.predict`` ->
+  ``ops.seqpool_cvm`` (a CUDA kernel on the card) -> ``models.deepfm``;
+- single-device training through the reference's entry point:
+  ``data.dataset.SlotDataset`` (``data.parser.SlotParser``) ->
+  ``trainer.trainer.CTRTrainer.train_from_dataset`` ->
+  ``trainer.fused_step.FusedTrainStep`` (host prep, or device prep over
+  ``ps.native`` and the index mirror ``ps.device_index``) over a
+  ``ps.device_table.DeviceTable``, with hand-written CUDA kernels for the
+  seqpool forward and backward, the push and the key dedup and probe.
 """
 
 from paddlebox_tpu_torch._device import resolve_device

@@ -120,8 +120,9 @@ class TableConfig:
 class TrainerConfig:
     """Dense-side training settings (the reference's ``TrainerConfig``).
     ``dense_sync_steps``, ``metrics``, ``num_devices`` and ``profile`` are
-    read by the trainer loop, which is not ported yet: ``FusedTrainStep``
-    refuses values other than their defaults."""
+    the trainer loop's (``trainer/trainer.py::CTRTrainer``): on one device
+    it ignores ``dense_sync_steps`` and ``metrics`` as the reference does,
+    refuses ``num_devices`` > 1 and prints the profile line."""
 
     # dense optimizer, in optax's math: "adam" | "adamw" | "sgd" | "adagrad"
     # ("lars" and "lamb" are not ported yet)

@@ -1,1 +1,2 @@
-"""Data path of the port: records, CSR batch assembly, the Criteo reader."""
+"""Data path of the port: records, the slot parser, the in-memory slot
+dataset, CSR batch assembly, the Criteo reader."""

@@ -14,7 +14,7 @@ padded up to a geometric bucket (``config.BucketSpec``):
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -36,6 +36,16 @@ class CsrBatch:
     num_rows: int             # real instances (<= batch_size; rest is padding)
     search_ids: Optional[np.ndarray] = None
 
+    @property
+    def padded_keys(self) -> int:
+        return int(self.keys.shape[0])
+
+    def key_mask(self) -> np.ndarray:
+        """[Npad] float32: 1.0 for the valid keys, 0.0 for padding."""
+        m = np.zeros(self.padded_keys, dtype=np.float32)
+        m[:self.num_keys] = 1.0
+        return m
+
     def row_mask(self) -> np.ndarray:
         """[B] float32: 1.0 for the real instances, 0.0 for padding rows."""
         m = np.zeros(self.batch_size, dtype=np.float32)
@@ -47,9 +57,11 @@ class BatchAssembler:
     """Builds fixed-shape CsrBatches from SlotRecords."""
 
     def __init__(self, conf: DataFeedConfig,
-                 buckets: Optional[BucketSpec] = None):
+                 buckets: Optional[BucketSpec] = None,
+                 drop_remainder: bool = False):
         self.conf = conf
         self.buckets = buckets or batch_bucket_spec()
+        self.drop_remainder = drop_remainder
         self.num_slots = len(conf.used_sparse_slots)
         self.dense_dims = [s.dim for s in conf.used_dense_slots]
         self.total_dense = sum(self.dense_dims)
@@ -96,3 +108,13 @@ class BatchAssembler:
                         labels=labels, dense=dense, batch_size=B,
                         num_slots=S, num_keys=num_keys, num_rows=n,
                         search_ids=search_ids)
+
+    def batches(self, records: Sequence[SlotRecord]) -> Iterator[CsrBatch]:
+        """``records`` in minibatches of ``conf.batch_size``, in order; a
+        short last batch is padded, or dropped with ``drop_remainder``."""
+        B = self.conf.batch_size
+        for i in range(0, len(records), B):
+            chunk = records[i:i + B]
+            if len(chunk) < B and self.drop_remainder:
+                return
+            yield self.assemble(chunk)

@@ -29,6 +29,11 @@ on the device. Each phase runs in a ``torch.profiler.record_function`` span
 named ``train_step.<phase>``, so a profile splits the step's host time by
 phase.
 
+``trainer/trainer.py::CTRTrainer`` drives both entries from a dataset and
+reads the ``TrainerConfig`` fields of the trainer loop
+(``dense_sync_steps``, ``metrics``, ``num_devices``, ``profile``); the step
+reads none of them, as the reference's does not.
+
 ``params`` is the ``nn.Module`` that holds the dense weights; the dense
 optimizer updates it in place, and ``opt_state`` is the optimizer's state
 (``trainer.train_step.DenseOptimizer``). Not ported yet: the "deferred"
@@ -89,18 +94,6 @@ class FusedTrainStep:
             raise NotImplementedError(
                 "recompute is not ported yet (ROADMAP A.2: lars, lamb, "
                 "MultiSteps, recompute)")
-        # fields that only the trainer loop reads
-        for field, ported in (
-                ("dense_sync_steps", trainer_conf.dense_sync_steps == 0),
-                ("metrics", trainer_conf.metrics == ["auc"]),
-                ("num_devices", trainer_conf.num_devices in (0, 1)),
-                ("profile", not trainer_conf.profile)):
-            if not ported:
-                raise NotImplementedError(
-                    f"TrainerConfig.{field}="
-                    f"{getattr(trainer_conf, field)!r}: only CTRTrainer "
-                    "reads it, and it is not ported yet (ROADMAP A.2, "
-                    "CTRTrainer)")
         full_float32_matmuls()
         self.model = model
         self.table = table
@@ -120,6 +113,7 @@ class FusedTrainStep:
         # the last step's numeric sentinel (a device bool)
         self.bad_flag: Optional[torch.Tensor] = None
         self.device_prep = device_prep
+        self.insert_mode = insert_mode
         if device_prep:
             table.enable_device_index()
 

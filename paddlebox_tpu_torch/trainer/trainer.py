@@ -1,0 +1,261 @@
+"""Training orchestration: ``CTRTrainer.train_from_dataset`` on one device
+(counterpart of the single-device fused branch of
+``paddlebox_tpu/trainer/trainer.py``).
+
+One host loop drives ``FusedTrainStep`` over a ``DeviceTable``, one batch
+at a time:
+
+    for batch in dataset.batches():  step -> [fetch_handler, dump]
+
+The step is device prep (``step_device``: host ``ensure_keys``, the dedup
+and probe on the card) when a native single-map index backs the table,
+else host prep (``__call__``: host ``prepare_batch``), as the reference
+resolves it. The f32 AUC state on the device drains into the host's
+float64 calculator every ``AUC_DRAIN_STEPS`` steps and at the pass end.
+``SpanTimer`` times each batch ("main") and its step ("step");
+``TrainerConfig(profile=True)`` prints the reference's ``log_for_profile``
+line on stderr at the pass end. The dump subsystem writes one JSON line
+per instance (search_id, label, pred).
+
+Not ported, and refused with ``NotImplementedError``: ``mesh=`` and
+``dense_sync_hook`` (ROADMAP A.9), the host-table engine
+(``use_device_table=False`` or a host table, A.2c), ``train_from_files``
+(A.2b), ``insert_mode="deferred"`` with device prep on (A.3b), and, set
+through the reference's ``PBOX_FLAGS_<name>`` environment variables, the
+device feed (``feed_device_prefetch``, A.4), the train guard
+(``check_nan_inf``), the trace, the postmortem dump and the pass
+heartbeat (A.6). The reference's per-pass heartbeat record and its
+``sections[...]`` device-time table (``trainer/profiler.py``) have no
+counterpart here (A.6).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import warnings
+from typing import Callable, Dict, Optional
+
+import numpy as np
+from torch import nn
+
+from paddlebox_tpu_torch._device import DeviceLike
+from paddlebox_tpu_torch.config import (BucketSpec, DataFeedConfig,
+                                        TableConfig, TrainerConfig)
+from paddlebox_tpu_torch.data.batch import CsrBatch
+from paddlebox_tpu_torch.data.dataset import SlotDataset
+from paddlebox_tpu_torch.metrics.auc import AucCalculator
+from paddlebox_tpu_torch.ps import native
+from paddlebox_tpu_torch.ps.device_table import DeviceTable
+from paddlebox_tpu_torch.trainer.fused_step import FusedTrainStep
+from paddlebox_tpu_torch.utils.timer import SpanTimer
+
+# drain the on-device f32 AUC accumulator into float64 well before any
+# bucket count approaches 2^24 (metrics/auc.py); read at run time
+AUC_DRAIN_STEPS = 512
+
+# the reference's flags of features not ported here: (flag, ROADMAP item,
+# feature). A flag counts as set unless empty, 0 or false.
+_REFUSED_FLAGS = (
+    ("feed_device_prefetch", "A.4", "the staged device feed"),
+    ("check_nan_inf", "A.6", "the train guard (trainer/guard.py)"),
+    ("obs_trace_dir", "A.6", "the Chrome trace (obs/trace.py)"),
+    ("obs_postmortem_dir", "A.6", "the postmortem dump (obs/postmortem.py)"),
+    ("obs_heartbeat_path", "A.6", "the pass heartbeat (obs/heartbeat.py)"),
+)
+
+
+def _flag_set(name: str) -> bool:
+    """Whether the reference's flag ``name`` is turned on through its
+    environment variable ``PBOX_FLAGS_<name>``."""
+    value = os.environ.get("PBOX_FLAGS_" + name, "").strip().lower()
+    return value not in ("", "0", "0.0", "false", "no", "off")
+
+
+def _resolve_device_prep(table: DeviceTable,
+                         device_prep: Optional[bool]) -> bool:
+    """On when the native single-map index backs the table (the sharded
+    ``MtIndex`` has no slot export for the device mirror)."""
+    if device_prep is not None:
+        return device_prep
+    return native.available() and isinstance(table._index,
+                                             native.NativeIndex)
+
+
+class CTRTrainer:
+    def __init__(self, model: nn.Module, feed_conf: DataFeedConfig,
+                 table_conf: TableConfig, trainer_conf: TrainerConfig,
+                 table: Optional[DeviceTable] = None,
+                 use_device_table: bool = True,
+                 device_capacity: int = 1 << 20,
+                 buckets: Optional[BucketSpec] = None,
+                 use_cvm: bool = True,
+                 dump_path: Optional[str] = None,
+                 mesh=None,
+                 device_prep: Optional[bool] = None,
+                 insert_mode: str = "ensure",
+                 dense_sync_hook: Optional[Callable] = None,
+                 device: DeviceLike = None):
+        """``model`` is an ``nn.Module`` holding its dense weights (for a
+        parity run: converted from the reference trainer's flax params by
+        ``models/convert.py``); the trainer moves it to the table's device.
+        Without ``table``, a ``DeviceTable(table_conf,
+        capacity=device_capacity, device=device)`` is built (``device``
+        None = the card). ``device_prep`` None = on when a native
+        single-map index backs the table (``index_threads=1``)."""
+        if insert_mode not in ("ensure", "deferred"):
+            raise ValueError(f"unknown insert_mode {insert_mode!r}")
+        if mesh is not None or dense_sync_hook is not None:
+            raise NotImplementedError(
+                "multi-device training (mesh=, dense_sync_hook) is not "
+                "ported yet (ROADMAP A.9)")
+        if trainer_conf.num_devices > 1:
+            raise NotImplementedError(
+                f"TrainerConfig.num_devices={trainer_conf.num_devices}: "
+                "multi-device training is not ported yet (ROADMAP A.9)")
+        if not use_device_table or (table is not None and
+                                    not isinstance(table, DeviceTable)):
+            raise NotImplementedError(
+                "the host-table engine (use_device_table=False, a host "
+                "EmbeddingTable) is not ported yet (ROADMAP A.2c)")
+        for flag, item, what in _REFUSED_FLAGS:
+            if _flag_set(flag):
+                raise NotImplementedError(
+                    f"PBOX_FLAGS_{flag} asks for {what}, which is not "
+                    f"ported yet (ROADMAP {item})")
+        # trainer_conf.dense_sync_steps is read only with a mesh and
+        # trainer_conf.metrics not at all on one device, as in the
+        # reference
+        self.model = model
+        self.feed_conf = feed_conf
+        self.table_conf = table_conf
+        self.trainer_conf = trainer_conf
+        self.num_slots = len(feed_conf.used_sparse_slots)
+        self.dense_dim = sum(s.dim for s in feed_conf.used_dense_slots)
+        self.timer = SpanTimer(metric_prefix="trainer")
+        self.calc = AucCalculator()
+        self.buckets = buckets
+        self.dump_path = dump_path
+        self._dump_f = None
+        self._step_count = 0
+        self.table = (table if table is not None else
+                      DeviceTable(table_conf, capacity=device_capacity,
+                                  device=device))
+        dp = _resolve_device_prep(self.table, device_prep)
+        self.step = FusedTrainStep(
+            model, self.table, trainer_conf,
+            batch_size=feed_conf.batch_size, num_slots=self.num_slots,
+            dense_dim=self.dense_dim, use_cvm=use_cvm, device_prep=dp,
+            insert_mode=self._gate_insert_mode(insert_mode, dp))
+        self.params, self.opt_state = self.step.init()
+        self.auc_state = self.step.init_auc_state()
+
+    # -- dump subsystem ------------------------------------------------------
+
+    def _dump_batch(self, batch: CsrBatch, preds: np.ndarray) -> None:
+        if self.dump_path is None:
+            return
+        if self._dump_f is None:
+            os.makedirs(os.path.dirname(self.dump_path) or ".",
+                        exist_ok=True)
+            self._dump_f = open(self.dump_path, "a")
+        n = batch.num_rows
+        sids = (batch.search_ids if batch.search_ids is not None
+                else np.zeros(n, dtype=np.int64))
+        for i in range(n):
+            self._dump_f.write(json.dumps({
+                "search_id": int(sids[i]),
+                "label": float(batch.labels[i]),
+                "pred": float(preds[i] if preds.ndim == 1
+                              else preds[i, 0])}) + "\n")
+
+    def close_dump(self) -> None:
+        if self._dump_f is not None:
+            self._dump_f.close()
+            self._dump_f = None
+
+    # -- the hot loop --------------------------------------------------------
+
+    @staticmethod
+    def _cvm(batch: CsrBatch) -> np.ndarray:
+        """Per-instance CVM input (show=1, clk=label), for the train and
+        eval paths."""
+        return np.stack([np.ones(batch.batch_size, np.float32),
+                         batch.labels], axis=1)
+
+    @staticmethod
+    def _gate_insert_mode(insert_mode: str, dp: bool) -> str:
+        """"deferred" needs device prep; without it the request warns and
+        training proceeds in "ensure" mode."""
+        if insert_mode == "deferred" and not dp:
+            warnings.warn(
+                "insert_mode='deferred' ignored: device_prep is off "
+                "(native single-map index unavailable or explicitly "
+                "disabled) — training proceeds in 'ensure' mode",
+                RuntimeWarning, stacklevel=3)
+            return "ensure"
+        return insert_mode
+
+    def _train_one(self, batch: CsrBatch):
+        cvm = self._cvm(batch)
+        entry = self.step.step_device if self.step.device_prep else \
+            self.step
+        with self.timer.span("step"):
+            (self.params, self.opt_state, self.auc_state, loss,
+             preds) = entry(
+                self.params, self.opt_state, self.auc_state, batch.keys,
+                batch.segment_ids, cvm, batch.labels, batch.dense,
+                batch.row_mask())
+        return loss, preds
+
+    def _drain_auc(self) -> None:
+        self.calc.absorb(self.auc_state)
+        self.auc_state = self.step.init_auc_state()
+
+    def train_from_files(self, files, prefetch: int = 2,
+                         buckets: Optional[BucketSpec] = None,
+                         workers: int = 1) -> Dict[str, float]:
+        raise NotImplementedError(
+            "train_from_files (the streamed file feed and the chunked "
+            "step) is not ported yet (ROADMAP A.2b)")
+
+    def train_from_dataset(self, dataset: SlotDataset,
+                           fetch_handler: Optional[Callable] = None
+                           ) -> Dict[str, float]:
+        """One pass over the dataset's in-memory records. Calls
+        ``fetch_handler(step, loss, preds)`` after each batch (``preds`` a
+        host array). Returns the pass metrics."""
+        for batch in dataset.batches():
+            with self.timer.span("main"):
+                loss, preds = self._train_one(batch)
+            self._step_count += 1
+            if self._step_count % AUC_DRAIN_STEPS == 0:
+                self._drain_auc()
+            if self.dump_path is not None or fetch_handler is not None:
+                p = preds.cpu().numpy()
+                self._dump_batch(batch, p)
+                if fetch_handler is not None:
+                    fetch_handler(self._step_count, float(loss), p)
+        self._drain_auc()
+        out = self.calc.compute()
+        if self.trainer_conf.profile:
+            print(f"log_for_profile pass_steps={self._step_count} "
+                  f"{self.timer.report()}", file=sys.stderr)
+        return out
+
+    def evaluate(self, dataset: SlotDataset) -> Dict[str, float]:
+        """Forward-only pass (no table change) with its own calculator."""
+        calc = AucCalculator()
+        for batch in dataset.batches():
+            preds = self.step.predict(self.params, batch.keys,
+                                      batch.segment_ids, self._cvm(batch),
+                                      batch.dense)
+            p = preds.cpu().numpy()
+            p0 = p if p.ndim == 1 else p[:, 0]
+            calc.add_batch(p0, batch.labels, batch.row_mask())
+        return calc.compute()
+
+    def reset_metrics(self) -> None:
+        self.calc.reset()
+        self.timer.reset()

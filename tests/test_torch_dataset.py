@@ -1,0 +1,300 @@
+"""Port's slot parser, batch assembly and in-memory ``SlotDataset`` against
+the JAX package's, on the same MultiSlot files (``conftest.make_slot_file``
+at the reference tests' ``feed_conf``: 3 sparse slots, a 3-wide dense slot,
+batch 8). Records and batch arrays must be equal, array for array: the
+parse and the assembly are the same host arithmetic in both packages. The
+``sample_rate`` subsample hashes with Python's per-process salted ``hash``,
+so both packages run in this one process."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from conftest import make_slot_file
+from paddlebox_tpu.config import DataFeedConfig as JaxFeedConfig
+from paddlebox_tpu.config import SlotConfig as JaxSlotConfig
+from paddlebox_tpu.data import parser as ref_parser
+from paddlebox_tpu.data.dataset import SlotDataset as JaxSlotDataset
+from paddlebox_tpu.data.ingest import IngestError as JaxIngestError
+from paddlebox_tpu.data.parser import SlotParser as JaxSlotParser
+from paddlebox_tpu_torch.config import DataFeedConfig
+from paddlebox_tpu_torch.data import dataset as port_dataset
+from paddlebox_tpu_torch.data.batch import BatchAssembler
+from paddlebox_tpu_torch.data.dataset import SlotDataset
+from paddlebox_tpu_torch.data.parser import (IngestError, SlotParser,
+                                             pack_logkey, unpack_logkey)
+
+BATCH_FIELDS = ("keys", "segment_ids", "lengths", "labels", "dense",
+                "search_ids")
+INT_FIELDS = ("batch_size", "num_slots", "num_keys", "num_rows",
+              "padded_keys")
+RECORD_FIELDS = ("uint64_feas", "uint64_offsets", "float_feas",
+                 "float_offsets")
+RECORD_SCALARS = ("label", "search_id", "cmatch", "rank", "ins_id")
+
+
+def jax_conf(**kw):
+    """The reference tests' ``feed_conf`` (tests/conftest.py)."""
+    base = dict(slots=[
+        JaxSlotConfig("label", type="float", is_dense=True, dim=1),
+        JaxSlotConfig("slot_a"),
+        JaxSlotConfig("slot_b"),
+        JaxSlotConfig("slot_c"),
+        JaxSlotConfig("dense_x", type="float", is_dense=True, dim=3),
+    ], batch_size=8, label_slot="label", thread_num=2)
+    base.update(kw)
+    return JaxFeedConfig(**base)
+
+
+def port_conf(jconf):
+    return DataFeedConfig.from_dict(dataclasses.asdict(jconf))
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    """Two files of 48 rows and one of 45 (a ragged last batch)."""
+    d = tmp_path_factory.mktemp("slots")
+    conf = jax_conf()
+    return [make_slot_file(str(d / f"part-{i}"), conf, rows, seed=i)
+            for i, rows in enumerate((48, 48, 45))]
+
+
+def assert_records_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for f in RECORD_FIELDS:
+            a, b = getattr(g, f), getattr(w, f)
+            assert a.dtype == b.dtype, f
+            np.testing.assert_array_equal(a, b, err_msg=f)
+        for f in RECORD_SCALARS:
+            assert getattr(g, f) == getattr(w, f), f
+
+
+def assert_batches_equal(got, want):
+    got, want = list(got), list(want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for f in BATCH_FIELDS:
+            a, b = getattr(g, f), getattr(w, f)
+            assert a.dtype == b.dtype and a.shape == b.shape, f
+            np.testing.assert_array_equal(a, b, err_msg=f)
+        for f in INT_FIELDS:
+            assert getattr(g, f) == getattr(w, f), f
+        np.testing.assert_array_equal(g.key_mask(), w.key_mask())
+        np.testing.assert_array_equal(g.row_mask(), w.row_mask())
+
+
+def loaded(files, jconf=None, **ds_kw):
+    """The reference's dataset and the port's, each loaded from
+    ``files``."""
+    jconf = jconf or jax_conf()
+    jds = JaxSlotDataset(jconf, **ds_kw)
+    pds = SlotDataset(port_conf(jconf), **ds_kw)
+    for ds in (jds, pds):
+        ds.set_filelist(files)
+        ds.load_into_memory()
+    return jds, pds
+
+
+LINES = {
+    "plain": ({}, "1 1 2 11 22 1 33 3 44 55 66 3 0.5 -1.5 2.0"),
+    "ins_id": ({"parse_ins_id": True},
+               "1 ins-7 1 0 1 5 0 3 7 8 9 3 1 2 3"),
+    "logkey": ({"parse_logkey": True},
+               f"1 {pack_logkey(12345, 2, 7)} 1 1 1 5 1 6 1 7 3 1 2 3"),
+    "both": ({"parse_ins_id": True, "parse_logkey": True},
+             f"1 abc 1 {pack_logkey(0x1702F830EEE, 3, 9)} 1 0 2 5 6 "
+             "1 6 1 7 3 1 2 3"),
+    "short_logkey": ({"parse_logkey": True}, "1 1f 1 1 1 5 1 6 1 7 3 1 2 3"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LINES))
+def test_parse_line_matches_reference(case):
+    kw, line = LINES[case]
+    jconf = jax_conf(**kw)
+    want = JaxSlotParser(jconf).parse_line(line)
+    got = SlotParser(port_conf(jconf)).parse_line(line)
+    assert_records_equal([got], [want])
+
+
+def test_unused_slot_skipped_like_reference():
+    jconf = JaxFeedConfig(slots=[
+        JaxSlotConfig("label", type="float", is_dense=True, dim=1),
+        JaxSlotConfig("a"), JaxSlotConfig("skip", is_used=False),
+        JaxSlotConfig("b"),
+        JaxSlotConfig("d", type="float", is_dense=True, dim=2,
+                      is_used=False)])
+    line = "1 1 2 10 20 3 7 8 9 1 30 2 0.5 0.25"
+    got = SlotParser(port_conf(jconf)).parse_line(line)
+    assert_records_equal([got], [JaxSlotParser(jconf).parse_line(line)])
+    assert got.uint64_offsets.tolist() == [0, 2, 3]
+    np.testing.assert_array_equal(got.slot_uint64(1), [30])
+
+
+def test_logkey_round_trip_matches_reference():
+    for sid, cm, rk in ((0x1702F830EEE, 3, 9), (0, 0, 0), (1, 4095, 255)):
+        key = pack_logkey(sid, cm, rk)
+        assert key == ref_parser.pack_logkey(sid, cm, rk)
+        assert unpack_logkey(key) == ref_parser.unpack_logkey(key) == \
+            (sid, cm, rk)
+    assert unpack_logkey(" 1f ") == ref_parser.unpack_logkey(" 1f ")
+
+
+@pytest.mark.parametrize("bad", ["truncated_slot", "truncated_line",
+                                 "bad_token"])
+def test_bad_line_raises_with_path_and_lineno(tmp_path, bad):
+    """The first bad line raises ``<path>:<lineno>: <text!r>: <error>``,
+    the reference's fail-fast message, word for word."""
+    jconf = jax_conf()
+    path = make_slot_file(str(tmp_path / "f"), jconf, 6, seed=3)
+    lines = open(path).read().splitlines()
+    lines[3] = {"truncated_slot": lines[3].rsplit(" ", 2)[0],
+                "truncated_line": " ".join(lines[3].split()[:5]),
+                "bad_token": lines[3].replace("1 ", "x ", 1)}[bad]
+    lines.insert(1, "")   # blank lines are skipped but counted
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with pytest.raises(JaxIngestError) as want:
+        JaxSlotParser(jconf).parse_file(path)
+    with pytest.raises(IngestError) as got:
+        SlotParser(port_conf(jconf)).parse_file(path)
+    assert str(got.value) == str(want.value)
+    assert str(got.value).startswith(f"{path}:5: ")
+    # through the dataset, the same error
+    ds = SlotDataset(port_conf(jconf))
+    ds.set_filelist([path])
+    with pytest.raises(IngestError, match=f"{path}:5: "):
+        ds.load_into_memory()
+
+
+def test_missing_file_raises_naming_it(tmp_path, files):
+    missing = str(tmp_path / "nope")
+    jds = JaxSlotDataset(jax_conf())
+    pds = SlotDataset(port_conf(jax_conf()))
+    errors = []
+    for ds, err in ((jds, JaxIngestError), (pds, IngestError)):
+        ds.set_filelist([files[0], missing])
+        with pytest.raises(err) as e:
+            ds.load_into_memory()
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+    assert errors[1].startswith(f"{missing}: FileNotFoundError")
+
+
+def test_parse_file_matches_reference(files):
+    jconf = jax_conf()
+    assert_records_equal(SlotParser(port_conf(jconf)).parse_file(files[2]),
+                         JaxSlotParser(jconf).parse_file(files[2]))
+
+
+@pytest.mark.parametrize("drop_remainder", [False, True])
+def test_load_and_batches_match_reference(files, drop_remainder):
+    jds, pds = loaded(files)
+    assert pds.num_instances() == jds.num_instances() == 141
+    assert_records_equal(pds.records, jds.records)
+    n = len(list(pds.batches(drop_remainder)))
+    assert n == (17 if drop_remainder else 18)
+    assert_batches_equal(pds.batches(drop_remainder),
+                         jds.batches(drop_remainder))
+
+
+def test_assembler_batches_match_reference(files):
+    """``BatchAssembler.batches`` over records, with a small bucket so the
+    key padding varies from batch to batch."""
+    from paddlebox_tpu.config import BucketSpec as JaxBucketSpec
+    from paddlebox_tpu.data.batch import BatchAssembler as JaxAssembler
+    from paddlebox_tpu_torch.config import BucketSpec
+    jconf = jax_conf()
+    recs = JaxSlotParser(jconf).parse_file(files[1])
+    precs = SlotParser(port_conf(jconf)).parse_file(files[1])
+    for drop in (False, True):
+        want = JaxAssembler(jconf, JaxBucketSpec(min_size=16, max_size=256),
+                            drop_remainder=drop).batches(recs[:45])
+        got = BatchAssembler(port_conf(jconf),
+                             BucketSpec(min_size=16, max_size=256),
+                             drop_remainder=drop).batches(precs[:45])
+        assert_batches_equal(got, want)
+
+
+def test_local_shuffle_and_extract_keys_match_reference(files):
+    jds, pds = loaded(files, shard_id=1)
+    for _ in range(2):
+        jds.local_shuffle()
+        pds.local_shuffle()
+    assert_records_equal(pds.records, jds.records)
+    assert_batches_equal(pds.batches(), jds.batches())
+    got, want = pds.extract_keys(), jds.extract_keys()
+    assert got.dtype == want.dtype == np.uint64
+    np.testing.assert_array_equal(got, want)
+    pds.release_memory()
+    assert pds.num_instances() == 0 and pds.extract_keys().size == 0
+
+
+def test_sample_rate_matches_reference(files):
+    jds, pds = loaded(files, jconf=jax_conf(sample_rate=0.5))
+    assert 0 < pds.num_instances() < 141
+    assert_records_equal(pds.records, jds.records)
+
+
+def test_shard_split_matches_reference(files):
+    for shard in (0, 1):
+        jds, pds = loaded(files, shard_id=shard, num_shards=2)
+        assert pds.filelist == jds.filelist
+        assert_records_equal(pds.records, jds.records)
+
+
+def test_preload_equals_load(files, tmp_path):
+    _, pds = loaded(files)
+    pre = SlotDataset(port_conf(jax_conf()))
+    pre.set_filelist(files)
+    pre.preload_into_memory()
+    pre.wait_preload_done()
+    assert_records_equal(pre.records, pds.records)
+    pre.wait_preload_done()   # nothing pending: keeps the records
+    assert pre.num_instances() == 141
+    # a failed preload raises at the wait, naming the shard's file
+    pre.set_filelist([str(tmp_path / "gone")])
+    pre.preload_into_memory()
+    with pytest.raises(IngestError, match="gone: FileNotFoundError"):
+        pre.wait_preload_done()
+    with pytest.raises(IngestError):
+        pre.wait_preload_done()
+    pre.close()
+
+
+def _set_merge(ds):
+    ds.set_merge_by_insid(2)
+
+
+REFUSED = {
+    "pipe_command": lambda f: SlotParser(port_conf(jax_conf(
+        pipe_command="cat"))),
+    "string_slot": lambda f: SlotParser(DataFeedConfig(slots=[
+        dataclasses.replace(port_conf(jax_conf()).slots[1],
+                            type="string")])),
+    "error_budget": lambda f: SlotParser(port_conf(jax_conf())).parse_file(
+        f[0], budget=object()),
+    "set_merge_by_insid": lambda f: _set_merge(SlotDataset(
+        port_conf(jax_conf()))),
+    "shuffle_partition": lambda f: SlotDataset(
+        port_conf(jax_conf())).shuffle_partition(2),
+    "global_shuffle": lambda f: port_dataset.global_shuffle([]),
+    "global_merge_by_insid": lambda f: port_dataset.global_merge_by_insid(
+        []),
+    "slots_shuffle": lambda f: SlotDataset(
+        port_conf(jax_conf())).slots_shuffle([0]),
+    "unshuffle": lambda f: SlotDataset(port_conf(jax_conf())).unshuffle(
+        [0], np.arange(3)),
+    "spill_to_disk": lambda f: SlotDataset(
+        port_conf(jax_conf())).spill_to_disk("x"),
+    "load_from_archive": lambda f: SlotDataset(
+        port_conf(jax_conf())).load_from_archive("x"),
+}
+
+
+@pytest.mark.parametrize("what", sorted(REFUSED))
+def test_unported_options_refused(files, what):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.2d"):
+        REFUSED[what](files)

@@ -1,8 +1,8 @@
 """The port stands alone: no jax, flax, optax or paddlebox_tpu import, in
-the package, in chip_smoke.py or in kernel_versions.py; it serves and
-trains with them blocked;
-its entry points default to the card and raise without one; its kernel
-modules import without a CUDA toolkit."""
+the package, in chip_smoke.py or in kernel_versions.py; it serves, trains
+and runs a trainer pass with them blocked; its entry points default to the
+card and raise without one (the trainer too); its kernel modules import
+without a CUDA toolkit."""
 
 import ast
 import os
@@ -194,6 +194,60 @@ def test_device_prep_step_with_jax_blocked():
     assert "DEVICE_PREP" in res.stdout
 
 
+def test_trainer_pass_with_jax_blocked(tmp_path):
+    """A ``CTRTrainer`` pass over a MultiSlot file (the parser, the
+    in-memory dataset, device prep when the native index builds, else
+    host prep) and its evaluation run with jax and paddlebox_tpu
+    blocked."""
+    from conftest import make_slot_file
+    from paddlebox_tpu.config import DataFeedConfig, SlotConfig
+    conf = DataFeedConfig(slots=[
+        SlotConfig("label", type="float", is_dense=True, dim=1),
+        SlotConfig("a"), SlotConfig("b"),
+        SlotConfig("d", type="float", is_dense=True, dim=2)],
+        batch_size=8, thread_num=2)
+    data = make_slot_file(str(tmp_path / "part-0"), conf, 20, seed=4)
+    res = _run(f"""
+        import sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        from paddlebox_tpu_torch.config import (DataFeedConfig, SlotConfig,
+                                                TableConfig, TrainerConfig)
+        from paddlebox_tpu_torch.data.dataset import SlotDataset
+        from paddlebox_tpu_torch.models import DeepFM
+        from paddlebox_tpu_torch.ps import native
+        from paddlebox_tpu_torch.ps.device_table import DeviceTable
+        from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
+        conf = DataFeedConfig(slots=[
+            SlotConfig("label", type="float", is_dense=True, dim=1),
+            SlotConfig("a"), SlotConfig("b"),
+            SlotConfig("d", type="float", is_dense=True, dim=2)],
+            batch_size=8, thread_num=2)
+        ds = SlotDataset(conf)
+        ds.set_filelist([{data!r}])
+        ds.load_into_memory()
+        tconf = TableConfig(embedx_dim=4, embedx_threshold=0.0)
+        table = DeviceTable(tconf, capacity=256, device="cpu",
+                            index_threads=1)
+        tr = CTRTrainer(DeepFM(2 * 7 + 2, (8,)), conf, tconf,
+                        TrainerConfig(), table=table)
+        assert tr.step.device_prep == native.available()
+        losses = []
+        m = tr.train_from_dataset(ds, lambda s, l, p: losses.append(l))
+        ev = tr.evaluate(ds)
+        assert m["ins_num"] == ev["ins_num"] == 20 and len(losses) == 3
+        assert np.isfinite(losses).all() and len(table) > 0
+        assert tr.timer.count["main"] == 3
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("TRAINER_PASS", m["auc"])
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "TRAINER_PASS" in res.stdout
+
+
 def test_entry_points_default_to_cuda(tmp_path):
     from paddlebox_tpu_torch import resolve_device
     from paddlebox_tpu_torch.inference import CTRPredictor
@@ -210,6 +264,11 @@ def test_entry_points_default_to_cuda(tmp_path):
         DeviceTable(TableConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         new_auc_state()
+    from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
+    from paddlebox_tpu_torch.config import DataFeedConfig, TrainerConfig
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CTRTrainer(torch.nn.Linear(1, 1), DataFeedConfig(), TableConfig(),
+                   TrainerConfig())
     assert resolve_device("cpu") == torch.device("cpu")
 
 
