@@ -12,9 +12,9 @@ Phases, each fatal on failure:
              forward, its backward (the gather), the push (with its
              boundary kernel) and the in-step key dedup and mirror probe,
              alone and fused (``csrc/device_index.cu``); with ``g++`` the
-             host key index
-             (``csrc/pbx_index.cpp``). Print each kernel's ptxas report
-             (registers, spills, shared memory).
+             host key index (``csrc/pbx_index.cpp``) and the file
+             tokenizer (``csrc/pbx_feed.cpp``). Print each kernel's ptxas
+             report (registers, spills, shared memory).
 2. kernel  — hold each kernel, launched on the card, against its plain
              PyTorch version (the forward's on the host, which sums in the
              kernel's key order). Forward: the serving shape (B=512, S=26,
@@ -93,6 +93,13 @@ Phases, each fatal on failure:
    Seconds of ``load_into_memory``, ms a batch of ``BatchAssembler``, and
    the trainer's ms/step and examples/s beside the hand loop's, in turns,
    with the ``SpanTimer`` report.
+   Trainer files: the same files through ``CTRTrainer.train_from_files``
+   on a twin of the same arena and weights (the C++ tokenizer,
+   ``FastSlotReader``, ``FusedTrainStep.train_stream``'s run of 16): the
+   same kernels launch once a batch; pass metrics, every row by key and
+   the dense params equal ``train_from_dataset``'s bit for bit. Both
+   entries timed in turns (dataset, files, files, dataset), with
+   ``FastSlotReader.stream`` ms a batch and ``parse_file`` ms a file.
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -134,6 +141,7 @@ from paddlebox_tpu_torch.config import (BucketSpec, DataFeedConfig,
 from paddlebox_tpu_torch.data.criteo import (CriteoReader, criteo_feed_config,
                                              make_synthetic_criteo)
 from paddlebox_tpu_torch.data.dataset import SlotDataset
+from paddlebox_tpu_torch.data.fast_feed import FastSlotReader
 from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
                                                      save_inference_model)
 from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
@@ -213,6 +221,7 @@ PROBE = "device_probe"
 DEDUP_PROBE = "device_dedup_probe"
 INDEX = "device_index"      # csrc/device_index.cu: K5, K6 and the fused pass
 HOST_INDEX = "pbx_index"    # csrc/pbx_index.cpp: the host key index (g++)
+HOST_FEED = "pbx_feed"      # csrc/pbx_feed.cpp: the file tokenizer (g++)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -369,7 +378,7 @@ def ptxas_report(log: str) -> list:
 def phase_build() -> dict:
     """One nvcc process per source, all started together. Returns each
     source's ptxas report (empty for a library built by an earlier run)."""
-    names = (KERNEL, GRAD, PUSH, INDEX, HOST_INDEX)
+    names = (KERNEL, GRAD, PUSH, INDEX, HOST_INDEX, HOST_FEED)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
@@ -1604,6 +1613,31 @@ def hand_loop(fs, state, batches):
     return (params, opt, auc), losses
 
 
+def rows_by_key(table: DeviceTable):
+    """Every used row's key, value and state, in ascending key order."""
+    keys = table.row_keys()
+    order = np.argsort(keys[1:]) + 1
+    idx = torch.from_numpy(order).to(table.device)
+    return keys[order], table.values[idx], table.state[idx]
+
+
+def count_launches(fn, n_batches: int, tag: str):
+    """``fn()`` with every device-prep wrapper's count set to 0 just before
+    it and read just after; each kernel of the path must have launched
+    once a batch, the idle ones never. Returns (seconds, result,
+    launches)."""
+    for w in DEVICE_PREP_WRAPPERS:
+        w.launches = 0
+    secs, out = timed_secs(fn)
+    launches = {w.__name__: w.launches for w in DEVICE_PREP_WRAPPERS}
+    idle = {w.__name__ for w in DEVICE_PREP_IDLE}
+    for name, n in launches.items():
+        want = 0 if name in idle else n_batches
+        require(n == want, f"{tag}: {name} launched {n} times in "
+                           f"{n_batches} batches, expected {want}")
+    return secs, out, launches
+
+
 def timed_secs(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1655,21 +1689,20 @@ def phase_trainer(rng) -> dict:
     twin_fs = FusedTrainStep(copy.deepcopy(model), twin, tconf, TB, TS,
                              device_prep=True)
     twin_state = (*twin_fs.init(), twin_fs.init_auc_state())
+    # the file entry's trainer: a twin of the same arena and weights
+    files_trainer = CTRTrainer(
+        copy.deepcopy(model), feed, conf, tconf,
+        table=twin_table(table, "cuda", "native"),
+        buckets=BucketSpec(min_size=TNPAD, max_size=1 << 18))
     trainer = CTRTrainer(model, feed, conf, tconf, table=table)
     require(trainer.step.device_prep, "trainer: device prep resolved off "
                                       "over a one-thread native index")
 
     losses = []
-    for w in DEVICE_PREP_WRAPPERS:
-        w.launches = 0
-    pass_s, metrics = timed_secs(lambda: trainer.train_from_dataset(
-        ds, fetch_handler=lambda s, loss, p: losses.append(loss)))
-    launches = {w.__name__: w.launches for w in DEVICE_PREP_WRAPPERS}
-    idle = {w.__name__ for w in DEVICE_PREP_IDLE}
-    for name, n in launches.items():
-        want = 0 if name in idle else n_batches
-        require(n == want, f"trainer: {name} launched {n} times in "
-                           f"{n_batches} batches, expected {want}")
+    pass_s, metrics, launches = count_launches(
+        lambda: trainer.train_from_dataset(
+            ds, fetch_handler=lambda s, loss, p: losses.append(loss)),
+        n_batches, "trainer")
     require(np.isfinite(losses).all() and not bool(trainer.step.bad_flag),
             f"trainer: losses {losses}")
     require(metrics["ins_num"] == n_batches * TB,
@@ -1700,6 +1733,29 @@ def phase_trainer(rng) -> dict:
           f"pass metrics, the whole arena ({len(table)} rows) and the dense "
           f"params bit for bit")
 
+    # the file entry over the same files: the tokenizer, FastSlotReader's
+    # batches and train_stream's runs of 16, held against the dataset
+    # pass by key (its runs number new rows otherwise)
+    files_s, files_metrics, files_launches = count_launches(
+        lambda: files_trainer.train_from_files(files), n_batches,
+        "trainer files")
+    require(files_metrics == metrics, f"trainer files vs dataset: metrics "
+                                      f"{files_metrics} vs {metrics}")
+    fkeys, fvals, fstate = rows_by_key(files_trainer.table)
+    dkeys, dvals, dstate = rows_by_key(table)
+    require(np.array_equal(fkeys, dkeys),
+            "trainer files vs dataset: the tables hold other keys")
+    require(torch.equal(fvals, dvals) and torch.equal(fstate, dstate),
+            "trainer files vs dataset: rows by key differ")
+    require(all(torch.equal(a, b) for a, b in zip(
+        files_trainer.params.parameters(), trainer.params.parameters())),
+        "trainer files vs dataset: the dense params differ")
+    print(f"trainer files: train_from_files over the same {TRAINER_FILES} "
+          f"files, launches {files_launches}; vs train_from_dataset: pass "
+          f"metrics, all {fkeys.size} rows by key and the dense params bit "
+          f"for bit; {files_s / n_batches * 1e3:.4f} ms/step (first pass, "
+          f"builds the tokenizer if needed)")
+
     seqpool_cvm_cuda.launches = 0
     ev = trainer.evaluate(ds)
     eval_launches = seqpool_cvm_cuda.launches
@@ -1729,6 +1785,75 @@ def phase_trainer(rng) -> dict:
           f"BatchAssembler {asm_ms:.4f} ms/batch; load_into_memory "
           f"{load_s:.4f} s for {TRAINER_FILES} files")
     print(f"trainer SpanTimer (last pass): {trainer.timer.report()}")
+    # the two entries in turns: (dataset, files, files, dataset) twice
+    entry = {"dataset": [], "files": []}
+    for who in ("dataset", "files", "files", "dataset") * 2:
+        tr = trainer if who == "dataset" else files_trainer
+        tr.reset_metrics()
+        secs, _ = timed_secs(
+            (lambda: trainer.train_from_dataset(ds)) if who == "dataset"
+            else (lambda: files_trainer.train_from_files(files)))
+        entry[who].append(secs / n_batches * 1e3)
+    files_ms = float(np.mean(entry["files"]))
+    reader = FastSlotReader(feed, buckets=BucketSpec(min_size=TNPAD,
+                                                     max_size=1 << 18))
+    parse_ms = [timed_secs(lambda: reader.parse_file(f))[0] * 1e3
+                for f in files]
+    stream_s, streamed = timed_secs(lambda: sum(1 for _ in reader.stream(
+        files, drop_remainder=False, prefetch=2)))
+    require(streamed == n_batches, f"FastSlotReader: {streamed} batches")
+    reader_ms = stream_s / n_batches * 1e3
+    print(f"timing trainer files: train_from_files {entry['files']} "
+          f"ms/step ({TB * 1e3 / files_ms:.1f} examples/s); "
+          f"train_from_dataset {entry['dataset']} ms/step "
+          f"({TB * 1e3 / float(np.mean(entry['dataset'])):.1f} "
+          f"examples/s); FastSlotReader.stream {reader_ms:.4f} ms/batch "
+          f"(prefetch 2, parse included); parse_file {parse_ms} ms/file "
+          f"of {TRAINER_FILE_BATCHES * TB} lines; BatchAssembler "
+          f"{asm_ms:.4f} ms/batch; from files to a trained pass: "
+          f"train_from_files {files_ms:.4f} ms/step against "
+          f"load_into_memory + train_from_dataset "
+          f"{load_s * 1e3 / n_batches + np.mean(entry['dataset']):.4f} "
+          f"ms/step")
+    print(f"trainer files SpanTimer (last pass, a \"main\" span a segment):"
+          f" {files_trainer.timer.report()}")
+    # two more files passes with the time the trainer waits on the reader
+    # (inside the stream's next()) taken where it runs: over the two files
+    # (a run collects all 16 batches, so both parses are exposed), and
+    # over them 4 times (64 batches: later files parse during earlier runs)
+    waits = []
+    stream = FastSlotReader.stream
+
+    def timed_stream(self, *args, **kwargs):
+        it = stream(self, *args, **kwargs)
+        while True:
+            t = time.perf_counter()
+            batch = next(it, None)
+            waits.append(time.perf_counter() - t)
+            if batch is None:
+                return
+            yield batch
+
+    files_split = {}
+    FastSlotReader.stream = timed_stream
+    try:
+        for tag, reps in (("x1", 1), ("x4", 4)):
+            waits.clear()
+            files_trainer.reset_metrics()
+            secs, _ = timed_secs(
+                lambda: files_trainer.train_from_files(files * reps))
+            n = n_batches * reps
+            split = {"pass": secs / n * 1e3,
+                     "main": files_trainer.timer.total["main"] / n * 1e3,
+                     "reader_first_batch": waits[0] * 1e3,
+                     "reader": sum(waits) / n * 1e3}
+            split["steps"] = split["main"] - split["reader"]
+            split["rest"] = split["pass"] - split["main"]
+            files_split[tag] = split
+            print(f"timing trainer files, one more pass over the files "
+                  f"{tag} ({n} batches) split (ms/step): {split}")
+    finally:
+        FastSlotReader.stream = stream
     # the pass end's share: the host's AUC metrics over 2^20 buckets
     compute_s, _ = timed_secs(trainer.calc.compute)
     print(f"timing trainer: AucCalculator.compute at the pass end "
@@ -1768,8 +1893,11 @@ def phase_trainer(rng) -> dict:
     print(f"timing trainer, one more pass split (ms/step): {split}; "
           f"{len(marks) // 2} garbage collections")
     return {"launches": launches, "eval_launches": eval_launches,
+            "files_launches": files_launches,
             "ms_per_step": ms, "examples_per_s": TB * 1e3 / ms,
             "hand_ms_per_step": hand_ms, "assemble_ms": asm_ms,
+            "files_ms_per_step": files_ms, "reader_ms": reader_ms,
+            "parse_ms": parse_ms, "files_split_ms": files_split,
             "load_s": load_s, "compute_ms": compute_s * 1e3,
             "split_ms": split}
 
@@ -2172,7 +2300,9 @@ def main() -> int:
           f"(CTRTrainer.train_from_dataset, device prep) "
           f"{trainer['ms_per_step']:.4f} ms/step, "
           f"{trainer['examples_per_s']:.1f} examples/s, hand loop "
-          f"{trainer['hand_ms_per_step']:.4f} ms/step")
+          f"{trainer['hand_ms_per_step']:.4f} ms/step; trainer files "
+          f"(CTRTrainer.train_from_files) "
+          f"{trainer['files_ms_per_step']:.4f} ms/step")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
 
@@ -2181,6 +2311,8 @@ def main() -> int:
         paths = {**more, "train_host_prep": host.get(wrapper.__name__, 0),
                  "train_device_prep": dev[wrapper.__name__],
                  "trainer_device_prep": trainer["launches"][
+                     wrapper.__name__],
+                 "trainer_files": trainer["files_launches"][
                      wrapper.__name__]}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}

@@ -1,2 +1,3 @@
 """Data path of the port: records, the slot parser, the in-memory slot
-dataset, CSR batch assembly, the Criteo reader."""
+dataset, CSR batch assembly, the columnar file reader, the Criteo
+reader."""

@@ -14,7 +14,7 @@ padded up to a geometric bucket (``config.BucketSpec``):
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, List, Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -53,8 +53,53 @@ class CsrBatch:
         return m
 
 
+def pad_batch(lengths: np.ndarray, keys: np.ndarray, labels: np.ndarray,
+              dense: np.ndarray, batch_size: int, buckets: BucketSpec,
+              scratch=None) -> CsrBatch:
+    """Pad ``n`` rows (``lengths`` [n, S], their ``keys`` in row-major slot
+    order, ``labels`` [n], ``dense`` [n, Dd]) into a batch of
+    ``batch_size`` rows and a bucketed key count; the segment ids are one
+    ``np.repeat`` over the padded lengths. With ``scratch`` (an object with
+    ``take(name, shape, dtype)``, ``data/fast_feed.py``'s arena) the arrays
+    are views into its reused buffers, valid until the next call; else
+    they are fresh."""
+    B = batch_size
+    n, S = lengths.shape
+    num_keys = int(keys.size)
+    npad = buckets.bucket(max(num_keys, 1))
+    Dd = dense.shape[1]
+    if scratch is None:
+        out_lengths = np.zeros((B, S), dtype=np.int32)
+        out_labels = np.zeros(B, dtype=np.float32)
+        out_dense = np.zeros((B, Dd), dtype=np.float32)
+        out_keys = np.zeros(npad, dtype=np.uint64)
+        segs = np.full(npad, B * S, dtype=np.int32)
+    else:
+        out_lengths = scratch.take("b.lengths", (B, S), np.int32)
+        out_labels = scratch.take("b.labels", (B,), np.float32)
+        out_dense = scratch.take("b.dense", (B, Dd), np.float32)
+        out_keys = scratch.take(f"b.keys.{npad}", (npad,), np.uint64)
+        segs = scratch.take(f"b.segs.{npad}", (npad,), np.int32)
+        out_lengths[n:] = 0
+        out_labels[n:] = 0.0
+        out_dense[n:] = 0.0
+        out_keys[num_keys:] = 0
+        segs[num_keys:] = B * S
+    out_lengths[:n] = lengths
+    out_labels[:n] = labels
+    out_dense[:n] = dense
+    out_keys[:num_keys] = keys
+    segs[:num_keys] = np.repeat(np.arange(B * S, dtype=np.int32),
+                                out_lengths.reshape(-1))
+    return CsrBatch(keys=out_keys, segment_ids=segs, lengths=out_lengths,
+                    labels=out_labels, dense=out_dense, batch_size=B,
+                    num_slots=S, num_keys=num_keys, num_rows=n)
+
+
 class BatchAssembler:
-    """Builds fixed-shape CsrBatches from SlotRecords."""
+    """Builds fixed-shape CsrBatches from SlotRecords, with no numpy call
+    per record except for the dense values of a record whose float slot
+    widths differ from the configured dims."""
 
     def __init__(self, conf: DataFeedConfig,
                  buckets: Optional[BucketSpec] = None,
@@ -65,49 +110,50 @@ class BatchAssembler:
         self.num_slots = len(conf.used_sparse_slots)
         self.dense_dims = [s.dim for s in conf.used_dense_slots]
         self.total_dense = sum(self.dense_dims)
+        self._no_floats = np.zeros(len(self.dense_dims) + 1, dtype=np.int64)
+
+    def _dense(self, records: Sequence[SlotRecord]) -> np.ndarray:
+        """[n, Dd] dense values: a record whose float slots have the
+        configured widths is copied whole; any other is truncated or
+        zero-padded slot by slot, as the reference does."""
+        dense = np.zeros((len(records), self.total_dense), dtype=np.float32)
+        if not self.total_dense:
+            return dense
+        offsets = np.stack([self._no_floats if r.float_feas is None
+                            else r.float_offsets for r in records])
+        exact = (np.diff(offsets, axis=1) == self.dense_dims).all(axis=1)
+        rows = np.flatnonzero(exact)
+        if rows.size:
+            dense[rows] = np.concatenate(
+                [records[i].float_feas for i in rows]).reshape(rows.size, -1)
+        for i in np.flatnonzero(~exact):
+            r = records[i]
+            if r.float_feas is None or not r.float_feas.size:
+                continue
+            fo = r.float_offsets
+            col = 0
+            for d_idx, dim in enumerate(self.dense_dims):
+                vals = r.float_feas[fo[d_idx]:fo[d_idx + 1]]
+                dense[i, col:col + min(dim, vals.size)] = vals[:dim]
+                col += dim
+        return dense
 
     def assemble(self, records: Sequence[SlotRecord]) -> CsrBatch:
         """Pack ``records`` (one full minibatch, possibly short) into a batch
         padded to ``conf.batch_size`` rows and a bucketed key count."""
         B = self.conf.batch_size
-        S = self.num_slots
         n = len(records)
         if n == 0 or n > B:
             raise ValueError(f"assemble got {n} records for batch_size {B}")
-        lengths = np.zeros((B, S), dtype=np.int32)
-        key_parts: List[np.ndarray] = []
-        seg_parts: List[np.ndarray] = []
-        labels = np.zeros(B, dtype=np.float32)
-        dense = np.zeros((B, self.total_dense), dtype=np.float32)
-        search_ids = np.zeros(B, dtype=np.int64)
-        slot_base = np.arange(S, dtype=np.int32)
-        for i, r in enumerate(records):
-            per_slot = np.diff(r.uint64_offsets).astype(np.int32)
-            lengths[i] = per_slot
-            if r.uint64_feas.size:
-                key_parts.append(r.uint64_feas)
-                seg_parts.append(np.repeat(i * S + slot_base, per_slot))
-            labels[i] = r.label
-            search_ids[i] = r.search_id
-            if (self.total_dense and r.float_feas is not None
-                    and r.float_feas.size):
-                fo = r.float_offsets
-                col = 0
-                for d_idx, dim in enumerate(self.dense_dims):
-                    vals = r.float_feas[fo[d_idx]:fo[d_idx + 1]]
-                    dense[i, col:col + min(dim, vals.size)] = vals[:dim]
-                    col += dim
-        num_keys = int(lengths.sum())
-        npad = self.buckets.bucket(max(num_keys, 1))
-        keys = np.zeros(npad, dtype=np.uint64)
-        segs = np.full(npad, B * S, dtype=np.int32)
-        if num_keys:
-            keys[:num_keys] = np.concatenate(key_parts)
-            segs[:num_keys] = np.concatenate(seg_parts)
-        return CsrBatch(keys=keys, segment_ids=segs, lengths=lengths,
-                        labels=labels, dense=dense, batch_size=B,
-                        num_slots=S, num_keys=num_keys, num_rows=n,
-                        search_ids=search_ids)
+        lengths = np.diff(np.stack([r.uint64_offsets for r in records]),
+                          axis=1).astype(np.int32)
+        keys = np.concatenate([r.uint64_feas for r in records])
+        labels = np.array([r.label for r in records], dtype=np.float32)
+        batch = pad_batch(lengths, keys, labels, self._dense(records), B,
+                          self.buckets)
+        batch.search_ids = np.zeros(B, dtype=np.int64)
+        batch.search_ids[:n] = [r.search_id for r in records]
+        return batch
 
     def batches(self, records: Sequence[SlotRecord]) -> Iterator[CsrBatch]:
         """``records`` in minibatches of ``conf.batch_size``, in order; a

@@ -4,8 +4,8 @@ Two routes, picked by the source's suffix:
 
 - ``paddlebox_tpu_torch/csrc/<name>.cu``, a CUDA kernel, compiles with
   ``nvcc`` for ``sm_90a``;
-- ``paddlebox_tpu_torch/csrc/<name>.cpp``, host code (the key index),
-  compiles with ``g++ -march=native``.
+- ``paddlebox_tpu_torch/csrc/<name>.cpp``, host code (the key index, the
+  file tokenizer), compiles with ``g++ -march=native``.
 
 Each becomes a shared library with a plain C interface,
 ``build/lib<name>-<digest>.so`` at the root of the checkout, which its
@@ -57,8 +57,8 @@ def _nvcc() -> str:
 def _gxx() -> str:
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: the port's key index builds from "
-                           "source at first use")
+        raise RuntimeError("g++ not found: the port's host libraries build "
+                           "from source at first use")
     return gxx
 
 

@@ -1,6 +1,7 @@
-"""The native host key index: ctypes bindings of ``csrc/pbx_index.cpp``
-(counterpart of ``paddlebox_tpu/ps/native.py``'s ``NativeIndex`` and
-``MtIndex``).
+"""The port's native host code: ctypes bindings of ``csrc/pbx_index.cpp``,
+the key index (counterpart of ``paddlebox_tpu/ps/native.py``'s
+``NativeIndex`` and ``MtIndex``), and of ``csrc/pbx_feed.cpp``, the file
+tokenizer (``parse_block``).
 
 ``NativeIndex`` is one open-addressing map (``Map64``) from uint64 keys to
 arena rows; ``MtIndex`` shards keys over T maps and prepares a batch with T
@@ -8,9 +9,11 @@ threads. Both return the reference's arrays bit for bit: the same dtypes,
 uniques in first-occurrence order, new keys at ``next_row + i`` (``MtIndex``
 numbers from an internal counter, so its rows depend on thread timing).
 
-The library builds with ``g++`` at first use into ``build/``
-(``ops/_build.py``). Where it cannot build, ``available()`` is False and
-``build_error()`` says why; the device table then takes its numpy index.
+Each library builds with ``g++`` at first use into ``build/``
+(``ops/_build.py``). Where the index cannot build, ``available()`` is False
+and ``build_error()`` says why; the device table then takes its numpy
+index. The tokenizer has no Python fallback: where it cannot build,
+``parse_block`` raises with the build error.
 """
 
 from __future__ import annotations
@@ -26,11 +29,13 @@ from paddlebox_tpu_torch.ops import _build
 _lib = None
 _lib_lock = threading.Lock()
 _build_error: Optional[str] = None
+_feed_lib = None
 
 _u64p = ctypes.POINTER(ctypes.c_uint64)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _u32p = ctypes.POINTER(ctypes.c_uint32)
+_f32p = ctypes.POINTER(ctypes.c_float)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -92,6 +97,54 @@ def build_error() -> Optional[str]:
     """Why the index core is unavailable, or None."""
     _load()
     return _build_error
+
+
+def _load_feed() -> ctypes.CDLL:
+    """The tokenizer library, built first if needed; raises with the build
+    error where it cannot build."""
+    global _feed_lib
+    with _lib_lock:
+        if _feed_lib is None:
+            lib = _build.load("pbx_feed")
+            lib.pbx_parse_block.restype = ctypes.c_int64
+            lib.pbx_parse_block.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64, _i32p, ctypes.c_int32,
+                ctypes.c_int64, _u64p, ctypes.c_int64, _i32p, _f32p,
+                ctypes.c_int64, _i32p, _f32p, _i64p]
+            _feed_lib = lib
+        return _feed_lib
+
+
+def parse_block(data: bytes, kinds: np.ndarray, n_sparse: int,
+                n_float: int):
+    """One-pass C++ tokenizer over a MultiSlot text block (counterpart of
+    ``paddlebox_tpu/ps/native.py::parse_block``). ``kinds``: per configured
+    slot 0=sparse used, 1=sparse skip, 2=float used, 3=label, 4=float skip.
+    Returns (keys[u64], lengths[rows, n_sparse] i32, floats[f32],
+    flengths[rows, n_float] i32, labels[rows] f32).
+
+    Raises RuntimeError naming the bad row on malformed input, and the
+    build error where the library cannot build."""
+    lib = _load_feed()
+    kinds = np.ascontiguousarray(kinds, dtype=np.int32)
+    n = len(data)
+    max_rows = data.count(b"\n") + 1
+    # a uint64/float token needs >= 2 bytes ("1 "), so n // 2 bounds both
+    keys = np.empty(n // 2 + 16, dtype=np.uint64)
+    floats = np.empty(n // 2 + 16, dtype=np.float32)
+    lengths = np.zeros((max_rows, max(n_sparse, 1)), dtype=np.int32)
+    flengths = np.zeros((max_rows, max(n_float, 1)), dtype=np.int32)
+    labels = np.zeros(max_rows, dtype=np.float32)
+    counts = np.zeros(3, dtype=np.int64)
+    rc = lib.pbx_parse_block(
+        data, n, _ptr(kinds, _i32p), kinds.size, max_rows, _ptr(keys, _u64p),
+        keys.size, _ptr(lengths, _i32p), _ptr(floats, _f32p), floats.size,
+        _ptr(flengths, _i32p), _ptr(labels, _f32p), _ptr(counts, _i64p))
+    if rc < 0:
+        raise RuntimeError(f"malformed slot record at row {-rc - 1}")
+    rows, nk, nf = (int(c) for c in counts)
+    return (keys[:nk].copy(), lengths[:rows], floats[:nf].copy(),
+            flengths[:rows], labels[:rows])
 
 
 def _lib_or_raise():

@@ -34,17 +34,35 @@ reads the ``TrainerConfig`` fields of the trainer loop
 (``dense_sync_steps``, ``metrics``, ``num_devices``, ``profile``); the step
 reads none of them, as the reference's does not.
 
+``step_device`` is a host half (``ensure_keys``, one upload) and a device
+half, ``step_device_tensors``, which takes device tensors. Each entry makes
+one host->device copy of all its inputs, packed into one byte buffer.
+
+The chunked and streamed entries run several batches an upload:
+
+- ``train_chunk`` (host prep): ``prepare_batch`` for all K batches first,
+  then one upload of the stacked arrays, then K steps over views of it.
+- ``train_stream`` over an iterator of batches (``data/fast_feed.py``
+  ``FastSlotReader.stream``). Device prep takes runs of up to
+  ``DEV_CHUNK`` batches of one key shape (``collect_same_shape_run``): one
+  ``ensure_keys`` over the run's keys, one upload of the run, then
+  ``step_device_tensors`` over each batch's views; a shorter run goes
+  through ``step_device`` batch by batch. Host prep prepares and uploads
+  the next batch on a worker thread while the current one steps.
+
 ``params`` is the ``nn.Module`` that holds the dense weights; the dense
 optimizer updates it in place, and ``opt_state`` is the optimizer's state
 (``trainer.train_step.DenseOptimizer``). Not ported yet: the "deferred"
-insert mode with its device miss ring (ROADMAP A.3b), bf16 dense compute,
-recompute, and the chunked and streamed entry points (``train_chunk``,
-``train_stream``).
+insert mode with its device miss ring (ROADMAP A.3b), the staged device
+feed of ``train_stream`` (``feed=``, A.4), bf16 dense compute and
+recompute.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Optional, Tuple
+import concurrent.futures as futures
+import threading
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +76,34 @@ from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.trainer.train_step import (full_float32_matmuls,
                                                     make_dense_optimizer,
                                                     masked_bce_loss)
+
+
+_TORCH_DTYPES = {np.dtype(np.int64): torch.int64,
+                 np.dtype(np.int32): torch.int32,
+                 np.dtype(np.float32): torch.float32}
+
+
+def collect_same_shape_run(it, pending, k: int):
+    """Collect up to ``k`` batches whose key arrays share one shape (a run
+    is uploaded stacked). A shape change ends the run and carries the odd
+    batch over as ``pending``. Returns (run, pending)."""
+    run = []
+    if pending is not None:
+        run.append(pending)
+        pending = None
+    for b in it:
+        if run and b[0].shape != run[0][0].shape:
+            pending = b
+            break
+        run.append(b)
+        if len(run) == k:
+            break
+    return run, pending
+
+
+def _keys_i64(keys) -> np.ndarray:
+    """The padded uint64 keys as the int64 the device index takes."""
+    return np.ascontiguousarray(keys, dtype=np.uint64).view(np.int64)
 
 
 def numeric_sentinel(loss: torch.Tensor, dparams: Iterable[torch.Tensor],
@@ -129,25 +175,59 @@ class FusedTrainStep:
 
     # -- internals -----------------------------------------------------------
 
-    def _upload(self, ints, cvm_in, labels, dense, row_mask):
-        """Two host->device copies: the int32 arrays ``ints``, packed, and
-        the float32 block. Returns the arrays of ``ints`` on the device,
-        then cvm_in, labels, dense and row_mask."""
-        B = self.batch_size
-        ints = [np.asarray(x, dtype=np.int32) for x in ints]
+    def _to_device(self, parts) -> List[torch.Tensor]:
+        """One host->device copy of ``parts``, each an int64, int32 or
+        float32 numpy array or a list of same-shape ones (stacked on a new
+        first axis), packed at 8-byte offsets of one fresh byte buffer.
+        Returns each part's view on the device. The copy is synchronous
+        from pageable memory, so the caller may reuse its arrays at once."""
+        metas, total = [], 0
+        for p in parts:
+            stacked = isinstance(p, list)
+            rows = p if stacked else [p]
+            shape = ((len(rows),) if stacked else ()) + rows[0].shape
+            nbytes = sum(r.nbytes for r in rows)
+            metas.append((rows, shape, rows[0].dtype, total, nbytes))
+            total += -(-nbytes // 8) * 8
+        buf = np.empty(total, dtype=np.uint8)
+        for rows, _, _, off, _ in metas:
+            for r in rows:
+                buf[off:off + r.nbytes] = \
+                    np.ascontiguousarray(r).reshape(-1).view(np.uint8)
+                off += r.nbytes
+        dev = torch.from_numpy(buf).to(self.device)
+        return [dev[off:off + n].view(_TORCH_DTYPES[dtype]).reshape(shape)
+                for _, shape, dtype, off, n in metas]
+
+    @staticmethod
+    def _float_block(cvm_in, labels, dense, row_mask) -> Tuple[np.ndarray,
+                                                               int]:
+        """The float32 inputs as one array, cvm_in | labels | dense |
+        row_mask, and the label count a row."""
         labels = np.asarray(labels, dtype=np.float32)
-        labels_t = 1 if labels.ndim == 1 else labels.shape[1]
-        pi = torch.from_numpy(np.concatenate(ints)).to(self.device)
-        pf = torch.from_numpy(np.concatenate([
+        return (np.concatenate([
             np.asarray(cvm_in, np.float32).ravel(), labels.ravel(),
             np.asarray(dense, np.float32).ravel(),
-            np.asarray(row_mask, np.float32).ravel()])).to(self.device)
-        sizes = [B * self.cvm_dim, B * labels_t, B * self.dense_dim, B]
-        cvm, lab, dns, mask = torch.split(pf, sizes)
+            np.asarray(row_mask, np.float32).ravel()]),
+            1 if labels.ndim == 1 else labels.shape[1])
+
+    def _split_floats(self, pf: torch.Tensor, labels_t: int):
+        """``_float_block``'s array on the device -> cvm_in, labels, dense
+        and row_mask (views)."""
+        B = self.batch_size
+        cvm, lab, dns, mask = torch.split(
+            pf, [B * self.cvm_dim, B * labels_t, B * self.dense_dim, B])
         lab = lab if labels_t == 1 else lab.reshape(B, labels_t)
-        return (torch.split(pi, [x.size for x in ints]),
-                cvm.reshape(B, self.cvm_dim), lab,
+        return (cvm.reshape(B, self.cvm_dim), lab,
                 dns.reshape(B, self.dense_dim), mask)
+
+    def _upload(self, arrays, cvm_in, labels, dense, row_mask):
+        """One host->device copy of ``arrays`` (int64 or int32) and the
+        float32 block. Returns the arrays on the device, then cvm_in,
+        labels, dense and row_mask."""
+        pf, labels_t = self._float_block(cvm_in, labels, dense, row_mask)
+        *arrays, pf = self._to_device([*arrays, pf])
+        return (arrays, *self._split_floats(pf, labels_t))
 
     def _forward(self, params: nn.Module, emb: torch.Tensor,
                  segment_ids: torch.Tensor, cvm_in: torch.Tensor,
@@ -209,10 +289,16 @@ class FusedTrainStep:
             idx = self.table.prepare_batch(keys)
         with record_function("train_step.upload"):
             ((segs, inverse, uniq_rows), cvm, labels_d, dense_d,
-             mask) = self._upload([segment_ids, idx.inverse, idx.uniq_rows],
-                                  cvm_in, labels, dense, row_mask)
+             mask) = self._upload(
+                [np.asarray(segment_ids, np.int32), idx.inverse,
+                 idx.uniq_rows], cvm_in, labels, dense, row_mask)
         return self._step(params, opt_state, auc_state, segs, inverse,
                           uniq_rows, cvm, labels_d, dense_d, mask)
+
+    def _need_device_prep(self) -> None:
+        if not self.device_prep:
+            raise RuntimeError("step_device needs FusedTrainStep("
+                               "device_prep=True)")
 
     def step_device(self, params: nn.Module, opt_state: Dict[str, Any],
                     auc_state: Dict[str, torch.Tensor], keys: np.ndarray,
@@ -221,22 +307,170 @@ class FusedTrainStep:
         on the host, ships the raw keys, and dedups and resolves them on
         the device (K5 with K6 folded in) before the shared step body.
         Arguments and result as ``__call__``'s."""
-        if not self.device_prep:
-            raise RuntimeError("step_device needs FusedTrainStep("
-                               "device_prep=True)")
-        t = self.table
+        self._need_device_prep()
         with record_function("train_step.ensure_keys"):
-            t.ensure_keys(keys)
+            self.table.ensure_keys(keys)
         with record_function("train_step.upload"):
-            keys_d = torch.from_numpy(np.ascontiguousarray(
-                keys, dtype=np.uint64).view(np.int64)).to(self.device)
-            (segs,), cvm, labels_d, dense_d, mask = self._upload(
-                [segment_ids], cvm_in, labels, dense, row_mask)
+            (keys_d, segs), cvm, labels_d, dense_d, mask = self._upload(
+                [_keys_i64(keys), np.asarray(segment_ids, np.int32)],
+                cvm_in, labels, dense, row_mask)
+        return self.step_device_tensors(params, opt_state, auc_state, keys_d,
+                                        segs, cvm, labels_d, dense_d, mask)
+
+    def step_device_tensors(self, params: nn.Module,
+                            opt_state: Dict[str, Any],
+                            auc_state: Dict[str, torch.Tensor],
+                            keys: torch.Tensor, segment_ids: torch.Tensor,
+                            cvm_in: torch.Tensor, labels: torch.Tensor,
+                            dense: torch.Tensor, row_mask: torch.Tensor):
+        """The device half of ``step_device``: every input already on the
+        table's device (``keys``, the padded uint64 keys viewed as int64),
+        every non-zero key already in the index and its mirror
+        (``DeviceTable.ensure_keys``). The arenas and the mirror are read
+        at the call, so a growth or a resync before it is seen. Result as
+        ``step_device``'s."""
+        self._need_device_prep()
+        t = self.table
         with record_function("train_step.dedup_probe"):
-            dd, uniq_rows, _ = t.mirror.dedup_probe(keys_d)
-        return self._step(params, opt_state, auc_state, segs, dd.inverse,
-                          uniq_rows, cvm, labels_d, dense_d, mask,
-                          merge=(dd.order, dd.offsets))
+            dd, uniq_rows, _ = t.mirror.dedup_probe(keys)
+        return self._step(params, opt_state, auc_state, segment_ids,
+                          dd.inverse, uniq_rows, cvm_in, labels, dense,
+                          row_mask, merge=(dd.order, dd.offsets))
+
+    # -- chunked and streamed entries ----------------------------------------
+
+    DEV_CHUNK = 16
+
+    def train_chunk(self, params: nn.Module, opt_state: Dict[str, Any],
+                    auc_state: Dict[str, torch.Tensor], keys_list,
+                    segment_ids_list, cvm_list, labels_list, dense_list,
+                    row_mask_list):
+        """Host-prep entry over K batches of one shape: ``prepare_batch``
+        for all K first (every new row of the K batches exists before the
+        first step), one upload of the stacked arrays (the uniques padded
+        to the widest batch's), then K steps over views of it. Returns
+        ``(params, opt_state, auc_state, losses [K], preds [K, ...])``."""
+        t = self.table
+        with record_function("train_step.prepare_batch"):
+            idxs = [t.prepare_batch(k) for k in keys_list]
+        with record_function("train_step.upload"):
+            uniq = np.zeros((len(idxs),
+                             max(i.uniq_rows.shape[0] for i in idxs)),
+                            dtype=np.int32)
+            for j, i in enumerate(idxs):
+                uniq[j, :i.uniq_rows.shape[0]] = i.uniq_rows
+            floats = [self._float_block(*f) for f in zip(
+                cvm_list, labels_list, dense_list, row_mask_list)]
+            segs, inverse, uniq_rows, pf = self._to_device([
+                [np.asarray(x, np.int32) for x in segment_ids_list],
+                [i.inverse for i in idxs], uniq, [f for f, _ in floats]])
+        losses, preds = [], []
+        for j in range(len(idxs)):
+            params, opt_state, auc_state, loss, p = self._step(
+                params, opt_state, auc_state, segs[j], inverse[j],
+                uniq_rows[j], *self._split_floats(pf[j], floats[0][1]))
+            losses.append(loss)
+            preds.append(p)
+        return (params, opt_state, auc_state, torch.stack(losses),
+                torch.stack(preds))
+
+    def train_stream(self, params: nn.Module, opt_state: Dict[str, Any],
+                     auc_state: Dict[str, torch.Tensor], batch_iter,
+                     on_step=None, final_poll: bool = True, feed=None):
+        """Train every batch of ``batch_iter``, which yields (keys,
+        segment_ids, cvm_in, labels, dense, row_mask); calls
+        ``on_step(steps, loss)`` after each step, ``loss`` a device scalar
+        (nothing is read back). Device prep runs same-shape runs of
+        ``DEV_CHUNK`` batches an upload; host prep overlaps the next
+        batch's ``prepare_batch`` and upload with the current step.
+        ``final_poll`` does nothing: "ensure" mode leaves no miss ring to
+        drain (the ring is ROADMAP A.3b). Returns ``(params, opt_state,
+        auc_state, last_loss, steps)``."""
+        if feed is not None:
+            raise NotImplementedError(
+                "train_stream(feed=...), the staged device feed "
+                "(data/device_feed.py), is not ported yet (ROADMAP A.4)")
+        run = (self._train_stream_dev if self.device_prep
+               else self._train_stream_host)
+        return run(params, opt_state, auc_state, batch_iter, on_step)
+
+    def _train_stream_host(self, params, opt_state, auc_state, batch_iter,
+                           on_step):
+        """One worker thread prepares and uploads the next batch while the
+        current one steps. The lock keeps ``prepare_batch``, which may
+        grow the arenas, out of a running step, which reads them."""
+        t = self.table
+        lock = threading.Lock()
+
+        def prep(args):
+            keys, segment_ids, cvm_in, labels, dense, row_mask = args
+            with lock:
+                idx = t.prepare_batch(keys)
+            return self._upload([np.asarray(segment_ids, np.int32),
+                                 idx.inverse, idx.uniq_rows],
+                                cvm_in, labels, dense, row_mask)
+
+        it = iter(batch_iter)
+        loss, steps = None, 0
+        ex = futures.ThreadPoolExecutor(1, thread_name_prefix="fused-prep")
+        try:
+            nxt = next(it, None)
+            fut = None if nxt is None else ex.submit(prep, nxt)
+            while fut is not None:
+                (segs, inverse, uniq_rows), cvm, labels, dense, mask = \
+                    fut.result()
+                nxt = next(it, None)
+                fut = None if nxt is None else ex.submit(prep, nxt)
+                with lock:
+                    params, opt_state, auc_state, loss, _ = self._step(
+                        params, opt_state, auc_state, segs, inverse,
+                        uniq_rows, cvm, labels, dense, mask)
+                steps += 1
+                if on_step is not None:
+                    on_step(steps, loss)
+        finally:
+            ex.shutdown(wait=True, cancel_futures=True)
+        return params, opt_state, auc_state, loss, steps
+
+    def _train_stream_dev(self, params, opt_state, auc_state, batch_iter,
+                          on_step):
+        """Runs of ``DEV_CHUNK`` same-shape batches: one ``ensure_keys``
+        over the run's keys, one upload of its keys, segment ids and float
+        blocks, then ``step_device_tensors`` over each batch's views. A
+        shorter run (a shape change, the stream's tail) steps batch by
+        batch through ``step_device``."""
+        K = self.DEV_CHUNK
+        it = iter(batch_iter)
+        pending, loss, steps = None, None, 0
+        while True:
+            run, pending = collect_same_shape_run(it, pending, K)
+            if not run:
+                break
+            if len(run) < K:
+                for args in run:
+                    params, opt_state, auc_state, loss, _ = \
+                        self.step_device(params, opt_state, auc_state, *args)
+                    steps += 1
+                    if on_step is not None:
+                        on_step(steps, loss)
+                continue
+            with record_function("train_step.ensure_keys"):
+                self.table.ensure_keys(np.concatenate([a[0] for a in run]))
+            with record_function("train_step.upload"):
+                floats = [self._float_block(*a[2:]) for a in run]
+                keys, segs, pf = self._to_device([
+                    [_keys_i64(a[0]) for a in run],
+                    [np.asarray(a[1], np.int32) for a in run],
+                    [f for f, _ in floats]])
+            for j in range(K):
+                params, opt_state, auc_state, loss, _ = \
+                    self.step_device_tensors(
+                        params, opt_state, auc_state, keys[j], segs[j],
+                        *self._split_floats(pf[j], floats[0][1]))
+                steps += 1
+                if on_step is not None:
+                    on_step(steps, loss)
+        return params, opt_state, auc_state, loss, steps
 
     @torch.inference_mode()
     def predict(self, params: nn.Module, keys: np.ndarray, segment_ids,

@@ -1,41 +1,48 @@
-"""Training orchestration: ``CTRTrainer.train_from_dataset`` on one device
-(counterpart of the single-device fused branch of
-``paddlebox_tpu/trainer/trainer.py``).
+"""Training orchestration: ``CTRTrainer.train_from_dataset`` and
+``train_from_files`` on one device (counterpart of the single-device fused
+branch of ``paddlebox_tpu/trainer/trainer.py``).
 
-One host loop drives ``FusedTrainStep`` over a ``DeviceTable``, one batch
-at a time:
+``train_from_dataset`` drives ``FusedTrainStep`` over a ``DeviceTable``
+one batch at a time:
 
     for batch in dataset.batches():  step -> [fetch_handler, dump]
+
+``train_from_files`` trains straight off files: ``data/fast_feed.py``
+``FastSlotReader.stream`` (the C++ tokenizer, vectorized batches) feeds
+``FusedTrainStep.train_stream`` in segments of ``AUC_DRAIN_STEPS`` steps.
 
 The step is device prep (``step_device``: host ``ensure_keys``, the dedup
 and probe on the card) when a native single-map index backs the table,
 else host prep (``__call__``: host ``prepare_batch``), as the reference
 resolves it. The f32 AUC state on the device drains into the host's
 float64 calculator every ``AUC_DRAIN_STEPS`` steps and at the pass end.
-``SpanTimer`` times each batch ("main") and its step ("step");
+``SpanTimer`` times each batch ("main") and its step ("step") in
+``train_from_dataset``, each segment ("main") in ``train_from_files``;
 ``TrainerConfig(profile=True)`` prints the reference's ``log_for_profile``
-line on stderr at the pass end. The dump subsystem writes one JSON line
-per instance (search_id, label, pred).
+line on stderr at the end of either pass. The dump subsystem writes one
+JSON line per instance (search_id, label, pred).
 
 Not ported, and refused with ``NotImplementedError``: ``mesh=`` and
 ``dense_sync_hook`` (ROADMAP A.9), the host-table engine
 (``use_device_table=False`` or a host table, A.2c), ``train_from_files``
-(A.2b), ``insert_mode="deferred"`` with device prep on (A.3b), and, set
-through the reference's ``PBOX_FLAGS_<name>`` environment variables, the
-device feed (``feed_device_prefetch``, A.4), the train guard
-(``check_nan_inf``), the trace, the postmortem dump and the pass
-heartbeat (A.6). The reference's per-pass heartbeat record and its
-``sections[...]`` device-time table (``trainer/profiler.py``) have no
-counterpart here (A.6).
+with ``workers`` > 1 (the multi-process reader, A.2d),
+``insert_mode="deferred"`` with device prep on (A.3b), and, set through
+the reference's ``PBOX_FLAGS_<name>`` environment variables, the device
+feed (``feed_device_prefetch``, A.4), the train guard (``check_nan_inf``),
+the trace, the postmortem dump and the pass heartbeat (A.6). The
+reference's per-pass heartbeat record and its ``sections[...]``
+device-time table (``trainer/profiler.py``) have no counterpart here
+(A.6).
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import sys
 import warnings
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 from torch import nn
@@ -45,6 +52,7 @@ from paddlebox_tpu_torch.config import (BucketSpec, DataFeedConfig,
                                         TableConfig, TrainerConfig)
 from paddlebox_tpu_torch.data.batch import CsrBatch
 from paddlebox_tpu_torch.data.dataset import SlotDataset
+from paddlebox_tpu_torch.data.fast_feed import FastSlotReader
 from paddlebox_tpu_torch.metrics.auc import AucCalculator
 from paddlebox_tpu_torch.ps import native
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
@@ -213,12 +221,41 @@ class CTRTrainer:
         self.calc.absorb(self.auc_state)
         self.auc_state = self.step.init_auc_state()
 
-    def train_from_files(self, files, prefetch: int = 2,
+    def train_from_files(self, files: Sequence[str], prefetch: int = 2,
                          buckets: Optional[BucketSpec] = None,
                          workers: int = 1) -> Dict[str, float]:
-        raise NotImplementedError(
-            "train_from_files (the streamed file feed and the chunked "
-            "step) is not ported yet (ROADMAP A.2b)")
+        """One pass straight off MultiSlot files, with no in-memory
+        dataset: ``FastSlotReader`` parses ``prefetch`` files ahead on a
+        background thread, and ``FusedTrainStep.train_stream`` trains the
+        batches as they come, in segments of ``AUC_DRAIN_STEPS`` steps,
+        each a "main" span, the AUC drained after each. A short last batch
+        is masked, so every row trains and counts. Returns the pass
+        metrics."""
+        if workers > 1:
+            raise NotImplementedError(
+                f"train_from_files(workers={workers}): the multi-process "
+                "reader (MultiProcessReader) is not ported yet (ROADMAP "
+                "A.2d)")
+        reader = FastSlotReader(self.feed_conf,
+                                buckets=buckets or self.buckets)
+        stream = reader.stream(files, drop_remainder=False,
+                               prefetch=prefetch)
+        try:
+            while True:
+                seg = itertools.islice(stream, AUC_DRAIN_STEPS)
+                with self.timer.span("main"):
+                    (self.params, self.opt_state, self.auc_state, _loss,
+                     steps) = self.step.train_stream(
+                        self.params, self.opt_state, self.auc_state, seg)
+                self._step_count += steps
+                self._drain_auc()
+                if steps < AUC_DRAIN_STEPS:
+                    break
+        finally:
+            # a failed pass must not leave the parse thread working ahead
+            stream.close()
+            reader.close()
+        return self._pass_end()
 
     def train_from_dataset(self, dataset: SlotDataset,
                            fetch_handler: Optional[Callable] = None
@@ -238,6 +275,10 @@ class CTRTrainer:
                 if fetch_handler is not None:
                     fetch_handler(self._step_count, float(loss), p)
         self._drain_auc()
+        return self._pass_end()
+
+    def _pass_end(self) -> Dict[str, float]:
+        """The pass metrics, and the profile line when asked for."""
         out = self.calc.compute()
         if self.trainer_conf.profile:
             print(f"log_for_profile pass_steps={self._step_count} "

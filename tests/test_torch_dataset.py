@@ -298,3 +298,60 @@ REFUSED = {
 def test_unported_options_refused(files, what):
     with pytest.raises(NotImplementedError, match="ROADMAP A.2d"):
         REFUSED[what](files)
+
+
+# label | slot_a | slot_b | slot_c | dense_x (dim 3), one line a record
+ASSEMBLE_LINES = {
+    "empty_slots": ["1 1 0 2 5 6 0 3 0.5 1 2", "1 0 3 1 2 3 0 0 3 1 1 1",
+                    "1 1 0 0 1 9 3 0 0 0"],
+    "no_keys": ["1 1 0 0 0 3 0.5 1 2", "1 0 1 4 0 0 3 1 1 1",
+                "1 1 0 0 0 3 2 2 2"],
+    "dense_wrong_width": ["1 1 1 5 1 6 1 7 2 0.5 1",
+                          "1 0 1 5 1 6 1 7 4 1 2 3 4",
+                          "1 1 1 5 1 6 1 7 0",
+                          "1 0 1 5 1 6 1 7 3 7 8 9"],
+}
+
+
+def _assemble_records(case, rng):
+    """The case's records (the lines, cycled to fill the batch), or for
+    ``short_batch`` / ``full_batch`` 5 / 8 rows of a slot file."""
+    if case in ASSEMBLE_LINES:
+        lines = ASSEMBLE_LINES[case]
+        return [lines[i % len(lines)] for i in range(8)]
+    n = 5 if case == "short_batch" else 8
+    out = []
+    for _ in range(n):
+        parts = [f"1 {int(rng.integers(0, 2))}"]
+        for _ in range(3):
+            k = int(rng.integers(0, 4))
+            parts.append(" ".join(map(str, [k, *rng.integers(1, 99, k)])))
+        parts.append("3 " + " ".join(map(str, rng.normal(size=3).round(3))))
+        out.append(" ".join(parts))
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(ASSEMBLE_LINES) +
+                         ["full_batch", "short_batch"])
+def test_assemble_matches_reference(case):
+    """The vectorized assembly against the reference's loop, array for
+    array: empty slots, records with no keys, dense slots narrower and
+    wider than configured (truncated and zero-padded per slot) beside
+    exact ones, a short batch and a batch of exactly B records; with
+    logkeys, so that search_ids carry values."""
+    from paddlebox_tpu.data.batch import BatchAssembler as JaxAssembler
+    jconf = jax_conf(parse_logkey=True)
+    rng = np.random.default_rng(len(case))
+    lines = [f"1 {pack_logkey(1000 + i, 1, 2)} {line}"
+             for i, line in enumerate(_assemble_records(case, rng))]
+    jrecs = [JaxSlotParser(jconf).parse_line(x) for x in lines]
+    precs = [SlotParser(port_conf(jconf)).parse_line(x) for x in lines]
+    assert_records_equal(precs, jrecs)
+    want = JaxAssembler(jconf).assemble(jrecs)
+    got = BatchAssembler(port_conf(jconf)).assemble(precs)
+    assert_batches_equal([got], [want])
+    assert got.num_rows == len(lines)
+    np.testing.assert_array_equal(got.search_ids[:len(lines)],
+                                  1000 + np.arange(len(lines)))
+    with pytest.raises(ValueError, match="assemble got 0 records"):
+        BatchAssembler(port_conf(jconf)).assemble([])

@@ -1,8 +1,8 @@
 """The port stands alone: no jax, flax, optax or paddlebox_tpu import, in
 the package, in chip_smoke.py or in kernel_versions.py; it serves, trains
-and runs a trainer pass with them blocked; its entry points default to the
-card and raise without one (the trainer too); its kernel modules import
-without a CUDA toolkit."""
+and runs a trainer pass, from a dataset and straight off files, with them
+blocked; its entry points default to the card and raise without one (the
+trainer too); its kernel modules import without a CUDA toolkit."""
 
 import ast
 import os
@@ -248,6 +248,61 @@ def test_trainer_pass_with_jax_blocked(tmp_path):
     assert "TRAINER_PASS" in res.stdout
 
 
+def test_train_from_files_with_jax_blocked(tmp_path):
+    """``CTRTrainer.train_from_files`` (the tokenizer built from the port's
+    own source, ``FastSlotReader``, ``train_stream``) runs a pass of 18
+    batches, one full run of 16 on device prep, with jax and
+    paddlebox_tpu blocked."""
+    from conftest import make_slot_file
+    from paddlebox_tpu.config import DataFeedConfig, SlotConfig
+    conf = DataFeedConfig(slots=[
+        SlotConfig("label", type="float", is_dense=True, dim=1),
+        SlotConfig("a"), SlotConfig("b"),
+        SlotConfig("d", type="float", is_dense=True, dim=2)],
+        batch_size=4, thread_num=2)
+    data = [make_slot_file(str(tmp_path / f"part-{i}"), conf, rows, seed=i)
+            for i, rows in enumerate((40, 30))]
+    res = _run(f"""
+        import sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        from paddlebox_tpu_torch.config import (DataFeedConfig, SlotConfig,
+                                                TableConfig, TrainerConfig)
+        from paddlebox_tpu_torch.data import fast_feed
+        from paddlebox_tpu_torch.models import DeepFM
+        from paddlebox_tpu_torch.ops import _build
+        from paddlebox_tpu_torch.ps import native
+        from paddlebox_tpu_torch.ps.device_table import DeviceTable
+        from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
+        conf = DataFeedConfig(slots=[
+            SlotConfig("label", type="float", is_dense=True, dim=1),
+            SlotConfig("a"), SlotConfig("b"),
+            SlotConfig("d", type="float", is_dense=True, dim=2)],
+            batch_size=4, thread_num=2)
+        files = {data!r}
+        assert _build.source("pbx_feed").parent.parent.name == \\
+            "paddlebox_tpu_torch"
+        assert sum(b.num_rows for b in
+                   fast_feed.FastSlotReader(conf).batches(files)) == 70
+        tconf = TableConfig(embedx_dim=4, embedx_threshold=0.0)
+        table = DeviceTable(tconf, capacity=256, device="cpu",
+                            index_threads=1)
+        tr = CTRTrainer(DeepFM(2 * 7 + 2, (8,)), conf, tconf,
+                        TrainerConfig(), table=table)
+        assert tr.step.device_prep == native.available()
+        m = tr.train_from_files(files)
+        assert m["ins_num"] == 70 and tr._step_count == 18
+        assert np.isfinite(m["auc"]) and len(table) > 0
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("FILES_PASS", m["auc"])
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "FILES_PASS" in res.stdout
+
+
 def test_entry_points_default_to_cuda(tmp_path):
     from paddlebox_tpu_torch import resolve_device
     from paddlebox_tpu_torch.inference import CTRPredictor
@@ -269,6 +324,11 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CTRTrainer(torch.nn.Linear(1, 1), DataFeedConfig(), TableConfig(),
                    TrainerConfig())
+    # so does the file entry: its trainer builds its table on the card
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CTRTrainer(torch.nn.Linear(1, 1), DataFeedConfig(), TableConfig(),
+                   TrainerConfig()).train_from_files(
+            [str(tmp_path / "part-0")])
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -360,8 +360,8 @@ REFUSED = {
                         "A.9"),
     "use_device_table": (lambda: _trainer(use_device_table=False), "A.2c"),
     "host_table": (lambda: _trainer(table=object()), "A.2c"),
-    "train_from_files": (lambda: _trainer().train_from_files(["x"]),
-                         "A.2b"),
+    "train_from_files": (lambda: _trainer().train_from_files(
+        ["x"], workers=2), "A.2d"),
     "deferred": (lambda: _trainer(insert_mode="deferred"), "A.3b"),
 }
 REFUSED_FLAGS = {"feed_device_prefetch": ("2", "A.4"),
