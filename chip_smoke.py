@@ -79,7 +79,7 @@ Phases, each fatal on failure:
    keys looked up in the mirror (``DeviceIndexMirror.probe``, K6 alone)
    against the host index.
 4b. trainer — the reference's entry point: two seeded MultiSlot files of
-             8 batches of B=2048 (a label and 24 slots of 1-3 keys; the
+             16 batches of B=2048 (a label and 24 slots of 1-3 keys; the
              first file's keys uniform over the 4,194,304 prepopulated
              rows, 5% of the second's new) -> ``SlotDataset`` (Npad
              102,400) -> ``CTRTrainer.train_from_dataset``, device prep
@@ -95,11 +95,24 @@ Phases, each fatal on failure:
    with the ``SpanTimer`` report.
    Trainer files: the same files through ``CTRTrainer.train_from_files``
    on a twin of the same arena and weights (the C++ tokenizer,
-   ``FastSlotReader``, ``FusedTrainStep.train_stream``'s run of 16): the
-   same kernels launch once a batch; pass metrics, every row by key and
-   the dense params equal ``train_from_dataset``'s bit for bit. Both
-   entries timed in turns (dataset, files, files, dataset), with
-   ``FastSlotReader.stream`` ms a batch and ``parse_file`` ms a file.
+   ``FastSlotReader``, ``FusedTrainStep.train_stream``'s runs of 16: the
+   first eager, the second captured as a CUDA graph and replayed): the
+   same kernels launch once a batch, replays counted; pass metrics, every
+   row by key and the dense params equal ``train_from_dataset``'s bit for
+   bit, and adam's count, mu and nu too those of the eager run loop (the
+   run path without its graph) on another twin. The step paths over the
+   same batches timed in turns (run graphs, eager run loop, hand loop of
+   ``step_device``), the first two profiled; both entries timed in turns
+   (dataset, files, files, dataset), with ``FastSlotReader.stream`` ms a
+   batch and ``parse_file`` ms a file.
+4c. run graphs across a growth — four runs of 16 batches of B=2048
+             through ``train_stream`` over a table of 520,000
+             prepopulated rows, the third with 15% new keys, which grow
+             the arena and move the mirror to a table of twice the slots:
+             2 captures (the second run's, and once more after the
+             growth), 3 replays; every device-prep kernel once a batch;
+             losses, rows by key, dense params, adam's state and the AUC
+             state bit for bit against the eager run loop on a twin.
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -173,7 +186,9 @@ from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.ps.native import NativeIndex
 from paddlebox_tpu_torch.ps.table import state_dim
 from paddlebox_tpu_torch.metrics import AucCalculator
-from paddlebox_tpu_torch.trainer.fused_step import FusedTrainStep
+from paddlebox_tpu_torch.metrics.auc import reset_auc_state_
+from paddlebox_tpu_torch.trainer.fused_step import (FusedTrainStep,
+                                                    collect_same_shape_run)
 from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1364,14 +1379,14 @@ def time_steps(fs, state, batches, step=None):
     return state, secs / len(batches) * 1e3, TB * len(batches) / secs
 
 
-def with_new_keys(rng, batches, fresh: int):
-    """The batches' keys with 5% of each batch's replaced by keys new to
-    the table, from ``fresh`` on."""
+def with_new_keys(rng, batches, fresh: int, per_20: int = 1):
+    """The batches' keys with ``per_20`` twentieths (5% by default) of each
+    batch's replaced by keys new to the table, from ``fresh`` on."""
     out = []
     for keys, _, _ in batches:
         keys = keys.copy()
         nk = int((keys > 0).sum())
-        pick = rng.choice(nk, size=nk // 20, replace=False)
+        pick = rng.choice(nk, size=nk * per_20 // 20, replace=False)
         keys[pick] = np.arange(fresh, fresh + pick.size, dtype=np.uint64)
         fresh += pick.size
         out.append(keys)
@@ -1556,7 +1571,7 @@ def phase_train_device(rng, init) -> dict:
 # -- the trainer entry -------------------------------------------------------
 
 TRAINER_FILES = 2            # MultiSlot files of the trainer's pass
-TRAINER_FILE_BATCHES = 8     # batches of TB rows in each file
+TRAINER_FILE_BATCHES = 16    # batches of TB rows in each file: a run
 TRAINER_HEADROOM = 1 << 17   # arena rows beyond the prepopulated ones
 
 
@@ -1611,6 +1626,71 @@ def hand_loop(fs, state, batches):
             b.row_mask())
         losses.append(loss)
     return (params, opt, auc), losses
+
+
+def eager_run_loop(fs, state, batches):
+    """``FusedTrainStep.train_stream``'s device-prep runs without their
+    graph, as the run path ran them before: for each run of ``DEV_CHUNK``
+    same-shape batches, one ``ensure_keys`` over its keys, one upload,
+    then ``step_device_tensors`` over each batch's views; a shorter run
+    through ``step_device``. ``batches`` are ``train_stream``'s (keys,
+    segment_ids, cvm_in, labels, dense, row_mask) tuples. Returns the new
+    state and the losses (device scalars)."""
+    params, opt, auc = state
+    losses = []
+    it, pending = iter(batches), None
+    while True:
+        run, pending = collect_same_shape_run(it, pending, fs.DEV_CHUNK)
+        if not run:
+            break
+        if len(run) < fs.DEV_CHUNK:
+            for args in run:
+                params, opt, auc, loss, _ = fs.step_device(params, opt, auc,
+                                                           *args)
+                losses.append(loss)
+            continue
+        fs.table.ensure_keys(np.concatenate([a[0] for a in run]))
+        floats = [fs._float_block(*a[2:]) for a in run]
+        keys, segs, pf = fs._to_device([
+            [np.ascontiguousarray(a[0], np.uint64).view(np.int64)
+             for a in run],
+            [np.asarray(a[1], np.int32) for a in run],
+            [f for f, _ in floats]])
+        for j in range(len(run)):
+            params, opt, auc, loss, _ = fs.step_device_tensors(
+                params, opt, auc, keys[j], segs[j],
+                *fs._split_floats(pf[j], floats[0][1]))
+            losses.append(loss)
+    return (params, opt, auc), losses
+
+
+def require_same_training(tag: str, a, b) -> None:
+    """Two device-prep worlds ((table, params, opt_state, auc_state) each)
+    bit for bit: every row by key, the dense params, adam's count, mu and
+    nu, and the AUC state (``auc`` None: not compared)."""
+    (ta, pa, oa, aa), (tb, pb, ob, ab) = a, b
+    ka, va, sa = rows_by_key(ta)
+    kb, vb, sb = rows_by_key(tb)
+    require(np.array_equal(ka, kb), f"{tag}: the tables hold other keys")
+    require(torch.equal(va, vb) and torch.equal(sa, sb),
+            f"{tag}: rows by key differ")
+    require(all(torch.equal(x, y) for x, y in zip(pa.parameters(),
+                                                   pb.parameters())),
+            f"{tag}: the dense params differ")
+    require(torch.equal(oa["count"], ob["count"]) and
+            all(torch.equal(x, y) for f in ("mu", "nu")
+                for x, y in zip(oa[f], ob[f])),
+            f"{tag}: adam's count, mu or nu differ")
+    if aa is not None:
+        require(all(torch.equal(aa[f], ab[f]) for f in aa),
+                f"{tag}: the AUC states differ")
+
+
+def reader_tuples(batches):
+    """``FastSlotReader.stream``'s tuples of assembled ``CsrBatch``es."""
+    return [(b.keys, b.segment_ids,
+             np.stack([np.ones(TB, np.float32), b.labels], axis=1),
+             b.labels, b.dense, b.row_mask()) for b in batches]
 
 
 def rows_by_key(table: DeviceTable):
@@ -1689,6 +1769,11 @@ def phase_trainer(rng) -> dict:
     twin_fs = FusedTrainStep(copy.deepcopy(model), twin, tconf, TB, TS,
                              device_prep=True)
     twin_state = (*twin_fs.init(), twin_fs.init_auc_state())
+    # the run loop without graphs, the file pass's twin
+    run_fs = FusedTrainStep(copy.deepcopy(model),
+                            twin_table(table, "cuda", "native"), tconf, TB,
+                            TS, device_prep=True)
+    run_state = (*run_fs.init(), run_fs.init_auc_state())
     # the file entry's trainer: a twin of the same arena and weights
     files_trainer = CTRTrainer(
         copy.deepcopy(model), feed, conf, tconf,
@@ -1755,6 +1840,35 @@ def phase_trainer(rng) -> dict:
           f"metrics, all {fkeys.size} rows by key and the dense params bit "
           f"for bit; {files_s / n_batches * 1e3:.4f} ms/step (first pass, "
           f"builds the tokenizer if needed)")
+    # its first run went eagerly (the warm-up), its second was captured
+    # and replayed; the run loop without graphs over the same batches, on
+    # a twin from the same arena and weights, equals it bit for bit
+    fs = files_trainer.step
+    graphs = fs.run_graphs
+    runs = n_batches // fs.DEV_CHUNK
+    require((graphs.captures, graphs.replays) == (1, runs - 1),
+            f"trainer files: {graphs.captures} captures and "
+            f"{graphs.replays} replays over {runs} runs")
+    print(f"trainer files: run graphs: {graphs.captures} capture "
+          f"({graphs.capture_ms[0]:.2f} ms, the capture and the graph's "
+          f"instantiation), {graphs.replays} replay over {runs} runs of "
+          f"{fs.DEV_CHUNK}; the graph's launches a replay "
+          f"{graphs.graphs[next(iter(graphs.graphs))].launches.by_name()}")
+    stream = reader_tuples(batches)
+    run_state, _ = eager_run_loop(run_fs, run_state, stream)
+    require_same_training(
+        "trainer files (graphs) vs the eager run loop",
+        (files_trainer.table, files_trainer.params, files_trainer.opt_state,
+         None), (run_fs.table, *run_state[:2], None))
+    calc = AucCalculator()
+    calc.absorb(run_state[2])
+    require(calc.compute() == files_metrics,
+            f"trainer files vs the eager run loop: metrics "
+            f"{files_metrics} vs {calc.compute()}")
+    print(f"trainer files (run graphs) vs the eager run loop (twin): pass "
+          f"metrics, all {fkeys.size} rows by key, the dense params and "
+          f"adam's count ({int(run_state[1]['count'])}), mu and nu bit for "
+          f"bit")
 
     seqpool_cvm_cuda.launches = 0
     ev = trainer.evaluate(ds)
@@ -1765,6 +1879,41 @@ def phase_trainer(rng) -> dict:
             f"evaluate: {ev}")
     print(f"trainer: evaluate over {n_batches} batches, forward launches "
           f"{eval_launches}, auc {ev['auc']:.6f}")
+
+    # the step paths over the same pre-assembled batches, in turns: the
+    # run graphs (train_stream of the file trainer's step: both runs
+    # replay), the eager run loop, the hand loop of step_device
+    fstate = (files_trainer.params, files_trainer.opt_state,
+              files_trainer.auc_state)
+    paths = {"graph": [], "eager": [], "hand": []}
+    for who in ("graph", "eager", "hand", "hand", "eager", "graph"):
+        if who == "graph":
+            secs, _ = timed_secs(lambda: fs.train_stream(*fstate,
+                                                         iter(stream)))
+        elif who == "eager":
+            secs, (run_state, _) = timed_secs(
+                lambda: eager_run_loop(run_fs, run_state, stream))
+        else:
+            secs, (twin_state, _) = timed_secs(
+                lambda: hand_loop(twin_fs, twin_state, batches))
+        paths[who].append(secs / n_batches * 1e3)
+    require(graphs.captures == 1, f"trainer: {graphs.captures} captures")
+    path_ms = {k: float(np.mean(v)) for k, v in paths.items()}
+    print(f"timing trainer step paths over the {n_batches} assembled "
+          f"batches, in turns (ms/step; incl. ensure_keys and uploads): "
+          f"run graphs {paths['graph']} ({TB * 1e3 / path_ms['graph']:.1f} "
+          f"examples/s); eager run loop {paths['eager']} "
+          f"({TB * 1e3 / path_ms['eager']:.1f}); hand loop of step_device "
+          f"{paths['hand']} ({TB * 1e3 / path_ms['hand']:.1f}); "
+          f"{graphs.replays} replays so far")
+    kernels = (KERNEL, PUSH, "radix", "dedup")
+    device_profile(f"trainer run graphs, {n_batches} batches (replays)",
+                   lambda: fs.train_stream(*fstate, iter(stream)), kernels)
+    device_profile(f"trainer eager run loop, {n_batches} batches",
+                   lambda: eager_run_loop(run_fs, run_state, stream),
+                   kernels)
+    # the timing passes' counts out of the file trainer's AUC state
+    reset_auc_state_(files_trainer.auc_state)
 
     # the entry point (assembly, step, drain, metrics) and the hand loop
     # over the pre-assembled batches, in turns
@@ -1819,8 +1968,8 @@ def phase_trainer(rng) -> dict:
           f" {files_trainer.timer.report()}")
     # two more files passes with the time the trainer waits on the reader
     # (inside the stream's next()) taken where it runs: over the two files
-    # (a run collects all 16 batches, so both parses are exposed), and
-    # over them 4 times (64 batches: later files parse during earlier runs)
+    # (a run collects a file's 16 batches, so its parse is exposed), and
+    # over them twice (64 batches: later files parse during earlier runs)
     waits = []
     stream = FastSlotReader.stream
 
@@ -1837,7 +1986,7 @@ def phase_trainer(rng) -> dict:
     files_split = {}
     FastSlotReader.stream = timed_stream
     try:
-        for tag, reps in (("x1", 1), ("x4", 4)):
+        for tag, reps in (("x1", 1), ("x2", 2)):
             waits.clear()
             files_trainer.reset_metrics()
             secs, _ = timed_secs(
@@ -1893,13 +2042,96 @@ def phase_trainer(rng) -> dict:
     print(f"timing trainer, one more pass split (ms/step): {split}; "
           f"{len(marks) // 2} garbage collections")
     return {"launches": launches, "eval_launches": eval_launches,
-            "files_launches": files_launches,
+            "files_launches": files_launches, "path_ms": path_ms,
+            "captures": graphs.captures, "replays": graphs.replays,
             "ms_per_step": ms, "examples_per_s": TB * 1e3 / ms,
             "hand_ms_per_step": hand_ms, "assemble_ms": asm_ms,
             "files_ms_per_step": files_ms, "reader_ms": reader_ms,
             "parse_ms": parse_ms, "files_split_ms": files_split,
             "load_s": load_s, "compute_ms": compute_s * 1e3,
             "split_ms": split}
+
+
+# -- run graphs across an arena growth ---------------------------------------
+
+GROWTH_ROWS = 520_000        # prepopulated rows of the growth stream's table
+GROWTH_HEADROOM = 1 << 17    # its arena rows beyond them
+
+
+def phase_graph_growth(rng) -> dict:
+    """Four runs of 16 batches at the training shape through
+    ``train_stream``'s run graphs, against the eager run loop on a twin
+    built alike: run 1 goes eagerly (the warm-up), run 2 is captured and
+    replayed, run 3, 15% of whose keys are new, grows the arena and
+    rehashes the host map (the mirror moves to a table of twice the
+    slots) before its first step and is captured once more, run 4
+    replays. Every device-prep kernel launches once a batch; the losses,
+    rows by key, dense params, adam's state and the AUC state equal the
+    twin's bit for bit."""
+    conf, tconf, buckets = train_confs()
+    model = random_deepfm(rng, TS * conf.pull_dim)
+    K = FusedTrainStep.DEV_CHUNK
+    batches = make_train_batches(rng, 4 * K)
+    batches = [(np.where(k > 0, (k - 1) % GROWTH_ROWS + 1, 0).astype(
+        np.uint64), segs, labels) for k, segs, labels in batches]
+    fresh = with_new_keys(rng, batches[2 * K:3 * K], GROWTH_ROWS + 1, 3)
+    batches[2 * K:3 * K] = [(k, segs, labels) for k, (_, segs, labels) in
+                            zip(fresh, batches[2 * K:3 * K])]
+    dense = np.zeros((TB, 0), np.float32)
+    mask = np.ones(TB, np.float32)
+    stream = [(k, segs, np.stack([np.ones(TB, np.float32), labels], axis=1),
+               labels, dense, mask) for k, segs, labels in batches]
+
+    def world():
+        t = DeviceTable(conf, capacity=GROWTH_ROWS + 1 + GROWTH_HEADROOM,
+                        uniq_buckets=buckets, device="cuda",
+                        backend="native", index_threads=1)
+        t.prepopulate(GROWTH_ROWS)
+        fs = FusedTrainStep(copy.deepcopy(model), t, tconf, TB, TS,
+                            device_prep=True)
+        return fs, (*fs.init(), fs.init_auc_state())
+
+    gfs, gstate = world()
+    efs, estate = world()
+    t = gfs.table
+    cap, slots, gen = t.capacity, t.mirror.tab.shape[0], \
+        t.mirror.generation
+    glosses = []
+    secs, (*gstate, _, steps), launches = count_launches(
+        lambda: gfs.train_stream(*gstate, iter(stream),
+                                 on_step=lambda s, l: glosses.append(l)),
+        len(stream), "run graphs, growth stream")
+    graphs = gfs.run_graphs
+    require(steps == len(stream), f"run graphs: {steps} steps")
+    require(t.capacity > cap and t.mirror.tab.shape[0] > slots and
+            t.mirror.generation > gen,
+            f"run graphs: the third run did not grow the arena ({cap} -> "
+            f"{t.capacity}) and move the mirror ({slots} -> "
+            f"{t.mirror.tab.shape[0]} slots)")
+    require((graphs.captures, graphs.replays) == (2, 3),
+            f"run graphs: {graphs.captures} captures, {graphs.replays} "
+            "replays over 4 runs (expected 2, 3)")
+    estate, elosses = eager_run_loop(efs, estate, stream)
+    require(torch.equal(torch.stack(glosses), torch.stack(elosses)),
+            "run graphs vs the eager run loop: losses differ")
+    require(not bool(gfs.bad_flag) and
+            bool(torch.isfinite(torch.stack(glosses)).all()),
+            "run graphs: the numeric sentinel tripped")
+    require_same_training("run graphs vs the eager run loop, growth stream",
+                          (t, *gstate), (efs.table, *estate))
+    print(f"run graphs, growth stream: 4 runs of {K} batches (B={TB}) over "
+          f"{GROWTH_ROWS} prepopulated rows, the third with 15% new keys: "
+          f"arena {cap} -> {t.capacity} rows, mirror {slots} -> "
+          f"{t.mirror.tab.shape[0]} slots; {graphs.captures} captures "
+          f"({', '.join(f'{x:.2f}' for x in graphs.capture_ms)} ms), "
+          f"{graphs.replays} replays, launches {launches}; losses "
+          f"{float(glosses[0]):.6f} -> {float(glosses[-1]):.6f}; vs the "
+          f"eager run loop on a twin: losses, all {len(t)} rows by key, "
+          f"dense params, adam's count ({int(gstate[1]['count'])}), mu, nu "
+          f"and the AUC state bit for bit; {secs / steps * 1e3:.4f} "
+          f"ms/step")
+    return {"captures": graphs.captures, "replays": graphs.replays,
+            "capture_ms": graphs.capture_ms, "launches": launches}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -2280,6 +2512,7 @@ def main() -> int:
         train_dev = phase_train_device(np.random.default_rng([args.seed, 8]),
                                        train_init)
         trainer = phase_trainer(np.random.default_rng([args.seed, 11]))
+        growth = phase_graph_growth(np.random.default_rng([args.seed, 13]))
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
@@ -2302,7 +2535,11 @@ def main() -> int:
           f"{trainer['examples_per_s']:.1f} examples/s, hand loop "
           f"{trainer['hand_ms_per_step']:.4f} ms/step; trainer files "
           f"(CTRTrainer.train_from_files) "
-          f"{trainer['files_ms_per_step']:.4f} ms/step")
+          f"{trainer['files_ms_per_step']:.4f} ms/step; step paths over "
+          f"the trainer's batches: run graphs "
+          f"{trainer['path_ms']['graph']:.4f}, eager run loop "
+          f"{trainer['path_ms']['eager']:.4f}, hand loop "
+          f"{trainer['path_ms']['hand']:.4f} ms/step")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
 
@@ -2313,7 +2550,8 @@ def main() -> int:
                  "trainer_device_prep": trainer["launches"][
                      wrapper.__name__],
                  "trainer_files": trainer["files_launches"][
-                     wrapper.__name__]}
+                     wrapper.__name__],
+                 "run_graphs_growth": growth["launches"][wrapper.__name__]}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}
 

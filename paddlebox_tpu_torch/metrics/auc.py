@@ -47,6 +47,16 @@ def new_auc_state(num_buckets: int = 0,
     return state
 
 
+def reset_auc_state_(state: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """Zero ``state`` in place after a drain; returns it. Its tensors keep
+    their storage, which a captured run (``trainer/step_graph.py``) writes
+    into."""
+    for t in state.values():
+        t.zero_()
+    return state
+
+
 def auc_update(state: Dict[str, torch.Tensor], preds: torch.Tensor,
                labels: torch.Tensor,
                mask: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -47,8 +47,11 @@ The chunked and streamed entries run several batches an upload:
   ``DEV_CHUNK`` batches of one key shape (``collect_same_shape_run``): one
   ``ensure_keys`` over the run's keys, one upload of the run, then
   ``step_device_tensors`` over each batch's views; a shorter run goes
-  through ``step_device`` batch by batch. Host prep prepares and uploads
-  the next batch on a worker thread while the current one steps.
+  through ``step_device`` batch by batch. On the card every full run after
+  its shape's first is one CUDA graph replay (``trainer/step_graph.py``,
+  the counterpart of the reference's one-dispatch ``_step_dev_chunk``).
+  Host prep prepares and uploads the next batch on a worker thread while
+  the current one steps.
 
 ``params`` is the ``nn.Module`` that holds the dense weights; the dense
 optimizer updates it in place, and ``opt_state`` is the optimizer's state
@@ -73,6 +76,7 @@ from paddlebox_tpu_torch.config import TrainerConfig
 from paddlebox_tpu_torch.metrics.auc import auc_update, new_auc_state
 from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
+from paddlebox_tpu_torch.trainer.step_graph import RunGraphs
 from paddlebox_tpu_torch.trainer.train_step import (full_float32_matmuls,
                                                     make_dense_optimizer,
                                                     masked_bce_loss)
@@ -162,6 +166,10 @@ class FusedTrainStep:
         self.insert_mode = insert_mode
         if device_prep:
             table.enable_device_index()
+        # on the card, full device-prep runs of train_stream replay CUDA
+        # graphs; the CPU runs them eagerly
+        self.run_graphs = (RunGraphs(self) if device_prep and
+                           self.device.type == "cuda" else None)
 
     def init(self) -> Tuple[nn.Module, Dict[str, Any]]:
         """The model, moved to the table's device, and a fresh optimizer
@@ -175,29 +183,42 @@ class FusedTrainStep:
 
     # -- internals -----------------------------------------------------------
 
-    def _to_device(self, parts) -> List[torch.Tensor]:
-        """One host->device copy of ``parts``, each an int64, int32 or
-        float32 numpy array or a list of same-shape ones (stacked on a new
-        first axis), packed at 8-byte offsets of one fresh byte buffer.
-        Returns each part's view on the device. The copy is synchronous
-        from pageable memory, so the caller may reuse its arrays at once."""
+    @staticmethod
+    def _pack(parts) -> Tuple[np.ndarray, tuple]:
+        """``parts``, each an int64, int32 or float32 numpy array or a list
+        of same-shape ones (stacked on a new first axis), packed at 8-byte
+        offsets of one host byte buffer. Returns the buffer and its layout,
+        ``(shape, dtype, offset, nbytes)`` a part."""
         metas, total = [], 0
         for p in parts:
             stacked = isinstance(p, list)
             rows = p if stacked else [p]
             shape = ((len(rows),) if stacked else ()) + rows[0].shape
             nbytes = sum(r.nbytes for r in rows)
-            metas.append((rows, shape, rows[0].dtype, total, nbytes))
+            metas.append((rows, (shape, rows[0].dtype, total, nbytes)))
             total += -(-nbytes // 8) * 8
         buf = np.empty(total, dtype=np.uint8)
-        for rows, _, _, off, _ in metas:
+        for rows, (_, _, off, _) in metas:
             for r in rows:
                 buf[off:off + r.nbytes] = \
                     np.ascontiguousarray(r).reshape(-1).view(np.uint8)
                 off += r.nbytes
-        dev = torch.from_numpy(buf).to(self.device)
+        return buf, tuple(m for _, m in metas)
+
+    @staticmethod
+    def _views(dev: torch.Tensor, layout) -> List[torch.Tensor]:
+        """Each part of ``_pack``'s ``layout`` as a view of ``dev``, the
+        packed buffer on the device."""
         return [dev[off:off + n].view(_TORCH_DTYPES[dtype]).reshape(shape)
-                for _, shape, dtype, off, n in metas]
+                for shape, dtype, off, n in layout]
+
+    def _to_device(self, parts) -> List[torch.Tensor]:
+        """One host->device copy of ``parts`` (as ``_pack`` takes them) into
+        one fresh byte buffer; returns each part's view on the device. The
+        copy is synchronous from pageable memory, so the caller may reuse
+        its arrays at once."""
+        buf, layout = self._pack(parts)
+        return self._views(torch.from_numpy(buf).to(self.device), layout)
 
     @staticmethod
     def _float_block(cvm_in, labels, dense, row_mask) -> Tuple[np.ndarray,
@@ -381,8 +402,9 @@ class FusedTrainStep:
         segment_ids, cvm_in, labels, dense, row_mask); calls
         ``on_step(steps, loss)`` after each step, ``loss`` a device scalar
         (nothing is read back). Device prep runs same-shape runs of
-        ``DEV_CHUNK`` batches an upload; host prep overlaps the next
-        batch's ``prepare_batch`` and upload with the current step.
+        ``DEV_CHUNK`` batches an upload, on the card as CUDA graph
+        replays; host prep overlaps the next batch's ``prepare_batch``
+        and upload with the current step.
         ``final_poll`` does nothing: "ensure" mode leaves no miss ring to
         drain (the ring is ROADMAP A.3b). Returns ``(params, opt_state,
         auc_state, last_loss, steps)``."""
@@ -436,10 +458,13 @@ class FusedTrainStep:
                           on_step):
         """Runs of ``DEV_CHUNK`` same-shape batches: one ``ensure_keys``
         over the run's keys, one upload of its keys, segment ids and float
-        blocks, then ``step_device_tensors`` over each batch's views. A
-        shorter run (a shape change, the stream's tail) steps batch by
-        batch through ``step_device``."""
+        blocks, then ``step_device_tensors`` over each batch's views. On
+        the card a run shape's first full run goes so, eagerly, and each
+        later one is one replay of its CUDA graph (``run_graphs``,
+        ``trainer/step_graph.py``). A shorter run (a shape change, the
+        stream's tail) steps batch by batch through ``step_device``."""
         K = self.DEV_CHUNK
+        graphs = self.run_graphs
         it = iter(batch_iter)
         pending, loss, steps = None, None, 0
         while True:
@@ -456,20 +481,36 @@ class FusedTrainStep:
                 continue
             with record_function("train_step.ensure_keys"):
                 self.table.ensure_keys(np.concatenate([a[0] for a in run]))
-            with record_function("train_step.upload"):
+            with record_function("train_step.pack"):
                 floats = [self._float_block(*a[2:]) for a in run]
-                keys, segs, pf = self._to_device([
+                host, layout = self._pack([
                     [_keys_i64(a[0]) for a in run],
                     [np.asarray(a[1], np.int32) for a in run],
                     [f for f, _ in floats]])
+            shape = (layout, floats[0][1])
+            if graphs is not None and shape in graphs.warm:
+                with record_function("train_step.replay"):
+                    losses, self.bad_flag = graphs.replay(
+                        params, opt_state, auc_state, host, shape)
+                for j in range(K):
+                    steps += 1
+                    if on_step is not None:
+                        on_step(steps, losses[j])
+                loss = losses[-1]
+                continue
+            with record_function("train_step.upload"):
+                keys, segs, pf = self._views(
+                    torch.from_numpy(host).to(self.device), layout)
             for j in range(K):
                 params, opt_state, auc_state, loss, _ = \
                     self.step_device_tensors(
                         params, opt_state, auc_state, keys[j], segs[j],
-                        *self._split_floats(pf[j], floats[0][1]))
+                        *self._split_floats(pf[j], shape[1]))
                 steps += 1
                 if on_step is not None:
                     on_step(steps, loss)
+            if graphs is not None:
+                graphs.warm.add(shape)
         return params, opt_state, auc_state, loss, steps
 
     @torch.inference_mode()

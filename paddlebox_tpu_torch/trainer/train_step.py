@@ -39,9 +39,10 @@ class DenseOptimizer:
     """A dense optimizer in optax's math. ``init(model)`` makes the state;
     ``update(model, state)`` applies one step from the parameters' ``.grad``
     (a parameter without a grad counts as a zero grad), in place, and
-    returns the state. Note that optax's adagrad starts its accumulator at
-    0.1 and adds eps 1e-7 inside the square root, where
-    ``torch.optim.Adagrad`` starts at 0 and adds 1e-10 outside it."""
+    returns the state; it reads nothing back to the host. Note that
+    optax's adagrad starts its accumulator at 0.1 and adds eps 1e-7 inside
+    the square root, where ``torch.optim.Adagrad`` starts at 0 and adds
+    1e-10 outside it."""
 
     def __init__(self, name: str, learning_rate: float,
                  weight_decay: float = 0.0):
@@ -52,7 +53,10 @@ class DenseOptimizer:
     def init(self, model: nn.Module) -> Dict[str, Any]:
         params = list(model.parameters())
         if self.name in ("adam", "adamw"):
-            return {"count": 0,
+            # optax's ScaleByAdamState.count: an int32 on the device, so
+            # that a captured step (trainer/step_graph.py) advances it
+            dev = params[0].device if params else None
+            return {"count": torch.zeros((), dtype=torch.int32, device=dev),
                     "mu": [torch.zeros_like(p) for p in params],
                     "nu": [torch.zeros_like(p) for p in params]}
         if self.name == "adagrad":
@@ -67,10 +71,12 @@ class DenseOptimizer:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         if self.name in ("adam", "adamw"):
-            state["count"] += 1
-            count = torch.tensor(float(state["count"]))
-            bc1 = float(1 - torch.tensor(ADAM_B1) ** count)
-            bc2 = float(1 - torch.tensor(ADAM_B2) ** count)
+            count = state["count"]
+            count.add_(1)
+            # optax's bias corrections, 1 - b ** count in f32, on the device
+            t = count.float()
+            bc1 = 1 - ADAM_B1 ** t
+            bc2 = 1 - ADAM_B2 ** t
             for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
                 mu.copy_((1 - ADAM_B1) * g + ADAM_B1 * mu)
                 nu.copy_((1 - ADAM_B2) * (g * g) + ADAM_B2 * nu)

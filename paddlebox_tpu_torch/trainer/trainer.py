@@ -15,7 +15,8 @@ The step is device prep (``step_device``: host ``ensure_keys``, the dedup
 and probe on the card) when a native single-map index backs the table,
 else host prep (``__call__``: host ``prepare_batch``), as the reference
 resolves it. The f32 AUC state on the device drains into the host's
-float64 calculator every ``AUC_DRAIN_STEPS`` steps and at the pass end.
+float64 calculator every ``AUC_DRAIN_STEPS`` steps and at the pass end,
+and is zeroed in place (a captured run writes into its tensors).
 ``SpanTimer`` times each batch ("main") and its step ("step") in
 ``train_from_dataset``, each segment ("main") in ``train_from_files``;
 ``TrainerConfig(profile=True)`` prints the reference's ``log_for_profile``
@@ -53,7 +54,7 @@ from paddlebox_tpu_torch.config import (BucketSpec, DataFeedConfig,
 from paddlebox_tpu_torch.data.batch import CsrBatch
 from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.data.fast_feed import FastSlotReader
-from paddlebox_tpu_torch.metrics.auc import AucCalculator
+from paddlebox_tpu_torch.metrics.auc import AucCalculator, reset_auc_state_
 from paddlebox_tpu_torch.ps import native
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.trainer.fused_step import FusedTrainStep
@@ -219,7 +220,7 @@ class CTRTrainer:
 
     def _drain_auc(self) -> None:
         self.calc.absorb(self.auc_state)
-        self.auc_state = self.step.init_auc_state()
+        reset_auc_state_(self.auc_state)
 
     def train_from_files(self, files: Sequence[str], prefetch: int = 2,
                          buckets: Optional[BucketSpec] = None,
