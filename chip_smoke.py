@@ -34,7 +34,8 @@ Phases, each fatal on failure:
              (D = 4, 5, 16, 33, 129, 256, each optimizer), a Upad off the
              uniques a warp holds, warps that mix live, dead and padding
              uniques, one unique with nearly every key; show/clk exact, the
-             rest within 1e-6, and two launches bit-identical. The boundary
+             rest within 1e-6, and 10 launches with the dirty mark
+             bit-identical, the bitmap exactly the plain mark's. The boundary
              kernel's offsets (and the sorted order) equal
              ``merge_order_plain``'s.
              Dedup (K5) and probe (K6), bit-exact, and against
@@ -113,6 +114,27 @@ Phases, each fatal on failure:
              growth), 3 replays; every device-prep kernel once a batch;
              losses, rows by key, dense params, adam's state and the AUC
              state bit for bit against the eager run loop on a twin.
+4d. pass loop — the reference's day/pass loop, driven as
+             ``examples/02_deepfm_stream.py`` drives it, at the flagship's
+             width: two days of two passes, each one seeded MultiSlot file
+             of 16 batches of B=2048 (day 2's with 5% new keys), over a
+             ``DeviceTable`` of 4,194,304 prepopulated rows on device prep:
+             ``PassManager.begin_pass`` (load, feed the pass's keys),
+             ``preload_next``, ``CTRTrainer.train_from_dataset``,
+             ``end_pass(save_delta=True)``, ``save_base(dense_state=...)``
+             at each day end, then ``barrier()``. Every device-prep kernel
+             once a batch; the trail ``delta, delta, base`` a day; each
+             delta holds exactly its pass's keys and the push kernel
+             marked exactly those rows; a resume into a fresh table and
+             trainer equals the live one bit for bit (rows by key, dense
+             params, adam's count, mu, nu); day 1 over a host-prep twin
+             (``MtIndex`` of 4 threads) gives the same deltas by key, bit
+             for bit. Trainer files and the growth stream hold their dirty
+             rows to the eager paths' by key (``snapshot_delta``).
+   The synchronous snapshot ms of each delta and base, rows per delta,
+   the writer's commit seconds, the wait in ``barrier()``, ``resume``
+   seconds, and the dataset pass with the dirty mark and without it, in
+   turns, each beside the card's name and power limit.
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -155,6 +177,7 @@ from paddlebox_tpu_torch.data.criteo import (CriteoReader, criteo_feed_config,
                                              make_synthetic_criteo)
 from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.data.fast_feed import FastSlotReader
+from paddlebox_tpu_torch.ckpt.writer import AsyncCheckpointWriter
 from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
                                                      save_inference_model)
 from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
@@ -164,7 +187,8 @@ from paddlebox_tpu_torch.ops.seqpool_kernel import (bulk_loads, grad_lanes,
                                                     seqpool_cvm_grad_cuda,
                                                     seqpool_cvm_grad_plain,
                                                     seqpool_cvm_plain)
-from paddlebox_tpu_torch.ops.sparse_push import (merge_offsets,
+from paddlebox_tpu_torch.ops.sparse_push import (mark_dirty_plain,
+                                                 merge_offsets,
                                                  merge_offsets_plain,
                                                  merge_order,
                                                  merge_order_plain,
@@ -184,11 +208,16 @@ from paddlebox_tpu_torch.ps.device_index import (DeviceIndexMirror,
                                                  radix_plan_plain)
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.ps.native import NativeIndex
+from paddlebox_tpu_torch.ps.server import SparsePS
 from paddlebox_tpu_torch.ps.table import state_dim
 from paddlebox_tpu_torch.metrics import AucCalculator
 from paddlebox_tpu_torch.metrics.auc import reset_auc_state_
 from paddlebox_tpu_torch.trainer.fused_step import (FusedTrainStep,
                                                     collect_same_shape_run)
+from paddlebox_tpu_torch.trainer import donefile
+from paddlebox_tpu_torch.trainer.pass_manager import (CKPT_QUEUE_DEPTH,
+                                                      CKPT_RETRIES,
+                                                      PassManager)
 from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -227,6 +256,7 @@ CPU_STEPS = 2                # of them, held against the CPU
 ITERS = 200                  # calls per timing
 DEDUP_REPEATS = 10           # K5 (and fused) launches a check case, all
 #                              identical
+PUSH_REPEATS = 10            # push launches with the dirty mark a case
 KERNEL = "seqpool_cvm"
 GRAD = "seqpool_cvm_grad"
 PUSH = "sparse_push"
@@ -727,21 +757,38 @@ def mixed_batch(rng, conf: TableConfig, vocab: int, upad: int):
 
 
 def check_push(name: str, table, inputs):
-    """Push kernel vs plain on one batch; a second launch on the same
-    inputs must give the same bits. Returns the largest error off
-    show/clk and the card inputs."""
+    """Push kernel vs plain on one batch, with the dirty mark: PUSH_REPEATS
+    launches from the same arena into a zeroed bitmap must give the same
+    bits, the bitmap exactly ``mark_dirty_plain``'s; a launch without a
+    bitmap the same rows. Returns the largest error off show/clk and the
+    card inputs."""
     demb, inv, urows, umask = (torch.from_numpy(np.ascontiguousarray(x))
                                .cuda() for x in inputs)
     layout = table.layout
+    cap = table.values.shape[0]
     got, again, want = [(table.values.clone(), table.state.clone())
                         for _ in range(3)]
     sparse_push_cuda(layout, *got, demb, inv, urows, umask)
-    sparse_push_cuda(layout, *again, demb, inv, urows, umask)
-    torch.cuda.synchronize()
+    dirty = torch.zeros(cap, dtype=torch.bool, device="cuda")
+    want_dirty = torch.zeros_like(dirty)
+    mark_dirty_plain(want_dirty, urows)
+    for rep in range(PUSH_REPEATS):
+        again[0].copy_(table.values)
+        again[1].copy_(table.state)
+        dirty.zero_()
+        sparse_push_cuda(layout, *again, demb, inv, urows, umask,
+                         dirty=dirty)
+        torch.cuda.synchronize()
+        require(torch.equal(got[0], again[0]) and
+                torch.equal(got[1], again[1]),
+                f"{name}: launch {rep + 1} with the dirty mark differs from "
+                "the first launch on the same inputs")
+        require(torch.equal(dirty, want_dirty),
+                f"{name}: launch {rep + 1}: the dirty bitmap differs from "
+                f"mark_dirty_plain's ({int(dirty.sum())} rows marked, "
+                f"{int(want_dirty.sum())} expected)")
     sparse_push_plain(layout, *want, demb, inv, urows, umask)
     (gv, gs), (wv, ws) = got, want
-    require(torch.equal(gv, again[0]) and torch.equal(gs, again[1]),
-            f"{name}: two launches on the same inputs differ")
     require(torch.equal(gv[:, :2], wv[:, :2]),
             f"{name}: show/clk differ between the push kernel and plain")
     require(torch.equal(gv[0], table.values[0]) and
@@ -761,7 +808,9 @@ def check_push(name: str, table, inputs):
           f"G={lanes} C={cols} state={table.state.shape[1]} "
           f"Npad={demb.shape[0]} Upad={urows.shape[0]} "
           f"live={int(live.sum())} rows crossing the threshold={crossed} "
-          f"rows trained={changed} max_abs_err={err:.3e} deterministic ok")
+          f"rows trained={changed} max_abs_err={err:.3e}; "
+          f"{PUSH_REPEATS} launches with the dirty mark bit-identical, "
+          f"bitmap exact ({int(want_dirty.sum())} rows)")
     return err, (layout, table.values, table.state, demb, inv, urows, umask)
 
 
@@ -1701,6 +1750,19 @@ def rows_by_key(table: DeviceTable):
     return keys[order], table.values[idx], table.state[idx]
 
 
+def delta_by_key(table: DeviceTable):
+    """``snapshot_delta`` (which clears the dirty marks) in ascending key
+    order: keys, values, state."""
+    snap = table.snapshot_delta()
+    order = np.argsort(snap["keys"])
+    return tuple(snap[k][order] for k in ("keys", "values", "state"))
+
+
+def dirty_keys(table: DeviceTable) -> np.ndarray:
+    """The keys of the rows ``fetch_dirty_rows`` gives, ascending."""
+    return np.sort(table.row_keys()[table.fetch_dirty_rows()])
+
+
 def count_launches(fn, n_batches: int, tag: str):
     """``fn()`` with every device-prep wrapper's count set to 0 just before
     it and read just after; each kernel of the path must have launched
@@ -1835,11 +1897,23 @@ def phase_trainer(rng) -> dict:
     require(all(torch.equal(a, b) for a, b in zip(
         files_trainer.params.parameters(), trainer.params.parameters())),
         "trainer files vs dataset: the dense params differ")
+    # the dirty rows too: the file pass marked its rows through the run's
+    # eager steps and its graph replay, the dataset pass through eager
+    # steps; snapshot_delta of each is the same by key, bit for bit
+    fdelta, ddelta = (delta_by_key(t) for t in (files_trainer.table, table))
+    require(all(np.array_equal(a, b) for a, b in zip(fdelta, ddelta)),
+            "trainer files vs dataset: snapshot_delta differs by key")
+    require(fdelta[0].size == np.unique(np.concatenate(
+        [b.keys for b in batches])).size - 1,
+        f"trainer: the delta holds {fdelta[0].size} keys, not every key the "
+        "batches touched")
     print(f"trainer files: train_from_files over the same {TRAINER_FILES} "
           f"files, launches {files_launches}; vs train_from_dataset: pass "
           f"metrics, all {fkeys.size} rows by key and the dense params bit "
-          f"for bit; {files_s / n_batches * 1e3:.4f} ms/step (first pass, "
-          f"builds the tokenizer if needed)")
+          f"for bit, and snapshot_delta ({fdelta[0].size} rows: every key "
+          f"the batches touched) by key bit for bit; "
+          f"{files_s / n_batches * 1e3:.4f} ms/step (first pass, builds "
+          f"the tokenizer if needed)")
     # its first run went eagerly (the warm-up), its second was captured
     # and replayed; the run loop without graphs over the same batches, on
     # a twin from the same arena and weights, equals it bit for bit
@@ -2119,6 +2193,13 @@ def phase_graph_growth(rng) -> dict:
             "run graphs: the numeric sentinel tripped")
     require_same_training("run graphs vs the eager run loop, growth stream",
                           (t, *gstate), (efs.table, *estate))
+    gdirty = dirty_keys(t)
+    require(np.array_equal(gdirty, dirty_keys(efs.table)),
+            "run graphs vs the eager run loop: the dirty rows differ by key")
+    stream_keys = np.unique(np.concatenate([b[0] for b in stream]))
+    require(np.array_equal(gdirty, stream_keys[stream_keys > 0]),
+            "run graphs: the dirty rows are not the stream's keys (marks "
+            "lost across the growth, or marked where nothing trained)")
     print(f"run graphs, growth stream: 4 runs of {K} batches (B={TB}) over "
           f"{GROWTH_ROWS} prepopulated rows, the third with 15% new keys: "
           f"arena {cap} -> {t.capacity} rows, mirror {slots} -> "
@@ -2128,10 +2209,252 @@ def phase_graph_growth(rng) -> dict:
           f"{float(glosses[0]):.6f} -> {float(glosses[-1]):.6f}; vs the "
           f"eager run loop on a twin: losses, all {len(t)} rows by key, "
           f"dense params, adam's count ({int(gstate[1]['count'])}), mu, nu "
-          f"and the AUC state bit for bit; {secs / steps * 1e3:.4f} "
-          f"ms/step")
+          f"and the AUC state bit for bit; the dirty rows ({gdirty.size}, "
+          f"the stream's keys: the bitmap grew with the arena, its marks "
+          f"kept) by key; {secs / steps * 1e3:.4f} ms/step")
     return {"captures": graphs.captures, "replays": graphs.replays,
             "capture_ms": graphs.capture_ms, "launches": launches}
+
+
+# -- the day/pass loop --------------------------------------------------------
+
+LOOP_DAYS = (("20260101", 0), ("20260102", 1))   # (day, new keys or not)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip()
+
+
+class TimedWriter(AsyncCheckpointWriter):
+    """The checkpoint writer, timing each job where it runs (serialize,
+    commit, donefile, retention)."""
+
+    def __init__(self):
+        super().__init__(max_queue=CKPT_QUEUE_DEPTH, retries=CKPT_RETRIES)
+        self.commit_s = []
+
+    def submit(self, label, fn, on_fail=None):
+        def timed_job():
+            t0 = time.perf_counter()
+            fn()
+            self.commit_s.append((label, time.perf_counter() - t0))
+        super().submit(label, timed_job, on_fail)
+
+
+def loop_world(conf, tconf, model, index_threads: int, root: str,
+               rows: int = HOT_VOCAB):
+    """A flagship trainer over a DeviceTable of ``rows`` prepopulated rows
+    (device prep over a one-thread native index, host prep over an
+    ``MtIndex`` of more threads), its ``SparsePS`` and a double-buffered
+    ``PassManager`` with a timed writer."""
+    table = DeviceTable(conf, capacity=HOT_VOCAB + 1 + TRAINER_HEADROOM,
+                        uniq_buckets=BucketSpec(min_size=TNPAD),
+                        device="cuda", backend="native",
+                        index_threads=index_threads)
+    if rows:
+        table.prepopulate(rows)
+    feed = trainer_feed_conf()
+    tr = CTRTrainer(model, feed, conf, tconf, table=table)
+    buckets = BucketSpec(min_size=TNPAD, max_size=1 << 18)
+    writer = TimedWriter()
+    pm = PassManager(SparsePS({"embedding": table}), root,
+                     [SlotDataset(feed, buckets=buckets),
+                      SlotDataset(feed, buckets=buckets)], writer=writer)
+    return tr, pm, writer
+
+
+def drive_loop(tr, pm, days, tag: str, counted: bool):
+    """``examples/02_deepfm_stream.py``'s loop over ``days`` (day, [file,
+    file]): per pass the launches (device prep: every kernel of the path
+    once a batch), the keys of the pass, the rows the bitmap marked, and
+    the delta's synchronous snapshot ms; per day the base's. Returns the
+    records and the seconds the training thread waited in ``barrier()``."""
+    t = tr.table
+    out = {"passes": [], "bases": [], "launches": {}}
+    snap_ms = lambda kind: pm.timer.total[f"save_{kind}_snapshot"] * 1e3
+    for day, files in days:
+        pm.set_date(day)
+        ds = pm.begin_pass(files[:1])
+        pm.preload_next(files[1:])
+        for i in range(len(files)):
+            n = ds.num_instances() // TB
+            if counted:
+                _, m, launches = count_launches(
+                    lambda: tr.train_from_dataset(ds), n, f"{tag} pass")
+                for k, v in launches.items():
+                    out["launches"][k] = out["launches"].get(k, 0) + v
+            else:
+                m = tr.train_from_dataset(ds)
+            keys = ds.extract_keys()
+            marked = None
+            if t.dirty_dev is not None:
+                rows = torch.nonzero(t.dirty_dev[1:t._size]).cpu().numpy()
+                marked = np.sort(t.row_keys()[rows[:, 0] + 1])
+            before = snap_ms("delta")
+            t0 = time.perf_counter()
+            pm.end_pass(save_delta=True)
+            out["passes"].append(dict(
+                day=day, pass_id=pm.pass_id, keys=keys, marked=marked,
+                metrics=m, snapshot_ms=snap_ms("delta") - before,
+                end_pass_ms=(time.perf_counter() - t0) * 1e3))
+            tr.reset_metrics()
+            if i + 1 < len(files):
+                ds = pm.begin_pass([], preloaded=True)
+        before = snap_ms("base")
+        pm.save_base(dense_state=(tr.params, tr.opt_state))
+        out["bases"].append(dict(day=day, pass_id=pm.pass_id,
+                                 snapshot_ms=snap_ms("base") - before))
+    barrier_s, _ = timed_secs(pm.barrier)
+    out["barrier_s"] = barrier_s
+    return out
+
+
+def trail_kinds(root: str):
+    return [(r["day"], r["kind"]) for r in donefile.read_done(root)]
+
+
+def delta_file(root: str, day: str, pass_id: int) -> str:
+    return os.path.join(root, day, f"{pass_id:05d}", "delta",
+                        "embedding.npz")
+
+
+def npz_by_key(path: str):
+    with np.load(path) as d:
+        order = np.argsort(d["keys"])
+        return tuple(d[k][order] for k in ("keys", "values", "state"))
+
+
+def phase_pass_loop(rng) -> dict:
+    """The reference's day/pass loop at the flagship's width: two days of
+    two passes, each one seeded MultiSlot file of 16 batches of B=2048
+    (day 2's with 5% new keys), over 4,194,304 prepopulated rows on device
+    prep, delta saves at each pass end and a base with the dense state at
+    each day end, then ``barrier()``; a resume into a fresh table and
+    trainer; day 1 over a host-prep twin (``MtIndex``); the dataset pass
+    with and without the dirty mark, in turns."""
+    card = card_line()
+    conf, tconf, _ = train_confs()
+    os.makedirs(WORK, exist_ok=True)
+    days, fresh = [], HOT_VOCAB + 1
+    for day, new in LOOP_DAYS:
+        files = []
+        for j in range(2):
+            path = os.path.join(WORK, f"loop-{day}-{j}")
+            write_trainer_file(rng, path, fresh if new else 0)
+            fresh += (HOT_VOCAB + 1) if new else 0
+            files.append(path)
+        days.append((day, files))
+    model = random_deepfm(rng, TS * conf.pull_dim)
+    twin_model = copy.deepcopy(model)
+    root = os.path.join(WORK, "loop-model")
+    tr, pm, writer = loop_world(conf, tconf, model, 1, root)
+    require(tr.step.device_prep and tr.table.dirty_dev is not None,
+            "pass loop: device prep off")
+    loop_s, out = timed_secs(lambda: drive_loop(tr, pm, days, "pass loop",
+                                                True))
+    n_batches = int(sum(p["metrics"]["ins_num"] for p in out["passes"]))
+    n_batches //= TB
+    require(trail_kinds(root) == [(d, k) for d, _ in LOOP_DAYS
+                                  for k in ("delta", "delta", "base")],
+            f"pass loop: donefile trail {trail_kinds(root)}")
+    rows_per_delta = []
+    for p in out["passes"]:
+        dkeys = npz_by_key(delta_file(root, p["day"], p["pass_id"]))[0]
+        require(np.array_equal(dkeys, p["keys"]),
+                f"pass loop: pass {p['pass_id']}'s delta holds "
+                f"{dkeys.size} keys, its batches touched {p['keys'].size}")
+        require(np.array_equal(p["marked"], p["keys"]),
+                f"pass loop: pass {p['pass_id']}: the push kernel marked "
+                f"{p['marked'].size} rows, the batches touched "
+                f"{p['keys'].size} keys")
+        rows_per_delta.append(int(dkeys.size))
+    pm.close()
+    commit = [(label, round(secs, 4)) for label, secs in writer.commit_s]
+    print(f"pass loop: 2 days x 2 passes of {TRAINER_FILE_BATCHES} "
+          f"batches (B={TB}, {n_batches} in all) over {HOT_VOCAB} "
+          f"prepopulated rows, device prep; launches {out['launches']}; "
+          f"trail {[k for _, k in trail_kinds(root)]}; every delta holds "
+          f"exactly its pass's keys and the push kernel marked exactly "
+          f"those rows; {loop_s:.2f} s in all [{card}]")
+    print(f"pass loop: synchronous snapshot ms: deltas "
+          f"{[round(p['snapshot_ms'], 4) for p in out['passes']]}, bases "
+          f"{[round(b['snapshot_ms'], 4) for b in out['bases']]}; end_pass "
+          f"ms (decay, snapshot, submit) "
+          f"{[round(p['end_pass_ms'], 4) for p in out['passes']]}; rows "
+          f"per delta {rows_per_delta}; rows per base "
+          f"{len(tr.table)} [{card}]")
+    print(f"pass loop: writer commit s (serialize, compress, manifest, "
+          f"rename, donefile) {commit}; the training thread waited "
+          f"{out['barrier_s']:.4f} s in barrier() [{card}]")
+
+    # resume into a fresh table and trainer
+    fresh_tr, fresh_pm, _ = loop_world(
+        conf, tconf, random_deepfm(np.random.default_rng(99),
+                                   TS * conf.pull_dim),
+        1, root, rows=0)
+    resume_s, got = timed_secs(lambda: fresh_pm.resume(
+        dense_template=(fresh_tr.params, fresh_tr.opt_state)))
+    fresh_pm.close()
+    require(got[:2] == (LOOP_DAYS[-1][0], pm.pass_id),
+            f"pass loop: resumed version {got[:2]}")
+    require_same_training("pass loop: resume vs the live trainer",
+                          (fresh_tr.table, fresh_tr.params,
+                           fresh_tr.opt_state, None),
+                          (tr.table, tr.params, tr.opt_state, None))
+    print(f"pass loop: resume (verify, load the base of {len(tr.table)} "
+          f"rows, dense state) {resume_s:.4f} s; rows by key, dense params, "
+          f"adam's count ({int(fresh_tr.opt_state['count'])}), mu and nu "
+          f"bit for bit against the live trainer [{card}]")
+
+    # day 1 over a host-prep twin: its deltas equal device prep's by key
+    twin_root = os.path.join(WORK, "loop-host-prep")
+    htr, hpm, _ = loop_world(conf, tconf, twin_model, 4, twin_root)
+    require(not htr.step.device_prep and
+            type(htr.table._index).__name__ == "MtIndex",
+            "pass loop: the twin is not host prep over an MtIndex")
+    hout = drive_loop(htr, hpm, days[:1], "pass loop, host prep", False)
+    hpm.close()
+    for p in hout["passes"]:
+        a = npz_by_key(delta_file(twin_root, p["day"], p["pass_id"]))
+        b = npz_by_key(delta_file(root, p["day"], p["pass_id"]))
+        require(all(np.array_equal(x, y) for x, y in zip(a, b)),
+                f"pass loop: pass {p['pass_id']}'s delta differs between "
+                "host prep and device prep")
+    print(f"pass loop, host-prep twin (index_threads=4, MtIndex): day 1's "
+          f"deltas ({[int(p['keys'].size) for p in hout['passes']]} rows) "
+          f"equal device prep's by key, values and state bit for bit; "
+          f"snapshot ms {[round(p['snapshot_ms'], 4) for p in hout['passes']]}"
+          f" [{card}]")
+    del htr, hpm
+
+    # the dataset pass with the mark and without it (the bitmap detached:
+    # the push launches as before the mark), in turns
+    ds = SlotDataset(trainer_feed_conf(),
+                     buckets=BucketSpec(min_size=TNPAD, max_size=1 << 18))
+    ds.set_filelist(days[0][1][:1])
+    ds.load_into_memory()
+    n = ds.num_instances() // TB
+    bitmap = tr.table.dirty_dev
+    turns = {"mark": [], "no_mark": []}
+    for who in ("mark", "no_mark", "no_mark", "mark") * 2:
+        tr.table.dirty_dev = bitmap if who == "mark" else None
+        tr.reset_metrics()
+        secs, _ = timed_secs(lambda: tr.train_from_dataset(ds))
+        turns[who].append(secs / n * 1e3)
+    tr.table.dirty_dev = bitmap
+    print(f"timing pass loop: train_from_dataset ms/step over {n} batches, "
+          f"in turns: with the dirty mark {turns['mark']}, without "
+          f"{turns['no_mark']} [{card}]")
+    return {"launches": out["launches"], "loop_s": loop_s,
+            "delta_snapshot_ms": [p["snapshot_ms"] for p in out["passes"]],
+            "base_snapshot_ms": [b["snapshot_ms"] for b in out["bases"]],
+            "rows_per_delta": rows_per_delta, "commit_s": commit,
+            "barrier_s": out["barrier_s"], "resume_s": resume_s,
+            "turns_ms": turns}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -2245,10 +2568,10 @@ def push_bound(layout, demb, inv, urows, umask) -> Tuple[int, int]:
 def time_push(inputs) -> dict:
     """Push at the training shape, the wrapper's merge order (stable sort
     of ``inverse`` and the boundary kernel) included, and the push kernel
-    alone on a precomputed merge order; the sort alone beside them.
-    Library yardstick: ``index_add_`` of demb into [Upad, D], the merge
-    only. Each call trains the arena copies further; the work per call
-    stays."""
+    alone on a precomputed merge order, with and without the dirty mark
+    (in turns); the sort alone beside them. Library yardstick:
+    ``index_add_`` of demb into [Upad, D], the merge only. Each call
+    trains the arena copies further; the work per call stays."""
     layout, values, state, demb, inv, urows, umask = inputs
     upad = urows.shape[0]
     pv, ps = values.clone(), state.clone()
@@ -2260,12 +2583,31 @@ def time_push(inputs) -> dict:
                                         umask),
               lambda: merged.index_add_(0, inv_l, demb))
     order, offsets = merge_order(inv, upad)
+    dirty = torch.zeros(values.shape[0], dtype=torch.bool, device="cuda")
 
     def kernel():
         push_rows(layout, values, state, demb, order, offsets, urows, umask)
 
+    def marking():
+        push_rows(layout, values, state, demb, order, offsets, urows, umask,
+                  dirty)
+
     t["kernel_ms"] = cuda_ms(kernel, ITERS)
     t["kernel_graph_ms"] = graph_ms(kernel)
+    # the kernel as device prep launches it, marking the bitmap, beside
+    # the kernel without it (host prep's, and every step's before the
+    # mark), in turns
+    t["kernel_graph_turns_ms"], t["mark_graph_turns_ms"] = in_turns(
+        kernel, marking)
+    t["mark_ms"] = cuda_ms(marking, ITERS)
+    t["mark_graph_ms"] = float(np.mean(t["mark_graph_turns_ms"]))
+    t["mark_plain_graph_ms"] = graph_ms(lambda: (
+        sparse_push_plain(layout, pv, ps, demb, inv, urows, umask),
+        mark_dirty_plain(dirty, urows)))
+    # the kernel's bound with the mark: one byte a distinct marked row
+    t["mark_bytes"] = int(torch.unique(urows).numel())
+    t["mark_bound_ms"] = (push_bound(layout, demb, inv, urows, umask)[0] +
+                          t["mark_bytes"]) / HBM_BYTES_PER_S * 1e3
     t["sort_ms"] = cuda_ms(lambda: torch.sort(inv, stable=True), ITERS)
     t["sort_graph_ms"] = graph_ms(lambda: torch.sort(inv, stable=True))
     with_bound(t, *push_bound(layout, demb, inv, urows, umask))
@@ -2281,6 +2623,13 @@ def time_push(inputs) -> dict:
           f"({100 * t['bound_ms'] / t['kernel_graph_ms']:.1f}% of bound); "
           f"the stable sort of inverse alone, per call {t['sort_ms']:.5f} "
           f"ms, in a CUDA graph {t['sort_graph_ms']:.5f} ms")
+    print(f"timing {PUSH} training {opt}: the push kernel alone in a CUDA "
+          f"graph, in turns (plain launch, marking, marking, plain): "
+          f"without the dirty mark {t['kernel_graph_turns_ms']} ms, with "
+          f"it {t['mark_graph_turns_ms']} ms; with it per call "
+          f"{t['mark_ms']:.5f} ms, bound {t['mark_bound_ms']:.6f} ms "
+          f"({t['mark_bytes']} bytes of marks); plain push and plain mark "
+          f"in a CUDA graph {t['mark_plain_graph_ms']:.5f} ms")
     return t
 
 
@@ -2513,6 +2862,7 @@ def main() -> int:
                                        train_init)
         trainer = phase_trainer(np.random.default_rng([args.seed, 11]))
         growth = phase_graph_growth(np.random.default_rng([args.seed, 13]))
+        loop = phase_pass_loop(np.random.default_rng([args.seed, 17]))
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
@@ -2539,7 +2889,9 @@ def main() -> int:
           f"the trainer's batches: run graphs "
           f"{trainer['path_ms']['graph']:.4f}, eager run loop "
           f"{trainer['path_ms']['eager']:.4f}, hand loop "
-          f"{trainer['path_ms']['hand']:.4f} ms/step")
+          f"{trainer['path_ms']['hand']:.4f} ms/step; pass loop "
+          f"{loop['loop_s']:.2f} s for 4 passes, barrier wait "
+          f"{loop['barrier_s']:.4f} s, resume {loop['resume_s']:.4f} s")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
 
@@ -2551,7 +2903,8 @@ def main() -> int:
                      wrapper.__name__],
                  "trainer_files": trainer["files_launches"][
                      wrapper.__name__],
-                 "run_graphs_growth": growth["launches"][wrapper.__name__]}
+                 "run_graphs_growth": growth["launches"][wrapper.__name__],
+                 "pass_loop": loop["launches"][wrapper.__name__]}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}
 
@@ -2570,6 +2923,8 @@ def main() -> int:
         {"name": PUSH, "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/sparse_push.cu",
          "replaces": "paddlebox_tpu/ps/device_table.py:189",
+         # the dirty mark folded in: the device-prep step's scatter
+         "also_replaces": "paddlebox_tpu/trainer/fused_step.py:373",
          **by_path(sparse_push_cuda),
          "max_abs_err": push_err, **push_timing,
          "ptxas": [r for r in ptxas[PUSH] if r["name"].startswith(

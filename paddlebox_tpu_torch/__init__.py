@@ -16,7 +16,12 @@ Ported so far:
   ``trainer.fused_step.FusedTrainStep`` (host prep, or device prep over
   ``ps.native`` and the index mirror ``ps.device_index``) over a
   ``ps.device_table.DeviceTable``, with hand-written CUDA kernels for the
-  seqpool forward and backward, the push and the key dedup and probe.
+  seqpool forward and backward, the push and the key dedup and probe;
+- the day/pass loop: ``trainer.pass_manager.PassManager`` over
+  ``ps.server.SparsePS``, with delta and base saves through ``ckpt`` (the
+  atomic commit, the background writer, retention, discovery), the
+  donefile (``trainer.donefile``) and ``resume``, in the reference's
+  checkpoint layout.
 """
 
 from paddlebox_tpu_torch._device import resolve_device

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Any, Dict, List
 
 # default of the reference's ``batch_bucket_growth`` flag
@@ -172,3 +173,17 @@ def batch_bucket_spec(min_size: int = 1024,
     """Default BucketSpec of the batch padding path (assembler, readers)."""
     return BucketSpec(min_size=min_size, max_size=max_size,
                       growth=BATCH_BUCKET_GROWTH)
+
+
+def refuse_flags(refused) -> None:
+    """Raise ``NotImplementedError`` for the first of ``refused``, (flag,
+    ROADMAP item, feature) triples, that is turned on through the
+    reference's environment variable ``PBOX_FLAGS_<flag>`` (set unless
+    empty, 0 or false). The port keeps no flag registry; its entry points
+    refuse the flags of features it has not ported."""
+    for flag, item, what in refused:
+        value = os.environ.get("PBOX_FLAGS_" + flag, "").strip().lower()
+        if value not in ("", "0", "0.0", "false", "no", "off"):
+            raise NotImplementedError(
+                f"PBOX_FLAGS_{flag} asks for {what}, which is not ported "
+                f"yet (ROADMAP {item})")

@@ -16,6 +16,15 @@
 // A unique that is not live (padding uniques, key 0, unknown keys: all at
 // row 0) writes nothing; a masked group keeps w and state untouched.
 //
+// The dirty mark: given a bitmap `dirty` [cap] (bool, one byte a row; null:
+// no mark), every unique u, live or not, stores dirty[uniq_rows[u]] = 1 from
+// its group's lane 0, right after round 1 loads the row. That is the
+// reference's dirty.at[uniq_rows].set(True) in its device-prep step
+// (paddlebox_tpu/trainer/fused_step.py:373, an XLA scatter), here without
+// a launch of its own: one byte store a unique beside the ~15.6 MB the push
+// moves at the training shape. Live rows are distinct; the padding
+// uniques all store the same byte to row 0, which no save reads.
+//
 // Merging without atomics: the wrapper sorts `inverse` stably on the card
 // (`order`, the key positions grouped by unique, ascending within each) and
 // merge_offsets_kernel turns the sorted inverse into `offsets` [n_uniq + 1],
@@ -99,6 +108,7 @@ struct PushArgs {
   const int* offsets;          // [n_uniq + 1]
   const int* uniq_rows;        // [n_uniq]
   const float* uniq_mask;      // [n_uniq]
+  uint8_t* dirty;              // [cap] or null
   int n_uniq, dim, state_dim, log2g;
   float lr, g2sum0, threshold;
   Groups groups;
@@ -157,6 +167,9 @@ __global__ void __launch_bounds__(kThreads)
   const int k1 = __ldg(a.offsets + u + 1);
   const bool act = live > 0.0f;
   const int kend = act ? k1 : k0;  // a dead unique merges nothing
+  if (a.dirty != nullptr && l == 0) {
+    a.dirty[row] = 1;
+  }
 
   // round 2: the row's columns, the state, the first `order` entries
   float* vrow = a.values + static_cast<int64_t>(row) * a.dim;
@@ -355,15 +368,16 @@ int pbx_merge_offsets(const void* sorted_inv, void* offsets, int64_t n_keys,
 
 // values [cap, dim], state [cap, state_dim], demb [n_keys, dim], order
 // [n_keys] int64, offsets [n_uniq + 1] int32, uniq_rows [n_uniq] int32,
-// uniq_mask [n_uniq]; group_desc is a host array of n_groups x (start,
-// width, gated, soff); group_lanes (G) and cols (C) come from
-// push_geometry. Returns a cudaError_t (0 = launched).
+// uniq_mask [n_uniq], dirty [cap] bytes or null; group_desc is a host
+// array of n_groups x (start, width, gated, soff); group_lanes (G) and cols
+// (C) come from push_geometry. Returns a cudaError_t (0 = launched).
 int pbx_sparse_push(void* values, void* state, const void* demb,
                     const void* order, const void* offsets,
                     const void* uniq_rows, const void* uniq_mask,
-                    int64_t n_uniq, int dim, int state_dim, int n_groups,
-                    const int* group_desc, int opt, int group_lanes, int cols,
-                    float lr, float g2sum0, float threshold, void* stream) {
+                    void* dirty, int64_t n_uniq, int dim, int state_dim,
+                    int n_groups, const int* group_desc, int opt,
+                    int group_lanes, int cols, float lr, float g2sum0,
+                    float threshold, void* stream) {
   if (n_uniq <= 0) {
     return 0;
   }
@@ -385,6 +399,7 @@ int pbx_sparse_push(void* values, void* state, const void* demb,
   a.offsets = static_cast<const int*>(offsets);
   a.uniq_rows = static_cast<const int*>(uniq_rows);
   a.uniq_mask = static_cast<const float*>(uniq_mask);
+  a.dirty = static_cast<uint8_t*>(dirty);
   a.n_uniq = static_cast<int>(n_uniq);
   a.dim = dim;
   a.state_dim = state_dim;

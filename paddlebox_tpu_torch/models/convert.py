@@ -8,11 +8,15 @@ each layer ``i`` in the string order of ``Dense_<i>``, then the scalar
 ``bias``; for Wide&Deep ``deep/Dense_i/{bias, kernel}``, then
 ``wide/{bias, kernel}``. flax kernels are ``[in, out]``;
 ``nn.Linear.weight`` is ``[out, in]``.
+
+``flax_order`` gives that order for a module's own parameters, so that
+tensors kept per parameter (an optimizer's ``mu``, ``nu``) follow it too
+(``utils/checkpoint.py`` ``dense_arrays``).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +47,25 @@ def _set_linear(layer: nn.Linear, kernel: np.ndarray, bias: np.ndarray,
 def _linear_leaves(layer: nn.Linear) -> List[np.ndarray]:
     return [layer.bias.detach().cpu().numpy().copy(),
             layer.weight.detach().cpu().numpy().T.copy()]
+
+
+def flax_order(model: nn.Module) -> List[Tuple[int, bool]]:
+    """For each flax leaf of ``model`` (a ``DeepFM`` or ``WideDeep``), in
+    the leaf order: the index of its tensor in ``model.parameters()`` and
+    whether flax keeps it transposed (a kernel)."""
+    if isinstance(model, DeepFM):
+        layers, tail = model.mlp.layers, [(model.bias, False)]
+    elif isinstance(model, WideDeep):
+        layers = model.deep.layers
+        tail = [(model.wide.bias, False), (model.wide.weight, True)]
+    else:
+        raise TypeError(f"no flax leaf order for {type(model).__name__} "
+                        "(DeepFM and WideDeep have one)")
+    slots = []
+    for i in _layer_order(len(layers)):
+        slots += [(layers[i].bias, False), (layers[i].weight, True)]
+    index = {id(p): j for j, p in enumerate(model.parameters())}
+    return [(index[id(p)], kernel) for p, kernel in slots + tail]
 
 
 def deepfm_from_flax_leaves(leaves: Sequence[np.ndarray],

@@ -15,6 +15,14 @@ boundary kernel (``merge_order``; ``merge_order_plain`` is its plain
 version), or from the caller: device-prep's dedup gives it.
 ``push_geometry`` fixes how the kernel spreads a row over lanes.
 
+The kernel also marks the step's rows dirty: given ``dirty``, a bool
+bitmap [cap] (``DeviceTable.dirty_dev``), each unique's owner stores
+``dirty[uniq_rows[u]] = True``, padding uniques' row 0 included. That is
+the reference's ``dirty.at[uniq_rows].set(True)`` in its device-prep step
+(``paddlebox_tpu/trainer/fused_step.py:373``, an XLA scatter), folded into
+the launch the push makes anyway; ``mark_dirty_plain`` is its plain
+version.
+
 Inputs: ``values [cap, D]``, ``state [cap, max(state_dim, 1)]``,
 ``demb [Npad, D]`` (columns 0, 1 carry the show/clk increments),
 ``inverse [Npad]`` int32 position of each key's unique, ``uniq_rows
@@ -35,6 +43,11 @@ if TYPE_CHECKING:
     from paddlebox_tpu_torch.ps.device_table import ArenaLayout
 
 _OPTIMIZERS = {"sgd": 0, "adagrad": 1, "adam": 2}
+
+
+def mark_dirty_plain(dirty: torch.Tensor, uniq_rows: torch.Tensor) -> None:
+    """Mark every unique's row in the bool bitmap ``dirty``, in place."""
+    dirty.index_fill_(0, uniq_rows.long(), True)
 
 
 def sparse_push_plain(layout: "ArenaLayout", values: torch.Tensor,
@@ -109,7 +122,7 @@ def group_desc(layout: "ArenaLayout") -> ctypes.Array:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("sparse_push")
     fn = lib.pbx_sparse_push
-    fn.argtypes = [ctypes.c_void_p] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
@@ -186,7 +199,8 @@ def merge_order(inverse: torch.Tensor, upad: int
 def push_rows(layout: "ArenaLayout", values: torch.Tensor,
               state: torch.Tensor, demb: torch.Tensor, order: torch.Tensor,
               offsets: torch.Tensor, uniq_rows: torch.Tensor,
-              uniq_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+              uniq_mask: torch.Tensor, dirty: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the push kernel on the current stream, given the merge order
     of ``merge_order``; the other inputs as ``sparse_push_cuda`` checks
     them. Counts each launch in ``sparse_push_cuda.launches``."""
@@ -207,7 +221,8 @@ def push_rows(layout: "ArenaLayout", values: torch.Tensor,
     _raise_on(lib, lib.pbx_sparse_push(
         values.data_ptr(), state.data_ptr(), demb.data_ptr(),
         order.data_ptr(), offsets.data_ptr(), uniq_rows.data_ptr(),
-        uniq_mask.data_ptr(), upad, dim, state.shape[1], len(layout.groups),
+        uniq_mask.data_ptr(), None if dirty is None else dirty.data_ptr(),
+        upad, dim, state.shape[1], len(layout.groups),
         layout.push_desc, _OPTIMIZERS[conf.optimizer], lanes, cols,
         conf.learning_rate, conf.initial_g2sum, conf.embedx_threshold,
         stream), "sparse_push")
@@ -219,12 +234,15 @@ def sparse_push_cuda(layout: "ArenaLayout", values: torch.Tensor,
                      state: torch.Tensor, demb: torch.Tensor,
                      inverse: torch.Tensor, uniq_rows: torch.Tensor,
                      uniq_mask: torch.Tensor,
-                     merge: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                     merge: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     dirty: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort ``inverse`` on the card, find each unique's keys with the
     boundary kernel, then launch the push kernel, all on the current
     stream; ``merge`` gives the merge order (``order``, ``offsets``) in
-    place of the sort and the boundary kernel. Precondition, not checked:
+    place of the sort and the boundary kernel, and the kernel marks each
+    unique's row in ``dirty`` (a bool [cap] bitmap) when it is given.
+    Precondition, not checked:
     the live uniques' rows are distinct and below the arena's capacity,
     ``inverse`` is in ``[0, Upad)`` and ``merge`` is ``merge_order``'s of
     it. Counts each launch in ``sparse_push_cuda.launches``."""
@@ -256,13 +274,18 @@ def sparse_push_cuda(layout: "ArenaLayout", values: torch.Tensor,
                          f"{layout.state_dim}")
     if uniq_mask.shape != uniq_rows.shape:
         raise ValueError("uniq_mask and uniq_rows differ in shape")
+    if dirty is not None and (
+            dirty.device != dev or dirty.dtype != torch.bool or
+            dirty.shape != (values.shape[0],) or not dirty.is_contiguous()):
+        raise ValueError(f"sparse_push_cuda: dirty must be a contiguous "
+                         f"bool [{values.shape[0]}] tensor on {dev}")
     upad = uniq_rows.shape[0]
     if upad == 0:
         return values, state
     order, offsets = merge if merge is not None else \
         merge_order(inverse, upad)
     return push_rows(layout, values, state, demb, order, offsets, uniq_rows,
-                     uniq_mask)
+                     uniq_mask, dirty)
 
 
 sparse_push_cuda.launches = 0
@@ -272,14 +295,19 @@ def sparse_push(layout: "ArenaLayout", values: torch.Tensor,
                 state: torch.Tensor, demb: torch.Tensor,
                 inverse: torch.Tensor, uniq_rows: torch.Tensor,
                 uniq_mask: torch.Tensor,
-                merge: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                merge: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                dirty: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel for CUDA tensors (with ``merge`` as the merge order when
-    given), the plain version for CPU ones."""
+    given), the plain versions for CPU ones; each marks the uniques' rows
+    in ``dirty`` when it is given."""
     if values.is_cuda:
         return sparse_push_cuda(layout, values, state, demb, inverse,
-                                uniq_rows, uniq_mask, merge)
+                                uniq_rows, uniq_mask, merge, dirty)
     if values.device.type != "cpu":
         raise ValueError(f"sparse_push: unsupported device {values.device}")
-    return sparse_push_plain(layout, values, state, demb, inverse, uniq_rows,
-                             uniq_mask)
+    sparse_push_plain(layout, values, state, demb, inverse, uniq_rows,
+                      uniq_mask)
+    if dirty is not None:
+        mark_dirty_plain(dirty, uniq_rows)
+    return values, state

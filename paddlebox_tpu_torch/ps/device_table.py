@@ -39,6 +39,19 @@ carries a reference table's arena across for parity runs.
 
 Snapshots use the canonical ``table.npz`` layout (``keys``, ``values``,
 ``state``), which loads in either package.
+
+Delta tracking, as the reference's: a row is dirty once a step or a load
+touched it since the last save. The host marks ``_dirty`` [capacity] in
+``insert_keys`` and ``prepare_batch(create=True)`` (host prep, a feed pass,
+``load_delta``); a device-prep step marks ``dirty_dev``, a bool bitmap on
+the table's device that ``enable_device_index`` makes, inside the push
+kernel (``ops/sparse_push.py``), reading nothing back. ``fetch_dirty_rows``
+ORs the two (one read of the bitmap), ``snapshot_delta`` copies those rows
+to the host, and ``snapshot``, ``snapshot_delta`` and ``load`` clear both,
+the bitmap in place, so that a captured run (``trainer/step_graph.py``)
+goes on marking the same tensor. Row 0 never persists. As in the
+reference, there is no ``mark_dirty``: the rows of a commit that fails are
+not marked again.
 """
 
 from __future__ import annotations
@@ -51,12 +64,12 @@ import numpy as np
 import torch
 
 from paddlebox_tpu_torch._device import DeviceLike, resolve_device
+from paddlebox_tpu_torch.ckpt.atomic import write_npz
 from paddlebox_tpu_torch.config import BucketSpec, TableConfig
 from paddlebox_tpu_torch.ops import sparse_optim
 from paddlebox_tpu_torch.ops.sparse_push import group_desc, sparse_push
 from paddlebox_tpu_torch.ps import native
 from paddlebox_tpu_torch.ps.device_index import DeviceIndexMirror
-from paddlebox_tpu_torch.utils.checkpoint import write_npz
 
 # reserved key of the null row in a rebuilt index (a feature hash of 2^64 - 2
 # would collide with it, as in the reference)
@@ -137,14 +150,17 @@ class ArenaLayout:
     def push(self, values: torch.Tensor, state: torch.Tensor,
              demb: torch.Tensor, inverse: torch.Tensor,
              uniq_rows: torch.Tensor, uniq_mask: torch.Tensor,
-             merge: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+             merge: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+             dirty: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Merge per-key grads by unique row and apply the in-table
         optimizer, in place (``ops.sparse_push``: the kernel on the card).
         ``merge``, the merge order (``order``, ``offsets``) when the caller
-        has it (device-prep's dedup), saves the kernel's own sort."""
+        has it (device-prep's dedup), saves the kernel's own sort;
+        ``dirty``, the device dirty bitmap, gets every unique's row
+        marked."""
         return sparse_push(self, values, state, demb, inverse, uniq_rows,
-                           uniq_mask, merge)
+                           uniq_mask, merge, dirty)
 
 
 def resolve_backend(backend: Optional[str]) -> str:
@@ -248,8 +264,12 @@ class DeviceTable:
                            if index_threads > 1 else native.NativeIndex())
         else:
             self._index = SortedIndex()
-        # the index's device mirror, for device-prep training
+        # the index's device mirror and the device dirty bitmap, for
+        # device-prep training
         self.mirror: Optional[DeviceIndexMirror] = None
+        self.dirty_dev: Optional[torch.Tensor] = None
+        # rows touched since the last save (host-side marks)
+        self._dirty = np.zeros(self.capacity, dtype=bool)
         self._alloc_seq = 0
         self.values, self.state = self._alloc(self.capacity)
 
@@ -269,6 +289,13 @@ class DeviceTable:
         vals[:self.capacity] = self.values
         state[:self.capacity] = self.state
         self.values, self.state = vals, state
+        dirty = np.zeros(new_cap, dtype=bool)
+        dirty[:self.capacity] = self._dirty
+        self._dirty = dirty
+        if self.dirty_dev is not None:
+            dev = torch.zeros(new_cap, dtype=torch.bool, device=self.device)
+            dev[:self.capacity] = self.dirty_dev
+            self.dirty_dev = dev
         self.capacity = new_cap
 
     def _add_rows(self, n_new: int) -> None:
@@ -282,14 +309,17 @@ class DeviceTable:
     def enable_device_index(self) -> DeviceIndexMirror:
         """Mirror the key index on the table's device, so that a
         device-prep step dedups and resolves keys there
-        (``trainer/fused_step.py`` ``device_prep``). Needs the native
-        single-map index (slot export)."""
+        (``trainer/fused_step.py`` ``device_prep``), and make the device
+        dirty bitmap that the step marks. Needs the native single-map
+        index (slot export)."""
         if self.mirror is None:
             if not isinstance(self._index, native.NativeIndex):
                 raise RuntimeError(
                     "device index needs backend='native' with "
                     f"index_threads<=1 (got {type(self._index).__name__})")
             self.mirror = DeviceIndexMirror(self._index, self.device)
+            self.dirty_dev = torch.zeros(self.capacity, dtype=torch.bool,
+                                         device=self.device)
         return self.mirror
 
     def insert_keys(self, keys: np.ndarray) -> int:
@@ -300,8 +330,28 @@ class DeviceTable:
         _, _, _, n_new, slots, hi, lo, rows = self._index.prepare_dev(
             keys, True, skip_zero=True, next_row=self._size)
         self._add_rows(n_new)
+        if n_new:
+            self._dirty[rows] = True
         self.mirror.apply_updates(slots, hi, lo, rows)
         return int(n_new)
+
+    def fetch_dirty_rows(self) -> np.ndarray:
+        """Rows touched since the last save, ascending: the host marks OR
+        the device bitmap (one read of it, which waits for the queued
+        steps). Row 0 never persists."""
+        n = self._size
+        dirty = self._dirty[:n].copy()
+        if self.dirty_dev is not None:
+            dirty |= self.dirty_dev[:n].cpu().numpy()
+        dirty[0] = False
+        return np.flatnonzero(dirty)
+
+    def _clear_dirty(self) -> None:
+        """Clear both marks; the bitmap in place (a captured run keeps
+        marking the same tensor)."""
+        self._dirty[:] = False
+        if self.dirty_dev is not None:
+            self.dirty_dev.zero_()
 
     def ensure_keys(self, keys: np.ndarray) -> int:
         """Insert the batch's non-zero keys that the index lacks before the
@@ -337,6 +387,9 @@ class DeviceTable:
             urows = np.where(urows < 0, 0, urows).astype(np.int32)
             rows = urows[inverse]
         self._add_rows(n_new)
+        if create:
+            self._dirty[urows] = True
+            self._dirty[0] = False
         nu = urows.size
         upad = self.uniq_buckets.bucket(max(int(nu), 1))
         uniq_rows = np.zeros(upad, dtype=np.int32)
@@ -359,11 +412,12 @@ class DeviceTable:
     def device_push(self, values: torch.Tensor, state: torch.Tensor,
                     demb: torch.Tensor, inverse: torch.Tensor,
                     uniq_rows: torch.Tensor, uniq_mask: torch.Tensor,
-                    merge: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    merge: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    dirty: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """See ``ArenaLayout.push`` (in place)."""
         return self.layout.push(values, state, demb, inverse, uniq_rows,
-                                uniq_mask, merge)
+                                uniq_mask, merge, dirty)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -426,31 +480,79 @@ class DeviceTable:
         self.capacity = cap
         self.values = torch.from_numpy(values.copy()).to(self.device)
         self.state = torch.from_numpy(state.copy()).to(self.device)
+        self._dirty = np.zeros(cap, dtype=bool)
+        if self.dirty_dev is not None:
+            self.dirty_dev = torch.zeros(cap, dtype=torch.bool,
+                                         device=self.device)
 
     # -- persistence ---------------------------------------------------------
 
     def snapshot(self) -> Dict[str, np.ndarray]:
-        """Host copy of every used row in the canonical layout."""
+        """Host copy of every used row in the canonical layout (a copy on
+        the CPU too, so later steps do not change it); clears the dirty
+        marks. The copy half of an asynchronous save."""
         n = self._size
-        return {"keys": self.row_keys()[1:],
-                "values": self.values[1:n].cpu().numpy(),
-                "state": self.state[1:n].cpu().numpy()}
+        snap = {"keys": self.row_keys()[1:],
+                "values": self.values[1:n].to("cpu", copy=True).numpy(),
+                "state": self.state[1:n].to("cpu", copy=True).numpy()}
+        self._clear_dirty()
+        return snap
+
+    def snapshot_delta(self) -> Dict[str, np.ndarray]:
+        """Host copy of the rows touched since the last save (only they
+        cross to the host); clears the dirty marks."""
+        rows = self.fetch_dirty_rows()
+        idx = torch.from_numpy(rows).to(self.device)
+        snap = {"keys": self.row_keys()[rows],
+                "values": self.values[idx].cpu().numpy(),
+                "state": self.state[idx].cpu().numpy()}
+        self._clear_dirty()
+        return snap
+
+    def snapshot_parts(self, delta: bool = False
+                       ) -> Dict[str, Dict[str, np.ndarray]]:
+        """The snapshot files of a save, by name suffix (one here)."""
+        return {"": self.snapshot_delta() if delta else self.snapshot()}
 
     def save(self, path: str) -> None:
         write_npz(path, self.snapshot())
 
-    def load(self, path: str) -> None:
+    def save_delta(self, path: str) -> int:
+        """Write the delta snapshot; returns its row count."""
+        snap = self.snapshot_delta()
+        write_npz(path, snap)
+        return int(snap["keys"].size)
+
+    def _read_snapshot(self, path: str):
         with np.load(path) as data:
             keys = np.ascontiguousarray(data["keys"], dtype=np.uint64)
             vals = np.asarray(data["values"], dtype=np.float32)
             st = np.asarray(data["state"], dtype=np.float32)
-        n = keys.size + 1
         if vals.shape != (keys.size, self.dim) or \
                 st.shape != (keys.size, max(self.state_dim, 1)):
             raise ValueError(
                 f"snapshot of {keys.size} keys has values {vals.shape} and "
                 f"state {st.shape}; expected D={self.dim}, "
                 f"state_dim={self.state_dim}")
+        return keys, vals, st
+
+    def load_delta(self, path: str) -> None:
+        """Apply a delta snapshot: its keys go through
+        ``prepare_batch(create=True)`` (new ones get rows, all are marked
+        dirty, as in the reference), then their rows are overwritten."""
+        keys, vals, st = self._read_snapshot(path)
+        if not keys.size:
+            return
+        rows = torch.from_numpy(
+            self.prepare_batch(keys, create=True).rows.astype(np.int64))
+        rows = rows.to(self.device)
+        self.values[rows] = torch.from_numpy(vals).to(self.device)
+        self.state[rows] = torch.from_numpy(st).to(self.device)
+
+    def load(self, path: str) -> None:
+        """Replace the table with a snapshot; clears the dirty marks."""
+        keys, vals, st = self._read_snapshot(path)
+        n = keys.size + 1
         if n > self.capacity:
             self._grow_to(n)
         # a warm table must not leak its old rows into later inserts
@@ -460,3 +562,4 @@ class DeviceTable:
         self._rebuild(keys)
         self.values[1:n] = torch.from_numpy(vals).to(self.device)
         self.state[1:n] = torch.from_numpy(st).to(self.device)
+        self._clear_dirty()

@@ -22,7 +22,10 @@ update. The arenas never leave the device and are updated in place.
   the dedup (K5) numbers the uniques, in ascending key order with Upad =
   Npad, and its write pass probes the mirror for their rows (K6 folded
   in); the dedup's sorted positions and offsets are the push's merge
-  order, so the push sorts nothing itself.
+  order, so the push sorts nothing itself, and the push kernel marks the
+  step's rows in the table's device dirty bitmap (``dirty_dev``), as the
+  reference's step sets ``dirty`` (host prep's rows are marked on the
+  host, in ``prepare_batch``).
 
 Both rebuild ``rows = uniq_rows[inverse]`` and ``uniq_mask = uniq_rows > 0``
 on the device. Each phase runs in a ``torch.profiler.record_function`` span
@@ -264,10 +267,11 @@ class FusedTrainStep:
               auc_state: Dict[str, torch.Tensor], segs: torch.Tensor,
               inverse: torch.Tensor, uniq_rows: torch.Tensor,
               cvm: torch.Tensor, labels: torch.Tensor, dense: torch.Tensor,
-              mask: torch.Tensor, merge=None):
+              mask: torch.Tensor, merge=None, dirty=None):
         """The step body both entries share, from the device index arrays
         on: pull, forward, backward, dense update, push (with ``merge`` as
-        its merge order when given), metrics."""
+        its merge order and ``dirty`` as the bitmap it marks, when given),
+        metrics."""
         t = self.table
         with record_function("train_step.forward"):
             uniq_mask = (uniq_rows > 0).float()
@@ -284,7 +288,7 @@ class FusedTrainStep:
             opt_state = self.optimizer.update(params, opt_state)
         with record_function("train_step.push"):
             t.device_push(t.values, t.state, demb, inverse, uniq_rows,
-                          uniq_mask, merge)
+                          uniq_mask, merge, dirty)
         with record_function("train_step.metrics"):
             preds = preds.detach()
             p0 = preds if preds.dim() == 1 else preds[:, 0]
@@ -347,16 +351,17 @@ class FusedTrainStep:
         """The device half of ``step_device``: every input already on the
         table's device (``keys``, the padded uint64 keys viewed as int64),
         every non-zero key already in the index and its mirror
-        (``DeviceTable.ensure_keys``). The arenas and the mirror are read
-        at the call, so a growth or a resync before it is seen. Result as
-        ``step_device``'s."""
+        (``DeviceTable.ensure_keys``). The arenas, the dirty bitmap and the
+        mirror are read at the call, so a growth or a resync before it is
+        seen. Result as ``step_device``'s."""
         self._need_device_prep()
         t = self.table
         with record_function("train_step.dedup_probe"):
             dd, uniq_rows, _ = t.mirror.dedup_probe(keys)
         return self._step(params, opt_state, auc_state, segment_ids,
                           dd.inverse, uniq_rows, cvm_in, labels, dense,
-                          row_mask, merge=(dd.order, dd.offsets))
+                          row_mask, merge=(dd.order, dd.offsets),
+                          dirty=t.dirty_dev)
 
     # -- chunked and streamed entries ----------------------------------------
 

@@ -1,0 +1,259 @@
+"""The day/pass loop (counterpart of
+``paddlebox_tpu/trainer/pass_manager.py::PassManager``):
+
+    set_date(day)
+    begin_pass                      load (or adopt the preloaded buffer),
+                                    feed the pass's keys to the PS
+    preload_next                    parse pass N+1 in the background
+    ... train pass N ...            CTRTrainer.train_from_dataset
+    end_pass(save_delta)            show/clk decay, then a delta save
+    [at day end] save_base          the whole table, and the dense state
+    barrier                         every save durable and recorded
+
+Two datasets double-buffer the passes as in the reference. ``resume()``
+restores the tables (the last verified base, then its deltas) and the
+dense state from the donefile trail.
+
+A save pays only the host copy on the training thread
+(``SparsePS.snapshot_files``, ``utils/checkpoint.py::dense_arrays``);
+serialization, the atomic dir commit, the donefile append and retention
+run on the ``AsyncCheckpointWriter``. The layout is the reference's
+(``<root>/<day>/<pass:05d>/{base,delta}/<table>.npz``, ``manifest.json``,
+``donefile.jsonl``, ``dense.npz`` in ``leaf_%05d`` order), so a trail
+written by either package resumes in the other.
+
+The reference reads its queue depth, retries and kept bases from its flag
+registry; the port has none, and takes the flags' defaults as constants.
+Not ported, and refused with ``NotImplementedError`` when their
+``PBOX_FLAGS_<name>`` variable is set: ``fix_dayid`` (ROADMAP A.6) and
+``serve_quantized``, the int8 serving export (A.1). The reference's
+per-pass heartbeat, trace and postmortem dump are A.6 and have no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Any, Optional, Sequence, Tuple
+
+from paddlebox_tpu_torch.ckpt import atomic, discovery, faults, retention
+from paddlebox_tpu_torch.ckpt.writer import AsyncCheckpointWriter
+from paddlebox_tpu_torch.config import refuse_flags
+from paddlebox_tpu_torch.data.dataset import SlotDataset
+from paddlebox_tpu_torch.data.parser import IngestError
+from paddlebox_tpu_torch.ps.server import SparsePS
+from paddlebox_tpu_torch.trainer import donefile
+from paddlebox_tpu_torch.utils.checkpoint import dense_arrays
+from paddlebox_tpu_torch.utils.timer import SpanTimer
+
+# the reference's flag defaults
+CKPT_QUEUE_DEPTH = 2
+CKPT_RETRIES = 3
+CKPT_KEEP_BASES = 3
+
+# the reference's flags of features not ported here: (flag, ROADMAP item,
+# feature)
+_REFUSED_FLAGS = (
+    ("fix_dayid", "A.6", "a fixed day id for replays"),
+    ("serve_quantized", "A.1", "the int8 serving export of each save"),
+)
+
+
+class PassManager:
+    def __init__(self, ps: SparsePS, save_root: str,
+                 datasets: Sequence[SlotDataset],
+                 table_for_dataset: Optional[str] = None,
+                 writer: Optional[AsyncCheckpointWriter] = None,
+                 keep_bases: Optional[int] = None):
+        """``datasets``: 1 (simple) or 2 (double-buffered) datasets.
+        ``table_for_dataset``: the table fed the datasets' keys (default:
+        the PS's first). ``writer``: one writer shared across managers;
+        by default the manager builds its own and sweeps the staging spill
+        a crashed predecessor left under ``save_root``."""
+        refuse_flags(_REFUSED_FLAGS)
+        self.ps = ps
+        self.save_root = save_root
+        self.datasets = list(datasets)
+        if not self.datasets:
+            raise ValueError("need at least one dataset")
+        self.table_name = table_for_dataset or next(iter(ps.tables))
+        self.day: str = "19700101"
+        self.pass_id = 0
+        self.timer = SpanTimer(metric_prefix="pass")
+        self._buf = 0  # which dataset holds the current pass
+        self._prefetch_thread: Optional[threading.Thread] = None
+        self._prefetch_keys = None
+        self._writer = writer or AsyncCheckpointWriter(
+            max_queue=CKPT_QUEUE_DEPTH, retries=CKPT_RETRIES)
+        self.retention = retention.RetentionPolicy(
+            keep_bases=CKPT_KEEP_BASES if keep_bases is None
+            else int(keep_bases))
+        # only when this manager owns its writer: with a shared one,
+        # another manager may be committing under this root
+        if writer is None:
+            retention.prune_tmp(save_root)
+
+    # -- day/pass ------------------------------------------------------------
+
+    def set_date(self, day: str) -> None:
+        self.day = str(day)
+
+    @property
+    def current(self) -> SlotDataset:
+        return self.datasets[self._buf]
+
+    @property
+    def next_buffer(self) -> SlotDataset:
+        return self.datasets[(self._buf + 1) % len(self.datasets)]
+
+    def _join_prefetch(self) -> None:
+        if self._prefetch_thread is not None:
+            self._prefetch_thread.join()
+            self._prefetch_thread = None
+
+    def begin_pass(self, filelist: Sequence[str],
+                   preloaded: bool = False) -> SlotDataset:
+        """Open the next pass: load ``filelist`` (or adopt the preloaded
+        buffer) and feed the pass's keys to the PS. Returns the pass's
+        dataset."""
+        self.pass_id += 1
+        self.ps.begin_pass(self.pass_id)
+        ds = self.current
+        self._join_prefetch()
+        try:
+            if preloaded:
+                with self.timer.span("wait_preload"):
+                    ds.wait_preload_done()
+            else:
+                ds.set_filelist(filelist)
+                with self.timer.span("load"):
+                    ds.load_into_memory()
+                # a prefetch targeted the preloaded records, which this
+                # load replaced
+                self._prefetch_keys = None
+        except IngestError as e:
+            raise IngestError(
+                f"pass {self.pass_id} (day {self.day}): {e}") from e
+        with self.timer.span("feed_pass"):
+            keys = self._prefetch_keys
+            if keys is None:
+                keys = ds.extract_keys()
+            self._prefetch_keys = None
+            self.ps.feed_pass({self.table_name: keys})
+        return ds
+
+    def preload_next(self, filelist: Sequence[str]) -> None:
+        """Parse the next pass's files in the background, into the other
+        dataset, while this pass trains."""
+        ds = self.next_buffer
+        ds.set_filelist(filelist)
+        ds.preload_into_memory()
+
+    def prefetch_feed_next(self) -> None:
+        """After ``preload_next``: once the preload is done, extract its
+        keys on a background thread and start the tables' asynchronous
+        staging (``SparsePS.prefetch_pass``); ``begin_pass(preloaded=True)``
+        then reuses the keys."""
+        ds = self.next_buffer
+
+        def work():
+            ds.wait_preload_done()
+            keys = ds.extract_keys()
+            self.ps.prefetch_pass({self.table_name: keys})
+            self._prefetch_keys = keys
+
+        self._prefetch_thread = threading.Thread(target=work, daemon=True)
+        self._prefetch_thread.start()
+
+    def end_pass(self, save_delta: bool = False) -> None:
+        """Close the pass: surface a failed save of an earlier pass, decay
+        show/clk, then (``save_delta``) take the delta snapshot and queue
+        its commit, and rotate the datasets. A failure raises before the
+        datasets rotate."""
+        self._join_prefetch()
+        self._writer.raise_pending()
+        with self.timer.span("end_pass"):
+            self.ps.end_pass()
+            if save_delta:
+                self._submit_save("delta")
+            self.current.release_memory()
+        self._buf = (self._buf + 1) % len(self.datasets)
+
+    # -- persistence ---------------------------------------------------------
+
+    def _submit_save(self, kind: str,
+                     dense_state: Optional[Any] = None) -> str:
+        """Snapshot, then write: the host copies are taken here, on the
+        training thread (taking them clears the dirty marks); the files,
+        the dir commit, the donefile append and retention run on the
+        writer. Returns the final dir (committed once the job lands)."""
+        day, pass_id = self.day, self.pass_id
+        final = self.ps.ckpt_dir(self.save_root, day, pass_id, kind)
+        with self.timer.span(f"save_{kind}_snapshot"):
+            files = self.ps.snapshot_files(kind)
+            staging = atomic.stage_dir(final)
+            dense = (dense_arrays(dense_state) if dense_state is not None
+                     else None)
+        root, policy = self.save_root, self.retention
+
+        def job() -> None:
+            if os.path.isdir(staging):      # not yet committed (retry-safe)
+                for fname, arrays in files.items():
+                    atomic.write_npz(os.path.join(staging, fname), arrays)
+                    faults.crash_point(f"{kind}.mid_write")
+                if dense is not None:
+                    atomic.write_npz(os.path.join(staging, "dense.npz"),
+                                     dense)
+                atomic.commit_dir(staging, final, scope=kind)
+            faults.crash_point(f"{kind}.before_donefile")
+            donefile.write_done(root, day, pass_id, kind, final)
+            if kind == "base":
+                policy.sweep(root, donefile.read_done(root))
+
+        self._writer.submit(f"{kind}:{day}/{pass_id:05d}", job)
+        return final
+
+    def save_base(self, dense_state: Optional[Any] = None,
+                  wait: bool = False) -> str:
+        """Queue a base save, with ``dense_state`` (the pair ``(model,
+        opt_state)``) as ``dense.npz`` beside the tables. Returns the
+        final dir at once; ``wait`` (or ``barrier()``) blocks until it is
+        durable and recorded."""
+        self._writer.raise_pending()
+        path = self._submit_save("base", dense_state)
+        if wait:
+            self._writer.barrier()
+        return path
+
+    def save_delta(self, wait: bool = False) -> str:
+        """Queue a delta save outside ``end_pass``."""
+        self._writer.raise_pending()
+        path = self._submit_save("delta")
+        if wait:
+            self._writer.barrier()
+        return path
+
+    def barrier(self) -> None:
+        """Block until every queued save committed and reached the
+        donefile; re-raise any background error."""
+        self._writer.barrier()
+
+    def close(self) -> None:
+        """Drain the queued saves and stop the writer."""
+        self._writer.close()
+
+    def resume(self, dense_template: Optional[Any] = None
+               ) -> Optional[Tuple[str, int, Optional[Any]]]:
+        """Restore the tables (the last verified base, then its deltas)
+        and, given ``dense_template`` (a ``(model, opt_state)`` pair), the
+        dense state into it, in place. Returns ``(day, pass_id,
+        dense_template or None)``, or None when no verified checkpoint
+        exists."""
+        plan = discovery.latest_committed(self.save_root)
+        if plan is None:
+            return None
+        discovery.apply_plan(self.ps, plan)
+        self.day, self.pass_id = discovery.plan_version(plan)
+        dense_state = discovery.load_dense(plan, dense_template)
+        return self.day, self.pass_id, dense_state

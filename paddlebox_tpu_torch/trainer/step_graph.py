@@ -12,16 +12,17 @@ host->device copy into that buffer, on the stream that replays, and one
 ``replay()``: none of the step's ~100 small ops is dispatched from Python,
 and nothing is read back to the host.
 
-A capture bakes in device addresses: the arenas, the mirror table (and its
-mask, an argument of the dedup-and-probe launch), the dense params, the
-optimizer state and the AUC state. ``run_key`` lists them beside the run
+A capture bakes in device addresses: the arenas, the table's dirty bitmap,
+the mirror table (and its mask, an argument of the dedup-and-probe
+launch), the dense params, the optimizer state and the AUC state. ``run_key`` lists them beside the run
 shape. ``RunGraphs`` keeps one graph a run shape, all in one memory pool,
 and drops a graph whose addresses differ from the current ones, so that
-the run is captured anew: ``DeviceTable._grow_to``,
-``DeviceIndexMirror.sync`` at a new capacity, ``load_arena`` and ``load``
-put new tensors in place. Everything a step changes it changes in place
-(adam's count is a device tensor, ``_drain_auc`` zeroes the AUC state in
-place), so a replay advances the same state an eager run would.
+the run is captured anew: ``DeviceTable._grow_to`` (the arenas and the
+bitmap), ``DeviceIndexMirror.sync`` at a new capacity, ``load_arena`` and
+``load`` put new tensors in place. Everything a step changes it changes in
+place (adam's count is a device tensor, ``_drain_auc`` zeroes the AUC
+state in place, a save's ``_clear_dirty`` zeroes the bitmap in place), so
+a replay advances the same state an eager run would.
 
 A shape's first full run goes eagerly and is the warm-up (the kernels'
 libraries load, cuBLAS picks its kernels); capture executes nothing, so no
@@ -101,17 +102,17 @@ def _state_tensors(state: Any) -> Iterator[torch.Tensor]:
 
 def run_key(fs, params, opt_state, auc_state, shape) -> tuple:
     """Everything a capture of a run over ``fs`` bakes in: the run shape,
-    then the address and shape of the arenas, the mirror table, the dense
-    params and the optimizer and AUC state, and the mirror's mask and
-    window."""
+    then the address and shape of the arenas, the mirror table and the
+    dirty bitmap, the dense params and the optimizer and AUC state, and
+    the mirror's mask and window."""
     t, m = fs.table, fs.table.mirror
 
     def at(tensors):
         return tuple((x.data_ptr(), tuple(x.shape)) for x in tensors)
 
-    return (shape, at((t.values, t.state, m.tab)), m.mask, m.window,
-            at(params.parameters()), at(_state_tensors(opt_state)),
-            at(_state_tensors(auc_state)))
+    return (shape, at((t.values, t.state, m.tab, t.dirty_dev)), m.mask,
+            m.window, at(params.parameters()),
+            at(_state_tensors(opt_state)), at(_state_tensors(auc_state)))
 
 
 class RunGraph:

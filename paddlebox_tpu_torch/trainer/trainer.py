@@ -50,7 +50,8 @@ from torch import nn
 
 from paddlebox_tpu_torch._device import DeviceLike
 from paddlebox_tpu_torch.config import (BucketSpec, DataFeedConfig,
-                                        TableConfig, TrainerConfig)
+                                        TableConfig, TrainerConfig,
+                                        refuse_flags)
 from paddlebox_tpu_torch.data.batch import CsrBatch
 from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.data.fast_feed import FastSlotReader
@@ -65,7 +66,7 @@ from paddlebox_tpu_torch.utils.timer import SpanTimer
 AUC_DRAIN_STEPS = 512
 
 # the reference's flags of features not ported here: (flag, ROADMAP item,
-# feature). A flag counts as set unless empty, 0 or false.
+# feature)
 _REFUSED_FLAGS = (
     ("feed_device_prefetch", "A.4", "the staged device feed"),
     ("check_nan_inf", "A.6", "the train guard (trainer/guard.py)"),
@@ -73,13 +74,6 @@ _REFUSED_FLAGS = (
     ("obs_postmortem_dir", "A.6", "the postmortem dump (obs/postmortem.py)"),
     ("obs_heartbeat_path", "A.6", "the pass heartbeat (obs/heartbeat.py)"),
 )
-
-
-def _flag_set(name: str) -> bool:
-    """Whether the reference's flag ``name`` is turned on through its
-    environment variable ``PBOX_FLAGS_<name>``."""
-    value = os.environ.get("PBOX_FLAGS_" + name, "").strip().lower()
-    return value not in ("", "0", "0.0", "false", "no", "off")
 
 
 def _resolve_device_prep(table: DeviceTable,
@@ -128,11 +122,7 @@ class CTRTrainer:
             raise NotImplementedError(
                 "the host-table engine (use_device_table=False, a host "
                 "EmbeddingTable) is not ported yet (ROADMAP A.2c)")
-        for flag, item, what in _REFUSED_FLAGS:
-            if _flag_set(flag):
-                raise NotImplementedError(
-                    f"PBOX_FLAGS_{flag} asks for {what}, which is not "
-                    f"ported yet (ROADMAP {item})")
+        refuse_flags(_REFUSED_FLAGS)
         # trainer_conf.dense_sync_steps is read only with a mesh and
         # trainer_conf.metrics not at all on one device, as in the
         # reference

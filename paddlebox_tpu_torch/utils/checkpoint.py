@@ -1,43 +1,40 @@
 """Dense-parameter leaf files (counterpart of
 ``paddlebox_tpu/utils/checkpoint.py``).
 
-A params list is stored as one ``.npz`` of ``leaf_%05d`` arrays, committed
-atomically (write a temporary file, fsync, rename). Loading validates the
-key set and every leaf's shape and dtype against a template before any
-array is returned. The port keeps no pytree: the caller passes the leaf
-template (arrays, or anything with ``shape`` and ``dtype``).
+Dense params are stored as one ``.npz`` of ``leaf_%05d`` arrays in the
+reference's pytree leaf order, committed atomically
+(``ckpt/atomic.py::write_npz``). Loading validates the key set and every
+leaf's shape and dtype against a template before any array is returned.
+The port keeps no pytree: the caller passes the leaf template (arrays, or
+anything with ``shape`` and ``dtype``).
+
+A dense state ``(model, opt_state)``, the pair a checkpoint's
+``dense.npz`` holds, has the leaves of the reference's ``(params,
+opt_state)``: the model's flax leaves (``models/convert.py``), then the
+optimizer's in optax's order: adam's and adamw's ``count``, ``mu``,
+``nu``, adagrad's ``sum_of_squares``, none for sgd; each per-parameter
+list in the flax leaf order, kernels transposed.
 """
 
 from __future__ import annotations
 
-import os
-import uuid
-from typing import Dict, List, Sequence
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from paddlebox_tpu_torch.ckpt.atomic import write_npz
+from paddlebox_tpu_torch.models.convert import flax_order
+
+__all__ = ["leaf_arrays", "write_npz", "save_leaves", "load_leaves",
+           "dense_arrays", "load_dense"]
+
+# the optimizer state's fields in optax's leaf order
+_OPT_FIELDS = ("count", "mu", "nu", "sum_of_squares")
 
 
 def leaf_arrays(leaves: Sequence[np.ndarray]) -> Dict[str, np.ndarray]:
     return {f"leaf_{i:05d}": np.asarray(x) for i, x in enumerate(leaves)}
-
-
-def write_npz(path: str, arrays: Dict[str, np.ndarray],
-              compressed: bool = True) -> None:
-    """Commit ``arrays`` to ``path`` atomically."""
-    parent = os.path.dirname(path)
-    if parent:
-        os.makedirs(parent, exist_ok=True)
-    tmp = f"{path}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}"
-    try:
-        with open(tmp, "wb") as f:
-            (np.savez_compressed if compressed else np.savez)(f, **arrays)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
 
 
 def save_leaves(path: str, leaves: Sequence[np.ndarray]) -> None:
@@ -64,3 +61,51 @@ def load_leaves(path: str, template: Sequence) -> List[np.ndarray]:
             raise ValueError(f"leaf {i} dtype {a.dtype} != template "
                              f"{b.dtype}")
     return loaded
+
+
+def _dense_tensors(dense_state: Any) -> List[Tuple[torch.Tensor, bool]]:
+    """Every tensor of ``(model, opt_state)`` in the reference's leaf
+    order, each with whether its leaf is the transpose (a kernel)."""
+    try:
+        model, opt_state = dense_state
+    except (TypeError, ValueError):
+        raise TypeError("a dense state is the pair (model, opt_state)") \
+            from None
+    order = flax_order(model)
+    params = list(model.parameters())
+    out = [(params[j].detach(), kernel) for j, kernel in order]
+    unknown = set(opt_state) - set(_OPT_FIELDS)
+    if unknown:
+        raise ValueError(f"optimizer state fields {sorted(unknown)} have no "
+                         "leaf order")
+    for field in _OPT_FIELDS:
+        if field not in opt_state:
+            continue
+        v = opt_state[field]
+        if isinstance(v, torch.Tensor):
+            out.append((v, False))
+        else:
+            out += [(v[j], kernel) for j, kernel in order]
+    return out
+
+
+def dense_arrays(dense_state: Any) -> Dict[str, np.ndarray]:
+    """``(model, opt_state)`` as the ``leaf_%05d`` arrays of the
+    reference's ``dense.npz``: host copies, which later steps do not
+    change."""
+    leaves = []
+    for t, kernel in _dense_tensors(dense_state):
+        x = t.to("cpu", copy=True).numpy()
+        leaves.append(np.ascontiguousarray(x.T) if kernel else x)
+    return leaf_arrays(leaves)
+
+
+@torch.no_grad()
+def load_dense(path: str, dense_state: Any) -> Any:
+    """Load a ``dense.npz`` into ``(model, opt_state)`` in place (every
+    leaf checked against it first) and return it."""
+    tensors = _dense_tensors(dense_state)
+    template = list(dense_arrays(dense_state).values())
+    for (t, kernel), a in zip(tensors, load_leaves(path, template)):
+        t.copy_(torch.from_numpy(a.T.copy() if kernel else a))
+    return dense_state

@@ -1,6 +1,7 @@
 """The port stands alone: no jax, flax, optax or paddlebox_tpu import, in
-the package, in chip_smoke.py or in kernel_versions.py; it serves, trains
-and runs a trainer pass, from a dataset and straight off files, with them
+the package, in chip_smoke.py, kernel_versions.py or pass_versions.py; it
+serves, trains and runs a trainer pass, from a dataset and straight off
+files, and a day/pass loop with its checkpoints and resume, with them
 blocked; its entry points default to the card and raise without one (the
 trainer too); its kernel modules import without a CUDA toolkit."""
 
@@ -20,7 +21,8 @@ FORBIDDEN = {"jax", "flax", "optax", "paddlebox_tpu"}
 
 def _port_files():
     out = [os.path.join(ROOT, f) for f in ("chip_smoke.py",
-                                           "kernel_versions.py")]
+                                           "kernel_versions.py",
+                                           "pass_versions.py")]
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -301,6 +303,80 @@ def test_train_from_files_with_jax_blocked(tmp_path):
     """)
     assert res.returncode == 0, res.stderr
     assert "FILES_PASS" in res.stdout
+
+
+def test_pass_loop_with_jax_blocked(tmp_path):
+    """The day/pass loop (``PassManager`` over ``SparsePS``, its
+    checkpoint writer, the donefile, ``resume``) runs a day of two passes
+    with delta saves and a base with the dense state, and resumes into a
+    fresh table and module, with jax and paddlebox_tpu blocked."""
+    from conftest import make_slot_file
+    from paddlebox_tpu.config import DataFeedConfig, SlotConfig
+    conf = DataFeedConfig(slots=[
+        SlotConfig("label", type="float", is_dense=True, dim=1),
+        SlotConfig("a"), SlotConfig("b")], batch_size=8, thread_num=2)
+    data = [make_slot_file(str(tmp_path / f"part-{i}"), conf, 20, seed=i)
+            for i in range(2)]
+    res = _run(f"""
+        import sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        import torch
+        from paddlebox_tpu_torch.config import (DataFeedConfig, SlotConfig,
+                                                TableConfig, TrainerConfig)
+        from paddlebox_tpu_torch.data.dataset import SlotDataset
+        from paddlebox_tpu_torch.models import DeepFM
+        from paddlebox_tpu_torch.ps.device_table import DeviceTable
+        from paddlebox_tpu_torch.ps.server import SparsePS
+        from paddlebox_tpu_torch.trainer import donefile
+        from paddlebox_tpu_torch.trainer.pass_manager import PassManager
+        from paddlebox_tpu_torch.trainer.train_step import (
+            make_dense_optimizer)
+        from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
+        conf = DataFeedConfig(slots=[
+            SlotConfig("label", type="float", is_dense=True, dim=1),
+            SlotConfig("a"), SlotConfig("b")], batch_size=8, thread_num=2)
+        tconf = TableConfig(embedx_dim=4, embedx_threshold=0.0)
+        table = DeviceTable(tconf, capacity=256, device="cpu",
+                            index_threads=1)
+        tr = CTRTrainer(DeepFM(2 * 7, (8,)), conf, tconf, TrainerConfig(),
+                        table=table)
+        root = {str(tmp_path / "model")!r}
+        pm = PassManager(SparsePS({{"embedding": table}}), root,
+                         [SlotDataset(conf), SlotDataset(conf)])
+        pm.set_date("20260101")
+        ds = pm.begin_pass({data[:1]!r})
+        pm.preload_next({data[1:]!r})
+        tr.train_from_dataset(ds)
+        pm.end_pass(save_delta=True)
+        tr.train_from_dataset(pm.begin_pass([], preloaded=True))
+        pm.end_pass(save_delta=True)
+        pm.save_base(dense_state=(tr.params, tr.opt_state))
+        pm.barrier()
+        pm.close()
+        assert [r["kind"] for r in donefile.read_done(root)] == \
+            ["delta", "delta", "base"]
+        fresh = DeviceTable(tconf, capacity=1, device="cpu")
+        model = DeepFM(2 * 7, (8,))
+        opt = make_dense_optimizer(TrainerConfig()).init(model)
+        pm2 = PassManager(SparsePS({{"embedding": fresh}}), root,
+                          [SlotDataset(conf)])
+        assert pm2.resume(dense_template=(model, opt))[:2] == \
+            ("20260101", 2)
+        pm2.close()
+        assert np.array_equal(np.sort(fresh.row_keys()),
+                              np.sort(table.row_keys()))
+        assert all(torch.equal(a, b) for a, b in zip(
+            model.parameters(), tr.params.parameters()))
+        assert int(opt["count"]) == int(tr.opt_state["count"]) == 6
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("PASS_LOOP", len(fresh))
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "PASS_LOOP" in res.stdout
 
 
 def test_entry_points_default_to_cuda(tmp_path):

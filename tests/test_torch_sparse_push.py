@@ -171,3 +171,33 @@ def test_push_matches_jax_at_flagship_width(optimizer):
     crossed = (old[:, 0] < 10.0) & (jv[:, 0] >= 10.0)
     assert crossed.any()
     np.testing.assert_array_equal(pv[0], old[0])
+
+
+def test_push_marks_dirty_rows_as_the_reference_step():
+    """With a bitmap, the CPU push (``mark_dirty_plain`` beside the plain
+    push) marks every unique's row, padding's row 0 included, as the
+    reference's ``dirty.at[uniq_rows].set(True)``; the rows it writes are
+    those of the push without one. A wrong bitmap is refused by the
+    kernel's wrapper before anything launches."""
+    rng = np.random.default_rng(4)
+    t = DeviceTable(TableConfig(embedx_dim=8, embedx_threshold=0.0),
+                    capacity=64, uniq_buckets=BucketSpec(min_size=32),
+                    device="cpu", backend="numpy")
+    keys = np.zeros(96, np.uint64)
+    keys[:70] = rng.integers(1, 40, size=70)
+    idx = t.prepare_batch(keys)
+    grads = torch.from_numpy(
+        (rng.normal(size=(96, t.dim)) * 0.1).astype(np.float32))
+    args = [torch.from_numpy(x) for x in (idx.inverse, idx.uniq_rows,
+                                          idx.uniq_mask)]
+    plain = (t.values.clone(), t.state.clone())
+    t.device_push(*plain, grads, *args)
+    dirty = torch.zeros(64, dtype=torch.bool)
+    t.device_push(t.values, t.state, grads, *args, dirty=dirty)
+    assert torch.equal(t.values, plain[0]) and torch.equal(t.state, plain[1])
+    want = jnp.zeros(64, jnp.bool_).at[jnp.asarray(idx.uniq_rows)].set(True)
+    np.testing.assert_array_equal(dirty.numpy(), np.asarray(want))
+    assert bool(dirty[0]) and int(dirty.sum()) == idx.num_uniq  # key 0 too
+    with pytest.raises(ValueError, match="CUDA"):
+        sparse_push_cuda(t.layout, t.values, t.state, grads, *args,
+                         dirty=dirty)

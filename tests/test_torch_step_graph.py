@@ -310,3 +310,59 @@ def test_train_stream_graph_path_equals_eager_run_path(monkeypatch):
     for f in es[2]:
         assert torch.equal(gs[2][f], es[2][f]), f
     assert_same_rows_by_key(gt, et)
+
+
+def test_graph_runs_mark_one_bitmap_across_clears_and_growth(monkeypatch):
+    """The device dirty bitmap under run graphs (the stand-in graph),
+    against the eager run path on a twin: a run captured after a save's
+    clear and a replay after ``_clear_dirty`` mark the same tensor, which
+    the clears zero in place (the run key stays); a run whose new keys
+    grow the arena re-captures over the grown bitmap, and the marks made
+    before the growth survive it. The dirty rows equal the twin's by key,
+    and the keys of the runs since the last clear."""
+    monkeypatch.setattr(step_graph, "RunGraph", ReplayingRunGraph)
+    old = PREPOP + 1
+    runs = [make_stream(seed=s, vocab=old)[:16] for s in (1, 2, 4)]
+    runs.append(make_stream(seed=3, vocab=3000)[:16])
+    gfs, gt, gs = world(graphs=True)
+    efs, et, es = world()
+    graphs = gfs.run_graphs
+
+    def train(run):
+        nonlocal gs, es
+        *gs, _, _ = gfs.train_stream(*gs, iter(run))
+        *es, _, _ = efs.train_stream(*es, iter(run))
+
+    def dirty(t):
+        return np.sort(t.row_keys()[t.fetch_dirty_rows()])
+
+    def keys_of(*rs):
+        keys = np.concatenate([b[0] for r in rs for b in r])
+        return np.unique(keys[keys > 0])
+
+    def key():
+        return step_graph.run_key(gfs, *gs, run_shape(gfs, NPAD_A))
+
+    train(runs[0])                                 # eager warm-up
+    np.testing.assert_array_equal(dirty(gt), keys_of(runs[0]))
+    bitmap, k0 = gt.dirty_dev, key()
+    gt.snapshot_delta()
+    et.snapshot_delta()
+    assert gt.dirty_dev is bitmap and not bitmap.any() and key() == k0
+    train(runs[1])                                 # captured, replayed
+    assert (graphs.captures, graphs.replays) == (1, 1)
+    np.testing.assert_array_equal(dirty(gt), keys_of(runs[1]))
+    np.testing.assert_array_equal(dirty(gt), dirty(et))
+    gt._clear_dirty()
+    et._clear_dirty()
+    assert gt.dirty_dev is bitmap and key() == k0
+    train(runs[2])                                 # the same graph again
+    assert (graphs.captures, graphs.replays) == (1, 2)
+    np.testing.assert_array_equal(dirty(gt), keys_of(runs[2]))
+    train(runs[3])                                 # grows: re-captured
+    assert gt.capacity == et.capacity == 1000
+    assert (graphs.captures, graphs.replays) == (2, 3)
+    assert gt.dirty_dev is not bitmap and gt.dirty_dev.shape == (1000,)
+    assert key() != k0
+    np.testing.assert_array_equal(dirty(gt), keys_of(runs[2], runs[3]))
+    np.testing.assert_array_equal(dirty(gt), dirty(et))
