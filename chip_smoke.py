@@ -135,6 +135,32 @@ Phases, each fatal on failure:
    the writer's commit seconds, the wait in ``barrier()``, ``resume``
    seconds, and the dataset pass with the dirty mark and without it, in
    turns, each beside the card's name and power limit.
+4e. tiered loop — tables larger than device memory, as
+             ``bench.py:735-802`` measures them: the flagship DeepFM over a
+             ``TieredDeviceTable`` of 2^20 arena rows (device prep, a
+             one-thread native index) over a native host
+             ``EmbeddingTable``, four passes of one seeded MultiSlot file
+             of 16 batches of B=2048 (the first drawing from 450,000 new
+             keys out of a 2^33 space, each later one from 450,000 new and
+             150,000 of earlier passes' keys; the backing ends larger than
+             the arena): ``PassManager.begin_pass`` (the staging),
+             ``preload_next`` + ``prefetch_feed_next`` (the next pass's
+             export on the tier worker), ``CTRTrainer.train_from_files``
+             (run graphs), ``end_pass(save_delta=True)`` (writeback, decay),
+             a base with the dense state a day, ``barrier()``. Every
+             device-prep kernel once a batch; each pass stages exactly
+             its keys; the consumes take the prefetched buffers (a spy);
+             bit for bit by key: the backing against a twin that stages
+             synchronously (its passes in turns with the main loop's),
+             day 1's deltas and base against a host-prep twin
+             (``train_from_dataset``), and a ``resume`` into a fresh world
+             (the dense state too).
+   Per pass: W, staging s (synchronous and consumed prefetch), training
+   ms/step, ``end_pass`` s, delta snapshot ms, captures; the peak device
+   memory, the arena's and mirror's bytes beside the backing's, the run
+   graphs on the tiered table beside an untiered ``DeviceTable`` of every
+   row, and the step beside a dataset preload and idle, in turns, each
+   beside the card's name and power limit.
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -163,6 +189,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Tuple
@@ -209,7 +236,8 @@ from paddlebox_tpu_torch.ps.device_index import (DeviceIndexMirror,
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.ps.native import NativeIndex
 from paddlebox_tpu_torch.ps.server import SparsePS
-from paddlebox_tpu_torch.ps.table import state_dim
+from paddlebox_tpu_torch.ps.table import EmbeddingTable, state_dim
+from paddlebox_tpu_torch.ps.tiered_table import TieredDeviceTable
 from paddlebox_tpu_torch.metrics import AucCalculator
 from paddlebox_tpu_torch.metrics.auc import reset_auc_state_
 from paddlebox_tpu_torch.trainer.fused_step import (FusedTrainStep,
@@ -1647,11 +1675,18 @@ def write_trainer_file(rng, path: str, fresh: int) -> int:
         keys[pick] = np.arange(fresh, fresh + pick.size, dtype=np.uint64)
         n_new = pick.size
     labels = rng.integers(0, 2, size=rows)
+    write_slot_lines(path, lengths, keys, labels)
+    return n_new
+
+
+def write_slot_lines(path: str, lengths, keys, labels) -> None:
+    """MultiSlot lines: a label, then TS slots of ``lengths[r]`` keys each,
+    taken from ``keys`` in order."""
     toks = keys.astype(str)
     lens = lengths.astype(str)
     pos = 0
     with open(path, "w") as f:
-        for r in range(rows):
+        for r in range(lengths.shape[0]):
             parts = ["1", str(labels[r])]
             for j in range(TS):
                 n = int(lengths[r, j])
@@ -1659,7 +1694,6 @@ def write_trainer_file(rng, path: str, fresh: int) -> int:
                 parts.extend(toks[pos:pos + n])
                 pos += n
             f.write(" ".join(parts) + "\n")
-    return n_new
 
 
 def hand_loop(fs, state, batches):
@@ -2457,6 +2491,432 @@ def phase_pass_loop(rng) -> dict:
             "turns_ms": turns}
 
 
+# -- phase 4e: the tiered loop -------------------------------------------------
+
+TIER_ARENA = 1 << 20          # rows of the tiered table's device arena
+TIER_KEY_SPACE = 1 << 33      # a pass's new keys come from [1, 2^33)
+TIER_NEW = 450_000            # new keys a pass draws from (bench.py:751)
+TIER_HOT = 150_000            # keys of earlier passes a later pass draws from
+TIER_DAYS = (("20260301", 2), ("20260302", 2))   # (day, passes)
+
+
+def write_pool_file(rng, path: str, pool: np.ndarray) -> np.ndarray:
+    """TRAINER_FILE_BATCHES * TB MultiSlot lines of TS slots with 1-3 keys
+    each, the keys drawn from ``pool``; returns the keys drawn, unique."""
+    rows = TRAINER_FILE_BATCHES * TB
+    lengths = rng.integers(1, 4, size=(rows, TS))
+    keys = rng.choice(pool, size=int(lengths.sum()))
+    labels = rng.integers(0, 2, size=rows)
+    write_slot_lines(path, lengths, keys, labels)
+    return np.unique(keys)
+
+
+def tiered_world(conf, tconf, model, root: str, device_prep: bool = True,
+                 saves: bool = True):
+    """A flagship trainer over a ``TieredDeviceTable`` of TIER_ARENA rows
+    (a one-thread native index) over a native host ``EmbeddingTable``,
+    its ``SparsePS`` and a double-buffered ``PassManager``; the table's
+    staging and pass end timed where they run."""
+    buckets = BucketSpec(min_size=TNPAD, max_size=1 << 18)
+    backing = EmbeddingTable(conf, backend="native")
+    table = TieredDeviceTable(conf, backing=backing, capacity=TIER_ARENA,
+                              uniq_buckets=buckets, device="cuda",
+                              backend="native", index_threads=1)
+    feed = trainer_feed_conf()
+    tr = CTRTrainer(model, feed, conf, tconf, table=table, buckets=buckets,
+                    device_prep=device_prep)
+    writer = TimedWriter()
+    pm = PassManager(SparsePS({"embedding": table}), root,
+                     [SlotDataset(feed, buckets=buckets),
+                      SlotDataset(feed, buckets=buckets)], writer=writer)
+    world = dict(tr=tr, pm=pm, table=table, writer=writer, saves=saves,
+                 consumed=[], t={k: [] for k in TIER_SPANS})
+    consume = table._consume_prefetch
+
+    def spy(uniq):
+        out = consume(uniq)
+        world["consumed"].append(out is not None)
+        return out
+    table._consume_prefetch = spy
+    objs = {"table": table, "backing": backing, "mirror": table.mirror}
+    for span, (obj, name, sync) in TIER_SPANS.items():
+        if objs[obj] is not None:       # host prep has no mirror
+            time_calls(objs[obj], name, world["t"][span], sync)
+    return world
+
+
+# the tiered table's calls timed on the training thread: span -> (object,
+# method, between device synchronizations)
+TIER_SPANS = {
+    "stage": ("table", "begin_feed_pass", True),
+    "end_pass": ("table", "end_pass", True),
+    "join": ("table", "_join_prefetch", False),
+    "consume": ("table", "_consume_prefetch", False),
+    "export": ("backing", "export_rows", False),
+    "rebuild": ("table", "_rebuild_index", False),
+    "ingest": ("table", "_ingest", True),
+    "mirror": ("mirror", "sync", True),
+}
+
+
+def time_calls(obj, name: str, log: list, sync: bool) -> None:
+    """Wrap ``obj.name`` so that each call on the training thread appends
+    its seconds to ``log`` (``sync``: between device synchronizations);
+    calls on other threads (the tier worker's exports) pass through."""
+    orig = getattr(obj, name)
+
+    def timed(*a, **kw):
+        if threading.current_thread() is not threading.main_thread():
+            return orig(*a, **kw)
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        if sync:
+            torch.cuda.synchronize()
+        log.append(time.perf_counter() - t0)
+        return out
+    setattr(obj, name, timed)
+
+
+def tiered_passes(world, files, prefetch: bool, entry: str, tag: str,
+                  counted: bool = False, stop: int = 0):
+    """The day/pass loop over ``files`` (one a pass, TIER_DAYS), one pass
+    per ``next()``: ``begin_pass`` stages the pass's keys, the next file
+    preloads and, with ``prefetch``, starts staging
+    (``prefetch_feed_next``); ``entry`` ("files": ``train_from_files``, its
+    runs graphs; "dataset": ``train_from_dataset``) trains; ``end_pass``
+    writes back and decays, with a delta save where the world saves; a
+    base with the dense state each day. Yields each pass's record; stops
+    after ``stop`` passes (0: all)."""
+    tr, pm, table = world["tr"], world["pm"], world["table"]
+    graphs = tr.step.run_graphs
+    world.setdefault("launches", {})
+    p = 0
+    for day, n_day in TIER_DAYS:
+        pm.set_date(day)
+        for _ in range(n_day):
+            caps = graphs.captures if graphs is not None else 0
+            t = world["t"]
+            at = {k: len(v) for k, v in t.items()}
+            ds = (pm.begin_pass(files[:1]) if p == 0 else
+                  pm.begin_pass([], preloaded=True))
+            require(len(t["stage"]) == at["stage"] + 1,
+                    f"{tag}: pass {p + 1} staged no arena")
+            split = {k: sum(t[k][at[k]:]) for k in
+                     ("consume", "export", "rebuild", "ingest", "mirror")}
+            at = {k: len(v) for k, v in t.items()}
+            w = int(table.staged_keys.size)
+            require(np.array_equal(table.staged_keys, ds.extract_keys()),
+                    f"{tag}: pass {p + 1} staged other keys than its own")
+            if p + 1 < len(files):
+                pm.preload_next(files[p + 1:p + 2])
+                if prefetch:
+                    pm.prefetch_feed_next()
+            n = ds.num_instances() // TB
+            fn = ((lambda: tr.train_from_files(files[p:p + 1]))
+                  if entry == "files" else
+                  (lambda: tr.train_from_dataset(ds)))
+            if counted:
+                secs, m, launches = count_launches(fn, n,
+                                                   f"{tag} pass {p + 1}")
+                for k, v in launches.items():
+                    world["launches"][k] = world["launches"].get(k, 0) + v
+            else:
+                secs, m = timed_secs(fn)
+            require(m["ins_num"] == n * TB and not bool(tr.step.bad_flag),
+                    f"{tag}: pass {p + 1} metrics {m}")
+            snap0 = pm.timer.total.get("save_delta_snapshot", 0.0)
+            pm.end_pass(save_delta=world["saves"])
+            tr.reset_metrics()
+            rec = dict(pass_id=pm.pass_id, day=day, w=w, steps=n,
+                       stage_s=t["stage"][-1], split=split,
+                       train_ms=secs / n * 1e3,
+                       end_pass_s=t["end_pass"][-1],
+                       join_s=sum(t["join"][at["join"]:]),
+                       delta_ms=(pm.timer.total.get("save_delta_snapshot",
+                                                    0.0) - snap0) * 1e3,
+                       captures=(graphs.captures - caps
+                                 if graphs is not None else 0),
+                       backing_rows=len(table.backing))
+            p += 1
+            yield rec
+            if p == stop:
+                return
+        if world["saves"]:
+            pm.save_base(dense_state=(tr.params, tr.opt_state))
+
+
+def quiesce(world) -> None:
+    """Wait for a world's background work (the preload's parse, the keys'
+    prefetch thread, the export on the tier worker, the writer's commits),
+    so that a pass runs beside its own pass's work only."""
+    pm = world["pm"]
+    pending = pm.current._preload
+    if pending is not None:
+        pending.result()
+    pm._join_prefetch()
+    world["table"]._join_prefetch()
+    pm.barrier()
+
+
+def backing_by_key(table):
+    """The backing's keys, values, state and embedx_ok in key order."""
+    snap = table.backing.snapshot(reset_dirty=False)
+    order = np.argsort(snap["keys"])
+    return tuple(snap[k][order] for k in ("keys", "values", "state",
+                                          "embedx_ok"))
+
+
+def same_arrays(a, b) -> bool:
+    return len(a) == len(b) and all(np.array_equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def npz_rows_by_key(path: str):
+    with np.load(path) as d:
+        order = np.argsort(d["keys"])
+        return tuple(d[k][order] for k in ("keys", "values", "state",
+                                           "embedx_ok"))
+
+
+def phase_tiered_loop(rng) -> dict:
+    """Tables larger than device memory (``bench.py:735-802``'s
+    configuration): the flagship over a ``TieredDeviceTable`` of 2^20 rows
+    on device prep, over a native host ``EmbeddingTable``, through
+    ``PassManager`` with the prefetched feed pass, four passes of one
+    seeded MultiSlot file of 16 batches (450,000 new keys from a 2^33
+    space a pass, and 150,000 of earlier passes' keys from pass 2 on),
+    trained by ``CTRTrainer.train_from_files`` (run graphs), delta saves,
+    a base with the dense state a day, ``barrier()``, then ``resume`` into
+    a fresh world. Held bit for bit by key against a twin that stages
+    synchronously (the passes in turns with the main loop), a host-prep
+    twin over day 1 (``train_from_dataset``), and the resumed backing;
+    then the run graphs on the tiered table beside an untiered
+    ``DeviceTable`` holding the whole table, in turns."""
+    card = card_line()
+    conf, tconf, _ = train_confs()
+    os.makedirs(WORK, exist_ok=True)
+    t0 = time.perf_counter()
+    files, seen = [], np.empty(0, np.uint64)
+    for p in range(sum(n for _, n in TIER_DAYS)):
+        pool = rng.integers(1, TIER_KEY_SPACE, size=TIER_NEW,
+                            dtype=np.uint64)
+        if seen.size:
+            pool = np.concatenate(
+                [pool, rng.choice(seen, size=TIER_HOT, replace=False)])
+        path = os.path.join(WORK, f"tiered-part-{p}")
+        seen = np.union1d(seen, write_pool_file(rng, path, pool))
+        files.append(path)
+    write_s = time.perf_counter() - t0
+    model = random_deepfm(rng, TS * conf.pull_dim)
+    sync_model, host_model = copy.deepcopy(model), copy.deepcopy(model)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    root = os.path.join(WORK, "tiered-model")
+    main = tiered_world(conf, tconf, model, root)
+    sync = tiered_world(conf, tconf, sync_model,
+                        os.path.join(WORK, "tiered-sync"), saves=False)
+    table = main["table"]
+    require(main["tr"].step.device_prep and sync["tr"].step.device_prep,
+            "tiered loop: device prep off")
+    # the main loop (prefetch) and its synchronous twin, pass by pass in
+    # turns (main, twin, twin, main, ...), each pass beside its own pass's
+    # background work only (the next file's preload, the prefetch)
+    loop_t0 = time.perf_counter()
+    gens = {"main": tiered_passes(main, files, True, "files", "tiered loop",
+                                  counted=True),
+            "sync": tiered_passes(sync, files, False, "files",
+                                  "tiered loop, sync twin")}
+    recs = {"main": [], "sync": []}
+    order = ("main", "sync", "sync", "main")
+    for p in range(len(files)):
+        for who in (order[:2] if p % 2 == 0 else order[2:]):
+            quiesce(main)
+            quiesce(sync)
+            recs[who].append(next(gens[who]))
+    for g in gens.values():
+        require(next(g, None) is None, "tiered loop: passes left over")
+    main["pm"].barrier()
+    loop_s = time.perf_counter() - loop_t0
+    peak = torch.cuda.max_memory_allocated()
+    n_batches = sum(r["steps"] for r in recs["main"])
+    require(main["consumed"] == [False] + [True] * (len(files) - 1),
+            f"tiered loop: the consumes took {main['consumed']} (the "
+            "prefetched buffers not taken)")
+    require(sync["consumed"] == [False] * len(files),
+            f"tiered loop, sync twin: consumes {sync['consumed']}")
+    rows = len(table.backing)
+    require(rows > TIER_ARENA,
+            f"tiered loop: the backing holds {rows} rows, not more than "
+            f"the arena's {TIER_ARENA}")
+    require(same_arrays(backing_by_key(table), backing_by_key(sync["table"])),
+            "tiered loop: the backing differs from the sync twin's by key")
+    require(trail_kinds(root) == [(d, k) for d, n in TIER_DAYS
+                                  for k in ["delta"] * n + ["base"]],
+            f"tiered loop: donefile trail {trail_kinds(root)}")
+    main["pm"].close()
+    sync["pm"].close()
+    arena_b, mirror_b = table.memory_bytes(), table.mirror.memory_bytes()
+    print(f"tiered loop: {len(files)} passes of {TRAINER_FILE_BATCHES} "
+          f"batches (B={TB}, {n_batches} in all; files written in "
+          f"{write_s:.2f} s) over a TieredDeviceTable of {TIER_ARENA} rows, "
+          f"device prep, run graphs, prefetch_feed_next; launches "
+          f"{main['launches']}; the backing holds {rows} rows "
+          f"({table.backing_bytes()} B) > the arena's {TIER_ARENA}; "
+          f"consumes {main['consumed']}; the backing equals the "
+          f"synchronous twin's by key bit for bit; {loop_s:.2f} s for both "
+          f"loops in turns [{card}]")
+    for who in ("main", "sync"):
+        split = [{k: round(v, 4) for k, v in r["split"].items()}
+                 for r in recs[who]]
+        print(f"tiered loop {'(prefetch)' if who == 'main' else 'sync twin'}"
+              f" per pass: W {[r['w'] for r in recs[who]]}; staging s "
+              f"{[round(r['stage_s'], 4) for r in recs[who]]}, of which "
+              f"{split}; train "
+              f"ms/step {[round(r['train_ms'], 4) for r in recs[who]]}; "
+              f"end_pass s (the wait for the export in flight, download, "
+              f"import, re-randomize, decay) "
+              f"{[round(r['end_pass_s'], 4) for r in recs[who]]}, of which "
+              f"the wait {[round(r['join_s'], 4) for r in recs[who]]}; delta "
+              f"snapshot ms {[round(r['delta_ms'], 4) for r in recs[who]]};"
+              f" captures {[r['captures'] for r in recs[who]]}; backing "
+              f"rows {[r['backing_rows'] for r in recs[who]]} [{card}]")
+    commit = [(label, round(secs, 4)) for label, secs in
+              main["writer"].commit_s]
+    print(f"tiered loop: device memory: max_memory_allocated {peak} B over "
+          f"both loops ({mem0} B before); a world's arena {arena_b} B and "
+          f"mirror {mirror_b} B ({table.mirror.tab.shape[0]} slots) against "
+          f"its backing's {table.backing_bytes()} B on the host; writer "
+          f"commits s {commit} [{card}]")
+
+    # resume into a fresh world: the backing by key and the dense state
+    fresh = tiered_world(conf, tconf, random_deepfm(
+        np.random.default_rng(98), TS * conf.pull_dim), root)
+    ftr = fresh["tr"]
+    resume_s, got = timed_secs(lambda: fresh["pm"].resume(
+        dense_template=(ftr.params, ftr.opt_state)))
+    fresh["pm"].close()
+    require(got[:2] == (TIER_DAYS[-1][0], len(files)),
+            f"tiered loop: resumed version {got[:2]}")
+    require(same_arrays(backing_by_key(fresh["table"]),
+                        backing_by_key(table)),
+            "tiered loop: the resumed backing differs from the live one")
+    tr = main["tr"]
+    require(all(torch.equal(a, b) for a, b in zip(
+        ftr.params.parameters(), tr.params.parameters())) and
+        torch.equal(ftr.opt_state["count"], tr.opt_state["count"]) and
+        all(torch.equal(x, y) for f in ("mu", "nu")
+            for x, y in zip(ftr.opt_state[f], tr.opt_state[f])),
+        "tiered loop: the resumed dense state differs")
+    print(f"tiered loop: resume (verify, load the base of {rows} rows into "
+          f"the backing, the dense state) {resume_s:.4f} s; the backing by "
+          f"key, the dense params and adam's state bit for bit [{card}]")
+    del fresh, ftr
+
+    # day 1 over a host-prep twin (train_from_dataset over the same native
+    # one-thread index, host prep): its deltas and base equal the main's
+    hroot = os.path.join(WORK, "tiered-host-prep")
+    host = tiered_world(conf, tconf, host_model, hroot, device_prep=False)
+    require(not host["tr"].step.device_prep, "tiered loop: the host-prep "
+                                             "twin runs device prep")
+    hrecs = list(tiered_passes(host, files, True, "dataset",
+                               "tiered loop, host prep",
+                               stop=TIER_DAYS[0][1]))
+    host["pm"].save_base(dense_state=(host["tr"].params,
+                                      host["tr"].opt_state))
+    host["pm"].close()
+    for kind, pid in [("delta", r["pass_id"]) for r in hrecs] + \
+            [("base", hrecs[-1]["pass_id"])]:
+        rel = os.path.join(TIER_DAYS[0][0], f"{pid:05d}", kind,
+                           "embedding.npz")
+        require(same_arrays(npz_rows_by_key(os.path.join(hroot, rel)),
+                            npz_rows_by_key(os.path.join(root, rel))),
+                f"tiered loop: the host-prep twin's {rel} differs")
+    print(f"tiered loop, host-prep twin (train_from_dataset, native "
+          f"one-thread index): day 1's deltas and base equal the main "
+          f"loop's by key bit for bit; per pass W "
+          f"{[r['w'] for r in hrecs]}, train ms/step "
+          f"{[round(r['train_ms'], 4) for r in hrecs]} [{card}]")
+    del host
+
+    # the run graphs on the tiered table (pass 4's keys staged again)
+    # beside an untiered DeviceTable holding the whole table (the last
+    # base), over pass 4's batches, in turns
+    ds = SlotDataset(trainer_feed_conf(),
+                     buckets=BucketSpec(min_size=TNPAD, max_size=1 << 18))
+    ds.set_filelist(files[-1:])
+    ds.load_into_memory()
+    stream = reader_tuples(list(ds.batches()))
+    table.begin_feed_pass(ds.extract_keys())
+    base = os.path.join(root, TIER_DAYS[-1][0], f"{len(files):05d}",
+                        "base", "embedding.npz")
+    flat = DeviceTable(conf, capacity=rows + 1, device="cuda",
+                       backend="native", index_threads=1)
+    flat.load(base)
+    flat_fs = FusedTrainStep(copy.deepcopy(tr.params), flat, tconf, TB, TS,
+                             device_prep=True)
+    worlds = {"tiered": (tr.step, [tr.params, tr.opt_state, tr.auc_state]),
+              "untiered": (flat_fs, [*flat_fs.init(),
+                                     flat_fs.init_auc_state()])}
+    for fs, st in worlds.values():      # warm-up and capture
+        for _ in range(2):
+            st[:3] = fs.train_stream(*st, iter(stream))[:3]
+    turns = {"tiered": [], "untiered": []}
+    for who in ("tiered", "untiered", "untiered", "tiered") * 2:
+        fs, st = worlds[who]
+        secs, out = timed_secs(lambda: fs.train_stream(*st, iter(stream)))
+        st[:3] = out[:3]
+        turns[who].append(secs / len(stream) * 1e3)
+    caps = {k: fs.run_graphs.captures if fs.run_graphs is not None else 0
+            for k, (fs, _) in worlds.items()}
+    print(f"timing tiered loop: run graphs ms/step over pass "
+          f"{len(files)}'s {len(stream)} batches, in turns: tiered "
+          f"(arena {TIER_ARENA} rows, W {int(table.staged_keys.size)}, "
+          f"mirror {table.mirror.tab.shape[0]} slots) {turns['tiered']}; "
+          f"untiered DeviceTable of all {len(flat)} rows (mirror "
+          f"{flat.mirror.tab.shape[0]} slots) {turns['untiered']}; "
+          f"captures {caps} [{card}]")
+
+    # the step beside a dataset preload (the next pass's parse on the
+    # dataset's threads, as PassManager.preload_next runs it) and idle, in
+    # turns: the eager run loop and the run graphs over the same batches
+    pre = SlotDataset(trainer_feed_conf(),
+                      buckets=BucketSpec(min_size=TNPAD, max_size=1 << 18))
+    pre.set_filelist(files[:1])
+    fs, st = worlds["tiered"]
+    beside = {f"{k} {m}": [] for k in ("eager", "graphs")
+              for m in ("idle", "preload")}
+    parsing = []
+    for mode in ("idle", "preload", "preload", "idle"):
+        if mode == "preload":
+            pre.preload_into_memory()
+        secs, out = timed_secs(lambda: fs.train_stream(*st, iter(stream)))
+        st[:3] = out[:3]
+        beside[f"graphs {mode}"].append(secs / len(stream) * 1e3)
+        secs, (state, _) = timed_secs(
+            lambda: eager_run_loop(fs, tuple(st[:3]), stream))
+        st[:3] = state
+        beside[f"eager {mode}"].append(secs / len(stream) * 1e3)
+        if mode == "preload":
+            parsing.append(not pre._preload.done())
+            pre.wait_preload_done()
+            pre.release_memory()
+    print(f"timing tiered loop: ms/step over the same {len(stream)} "
+          f"batches beside a dataset preload of one pass's file (the parse "
+          f"still running after the graphs' and the eager run: {parsing}) "
+          f"and "
+          f"idle, in turns: {beside} [{card}]")
+    table.end_pass()
+    return {"launches": main["launches"], "loop_s": loop_s,
+            "passes": recs["main"], "sync_passes": recs["sync"],
+            "backing_rows": rows, "peak_bytes": peak,
+            "resume_s": resume_s, "turns_ms": turns}
+
+
 # -- phase 5 -----------------------------------------------------------------
 
 def timed(kernel, plain, library) -> dict:
@@ -2863,6 +3323,7 @@ def main() -> int:
         trainer = phase_trainer(np.random.default_rng([args.seed, 11]))
         growth = phase_graph_growth(np.random.default_rng([args.seed, 13]))
         loop = phase_pass_loop(np.random.default_rng([args.seed, 17]))
+        tiered = phase_tiered_loop(np.random.default_rng([args.seed, 19]))
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
@@ -2891,7 +3352,12 @@ def main() -> int:
           f"{trainer['path_ms']['eager']:.4f}, hand loop "
           f"{trainer['path_ms']['hand']:.4f} ms/step; pass loop "
           f"{loop['loop_s']:.2f} s for 4 passes, barrier wait "
-          f"{loop['barrier_s']:.4f} s, resume {loop['resume_s']:.4f} s")
+          f"{loop['barrier_s']:.4f} s, resume {loop['resume_s']:.4f} s; "
+          f"tiered loop {tiered['loop_s']:.2f} s for 4 passes and their "
+          f"sync twin's, train ms/step "
+          f"{[round(r['train_ms'], 4) for r in tiered['passes']]}, a "
+          f"backing of {tiered['backing_rows']} rows over an arena of "
+          f"{TIER_ARENA}")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
 
@@ -2904,7 +3370,8 @@ def main() -> int:
                  "trainer_files": trainer["files_launches"][
                      wrapper.__name__],
                  "run_graphs_growth": growth["launches"][wrapper.__name__],
-                 "pass_loop": loop["launches"][wrapper.__name__]}
+                 "pass_loop": loop["launches"][wrapper.__name__],
+                 "tiered_loop": tiered["launches"][wrapper.__name__]}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}
 

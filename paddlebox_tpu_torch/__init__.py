@@ -8,7 +8,7 @@ what it needs of the reference's host code it keeps as its own copy.
 Ported so far:
 
 - serving of the flagship DeepFM: ``inference.predictor.CTRPredictor`` ->
-  host pull (``ps.table``) -> ``trainer.train_step.TrainStep.predict`` ->
+  device pull (``ps.serving_table``) -> ``trainer.train_step.TrainStep.predict`` ->
   ``ops.seqpool_cvm`` (a CUDA kernel on the card) -> ``models.deepfm``;
 - single-device training through the reference's entry point:
   ``data.dataset.SlotDataset`` (``data.parser.SlotParser``) ->
@@ -21,7 +21,12 @@ Ported so far:
   ``ps.server.SparsePS``, with delta and base saves through ``ckpt`` (the
   atomic commit, the background writer, retention, discovery), the
   donefile (``trainer.donefile``) and ``resume``, in the reference's
-  checkpoint layout.
+  checkpoint layout;
+- tables larger than device memory: ``ps.tiered_table.TieredDeviceTable``,
+  a bounded device arena that stages each pass's working set from the
+  host ``ps.table.EmbeddingTable`` (the DRAM tier, with the host sparse
+  optimizers of ``ps.optimizer``), with the asynchronous feed pass, under
+  ``PassManager`` and ``CTRTrainer``.
 """
 
 from paddlebox_tpu_torch._device import resolve_device

@@ -5,8 +5,9 @@ read: ``SlotConfig``, ``DataFeedConfig``, ``TableConfig``,
 ``TrainerConfig`` and ``BucketSpec``.
 Field names and defaults match the reference, so a bundle's ``model.json``
 written by either package loads in the other. The port has no flag
-registry yet: ``batch_bucket_spec`` uses the reference flag default as a
-constant.
+registry: ``batch_bucket_spec`` uses the reference flag default as a
+constant, ``env_flag`` reads a reference flag's environment variable at
+each call, and ``refuse_flags`` refuses the flags of unported features.
 """
 
 from __future__ import annotations
@@ -173,6 +174,19 @@ def batch_bucket_spec(min_size: int = 1024,
     """Default BucketSpec of the batch padding path (assembler, readers)."""
     return BucketSpec(min_size=min_size, max_size=max_size,
                       growth=BATCH_BUCKET_GROWTH)
+
+
+def env_flag(flag: str, default: Any) -> Any:
+    """The reference's flag ``flag`` as its environment variable
+    ``PBOX_FLAGS_<flag>`` sets it, read at each call, else ``default``;
+    parsed by the default's type as the reference parses it (a bool is on
+    for 1, true, yes or on)."""
+    raw = os.environ.get("PBOX_FLAGS_" + flag)
+    if raw is None:
+        return default
+    if isinstance(default, bool):
+        return raw.strip().lower() in ("1", "true", "yes", "on")
+    return type(default)(raw)
 
 
 def refuse_flags(refused) -> None:

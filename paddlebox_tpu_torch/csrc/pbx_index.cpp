@@ -722,4 +722,72 @@ void pbx_map_export(void* h, uint32_t* out4) {
   }
 }
 
+
+// -- host-table helpers (ps/table.py EmbeddingTable's native backend) ------
+
+// sorted unique + inverse, the contract of np.unique(keys,
+// return_inverse=True). uniq_out holds n, inverse_out n. Returns the unique
+// count.
+int64_t pbx_unique_inverse(const uint64_t* keys, int64_t n,
+                           uint64_t* uniq_out, int64_t* inverse_out) {
+  if (n == 0) return 0;
+  std::vector<int64_t> order(n);
+  for (int64_t i = 0; i < n; ++i) order[i] = i;
+  std::sort(order.begin(), order.end(),
+            [&](int64_t a, int64_t b) { return keys[a] < keys[b]; });
+  int64_t u = -1;
+  uint64_t prev = 0;
+  for (int64_t j = 0; j < n; ++j) {
+    uint64_t k = keys[order[j]];
+    if (u < 0 || k != prev) {
+      ++u;
+      uniq_out[u] = k;
+      prev = k;
+    }
+    inverse_out[order[j]] = u;
+  }
+  return u + 1;
+}
+
+// merged[inverse[i]] += grads[i] for i in [0, n); merged is [u, d], zeroed
+// by the caller. Adds in i order, bit for bit np.add.at's.
+void pbx_merge_add(const int64_t* inverse, int64_t n, const float* grads,
+                   int64_t d, float* merged) {
+  for (int64_t i = 0; i < n; ++i) {
+    float* dst = merged + inverse[i] * d;
+    const float* src = grads + i * d;
+    for (int64_t c = 0; c < d; ++c) dst[c] += src[c];
+  }
+}
+
+// out[i, :] = arena[rows[i], :]; rows < 0 -> zeros
+void pbx_gather_rows(const float* arena, const int64_t* rows, int64_t n,
+                     int64_t d, float* out) {
+  for (int64_t i = 0; i < n; ++i) {
+    if (rows[i] < 0) {
+      std::memset(out + i * d, 0, sizeof(float) * d);
+    } else {
+      std::memcpy(out + i * d, arena + rows[i] * d, sizeof(float) * d);
+    }
+  }
+}
+
+// arena[rows[i], :] = vals[i, :] for rows[i] >= 0
+void pbx_scatter_rows(float* arena, const int64_t* rows, int64_t n,
+                      int64_t d, const float* vals) {
+  for (int64_t i = 0; i < n; ++i) {
+    if (rows[i] >= 0) {
+      std::memcpy(arena + rows[i] * d, vals + i * d, sizeof(float) * d);
+    }
+  }
+}
+
+// out[i, :] = uniq_vals[inverse[i], :]: unique rows back to key order
+void pbx_expand_rows(const float* uniq_vals, const int64_t* inverse,
+                     int64_t n, int64_t d, float* out) {
+  for (int64_t i = 0; i < n; ++i) {
+    std::memcpy(out + i * d, uniq_vals + inverse[i] * d, sizeof(float) * d);
+  }
+}
+
 }  // extern "C"

@@ -8,8 +8,9 @@ A bundle directory holds, in the reference's format:
     table.npz     the embedding snapshot (keys, values, state, embedx_ok)
 
 so a bundle written by either package loads in the other. ``CTRPredictor``
-serves ragged slot batches on its device: the table pull (unknown keys pull
-zeros), seqpool+CVM, the model forward and the sigmoid all run there.
+serves ragged slot batches on its device: the table pull
+(``ps/serving_table.py``; unknown keys pull zeros), seqpool+CVM, the
+model forward and the sigmoid all run there.
 
 Not in the port yet (all off by default in the reference): the quantized
 table (``table.q8.npz``), the hot-key cache, pull coalescing and a remote
@@ -33,7 +34,8 @@ from paddlebox_tpu_torch.data.record import SlotRecord
 from paddlebox_tpu_torch.models.convert import (deepfm_from_flax_leaves,
                                                 flax_leaves_from_deepfm)
 from paddlebox_tpu_torch.models.deepfm import DeepFM
-from paddlebox_tpu_torch.ps.table import EmbeddingTable, state_dim
+from paddlebox_tpu_torch.ps.serving_table import ServingTable
+from paddlebox_tpu_torch.ps.table import state_dim
 from paddlebox_tpu_torch.trainer.train_step import TrainStep
 from paddlebox_tpu_torch.utils.checkpoint import (load_leaves, save_leaves,
                                                   write_npz)
@@ -116,7 +118,7 @@ class CTRPredictor:
             raise NotImplementedError(
                 "the bundle carries only a quantized table (table.q8.npz); "
                 "the port serves the float32 table.npz")
-        self.table = EmbeddingTable(self.table_conf, self.device)
+        self.table = ServingTable(self.table_conf, self.device)
         self.table.load(table_path)
         self.num_slots = len(self.feed_conf.used_sparse_slots)
         self.dense_dim = sum(s.dim for s in self.feed_conf.used_dense_slots)

@@ -1,2 +1,3 @@
-"""Embedding tables of the port: the host table's serving subset and the
-device-resident table of the training path."""
+"""Embedding tables of the port: the serving table, the host table (the
+DRAM tier and its sparse optimizers), the device-resident table of the
+training path and the tiered table over the two."""

@@ -239,6 +239,14 @@ class DeviceIndexMirror:
         self.mask = mask
         self.generation = self.index.generation
 
+    def clear(self) -> None:
+        """Empty every slot in place (the export's empty quad: key halves
+        0xFFFFFFFF, row 0), keeping the table's address, so that no key
+        resolves; the next ``apply_updates`` resyncs in full."""
+        self.tab[:, :2] = -1
+        self.tab[:, 2:] = 0
+        self.generation = -1
+
     def apply_updates(self, slots: np.ndarray, hi: np.ndarray,
                       lo: np.ndarray, rows: np.ndarray) -> None:
         """Write ``prepare_dev``'s insert records into the table, in place;

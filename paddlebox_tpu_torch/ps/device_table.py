@@ -52,6 +52,12 @@ the bitmap in place, so that a captured run (``trainer/step_graph.py``)
 goes on marking the same tensor. Row 0 never persists. As in the
 reference, there is no ``mark_dirty``: the rows of a commit that fails are
 not marked again.
+
+The tiered table (``ps/tiered_table.py``) stages rows through
+``_ingest`` and writes them back through ``_canonical``, bounds the arena
+by overriding ``_grow_to`` and re-randomizes it in place between passes
+(``_rerandomize``); ``to_host_table`` copies a table into the host
+``EmbeddingTable``.
 """
 
 from __future__ import annotations
@@ -70,6 +76,7 @@ from paddlebox_tpu_torch.ops import sparse_optim
 from paddlebox_tpu_torch.ops.sparse_push import group_desc, sparse_push
 from paddlebox_tpu_torch.ps import native
 from paddlebox_tpu_torch.ps.device_index import DeviceIndexMirror
+from paddlebox_tpu_torch.ps.table import EmbeddingTable
 
 # reserved key of the null row in a rebuilt index (a feature hash of 2^64 - 2
 # would collide with it, as in the reference)
@@ -122,16 +129,24 @@ class ArenaLayout:
               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
         """Fresh arenas on ``device``: trainable columns uniform in
         ±initial_range, show/clk 0, row 0 all 0."""
-        r = float(self.conf.initial_range)
         vals = torch.zeros((cap, self.dim), dtype=torch.float32,
                            device=device)
-        if r > 0.0:
-            vals.uniform_(-r, r, generator=generator)
-        vals[:, :2] = 0.0
-        vals[:1] = 0.0
         state = torch.zeros((cap, max(self.state_dim, 1)),
                             dtype=torch.float32, device=device)
+        self.fill_(vals, state, generator)
         return vals, state
+
+    def fill_(self, vals: torch.Tensor, state: torch.Tensor,
+              generator: torch.Generator) -> None:
+        """``alloc``'s contents written into existing arenas, in place."""
+        r = float(self.conf.initial_range)
+        if r > 0.0:
+            vals.uniform_(-r, r, generator=generator)
+        else:
+            vals.zero_()
+        vals[:, :2] = 0.0
+        vals[:1] = 0.0
+        state.zero_()
 
     def pull(self, values: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         """``values[rows]`` with embedx gating: a gated group pulls zeros
@@ -275,13 +290,24 @@ class DeviceTable:
 
     # -- device arenas -------------------------------------------------------
 
-    def _alloc(self, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _generator(self) -> torch.Generator:
+        """The next arena init's generator (one seed an allocation)."""
         self._alloc_seq += 1
         gen = torch.Generator(device=self.device)
         gen.manual_seed((self.conf.seed or 42) * 1009 + self._alloc_seq)
-        return self.layout.alloc(cap, gen, self.device)
+        return gen
+
+    def _alloc(self, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.layout.alloc(cap, self._generator(), self.device)
+
+    def _rerandomize(self) -> None:
+        """A fresh init into the arenas, in place (their addresses, and so
+        a captured run over them, stay)."""
+        self.layout.fill_(self.values, self.state, self._generator())
 
     def _grow_to(self, need: int) -> None:
+        """Double the arenas (and the dirty marks) until ``need`` rows fit.
+        Every insert grows through here; a bounded table overrides it."""
         new_cap = self.capacity
         while new_cap < need:
             new_cap = int(new_cap * self.GROW)
@@ -486,6 +512,48 @@ class DeviceTable:
                                          device=self.device)
 
     # -- persistence ---------------------------------------------------------
+
+    def _canonical(self, rows: torch.Tensor
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """Host copies of the arena rows ``rows`` (int64 on the table's
+        device) in the snapshot layout, which the float32 arena already
+        is: values [n, D], state [n, max(state_dim, 1)]."""
+        return (self.values.index_select(0, rows).cpu().numpy(),
+                self.state.index_select(0, rows).cpu().numpy())
+
+    def _ingest(self, rows: torch.Tensor, vals: np.ndarray,
+                st: np.ndarray) -> None:
+        """Write snapshot-layout rows into the arenas at ``rows`` (int64 on
+        the table's device), in place. A state of the host table's width
+        (0 columns under sgd) fills the arena's state columns it has."""
+        dev = self.device
+        self.values.index_copy_(
+            0, rows, torch.from_numpy(np.ascontiguousarray(
+                vals, dtype=np.float32)).to(dev))
+        if self.state_dim:
+            self.state.index_copy_(
+                0, rows, torch.from_numpy(np.ascontiguousarray(
+                    st, dtype=np.float32)).to(dev))
+
+    def to_host_table(self):
+        """The table as a host ``EmbeddingTable`` (``ps/table.py``) of the
+        same backend: every key with its values and state, ``embedx_ok``
+        where show has reached the threshold."""
+        t = EmbeddingTable(self.conf, backend=self.backend)
+        n = self._size
+        if n > 1:
+            keys = self._index.dump_keys(n)[1:]
+            t.feed_pass(keys)
+            vals, st = self._canonical(
+                torch.arange(1, n, dtype=torch.int64, device=self.device))
+            # the host table numbers its rows in its own (sorted) order
+            with t._lock:
+                hrows = t._index.lookup(keys, False, True, 0)[0]
+                t._values[hrows] = vals
+                t._state[hrows] = st
+                t._embedx_ok[hrows] = \
+                    vals[:, 0] >= self.conf.embedx_threshold
+        return t
 
     def snapshot(self) -> Dict[str, np.ndarray]:
         """Host copy of every used row in the canonical layout (a copy on

@@ -1,7 +1,9 @@
 """The port's native host code: ctypes bindings of ``csrc/pbx_index.cpp``,
 the key index (counterpart of ``paddlebox_tpu/ps/native.py``'s
-``NativeIndex`` and ``MtIndex``), and of ``csrc/pbx_feed.cpp``, the file
-tokenizer (``parse_block``).
+``NativeIndex`` and ``MtIndex``) and the host table's row helpers
+(``unique_inverse``, ``merge_add``, ``gather_rows``, ``scatter_rows``,
+``expand_rows``), and of ``csrc/pbx_feed.cpp``, the file tokenizer
+(``parse_block``).
 
 ``NativeIndex`` is one open-addressing map (``Map64``) from uint64 keys to
 arena rows; ``MtIndex`` shards keys over T maps and prepares a batch with T
@@ -12,7 +14,8 @@ numbers from an internal counter, so its rows depend on thread timing).
 Each library builds with ``g++`` at first use into ``build/``
 (``ops/_build.py``). Where the index cannot build, ``available()`` is False
 and ``build_error()`` says why; the device table then takes its numpy
-index. The tokenizer has no Python fallback: where it cannot build,
+index, and the row helpers compute the same arrays with numpy. The
+tokenizer has no Python fallback: where it cannot build,
 ``parse_block`` raises with the build error.
 """
 
@@ -69,6 +72,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "pbx_mt_lookup": (i64, [vp, _u64p, i64, _i64p, c_int, c_int, u64]),
         "pbx_mt_dump": (None, [vp, _u64p, i64]),
         "pbx_mt_rebuild": (i64, [vp, _u64p, i64]),
+        "pbx_unique_inverse": (i64, [_u64p, i64, _u64p, _i64p]),
+        "pbx_merge_add": (None, [_i64p, i64, _f32p, i64, _f32p]),
+        "pbx_gather_rows": (None, [_f32p, _i64p, i64, i64, _f32p]),
+        "pbx_scatter_rows": (None, [_f32p, _i64p, i64, i64, _f32p]),
+        "pbx_expand_rows": (None, [_f32p, _i64p, i64, i64, _f32p]),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)
@@ -145,6 +153,80 @@ def parse_block(data: bytes, kinds: np.ndarray, n_sparse: int,
     rows, nk, nf = (int(c) for c in counts)
     return (keys[:nk].copy(), lengths[:rows], floats[:nf].copy(),
             flengths[:rows], labels[:rows])
+
+
+# -- host-table row helpers (ps/table.py, native backend) --------------------
+
+def unique_inverse(keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Sorted uniques and the inverse, the contract of ``np.unique(keys,
+    return_inverse=True)`` (inverse int64)."""
+    lib = _load()
+    keys = _u64(keys)
+    if lib is None:
+        return np.unique(keys, return_inverse=True)
+    uniq = np.empty(keys.size, dtype=np.uint64)
+    inverse = np.empty(keys.size, dtype=np.int64)
+    u = lib.pbx_unique_inverse(_ptr(keys, _u64p), keys.size,
+                               _ptr(uniq, _u64p), _ptr(inverse, _i64p))
+    return uniq[:u].copy(), inverse
+
+
+def merge_add(inverse: np.ndarray, grads: np.ndarray,
+              num_unique: int) -> np.ndarray:
+    """``merged[u]`` = the sum of the grads whose inverse is u, added in
+    key order (``np.add.at``'s bits)."""
+    lib = _load()
+    grads = np.ascontiguousarray(grads, dtype=np.float32)
+    merged = np.zeros((num_unique, grads.shape[1]), dtype=np.float32)
+    if lib is None:
+        np.add.at(merged, np.asarray(inverse), grads)
+        return merged
+    inverse = np.ascontiguousarray(inverse, dtype=np.int64)
+    lib.pbx_merge_add(_ptr(inverse, _i64p), inverse.size, _ptr(grads, _f32p),
+                      grads.shape[1], _ptr(merged, _f32p))
+    return merged
+
+
+def gather_rows(arena: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """``arena[rows]`` as a new array, zeros where ``rows`` < 0. ``arena``
+    is a C-contiguous float32 [n, d]."""
+    lib = _load()
+    if lib is None:
+        out = arena[np.maximum(rows, 0)].copy()
+        out[rows < 0] = 0.0
+        return out
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    out = np.empty((rows.size, arena.shape[1]), dtype=np.float32)
+    lib.pbx_gather_rows(_ptr(arena, _f32p), _ptr(rows, _i64p), rows.size,
+                        arena.shape[1], _ptr(out, _f32p))
+    return out
+
+
+def scatter_rows(arena: np.ndarray, rows: np.ndarray,
+                 vals: np.ndarray) -> None:
+    """``arena[rows] = vals`` in place, skipping ``rows`` < 0 (the C path;
+    numpy writes every row). ``arena`` is a C-contiguous float32 [n, d]."""
+    lib = _load()
+    if lib is None:
+        arena[rows] = vals
+        return
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    vals = np.ascontiguousarray(vals, dtype=np.float32)
+    lib.pbx_scatter_rows(_ptr(arena, _f32p), _ptr(rows, _i64p), rows.size,
+                         arena.shape[1], _ptr(vals, _f32p))
+
+
+def expand_rows(uniq_vals: np.ndarray, inverse: np.ndarray) -> np.ndarray:
+    """``uniq_vals[inverse]``: the unique rows back in key order."""
+    lib = _load()
+    uniq_vals = np.ascontiguousarray(uniq_vals, dtype=np.float32)
+    if lib is None:
+        return uniq_vals[inverse]
+    inverse = np.ascontiguousarray(inverse, dtype=np.int64)
+    out = np.empty((inverse.size, uniq_vals.shape[1]), dtype=np.float32)
+    lib.pbx_expand_rows(_ptr(uniq_vals, _f32p), _ptr(inverse, _i64p),
+                        inverse.size, uniq_vals.shape[1], _ptr(out, _f32p))
+    return out
 
 
 def _lib_or_raise():

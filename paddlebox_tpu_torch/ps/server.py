@@ -1,11 +1,14 @@
 """Sparse parameter-server facade: named tables and their pass and save
 lifecycle (counterpart of ``paddlebox_tpu/ps/server.py::SparsePS``).
 
-A ``SparsePS`` owns one table per feature space and drives their shared
-lifecycle:
+A ``SparsePS`` owns one table per feature space, any mix of the port's
+three kinds: the host ``EmbeddingTable`` (``ps/table.py``), the
+device-resident ``DeviceTable`` and the ``TieredDeviceTable`` over a host
+backing (``ps/tiered_table.py``). It drives their shared lifecycle:
 
     begin_pass -> feed_pass(keys)   stage the pass's working set
-    end_pass                        show/clk decay
+    prefetch_pass(keys)             start the next pass's staging early
+    end_pass                        writeback, show/clk decay
     save_base / save_delta          full and incremental snapshots
     shrink                          evict cold features
 
@@ -18,36 +21,36 @@ Snapshot layout under ``root`` (the donefile protocol is
 Dirs commit atomically (``ckpt/atomic.py``: a staging dir, a manifest,
 fsyncs, a rename) and loads verify the manifest first.
 
-Tables are the port's ``DeviceTable``s. The reference also takes host
-``EmbeddingTable``s and ``ShardedTable``s; their training half is not
-ported (ROADMAP A.2c), and ``SparsePS`` refuses them.
+The reference's host ``ShardedTable`` is not ported (ROADMAP A.9).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 
 from paddlebox_tpu_torch.ckpt import atomic
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
+from paddlebox_tpu_torch.ps.table import EmbeddingTable
+
+Table = Union[EmbeddingTable, DeviceTable]
 
 
 class SparsePS:
-    def __init__(self, tables: Mapping[str, DeviceTable]):
+    def __init__(self, tables: Mapping[str, Table]):
         if not tables:
             raise ValueError("SparsePS needs at least one table")
         for name, t in tables.items():
-            if not isinstance(t, DeviceTable):
-                raise NotImplementedError(
-                    f"table {name!r} is a {type(t).__name__}: only the "
-                    "port's DeviceTable is ported; host tables are not yet "
-                    "(ROADMAP A.2c)")
-        self.tables: Dict[str, DeviceTable] = dict(tables)
+            if not isinstance(t, (EmbeddingTable, DeviceTable)):
+                raise TypeError(
+                    f"table {name!r} is a {type(t).__name__}: SparsePS takes "
+                    "EmbeddingTable, DeviceTable and TieredDeviceTable")
+        self.tables: Dict[str, Table] = dict(tables)
         self.current_pass: Optional[int] = None
 
-    def __getitem__(self, name: str) -> DeviceTable:
+    def __getitem__(self, name: str) -> Table:
         return self.tables[name]
 
     # -- pass lifecycle ------------------------------------------------------
@@ -59,26 +62,36 @@ class SparsePS:
         self.current_pass = pass_id
 
     def feed_pass(self, keys_by_table: Mapping[str, np.ndarray]) -> None:
-        """Stage the pass's working set: each table inserts its keys now
+        """Stage the pass's working set, so that no training step inserts:
+        a tiered table stages its arena (``begin_feed_pass``, which
+        consumes a matching ``prefetch_pass``), a host table creates the
+        keys (``feed_pass``), a ``DeviceTable`` inserts them
         (``prepare_batch(create=True)``, which also keeps a device-prep
-        table's mirror in step and marks the keys dirty), so that no
-        training step inserts."""
+        table's mirror in step and marks the keys dirty)."""
         for name, keys in keys_by_table.items():
-            self.tables[name].prepare_batch(
-                np.asarray(keys, dtype=np.uint64), create=True)
+            table = self.tables[name]
+            keys = np.asarray(keys, dtype=np.uint64)
+            if hasattr(table, "begin_feed_pass"):
+                table.begin_feed_pass(keys)
+            elif hasattr(table, "feed_pass"):
+                table.feed_pass(keys)
+            else:
+                table.prepare_batch(keys, create=True)
 
     def prefetch_pass(self, keys_by_table: Mapping[str, np.ndarray]
                       ) -> None:
-        """The asynchronous half of the next feed pass, for tables that
-        stage in the background (the reference's tiered table, ROADMAP
-        A.7). A ``DeviceTable`` stages at ``feed_pass``; this only checks
-        the table names."""
-        unknown = sorted(set(keys_by_table) - set(self.tables))
-        if unknown:
-            raise KeyError(f"no tables {unknown}")
+        """Start the asynchronous half of the next feed pass on the tables
+        that stage in the background (``TieredDeviceTable.
+        prefetch_feed_pass``); the others stage at ``feed_pass``."""
+        for name, keys in keys_by_table.items():
+            table = self.tables[name]
+            if hasattr(table, "prefetch_feed_pass"):
+                table.prefetch_feed_pass(np.asarray(keys, dtype=np.uint64))
 
     def end_pass(self) -> None:
-        """Decay show/clk in every table."""
+        """End the pass in every table: a tiered table writes back, then
+        the host tables decay show/clk (the tiered table's backing, not
+        its arena)."""
         for t in self.tables.values():
             t.end_pass()
         self.current_pass = None
@@ -86,7 +99,8 @@ class SparsePS:
     def shrink(self) -> int:
         """Evict cold features; returns the count evicted. A
         ``DeviceTable`` has no eviction, in the reference either."""
-        return 0
+        return sum(t.shrink() for t in self.tables.values()
+                   if hasattr(t, "shrink"))
 
     # -- persistence ---------------------------------------------------------
     # ``PassManager`` splits a save: ``snapshot_files`` (host copies, on the

@@ -5,8 +5,11 @@
     begin_pass                      load (or adopt the preloaded buffer),
                                     feed the pass's keys to the PS
     preload_next                    parse pass N+1 in the background
+    prefetch_feed_next              and start its staging (a tiered
+                                    table exports its rows on its worker)
     ... train pass N ...            CTRTrainer.train_from_dataset
-    end_pass(save_delta)            show/clk decay, then a delta save
+    end_pass(save_delta)            writeback (tiered), show/clk decay,
+                                    then a delta save
     [at day end] save_base          the whole table, and the dense state
     barrier                         every save durable and recorded
 
@@ -153,8 +156,9 @@ class PassManager:
     def prefetch_feed_next(self) -> None:
         """After ``preload_next``: once the preload is done, extract its
         keys on a background thread and start the tables' asynchronous
-        staging (``SparsePS.prefetch_pass``); ``begin_pass(preloaded=True)``
-        then reuses the keys."""
+        staging (``SparsePS.prefetch_pass``: a ``TieredDeviceTable``
+        exports the rows on its tier worker); ``begin_pass(preloaded=True)``
+        then reuses the keys, and the tiered table consumes the export."""
         ds = self.next_buffer
 
         def work():

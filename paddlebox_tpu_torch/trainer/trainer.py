@@ -2,8 +2,9 @@
 ``train_from_files`` on one device (counterpart of the single-device fused
 branch of ``paddlebox_tpu/trainer/trainer.py``).
 
-``train_from_dataset`` drives ``FusedTrainStep`` over a ``DeviceTable``
-one batch at a time:
+``train_from_dataset`` drives ``FusedTrainStep`` over a ``DeviceTable``, or
+a ``TieredDeviceTable`` whose pass working set ``PassManager`` stages from
+its host backing (``ps/tiered_table.py``), one batch at a time:
 
     for batch in dataset.batches():  step -> [fetch_handler, dump]
 
@@ -25,7 +26,8 @@ JSON line per instance (search_id, label, pred).
 
 Not ported, and refused with ``NotImplementedError``: ``mesh=`` and
 ``dense_sync_hook`` (ROADMAP A.9), the host-table engine
-(``use_device_table=False`` or a host table, A.2c), ``train_from_files``
+(``use_device_table=False`` or a host ``EmbeddingTable`` as the table,
+A.2c), ``train_from_files``
 with ``workers`` > 1 (the multi-process reader, A.2d),
 ``insert_mode="deferred"`` with device prep on (A.3b), and, set through
 the reference's ``PBOX_FLAGS_<name>`` environment variables, the device

@@ -1,7 +1,8 @@
 """The port stands alone: no jax, flax, optax or paddlebox_tpu import, in
 the package, in chip_smoke.py, kernel_versions.py or pass_versions.py; it
 serves, trains and runs a trainer pass, from a dataset and straight off
-files, and a day/pass loop with its checkpoints and resume, with them
+files, a day/pass loop with its checkpoints and resume, and that loop over
+a tiered table with its host backing and prefetched feed pass, with them
 blocked; its entry points default to the card and raise without one (the
 trainer too); its kernel modules import without a CUDA toolkit."""
 
@@ -379,6 +380,74 @@ def test_pass_loop_with_jax_blocked(tmp_path):
     assert "PASS_LOOP" in res.stdout
 
 
+def test_tiered_loop_with_jax_blocked(tmp_path):
+    """A tiered table (a bounded arena over the host ``EmbeddingTable``,
+    its optimizers and row helpers) under ``PassManager`` with the
+    prefetched feed pass: two passes trained by ``CTRTrainer``, delta and
+    base saves, a resume of the backing, with jax and paddlebox_tpu
+    blocked."""
+    from conftest import make_slot_file
+    from paddlebox_tpu.config import DataFeedConfig, SlotConfig
+    conf = DataFeedConfig(slots=[
+        SlotConfig("label", type="float", is_dense=True, dim=1),
+        SlotConfig("a"), SlotConfig("b")], batch_size=8, thread_num=2)
+    data = [make_slot_file(str(tmp_path / f"part-{i}"), conf, 20, seed=i,
+                           vocab=300) for i in range(2)]
+    res = _run(f"""
+        import sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        from paddlebox_tpu_torch.config import (DataFeedConfig, SlotConfig,
+                                                TableConfig, TrainerConfig)
+        from paddlebox_tpu_torch.data.dataset import SlotDataset
+        from paddlebox_tpu_torch.models import DeepFM
+        from paddlebox_tpu_torch.ps.server import SparsePS
+        from paddlebox_tpu_torch.ps.tiered_table import TieredDeviceTable
+        from paddlebox_tpu_torch.trainer.pass_manager import PassManager
+        from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
+        conf = DataFeedConfig(slots=[
+            SlotConfig("label", type="float", is_dense=True, dim=1),
+            SlotConfig("a"), SlotConfig("b")], batch_size=8, thread_num=2)
+        tconf = TableConfig(embedx_dim=4, embedx_threshold=0.0)
+        table = TieredDeviceTable(tconf, capacity=128, device="cpu",
+                                  index_threads=1)
+        tr = CTRTrainer(DeepFM(2 * 7, (8,)), conf, tconf, TrainerConfig(),
+                        table=table)
+        root = {str(tmp_path / "model")!r}
+        pm = PassManager(SparsePS({{"embedding": table}}), root,
+                         [SlotDataset(conf), SlotDataset(conf)])
+        pm.set_date("20260101")
+        ds = pm.begin_pass({data[:1]!r})
+        pm.preload_next({data[1:]!r})
+        pm.prefetch_feed_next()
+        tr.train_from_dataset(ds)
+        pm.end_pass(save_delta=True)
+        tr.train_from_dataset(pm.begin_pass([], preloaded=True))
+        pm.end_pass(save_delta=True)
+        pm.save_base(dense_state=(tr.params, tr.opt_state))
+        pm.barrier()
+        pm.close()
+        assert len(table) > table.capacity > 0
+        fresh = TieredDeviceTable(tconf, capacity=16, device="cpu")
+        pm2 = PassManager(SparsePS({{"embedding": fresh}}), root,
+                          [SlotDataset(conf)])
+        assert pm2.resume()[:2] == ("20260101", 2)
+        pm2.close()
+        a = table.backing.snapshot(reset_dirty=False)
+        b = fresh.backing.snapshot(reset_dirty=False)
+        oa, ob = np.argsort(a["keys"]), np.argsort(b["keys"])
+        for k in ("keys", "values", "state", "embedx_ok"):
+            assert np.array_equal(a[k][oa], b[k][ob]), k
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("TIERED_LOOP", len(fresh))
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "TIERED_LOOP" in res.stdout
+
+
 def test_entry_points_default_to_cuda(tmp_path):
     from paddlebox_tpu_torch import resolve_device
     from paddlebox_tpu_torch.inference import CTRPredictor
@@ -393,6 +462,9 @@ def test_entry_points_default_to_cuda(tmp_path):
     from paddlebox_tpu_torch.ps.device_table import DeviceTable
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DeviceTable(TableConfig())
+    from paddlebox_tpu_torch.ps.tiered_table import TieredDeviceTable
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TieredDeviceTable(TableConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         new_auc_state()
     from paddlebox_tpu_torch.trainer.trainer import CTRTrainer

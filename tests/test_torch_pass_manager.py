@@ -21,7 +21,11 @@ params and its arena (``load_arena``). Held to the reference:
   by either package gives the same rows by key and the same dense leaves.
 A crash at ``delta.mid_write`` is run through both packages and their
 trails compared; retention and the CPU-view hazard (a save's arrays are
-copies of the live arena) are checked on the port."""
+copies of the live arena) are checked on the port. A ``TieredDeviceTable``
+under the loop (the reference's ``TestTieredPassFlow``): the prefetched
+staging is consumed and equals the synchronous flow bit for bit, trained
+by ``CTRTrainer`` on either engine, and the untrained flow equals the
+reference's; a host ``EmbeddingTable`` is a table of ``SparsePS``."""
 
 import dataclasses
 import os
@@ -59,6 +63,7 @@ from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.ps.server import SparsePS
 from paddlebox_tpu_torch.ps.table import EmbeddingTable
+from paddlebox_tpu_torch.ps.tiered_table import TieredDeviceTable
 from paddlebox_tpu_torch.trainer import donefile
 from paddlebox_tpu_torch.trainer.pass_manager import PassManager
 from paddlebox_tpu_torch.trainer.train_step import make_dense_optimizer
@@ -450,9 +455,24 @@ def test_training_after_a_save_leaves_its_files_unchanged(tmp_path, files):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    from paddlebox_tpu_torch.config import TableConfig as PortTableConfig
-    with pytest.raises(NotImplementedError, match="A.2c"):
-        SparsePS({"e": EmbeddingTable(PortTableConfig(), device="cpu")})
+    # a host EmbeddingTable is a table of the PS (its training half is
+    # ported): the feed pass creates the keys, end_pass decays, shrink
+    # evicts, and its snapshot is a file of the dir
+    host = EmbeddingTable(TableConfig(**dict(TABLE, show_clk_decay=0.5)),
+                          backend="numpy")
+    hps = SparsePS({"h": host})
+    hps.feed_pass({"h": np.array([0, 3, 7, 3], np.uint64)})
+    assert hps.num_features() == {"h": 2}
+    hps.prefetch_pass({"h": np.array([9], np.uint64)})   # stages at feed
+    host.push(np.array([3], np.uint64), np.ones((1, host.dim), np.float32))
+    hps.end_pass()
+    np.testing.assert_array_equal(host.pull(np.array([3], np.uint64))[:, :2],
+                                  [[0.5, 0.5]])
+    (name, snap), = hps.snapshot_files("base").items()
+    assert name == "h.npz" and snap["keys"].tolist() == [3, 7]
+    assert hps.shrink() == 1 and len(host) == 1      # key 7 never showed
+    with pytest.raises(TypeError, match="SparsePS takes"):
+        SparsePS({"e": object()})
     t = DeviceTable(TableConfig(**TABLE), capacity=8, device="cpu",
                     backend="numpy")
     ps = SparsePS({"e": t})
@@ -467,7 +487,124 @@ def test_refusals(tmp_path, monkeypatch):
         ps.begin_pass(2)
     assert pm.resume() is None
     assert ps.num_features() == {"e": 0} and ps.shrink() == 0
+    ps.prefetch_pass({"e": np.zeros(1, np.uint64)})     # stages at feed
     assert ps.memory_bytes() == t.memory_bytes()
     with pytest.raises(KeyError):
         ps.prefetch_pass({"nope": np.zeros(1, np.uint64)})
     pm.close()
+
+
+# -- a tiered table under the pass loop ---------------------------------------
+
+def tiered_flow(files, root, prefetch, trainer=None, engine="device"):
+    """The reference's ``TestTieredPassFlow`` loop over a port
+    ``TieredDeviceTable``: pass 1 stages, the next file preloads (and, with
+    ``prefetch``, its staging starts), pass 1 ends and writes back, pass 2
+    takes the preloaded buffer. ``trainer``: (model) trains each pass
+    through ``CTRTrainer.train_from_dataset``. Returns the backing by key,
+    W of pass 2, whether the consume took the buffers and the losses."""
+    conf = TableConfig(**dict(TABLE, show_clk_decay=0.9))
+    table = TieredDeviceTable(conf, capacity=1 << 12, device="cpu",
+                              **ENGINES[engine])
+    tr = None
+    if trainer is not None:
+        tr = CTRTrainer(trainer, port_feed_conf(), conf, TrainerConfig(),
+                        table=table)
+        assert tr.step.device_prep == (engine == "device")
+    pm = port_pm(table, root)
+    pm.set_date(DAY1)
+    losses = []
+    handler = lambda step, loss, preds: losses.append(loss)
+    ds = pm.begin_pass(files[1:2])
+    assert table.in_pass and table.staged_keys.size > 0
+    pm.preload_next(files[3:4])
+    consumed = []
+    if prefetch:
+        orig = table._consume_prefetch
+
+        def spy(uniq):
+            out = orig(uniq)
+            consumed.append(out is not None)
+            return out
+
+        table._consume_prefetch = spy
+        pm.prefetch_feed_next()
+    if tr is not None:
+        tr.train_from_dataset(ds, fetch_handler=handler)
+    pm.end_pass(save_delta=True)
+    ds = pm.begin_pass([], preloaded=True)
+    assert table.in_pass
+    w2 = table.staged_keys.size
+    if tr is not None:
+        tr.train_from_dataset(ds, fetch_handler=handler)
+    pm.end_pass(save_delta=True)
+    pm.save_base(wait=True)
+    pm.close()
+    snap = table.backing.snapshot(reset_dirty=False)
+    order = np.argsort(snap["keys"])
+    rows = tuple(snap[k][order] for k in ("keys", "values", "state",
+                                          "embedx_ok"))
+    return rows, w2, consumed, losses
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_tiered_pass_flow_prefetch_equals_sync(engine, files, tmp_path):
+    """``prefetch_feed_next`` over a tiered table: the staging of pass 2
+    runs on the tier worker while pass 1 trains, ``begin_pass(preloaded=
+    True)`` consumes it (a spy on ``_consume_prefetch``), and the backing
+    equals the synchronous flow's bit for bit, as do the losses."""
+    model = DeepFM(3 * 7 + 3, HIDDEN)
+    twin = DeepFM(3 * 7 + 3, HIDDEN)
+    twin.load_state_dict(model.state_dict())
+    a, wa, ca, la = tiered_flow(files, str(tmp_path / "sync"), False,
+                                trainer=model, engine=engine)
+    b, wb, cb, lb = tiered_flow(files, str(tmp_path / "pre"), True,
+                                trainer=twin, engine=engine)
+    assert ca == [] and cb == [True]
+    assert wa == wb > 0 and len(la) == len(lb) > 0
+    assert np.array_equal(la, lb)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    # the file pass 2 drew from holds new keys, created in the backing
+    assert a[0].size > wa
+
+
+def test_tiered_pass_flow_matches_reference(files, tmp_path):
+    """The reference's own ``TestTieredPassFlow`` loop (no training) in
+    both packages: the same W, the same backing bit for bit (staging is
+    the host table's numpy, the init ``key_init_uniform``)."""
+    from paddlebox_tpu.ps.tiered_table import TieredDeviceTable as JaxTiered
+    got, w, consumed, _ = tiered_flow(files, str(tmp_path / "port"), True)
+    jt = JaxTiered(JaxTableConfig(**dict(TABLE, show_clk_decay=0.9)),
+                   capacity=1 << 12, **ENGINES["device"])
+    pm = RefPassManager(RefSparsePS({"embedding": jt}), str(tmp_path / "r"),
+                        [JaxSlotDataset(jax_feed_conf()),
+                         JaxSlotDataset(jax_feed_conf())])
+    pm.set_date(DAY1)
+    pm.begin_pass(files[1:2])
+    pm.preload_next(files[3:4])
+    pm.prefetch_feed_next()
+    pm.end_pass(save_delta=True)
+    pm.begin_pass([], preloaded=True)
+    assert jt.staged_keys.size == w and consumed == [True]
+    pm.end_pass(save_delta=True)
+    pm.save_base(wait=True)
+    pm.close()
+    bt = jt.backing
+    keys = bt._index.dump_keys(bt._size)
+    order = np.argsort(keys)
+    want = (keys[order], bt._values[:bt._size][order],
+            bt._state[:bt._size][order], bt._embedx_ok[:bt._size][order])
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x, y)
+    # each package's trail resumes into the other's tiered table
+    for root in (str(tmp_path / "port"), str(tmp_path / "r")):
+        t = TieredDeviceTable(TableConfig(**TABLE), capacity=64,
+                              device="cpu", backend="numpy")
+        rpm = port_pm(t, root)
+        assert rpm.resume() == (DAY1, 2, None)
+        rpm.close()
+        snap = t.backing.snapshot(reset_dirty=False)
+        order = np.argsort(snap["keys"])
+        np.testing.assert_array_equal(snap["keys"][order], want[0])
+        np.testing.assert_array_equal(snap["values"][order], want[1])

@@ -24,7 +24,7 @@ from paddlebox_tpu_torch.data.record import SlotRecord
 from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
                                                      save_inference_model)
 from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
-from paddlebox_tpu_torch.ps.table import EmbeddingTable
+from paddlebox_tpu_torch.ps.serving_table import ServingTable
 
 B = 32
 HIDDEN = (16, 8)
@@ -89,7 +89,7 @@ def test_pull_is_bit_identical(world):
                            np.array([0, 0, 12345], np.uint64)])
     np.random.default_rng(0).shuffle(keys)
     want = world["table"].pull(keys, create=False)
-    port = EmbeddingTable(TableConfig(**TABLE), device="cpu")
+    port = ServingTable(TableConfig(**TABLE), device="cpu")
     port.load(os.path.join(world["bundle"], "table.npz"))
     got = port.pull(keys).numpy()
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -172,7 +172,7 @@ def test_quantized_only_bundle_and_create_raise(world, tmp_path):
               os.path.join(bundle, "table.q8.npz"))
     with pytest.raises(NotImplementedError, match="q8"):
         CTRPredictor(bundle, device="cpu")
-    table = EmbeddingTable(TableConfig(**TABLE), device="cpu")
+    table = ServingTable(TableConfig(**TABLE), device="cpu")
     with pytest.raises(NotImplementedError, match="training"):
         table.pull(np.array([1], np.uint64), create=True)
 
