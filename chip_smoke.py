@@ -161,6 +161,37 @@ Phases, each fatal on failure:
    graphs on the tiered table beside an untiered ``DeviceTable`` of every
    row, and the step beside a dataset preload and idle, in turns, each
    beside the card's name and power limit.
+4f. host engine and models — the reference's other engine and the
+             models of ``examples/01``, ``03`` and ``04`` at their widths:
+             (a) ``CTRTrainer(WideDeep(256-128-64),
+             use_device_table=False)`` over a native host
+             ``EmbeddingTable``, one seeded MultiSlot file of 16 batches
+             of B=512 (26 slots of 1-3 keys, 13 dense): the forward and
+             backward once a batch, ``evaluate`` the forward once a batch;
+             losses, pass metrics, every row by key and the dense params
+             bit for bit against a hand loop of ``TrainStep`` + pull/push
+             on a twin, its first 2 steps within 1e-5 of the CPU and the
+             rows' change within 1e-3 of its largest entry. (b) MMoE
+             (2 tasks, 4 experts 128-64, towers 64) through ``TrainStep``
+             over a host table, 16 steps of B=2048 (20 slots), labels [B,
+             2] as the example makes them, a ``MetricRegistry`` of
+             ``ctr_auc`` and ``cvr_auc``; the first 2 steps as (a)'s
+             against the CPU. (c) ``FeedDNN()`` over a ``DeviceTable`` of
+             2^20 rows
+             on device prep through ``FusedTrainStep.train_stream``, 32
+             batches of B=512 (40 slots): a warm-up run and a captured,
+             replayed one, every device-prep kernel once a batch; losses,
+             rows by key, dense params, adam's and the AUC state bit for
+             bit against the eager run loop on a twin; its first 2 steps
+             against device prep on the CPU (every kernel's plain
+             version) as (a)'s, the touched rows read in the warm-up
+             run. (d) MMoE and
+             FeedDNN bundles from (b) and (c) served by
+             ``CTRPredictor(device="cuda")``, the forward once a batch,
+             scores within 1e-5 of the predictor on the CPU.
+   ms/step and examples/s of (a)-(c), the pull, step and push spans of
+   (a) and (b) and inside the step its upload, device time and download
+   (a profile), ms a batch of (d).
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -202,11 +233,13 @@ from paddlebox_tpu_torch.config import (BucketSpec, DataFeedConfig,
                                         TrainerConfig, batch_bucket_spec)
 from paddlebox_tpu_torch.data.criteo import (CriteoReader, criteo_feed_config,
                                              make_synthetic_criteo)
+from paddlebox_tpu_torch.data.batch import CsrBatch
 from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.data.fast_feed import FastSlotReader
 from paddlebox_tpu_torch.ckpt.writer import AsyncCheckpointWriter
 from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
                                                      save_inference_model)
+from paddlebox_tpu_torch.models import FeedDNN, MMoE, WideDeep
 from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
 from paddlebox_tpu_torch.ops import _build
 from paddlebox_tpu_torch.ops.seqpool_kernel import (bulk_loads, grad_lanes,
@@ -236,9 +269,10 @@ from paddlebox_tpu_torch.ps.device_index import (DeviceIndexMirror,
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.ps.native import NativeIndex
 from paddlebox_tpu_torch.ps.server import SparsePS
-from paddlebox_tpu_torch.ps.table import EmbeddingTable, state_dim
+from paddlebox_tpu_torch.ps.table import (EmbeddingTable, key_init_uniform,
+                                         state_dim)
 from paddlebox_tpu_torch.ps.tiered_table import TieredDeviceTable
-from paddlebox_tpu_torch.metrics import AucCalculator
+from paddlebox_tpu_torch.metrics import AucCalculator, MetricRegistry
 from paddlebox_tpu_torch.metrics.auc import reset_auc_state_
 from paddlebox_tpu_torch.trainer.fused_step import (FusedTrainStep,
                                                     collect_same_shape_run)
@@ -246,7 +280,9 @@ from paddlebox_tpu_torch.trainer import donefile
 from paddlebox_tpu_torch.trainer.pass_manager import (CKPT_QUEUE_DEPTH,
                                                       CKPT_RETRIES,
                                                       PassManager)
+from paddlebox_tpu_torch.trainer.train_step import TrainStep
 from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
+from paddlebox_tpu_torch.utils.timer import SpanTimer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -1378,10 +1414,10 @@ def snapshot_rows(table: DeviceTable, rows: torch.Tensor, model=None):
 
 
 def compare_twin(tag: str, losses, after, twin_losses, twin_after,
-                 before) -> None:
+                 before, stored: bool = False) -> None:
     """The first steps of the main path vs its twin's, from the same init:
     losses (rtol), the touched rows (show/clk exact, the rest and their
-    change from ``before``), the dense params."""
+    change from ``before``, ``require_change``), the dense params."""
     losses = [float(x) for x in losses[:CPU_STEPS]]
     twin_losses = [float(x) for x in twin_losses]
     require(np.allclose(losses, twin_losses, rtol=TRAIN_RTOL, atol=0),
@@ -1395,23 +1431,39 @@ def compare_twin(tag: str, losses, after, twin_losses, twin_after,
                     for a, b in zip(params, cparams))
     require(row_err <= TRAIN_ATOL, f"{tag}: table rows {row_err}")
     require(dense_err <= TRAIN_ATOL, f"{tag}: dense params {dense_err}")
-    changes = []
-    for what, got, want, init in (
-            ("values", vals[:, 2:], cvals[:, 2:], before[0][:, 2:]),
-            ("state", st, cst, before[1])):
-        scale = float((want - init).abs().max())
-        derr = float(((got - init) - (want - init)).abs().max())
-        require(scale > 0, f"{tag}: the steps left the touched rows' {what} "
-                           "unchanged")
-        require(derr <= TRAIN_DELTA_RTOL * scale,
-                f"{tag}: change of the touched rows' {what} {derr} > "
-                f"{TRAIN_DELTA_RTOL} * {scale}")
-        changes.append(f"{what} max abs err {derr:.3e} of a largest "
-                       f"change {scale:.3e}")
+    changes = require_change(tag, (
+        ("values", vals[:, 2:].numpy(), cvals[:, 2:].numpy(),
+         before[0][:, 2:].numpy()),
+        ("state", st.numpy(), cst.numpy(), before[1].numpy())), stored)
     print(f"{tag} over {CPU_STEPS} steps: losses {losses} vs {twin_losses}, "
           f"{vals.shape[0]} touched rows (show/clk exact, max abs err "
-          f"{row_err:.3e}; their change: {', '.join(changes)}), dense max "
-          f"abs err {dense_err:.3e}")
+          f"{row_err:.3e}; their change: {changes}), dense max abs err "
+          f"{dense_err:.3e}")
+
+
+def require_change(tag: str, parts, stored: bool = False) -> str:
+    """For each (what, got, want, init) of host float32 arrays: the steps'
+    change ``got - init`` within TRAIN_DELTA_RTOL of the largest entry of
+    ``want - init``, which must be > 0. With ``stored``, plus one float32
+    spacing of the largest value in ``want``: the least step a stored row
+    can take, where the change is below a thousand of them (the examples'
+    rows near 0.01, spacing 9.3e-10, change by 5e-8 to 3e-5 in 2 steps; a
+    state that starts at 0 keeps its full precision). Returns the
+    errors, for a print."""
+    changes = []
+    for what, got, want, init in parts:
+        scale = float(np.abs(want - init).max())
+        derr = float(np.abs((got - init) - (want - init)).max())
+        slack = float(np.spacing(np.abs(want).max())) if stored else 0.0
+        require(scale > 0, f"{tag}: the steps left the touched rows' {what} "
+                           "unchanged")
+        require(derr <= TRAIN_DELTA_RTOL * scale + slack,
+                f"{tag}: change of the touched rows' {what} {derr} > "
+                f"{TRAIN_DELTA_RTOL} * {scale} + {slack}")
+        changes.append(f"{what} max abs err {derr:.3e} of a largest change "
+                       f"{scale:.3e}" + (f" (+ spacing {slack:.3e})"
+                                         if stored else ""))
+    return ", ".join(changes)
 
 
 def run_counted(fs, state, batches, wrappers, step=None):
@@ -1445,6 +1497,13 @@ def run_twin(tag: str, table: DeviceTable, model, device_prep: bool,
                                  tfs.step_device if device_prep else None)
     compare_twin(tag, losses, after, twin_losses,
                  snapshot_rows(table, touched, model), before)
+
+
+def key_rows(table: DeviceTable, keys: np.ndarray) -> torch.Tensor:
+    """The rows of ``keys`` (sorted, unique, every one in the table)."""
+    rows, _ = table._index.lookup(keys, False, True, 0)
+    require(bool((rows > 0).all()), "a key has no row")
+    return torch.from_numpy(rows.astype(np.int64))
 
 
 def time_steps(fs, state, batches, step=None):
@@ -1652,12 +1711,21 @@ TRAINER_FILE_BATCHES = 16    # batches of TB rows in each file: a run
 TRAINER_HEADROOM = 1 << 17   # arena rows beyond the prepopulated ones
 
 
+def slot_feed_conf(slots: int, batch: int, dense_dim: int = 0):
+    """A MultiSlot feed: a label, ``slots`` sparse slots and a dense slot
+    of ``dense_dim`` values (none at 0)."""
+    conf = [SlotConfig("label", type="float", is_dense=True, dim=1)]
+    conf += [SlotConfig(f"s{i}") for i in range(slots)]
+    if dense_dim:
+        conf.append(SlotConfig("dense", type="float", is_dense=True,
+                               dim=dense_dim))
+    return DataFeedConfig(slots=conf, batch_size=batch, label_slot="label")
+
+
 def trainer_feed_conf() -> DataFeedConfig:
     """The training shape as a MultiSlot feed: a label and TS sparse
     slots, batch TB."""
-    slots = [SlotConfig("label", type="float", is_dense=True, dim=1)]
-    slots += [SlotConfig(f"s{i}") for i in range(TS)]
-    return DataFeedConfig(slots=slots, batch_size=TB, label_slot="label")
+    return slot_feed_conf(TS, TB)
 
 
 def write_trainer_file(rng, path: str, fresh: int) -> int:
@@ -1679,20 +1747,24 @@ def write_trainer_file(rng, path: str, fresh: int) -> int:
     return n_new
 
 
-def write_slot_lines(path: str, lengths, keys, labels) -> None:
-    """MultiSlot lines: a label, then TS slots of ``lengths[r]`` keys each,
-    taken from ``keys`` in order."""
+def write_slot_lines(path: str, lengths, keys, labels, dense=None) -> None:
+    """MultiSlot lines: a label, then a slot of ``lengths[r, j]`` keys for
+    each column of ``lengths``, taken from ``keys`` in order, then the
+    row's ``dense`` values if given."""
     toks = keys.astype(str)
     lens = lengths.astype(str)
     pos = 0
     with open(path, "w") as f:
         for r in range(lengths.shape[0]):
             parts = ["1", str(labels[r])]
-            for j in range(TS):
+            for j in range(lengths.shape[1]):
                 n = int(lengths[r, j])
                 parts.append(lens[r, j])
                 parts.extend(toks[pos:pos + n])
                 pos += n
+            if dense is not None:
+                parts.append(str(dense.shape[1]))
+                parts.extend(repr(float(x)) for x in dense[r])
             f.write(" ".join(parts) + "\n")
 
 
@@ -1772,7 +1844,7 @@ def require_same_training(tag: str, a, b) -> None:
 def reader_tuples(batches):
     """``FastSlotReader.stream``'s tuples of assembled ``CsrBatch``es."""
     return [(b.keys, b.segment_ids,
-             np.stack([np.ones(TB, np.float32), b.labels], axis=1),
+             np.stack([np.ones(b.batch_size, np.float32), b.labels], axis=1),
              b.labels, b.dense, b.row_mask()) for b in batches]
 
 
@@ -1797,21 +1869,29 @@ def dirty_keys(table: DeviceTable) -> np.ndarray:
     return np.sort(table.row_keys()[table.fetch_dirty_rows()])
 
 
+def counted(fn, expect: dict, tag: str):
+    """``fn()`` with every wrapper's count set to 0 just before it and read
+    just after; each count must equal ``expect``'s (0 where it has none).
+    Returns (seconds, result, launches)."""
+    for w in DEVICE_PREP_WRAPPERS:
+        w.launches = 0
+    secs, out = timed_secs(fn)
+    launches = {w.__name__: w.launches for w in DEVICE_PREP_WRAPPERS}
+    for name, n in launches.items():
+        require(n == expect.get(name, 0),
+                f"{tag}: {name} launched {n} times, expected "
+                f"{expect.get(name, 0)}")
+    return secs, out, launches
+
+
 def count_launches(fn, n_batches: int, tag: str):
     """``fn()`` with every device-prep wrapper's count set to 0 just before
     it and read just after; each kernel of the path must have launched
     once a batch, the idle ones never. Returns (seconds, result,
     launches)."""
-    for w in DEVICE_PREP_WRAPPERS:
-        w.launches = 0
-    secs, out = timed_secs(fn)
-    launches = {w.__name__: w.launches for w in DEVICE_PREP_WRAPPERS}
     idle = {w.__name__ for w in DEVICE_PREP_IDLE}
-    for name, n in launches.items():
-        want = 0 if name in idle else n_batches
-        require(n == want, f"{tag}: {name} launched {n} times in "
-                           f"{n_batches} batches, expected {want}")
-    return secs, out, launches
+    return counted(fn, {w.__name__: n_batches for w in DEVICE_PREP_WRAPPERS
+                        if w.__name__ not in idle}, tag)
 
 
 def timed_secs(fn):
@@ -2917,6 +2997,459 @@ def phase_tiered_loop(rng) -> dict:
             "resume_s": resume_s, "turns_ms": turns}
 
 
+# -- phase 4f: the host-table engine and the models ---------------------------
+
+HE_BATCHES = 16              # batches of each path of the phase
+HE_VOCAB = 1 << 22           # the host-engine paths' keys: [1, HE_VOCAB)
+WD_B, WD_S, WD_DENSE = 512, 26, 13     # examples/01: Wide&Deep
+WD_HIDDEN = (256, 128, 64)
+MM_B, MM_S = 2048, 20                  # examples/04: MMoE, at the flagship's B
+MM_KW = dict(num_tasks=2, num_experts=4, expert_hidden=(128,),
+             expert_out=64, tower_hidden=(64,))
+FD_B, FD_S, FD_NPAD = 512, 40, 65536   # examples/03: FeedDNN
+FD_VOCAB = 1 << 19           # FeedDNN's keys: within its 2^20-row arena
+FD_BATCHES = 32              # two runs of 16: eager, then a graph replay
+SERVE_BATCHES = 4            # batches each bundle serves, counted
+
+
+def example_confs():
+    """The examples' table (embedx from the start, lr 0.2, init range 0.01)
+    and dense optimizer (adam, lr 1e-3)."""
+    return (TableConfig(embedx_dim=8, embedx_threshold=0.0,
+                        learning_rate=0.2, initial_range=0.01),
+            TrainerConfig(dense_learning_rate=1e-3))
+
+
+def csr_batches(rng, n: int, batch: int, slots: int, dense_dim: int,
+                vocab: int, npad: int = 0):
+    """``n`` batches of ``batch`` rows of ``slots`` slots with 1-3 keys
+    each, keys uniform over [1, vocab), random labels, normal dense
+    values; Npad ``npad``, or the key count rounded up to 1024."""
+    out = []
+    for _ in range(n):
+        lengths = rng.integers(1, 4, size=(batch, slots))
+        nk = int(lengths.sum())
+        pad = npad or -(-nk // 1024) * 1024
+        segs, _ = segment_layout(batch, slots, lengths.reshape(-1), pad)
+        keys = np.zeros(pad, np.uint64)
+        keys[:nk] = rng.integers(1, vocab, size=nk, dtype=np.uint64)
+        out.append(CsrBatch(
+            keys=keys, segment_ids=segs, lengths=lengths.astype(np.int32),
+            labels=rng.integers(0, 2, size=batch).astype(np.float32),
+            dense=rng.normal(size=(batch, dense_dim)).astype(np.float32),
+            batch_size=batch, num_slots=slots, num_keys=nk,
+            num_rows=batch))
+    return out
+
+
+def mmoe_labels(b) -> np.ndarray:
+    """``examples/04``'s labels [B, 2]: the click, and a synthetic
+    conversion (a click on an even row)."""
+    conv = b.labels * (np.arange(b.batch_size) % 2 == 0)
+    return np.stack([b.labels, conv.astype(np.float32)], axis=1)
+
+
+def host_hand_loop(step, state, table, batches, labels_of=None,
+                   dembs=None):
+    """``TrainStep`` with the host table's pull before and push after, as
+    the host-table engine runs each batch (each step's demb appended to
+    ``dembs``, if given); returns the new state and the losses
+    (floats)."""
+    params, opt, auc = state
+    losses = []
+    for b in batches:
+        cvm = np.stack([np.ones(b.batch_size, np.float32), b.labels], axis=1)
+        labels = b.labels if labels_of is None else labels_of(b)
+        emb = table.pull(b.keys)
+        params, opt, auc, demb, loss, _ = step(
+            params, opt, auc, emb, b.segment_ids, cvm, labels, b.dense,
+            b.row_mask())
+        table.push(b.keys, demb)
+        losses.append(float(loss))
+        if dembs is not None:
+            dembs.append(demb)
+    return (params, opt, auc), losses
+
+
+def host_rows(table: EmbeddingTable):
+    """keys, values, state and embedx_ok of every row, by key."""
+    snap = table.snapshot(reset_dirty=False)
+    order = np.argsort(snap["keys"])
+    return [snap[k][order] for k in ("keys", "values", "state",
+                                     "embedx_ok")]
+
+
+def host_world(losses, table, params, dembs=()):
+    """(losses, rows by key, host copies of the dense params, the steps'
+    dembs)."""
+    return (list(losses), host_rows(table),
+            [p.detach().cpu().clone() for p in params.parameters()],
+            list(dembs))
+
+
+def require_same_host(tag: str, a, b) -> None:
+    """Two host-engine worlds (``host_world``) bit for bit."""
+    (la, ra, pa, _), (lb, rb, pb, _) = a, b
+    require(la == lb, f"{tag}: losses {la} vs {lb}")
+    require(all(np.array_equal(x, y) for x, y in zip(ra, rb)),
+            f"{tag}: rows by key differ")
+    require(all(torch.equal(x, y) for x, y in zip(pa, pb)),
+            f"{tag}: the dense params differ")
+
+
+def host_vs_cpu(tag: str, card, cpu, conf: TableConfig) -> None:
+    """The card's first CPU_STEPS steps against the CPU's (``host_world``
+    each): losses within TRAIN_RTOL; each step's demb, the backward
+    kernel's output and the push's input, with show/clk exact and the
+    grads within TRAIN_DELTA_RTOL of their largest entry; the same keys,
+    show/clk and embedx gates; the rows and the dense params within
+    TRAIN_ATOL, and the rows' change as ``require_change(stored=True)``
+    holds it. A row starts from its key's ``key_init_uniform`` values
+    (every group: the threshold is 0, so embedx materializes at the first
+    push) and a zero state."""
+    (lc, rc, pc, dc), (lp, rp, pp, dp) = card, cpu
+    require(len(dc) == len(dp) == CPU_STEPS, f"{tag}: {len(dc)}, {len(dp)} "
+                                             "dembs")
+    grads = []
+    for i, (g, want) in enumerate(zip(dc, dp)):
+        scale = float(np.abs(want[:, 2:]).max())
+        gerr = float(np.abs(g[:, 2:] - want[:, 2:]).max())
+        require(np.array_equal(g[:, :2], want[:, :2]) and scale > 0 and
+                gerr <= TRAIN_DELTA_RTOL * scale,
+                f"{tag}: step {i} demb: show/clk differ, or max abs err "
+                f"{gerr} > {TRAIN_DELTA_RTOL} * {scale}")
+        grads.append(f"{gerr:.3e} of {scale:.3e}")
+    require(np.allclose(lc, lp, rtol=TRAIN_RTOL, atol=0),
+            f"{tag}: losses {lc} vs {lp}")
+    require(np.array_equal(rc[0], rp[0]) and
+            np.array_equal(rc[1][:, :2], rp[1][:, :2]) and
+            np.array_equal(rc[3], rp[3]),
+            f"{tag}: keys, show/clk or embedx gates differ")
+    require(conf.embedx_threshold == 0 and rc[3].all(),
+            f"{tag}: a row's embedx has not materialized")
+    row_err = max(float(np.abs(rc[i] - rp[i]).max()) for i in (1, 2))
+    dense_err = max(float((x - y).abs().max()) for x, y in zip(pc, pp))
+    require(row_err <= TRAIN_ATOL and dense_err <= TRAIN_ATOL,
+            f"{tag}: rows {row_err}, dense params {dense_err}")
+    init = key_init_uniform(rp[0], conf.seed or 42, 2, conf.pull_dim - 2,
+                            conf.initial_range)
+    changes = require_change(tag, (
+        ("values", rc[1][:, 2:], rp[1][:, 2:], init),
+        ("state", rc[2], rp[2], np.zeros_like(rp[2]))), stored=True)
+    print(f"{tag} vs the CPU over {CPU_STEPS} steps: losses {lc} vs {lp}, "
+          f"demb (show/clk exact) max abs err of the largest grad a step "
+          f"{', '.join(grads)}; {rc[0].size} rows by key (show/clk exact, "
+          f"max abs err {row_err:.3e}; their change: {changes}), dense max "
+          f"abs err {dense_err:.3e}")
+
+
+def step_split(tag: str, fn, steps: int) -> dict:
+    """The host-engine step's device split from a profile of ``fn`` over
+    ``steps`` steps: ms a step of host->device copies (the upload), of
+    device->host copies (the demb and preds downloads) and of the rest
+    (kernels)."""
+    by_name = device_profile(tag, fn, kernels=(KERNEL, GRAD))
+    h2d = sum(v for k, v in by_name.items() if "HtoD" in k)
+    d2h = sum(v for k, v in by_name.items() if "DtoH" in k)
+    rest = sum(by_name.values()) - h2d - d2h
+    split = {"upload_ms": h2d / steps / 1e3, "download_ms": d2h / steps / 1e3,
+             "device_ms": rest / steps / 1e3} if by_name else {}
+    print(f"timing {tag}: inside the step, ms a step: " + (", ".join(
+        f"{k[:-3]} {v:.4f}" for k, v in split.items()) or "not measured"))
+    return split
+
+
+def serve_bundle(tag: str, bundle: str, batches, tasks: int):
+    """Serve ``batches`` through ``CTRPredictor(device="cuda")``, counted:
+    the forward once a batch; scores against the predictor on the CPU.
+    Returns (ms a batch, launches)."""
+    pred = CTRPredictor(bundle, device="cuda")
+    pred.predict_batch(batches[0])           # warm-up, before the count
+    secs, scores, launches = counted(
+        lambda: [pred.predict_batch(b) for b in batches],
+        {seqpool_cvm_cuda.__name__: len(batches)}, tag)
+    cpu = CTRPredictor(bundle, device="cpu")
+    shape = (batches[0].num_rows,) + ((tasks,) if tasks > 1 else ())
+    err = 0.0
+    for b, got in zip(batches, scores):
+        require(got.shape == shape and np.isfinite(got).all(),
+                f"{tag}: scores {got.shape}")
+        err = max(err, float(np.abs(got - cpu.predict_batch(b)).max()))
+    require(err <= SCORE_ATOL, f"{tag}: card vs CPU predictor {err}")
+    ms = secs / len(batches) * 1e3
+    print(f"{tag}: {len(batches)} batches of {batches[0].batch_size}, "
+          f"launches {launches[seqpool_cvm_cuda.__name__]}, scores "
+          f"{shape}, max |card - CPU predictor| {err:.3e}; {ms:.4f} "
+          "ms/batch")
+    return ms, launches
+
+
+def phase_host_engine(rng, seed: int) -> dict:
+    """The host-table engine and the models of ``examples/01``, ``03`` and
+    ``04`` at their widths, and serving bundles of MMoE and FeedDNN."""
+    conf, tconf = example_confs()
+    fwd, bwd = seqpool_cvm_cuda.__name__, seqpool_cvm_grad_cuda.__name__
+    out: dict = {"launches": {}}
+    os.makedirs(WORK, exist_ok=True)
+
+    # (a) examples/01: Wide&Deep through CTRTrainer(use_device_table=False)
+    path = os.path.join(WORK, "widedeep-part-0")
+    lengths = rng.integers(1, 4, size=(HE_BATCHES * WD_B, WD_S))
+    write_slot_lines(path, lengths,
+                     rng.integers(1, HE_VOCAB, size=int(lengths.sum()),
+                                  dtype=np.uint64),
+                     rng.integers(0, 2, size=lengths.shape[0]),
+                     rng.normal(size=(lengths.shape[0], WD_DENSE)))
+    feed = slot_feed_conf(WD_S, WD_B, WD_DENSE)
+    ds = SlotDataset(feed)
+    ds.set_filelist([path])
+    ds.load_into_memory()
+    batches = list(ds.batches())
+    require(len(batches) == HE_BATCHES, f"host engine: {len(batches)} "
+                                        "batches loaded")
+    torch.manual_seed(seed)
+    model = WideDeep(WD_S * conf.pull_dim + WD_DENSE, WD_HIDDEN)
+    twin_model, cpu_model = copy.deepcopy(model), copy.deepcopy(model)
+    trainer = CTRTrainer(model, feed, conf, tconf, use_device_table=False,
+                         device="cuda")
+    require(not trainer.fused and trainer.table.backend == "native",
+            "host engine: the trainer did not take a native EmbeddingTable")
+    losses = []
+    n = HE_BATCHES
+    pass_s, metrics, out["launches"]["host_engine_trainer"] = counted(
+        lambda: trainer.train_from_dataset(
+            ds, fetch_handler=lambda s, loss, p: losses.append(float(loss))),
+        {fwd: n, bwd: n}, "host engine trainer")
+    size = len(trainer.table)
+    eval_s, ev, out["launches"]["host_engine_evaluate"] = counted(
+        lambda: trainer.evaluate(ds), {fwd: n}, "host engine evaluate")
+    require(len(trainer.table) == size and ev["ins_num"] == n * WD_B,
+            "host engine: evaluate created rows or lost instances")
+    step = TrainStep(twin_model, conf, tconf, WD_B, WD_S, WD_DENSE,
+                     device="cuda")
+    twin = EmbeddingTable(conf, backend="native")
+    dembs = []
+    state, first = host_hand_loop(step, (*step.init(), step.init_auc_state()),
+                                  twin, batches[:CPU_STEPS], dembs=dembs)
+    card2 = host_world(first, twin, state[0], dembs)
+    state, rest = host_hand_loop(step, state, twin, batches[CPU_STEPS:])
+    calc = AucCalculator()
+    calc.absorb(state[2])
+    require(metrics == calc.compute(), f"host engine trainer vs hand loop: "
+                                       f"metrics {metrics} vs "
+                                       f"{calc.compute()}")
+    require_same_host("host engine trainer vs hand loop",
+                      host_world(losses, trainer.table, trainer.params),
+                      host_world(first + rest, twin, state[0]))
+    cstep = TrainStep(cpu_model, conf, tconf, WD_B, WD_S, WD_DENSE,
+                      device="cpu")
+    ctable, cdembs = EmbeddingTable(conf, backend="native"), []
+    cstate, clost = host_hand_loop(
+        cstep, (*cstep.init(), cstep.init_auc_state()), ctable,
+        batches[:CPU_STEPS], dembs=cdembs)
+    host_vs_cpu("host engine (Wide&Deep)", card2,
+                host_world(clost, ctable, cstate[0], cdembs), conf)
+    # a second pass, warm (the first paid the process's first GEMMs and
+    # allocations), without the fetch handler
+    trainer.reset_metrics()
+    warm_s, _ = timed_secs(lambda: trainer.train_from_dataset(ds))
+    t = trainer.timer
+    out["wide_deep"] = {
+        "first_pass_ms_per_step": pass_s / n * 1e3,
+        "ms_per_step": warm_s / n * 1e3, "examples_per_s": n * WD_B / warm_s,
+        "eval_ms_per_batch": eval_s / n * 1e3,
+        **{f"{k}_ms": t.mean_ms(k) for k in ("pull", "step", "push")}}
+    print(f"host engine (a): CTRTrainer(WideDeep {WD_HIDDEN}, "
+          f"use_device_table=False) over {n} batches of B={WD_B} "
+          f"({WD_S} slots, {WD_DENSE} dense): launches "
+          f"{out['launches']['host_engine_trainer']}, losses "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}, auc {metrics['auc']:.6f}; "
+          f"losses, metrics, all {size} rows by key and the dense params "
+          f"bit for bit vs a hand loop of TrainStep + pull/push on a twin; "
+          f"evaluate launches {out['launches']['host_engine_evaluate']}")
+    print(f"timing host engine (a): the counted pass "
+          f"{out['wide_deep']['first_pass_ms_per_step']:.4f} ms/step (the "
+          f"fetch handler's read a batch); a second pass "
+          f"{out['wide_deep']['ms_per_step']:.4f} ms/step, "
+          f"{out['wide_deep']['examples_per_s']:.1f} examples/s, its spans "
+          f"ms a step: pull {t.mean_ms('pull'):.4f}, step "
+          f"{t.mean_ms('step'):.4f}, push {t.mean_ms('push'):.4f}; evaluate "
+          f"{out['wide_deep']['eval_ms_per_batch']:.4f} ms/batch")
+    out["wide_deep"].update(step_split(
+        "host engine (a)", lambda: host_hand_loop(step, state, twin,
+                                                  batches[:4]), 4))
+
+    # (b) examples/04: MMoE through TrainStep over a host table
+    mbatches = csr_batches(rng, HE_BATCHES, MM_B, MM_S, 0, HE_VOCAB)
+    mm = MMoE(MM_S * conf.pull_dim, **MM_KW)
+    cpu_mm = copy.deepcopy(mm)
+    mstep = TrainStep(mm, conf, tconf, MM_B, MM_S, device="cuda")
+    mtable = EmbeddingTable(conf, backend="native")
+    reg = MetricRegistry()
+    for name in ("ctr_auc", "cvr_auc"):
+        reg.init_metric(name, num_buckets=1 << 16)
+    timer = SpanTimer()
+    mstate = [*mstep.init(), mstep.init_auc_state()]
+    mlosses, mdembs, after = [], [], []
+
+    def mmoe_pass():
+        for i, b in enumerate(mbatches):
+            labels = mmoe_labels(b)
+            cvm = np.stack([np.ones(MM_B, np.float32), b.labels], axis=1)
+            with timer.span("pull"):
+                emb = mtable.pull(b.keys)
+            with timer.span("step"):
+                *mstate[:3], demb, loss, preds = mstep(
+                    *mstate, emb, b.segment_ids, cvm, labels, b.dense,
+                    b.row_mask())
+            with timer.span("push"):
+                mtable.push(b.keys, demb)
+            p = preds.cpu().numpy()
+            reg["ctr_auc"].add(p[:, 0], labels[:, 0], mask=b.row_mask())
+            reg["cvr_auc"].add(p[:, 1], labels[:, 1], mask=b.row_mask())
+            mlosses.append(float(loss))
+            if i < CPU_STEPS and not after:
+                mdembs.append(demb)
+            if i == CPU_STEPS - 1 and not after:
+                after.append(host_world(mlosses, mtable, mstate[0], mdembs))
+
+    mm_s, _, out["launches"]["mmoe_host_engine"] = counted(
+        mmoe_pass, {fwd: n, bwd: n}, "mmoe host engine")
+    msgs = {k: reg.get_metric_msg(k) for k in ("ctr_auc", "cvr_auc")}
+    require(np.isfinite(mlosses).all() and
+            all(m["ins_num"] == n * MM_B for m in msgs.values()),
+            f"mmoe: losses {mlosses}, metrics {msgs}")
+    cstep = TrainStep(cpu_mm, conf, tconf, MM_B, MM_S, device="cpu")
+    ctable, cdembs = EmbeddingTable(conf, backend="native"), []
+    cstate, clost = host_hand_loop(
+        cstep, (*cstep.init(), cstep.init_auc_state()), ctable,
+        mbatches[:CPU_STEPS], labels_of=mmoe_labels, dembs=cdembs)
+    host_vs_cpu("mmoe host engine", after[0],
+                host_world(clost, ctable, cstate[0], cdembs), conf)
+    # a second pass over the same batches, warm
+    timer.reset()
+    warm_s, _ = timed_secs(mmoe_pass)
+    out["mmoe"] = {
+        "first_pass_ms_per_step": mm_s / n * 1e3,
+        "ms_per_step": warm_s / n * 1e3, "examples_per_s": n * MM_B / warm_s,
+        **{f"{k}_ms": timer.mean_ms(k) for k in ("pull", "step", "push")}}
+    print(f"mmoe (b): MMoE {MM_KW} through TrainStep over a native "
+          f"EmbeddingTable, {n} steps of B={MM_B} ({MM_S} slots): launches "
+          f"{out['launches']['mmoe_host_engine']}, losses "
+          f"{mlosses[0]:.6f} -> {mlosses[n - 1]:.6f}, ctr_auc "
+          f"{msgs['ctr_auc']['auc']:.6f}, cvr_auc "
+          f"{msgs['cvr_auc']['auc']:.6f} over the counted pass; "
+          f"{len(mtable)} rows")
+    print(f"timing mmoe (b): the counted pass "
+          f"{out['mmoe']['first_pass_ms_per_step']:.4f} ms/step; a second "
+          f"pass {out['mmoe']['ms_per_step']:.4f} ms/step, "
+          f"{out['mmoe']['examples_per_s']:.1f} examples/s (preds "
+          f"downloaded for the registry), its spans ms a step: pull "
+          f"{timer.mean_ms('pull'):.4f}, step {timer.mean_ms('step'):.4f}, "
+          f"push {timer.mean_ms('push'):.4f}")
+    mm_bundle = save_inference_model(
+        os.path.join(WORK, "mmoe_bundle"), mstate[0],
+        mtable.snapshot(reset_dirty=False), slot_feed_conf(MM_S, MM_B),
+        conf)
+    out["mmoe"].update(step_split(
+        "mmoe (b)", lambda: host_hand_loop(mstep, mstate, mtable,
+                                           mbatches[:4], mmoe_labels), 4))
+
+    # (c) examples/03: FeedDNN on the fused engine, device prep
+    fbatches = csr_batches(rng, FD_BATCHES, FD_B, FD_S, 0, FD_VOCAB,
+                           npad=FD_NPAD)
+    table = DeviceTable(conf, capacity=1 << 20, device="cuda",
+                        backend="native", index_threads=1)
+    # the twins start from the main path's arena: the eager run loop on
+    # the card, and device prep on the CPU (every kernel's plain version)
+    arena = (table.values.cpu().numpy(), table.state.cpu().numpy(),
+             table.row_keys())
+    ftwin, cpu_ftable = (DeviceTable(conf, capacity=1, device=dev,
+                                     backend="native", index_threads=1)
+                         for dev in ("cuda", "cpu"))
+    ftwin.load_arena(*arena)
+    cpu_ftable.load_arena(*arena)
+    del arena
+    dnn = FeedDNN(FD_S * conf.pull_dim)
+    twin_fs = FusedTrainStep(copy.deepcopy(dnn), ftwin, tconf, FD_B, FD_S,
+                             device_prep=True)
+    cpu_fs = FusedTrainStep(copy.deepcopy(dnn), cpu_ftable, tconf, FD_B,
+                            FD_S, device_prep=True)
+    fs = FusedTrainStep(dnn, table, tconf, FD_B, FD_S, device_prep=True)
+    tuples = reader_tuples(fbatches)
+    fstate = (*fs.init(), fs.init_auc_state())
+    first = np.unique(np.concatenate([b.keys for b in
+                                      fbatches[:CPU_STEPS]]))
+    first = first[first != 0]
+    flosses, after = [], []
+
+    def on_step(steps, loss):
+        flosses.append(loss)
+        if steps == CPU_STEPS:     # in the eager warm-up run
+            rows = key_rows(table, first)
+            after.append((rows, snapshot_rows(table, rows, fstate[0])))
+
+    fd_s, res, out["launches"]["feed_dnn_run_graphs"] = count_launches(
+        lambda: fs.train_stream(*fstate, iter(tuples), on_step=on_step),
+        FD_BATCHES, "feed dnn")
+    fstate = res[:3]
+    graphs = fs.run_graphs
+    require(res[4] == FD_BATCHES and
+            (graphs.captures, graphs.replays) == (1, 1),
+            f"feed dnn: {res[4]} steps, {graphs.captures} captures, "
+            f"{graphs.replays} replays")
+    require(not bool(fs.bad_flag), "feed dnn: the numeric sentinel tripped")
+    tstate, tlosses = eager_run_loop(
+        twin_fs, (*twin_fs.init(), twin_fs.init_auc_state()), tuples)
+    flosses = [float(x) for x in flosses]
+    require(flosses == [float(x) for x in tlosses],
+            f"feed dnn vs eager run loop: losses {flosses} vs {tlosses}")
+    require_same_training("feed dnn vs eager run loop",
+                          (table, *fstate), (ftwin, *tstate))
+    # the first CPU_STEPS steps on the CPU: its index takes the first
+    # run's keys as the main path's did, so each key has the same row
+    cpu_ftable.ensure_keys(np.concatenate([t[0] for t in
+                                           tuples[:fs.DEV_CHUNK]]))
+    rows, card_after = after[0]
+    require(torch.equal(key_rows(cpu_ftable, first), rows),
+            "feed dnn: the CPU twin numbered the keys otherwise")
+    before = snapshot_rows(cpu_ftable, rows)
+    cstate, closses = eager_run_loop(
+        cpu_fs, (*cpu_fs.init(), cpu_fs.init_auc_state()),
+        tuples[:CPU_STEPS])
+    compare_twin("feed dnn: card vs CPU", flosses, card_after, closses,
+                 snapshot_rows(cpu_ftable, rows, cstate[0]), before,
+                 stored=True)
+    del cpu_fs, cpu_ftable
+    replay_s, _ = timed_secs(lambda: fs.train_stream(*fstate, iter(tuples)))
+    out["feed_dnn"] = {"ms_per_step": fd_s / FD_BATCHES * 1e3,
+                       "examples_per_s": FD_BATCHES * FD_B / fd_s,
+                       "replay_ms_per_step": replay_s / FD_BATCHES * 1e3}
+    print(f"feed dnn (c): FeedDNN {dnn.hidden} over a DeviceTable of 2^20 "
+          f"rows, device prep, train_stream over {FD_BATCHES} batches of "
+          f"B={FD_B} ({FD_S} slots, Npad {FD_NPAD}): 1 capture, 1 replay, "
+          f"launches {out['launches']['feed_dnn_run_graphs']}, losses "
+          f"{flosses[0]:.6f} -> {flosses[-1]:.6f}; losses, all {len(table)} "
+          f"rows by key, the dense params, adam's state and the AUC state "
+          f"bit for bit vs the eager run loop on a twin")
+    print(f"timing feed dnn (c): {out['feed_dnn']['ms_per_step']:.4f} "
+          f"ms/step, {out['feed_dnn']['examples_per_s']:.1f} examples/s (a "
+          f"warm-up run and a captured one); every run replayed "
+          f"{out['feed_dnn']['replay_ms_per_step']:.4f} ms/step")
+    fd_bundle = save_inference_model(
+        os.path.join(WORK, "feed_dnn_bundle"), fstate[0],
+        table.to_host_table().snapshot(reset_dirty=False),
+        slot_feed_conf(FD_S, FD_B), conf)
+
+    # (d) serving both bundles on the card
+    out["serve_mmoe_ms"], out["launches"]["serve_mmoe"] = serve_bundle(
+        "serve mmoe (d)", mm_bundle, mbatches[:SERVE_BATCHES], 2)
+    out["serve_feed_dnn_ms"], out["launches"]["serve_feed_dnn"] = \
+        serve_bundle("serve feed dnn (d)", fd_bundle,
+                     fbatches[:SERVE_BATCHES], 1)
+    return out
+
+
 # -- phase 5 -----------------------------------------------------------------
 
 def timed(kernel, plain, library) -> dict:
@@ -3324,6 +3857,8 @@ def main() -> int:
         growth = phase_graph_growth(np.random.default_rng([args.seed, 13]))
         loop = phase_pass_loop(np.random.default_rng([args.seed, 17]))
         tiered = phase_tiered_loop(np.random.default_rng([args.seed, 19]))
+        engines = phase_host_engine(np.random.default_rng([args.seed, 23]),
+                                    args.seed)
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
@@ -3357,7 +3892,18 @@ def main() -> int:
           f"sync twin's, train ms/step "
           f"{[round(r['train_ms'], 4) for r in tiered['passes']]}, a "
           f"backing of {tiered['backing_rows']} rows over an arena of "
-          f"{TIER_ARENA}")
+          f"{TIER_ARENA}; host engine (Wide&Deep, CTRTrainer "
+          f"use_device_table=False, B={WD_B}, a second pass) "
+          f"{engines['wide_deep']['ms_per_step']:.4f} ms/step, "
+          f"{engines['wide_deep']['examples_per_s']:.1f} examples/s; MMoE "
+          f"(TrainStep over a host table, B={MM_B}, a second pass) "
+          f"{engines['mmoe']['ms_per_step']:.4f} ms/step, "
+          f"{engines['mmoe']['examples_per_s']:.1f} examples/s; FeedDNN "
+          f"(train_stream, run graphs, B={FD_B}) "
+          f"{engines['feed_dnn']['ms_per_step']:.4f} ms/step, "
+          f"{engines['feed_dnn']['examples_per_s']:.1f} examples/s; serving "
+          f"MMoE {engines['serve_mmoe_ms']:.4f}, FeedDNN "
+          f"{engines['serve_feed_dnn_ms']:.4f} ms/batch")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
 
@@ -3371,7 +3917,9 @@ def main() -> int:
                      wrapper.__name__],
                  "run_graphs_growth": growth["launches"][wrapper.__name__],
                  "pass_loop": loop["launches"][wrapper.__name__],
-                 "tiered_loop": tiered["launches"][wrapper.__name__]}
+                 "tiered_loop": tiered["launches"][wrapper.__name__],
+                 **{path: counts[wrapper.__name__]
+                    for path, counts in engines["launches"].items()}}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}
 

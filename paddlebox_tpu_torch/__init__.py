@@ -7,9 +7,10 @@ what it needs of the reference's host code it keeps as its own copy.
 
 Ported so far:
 
-- serving of the flagship DeepFM: ``inference.predictor.CTRPredictor`` ->
-  device pull (``ps.serving_table``) -> ``trainer.train_step.TrainStep.predict`` ->
-  ``ops.seqpool_cvm`` (a CUDA kernel on the card) -> ``models.deepfm``;
+- serving of every model class (``models``: DeepFM, Wide&Deep, FeedDNN,
+  MMoE): ``inference.predictor.CTRPredictor`` -> device pull
+  (``ps.serving_table``) -> ``trainer.train_step.TrainStep.predict`` ->
+  ``ops.seqpool_cvm`` (a CUDA kernel on the card) -> the model;
 - single-device training through the reference's entry point:
   ``data.dataset.SlotDataset`` (``data.parser.SlotParser``) ->
   ``trainer.trainer.CTRTrainer.train_from_dataset`` ->
@@ -17,6 +18,11 @@ Ported so far:
   ``ps.native`` and the index mirror ``ps.device_index``) over a
   ``ps.device_table.DeviceTable``, with hand-written CUDA kernels for the
   seqpool forward and backward, the push and the key dedup and probe;
+- the host-table engine: ``CTRTrainer(use_device_table=False)`` pulls
+  each batch from a host ``ps.table.EmbeddingTable``, steps
+  ``trainer.train_step.TrainStep`` on the card (the seqpool kernels
+  forward and backward) and pushes its embedding grads back, with the
+  named ``metrics.registry.MetricRegistry``;
 - the day/pass loop: ``trainer.pass_manager.PassManager`` over
   ``ps.server.SparsePS``, with delta and base saves through ``ckpt`` (the
   atomic commit, the background writer, retention, discovery), the
@@ -30,5 +36,6 @@ Ported so far:
 """
 
 from paddlebox_tpu_torch._device import resolve_device
+from paddlebox_tpu_torch.trainer.train_step import TrainStep
 
-__all__ = ["resolve_device"]
+__all__ = ["TrainStep", "resolve_device"]

@@ -2,6 +2,8 @@
 
 from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
                                                      load_inference_model,
+                                                     register_model_class,
                                                      save_inference_model)
 
-__all__ = ["CTRPredictor", "load_inference_model", "save_inference_model"]
+__all__ = ["CTRPredictor", "load_inference_model", "register_model_class",
+           "save_inference_model"]

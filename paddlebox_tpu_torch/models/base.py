@@ -5,13 +5,16 @@ A model takes
     sparse [B, S, Dp]  — per-slot pooled+CVM-transformed embeddings
     dense  [B, Dd]     — dense slot values (may be width 0)
 
-and returns logits [B]. Unlike flax, ``nn.Linear`` needs its input width
-when it is built, so models take ``in_dim`` (``S * Dp + Dd``) explicitly.
+and returns logits [B] (single-task) or [B, T] (multi-task). Unlike flax,
+``nn.Linear`` needs its input width when it is built, so models take
+``in_dim`` (``S * Dp + Dd``) explicitly, then the reference's fields by
+name (``CONFIG_FIELDS``, the ``kwargs`` of a serving bundle's
+``model.json``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -33,10 +36,40 @@ class MLP(nn.Module):
         return self.layers[-1](x)
 
 
+class StackedMLP(nn.Module):
+    """``num_stacked`` MLPs of one shape as stacked weights (flax's
+    ``nn.vmap(MLP, variable_axes={"params": 0}, out_axes=1)``): layer ``i``
+    holds ``kernels[i]`` [E, in, out] and ``biases[i]`` [E, out], the flax
+    layout, with ReLU between layers. ``[B, in]`` -> ``[B, E, out]``, one
+    batched matmul a layer."""
+
+    def __init__(self, in_dim: int, hidden: Sequence[int], out_dim: int,
+                 num_stacked: int):
+        super().__init__()
+        widths = [in_dim, *hidden, out_dim]
+        self.kernels = nn.ParameterList()
+        self.biases = nn.ParameterList()
+        for a, b in zip(widths[:-1], widths[1:]):
+            # nn.Linear's init, drawn for each stacked member
+            bound = 1.0 / a ** 0.5
+            self.kernels.append(nn.Parameter(
+                torch.empty(num_stacked, a, b).uniform_(-bound, bound)))
+            self.biases.append(nn.Parameter(
+                torch.empty(num_stacked, b).uniform_(-bound, bound)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.einsum("bi,eio->beo", x, self.kernels[0]) + self.biases[0]
+        for w, b in zip(self.kernels[1:], self.biases[1:]):
+            x = torch.einsum("bei,eio->beo", torch.relu(x), w) + b
+        return x
+
+
 class CTRModel(nn.Module):
     """Base of the CTR models: task count and the input flattening."""
 
     num_tasks: int = 1
+    # the reference module's fields, in its order: what a bundle records
+    CONFIG_FIELDS: Tuple[str, ...] = ("num_tasks",)
 
     @staticmethod
     def flatten_inputs(sparse: torch.Tensor,

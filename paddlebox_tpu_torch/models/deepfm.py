@@ -22,6 +22,8 @@ from paddlebox_tpu_torch.models.base import MLP, CTRModel
 
 
 class DeepFM(CTRModel):
+    CONFIG_FIELDS = ("num_tasks", "hidden", "cvm_offset")
+
     def __init__(self, in_dim: int, hidden: Sequence[int] = (512, 256, 128),
                  cvm_offset: int = 3, num_tasks: int = 1):
         super().__init__()

@@ -16,10 +16,14 @@ from paddlebox_tpu_torch.models.base import MLP, CTRModel
 
 
 class WideDeep(CTRModel):
-    def __init__(self, in_dim: int, hidden: Sequence[int] = (256, 128, 64)):
+    CONFIG_FIELDS = ("num_tasks", "hidden")
+
+    def __init__(self, in_dim: int, hidden: Sequence[int] = (256, 128, 64),
+                 num_tasks: int = 1):
         super().__init__()
         self.in_dim = in_dim
         self.hidden = tuple(hidden)
+        self.num_tasks = num_tasks
         self.wide = nn.Linear(in_dim, 1)
         self.deep = MLP(in_dim, self.hidden, 1)
 

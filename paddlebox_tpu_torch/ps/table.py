@@ -31,6 +31,10 @@ sequential rows, in-order merge adds.
 The lock guards the arenas and the index: the tiered table's worker thread
 exports rows while the training thread may write rows back.
 
+The host-table engine (``CTRTrainer(use_device_table=False)``,
+``trainer/train_step.py`` ``TrainStep``) trains this table directly: each
+batch's ``pull``, the step on the device, then ``push`` of its grads.
+
 Serving pulls through ``ps/serving_table.py``, a device-resident lookup of
 a snapshot.
 """

@@ -31,9 +31,8 @@ bit-exact against staging synchronously: the buffers replay each
 pass-end decay that hit the backing after the export, one multiply an
 epoch, and the rows an intervening writeback trained are exported again.
 ``end_pass`` joins an in-flight prefetch before it writes back and decays.
-A prefetch for other keys is dropped and the pass stages synchronously; a
-prefetch that failed raises its error at the ``begin_feed_pass`` that
-consumes it.
+A prefetch for other keys, or one whose export failed on the worker, is
+dropped and the pass stages synchronously.
 
 Saves flush a pass's trained rows into the backing first, then save the
 backing, the durable tier. Not ported, and refused with
@@ -228,8 +227,8 @@ class TieredDeviceTable(DeviceTable):
     def _consume_prefetch(self, uniq: np.ndarray):
         """(vals, state) of the prefetch for ``uniq``, made equal to a
         synchronous export now; None when no prefetch, or one for other
-        keys, is there (the caller then stages synchronously). A prefetch
-        that failed raises its error here."""
+        keys, is there, or when its export failed on the worker (the caller
+        then stages synchronously, as the reference does)."""
         with self._pf_lock:
             pf = self._prefetch
             self._prefetch = None
@@ -239,11 +238,7 @@ class TieredDeviceTable(DeviceTable):
             return None
         puniq, holder, job, epoch0 = pf
         job.wait()
-        if job.error is not None:
-            raise RuntimeError(
-                "the prefetched feed pass failed on the tier worker"
-            ) from job.error
-        if not np.array_equal(puniq, uniq):
+        if job.error is not None or not np.array_equal(puniq, uniq):
             return None
         vals, state = holder["out"]
         # (1) the pass-end decays that hit the backing after the export:

@@ -82,7 +82,8 @@ from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.trainer.step_graph import RunGraphs
 from paddlebox_tpu_torch.trainer.train_step import (full_float32_matmuls,
                                                     make_dense_optimizer,
-                                                    masked_bce_loss)
+                                                    masked_bce_loss,
+                                                    refuse_unported)
 
 
 _TORCH_DTYPES = {np.dtype(np.int64): torch.int64,
@@ -140,13 +141,7 @@ class FusedTrainStep:
             raise NotImplementedError(
                 "insert_mode='deferred' (the device miss ring, poll_misses) "
                 "is not ported yet (ROADMAP A.3b)")
-        if trainer_conf.bf16:
-            raise NotImplementedError(
-                "bf16 dense compute is not ported yet (ROADMAP A.2)")
-        if trainer_conf.recompute:
-            raise NotImplementedError(
-                "recompute is not ported yet (ROADMAP A.2: lars, lamb, "
-                "MultiSteps, recompute)")
+        refuse_unported(trainer_conf)
         full_float32_matmuls()
         self.model = model
         self.table = table

@@ -1,26 +1,41 @@
-"""The step's forward half and the pieces of its training half
-(counterpart of ``paddlebox_tpu/trainer/train_step.py``).
+"""The step over a host table (counterpart of
+``paddlebox_tpu/trainer/train_step.py``): the host-table engine's step,
+and the pieces the fused step shares.
 
-Forward: ``emb[Npad, D]``, ``segment_ids[Npad]``, ``cvm_in[B, 2]``,
-``dense[B, Dd]`` -> seqpool+CVM -> model -> sigmoid. The module passed to
-``predict`` holds the weights (the role of the reference's params pytree).
+``TrainStep.__call__`` (the caller pulls and pushes a host ``ps/table.py``
+``EmbeddingTable`` around it):
 
-Training pieces, used by ``trainer.fused_step.FusedTrainStep``:
-``make_dense_optimizer`` (optax's math for adam, adamw, sgd and adagrad,
-updating a module's parameters in place) and ``masked_bce_loss`` (the
-reference's ``_loss_fn``). The host-table training step (``TrainStep``'s
-``__call__`` over ``ps/table.py`` push) is not ported yet.
+    (params, opt_state, auc_state, emb[Npad, D], segment_ids[Npad],
+     cvm_in[B, 2], labels[B(, T)], dense[B, Dd], row_mask[B])
+    -> (params, opt_state, auc_state, demb[Npad, D], loss, preds)
+
+``emb`` goes up, becomes a leaf that requires grad and runs through
+seqpool+CVM (``ops/seqpool_cvm.py``: CUDA kernels forward and backward on
+the card), the model and the masked BCE loss; the backward, the dense
+optimizer and the AUC update run on the device, and ``demb`` comes back as
+a host array for the push. ``predict`` is the forward alone, for
+``evaluate`` and serving. The module passed as ``params`` holds the
+weights (the role of the reference's params pytree).
+
+Shared with ``trainer.fused_step.FusedTrainStep``: ``make_dense_optimizer``
+(optax's math for adam, adamw, sgd and adagrad, updating a module's
+parameters in place) and ``masked_bce_loss`` (the reference's
+``_loss_fn``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
+from paddlebox_tpu_torch._device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.config import TableConfig, TrainerConfig
+from paddlebox_tpu_torch.metrics.auc import auc_update, new_auc_state
 from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
 
 # optax's defaults: adam(b1, b2, eps), adagrad(initial accumulator, eps)
@@ -96,6 +111,18 @@ class DenseOptimizer:
         return state
 
 
+def refuse_unported(conf: TrainerConfig) -> None:
+    """Raise for the step options not ported yet: bf16 dense compute and
+    recompute (the dense optimizers are ``make_dense_optimizer``'s)."""
+    if conf.bf16:
+        raise NotImplementedError(
+            "bf16 dense compute is not ported yet (ROADMAP A.2)")
+    if conf.recompute:
+        raise NotImplementedError(
+            "recompute is not ported yet (ROADMAP A.2: lars, lamb, "
+            "MultiSteps, recompute)")
+
+
 def make_dense_optimizer(conf: TrainerConfig) -> DenseOptimizer:
     """The dense-tower optimizer of ``conf``: adam, adamw, sgd or adagrad.
     lars, lamb and gradient merging are not ported yet."""
@@ -135,31 +162,98 @@ def masked_bce_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 class TrainStep:
-    def __init__(self, table_conf: TableConfig, batch_size: int,
-                 num_slots: int, dense_dim: int = 0, use_cvm: bool = True):
+    """The step over a host table (the reference's ``TrainStep``): the
+    caller pulls the batch's rows from a host ``EmbeddingTable``, the step
+    runs on ``device`` (None = the card) and hands back the embedding
+    grads for the caller's push. ``params`` is the ``nn.Module`` holding
+    the dense weights (``init`` moves ``model`` to the device); the dense
+    optimizer updates it in place."""
+
+    def __init__(self, model: nn.Module, table_conf: TableConfig,
+                 trainer_conf: TrainerConfig, batch_size: int,
+                 num_slots: int, dense_dim: int = 0, use_cvm: bool = True,
+                 num_auc_buckets: int = 0,
+                 seqpool_kwargs: Optional[Dict[str, Any]] = None,
+                 device: DeviceLike = None):
+        refuse_unported(trainer_conf)
         full_float32_matmuls()
+        self.model = model
         self.table_conf = table_conf
+        self.trainer_conf = trainer_conf
+        self.device = resolve_device(device)
         self.batch_size = batch_size
         self.num_slots = num_slots
         self.dense_dim = dense_dim
         self.use_cvm = use_cvm
+        self.num_auc_buckets = num_auc_buckets
+        self.seqpool_kwargs = dict(seqpool_kwargs or {})
+        self.optimizer = make_dense_optimizer(trainer_conf)
 
-    @property
-    def sparse_width(self) -> int:
-        """Per-slot width of the pooled features the model sees (the
-        reference's ``TrainStep.init`` shape)."""
-        D = self.table_conf.pull_dim
-        return D if self.use_cvm else D - 2
+    def init(self) -> Tuple[nn.Module, Dict[str, Any]]:
+        """The model, moved to the step's device, and a fresh optimizer
+        state. The weights are the model's own (for parity runs: converted
+        from the reference's flax params)."""
+        params = self.model.to(self.device)
+        return params, self.optimizer.init(params)
+
+    def init_auc_state(self) -> Dict[str, torch.Tensor]:
+        return new_auc_state(self.num_auc_buckets, self.device)
 
     def _features(self, emb: torch.Tensor, segment_ids: torch.Tensor,
                   cvm_in: torch.Tensor) -> torch.Tensor:
         return fused_seqpool_cvm(
             emb, segment_ids, cvm_in, self.batch_size, self.num_slots,
-            self.use_cvm)
+            self.use_cvm, **self.seqpool_kwargs)
+
+    def _tensor(self, x, dtype: np.dtype) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(
+            self.device)
+
+    def __call__(self, params: nn.Module, opt_state: Dict[str, Any],
+                 auc_state: Dict[str, torch.Tensor], emb: np.ndarray,
+                 segment_ids, cvm_in, labels, dense, row_mask):
+        """One step over the pulled rows ``emb`` [Npad, pull_dim] (host
+        float32): seqpool+CVM, the model, the masked BCE loss (labels [B]
+        or [B, T]), the backward (the seqpool's straight-through rule), the
+        dense update in place and the AUC on task 0. Returns ``(params,
+        opt_state, auc_state, demb, loss, preds)``: ``demb`` the host
+        float32 [Npad, pull_dim] grads for ``EmbeddingTable.push`` (show/
+        clk in its first columns; its download is the step's one
+        synchronization), ``loss`` and ``preds`` device tensors."""
+        with record_function("train_step.upload"):
+            emb_d = self._tensor(emb, np.float32)
+            segs = self._tensor(segment_ids, np.int32)
+            cvm = self._tensor(cvm_in, np.float32)
+            labels_d = self._tensor(labels, np.float32)
+            dense_d = self._tensor(dense, np.float32)
+            mask = self._tensor(row_mask, np.float32)
+        with record_function("train_step.forward"):
+            emb_d.requires_grad_(True)
+            params.zero_grad(set_to_none=True)
+            logits = params(self._features(emb_d, segs, cvm),
+                            dense_d).float()
+            loss, preds = masked_bce_loss(logits, labels_d, mask)
+        with record_function("train_step.backward"):
+            loss.backward()
+        with record_function("train_step.dense_update"):
+            opt_state = self.optimizer.update(params, opt_state)
+        with record_function("train_step.metrics"):
+            preds = preds.detach()
+            p0 = preds if preds.dim() == 1 else preds[:, 0]
+            l0 = labels_d if labels_d.dim() == 1 else labels_d[:, 0]
+            auc_state = auc_update(auc_state, p0, l0, mask)
+        with record_function("train_step.download"):
+            demb = emb_d.grad.cpu().numpy()
+        return params, opt_state, auc_state, demb, loss.detach(), preds
 
     @torch.inference_mode()
-    def predict(self, model: nn.Module, emb: torch.Tensor,
-                segment_ids: torch.Tensor, cvm_in: torch.Tensor,
-                dense: torch.Tensor) -> torch.Tensor:
-        sparse = self._features(emb, segment_ids, cvm_in)
-        return torch.sigmoid(model(sparse, dense))
+    def predict(self, params: nn.Module, emb, segment_ids, cvm_in,
+                dense) -> torch.Tensor:
+        """Scores of one batch (device tensors or host arrays)."""
+        sparse = self._features(self._tensor(emb, np.float32),
+                                self._tensor(segment_ids, np.int32),
+                                self._tensor(cvm_in, np.float32))
+        return torch.sigmoid(params(sparse,
+                                    self._tensor(dense, np.float32)))

@@ -1,33 +1,45 @@
 """Training orchestration: ``CTRTrainer.train_from_dataset`` and
-``train_from_files`` on one device (counterpart of the single-device fused
-branch of ``paddlebox_tpu/trainer/trainer.py``).
+``train_from_files`` on one device (counterpart of the single-device
+branches of ``paddlebox_tpu/trainer/trainer.py``).
 
-``train_from_dataset`` drives ``FusedTrainStep`` over a ``DeviceTable``, or
-a ``TieredDeviceTable`` whose pass working set ``PassManager`` stages from
-its host backing (``ps/tiered_table.py``), one batch at a time:
+Two step engines, as in the reference:
 
-    for batch in dataset.batches():  step -> [fetch_handler, dump]
+- ``FusedTrainStep`` over a ``DeviceTable`` (``use_device_table=True``,
+  the default), or a ``TieredDeviceTable`` whose pass working set
+  ``PassManager`` stages from its host backing (``ps/tiered_table.py``);
+- ``TrainStep`` over a host ``EmbeddingTable`` (``use_device_table=False``
+  or an ``EmbeddingTable`` as ``table``): the host pulls the batch's rows,
+  the step runs on ``device`` and hands back the embedding grads, the
+  host pushes them, each a span (``pull``, ``step``, ``push``).
 
-``train_from_files`` trains straight off files: ``data/fast_feed.py``
-``FastSlotReader.stream`` (the C++ tokenizer, vectorized batches) feeds
-``FusedTrainStep.train_stream`` in segments of ``AUC_DRAIN_STEPS`` steps.
+``train_from_dataset`` drives either one batch at a time:
 
-The step is device prep (``step_device``: host ``ensure_keys``, the dedup
-and probe on the card) when a native single-map index backs the table,
-else host prep (``__call__``: host ``prepare_batch``), as the reference
-resolves it. The f32 AUC state on the device drains into the host's
+    for batch in dataset.batches():  [pull] -> step -> [push]
+                                     -> [fetch_handler, dump]
+
+``train_from_files`` trains straight off files on the fused engine (the
+host-table engine raises ``ValueError``, as the reference's does):
+``data/fast_feed.py`` ``FastSlotReader.stream`` (the C++ tokenizer,
+vectorized batches) feeds ``FusedTrainStep.train_stream`` in segments of
+``AUC_DRAIN_STEPS`` steps.
+
+The fused step is device prep (``step_device``: host ``ensure_keys``, the
+dedup and probe on the card) when a native single-map index backs the
+table, else host prep (``__call__``: host ``prepare_batch``), as the
+reference resolves it. The f32 AUC state on the device drains into the host's
 float64 calculator every ``AUC_DRAIN_STEPS`` steps and at the pass end,
 and is zeroed in place (a captured run writes into its tensors).
-``SpanTimer`` times each batch ("main") and its step ("step") in
-``train_from_dataset``, each segment ("main") in ``train_from_files``;
+``SpanTimer`` times each batch ("main") and its step ("step"; and "pull"
+and "push" on the host-table engine) in ``train_from_dataset``, each
+segment ("main") in ``train_from_files``;
 ``TrainerConfig(profile=True)`` prints the reference's ``log_for_profile``
 line on stderr at the end of either pass. The dump subsystem writes one
-JSON line per instance (search_id, label, pred).
+JSON line per instance (search_id, label, pred; task 0's of a multi-task
+model). ``metrics`` is the named ``MetricRegistry`` the reference's
+trainer carries, for the caller to fill.
 
 Not ported, and refused with ``NotImplementedError``: ``mesh=`` and
-``dense_sync_hook`` (ROADMAP A.9), the host-table engine
-(``use_device_table=False`` or a host ``EmbeddingTable`` as the table,
-A.2c), ``train_from_files``
+``dense_sync_hook`` (ROADMAP A.9), ``train_from_files``
 with ``workers`` > 1 (the multi-process reader, A.2d),
 ``insert_mode="deferred"`` with device prep on (A.3b), and, set through
 the reference's ``PBOX_FLAGS_<name>`` environment variables, the device
@@ -45,7 +57,7 @@ import json
 import os
 import sys
 import warnings
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 from torch import nn
@@ -58,9 +70,12 @@ from paddlebox_tpu_torch.data.batch import CsrBatch
 from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.data.fast_feed import FastSlotReader
 from paddlebox_tpu_torch.metrics.auc import AucCalculator, reset_auc_state_
+from paddlebox_tpu_torch.metrics.registry import MetricRegistry
 from paddlebox_tpu_torch.ps import native
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
+from paddlebox_tpu_torch.ps.table import EmbeddingTable
 from paddlebox_tpu_torch.trainer.fused_step import FusedTrainStep
+from paddlebox_tpu_torch.trainer.train_step import TrainStep
 from paddlebox_tpu_torch.utils.timer import SpanTimer
 
 # drain the on-device f32 AUC accumulator into float64 well before any
@@ -91,7 +106,7 @@ def _resolve_device_prep(table: DeviceTable,
 class CTRTrainer:
     def __init__(self, model: nn.Module, feed_conf: DataFeedConfig,
                  table_conf: TableConfig, trainer_conf: TrainerConfig,
-                 table: Optional[DeviceTable] = None,
+                 table: Optional[Union[DeviceTable, EmbeddingTable]] = None,
                  use_device_table: bool = True,
                  device_capacity: int = 1 << 20,
                  buckets: Optional[BucketSpec] = None,
@@ -104,11 +119,16 @@ class CTRTrainer:
                  device: DeviceLike = None):
         """``model`` is an ``nn.Module`` holding its dense weights (for a
         parity run: converted from the reference trainer's flax params by
-        ``models/convert.py``); the trainer moves it to the table's device.
-        Without ``table``, a ``DeviceTable(table_conf,
-        capacity=device_capacity, device=device)`` is built (``device``
-        None = the card). ``device_prep`` None = on when a native
-        single-map index backs the table (``index_threads=1``)."""
+        ``models/convert.py``); the trainer moves it to the step's device.
+        ``table`` picks the engine: a ``DeviceTable`` the fused one, an
+        ``EmbeddingTable`` the host-table one. Without ``table``, a
+        ``DeviceTable(table_conf, capacity=device_capacity,
+        device=device)`` is built, or with ``use_device_table=False`` an
+        ``EmbeddingTable(table_conf)`` (``device`` None = the card: the
+        host-table engine's step runs there). ``device_prep`` None = on
+        when a native single-map index backs the device table
+        (``index_threads=1``); the host-table engine ignores it and
+        ``insert_mode``, as the reference's does."""
         if insert_mode not in ("ensure", "deferred"):
             raise ValueError(f"unknown insert_mode {insert_mode!r}")
         if mesh is not None or dense_sync_hook is not None:
@@ -119,11 +139,12 @@ class CTRTrainer:
             raise NotImplementedError(
                 f"TrainerConfig.num_devices={trainer_conf.num_devices}: "
                 "multi-device training is not ported yet (ROADMAP A.9)")
-        if not use_device_table or (table is not None and
-                                    not isinstance(table, DeviceTable)):
-            raise NotImplementedError(
-                "the host-table engine (use_device_table=False, a host "
-                "EmbeddingTable) is not ported yet (ROADMAP A.2c)")
+        if table is not None and not isinstance(table, (DeviceTable,
+                                                        EmbeddingTable)):
+            raise TypeError(
+                f"table is a {type(table).__name__}: the port trains a "
+                "DeviceTable (fused engine) or a host EmbeddingTable "
+                "(host-table engine)")
         refuse_flags(_REFUSED_FLAGS)
         # trainer_conf.dense_sync_steps is read only with a mesh and
         # trainer_conf.metrics not at all on one device, as in the
@@ -135,20 +156,32 @@ class CTRTrainer:
         self.num_slots = len(feed_conf.used_sparse_slots)
         self.dense_dim = sum(s.dim for s in feed_conf.used_dense_slots)
         self.timer = SpanTimer(metric_prefix="trainer")
+        self.metrics = MetricRegistry()
         self.calc = AucCalculator()
         self.buckets = buckets
         self.dump_path = dump_path
         self._dump_f = None
         self._step_count = 0
-        self.table = (table if table is not None else
-                      DeviceTable(table_conf, capacity=device_capacity,
-                                  device=device))
-        dp = _resolve_device_prep(self.table, device_prep)
-        self.step = FusedTrainStep(
-            model, self.table, trainer_conf,
-            batch_size=feed_conf.batch_size, num_slots=self.num_slots,
-            dense_dim=self.dense_dim, use_cvm=use_cvm, device_prep=dp,
-            insert_mode=self._gate_insert_mode(insert_mode, dp))
+        if table is not None:
+            self.table = table
+        elif use_device_table:
+            self.table = DeviceTable(table_conf, capacity=device_capacity,
+                                     device=device)
+        else:
+            self.table = EmbeddingTable(table_conf)
+        self.fused = isinstance(self.table, DeviceTable)
+        if self.fused:
+            dp = _resolve_device_prep(self.table, device_prep)
+            self.step = FusedTrainStep(
+                model, self.table, trainer_conf,
+                batch_size=feed_conf.batch_size, num_slots=self.num_slots,
+                dense_dim=self.dense_dim, use_cvm=use_cvm, device_prep=dp,
+                insert_mode=self._gate_insert_mode(insert_mode, dp))
+        else:
+            self.step = TrainStep(
+                model, table_conf, trainer_conf,
+                batch_size=feed_conf.batch_size, num_slots=self.num_slots,
+                dense_dim=self.dense_dim, use_cvm=use_cvm, device=device)
         self.params, self.opt_state = self.step.init()
         self.auc_state = self.step.init_auc_state()
 
@@ -200,6 +233,18 @@ class CTRTrainer:
 
     def _train_one(self, batch: CsrBatch):
         cvm = self._cvm(batch)
+        if not self.fused:
+            with self.timer.span("pull"):
+                emb = self.table.pull(batch.keys)
+            with self.timer.span("step"):
+                (self.params, self.opt_state, self.auc_state, demb, loss,
+                 preds) = self.step(
+                    self.params, self.opt_state, self.auc_state, emb,
+                    batch.segment_ids, cvm, batch.labels, batch.dense,
+                    batch.row_mask())
+            with self.timer.span("push"):
+                self.table.push(batch.keys, demb)
+            return loss, preds
         entry = self.step.step_device if self.step.device_prep else \
             self.step
         with self.timer.span("step"):
@@ -223,7 +268,11 @@ class CTRTrainer:
         batches as they come, in segments of ``AUC_DRAIN_STEPS`` steps,
         each a "main" span, the AUC drained after each. A short last batch
         is masked, so every row trains and counts. Returns the pass
-        metrics."""
+        metrics. The fused engine only."""
+        if not self.fused:
+            raise ValueError(
+                "train_from_files rides the single-chip fused engine; "
+                "use train_from_dataset for host-table training")
         if workers > 1:
             raise NotImplementedError(
                 f"train_from_files(workers={workers}): the multi-process "
@@ -279,12 +328,16 @@ class CTRTrainer:
         return out
 
     def evaluate(self, dataset: SlotDataset) -> Dict[str, float]:
-        """Forward-only pass (no table change) with its own calculator."""
+        """Forward-only pass (no table change) with its own calculator,
+        on task 0."""
         calc = AucCalculator()
         for batch in dataset.batches():
-            preds = self.step.predict(self.params, batch.keys,
-                                      batch.segment_ids, self._cvm(batch),
-                                      batch.dense)
+            # the fused step pulls on the device from the keys; the host
+            # table pulls the rows here
+            rows = (batch.keys if self.fused else
+                    self.table.pull(batch.keys, create=False))
+            preds = self.step.predict(self.params, rows, batch.segment_ids,
+                                      self._cvm(batch), batch.dense)
             p = preds.cpu().numpy()
             p0 = p if p.ndim == 1 else p[:, 0]
             calc.add_batch(p0, batch.labels, batch.row_mask())

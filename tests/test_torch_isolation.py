@@ -2,9 +2,10 @@
 the package, in chip_smoke.py, kernel_versions.py or pass_versions.py; it
 serves, trains and runs a trainer pass, from a dataset and straight off
 files, a day/pass loop with its checkpoints and resume, and that loop over
-a tiered table with its host backing and prefetched feed pass, with them
-blocked; its entry points default to the card and raise without one (the
-trainer too); its kernel modules import without a CUDA toolkit."""
+a tiered table with its host backing and prefetched feed pass, and the
+host-table engine with an MMoE step, with them blocked; its entry points
+default to the card and raise without one (the trainer too); its kernel
+modules import without a CUDA toolkit."""
 
 import ast
 import os
@@ -249,6 +250,85 @@ def test_trainer_pass_with_jax_blocked(tmp_path):
     """)
     assert res.returncode == 0, res.stderr
     assert "TRAINER_PASS" in res.stdout
+
+
+def test_host_engine_with_jax_blocked(tmp_path):
+    """The host-table engine (``CTRTrainer(use_device_table=False)``: pull,
+    ``TrainStep``, push over a host ``EmbeddingTable``) runs a pass and its
+    evaluation, and an MMoE ``TrainStep`` takes a step with [B, 2] labels
+    under a ``MetricRegistry``, with jax and paddlebox_tpu blocked."""
+    from conftest import make_slot_file
+    from paddlebox_tpu.config import DataFeedConfig, SlotConfig
+    conf = DataFeedConfig(slots=[
+        SlotConfig("label", type="float", is_dense=True, dim=1),
+        SlotConfig("a"), SlotConfig("b"),
+        SlotConfig("d", type="float", is_dense=True, dim=2)],
+        batch_size=8, thread_num=2)
+    data = make_slot_file(str(tmp_path / "part-0"), conf, 20, seed=5)
+    res = _run(f"""
+        import sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        from paddlebox_tpu_torch.config import (DataFeedConfig, SlotConfig,
+                                                TableConfig, TrainerConfig)
+        from paddlebox_tpu_torch.data.dataset import SlotDataset
+        from paddlebox_tpu_torch.metrics import MetricRegistry
+        from paddlebox_tpu_torch.models import MMoE, WideDeep
+        from paddlebox_tpu_torch.ps.table import EmbeddingTable
+        from paddlebox_tpu_torch.trainer import TrainStep
+        from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
+        conf = DataFeedConfig(slots=[
+            SlotConfig("label", type="float", is_dense=True, dim=1),
+            SlotConfig("a"), SlotConfig("b"),
+            SlotConfig("d", type="float", is_dense=True, dim=2)],
+            batch_size=8, thread_num=2)
+        ds = SlotDataset(conf)
+        ds.set_filelist([{data!r}])
+        ds.load_into_memory()
+        tconf = TableConfig(embedx_dim=4, embedx_threshold=0.0)
+        tr = CTRTrainer(WideDeep(2 * 7 + 2, (8,)), conf, tconf,
+                        TrainerConfig(), use_device_table=False,
+                        device="cpu")
+        assert isinstance(tr.table, EmbeddingTable) and not tr.fused
+        losses = []
+        m = tr.train_from_dataset(ds, lambda s, l, p: losses.append(l))
+        ev = tr.evaluate(ds)
+        assert m["ins_num"] == ev["ins_num"] == 20 and len(losses) == 3
+        assert np.isfinite(losses).all() and len(tr.table) > 0
+        assert tr.timer.count["pull"] == tr.timer.count["push"] == 3
+        B, S = 8, 2
+        table = EmbeddingTable(tconf)
+        step = TrainStep(MMoE(S * 7, 2, 3, (8,), 4, (4,)), tconf,
+                         TrainerConfig(), B, S, device="cpu")
+        params, opt = step.init()
+        auc = step.init_auc_state()
+        rng = np.random.default_rng(0)
+        keys = np.zeros(64, np.uint64)
+        keys[:B * S] = rng.integers(1, 50, size=B * S)
+        segs = np.full(64, B * S, np.int32)
+        segs[:B * S] = np.arange(B * S)
+        labels = (rng.uniform(size=(B, 2)) < 0.5).astype(np.float32)
+        cvm = np.stack([np.ones(B, np.float32), labels[:, 0]], axis=1)
+        mask = np.ones(B, np.float32)
+        emb = table.pull(keys)
+        params, opt, auc, demb, loss, preds = step(
+            params, opt, auc, emb, segs, cvm, labels,
+            np.zeros((B, 0), np.float32), mask)
+        table.push(keys, demb)
+        reg = MetricRegistry()
+        reg.init_metric("ctr_auc", num_buckets=1 << 10)
+        reg["ctr_auc"].add(preds.numpy()[:, 0], labels[:, 0], mask=mask)
+        assert preds.shape == (B, 2) and demb.shape == (64, 7)
+        assert np.isfinite(float(loss))
+        assert reg.get_metric_msg("ctr_auc")["ins_num"] == B
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("HOST_ENGINE", m["auc"])
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "HOST_ENGINE" in res.stdout
 
 
 def test_train_from_files_with_jax_blocked(tmp_path):

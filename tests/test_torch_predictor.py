@@ -1,29 +1,41 @@
 """Serving parity: bundles cross between the JAX package and the port, and
 both predictors score the same Criteo lines alike (atol=1e-5, float32
-GEMMs in another order). The table pull is bit-identical."""
+GEMMs in another order; the bundles of WideDeep, FeedDNN, MMoE and a
+registered class within 1e-6). The table pull is bit-identical."""
 
 import json
 import os
 import shutil
 
+import flax.linen as flax_nn
 import jax
 import numpy as np
 import pytest
+import torch
 
 from paddlebox_tpu.config import TableConfig as JaxTableConfig
 from paddlebox_tpu.data import criteo as jax_criteo
 from paddlebox_tpu.data.record import SlotRecord as JaxSlotRecord
+from paddlebox_tpu.inference import predictor as jax_predictor
 from paddlebox_tpu.inference.predictor import CTRPredictor as JaxPredictor
 from paddlebox_tpu.inference.predictor import \
     save_inference_model as jax_save
+from paddlebox_tpu.models import CTRModel as FlaxCTRModel
 from paddlebox_tpu.models import DeepFM as FlaxDeepFM
+from paddlebox_tpu.models import FeedDNN as FlaxFeedDNN
+from paddlebox_tpu.models import MMoE as FlaxMMoE
+from paddlebox_tpu.models import WideDeep as FlaxWideDeep
 from paddlebox_tpu.ps.table import EmbeddingTable as JaxTable
 from paddlebox_tpu_torch.config import TableConfig
 from paddlebox_tpu_torch.data import criteo
 from paddlebox_tpu_torch.data.record import SlotRecord
 from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
+                                                     register_model_class,
                                                      save_inference_model)
-from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
+from paddlebox_tpu_torch.models import CTRModel
+from paddlebox_tpu_torch.models.convert import (MODEL_CLASSES,
+                                                deepfm_from_flax_leaves,
+                                                model_from_flax_leaves)
 from paddlebox_tpu_torch.ps.serving_table import ServingTable
 
 B = 32
@@ -219,3 +231,112 @@ def test_batch_assembler_matches_jax():
         np.testing.assert_array_equal(getattr(got, field),
                                       getattr(want, field))
     assert (got.num_keys, got.num_rows) == (want.num_keys, want.num_rows)
+
+
+# -- every model class --------------------------------------------------------
+
+def _flax_tiny_lr():
+    class TinyLR(FlaxCTRModel):
+        """A model class outside the packages' own: logistic regression
+        (a bundle names its class, so both packages' classes are
+        ``TinyLR``)."""
+
+        @flax_nn.compact
+        def __call__(self, sparse, dense=None):
+            return flax_nn.Dense(1)(self.flatten_inputs(sparse, dense))[:, 0]
+    return TinyLR
+
+
+FlaxTinyLR = _flax_tiny_lr()
+
+
+class TinyLR(CTRModel):
+    """The port's counterpart of ``FlaxTinyLR``: ``in_dim``, then the
+    reference's fields, and its flax leaves (``Dense_0/{bias, kernel}``)
+    through ``flax_slots``."""
+
+    def __init__(self, in_dim, num_tasks=1):
+        super().__init__()
+        self.num_tasks = num_tasks
+        self.lin = torch.nn.Linear(in_dim, 1)
+
+    def flax_slots(self):
+        return [(self.lin.bias, False), (self.lin.weight, True)]
+
+    def forward(self, sparse, dense=None):
+        return self.lin(self.flatten_inputs(sparse.float(), dense))[:, 0]
+
+
+MODEL_CASES = {
+    "WideDeep": (FlaxWideDeep, dict(hidden=(16, 8))),
+    "FeedDNN": (FlaxFeedDNN, dict(hidden=(16, 8, 8))),
+    "MMoE": (FlaxMMoE, dict(num_tasks=2, num_experts=3, expert_hidden=(8,),
+                            expert_out=4, tower_hidden=(4,))),
+    "TinyLR": (FlaxTinyLR, {}),
+}
+
+
+@pytest.fixture
+def registered():
+    """TinyLR in both packages' class registries for one test."""
+    register_model_class(TinyLR)
+    jax_predictor.register_model_class(FlaxTinyLR)
+    yield
+    MODEL_CLASSES.pop("TinyLR")
+    jax_predictor._MODEL_CLASSES.pop("TinyLR")
+
+
+@pytest.mark.parametrize("kind", sorted(MODEL_CASES))
+def test_model_classes_cross_both_ways(world, kind, registered):
+    """A bundle of each class exported by the reference is served by the
+    port, and one the port exports from the same weights (converted) is
+    served by the reference, with the same ``model.json`` model entry;
+    both score alike (an MMoE bundle scores [n, T])."""
+    flax_cls, kw = MODEL_CASES[kind]
+    model = flax_cls(**kw)
+    params = model.init(jax.random.PRNGKey(2),
+                        np.zeros((B, 26, 11), np.float32),
+                        np.zeros((B, 13), np.float32))
+    rng = np.random.default_rng(5)
+    leaves, treedef = jax.tree_util.tree_flatten(params)
+    leaves = [(rng.normal(size=np.shape(x)) * 0.2).astype(np.float32)
+              for x in leaves]
+    params = jax.tree_util.tree_unflatten(treedef, leaves)
+    conf = JaxTableConfig(**TABLE)
+    jbundle = jax_save(str(world["root"] / f"jax_{kind}"), model, params,
+                       world["table"], jax_criteo.criteo_feed_config(B),
+                       conf)
+    shape = (80, 2) if kind == "MMoE" else (80,)
+    got, want = _scores_both(jbundle, world["data"])
+    assert got.shape == want.shape == shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    port_model = model_from_flax_leaves(kind, kw, leaves, 26 * 11 + 13)
+    snap = world["table"].snapshot(reset_dirty=False)
+    pbundle = save_inference_model(str(world["root"] / f"port_{kind}"),
+                                   port_model, snap,
+                                   criteo.criteo_feed_config(B),
+                                   TableConfig(**TABLE))
+    with open(os.path.join(pbundle, "model.json")) as f, \
+            open(os.path.join(jbundle, "model.json")) as g:
+        assert json.load(f)["model"] == json.load(g)["model"]
+    got, want = _scores_both(pbundle, world["data"])
+    assert got.shape == want.shape == shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_unknown_model_class_raises(world, tmp_path):
+    bundle = str(tmp_path / "bogus")
+    shutil.copytree(world["bundle"], bundle)
+    path = os.path.join(bundle, "model.json")
+    with open(path) as f:
+        meta = json.load(f)
+    meta["model"]["class"] = "Bogus"
+    with open(path, "w") as f:
+        json.dump(meta, f)
+    with pytest.raises(ValueError, match="register_model_class"):
+        CTRPredictor(bundle, device="cpu")
+    with pytest.raises(ValueError, match="servable"):
+        save_inference_model(str(tmp_path / "b"), torch.nn.Linear(1, 1),
+                             world["table"].snapshot(reset_dirty=False),
+                             criteo.criteo_feed_config(B),
+                             TableConfig(**TABLE))

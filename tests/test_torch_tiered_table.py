@@ -291,20 +291,55 @@ def test_failed_worker_start_publishes_nothing(monkeypatch):
     t.end_pass()
 
 
-def test_failed_prefetch_raises_at_begin_feed_pass(monkeypatch):
-    """The worker's failure is not swallowed: it raises at the consume."""
-    t = tiered(256, conf=dict(embedx_dim=4))
-    keys = np.arange(1, 50, dtype=np.uint64)
+def test_failed_prefetch_stages_synchronously(monkeypatch, tmp_path):
+    """A prefetch whose export raised on the tier worker is dropped, as in
+    the reference: the begin_feed_pass that would consume it stages
+    synchronously, nothing raises, and the pass trains like a synchronous
+    twin, bit for bit (staged arena, trained backing, written delta)."""
+    batches = synth_batches(4, 8, 300)
+    keys = np.concatenate([b[0] for b in batches])
+    worlds = []
+    for fail in (False, True):
+        t = tiered(1 << 10)
+        if fail:
+            export, calls = t.backing.export_rows, []
 
-    def broken(*a, **k):
-        raise OSError("export failed")
+            def broken_once(*a, **k):
+                calls.append(threading.current_thread().name)
+                if len(calls) == 1:
+                    raise OSError("export failed")
+                return export(*a, **k)
 
-    monkeypatch.setattr(t.backing, "export_rows", broken)
-    t.prefetch_feed_pass(keys)
-    with pytest.raises(RuntimeError, match="prefetched feed pass") as e:
-        t.begin_feed_pass(keys)
-    assert isinstance(e.value.__cause__, OSError)
-    assert not t.in_pass
+            monkeypatch.setattr(t.backing, "export_rows", broken_once)
+            t.prefetch_feed_pass(keys)
+            t._join_prefetch()
+            assert isinstance(t._prefetch[2].error, OSError)
+        w = t.begin_feed_pass(keys)
+        if fail:
+            # the worker's export failed, the synchronous one staged
+            assert calls[0] == "pbx-tier-worker" and len(calls) == 2
+            assert t._prefetch is None and t.in_pass
+        staged = (t.values[:w + 1].clone(), t.state[:w + 1].clone())
+        fs, st = port_step(t, seed=7)
+        losses = []
+        for k, segs, labels in batches:
+            *st[:3], loss, _ = fs(*st, k, *step_args(segs, labels))
+            losses.append(float(loss))
+        t.end_pass()
+        path = os.path.join(tmp_path, f"delta_{fail}.npz")
+        t.save_delta(path)
+        with np.load(path) as z:
+            delta = {name: z[name] for name in z.files}
+        worlds.append((w, staged, losses, backing_rows(t), delta))
+    (w0, st0, l0, rows0, d0), (w1, st1, l1, rows1, d1) = worlds
+    assert w0 == w1 > 0
+    for a, b in zip(st0, st1):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(l0, l1)
+    assert_rows_equal(rows0, rows1)
+    assert sorted(d0) == sorted(d1) and d0["keys"].size > 0
+    for name in d0:
+        np.testing.assert_array_equal(d0[name], d1[name])
 
 
 def test_refusals(monkeypatch):

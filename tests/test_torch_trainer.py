@@ -32,6 +32,7 @@ from paddlebox_tpu.models import DeepFM as FlaxDeepFM
 from paddlebox_tpu.models import WideDeep as FlaxWideDeep
 from paddlebox_tpu.ps import native as ref_native
 from paddlebox_tpu.ps.device_table import DeviceTable as JaxDeviceTable
+from paddlebox_tpu.ps.table import EmbeddingTable as JaxTable
 from paddlebox_tpu.trainer import trainer as ref_trainer
 from paddlebox_tpu.utils.timer import SpanTimer as JaxSpanTimer
 from paddlebox_tpu_torch.config import (DataFeedConfig, TableConfig,
@@ -44,6 +45,7 @@ from paddlebox_tpu_torch.models.convert import (deepfm_from_flax_leaves,
 from paddlebox_tpu_torch.ops import (device_index_kernel, seqpool_kernel,
                                      sparse_push)
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
+from paddlebox_tpu_torch.ps.table import EmbeddingTable
 from paddlebox_tpu_torch.trainer import trainer as port_trainer
 from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
 from paddlebox_tpu_torch.utils.timer import SpanTimer
@@ -358,8 +360,6 @@ REFUSED = {
     "mesh": (lambda: _trainer(mesh=object()), "A.9"),
     "dense_sync_hook": (lambda: _trainer(dense_sync_hook=lambda p: p),
                         "A.9"),
-    "use_device_table": (lambda: _trainer(use_device_table=False), "A.2c"),
-    "host_table": (lambda: _trainer(table=object()), "A.2c"),
     "train_from_files": (lambda: _trainer().train_from_files(
         ["x"], workers=2), "A.2d"),
     "deferred": (lambda: _trainer(insert_mode="deferred"), "A.3b"),
@@ -415,3 +415,88 @@ def test_default_device_needs_cuda():
     tr = _trainer(table=None, device="cpu", device_capacity=64)
     assert tr.table.device == torch.device("cpu")
     assert tr.table.capacity == 64
+
+
+# -- the host-table engine ----------------------------------------------------
+
+def host_rows(table):
+    snap = table.snapshot(reset_dirty=False)
+    order = np.argsort(snap["keys"])
+    return [snap[k][order] for k in ("keys", "values", "state",
+                                     "embedx_ok")]
+
+
+@pytest.mark.parametrize("kind", sorted(MODELS))
+def test_host_engine_matches_reference(kind, files):
+    """``use_device_table=False``: pull -> ``TrainStep`` -> push over each
+    package's ``EmbeddingTable(backend="numpy")`` (the same key-
+    deterministic init), ``train_from_dataset`` then ``evaluate``, from the
+    reference trainer's params: per-batch losses and preds, the pass and
+    evaluation metrics, every row by key (show/clk exact) and the dense
+    params; the spans pull, step and push once a batch; evaluation creates
+    no rows and launches no kernel."""
+    flax_cls, from_leaves, to_leaves = MODELS[kind]
+    jtr = ref_trainer.CTRTrainer(
+        flax_cls(hidden=HIDDEN), jax_feed_conf(), JaxTableConfig(**TABLE),
+        JaxTrainerConfig(), table=JaxTable(JaxTableConfig(**TABLE),
+                                           backend="numpy"))
+    assert not jtr.fused
+    tr = CTRTrainer(from_leaves(leaves_of(jtr.params), HIDDEN),
+                    port_feed_conf(), TableConfig(**TABLE), TrainerConfig(),
+                    use_device_table=False, device="cpu")
+    assert not tr.fused and isinstance(tr.table, EmbeddingTable)
+    tr.table = EmbeddingTable(TableConfig(**TABLE), backend="numpy")
+    ds = JaxSlotDataset(jax_feed_conf())
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    want_fetched = []
+    want = jtr.train_from_dataset(ds, fetch_handler=lambda s, l, p:
+                                  want_fetched.append((s, l, np.asarray(p))))
+    for w in CUDA_WRAPPERS:
+        w.launches = 0
+    pds = port_dataset(files)
+    metrics, fetched = train_pass(tr, pds)
+    assert [s for s, _, _ in fetched] == [s for s, _, _ in want_fetched]
+    for (_, loss, preds), (_, jloss, jpreds) in zip(fetched, want_fetched):
+        np.testing.assert_allclose(loss, jloss, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(preds, jpreds, rtol=1e-5, atol=1e-6)
+    assert_metrics_close(metrics, want)
+    assert metrics["ins_num"] == 96.0
+    got, ref = host_rows(tr.table), host_rows(jtr.table)
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1][:, :2], ref[1][:, :2])
+    np.testing.assert_array_equal(got[3], ref[3])
+    for g, w in zip(got[1:3], ref[1:3]):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+    for g, w in zip(to_leaves(tr.params), leaves_of(jtr.params)):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+    for span in ("main", "pull", "step", "push"):
+        assert tr.timer.count[span] == jtr.timer.count[span] == STEPS
+    size = len(tr.table)
+    assert_metrics_close(tr.evaluate(pds), jtr.evaluate(ds))
+    assert len(tr.table) == size
+    assert all(w.launches == 0 for w in CUDA_WRAPPERS)
+
+
+def test_host_table_selects_the_host_engine():
+    """A host ``EmbeddingTable`` as ``table`` selects the host-table engine
+    whatever ``use_device_table`` says, as in the reference; the trainer
+    carries the named metric registry."""
+    t = EmbeddingTable(TableConfig(**TABLE), backend="numpy")
+    tr = _trainer(table=t, device="cpu")
+    assert tr.table is t and not tr.fused
+    assert type(tr.step).__name__ == "TrainStep"
+    assert tr.metrics.names() == []
+    tr.metrics.init_metric("ctr_auc")
+    assert tr.metrics.names() == ["ctr_auc"]
+
+
+def test_table_of_another_type_raises():
+    with pytest.raises(TypeError, match="DeviceTable"):
+        _trainer(table=object())
+
+
+def test_train_from_files_on_host_engine_raises(files):
+    tr = _trainer(use_device_table=False, table=None, device="cpu")
+    with pytest.raises(ValueError, match="train_from_dataset"):
+        tr.train_from_files(files)
