@@ -192,6 +192,37 @@ Phases, each fatal on failure:
    ms/step and examples/s of (a)-(c), the pull, step and push spans of
    (a) and (b) and inside the step its upload, device time and download
    (a profile), ms a batch of (d).
+4g. arenas — the bf16, int8 and variable arenas (``DeviceTable(...,
+             value_dtype=torch.bfloat16 / torch.int8)``,
+             ``variable_embedding`` at ``examples/08``'s widths), from
+             their own generator: (a) each push variant (bf16, int8,
+             variable, variable+int8, variable+bf16) against
+             ``sparse_push_plain``: the training batch (a key 500 times, 50
+             unknown keys; adagrad and adam) over a warm 4,194,304-row
+             arena, all-padding, one-key, threshold-0 (sgd) and mixed
+             warps; three launches bit-identical with the dirty mark;
+             show/clk and size codes exact, int8 codes within 1, scales
+             within rtol 1e-6 + 1e-6 / 127, dequantized values within one
+             quantum, bf16 values within one spacing + 1e-6, the rest
+             1e-6. (b)
+             The flagship over a 4,194,304-row int8 table:
+             ``CTRTrainer.train_from_files`` on two seeded files of 16
+             batches (one eager run, one replay) bit for bit against the
+             eager run loop on a twin; 16 host-prep steps, 2 of them
+             against the CPU by ``compare_twin``'s rule over canonical rows:
+             int8 codes equal but for at most 1e-4 of them one code apart
+             (slack there: one quantum), scales within rtol 1e-6. (c) The
+             same over a bf16 arena with ``DeepFM(dtype=torch.bfloat16)``
+             and ``bf16=True``, host prep cut to 4 steps; against the CPU
+             by the same rule (bf16 values equal but for 1e-4 of them one
+             spacing apart), the dense weights within lr / 10. (d) ``FusedTrainStep`` over variable+int8 (16
+             steps) and variable float32 (4) tables of 4,194,304 rows, 2
+             steps each against the CPU by the same rule, size codes exact.
+             (e) The int8 table's bundle served against the CPU predictor.
+   Bytes a row of each arena read from the card; ms/step of int8, bf16
+   and float32 tables (f32 dense, run graphs) in turns; each variant's
+   push at the training shape beside its bound, plain and ``index_add_``
+   (the merge only).
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -239,7 +270,7 @@ from paddlebox_tpu_torch.data.fast_feed import FastSlotReader
 from paddlebox_tpu_torch.ckpt.writer import AsyncCheckpointWriter
 from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
                                                      save_inference_model)
-from paddlebox_tpu_torch.models import FeedDNN, MMoE, WideDeep
+from paddlebox_tpu_torch.models import DeepFM, FeedDNN, MMoE, WideDeep
 from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
 from paddlebox_tpu_torch.ops import _build
 from paddlebox_tpu_torch.ops.seqpool_kernel import (bulk_loads, grad_lanes,
@@ -247,7 +278,8 @@ from paddlebox_tpu_torch.ops.seqpool_kernel import (bulk_loads, grad_lanes,
                                                     seqpool_cvm_grad_cuda,
                                                     seqpool_cvm_grad_plain,
                                                     seqpool_cvm_plain)
-from paddlebox_tpu_torch.ops.sparse_push import (mark_dirty_plain,
+from paddlebox_tpu_torch.ops.sparse_push import (PUSH_VARIANTS,
+                                                 mark_dirty_plain,
                                                  merge_offsets,
                                                  merge_offsets_plain,
                                                  merge_order,
@@ -1414,55 +1446,127 @@ def snapshot_rows(table: DeviceTable, rows: torch.Tensor, model=None):
 
 
 def compare_twin(tag: str, losses, after, twin_losses, twin_after,
-                 before, stored: bool = False) -> None:
+                 before, stored: bool = False, layout=None,
+                 dense_atol: float = TRAIN_ATOL) -> None:
     """The first steps of the main path vs its twin's, from the same init:
     losses (rtol), the touched rows (show/clk exact, the rest and their
-    change from ``before``, ``require_change``), the dense params."""
+    change from ``before``, ``require_change``), the dense params. Rows
+    are ``snapshot_rows``'; with the tables' ``layout``, they are compared
+    in the canonical float32 layout, a variable table's size codes
+    exact, and a low-precision arena's stored values as
+    ``stored_steps`` holds them (a value one storage step apart gets
+    that step as slack). The dense params within ``dense_atol``."""
     losses = [float(x) for x in losses[:CPU_STEPS]]
     twin_losses = [float(x) for x in twin_losses]
     require(np.allclose(losses, twin_losses, rtol=TRAIN_RTOL, atol=0),
             f"{tag}: losses {losses} vs {twin_losses}")
-    (vals, st, params), (cvals, cst, cparams) = after, twin_after
-    require(torch.equal(vals[:, :2], cvals[:, :2]),
+    (vals, st), (cvals, cst), (bvals, bst) = (
+        canonical_rows(layout, rows) for rows in (after, twin_after, before))
+    require(np.array_equal(vals[:, :2], cvals[:, :2]),
             f"{tag}: show/clk of the touched rows differ")
-    row_err = max(float((vals - cvals).abs().max()),
-                  float((st - cst).abs().max()))
+    slack, note = np.zeros_like(vals), ""
+    if layout is not None and layout.variable:
+        col = layout.size_col
+        require(torch.equal(after[1][:, col], twin_after[1][:, col]),
+                f"{tag}: size codes differ")
+        require(bool((after[1][:, col] > 0).all()),
+                f"{tag}: a touched row is still unclaimed")
+    if layout is not None and layout.value_dtype != torch.float32:
+        slack, note = stored_steps(tag, layout, after, twin_after, float(
+            np.abs(cvals[:, 2:] - bvals[:, 2:]).max()))
+    row_err = max(float((np.abs(vals - cvals) - slack).max()),
+                  float(np.abs(st - cst).max()))
+    params, cparams = after[2], twin_after[2]
     dense_err = max(float((a - b).abs().max())
                     for a, b in zip(params, cparams))
     require(row_err <= TRAIN_ATOL, f"{tag}: table rows {row_err}")
-    require(dense_err <= TRAIN_ATOL, f"{tag}: dense params {dense_err}")
+    require(dense_err <= dense_atol, f"{tag}: dense params {dense_err} > "
+                                     f"{dense_atol}")
     changes = require_change(tag, (
-        ("values", vals[:, 2:].numpy(), cvals[:, 2:].numpy(),
-         before[0][:, 2:].numpy()),
-        ("state", st.numpy(), cst.numpy(), before[1].numpy())), stored)
+        ("values", vals[:, 2:], cvals[:, 2:], bvals[:, 2:], slack[:, 2:]),
+        ("state", st, cst, bst, 0.0)), stored)
     print(f"{tag} over {CPU_STEPS} steps: losses {losses} vs {twin_losses}, "
-          f"{vals.shape[0]} touched rows (show/clk exact, max abs err "
-          f"{row_err:.3e}; their change: {changes}), dense max abs err "
-          f"{dense_err:.3e}")
+          f"{vals.shape[0]} touched rows (show/clk exact{note}, max abs err "
+          f"{row_err:.3e} beyond that; their change: {changes}), dense max "
+          f"abs err {dense_err:.3e}")
+
+
+def canonical_rows(layout, rows):
+    """``snapshot_rows``' values and state as float32 arrays, in
+    ``layout``'s canonical layout (show/clk in values 0, 1, int8
+    dequantized, the state without its stat prefix) when one is given."""
+    vals, st = rows[0].float().numpy(), rows[1].numpy()
+    return (vals, st) if layout is None else \
+        layout.canonical_from_arena(vals, st)
+
+
+def stored_steps(tag: str, layout, after, twin_after, change: float):
+    """A low-precision arena's rows as stored, card vs CPU: each int8 code
+    or bfloat16 value equal to the CPU's but for at most STEP_SHARE of
+    them one storage step apart (float32 sums in another order round the
+    other way). An int8 code is one code off, its scale within SCALE_RTOL
+    plus TRAIN_DELTA_RTOL of the values' largest ``change`` over 127 (a
+    group's max, as a value's change is held); a bfloat16 value is within
+    one spacing plus TRAIN_DELTA_RTOL of ``change`` (near 0 a float32
+    difference spans many bfloat16 steps). Returns each canonical value's
+    slack (its step where the two differ, else 0) and a note for the
+    print."""
+    (vals, st), (cvals, cst) = after[:2], twin_after[:2]
+    near = TRAIN_DELTA_RTOL * change
+    if layout.quantized:
+        apart = (vals.int() - cvals.int()).abs().numpy()
+        so = layout.stat_off
+        sc, csc = st[:, 2:so].numpy(), cst[:, 2:so].numpy()
+        serr = np.abs(sc - csc)
+        require(bool((serr <= SCALE_RTOL * np.abs(csc) +
+                      near / layout.QMAX).all()),
+                f"{tag}: scales beyond rtol {SCALE_RTOL}: largest "
+                f"difference {float(serr.max())} (relative "
+                f"{float((serr / np.maximum(np.abs(csc), 1e-30)).max())})")
+        step = np.zeros(apart.shape, np.float32)
+        for gi, (start, width, _) in enumerate(layout.groups):
+            step[:, start:start + width] = np.maximum(sc, csc)[:, gi:gi + 1]
+        far = apart > 1
+        what = f"int8 scales max abs err {float(serr.max()):.3e}, codes"
+    else:
+        a, b = vals.float().numpy(), cvals.float().numpy()
+        apart = a != b
+        step = BF16_SPACING * np.maximum(np.abs(a), np.abs(b))
+        far = np.abs(a - b) > step + near
+        what = "bfloat16 values"
+    n_apart = int((apart > 0).sum())
+    require(not far.any() and n_apart <= STEP_SHARE * apart.size,
+            f"{tag}: {n_apart} of {apart.size} stored values differ (at "
+            f"most {STEP_SHARE} of them by one step), {int(far.sum())} of "
+            "them by more")
+    return (np.where(apart > 0, step, 0.0).astype(np.float32),
+            f"; {what} equal but {n_apart} of {apart.size} one step apart")
 
 
 def require_change(tag: str, parts, stored: bool = False) -> str:
-    """For each (what, got, want, init) of host float32 arrays: the steps'
-    change ``got - init`` within TRAIN_DELTA_RTOL of the largest entry of
-    ``want - init``, which must be > 0. With ``stored``, plus one float32
+    """For each (what, got, want, init, slack) of host float32 arrays: the
+    steps' change ``got - init`` within TRAIN_DELTA_RTOL of the largest
+    entry of ``want - init``, which must be > 0, plus ``slack`` (a number
+    or an array of got's shape). With ``stored``, plus one float32
     spacing of the largest value in ``want``: the least step a stored row
     can take, where the change is below a thousand of them (the examples'
     rows near 0.01, spacing 9.3e-10, change by 5e-8 to 3e-5 in 2 steps; a
     state that starts at 0 keeps its full precision). Returns the
     errors, for a print."""
     changes = []
-    for what, got, want, init in parts:
+    for what, got, want, init, slack in parts:
         scale = float(np.abs(want - init).max())
-        derr = float(np.abs((got - init) - (want - init)).max())
-        slack = float(np.spacing(np.abs(want).max())) if stored else 0.0
+        derr = np.abs((got - init) - (want - init)) - slack
+        spacing = float(np.spacing(np.abs(want).max())) if stored else 0.0
         require(scale > 0, f"{tag}: the steps left the touched rows' {what} "
                            "unchanged")
-        require(derr <= TRAIN_DELTA_RTOL * scale + slack,
-                f"{tag}: change of the touched rows' {what} {derr} > "
-                f"{TRAIN_DELTA_RTOL} * {scale} + {slack}")
-        changes.append(f"{what} max abs err {derr:.3e} of a largest change "
-                       f"{scale:.3e}" + (f" (+ spacing {slack:.3e})"
-                                         if stored else ""))
+        require(float(derr.max()) <= TRAIN_DELTA_RTOL * scale + spacing,
+                f"{tag}: change of the touched rows' {what} "
+                f"{float(derr.max())} > {TRAIN_DELTA_RTOL} * {scale} + "
+                f"{spacing} beyond its slack")
+        changes.append(f"{what} max abs err {float(derr.max()):.3e} of a "
+                       f"largest change {scale:.3e}" +
+                       (f" (+ spacing {spacing:.3e})" if stored else ""))
     return ", ".join(changes)
 
 
@@ -3134,8 +3238,8 @@ def host_vs_cpu(tag: str, card, cpu, conf: TableConfig) -> None:
     init = key_init_uniform(rp[0], conf.seed or 42, 2, conf.pull_dim - 2,
                             conf.initial_range)
     changes = require_change(tag, (
-        ("values", rc[1][:, 2:], rp[1][:, 2:], init),
-        ("state", rc[2], rp[2], np.zeros_like(rp[2]))), stored=True)
+        ("values", rc[1][:, 2:], rp[1][:, 2:], init, 0.0),
+        ("state", rc[2], rp[2], np.zeros_like(rp[2]), 0.0)), stored=True)
     print(f"{tag} vs the CPU over {CPU_STEPS} steps: losses {lc} vs {lp}, "
           f"demb (show/clk exact) max abs err of the largest grad a step "
           f"{', '.join(grads)}; {rc[0].size} rows by key (show/clk exact, "
@@ -3450,6 +3554,561 @@ def phase_host_engine(rng, seed: int) -> dict:
     return out
 
 
+# -- phase 4g: low-precision and variable arenas -------------------------------
+
+# push variants: (value dtype, variable layout). The main path of the phase
+# launches the first four, a row each in the kernels line; var_bf16 is
+# checked against plain only.
+ARENAS = {"int8": (torch.int8, False), "bf16": (torch.bfloat16, False),
+          "var_f32": (torch.float32, True), "var_int8": (torch.int8, True),
+          "var_bf16": (torch.bfloat16, True)}
+ARENA_ROWS = ("int8", "bf16", "var_f32", "var_int8")
+# examples/08's variable table: embedx 4 | expand 6 (pull 13, arena 9)
+VAR_KW = dict(embedx_dim=4, expand_dim=6, variable_embedding=True)
+# a bfloat16 value's neighbours lie at most 2^-7 of its magnitude away
+BF16_SPACING = 2.0 ** -7
+# int8 scales, kernel vs plain: the same IEEE divide of a group maximum
+# that the plain merge's atomics move by up to PUSH_ATOL, so a scale moves
+# by up to PUSH_ATOL / 127 beside its own rounding (rtol 1e-6)
+SCALE_RTOL = 1e-6
+# card vs CPU after CPU_STEPS steps over a low-precision arena: the share
+# of stored values (int8 codes, bfloat16 values) allowed one step apart.
+# The float32 rows before storing differ by ~1e-11 (PERF.md), so a value
+# rounds the other way where it lies that close to a rounding boundary
+STEP_SHARE = 1e-4
+# (c) card vs CPU under bf16 dense compute: each dense weight within this
+# share of adam's step (lr). bfloat16 products rounded apart change a
+# near-cancelling grad by a large share of itself, and adam's first steps
+# move each weight by about lr whatever its grad's size (PERF.md: 3.3e-5
+# at lr 1e-3); a skipped or wrong-signed step is off by about lr
+BF16_DENSE_LR_SHARE = 0.1
+ARENA_REPEATS = 2            # push launches a case beside the first
+ARENA_STEPS = 16             # host-prep steps of (b) and (d)
+BF16_STEPS = 4               # (c) host prep, cut in depth
+
+
+def arena_conf(variant: str, opt: str, threshold: float = 10.0):
+    dtype, var = ARENAS[variant]
+    kw = dict(embedx_dim=8, cvm_offset=3, embedx_threshold=threshold,
+              optimizer=opt, seed=7)
+    if var:
+        kw.update(VAR_KW)
+    return TableConfig(**kw), dtype
+
+
+def warm_arena(rng, table: DeviceTable) -> None:
+    """Rows past the null row: show/clk straddling the embedx threshold,
+    warm optimizer state, int8 codes over their whole range at scales
+    spread over four decades, size codes 0 (unclaimed), 1 and 2."""
+    lay, conf = table.layout, table.conf
+    n = len(table) + 1
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.integers(1 << 31)))
+
+    def ints(lo, hi, cols=None):
+        shape = (n - 1,) if cols is None else (n - 1, cols)
+        return torch.randint(lo, hi, shape, device="cuda", generator=gen)
+
+    show = ints(0, int(max(2 * conf.embedx_threshold, 4.0))).float()
+    stats = table.state if lay.stats_in_state else table.values
+    stats[1:n, 0] = show.to(stats.dtype)
+    stats[1:n, 1] = torch.floor(show * 0.3).to(stats.dtype)
+    so = lay.stat_off
+    ost = table.state[1:n, so:so + int(lay.state_offsets[-1])]
+    if conf.optimizer == "adagrad":
+        ost.uniform_(0.0, 2.0, generator=gen)
+    elif conf.optimizer == "adam":
+        ost.uniform_(0.0, 0.1, generator=gen)
+        for gi in range(len(lay.groups)):
+            ost[:, int(lay.state_offsets[gi])] = ints(0, 5).float()
+    if lay.quantized:
+        table.values[1:n, 2:] = ints(-127, 128, lay.dim - 2).to(torch.int8)
+        table.state[1:n, 2:so] = 10.0 ** torch.empty(
+            (n - 1, so - 2), device="cuda").uniform_(-6.0, -2.0,
+                                                     generator=gen)
+    if lay.variable:
+        table.state[1:n, lay.size_col] = ints(0, 3).float()
+
+
+def arena_grads(rng, layout, npad: int, n_keys: int) -> np.ndarray:
+    """``push_grads`` at the grad width; under the variable layout each
+    key's grads go to the base group (45%), the expand group (45%) or
+    both (10%, base wins the claim), as slots of either width send."""
+    demb = push_grads(rng, npad, layout.grad_dim, n_keys)
+    if layout.variable:
+        s, ex, ed = layout.groups[-1][0], layout.conf.embedx_dim, \
+            layout.conf.expand_dim
+        dest = rng.choice(3, size=npad, p=[0.45, 0.45, 0.1])
+        demb[dest == 0, s + ex:s + ex + ed] = 0.0
+        demb[dest == 1, s:s + ex] = 0.0
+    return demb
+
+
+def arena_table(rng, conf: TableConfig, dtype, vocab: int, upad_min: int):
+    table = DeviceTable(conf, capacity=vocab + 1, device="cuda",
+                        value_dtype=dtype,
+                        uniq_buckets=BucketSpec(min_size=upad_min,
+                                                max_size=1 << 18))
+    table.prepopulate(vocab)
+    warm_arena(rng, table)
+    return table
+
+
+def arena_batch(rng, conf: TableConfig, dtype, vocab: int, npad: int,
+                n_keys: int, hot: int = 0, unknown: int = 0,
+                upad_min: int = 1024):
+    """``push_batch`` over a warm arena of ``dtype``."""
+    table = arena_table(rng, conf, dtype, vocab, upad_min)
+    keys = np.zeros(npad, np.uint64)
+    keys[:n_keys] = rng.integers(1, vocab + 1, size=n_keys)
+    if hot:
+        keys[rng.choice(n_keys, size=hot, replace=False)] = 1 + vocab // 2
+    if unknown:
+        keys[rng.choice(n_keys, size=unknown, replace=False)] = \
+            vocab + 1 + rng.integers(0, 1000, size=unknown)
+    idx = table.prepare_batch(keys, create=False)
+    return table, (arena_grads(rng, table.layout, npad, n_keys),
+                   idx.inverse, idx.uniq_rows, idx.uniq_mask)
+
+
+def arena_mixed(rng, conf: TableConfig, dtype, vocab: int, upad: int):
+    """``mixed_batch`` over a warm arena of ``dtype``."""
+    table = arena_table(rng, conf, dtype, vocab, 1024)
+    kind = rng.choice(3, size=upad, p=[0.6, 0.2, 0.2])
+    live = kind == 0
+    urows = np.zeros(upad, np.int32)
+    urows[live] = rng.choice(np.arange(1, vocab + 1), size=int(live.sum()),
+                             replace=False)
+    with_keys = np.flatnonzero(kind != 2)
+    inv = rng.permutation(np.repeat(with_keys, rng.integers(
+        1, 4, size=with_keys.size))).astype(np.int32)
+    return table, (arena_grads(rng, table.layout, inv.size, inv.size), inv,
+                   urows, live.astype(np.float32))
+
+
+def arena_err(name: str, layout, got, want) -> float:
+    """Kernel (``got``) vs plain (``want``) arenas under the arena's
+    tolerances: show/clk and size codes exact; optimizer state within
+    PUSH_ATOL; float32 values within PUSH_ATOL, bfloat16 ones within one
+    spacing plus PUSH_ATOL (the new weight's float32 sums, rounded), int8
+    codes within 1 with scales within SCALE_RTOL and the
+    dequantized values within one quantum of their group. Returns the
+    largest error of the (dequantized) values and the state."""
+    (gv, gs), (wv, ws) = got, want
+    so = layout.stat_off
+    sv = (gs, ws) if layout.stats_in_state else (gv, wv)
+    require(torch.equal(sv[0][:, :2], sv[1][:, :2]),
+            f"{name}: show/clk differ between the push kernel and plain")
+    if layout.variable:
+        col = layout.size_col
+        require(torch.equal(gs[:, col], ws[:, col]),
+                f"{name}: size codes differ")
+    ocols = slice(so, so + int(layout.state_offsets[-1]))
+    serr = float((gs[:, ocols] - ws[:, ocols]).abs().max()) \
+        if ocols.stop > so else 0.0
+    require(serr <= PUSH_ATOL, f"{name}: optimizer state err {serr}")
+    if layout.quantized:
+        code = int((gv.int() - wv.int()).abs().max())
+        require(code <= 1, f"{name}: int8 codes {code} apart")
+        gsc, wsc = gs[:, 2:so], ws[:, 2:so]
+        dsc = (gsc - wsc).abs()
+        require(bool((dsc <= SCALE_RTOL * wsc.abs() +
+                      PUSH_ATOL / layout.QMAX).all()),
+                f"{name}: scales beyond rtol {SCALE_RTOL} + {PUSH_ATOL} / "
+                f"127: largest difference {float(dsc.max())} (relative "
+                f"{float((dsc / wsc.abs().clamp_min(1e-30)).max())})")
+        verr = 0.0
+        for gi, (start, width, _) in enumerate(layout.groups):
+            a = gv[:, start:start + width].float() * gsc[:, gi:gi + 1]
+            b = wv[:, start:start + width].float() * wsc[:, gi:gi + 1]
+            quantum = torch.maximum(gsc, wsc)[:, gi:gi + 1]
+            d = (a - b).abs()
+            require(bool((d <= quantum * (1 + layout.QMAX * SCALE_RTOL) +
+                          PUSH_ATOL).all()),
+                    f"{name}: a dequantized value more than one quantum "
+                    f"(+ {PUSH_ATOL}) from plain's")
+            verr = max(verr, float(d.max()))
+    elif layout.value_dtype == torch.bfloat16:
+        a, b = gv.float(), wv.float()
+        d = (a - b).abs()
+        require(bool((d <= BF16_SPACING * torch.maximum(a.abs(), b.abs()) +
+                      PUSH_ATOL).all()),
+                f"{name}: bf16 values more than a spacing (+ {PUSH_ATOL}) "
+                "apart")
+        verr = float(d.max())
+    else:
+        verr = float((gv - wv).abs().max())
+        require(verr <= PUSH_ATOL, f"{name}: values err {verr}")
+    return max(verr, serr)
+
+
+def check_arena(name: str, table, inputs):
+    """The push kernel's variant vs plain on one batch: ARENA_REPEATS more
+    launches from the same arenas with the dirty mark give the same bits
+    and ``mark_dirty_plain``'s bitmap; ``arena_err``'s tolerances; the
+    null row untouched. Returns the error and the card inputs."""
+    demb, inv, urows, umask = (torch.from_numpy(np.ascontiguousarray(x))
+                               .cuda() for x in inputs)
+    layout = table.layout
+    got, again, want = [(table.values.clone(), table.state.clone())
+                        for _ in range(3)]
+    sparse_push_cuda(layout, *got, demb, inv, urows, umask)
+    dirty = torch.zeros(table.capacity, dtype=torch.bool, device="cuda")
+    want_dirty = torch.zeros_like(dirty)
+    mark_dirty_plain(want_dirty, urows)
+    for rep in range(ARENA_REPEATS):
+        again[0].copy_(table.values)
+        again[1].copy_(table.state)
+        dirty.zero_()
+        sparse_push_cuda(layout, *again, demb, inv, urows, umask,
+                         dirty=dirty)
+        torch.cuda.synchronize()
+        require(torch.equal(got[0], again[0]) and
+                torch.equal(got[1], again[1]),
+                f"{name}: launch {rep + 2} differs from the first")
+        require(torch.equal(dirty, want_dirty),
+                f"{name}: launch {rep + 2}: the dirty bitmap differs")
+    sparse_push_plain(layout, *want, demb, inv, urows, umask)
+    require(torch.equal(got[0][0], table.values[0]) and
+            torch.equal(got[1][0], table.state[0]),
+            f"{name}: null row written")
+    err = arena_err(name, layout, got, want)
+    live = umask > 0
+    rows = urows[live].long()
+    trained = int((got[0][rows, 2:] != table.values[rows, 2:]).any(1)
+                  .sum())
+    extra = ""
+    if layout.variable:
+        codes = got[1][rows, layout.size_col]
+        extra = (f" size codes 0/1/2 after: {int((codes == 0).sum())}/"
+                 f"{int((codes == 1).sum())}/{int((codes == 2).sum())};")
+    lanes, cols = push_geometry(layout.dim)
+    print(f"kernel check {PUSH} {name}: {layout.conf.optimizer} "
+          f"{layout.value_dtype} D={layout.dim} grads {layout.grad_dim} "
+          f"G={lanes} C={cols} state={table.state.shape[1]} "
+          f"Npad={demb.shape[0]} Upad={urows.shape[0]} "
+          f"live={int(live.sum())} rows trained={trained};{extra} max err "
+          f"{err:.3e}; {ARENA_REPEATS + 1} launches bit-identical, bitmap "
+          "exact")
+    return err, (layout, table.values, table.state, demb, inv, urows, umask)
+
+
+def phase_arena_push(rng):
+    """(a) Each push variant vs plain: the training batch (hot key x500,
+    50 unknown keys; adagrad and adam) over a 4,194,304-row warm arena,
+    then all-padding, one-key, threshold-0 (sgd) and mixed warps. Returns
+    each variant's largest error and the training inputs of the variants
+    of the main path."""
+    n_train = TB * TS * 2
+    err = {v: 0.0 for v in ARENAS}
+    train = {}
+    for variant, (dtype, _) in ARENAS.items():
+        for opt in ("adagrad", "adam"):
+            conf, _ = arena_conf(variant, opt)
+            e, inputs = check_arena(f"{variant} training-{opt}", *arena_batch(
+                rng, conf, dtype, HOT_VOCAB, TNPAD, n_train, hot=500,
+                unknown=50, upad_min=TNPAD))
+            err[variant] = max(err[variant], e)
+            if variant in ARENA_ROWS:
+                train[(variant, opt)] = inputs
+        for name, opt, thr, npad, n in (
+                ("all-padding", "adagrad", 10.0, 1024, 0),
+                ("one-key", "adam", 10.0, 1024, 1000),
+                ("threshold-0", "sgd", 0.0, 2048, 1500)):
+            conf, _ = arena_conf(variant, opt, thr)
+            table, inputs = arena_batch(
+                rng, conf, dtype, 4096, npad, n,
+                hot=n - 1 if name == "one-key" else 0,
+                unknown=20 if n > 1000 else 0)
+            err[variant] = max(err[variant], check_arena(
+                f"{variant} {name}", table, inputs)[0])
+        for opt, upad in (("adagrad", 1003), ("adam", 1001)):
+            conf, _ = arena_conf(variant, opt)
+            err[variant] = max(err[variant], check_arena(
+                f"{variant} mixed-warps-{opt}",
+                *arena_mixed(rng, conf, dtype, 4096, upad))[0])
+    return err, train
+
+
+def arena_twin(table: DeviceTable, device: str, backend: str,
+               arena=None) -> DeviceTable:
+    """A table of ``table``'s layout on ``device`` holding ``arena``
+    (values as float32, state, row keys; ``table``'s own by default)."""
+    twin = DeviceTable(table.conf, capacity=1, uniq_buckets=table.uniq_buckets,
+                       device=device, value_dtype=table.value_dtype,
+                       backend=backend, index_threads=1)
+    twin.load_arena(*(arena or arena_of(table)))
+    return twin
+
+
+def arena_of(table: DeviceTable):
+    return (table.values.float().cpu().numpy(), table.state.cpu().numpy(),
+            table.row_keys())
+
+
+def arena_host_prep(tag: str, table: DeviceTable, model, tconf, batches,
+                    variant: str, cpu_arena):
+    """Host prep over ``batches`` on the card, counted (forward, backward,
+    push and merge offsets once a step; the push as ``variant``), its
+    first CPU_STEPS steps held against a CPU twin of ``cpu_arena`` (every
+    kernel's plain version). Returns (state, launches, ms/step)."""
+    cpu_model = copy.deepcopy(model)
+    fs = FusedTrainStep(model, table, tconf, TB, TS)
+    state = (*fs.init(), fs.init_auc_state())
+    counters = TRAIN_WRAPPERS + tuple(PUSH_VARIANTS.values())
+    t0 = time.perf_counter()
+    state, losses, launches, touched, after = run_counted(fs, state, batches,
+                                                          counters)
+    secs = time.perf_counter() - t0
+    n = len(batches)
+    for name, k in launches.items():
+        want = n if name in {w.__name__ for w in TRAIN_WRAPPERS} or \
+            name == PUSH_VARIANTS[variant].__name__ else 0
+        require(k == want, f"{tag}: {name} launched {k} times in {n} steps")
+    cpu = arena_twin(table, "cpu", "numpy", cpu_arena)
+    before = snapshot_rows(cpu, touched)
+    cfs = FusedTrainStep(cpu_model, cpu, tconf, TB, TS)
+    _, cpu_losses = train_steps(cfs, (*cfs.init(), cfs.init_auc_state()),
+                                batches[:CPU_STEPS])
+    compare_twin(f"{tag}: card vs CPU", losses, after, cpu_losses,
+                 snapshot_rows(cpu, touched, cpu_model), before,
+                 layout=table.layout, dense_atol=(
+                     BF16_DENSE_LR_SHARE * tconf.dense_learning_rate
+                     if tconf.bf16 else TRAIN_ATOL))
+    print(f"{tag}: {n} host-prep steps, launches {launches}, losses "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}, {secs / n * 1e3:.4f} "
+          "ms/step (first steps, syncs included)")
+    return state, launches
+
+
+def arena_files(tag: str, table: DeviceTable, model, conf, tconf, files,
+                stream, variant: str):
+    """``CTRTrainer(table=...).train_from_files`` over ``files`` (two runs
+    of 16: one eager, one captured and replayed), counted, against the
+    eager run loop over the same batches on a twin of the same arena and
+    weights, bit for bit. Returns (trainer, launches, metrics)."""
+    run_fs = FusedTrainStep(copy.deepcopy(model), arena_twin(
+        table, "cuda", "native"), tconf, TB, TS, device_prep=True)
+    run_state = (*run_fs.init(), run_fs.init_auc_state())
+    trainer = CTRTrainer(model, trainer_feed_conf(), conf, tconf,
+                         table=table, buckets=BucketSpec(min_size=TNPAD,
+                                                         max_size=1 << 18))
+    require(trainer.step.device_prep, f"{tag}: device prep resolved off")
+    n = len(stream)
+    for c in PUSH_VARIANTS.values():
+        c.launches = 0
+    secs, metrics, launches = count_launches(
+        lambda: trainer.train_from_files(files), n, tag)
+    launches.update({c.__name__: c.launches for c in PUSH_VARIANTS.values()})
+    for c in PUSH_VARIANTS.values():
+        want = n if c is PUSH_VARIANTS[variant] else 0
+        require(c.launches == want,
+                f"{tag}: {c.__name__} launched {c.launches} times")
+    graphs = trainer.step.run_graphs
+    require((graphs.captures, graphs.replays) == (1, n // 16 - 1),
+            f"{tag}: {graphs.captures} captures, {graphs.replays} replays")
+    run_state, _ = eager_run_loop(run_fs, run_state, stream)
+    require_same_training(f"{tag} (graphs) vs the eager run loop",
+                          (trainer.table, trainer.params, trainer.opt_state,
+                           None), (run_fs.table, *run_state[:2], None))
+    calc = AucCalculator()
+    calc.absorb(run_state[2])
+    require(calc.compute() == metrics,
+            f"{tag}: metrics {metrics} vs the eager run loop's "
+            f"{calc.compute()}")
+    require(not bool(trainer.step.bad_flag), f"{tag}: sentinel tripped")
+    print(f"{tag}: train_from_files over {len(files)} files ({n} batches, "
+          f"1 capture, {graphs.replays} replay), launches {launches}, auc "
+          f"{metrics['auc']:.6f}; pass metrics, all {len(table)} rows by "
+          f"key (values and state), the dense params and adam's state bit "
+          f"for bit vs the eager run loop on a twin; "
+          f"{secs / n * 1e3:.4f} ms/step (first pass)")
+    return trainer, launches, metrics
+
+
+def random_model(rng, in_dim: int, dtype=torch.float32):
+    """``random_deepfm``'s weights in a ``DeepFM`` of ``dtype``."""
+    model = random_deepfm(rng, in_dim)
+    out = DeepFM(in_dim, HIDDEN, dtype=dtype)
+    out.load_state_dict(model.state_dict())
+    return out
+
+
+def arena_step_ms(worlds, stream) -> dict:
+    """ms/step of ``train_stream`` (run graphs, both runs replayed) over
+    ``stream`` for each world, in turns (forward, then back)."""
+    order = list(worlds) + list(reversed(worlds))
+    ms = {k: [] for k in worlds}
+    for k in order:
+        fs, state = worlds[k]
+        secs, _ = timed_secs(lambda: fs.train_stream(*state, iter(stream)))
+        ms[k].append(secs / len(stream) * 1e3)
+    return ms
+
+
+def phase_arenas(rng) -> dict:
+    """(b)-(e): the flagship over int8 and bf16 arenas, the variable+int8
+    table, the int8 table's bundle; bytes per row; ms/step in turns."""
+    conf, tconf, buckets = train_confs()
+    out: dict = {"launches": {}}
+    os.makedirs(WORK, exist_ok=True)
+    files = [os.path.join(WORK, f"arena-part-{i}")
+             for i in range(TRAINER_FILES)]
+    for i, path in enumerate(files):
+        write_trainer_file(rng, path, i * (HOT_VOCAB + 1))
+    ds = SlotDataset(trainer_feed_conf(), buckets=BucketSpec(
+        min_size=TNPAD, max_size=1 << 18))
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    stream = reader_tuples(list(ds.batches()))
+    rows = {}
+    for name, dtype, c in (("float32", torch.float32, conf),
+                           ("bf16", torch.bfloat16, conf),
+                           ("int8", torch.int8, conf),
+                           ("var_int8", torch.int8,
+                            TableConfig(cvm_offset=3, **VAR_KW))):
+        t = DeviceTable(c, capacity=HOT_VOCAB, device="cuda",
+                        value_dtype=dtype)
+        rows[name] = (t.values[0].nbytes, t.state[0].nbytes,
+                      t.memory_bytes())
+        del t
+    print("arenas: bytes a row (values, state, whole) and of a "
+          f"{HOT_VOCAB}-row arena, read from the card: " + "; ".join(
+              f"{k} {v} + {s} = {v + s} B, {m} B" for k, (v, s, m) in
+              rows.items()))
+    out["row_bytes"] = rows
+
+    # (b) the flagship over the int8 table
+    table = DeviceTable(conf, capacity=HOT_VOCAB + 1 + TRAINER_HEADROOM,
+                        uniq_buckets=buckets, device="cuda",
+                        value_dtype=torch.int8, backend="native",
+                        index_threads=1)
+    table.prepopulate(HOT_VOCAB)
+    model = random_model(rng, TS * conf.pull_dim)
+    init = arena_of(table)
+    host_model = copy.deepcopy(model)
+    trainer, launches, _ = arena_files(
+        "arenas int8 (b): trainer files", table, model, conf, tconf, files,
+        stream, "int8")
+    out["launches"]["int8_files"] = launches
+    hbatches = make_train_batches(rng, ARENA_STEPS)
+    _, out["launches"]["int8_host_prep"] = arena_host_prep(
+        "arenas int8 (b): host prep", arena_twin(table, "cuda", "native",
+                                                 init),
+        host_model, tconf, hbatches, "int8", init)
+
+    # (e) the int8 table's bundle, served against the CPU predictor
+    snap = table.snapshot()
+    snap["embedx_ok"] = snap["values"][:, 0] >= conf.embedx_threshold
+    bundle = save_inference_model(os.path.join(WORK, "int8_bundle"),
+                                  trainer.params, snap, trainer_feed_conf(),
+                                  conf)
+    del snap
+    out["serve_int8_ms"], out["launches"]["serve_int8"] = serve_bundle(
+        "arenas serve int8 (e)", bundle, csr_batches(
+            rng, SERVE_BATCHES, TB, TS, 0, HOT_VOCAB, npad=TNPAD), 1)
+    shutil.rmtree(bundle, ignore_errors=True)
+    del trainer, table, init
+    gc.collect()
+
+    # (c) the bf16 arena with bf16 dense compute, cut in depth
+    bconf = TrainerConfig(dense_optimizer="adam", dense_learning_rate=1e-3,
+                          bf16=True)
+    table = DeviceTable(conf, capacity=HOT_VOCAB + 1 + TRAINER_HEADROOM,
+                        uniq_buckets=buckets, device="cuda",
+                        value_dtype=torch.bfloat16, backend="native",
+                        index_threads=1)
+    table.prepopulate(HOT_VOCAB)
+    model = random_model(rng, TS * conf.pull_dim, torch.bfloat16)
+    init = arena_of(table)
+    host_model = copy.deepcopy(model)
+    trainer, launches, _ = arena_files(
+        "arenas bf16 (c): trainer files", table, model, conf, bconf, files,
+        stream, "bf16")
+    out["launches"]["bf16_files"] = launches
+    _, out["launches"]["bf16_host_prep"] = arena_host_prep(
+        "arenas bf16 (c): host prep", arena_twin(table, "cuda", "native",
+                                                 init),
+        host_model, bconf, hbatches[:BF16_STEPS], "bf16", init)
+    del trainer, table, init
+    gc.collect()
+
+    # (d) variable (+int8) FusedTrainStep at examples/08's widths
+    vconf = TableConfig(cvm_offset=3, embedx_threshold=0.0,
+                        initial_range=0.01, learning_rate=0.1, seed=1,
+                        **VAR_KW)
+    for variant, dtype, steps in (("var_int8", torch.int8, ARENA_STEPS),
+                                  ("var_f32", torch.float32, BF16_STEPS)):
+        table = DeviceTable(vconf, capacity=HOT_VOCAB + 1,
+                            uniq_buckets=buckets, device="cuda",
+                            value_dtype=dtype, backend="native",
+                            index_threads=1)
+        table.prepopulate(HOT_VOCAB)
+        init = arena_of(table)
+        _, out["launches"][f"{variant}_host_prep"] = arena_host_prep(
+            f"arenas {variant} (d): host prep", table,
+            random_model(rng, TS * vconf.pull_dim), tconf,
+            hbatches[:steps], variant, init)
+        del table, init
+        gc.collect()
+
+    # ms/step of the three arenas under the flagship's f32 dense step, in
+    # turns: train_stream's run graphs over the file batches
+    worlds = {}
+    model = random_model(rng, TS * conf.pull_dim)
+    for name, dtype in (("int8", torch.int8), ("bf16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        t = DeviceTable(conf, capacity=HOT_VOCAB + 1 + TRAINER_HEADROOM,
+                        uniq_buckets=buckets, device="cuda",
+                        value_dtype=dtype, backend="native", index_threads=1)
+        t.prepopulate(HOT_VOCAB)
+        fs = FusedTrainStep(copy.deepcopy(model), t, tconf, TB, TS,
+                            device_prep=True)
+        state = (*fs.init(), fs.init_auc_state())
+        fs.train_stream(*state, iter(stream))     # warm-up and capture
+        worlds[name] = (fs, state)
+    out["ms_per_step"] = arena_step_ms(worlds, stream)
+    print(f"timing arenas: ms/step of train_stream's run graphs over "
+          f"{len(stream)} batches (B={TB}, device prep, f32 dense), in "
+          f"turns: " + "; ".join(f"{k} {v}" for k, v in
+                                 out["ms_per_step"].items()))
+    del worlds
+    gc.collect()
+    return out
+
+
+def time_arena_push(train: dict) -> dict:
+    """Each main-path push variant at the training shape (adagrad), with
+    its merge order, per call and in a CUDA graph, beside plain and
+    ``index_add_`` (the merge only), and its bound (``push_bound``: the
+    grads of the live uniques' keys read once, the index arrays once, each
+    live row's state and the value columns the variant touches read and
+    written once)."""
+    out = {}
+    for variant in ARENA_ROWS:
+        layout, values, state, demb, inv, urows, umask = \
+            train[(variant, "adagrad")]
+        pv, ps = values.clone(), state.clone()
+        merged = torch.zeros((urows.shape[0], demb.shape[1]), device="cuda")
+        inv_l = inv.long()
+        t = timed(lambda: sparse_push_cuda(layout, values, state, demb, inv,
+                                           urows, umask),
+                  lambda: sparse_push_plain(layout, pv, ps, demb, inv, urows,
+                                            umask),
+                  lambda: merged.index_add_(0, inv_l, demb))
+        with_bound(t, *push_bound(layout, demb, inv, urows, umask))
+        vb, sb = layout.row_bytes()
+        t["row_bytes"] = {"values": vb, "state": sb}
+        t["dim"], t["grad_dim"] = layout.dim, layout.grad_dim
+        print_timing(f"{PUSH}_{variant}", "training adagrad",
+                     f"Npad={demb.shape[0]} D={layout.dim} grads "
+                     f"{layout.grad_dim} row {vb} + {sb} B Upad="
+                     f"{urows.shape[0]} live={int((umask > 0).sum())}",
+                     "index_add_ (the merge only)", t)
+        out[variant] = t
+    return out
+
+
 # -- phase 5 -----------------------------------------------------------------
 
 def timed(kernel, plain, library) -> dict:
@@ -3546,16 +4205,31 @@ def grad_bytes(g, segs, cvm) -> int:
 
 def push_bound(layout, demb, inv, urows, umask) -> Tuple[int, int]:
     """Bytes and operations of one push: read the grads of the keys of live
-    uniques (the others are never read), inverse, uniq_rows and uniq_mask
-    once; read and write the value and state rows of the live uniques
-    once; the merge's adds, show/clk and ~6 operations a trained column."""
-    npad, dim = demb.shape
+    uniques (the others are never read; ``grad_dim`` float32 each),
+    inverse, uniq_rows and uniq_mask once; read and write the state row
+    (float32) and the value row of each live unique once, the values at
+    the arena's element size. Value columns 0, 1 (show/clk) count where
+    the push touches them: read and written in a float32 arena; neither
+    in a bfloat16 one (show/clk live in the state); written, not read, in
+    an int8 one (they hold 0). Operations: the merge's adds, show/clk and
+    ~6 a trained column (~3 more an int8 column: dequantize, divide,
+    round)."""
+    npad, gdim = demb.shape
     live = int((umask > 0).sum())
     live_keys = int((umask[inv.long()] > 0).sum())
-    sd = max(layout.state_dim, 1)
-    nbytes = live_keys * dim * 4 + npad * 4 + urows.shape[0] * 8 + \
-        live * (dim + sd) * 4 * 2
-    return nbytes, live_keys * dim + live * (2 + 6 * (dim - 2))
+    vb, sb = layout.row_bytes()
+    item = vb // layout.dim
+    body = (layout.dim - 2) * item
+    if not layout.stats_in_state:
+        vread = vwrite = vb
+    elif layout.quantized:
+        vread, vwrite = body, vb
+    else:
+        vread = vwrite = body
+    nbytes = live_keys * gdim * 4 + npad * 4 + urows.shape[0] * 8 + \
+        live * (vread + vwrite + 2 * sb)
+    per_col = 9 if layout.quantized else 6
+    return nbytes, live_keys * gdim + live * (2 + per_col * (layout.dim - 2))
 
 
 def time_push(inputs) -> dict:
@@ -3859,17 +4533,24 @@ def main() -> int:
         tiered = phase_tiered_loop(np.random.default_rng([args.seed, 19]))
         engines = phase_host_engine(np.random.default_rng([args.seed, 23]),
                                     args.seed)
+        arena_rng = np.random.default_rng([args.seed, 29])
+        arena_errs, arena_train = phase_arena_push(arena_rng)
+        arenas = phase_arenas(arena_rng)
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
         push_timing["adam"] = time_push(push_inputs["adam"])
         offsets_timing = time_offsets(train_inputs)
         dedup_timing, probe_timing, fused_timing = time_index(index_inputs)
+        arena_timing = time_arena_push(arena_train)
+        del arena_train
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    arena_ms = {k: round(float(np.mean(v)), 4)
+                for k, v in arenas["ms_per_step"].items()}
     print(f"chip_smoke: all phases {time.perf_counter() - t_start:.1f} s; "
           f"train host-prep (numpy index) {train['ms_per_step']:.4f} "
           f"ms/step, {train['examples_per_s']:.1f} examples/s; host-prep "
@@ -3903,7 +4584,9 @@ def main() -> int:
           f"{engines['feed_dnn']['ms_per_step']:.4f} ms/step, "
           f"{engines['feed_dnn']['examples_per_s']:.1f} examples/s; serving "
           f"MMoE {engines['serve_mmoe_ms']:.4f}, FeedDNN "
-          f"{engines['serve_feed_dnn_ms']:.4f} ms/batch")
+          f"{engines['serve_feed_dnn_ms']:.4f} ms/batch; arenas "
+          f"(train_stream run graphs, f32 dense) ms/step {arena_ms}, "
+          f"serving the int8 table {arenas['serve_int8_ms']:.4f} ms/batch")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
 
@@ -3943,7 +4626,7 @@ def main() -> int:
          **by_path(sparse_push_cuda),
          "max_abs_err": push_err, **push_timing,
          "ptxas": [r for r in ptxas[PUSH] if r["name"].startswith(
-             f"sparse_push_kernel<{push_geometry(D)[1]},")]},
+             f"sparse_push_kernel<0,0,{push_geometry(D)[1]},")]},
         {"name": OFFSETS, "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/sparse_push.cu",
          "replaces": "paddlebox_tpu/ps/device_table.py:189",
@@ -3973,6 +4656,22 @@ def main() -> int:
          "ptxas": [r for r in ptxas[INDEX]
                    if r["name"] == "dedup_write_probe_kernel"]},
     ]
+    # the push's storage variants: launches on phase 4g's paths, counted
+    # by each variant's counter
+    for variant, kind in zip(ARENA_ROWS, ("2,0", "1,0", "0,1", "2,1")):
+        counter = PUSH_VARIANTS[variant].__name__
+        paths = {path: counts.get(counter, 0)
+                 for path, counts in arenas["launches"].items()}
+        cols = push_geometry(arena_timing[variant]["dim"])[1]
+        rows.append({
+            "name": f"{PUSH}_{variant}", "route": "cuda",
+            "source": "paddlebox_tpu_torch/csrc/sparse_push.cu",
+            "replaces": "paddlebox_tpu/ps/device_table.py:189",
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "counted_by": counter, "max_abs_err": arena_errs[variant],
+            **arena_timing[variant],
+            "ptxas": [r for r in ptxas[PUSH] if r["name"].startswith(
+                f"sparse_push_kernel<{kind},{cols},")]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

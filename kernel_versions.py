@@ -9,6 +9,10 @@ its source, on the card. Not part of the package or of ``chip_smoke.py``.
         > build/old/grad_v1.cu
     python3 kernel_versions.py grad --old build/old/grad_v1.cu
     python3 kernel_versions.py index --old build/old/first2.cu
+    git show 611a138:paddlebox_tpu_torch/csrc/sparse_push.cu \\
+        > build/old/push_parent.cu
+    python3 kernel_versions.py push --old build/old/push_parent.cu \\
+        --ptxas-only
 
 The script builds the earlier sources and the package's kernel, one
 ``nvcc`` each, all at once, and prints each one's ptxas report (registers,
@@ -18,7 +22,9 @@ in one process on one card: the earlier ones in the order given, the
 package's kernel twice, the earlier ones in reverse order. Run it from the
 root of a checkout, before anything has built the package's kernel (or it
 prints no ptxas report for it): it takes its inputs and timers from
-``chip_smoke.py``.
+``chip_smoke.py``. With ``--ptxas-only`` it stops after the reports, so an
+earlier source of any C interface can be held against the package's
+registers and spills.
 
 ``push``: each earlier source has version 1's C interface, ``pbx_sparse_push``
 taking an int32 ``order`` and ``offsets`` from ``searchsorted``, with no
@@ -121,6 +127,16 @@ class OldPush:
                                      device=inv.device), out_int32=True)
         return order.int(), offsets
 
+    @staticmethod
+    def group_desc(layout) -> ctypes.Array:
+        """Version 1's descriptor: (start, width, gated, state offset) a
+        group, float32 arenas only."""
+        desc = []
+        for gi, (start, width, gated) in enumerate(layout.groups):
+            desc += [start, width, int(gated),
+                     int(layout.state_offsets[gi])]
+        return (ctypes.c_int * max(len(desc), 1))(*desc)
+
     def push_rows(self, layout, values, state, demb, order, offsets, urows,
                   umask) -> None:
         conf = layout.conf
@@ -128,7 +144,7 @@ class OldPush:
             values.data_ptr(), state.data_ptr(), demb.data_ptr(),
             order.data_ptr(), offsets.data_ptr(), urows.data_ptr(),
             umask.data_ptr(), urows.shape[0], values.shape[1],
-            state.shape[1], len(layout.groups), layout.push_desc,
+            state.shape[1], len(layout.groups), self.group_desc(layout),
             _OPTIMIZERS[conf.optimizer], conf.learning_rate,
             conf.initial_g2sum, conf.embedx_threshold,
             torch.cuda.current_stream().cuda_stream)
@@ -353,6 +369,9 @@ def main() -> int:
                     help="earlier sources of the kernel (see the module's "
                          "docstring for the C interfaces they may have)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ptxas-only", action="store_true",
+                    help="build and print the ptxas reports, then stop "
+                         "(any C interface)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_versions: CUDA is not available", file=sys.stderr)
@@ -379,6 +398,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi)
+    if args.ptxas_only:
+        return 0
     rng = np.random.default_rng(args.seed)
     if args.kernel == "push":
         run_push(olds, rng, smi)

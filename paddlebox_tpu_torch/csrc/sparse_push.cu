@@ -2,8 +2,9 @@
 // optimizer, for Hopper (sm_90a).
 //
 // Replaces the XLA function paddlebox_tpu/ps/device_table.py::ArenaLayout.push
-// with ops/sparse_optim.py::apply_update, for the float32 arena. For each
-// unique u with uniq_mask[u] > 0 (live) and arena row r = uniq_rows[u]:
+// with ops/sparse_optim.py::apply_update, for every storage type of the
+// arena (ops/sparse_push.py::sparse_push_plain is its plain version). For
+// each unique u with uniq_mask[u] > 0 (live) and arena row r = uniq_rows[u]:
 //
 //   merged[c]  = sum of demb[k, c] over the keys k with inverse[k] == u,
 //                in ascending k (the order XLA's CPU segment_sum adds in)
@@ -15,6 +16,29 @@
 //
 // A unique that is not live (padding uniques, key 0, unknown keys: all at
 // row 0) writes nothing; a masked group keeps w and state untouched.
+//
+// Storage types (the kernel's template arguments KIND and VAR; KIND picks
+// the element type through ArenaType: float, __nv_bfloat16 or int8_t):
+// - float32: show/clk are value columns 0, 1.
+// - bfloat16: show/clk live in float32 state columns 0, 1 and value
+//   columns 0, 1 are left alone; a trained w is stored round-to-nearest-
+//   even (__float2bfloat16_rn).
+// - int8: as bfloat16, plus one float32 scale a group in state column
+//   2 + gi; w = q * scale. After the step, every group of a live row, a
+//   masked one too, is requantized at gscale = max(max |new w|, 1e-12) /
+//   127 (an IEEE divide, as is new_w / gscale), q = clip(rint(new_w /
+//   gscale), -127, 127), rint rounding half to even as jnp.round does;
+//   value columns 0, 1 are written 0. The build has no fast-math flags.
+// - variable (VAR): the last group is the union group of var_width
+//   columns at var_start; the grads are pull-wide (grad_dim = var_start +
+//   embedx_dim + expand_dim), so a lane merges for each of its union
+//   columns var_start + j both the base grad (column var_start + j, j <
+//   embedx_dim) and the expand grad (column var_start + embedx_dim + j,
+//   j < expand_dim). An unclaimed row (size code 0 in state column
+//   size_col) is claimed by the first of base or expand whose merged grads
+//   hold a nonzero (base wins a tie), the union group trains on the grads
+//   of the row's code, and a row still unclaimed masks the group. The
+//   "any nonzero" is reduced over the unique's G lanes, not the warp.
 //
 // The dirty mark: given a bitmap `dirty` [cap] (bool, one byte a row; null:
 // no mark), every unique u, live or not, stores dirty[uniq_rows[u]] = 1 from
@@ -63,11 +87,13 @@
 //   the group's own lanes, so groups of one warp may diverge): the sum of
 //   g^2 for adagrad, the new show and clk, the group's state scalars. No
 //   shared memory, no barriers.
-// - Dead and padding uniques run the same code with an empty merge and
-//   write nothing. Each lane writes its own columns; the group's lane 0,
+// - Dead and padding uniques mark their row dirty and leave, the whole
+//   group at once. Each lane writes its own columns; the group's lane 0,
 //   which alone reads the state scalars, writes show, clk and each group's
-//   scalar (adagrad's g2sum, adam's t). No atomics anywhere.
+//   scalars (adagrad's g2sum, adam's t, int8's scale, the size code). No
+//   atomics anywhere.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -78,8 +104,29 @@ constexpr int kMaxGroups = 3;  // embed_w, embedx, expand
 constexpr int kMaxDim = 256;
 constexpr int kMaxCols = 8;    // C: 2 (G = 1, D = 2) to 8 (G = 32, D = 256)
 constexpr int kKeys = 8;       // keys of a unique whose grads are in flight
+constexpr float kQmax = 127.0f;
 
 enum Optimizer { kSgd = 0, kAdagrad = 1, kAdam = 2 };
+enum Kind { kF32 = 0, kBf16 = 1, kInt8 = 2 };
+
+// the element type of each storage kind, and its conversions
+template <int KIND> struct ArenaType;
+template <> struct ArenaType<kF32> {
+  using T = float;
+  static __device__ __forceinline__ float load(const T* p) { return *p; }
+};
+template <> struct ArenaType<kBf16> {
+  using T = __nv_bfloat16;
+  static __device__ __forceinline__ float load(const T* p) {
+    return __bfloat162float(*p);
+  }
+};
+template <> struct ArenaType<kInt8> {
+  using T = int8_t;
+  static __device__ __forceinline__ float load(const T* p) {
+    return static_cast<float>(*p);
+  }
+};
 
 // constants of ops/sparse_optim.py; the (1 - beta) factors are rounded
 // from double, as the reference's Python floats are
@@ -96,20 +143,22 @@ struct Groups {
   int start[kMaxGroups];  // first value column
   int width[kMaxGroups];
   int gated[kMaxGroups];  // embedx/expand: trained once show >= threshold
-  int soff[kMaxGroups];   // first state column
+  int soff[kMaxGroups];   // first state column of the optimizer's state
+  int scol[kMaxGroups];   // int8: the group's scale column (2 + gi)
 };
 
 // read-only inputs are loaded through the read-only path (__ldg)
 struct PushArgs {
-  float* values;               // [cap, dim]
+  void* values;                // [cap, dim] of the storage type
   float* state;                // [cap, state_dim]
-  const float* demb;           // [n_keys, dim]
+  const float* demb;           // [n_keys, grad_dim]
   const int64_t* order;        // [n_keys]
   const int* offsets;          // [n_uniq + 1]
   const int* uniq_rows;        // [n_uniq]
   const float* uniq_mask;      // [n_uniq]
   uint8_t* dirty;              // [cap] or null
-  int n_uniq, dim, state_dim, log2g;
+  int n_uniq, dim, grad_dim, state_dim, log2g;
+  int size_col, embedx_dim, expand_dim;  // variable layout
   float lr, g2sum0, threshold;
   Groups groups;
 };
@@ -146,9 +195,17 @@ __device__ __forceinline__ float pick(int gi, const float (&a)[kMaxGroups]) {
   return gi == 0 ? a[0] : (gi == 1 ? a[1] : a[2]);
 }
 
-template <int C, int OPT>
+template <int KIND, int VAR, int C, int OPT>
 __global__ void __launch_bounds__(kThreads)
     sparse_push_kernel(const PushArgs a) {
+  using Arena = ArenaType<KIND>;
+  using T = typename Arena::T;
+  constexpr bool kStats = KIND != kF32;  // show/clk in state columns 0, 1
+  // the float32 arena without the variable layout keeps the code of the
+  // kernel before the storage variants (its column tests inline, its
+  // grads dim wide): so compiled, its every instance keeps that kernel's
+  // registers and spills none (kernel_versions.py push --ptxas-only)
+  constexpr bool kPlain = KIND == kF32 && !VAR;
   const Groups& gr = a.groups;
   const int G = 1 << a.log2g;
   const int u = (blockIdx.x * kThreads + threadIdx.x) >> a.log2g;
@@ -164,21 +221,49 @@ __global__ void __launch_bounds__(kThreads)
   const float live = __ldg(a.uniq_mask + u);
   const int row = __ldg(a.uniq_rows + u);
   const int k0 = __ldg(a.offsets + u);
-  const int k1 = __ldg(a.offsets + u + 1);
-  const bool act = live > 0.0f;
-  const int kend = act ? k1 : k0;  // a dead unique merges nothing
+  const int kend = __ldg(a.offsets + u + 1);
   if (a.dirty != nullptr && l == 0) {
     a.dirty[row] = 1;
   }
+  if (!(live > 0.0f)) {
+    return;  // a dead unique writes nothing; its whole group leaves here
+  }
 
   // round 2: the row's columns, the state, the first `order` entries
-  float* vrow = a.values + static_cast<int64_t>(row) * a.dim;
+  T* vrow = static_cast<T*>(a.values) + static_cast<int64_t>(row) * a.dim;
   float* srow = a.state + static_cast<int64_t>(row) * a.state_dim;
+  // the union group (variable layout): its index and first column
+  const int vg = gr.n - 1;
+  const int vstart = VAR ? gr.start[vg] : a.dim;
+  float qs[kMaxGroups] = {1.0f, 1.0f, 1.0f};  // int8: each group's scale
+  if constexpr (KIND == kInt8) {
+#pragma unroll
+    for (int gi = 0; gi < kMaxGroups; ++gi) {
+      if (gi < gr.n) {
+        qs[gi] = srow[gr.scol[gi]];
+      }
+    }
+  }
   float w[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int col = l + c * G;
-    w[c] = col < a.dim ? vrow[col] : 0.0f;
+    if (col >= a.dim) {
+      w[c] = 0.0f;
+    } else if (kStats && col < 2) {
+      w[c] = srow[col];
+    } else {
+      w[c] = Arena::load(vrow + col);
+      if constexpr (KIND == kInt8) {
+        if (col >= 2) {
+          w[c] *= pick((col >= gr.start[1]) + (col >= gr.start[2]), qs);
+        }
+      }
+    }
+  }
+  float cur = 0.0f;  // variable: the row's size code
+  if constexpr (VAR) {
+    cur = srow[a.size_col];
   }
   float scal[kMaxGroups] = {0.0f, 0.0f, 0.0f};  // lane 0: g2sum or t
   if constexpr (OPT != kSgd) {
@@ -207,6 +292,18 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
+  // the grad columns each register merges: its own column (a union column
+  // j: the base grad, j < embedx_dim), and under VAR the expand grad at
+  // column + embedx_dim (j < expand_dim)
+  bool own[kPlain ? 1 : C];
+  bool has_e[kPlain ? 1 : C];
+#pragma unroll
+  for (int c = 0; c < (kPlain ? 0 : C); ++c) {
+    const int col = l + c * G;
+    own[c] = col < a.dim && (col < vstart || col - vstart < a.embedx_dim);
+    has_e[c] = VAR && col >= vstart && col < a.dim &&
+             col - vstart < a.expand_dim;
+  }
   // the unique's first kKeys entries of `order`, the same in every lane
   int ord[kKeys];
 #pragma unroll
@@ -218,19 +315,31 @@ __global__ void __launch_bounds__(kThreads)
   // and the next trip's `order` entries beside them; added in ascending
   // key order
   float acc[C];
+  float acc_e[VAR ? C : 1];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     acc[c] = 0.0f;
+    if constexpr (VAR) {
+      acc_e[c] = 0.0f;
+    }
   }
   for (int j0 = k0; j0 < kend; j0 += kKeys) {
     float x[kKeys][C];
+    float y[VAR ? kKeys : 1][VAR ? C : 1];
 #pragma unroll
     for (int q = 0; q < kKeys; ++q) {
-      const float* grow = a.demb + static_cast<int64_t>(ord[q]) * a.dim + l;
+      const float* grow =
+          a.demb +
+          static_cast<int64_t>(ord[q]) * (kPlain ? a.dim : a.grad_dim) + l;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        x[q][c] = j0 + q < kend && l + c * G < a.dim ? __ldg(grow + c * G)
-                                                     : 0.0f;
+        const bool mine = kPlain ? l + c * G < a.dim : own[c];
+        x[q][c] = j0 + q < kend && mine ? __ldg(grow + c * G) : 0.0f;
+        if constexpr (VAR) {
+          y[q][c] = j0 + q < kend && has_e[c]
+                        ? __ldg(grow + c * G + a.embedx_dim)
+                        : 0.0f;
+        }
       }
     }
 #pragma unroll
@@ -244,6 +353,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           acc[c] += x[q][c];
+          if constexpr (VAR) {
+            acc_e[c] += y[q][c];
+          }
         }
       }
     }
@@ -260,6 +372,42 @@ __global__ void __launch_bounds__(kThreads)
     for (int gi = 0; gi < kMaxGroups; ++gi) {
       scal[gi] = __shfl_sync(gmask, scal[gi], 0, G);
     }
+  }
+  // the variable claim: does the base (bit 0) or the expand (bit 1) grad
+  // hold a nonzero, over the group's lanes; then the union columns take
+  // the grads of the row's code
+  float code = cur;
+  if constexpr (VAR) {
+    int nz = 0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = l + c * G;
+      if (col >= vstart && col < a.dim) {
+        nz |= (acc[c] != 0.0f ? 1 : 0) | (acc_e[c] != 0.0f ? 2 : 0);
+      }
+    }
+    for (int off = G >> 1; off > 0; off >>= 1) {
+      nz |= __shfl_xor_sync(gmask, nz, off, G);
+    }
+    if (cur == 0.0f) {
+      code = (nz & 1) ? 1.0f : ((nz & 2) ? 2.0f : 0.0f);
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = l + c * G;
+      if (col >= vstart && col < a.dim) {
+        acc[c] = code == 1.0f ? acc[c] : (code == 2.0f ? acc_e[c] : 0.0f);
+      }
+    }
+  }
+  // a group trains (bit gi) when it is not gated below the threshold
+  // and, the union group, when its row is claimed
+  int trains = 0;
+#pragma unroll
+  for (int gi = 0; gi < kMaxGroups; ++gi) {
+    trains |= (gi < gr.n && (!gr.gated[gi] || new_show >= a.threshold) &&
+               (!VAR || gi != vg || code > 0.0f))
+              << gi;
   }
   float sq[kMaxGroups] = {0.0f, 0.0f, 0.0f};  // adagrad: sum of g^2
   if constexpr (OPT == kAdagrad) {
@@ -281,28 +429,26 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  if (!act) {
-    return;  // after the group's last shuffle
-  }
 
-  // each lane writes its own trained columns
+  // each lane steps its own trained columns (a masked one keeps w)
+  float nw[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int col = l + c * G;
+    nw[c] = w[c];
     if (col < 2 || col >= a.dim) {
       continue;
     }
     const int gi = (col >= gr.start[1]) + (col >= gr.start[2]);
-    if (pick(gi, gr.gated[0], gr.gated[1], gr.gated[2]) &&
-        !(new_show >= a.threshold)) {
+    if (!((trains >> gi) & 1)) {
       continue;
     }
     const float g = acc[c];
     if constexpr (OPT == kSgd) {
-      vrow[col] = w[c] - a.lr * g;
+      nw[c] = w[c] - a.lr * g;
     } else if constexpr (OPT == kAdagrad) {
       const float scale = sqrtf(a.g2sum0 / (a.g2sum0 + pick(gi, scal)));
-      vrow[col] = w[c] - a.lr * scale * g;
+      nw[c] = w[c] - a.lr * scale * g;
     } else {
       const int start = pick(gi, gr.start[0], gr.start[1], gr.start[2]);
       const int width = pick(gi, gr.width[0], gr.width[1], gr.width[2]);
@@ -312,18 +458,74 @@ __global__ void __launch_bounds__(kThreads)
       const float vn = v[c] * kBeta2 + kOneMinusBeta2 * (g * g);
       const float mhat = mn / (1.0f - powf(kBeta1, t));
       const float vhat = vn / (1.0f - powf(kBeta2, t));
-      vrow[col] = w[c] - a.lr * mhat / (sqrtf(vhat) + kEps);
+      nw[c] = w[c] - a.lr * mhat / (sqrtf(vhat) + kEps);
       st[1 + col - start] = mn;
       st[1 + width + col - start] = vn;
     }
+    if constexpr (KIND == kF32) {
+      vrow[col] = nw[c];
+    } else if constexpr (KIND == kBf16) {
+      vrow[col] = __float2bfloat16_rn(nw[c]);
+    }
   }
-  if (l == 0) {
-    vrow[0] = new_show;
-    vrow[1] = new_clk;
-    if constexpr (OPT != kSgd) {
+  // int8: every group requantized at the scale of its new max
+  float gs[kMaxGroups] = {0.0f, 0.0f, 0.0f};
+  if constexpr (KIND == kInt8) {
+    float mx[kMaxGroups] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = l + c * G;
+      if (col >= 2 && col < a.dim) {
+        const int gi = (col >= gr.start[1]) + (col >= gr.start[2]);
+        const float x = fabsf(nw[c]);
+        mx[0] = gi == 0 ? fmaxf(mx[0], x) : mx[0];
+        mx[1] = gi == 1 ? fmaxf(mx[1], x) : mx[1];
+        mx[2] = gi == 2 ? fmaxf(mx[2], x) : mx[2];
+      }
+    }
+    for (int off = G >> 1; off > 0; off >>= 1) {
 #pragma unroll
       for (int gi = 0; gi < kMaxGroups; ++gi) {
-        if (gi < gr.n && (!gr.gated[gi] || new_show >= a.threshold)) {
+        mx[gi] = fmaxf(mx[gi], __shfl_xor_sync(gmask, mx[gi], off, G));
+      }
+    }
+#pragma unroll
+    for (int gi = 0; gi < kMaxGroups; ++gi) {
+      gs[gi] = __fdiv_rn(fmaxf(mx[gi], 1e-12f), kQmax);
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = l + c * G;
+      if (col >= a.dim) {
+        continue;
+      }
+      float q = 0.0f;
+      if (col >= 2) {
+        const int gi = (col >= gr.start[1]) + (col >= gr.start[2]);
+        q = fminf(fmaxf(rintf(__fdiv_rn(nw[c], pick(gi, gs))), -kQmax),
+                  kQmax);
+      }
+      vrow[col] = static_cast<int8_t>(q);
+    }
+  }
+  if (l == 0) {
+    if constexpr (kStats) {
+      srow[0] = new_show;
+      srow[1] = new_clk;
+    } else {
+      vrow[0] = new_show;
+      vrow[1] = new_clk;
+    }
+#pragma unroll
+    for (int gi = 0; gi < kMaxGroups; ++gi) {
+      if (gi >= gr.n) {
+        continue;
+      }
+      if constexpr (KIND == kInt8) {
+        srow[gr.scol[gi]] = gs[gi];
+      }
+      if constexpr (OPT != kSgd) {
+        if ((trains >> gi) & 1) {
           srow[gr.soff[gi]] =
               OPT == kAdagrad
                   ? scal[gi] + sq[gi] / static_cast<float>(gr.width[gi])
@@ -331,17 +533,44 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
+    if constexpr (VAR) {
+      srow[a.size_col] = code;
+    }
   }
 }
 
-template <int C>
-void launch_cols(const PushArgs& a, int opt, int blocks, cudaStream_t s) {
+template <int KIND, int VAR, int C>
+void launch_opt(const PushArgs& a, int opt, int blocks, cudaStream_t s) {
   if (opt == kSgd) {
-    sparse_push_kernel<C, kSgd><<<blocks, kThreads, 0, s>>>(a);
+    sparse_push_kernel<KIND, VAR, C, kSgd><<<blocks, kThreads, 0, s>>>(a);
   } else if (opt == kAdagrad) {
-    sparse_push_kernel<C, kAdagrad><<<blocks, kThreads, 0, s>>>(a);
+    sparse_push_kernel<KIND, VAR, C, kAdagrad><<<blocks, kThreads, 0, s>>>(a);
   } else {
-    sparse_push_kernel<C, kAdam><<<blocks, kThreads, 0, s>>>(a);
+    sparse_push_kernel<KIND, VAR, C, kAdam><<<blocks, kThreads, 0, s>>>(a);
+  }
+}
+
+template <int KIND, int VAR>
+void launch_cols(const PushArgs& a, int cols, int opt, int blocks,
+                 cudaStream_t s) {
+  switch (cols) {
+    case 2: launch_opt<KIND, VAR, 2>(a, opt, blocks, s); break;
+    case 3: launch_opt<KIND, VAR, 3>(a, opt, blocks, s); break;
+    case 4: launch_opt<KIND, VAR, 4>(a, opt, blocks, s); break;
+    case 5: launch_opt<KIND, VAR, 5>(a, opt, blocks, s); break;
+    case 6: launch_opt<KIND, VAR, 6>(a, opt, blocks, s); break;
+    case 7: launch_opt<KIND, VAR, 7>(a, opt, blocks, s); break;
+    default: launch_opt<KIND, VAR, 8>(a, opt, blocks, s); break;
+  }
+}
+
+template <int KIND>
+void launch_kind(const PushArgs& a, bool var, int cols, int opt, int blocks,
+                 cudaStream_t s) {
+  if (var) {
+    launch_cols<KIND, 1>(a, cols, opt, blocks, s);
+  } else {
+    launch_cols<KIND, 0>(a, cols, opt, blocks, s);
   }
 }
 
@@ -366,33 +595,49 @@ int pbx_merge_offsets(const void* sorted_inv, void* offsets, int64_t n_keys,
   return static_cast<int>(cudaGetLastError());
 }
 
-// values [cap, dim], state [cap, state_dim], demb [n_keys, dim], order
-// [n_keys] int64, offsets [n_uniq + 1] int32, uniq_rows [n_uniq] int32,
-// uniq_mask [n_uniq], dirty [cap] bytes or null; group_desc is a host
-// array of n_groups x (start, width, gated, soff); group_lanes (G) and cols
-// (C) come from push_geometry. Returns a cudaError_t (0 = launched).
+// values [cap, dim] of the storage kind, state [cap, state_dim] float32,
+// demb [n_keys, grad_dim] float32, order [n_keys] int64, offsets
+// [n_uniq + 1] int32, uniq_rows [n_uniq] int32, uniq_mask [n_uniq], dirty
+// [cap] bytes or null. desc is ops/sparse_push.py::group_desc: kDescHead
+// ints (kind, variable, n_groups, stat_off, size_col, embedx_dim,
+// expand_dim, grad_dim), then (start, width, gated, soff, scol) a group.
+// group_lanes (G) and cols (C) come from push_geometry. Returns a
+// cudaError_t (0 = launched).
 int pbx_sparse_push(void* values, void* state, const void* demb,
                     const void* order, const void* offsets,
                     const void* uniq_rows, const void* uniq_mask,
                     void* dirty, int64_t n_uniq, int dim, int state_dim,
-                    int n_groups, const int* group_desc, int opt,
-                    int group_lanes, int cols, float lr, float g2sum0,
-                    float threshold, void* stream) {
+                    const int* desc, int desc_len, int opt, int group_lanes,
+                    int cols, float lr, float g2sum0, float threshold,
+                    void* stream) {
+  constexpr int kDescHead = 8;
+  constexpr int kDescGroup = 5;
   if (n_uniq <= 0) {
     return 0;
   }
+  if (desc_len < kDescHead) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int kind = desc[0];
+  const int var = desc[1];
+  const int n_groups = desc[2];
+  const int stat_off = desc[3];
   int log2g = 0;
   while ((1 << log2g) < group_lanes && log2g < 5) {
     ++log2g;
   }
-  if (dim < 2 || dim > kMaxDim || state_dim < 1 || n_groups < 0 ||
-      n_groups > kMaxGroups || opt < kSgd || opt > kAdam ||
-      n_uniq > INT32_MAX / 32 || (1 << log2g) != group_lanes || cols < 2 ||
-      cols > kMaxCols || group_lanes * cols < dim) {
+  if (kind < kF32 || kind > kInt8 || (var != 0 && var != 1) ||
+      dim < 2 || dim > kMaxDim || state_dim < 1 || n_groups < 0 ||
+      n_groups > kMaxGroups || desc_len != kDescHead + kDescGroup * n_groups ||
+      opt < kSgd || opt > kAdam || n_uniq > INT32_MAX / 32 ||
+      (1 << log2g) != group_lanes || cols < 2 || cols > kMaxCols ||
+      group_lanes * cols < dim ||
+      stat_off != (kind == kF32 ? 0 : kind == kBf16 ? 2 : 2 + n_groups) ||
+      stat_off > state_dim) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PushArgs a{};
-  a.values = static_cast<float*>(values);
+  a.values = values;
   a.state = static_cast<float*>(state);
   a.demb = static_cast<const float*>(demb);
   a.order = static_cast<const int64_t*>(order);
@@ -402,8 +647,12 @@ int pbx_sparse_push(void* values, void* state, const void* demb,
   a.dirty = static_cast<uint8_t*>(dirty);
   a.n_uniq = static_cast<int>(n_uniq);
   a.dim = dim;
+  a.grad_dim = desc[7];
   a.state_dim = state_dim;
   a.log2g = log2g;
+  a.size_col = desc[4];
+  a.embedx_dim = desc[5];
+  a.expand_dim = desc[6];
   a.lr = lr;
   a.g2sum0 = g2sum0;
   a.threshold = threshold;
@@ -414,31 +663,44 @@ int pbx_sparse_push(void* values, void* state, const void* demb,
     if (gi >= n_groups) {
       continue;
     }
-    a.groups.start[gi] = group_desc[4 * gi];
-    a.groups.width[gi] = group_desc[4 * gi + 1];
-    a.groups.gated[gi] = group_desc[4 * gi + 2];
-    a.groups.soff[gi] = group_desc[4 * gi + 3];
-    if (a.groups.start[gi] != next || a.groups.width[gi] < 1 ||
-        a.groups.soff[gi] < 0 ||
-        (opt != kSgd && a.groups.soff[gi] >= state_dim)) {
+    const int* g = desc + kDescHead + kDescGroup * gi;
+    a.groups.start[gi] = g[0];
+    a.groups.width[gi] = g[1];
+    a.groups.gated[gi] = g[2];
+    a.groups.soff[gi] = g[3];
+    a.groups.scol[gi] = g[4];
+    if (g[0] != next || g[1] < 1 || g[3] < stat_off ||
+        (opt != kSgd && g[3] >= state_dim) ||
+        g[4] != (kind == kInt8 ? 2 + gi : -1)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    next += a.groups.width[gi];
+    next += g[1];
   }
   if (next != dim) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (var) {
+    const int vg = n_groups - 1;
+    if (n_groups < 1 || !a.groups.gated[vg] || a.embedx_dim < 1 ||
+        a.expand_dim < 1 ||
+        a.groups.width[vg] != max(a.embedx_dim, a.expand_dim) ||
+        a.grad_dim != a.groups.start[vg] + a.embedx_dim + a.expand_dim ||
+        a.grad_dim > kMaxDim || a.size_col < stat_off ||
+        a.size_col >= state_dim) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else if (a.grad_dim != dim || a.size_col != -1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int blocks = static_cast<int>(
       (n_uniq * group_lanes + kThreads - 1) / kThreads);
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (cols) {
-    case 2: launch_cols<2>(a, opt, blocks, s); break;
-    case 3: launch_cols<3>(a, opt, blocks, s); break;
-    case 4: launch_cols<4>(a, opt, blocks, s); break;
-    case 5: launch_cols<5>(a, opt, blocks, s); break;
-    case 6: launch_cols<6>(a, opt, blocks, s); break;
-    case 7: launch_cols<7>(a, opt, blocks, s); break;
-    default: launch_cols<8>(a, opt, blocks, s); break;
+  if (kind == kF32) {
+    launch_kind<kF32>(a, var, cols, opt, blocks, s);
+  } else if (kind == kBf16) {
+    launch_kind<kBf16>(a, var, cols, opt, blocks, s);
+  } else {
+    launch_kind<kInt8>(a, var, cols, opt, blocks, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

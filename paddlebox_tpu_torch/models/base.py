@@ -10,6 +10,13 @@ and returns logits [B] (single-task) or [B, T] (multi-task). Unlike flax,
 ``in_dim`` (``S * Dp + Dd``) explicitly, then the reference's fields by
 name (``CONFIG_FIELDS``, the ``kwargs`` of a serving bundle's
 ``model.json``).
+
+``dtype``, as the flax models' field (float32 by default): under
+``torch.bfloat16`` a layer casts its input, kernel and bias to bfloat16 for
+its product and its bias add, as flax's ``nn.Dense(dtype=...)`` does, while
+the parameters stay float32 masters under a float32 optimizer. Like the
+reference's bundles, ``CONFIG_FIELDS`` leave ``dtype`` out: a model trained
+in bfloat16 serves in float32.
 """
 
 from __future__ import annotations
@@ -20,20 +27,33 @@ import torch
 from torch import nn
 
 
+def dense(layer: nn.Linear, x: torch.Tensor,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``layer(x)`` in ``dtype``: flax's ``nn.Dense(dtype=...)``, which
+    casts the input, the kernel and the bias, then multiplies and adds the
+    bias in that dtype (two roundings, as flax rounds twice)."""
+    if dtype == torch.float32:
+        return layer(x)
+    return (x.to(dtype) @ layer.weight.to(dtype).t()) + layer.bias.to(dtype)
+
+
 class MLP(nn.Module):
     """``Linear`` layers with ReLU between them, then a last ``Linear`` of
-    width ``out_dim`` (flax ``MLP`` with its ``Dense_i`` submodules)."""
+    width ``out_dim`` (flax ``MLP`` with its ``Dense_i`` submodules),
+    computing in ``dtype``."""
 
-    def __init__(self, in_dim: int, hidden: Sequence[int], out_dim: int = 1):
+    def __init__(self, in_dim: int, hidden: Sequence[int], out_dim: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         widths = [in_dim, *hidden, out_dim]
+        self.dtype = dtype
         self.layers = nn.ModuleList(
             nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers[:-1]:
-            x = torch.relu(layer(x))
-        return self.layers[-1](x)
+            x = torch.relu(dense(layer, x, self.dtype))
+        return dense(self.layers[-1], x, self.dtype)
 
 
 class StackedMLP(nn.Module):
@@ -44,9 +64,10 @@ class StackedMLP(nn.Module):
     batched matmul a layer."""
 
     def __init__(self, in_dim: int, hidden: Sequence[int], out_dim: int,
-                 num_stacked: int):
+                 num_stacked: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         widths = [in_dim, *hidden, out_dim]
+        self.dtype = dtype
         self.kernels = nn.ParameterList()
         self.biases = nn.ParameterList()
         for a, b in zip(widths[:-1], widths[1:]):
@@ -58,9 +79,11 @@ class StackedMLP(nn.Module):
                 torch.empty(num_stacked, b).uniform_(-bound, bound)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.einsum("bi,eio->beo", x, self.kernels[0]) + self.biases[0]
+        d = self.dtype
+        x = torch.einsum("bi,eio->beo", x.to(d), self.kernels[0].to(d)) + \
+            self.biases[0].to(d)
         for w, b in zip(self.kernels[1:], self.biases[1:]):
-            x = torch.einsum("bei,eio->beo", torch.relu(x), w) + b
+            x = torch.einsum("bei,eio->beo", torch.relu(x), w.to(d)) + b.to(d)
         return x
 
 

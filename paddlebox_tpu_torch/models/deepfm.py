@@ -25,18 +25,20 @@ class DeepFM(CTRModel):
     CONFIG_FIELDS = ("num_tasks", "hidden", "cvm_offset")
 
     def __init__(self, in_dim: int, hidden: Sequence[int] = (512, 256, 128),
-                 cvm_offset: int = 3, num_tasks: int = 1):
+                 cvm_offset: int = 3, num_tasks: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_dim = in_dim
         self.hidden = tuple(hidden)
         self.cvm_offset = cvm_offset
         self.num_tasks = num_tasks
-        self.mlp = MLP(in_dim, self.hidden, 1)
+        self.dtype = dtype
+        self.mlp = MLP(in_dim, self.hidden, 1, dtype)
         self.bias = nn.Parameter(torch.zeros(()))
 
     def forward(self, sparse: torch.Tensor,
                 dense: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = sparse.float()
+        x = sparse.to(self.dtype)
         # first order: sum of per-slot wide weights
         first = torch.sum(x[..., 2:self.cvm_offset], dim=(1, 2))
         # FM second order over the embedx factors
@@ -46,4 +48,5 @@ class DeepFM(CTRModel):
         fm = 0.5 * torch.sum(sum_sq - sq_sum, dim=-1)
         # deep tower over everything
         deep = self.mlp(self.flatten_inputs(x, dense))[:, 0]
-        return first + fm + deep + self.bias
+        # the float32 bias promotes the sum, as jnp's promotion does
+        return (first + fm + deep).float() + self.bias

@@ -16,13 +16,15 @@ class FeedDNN(CTRModel):
 
     def __init__(self, in_dim: int,
                  hidden: Sequence[int] = (511, 255, 255, 127, 127, 127, 127),
-                 num_tasks: int = 1):
+                 num_tasks: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_dim = in_dim
         self.hidden = tuple(hidden)
         self.num_tasks = num_tasks
-        self.mlp = MLP(in_dim, self.hidden, 1)
+        self.dtype = dtype
+        self.mlp = MLP(in_dim, self.hidden, 1, dtype)
 
     def forward(self, sparse: torch.Tensor,
                 dense: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.mlp(self.flatten_inputs(sparse.float(), dense))[:, 0]
+        return self.mlp(self.flatten_inputs(sparse.to(self.dtype),
+                                            dense))[:, 0].float()

@@ -4,7 +4,12 @@ plain version.
 
 Counterpart of ``paddlebox_tpu/ps/device_table.py::ArenaLayout.push`` with
 ``ops/sparse_optim.py::apply_update`` (XLA functions in the reference, not
-TPU kernels), for the float32 arena. Both versions update ``values`` and
+TPU kernels), for every storage type of the arena: float32, bfloat16 and
+int8 values, each with or without the variable-width layout
+(``ps/device_table.py`` ``ArenaLayout`` says what each stores where). The
+kernel has a variant for each (``push_variant`` names it), and each
+variant counts its launches in ``PUSH_VARIANTS[name].launches`` beside the
+total in ``sparse_push_cuda.launches``. Both versions update ``values`` and
 ``state`` in place, where the reference returns new arenas, and return
 them. ``sparse_push`` takes the plain version for tensors on the CPU and the
 hand-written kernel (``csrc/sparse_push.cu``) for tensors on the card; there
@@ -23,8 +28,10 @@ the reference's ``dirty.at[uniq_rows].set(True)`` in its device-prep step
 the launch the push makes anyway; ``mark_dirty_plain`` is its plain
 version.
 
-Inputs: ``values [cap, D]``, ``state [cap, max(state_dim, 1)]``,
-``demb [Npad, D]`` (columns 0, 1 carry the show/clk increments),
+Inputs: ``values [cap, D]`` of the layout's value dtype, ``state [cap,
+max(state_dim, 1)]`` float32, ``demb [Npad, pull_dim]`` float32 (columns
+0, 1 carry the show/clk increments; ``pull_dim`` is wider than ``D`` under
+the variable layout),
 ``inverse [Npad]`` int32 position of each key's unique, ``uniq_rows
 [Upad]`` int32 arena rows, ``uniq_mask [Upad]`` float32 (1.0 = live).
 """
@@ -36,6 +43,7 @@ import functools
 from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from paddlebox_tpu_torch.ops import _build, sparse_optim
 
@@ -55,39 +63,80 @@ def sparse_push_plain(layout: "ArenaLayout", values: torch.Tensor,
                       inverse: torch.Tensor, uniq_rows: torch.Tensor,
                       uniq_mask: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version, line for line the reference's push. The merge
-    is an ``index_add_``: in key order on the CPU, with atomics (in no fixed
-    order) on the card."""
+    """Plain PyTorch version, line for line the reference's push for every
+    layout. The merge is an ``index_add_``: in key order on the CPU, with
+    atomics (in no fixed order) on the card."""
     conf = layout.conf
     upad = uniq_rows.shape[0]
     rows = uniq_rows.long()
     merged = torch.zeros((upad, demb.shape[1]), dtype=torch.float32,
                          device=demb.device)
     merged.index_add_(0, inverse.long(), demb)
-    uraw = values[rows]
+    uraw = values[rows].float()
     ustate = state[rows]
     live = uniq_mask > 0.0
-    new_show = uraw[:, 0] + merged[:, 0] * uniq_mask
-    new_clk = uraw[:, 1] + merged[:, 1] * uniq_mask
-    cols = [new_show[:, None], new_clk[:, None]]
-    scols = []
+    so = layout.stat_off
+    old_stats = ustate[:, :2] if layout.stats_in_state else uraw[:, :2]
+    new_show = old_stats[:, 0] + merged[:, 0] * uniq_mask
+    new_clk = old_stats[:, 1] + merged[:, 1] * uniq_mask
+    stats = [new_show[:, None], new_clk[:, None]]
+    # value columns 0, 1: show/clk, or (low precision) left as loaded
+    cols = [uraw[:, :2]] if layout.stats_in_state else list(stats)
+    scols = list(stats) if layout.stats_in_state else []
+    scale_cols, qcols, new_code = [], [torch.zeros_like(uraw[:, :2])], None
     for gi, (start, width, gated) in enumerate(layout.groups):
         w = uraw[:, start:start + width]
+        if layout.quantized:
+            w = w * ustate[:, 2 + gi:3 + gi]
         mask = live
         if gated:
             mask = mask & (new_show >= conf.embedx_threshold)
-        g = merged[:, start:start + width]
-        st = ustate[:, int(layout.state_offsets[gi]):
-                    int(layout.state_offsets[gi + 1])]
+        if layout.variable and gated:
+            # the union group trains on the grads of the row's size code;
+            # an unclaimed live row is claimed by the first of base and
+            # expand whose merged grads hold a nonzero (base wins a tie)
+            ex, ed = conf.embedx_dim, conf.expand_dim
+            gb = merged[:, start:start + ex]
+            ge = merged[:, start + ex:start + ex + ed]
+            cur = ustate[:, layout.size_col]
+            claim = torch.where((gb != 0.0).any(dim=1), 1.0,
+                                torch.where((ge != 0.0).any(dim=1), 2.0,
+                                            0.0))
+            new_code = torch.where(live & (cur == 0.0), claim, cur)
+            g = torch.where(
+                (new_code == 1.0)[:, None], F.pad(gb, (0, width - ex)),
+                torch.where((new_code == 2.0)[:, None],
+                            F.pad(ge, (0, width - ed)), 0.0))
+            mask = mask & (new_code > 0.0)
+        else:
+            g = merged[:, start:start + width]
+        st = ustate[:, so + int(layout.state_offsets[gi]):
+                    so + int(layout.state_offsets[gi + 1])]
         new_w, new_st = sparse_optim.apply_update(conf, w, g, st, mask)
         cols.append(new_w)
+        if layout.quantized:
+            # every group of a live row, masked ones too, at the scale of
+            # its new max: IEEE divides (a tensor divisor, never a
+            # multiply by a reciprocal), rounded half to even
+            gscale = torch.clamp_min(new_w.abs().amax(dim=1), 1e-12) / \
+                new_w.new_full((), layout.QMAX)
+            scale_cols.append(gscale[:, None])
+            qcols.append(torch.clamp(torch.round(new_w / gscale[:, None]),
+                                     -layout.QMAX, layout.QMAX))
         if new_st.shape[1]:
             scols.append(new_st)
-    new_uvals = torch.cat(cols, dim=1)
+    if layout.quantized:
+        new_uvals = torch.cat(qcols, dim=1)
+        scols = scols[:2] + scale_cols + scols[2:]
+    else:
+        new_uvals = torch.cat(cols, dim=1)
+    if layout.variable:
+        scols.append(new_code[:, None])
     new_ustate = torch.cat(scols, dim=1) if scols else ustate
     # padding entries all point at row 0 and carry its own values, so the
     # duplicate writes there are idempotent
-    values[rows] = torch.where(live[:, None], new_uvals, uraw)
+    values[rows] = torch.where(live[:, None], new_uvals, uraw).to(
+        values.dtype)
     state[rows] = torch.where(live[:, None], new_ustate, ustate)
     return values, state
 
@@ -109,13 +158,47 @@ def push_geometry(dim: int) -> Tuple[int, int]:
     return lanes, -(-dim // lanes)
 
 
+# the kernel's storage kind of each value dtype, and its variant's name
+_KINDS = {torch.float32: (0, "f32"), torch.bfloat16: (1, "bf16"),
+          torch.int8: (2, "int8")}
+
+
 def group_desc(layout: "ArenaLayout") -> ctypes.Array:
-    """The kernel's column-group descriptor, (start, width, gated, state
-    offset) per group, as a C int array (``ArenaLayout`` builds it once)."""
-    desc = []
+    """The kernel's layout descriptor as a C int array (``ArenaLayout``
+    builds it once): the storage kind (0 float32, 1 bfloat16, 2 int8), the
+    variable flag, the group count, ``stat_off``, ``size_col`` (-1 unless
+    variable), ``embedx_dim``, ``expand_dim`` and the grad width; then per
+    group (start, width, gated, first state column of its optimizer state,
+    its int8 scale column or -1)."""
+    conf = layout.conf
+    desc = [_KINDS[layout.value_dtype][0], int(layout.variable),
+            len(layout.groups), layout.stat_off, layout.size_col,
+            conf.embedx_dim, conf.expand_dim, layout.grad_dim]
     for gi, (start, width, gated) in enumerate(layout.groups):
-        desc += [start, width, int(gated), int(layout.state_offsets[gi])]
-    return (ctypes.c_int * max(len(desc), 1))(*desc)
+        desc += [start, width, int(gated),
+                 layout.stat_off + int(layout.state_offsets[gi]),
+                 2 + gi if layout.quantized else -1]
+    return (ctypes.c_int * len(desc))(*desc)
+
+
+def push_variant(layout: "ArenaLayout") -> str:
+    """The kernel variant of a layout: ``f32``, ``bf16``, ``int8``,
+    ``var_f32``, ``var_bf16`` or ``var_int8``."""
+    kind = _KINDS[layout.value_dtype][1]
+    return f"var_{kind}" if layout.variable else kind
+
+
+class LaunchCounter:
+    """The launch count of one push variant (the ``launches`` attribute
+    that the wrappers carry, for a variant of a kernel)."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+PUSH_VARIANTS = {v: LaunchCounter(f"sparse_push_{v}") for v in
+                 ("f32", "bf16", "int8", "var_f32", "var_bf16", "var_int8")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,10 +206,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("sparse_push")
     fn = lib.pbx_sparse_push
     fn.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.pbx_merge_offsets.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                       ctypes.c_int64, ctypes.c_int64,
@@ -201,9 +284,10 @@ def push_rows(layout: "ArenaLayout", values: torch.Tensor,
               offsets: torch.Tensor, uniq_rows: torch.Tensor,
               uniq_mask: torch.Tensor, dirty: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the push kernel on the current stream, given the merge order
-    of ``merge_order``; the other inputs as ``sparse_push_cuda`` checks
-    them. Counts each launch in ``sparse_push_cuda.launches``."""
+    """Launch the push kernel's variant of ``layout`` on the current
+    stream, given the merge order of ``merge_order``; the other inputs as
+    ``sparse_push_cuda`` checks them. Counts each launch in
+    ``sparse_push_cuda.launches`` and in its variant's counter."""
     upad = uniq_rows.shape[0]
     if order.dtype != torch.int64 or order.shape != (demb.shape[0],) or \
             offsets.dtype != torch.int32 or offsets.shape != (upad + 1,):
@@ -222,11 +306,11 @@ def push_rows(layout: "ArenaLayout", values: torch.Tensor,
         values.data_ptr(), state.data_ptr(), demb.data_ptr(),
         order.data_ptr(), offsets.data_ptr(), uniq_rows.data_ptr(),
         uniq_mask.data_ptr(), None if dirty is None else dirty.data_ptr(),
-        upad, dim, state.shape[1], len(layout.groups),
-        layout.push_desc, _OPTIMIZERS[conf.optimizer], lanes, cols,
-        conf.learning_rate, conf.initial_g2sum, conf.embedx_threshold,
-        stream), "sparse_push")
+        upad, dim, state.shape[1], layout.push_desc, len(layout.push_desc),
+        _OPTIMIZERS[conf.optimizer], lanes, cols, conf.learning_rate,
+        conf.initial_g2sum, conf.embedx_threshold, stream), "sparse_push")
     sparse_push_cuda.launches += 1
+    PUSH_VARIANTS[push_variant(layout)].launches += 1
     return values, state
 
 
@@ -256,17 +340,22 @@ def sparse_push_cuda(layout: "ArenaLayout", values: torch.Tensor,
                              "device")
         if not t.is_contiguous():
             raise ValueError(f"sparse_push_cuda: {name} must be contiguous")
-    for name in ("values", "state", "demb", "uniq_mask"):
+    if values.dtype != layout.value_dtype or values.dim() != 2 or \
+            values.shape[1] != layout.dim:
+        raise ValueError(f"sparse_push_cuda: values {values.dtype} "
+                         f"{tuple(values.shape)} do not fit the layout's "
+                         f"{layout.value_dtype} rows of width {layout.dim}")
+    for name in ("state", "demb", "uniq_mask"):
         if tensors[name].dtype != torch.float32:
             raise ValueError(f"sparse_push_cuda: {name} must be float32, "
                              f"got {tensors[name].dtype}")
     for name in ("inverse", "uniq_rows"):
         if tensors[name].dtype != torch.int32 or tensors[name].dim() != 1:
             raise ValueError(f"sparse_push_cuda: {name} must be 1-D int32")
-    dim = values.shape[1]
-    if demb.shape != (inverse.shape[0], dim):
+    if demb.shape != (inverse.shape[0], layout.grad_dim):
         raise ValueError(f"demb {tuple(demb.shape)} does not fit "
-                         f"{inverse.shape[0]} keys of width {dim}")
+                         f"{inverse.shape[0]} keys of width "
+                         f"{layout.grad_dim}")
     if state.dim() != 2 or state.shape[0] != values.shape[0] or \
             state.shape[1] < max(layout.state_dim, 1):
         raise ValueError(f"state {tuple(state.shape)} does not fit values "

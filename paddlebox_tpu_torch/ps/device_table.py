@@ -1,6 +1,7 @@
 """Embedding table resident in device memory (counterpart of
 ``paddlebox_tpu/ps/device_table.py``: ``DeviceBatchIndex``, ``ArenaLayout``
-for the float32 arena, ``DeviceTable``).
+and ``DeviceTable``, with float32, bfloat16 and int8 value arenas and the
+variable-width layout).
 
 The value and state arenas live on the table's device; the host keeps only
 the key -> row index. Row 0 is the null row: key 0 and unknown keys map
@@ -38,7 +39,9 @@ new arenas). Random init comes from a ``torch.Generator`` seeded from
 carries a reference table's arena across for parity runs.
 
 Snapshots use the canonical ``table.npz`` layout (``keys``, ``values``,
-``state``), which loads in either package.
+``state``: float32, show/clk in value columns 0, 1, int8 groups
+dequantized, the state without the low-precision arenas' stat prefix),
+which loads in either package and into a table of any value dtype.
 
 Delta tracking, as the reference's: a row is dirty once a step or a load
 touched it since the last save. The host marks ``_dirty`` [capacity] in
@@ -95,41 +98,92 @@ class DeviceBatchIndex:
 
 
 class ArenaLayout:
-    """Value/state column layout and the pull/push math of the float32
-    arena. Column groups ``(start, width, gated)``: embed_w (columns
-    ``2:cvm_offset``), embedx and expand; each group's optimizer state sits
-    at ``state_offsets[gi]``."""
+    """Value/state column layout and the pull/push math of the arena, for
+    ``value_dtype`` float32, bfloat16 or int8 (the reference's
+    ``ArenaLayout(conf, value_dtype)``). Column groups ``(start, width,
+    gated)``: embed_w (columns ``2:cvm_offset``), embedx and expand (or,
+    under ``variable_embedding``, one union group of ``var_width``); each
+    group's optimizer state sits at ``stat_off + state_offsets[gi]``.
 
-    def __init__(self, conf: TableConfig):
+    - float32: show/clk are value columns 0, 1; the state is the
+      optimizer's alone (``stat_off`` 0).
+    - bfloat16: show/clk live in float32 state columns 0, 1 (``stat_off``
+      2), so counts stay exact; value columns 0, 1 are left as they are.
+    - int8: as bfloat16, plus one float32 scale a group in state columns
+      ``2 .. 2 + len(groups)`` (``stat_off``); a value is ``q * scale``,
+      ``q`` in ``[-QMAX, QMAX]``, requantized to its group's max on every
+      push of a live row. Value columns 0, 1 hold 0.
+    - ``variable_embedding``: each row's embedx has either ``embedx_dim``
+      (code 1) or ``expand_dim`` (code 2) columns, claimed by the first
+      group whose merged grad is nonzero and kept in the trailing state
+      column ``size_col`` (0 = unclaimed). The arena stores one union
+      group, so ``dim`` (``2 + w + var_width``) is narrower than the pull
+      and the grads (``grad_dim`` = ``pull_dim``); the pull routes it to
+      the matching output group and zeros the other."""
+
+    QMAX = 127.0
+    VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+
+    def __init__(self, conf: TableConfig,
+                 value_dtype: torch.dtype = torch.float32):
         if conf.cvm_offset < 2:
             raise ValueError("cvm_offset must be >= 2 (show, clk)")
-        if conf.variable_embedding:
-            raise NotImplementedError(
-                "variable_embedding arenas are not ported yet (ROADMAP A.2, "
-                "bf16/int8/variable arenas)")
+        if value_dtype not in self.VALUE_DTYPES:
+            raise ValueError(f"value_dtype {value_dtype}: the arena takes "
+                             "torch.float32, torch.bfloat16 or torch.int8")
         self.conf = conf
         self.dim = conf.pull_dim
+        self.grad_dim = conf.pull_dim
+        self.value_dtype = value_dtype
+        self.stats_in_state = value_dtype != torch.float32
+        self.quantized = value_dtype == torch.int8
+        self.variable = bool(conf.variable_embedding)
+        if self.variable and not (conf.embedx_dim and conf.expand_dim):
+            raise ValueError(
+                "variable_embedding needs embedx_dim and expand_dim > 0")
         self.groups = []
         col = 2
         if conf.cvm_offset - 2:
             self.groups.append((col, conf.cvm_offset - 2, False))
             col += conf.cvm_offset - 2
-        if conf.embedx_dim:
-            self.groups.append((col, conf.embedx_dim, True))
-            col += conf.embedx_dim
-        if conf.expand_dim:
-            self.groups.append((col, conf.expand_dim, True))
+        self.var_width = 0
+        if self.variable:
+            self.var_width = max(conf.embedx_dim, conf.expand_dim)
+            self.groups.append((col, self.var_width, True))
+            col += self.var_width
+            self.dim = col
+        else:
+            if conf.embedx_dim:
+                self.groups.append((col, conf.embedx_dim, True))
+                col += conf.embedx_dim
+            if conf.expand_dim:
+                self.groups.append((col, conf.expand_dim, True))
         self.state_widths = [sparse_optim.state_width(conf, g[1])
                              for g in self.groups]
         self.state_offsets = np.cumsum([0] + self.state_widths)
-        self.state_dim = int(self.state_offsets[-1])
+        self.stat_off = (2 + len(self.groups) if self.quantized
+                         else 2 if self.stats_in_state else 0)
+        self.state_dim = int(self.state_offsets[-1]) + self.stat_off
+        self.size_col = -1
+        if self.variable:
+            self.size_col = self.state_dim
+            self.state_dim += 1
+        # the snapshot's state width: the state without its stat prefix
+        self.canonical_state_dim = (self.state_dim - self.stat_off
+                                    if self.stats_in_state
+                                    else max(self.state_dim, 1))
         self.push_desc = group_desc(self)
+
+    def row_bytes(self) -> Tuple[int, int]:
+        """Bytes of one row's values and of its state."""
+        return (self.dim * torch.empty((), dtype=self.value_dtype)
+                .element_size(), 4 * max(self.state_dim, 1))
 
     def alloc(self, cap: int, generator: torch.Generator,
               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
         """Fresh arenas on ``device``: trainable columns uniform in
         ±initial_range, show/clk 0, row 0 all 0."""
-        vals = torch.zeros((cap, self.dim), dtype=torch.float32,
+        vals = torch.zeros((cap, self.dim), dtype=self.value_dtype,
                            device=device)
         state = torch.zeros((cap, max(self.state_dim, 1)),
                             dtype=torch.float32, device=device)
@@ -138,28 +192,62 @@ class ArenaLayout:
 
     def fill_(self, vals: torch.Tensor, state: torch.Tensor,
               generator: torch.Generator) -> None:
-        """``alloc``'s contents written into existing arenas, in place."""
+        """``alloc``'s contents written into existing arenas, in place. An
+        int8 arena quantizes the uniform init at the shared scale
+        ``max(initial_range, 1e-6) / QMAX`` and writes that scale into
+        every group's scale column."""
         r = float(self.conf.initial_range)
+        init = vals if vals.dtype == torch.float32 else torch.empty(
+            vals.shape, dtype=torch.float32, device=vals.device)
         if r > 0.0:
-            vals.uniform_(-r, r, generator=generator)
+            init.uniform_(-r, r, generator=generator)
         else:
-            vals.zero_()
-        vals[:, :2] = 0.0
-        vals[:1] = 0.0
+            init.zero_()
+        init[:, :2] = 0.0
+        init[:1] = 0.0
         state.zero_()
+        if self.quantized:
+            scale = max(r, 1e-6) / self.QMAX
+            state[:, 2:self.stat_off] = scale
+            init = torch.clamp(torch.round(init / init.new_full((), scale)),
+                               -self.QMAX, self.QMAX)
+        if init is not vals:
+            vals.copy_(init)
 
-    def pull(self, values: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-        """``values[rows]`` with embedx gating: a gated group pulls zeros
-        while the row's show is below ``embedx_threshold`` ([Npad, D])."""
-        emb = values[rows.long()]
-        show = emb[:, 0:1]
-        out = [emb[:, :2]]
-        for start, width, gated in self.groups:
+    def pull(self, values: torch.Tensor, rows: torch.Tensor,
+             state: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``values[rows]`` as float32 with embedx gating: a gated group
+        pulls zeros while the row's show is below ``embedx_threshold``
+        ([Npad, pull_dim]). A low-precision arena needs ``state``: show/clk
+        come from its float32 columns, an int8 group is dequantized by its
+        scale, and a variable row's union group goes to the output group
+        its size code names (the other, and an unclaimed row's, pull
+        zeros)."""
+        rows = rows.long()
+        emb = values[rows].float()
+        if self.stats_in_state or self.variable:
+            if state is None:
+                raise ValueError("a low-precision or variable arena needs "
+                                 "state for pull")
+            srows = state[rows]
+        stats = srows[:, :2] if self.stats_in_state else emb[:, :2]
+        show = stats[:, 0:1]
+        zero = emb.new_zeros(())
+        out = [stats]
+        for gi, (start, width, gated) in enumerate(self.groups):
             g = emb[:, start:start + width]
+            if self.quantized:
+                g = g * srows[:, 2 + gi:3 + gi]
             if gated:
-                g = torch.where(show >= self.conf.embedx_threshold, g,
-                                g.new_zeros(()))
-            out.append(g)
+                g = torch.where(show >= self.conf.embedx_threshold, g, zero)
+            if self.variable and gated:
+                code = srows[:, self.size_col:self.size_col + 1]
+                out.append(torch.where(code == 1.0,
+                                       g[:, :self.conf.embedx_dim], zero))
+                out.append(torch.where(code == 2.0,
+                                       g[:, :self.conf.expand_dim], zero))
+            else:
+                out.append(g)
         return torch.cat(out, dim=1)
 
     def push(self, values: torch.Tensor, state: torch.Tensor,
@@ -176,6 +264,46 @@ class ArenaLayout:
         marked."""
         return sparse_push(self, values, state, demb, inverse, uniq_rows,
                            uniq_mask, merge, dirty)
+
+    # -- the canonical snapshot layout (saves interoperate across dtypes) --
+
+    def canonical_from_arena(self, vals: np.ndarray, st: np.ndarray
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+        """Arena rows (values as float32) and their state -> the canonical
+        float32 snapshot layout: show/clk in value columns 0, 1, int8
+        groups dequantized, the state without its stat/scale prefix."""
+        vals = np.asarray(vals, dtype=np.float32).copy()
+        st = np.asarray(st, dtype=np.float32)
+        if self.quantized:
+            for gi, (start, width, _) in enumerate(self.groups):
+                vals[:, start:start + width] *= st[:, 2 + gi:3 + gi]
+        if self.stats_in_state:
+            vals[:, :2] = st[:, :2]
+            st = st[:, self.stat_off:]
+        return vals, st
+
+    def arena_from_canonical(self, vals: np.ndarray, st: np.ndarray
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+        """Inverse of ``canonical_from_arena``: (arena values as float32,
+        the full state). An int8 arena's values come back as the quantized
+        integers (each group at the scale of its max), which the caller
+        casts."""
+        vals = np.asarray(vals, dtype=np.float32)
+        st = np.asarray(st, dtype=np.float32)
+        if not self.stats_in_state:
+            return vals, st
+        pre = [vals[:, :2]]
+        body = vals.copy()
+        body[:, :2] = 0.0
+        if self.quantized:
+            for start, width, _ in self.groups:
+                g = body[:, start:start + width]
+                s = (np.maximum(np.abs(g).max(axis=1), np.float32(1e-12))
+                     / np.float32(self.QMAX))
+                pre.append(s[:, None].astype(np.float32))
+                body[:, start:start + width] = np.clip(
+                    np.round(g / s[:, None]), -self.QMAX, self.QMAX)
+        return body, np.concatenate(pre + [st], axis=1)
 
 
 def resolve_backend(backend: Optional[str]) -> str:
@@ -259,11 +387,8 @@ class DeviceTable:
                  device: DeviceLike = None,
                  value_dtype: torch.dtype = torch.float32,
                  backend: Optional[str] = None, index_threads: int = 0):
-        if value_dtype != torch.float32:
-            raise NotImplementedError(
-                f"value_dtype {value_dtype}: only float32 arenas are ported "
-                "yet (ROADMAP A.2, bf16/int8/variable arenas)")
-        self.layout = ArenaLayout(conf)
+        self.layout = ArenaLayout(conf, value_dtype)
+        self.value_dtype = value_dtype
         self.conf = conf
         self.dim = self.layout.dim
         self.state_dim = self.layout.state_dim
@@ -430,10 +555,10 @@ class DeviceTable:
 
     # -- device-side ops -----------------------------------------------------
 
-    def device_pull(self, values: torch.Tensor,
-                    rows: torch.Tensor) -> torch.Tensor:
+    def device_pull(self, values: torch.Tensor, rows: torch.Tensor,
+                    state: Optional[torch.Tensor] = None) -> torch.Tensor:
         """See ``ArenaLayout.pull``."""
-        return self.layout.pull(values, rows)
+        return self.layout.pull(values, rows, state)
 
     def device_push(self, values: torch.Tensor, state: torch.Tensor,
                     demb: torch.Tensor, inverse: torch.Tensor,
@@ -469,10 +594,12 @@ class DeviceTable:
         return self._size - 1
 
     def end_pass(self) -> None:
-        """Decay show/clk by ``show_clk_decay``."""
+        """Decay show/clk by ``show_clk_decay`` where they live: the value
+        columns of a float32 arena, the state's of a low-precision one."""
         d = self.conf.show_clk_decay
         if d < 1.0:
-            self.values[:, :2] *= d
+            arena = self.state if self.layout.stats_in_state else self.values
+            arena[:, :2] *= d
 
     def memory_bytes(self) -> int:
         return int(self.values.nbytes + self.state.nbytes)
@@ -485,10 +612,12 @@ class DeviceTable:
 
     def load_arena(self, values: np.ndarray, state: np.ndarray,
                    row_keys: np.ndarray) -> None:
-        """Take over another table's arena and index: ``values`` [cap, D],
-        ``state`` [cap, max(state_dim, 1)] and ``row_keys`` [size], the key
-        of each used row (``row_keys[0]``, the null row, is ignored). The
-        reference's ``DeviceTable`` gives them as ``values``, ``state`` and
+        """Take over another table's arena and index: ``values`` [cap, D]
+        of the table's value dtype (a bfloat16 or int8 arena goes through
+        float32, which holds either exactly), ``state`` [cap, max(state_dim,
+        1)] and ``row_keys`` [size], the key of each used row
+        (``row_keys[0]``, the null row, is ignored). The reference's
+        ``DeviceTable`` gives them as ``values``, ``state`` and
         ``_index.dump_keys(_size)``; this starts both packages from the
         same rows."""
         values = np.asarray(values, dtype=np.float32)
@@ -504,7 +633,8 @@ class DeviceTable:
             raise ValueError(f"{row_keys.size} used rows for capacity {cap}")
         self._rebuild(row_keys[1:])
         self.capacity = cap
-        self.values = torch.from_numpy(values.copy()).to(self.device)
+        self.values = torch.from_numpy(values.copy()).to(self.device).to(
+            self.value_dtype)
         self.state = torch.from_numpy(state.copy()).to(self.device)
         self._dirty = np.zeros(cap, dtype=bool)
         if self.dirty_dev is not None:
@@ -516,24 +646,30 @@ class DeviceTable:
     def _canonical(self, rows: torch.Tensor
                    ) -> Tuple[np.ndarray, np.ndarray]:
         """Host copies of the arena rows ``rows`` (int64 on the table's
-        device) in the snapshot layout, which the float32 arena already
-        is: values [n, D], state [n, max(state_dim, 1)]."""
-        return (self.values.index_select(0, rows).cpu().numpy(),
-                self.state.index_select(0, rows).cpu().numpy())
+        device) in the canonical snapshot layout (``ArenaLayout.
+        canonical_from_arena``; a float32 arena already is it): values
+        [n, D], state [n, canonical_state_dim]. Copies on the CPU too, so
+        later steps do not change them."""
+        vals = self.values.index_select(0, rows).float().cpu().numpy()
+        st = self.state.index_select(0, rows).cpu().numpy()
+        if self.layout.stats_in_state:
+            return self.layout.canonical_from_arena(vals, st)
+        return vals, st
 
     def _ingest(self, rows: torch.Tensor, vals: np.ndarray,
                 st: np.ndarray) -> None:
-        """Write snapshot-layout rows into the arenas at ``rows`` (int64 on
+        """Write canonical-layout rows into the arenas at ``rows`` (int64 on
         the table's device), in place. A state of the host table's width
         (0 columns under sgd) fills the arena's state columns it has."""
         dev = self.device
+        vals, st = self.layout.arena_from_canonical(vals, st)
         self.values.index_copy_(
             0, rows, torch.from_numpy(np.ascontiguousarray(
-                vals, dtype=np.float32)).to(dev))
+                vals, dtype=np.float32)).to(dev).to(self.value_dtype))
         if self.state_dim:
             self.state.index_copy_(
                 0, rows, torch.from_numpy(np.ascontiguousarray(
-                    st, dtype=np.float32)).to(dev))
+                    st[:, :self.state.shape[1]], dtype=np.float32)).to(dev))
 
     def to_host_table(self):
         """The table as a host ``EmbeddingTable`` (``ps/table.py``) of the
@@ -559,10 +695,10 @@ class DeviceTable:
         """Host copy of every used row in the canonical layout (a copy on
         the CPU too, so later steps do not change it); clears the dirty
         marks. The copy half of an asynchronous save."""
-        n = self._size
-        snap = {"keys": self.row_keys()[1:],
-                "values": self.values[1:n].to("cpu", copy=True).numpy(),
-                "state": self.state[1:n].to("cpu", copy=True).numpy()}
+        vals, st = self._canonical(
+            torch.arange(1, self._size, dtype=torch.int64,
+                         device=self.device))
+        snap = {"keys": self.row_keys()[1:], "values": vals, "state": st}
         self._clear_dirty()
         return snap
 
@@ -570,10 +706,8 @@ class DeviceTable:
         """Host copy of the rows touched since the last save (only they
         cross to the host); clears the dirty marks."""
         rows = self.fetch_dirty_rows()
-        idx = torch.from_numpy(rows).to(self.device)
-        snap = {"keys": self.row_keys()[rows],
-                "values": self.values[idx].cpu().numpy(),
-                "state": self.state[idx].cpu().numpy()}
+        vals, st = self._canonical(torch.from_numpy(rows).to(self.device))
+        snap = {"keys": self.row_keys()[rows], "values": vals, "state": st}
         self._clear_dirty()
         return snap
 
@@ -596,12 +730,16 @@ class DeviceTable:
             keys = np.ascontiguousarray(data["keys"], dtype=np.uint64)
             vals = np.asarray(data["values"], dtype=np.float32)
             st = np.asarray(data["state"], dtype=np.float32)
-        if vals.shape != (keys.size, self.dim) or \
-                st.shape != (keys.size, max(self.state_dim, 1)):
+        # a canonical state of no columns (a low-precision arena under sgd)
+        # is saved as 0 or 1 columns
+        sw = self.layout.canonical_state_dim
+        if vals.shape != (keys.size, self.dim) or st.ndim != 2 or \
+                st.shape[0] != keys.size or st.shape[1] not in (sw,
+                                                                max(sw, 1)):
             raise ValueError(
                 f"snapshot of {keys.size} keys has values {vals.shape} and "
-                f"state {st.shape}; expected D={self.dim}, "
-                f"state_dim={self.state_dim}")
+                f"state {st.shape}; expected D={self.dim} and {sw} state "
+                "columns")
         return keys, vals, st
 
     def load_delta(self, path: str) -> None:
@@ -613,9 +751,7 @@ class DeviceTable:
             return
         rows = torch.from_numpy(
             self.prepare_batch(keys, create=True).rows.astype(np.int64))
-        rows = rows.to(self.device)
-        self.values[rows] = torch.from_numpy(vals).to(self.device)
-        self.state[rows] = torch.from_numpy(st).to(self.device)
+        self._ingest(rows.to(self.device), vals, st)
 
     def load(self, path: str) -> None:
         """Replace the table with a snapshot; clears the dirty marks."""
@@ -628,6 +764,6 @@ class DeviceTable:
             self.values.zero_()
             self.state.zero_()
         self._rebuild(keys)
-        self.values[1:n] = torch.from_numpy(vals).to(self.device)
-        self.state[1:n] = torch.from_numpy(st).to(self.device)
+        self._ingest(torch.arange(1, n, dtype=torch.int64,
+                                  device=self.device), vals, st)
         self._clear_dirty()

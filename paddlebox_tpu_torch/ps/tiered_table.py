@@ -38,9 +38,9 @@ Saves flush a pass's trained rows into the backing first, then save the
 backing, the durable tier. Not ported, and refused with
 ``NotImplementedError``: the disk tier (``disk=``, with its bloom filter)
 and frequency admission (``admit=``, ``PBOX_FLAGS_ps_admit_shows`` > 0),
-the deferred demote (``PBOX_FLAGS_ps_tier_demote``) and other staging
-buckets than the default (ROADMAP A.7b); the mesh-sharded tiered table
-(A.9).
+the deferred demote (``PBOX_FLAGS_ps_tier_demote``), other staging
+buckets than the default, and bfloat16, int8 or variable arenas (ROADMAP
+A.7b); the mesh-sharded tiered table (A.9).
 """
 
 from __future__ import annotations
@@ -148,6 +148,12 @@ class TieredDeviceTable(DeviceTable):
                 f"stage_buckets={stage_buckets}: only the default staging "
                 "buckets are ported (ROADMAP A.7b)")
         refuse_flags(_REFUSED_FLAGS)
+        if value_dtype != torch.float32 or conf.variable_embedding:
+            raise NotImplementedError(
+                f"value_dtype {value_dtype}, variable_embedding "
+                f"{conf.variable_embedding}: low-precision and variable "
+                "arenas under TieredDeviceTable are not ported yet (ROADMAP "
+                "A.7b); the tiered table stages float32 arenas")
         if backing is not None and not isinstance(backing, EmbeddingTable):
             raise NotImplementedError(
                 f"backing {type(backing).__name__}: only the host "

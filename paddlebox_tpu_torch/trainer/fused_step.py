@@ -58,10 +58,23 @@ The chunked and streamed entries run several batches an upload:
 
 ``params`` is the ``nn.Module`` that holds the dense weights; the dense
 optimizer updates it in place, and ``opt_state`` is the optimizer's state
-(``trainer.train_step.DenseOptimizer``). Not ported yet: the "deferred"
-insert mode with its device miss ring (ROADMAP A.3b), the staged device
-feed of ``train_stream`` (``feed=``, A.4), bf16 dense compute and
-recompute.
+(``trainer.train_step.DenseOptimizer``). ``TrainerConfig.bf16`` casts the
+pooled sparse features and the dense inputs to bfloat16 before the model
+and its logits back to float32, as the reference's ``compute_dtype`` does;
+a model built with ``dtype=torch.bfloat16`` then computes in bfloat16 over
+its float32 master weights (``models/base.py``). The table may hold
+float32, bfloat16 or int8 values, in the variable layout or not
+(``ps/device_table.py``): the pull takes the state beside the values.
+
+The numeric-sentinel hook: ``set_sentinel(cb)`` installs ``cb(k, bad,
+loss)``, called once a dispatch (a step, a chunk, an eager run of
+``DEV_CHUNK`` steps or a run graph's replay) with that dispatch's step
+count and its sentinels and losses as device tensors, read by nobody on
+the way: the callback must not synchronize.
+
+Not ported yet: the "deferred" insert mode with its device miss ring
+(ROADMAP A.3b), the staged device feed of ``train_stream`` (``feed=``,
+A.4) and recompute.
 """
 
 from __future__ import annotations
@@ -80,7 +93,8 @@ from paddlebox_tpu_torch.metrics.auc import auc_update, new_auc_state
 from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.trainer.step_graph import RunGraphs
-from paddlebox_tpu_torch.trainer.train_step import (full_float32_matmuls,
+from paddlebox_tpu_torch.trainer.train_step import (compute_dtype,
+                                                    full_float32_matmuls,
                                                     make_dense_optimizer,
                                                     masked_bce_loss,
                                                     refuse_unported)
@@ -158,8 +172,11 @@ class FusedTrainStep:
         # (show, clk by default), not the table's cvm_offset
         self.cvm_dim = self.seqpool_kwargs.get("cvm_offset", 2)
         self.optimizer = make_dense_optimizer(trainer_conf)
-        # the last step's numeric sentinel (a device bool)
+        self.compute_dtype = compute_dtype(trainer_conf)
+        # the last step's numeric sentinel (a device bool), and the hook
+        # each dispatch hands its sentinels to
         self.bad_flag: Optional[torch.Tensor] = None
+        self._sentinel_cb = None
         self.device_prep = device_prep
         self.insert_mode = insert_mode
         if device_prep:
@@ -178,6 +195,23 @@ class FusedTrainStep:
 
     def init_auc_state(self) -> Dict[str, torch.Tensor]:
         return new_auc_state(self.num_auc_buckets, self.device)
+
+    def set_sentinel(self, cb) -> None:
+        """Install (or clear, ``cb=None``) the numeric-sentinel hook:
+        ``cb(k_steps, bad, loss)`` after every dispatch, ``bad`` and
+        ``loss`` device tensors (a scalar each for one step, [k] for a
+        chunk or a run). The hook must not synchronize."""
+        self._sentinel_cb = cb
+
+    def _emit_sentinel(self, k: int, bad, loss) -> None:
+        """The hook's call for a dispatch of ``k`` steps: ``bad`` and
+        ``loss`` tensors, or lists of the steps' scalars (stacked only
+        when a hook is installed)."""
+        cb = self._sentinel_cb
+        if cb is not None:
+            if isinstance(bad, list):
+                bad, loss = torch.stack(bad), torch.stack(loss)
+            cb(k, bad, loss)
 
     # -- internals -----------------------------------------------------------
 
@@ -250,11 +284,12 @@ class FusedTrainStep:
 
     def _forward(self, params: nn.Module, emb: torch.Tensor,
                  segment_ids: torch.Tensor, cvm_in: torch.Tensor,
-                 dense: torch.Tensor) -> torch.Tensor:
+                 dense: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
         sparse = fused_seqpool_cvm(
             emb, segment_ids, cvm_in, self.batch_size, self.num_slots,
             self.use_cvm, **self.seqpool_kwargs)
-        return params(sparse, dense).float()
+        return params(sparse.to(dtype), dense.to(dtype)).float()
 
     # -- public --------------------------------------------------------------
 
@@ -272,9 +307,11 @@ class FusedTrainStep:
             uniq_mask = (uniq_rows > 0).float()
             rows = uniq_rows[inverse.long()]
             # grads are taken against the pulled rows, not through the pull
-            emb = t.device_pull(t.values, rows).requires_grad_(True)
+            emb = t.device_pull(t.values, rows,
+                                t.state).requires_grad_(True)
             params.zero_grad(set_to_none=True)
-            logits = self._forward(params, emb, segs, cvm, dense)
+            logits = self._forward(params, emb, segs, cvm, dense,
+                                   self.compute_dtype)
             loss, preds = masked_bce_loss(logits, labels, mask)
         with record_function("train_step.backward"):
             loss.backward()
@@ -312,8 +349,10 @@ class FusedTrainStep:
              mask) = self._upload(
                 [np.asarray(segment_ids, np.int32), idx.inverse,
                  idx.uniq_rows], cvm_in, labels, dense, row_mask)
-        return self._step(params, opt_state, auc_state, segs, inverse,
-                          uniq_rows, cvm, labels_d, dense_d, mask)
+        out = self._step(params, opt_state, auc_state, segs, inverse,
+                         uniq_rows, cvm, labels_d, dense_d, mask)
+        self._emit_sentinel(1, self.bad_flag, out[3])
+        return out
 
     def _need_device_prep(self) -> None:
         if not self.device_prep:
@@ -334,8 +373,10 @@ class FusedTrainStep:
             (keys_d, segs), cvm, labels_d, dense_d, mask = self._upload(
                 [_keys_i64(keys), np.asarray(segment_ids, np.int32)],
                 cvm_in, labels, dense, row_mask)
-        return self.step_device_tensors(params, opt_state, auc_state, keys_d,
-                                        segs, cvm, labels_d, dense_d, mask)
+        out = self.step_device_tensors(params, opt_state, auc_state, keys_d,
+                                       segs, cvm, labels_d, dense_d, mask)
+        self._emit_sentinel(1, self.bad_flag, out[3])
+        return out
 
     def step_device_tensors(self, params: nn.Module,
                             opt_state: Dict[str, Any],
@@ -385,13 +426,15 @@ class FusedTrainStep:
             segs, inverse, uniq_rows, pf = self._to_device([
                 [np.asarray(x, np.int32) for x in segment_ids_list],
                 [i.inverse for i in idxs], uniq, [f for f, _ in floats]])
-        losses, preds = [], []
+        losses, preds, bads = [], [], []
         for j in range(len(idxs)):
             params, opt_state, auc_state, loss, p = self._step(
                 params, opt_state, auc_state, segs[j], inverse[j],
                 uniq_rows[j], *self._split_floats(pf[j], floats[0][1]))
             losses.append(loss)
             preds.append(p)
+            bads.append(self.bad_flag)
+        self._emit_sentinel(len(idxs), bads, losses)
         return (params, opt_state, auc_state, torch.stack(losses),
                 torch.stack(preds))
 
@@ -447,6 +490,7 @@ class FusedTrainStep:
                     params, opt_state, auc_state, loss, _ = self._step(
                         params, opt_state, auc_state, segs, inverse,
                         uniq_rows, cvm, labels, dense, mask)
+                self._emit_sentinel(1, self.bad_flag, loss)
                 steps += 1
                 if on_step is not None:
                     on_step(steps, loss)
@@ -490,8 +534,10 @@ class FusedTrainStep:
             shape = (layout, floats[0][1])
             if graphs is not None and shape in graphs.warm:
                 with record_function("train_step.replay"):
-                    losses, self.bad_flag = graphs.replay(
+                    losses, bads = graphs.replay(
                         params, opt_state, auc_state, host, shape)
+                self.bad_flag = bads[-1]
+                self._emit_sentinel(K, bads, losses)
                 for j in range(K):
                     steps += 1
                     if on_step is not None:
@@ -501,14 +547,18 @@ class FusedTrainStep:
             with record_function("train_step.upload"):
                 keys, segs, pf = self._views(
                     torch.from_numpy(host).to(self.device), layout)
+            losses, bads = [], []
             for j in range(K):
                 params, opt_state, auc_state, loss, _ = \
                     self.step_device_tensors(
                         params, opt_state, auc_state, keys[j], segs[j],
                         *self._split_floats(pf[j], shape[1]))
+                losses.append(loss)
+                bads.append(self.bad_flag)
                 steps += 1
                 if on_step is not None:
                     on_step(steps, loss)
+            self._emit_sentinel(K, bads, losses)
             if graphs is not None:
                 graphs.warm.add(shape)
         return params, opt_state, auc_state, loss, steps
@@ -516,11 +566,14 @@ class FusedTrainStep:
     @torch.inference_mode()
     def predict(self, params: nn.Module, keys: np.ndarray, segment_ids,
                 cvm_in, dense) -> torch.Tensor:
-        """Scores of one batch against the table; creates no rows."""
+        """Scores of one batch against the table; creates no rows. The
+        model takes the float32 features, as the reference's ``predict``
+        gives them (a model of ``dtype`` bfloat16 casts them itself)."""
         t = self.table
         idx = t.prepare_batch(keys, create=False)
         dev = self.device
-        emb = t.device_pull(t.values, torch.from_numpy(idx.rows).to(dev))
+        emb = t.device_pull(t.values, torch.from_numpy(idx.rows).to(dev),
+                            t.state)
         logits = self._forward(
             params, emb,
             torch.from_numpy(np.asarray(segment_ids, np.int32)).to(dev),

@@ -53,7 +53,7 @@ from paddlebox_tpu_torch.ops.device_index_kernel import (
     device_probe_cuda)
 from paddlebox_tpu_torch.ops.seqpool_kernel import (seqpool_cvm_cuda,
                                                     seqpool_cvm_grad_cuda)
-from paddlebox_tpu_torch.ops.sparse_push import (merge_offsets,
+from paddlebox_tpu_torch.ops.sparse_push import (PUSH_VARIANTS, merge_offsets,
                                                  sparse_push_cuda)
 
 # every wrapper that counts its launches
@@ -61,13 +61,15 @@ COUNTED_WRAPPERS = (seqpool_cvm_cuda, seqpool_cvm_grad_cuda,
                     sparse_push_cuda, merge_offsets, dedup_sort_cuda,
                     device_dedup_cuda, device_dedup_probe_cuda,
                     device_probe_cuda)
+# and beside them the push's counts by variant
+COUNTERS = COUNTED_WRAPPERS + tuple(PUSH_VARIANTS.values())
 
 
 class LaunchDelta:
     """What one capture added to each wrapper's ``launches``: taken back
     when the capture ends, added again by ``replayed``."""
 
-    def __init__(self, wrappers: Iterable = COUNTED_WRAPPERS):
+    def __init__(self, wrappers: Iterable = COUNTERS):
         self.wrappers = tuple(wrappers)
         self.delta = (0,) * len(self.wrappers)
 
@@ -161,13 +163,13 @@ class RunGraph:
     def replay(self, host: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         """The run over ``host``, a packed upload of the graph's layout:
         one stream-ordered copy into the static buffer, one replay.
-        Returns the K losses and the last step's numeric sentinel, cloned
-        out of the static outputs."""
+        Returns the K losses and the K numeric sentinels, cloned out of the
+        static outputs."""
         self.buf.copy_(torch.from_numpy(host))
         self._launch()
         self.launches.replayed()
         losses, bads = self.out
-        return losses.clone(), bads[-1].clone()
+        return losses.clone(), bads.clone()
 
     def reset(self) -> None:
         graph = getattr(self, "graph", None)

@@ -112,15 +112,20 @@ class DenseOptimizer:
 
 
 def refuse_unported(conf: TrainerConfig) -> None:
-    """Raise for the step options not ported yet: bf16 dense compute and
-    recompute (the dense optimizers are ``make_dense_optimizer``'s)."""
-    if conf.bf16:
-        raise NotImplementedError(
-            "bf16 dense compute is not ported yet (ROADMAP A.2)")
+    """Raise for the step option not ported yet, recompute (the dense
+    optimizers are ``make_dense_optimizer``'s)."""
     if conf.recompute:
         raise NotImplementedError(
             "recompute is not ported yet (ROADMAP A.2: lars, lamb, "
             "MultiSteps, recompute)")
+
+
+def compute_dtype(conf: TrainerConfig) -> torch.dtype:
+    """The dtype the model's inputs are cast to: bfloat16 under
+    ``bf16``, as the reference's ``FusedTrainStep.compute_dtype``. With a
+    float32 model that only rounds its inputs to bfloat16 (the model casts
+    them back); a model of ``dtype`` bfloat16 computes in it."""
+    return torch.bfloat16 if conf.bf16 else torch.float32
 
 
 def make_dense_optimizer(conf: TrainerConfig) -> DenseOptimizer:
@@ -167,7 +172,10 @@ class TrainStep:
     runs on ``device`` (None = the card) and hands back the embedding
     grads for the caller's push. ``params`` is the ``nn.Module`` holding
     the dense weights (``init`` moves ``model`` to the device); the dense
-    optimizer updates it in place."""
+    optimizer updates it in place. Under ``TrainerConfig.bf16`` the model's
+    inputs are cast as the fused step casts them (``compute_dtype``); the
+    reference's ``TrainStep`` ignores the flag and computes in float32, a
+    departure that ROADMAP A.2c records."""
 
     def __init__(self, model: nn.Module, table_conf: TableConfig,
                  trainer_conf: TrainerConfig, batch_size: int,
@@ -188,6 +196,7 @@ class TrainStep:
         self.num_auc_buckets = num_auc_buckets
         self.seqpool_kwargs = dict(seqpool_kwargs or {})
         self.optimizer = make_dense_optimizer(trainer_conf)
+        self.compute_dtype = compute_dtype(trainer_conf)
 
     def init(self) -> Tuple[nn.Module, Dict[str, Any]]:
         """The model, moved to the step's device, and a fresh optimizer
@@ -232,8 +241,9 @@ class TrainStep:
         with record_function("train_step.forward"):
             emb_d.requires_grad_(True)
             params.zero_grad(set_to_none=True)
-            logits = params(self._features(emb_d, segs, cvm),
-                            dense_d).float()
+            cd = self.compute_dtype
+            logits = params(self._features(emb_d, segs, cvm).to(cd),
+                            dense_d.to(cd)).float()
             loss, preds = masked_bce_loss(logits, labels_d, mask)
         with record_function("train_step.backward"):
             loss.backward()
@@ -251,9 +261,11 @@ class TrainStep:
     @torch.inference_mode()
     def predict(self, params: nn.Module, emb, segment_ids, cvm_in,
                 dense) -> torch.Tensor:
-        """Scores of one batch (device tensors or host arrays)."""
+        """Scores of one batch (device tensors or host arrays), the model's
+        inputs cast as in ``__call__``."""
         sparse = self._features(self._tensor(emb, np.float32),
                                 self._tensor(segment_ids, np.int32),
                                 self._tensor(cvm_in, np.float32))
-        return torch.sigmoid(params(sparse,
-                                    self._tensor(dense, np.float32)))
+        cd = self.compute_dtype
+        return torch.sigmoid(params(
+            sparse.to(cd), self._tensor(dense, np.float32).to(cd)).float())

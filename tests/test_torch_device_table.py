@@ -234,10 +234,12 @@ def test_memory_bytes_and_len():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceTable(TableConfig(), device="cpu", value_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceTable(TableConfig(embedx_dim=4, expand_dim=4,
+    """The arena takes float32, bfloat16 and int8 values (any other dtype
+    raises), and the variable layout needs both widths."""
+    with pytest.raises(ValueError, match="value_dtype"):
+        DeviceTable(TableConfig(), device="cpu", value_dtype=torch.float16)
+    with pytest.raises(ValueError, match="variable_embedding"):
+        DeviceTable(TableConfig(embedx_dim=4, expand_dim=0,
                                 variable_embedding=True), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -311,8 +311,7 @@ def test_unported_options_raise():
                         device="cpu")
     model = torch.nn.Linear(1, 1)
     for bad in ({"dense_optimizer": "lars"}, {"dense_optimizer": "lamb"},
-                {"grad_merge_steps": 2}, {"bf16": True},
-                {"recompute": True}):
+                {"grad_merge_steps": 2}, {"recompute": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FusedTrainStep(model, table, TrainerConfig(**bad), B, S)
     with pytest.raises(NotImplementedError, match="ROADMAP A.3b"):

@@ -3,7 +3,8 @@ the package, in chip_smoke.py, kernel_versions.py or pass_versions.py; it
 serves, trains and runs a trainer pass, from a dataset and straight off
 files, a day/pass loop with its checkpoints and resume, and that loop over
 a tiered table with its host backing and prefetched feed pass, and the
-host-table engine with an MMoE step, with them blocked; its entry points
+host-table engine with an MMoE step, and a step over an int8 arena, with
+them blocked; its entry points
 default to the card and raise without one (the trainer too); its kernel
 modules import without a CUDA toolkit."""
 
@@ -144,6 +145,54 @@ def test_trains_one_step_with_jax_blocked():
     """)
     assert res.returncode == 0, res.stderr
     assert "TRAINED" in res.stdout
+
+
+def test_int8_arena_step_with_jax_blocked():
+    """An int8 arena under bf16 dense compute trains one CPU step with jax
+    and paddlebox_tpu blocked: show counts exact in the state, the push's
+    plain version taken (no variant launched)."""
+    res = _run(f"""
+        import sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        import torch
+        from paddlebox_tpu_torch.config import TableConfig, TrainerConfig
+        from paddlebox_tpu_torch.models import DeepFM
+        from paddlebox_tpu_torch.ops.sparse_push import (PUSH_VARIANTS,
+                                                         sparse_push_cuda)
+        from paddlebox_tpu_torch.ps.device_table import DeviceTable
+        from paddlebox_tpu_torch.trainer.fused_step import FusedTrainStep
+        B, S = 8, 3
+        table = DeviceTable(TableConfig(embedx_dim=4, embedx_threshold=0.0),
+                            capacity=64, device="cpu",
+                            value_dtype=torch.int8)
+        fs = FusedTrainStep(DeepFM(S * 7, (8,), dtype=torch.bfloat16),
+                            table, TrainerConfig(bf16=True), B, S)
+        params, opt = fs.init()
+        auc = fs.init_auc_state()
+        rng = np.random.default_rng(0)
+        keys = np.zeros(1024, np.uint64)
+        keys[:B * S] = rng.integers(1, 50, size=B * S)
+        segs = np.full(1024, B * S, np.int32)
+        segs[:B * S] = np.arange(B * S)
+        labels = (rng.uniform(size=B) < 0.5).astype(np.float32)
+        cvm = np.stack([np.ones(B, np.float32), labels], axis=1)
+        params, opt, auc, loss, preds = fs(
+            params, opt, auc, keys, segs, cvm, labels,
+            np.zeros((B, 0), np.float32), np.ones(B, np.float32))
+        assert np.isfinite(float(loss)) and preds.shape == (B,)
+        assert table.values.dtype == torch.int8
+        assert float(table.state[:, 0].sum()) == B * S
+        assert sparse_push_cuda.launches == 0
+        assert all(c.launches == 0 for c in PUSH_VARIANTS.values())
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("INT8", float(loss))
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "INT8" in res.stdout
 
 
 def test_device_prep_step_with_jax_blocked():

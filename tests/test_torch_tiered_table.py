@@ -17,6 +17,7 @@ staged takes an arena row whose random init comes from jax's PRNG in one
 package and a ``torch.Generator`` in the other, so that case holds the
 staged rows, the key sets and show/clk."""
 
+import dataclasses
 import os
 import threading
 
@@ -345,9 +346,15 @@ def test_failed_prefetch_stages_synchronously(monkeypatch, tmp_path):
 def test_refusals(monkeypatch):
     conf = TableConfig(**TABLE)
     for kw in (dict(disk=object()), dict(admit=object()),
-               dict(stage_buckets=BucketSpec(min_size=512))):
+               dict(stage_buckets=BucketSpec(min_size=512)),
+               dict(value_dtype=torch.int8),
+               dict(value_dtype=torch.bfloat16)):
         with pytest.raises(NotImplementedError, match="A.7b"):
             TieredDeviceTable(conf, capacity=64, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A.7b"):
+        TieredDeviceTable(dataclasses.replace(
+            conf, expand_dim=2, variable_embedding=True), capacity=64,
+            device="cpu")
     for flag in ("ps_admit_shows", "ps_tier_demote"):
         monkeypatch.setenv(f"PBOX_FLAGS_{flag}", "1")
         with pytest.raises(NotImplementedError, match="A.7b"):

@@ -205,7 +205,7 @@ def test_predict_matches_reference():
 
 
 @pytest.mark.parametrize("conf,item", [
-    (dict(bf16=True), "A.2"), (dict(recompute=True), "A.2"),
+    (dict(bf16=True, recompute=True), "A.2"), (dict(recompute=True), "A.2"),
     (dict(dense_optimizer="lars"), "A.2"),
     (dict(dense_optimizer="lamb"), "A.2"),
     (dict(grad_merge_steps=2), "A.2")])
