@@ -223,6 +223,50 @@ Phases, each fatal on failure:
    and float32 tables (f32 dense, run graphs) in turns; each variant's
    push at the training shape beside its bound, plain and ``index_add_``
    (the merge only).
+4h. dense optimizers — lars, lamb, adam under gradient merging of 4
+             (``grad_merge_steps``, ``optax.MultiSteps``) and adam with
+             ``recompute``, each over the flagship (a 4,194,304-row
+             adagrad table, B=2048): ``CTRTrainer.train_from_files`` over
+             two seeded files of 16 batches (device prep, one eager run,
+             one captured and replayed), every device-prep kernel once a
+             batch, bit for bit against the eager run loop on a twin (rows
+             by key, dense params, every optimizer state tensor, metrics);
+             then host-prep steps from that twin, 2 (5 under merging),
+             counted (the device-prep kernels never), against the CPU by
+             ``compare_twin``'s rule, lars's and lamb's dense change held
+             as the rows' is (within 1e-3 of its largest entry), the dense
+             params checked after each step (under merging unchanged but
+             on the emit steps).
+   Each world's run graphs ms/step beside plain adam's, in turns.
+4i. disk ladder — ``bench.py:735-860``'s tiered cell with its disk
+             tier: the flagship (``show_clk_decay=0.5``) over a
+             ``TieredDeviceTable`` of 2^20 rows (device prep) over a
+             native ``EmbeddingTable`` over a ``DiskTier``, phase 4e's four
+             files through ``PassManager`` with ``prefetch_feed_next`` and
+             ``train_from_files``; after each ``end_pass`` every row spills
+             (``evict_cold(show_threshold=inf)``) and the disk compacts,
+             so each pass restages from disk. In turns: a synchronous
+             twin, a ``PBOX_FLAGS_ps_tier_demote=1`` twin (its deltas and
+             bases too) and an admission run
+             (``PBOX_FLAGS_ps_admit_shows=2``). Bit for bit by key: W, the
+             backing, the disk's rows, the dense state; the admission
+             run's staged keys against a replay of the sketch's decisions,
+             its rejected keys in no tier; the consumes took the
+             prefetched buffers.
+   Per pass: W, staging s, disk read and insert s, spilled and restaged
+   rows, evict and compact s, ``disk_bytes()``, ``bandwidth()``,
+   ``end_pass`` s, ms/step, each beside the card's name and power limit.
+4j. the rest — (a) ``fused_seqpool_cvm_with_conv`` (with and without the
+             show filter), ``fused_seqpool_cvm_with_pcoc`` and ``cvm`` at
+             the training shape, forward and backward on CUDA tensors,
+             twice (bit for bit), against the CPU (the pooled and copied
+             columns and the grads bit for bit, the log heads within
+             tolerance); (b) ``examples/02``'s
+             flow on the host-table engine (``use_device_table=False``,
+             two days of two passes of 4 batches of B=2048, deltas, bases)
+             and a resume into a fresh table and trainer, bit for bit by
+             key; (c) phase 4f's host ``TrainStep`` under ``bf16``: float32
+             inputs, bit for bit against ``bf16=False``.
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -244,6 +288,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import gc
 import json
 import os
@@ -273,6 +318,11 @@ from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
 from paddlebox_tpu_torch.models import DeepFM, FeedDNN, MMoE, WideDeep
 from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
 from paddlebox_tpu_torch.ops import _build
+from paddlebox_tpu_torch.ops import cvm as ops_cvm
+from paddlebox_tpu_torch.ops import \
+    fused_seqpool_cvm_with_conv as ops_fused_conv
+from paddlebox_tpu_torch.ops import \
+    fused_seqpool_cvm_with_pcoc as ops_fused_pcoc
 from paddlebox_tpu_torch.ops.seqpool_kernel import (bulk_loads, grad_lanes,
                                                     seqpool_cvm_cuda,
                                                     seqpool_cvm_grad_cuda,
@@ -300,7 +350,9 @@ from paddlebox_tpu_torch.ps.device_index import (DeviceIndexMirror,
                                                  radix_plan_plain)
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.ps.native import NativeIndex
+from paddlebox_tpu_torch.ps.admission import CountMinAdmission
 from paddlebox_tpu_torch.ps.server import SparsePS
+from paddlebox_tpu_torch.ps.ssd_tier import DiskTier
 from paddlebox_tpu_torch.ps.table import (EmbeddingTable, key_init_uniform,
                                          state_dim)
 from paddlebox_tpu_torch.ps.tiered_table import TieredDeviceTable
@@ -309,6 +361,7 @@ from paddlebox_tpu_torch.metrics.auc import reset_auc_state_
 from paddlebox_tpu_torch.trainer.fused_step import (FusedTrainStep,
                                                     collect_same_shape_run)
 from paddlebox_tpu_torch.trainer import donefile
+from paddlebox_tpu_torch.trainer.step_graph import state_tensors
 from paddlebox_tpu_torch.trainer.pass_manager import (CKPT_QUEUE_DEPTH,
                                                       CKPT_RETRIES,
                                                       PassManager)
@@ -1448,16 +1501,20 @@ def snapshot_rows(table: DeviceTable, rows: torch.Tensor, model=None):
 def compare_twin(tag: str, losses, after, twin_losses, twin_after,
                  before, stored: bool = False, layout=None,
                  dense_atol: float = TRAIN_ATOL) -> None:
-    """The first steps of the main path vs its twin's, from the same init:
-    losses (rtol), the touched rows (show/clk exact, the rest and their
-    change from ``before``, ``require_change``), the dense params. Rows
+    """The first steps of the main path vs its twin's (as many as the twin
+    took, at least one), from the same init: losses (rtol), the touched
+    rows (show/clk exact, the rest and their change from ``before``,
+    ``require_change``), the dense params. Rows
     are ``snapshot_rows``'; with the tables' ``layout``, they are compared
     in the canonical float32 layout, a variable table's size codes
     exact, and a low-precision arena's stored values as
     ``stored_steps`` holds them (a value one storage step apart gets
     that step as slack). The dense params within ``dense_atol``."""
-    losses = [float(x) for x in losses[:CPU_STEPS]]
+    require(1 <= len(twin_losses) <= len(losses),
+            f"{tag}: the twin took {len(twin_losses)} steps, the main path "
+            f"{len(losses)}")
     twin_losses = [float(x) for x in twin_losses]
+    losses = [float(x) for x in losses[:len(twin_losses)]]
     require(np.allclose(losses, twin_losses, rtol=TRAIN_RTOL, atol=0),
             f"{tag}: losses {losses} vs {twin_losses}")
     (vals, st), (cvals, cst), (bvals, bst) = (
@@ -1485,7 +1542,7 @@ def compare_twin(tag: str, losses, after, twin_losses, twin_after,
     changes = require_change(tag, (
         ("values", vals[:, 2:], cvals[:, 2:], bvals[:, 2:], slack[:, 2:]),
         ("state", st, cst, bst, 0.0)), stored)
-    print(f"{tag} over {CPU_STEPS} steps: losses {losses} vs {twin_losses}, "
+    print(f"{tag} over {len(losses)} steps: losses {losses} vs {twin_losses}, "
           f"{vals.shape[0]} touched rows (show/clk exact{note}, max abs err "
           f"{row_err:.3e} beyond that; their change: {changes}), dense max "
           f"abs err {dense_err:.3e}")
@@ -1925,24 +1982,32 @@ def eager_run_loop(fs, state, batches):
 
 def require_same_training(tag: str, a, b) -> None:
     """Two device-prep worlds ((table, params, opt_state, auc_state) each)
-    bit for bit: every row by key, the dense params, adam's count, mu and
-    nu, and the AUC state (``auc`` None: not compared)."""
+    bit for bit: every row by key, the dense params, every tensor of the
+    optimizer state, and the AUC state (``auc`` None: not compared)."""
     (ta, pa, oa, aa), (tb, pb, ob, ab) = a, b
     ka, va, sa = rows_by_key(ta)
     kb, vb, sb = rows_by_key(tb)
     require(np.array_equal(ka, kb), f"{tag}: the tables hold other keys")
     require(torch.equal(va, vb) and torch.equal(sa, sb),
             f"{tag}: rows by key differ")
-    require(all(torch.equal(x, y) for x, y in zip(pa.parameters(),
-                                                   pb.parameters())),
-            f"{tag}: the dense params differ")
-    require(torch.equal(oa["count"], ob["count"]) and
-            all(torch.equal(x, y) for f in ("mu", "nu")
-                for x, y in zip(oa[f], ob[f])),
-            f"{tag}: adam's count, mu or nu differ")
+    require_same_dense(tag, (pa, oa), (pb, ob))
     if aa is not None:
         require(all(torch.equal(aa[f], ab[f]) for f in aa),
                 f"{tag}: the AUC states differ")
+
+
+def require_same_dense(tag: str, a, b) -> None:
+    """Two dense states ((params, opt_state) each) bit for bit: the
+    params and every tensor of the optimizer state."""
+    (pa, oa), (pb, ob) = a, b
+    require(all(torch.equal(x, y) for x, y in zip(pa.parameters(),
+                                                   pb.parameters())),
+            f"{tag}: the dense params differ")
+    sa, sb = list(state_tensors(oa)), list(state_tensors(ob))
+    require(len(sa) == len(sb) and
+            all(torch.equal(x, y) for x, y in zip(sa, sb)),
+            f"{tag}: the optimizer states (adam's count, mu and nu; lars's "
+            "trace; gradient merging's steps and sums) differ")
 
 
 def reader_tuples(batches):
@@ -2696,16 +2761,18 @@ def write_pool_file(rng, path: str, pool: np.ndarray) -> np.ndarray:
 
 
 def tiered_world(conf, tconf, model, root: str, device_prep: bool = True,
-                 saves: bool = True):
+                 saves: bool = True, disk_root: str = None):
     """A flagship trainer over a ``TieredDeviceTable`` of TIER_ARENA rows
-    (a one-thread native index) over a native host ``EmbeddingTable``,
-    its ``SparsePS`` and a double-buffered ``PassManager``; the table's
-    staging and pass end timed where they run."""
+    (a one-thread native index) over a native host ``EmbeddingTable``
+    (with ``disk_root``, over a ``DiskTier`` there), its ``SparsePS`` and
+    a double-buffered ``PassManager``; the table's staging and pass end
+    timed where they run."""
     buckets = BucketSpec(min_size=TNPAD, max_size=1 << 18)
     backing = EmbeddingTable(conf, backend="native")
+    disk = DiskTier(backing, disk_root) if disk_root is not None else None
     table = TieredDeviceTable(conf, backing=backing, capacity=TIER_ARENA,
                               uniq_buckets=buckets, device="cuda",
-                              backend="native", index_threads=1)
+                              disk=disk, backend="native", index_threads=1)
     feed = trainer_feed_conf()
     tr = CTRTrainer(model, feed, conf, tconf, table=table, buckets=buckets,
                     device_prep=device_prep)
@@ -2714,7 +2781,7 @@ def tiered_world(conf, tconf, model, root: str, device_prep: bool = True,
                      [SlotDataset(feed, buckets=buckets),
                       SlotDataset(feed, buckets=buckets)], writer=writer)
     world = dict(tr=tr, pm=pm, table=table, writer=writer, saves=saves,
-                 consumed=[], t={k: [] for k in TIER_SPANS})
+                 disk=disk, consumed=[], t={k: [] for k in TIER_SPANS})
     consume = table._consume_prefetch
 
     def spy(uniq):
@@ -2791,8 +2858,14 @@ def tiered_passes(world, files, prefetch: bool, entry: str, tag: str,
                      ("consume", "export", "rebuild", "ingest", "mirror")}
             at = {k: len(v) for k, v in t.items()}
             w = int(table.staged_keys.size)
-            require(np.array_equal(table.staged_keys, ds.extract_keys()),
-                    f"{tag}: pass {p + 1} staged other keys than its own")
+            if "admitted" in world:     # admission: kept for a replay
+                world["admitted"].append((ds.extract_keys(),
+                                          table.staged_keys.copy()))
+            else:
+                require(np.array_equal(table.staged_keys,
+                                       ds.extract_keys()),
+                        f"{tag}: pass {p + 1} staged other keys than its "
+                        "own")
             if p + 1 < len(files):
                 pm.preload_next(files[p + 1:p + 2])
                 if prefetch:
@@ -3095,10 +3168,408 @@ def phase_tiered_loop(rng) -> dict:
           f"and "
           f"idle, in turns: {beside} [{card}]")
     table.end_pass()
-    return {"launches": main["launches"], "loop_s": loop_s,
+    return {"launches": main["launches"], "loop_s": loop_s, "files": files,
             "passes": recs["main"], "sync_passes": recs["sync"],
             "backing_rows": rows, "peak_bytes": peak,
             "resume_s": resume_s, "turns_ms": turns}
+
+
+# -- phase 4i: the disk ladder ------------------------------------------------
+
+DISK_WORLDS = ("main", "sync", "demote", "admit")
+DISK_ADMIT_SHOWS = "2"        # PBOX_FLAGS_ps_admit_shows of the admission run
+
+
+def disk_rows(disk) -> tuple:
+    """Every key on ``disk``, ascending, with its rows as ``read_rows``
+    gives them (values, state, embedx_ok)."""
+    keys = np.sort(disk._index.live_items()[0])
+    return disk.read_rows(keys)[:4]
+
+
+def admission_replay(passes) -> None:
+    """The admission run's staged keys against a replay of the decision
+    on the host: a count-min sketch of the flags' defaults fed each
+    pass's keys (one show each, as ``PassManager`` feeds them), the keys
+    of earlier passes known."""
+    sketch = CountMinAdmission(float(DISK_ADMIT_SHOWS))
+    known = np.empty(0, np.uint64)
+    for p, (keys, staged) in enumerate(passes):
+        old = np.isin(keys, known, assume_unique=True)
+        ok = old.copy()
+        ok[~old] = sketch.observe_and_admit(
+            keys[~old], np.ones(int((~old).sum()), np.float32))
+        require(np.array_equal(staged, keys[ok]),
+                f"disk ladder, admission: pass {p + 1} staged "
+                f"{staged.size} keys, the replay admits {int(ok.sum())}")
+        known = np.union1d(known, staged)
+        sketch.advance_epoch()
+
+
+def phase_disk_ladder(rng, files) -> dict:
+    """(4i) ``bench.py:735-860``'s tiered cell with its disk tier: the
+    flagship (``show_clk_decay=0.5``) over a ``TieredDeviceTable`` of 2^20
+    rows on device prep over a native ``EmbeddingTable`` over a
+    ``DiskTier``, through ``PassManager`` with ``prefetch_feed_next`` and
+    ``CTRTrainer.train_from_files`` (run graphs), the four passes of phase
+    4e's files; after each ``end_pass`` every row spills
+    (``evict_cold(show_threshold=inf)``) and the disk compacts, so each
+    pass restages from disk. In turns with it: a synchronous twin, a
+    ``PBOX_FLAGS_ps_tier_demote=1`` twin and an admission run
+    (``PBOX_FLAGS_ps_admit_shows=2``)."""
+    card = card_line()
+    conf, tconf, _ = train_confs()
+    conf = dataclasses.replace(conf, show_clk_decay=0.5)
+    model = random_deepfm(rng, TS * conf.pull_dim)
+    worlds = {}
+    for who in DISK_WORLDS:
+        root = os.path.join(WORK, f"disk-{who}")
+        if who == "admit":
+            os.environ["PBOX_FLAGS_ps_admit_shows"] = DISK_ADMIT_SHOWS
+        try:
+            worlds[who] = tiered_world(
+                conf, tconf, copy.deepcopy(model), os.path.join(root, "model"),
+                saves=who in ("main", "demote"),
+                disk_root=os.path.join(root, "ssd"))
+        finally:
+            os.environ.pop("PBOX_FLAGS_ps_admit_shows", None)
+        require((worlds[who]["table"]._admit is not None) == (who == "admit"),
+                f"disk ladder: admission {who}")
+    worlds["admit"]["admitted"] = []
+    gens = {who: tiered_passes(w, files, who != "sync", "files",
+                               f"disk ladder {who}",
+                               counted=who in ("main", "admit"))
+            for who, w in worlds.items()}
+    recs = {who: [] for who in worlds}
+    t0 = time.perf_counter()
+    for p in range(len(files)):
+        order = DISK_WORLDS if p % 2 == 0 else DISK_WORLDS[::-1]
+        for who in order:
+            for w in worlds.values():
+                quiesce(w)
+            w = worlds[who]
+            disk = w["disk"]
+            io0 = dict(disk.io_stats)
+            if who == "demote":
+                os.environ["PBOX_FLAGS_ps_tier_demote"] = "1"
+            try:
+                rec = next(gens[who])
+            finally:
+                os.environ.pop("PBOX_FLAGS_ps_tier_demote", None)
+            secs, spilled = timed_secs(
+                lambda: disk.evict_cold(show_threshold=float("inf")))
+            compact_s, _ = timed_secs(disk.compact)
+            io = {k: disk.io_stats[k] - io0[k] for k in io0}
+            row_b = 4 * (conf.pull_dim + w["table"].backing._state.shape[1]) \
+                + 1
+            rec.update(spilled=spilled, evict_s=secs, compact_s=compact_s,
+                       read_s=io["stage_seconds"],
+                       insert_s=io["stage_insert_seconds"],
+                       restaged=int(io["stage_bytes"] // row_b),
+                       disk_bytes=disk.disk_bytes(), disk_rows=len(disk),
+                       bandwidth=disk.bandwidth())
+            recs[who].append(rec)
+    for who, g in gens.items():
+        require(next(g, None) is None, f"disk ladder {who}: passes left")
+    loop_s = time.perf_counter() - t0
+    for w in worlds.values():
+        quiesce(w)
+        len(w["table"])                 # fences a deferred demote
+        w["pm"].close()
+    main = worlds["main"]
+    for who in ("main", "demote", "admit"):
+        require(worlds[who]["consumed"] == [False] + [True] *
+                (len(files) - 1),
+                f"disk ladder {who}: consumes {worlds[who]['consumed']}")
+    require(worlds["sync"]["consumed"] == [False] * len(files),
+            f"disk ladder sync: consumes {worlds['sync']['consumed']}")
+    require(all(r["restaged"] > 0 for r in recs["main"][1:]),
+            "disk ladder: a later pass restaged nothing from disk")
+    want_b, want_d = backing_by_key(main["table"]), disk_rows(main["disk"])
+    for who in ("sync", "demote"):
+        w = worlds[who]
+        require([r["w"] for r in recs[who]] == [r["w"] for r in
+                                                recs["main"]],
+                f"disk ladder {who}: W differs from the main loop's")
+        require(same_arrays(backing_by_key(w["table"]), want_b),
+                f"disk ladder {who}: the backing differs by key")
+        require(same_arrays(disk_rows(w["disk"]), want_d),
+                f"disk ladder {who}: the disk rows differ by key")
+        require_same_training(f"disk ladder {who} vs main", (
+            w["table"], w["tr"].params, w["tr"].opt_state, None), (
+            main["table"], main["tr"].params, main["tr"].opt_state, None))
+    mroot = os.path.join(WORK, "disk-main", "model")
+    droot = os.path.join(WORK, "disk-demote", "model")
+    require(trail_kinds(mroot) == trail_kinds(droot) and
+            len(trail_kinds(mroot)) == len(files) + len(TIER_DAYS),
+            f"disk ladder: trails {trail_kinds(mroot)} vs "
+            f"{trail_kinds(droot)}")
+    for r in donefile.read_done(mroot):
+        rel = os.path.relpath(r["path"], mroot)
+        require(same_arrays(
+            npz_rows_by_key(os.path.join(mroot, rel, "embedding.npz")),
+            npz_rows_by_key(os.path.join(droot, rel, "embedding.npz"))),
+            f"disk ladder demote: {rel} differs from the main loop's")
+    admission_replay(worlds["admit"]["admitted"])
+    adm = worlds["admit"]
+    tiers = np.union1d(backing_by_key(adm["table"])[0],
+                       disk_rows(adm["disk"])[0])
+    staged = np.unique(np.concatenate(
+        [s for _, s in adm["admitted"]]))
+    require(np.array_equal(tiers, staged),
+            "disk ladder admission: the backing and the disk hold keys the "
+            "passes did not stage (a rejected key got a row)")
+    rejected = int(np.unique(np.concatenate(
+        [k for k, _ in adm["admitted"]])).size - staged.size)
+    require(rejected > 0, "disk ladder admission: no key rejected")
+    print(f"disk ladder: {len(files)} passes of {TRAINER_FILE_BATCHES} "
+          f"batches (phase 4e's files) over a TieredDeviceTable of "
+          f"{TIER_ARENA} rows over a native EmbeddingTable over a DiskTier, "
+          f"show_clk_decay 0.5, evict_cold(inf) and compact() after each "
+          f"end_pass; launches {main['launches']}; consumes "
+          f"{main['consumed']}; the sync and demote twins' W, backing and "
+          f"disk rows by key, dense params and optimizer state, and the "
+          f"demote twin's deltas and bases, bit for bit; the admission "
+          f"run's staged keys equal the replay's, {rejected} keys "
+          f"rejected and in no tier ({staged.size} admitted); "
+          f"{loop_s:.2f} s for the four worlds in turns [{card}]")
+    for who in DISK_WORLDS:
+        print(f"disk ladder {who} per pass: W {[r['w'] for r in recs[who]]};"
+              f" staging s {[round(r['stage_s'], 4) for r in recs[who]]}; "
+              f"disk read s (worker and training thread) "
+              f"{[round(r['read_s'], 4) for r in recs[who]]}, insert s "
+              f"{[round(r['insert_s'], 4) for r in recs[who]]}; spilled "
+              f"rows {[r['spilled'] for r in recs[who]]}, restaged rows "
+              f"{[r['restaged'] for r in recs[who]]}; evict s "
+              f"{[round(r['evict_s'], 4) for r in recs[who]]}, compact s "
+              f"{[round(r['compact_s'], 4) for r in recs[who]]}; "
+              f"disk_bytes {[r['disk_bytes'] for r in recs[who]]}; "
+              f"bandwidth {recs[who][-1]['bandwidth']}; end_pass s "
+              f"{[round(r['end_pass_s'], 4) for r in recs[who]]}; train "
+              f"ms/step {[round(r['train_ms'], 4) for r in recs[who]]} "
+              f"[{card}]")
+    out = {"launches": {"disk_ladder": main["launches"],
+                        "disk_ladder_admit": adm["launches"]},
+           "loop_s": loop_s, "passes": recs}
+    del worlds, main, adm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 4j: the seqpool variants, cvm, the host-table pass loop ------------
+
+HOSTLOOP_BATCHES = 4          # batches of B=2048 in each pass's file
+HOSTLOOP_VOCAB = 200_000      # the host loop's keys: [1, HOSTLOOP_VOCAB)
+HOSTLOOP_DAYS = (("20260401", 2), ("20260402", 2))
+PCOC_P = 2                    # the pcoc variant's pclk columns
+
+
+def variant_case(tag: str, fn, inputs, grad_of, exact_from: int) -> float:
+    """``fn`` forward and backward (a seeded cotangent) on CUDA tensors,
+    twice, against the same call on their CPU copies. The card's two runs
+    agree bit for bit (the variants pool in key order, with no atomics).
+    The forward's columns from ``exact_from`` on (pooled sums, or copies)
+    equal the CPU's bit for bit, the head columns before them (logs of
+    them) within the forward kernel's tolerance; the grads, which copy and
+    gather, exactly. Returns the forward's max abs error."""
+    outs = {}
+    for dev in ("cuda", "cuda again", "cpu"):
+        ts = [x.to(dev.split()[0]).clone() if isinstance(x, torch.Tensor)
+              else x for x in inputs]
+        for i in grad_of:
+            ts[i].requires_grad_(True)
+        y = fn(*ts)
+        g = torch.from_numpy(np.random.default_rng(5).normal(
+            size=tuple(y.shape)).astype(np.float32)).to(y.device)
+        y.backward(g)
+        outs[dev] = (y.detach().cpu(), [ts[i].grad.cpu() for i in grad_of])
+    (y, gs), (y2, gs2), (cy, cgs) = (
+        outs["cuda"], outs["cuda again"], outs["cpu"])
+    require(torch.equal(y, y2) and all(torch.equal(a, b)
+                                       for a, b in zip(gs, gs2)),
+            f"{tag}: two runs on the card differ")
+    err = float((y - cy).abs().max())
+    require(torch.equal(y[..., exact_from:], cy[..., exact_from:]),
+            f"{tag}: forward columns from {exact_from} on, card vs CPU, "
+            "differ")
+    require(torch.allclose(y, cy, rtol=RTOL, atol=ATOL),
+            f"{tag}: forward, card vs CPU, max abs err {err}")
+    require(all(torch.equal(a, b) for a, b in zip(gs, cgs)),
+            f"{tag}: grads, card vs CPU, differ")
+    return err
+
+
+def check_variants(rng) -> dict:
+    """(a) ``fused_seqpool_cvm_with_conv`` (with and without the show
+    filter), ``fused_seqpool_cvm_with_pcoc`` and ``cvm`` at the training
+    shape (B=2048, S=24, Npad=102,400), forward and backward on the card
+    against the CPU."""
+    lengths = rng.integers(1, 4, size=TB * TS)
+    segs, nk = segment_layout(TB, TS, lengths, TNPAD)
+    segs = torch.from_numpy(segs)
+    errs = {}
+    for name, width, heads in (("conv", 3 + 8, 3), ("pcoc", 4 + PCOC_P + 8,
+                                                    4 + PCOC_P)):
+        emb = rng.normal(size=(TNPAD, width)).astype(np.float32)
+        emb[:, :heads] = rng.integers(0, 5, size=(TNPAD, heads))
+        emb = torch.from_numpy(emb)
+        if name == "conv":
+            cvm_in = torch.from_numpy(rng.integers(
+                0, 2, size=(TB, 3)).astype(np.float32))
+            for show_filter in (False, True):
+                errs[f"conv show_filter={show_filter}"] = variant_case(
+                    f"variants conv (show_filter {show_filter})",
+                    lambda e, s, c, f=show_filter: ops_fused_conv(
+                        e, s, c, TB, TS, show_filter=f),
+                    [emb, segs, cvm_in], (0, 2), 2 if show_filter else 3)
+        else:
+            cvm_in = torch.from_numpy(rng.integers(
+                0, 2, size=(TB, 4)).astype(np.float32))
+            q = torch.from_numpy(rng.uniform(size=(TB, PCOC_P)).astype(
+                np.float32))
+            errs["pcoc"] = variant_case(
+                "variants pcoc", lambda e, s, c, qv: ops_fused_pcoc(
+                    e, s, c, qv, TB, TS, PCOC_P), [emb, segs, cvm_in, q],
+                (0, 2, 3), 2 + 2 * PCOC_P)
+    x = rng.normal(size=(TB, TS, 11)).astype(np.float32)
+    x[..., :2] = rng.integers(0, 9, size=(TB, TS, 2))
+    cvm_in = rng.integers(0, 2, size=(TB, TS, 2)).astype(np.float32)
+    for use_cvm in (True, False):
+        errs[f"cvm use_cvm={use_cvm}"] = variant_case(
+            f"variants cvm (use_cvm {use_cvm})",
+            lambda a, c, u=use_cvm: ops_cvm(a, c, u),
+            [torch.from_numpy(x), torch.from_numpy(cvm_in)], (0, 1),
+            2 if use_cvm else 0)
+    print(f"variants (a): fused_seqpool_cvm_with_conv, _with_pcoc "
+          f"(P={PCOC_P}) and cvm at B={TB}, S={TS}, Npad={TNPAD} ({nk} "
+          f"keys): two runs on the card bit for bit; forward on the card "
+          f"vs the CPU: the pooled and copied columns bit for bit, the log "
+          f"heads within rtol {RTOL}, atol {ATOL} (max abs err {errs}); "
+          f"grads bit for bit")
+    return errs
+
+
+def host_loop_drive(tr, pm, files, tag: str):
+    """``examples/02``'s loop on the host-table engine over HOSTLOOP_DAYS:
+    each pass counted (the forward and backward once a batch), a delta
+    save a pass, a base with the dense state a day, ``barrier()``."""
+    fwd, bwd = seqpool_cvm_cuda.__name__, seqpool_cvm_grad_cuda.__name__
+    launches = {fwd: 0, bwd: 0}
+    p = 0
+    for day, n_day in HOSTLOOP_DAYS:
+        pm.set_date(day)
+        for i in range(n_day):
+            ds = (pm.begin_pass(files[p:p + 1]) if i == 0 else
+                  pm.begin_pass([], preloaded=True))
+            if i + 1 < n_day:
+                pm.preload_next(files[p + 1:p + 2])
+            n = ds.num_instances() // TB
+            _, m, got = counted(lambda: tr.train_from_dataset(ds),
+                                {fwd: n, bwd: n}, f"{tag} pass {p + 1}")
+            require(m["ins_num"] == n * TB, f"{tag}: metrics {m}")
+            for k in launches:
+                launches[k] += got[k]
+            pm.end_pass(save_delta=True)
+            tr.reset_metrics()
+            p += 1
+        pm.save_base(dense_state=(tr.params, tr.opt_state))
+    pm.barrier()
+    return launches
+
+
+def phase_rest(rng, seed: int) -> dict:
+    """(4j) the seqpool variants and ``cvm`` on the card; the host-table
+    ``PassManager`` loop with a resume; the host ``TrainStep`` under
+    ``bf16``."""
+    card = card_line()
+    out = {"launches": {}, "variant_errs": check_variants(rng)}
+    conf, tconf, _ = train_confs()
+    fwd, bwd = seqpool_cvm_cuda.__name__, seqpool_cvm_grad_cuda.__name__
+
+    # (b) examples/02's flow on the host-table engine, and its resume
+    files = []
+    for p in range(sum(n for _, n in HOSTLOOP_DAYS)):
+        path = os.path.join(WORK, f"hostloop-part-{p}")
+        lengths = rng.integers(1, 4, size=(HOSTLOOP_BATCHES * TB, TS))
+        write_slot_lines(path, lengths, rng.integers(
+            1, HOSTLOOP_VOCAB, size=int(lengths.sum()), dtype=np.uint64),
+            rng.integers(0, 2, size=lengths.shape[0]))
+        files.append(path)
+    feed = trainer_feed_conf()
+    root = os.path.join(WORK, "hostloop-model")
+
+    def world(model):
+        tr = CTRTrainer(model, feed, conf, tconf, use_device_table=False,
+                        device="cuda")
+        require(not tr.fused and isinstance(tr.table, EmbeddingTable),
+                "host loop: the trainer did not take the host engine")
+        pm = PassManager(SparsePS({"embedding": tr.table}), root,
+                         [SlotDataset(feed), SlotDataset(feed)],
+                         writer=TimedWriter())
+        return tr, pm
+
+    tr, pm = world(random_deepfm(rng, TS * conf.pull_dim))
+    loop_s, launches = timed_secs(
+        lambda: host_loop_drive(tr, pm, files, "host loop"))
+    out["launches"]["host_pass_loop"] = launches
+    commits = [(k, round(v, 4)) for k, v in pm._writer.commit_s]
+    pm.close()
+    kinds = trail_kinds(root)
+    require(kinds == [(d, k) for d, n in HOSTLOOP_DAYS
+                      for k in ["delta"] * n + ["base"]],
+            f"host loop: donefile trail {kinds}")
+    tr2, pm2 = world(random_deepfm(np.random.default_rng(97),
+                                   TS * conf.pull_dim))
+    resume_s, got = timed_secs(lambda: pm2.resume(
+        dense_template=(tr2.params, tr2.opt_state)))
+    pm2.close()
+    require(got[:2] == (HOSTLOOP_DAYS[-1][0], len(files)),
+            f"host loop: resumed version {got[:2]}")
+    require(all(np.array_equal(a, b) for a, b in zip(
+        host_rows(tr2.table), host_rows(tr.table))),
+            "host loop: the resumed table differs by key")
+    require_same_dense("host loop: resume vs the live trainer",
+                       (tr2.params, tr2.opt_state), (tr.params, tr.opt_state))
+    print(f"host loop (b): examples/02's flow with use_device_table=False, "
+          f"{len(files)} passes of {HOSTLOOP_BATCHES} batches (B={TB}, "
+          f"keys from [1, {HOSTLOOP_VOCAB})) over a native EmbeddingTable "
+          f"of {len(tr.table)} rows: launches {launches}; trail {kinds}; a "
+          f"resume into a fresh table and trainer equals the live one by "
+          f"key, dense params and adam's state bit for bit; loop "
+          f"{loop_s:.2f} s, writer commits s {commits}, resume "
+          f"{resume_s:.4f} s [{card}]")
+    del tr, tr2, pm, pm2
+
+    # (c) phase 4f's host-table TrainStep under bf16: float32 inputs
+    econf, etconf = example_confs()
+    batches = csr_batches(rng, CPU_STEPS, WD_B, WD_S, WD_DENSE, HE_VOCAB)
+    torch.manual_seed(seed)
+    model = WideDeep(WD_S * econf.pull_dim + WD_DENSE, WD_HIDDEN)
+    worlds, seen = {}, []
+    for bf16 in (True, False):
+        m = copy.deepcopy(model)
+        m.register_forward_pre_hook(
+            lambda mod, args: seen.append(tuple(a.dtype for a in args)))
+        step = TrainStep(m, econf, dataclasses.replace(etconf, bf16=bf16),
+                         WD_B, WD_S, WD_DENSE, device="cuda")
+        table = EmbeddingTable(econf, backend="native")
+        _, (state, losses), got = counted(
+            lambda: host_hand_loop(step, (*step.init(),
+                                          step.init_auc_state()),
+                                   table, batches),
+            {fwd: CPU_STEPS, bwd: CPU_STEPS}, f"host bf16 (c) bf16={bf16}")
+        worlds[bf16] = host_world(losses, table, state[0])
+        out["launches"][f"host_bf16_{bf16}"] = got
+    require(all(d == (torch.float32, torch.float32) for d in seen),
+            f"host bf16 (c): the model took inputs of {set(seen)}")
+    require_same_host("host bf16 (c): TrainStep(bf16=True) vs bf16=False",
+                      worlds[True], worlds[False])
+    print(f"host bf16 (c): TrainStep(WideDeep, bf16=True) on the card "
+          f"over {CPU_STEPS} steps of B={WD_B}: the model takes float32 "
+          f"inputs ({len(seen)} calls), losses {worlds[True][0]}, rows by "
+          f"key and dense params bit for bit against bf16=False")
+    return out
 
 
 # -- phase 4f: the host-table engine and the models ---------------------------
@@ -3884,9 +4355,10 @@ def arena_host_prep(tag: str, table: DeviceTable, model, tconf, batches,
 def arena_files(tag: str, table: DeviceTable, model, conf, tconf, files,
                 stream, variant: str):
     """``CTRTrainer(table=...).train_from_files`` over ``files`` (two runs
-    of 16: one eager, one captured and replayed), counted, against the
-    eager run loop over the same batches on a twin of the same arena and
-    weights, bit for bit. Returns (trainer, launches, metrics)."""
+    of 16: one eager, one captured and replayed), counted (the push as
+    the storage ``variant``), against the eager run loop over the same
+    batches on a twin of the same arena and weights, bit for bit. Returns
+    (trainer, launches, metrics, the eager twin's (step, state))."""
     run_fs = FusedTrainStep(copy.deepcopy(model), arena_twin(
         table, "cuda", "native"), tconf, TB, TS, device_prep=True)
     run_state = (*run_fs.init(), run_fs.init_auc_state())
@@ -3920,10 +4392,10 @@ def arena_files(tag: str, table: DeviceTable, model, conf, tconf, files,
     print(f"{tag}: train_from_files over {len(files)} files ({n} batches, "
           f"1 capture, {graphs.replays} replay), launches {launches}, auc "
           f"{metrics['auc']:.6f}; pass metrics, all {len(table)} rows by "
-          f"key (values and state), the dense params and adam's state bit "
-          f"for bit vs the eager run loop on a twin; "
+          f"key (values and state), the dense params and every optimizer "
+          f"state tensor bit for bit vs the eager run loop on a twin; "
           f"{secs / n * 1e3:.4f} ms/step (first pass)")
-    return trainer, launches, metrics
+    return trainer, launches, metrics, (run_fs, run_state)
 
 
 def random_model(rng, in_dim: int, dtype=torch.float32):
@@ -3987,7 +4459,7 @@ def phase_arenas(rng) -> dict:
     model = random_model(rng, TS * conf.pull_dim)
     init = arena_of(table)
     host_model = copy.deepcopy(model)
-    trainer, launches, _ = arena_files(
+    trainer, launches, _, _ = arena_files(
         "arenas int8 (b): trainer files", table, model, conf, tconf, files,
         stream, "int8")
     out["launches"]["int8_files"] = launches
@@ -4022,7 +4494,7 @@ def phase_arenas(rng) -> dict:
     model = random_model(rng, TS * conf.pull_dim, torch.bfloat16)
     init = arena_of(table)
     host_model = copy.deepcopy(model)
-    trainer, launches, _ = arena_files(
+    trainer, launches, _, _ = arena_files(
         "arenas bf16 (c): trainer files", table, model, conf, bconf, files,
         stream, "bf16")
     out["launches"]["bf16_files"] = launches
@@ -4074,6 +4546,153 @@ def phase_arenas(rng) -> dict:
                                  out["ms_per_step"].items()))
     del worlds
     gc.collect()
+    return out
+
+
+# -- phase 4h: the dense optimizers -------------------------------------------
+
+# the dense optimizers and step options of A.2c, each over the flagship
+DENSE_OPTS = {
+    "lars": dict(dense_optimizer="lars", dense_learning_rate=0.1,
+                 dense_weight_decay=1e-4),
+    "lamb": dict(dense_optimizer="lamb", dense_learning_rate=1e-3,
+                 dense_weight_decay=1e-4),
+    "merge4": dict(dense_optimizer="adam", dense_learning_rate=1e-3,
+                   grad_merge_steps=4),
+    "recompute": dict(dense_optimizer="adam", dense_learning_rate=1e-3,
+                      recompute=True),
+}
+MERGE_CPU_STEPS = 5          # gradient merging of 4: one emit and a step on
+
+
+def flat_params(params) -> np.ndarray:
+    """The dense params, one host float32 vector."""
+    return np.concatenate([p.detach().float().cpu().numpy().ravel()
+                           for p in params])
+
+
+def opt_host_prep(tag: str, table: DeviceTable, model, tconf, batches):
+    """Host prep on the card over the first steps of ``batches`` (2; 5
+    under gradient merging), counted (every device-prep count held, the
+    idle ones at 0), the dense params checked after each step (under
+    merging: bit-unchanged but on the emit steps), held against a CPU twin
+    of the same arena and weights (every kernel's plain version) by
+    ``compare_twin``'s rule. The trust-ratio optimizers' dense steps (lars
+    ~1e-4, lamb ~7e-4 over 2 steps) come within ten times of TRAIN_ATOL,
+    so their dense change is held as the rows' is (``require_change``);
+    adam's steps are lr = 1e-3 each, a hundred times TRAIN_ATOL, and its
+    normalized step flips sign on near-zero grads, which puts card vs CPU
+    at ~1e-6, above a thousandth of the change. Returns the launches."""
+    every_k = max(int(tconf.grad_merge_steps), 1)
+    steps = MERGE_CPU_STEPS if every_k > 1 else CPU_STEPS
+    batches = batches[:steps]
+    cpu_arena = arena_of(table)
+    cpu_model = copy.deepcopy(model).cpu()
+    init_params = flat_params(cpu_model.parameters())
+    fs = FusedTrainStep(model, table, tconf, TB, TS)
+    state = (*fs.init(), fs.init_auc_state())
+    touched = touched_rows(table, batches)
+
+    def run():
+        nonlocal state
+        losses, moved = [], []
+        for b in batches:
+            prev = [p.detach().clone() for p in state[0].parameters()]
+            state, more = train_steps(fs, state, [b])
+            losses += more
+            moved.append(any(not torch.equal(a, p) for a, p in
+                             zip(prev, state[0].parameters())))
+        return losses, moved
+
+    _, (losses, moved), launches = counted(
+        run, {w.__name__: steps for w in TRAIN_WRAPPERS}, tag)
+    want = [(i + 1) % every_k == 0 for i in range(steps)]
+    require(moved == want, f"{tag}: the dense params moved on steps "
+                           f"{moved}, expected {want}")
+    after = snapshot_rows(table, touched, state[0])
+    cpu = arena_twin(table, "cpu", "numpy", cpu_arena)
+    before = snapshot_rows(cpu, touched)
+    cfs = FusedTrainStep(cpu_model, cpu, tconf, TB, TS)
+    _, cpu_losses = train_steps(cfs, (*cfs.init(), cfs.init_auc_state()),
+                                batches)
+    twin_after = snapshot_rows(cpu, touched, cpu_model)
+    compare_twin(f"{tag}: card vs CPU", losses, after, cpu_losses,
+                 twin_after, before)
+    got, cwant = flat_params(after[2]), flat_params(twin_after[2])
+    if tconf.dense_optimizer in ("lars", "lamb"):
+        change = require_change(f"{tag}: card vs CPU", (
+            ("dense params", got, cwant, init_params, 0.0),))
+    else:
+        change = (f"dense params' largest change "
+                  f"{float(np.abs(cwant - init_params).max()):.3e}, held "
+                  f"at atol {TRAIN_ATOL}")
+    print(f"{tag}: card vs CPU over {steps} steps, {change}; launches "
+          f"{launches}")
+    if every_k > 1:
+        print(f"{tag}: the dense params moved on host-prep steps {moved} "
+              f"(gradient merging of {every_k}: bit-unchanged between "
+              "emits)")
+    return launches
+
+
+def phase_dense_optimizers(rng) -> dict:
+    """(4h) lars, lamb, adam under gradient merging of 4 and adam with
+    recompute, each training the flagship (DeepFM 512-256-128, the
+    adagrad table of 4,194,304 prepopulated rows, B=2048, 24 slots,
+    Npad=102,400) through ``CTRTrainer.train_from_files`` on device prep
+    with run graphs over two files of 16 batches, bit for bit against
+    the eager run loop; then host-prep steps against the CPU; then each
+    world's run graphs beside plain adam's, in turns."""
+    card = card_line()
+    conf, tconf, buckets = train_confs()
+    out: dict = {"launches": {}}
+    os.makedirs(WORK, exist_ok=True)
+    files = [os.path.join(WORK, f"opt-part-{i}")
+             for i in range(TRAINER_FILES)]
+    for i, path in enumerate(files):
+        write_trainer_file(rng, path, 0)
+    ds = SlotDataset(trainer_feed_conf(), buckets=BucketSpec(
+        min_size=TNPAD, max_size=1 << 18))
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    stream = reader_tuples(list(ds.batches()))
+    base = DeviceTable(conf, capacity=HOT_VOCAB + 1 + TRAINER_HEADROOM,
+                       uniq_buckets=buckets, device="cuda", backend="native",
+                       index_threads=1)
+    base.prepopulate(HOT_VOCAB)
+    init = arena_of(base)
+    model = random_model(rng, TS * conf.pull_dim)
+    hbatches = make_train_batches(rng, MERGE_CPU_STEPS)
+    worlds = {}
+    for name, kw in DENSE_OPTS.items():
+        oconf = TrainerConfig(**kw)
+        tag = f"dense optimizers {name}"
+        trainer, launches, _, (run_fs, run_state) = arena_files(
+            f"{tag}: trainer files", arena_twin(base, "cuda", "native", init),
+            copy.deepcopy(model), conf, oconf, files, stream, "f32")
+        out["launches"][f"{name}_files"] = launches
+        # host prep from the eager twin's trained arena and weights
+        out["launches"][f"{name}_host_prep"] = opt_host_prep(
+            f"{tag}: host prep", run_fs.table, copy.deepcopy(run_state[0]),
+            oconf, hbatches)
+        del run_fs, run_state
+        worlds[name] = (trainer.step, [trainer.params, trainer.opt_state,
+                                       trainer.auc_state])
+        gc.collect()
+    adam = FusedTrainStep(copy.deepcopy(model), arena_twin(
+        base, "cuda", "native", init), tconf, TB, TS, device_prep=True)
+    state = [*adam.init(), adam.init_auc_state()]
+    adam.train_stream(*state, iter(stream))        # warm-up and capture
+    worlds = {"adam": (adam, state), **worlds}
+    out["ms_per_step"] = arena_step_ms(worlds, stream)
+    print(f"timing dense optimizers: ms/step of train_stream's run graphs "
+          f"over {len(stream)} batches (B={TB}, device prep, the flagship), "
+          f"in turns: " + "; ".join(f"{k} {v}" for k, v in
+                                    out["ms_per_step"].items()) +
+          f" [{card}]")
+    del worlds, adam, state, base
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4536,6 +5155,10 @@ def main() -> int:
         arena_rng = np.random.default_rng([args.seed, 29])
         arena_errs, arena_train = phase_arena_push(arena_rng)
         arenas = phase_arenas(arena_rng)
+        dense = phase_dense_optimizers(np.random.default_rng([args.seed, 31]))
+        disk = phase_disk_ladder(np.random.default_rng([args.seed, 37]),
+                                 tiered["files"])
+        rest = phase_rest(np.random.default_rng([args.seed, 41]), args.seed)
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
@@ -4551,6 +5174,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     arena_ms = {k: round(float(np.mean(v)), 4)
                 for k, v in arenas["ms_per_step"].items()}
+    dense_ms = {k: round(float(np.mean(v)), 4)
+                for k, v in dense["ms_per_step"].items()}
     print(f"chip_smoke: all phases {time.perf_counter() - t_start:.1f} s; "
           f"train host-prep (numpy index) {train['ms_per_step']:.4f} "
           f"ms/step, {train['examples_per_s']:.1f} examples/s; host-prep "
@@ -4586,7 +5211,9 @@ def main() -> int:
           f"MMoE {engines['serve_mmoe_ms']:.4f}, FeedDNN "
           f"{engines['serve_feed_dnn_ms']:.4f} ms/batch; arenas "
           f"(train_stream run graphs, f32 dense) ms/step {arena_ms}, "
-          f"serving the int8 table {arenas['serve_int8_ms']:.4f} ms/batch")
+          f"serving the int8 table {arenas['serve_int8_ms']:.4f} ms/batch; "
+          f"dense optimizers (run graphs) ms/step {dense_ms}; "
+          f"disk ladder {disk['loop_s']:.2f} s for 4 worlds of 4 passes")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
 
@@ -4602,7 +5229,12 @@ def main() -> int:
                  "pass_loop": loop["launches"][wrapper.__name__],
                  "tiered_loop": tiered["launches"][wrapper.__name__],
                  **{path: counts[wrapper.__name__]
-                    for path, counts in engines["launches"].items()}}
+                    for path, counts in engines["launches"].items()},
+                 **{f"dense_{path}": counts.get(wrapper.__name__, 0)
+                    for path, counts in dense["launches"].items()},
+                 **{path: counts.get(wrapper.__name__, 0)
+                    for path, counts in {**disk["launches"],
+                                         **rest["launches"]}.items()}}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}
 

@@ -4,7 +4,7 @@ One training instance: per-slot uint64 feature ids and float values in CSR
 form, the label, and the fields a logkey or an instance id carries
 (search_id, cmatch, rank, ins_id). Records are allocated plainly: the
 reference's ``SlotRecordPool`` free list is not ported, nor are
-``merge_by_insid`` and ``replace_sparse_slots`` (ROADMAP A.2c).
+``merge_by_insid`` and ``replace_sparse_slots`` (ROADMAP A.2d).
 """
 
 from __future__ import annotations

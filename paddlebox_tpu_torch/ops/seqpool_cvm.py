@@ -9,8 +9,10 @@ click filter, embed filter and quantization of the non-CVM columns run
 before the pool.
 
 The default variant goes to ``ops.seqpool_kernel.seqpool_cvm`` (the CUDA
-kernel on the card); the filter and quant variants are plain PyTorch on
-every device, as they are XLA code and not a TPU kernel in the reference.
+kernel on the card); the filter and quant variants, and
+``fused_seqpool_cvm_with_conv`` and ``fused_seqpool_cvm_with_pcoc`` below,
+are plain PyTorch on every device, as they are XLA code and not a TPU
+kernel in the reference.
 
 The backward is the reference's straight-through rule (``_bwd``), not the
 derivative of the forward: every key of (b, s) takes the pooled output's
@@ -94,3 +96,140 @@ class _FusedSeqpoolCvm(torch.autograd.Function):
         segment_ids, cvm_in = ctx.saved_tensors
         d_emb = seqpool_cvm_grad(g, segment_ids, cvm_in, *ctx.dims)
         return (d_emb,) + (None,) * 13
+
+
+# -- the with_conv and with_pcoc variants ------------------------------------
+# (``paddlebox_tpu/ops/seqpool_cvm.py:140-269``): XLA in the reference,
+# plain PyTorch here on every device; the pool sums each (row, slot)'s keys
+# in key order, with no atomics, the backward is the straight-through rule
+# with the variant's own head columns.
+
+def _pool(emb, segment_ids, batch_size, num_slots, pad_value):
+    """``[B, S, D]`` sums of each (row, slot)'s keys plus ``pad_value``.
+
+    The keys are stably sorted by segment id and each segment summed from
+    0 in key order (``segment_reduce`` over offsets, one thread a segment
+    and column on CUDA), so the sums are the same bits on every run and
+    device, and the CPU's equal ``index_add_``'s. Ids in any order; ids
+    ``>= B*S`` are padding and dropped."""
+    B, S = batch_size, num_slots
+    ids, order = torch.sort(segment_ids.long(), stable=True)
+    offsets = torch.searchsorted(ids, torch.arange(B * S + 1,
+                                                   device=ids.device))
+    pooled = torch.segment_reduce(emb.float()[order], "sum", offsets=offsets,
+                                  axis=0, unsafe=True)
+    return (pooled + pad_value).reshape(B, S, -1)
+
+
+def _expand_grad(tail: torch.Tensor, cvm_cols: torch.Tensor,
+                 segment_ids: torch.Tensor, batch_size: int,
+                 num_slots: int) -> torch.Tensor:
+    """Per-key grads: the tail columns of each key's (row, slot), after
+    the head columns filled with its instance's ``cvm_cols``; padding keys
+    get zero rows (the reference's ``_expand_grad``)."""
+    B, S = batch_size, num_slots
+    segs = segment_ids.long()
+    tail = torch.cat([tail, tail.new_zeros((1, tail.shape[-1]))])
+    d_tail = tail[segs]
+    cvm_pad = torch.cat([cvm_cols, cvm_cols.new_zeros((1,
+                                                       cvm_cols.shape[-1]))])
+    d_cvm = cvm_pad[torch.clamp(segs // S, max=B)]
+    d_cvm = torch.where((segs < B * S)[:, None], d_cvm,
+                        d_cvm.new_zeros(()))
+    return torch.cat([d_cvm, d_tail], dim=-1)
+
+
+def fused_seqpool_cvm_with_conv(emb: torch.Tensor, segment_ids: torch.Tensor,
+                                cvm_in: torch.Tensor, batch_size: int,
+                                num_slots: int, use_cvm: bool = True,
+                                show_filter: bool = False,
+                                pad_value: float = 0.0) -> torch.Tensor:
+    """emb [Npad, 3+E] -> [B, S, 3+E] (or 2+E with ``show_filter``, E with
+    ``use_cvm=False``); the pooled head ``[show, clk, conv]`` becomes
+    ``[log(show+1), log(clk+1), log(conv+1) - log(clk+1)]``, the show
+    column dropped by ``show_filter``. ``cvm_in`` [B, 3] = per-instance
+    (show, clk, conv), written into the grad's first 3 columns."""
+    if cvm_in.shape[-1] != 3:
+        raise ValueError("with_conv needs cvm_in of width 3 (show,clk,conv)")
+    return _SeqpoolCvmWithConv.apply(emb, segment_ids, cvm_in, batch_size,
+                                     num_slots, use_cvm, show_filter,
+                                     pad_value)
+
+
+class _SeqpoolCvmWithConv(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, emb, segment_ids, cvm_in, batch_size, num_slots,
+                use_cvm, show_filter, pad_value):
+        ctx.save_for_backward(segment_ids, cvm_in)
+        ctx.dims = (batch_size, num_slots, use_cvm, show_filter)
+        pooled = _pool(emb, segment_ids, batch_size, num_slots, pad_value)
+        if not use_cvm:
+            return pooled[..., 3:]
+        log_show = torch.log(pooled[..., 0:1] + 1.0)
+        log_clk = torch.log(pooled[..., 1:2] + 1.0)
+        conv = torch.log(pooled[..., 2:3] + 1.0) - log_clk
+        head = [log_clk, conv] if show_filter else [log_show, log_clk, conv]
+        return torch.cat(head + [pooled[..., 3:]], dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        segment_ids, cvm_in = ctx.saved_tensors
+        B, S, use_cvm, show_filter = ctx.dims
+        head = 0 if not use_cvm else (2 if show_filter else 3)
+        tail = g.reshape(B * S, -1)[:, head:]
+        d_emb = _expand_grad(tail, cvm_in, segment_ids, B, S)
+        d_cvm = torch.zeros_like(cvm_in) if ctx.needs_input_grad[2] else None
+        return (d_emb, None, d_cvm) + (None,) * 5
+
+
+def fused_seqpool_cvm_with_pcoc(emb: torch.Tensor, segment_ids: torch.Tensor,
+                                cvm_in: torch.Tensor, q_values: torch.Tensor,
+                                batch_size: int, num_slots: int,
+                                pclk_num: int,
+                                pad_value: float = 0.0) -> torch.Tensor:
+    """emb [Npad, 4+P+E] -> [B, S, 2+2P+E]: the pooled head ``[show, clk,
+    show2, clk2, pclk_1..P]`` becomes ``[log(show+1), log(clk+1) -
+    log(show+1), log(pclk_i+1) - log(show2+1).., log(pclk_i+1) -
+    log(clk2+1)..]``. ``cvm_in`` [B, 4] (show, clk, show2, clk2) and
+    ``q_values`` [B, P] are written into the grad's first 4+P columns."""
+    if cvm_in.shape[-1] != 4:
+        raise ValueError("with_pcoc needs cvm_in width 4 "
+                         "(show, clk, show2, clk2)")
+    if q_values.shape[-1] != pclk_num:
+        raise ValueError(f"q_values width {q_values.shape[-1]} != "
+                         f"pclk_num {pclk_num}")
+    return _SeqpoolCvmWithPcoc.apply(emb, segment_ids, cvm_in, q_values,
+                                     batch_size, num_slots, pclk_num,
+                                     pad_value)
+
+
+class _SeqpoolCvmWithPcoc(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, emb, segment_ids, cvm_in, q_values, batch_size,
+                num_slots, pclk_num, pad_value):
+        ctx.save_for_backward(segment_ids, cvm_in, q_values)
+        ctx.dims = (batch_size, num_slots, pclk_num)
+        P = pclk_num
+        pooled = _pool(emb, segment_ids, batch_size, num_slots, pad_value)
+        log_show = torch.log(pooled[..., 0:1] + 1.0)
+        log_clk = torch.log(pooled[..., 1:2] + 1.0)
+        log_show2 = torch.log(pooled[..., 2:3] + 1.0)
+        log_clk2 = torch.log(pooled[..., 3:4] + 1.0)
+        log_pclk = torch.log(pooled[..., 4:4 + P] + 1.0)
+        return torch.cat([log_show, log_clk - log_show, log_pclk - log_show2,
+                          log_pclk - log_clk2, pooled[..., 4 + P:]], dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        segment_ids, cvm_in, q_values = ctx.saved_tensors
+        B, S, P = ctx.dims
+        tail = g.reshape(B * S, -1)[:, 2 + 2 * P:]
+        d_emb = _expand_grad(tail, torch.cat([cvm_in, q_values], dim=-1),
+                             segment_ids, B, S)
+        need = ctx.needs_input_grad
+        return (d_emb, None,
+                torch.zeros_like(cvm_in) if need[2] else None,
+                torch.zeros_like(q_values) if need[3] else None,
+                None, None, None, None)

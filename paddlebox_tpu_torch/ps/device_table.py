@@ -473,11 +473,21 @@ class DeviceTable:
                                          device=self.device)
         return self.mirror
 
+    def _gate_new_keys(self, keys: np.ndarray) -> np.ndarray:
+        """Admission hook on the insert paths (``prepare_batch`` with
+        ``create``, ``insert_keys``): a table with frequency admission
+        (``TieredDeviceTable``) maps new keys not yet admitted to the
+        padding key 0, which takes the null row (pulls zeros, its pushes
+        dropped, no insert). This table admits every key."""
+        return keys
+
     def insert_keys(self, keys: np.ndarray) -> int:
         """Insert ``keys`` (non-zero, new ones only) into the host index and
         the device mirror. Returns the count of new rows."""
         if self.mirror is None:
             raise RuntimeError("insert_keys needs enable_device_index()")
+        keys = self._gate_new_keys(np.ascontiguousarray(keys,
+                                                        dtype=np.uint64))
         _, _, _, n_new, slots, hi, lo, rows = self._index.prepare_dev(
             keys, True, skip_zero=True, next_row=self._size)
         self._add_rows(n_new)
@@ -521,6 +531,8 @@ class DeviceTable:
                       create: bool = True) -> DeviceBatchIndex:
         """Map a padded key array to arena rows + dedup index arrays."""
         keys = np.ascontiguousarray(keys, dtype=np.uint64)
+        if create:
+            keys = self._gate_new_keys(keys)
         if self.backend == "native":
             if self.mirror is not None and create:
                 # keep the device mirror in lockstep with the inserts

@@ -1,19 +1,22 @@
-"""A bounded device arena over a host table: tables larger than device
-memory (counterpart of ``paddlebox_tpu/ps/tiered_table.py``:
-``_TierJob``, ``_TierWorker`` and the single-device ``TieredDeviceTable``).
+"""A bounded device arena over a host table, over an optional disk tier:
+tables larger than device memory, and larger than host memory too
+(counterpart of ``paddlebox_tpu/ps/tiered_table.py``: ``_TierJob``,
+``_TierWorker`` and the single-device ``TieredDeviceTable``).
 
     TieredDeviceTable (device arena, fixed capacity)   <- trains here
-      └─ backing: EmbeddingTable (host DRAM)           <- holds every feature
+      └─ backing: EmbeddingTable (host DRAM)           <- holds the features
+           └─ optional DiskTier (ps/ssd_tier.py)       <- the cold ones
 
 Each pass's working set is staged from the backing into the arena, trained
 there by the unchanged ``FusedTrainStep``, and written back:
 
-- ``begin_feed_pass(pass_keys)``: dedup the pass's keys, export their rows
-  from the backing (``export_rows`` creates new features with their
-  key-deterministic init), rebuild the index pass-local (the null sentinel
-  at row 0, the W keys at rows 1..W), upload the rows in one ``index_copy_``
-  and resync the device index mirror, which is then as large as the
-  working set, not the table.
+- ``begin_feed_pass(pass_keys)``: dedup the pass's keys, decide admission
+  (below), fault the keys up — ``DiskTier.stage`` (disk -> DRAM) then
+  ``export_rows`` from the backing (which creates new features with their
+  key-deterministic init) — rebuild the index pass-local (the null
+  sentinel at row 0, the W keys at rows 1..W), upload the rows in one
+  ``index_copy_`` (padded to the staging buckets) and resync the device
+  index mirror, which is then as large as the working set, not the table.
 - training: ``TieredDeviceTable`` is a ``DeviceTable`` to the step. A key
   that comes mid-pass without having been staged takes a row past W (up to
   the capacity; the arena's random init there) and is created in the
@@ -24,23 +27,36 @@ there by the unchanged ``FusedTrainStep``, and written back:
   (its addresses stay, so a captured run survives the pass), then decay
   show/clk in the backing only.
 
-``prefetch_feed_pass`` runs the next pass's export on one FIFO worker
-thread (host work only: no CUDA call runs there) while the current pass
-trains; ``begin_feed_pass`` with the same keys consumes the buffers and is
-bit-exact against staging synchronously: the buffers replay each
-pass-end decay that hit the backing after the export, one multiply an
-epoch, and the rows an intervening writeback trained are exported again.
-``end_pass`` joins an in-flight prefetch before it writes back and decays.
-A prefetch for other keys, or one whose export failed on the worker, is
-dropped and the pass stages synchronously.
+Frequency admission (``admit=``, or ``PBOX_FLAGS_ps_admit_shows`` > 0;
+``ps/admission.py``): a brand-new key earns an arena row only once its
+count-min estimate of shows crosses the threshold; until then it maps to
+the null row (pulls zeros, its pushes dropped) and never gets a backing
+or disk row. The pass's counts are observed once, at ``begin_feed_pass``;
+the mid-pass insert paths (``prepare_batch``, ``insert_keys``, through
+``_gate_new_keys``) read the estimate only.
+
+The tier worker: one FIFO thread (host work only: no CUDA call runs
+there). ``prefetch_feed_pass`` runs the next pass's admission decision,
+disk reads and export on it while the current pass trains;
+``begin_feed_pass`` with the same keys consumes the buffers and is
+bit-exact against staging synchronously: the DRAM buffers replay each
+pass-end decay that hit the backing after the export (disk reads skip
+it, as rows still on disk would), the rows an intervening writeback
+trained are exported again, rows an intervening ``evict_cold`` spilled
+are restaged, and the disk reads are inserted at consume
+(``DiskTier.consume_read``: a row a push trained since wins). Under
+``PBOX_FLAGS_ps_tier_demote`` ``end_pass`` also hands the worker the
+writeback's import and the backing's decay, returning after the device
+download; ``_join_demote`` fences them before ``len``, saves, loads,
+shrink and ``evict_cold``. FIFO order keeps every result bit-identical
+to the synchronous path. A prefetch for other keys, or one whose job
+failed on the worker, is dropped and the pass stages synchronously.
 
 Saves flush a pass's trained rows into the backing first, then save the
-backing, the durable tier. Not ported, and refused with
-``NotImplementedError``: the disk tier (``disk=``, with its bloom filter)
-and frequency admission (``admit=``, ``PBOX_FLAGS_ps_admit_shows`` > 0),
-the deferred demote (``PBOX_FLAGS_ps_tier_demote``), other staging
-buckets than the default, and bfloat16, int8 or variable arenas (ROADMAP
-A.7b); the mesh-sharded tiered table (A.9).
+backing, the durable tier (the disk tier's chunk log is its own durable
+state, reopened by ``DiskTier(resume=True)``). Not ported, and refused
+with ``NotImplementedError``: bfloat16, int8 or variable arenas under the
+tiered table (ROADMAP A.7d); the mesh-sharded tiered table (A.9).
 """
 
 from __future__ import annotations
@@ -53,32 +69,35 @@ import numpy as np
 import torch
 
 from paddlebox_tpu_torch._device import DeviceLike
-from paddlebox_tpu_torch.config import BucketSpec, TableConfig, refuse_flags
+from paddlebox_tpu_torch.config import BucketSpec, TableConfig, env_flag
+from paddlebox_tpu_torch.ps import admission
 from paddlebox_tpu_torch.ps.device_table import _NULL_SENTINEL, DeviceTable
+from paddlebox_tpu_torch.ps.ssd_tier import DiskTier
 from paddlebox_tpu_torch.ps.table import EmbeddingTable
 
-# the reference's flags of the tiered table's unported features
-_REFUSED_FLAGS = (
-    ("ps_admit_shows", "A.7b", "frequency admission (ps/admission.py)"),
-    ("ps_tier_demote", "A.7b", "the deferred demote of a pass's writeback"),
-)
 _STAGE_BUCKETS = BucketSpec(min_size=256, max_size=1 << 26)
 
 
 class _TierJob:
-    """One unit of background tier work; ``error`` carries its failure to
-    whoever consumes the job."""
+    """One unit of background tier work; ``error`` carries its failure
+    (a prefetch's surfaces through its holder, a demote's through the
+    worker's pending errors)."""
 
-    def __init__(self, fn: Callable[[], None]):
+    def __init__(self, fn: Callable[[], None], surface: bool):
         self.fn = fn
+        self.surface = surface
         self.done = threading.Event()
         self.error: Optional[BaseException] = None
 
-    def run(self) -> None:
+    def run(self, on_error: Callable[["_TierJob"], None]) -> None:
         try:
             self.fn()
-        except BaseException as e:  # the submitter reads it
+        except BaseException as e:  # surfaced at the barrier
             self.error = e
+            # reported before done is set: a barrier woken by it must
+            # see the error, or a failed writeback import slips past a
+            # save's fence
+            on_error(self)
         finally:
             self.done.set()
 
@@ -87,18 +106,23 @@ class _TierJob:
 
 
 class _TierWorker:
-    """One FIFO daemon thread for the tier's host work: jobs run in the
-    order the training thread would have run them. The thread starts at the
-    first submit and again after it died; a failed start raises to the
-    submitter, which the next submit retries."""
+    """One FIFO daemon thread for the tier's host work: prefetch jobs and,
+    under ``ps_tier_demote``, the deferred writeback import and backing
+    decay. Jobs run in the order the training thread would have run them,
+    so overlap changes when the work happens, never what it computes. The
+    thread starts at the first submit and again after it died; a failed
+    start raises to the submitter, which the next submit retries."""
 
     def __init__(self):
         self._cv = threading.Condition()
-        self._jobs: collections.deque = collections.deque()
-        self._thread: Optional[threading.Thread] = None
+        self._jobs: collections.deque = collections.deque()  # guarded-by: _cv
+        self._thread: Optional[threading.Thread] = None      # guarded-by: _cv
+        self._tail: Optional[_TierJob] = None                # guarded-by: _cv
+        self._errors: list = []                              # guarded-by: _cv
 
-    def submit(self, fn: Callable[[], None]) -> _TierJob:
-        job = _TierJob(fn)
+    def submit(self, fn: Callable[[], None],
+               surface_errors: bool = False) -> _TierJob:
+        job = _TierJob(fn, surface_errors)
         with self._cv:
             if self._thread is None or not self._thread.is_alive():
                 th = threading.Thread(target=self._run, daemon=True,
@@ -106,6 +130,7 @@ class _TierWorker:
                 th.start()          # may raise: nothing was enqueued
                 self._thread = th
             self._jobs.append(job)
+            self._tail = job
             self._cv.notify()
         return job
 
@@ -115,19 +140,41 @@ class _TierWorker:
                 while not self._jobs:
                     self._cv.wait()
                 job = self._jobs.popleft()
-            job.run()
+            job.run(self._on_job_error)
+
+    def _on_job_error(self, job: _TierJob) -> None:
+        if job.surface:
+            with self._cv:
+                self._errors.append(job.error)
+
+    def barrier(self) -> None:
+        """Wait for every submitted job; re-raise the first failed demote
+        (a lost writeback must not be silent)."""
+        while True:
+            with self._cv:
+                tail = self._tail
+            if tail is None or tail.done.is_set():
+                break
+            tail.wait()
+        with self._cv:
+            errs, self._errors = self._errors, []
+        if errs:
+            raise errs[0]
 
 
 class TieredDeviceTable(DeviceTable):
     """A ``DeviceTable`` of fixed ``capacity`` whose contents are a pass's
     working set staged from ``backing`` (a host ``EmbeddingTable``, built
-    with ``backend`` when not given): ``capacity`` bounds device memory,
-    the backing bounds the feature space."""
+    with ``backend`` when not given) and its optional ``disk`` tier:
+    ``capacity`` bounds device memory, the backing and the disk bound the
+    feature space. ``admit``: a ``CountMinAdmission``, None to follow the
+    ``ps_admit_*`` flags, or ``admission.DISABLED``. ``stage_buckets``:
+    the widths a staging upload is padded to."""
 
     def __init__(self, conf: TableConfig,
                  backing: Optional[EmbeddingTable] = None,
                  capacity: int = 1 << 20,
-                 disk=None,
+                 disk: Optional[DiskTier] = None,
                  uniq_buckets: Optional[BucketSpec] = None,
                  backend: Optional[str] = None,
                  index_threads: int = 0,
@@ -135,25 +182,12 @@ class TieredDeviceTable(DeviceTable):
                  admit=None,
                  stage_buckets: Optional[BucketSpec] = None,
                  device: DeviceLike = None):
-        if disk is not None:
-            raise NotImplementedError(
-                "the disk tier (DiskTier, ps/ssd_tier.py, with its bloom "
-                "filter) is not ported yet (ROADMAP A.7b)")
-        if admit is not None:
-            raise NotImplementedError(
-                "frequency admission (admit=, ps/admission.py) is not "
-                "ported yet (ROADMAP A.7b)")
-        if stage_buckets is not None and stage_buckets != _STAGE_BUCKETS:
-            raise NotImplementedError(
-                f"stage_buckets={stage_buckets}: only the default staging "
-                "buckets are ported (ROADMAP A.7b)")
-        refuse_flags(_REFUSED_FLAGS)
         if value_dtype != torch.float32 or conf.variable_embedding:
             raise NotImplementedError(
                 f"value_dtype {value_dtype}, variable_embedding "
                 f"{conf.variable_embedding}: low-precision and variable "
                 "arenas under TieredDeviceTable are not ported yet (ROADMAP "
-                "A.7b); the tiered table stages float32 arenas")
+                "A.7d); the tiered table stages float32 arenas")
         if backing is not None and not isinstance(backing, EmbeddingTable):
             raise NotImplementedError(
                 f"backing {type(backing).__name__}: only the host "
@@ -161,10 +195,20 @@ class TieredDeviceTable(DeviceTable):
                 "cross-host DistributedTable is ROADMAP A.9)")
         self.backing = backing if backing is not None else \
             EmbeddingTable(conf, backend=backend)
-        self._stage_buckets = _STAGE_BUCKETS
+        # staging-width buckets: admission makes W swing from pass to
+        # pass; the upload is padded to geometric widths
+        self._stage_buckets = stage_buckets if stage_buckets is not None \
+            else _STAGE_BUCKETS
+        self.disk = disk
         self.in_pass = False
         self.staged_keys: Optional[np.ndarray] = None
+        self._admit = admission.resolve(admit)
+        if disk is not None:
+            disk.live_keys_fn = self._live_pass_keys
+            disk.demote_fence_fn = self._join_demote
         self._worker = _TierWorker()
+        # whether end_pass left demote jobs the next backing access joins
+        self._pending_demote = False
         # the asynchronous feed pass: one prefetch in flight, the decay
         # epochs since its export and the keys writebacks trained since.
         # prefetch_feed_pass runs on the caller's thread while writeback
@@ -192,24 +236,94 @@ class TieredDeviceTable(DeviceTable):
                 f"capacity {self.capacity}; split the pass or raise "
                 "capacity=")
 
+    # -- admission -----------------------------------------------------------
+
+    def _live_pass_keys(self) -> Optional[np.ndarray]:
+        """The open pass's staged keys, which ``DiskTier.evict_cold``
+        skips."""
+        return self.staged_keys if self.in_pass else None
+
+    def _admit_pass(self, uniq: np.ndarray,
+                    counts: np.ndarray) -> np.ndarray:
+        """The pass's admission decision (observes its shows)."""
+        if self._admit is None:
+            return uniq
+        adm, _a, _r = admission.admit_pass_keys(
+            uniq, counts, self.backing, self.disk, self._admit)
+        return adm
+
+    def _gate_new_keys(self, keys: np.ndarray) -> np.ndarray:
+        """Map the new keys not admitted yet to the padding key 0 (the null
+        row); read-only on the sketch."""
+        adm = self._admit
+        if adm is None:
+            return keys
+        uniq = np.unique(keys)
+        uniq = uniq[uniq != 0]
+        if not uniq.size:
+            return keys
+        rows, _ = self._index.lookup(uniq, False, True, 0)
+        missing = rows < 0
+        if not missing.any():
+            return keys
+        cand = uniq[missing]
+        ok = admission.known_keys(cand, self.backing, self.disk) | \
+            adm.admitted(cand)
+        rejected = cand[~ok]
+        if not rejected.size:
+            return keys
+        out = keys.copy()
+        out[np.isin(keys, rejected)] = 0
+        return out
+
     # -- pass staging --------------------------------------------------------
 
     @staticmethod
-    def _pass_uniq(pass_keys: np.ndarray) -> np.ndarray:
-        uniq = np.unique(np.ascontiguousarray(pass_keys, dtype=np.uint64))
-        return uniq[uniq != 0]
+    def _pass_uniq(pass_keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """The pass's non-zero unique keys and their occurrence counts."""
+        keys = np.ascontiguousarray(pass_keys, dtype=np.uint64)
+        uniq, counts = np.unique(keys, return_counts=True)
+        live = uniq != 0
+        return uniq[live], counts[live]
 
     def prefetch_feed_pass(self, pass_keys: np.ndarray) -> None:
-        """Start exporting the NEXT pass's working set on the tier worker
-        while the current pass trains; the ``begin_feed_pass`` with the
-        same keys consumes it."""
-        uniq = self._pass_uniq(pass_keys)
+        """Start staging the NEXT pass's working set on the tier worker
+        while the current pass trains: the admission decision (pinned to
+        the epoch the consuming ``begin_feed_pass`` runs at), the disk
+        reads and the export from the backing. The ``begin_feed_pass``
+        with the same keys consumes it."""
+        raw_uniq, counts = self._pass_uniq(pass_keys)
         self._join_prefetch()       # one in flight; replace a stale one
+        admit = self._admit
+        # the consuming begin_feed_pass runs after this pass's end_pass
+        # advanced the sketch's epoch (no pass open: no advance)
+        decide_epoch = (admit.epoch + (1 if self.in_pass else 0)) \
+            if admit is not None else None
         epoch0 = self._decay_epoch
         holder: dict = {}
+        if self.disk is not None:
+            self.disk.mark_spills()
 
         def work():
-            holder["out"] = self.backing.export_rows(uniq, create=True)
+            try:
+                if admit is not None:
+                    uniq, _a, _r = admission.admit_pass_keys(
+                        raw_uniq, counts, self.backing, self.disk, admit,
+                        at_epoch=decide_epoch)
+                else:
+                    uniq = raw_uniq
+                holder["admitted"] = uniq
+                if self.disk is not None:
+                    dk, dv, ds, dok, dmeta = self.disk.read_rows(uniq)
+                else:
+                    dk = np.empty(0, np.uint64)
+                    dv = ds = dok = dmeta = None
+                rest = uniq if not dk.size else \
+                    uniq[~np.isin(uniq, dk, assume_unique=True)]
+                rv, rs = self.backing.export_rows(rest, create=True)
+                holder["out"] = (dk, dv, ds, dok, dmeta, rest, rv, rs)
+            except Exception as e:  # the consume stages synchronously
+                holder["error"] = e
 
         # submit and publish in one critical section, publishing after the
         # submit: a failed submit (the worker's thread did not start)
@@ -218,11 +332,15 @@ class TieredDeviceTable(DeviceTable):
             try:
                 job = self._worker.submit(work)
             except Exception:
+                # mark_spills above reset the journal a published
+                # predecessor needed: drop it and clear the mark
                 self._prefetch = None
                 self._wb_keys_since = []
+                if self.disk is not None:
+                    self.disk.spilled_since_mark()
                 raise
             self._wb_keys_since = []
-            self._prefetch = (uniq, holder, job, epoch0)
+            self._prefetch = (raw_uniq, holder, job, epoch0, decide_epoch)
 
     def _join_prefetch(self) -> None:
         with self._pf_lock:
@@ -230,11 +348,12 @@ class TieredDeviceTable(DeviceTable):
         if pf is not None:
             pf[2].wait()
 
-    def _consume_prefetch(self, uniq: np.ndarray):
-        """(vals, state) of the prefetch for ``uniq``, made equal to a
-        synchronous export now; None when no prefetch, or one for other
-        keys, is there, or when its export failed on the worker (the caller
-        then stages synchronously, as the reference does)."""
+    def _consume_prefetch(self, raw_uniq: np.ndarray):
+        """(admitted, vals, state) of the prefetch for ``raw_uniq``, made
+        equal to a synchronous stage now; None when no prefetch, or one
+        for other keys or another epoch, is there, or when its job failed
+        (the caller then decides and stages synchronously, as the
+        reference does)."""
         with self._pf_lock:
             pf = self._prefetch
             self._prefetch = None
@@ -242,28 +361,65 @@ class TieredDeviceTable(DeviceTable):
             self._wb_keys_since = []
         if pf is None:
             return None
-        puniq, holder, job, epoch0 = pf
+        praw, holder, job, epoch0, decide_epoch = pf
         job.wait()
-        if job.error is not None or not np.array_equal(puniq, uniq):
+        spilled = (self.disk.spilled_since_mark()
+                   if self.disk is not None else np.empty(0, np.uint64))
+        if "error" in holder or not np.array_equal(praw, raw_uniq):
             return None
-        vals, state = holder["out"]
+        if self._admit is not None and decide_epoch != self._admit.epoch:
+            return None
+        admitted = holder["admitted"]
+        dk, dv, ds, dok, dmeta, rk, rv, rs = holder["out"]
         # (1) the pass-end decays that hit the backing after the export:
-        # one multiply an epoch, the backing's own op (d**n in one multiply
-        # is not bit-equal). end_pass joins the export before it decays,
-        # so the count is exact.
+        # the DRAM buffers replay them, one multiply an epoch, the
+        # backing's own op (d**n in one multiply is not bit-equal); disk
+        # reads skip them, as rows still on disk would. end_pass joins
+        # the export before it decays, so the count is exact.
         d = self.conf.show_clk_decay
         if d < 1.0:
             for _ in range(self._decay_epoch - epoch0):
-                vals[:, 0:2] *= d
+                rv[:, 0:2] *= d
         # (2) the rows an intervening writeback trained: export again
-        if wb_since and uniq.size:
+        if wb_since and rk.size:
             wb = np.unique(np.concatenate(wb_since))
-            stale = np.isin(uniq, wb, assume_unique=True)
+            stale = np.isin(rk, wb, assume_unique=True)
             if stale.any():
-                fv, fs = self.backing.export_rows(uniq[stale], create=True)
-                vals[stale] = fv
-                state[stale] = fs
-        return vals, state
+                fv, fs = self.backing.export_rows(rk[stale], create=True)
+                rv[stale] = fv
+                rs[stale] = fs
+        # (2b) DRAM rows an intervening evict_cold spilled: restage them
+        # (the state a synchronous stage would find) and export again
+        if spilled.size and rk.size:
+            moved = np.isin(rk, spilled, assume_unique=True)
+            if moved.any():
+                self.disk.stage(rk[moved])
+                fv, fs = self.backing.export_rows(rk[moved], create=True)
+                rv[moved] = fv
+                rs[moved] = fs
+        # (3) the disk reads: insert now. Rows the freshness guards
+        # rejected (a trained DRAM copy or a newer spill won) and rows
+        # whose embedx is not materialized take the export instead
+        if dk.size:
+            stale_d = self.disk.consume_read(dk, dv, ds, dok, dmeta)
+            need = ~dok
+            if stale_d.size:
+                need |= np.isin(dk, stale_d, assume_unique=True)
+            if need.any():
+                fv, fs = self.backing.export_rows(dk[need], create=True)
+                dv[need] = fv
+                ds[need] = fs
+        vals = np.empty((admitted.size, rv.shape[1]), np.float32)
+        state = np.empty((admitted.size, rs.shape[1]), np.float32)
+        if rk.size:
+            pos = np.searchsorted(admitted, rk)
+            vals[pos] = rv
+            state[pos] = rs
+        if dk.size:
+            pos = np.searchsorted(admitted, dk)
+            vals[pos] = dv
+            state[pos] = ds
+        return admitted, vals, state
 
     def begin_feed_pass(self, pass_keys: np.ndarray) -> int:
         """Stage the pass's working set into the arena; returns W, the
@@ -271,14 +427,22 @@ class TieredDeviceTable(DeviceTable):
         matching ``prefetch_feed_pass``."""
         if self.in_pass:
             raise RuntimeError("previous pass not ended (call end_pass)")
-        uniq = self._pass_uniq(pass_keys)
-        w = int(uniq.size)
-        staged = self._consume_prefetch(uniq)
-        self._check_capacity(w)
+        raw_uniq, counts = self._pass_uniq(pass_keys)
+        # join the previous end_pass's deferred demote (and raise its
+        # failure) before any membership read or staging
+        self._worker.barrier()
+        staged = self._consume_prefetch(raw_uniq)
         if staged is None:
+            uniq = self._admit_pass(raw_uniq, counts)
+            w = int(uniq.size)
+            self._check_capacity(w)
+            if self.disk is not None:
+                self.disk.stage(uniq)       # disk -> DRAM first
             vals, state = self.backing.export_rows(uniq, create=True)
         else:
-            vals, state = staged
+            uniq, vals, state = staged
+            w = int(uniq.size)
+            self._check_capacity(w)
         # the pass-local index: key -> arena row 1..W, row 0 the null row
         self._rebuild_index(uniq)
         if w:
@@ -341,12 +505,26 @@ class TieredDeviceTable(DeviceTable):
                 self._wb_keys_since.append(keys)
 
     def end_pass(self) -> None:
-        """Write back, reset the index and the arena, decay the backing."""
+        """Write back, reset the index and the arena, decay the backing.
+        Under ``PBOX_FLAGS_ps_tier_demote`` the backing's import of the
+        downloaded rows and its decay run as jobs on the tier worker, and
+        the next ``begin_feed_pass`` or backing access joins them."""
         # the export in flight must finish before the writeback and the
         # decay: its consume then replays exactly what it missed
         self._join_prefetch()
+        demote_async = bool(env_flag("ps_tier_demote", False))
         if self.in_pass:
-            self.writeback()
+            if demote_async:
+                keys, vals, state = self._download_dirty()
+                if keys is not None:
+                    self._worker.submit(
+                        lambda: self.backing.import_rows(keys, vals, state),
+                        surface_errors=True)
+                    self._record_wb_keys(keys)
+                    self._clear_dirty()
+                    self._pending_demote = True
+            else:
+                self.writeback()
             self.in_pass = False
             self.staged_keys = None
             # a mid-pass new key of the next pass takes a row past the
@@ -358,14 +536,28 @@ class TieredDeviceTable(DeviceTable):
                 self.mirror.clear()
         # decay lives in the backing, which holds every feature between
         # passes (DeviceTable.end_pass would decay the staged rows again)
-        self.backing.end_pass()
+        if demote_async:
+            self._worker.submit(self.backing.end_pass, surface_errors=True)
+            self._pending_demote = True
+        else:
+            self.backing.end_pass()
+        if self._admit is not None:
+            self._admit.advance_epoch()
         self._decay_epoch += 1
+
+    def _join_demote(self) -> None:
+        """Fence the deferred demote before a synchronous backing access;
+        raises its failure."""
+        if self._pending_demote:
+            self._worker.barrier()
+            self._pending_demote = False
 
     # -- persistence: the backing is the durable tier ------------------------
     # a save mid-pass writes the pass's trained rows back first; training
     # may go on after it
 
     def _flush_for_save(self) -> None:
+        self._join_demote()
         if self.in_pass:
             self.writeback()
 
@@ -391,24 +583,29 @@ class TieredDeviceTable(DeviceTable):
         return self.backing.snapshot_delta()
 
     def mark_dirty(self, keys) -> None:
+        self._join_demote()
         self.backing.mark_dirty(keys)
 
     def load(self, path: str) -> None:
         if self.in_pass:
             raise RuntimeError("load during an open pass")
+        self._join_demote()
         self.backing.load(path)
 
     def load_delta(self, path: str) -> None:
         if self.in_pass:
             raise RuntimeError("load_delta during an open pass")
+        self._join_demote()
         self.backing.load_delta(path)
 
     def shrink(self) -> int:
         if self.in_pass:
             raise RuntimeError("shrink during an open pass")
+        self._join_demote()
         return self.backing.shrink()
 
     def __len__(self) -> int:
+        self._join_demote()
         return len(self.backing)
 
     def backing_bytes(self) -> int:

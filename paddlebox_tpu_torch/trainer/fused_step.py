@@ -72,9 +72,12 @@ loss)``, called once a dispatch (a step, a chunk, an eager run of
 count and its sentinels and losses as device tensors, read by nobody on
 the way: the callback must not synchronize.
 
+``TrainerConfig.recompute`` runs the model's forward again inside the
+backward (``train_step.apply_model``), in the run graphs too.
+
 Not ported yet: the "deferred" insert mode with its device miss ring
-(ROADMAP A.3b), the staged device feed of ``train_stream`` (``feed=``,
-A.4) and recompute.
+(ROADMAP A.3b) and the staged device feed of ``train_stream`` (``feed=``,
+A.4).
 """
 
 from __future__ import annotations
@@ -93,11 +96,11 @@ from paddlebox_tpu_torch.metrics.auc import auc_update, new_auc_state
 from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.trainer.step_graph import RunGraphs
-from paddlebox_tpu_torch.trainer.train_step import (compute_dtype,
+from paddlebox_tpu_torch.trainer.train_step import (apply_model,
+                                                    compute_dtype,
                                                     full_float32_matmuls,
                                                     make_dense_optimizer,
-                                                    masked_bce_loss,
-                                                    refuse_unported)
+                                                    masked_bce_loss)
 
 
 _TORCH_DTYPES = {np.dtype(np.int64): torch.int64,
@@ -155,7 +158,6 @@ class FusedTrainStep:
             raise NotImplementedError(
                 "insert_mode='deferred' (the device miss ring, poll_misses) "
                 "is not ported yet (ROADMAP A.3b)")
-        refuse_unported(trainer_conf)
         full_float32_matmuls()
         self.model = model
         self.table = table
@@ -173,6 +175,7 @@ class FusedTrainStep:
         self.cvm_dim = self.seqpool_kwargs.get("cvm_offset", 2)
         self.optimizer = make_dense_optimizer(trainer_conf)
         self.compute_dtype = compute_dtype(trainer_conf)
+        self.recompute = bool(trainer_conf.recompute)
         # the last step's numeric sentinel (a device bool), and the hook
         # each dispatch hands its sentinels to
         self.bad_flag: Optional[torch.Tensor] = None
@@ -289,7 +292,8 @@ class FusedTrainStep:
         sparse = fused_seqpool_cvm(
             emb, segment_ids, cvm_in, self.batch_size, self.num_slots,
             self.use_cvm, **self.seqpool_kwargs)
-        return params(sparse.to(dtype), dense.to(dtype)).float()
+        return apply_model(params, sparse.to(dtype), dense.to(dtype),
+                           self.recompute).float()
 
     # -- public --------------------------------------------------------------
 

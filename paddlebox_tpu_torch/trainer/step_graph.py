@@ -92,12 +92,15 @@ class LaunchDelta:
         return {w.__name__: d for w, d in zip(self.wrappers, self.delta)}
 
 
-def _state_tensors(state: Any) -> Iterator[torch.Tensor]:
-    """The tensors of an optimizer or AUC state, in key order."""
+def state_tensors(state: Any) -> Iterator[torch.Tensor]:
+    """The tensors of an optimizer or AUC state, in key order (a nested
+    state, such as gradient merging's inner one, in its own)."""
     for k in sorted(state):
         v = state[k]
         if isinstance(v, torch.Tensor):
             yield v
+        elif isinstance(v, dict):
+            yield from state_tensors(v)
         else:
             yield from v
 
@@ -114,7 +117,7 @@ def run_key(fs, params, opt_state, auc_state, shape) -> tuple:
 
     return (shape, at((t.values, t.state, m.tab, t.dirty_dev)), m.mask,
             m.window, at(params.parameters()),
-            at(_state_tensors(opt_state)), at(_state_tensors(auc_state)))
+            at(state_tensors(opt_state)), at(state_tensors(auc_state)))
 
 
 class RunGraph:

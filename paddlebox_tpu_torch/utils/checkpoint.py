@@ -11,9 +11,11 @@ anything with ``shape`` and ``dtype``).
 A dense state ``(model, opt_state)``, the pair a checkpoint's
 ``dense.npz`` holds, has the leaves of the reference's ``(params,
 opt_state)``: the model's flax leaves (``models/convert.py``), then the
-optimizer's in optax's order: adam's and adamw's ``count``, ``mu``,
-``nu``, adagrad's ``sum_of_squares``, none for sgd; each per-parameter
-list in the flax leaf order, kernels transposed.
+optimizer's in optax's order: adam's, adamw's and lamb's ``count``,
+``mu``, ``nu``, adagrad's ``sum_of_squares``, lars's ``trace``, none for
+sgd; under gradient merging (``optax.MultiSteps``) ``mini_step``,
+``gradient_step``, the inner optimizer's leaves, then ``acc_grads``. Each
+per-parameter list is in the flax leaf order, kernels transposed.
 """
 
 from __future__ import annotations
@@ -29,8 +31,10 @@ from paddlebox_tpu_torch.models.convert import flax_order
 __all__ = ["leaf_arrays", "write_npz", "save_leaves", "load_leaves",
            "dense_arrays", "load_dense"]
 
-# the optimizer state's fields in optax's leaf order
-_OPT_FIELDS = ("count", "mu", "nu", "sum_of_squares")
+# the optimizer state's fields in optax's leaf order ("inner" is the
+# state of the optimizer that gradient merging wraps)
+_OPT_FIELDS = ("mini_step", "gradient_step", "inner", "count", "mu", "nu",
+               "sum_of_squares", "trace", "acc_grads")
 
 
 def leaf_arrays(leaves: Sequence[np.ndarray]) -> Dict[str, np.ndarray]:
@@ -73,17 +77,25 @@ def _dense_tensors(dense_state: Any) -> List[Tuple[torch.Tensor, bool]]:
             from None
     order = flax_order(model)
     params = list(model.parameters())
-    out = [(params[j].detach(), kernel) for j, kernel in order]
+    return [(params[j].detach(), kernel) for j, kernel in order] + \
+        _opt_tensors(opt_state, order)
+
+
+def _opt_tensors(opt_state: Dict[str, Any], order
+                 ) -> List[Tuple[torch.Tensor, bool]]:
     unknown = set(opt_state) - set(_OPT_FIELDS)
     if unknown:
         raise ValueError(f"optimizer state fields {sorted(unknown)} have no "
                          "leaf order")
+    out: List[Tuple[torch.Tensor, bool]] = []
     for field in _OPT_FIELDS:
         if field not in opt_state:
             continue
         v = opt_state[field]
         if isinstance(v, torch.Tensor):
             out.append((v, False))
+        elif isinstance(v, dict):
+            out += _opt_tensors(v, order)
         else:
             out += [(v[j], kernel) for j, kernel in order]
     return out

@@ -600,51 +600,40 @@ def test_bf16_steps_match_reference(model_dtype):
             np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
 
 
-def rounded_jax_train_step():
-    """The reference's host ``TrainStep`` with its model's inputs rounded
-    to bfloat16 and its logits cast back, as the reference's fused step
-    casts them under ``bf16`` (``fused_step.py:205-207``): the plain
-    computation the port's ``TrainStep`` is held to under ``bf16``, which
-    the reference's own ``TrainStep`` ignores."""
+@pytest.mark.parametrize("model_dtype", ["f32", "bf16"])
+def test_train_step_ignores_bf16_as_reference(model_dtype):
+    """The host engine's ``TrainStep`` under ``bf16=True`` ignores the
+    flag, as the reference's ``TrainStep`` does: the model takes float32
+    inputs. Three steps against the reference's ``TrainStep(bf16=True)``
+    (a plain one: no cast added) from the same weights: over a float32
+    model, loss, preds, ``predict``, demb and the dense params within
+    1e-5 and demb's show/clk exact, and every output bit for bit the
+    port's ``bf16=False`` step; over a model of ``dtype`` bfloat16 (which
+    casts its float32 inputs itself, as flax's does), the same within the
+    bfloat16 tolerances."""
     from paddlebox_tpu.trainer.train_step import TrainStep as JaxTrainStep
-
-    class Rounded(JaxTrainStep):
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            apply = self.model.apply
-            self._apply = lambda p, s, d: apply(
-                p, s.astype(jnp.bfloat16),
-                d.astype(jnp.bfloat16)).astype(jnp.float32)
-
-        def _predict(self, params, emb, segment_ids, cvm_in, dense):
-            return jax.nn.sigmoid(self._apply(
-                params, self._features(emb, segment_ids, cvm_in), dense))
-
-    return Rounded
-
-
-def test_train_step_takes_the_casts():
-    """The host engine's ``TrainStep`` under ``bf16`` casts as the fused
-    step does: two steps match the reference's host step on
-    bfloat16-rounded model inputs (loss, preds, predict, demb and the
-    dense params within 1e-5, demb's show/clk exact), and differ from
-    the port's float32 step."""
     from paddlebox_tpu_torch.trainer.train_step import TrainStep
     conf = TableConfig(embedx_dim=8, cvm_offset=3)
     rng = np.random.default_rng(3)
-    batches = make_batches(3, 2)
+    batches = make_batches(3, 3)
     emb = (rng.normal(size=(NPAD, 11)) * 0.3).astype(np.float32)
     emb[:, :2] = np.abs(emb[:, :2]) * 5
     tkw = dict(bf16=True, dense_optimizer="sgd", dense_learning_rate=0.05)
-    jstep = rounded_jax_train_step()(
-        FlaxDeepFM(hidden=HIDDEN), JaxTableConfig(embedx_dim=8, cvm_offset=3),
+    bf16_model = model_dtype == "bf16"
+    flax_kw = {"dtype": jnp.bfloat16} if bf16_model else {}
+    jstep = JaxTrainStep(
+        FlaxDeepFM(hidden=HIDDEN, **flax_kw),
+        JaxTableConfig(embedx_dim=8, cvm_offset=3),
         JaxTrainerConfig(**tkw), B, S, DD)
     jparams, jopt = jstep.init(jax.random.PRNGKey(2))
     jauc = jstep.init_auc_state()
+    rtol, atol = (BF16_RTOL, BF16_ATOL) if bf16_model else (1e-5, 1e-6)
     out = {}
     for bf16 in (True, False):
-        model = build_model("DeepFM", {"hidden": list(HIDDEN)},
-                            S * 11 + DD)
+        model = build_model(
+            "DeepFM", {"hidden": list(HIDDEN),
+                       **({"dtype": torch.bfloat16} if bf16_model else {})},
+            S * 11 + DD)
         load_flax_leaves(model, leaves_of(jparams))
         step = TrainStep(model, conf, TrainerConfig(**{**tkw, "bf16": bf16}),
                          B, S, DD, device="cpu")
@@ -664,16 +653,22 @@ def test_train_step_takes_the_casts():
             jparams, jopt, jauc, emb, segs, cvm, labels, dense, mask)
         jdemb = np.asarray(jdemb)
         np.testing.assert_array_equal(got[0][:, :2], jdemb[:, :2])
-        np.testing.assert_allclose(got[0], jdemb, rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(got[1], float(jloss), rtol=1e-5)
-        np.testing.assert_allclose(got[2], np.asarray(jpreds), rtol=1e-5,
-                                   atol=1e-6)
+        np.testing.assert_allclose(got[0], jdemb, rtol=rtol, atol=atol)
+        np.testing.assert_allclose(got[1], float(jloss), rtol=rtol)
+        np.testing.assert_allclose(got[2], np.asarray(jpreds), rtol=rtol,
+                                   atol=atol)
         np.testing.assert_allclose(got[3], np.asarray(jstep.predict(
-            jparams, emb, segs, cvm, dense)), rtol=1e-5, atol=1e-6)
+            jparams, emb, segs, cvm, dense)), rtol=rtol, atol=atol)
     for got, want in zip(out[True][-1], leaves_of(jparams)):
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
-    assert not np.array_equal(out[True][0][0], out[False][0][0])
-    assert out[True][0][1] != out[False][0][1]
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+    # the flag changes nothing in the host step
+    for a, b in zip(out[True][:-1], out[False][:-1]):
+        np.testing.assert_array_equal(a[0], b[0])
+        assert a[1] == b[1]
+        np.testing.assert_array_equal(a[2], b[2])
+        np.testing.assert_array_equal(a[3], b[3])
+    for a, b in zip(out[True][-1], out[False][-1]):
+        np.testing.assert_array_equal(a, b)
 
 
 # -- the numeric-sentinel hook -------------------------------------------------

@@ -259,10 +259,12 @@ def test_step_device_needs_device_prep():
                        insert_mode="eager")
 
 
-@pytest.mark.parametrize("name", ["adam", "adamw", "sgd", "adagrad"])
+@pytest.mark.parametrize("name", ["adam", "adamw", "sgd", "adagrad", "lars",
+                                  "lamb"])
 def test_dense_optimizer_matches_optax(name):
     """Three steps of random grads on a small module; optax's adagrad
-    starts its accumulator at 0.1 with eps inside the sqrt."""
+    starts its accumulator at 0.1 with eps inside the sqrt; lars and lamb
+    take their trust ratios per parameter tensor."""
     rng = np.random.default_rng(4)
     conf = TrainerConfig(dense_optimizer=name, dense_learning_rate=0.01,
                          dense_weight_decay=0.1)
@@ -303,17 +305,20 @@ def test_masked_loss_matches_optax():
 
 
 def test_unported_options_raise():
-    """The step's own unported options. The four fields of the trainer
-    loop (dense_sync_steps, metrics, num_devices, profile) are
-    CTRTrainer's: tests/test_torch_trainer.py::test_trainer_config_fields
-    holds them."""
+    """The step's own unported option, the deferred insert mode. The
+    options once refused here (lars, lamb, gradient merging, recompute)
+    build now (``tests/test_torch_dense_optim.py`` holds them to the
+    reference). The four fields of the trainer loop (dense_sync_steps,
+    metrics, num_devices, profile) are CTRTrainer's:
+    tests/test_torch_trainer.py::test_trainer_config_fields holds them."""
     table = DeviceTable(TableConfig(embedx_dim=EDIM), capacity=16,
                         device="cpu")
     model = torch.nn.Linear(1, 1)
-    for bad in ({"dense_optimizer": "lars"}, {"dense_optimizer": "lamb"},
-                {"grad_merge_steps": 2}, {"recompute": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            FusedTrainStep(model, table, TrainerConfig(**bad), B, S)
+    for ported in ({"dense_optimizer": "lars"}, {"dense_optimizer": "lamb"},
+                   {"grad_merge_steps": 2}, {"recompute": True}):
+        fs = FusedTrainStep(model, table, TrainerConfig(**ported), B, S)
+        assert fs.recompute == ported.get("recompute", False)
+        assert fs.optimizer.every_k == ported.get("grad_merge_steps", 1)
     with pytest.raises(NotImplementedError, match="ROADMAP A.3b"):
         FusedTrainStep(model, table, TrainerConfig(), B, S, device_prep=True,
                        insert_mode="deferred")

@@ -3,8 +3,9 @@ the package, in chip_smoke.py, kernel_versions.py or pass_versions.py; it
 serves, trains and runs a trainer pass, from a dataset and straight off
 files, a day/pass loop with its checkpoints and resume, and that loop over
 a tiered table with its host backing and prefetched feed pass, and the
-host-table engine with an MMoE step, and a step over an int8 arena, with
-them blocked; its entry points
+host-table engine with an MMoE step, a step over an int8 arena, and the
+disk ladder with the dense lars, lamb and gradient merging and the cvm
+ops, with them blocked; its entry points
 default to the card and raise without one (the trainer too); its kernel
 modules import without a CUDA toolkit."""
 
@@ -575,6 +576,92 @@ def test_tiered_loop_with_jax_blocked(tmp_path):
     """)
     assert res.returncode == 0, res.stderr
     assert "TIERED_LOOP" in res.stdout
+
+
+def test_disk_ladder_and_ops_with_jax_blocked(tmp_path):
+    """The disk ladder (``utils/faults.py``, ``ps/bloom.py``,
+    ``ps/admission.py``, ``ps/ssd_tier.py`` under the tiered table with
+    admission, the prefetch and the deferred demote), the dense lars,
+    lamb and gradient merging, and ``ops/cvm.py`` with the seqpool
+    variants, run with jax and paddlebox_tpu blocked."""
+    res = _run(f"""
+        import os, sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        os.environ["PBOX_FLAGS_ps_tier_demote"] = "1"
+        import numpy as np
+        import torch
+        from paddlebox_tpu_torch.config import TableConfig, TrainerConfig
+        from paddlebox_tpu_torch.models import DeepFM
+        from paddlebox_tpu_torch.ops import (
+            cvm, fused_seqpool_cvm_with_conv, fused_seqpool_cvm_with_pcoc)
+        from paddlebox_tpu_torch.ps.admission import CountMinAdmission
+        from paddlebox_tpu_torch.ps.bloom import BlockedBloom
+        from paddlebox_tpu_torch.ps.ssd_tier import DiskTier
+        from paddlebox_tpu_torch.ps.table import EmbeddingTable
+        from paddlebox_tpu_torch.ps.tiered_table import TieredDeviceTable
+        from paddlebox_tpu_torch.trainer.train_step import (
+            make_dense_optimizer)
+        from paddlebox_tpu_torch.utils.faults import (
+            FaultInjector, install_injector)
+        conf = TableConfig(embedx_dim=4, embedx_threshold=0.0,
+                           show_clk_decay=0.5)
+        backing = EmbeddingTable(conf)
+        root = {str(tmp_path / "ssd")!r}
+        disk = DiskTier(backing, root)
+        t = TieredDeviceTable(conf, backing=backing, capacity=512,
+                              disk=disk, device="cpu",
+                              admit=CountMinAdmission(2.0, width=4096))
+        keys = [np.concatenate([np.arange(1, 100, dtype=np.uint64)] * 2
+                               + [np.arange(100 * p + 200, 100 * p + 260,
+                                            dtype=np.uint64)])
+                for p in range(3)]
+        for p, k in enumerate(keys):
+            w = t.begin_feed_pass(k)
+            assert w >= 99, w
+            t._dirty[1:w + 1] = True
+            if p + 1 < len(keys):
+                t.prefetch_feed_pass(keys[p + 1])
+            t.end_pass()
+            disk.evict_cold(show_threshold=np.inf)
+            disk.compact()
+        assert len(disk) >= 99 and len(t) == 0   # every row spilled
+        again = DiskTier(EmbeddingTable(conf), root, resume=True)
+        assert len(again) == len(disk)
+        install_injector(FaultInjector(seed=1, fail_rate=1.0,
+                                       ops=("ssd.read",)))
+        try:
+            again.read_rows(np.arange(1, 50, dtype=np.uint64))
+            raise AssertionError("no injected fault")
+        except OSError:
+            pass
+        install_injector(None)
+        bloom = BlockedBloom(100)
+        bloom.add_bulk(np.arange(1, 10, dtype=np.uint64))
+        assert bloom.contains_bulk(np.arange(1, 10, dtype=np.uint64)).all()
+        model = DeepFM(10, (4,))
+        for kw in (dict(dense_optimizer="lars"), dict(dense_optimizer="lamb"),
+                   dict(grad_merge_steps=2)):
+            opt = make_dense_optimizer(TrainerConfig(**kw))
+            st = opt.init(model)
+            for p in model.parameters():
+                p.grad = torch.ones_like(p)
+            opt.update(model, st)
+        x = torch.rand(4, 3, 6, requires_grad=True)
+        cvm(x, torch.ones(4, 3, 2)).sum().backward()
+        emb = torch.rand(10, 8, requires_grad=True)
+        segs = torch.tensor([0, 0, 1, 2, 3, 4, 5, 5, 6, 6], dtype=torch.int32)
+        fused_seqpool_cvm_with_conv(emb, segs, torch.ones(2, 3), 2,
+                                    3).sum().backward()
+        fused_seqpool_cvm_with_pcoc(emb, segs, torch.ones(2, 4),
+                                    torch.ones(2, 1), 2, 3, 1).sum()
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("DISK_LADDER", len(disk))
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "DISK_LADDER" in res.stdout
 
 
 def test_entry_points_default_to_cuda(tmp_path):

@@ -24,8 +24,9 @@ trails compared; retention and the CPU-view hazard (a save's arrays are
 copies of the live arena) are checked on the port. A ``TieredDeviceTable``
 under the loop (the reference's ``TestTieredPassFlow``): the prefetched
 staging is consumed and equals the synchronous flow bit for bit, trained
-by ``CTRTrainer`` on either engine, and the untrained flow equals the
-reference's; a host ``EmbeddingTable`` is a table of ``SparsePS``."""
+by ``CTRTrainer`` on either engine, also over a disk tier whose rows the
+pass end spilled, and the untrained flow equals the reference's; a host
+``EmbeddingTable`` is a table of ``SparsePS``."""
 
 import dataclasses
 import os
@@ -62,6 +63,7 @@ from paddlebox_tpu_torch.models import DeepFM
 from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.ps.server import SparsePS
+from paddlebox_tpu_torch.ps.ssd_tier import DiskTier
 from paddlebox_tpu_torch.ps.table import EmbeddingTable
 from paddlebox_tpu_torch.ps.tiered_table import TieredDeviceTable
 from paddlebox_tpu_torch.trainer import donefile
@@ -496,16 +498,23 @@ def test_refusals(tmp_path, monkeypatch):
 
 # -- a tiered table under the pass loop ---------------------------------------
 
-def tiered_flow(files, root, prefetch, trainer=None, engine="device"):
+def tiered_flow(files, root, prefetch, trainer=None, engine="device",
+                disk=False):
     """The reference's ``TestTieredPassFlow`` loop over a port
     ``TieredDeviceTable``: pass 1 stages, the next file preloads (and, with
     ``prefetch``, its staging starts), pass 1 ends and writes back, pass 2
     takes the preloaded buffer. ``trainer``: (model) trains each pass
-    through ``CTRTrainer.train_from_dataset``. Returns the backing by key,
-    W of pass 2, whether the consume took the buffers and the losses."""
+    through ``CTRTrainer.train_from_dataset``. ``disk``: the backing over
+    a ``DiskTier``, every row spilled and the disk compacted after pass 1
+    (pass 2 then restages from disk, its prefetch reading on the tier
+    worker), and the disk's rows staged back into the backing at the end.
+    Returns the backing by key, W of pass 2, whether the consume took the
+    buffers and the losses."""
     conf = TableConfig(**dict(TABLE, show_clk_decay=0.9))
-    table = TieredDeviceTable(conf, capacity=1 << 12, device="cpu",
-                              **ENGINES[engine])
+    backing = EmbeddingTable(conf, backend=ENGINES[engine]["backend"])
+    tier = DiskTier(backing, root + "-ssd") if disk else None
+    table = TieredDeviceTable(conf, backing=backing, capacity=1 << 12,
+                              device="cpu", disk=tier, **ENGINES[engine])
     tr = None
     if trainer is not None:
         tr = CTRTrainer(trainer, port_feed_conf(), conf, TrainerConfig(),
@@ -532,6 +541,9 @@ def tiered_flow(files, root, prefetch, trainer=None, engine="device"):
     if tr is not None:
         tr.train_from_dataset(ds, fetch_handler=handler)
     pm.end_pass(save_delta=True)
+    if tier is not None:
+        assert tier.evict_cold(show_threshold=np.inf) > 0
+        tier.compact()
     ds = pm.begin_pass([], preloaded=True)
     assert table.in_pass
     w2 = table.staged_keys.size
@@ -540,6 +552,9 @@ def tiered_flow(files, root, prefetch, trainer=None, engine="device"):
     pm.end_pass(save_delta=True)
     pm.save_base(wait=True)
     pm.close()
+    if tier is not None:
+        assert len(tier) > 0
+        tier.stage(np.sort(tier._index.live_items()[0]))
     snap = table.backing.snapshot(reset_dirty=False)
     order = np.argsort(snap["keys"])
     rows = tuple(snap[k][order] for k in ("keys", "values", "state",
@@ -567,6 +582,28 @@ def test_tiered_pass_flow_prefetch_equals_sync(engine, files, tmp_path):
         np.testing.assert_array_equal(x, y)
     # the file pass 2 drew from holds new keys, created in the backing
     assert a[0].size > wa
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_tiered_disk_pass_flow_prefetch_equals_sync(engine, files,
+                                                    tmp_path):
+    """The same loop over a disk tier (``SparsePS.prefetch_pass`` and
+    ``PassManager.prefetch_feed_next`` down to the disk path: pass 2's
+    earlier keys read from disk on the tier worker, the rows pass 1's end
+    spilled after the export restaged at consume): the prefetch consumed,
+    and the losses and the backing with the disk's rows folded back equal
+    the synchronous flow's bit for bit."""
+    model = DeepFM(3 * 7 + 3, HIDDEN)
+    twin = DeepFM(3 * 7 + 3, HIDDEN)
+    twin.load_state_dict(model.state_dict())
+    a, wa, ca, la = tiered_flow(files, str(tmp_path / "sync"), False,
+                                trainer=model, engine=engine, disk=True)
+    b, wb, cb, lb = tiered_flow(files, str(tmp_path / "pre"), True,
+                                trainer=twin, engine=engine, disk=True)
+    assert ca == [] and cb == [True]
+    assert wa == wb > 0 and np.array_equal(la, lb)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
 
 
 def test_tiered_pass_flow_matches_reference(files, tmp_path):

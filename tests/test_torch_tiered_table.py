@@ -314,7 +314,7 @@ def test_failed_prefetch_stages_synchronously(monkeypatch, tmp_path):
             monkeypatch.setattr(t.backing, "export_rows", broken_once)
             t.prefetch_feed_pass(keys)
             t._join_prefetch()
-            assert isinstance(t._prefetch[2].error, OSError)
+            assert isinstance(t._prefetch[1]["error"], OSError)
         w = t.begin_feed_pass(keys)
         if fail:
             # the worker's export failed, the synchronous one staged
@@ -344,21 +344,27 @@ def test_failed_prefetch_stages_synchronously(monkeypatch, tmp_path):
 
 
 def test_refusals(monkeypatch):
+    """The low-precision and variable arenas stay refused (ROADMAP A.7d);
+    the disk tier, admission, staging buckets and the deferred demote,
+    once refused here, build (``tests/test_torch_disk_tier.py`` holds
+    them to the reference)."""
     conf = TableConfig(**TABLE)
-    for kw in (dict(disk=object()), dict(admit=object()),
-               dict(stage_buckets=BucketSpec(min_size=512)),
-               dict(value_dtype=torch.int8),
+    for kw in (dict(value_dtype=torch.int8),
                dict(value_dtype=torch.bfloat16)):
-        with pytest.raises(NotImplementedError, match="A.7b"):
+        with pytest.raises(NotImplementedError, match="A.7d"):
             TieredDeviceTable(conf, capacity=64, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A.7b"):
+    with pytest.raises(NotImplementedError, match="A.7d"):
         TieredDeviceTable(dataclasses.replace(
             conf, expand_dim=2, variable_embedding=True), capacity=64,
             device="cpu")
+    ported = TieredDeviceTable(
+        conf, capacity=64, device="cpu",
+        stage_buckets=BucketSpec(min_size=512))
+    assert ported._stage_buckets == BucketSpec(min_size=512)
     for flag in ("ps_admit_shows", "ps_tier_demote"):
         monkeypatch.setenv(f"PBOX_FLAGS_{flag}", "1")
-        with pytest.raises(NotImplementedError, match="A.7b"):
-            TieredDeviceTable(conf, capacity=64, device="cpu")
+        t = TieredDeviceTable(conf, capacity=64, device="cpu")
+        assert (t._admit is not None) == (flag == "ps_admit_shows")
         monkeypatch.delenv(f"PBOX_FLAGS_{flag}")
     with pytest.raises(NotImplementedError, match="A.9"):
         TieredShardedDeviceTable(conf, mesh=None)

@@ -25,6 +25,7 @@ from paddlebox_tpu.models import WideDeep as FlaxWideDeep
 from paddlebox_tpu.ps.table import EmbeddingTable as JaxTable
 from paddlebox_tpu.trainer.train_step import TrainStep as JaxTrainStep
 from paddlebox_tpu_torch.config import TableConfig, TrainerConfig
+from paddlebox_tpu_torch.models import DeepFM
 from paddlebox_tpu_torch.models.convert import (flax_leaves_from_model,
                                                 model_from_flax_leaves)
 from paddlebox_tpu_torch.ops import seqpool_kernel
@@ -210,9 +211,27 @@ def test_predict_matches_reference():
     (dict(dense_optimizer="lamb"), "A.2"),
     (dict(grad_merge_steps=2), "A.2")])
 def test_unported_options_refused(conf, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        TrainStep(torch.nn.Linear(1, 1), TableConfig(),
-                  TrainerConfig(**conf), B, S, device="cpu")
+    """The options ROADMAP ``item`` once held (recompute, lars, lamb,
+    gradient merging) are ported: the step builds and trains one step on
+    the CPU, its loss finite and its params changed.
+    ``tests/test_torch_dense_optim.py`` holds them to the reference."""
+    pconf = TableConfig(**table_kw("adagrad"))
+    torch.manual_seed(0)
+    model = DeepFM(S * pconf.pull_dim + DD, (8,))
+    step = TrainStep(model, pconf, TrainerConfig(**conf), B, S, DD,
+                     device="cpu")
+    assert step.recompute == conf.get("recompute", False)
+    params, opt = step.init()
+    before = [p.detach().clone() for p in params.parameters()]
+    keys, segs, cvm, labels, dense, mask = batches(5, 1)[0]
+    emb = EmbeddingTable(pconf, backend="numpy").pull(keys)
+    for _ in range(conf.get("grad_merge_steps", 1)):
+        params, opt, _, demb, loss, _ = step(
+            params, opt, step.init_auc_state(), emb, segs, cvm, labels,
+            dense, mask)
+    assert np.isfinite(float(loss)) and np.isfinite(demb).all()
+    assert any(not torch.equal(a, b) for a, b in
+               zip(before, params.parameters()))
 
 
 def test_default_device_needs_cuda():

@@ -435,14 +435,37 @@ def test_host_engine_matches_reference(kind, files):
     evaluation metrics, every row by key (show/clk exact) and the dense
     params; the spans pull, step and push once a batch; evaluation creates
     no rows and launches no kernel."""
+    host_engine_matches_reference(kind, files, TrainerConfig())
+
+
+def test_host_engine_under_bf16_matches_reference(files):
+    """``CTRTrainer(use_device_table=False)`` with ``bf16=True`` in both
+    packages: the host engine ignores the flag in both, so the same
+    checks hold within 1e-5 with no rounding added on either side."""
+    host_engine_matches_reference("deepfm", files, TrainerConfig(bf16=True))
+
+
+@pytest.mark.parametrize("options", [
+    dict(dense_optimizer="lamb", dense_learning_rate=0.01,
+         dense_weight_decay=1e-3, grad_merge_steps=2, recompute=True),
+    dict(dense_optimizer="lars", dense_learning_rate=0.5,
+         dense_weight_decay=1e-3, grad_merge_steps=3)])
+def test_host_engine_dense_options_match_reference(options, files):
+    """``CTRTrainer(use_device_table=False)`` with lamb or lars under
+    gradient merging (and recompute) in both packages: the same checks
+    as ``test_host_engine_matches_reference``, within 1e-5."""
+    host_engine_matches_reference("deepfm", files, TrainerConfig(**options))
+
+
+def host_engine_matches_reference(kind, files, tconf):
     flax_cls, from_leaves, to_leaves = MODELS[kind]
     jtr = ref_trainer.CTRTrainer(
         flax_cls(hidden=HIDDEN), jax_feed_conf(), JaxTableConfig(**TABLE),
-        JaxTrainerConfig(), table=JaxTable(JaxTableConfig(**TABLE),
-                                           backend="numpy"))
+        JaxTrainerConfig(**dataclasses.asdict(tconf)),
+        table=JaxTable(JaxTableConfig(**TABLE), backend="numpy"))
     assert not jtr.fused
     tr = CTRTrainer(from_leaves(leaves_of(jtr.params), HIDDEN),
-                    port_feed_conf(), TableConfig(**TABLE), TrainerConfig(),
+                    port_feed_conf(), TableConfig(**TABLE), tconf,
                     use_device_table=False, device="cpu")
     assert not tr.fused and isinstance(tr.table, EmbeddingTable)
     tr.table = EmbeddingTable(TableConfig(**TABLE), backend="numpy")
