@@ -267,6 +267,27 @@ Phases, each fatal on failure:
              and a resume into a fresh table and trainer, bit for bit by
              key; (c) phase 4f's host ``TrainStep`` under ``bf16``: float32
              inputs, bit for bit against ``bf16=False``.
+4k. tiered arenas — phase 4e's tiered loop over an int8 and over a bf16
+             arena (``TieredDeviceTable(value_dtype=...)``), cut in depth
+             to its first two passes, in turns with a synchronous twin:
+             the backings bit for bit by key; the last pass's keys staged
+             again and 2 host-prep steps of that arena's twin against the
+             CPU; bytes a row, W, staging, train and ``end_pass`` times.
+4l. deferred insert — the flagship through ``train_from_files`` with
+             ``insert_mode="deferred"`` over phase 4b's two files (5% new
+             keys in the second), one eager run and one replay: bit for
+             bit against the eager deferred run loop; the keys the ring's
+             polls inserted equal the files' new keys; no ``ensure_keys``
+             call or span; 2 deferred steps (misses on row 0) against the
+             CPU, the rings equal; run graphs ms/step in turns with
+             "ensure".
+4m. int8 serving — the flagship bundle exported from 4k's int8 table
+             under ``PBOX_FLAGS_serve_quantized`` and served at B=512:
+             float32, int8, and int8 with the hot-key cache and
+             coalescing (counted); the int8 scores bit for bit with and
+             without the cache and coalescing, against the CPU's int8
+             predictor, and within 0.02 of float32 serving; ms/batch in
+             turns; the tables' device bytes.
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -312,6 +333,7 @@ from paddlebox_tpu_torch.data.criteo import (CriteoReader, criteo_feed_config,
 from paddlebox_tpu_torch.data.batch import CsrBatch
 from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.data.fast_feed import FastSlotReader
+from paddlebox_tpu_torch.data.parser import SlotParser
 from paddlebox_tpu_torch.ckpt.writer import AsyncCheckpointWriter
 from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
                                                      save_inference_model)
@@ -350,6 +372,8 @@ from paddlebox_tpu_torch.ps.device_index import (DeviceIndexMirror,
                                                  radix_plan_plain)
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.ps.native import NativeIndex
+from paddlebox_tpu_torch.ps.quant_table import QuantServingTable
+from paddlebox_tpu_torch.ps.serving_table import ServingTable
 from paddlebox_tpu_torch.ps.admission import CountMinAdmission
 from paddlebox_tpu_torch.ps.server import SparsePS
 from paddlebox_tpu_torch.ps.ssd_tier import DiskTier
@@ -1947,11 +1971,14 @@ def hand_loop(fs, state, batches):
 def eager_run_loop(fs, state, batches):
     """``FusedTrainStep.train_stream``'s device-prep runs without their
     graph, as the run path ran them before: for each run of ``DEV_CHUNK``
-    same-shape batches, one ``ensure_keys`` over its keys, one upload,
-    then ``step_device_tensors`` over each batch's views; a shorter run
-    through ``step_device``. ``batches`` are ``train_stream``'s (keys,
-    segment_ids, cvm_in, labels, dense, row_mask) tuples. Returns the new
-    state and the losses (device scalars)."""
+    same-shape batches, one ``ensure_keys`` over its keys (in "deferred"
+    mode one lagged poll of the miss ring), one upload, then
+    ``step_device_tensors`` over each batch's views; a shorter run
+    through ``step_device``; at the end the ring's drain
+    (``train_stream``'s ``final_poll``). ``batches`` are
+    ``train_stream``'s (keys, segment_ids, cvm_in, labels, dense,
+    row_mask) tuples. Returns the new state and the losses (device
+    scalars)."""
     params, opt, auc = state
     losses = []
     it, pending = iter(batches), None
@@ -1965,7 +1992,10 @@ def eager_run_loop(fs, state, batches):
                                                            *args)
                 losses.append(loss)
             continue
-        fs.table.ensure_keys(np.concatenate([a[0] for a in run]))
+        if fs.insert_mode == "deferred":
+            fs.table.poll_misses_async()
+        else:
+            fs.table.ensure_keys(np.concatenate([a[0] for a in run]))
         floats = [fs._float_block(*a[2:]) for a in run]
         keys, segs, pf = fs._to_device([
             [np.ascontiguousarray(a[0], np.uint64).view(np.int64)
@@ -1977,6 +2007,7 @@ def eager_run_loop(fs, state, batches):
                 params, opt, auc, keys[j], segs[j],
                 *fs._split_floats(pf[j], floats[0][1]))
             losses.append(loss)
+    fs.table.poll_misses()
     return (params, opt, auc), losses
 
 
@@ -2400,6 +2431,7 @@ def phase_trainer(rng) -> dict:
           f"{len(marks) // 2} garbage collections")
     return {"launches": launches, "eval_launches": eval_launches,
             "files_launches": files_launches, "path_ms": path_ms,
+            "files": files,
             "captures": graphs.captures, "replays": graphs.replays,
             "ms_per_step": ms, "examples_per_s": TB * 1e3 / ms,
             "hand_ms_per_step": hand_ms, "assemble_ms": asm_ms,
@@ -2761,18 +2793,20 @@ def write_pool_file(rng, path: str, pool: np.ndarray) -> np.ndarray:
 
 
 def tiered_world(conf, tconf, model, root: str, device_prep: bool = True,
-                 saves: bool = True, disk_root: str = None):
+                 saves: bool = True, disk_root: str = None,
+                 value_dtype: torch.dtype = torch.float32):
     """A flagship trainer over a ``TieredDeviceTable`` of TIER_ARENA rows
-    (a one-thread native index) over a native host ``EmbeddingTable``
-    (with ``disk_root``, over a ``DiskTier`` there), its ``SparsePS`` and
-    a double-buffered ``PassManager``; the table's staging and pass end
-    timed where they run."""
+    of ``value_dtype`` (a one-thread native index) over a native host
+    ``EmbeddingTable`` (with ``disk_root``, over a ``DiskTier`` there), its
+    ``SparsePS`` and a double-buffered ``PassManager``; the table's
+    staging and pass end timed where they run."""
     buckets = BucketSpec(min_size=TNPAD, max_size=1 << 18)
     backing = EmbeddingTable(conf, backend="native")
     disk = DiskTier(backing, disk_root) if disk_root is not None else None
     table = TieredDeviceTable(conf, backing=backing, capacity=TIER_ARENA,
                               uniq_buckets=buckets, device="cuda",
-                              disk=disk, backend="native", index_threads=1)
+                              disk=disk, value_dtype=value_dtype,
+                              backend="native", index_threads=1)
     feed = trainer_feed_conf()
     tr = CTRTrainer(model, feed, conf, tconf, table=table, buckets=buckets,
                     device_prep=device_prep)
@@ -2875,8 +2909,12 @@ def tiered_passes(world, files, prefetch: bool, entry: str, tag: str,
                   if entry == "files" else
                   (lambda: tr.train_from_dataset(ds)))
             if counted:
+                for c in PUSH_VARIANTS.values():
+                    c.launches = 0
                 secs, m, launches = count_launches(fn, n,
                                                    f"{tag} pass {p + 1}")
+                launches.update({c.__name__: c.launches
+                                 for c in PUSH_VARIANTS.values()})
                 for k, v in launches.items():
                     world["launches"][k] = world["launches"].get(k, 0) + v
             else:
@@ -3570,6 +3608,389 @@ def phase_rest(rng, seed: int) -> dict:
           f"inputs ({len(seen)} calls), losses {worlds[True][0]}, rows by "
           f"key and dense params bit for bit against bf16=False")
     return out
+
+
+# -- phase 4k: the tiered loop over low-precision arenas ----------------------
+
+TIER_LP_PASSES = 2            # phase 4e's passes (day 1), cut in depth
+TIER_LP = (("int8", torch.int8), ("bf16", torch.bfloat16))
+
+
+def phase_tiered_arenas(rng, files) -> dict:
+    """Phase 4e's tiered loop over an int8 and over a bfloat16 arena (the
+    flagship, f32 dense, device prep, ``train_from_files`` run graphs,
+    ``PassManager`` with ``prefetch_feed_next``), cut in depth to its
+    first TIER_LP_PASSES passes, in turns with a twin that stages
+    synchronously: the backings bit for bit by key. Then the last pass's
+    keys staged again, and CPU_STEPS host-prep steps of that arena's twin
+    on the card against the CPU. Bytes a row, W and the pass times
+    printed. Returns the launches, and the int8 world's trained backing
+    and weights (phase 4m serves them)."""
+    card = card_line()
+    conf, tconf, _ = train_confs()
+    files = files[:TIER_LP_PASSES]
+    out = {"launches": {}, "passes": {}, "row_bytes": {}}
+    t_phase = time.perf_counter()
+    for name, dtype in TIER_LP:
+        tag = f"tiered {name} (4k)"
+        model = random_deepfm(rng, TS * conf.pull_dim)
+        main = tiered_world(conf, tconf, model,
+                            os.path.join(WORK, f"tiered-{name}"),
+                            saves=False, value_dtype=dtype)
+        sync = tiered_world(conf, tconf, copy.deepcopy(model),
+                            os.path.join(WORK, f"tiered-{name}-sync"),
+                            saves=False, value_dtype=dtype)
+        table = main["table"]
+        require(table.values.dtype == dtype and
+                main["tr"].step.device_prep, f"{tag}: the world's arena")
+        gens = {"main": tiered_passes(main, files, True, "files", tag,
+                                      counted=True, stop=len(files)),
+                "sync": tiered_passes(sync, files, False, "files",
+                                      f"{tag}, sync twin",
+                                      stop=len(files))}
+        recs = {"main": [], "sync": []}
+        order = ("main", "sync", "sync", "main")
+        for p in range(len(files)):
+            for who in (order[:2] if p % 2 == 0 else order[2:]):
+                quiesce(main)
+                quiesce(sync)
+                recs[who].append(next(gens[who]))
+        for g in gens.values():
+            require(next(g, None) is None, f"{tag}: passes left over")
+        require(main["consumed"] == [False] + [True] * (len(files) - 1),
+                f"{tag}: the consumes took {main['consumed']}")
+        require(same_arrays(backing_by_key(table),
+                            backing_by_key(sync["table"])),
+                f"{tag}: the backing differs from the sync twin's by key")
+        main["pm"].close()
+        sync["pm"].close()
+        variant = PUSH_VARIANTS[name].__name__
+        n_steps = sum(r["steps"] for r in recs["main"])
+        require(main["launches"][variant] == n_steps,
+                f"{tag}: {variant} launched {main['launches'][variant]} "
+                f"times in {n_steps} steps")
+        out["launches"][f"tiered_{name}"] = main["launches"]
+        out["passes"][name] = recs["main"]
+        vb, sb = table.layout.row_bytes()
+        out["row_bytes"][name] = vb + sb
+        print(f"{tag}: {len(files)} passes of {TRAINER_FILE_BATCHES} "
+              f"batches (B={TB}) over a TieredDeviceTable of {TIER_ARENA} "
+              f"{name} rows ({vb} + {sb} = {vb + sb} B a row, arena "
+              f"{table.memory_bytes()} B), device prep, run graphs, "
+              f"prefetch_feed_next; launches {main['launches']}; the "
+              f"backing ({len(table.backing)} rows) equals the sync twin's "
+              f"by key bit for bit [{card}]")
+        for who in ("main", "sync"):
+            print(f"{tag} {'(prefetch)' if who == 'main' else 'sync twin'} "
+                  f"per pass: W {[r['w'] for r in recs[who]]}; staging s "
+                  f"{[round(r['stage_s'], 4) for r in recs[who]]}; train "
+                  f"ms/step {[round(r['train_ms'], 4) for r in recs[who]]};"
+                  f" end_pass s "
+                  f"{[round(r['end_pass_s'], 4) for r in recs[who]]}; "
+                  f"captures {[r['captures'] for r in recs[who]]} [{card}]")
+        # the last pass's keys staged again from the backing; host prep
+        # over a twin of that arena on the card, against the CPU
+        reader = FastSlotReader(trainer_feed_conf(), buckets=BucketSpec(
+            min_size=TNPAD, max_size=1 << 18))
+        stream = list(reader.stream(files[-1:], drop_remainder=False))
+        reader.close()
+        w = table.begin_feed_pass(np.concatenate([b[0] for b in stream]))
+        init = arena_of(table)
+        _, out["launches"][f"tiered_{name}_host_prep"] = arena_host_prep(
+            f"{tag}: host prep over the staged arena (W {w})",
+            arena_twin(table, "cuda", "native", init),
+            copy.deepcopy(main["tr"].params), tconf,
+            [(b[0], b[1], b[3]) for b in stream[:CPU_STEPS]], name, init)
+        del init
+        table.end_pass()
+        if name == "int8":
+            out["int8_backing"] = table.backing.snapshot(reset_dirty=False)
+            out["int8_model"] = main["tr"].params
+        del main, sync, table
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# -- phase 4l: deferred insert -------------------------------------------------
+
+def phase_deferred(rng, files) -> dict:
+    """The flagship through ``CTRTrainer.train_from_files`` in deferred
+    insert mode (``insert_mode="deferred"``: no host key work before a
+    run, the device miss ring, its lagged polls and the final drain)
+    over phase 4b's two files (5% new keys in the second), under run
+    graphs (one eager run, one replay), every device-prep kernel once a
+    batch: bit for bit against the eager deferred run loop on a twin; the
+    keys the polls inserted equal the files' new keys; no ``ensure_keys``
+    call and no ``train_step.ensure_keys`` span; CPU_STEPS deferred
+    ``step_device`` steps of the second file (its misses on row 0) against
+    the CPU, the rings equal; ms/step of the run graphs in turns with
+    "ensure" mode."""
+    card = card_line()
+    conf, tconf, buckets = train_confs()
+    feed = trainer_feed_conf()
+    fbuckets = BucketSpec(min_size=TNPAD, max_size=1 << 18)
+    t_phase = time.perf_counter()
+    reader = FastSlotReader(feed, buckets=fbuckets)
+    stream = list(reader.stream(files, drop_remainder=False))
+    reader.close()
+    n = len(stream)
+    seen = np.unique(np.concatenate([b[0] for b in stream]))
+    new_keys = seen[seen > HOT_VOCAB]
+    require(n == TRAINER_FILES * TRAINER_FILE_BATCHES and new_keys.size,
+            f"deferred (4l): {n} batches, {new_keys.size} new keys")
+    table = DeviceTable(conf, capacity=HOT_VOCAB + 1 + TRAINER_HEADROOM,
+                        uniq_buckets=buckets, device="cuda",
+                        backend="native", index_threads=1)
+    table.prepopulate(HOT_VOCAB)
+    init = arena_of(table)
+    model = random_deepfm(rng, TS * conf.pull_dim)
+    run_fs = FusedTrainStep(copy.deepcopy(model), arena_twin(
+        table, "cuda", "native", init), tconf, TB, TS, device_prep=True,
+        insert_mode="deferred")
+    run_state = (*run_fs.init(), run_fs.init_auc_state())
+    trainer = CTRTrainer(copy.deepcopy(model), feed, conf, tconf,
+                         table=table, buckets=fbuckets,
+                         insert_mode="deferred")
+    fs = trainer.step
+    require(fs.device_prep and fs.insert_mode == "deferred",
+            "deferred (4l): the trainer's step is not deferred device prep")
+    calls = {"ensure_keys": 0, "poll_misses_async": 0, "poll_misses": 0}
+
+    def spy(name):
+        orig = getattr(table, name)
+
+        def call(*a, **kw):
+            calls[name] += 1
+            return orig(*a, **kw)
+        setattr(table, name, call)
+    for name in calls:
+        spy(name)
+    row0 = (table.values[0].clone(), table.state[0].clone())
+    secs, metrics, launches = count_launches(
+        lambda: trainer.train_from_files(files), n, "deferred (4l)")
+    require(torch.equal(table.values[0], row0[0]) and
+            torch.equal(table.state[0], row0[1]),
+            "deferred (4l): the null row, which the misses ride, changed")
+    graphs = fs.run_graphs
+    require((graphs.captures, graphs.replays) == (1, n // 16 - 1),
+            f"deferred (4l): {graphs.captures} captures, {graphs.replays} "
+            "replays")
+    require(calls["ensure_keys"] == 0 and calls["poll_misses_async"] ==
+            n // fs.DEV_CHUNK and calls["poll_misses"] >= 1,
+            f"deferred (4l): host key calls {calls}")
+    require(int(table.miss_cnt[0]) == 0, "deferred (4l): the ring is not "
+                                         "drained")
+    inserted = np.sort(table.row_keys()[HOT_VOCAB + 1:])
+    require(np.array_equal(inserted, new_keys),
+            f"deferred (4l): the polls inserted {inserted.size} keys, the "
+            f"files hold {new_keys.size} new ones")
+    run_state, _ = eager_run_loop(run_fs, run_state, stream)
+    require_same_training("deferred (4l): run graphs vs the eager run loop",
+                          (table, trainer.params, trainer.opt_state, None),
+                          (run_fs.table, *run_state[:2], None))
+    require(np.array_equal(table.row_keys(), run_fs.table.row_keys()),
+            "deferred (4l): the eager run loop numbered other rows")
+    calc = AucCalculator()
+    calc.absorb(run_state[2])
+    require(calc.compute() == metrics,
+            f"deferred (4l): metrics {metrics} vs the eager run loop's "
+            f"{calc.compute()}")
+    require(not bool(fs.bad_flag), "deferred (4l): sentinel tripped")
+    print(f"deferred (4l): train_from_files over {len(files)} files ({n} "
+          f"batches, {graphs.captures} capture, {graphs.replays} replay), "
+          f"launches {launches}, host key calls {calls}; row 0 bit-unchanged;"
+          f" the polls inserted "
+          f"{inserted.size} keys, the files' new keys exactly; rows by key, "
+          f"row numbers, the dense params, adam's state and the metrics bit "
+          f"for bit vs the eager deferred run loop; {secs / n * 1e3:.4f} "
+          f"ms/step (first pass) [{card}]")
+
+    # CPU_STEPS deferred steps of the second file (5% of its keys new: they
+    # miss, ride row 0 and fill the ring) on a twin, against the CPU
+    batches = [(b[0], b[1], b[3]) for b in
+               stream[TRAINER_FILE_BATCHES:TRAINER_FILE_BATCHES + CPU_STEPS]]
+    rings = []
+    for device in ("cuda", "cpu"):
+        twin = arena_twin(table, device, "native", init)
+        tfs = FusedTrainStep(copy.deepcopy(model), twin, tconf, TB, TS,
+                             device_prep=True, insert_mode="deferred")
+        if device == "cuda":
+            touched = touched_rows(twin, batches)
+            before = snapshot_rows(twin, touched)
+            _, card_losses = train_steps(
+                tfs, (*tfs.init(), tfs.init_auc_state()), batches,
+                tfs.step_device)
+            after = snapshot_rows(twin, touched, tfs.model)
+        else:
+            _, cpu_losses = train_steps(
+                tfs, (*tfs.init(), tfs.init_auc_state()), batches,
+                tfs.step_device)
+            cpu_after = snapshot_rows(twin, touched, tfs.model)
+        cnt = int(twin.miss_cnt[0])
+        rings.append((cnt, twin.miss_ring[:cnt].cpu().numpy()))
+        del twin, tfs
+        gc.collect()
+    require(rings[0][0] > 0 and rings[0][0] == rings[1][0] and
+            np.array_equal(rings[0][1], rings[1][1]),
+            f"deferred (4l): rings card {rings[0][0]} vs CPU {rings[1][0]}")
+    compare_twin("deferred (4l): card vs CPU", card_losses, after,
+                 cpu_losses, cpu_after, before)
+    print(f"deferred (4l): the rings after {CPU_STEPS} steps: {rings[0][0]} "
+          f"misses on the card and on the CPU, equal entry for entry")
+    del init
+
+    # ms/step of the run graphs, deferred against "ensure", in turns over
+    # the same batches (every key now in both tables)
+    ens_fs = FusedTrainStep(copy.deepcopy(trainer.params), run_fs.table,
+                            tconf, TB, TS, device_prep=True)
+    worlds = {"deferred": (fs, [trainer.params, trainer.opt_state,
+                                trainer.auc_state]),
+              "ensure": (ens_fs, [*ens_fs.init(), ens_fs.init_auc_state()])}
+    for f, st in worlds.values():          # warm-up and capture
+        st[:3] = f.train_stream(*st, iter(stream))[:3]
+    turns = {k: [] for k in worlds}
+    for who in ("deferred", "ensure", "ensure", "deferred") * 2:
+        f, st = worlds[who]
+        secs, res = timed_secs(lambda: f.train_stream(*st, iter(stream)))
+        st[:3] = res[:3]
+        turns[who].append(secs / n * 1e3)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fs.train_stream(*worlds["deferred"][1], iter(stream))
+    spans = sorted({e.key for e in prof.key_averages()
+                    if e.key.startswith("train_step.")})
+    require("train_step.ensure_keys" not in spans and
+            "train_step.poll_misses" in spans,
+            f"deferred (4l): host spans {spans}")
+    print(f"timing deferred (4l): run graphs ms/step over {n} batches, in "
+          f"turns: deferred {turns['deferred']}; ensure {turns['ensure']}; "
+          f"the deferred pass's host spans {spans} [{card}]")
+    reset_auc_state_(trainer.auc_state)
+    out = {"launches": {"deferred_files": launches}, "turns_ms": turns,
+           "phase_s": time.perf_counter() - t_phase}
+    del worlds, trainer, run_fs, ens_fs, table
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 4m: int8 serving ---------------------------------------------------
+
+Q8_B = 512                    # serving batch
+Q8_BATCHES = 8                # batches a predict_records call
+Q8_CACHE_ROWS = 1 << 16       # PBOX_FLAGS_serve_cache_rows of the cache run
+# the int8 table's scores against float32 serving: the reference's pin of
+# the quantization's effect (tests/test_serving_econ.py)
+Q8_SCORE_TOL = 0.02
+
+
+def q8_records(rng, keys: np.ndarray, feed: DataFeedConfig):
+    """Q8_BATCHES * Q8_B MultiSlot records of TS slots with 1-3 keys each:
+    keys drawn by a Zipf law (exponent 1.2) over ``keys`` in a random
+    order, so a head repeats, and 5% unknown to the table."""
+    rows = Q8_BATCHES * Q8_B
+    lengths = rng.integers(1, 4, size=(rows, TS))
+    nk = int(lengths.sum())
+    ranked = keys[rng.permutation(keys.size)]
+    drawn = ranked[np.minimum(rng.zipf(1.2, size=nk) - 1, keys.size - 1)]
+    unknown = rng.uniform(size=nk) < 0.05
+    drawn[unknown] = rng.integers(1 << 40, 1 << 41, size=int(unknown.sum()),
+                                  dtype=np.uint64)
+    path = os.path.join(WORK, "q8-serve.txt")
+    write_slot_lines(path, lengths, drawn, rng.integers(0, 2, size=rows))
+    parser = SlotParser(feed)
+    with open(path) as f:
+        return [parser.parse_line(line) for line in f]
+
+
+def phase_int8_serving(rng, backing: dict, model) -> dict:
+    """The flagship bundle exported from phase 4k's int8-trained table
+    under ``PBOX_FLAGS_serve_quantized`` (``table.npz`` and
+    ``table.q8.npz``), served at B=Q8_B through ``CTRPredictor`` three
+    ways: float32 (``ServingTable``), int8 (``QuantServingTable``), int8
+    with the hot-key cache and coalescing (the main path, counted: the
+    forward once a batch). The int8 scores with and without the cache and
+    coalescing bit for bit (cold and warm), against the CPU's int8
+    predictor within SCORE_ATOL, and within Q8_SCORE_TOL of float32
+    serving; ms/batch in turns; the tables' device bytes."""
+    card = card_line()
+    conf, _, _ = train_confs()
+    feed = trainer_feed_conf()
+    t_phase = time.perf_counter()
+    knobs = ("serve_quantized", "serve_cache_rows", "serve_coalesce")
+
+    def set_knobs(quantized, cache_rows, coalesce):
+        for k, v in zip(knobs, (int(quantized), cache_rows, int(coalesce))):
+            os.environ["PBOX_FLAGS_" + k] = str(v)
+    try:
+        set_knobs(True, 0, False)
+        bundle = save_inference_model(os.path.join(WORK, "q8_bundle"),
+                                      model, backing, feed, conf)
+        require(os.path.exists(os.path.join(bundle, "table.q8.npz")),
+                "int8 serving (4m): no table.q8.npz in the bundle")
+        records = q8_records(rng, backing["keys"], feed)
+        preds = {}
+        for name, knob in (("f32", (False, 0, False)),
+                           ("q8", (True, 0, False)),
+                           ("q8_cache_coalesce", (True, Q8_CACHE_ROWS,
+                                                  True))):
+            set_knobs(*knob)
+            preds[name] = CTRPredictor(bundle, device="cuda",
+                                       batch_size=Q8_B)
+        set_knobs(True, 0, False)
+        cpu = CTRPredictor(bundle, device="cpu", batch_size=Q8_B)
+    finally:
+        for k in knobs:
+            os.environ.pop("PBOX_FLAGS_" + k, None)
+    main = preds["q8_cache_coalesce"]
+    require(isinstance(preds["q8"].table, QuantServingTable) and
+            isinstance(preds["f32"].table, ServingTable),
+            "int8 serving (4m): the predictors' tables")
+    q8 = preds["q8"].predict_records(records)
+    secs, cold, launches = counted(
+        lambda: main.predict_records(records),
+        {seqpool_cvm_cuda.__name__: Q8_BATCHES}, "int8 serving (4m)")
+    warm = main.predict_records(records)
+    require(np.array_equal(cold, q8) and np.array_equal(warm, q8),
+            "int8 serving (4m): the cache and coalescing changed a score")
+    f32 = preds["f32"].predict_records(records)
+    want = cpu.predict_records(records)
+    cpu_err = float(np.abs(q8 - want).max())
+    q8_err = float(np.abs(q8 - f32).max())
+    require(q8.shape == (Q8_BATCHES * Q8_B,) and np.isfinite(q8).all(),
+            f"int8 serving (4m): scores {q8.shape}")
+    require(cpu_err <= SCORE_ATOL,
+            f"int8 serving (4m): card vs CPU int8 predictor {cpu_err}")
+    require(q8_err <= Q8_SCORE_TOL,
+            f"int8 serving (4m): int8 vs float32 scores {q8_err}")
+    stats = main.cache_stats()
+    require(stats["hits"] > 0 and main.coalesced_keys > 0,
+            f"int8 serving (4m): cache {stats}, coalesced "
+            f"{main.coalesced_keys}")
+    ft, qt = preds["f32"].table, main.table
+    f32_bytes = int(ft._values.nbytes + ft._keys.nbytes)
+    q8_bytes = int(qt.memory_bytes() + qt._keys.nbytes)
+    print(f"int8 serving (4m): a bundle of {len(qt)} rows from the int8 "
+          f"tiered table, {Q8_BATCHES} batches of {Q8_B} a call; launches "
+          f"{launches}; int8 scores with the cache and coalescing, cold "
+          f"and warm, bit for bit; max |card - CPU int8 predictor| "
+          f"{cpu_err:.3e} (<= {SCORE_ATOL}); max |int8 - float32 serving| "
+          f"{q8_err:.3e} (<= {Q8_SCORE_TOL}); cache {stats}, coalesced "
+          f"{main.coalesced_keys} keys; device table bytes float32 "
+          f"{f32_bytes}, int8 {q8_bytes} ({q8_bytes / f32_bytes:.3f}x) "
+          f"[{card}]")
+    turns = {k: [] for k in preds}
+    for who in list(preds) + list(reversed(preds)):
+        secs, _ = timed_secs(lambda: preds[who].predict_records(records))
+        turns[who].append(secs / Q8_BATCHES * 1e3)
+    print(f"timing int8 serving (4m): predict_records ms/batch (B={Q8_B}), "
+          f"in turns: {turns} [{card}]")
+    shutil.rmtree(bundle, ignore_errors=True)
+    return {"launches": {"serve_q8": launches}, "turns_ms": turns,
+            "f32_bytes": f32_bytes, "q8_bytes": q8_bytes,
+            "q8_err": q8_err, "phase_s": time.perf_counter() - t_phase}
 
 
 # -- phase 4f: the host-table engine and the models ---------------------------
@@ -5159,6 +5580,13 @@ def main() -> int:
         disk = phase_disk_ladder(np.random.default_rng([args.seed, 37]),
                                  tiered["files"])
         rest = phase_rest(np.random.default_rng([args.seed, 41]), args.seed)
+        tiered_lp = phase_tiered_arenas(
+            np.random.default_rng([args.seed, 43]), tiered["files"])
+        deferred = phase_deferred(np.random.default_rng([args.seed, 47]),
+                                  trainer["files"])
+        q8 = phase_int8_serving(np.random.default_rng([args.seed, 53]),
+                                tiered_lp.pop("int8_backing"),
+                                tiered_lp.pop("int8_model"))
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
@@ -5176,6 +5604,8 @@ def main() -> int:
                 for k, v in arenas["ms_per_step"].items()}
     dense_ms = {k: round(float(np.mean(v)), 4)
                 for k, v in dense["ms_per_step"].items()}
+    lp_ms = {k: [round(r["train_ms"], 4) for r in v]
+             for k, v in tiered_lp["passes"].items()}
     print(f"chip_smoke: all phases {time.perf_counter() - t_start:.1f} s; "
           f"train host-prep (numpy index) {train['ms_per_step']:.4f} "
           f"ms/step, {train['examples_per_s']:.1f} examples/s; host-prep "
@@ -5213,7 +5643,15 @@ def main() -> int:
           f"(train_stream run graphs, f32 dense) ms/step {arena_ms}, "
           f"serving the int8 table {arenas['serve_int8_ms']:.4f} ms/batch; "
           f"dense optimizers (run graphs) ms/step {dense_ms}; "
-          f"disk ladder {disk['loop_s']:.2f} s for 4 worlds of 4 passes")
+          f"disk ladder {disk['loop_s']:.2f} s for 4 worlds of 4 passes; "
+          f"tiered int8 and bf16 (4k) train ms/step {lp_ms}, "
+          f"bytes a row {tiered_lp['row_bytes']}, "
+          f"{tiered_lp['phase_s']:.1f} s; deferred run graphs (4l) "
+          f"{deferred['turns_ms']['deferred']} ms/step against ensure "
+          f"{deferred['turns_ms']['ensure']}, {deferred['phase_s']:.1f} s; "
+          f"int8 serving (4m) ms/batch {q8['turns_ms']}, table bytes "
+          f"float32 {q8['f32_bytes']} int8 {q8['q8_bytes']}, "
+          f"{q8['phase_s']:.1f} s")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
 
@@ -5234,7 +5672,10 @@ def main() -> int:
                     for path, counts in dense["launches"].items()},
                  **{path: counts.get(wrapper.__name__, 0)
                     for path, counts in {**disk["launches"],
-                                         **rest["launches"]}.items()}}
+                                         **rest["launches"],
+                                         **tiered_lp["launches"],
+                                         **deferred["launches"],
+                                         **q8["launches"]}.items()}}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}
 
@@ -5293,7 +5734,8 @@ def main() -> int:
     for variant, kind in zip(ARENA_ROWS, ("2,0", "1,0", "0,1", "2,1")):
         counter = PUSH_VARIANTS[variant].__name__
         paths = {path: counts.get(counter, 0)
-                 for path, counts in arenas["launches"].items()}
+                 for path, counts in {**arenas["launches"],
+                                      **tiered_lp["launches"]}.items()}
         cols = push_geometry(arena_timing[variant]["dim"])[1]
         rows.append({
             "name": f"{PUSH}_{variant}", "route": "cuda",

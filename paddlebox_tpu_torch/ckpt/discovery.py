@@ -7,8 +7,8 @@ whose paths vanished; this layer verifies every artifact (size and
 checksum) before it may enter a plan. An unverifiable base disqualifies
 its candidate (resume falls back to the base before it); an unverifiable
 delta cuts its chain there, since later deltas carry only rows dirty since
-it. The quantized serving sibling (``quantized_sibling``, ``<dir>.q8``) is
-ROADMAP A.1 and has no counterpart here.
+it. ``quantized_sibling`` finds the int8 serving snapshot committed beside a
+base or delta (``<dir>.q8``), which no plan ever holds.
 """
 
 from __future__ import annotations
@@ -77,6 +77,31 @@ def load_dense(plan: Plan, template: Any) -> Optional[Any]:
     if not os.path.exists(path):
         return None
     return _load_dense(path, template)
+
+
+#: suffix of the derived int8 serving snapshot committed beside a base or
+#: delta dir under ``serve_quantized``
+QUANT_SUFFIX = ".q8"
+
+
+def quantized_sibling(path: str) -> Optional[str]:
+    """The verified quantized serving snapshot beside a base or delta dir
+    (``<path>.q8``), or None when it is absent or fails its manifest. It
+    is derived: no donefile record names it, it anchors no delta chain,
+    and a consumer that finds it missing quantizes the float32 artifact on
+    load, so a crash mid-export degrades a reload, never breaks one."""
+    q8 = path + QUANT_SUFFIX
+    if not os.path.isdir(q8):
+        return None
+    try:
+        # a .q8 dir is always committed with a manifest; one without is
+        # damaged, not legacy
+        atomic.verify(q8, require_manifest=True)
+    except atomic.IntegrityError as e:
+        warnings.warn(f"ckpt discovery: ignoring unverifiable quantized "
+                      f"snapshot {q8}: {e}")
+        return None
+    return q8
 
 
 def plan_version(plan: Plan) -> Tuple[str, int]:

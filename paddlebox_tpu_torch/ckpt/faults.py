@@ -10,8 +10,7 @@ catch it: a real crash cleans nothing up.
 
 Not ported: the point hooks, the seeded ``OSError`` injector with its
 ``io_point`` call sites and ``with_retries``'s shared home
-(``paddlebox_tpu/utils/faults.py``; the writer keeps its own retry loop),
-and the crash points of the quantized serving export (ROADMAP A.1).
+(``paddlebox_tpu/utils/faults.py``; the writer keeps its own retry loop).
 """
 
 from __future__ import annotations
@@ -39,6 +38,15 @@ CRASH_POINTS: Tuple[str, ...] = (
     "delta.after_manifest",
     "delta.before_donefile",
     "donefile.mid_append",   # torn donefile line: partial JSON, no newline
+    # the quantized serving export (serve_quantized): the <dir>.q8 commit
+    # sits between the main dir's commit and the donefile append, and a
+    # crash anywhere in it leaves the float32 trail whole
+    "base.before_q8",        # main dir committed, .q8 export not begun
+    "base.q8.before_manifest",
+    "base.q8.after_manifest",
+    "delta.before_q8",
+    "delta.q8.before_manifest",
+    "delta.q8.after_manifest",
 )
 
 # process-wide, as in the reference: a drill arms a point that the writer

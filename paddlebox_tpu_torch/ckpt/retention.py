@@ -6,8 +6,8 @@ GC follows the donefile trail, the record of what was committed, never a
 directory listing: a dir no record reaches is staging spill (prunable by
 name) or a checkpoint already forgotten. Records whose dirs were pruned
 stop resolving; ``donefile.resume_candidates`` skips them, so the trail is
-never rewritten. The reference's pairing of a pruned dir with its ``.q8``
-quantized sibling goes with the quantized export (ROADMAP A.1).
+never rewritten. A pruned dir's ``.q8`` quantized serving sibling, which no
+record names, is pruned with it.
 """
 
 from __future__ import annotations
@@ -76,7 +76,8 @@ class RetentionPolicy:
 
     def sweep(self, root: str, records: Sequence[Dict]) -> List[str]:
         """Apply :meth:`plan` to disk. Only paths inside ``root`` are
-        removed; emptied day and pass dirs go too."""
+        removed; emptied day and pass dirs go too, and so does a pruned
+        dir's ``<path>.q8`` sibling (no record would ever reach it)."""
         _keep, drop = self.plan(records)
         removed: List[str] = []
         real_root = os.path.realpath(root)
@@ -94,6 +95,9 @@ class RetentionPolicy:
                     removed.append(path)
                 except OSError:
                     continue
+            if os.path.isdir(rp + ".q8"):
+                shutil.rmtree(rp + ".q8", ignore_errors=True)
+                removed.append(path + ".q8")
             # drop now-empty <day>/<pass> parents up to (not incl.) root
             parent = os.path.dirname(rp)
             while parent.startswith(real_root + os.sep):

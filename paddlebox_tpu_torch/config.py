@@ -2,7 +2,8 @@
 
 The port's own copy of the dataclasses the serving and training paths
 read: ``SlotConfig``, ``DataFeedConfig``, ``TableConfig``,
-``TrainerConfig`` and ``BucketSpec``.
+``TrainerConfig`` and ``BucketSpec``, and the serving knobs'
+``ServingEconConfig``.
 Field names and defaults match the reference, so a bundle's ``model.json``
 written by either package loads in the other. The port has no flag
 registry: ``batch_bucket_spec`` uses the reference flag default as a
@@ -201,3 +202,44 @@ def refuse_flags(refused) -> None:
             raise NotImplementedError(
                 f"PBOX_FLAGS_{flag} asks for {what}, which is not ported "
                 f"yet (ROADMAP {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingEconConfig:
+    """Validated serving-economics knobs."""
+
+    quantized: bool
+    cache_rows: int
+    coalesce: bool
+
+
+def serving_econ_conf() -> ServingEconConfig:
+    """The ``serve_quantized``, ``serve_cache_rows`` and ``serve_coalesce``
+    flags (their ``PBOX_FLAGS_*`` variables, read at each call), validated
+    as the reference validates them: a negative cache, or one under 16
+    rows, fails; the cache needs ``enable_pull_padding_zero`` and
+    coalescing ``enable_pullpush_dedup_keys`` (both on by default)."""
+    quantized = bool(env_flag("serve_quantized", False))
+    cache_rows = int(env_flag("serve_cache_rows", 0))
+    coalesce = bool(env_flag("serve_coalesce", False))
+    if cache_rows < 0:
+        raise ValueError(
+            f"serve_cache_rows must be >= 0, got {cache_rows}")
+    if 0 < cache_rows < 16:
+        raise ValueError(
+            f"serve_cache_rows ({cache_rows}) is smaller than one "
+            "batch's working set; a sub-16-row cache evicts its own "
+            "entries every lookup (0 disables the cache)")
+    if cache_rows and not env_flag("enable_pull_padding_zero", True):
+        # the cache keys rows by feasign and relies on the padding
+        # contract (key 0 pulls zeros, never owns a row)
+        raise ValueError(
+            "serve_cache_rows requires enable_pull_padding_zero (the "
+            "cache treats feasign 0 as the padding row)")
+    if coalesce and not env_flag("enable_pullpush_dedup_keys", True):
+        raise ValueError(
+            "serve_coalesce depends on key dedup "
+            "(enable_pullpush_dedup_keys): coalescing IS the serving "
+            "side of that dedup")
+    return ServingEconConfig(quantized=quantized, cache_rows=cache_rows,
+                             coalesce=coalesce)

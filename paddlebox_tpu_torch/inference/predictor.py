@@ -6,6 +6,8 @@ A bundle directory holds, in the reference's format:
     model.json    model class/kwargs, feed config, table config, use_cvm
     dense.npz     the flax leaf list of the dense params (``leaf_%05d``)
     table.npz     the embedding snapshot (keys, values, state, embedx_ok)
+    table.q8.npz  under ``serve_quantized``: its int8 serving form
+                  (``ps/quant_table.py``)
 
 so a bundle written by either package loads in the other, for each model
 class: ``DeepFM``, ``WideDeep``, ``FeedDNN``, ``MMoE``, and any class
@@ -15,9 +17,21 @@ table pull (``ps/serving_table.py``; unknown keys pull zeros), seqpool+CVM,
 the model forward and the sigmoid all run there; a multi-task model
 scores [n, T].
 
-Not in the port yet (all off by default in the reference): the quantized
-table (``table.q8.npz``), the hot-key cache, pull coalescing and a remote
-PS (``ps_endpoints``).
+The serving knobs, read from their ``PBOX_FLAGS_*`` variables when a
+predictor is built (``config.serving_econ_conf``), all off by default as in
+the reference:
+
+- ``serve_quantized``: serve the int8 table (``QuantServingTable``), from
+  the bundle's ``table.q8.npz``, else quantized on load from ``table.npz``;
+- ``serve_cache_rows``: a host ``HotKeyCache`` (``ps/replica_cache.py``) in
+  front of the table pull, tied to the bundle's version; only its misses,
+  deduplicated, reach the table;
+- ``serve_coalesce``: ``predict_records`` pulls each distinct key of all
+  its batches once and scores each batch from that pull.
+
+Scores are the same bits with the cache and coalescing on or off. Not
+ported: a remote PS (``ps_endpoints``, ROADMAP A.9) and the reload
+fingerprint (``reload_of``, ``fwd_fingerprint``, A.5).
 """
 
 from __future__ import annotations
@@ -25,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import warnings
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -33,7 +48,8 @@ from torch import nn
 
 from paddlebox_tpu_torch._device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.config import (BucketSpec, DataFeedConfig,
-                                        TableConfig, TrainerConfig)
+                                        TableConfig, TrainerConfig,
+                                        serving_econ_conf)
 from paddlebox_tpu_torch.data.batch import BatchAssembler, CsrBatch
 from paddlebox_tpu_torch.data.record import SlotRecord
 from paddlebox_tpu_torch.models.convert import (MODEL_CLASSES, build_model,
@@ -41,6 +57,9 @@ from paddlebox_tpu_torch.models.convert import (MODEL_CLASSES, build_model,
                                                 load_flax_leaves,
                                                 model_config,
                                                 register_model_class)
+from paddlebox_tpu_torch.ps.quant_table import (QuantServingTable,
+                                                quantize_snapshot)
+from paddlebox_tpu_torch.ps.replica_cache import HotKeyCache
 from paddlebox_tpu_torch.ps.serving_table import ServingTable
 from paddlebox_tpu_torch.ps.table import state_dim
 from paddlebox_tpu_torch.trainer.train_step import TrainStep
@@ -62,7 +81,9 @@ def save_inference_model(path: str, model: nn.Module,
     ``MODEL_CLASSES``). ``table`` is a snapshot: ``keys`` [n] uint64,
     ``values`` [n, pull_dim] and ``state`` [n, state_dim] float32,
     ``embedx_ok`` [n] bool. The table file is written uncompressed: a
-    multi-million-row snapshot of trained floats barely compresses."""
+    multi-million-row snapshot of trained floats barely compresses. Under
+    ``serve_quantized`` the bundle also gets ``table.q8.npz``; a layout
+    the quantizer cannot take warns and leaves it out."""
     if type(model).__name__ not in MODEL_CLASSES:
         raise ValueError(f"{type(model).__name__} is not a servable model "
                          "class (see register_model_class)")
@@ -89,6 +110,13 @@ def save_inference_model(path: str, model: nn.Module,
     save_leaves(os.path.join(path, "dense.npz"),
                 flax_leaves_from_model(model))
     write_npz(os.path.join(path, "table.npz"), snap, compressed=False)
+    if serving_econ_conf().quantized:
+        try:
+            q8 = quantize_snapshot(snap, table_conf)
+        except ValueError as e:
+            warnings.warn(f"quantized bundle export skipped: {e}")
+        else:
+            write_npz(os.path.join(path, "table.q8.npz"), q8)
     return path
 
 
@@ -99,11 +127,25 @@ def load_inference_model(path: str,
 
 class CTRPredictor:
     """Batch predictor over an exported bundle, on ``device`` (default
-    ``cuda``; raises without a card unless ``device="cpu"``)."""
+    ``cuda``; raises without a card unless ``device="cpu"``).
+    ``coalesced_keys`` counts the pulls coalescing saved (the reference's
+    ``serve.coalesced_keys`` counter). ``ps_endpoints`` (with
+    ``ps_table``) and ``reload_of`` are the reference's and refused."""
 
     def __init__(self, path: str, device: DeviceLike = None,
                  batch_size: Optional[int] = None,
-                 buckets: Optional[BucketSpec] = None):
+                 buckets: Optional[BucketSpec] = None,
+                 reload_of: Optional["CTRPredictor"] = None,
+                 ps_endpoints: Optional[Sequence[str]] = None,
+                 ps_table: str = "embedding"):
+        if ps_endpoints:
+            raise NotImplementedError(
+                "ps_endpoints: serving from a remote PS service is not "
+                "ported yet (ROADMAP A.9)")
+        if reload_of is not None:
+            raise NotImplementedError(
+                "reload_of: the reload fingerprint (fwd_fingerprint) is not "
+                "ported yet (ROADMAP A.5)")
         self.device = resolve_device(device)
         with open(os.path.join(path, "model.json")) as f:
             meta = json.load(f)
@@ -112,14 +154,24 @@ class CTRPredictor:
             self.feed_conf.batch_size = batch_size
         self.table_conf = TableConfig(**meta["table"])
         self.model_version = meta.get("version")
-        table_path = os.path.join(path, "table.npz")
-        if not os.path.exists(table_path) and \
-                os.path.exists(os.path.join(path, "table.q8.npz")):
-            raise NotImplementedError(
-                "the bundle carries only a quantized table (table.q8.npz); "
-                "the port serves the float32 table.npz")
-        self.table = ServingTable(self.table_conf, self.device)
-        self.table.load(table_path)
+        econ = serving_econ_conf()
+        self.serves_quantized = econ.quantized
+        if econ.quantized:
+            # the bundle's int8 artifact, else the float32 table quantized
+            # on load (the same scheme and footprint)
+            self.table = QuantServingTable(self.table_conf, self.device)
+            qpath = os.path.join(path, "table.q8.npz")
+            if os.path.exists(qpath):
+                self.table.load(qpath)
+            else:
+                self.table.load_f32(os.path.join(path, "table.npz"))
+        else:
+            self.table = ServingTable(self.table_conf, self.device)
+            self.table.load(os.path.join(path, "table.npz"))
+        self._cache = (HotKeyCache(econ.cache_rows, self.table_conf.pull_dim)
+                       if econ.cache_rows else None)
+        self._coalesce = econ.coalesce
+        self.coalesced_keys = 0
         self.num_slots = len(self.feed_conf.used_sparse_slots)
         self.dense_dim = sum(s.dim for s in self.feed_conf.used_dense_slots)
         # the per-slot width of the pooled features (the reference's
@@ -140,6 +192,44 @@ class CTRPredictor:
             device=self.device)
         self.assembler = BatchAssembler(self.feed_conf, buckets)
 
+    def fwd_fingerprint(self) -> tuple:
+        raise NotImplementedError(
+            "fwd_fingerprint, the reload fingerprint, is not ported yet "
+            "(ROADMAP A.5)")
+
+    # -- the pull: hot-key cache and coalescing -------------------------------
+
+    def _pull_keys(self, keys: np.ndarray) -> torch.Tensor:
+        """[N] keys -> [N, pull_dim] on the device, through the hot-key
+        cache when it is on: hits come from the cache, the misses' unique
+        keys from the table, whose rows the cache then takes. The same bits
+        as a direct pull: the table is immutable for a ``model_version``,
+        and the cache is cleared when the version changes."""
+        cache = self._cache
+        if cache is None:
+            return self.table.pull(keys, create=False)
+        cache.set_version(self.model_version)
+        vals, hit = cache.lookup(keys)
+        if not hit.all():
+            miss = ~hit
+            # the padding key 0 is cached too: its row is zeros by the
+            # padding contract, and a bucketed batch holds many of it
+            uniq, inverse = np.unique(
+                np.ascontiguousarray(keys[miss], dtype=np.uint64),
+                return_inverse=True)
+            uniq_vals = self.table.pull(uniq, create=False).cpu().numpy()
+            cache.insert(uniq, uniq_vals)
+            vals[miss] = uniq_vals[inverse]
+        return torch.from_numpy(vals).to(self.device)
+
+    def cache_stats(self) -> Optional[Dict[str, int]]:
+        """The hot-key cache's counters; None when it is off."""
+        c = self._cache
+        if c is None:
+            return None
+        return {"rows": c.size, "capacity": c.capacity, "hits": c.hits,
+                "misses": c.misses, "evictions": c.evictions}
+
     def _score_batch(self, batch: CsrBatch, emb: torch.Tensor) -> np.ndarray:
         """[num_rows] scores, or [num_rows, T] of a multi-task model."""
         cvm = torch.ones((batch.batch_size, 2), dtype=torch.float32,
@@ -149,13 +239,26 @@ class CTRPredictor:
         return preds.cpu().numpy()[:batch.num_rows]
 
     def predict_batch(self, batch: CsrBatch) -> np.ndarray:
-        return self._score_batch(batch,
-                                 self.table.pull(batch.keys, create=False))
+        return self._score_batch(batch, self._pull_keys(batch.keys))
 
     def predict_records(self, records: Sequence[SlotRecord]) -> np.ndarray:
         B = self.feed_conf.batch_size
         if not records:
             return np.empty(0, np.float32)
+        if self._coalesce:
+            # one pull a distinct key over all the batches, fanned back out
+            # by searchsorted (a pull is a function of the key)
+            batches = [self.assembler.assemble(records[i:i + B])
+                       for i in range(0, len(records), B)]
+            all_keys = np.concatenate([b.keys for b in batches])
+            uniq = np.unique(all_keys)
+            self.coalesced_keys += int(all_keys.size - uniq.size)
+            uvals = self._pull_keys(uniq)
+            return np.concatenate([self._score_batch(
+                b, uvals[torch.from_numpy(np.searchsorted(uniq, b.keys)).to(
+                    self.device)]) for b in batches])
+        # one assembled batch at a time: a large offline scoring call does
+        # not hold every padded batch
         return np.concatenate([
             self.predict_batch(self.assembler.assemble(records[i:i + B]))
             for i in range(0, len(records), B)])

@@ -56,6 +56,16 @@ goes on marking the same tensor. Row 0 never persists. As in the
 reference, there is no ``mark_dirty``: the rows of a commit that fails are
 not marked again.
 
+Deferred insert (``insert_mode="deferred"``, the reference's own policy):
+``enable_device_index`` also makes the device miss ring, ``miss_ring``
+[MISS_RING + 1] int64 (slot ``MISS_RING`` is the overflow sink) and its
+count ``miss_cnt`` [1] int64, both changed only in place. A device-prep
+step appends the uniques it did not find (``record_misses``, torch ops on
+the device that read nothing back), in unique order; ``poll_misses``
+drains the ring into the index in ring order (so the ring's order numbers
+the new rows), and ``poll_misses_async`` is the reference's lagged drain,
+which reads back only a count copied at its previous call.
+
 The tiered table (``ps/tiered_table.py``) stages rows through
 ``_ingest`` and writes them back through ``_canonical``, bounds the arena
 by overriding ``_grow_to`` and re-randomizes it in place between passes
@@ -408,6 +418,12 @@ class DeviceTable:
         # device-prep training
         self.mirror: Optional[DeviceIndexMirror] = None
         self.dirty_dev: Optional[torch.Tensor] = None
+        # the device miss ring and its count (deferred insert), and the
+        # count snapshot of the lagged drain
+        self.miss_ring: Optional[torch.Tensor] = None
+        self.miss_cnt: Optional[torch.Tensor] = None
+        self._miss_snapshot: Optional[torch.Tensor] = None
+        self._snap_bufs = None
         # rows touched since the last save (host-side marks)
         self._dirty = np.zeros(self.capacity, dtype=bool)
         self._alloc_seq = 0
@@ -457,12 +473,15 @@ class DeviceTable:
 
     # -- device-resident index (device-prep training) ------------------------
 
+    # entries of the device miss ring; tests make it smaller
+    MISS_RING = 1 << 20
+
     def enable_device_index(self) -> DeviceIndexMirror:
         """Mirror the key index on the table's device, so that a
         device-prep step dedups and resolves keys there
         (``trainer/fused_step.py`` ``device_prep``), and make the device
-        dirty bitmap that the step marks. Needs the native single-map
-        index (slot export)."""
+        dirty bitmap that the step marks and the miss ring with its count.
+        Needs the native single-map index (slot export)."""
         if self.mirror is None:
             if not isinstance(self._index, native.NativeIndex):
                 raise RuntimeError(
@@ -471,7 +490,83 @@ class DeviceTable:
             self.mirror = DeviceIndexMirror(self._index, self.device)
             self.dirty_dev = torch.zeros(self.capacity, dtype=torch.bool,
                                          device=self.device)
+            # slot MISS_RING is the overflow sink (a dropped miss recurs
+            # at its key's next occurrence)
+            self.miss_ring = torch.zeros(self.MISS_RING + 1,
+                                         dtype=torch.int64,
+                                         device=self.device)
+            self.miss_cnt = torch.zeros(1, dtype=torch.int64,
+                                        device=self.device)
         return self.mirror
+
+    def record_misses(self, uniq_keys: torch.Tensor, found: torch.Tensor,
+                      n_uniq: torch.Tensor) -> None:
+        """Append a step's misses to the ring, in place and on the device
+        (nothing is read back, so a captured run appends at each replay):
+        a miss is a unique below ``n_uniq`` that the probe did not find and
+        is not key 0. Misses go in unique order to ``count + i``; those
+        past the ring land in the sink, and the count stops at the ring's
+        size (the reference's ``fused_step.py`` append)."""
+        cap = self.miss_ring.shape[0] - 1
+        live = torch.arange(uniq_keys.shape[0],
+                            device=uniq_keys.device) < n_uniq
+        miss = live & ~found & (uniq_keys != 0)
+        m = miss.long()
+        idx = self.miss_cnt + torch.cumsum(m, 0) - 1
+        pos = torch.where(miss & (idx < cap), idx, cap)
+        self.miss_ring.index_put_((pos,), uniq_keys)
+        self.miss_cnt.copy_(torch.clamp(self.miss_cnt + m.sum(), max=cap))
+
+    def poll_misses(self) -> int:
+        """Drain the ring synchronously (one blocking read of the count):
+        insert its first ``n`` entries through ``insert_keys``, admission
+        gate included, in ring order, and zero the count in place. Drops
+        the lagged snapshot. Returns ``n``, before dedup."""
+        if self.miss_cnt is None:
+            raise RuntimeError("poll_misses needs enable_device_index()")
+        n = int(self.miss_cnt[0])
+        if n:
+            self.insert_keys(self.miss_ring[:n].cpu().numpy().view(
+                np.uint64))
+            self.miss_cnt.zero_()
+        self._miss_snapshot = None
+        return n
+
+    def poll_misses_async(self) -> int:
+        """The lagged drain: when the count snapshot taken at the previous
+        call (its copy long finished) is non-zero, ``poll_misses``; then
+        take a new snapshot: the count copied on the device into a buffer
+        of its own, and from there, without blocking, into pinned host
+        memory behind a CUDA event. A step's misses so insert at the second
+        poll after it. Returns the entries acted on."""
+        inserted = 0
+        if self._miss_snapshot is not None and self._snapshot_count():
+            inserted = self.poll_misses()
+        self._take_snapshot()
+        return inserted
+
+    def _take_snapshot(self) -> None:
+        if self._snap_bufs is None:
+            cuda = self.miss_cnt.is_cuda
+            self._snap_bufs = (
+                torch.empty_like(self.miss_cnt),
+                torch.empty(1, dtype=torch.int64, pin_memory=True)
+                if cuda else None,
+                torch.cuda.Event() if cuda else None)
+        dev, host, event = self._snap_bufs
+        dev.copy_(self.miss_cnt)
+        if host is None:
+            self._miss_snapshot = dev
+        else:
+            host.copy_(dev, non_blocking=True)
+            event.record()
+            self._miss_snapshot = host
+
+    def _snapshot_count(self) -> int:
+        event = self._snap_bufs[2]
+        if event is not None:
+            event.synchronize()
+        return int(self._miss_snapshot[0])
 
     def _gate_new_keys(self, keys: np.ndarray) -> np.ndarray:
         """Admission hook on the insert paths (``prepare_batch`` with
@@ -481,9 +576,16 @@ class DeviceTable:
         dropped, no insert). This table admits every key."""
         return keys
 
+    def admits_every_key(self) -> bool:
+        """Whether ``_gate_new_keys`` passes every key: then an "ensure"
+        step, whose new keys are all inserted before it, misses none."""
+        return True
+
     def insert_keys(self, keys: np.ndarray) -> int:
         """Insert ``keys`` (non-zero, new ones only) into the host index and
-        the device mirror. Returns the count of new rows."""
+        the device mirror, numbered in first-occurrence order: "ensure"
+        mode's insert before a step, and the ring's drain in deferred mode.
+        Returns the count of new rows."""
         if self.mirror is None:
             raise RuntimeError("insert_keys needs enable_device_index()")
         keys = self._gate_new_keys(np.ascontiguousarray(keys,
@@ -672,7 +774,14 @@ class DeviceTable:
                 st: np.ndarray) -> None:
         """Write canonical-layout rows into the arenas at ``rows`` (int64 on
         the table's device), in place. A state of the host table's width
-        (0 columns under sgd) fills the arena's state columns it has."""
+        (0 columns under sgd) fills the arena's state columns it has. Rows
+        of another width than the arena's raise ``ValueError``, as the
+        reference's broadcast does (a variable arena over a host backing
+        of the fixed layout)."""
+        if vals.shape[1] != self.dim:
+            raise ValueError(
+                f"rows of {vals.shape[1]} value columns do not fit the "
+                f"arena's {self.dim}")
         dev = self.device
         vals, st = self.layout.arena_from_canonical(vals, st)
         self.values.index_copy_(
@@ -779,3 +888,9 @@ class DeviceTable:
         self._ingest(torch.arange(1, n, dtype=torch.int64,
                                   device=self.device), vals, st)
         self._clear_dirty()
+        # misses a stream reported before the load would insert keys the
+        # loaded index never saw
+        if self.miss_ring is not None:
+            self.miss_ring.zero_()
+            self.miss_cnt.zero_()
+        self._miss_snapshot = None

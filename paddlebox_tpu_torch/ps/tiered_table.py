@@ -54,9 +54,26 @@ failed on the worker, is dropped and the pass stages synchronously.
 
 Saves flush a pass's trained rows into the backing first, then save the
 backing, the durable tier (the disk tier's chunk log is its own durable
-state, reopened by ``DiskTier(resume=True)``). Not ported, and refused
-with ``NotImplementedError``: bfloat16, int8 or variable arenas under the
-tiered table (ROADMAP A.7d); the mesh-sharded tiered table (A.9).
+state, reopened by ``DiskTier(resume=True)``).
+
+The arena may hold float32, bfloat16 or int8 values (``value_dtype``, as
+``DeviceTable``): staging converts the backing's canonical rows through
+``ArenaLayout.arena_from_canonical`` (``_ingest``; an int8 group is
+quantized at the scale of its own maximum, so the padding repeat of the
+last row writes the same bits), the writeback converts back through
+``canonical_from_arena`` (``_canonical``, show/clk from the state), and
+``end_pass`` refills the arena in place through ``ArenaLayout.fill_``,
+int8 scale columns included. The prefetch, the disk tier and the deferred
+demote carry canonical float32 rows on the host. ``variable_embedding``
+needs a backing that stores its layout, which the host ``EmbeddingTable``
+refuses: without a backing the constructor raises its ``ValueError``, as
+the reference's does. Not ported, and refused with ``NotImplementedError``:
+the mesh-sharded tiered table (ROADMAP A.9).
+
+In deferred insert mode a pass's misses go to the device miss ring
+(``DeviceTable.record_misses``): ``begin_feed_pass`` zeroes its count in
+place and drops the lagged snapshot, so a pass never inserts the previous
+pass's misses.
 """
 
 from __future__ import annotations
@@ -182,12 +199,6 @@ class TieredDeviceTable(DeviceTable):
                  admit=None,
                  stage_buckets: Optional[BucketSpec] = None,
                  device: DeviceLike = None):
-        if value_dtype != torch.float32 or conf.variable_embedding:
-            raise NotImplementedError(
-                f"value_dtype {value_dtype}, variable_embedding "
-                f"{conf.variable_embedding}: low-precision and variable "
-                "arenas under TieredDeviceTable are not ported yet (ROADMAP "
-                "A.7d); the tiered table stages float32 arenas")
         if backing is not None and not isinstance(backing, EmbeddingTable):
             raise NotImplementedError(
                 f"backing {type(backing).__name__}: only the host "
@@ -251,6 +262,9 @@ class TieredDeviceTable(DeviceTable):
         adm, _a, _r = admission.admit_pass_keys(
             uniq, counts, self.backing, self.disk, self._admit)
         return adm
+
+    def admits_every_key(self) -> bool:
+        return self._admit is None
 
     def _gate_new_keys(self, keys: np.ndarray) -> np.ndarray:
         """Map the new keys not admitted yet to the padding key 0 (the null
@@ -463,6 +477,11 @@ class TieredDeviceTable(DeviceTable):
         self._clear_dirty()
         if self.mirror is not None:
             self.mirror.sync()
+            # stale ring entries would insert the previous pass's keys into
+            # this pass's index, and a stale snapshot would cost the first
+            # deferred poll a spurious drain
+            self.miss_cnt.zero_()
+            self._miss_snapshot = None
         self.in_pass = True
         self.staged_keys = uniq
         return w

@@ -15,9 +15,10 @@ update. The arenas never leave the device and are updated in place.
       float32 [B * (cvm + T + Dd + 1)]: cvm_in | labels | dense | row_mask
 
 - ``step_device``, device prep (``device_prep=True``, the reference's
-  flagship engine, ``insert_mode="ensure"``): the host inserts the batch's
+  flagship engine): in "ensure" mode the host inserts the batch's
   new keys into its index and the index's device mirror
-  (``DeviceTable.ensure_keys``), then ships the raw keys (uint64 viewed as
+  (``DeviceTable.ensure_keys``; "deferred" mode polls the miss ring
+  instead), then ships the raw keys (uint64 viewed as
   int64) beside the int32 segment ids and the float32 block. On the device
   the dedup (K5) numbers the uniques, in ascending key order with Upad =
   Npad, and its write pass probes the mirror for their rows (K6 folded
@@ -75,9 +76,29 @@ the way: the callback must not synchronize.
 ``TrainerConfig.recompute`` runs the model's forward again inside the
 backward (``train_step.apply_model``), in the run graphs too.
 
-Not ported yet: the "deferred" insert mode with its device miss ring
-(ROADMAP A.3b) and the staged device feed of ``train_stream`` (``feed=``,
-A.4).
+``insert_mode`` picks device prep's new-key policy, as in the reference:
+
+- ``"ensure"`` (default): the host inserts a batch's (a run's) new keys
+  before it ships (``ensure_keys``), so a new key trains on its first
+  occurrence.
+- ``"deferred"``, the reference's own: no host key work before a step. A
+  key the probe does not find rides the null row (pulls zeros, its push
+  dropped, row 0 unchanged) and is appended to the table's device miss
+  ring; ``poll_misses_async`` before each ``step_device`` and each run of
+  ``train_stream`` drains the ring with a lag (a step's misses insert at
+  the second poll after it), so the key trains from a later occurrence
+  on. ``train_stream(final_poll=True)`` drains it at the
+  end with ``poll_misses``.
+
+A device-prep step appends its misses to the ring
+(``DeviceTable.record_misses``, after the dedup and probe) in "deferred"
+mode, and in "ensure" mode over a table with an admission gate, whose
+rejected keys miss; "ensure" over a table that admits every key misses
+none, and skips the append (its ring stays empty, as the reference's
+does).
+
+Not ported yet: the staged device feed of ``train_stream`` (``feed=``,
+ROADMAP A.4).
 """
 
 from __future__ import annotations
@@ -154,10 +175,6 @@ class FusedTrainStep:
                  device_prep: bool = False, insert_mode: str = "ensure"):
         if insert_mode not in ("ensure", "deferred"):
             raise ValueError(f"unknown insert_mode {insert_mode!r}")
-        if insert_mode == "deferred":
-            raise NotImplementedError(
-                "insert_mode='deferred' (the device miss ring, poll_misses) "
-                "is not ported yet (ROADMAP A.3b)")
         full_float32_matmuls()
         self.model = model
         self.table = table
@@ -182,6 +199,9 @@ class FusedTrainStep:
         self._sentinel_cb = None
         self.device_prep = device_prep
         self.insert_mode = insert_mode
+        # whether a step can miss a key, and so appends to the miss ring
+        self._record_misses = (insert_mode == "deferred" or
+                               not table.admits_every_key())
         if device_prep:
             table.enable_device_index()
         # on the card, full device-prep runs of train_stream replay CUDA
@@ -366,13 +386,13 @@ class FusedTrainStep:
     def step_device(self, params: nn.Module, opt_state: Dict[str, Any],
                     auc_state: Dict[str, torch.Tensor], keys: np.ndarray,
                     segment_ids, cvm_in, labels, dense, row_mask):
-        """Device-prep entry ("ensure" mode): inserts the batch's new keys
-        on the host, ships the raw keys, and dedups and resolves them on
-        the device (K5 with K6 folded in) before the shared step body.
-        Arguments and result as ``__call__``'s."""
+        """Device-prep entry: inserts the batch's new keys on the host
+        ("ensure") or polls the miss ring ("deferred"), ships the raw keys,
+        and dedups and resolves them on the device (K5 with K6 folded in)
+        before the shared step body. Arguments and result as
+        ``__call__``'s."""
         self._need_device_prep()
-        with record_function("train_step.ensure_keys"):
-            self.table.ensure_keys(keys)
+        self._insert_before([keys])
         with record_function("train_step.upload"):
             (keys_d, segs), cvm, labels_d, dense_d, mask = self._upload(
                 [_keys_i64(keys), np.asarray(segment_ids, np.int32)],
@@ -389,19 +409,34 @@ class FusedTrainStep:
                             cvm_in: torch.Tensor, labels: torch.Tensor,
                             dense: torch.Tensor, row_mask: torch.Tensor):
         """The device half of ``step_device``: every input already on the
-        table's device (``keys``, the padded uint64 keys viewed as int64),
-        every non-zero key already in the index and its mirror
-        (``DeviceTable.ensure_keys``). The arenas, the dirty bitmap and the
-        mirror are read at the call, so a growth or a resync before it is
-        seen. Result as ``step_device``'s."""
+        table's device (``keys``, the padded uint64 keys viewed as int64).
+        A key not in the index and its mirror rides the null row and is
+        appended to the miss ring (where a step can miss one). The arenas, the dirty bitmap, the mirror
+        and the ring are read at the call, so a growth or a resync before
+        it is seen. Result as ``step_device``'s."""
         self._need_device_prep()
         t = self.table
         with record_function("train_step.dedup_probe"):
-            dd, uniq_rows, _ = t.mirror.dedup_probe(keys)
-        return self._step(params, opt_state, auc_state, segment_ids,
-                          dd.inverse, uniq_rows, cvm_in, labels, dense,
-                          row_mask, merge=(dd.order, dd.offsets),
-                          dirty=t.dirty_dev)
+            dd, uniq_rows, found = t.mirror.dedup_probe(keys)
+        out = self._step(params, opt_state, auc_state, segment_ids,
+                         dd.inverse, uniq_rows, cvm_in, labels, dense,
+                         row_mask, merge=(dd.order, dd.offsets),
+                         dirty=t.dirty_dev)
+        if self._record_misses:
+            with record_function("train_step.record_misses"):
+                t.record_misses(dd.uniq_keys, found, dd.n_uniq)
+        return out
+
+    def _insert_before(self, keys_list: List[np.ndarray]) -> None:
+        """The host's key work before a device-prep dispatch over the
+        batches of ``keys_list``: one ``ensure_keys`` over their keys, or
+        in "deferred" mode one lagged drain of the miss ring."""
+        if self.insert_mode == "deferred":
+            with record_function("train_step.poll_misses"):
+                self.table.poll_misses_async()
+        else:
+            with record_function("train_step.ensure_keys"):
+                self.table.ensure_keys(np.concatenate(keys_list))
 
     # -- chunked and streamed entries ----------------------------------------
 
@@ -452,16 +487,23 @@ class FusedTrainStep:
         ``DEV_CHUNK`` batches an upload, on the card as CUDA graph
         replays; host prep overlaps the next batch's ``prepare_batch``
         and upload with the current step.
-        ``final_poll`` does nothing: "ensure" mode leaves no miss ring to
-        drain (the ring is ROADMAP A.3b). Returns ``(params, opt_state,
+        With device prep, ``final_poll`` drains the miss ring at the end
+        (``poll_misses``, one blocking read), as the reference does in
+        either mode; host prep has no ring. Returns ``(params, opt_state,
         auc_state, last_loss, steps)``."""
         if feed is not None:
             raise NotImplementedError(
                 "train_stream(feed=...), the staged device feed "
                 "(data/device_feed.py), is not ported yet (ROADMAP A.4)")
-        run = (self._train_stream_dev if self.device_prep
-               else self._train_stream_host)
-        return run(params, opt_state, auc_state, batch_iter, on_step)
+        if not self.device_prep:
+            return self._train_stream_host(params, opt_state, auc_state,
+                                           batch_iter, on_step)
+        out = self._train_stream_dev(params, opt_state, auc_state,
+                                     batch_iter, on_step)
+        if final_poll:
+            with record_function("train_step.poll_misses"):
+                self.table.poll_misses()
+        return out
 
     def _train_stream_host(self, params, opt_state, auc_state, batch_iter,
                            on_step):
@@ -505,8 +547,9 @@ class FusedTrainStep:
     def _train_stream_dev(self, params, opt_state, auc_state, batch_iter,
                           on_step):
         """Runs of ``DEV_CHUNK`` same-shape batches: one ``ensure_keys``
-        over the run's keys, one upload of its keys, segment ids and float
-        blocks, then ``step_device_tensors`` over each batch's views. On
+        over the run's keys ("deferred": one lagged poll of the miss ring),
+        one upload of its keys, segment ids and float blocks, then
+        ``step_device_tensors`` over each batch's views. On
         the card a run shape's first full run goes so, eagerly, and each
         later one is one replay of its CUDA graph (``run_graphs``,
         ``trainer/step_graph.py``). A shorter run (a shape change, the
@@ -527,8 +570,7 @@ class FusedTrainStep:
                     if on_step is not None:
                         on_step(steps, loss)
                 continue
-            with record_function("train_step.ensure_keys"):
-                self.table.ensure_keys(np.concatenate([a[0] for a in run]))
+            self._insert_before([a[0] for a in run])
             with record_function("train_step.pack"):
                 floats = [self._float_block(*a[2:]) for a in run]
                 host, layout = self._pack([

@@ -25,11 +25,19 @@ run on the ``AsyncCheckpointWriter``. The layout is the reference's
 ``donefile.jsonl``, ``dense.npz`` in ``leaf_%05d`` order), so a trail
 written by either package resumes in the other.
 
+Under ``PBOX_FLAGS_serve_quantized`` each base and delta also commits a
+derived int8 serving snapshot, ``<dir>.q8`` (``ps/quant_table.py``
+``quantize_snapshot`` of each table's snapshot, on the writer thread),
+after its parent dir and before the donefile append: no record names it,
+retention prunes it with its parent, ``ckpt/discovery.py``
+``quantized_sibling`` finds it. A table whose layout the quantizer cannot
+take (``variable_embedding``) is skipped with a warning.
+
 The reference reads its queue depth, retries and kept bases from its flag
 registry; the port has none, and takes the flags' defaults as constants.
-Not ported, and refused with ``NotImplementedError`` when their
-``PBOX_FLAGS_<name>`` variable is set: ``fix_dayid`` (ROADMAP A.6) and
-``serve_quantized``, the int8 serving export (A.1). The reference's
+Not ported, and refused with ``NotImplementedError`` when its
+``PBOX_FLAGS_<name>`` variable is set: ``fix_dayid`` (ROADMAP A.6). The
+reference's
 per-pass heartbeat, trace and postmortem dump are A.6 and have no
 counterpart here.
 """
@@ -38,13 +46,15 @@ from __future__ import annotations
 
 import os
 import threading
+import warnings
 from typing import Any, Optional, Sequence, Tuple
 
 from paddlebox_tpu_torch.ckpt import atomic, discovery, faults, retention
 from paddlebox_tpu_torch.ckpt.writer import AsyncCheckpointWriter
-from paddlebox_tpu_torch.config import refuse_flags
+from paddlebox_tpu_torch.config import env_flag, refuse_flags
 from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.data.parser import IngestError
+from paddlebox_tpu_torch.ps.quant_table import quantize_snapshot
 from paddlebox_tpu_torch.ps.server import SparsePS
 from paddlebox_tpu_torch.trainer import donefile
 from paddlebox_tpu_torch.utils.checkpoint import dense_arrays
@@ -59,7 +69,6 @@ CKPT_KEEP_BASES = 3
 # feature)
 _REFUSED_FLAGS = (
     ("fix_dayid", "A.6", "a fixed day id for replays"),
-    ("serve_quantized", "A.1", "the int8 serving export of each save"),
 )
 
 
@@ -200,6 +209,19 @@ class PassManager:
             dense = (dense_arrays(dense_state) if dense_state is not None
                      else None)
         root, policy = self.save_root, self.retention
+        # the int8 serving export: the snapshot arrays are host copies, so
+        # the quantizing runs on the writer; the tables' configs are read
+        # here, so the job touches no live table
+        q8_files = {}
+        if env_flag("serve_quantized", False) and kind in ("base", "delta"):
+            for fname, arrays in files.items():
+                t = self.ps.tables.get(fname.split(".npz", 1)[0])
+                conf = getattr(t, "conf", None)
+                if (conf is None or conf.variable_embedding
+                        or not {"keys", "values"} <= set(arrays)):
+                    continue
+                q8_files[fname] = (arrays, conf)
+        final_q8 = final + discovery.QUANT_SUFFIX
 
         def job() -> None:
             if os.path.isdir(staging):      # not yet committed (retry-safe)
@@ -210,6 +232,22 @@ class PassManager:
                     atomic.write_npz(os.path.join(staging, "dense.npz"),
                                      dense)
                 atomic.commit_dir(staging, final, scope=kind)
+            if q8_files and not os.path.isdir(final_q8):
+                # committed after its parent and before the donefile
+                # append: a crash in here leaves prunable .tmp- spill only
+                faults.crash_point(f"{kind}.before_q8")
+                qstaging = atomic.stage_dir(final_q8)
+                for fname, (arrays, conf) in q8_files.items():
+                    try:
+                        q8 = quantize_snapshot(arrays, conf)
+                    except ValueError as e:
+                        # that table is quantized on load by its consumer;
+                        # it never fails the parent's commit
+                        warnings.warn(f"quantized export skipped "
+                                      f"{fname}: {e}")
+                        continue
+                    atomic.write_npz(os.path.join(qstaging, fname), q8)
+                atomic.commit_dir(qstaging, final_q8, scope=f"{kind}.q8")
             faults.crash_point(f"{kind}.before_donefile")
             donefile.write_done(root, day, pass_id, kind, final)
             if kind == "base":

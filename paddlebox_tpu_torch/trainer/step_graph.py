@@ -14,7 +14,8 @@ and nothing is read back to the host.
 
 A capture bakes in device addresses: the arenas, the table's dirty bitmap,
 the mirror table (and its mask, an argument of the dedup-and-probe
-launch), the dense params, the optimizer state and the AUC state. ``run_key`` lists them beside the run
+launch), the miss ring and its count (each step appends its misses), the
+dense params, the optimizer state and the AUC state. ``run_key`` lists them beside the run
 shape. ``RunGraphs`` keeps one graph a run shape, all in one memory pool,
 and drops a graph whose addresses differ from the current ones, so that
 the run is captured anew: ``DeviceTable._grow_to`` (the arenas and the
@@ -107,15 +108,16 @@ def state_tensors(state: Any) -> Iterator[torch.Tensor]:
 
 def run_key(fs, params, opt_state, auc_state, shape) -> tuple:
     """Everything a capture of a run over ``fs`` bakes in: the run shape,
-    then the address and shape of the arenas, the mirror table and the
-    dirty bitmap, the dense params and the optimizer and AUC state, and
-    the mirror's mask and window."""
+    then the address and shape of the arenas, the mirror table, the dirty
+    bitmap, the miss ring and its count, the dense params and the
+    optimizer and AUC state, and the mirror's mask and window."""
     t, m = fs.table, fs.table.mirror
 
     def at(tensors):
         return tuple((x.data_ptr(), tuple(x.shape)) for x in tensors)
 
-    return (shape, at((t.values, t.state, m.tab, t.dirty_dev)), m.mask,
+    return (shape, at((t.values, t.state, m.tab, t.dirty_dev, t.miss_ring,
+                       t.miss_cnt)), m.mask,
             m.window, at(params.parameters()),
             at(state_tensors(opt_state)), at(state_tensors(auc_state)))
 

@@ -26,7 +26,11 @@ vectorized batches) feeds ``FusedTrainStep.train_stream`` in segments of
 The fused step is device prep (``step_device``: host ``ensure_keys``, the
 dedup and probe on the card) when a native single-map index backs the
 table, else host prep (``__call__``: host ``prepare_batch``), as the
-reference resolves it. The f32 AUC state on the device drains into the host's
+reference resolves it; ``insert_mode="deferred"`` (device prep only, else
+it warns and trains in "ensure" mode) leaves new keys to the device miss
+ring, which ``train_from_dataset`` drains at the pass end
+(``_drain_miss_ring``) and ``train_from_files`` at the end of each
+``train_stream`` segment. The f32 AUC state on the device drains into the host's
 float64 calculator every ``AUC_DRAIN_STEPS`` steps and at the pass end,
 and is zeroed in place (a captured run writes into its tensors).
 ``SpanTimer`` times each batch ("main") and its step ("step"; and "pull"
@@ -40,8 +44,7 @@ trainer carries, for the caller to fill.
 
 Not ported, and refused with ``NotImplementedError``: ``mesh=`` and
 ``dense_sync_hook`` (ROADMAP A.9), ``train_from_files``
-with ``workers`` > 1 (the multi-process reader, A.2d),
-``insert_mode="deferred"`` with device prep on (A.3b), and, set through
+with ``workers`` > 1 (the multi-process reader, A.2d), and, set through
 the reference's ``PBOX_FLAGS_<name>`` environment variables, the device
 feed (``feed_device_prefetch``, A.4), the train guard (``check_nan_inf``),
 the trace, the postmortem dump and the pass heartbeat (A.6). The
@@ -231,6 +234,15 @@ class CTRTrainer:
             return "ensure"
         return insert_mode
 
+    def _drain_miss_ring(self) -> None:
+        """The pass end's drain of the miss ring on the batch-at-a-time
+        device-prep path: deferred keys first seen in the last lagged poll
+        interval reach the index before the metrics and a save (the stream
+        drains through ``train_stream(final_poll=True)``)."""
+        if self.fused and self.step.device_prep and \
+                self.step.insert_mode == "deferred":
+            self.table.poll_misses()
+
     def _train_one(self, batch: CsrBatch):
         cvm = self._cvm(batch)
         if not self.fused:
@@ -316,6 +328,7 @@ class CTRTrainer:
                 self._dump_batch(batch, p)
                 if fetch_handler is not None:
                     fetch_handler(self._step_count, float(loss), p)
+        self._drain_miss_ring()
         self._drain_auc()
         return self._pass_end()
 

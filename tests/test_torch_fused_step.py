@@ -305,12 +305,14 @@ def test_masked_loss_matches_optax():
 
 
 def test_unported_options_raise():
-    """The step's own unported option, the deferred insert mode. The
-    options once refused here (lars, lamb, gradient merging, recompute)
-    build now (``tests/test_torch_dense_optim.py`` holds them to the
-    reference). The four fields of the trainer loop (dense_sync_steps,
-    metrics, num_devices, profile) are CTRTrainer's:
-    tests/test_torch_trainer.py::test_trainer_config_fields holds them."""
+    """The options once refused here build now: lars, lamb, gradient
+    merging, recompute (``tests/test_torch_dense_optim.py`` holds them to
+    the reference) and the deferred insert mode, which makes the table's
+    miss ring (``tests/test_torch_deferred_insert.py``). The staged device
+    feed (``train_stream(feed=...)``) stays refused (A.4). The four fields
+    of the trainer loop (dense_sync_steps, metrics, num_devices, profile)
+    are CTRTrainer's: tests/test_torch_trainer.py::
+    test_trainer_config_fields holds them."""
     table = DeviceTable(TableConfig(embedx_dim=EDIM), capacity=16,
                         device="cpu")
     model = torch.nn.Linear(1, 1)
@@ -319,9 +321,16 @@ def test_unported_options_raise():
         fs = FusedTrainStep(model, table, TrainerConfig(**ported), B, S)
         assert fs.recompute == ported.get("recompute", False)
         assert fs.optimizer.every_k == ported.get("grad_merge_steps", 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3b"):
-        FusedTrainStep(model, table, TrainerConfig(), B, S, device_prep=True,
-                       insert_mode="deferred")
+    native_table = DeviceTable(TableConfig(embedx_dim=EDIM), capacity=16,
+                               device="cpu", backend="native",
+                               index_threads=1)
+    fs = FusedTrainStep(model, native_table, TrainerConfig(), B, S,
+                        device_prep=True, insert_mode="deferred")
+    assert fs.insert_mode == "deferred"
+    assert native_table.miss_ring.shape == (DeviceTable.MISS_RING + 1,)
+    assert native_table.miss_cnt.tolist() == [0]
+    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
+        fs.train_stream(None, None, None, iter(()), feed=object())
 
 
 def test_widedeep_converter_round_trips_flax():

@@ -733,3 +733,91 @@ def test_chip_smoke_refuses_without_cuda():
                          capture_output=True, text=True, timeout=240)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_deferred_tiered_low_precision_and_q8_serving_with_jax_blocked(
+        tmp_path):
+    """Deferred insert (the device miss ring and its polls) over a tiered
+    int8 table, a bf16 tiered pass, and the int8 serving export (a
+    ``.q8`` sibling of a base, a bundle's ``table.q8.npz`` served with the
+    hot-key cache and coalescing) run with jax and paddlebox_tpu
+    blocked."""
+    res = _run(f"""
+        import os, sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        os.environ["PBOX_FLAGS_serve_quantized"] = "1"
+        os.environ["PBOX_FLAGS_serve_cache_rows"] = "64"
+        os.environ["PBOX_FLAGS_serve_coalesce"] = "1"
+        import numpy as np
+        import torch
+        from paddlebox_tpu_torch.ckpt import discovery
+        from paddlebox_tpu_torch.config import (TableConfig, TrainerConfig,
+                                                SlotConfig, DataFeedConfig)
+        from paddlebox_tpu_torch.data.parser import SlotParser
+        from paddlebox_tpu_torch.inference import (load_inference_model,
+                                                   save_inference_model)
+        from paddlebox_tpu_torch.models import DeepFM
+        from paddlebox_tpu_torch.ps.quant_table import QuantServingTable
+        from paddlebox_tpu_torch.ps.server import SparsePS
+        from paddlebox_tpu_torch.ps.tiered_table import TieredDeviceTable
+        from paddlebox_tpu_torch.trainer.fused_step import FusedTrainStep
+        from paddlebox_tpu_torch.trainer.pass_manager import PassManager
+        B, S, N = 8, 2, 64
+        conf = TableConfig(embedx_dim=4, embedx_threshold=0.0)
+        rng = np.random.default_rng(0)
+        for dtype in (torch.int8, torch.bfloat16):
+            t = TieredDeviceTable(conf, capacity=512, device="cpu",
+                                  value_dtype=dtype, backend="native",
+                                  index_threads=1)
+            fs = FusedTrainStep(DeepFM(S * 7, (8,)), t, TrainerConfig(), B,
+                                S, device_prep=True, insert_mode="deferred")
+            st = [*fs.init(), fs.init_auc_state()]
+            t.begin_feed_pass(np.arange(1, 40, dtype=np.uint64))
+            for i in range(4):
+                keys = np.zeros(N, np.uint64)
+                keys[:40] = rng.integers(1, 120, 40)
+                segs = np.full(N, B * S, np.int32)
+                segs[:40] = np.sort(rng.integers(0, B * S, 40))
+                lab = (rng.uniform(size=B) < 0.5).astype(np.float32)
+                *st[:3], loss, _ = fs.step_device(
+                    *st, keys, segs, np.stack([np.ones(B, 'f4'), lab], 1),
+                    lab, np.zeros((B, 0), 'f4'), np.ones(B, 'f4'))
+                assert np.isfinite(float(loss))
+            assert int(t.miss_cnt[0]) > 0
+            t.poll_misses()
+            assert t._size > 40
+            t.end_pass()
+        class Null:
+            def release_memory(self):
+                pass
+        pm = PassManager(SparsePS({{"embedding": t}}), {str(tmp_path / 'ck')!r},
+                         [Null()])
+        pm.pass_id = 1
+        base = pm.save_base(wait=True)
+        q8 = discovery.quantized_sibling(base)
+        assert q8 is not None
+        q = QuantServingTable(conf, device="cpu")
+        q.load(os.path.join(q8, "embedding.npz"))
+        assert len(q) == len(t) > 40
+        pm.close()
+        feed = DataFeedConfig(slots=[
+            SlotConfig("label", type="float", is_dense=True, dim=1),
+            SlotConfig("a"), SlotConfig("b")], batch_size=4)
+        out = save_inference_model({str(tmp_path / 'b')!r},
+                                   DeepFM(S * 7, (8,)),
+                                   t.snapshot(), feed, conf)
+        assert os.path.exists(os.path.join(out, "table.q8.npz"))
+        pred = load_inference_model(out, device="cpu")
+        recs = [SlotParser(feed).parse_line(f"1 0 2 {{i + 1}} 2 1 {{i + 3}}")
+                for i in range(6)]
+        s = pred.predict_records(recs)
+        assert s.shape == (6,) and np.isfinite(s).all()
+        assert pred.serves_quantized and pred.cache_stats()["rows"] > 0
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("DEFERRED_Q8_OK")
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "DEFERRED_Q8_OK" in res.stdout

@@ -478,11 +478,13 @@ def test_refusals(tmp_path, monkeypatch):
     t = DeviceTable(TableConfig(**TABLE), capacity=8, device="cpu",
                     backend="numpy")
     ps = SparsePS({"e": t})
-    for flag, item in (("fix_dayid", "A.6"), ("serve_quantized", "A.1")):
-        monkeypatch.setenv(f"PBOX_FLAGS_{flag}", "1")
-        with pytest.raises(NotImplementedError, match=item):
-            PassManager(ps, str(tmp_path), [SlotDataset(port_feed_conf())])
-        monkeypatch.delenv(f"PBOX_FLAGS_{flag}")
+    monkeypatch.setenv("PBOX_FLAGS_fix_dayid", "1")
+    with pytest.raises(NotImplementedError, match="A.6"):
+        PassManager(ps, str(tmp_path), [SlotDataset(port_feed_conf())])
+    monkeypatch.delenv("PBOX_FLAGS_fix_dayid")
+    # the int8 serving export, once refused, builds
+    # (tests/test_torch_serving_econ.py holds it to the reference)
+    monkeypatch.setenv("PBOX_FLAGS_serve_quantized", "1")
     pm = PassManager(ps, str(tmp_path), [SlotDataset(port_feed_conf())])
     pm.begin_pass([])
     with pytest.raises(RuntimeError, match="still open"):

@@ -25,6 +25,7 @@ from paddlebox_tpu.models import DeepFM as FlaxDeepFM
 from paddlebox_tpu.models import FeedDNN as FlaxFeedDNN
 from paddlebox_tpu.models import MMoE as FlaxMMoE
 from paddlebox_tpu.models import WideDeep as FlaxWideDeep
+from paddlebox_tpu.ps.quant_table import quantize_snapshot as jax_quantize
 from paddlebox_tpu.ps.table import EmbeddingTable as JaxTable
 from paddlebox_tpu_torch.config import TableConfig
 from paddlebox_tpu_torch.data import criteo
@@ -177,13 +178,29 @@ def test_snapshot_validation(world, tmp_path):
                              TableConfig(**TABLE))
 
 
-def test_quantized_only_bundle_and_create_raise(world, tmp_path):
+def test_quantized_only_bundle_and_create_raise(world, tmp_path,
+                                                monkeypatch):
+    """A bundle holding only ``table.q8.npz`` (the reference's quantizer
+    over the JAX bundle's table), once refused: under
+    ``PBOX_FLAGS_serve_quantized`` it serves, as the reference's does,
+    within the quantization's effect of the float32 scores; without the
+    flag the float32 table is missing, a ``FileNotFoundError`` in both
+    packages (``tests/test_torch_serving_econ.py`` holds the rest)."""
     bundle = str(tmp_path / "q8")
     shutil.copytree(world["bundle"], bundle)
-    os.rename(os.path.join(bundle, "table.npz"),
-              os.path.join(bundle, "table.q8.npz"))
-    with pytest.raises(NotImplementedError, match="q8"):
+    with np.load(os.path.join(bundle, "table.npz")) as f32:
+        q8 = jax_quantize(f32, JaxTableConfig(**TABLE))
+    np.savez(os.path.join(bundle, "table.q8.npz"), **q8)
+    os.remove(os.path.join(bundle, "table.npz"))
+    with pytest.raises(FileNotFoundError):
         CTRPredictor(bundle, device="cpu")
+    monkeypatch.setenv("PBOX_FLAGS_serve_quantized", "1")
+    got = np.concatenate([CTRPredictor(bundle, device="cpu").predict_batch(b)
+                          for b in criteo.CriteoReader(B).stream(
+                              [world["data"]])])
+    monkeypatch.delenv("PBOX_FLAGS_serve_quantized")
+    want, _ = _scores_both(world["bundle"], world["data"])
+    assert got.shape == want.shape and np.abs(got - want).max() < 0.02
     table = ServingTable(TableConfig(**TABLE), device="cpu")
     with pytest.raises(NotImplementedError, match="training"):
         table.pull(np.array([1], np.uint64), create=True)

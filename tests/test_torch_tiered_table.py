@@ -344,16 +344,19 @@ def test_failed_prefetch_stages_synchronously(monkeypatch, tmp_path):
 
 
 def test_refusals(monkeypatch):
-    """The low-precision and variable arenas stay refused (ROADMAP A.7d);
-    the disk tier, admission, staging buckets and the deferred demote,
-    once refused here, build (``tests/test_torch_disk_tier.py`` holds
-    them to the reference)."""
+    """Only the mesh-sharded tiered table stays refused (ROADMAP A.9). The
+    low-precision arenas, once refused here, build
+    (``tests/test_torch_tiered_arenas.py`` holds them to the reference); a
+    variable arena without a backing raises the host table's
+    ``ValueError``, as the reference's does. The disk tier, admission,
+    staging buckets and the deferred demote build
+    (``tests/test_torch_disk_tier.py``)."""
     conf = TableConfig(**TABLE)
-    for kw in (dict(value_dtype=torch.int8),
-               dict(value_dtype=torch.bfloat16)):
-        with pytest.raises(NotImplementedError, match="A.7d"):
-            TieredDeviceTable(conf, capacity=64, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A.7d"):
+    for dtype in (torch.int8, torch.bfloat16):
+        t = TieredDeviceTable(conf, capacity=64, device="cpu",
+                              value_dtype=dtype)
+        assert t.values.dtype == dtype and t.layout.stats_in_state
+    with pytest.raises(ValueError, match="variable_embedding"):
         TieredDeviceTable(dataclasses.replace(
             conf, expand_dim=2, variable_embedding=True), capacity=64,
             device="cpu")

@@ -362,8 +362,10 @@ REFUSED = {
                         "A.9"),
     "train_from_files": (lambda: _trainer().train_from_files(
         ["x"], workers=2), "A.2d"),
-    "deferred": (lambda: _trainer(insert_mode="deferred"), "A.3b"),
 }
+# options once refused here, which now build (test_torch_deferred_insert.py
+# holds them to the reference)
+PORTED = {"deferred": lambda: _trainer(insert_mode="deferred")}
 REFUSED_FLAGS = {"feed_device_prefetch": ("2", "A.4"),
                  "check_nan_inf": ("true", "A.6"),
                  "obs_trace_dir": ("/tmp/trace", "A.6"),
@@ -371,8 +373,14 @@ REFUSED_FLAGS = {"feed_device_prefetch": ("2", "A.4"),
                  "obs_heartbeat_path": ("/tmp/hb.jsonl", "A.6")}
 
 
-@pytest.mark.parametrize("what", sorted(REFUSED) + sorted(REFUSED_FLAGS))
+@pytest.mark.parametrize("what", sorted(REFUSED) + sorted(PORTED)
+                         + sorted(REFUSED_FLAGS))
 def test_unported_options_refused(what, monkeypatch):
+    if what in PORTED:
+        tr = PORTED[what]()
+        assert tr.step.device_prep and tr.step.insert_mode == "deferred"
+        assert tr.table.miss_ring is not None
+        return
     if what in REFUSED:
         fn, item = REFUSED[what]
     else:
