@@ -288,6 +288,31 @@ Phases, each fatal on failure:
              without the cache and coalescing, against the CPU's int8
              predictor, and within 0.02 of float32 serving; ms/batch in
              turns; the tables' device bytes.
+4n. data feed — the reference's data feed at the flagship's width: (i)
+             four seeded MultiSlot files of 16 batches of B=2048 (the
+             trainer's key mix, 5% new keys in the second and fourth)
+             through ``CTRTrainer.train_from_files`` with ``workers=4``
+             over the shared-memory fabric, over the pipe, and
+             ``workers=1``, each on a twin of one arena and one set of
+             weights: pass metrics, rows by key, the dense params and
+             adam's state bit for bit; forward, backward, push, K5's sort
+             and the fused dedup and probe once a batch; ``close()`` leaves
+             no segment (``leaked_segments`` 0, none in /dev/shm); (ii)
+             the same through ``pipe_command="cat"`` with ``workers=4``,
+             bit for bit against (i); (iii) a file with 3 bad lines
+             through ``SlotDataset`` under
+             ``PBOX_FLAGS_ingest_max_bad_lines=5`` and a quarantine
+             directory: its sidecar holds exactly the 3 lines, the
+             default budget raises naming the first, the records train;
+             (iv) two files of two-part instances (``parse_ins_id``)
+             through ``set_merge_by_insid(2)`` (each merged record the
+             instance written), ``global_shuffle`` over the 2 datasets,
+             ``spill_to_disk`` and ``load_from_archive``, then
+             ``train_from_dataset``: bit for bit against the same records
+             trained without the spill.
+   ``train_from_files`` ms/step at workers 1, 2 and 4 in turns, parse
+   MB/s on one thread and with 4 workers, a worker's start seconds (its
+   imports load no torch), each beside the card's name and power limit.
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -308,6 +333,7 @@ nonzero, printing no result, without CUDA.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -331,8 +357,10 @@ from paddlebox_tpu_torch.config import (BucketSpec, DataFeedConfig,
 from paddlebox_tpu_torch.data.criteo import (CriteoReader, criteo_feed_config,
                                              make_synthetic_criteo)
 from paddlebox_tpu_torch.data.batch import CsrBatch
-from paddlebox_tpu_torch.data.dataset import SlotDataset
-from paddlebox_tpu_torch.data.fast_feed import FastSlotReader
+from paddlebox_tpu_torch.data import ingest, shm_fabric
+from paddlebox_tpu_torch.data.dataset import SlotDataset, global_shuffle
+from paddlebox_tpu_torch.data.fast_feed import (FastSlotReader,
+                                                MultiProcessReader)
 from paddlebox_tpu_torch.data.parser import SlotParser
 from paddlebox_tpu_torch.ckpt.writer import AsyncCheckpointWriter
 from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
@@ -3993,6 +4021,337 @@ def phase_int8_serving(rng, backing: dict, model) -> dict:
             "q8_err": q8_err, "phase_s": time.perf_counter() - t_phase}
 
 
+# -- phase 4n: the data feed ---------------------------------------------------
+
+FEED_FILES = 4               # MultiSlot files of phase 4n's file passes
+FEED_WORKERS = 4             # parse workers of its multi-process passes
+FEED_HEADROOM = 1 << 18      # arena rows beyond the prepopulated ones
+FEED_BAD_BATCHES = 2         # batches of (iii)'s file, 3 bad lines added
+FEED_BAD_AT = (10, 2000, 4000)   # (iii): 0-based lines the bad ones take
+FEED_INS_BATCHES = 4         # (iv): instances of each file, in batches
+FEED_SPLIT = TS // 2         # (iv): slots of an instance's first part
+
+
+@contextlib.contextmanager
+def flag_env(**flags):
+    """The reference's flags as their ``PBOX_FLAGS_*`` variables for the
+    block, restored after it."""
+    old = {k: os.environ.get("PBOX_FLAGS_" + k) for k in flags}
+    os.environ.update({"PBOX_FLAGS_" + k: str(v) for k, v in flags.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop("PBOX_FLAGS_" + k, None)
+            else:
+                os.environ["PBOX_FLAGS_" + k] = v
+
+
+def port_segments() -> list:
+    """This process's shared-memory segments still named in /dev/shm."""
+    return [n for n in os.listdir("/dev/shm")
+            if n.startswith(f"{shm_fabric.PREFIX}{os.getpid()}_")]
+
+
+def worker_import_s() -> Tuple[float, float]:
+    """A parse worker's start: wall seconds of a fresh interpreter that
+    imports ``data.fast_feed`` and loads the tokenizer, and the imports'
+    own seconds; it must import no torch (no worker touches the card)."""
+    code = ("import sys, time\n"
+            "t = time.perf_counter()\n"
+            "import paddlebox_tpu_torch.data.fast_feed\n"
+            "from paddlebox_tpu_torch.ps import native\n"
+            "native._load_feed()\n"
+            "print(time.perf_counter() - t, 'torch' in sys.modules)")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    wall = time.perf_counter() - t0
+    secs, has_torch = res.stdout.split()
+    require(has_torch == "False", "data feed (4n): a parse worker's imports "
+                                  "import torch")
+    return wall, float(secs)
+
+
+def write_instance_parts(rng, path: str, first: int, rows: int) -> dict:
+    """``rows`` instances of the trainer's key mix (TS slots of 1-3 keys
+    over the prepopulated rows), ids ``i<first>``.., each as two MultiSlot
+    lines with a leading ``1 <ins_id>``: the label and the first
+    FEED_SPLIT slots (the rest empty), then the label and the other
+    slots; the lines shuffled. Returns each instance's keys, slot offsets
+    and label by id."""
+    lengths = rng.integers(1, 4, size=(rows, TS))
+    keys = rng.integers(1, HOT_VOCAB, size=int(lengths.sum()),
+                        dtype=np.uint64)
+    labels = rng.integers(0, 2, size=rows)
+    offs = np.concatenate([[0], np.cumsum(lengths.sum(axis=1))])
+    toks, lens = keys.astype(str), lengths.astype(str)
+    lines, want = [], {}
+    for r in range(rows):
+        ins = f"i{first + r}"
+        pos = int(offs[r])
+        slots = []
+        for j in range(TS):
+            n = int(lengths[r, j])
+            slots.append(" ".join([lens[r, j], *toks[pos:pos + n]]))
+            pos += n
+        head = f"1 {ins} 1 {labels[r]} "
+        lines.append(head + " ".join(slots[:FEED_SPLIT]) +
+                     " 0" * (TS - FEED_SPLIT))
+        lines.append(head + "0 " * FEED_SPLIT +
+                     " ".join(slots[FEED_SPLIT:]))
+        want[ins] = (keys[offs[r]:offs[r + 1]],
+                     np.concatenate([[0], np.cumsum(lengths[r])]),
+                     float(labels[r]))
+    with open(path, "w") as f:
+        f.write("\n".join(lines[i] for i in rng.permutation(len(lines)))
+                + "\n")
+    return want
+
+
+def phase_data_feed(rng) -> dict:
+    """The reference's data feed at the flagship's width (B=2048, 24
+    slots, a 4,194,304-row table on device prep): (i) four seeded
+    MultiSlot files of 16 batches (5% new keys in the second and fourth)
+    through ``CTRTrainer.train_from_files`` with ``workers=4`` over the
+    shared-memory fabric, over the pipe, and ``workers=1``, each on a
+    twin of one arena and one set of weights: pass metrics, rows by key,
+    the dense params and adam's state bit for bit; forward, backward,
+    push, K5's sort and the fused dedup and probe once a batch; no
+    segment left; (ii) the same files through ``pipe_command="cat"``
+    with ``workers=4``, bit for bit against (i); (iii) a file with 3 bad
+    lines trains through ``SlotDataset`` under
+    ``PBOX_FLAGS_ingest_max_bad_lines=5`` with a quarantine directory,
+    whose sidecar holds exactly those lines, and the default budget
+    raises naming the first; (iv) two files of two-part instances
+    (``parse_ins_id``) through ``set_merge_by_insid(2)`` (the merged
+    records equal the instances written), ``global_shuffle`` over the two
+    datasets, ``spill_to_disk`` and ``load_from_archive`` into new
+    datasets, ``train_from_dataset``: bit for bit against the same
+    records trained without the spill; (v) ``train_from_files`` ms/step
+    at workers 1, 2 and 4 in turns, parse MB/s, a worker's start."""
+    card = card_line()
+    conf, tconf, buckets = train_confs()
+    feed = trainer_feed_conf()
+    fbuckets = BucketSpec(min_size=TNPAD, max_size=1 << 18)
+    t_phase = time.perf_counter()
+    os.makedirs(WORK, exist_ok=True)
+    files = [os.path.join(WORK, f"feed-part-{i}") for i in range(FEED_FILES)]
+    n_new = [write_trainer_file(rng, path, (i % 2) * (
+        HOT_VOCAB + 1 + i * (1 << 20))) for i, path in enumerate(files)]
+    write_s = time.perf_counter() - t_phase
+    n = FEED_FILES * TRAINER_FILE_BATCHES
+    mb = sum(os.path.getsize(f) for f in files) / 1e6
+    table = DeviceTable(conf, capacity=HOT_VOCAB + 1 + FEED_HEADROOM,
+                        uniq_buckets=buckets, device="cuda",
+                        backend="native", index_threads=1)
+    table.prepopulate(HOT_VOCAB)
+    init = arena_of(table)
+    model = random_deepfm(rng, TS * conf.pull_dim)
+
+    def world(feed_conf=feed, tbl=None):
+        return CTRTrainer(copy.deepcopy(model), feed_conf, conf, tconf,
+                          table=tbl or arena_twin(table, "cuda", "native",
+                                                  init),
+                          buckets=fbuckets)
+
+    # (i), (ii): the file passes, each counted from 0
+    worlds = {"w1": world(tbl=table), "shm_w4": world(),
+              "pipe_w4": world(),
+              "cat_w4": world(dataclasses.replace(feed, pipe_command="cat"))}
+    launches, metrics, secs = {}, {}, {}
+    for tag, tr in worlds.items():
+        kw = {} if tag == "w1" else {"workers": FEED_WORKERS}
+        shm = "0" if tag == "pipe_w4" else "1"
+        with flag_env(ingest_shm=shm):
+            secs[tag], metrics[tag], launches[f"feed_files_{tag}"] = \
+                count_launches(lambda: tr.train_from_files(files, **kw), n,
+                               f"data feed (4n) {tag}")
+        require(not port_segments(), f"data feed (4n) {tag}: segments "
+                                     f"{port_segments()} left")
+    want = worlds["w1"]
+    require(metrics["w1"]["ins_num"] == n * TB,
+            f"data feed (4n): ins_num {metrics['w1']['ins_num']}")
+    for tag, tr in worlds.items():
+        if tag == "w1":
+            continue
+        require(metrics[tag] == metrics["w1"],
+                f"data feed (4n) {tag} vs workers=1: metrics "
+                f"{metrics[tag]} vs {metrics['w1']}")
+        require_same_training(
+            f"data feed (4n) {tag} vs workers=1",
+            (tr.table, tr.params, tr.opt_state, None),
+            (want.table, want.params, want.opt_state, None))
+    print(f"data feed (4n): wrote {FEED_FILES} files of "
+          f"{TRAINER_FILE_BATCHES * TB} lines ({mb:.1f} MB; "
+          f"{sum(n_new)} new keys) {write_s:.2f} s; train_from_files over "
+          f"{n} batches: workers={FEED_WORKERS} over the fabric, over the "
+          f"pipe and through pipe_command=\"cat\" vs workers=1: pass "
+          f"metrics, all {len(table)} rows by key, the dense params and "
+          f"adam's state bit for bit; launches "
+          f"{launches['feed_files_shm_w4']}; no segment left; first "
+          f"passes {[round(v / n * 1e3, 4) for v in secs.values()]} "
+          f"ms/step [{card}]")
+
+    # (iii) the error budget: 3 bad lines, a budget of 5 and a sidecar
+    bad_path = os.path.join(WORK, "feed-bad")
+    with open(files[0]) as f:
+        lines = [next(f) for _ in range(FEED_BAD_BATCHES * TB)]
+    bad_lines = ["1 1 x", "3 1 2", "1 0 1 7 garbage"]
+    for at, text in zip(FEED_BAD_AT, bad_lines):
+        lines.insert(at, text + "\n")
+    with open(bad_path, "w") as f:
+        f.writelines(lines)
+    qdir = os.path.join(WORK, "quarantine")
+    ds = SlotDataset(feed, buckets=fbuckets)
+    ds.set_filelist([bad_path])
+    try:
+        ds.load_into_memory()
+        raise RuntimeError("data feed (4n): the default budget let 3 bad "
+                           "lines through")
+    except ingest.IngestBudgetError as e:
+        require(str(e).startswith(f"{bad_path}:{FEED_BAD_AT[0] + 1}: "),
+                f"data feed (4n): the default budget's error {e}")
+        default_err = str(e)
+    with flag_env(ingest_max_bad_lines=5, ingest_quarantine_dir=qdir):
+        ds.load_into_memory()
+    require(ds.num_instances() == FEED_BAD_BATCHES * TB,
+            f"data feed (4n): {ds.num_instances()} records under the budget")
+    side = os.path.join(qdir, f"quarantine-{os.getpid()}.jsonl")
+    with open(side) as f:
+        quarantined = [json.loads(line) for line in f]
+    require([(q["path"], q["lineno"], q["snippet"]) for q in quarantined]
+            == [(bad_path, at + 1, text)
+                for at, text in zip(FEED_BAD_AT, bad_lines)],
+            f"data feed (4n): the sidecar holds {quarantined}")
+    _, budget_metrics, launches["feed_budget_dataset"] = count_launches(
+        lambda: want.train_from_dataset(ds), FEED_BAD_BATCHES,
+        "data feed (4n) budget")
+    ds.close()
+    print(f"data feed (4n) budget: {len(bad_lines)} bad lines in "
+          f"{FEED_BAD_BATCHES * TB + len(bad_lines)}: under "
+          f"ingest_max_bad_lines=5 {ds.num_instances()} records loaded and "
+          f"trained ({FEED_BAD_BATCHES} batches, launches "
+          f"{launches['feed_budget_dataset']}), the sidecar holding exactly "
+          f"the {len(quarantined)} bad lines; the default budget raised "
+          f"{default_err.split(': ValueError')[0]!r}")
+
+    # (iv) the dataset path: merge by instance id, the global shuffle, the
+    # archive spill, train_from_dataset, against the same without the spill
+    ins_feed = dataclasses.replace(feed, parse_ins_id=True)
+    rows = FEED_INS_BATCHES * TB
+    ins_files = [os.path.join(WORK, f"feed-ins-{i}") for i in range(2)]
+    written = {}
+    for i, path in enumerate(ins_files):
+        written.update(write_instance_parts(rng, path, i * rows, rows))
+    t_load = time.perf_counter()
+    out = {}
+    for mode in ("spill", "memory"):
+        shards = []
+        for path in ins_files:
+            d = SlotDataset(ins_feed, buckets=fbuckets)
+            d.set_merge_by_insid(2)
+            d.set_filelist([path])
+            d.load_into_memory()
+            require(d.merge_dropped == 0 and d.num_instances() == rows,
+                    f"data feed (4n) {mode}: merged {d.num_instances()}, "
+                    f"dropped {d.merge_dropped}")
+            shards.append(d)
+        if mode == "spill":
+            for r in (r for d in shards for r in d.records):
+                k, o, label = written[r.ins_id]
+                require(np.array_equal(r.uint64_feas, k) and
+                        np.array_equal(r.uint64_offsets, o) and
+                        r.label == label,
+                        f"data feed (4n): merged {r.ins_id} is not the "
+                        f"instance written")
+        global_shuffle(shards)
+        sizes = [d.num_instances() for d in shards]
+        if mode == "spill":
+            loaded = []
+            for k, d in enumerate(shards):
+                arc = os.path.join(WORK, f"feed-ins-{k}.pbxa")
+                require(d.spill_to_disk(arc) == sizes[k],
+                        "data feed (4n): spill count")
+                d.close()
+                back = SlotDataset(ins_feed, buckets=fbuckets)
+                back.load_from_archive(arc)
+                loaded.append(back)
+            shards = loaded
+        out[mode] = shards
+    load_s = time.perf_counter() - t_load
+    for a, b in zip(out["spill"], out["memory"]):
+        require(a.num_instances() == b.num_instances() and all(
+            np.array_equal(x.uint64_feas, y.uint64_feas) and
+            np.array_equal(x.uint64_offsets, y.uint64_offsets) and
+            (x.label, x.ins_id) == (y.label, y.ins_id)
+            for x, y in zip(a.records, b.records)),
+            "data feed (4n): the spilled records differ")
+    n_ds = sum(-(-s // TB) for s in sizes)
+    ds_worlds = {"spill": world(), "memory": world()}
+    ds_metrics = {}
+    for mode, tr in ds_worlds.items():
+        _, ds_metrics[mode], launches[f"feed_dataset_{mode}"] = \
+            count_launches(lambda: [tr.train_from_dataset(d)
+                                    for d in out[mode]], n_ds,
+                           f"data feed (4n) {mode}")
+    require(ds_metrics["spill"] == ds_metrics["memory"],
+            f"data feed (4n): metrics {ds_metrics}")
+    a, b = ds_worlds["spill"], ds_worlds["memory"]
+    require_same_training("data feed (4n): dataset path, spill vs memory",
+                          (a.table, a.params, a.opt_state, None),
+                          (b.table, b.params, b.opt_state, None))
+    for d in out["spill"] + out["memory"]:
+        d.close()
+    print(f"data feed (4n) dataset: {len(written)} two-part instances in 2 "
+          f"files merged (set_merge_by_insid(2): each the instance "
+          f"written), shuffled over 2 datasets {sizes}, spilled and loaded "
+          f"from the archive: the records and, over {n_ds} batches "
+          f"(launches {launches['feed_dataset_spill']}), the metrics, rows "
+          f"by key, dense params and adam's state bit for bit vs the "
+          f"same without the spill; both worlds' load, merge, shuffle and "
+          f"spill {load_s:.2f} s")
+    del ds_worlds, out
+
+    # (v) timing, in turns: train_from_files at workers 1, 2 and 4 (the
+    # fabric) on (i)'s worlds; the parse alone; a worker's start
+    turns = {1: [], 2: [], 4: []}
+    trs = {1: worlds["w1"], 2: worlds["pipe_w4"], 4: worlds["shm_w4"]}
+    for w in (1, 2, 4, 4, 2, 1):
+        trs[w].reset_metrics()
+        t, _ = timed_secs(lambda: trs[w].train_from_files(files, workers=w))
+        turns[w].append(t / n * 1e3)
+    reader = FastSlotReader(feed, buckets=fbuckets)
+    parse_s = sum(timed_secs(lambda: reader.parse_file(f))[0]
+                  for f in files)
+    mp = MultiProcessReader(feed, workers=FEED_WORKERS, buckets=fbuckets)
+    t0 = time.perf_counter()
+    first_s = None
+    for _ in mp.iter_blocks(files):
+        first_s = first_s or time.perf_counter() - t0
+    mp_s = time.perf_counter() - t0
+    spawn_s, import_s = worker_import_s()
+    require(not port_segments(), "data feed (4n): segments left")
+    for tr in worlds.values():
+        reset_auc_state_(tr.auc_state)
+    print(f"timing data feed (4n): train_from_files ms/step over {n} "
+          f"batches, in turns: workers=1 {turns[1]}; workers=2 {turns[2]}; "
+          f"workers=4 {turns[4]}; parse_file {mb / parse_s:.1f} MB/s on "
+          f"one thread ({parse_s:.4f} s for {mb:.1f} MB); "
+          f"MultiProcessReader({FEED_WORKERS}).iter_blocks "
+          f"{mb / mp_s:.1f} MB/s ({mp_s:.4f} s, the first block after "
+          f"{first_s:.4f} s); a worker's start {spawn_s:.4f} s (its imports "
+          f"{import_s:.4f} s, no torch) [{card}]")
+    result = {"launches": launches, "turns_ms": turns,
+              "parse_mb_s": mb / parse_s, "mp_mb_s": mb / mp_s,
+              "spawn_s": spawn_s, "phase_s": time.perf_counter() - t_phase}
+    del worlds, trs, table, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 # -- phase 4f: the host-table engine and the models ---------------------------
 
 HE_BATCHES = 16              # batches of each path of the phase
@@ -5587,6 +5946,7 @@ def main() -> int:
         q8 = phase_int8_serving(np.random.default_rng([args.seed, 53]),
                                 tiered_lp.pop("int8_backing"),
                                 tiered_lp.pop("int8_model"))
+        feed = phase_data_feed(np.random.default_rng([args.seed, 59]))
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
@@ -5651,7 +6011,12 @@ def main() -> int:
           f"{deferred['turns_ms']['ensure']}, {deferred['phase_s']:.1f} s; "
           f"int8 serving (4m) ms/batch {q8['turns_ms']}, table bytes "
           f"float32 {q8['f32_bytes']} int8 {q8['q8_bytes']}, "
-          f"{q8['phase_s']:.1f} s")
+          f"{q8['phase_s']:.1f} s; data feed (4n) train_from_files "
+          f"ms/step by workers {feed['turns_ms']}, parse "
+          f"{feed['parse_mb_s']:.1f} MB/s (one thread), "
+          f"{feed['mp_mb_s']:.1f} MB/s ({FEED_WORKERS} workers), a "
+          f"worker's start {feed['spawn_s']:.4f} s, "
+          f"{feed['phase_s']:.1f} s")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
 
@@ -5675,7 +6040,8 @@ def main() -> int:
                                          **rest["launches"],
                                          **tiered_lp["launches"],
                                          **deferred["launches"],
-                                         **q8["launches"]}.items()}}
+                                         **q8["launches"],
+                                         **feed["launches"]}.items()}}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}
 

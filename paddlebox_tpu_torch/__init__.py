@@ -32,10 +32,31 @@ Ported so far:
   a bounded device arena that stages each pass's working set from the
   host ``ps.table.EmbeddingTable`` (the DRAM tier, with the host sparse
   optimizers of ``ps.optimizer``), with the asynchronous feed pass, under
-  ``PassManager`` and ``CTRTrainer``.
+  ``PassManager`` and ``CTRTrainer``;
+- the data feed: ``pipe_command`` under its watchdog, error budgets with
+  their quarantine, the multi-process reader ``data.fast_feed.
+  MultiProcessReader`` over the shared-memory fabric (``data.
+  shm_fabric``), merge by instance id, the in-process shuffles, the
+  record archive and ``InputTableDataset``.
+
+The package's top-level names resolve at first use, so a module that
+needs no torch (the data feed's parse workers import ``data.fast_feed``)
+imports none.
 """
 
-from paddlebox_tpu_torch._device import resolve_device
-from paddlebox_tpu_torch.trainer.train_step import TrainStep
+import importlib
+
+_LAZY = {"TrainStep": "paddlebox_tpu_torch.trainer.train_step",
+         "resolve_device": "paddlebox_tpu_torch._device"}
 
 __all__ = ["TrainStep", "resolve_device"]
+
+
+def __getattr__(name: str):
+    module = _LAZY.get(name)
+    if module is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value
+    return value

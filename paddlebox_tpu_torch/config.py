@@ -2,8 +2,9 @@
 
 The port's own copy of the dataclasses the serving and training paths
 read: ``SlotConfig``, ``DataFeedConfig``, ``TableConfig``,
-``TrainerConfig`` and ``BucketSpec``, and the serving knobs'
-``ServingEconConfig``.
+``TrainerConfig`` and ``BucketSpec``, the serving knobs'
+``ServingEconConfig`` and the shared-memory ingest fabric's
+``ingest_shm_conf``.
 Field names and defaults match the reference, so a bundle's ``model.json``
 written by either package loads in the other. The port has no flag
 registry: ``batch_bucket_spec`` uses the reference flag default as a
@@ -16,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 # default of the reference's ``batch_bucket_growth`` flag
 BATCH_BUCKET_GROWTH = 1.3
@@ -202,6 +203,37 @@ def refuse_flags(refused) -> None:
             raise NotImplementedError(
                 f"PBOX_FLAGS_{flag} asks for {what}, which is not ported "
                 f"yet (ROADMAP {item})")
+
+
+def ingest_shm_conf(enabled: Optional[bool] = None
+                    ) -> Tuple[bool, int, int, bool, bool]:
+    """Validated (enabled, blocks, block_bytes, crc, defer_recycle) of
+    the shared-memory ingest fabric, from the ``ingest_shm``,
+    ``ingest_shm_blocks``, ``ingest_shm_block_bytes``, ``ingest_shm_crc``
+    and ``ingest_shm_defer_recycle`` flags (their ``PBOX_FLAGS_*``
+    variables, read at each call), validated as the reference validates
+    them. ``enabled`` overrides the ``ingest_shm`` flag
+    (``MultiProcessReader``'s ``use_shm``), and only an enabled fabric's
+    knobs are checked."""
+    if enabled is None:
+        enabled = bool(env_flag("ingest_shm", True))
+    else:
+        enabled = bool(enabled)
+    blocks = int(env_flag("ingest_shm_blocks", 4))
+    block_bytes = int(env_flag("ingest_shm_block_bytes", 16 << 20))
+    crc = bool(env_flag("ingest_shm_crc", True))
+    defer = bool(env_flag("ingest_shm_defer_recycle", False))
+    if enabled and blocks < 2:
+        raise ValueError(
+            f"ingest_shm_blocks ({blocks}) must be >= 2: one block maps "
+            "parent-side while another parses — fewer serializes the "
+            "fabric into lockstep (or deadlocks it under defer-recycle)")
+    if enabled and block_bytes < (1 << 16):
+        raise ValueError(
+            f"ingest_shm_block_bytes ({block_bytes}) must be >= 64KiB: "
+            "sub-page blocks shred every parsed file into thousands of "
+            "descriptors and the pipe chatter dominates again")
+    return enabled, blocks, block_bytes, crc, defer
 
 
 @dataclasses.dataclass(frozen=True)

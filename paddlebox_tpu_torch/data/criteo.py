@@ -11,21 +11,24 @@ One instance per line, TAB-separated::
   so keys are nonzero and never collide across slots; a missing field
   contributes no key.
 
-``CriteoReader.stream`` yields ``CsrBatch`` directly. It fails fast on a
-bad line, naming the file and line number (the reference's per-line error
-budget is not ported yet).
+``CriteoReader.stream`` yields ``CsrBatch`` directly, under an
+``ErrorBudget`` (``data/ingest.py``): a bad line is quarantined, or with
+the default budget raises naming its file and line. ``to_multislot``
+converts a Criteo file to MultiSlot text for the C++ fast feed.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from paddlebox_tpu_torch.config import (BucketSpec, DataFeedConfig,
                                         SlotConfig, batch_bucket_spec)
+from paddlebox_tpu_torch.data import ingest
 from paddlebox_tpu_torch.data.batch import CsrBatch
+from paddlebox_tpu_torch.data.ingest import ErrorBudget
 
 N_DENSE = 13
 N_CAT = 26
@@ -75,33 +78,78 @@ class CriteoReader:
         self.batch_size = batch_size
         self.buckets = buckets or batch_bucket_spec(min_size=1024)
 
-    def stream(self, files: Sequence[str]) -> Iterator[CsrBatch]:
+    def stream(self, files: Sequence[str],
+               budget: Optional[ErrorBudget] = None) -> Iterator[CsrBatch]:
+        """Stream batches under an ingest error budget: a batch of lines
+        parses at once, and only when that fails is it triaged line by
+        line: each bad line is quarantined against ``budget`` (file,
+        line number, text, error) and the rest assemble. The default
+        budget is the ``ingest_max_bad_*`` flags' (all 0: the first bad
+        line raises, naming file and line)."""
         B = self.batch_size
-        pending: List[bytes] = []
-        where: List[Tuple[str, int]] = []
-        for path in files:
-            with open(path, "rb") as f:
-                for lineno, line in enumerate(f, 1):
-                    pending.append(line)
-                    where.append((path, lineno))
-                    if len(pending) == B:
-                        yield self._assemble_checked(pending, where)
-                        pending, where = [], []
-        if pending:
-            yield self._assemble_checked(pending, where)
-
-    def _assemble_checked(self, lines: List[bytes],
-                          where: List[Tuple[str, int]]) -> CsrBatch:
+        owns_budget = budget is None
+        if owns_budget:
+            budget = ErrorBudget()
         try:
-            return self._assemble(lines)
-        except ValueError:
-            # name the first bad line; the batch parse only knows its row
-            for line, (path, lineno) in zip(lines, where):
+            # a batch spanning files keeps one (index, path, lineno) a
+            # file in `marks`, read only when a batch is triaged
+            pending: List[bytes] = []
+            marks: List[tuple] = []
+            for path in files:
+                lineno = 0
+                with ingest.open_with_retries(path, "rb") as f:
+                    for line in f:
+                        lineno += 1
+                        if not marks or marks[-1][1] is not path:
+                            marks.append((len(pending), path, lineno))
+                        pending.append(line)
+                        if len(pending) == B:
+                            b = self._assemble_budgeted(pending, marks,
+                                                        budget)
+                            if b is not None:
+                                yield b
+                            pending, marks = [], []
+            if pending:
+                b = self._assemble_budgeted(pending, marks, budget)
+                if b is not None:
+                    yield b
+        finally:
+            if owns_budget:
+                budget.close()
+
+    def _assemble_budgeted(self, lines: List[bytes], marks: List[tuple],
+                           budget: ErrorBudget) -> Optional[CsrBatch]:
+        """Assemble a batch; if it fails to parse, triage it line by line,
+        so a bad line spends budget (with its own file's path and line,
+        from ``marks``) instead of ending the stream."""
+        try:
+            batch = self._assemble(lines)
+            budget.note_lines(len(lines))
+            budget.stats.add("lines_ok", len(lines))
+            return batch
+        except Exception:  # noqa: BLE001 - triaged per line below
+            good: List[bytes] = []
+            good_unflushed = 0
+            seg = 0
+            for i, line in enumerate(lines):
+                while seg + 1 < len(marks) and marks[seg + 1][0] <= i:
+                    seg += 1
                 try:
                     _parse_lines([line])
-                except ValueError as e:
-                    raise ValueError(f"{path}:{lineno}: {e}") from e
-            raise
+                    good.append(line)
+                    good_unflushed += 1
+                except Exception as e:  # noqa: BLE001 - budgeted
+                    idx, path, ln0 = marks[seg]
+                    # the good lines so far and this one count into the
+                    # fractional allowance before the overspend check
+                    delta, good_unflushed = good_unflushed + 1, 0
+                    budget.spend_line(
+                        path, ln0 + (i - idx),
+                        line.decode(errors="replace").rstrip("\n"),
+                        e, seen_delta=delta)
+            budget.note_lines(good_unflushed)
+            budget.stats.add("lines_ok", len(good))
+            return self._assemble(good) if good else None
 
     def _assemble(self, lines: List[bytes]) -> CsrBatch:
         B, S = self.batch_size, N_CAT
@@ -125,6 +173,34 @@ class CriteoReader:
         return CsrBatch(keys=pk, segment_ids=segs, lengths=full_len,
                         labels=pl, dense=pd, batch_size=B, num_slots=S,
                         num_keys=nk, num_rows=rows)
+
+
+def to_multislot(src: str, dst: str) -> int:
+    """Convert a Criteo file to MultiSlot text (the C++ fast feed's
+    format) matching ``criteo_feed_config``'s slot order. Returns rows."""
+    rows = 0
+    with ingest.open_with_retries(src, "rb") as f, open(dst, "w") as out:
+        for line in f:
+            parts = line.rstrip(b"\n").split(b"\t")
+            if len(parts) != 1 + N_DENSE + N_CAT:
+                raise ValueError(f"{src}:{rows + 1}: bad field count "
+                                 f"({len(parts)})")
+            cols = [f"1 {float(parts[0] or b'0'):g}"]
+            dvals = []
+            for j in range(N_DENSE):
+                f_ = parts[1 + j]
+                v = float(f_) if f_ else 0.0
+                dvals.append(f"{np.log1p(v) if v > 0 else 0.0:.6g}")
+            cols.append(f"{N_DENSE} " + " ".join(dvals))
+            for j in range(N_CAT):
+                f_ = parts[1 + N_DENSE + j]
+                if f_:
+                    cols.append(f"1 {((j + 1) << 32) | int(f_, 16)}")
+                else:
+                    cols.append("0")
+            out.write(" ".join(cols) + "\n")
+            rows += 1
+    return rows
 
 
 def make_synthetic_criteo(path: str, rows: int, seed: int = 0,

@@ -4,38 +4,34 @@ Parses the MultiSlot text format: one instance per line; for each
 configured slot in order, ``<count> <v1> ... <vcount>``. With
 ``parse_ins_id`` a leading ``1 <ins_id>`` group names the instance; with
 ``parse_logkey`` a ``1 <hex-logkey>`` group after it packs search_id,
-cmatch and rank.
+cmatch and rank. A "string" slot's tokens map to side-table offsets
+through ``string_lookup`` (``InputTableDataset``).
 
-A file parses under the reference's default error budget: the first bad
-line raises :class:`IngestError` with ``<path>:<lineno>: <text!r>:
-<error>`` context. Not ported (ROADMAP A.2d): ``pipe_command`` and its
-watchdog, string slots (``InputTableDataset``), other error budgets with
-their quarantine, and the transient-I/O retries.
+Files can first go through a shell ``pipe_command`` (the file on its
+stdin) under the no-progress watchdog of ``data/ingest.py``; a file
+parses under an ``ErrorBudget`` (the default fails fast on the first bad
+line, naming path and line) and opens with the transient-I/O retries.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import queue
+import threading
+import time
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from paddlebox_tpu_torch.config import DataFeedConfig, SlotConfig
-from paddlebox_tpu_torch.data.record import SlotRecord
+from paddlebox_tpu_torch.data import ingest
+from paddlebox_tpu_torch.data.ingest import (ErrorBudget, IngestError,
+                                             IngestStats)
+from paddlebox_tpu_torch.data.record import (GLOBAL_POOL, SlotRecord,
+                                             SlotRecordPool)
 
-_SNIPPET_LEN = 120
+__all__ = ["IngestError", "SlotParser", "pack_logkey", "unpack_logkey"]
 
-
-class IngestError(RuntimeError):
-    """A data-ingestion failure naming its file (and line)."""
-
-
-def _bad_line(path: str, lineno: int, line: str,
-              exc: BaseException) -> IngestError:
-    """The reference's fail-fast message for one bad line."""
-    snippet = line if len(line) <= _SNIPPET_LEN else \
-        line[:_SNIPPET_LEN] + f"...[{len(line)} chars]"
-    return IngestError(f"{path}:{lineno}: {snippet!r}: "
-                       f"{type(exc).__name__}: {exc}")
+_PIPE_EOF = object()
 
 
 def unpack_logkey(logkey: str) -> Tuple[int, int, int]:
@@ -55,36 +51,46 @@ def pack_logkey(search_id: int, cmatch: int, rank: int) -> str:
 
 
 class SlotParser:
-    def __init__(self, conf: DataFeedConfig):
-        if conf.pipe_command:
-            raise NotImplementedError(
-                "DataFeedConfig.pipe_command (with its no-progress watchdog, "
-                "data/ingest.py) is not ported yet (ROADMAP A.2d)")
-        if any(s.type == "string" and s.is_used for s in conf.slots):
-            raise NotImplementedError(
-                "string slots (InputTableDataset) are not ported yet "
-                "(ROADMAP A.2d)")
+    def __init__(self, conf: DataFeedConfig,
+                 pool: Optional[SlotRecordPool] = None,
+                 string_lookup=None):
+        """``string_lookup(key: str) -> int`` maps a "string" slot's
+        tokens to side-table offsets at parse (``InputTableDataset``'s
+        conversion); required if the config has a used string slot.
+        Records come from ``pool`` (default ``GLOBAL_POOL``)."""
         self.conf = conf
+        self.pool = pool or GLOBAL_POOL
+        self.string_lookup = string_lookup
         self.sparse_slots: List[SlotConfig] = []
         self.float_slots: List[SlotConfig] = []
         # parse order is the configured slot order; each entry:
-        # (is_sparse, used, dest_index); dest_index -2 marks the label
-        self._plan: List[Tuple[bool, bool, int]] = []
+        # (is_sparse, used, dest_index, is_string)
+        self._plan: List[Tuple[bool, bool, int, bool]] = []
+        if (string_lookup is None
+                and any(s.type == "string" and s.is_used
+                        for s in conf.slots)):
+            raise ValueError(
+                "config has string slots; pass string_lookup (use "
+                "InputTableDataset, data/dataset.py)")
         for s in conf.slots:
-            if s.type in ("uint64", "string") and not s.is_dense:
+            sparse = s.type in ("uint64", "string") and not s.is_dense
+            if sparse:
+                used = s.is_used
                 idx = len(self.sparse_slots)
-                if s.is_used:
+                if used:
                     self.sparse_slots.append(s)
-                self._plan.append((True, s.is_used,
-                                   idx if s.is_used else -1))
-            elif s.name == conf.label_slot:
-                self._plan.append((False, True, -2))
+                self._plan.append((True, used, idx if used else -1,
+                                   s.type == "string"))
             else:
-                idx = len(self.float_slots)
-                if s.is_used:
-                    self.float_slots.append(s)
-                self._plan.append((False, s.is_used,
-                                   idx if s.is_used else -1))
+                if s.name == conf.label_slot:
+                    self._plan.append((False, True, -2, False))  # label
+                else:
+                    used = s.is_used
+                    idx = len(self.float_slots)
+                    if used:
+                        self.float_slots.append(s)
+                    self._plan.append((False, used, idx if used else -1,
+                                       False))
 
     # -- line level ---------------------------------------------------------
 
@@ -92,7 +98,7 @@ class SlotParser:
                    rec: Optional[SlotRecord] = None) -> SlotRecord:
         toks = line.split()
         pos = 0
-        rec = rec or SlotRecord()
+        rec = rec or self.pool.get(1)[0]
         if self.conf.parse_ins_id:
             n = int(toks[0])
             if n != 1:
@@ -110,7 +116,7 @@ class SlotParser:
         u_offs = [0] * (len(self.sparse_slots) + 1)
         f_vals: List[str] = []
         f_offs = [0] * (len(self.float_slots) + 1)
-        for sparse, used, idx in self._plan:
+        for sparse, used, idx, is_str in self._plan:
             if pos >= len(toks):
                 raise ValueError("truncated instance line")
             n = int(toks[pos])
@@ -121,6 +127,11 @@ class SlotParser:
             pos += n
             if sparse:
                 if used:
+                    if is_str:
+                        # side-table offsets (miss -> 0, the default row);
+                        # ints go straight into the mixed token list —
+                        # np.array(..., uint64) converts both
+                        vals = [self.string_lookup(v) for v in vals]
                     u_vals.extend(vals)
                     u_offs[idx + 1] = len(u_vals)
             elif idx == -2:
@@ -143,23 +154,107 @@ class SlotParser:
 
     # -- file level ---------------------------------------------------------
 
+    def _open_lines(self, path: str,
+                    stats: Optional[IngestStats] = None) -> Iterator[str]:
+        if self.conf.pipe_command:
+            yield from self._pipe_lines(path, stats)
+        else:
+            with ingest.open_with_retries(path, "r", stats) as f:
+                yield from f
+
+    def _pipe_lines(self, path: str,
+                    stats: Optional[IngestStats] = None) -> Iterator[str]:
+        """Lines of ``path`` piped through the shell ``pipe_command``
+        under a no-progress watchdog: a command that writes no line for
+        ``ingest_stall_timeout`` seconds is killed (its process group)
+        and reported with its stderr tail; a nonzero exit raises with the
+        tail too."""
+        cmd = self.conf.pipe_command
+        stall = ingest.deadline()
+        # feed the file via stdin — never interpolate the path into the
+        # shell line (spaces/metacharacters in filenames must be data)
+        with ingest.pipe_command_process(cmd, path, stats=stats,
+                                         text=True) as (proc, errf):
+            assert proc.stdout is not None
+            # bounded: the pump must not outrun a slow consumer into
+            # memory — the queue replaces the OS pipe's backpressure, it
+            # must keep it
+            q: "queue.Queue" = queue.Queue(maxsize=4096)
+
+            def pump() -> None:
+                # owns proc.stdout: nobody else reads or closes it while
+                # this thread lives (a cross-thread close would block on
+                # the buffered reader's lock while the pipe stays open)
+                try:
+                    for line in proc.stdout:
+                        q.put(line)
+                    q.put(_PIPE_EOF)
+                except BaseException as e:  # noqa: BLE001 - relayed
+                    q.put(e)
+
+            t = threading.Thread(target=pump, daemon=True,
+                                 name="pipe-command-pump")
+            t.start()
+            try:
+                while True:
+                    try:
+                        item = q.get(timeout=stall if stall > 0 else None)
+                    except queue.Empty:
+                        raise ingest.kill_and_report(
+                            proc, f"pipe_command {cmd!r} produced no "
+                            f"output for {stall:g}s on {path}", errf,
+                            stats=stats, group=True) from None
+                    if item is _PIPE_EOF:
+                        break
+                    if isinstance(item, BaseException):
+                        raise item
+                    yield item
+                ingest.finish_pipe(proc, errf, cmd, path, stall,
+                                   stats=stats)
+            finally:
+                if proc.poll() is None:  # consumer abandoned mid-stream
+                    ingest.kill_subprocess(proc, group=True)
+                # pump exits on the pipe's EOF; FULLY drain the queue
+                # each round so a pump blocked behind the bounded queue
+                # always gets to that EOF within the window
+                end = time.monotonic() + 5.0
+                while t.is_alive() and time.monotonic() < end:
+                    try:
+                        while True:
+                            q.get_nowait()
+                    except queue.Empty:
+                        pass
+                    t.join(timeout=0.05)
+                if not t.is_alive():
+                    proc.stdout.close()
+
     def parse_file(self, path: str, sample_hash_seed: int = 0,
-                   budget=None) -> List[SlotRecord]:
-        """Parse one file; the first bad line raises :class:`IngestError`.
-        With ``sample_rate < 1`` the i-th non-empty line is kept when
+                   budget: Optional[ErrorBudget] = None,
+                   stats: Optional[IngestStats] = None) -> List[SlotRecord]:
+        """Parse one file under an error budget: a malformed line is
+        quarantined into ``budget`` (file, line number, text, error) and
+        parsing goes on while the budget lasts; overspending raises one
+        :class:`IngestBudgetError` naming everything quarantined. The
+        default budget is the ``ingest_max_bad_*`` flags': all 0, the
+        first bad line raises with ``<path>:<lineno>: <text!r>: <error>``.
+        On abort every parsed record returns to the pool. With
+        ``sample_rate < 1`` the i-th non-empty line is kept when
         ``hash((sample_hash_seed, path, i)) & 0xFFFF`` is below
         ``sample_rate * 65536``: stable within a process (Python salts
         ``hash`` of a ``str`` per process)."""
-        if budget is not None:
-            raise NotImplementedError(
-                "an ErrorBudget other than the default fail-fast one "
-                "(quarantine, max bad lines/files) is not ported yet "
-                "(ROADMAP A.2d)")
         rate = self.conf.sample_rate
+        stats = stats or ingest.INGEST_STATS
+        owns_budget = budget is None
+        if owns_budget:
+            budget = ErrorBudget(stats=stats)
         out: List[SlotRecord] = []
+        recs: List[SlotRecord] = []
         i = 0
-        with open(path, "r") as f:
-            for lineno, line in enumerate(f, 1):
+        lineno = 0
+        seen_unflushed = 0
+        try:
+            for line in self._open_lines(path, stats):
+                lineno += 1
                 line = line.strip()
                 if not line:
                     continue
@@ -169,8 +264,29 @@ class SlotParser:
                     i += 1
                     if h >= rate:
                         continue
+                if not recs:
+                    recs = self.pool.get(256)
+                rec = recs.pop()
+                seen_unflushed += 1
                 try:
-                    out.append(self.parse_line(line))
-                except Exception as e:  # noqa: BLE001 - any parse failure
-                    raise _bad_line(path, lineno, line, e) from e
+                    out.append(self.parse_line(line, rec))
+                except Exception as e:  # noqa: BLE001 - budgeted per line
+                    recs.append(rec)  # pool.put resets the partial write
+                    # hand the unflushed count over before the call: if
+                    # spend_line raises, the finally must not add it again
+                    delta, seen_unflushed = seen_unflushed, 0
+                    budget.spend_line(path, lineno, line, e,
+                                      seen_delta=delta)
+        except BaseException:
+            # abort: the partially-parsed pass must not leak its records
+            self.pool.put(out)
+            raise
+        finally:
+            budget.note_lines(seen_unflushed)
+            if recs:
+                self.pool.put(recs)
+            if owns_budget:
+                budget.close()
+        stats.add("lines_ok", len(out))
+        stats.add("files_ok")
         return out

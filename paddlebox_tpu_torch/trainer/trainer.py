@@ -20,8 +20,9 @@ Two step engines, as in the reference:
 ``train_from_files`` trains straight off files on the fused engine (the
 host-table engine raises ``ValueError``, as the reference's does):
 ``data/fast_feed.py`` ``FastSlotReader.stream`` (the C++ tokenizer,
-vectorized batches) feeds ``FusedTrainStep.train_stream`` in segments of
-``AUC_DRAIN_STEPS`` steps.
+vectorized batches), or with ``workers`` > 1 ``MultiProcessReader.stream``
+(the parse in worker processes), feeds ``FusedTrainStep.train_stream`` in
+segments of ``AUC_DRAIN_STEPS`` steps.
 
 The fused step is device prep (``step_device``: host ``ensure_keys``, the
 dedup and probe on the card) when a native single-map index backs the
@@ -43,8 +44,7 @@ model). ``metrics`` is the named ``MetricRegistry`` the reference's
 trainer carries, for the caller to fill.
 
 Not ported, and refused with ``NotImplementedError``: ``mesh=`` and
-``dense_sync_hook`` (ROADMAP A.9), ``train_from_files``
-with ``workers`` > 1 (the multi-process reader, A.2d), and, set through
+``dense_sync_hook`` (ROADMAP A.9), and, set through
 the reference's ``PBOX_FLAGS_<name>`` environment variables, the device
 feed (``feed_device_prefetch``, A.4), the train guard (``check_nan_inf``),
 the trace, the postmortem dump and the pass heartbeat (A.6). The
@@ -71,7 +71,9 @@ from paddlebox_tpu_torch.config import (BucketSpec, DataFeedConfig,
                                         refuse_flags)
 from paddlebox_tpu_torch.data.batch import CsrBatch
 from paddlebox_tpu_torch.data.dataset import SlotDataset
-from paddlebox_tpu_torch.data.fast_feed import FastSlotReader
+from paddlebox_tpu_torch.data import ingest
+from paddlebox_tpu_torch.data.fast_feed import (FastSlotReader,
+                                                MultiProcessReader)
 from paddlebox_tpu_torch.metrics.auc import AucCalculator, reset_auc_state_
 from paddlebox_tpu_torch.metrics.registry import MetricRegistry
 from paddlebox_tpu_torch.ps import native
@@ -276,22 +278,24 @@ class CTRTrainer:
                          workers: int = 1) -> Dict[str, float]:
         """One pass straight off MultiSlot files, with no in-memory
         dataset: ``FastSlotReader`` parses ``prefetch`` files ahead on a
-        background thread, and ``FusedTrainStep.train_stream`` trains the
-        batches as they come, in segments of ``AUC_DRAIN_STEPS`` steps,
-        each a "main" span, the AUC drained after each. A short last batch
-        is masked, so every row trains and counts. Returns the pass
-        metrics. The fused engine only."""
+        background thread (with ``workers`` > 1, ``MultiProcessReader``
+        parses them in that many processes, the same batches), and
+        ``FusedTrainStep.train_stream`` trains the batches as they come,
+        in segments of ``AUC_DRAIN_STEPS`` steps, each a "main" span, the
+        AUC drained after each. A short last batch is masked, so every
+        row trains and counts. Every exit closes the reader (its workers
+        and segments). Returns the pass metrics. The fused engine
+        only."""
         if not self.fused:
             raise ValueError(
                 "train_from_files rides the single-chip fused engine; "
                 "use train_from_dataset for host-table training")
         if workers > 1:
-            raise NotImplementedError(
-                f"train_from_files(workers={workers}): the multi-process "
-                "reader (MultiProcessReader) is not ported yet (ROADMAP "
-                "A.2d)")
-        reader = FastSlotReader(self.feed_conf,
-                                buckets=buckets or self.buckets)
+            reader = MultiProcessReader(self.feed_conf, workers=workers,
+                                        buckets=buckets or self.buckets)
+        else:
+            reader = FastSlotReader(self.feed_conf,
+                                    buckets=buckets or self.buckets)
         stream = reader.stream(files, drop_remainder=False,
                                prefetch=prefetch)
         try:
@@ -306,9 +310,11 @@ class CTRTrainer:
                 if steps < AUC_DRAIN_STEPS:
                     break
         finally:
-            # a failed pass must not leave the parse thread working ahead
+            # a failed pass must not leave the parse thread or the
+            # workers working ahead
             stream.close()
             reader.close()
+            ingest.log_pass_report("train_from_files")
         return self._pass_end()
 
     def train_from_dataset(self, dataset: SlotDataset,

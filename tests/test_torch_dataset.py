@@ -14,6 +14,7 @@ import pytest
 from conftest import make_slot_file
 from paddlebox_tpu.config import DataFeedConfig as JaxFeedConfig
 from paddlebox_tpu.config import SlotConfig as JaxSlotConfig
+from paddlebox_tpu.data import dataset as ref_dataset
 from paddlebox_tpu.data import parser as ref_parser
 from paddlebox_tpu.data.dataset import SlotDataset as JaxSlotDataset
 from paddlebox_tpu.data.ingest import IngestError as JaxIngestError
@@ -264,40 +265,184 @@ def test_preload_equals_load(files, tmp_path):
     pre.close()
 
 
-def _set_merge(ds):
-    ds.set_merge_by_insid(2)
+def both_datasets(files, jconf=None, n=1, merge=None):
+    """The reference's and the port's datasets (``n`` shards each, each
+    loaded from ``files``; ``merge``: ``set_merge_by_insid(merge)``)."""
+    out = []
+    for cls, conf in ((JaxSlotDataset, jconf or jax_conf()),
+                      (SlotDataset, port_conf(jconf or jax_conf()))):
+        shards = []
+        for i in range(n):
+            ds = cls(conf, shard_id=i, num_shards=n)
+            if merge:
+                ds.set_merge_by_insid(merge)
+            ds.set_filelist(files)
+            ds.load_into_memory()
+            shards.append(ds)
+        out.append(shards)
+    return out
 
 
+def ins_id_files(files, tmp_path):
+    """Each line of ``files`` as two parts of one instance (``1 <id>``
+    first): the label and slot_a with a zero dense slot, then the label,
+    slot_b, slot_c and the dense slot; the parts in reverse order every
+    third line."""
+    out = []
+    for fi, path in enumerate(files):
+        lines = []
+        with open(path) as f:
+            for li, line in enumerate(f):
+                toks, groups, pos = line.split(), [], 0
+                while pos < len(toks):
+                    n = int(toks[pos])
+                    groups.append(" ".join(toks[pos:pos + n + 1]))
+                    pos += n + 1
+                label, a, b, c, dense = groups
+                ins = f"1 f{fi}-{li}"
+                parts = [f"{ins} {label} {a} 0 0 3 0 0 0",
+                         f"{ins} {label} 0 {b} {c} {dense}"]
+                lines += parts[::-1] if li % 3 == 0 else parts
+        out.append(str(tmp_path / f"ins-{fi}"))
+        with open(out[-1], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return out
+
+
+def _pipe_command(files, tmp_path):
+    want = JaxSlotParser(jax_conf(pipe_command="cat")).parse_file(files[0])
+    got = SlotParser(port_conf(jax_conf(pipe_command="cat"))).parse_file(
+        files[0])
+    assert_records_equal(got, want)
+    assert_records_equal(got, SlotParser(port_conf(jax_conf())).parse_file(
+        files[0]))
+
+
+def _string_slot(files, tmp_path):
+    jconf = jax_conf()
+    jconf.slots[2] = dataclasses.replace(jconf.slots[2], type="string")
+
+    def lookup(key):
+        return len(key) * 1000 + int(key) % 7
+    want = JaxSlotParser(jconf, string_lookup=lookup).parse_file(files[0])
+    got = SlotParser(port_conf(jconf), string_lookup=lookup).parse_file(
+        files[0])
+    assert_records_equal(got, want)
+
+
+def _error_budget(files, tmp_path):
+    from paddlebox_tpu.data.ingest import ErrorBudget as JaxBudget
+    from paddlebox_tpu_torch.data.ingest import ErrorBudget
+    path = str(tmp_path / "bad")
+    with open(files[0]) as f:
+        lines = f.readlines()
+    lines[7:7] = ["1 1 x\n", "2 bogus\n"]
+    with open(path, "w") as f:
+        f.writelines(lines)
+    jb, pb = JaxBudget(max_bad_lines=2), ErrorBudget(max_bad_lines=2)
+    want = JaxSlotParser(jax_conf()).parse_file(path, budget=jb)
+    got = SlotParser(port_conf(jax_conf())).parse_file(path, budget=pb)
+    assert_records_equal(got, want)
+    assert [vars(b) for b in pb.bad_lines] == [vars(b) for b in jb.bad_lines]
+    assert [b.lineno for b in pb.bad_lines] == [8, 9]
+
+
+def _set_merge_by_insid(files, tmp_path):
+    (jds,), (pds,) = both_datasets(ins_id_files(files, tmp_path),
+                                   jax_conf(parse_ins_id=True), merge=2)
+    assert_records_equal(pds.records, jds.records)
+    assert pds.merge_dropped == jds.merge_dropped == 0
+    assert len(pds.records) == 141
+
+
+def _shuffle_partition(files, tmp_path):
+    (jds,), (pds,) = both_datasets(files)
+    for g, w in zip(pds.shuffle_partition(3), jds.shuffle_partition(3)):
+        assert_records_equal(g, w)
+
+
+def _global_shuffle(files, tmp_path):
+    jshards, pshards = both_datasets(files, n=3)
+    ref_dataset.global_shuffle(jshards)
+    port_dataset.global_shuffle(pshards)
+    for g, w in zip(pshards, jshards):
+        assert_records_equal(g.records, w.records)
+
+
+def _global_merge_by_insid(files, tmp_path):
+    jshards, pshards = both_datasets(ins_id_files(files, tmp_path),
+                                     jax_conf(parse_ins_id=True), n=2)
+    assert port_dataset.global_merge_by_insid(pshards, 2) == \
+        ref_dataset.global_merge_by_insid(jshards, 2) == 0
+    for g, w in zip(pshards, jshards):
+        assert_records_equal(g.records, w.records)
+
+
+def _slots_shuffle(files, tmp_path):
+    (jds,), (pds,) = both_datasets(files)
+    np.testing.assert_array_equal(pds.slots_shuffle([0, 2], seed=3),
+                                  jds.slots_shuffle([0, 2], seed=3))
+    assert_records_equal(pds.records, jds.records)
+
+
+def _unshuffle(files, tmp_path):
+    (jds,), (pds,) = both_datasets(files)
+    want = [r.uint64_feas.copy() for r in pds.records]
+    perm = pds.slots_shuffle([1], seed=5)
+    jds.unshuffle([1], jds.slots_shuffle([1], seed=5))
+    pds.unshuffle([1], perm)
+    assert_records_equal(pds.records, jds.records)
+    for r, w in zip(pds.records, want):
+        np.testing.assert_array_equal(r.uint64_feas, w)
+
+
+def _spill_to_disk(files, tmp_path):
+    (jds,), (pds,) = both_datasets(files)
+    n = [ds.spill_to_disk(str(tmp_path / name))
+         for ds, name in ((jds, "ref.pbxa"), (pds, "port.pbxa"))]
+    assert n == [141, 141] and pds.records == []
+    assert (tmp_path / "ref.pbxa").read_bytes() == \
+        (tmp_path / "port.pbxa").read_bytes()
+
+
+def _load_from_archive(files, tmp_path):
+    (jds,), (pds,) = both_datasets(files)
+    want = [(r.uint64_feas.copy(), r.float_feas.copy()) for r in pds.records]
+    jds.spill_to_disk(str(tmp_path / "ref.pbxa"))
+    pds.load_from_archive(str(tmp_path / "ref.pbxa"))
+    jds.load_from_archive(str(tmp_path / "ref.pbxa"))
+    assert_records_equal(pds.records, jds.records)
+    for r, (u, f) in zip(pds.records, want):
+        np.testing.assert_array_equal(r.uint64_feas, u)
+        np.testing.assert_array_equal(r.float_feas, f)
+
+
+# options once refused here (ROADMAP A.2d, ported): each case holds the
+# feature against the reference; the cross-host forms still refuse (A.9)
+PORTED = {"pipe_command": _pipe_command, "string_slot": _string_slot,
+          "error_budget": _error_budget,
+          "set_merge_by_insid": _set_merge_by_insid,
+          "shuffle_partition": _shuffle_partition,
+          "global_shuffle": _global_shuffle,
+          "global_merge_by_insid": _global_merge_by_insid,
+          "slots_shuffle": _slots_shuffle, "unshuffle": _unshuffle,
+          "spill_to_disk": _spill_to_disk,
+          "load_from_archive": _load_from_archive}
 REFUSED = {
-    "pipe_command": lambda f: SlotParser(port_conf(jax_conf(
-        pipe_command="cat"))),
-    "string_slot": lambda f: SlotParser(DataFeedConfig(slots=[
-        dataclasses.replace(port_conf(jax_conf()).slots[1],
-                            type="string")])),
-    "error_budget": lambda f: SlotParser(port_conf(jax_conf())).parse_file(
-        f[0], budget=object()),
-    "set_merge_by_insid": lambda f: _set_merge(SlotDataset(
-        port_conf(jax_conf()))),
-    "shuffle_partition": lambda f: SlotDataset(
-        port_conf(jax_conf())).shuffle_partition(2),
-    "global_shuffle": lambda f: port_dataset.global_shuffle([]),
-    "global_merge_by_insid": lambda f: port_dataset.global_merge_by_insid(
-        []),
-    "slots_shuffle": lambda f: SlotDataset(
-        port_conf(jax_conf())).slots_shuffle([0]),
-    "unshuffle": lambda f: SlotDataset(port_conf(jax_conf())).unshuffle(
-        [0], np.arange(3)),
-    "spill_to_disk": lambda f: SlotDataset(
-        port_conf(jax_conf())).spill_to_disk("x"),
-    "load_from_archive": lambda f: SlotDataset(
-        port_conf(jax_conf())).load_from_archive("x"),
+    "coordinator_global_shuffle":
+        lambda: port_dataset.coordinator_global_shuffle(None, None),
+    "coordinator_global_merge_by_insid":
+        lambda: port_dataset.coordinator_global_merge_by_insid(None, None),
 }
 
 
-@pytest.mark.parametrize("what", sorted(REFUSED))
-def test_unported_options_refused(files, what):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2d"):
-        REFUSED[what](files)
+@pytest.mark.parametrize("what", sorted(REFUSED) + sorted(PORTED))
+def test_unported_options_refused(files, tmp_path, what):
+    if what in PORTED:
+        PORTED[what](files, tmp_path)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        REFUSED[what]()
 
 
 # label | slot_a | slot_b | slot_c | dense_x (dim 3), one line a record

@@ -310,21 +310,49 @@ def test_record_pipeline_options_refused_like_reference(field, value,
     assert match in str(got.value)
 
 
+def _pipe_command(files):
+    conf = dataclasses.replace(mixed_conf(), pipe_command="cat")
+    assert_batches_equal(
+        batch_copies(FastSlotReader(port_conf(conf)).batches(files)),
+        batch_copies(JaxReader(conf).batches(files)))
+
+
+def _string_slot(files):
+    """A used "string" slot: a ``ValueError`` naming InputTableDataset
+    (the record pipeline maps string keys). The reference's reader takes
+    the slot and passes the tokenizer more float slots than its buffers
+    hold, so it is not run here."""
+    conf = mixed_conf()
+    conf.slots[3] = dataclasses.replace(conf.slots[3], type="string")
+    with pytest.raises(ValueError, match="InputTableDataset"):
+        FastSlotReader(port_conf(conf))
+    with pytest.raises(ValueError, match="InputTableDataset"):
+        fast_feed.MultiProcessReader(port_conf(conf))
+
+
+def _multi_process_reader(files):
+    reader = fast_feed.MultiProcessReader(port_conf(mixed_conf()),
+                                          workers=2)
+    assert_batches_equal(batch_copies(reader.batches(files)),
+                         batch_copies(JaxReader(mixed_conf()).batches(files)))
+    assert reader.shm_counters["leaked_segments"] == 0
+
+
+# options once refused here (ROADMAP A.2d, ported): each case holds the
+# feature against the reference; stream_columnar still refuses (A.4)
+PORTED = {"pipe_command": _pipe_command, "string_slot": _string_slot,
+          "multi_process_reader": _multi_process_reader}
 UNPORTED = {
-    "pipe_command": (lambda f: FastSlotReader(port_conf(
-        dataclasses.replace(mixed_conf(), pipe_command="cat"))), "A.2d"),
-    "string_slot": (lambda f: FastSlotReader(DataFeedConfig(slots=[
-        dataclasses.replace(port_conf(mixed_conf()).slots[1],
-                            type="string")])), "A.2d"),
-    "multi_process_reader": (lambda f: fast_feed.MultiProcessReader(
-        port_conf(mixed_conf()), workers=2), "A.2d"),
     "stream_columnar": (lambda f: FastSlotReader(port_conf(
         mixed_conf())).stream_columnar(f), "A.4"),
 }
 
 
-@pytest.mark.parametrize("what", sorted(UNPORTED))
+@pytest.mark.parametrize("what", sorted(UNPORTED) + sorted(PORTED))
 def test_unported_refused(files, what):
+    if what in PORTED:
+        PORTED[what](files)
+        return
     fn, item = UNPORTED[what]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         fn(files)

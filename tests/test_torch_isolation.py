@@ -3,9 +3,10 @@ the package, in chip_smoke.py, kernel_versions.py or pass_versions.py; it
 serves, trains and runs a trainer pass, from a dataset and straight off
 files, a day/pass loop with its checkpoints and resume, and that loop over
 a tiered table with its host backing and prefetched feed pass, and the
-host-table engine with an MMoE step, a step over an int8 arena, and the
+host-table engine with an MMoE step, a step over an int8 arena, the
 disk ladder with the dense lars, lamb and gradient merging and the cvm
-ops, with them blocked; its entry points
+ops, and the multi-process reader over both protocols with the error
+budget and the archive, with them blocked; its entry points
 default to the card and raise without one (the trainer too); its kernel
 modules import without a CUDA toolkit."""
 
@@ -385,7 +386,11 @@ def test_train_from_files_with_jax_blocked(tmp_path):
     """``CTRTrainer.train_from_files`` (the tokenizer built from the port's
     own source, ``FastSlotReader``, ``train_stream``) runs a pass of 18
     batches, one full run of 16 on device prep, with jax and
-    paddlebox_tpu blocked."""
+    paddlebox_tpu blocked; so do ``MultiProcessReader``'s streams over
+    the shared-memory fabric and the pipe (the single reader's batches,
+    no segment left) and a ``workers=2`` pass (the same metrics), an
+    ``ErrorBudget`` quarantining a bad line and an archive round
+    trip."""
     from conftest import make_slot_file
     from paddlebox_tpu.config import DataFeedConfig, SlotConfig
     conf = DataFeedConfig(slots=[
@@ -428,6 +433,45 @@ def test_train_from_files_with_jax_blocked(tmp_path):
         m = tr.train_from_files(files)
         assert m["ins_num"] == 70 and tr._step_count == 18
         assert np.isfinite(m["auc"]) and len(table) > 0
+        import os
+        from paddlebox_tpu_torch.data import archive, ingest, shm_fabric
+        from paddlebox_tpu_torch.data.parser import SlotParser
+        want = list(fast_feed.FastSlotReader(conf).stream(files))
+        for use_shm in (True, False):
+            rd = fast_feed.MultiProcessReader(conf, workers=2,
+                                              use_shm=use_shm)
+            got = list(rd.stream(files))
+            assert len(got) == len(want) == 17
+            assert all(np.array_equal(x, y) for a, b in zip(got, want)
+                       for x, y in zip(a, b))
+            assert rd.shm_counters.get("leaked_segments", 0) == 0
+        assert not [n for n in os.listdir("/dev/shm")
+                    if n.startswith(shm_fabric.PREFIX + str(os.getpid()))]
+        import copy
+        model = DeepFM(2 * 7 + 2, (8,))
+        trs = []
+        for _ in range(2):
+            t = DeviceTable(tconf, capacity=256, device="cpu",
+                            index_threads=1)
+            t.load_arena(table.values.numpy().copy(),
+                         table.state.numpy().copy(), table.row_keys())
+            trs.append(CTRTrainer(copy.deepcopy(model), conf, tconf,
+                                  TrainerConfig(), table=t))
+        assert trs[0].train_from_files(files, workers=2) == \
+            trs[1].train_from_files(files)
+        bad = {str(tmp_path / 'bad.txt')!r}
+        with open(files[0]) as f, open(bad, "w") as g:
+            g.write(f.read() + "1 1 x\\n")
+        qdir = {str(tmp_path / 'quarantine')!r}
+        budget = ingest.ErrorBudget(max_bad_lines=1, quarantine_dir=qdir)
+        recs = SlotParser(conf).parse_file(bad, budget=budget)
+        budget.close()
+        assert len(recs) == 40 and len(budget.bad_lines) == 1
+        assert len(os.listdir(qdir)) == 1
+        blob = archive.records_to_bytes(recs)
+        back = archive.records_from_bytes(blob)
+        assert all(np.array_equal(a.uint64_feas, b.uint64_feas)
+                   for a, b in zip(back, recs))
         assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
                        for k, v in sys.modules.items() if v is not None)
         print("FILES_PASS", m["auc"])

@@ -29,6 +29,7 @@ from paddlebox_tpu.ps.quant_table import quantize_snapshot as jax_quantize
 from paddlebox_tpu.ps.table import EmbeddingTable as JaxTable
 from paddlebox_tpu_torch.config import TableConfig
 from paddlebox_tpu_torch.data import criteo
+from paddlebox_tpu_torch.data.ingest import IngestError
 from paddlebox_tpu_torch.data.record import SlotRecord
 from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
                                                      register_model_class,
@@ -231,8 +232,13 @@ def test_reader_names_the_bad_line(tmp_path):
     lines[2] = "1\t2\t3\n"
     with open(path, "w") as f:
         f.writelines(lines)
-    with pytest.raises(ValueError, match="bad.txt:3"):
+    # the default error budget: the reference's error, naming the line
+    with pytest.raises(IngestError, match="bad.txt:3") as got:
         list(criteo.CriteoReader(4).stream([path]))
+    with pytest.raises(Exception) as want:
+        list(jax_criteo.CriteoReader(4).stream([path]))
+    assert type(got.value).__name__ == type(want.value).__name__
+    assert str(got.value) == str(want.value)
 
 
 def test_batch_assembler_matches_jax():

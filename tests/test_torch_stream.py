@@ -16,7 +16,8 @@ Tolerances: losses per step, dense params and the AUC's float sums rtol
 1e-5 (dense params also atol 1e-6, for weights near 0); rows show/clk,
 keys, the AUC's bucket counts, ``count`` and ``label_sum`` exact, the rest
 of the rows atol 1e-5; ``train_from_files`` pass metrics ``ins_num``
-exact, the rest rtol 1e-5. Port against port (the run path against the
+exact, the rest rtol 1e-5 (with ``workers=2`` and with ``pipe_command``
+too). Port against port (the run path against the
 per-batch path, ``train_from_files`` against ``train_from_dataset``) is
 exact, by key."""
 
@@ -470,17 +471,38 @@ def _files_trainer(tmp_path, **feed_kw):
 
 
 FILE_REFUSALS = {
-    "workers": ({}, dict(workers=2), NotImplementedError, "ROADMAP A.2d"),
-    "pipe_command": (dict(pipe_command="cat"), {}, NotImplementedError,
-                     "ROADMAP A.2d"),
     "logkey": (dict(parse_logkey=True), {}, ValueError, "logkey"),
     "ins_id": (dict(parse_ins_id=True), {}, ValueError, "ins_id"),
     "sample_rate": (dict(sample_rate=0.5), {}, ValueError, "sample_rate"),
 }
+# options once refused here (ROADMAP A.2d, ported): each case trains the
+# stream's files as the reference's pass does (workers=1, no pipe) and as
+# the port's plain pass does, bit for bit
+FILE_PORTED = {"workers": ({}, dict(workers=2)),
+               "pipe_command": (dict(pipe_command="cat"), {})}
 
 
-@pytest.mark.parametrize("what", sorted(FILE_REFUSALS))
-def test_train_from_files_refusals(tmp_path, what):
+@pytest.mark.parametrize("what", sorted(FILE_REFUSALS) + sorted(FILE_PORTED))
+def test_train_from_files_refusals(tmp_path, what, stream_files,
+                                   reference_files):
+    if what in FILE_PORTED:
+        feed_kw, call_kw = FILE_PORTED[what]
+        ref = reference_files(512)
+        tr = port_files_trainer(ref, **feed_kw)
+        metrics = tr.train_from_files(stream_files, **call_kw)
+        assert metrics["ins_num"] == ref["metrics"]["ins_num"] == 285
+        for k, want in ref["metrics"].items():
+            np.testing.assert_allclose(metrics[k], want, rtol=1e-5,
+                                       err_msg=k)
+        for got, want in zip(flax_leaves_from_deepfm(tr.params),
+                             ref["params"]):
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        plain = port_files_trainer(ref)
+        assert plain.train_from_files(stream_files) == metrics
+        assert_same_rows_by_key(tr.table, plain.table)
+        for a, b in zip(tr.params.parameters(), plain.params.parameters()):
+            assert torch.equal(a, b)
+        return
     feed_kw, call_kw, err, match = FILE_REFUSALS[what]
     path = make_slot_file(str(tmp_path / "part-0"), jax_feed_conf(), 8)
     tr = _files_trainer(tmp_path, **feed_kw)

@@ -360,12 +360,12 @@ REFUSED = {
     "mesh": (lambda: _trainer(mesh=object()), "A.9"),
     "dense_sync_hook": (lambda: _trainer(dense_sync_hook=lambda p: p),
                         "A.9"),
-    "train_from_files": (lambda: _trainer().train_from_files(
-        ["x"], workers=2), "A.2d"),
 }
 # options once refused here, which now build (test_torch_deferred_insert.py
-# holds them to the reference)
-PORTED = {"deferred": lambda: _trainer(insert_mode="deferred")}
+# holds "deferred" to the reference; test_torch_mp_reader.py and
+# test_torch_stream.py train_from_files(workers=2))
+PORTED = {"deferred": lambda: _trainer(insert_mode="deferred"),
+          "train_from_files": lambda: _trainer()}
 REFUSED_FLAGS = {"feed_device_prefetch": ("2", "A.4"),
                  "check_nan_inf": ("true", "A.6"),
                  "obs_trace_dir": ("/tmp/trace", "A.6"),
@@ -376,6 +376,15 @@ REFUSED_FLAGS = {"feed_device_prefetch": ("2", "A.4"),
 @pytest.mark.parametrize("what", sorted(REFUSED) + sorted(PORTED)
                          + sorted(REFUSED_FLAGS))
 def test_unported_options_refused(what, monkeypatch):
+    if what == "train_from_files":
+        # workers > 1 builds the multi-process reader: a file it cannot
+        # read fails in its worker, named, and no step is taken
+        tr = PORTED[what]()
+        with pytest.raises(RuntimeError,
+                           match="parse worker failed on shard 0"):
+            tr.train_from_files(["x"], workers=2)
+        assert tr._step_count == 0
+        return
     if what in PORTED:
         tr = PORTED[what]()
         assert tr.step.device_prep and tr.step.insert_mode == "deferred"
