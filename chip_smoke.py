@@ -313,6 +313,37 @@ Phases, each fatal on failure:
    ``train_from_files`` ms/step at workers 1, 2 and 4 in turns, parse
    MB/s on one thread and with 4 workers, a worker's start seconds (its
    imports load no torch), each beside the card's name and power limit.
+4o. staged feed — the staged device feed (``data/device_feed.py``:
+             pinned ring slots, uploads on a copy stream, the columnar run
+             graph) over 4n's four files at the flagship's width, each
+             world a twin of one arena and one set of weights: (i)
+             ``train_from_files`` under ``PBOX_FLAGS_feed_device_prefetch``
+             2 (5 buffers) and 1 with ``feed_staging_buffers`` 2, then in
+             "deferred" mode, each bit for bit against the unstaged pass
+             (metrics, rows by key, dense params, adam's state), every
+             slot back and no producer left; (ii) ``workers=4`` over the
+             fabric under ``ingest_shm_defer_recycle=1`` bit for bit
+             against (i), no segment left; (iii) the first capture made
+             while the producer stages ahead (the files twice in one
+             pass), bit for bit against two unstaged passes, then on the
+             same twins a file of 42 batches over two key buckets whose
+             runs end short (tails through ``step_device``, the last
+             batch partial) at depth 1 with 2 buffers, the ring dropping
+             a free slot of one shape for the other at its cap; (iv) a
+             malformed line mid-pass re-raises the reader's error, leaves
+             no slot held and no producer thread, and the next pass
+             trains; (v) forward, backward, push, K5's sort and the fused
+             dedup and probe once a batch in every pass; (vii) a
+             ``PassManager`` pass under ``obs_trace_dir`` and
+             ``obs_heartbeat_path``: the Chrome JSON holds the feed's
+             spans, the heartbeat one ``pass`` and one ``end_pass``
+             record.
+   (vi) ``train_from_files`` ms/step staged and unstaged in turns, the
+   feed's histograms (p50/p99 of ``feed.h2d_ms``, ``feed.h2d_device_ms``,
+   ``feed.pack_ms``, ``feed.stage_wait_ms``, ``feed.ring_wait_ms``), the
+   heartbeat's ``host_share`` of both, and a run's upload GB/s from
+   pinned memory against the unstaged pageable copy, in turns, each beside
+   the card's name and power limit.
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -410,6 +441,8 @@ from paddlebox_tpu_torch.ps.table import (EmbeddingTable, key_init_uniform,
 from paddlebox_tpu_torch.ps.tiered_table import TieredDeviceTable
 from paddlebox_tpu_torch.metrics import AucCalculator, MetricRegistry
 from paddlebox_tpu_torch.metrics.auc import reset_auc_state_
+from paddlebox_tpu_torch.obs import trace as obs_trace
+from paddlebox_tpu_torch.obs.metrics import REGISTRY, percentile_from_counts
 from paddlebox_tpu_torch.trainer.fused_step import (FusedTrainStep,
                                                     collect_same_shape_run)
 from paddlebox_tpu_torch.trainer import donefile
@@ -4345,8 +4378,377 @@ def phase_data_feed(rng) -> dict:
           f"{import_s:.4f} s, no torch) [{card}]")
     result = {"launches": launches, "turns_ms": turns,
               "parse_mb_s": mb / parse_s, "mp_mb_s": mb / mp_s,
-              "spawn_s": spawn_s, "phase_s": time.perf_counter() - t_phase}
+              "spawn_s": spawn_s, "phase_s": time.perf_counter() - t_phase,
+              "files": files}
     del worlds, trs, table, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+# -- phase 4o: the staged device feed -----------------------------------------
+
+STAGE_DEPTH = 2              # feed_device_prefetch of the main staged pass
+STAGE_BAD_AT = 20000         # (iv): 0-based line of the malformed one
+H2D_REPS = 20                # (vi): copies of a run each way, a turn
+# (iii): a file over two key buckets, ending short: (batches, fewest keys a
+# slot) a part; 1-3 keys a slot stay in TNPAD's bucket, 2-3 go to the next
+STAGE_MIX = ((19, 1), (18, 2), (4, 1))
+STAGE_MIX_ROWS = 1000        # rows of its last, partial batch
+FEED_HISTS = ("feed.h2d_ms", "feed.h2d_device_ms", "feed.pack_ms",
+              "feed.stage_wait_ms", "feed.ring_wait_ms")
+
+
+def hist_window(before: dict) -> dict:
+    """p50, p99 and count of each feed histogram over what it observed
+    since ``before`` (``{name: Histogram.state()}``)."""
+    out = {}
+    for name in FEED_HISTS:
+        counts, _, n, vmax = REGISTRY.histogram(name).state()
+        c0, _, n0, _ = before[name]
+        diff = [a - b for a, b in zip(counts, c0)]
+        out[name] = {"count": n - n0,
+                     "p50": percentile_from_counts(diff, n - n0, vmax, 0.5),
+                     "p99": percentile_from_counts(diff, n - n0, vmax,
+                                                   0.99)}
+    return out
+
+
+def write_mixed_file(rng, path: str) -> int:
+    """STAGE_MIX's parts, then a partial batch of STAGE_MIX_ROWS rows, as
+    MultiSlot lines of TS slots, keys uniform over the prepopulated rows.
+    Returns the count of batches."""
+    lengths = np.concatenate(
+        [rng.integers(lo, 4, size=(b * TB, TS)) for b, lo in STAGE_MIX]
+        + [rng.integers(1, 4, size=(STAGE_MIX_ROWS, TS))])
+    keys = rng.integers(1, HOT_VOCAB, size=int(lengths.sum()),
+                        dtype=np.uint64)
+    write_slot_lines(path, lengths, keys,
+                     rng.integers(0, 2, size=lengths.shape[0]))
+    return sum(b for b, _ in STAGE_MIX) + 1
+
+
+def feed_threads() -> list:
+    return [t.name for t in threading.enumerate()
+            if t.name == "device-feed" and t.is_alive()]
+
+
+def h2d_turns(fs, npad: int) -> dict:
+    """GB/s of one run's upload: the staged wire from pinned memory,
+    non-blocking on a stream of its own, against the unstaged run's
+    packed upload from pageable numpy memory as the replay copies it, in
+    turns, each copy between two events."""
+    L = fs.wire_len(npad)
+    pinned = torch.zeros((fs.DEV_CHUNK, L), dtype=torch.int32,
+                         pin_memory=True)
+    dev_wire = torch.empty_like(pinned, device="cuda")
+    floats = [np.zeros(TB * 4, np.float32)] * fs.DEV_CHUNK
+    pageable, _ = fs._pack([[np.zeros(npad, np.int64)] * fs.DEV_CHUNK,
+                            [np.zeros(npad, np.int32)] * fs.DEV_CHUNK,
+                            floats])
+    dev_run = torch.empty(pageable.nbytes, dtype=torch.uint8, device="cuda")
+    side = torch.cuda.Stream()
+    ways = {"pinned": (pinned.nbytes, lambda: dev_wire.copy_(
+                pinned, non_blocking=True), side),
+            "pageable": (pageable.nbytes, lambda: dev_run.copy_(
+                torch.from_numpy(pageable)), torch.cuda.current_stream())}
+    out = {k: [] for k in ways}
+    for way in ("pinned", "pageable", "pageable", "pinned"):
+        nbytes, copy, stream = ways[way]
+        with torch.cuda.stream(stream):
+            t0, t1 = torch.cuda.Event(True), torch.cuda.Event(True)
+            t0.record()
+            for _ in range(H2D_REPS):
+                copy()
+            t1.record()
+        t1.synchronize()
+        out[way].append(nbytes * H2D_REPS / (t0.elapsed_time(t1) * 1e-3)
+                        / 1e9)
+    return {"gb_s": out, "bytes": {k: v[0] for k, v in ways.items()}}
+
+
+def phase_staged_feed(rng, files) -> dict:
+    """The staged device feed at the flagship's width over phase 4n's four
+    files (64 batches of B=2048, 5% new keys in the second and fourth),
+    each world a twin of one arena and one set of weights: (i)
+    ``train_from_files`` under ``feed_device_prefetch`` 2 (5 buffers) and
+    1 with ``feed_staging_buffers`` 2, then in "deferred" mode, each bit
+    for bit against the unstaged pass (metrics, rows by key, dense params,
+    adam's state); (ii) ``workers=4`` over the fabric under
+    ``ingest_shm_defer_recycle``, bit for bit against (i), no segment
+    left; (iii) a first capture while the producer stages ahead (the
+    files twice), bit for bit against two unstaged passes, then a pass
+    over two key buckets ending short (STAGE_MIX) at depth 1 with 2
+    buffers, bit for bit against unstaged; (iv) a
+    malformed file mid-pass: its parse error re-raised, no slot held, no
+    producer alive, and the next pass trains; (v) every device-prep
+    kernel once a batch in each pass; (vi) ms/step staged and unstaged in
+    turns, the feed's histograms, ``host_share`` of both and the H2D GB/s
+    of a run from pinned memory against today's pageable copy; (vii) one
+    ``PassManager`` pass under ``obs_trace_dir`` and
+    ``obs_heartbeat_path``: the Chrome JSON's feed spans, one ``pass``
+    and one ``end_pass`` record."""
+    card = card_line()
+    conf, tconf, buckets = train_confs()
+    feed = trainer_feed_conf()
+    fbuckets = BucketSpec(min_size=TNPAD, max_size=1 << 18)
+    t_phase = time.perf_counter()
+    n = len(files) * TRAINER_FILE_BATCHES
+    table = DeviceTable(conf, capacity=HOT_VOCAB + 1 + FEED_HEADROOM,
+                        uniq_buckets=buckets, device="cuda",
+                        backend="native", index_threads=1)
+    table.prepopulate(HOT_VOCAB)
+    init = arena_of(table)
+    model = random_deepfm(rng, TS * conf.pull_dim)
+
+    def world(insert_mode="ensure", tbl=None):
+        return CTRTrainer(copy.deepcopy(model), feed, conf, tconf,
+                          table=tbl or arena_twin(table, "cuda", "native",
+                                                  init),
+                          buckets=fbuckets, insert_mode=insert_mode)
+
+    def same(tag, a, b):
+        require_same_training(f"staged feed (4o) {tag}",
+                              (a.table, a.params, a.opt_state, None),
+                              (b.table, b.params, b.opt_state, None))
+
+    # (i), (v): the staged passes against the unstaged one, counted
+    launches, metrics, secs = {}, {}, {}
+    flags = {"plain": {}, "d2": dict(feed_device_prefetch=STAGE_DEPTH),
+             "d1b2": dict(feed_device_prefetch=1, feed_staging_buffers=2)}
+    worlds = {"plain": world(tbl=table), "d2": world(), "d1b2": world()}
+    for mode in ("ensure", "deferred"):
+        if mode == "deferred":
+            worlds.update(plain_deferred=world("deferred"),
+                          d2_deferred=world("deferred"))
+            flags.update(plain_deferred={}, d2_deferred=flags["d2"])
+        for tag in [t for t in worlds if t.endswith("deferred") ==
+                    (mode == "deferred")]:
+            tr = worlds[tag]
+            with flag_env(**flags[tag]):
+                secs[tag], metrics[tag], launches[f"staged_{tag}"] = \
+                    count_launches(lambda: tr.train_from_files(files), n,
+                                   f"staged feed (4o) {tag}")
+            if tag.startswith("plain"):
+                require(metrics[tag]["ins_num"] == n * TB and
+                        tr._feed is None,
+                        f"staged feed (4o) {tag}: {metrics[tag]}")
+                continue
+            f = tr._feed
+            want = "plain_deferred" if mode == "deferred" else "plain"
+            require(f is not None and f.ring.held == 0 and not f.producing
+                    and f.buffers == (2 if tag == "d1b2" else 5),
+                    f"staged feed (4o) {tag}: the feed held "
+                    f"{f and f.ring.held} slots")
+            require(metrics[tag] == metrics[want],
+                    f"staged feed (4o) {tag}: metrics {metrics[tag]} vs "
+                    f"{metrics[want]}")
+            same(f"{tag} vs {want}", tr, worlds[want])
+            require(not bool(tr.step.bad_flag),
+                    f"staged feed (4o) {tag}: sentinel tripped")
+    graphs = worlds["d2"].step.run_graphs
+    require((graphs.captures, graphs.replays) == (1, n // 16 - 1),
+            f"staged feed (4o): {graphs.captures} captures, "
+            f"{graphs.replays} replays")
+    print(f"staged feed (4o): train_from_files over {n} batches staged "
+          f"(depth {STAGE_DEPTH}, 5 buffers; depth 1, 2 buffers; depth "
+          f"{STAGE_DEPTH} deferred) vs unstaged: pass metrics, all "
+          f"{len(table)} rows by key, the dense params and adam's state bit "
+          f"for bit; every slot back, no producer left; run graphs "
+          f"{graphs.captures} capture, {graphs.replays} replays; launches "
+          f"{launches['staged_d2']}; first passes "
+          f"{ {k: round(v / n * 1e3, 4) for k, v in secs.items()} } "
+          f"ms/step [{card}]")
+    for tag in ("plain_deferred", "d2_deferred"):
+        del worlds[tag]
+    gc.collect()
+
+    # (ii) four parse workers over the fabric, blocks pinned to the slots
+    w4 = world()
+    with flag_env(ingest_shm="1", ingest_shm_defer_recycle="1",
+                  **flags["d2"]):
+        _, metrics["w4"], launches["staged_w4_defer"] = count_launches(
+            lambda: w4.train_from_files(files, workers=FEED_WORKERS), n,
+            "staged feed (4o) workers=4")
+    require(not port_segments(), f"staged feed (4o) workers=4: segments "
+                                 f"{port_segments()} left")
+    require(metrics["w4"] == metrics["d2"] and w4._feed.ring.held == 0,
+            f"staged feed (4o) workers=4: metrics {metrics['w4']}")
+    same("workers=4 defer-recycle vs workers=1", w4, worlds["d2"])
+    pins = w4._feed.pins
+    del w4
+    print(f"staged feed (4o) workers=4: {FEED_WORKERS} parse workers over "
+          f"the shared-memory fabric under ingest_shm_defer_recycle=1 "
+          f"({pins} block leases pinned to ring slots): bit for bit vs "
+          f"workers=1 staged, no segment left, launches "
+          f"{launches['staged_w4_defer']}")
+
+    # (iii) a first capture while the producer stages ahead: the files
+    # twice in one pass, against the unstaged world's second pass
+    cap = world()
+    with flag_env(**flags["d2"]):
+        _, cap_metrics, _ = count_launches(
+            lambda: cap.train_from_files(files + files), 2 * n,
+            "staged feed (4o) capture")
+    count_launches(lambda: worlds["plain"].train_from_files(files), n,
+                   "staged feed (4o) second unstaged pass")
+    note = cap._feed.captures
+    require(len(note) == 1 and note[0]["staged"] >= 1 and
+            note[0]["producing"],
+            f"staged feed (4o): the capture's notes {note}")
+    same("the files twice vs two unstaged passes", cap, worlds["plain"])
+    require(cap_metrics["ins_num"] == 2 * n * TB,
+            f"staged feed (4o): {cap_metrics}")
+    gate_waits = cap._feed.gate_waits
+    print(f"staged feed (4o) capture: the first capture made with "
+          f"{note[0]['staged']} chunks staged and the producer running "
+          f"(its uploads waited on the gate {gate_waits} times); "
+          f"{2 * n} batches bit for bit vs two unstaged passes")
+
+    # (iii) then, on the same twins, warm at TNPAD: a pass over two key
+    # buckets whose runs end short (tails through step_device, the last
+    # batch partial), at depth 1 with 2 buffers, so the ring drops a free
+    # slot of one shape for the other at its cap
+    mix = os.path.join(WORK, "staged-mixed")
+    n_mix = write_mixed_file(rng, mix)
+    mix_metrics = {}
+    for tag, tr, fl in (("unstaged", worlds["plain"], {}),
+                        ("staged", cap, flags["d1b2"])):
+        # the metrics of one pass each: the twins' earlier passes drained
+        # their AUC sums at different steps
+        tr.reset_metrics()
+        with flag_env(**fl):
+            _, mix_metrics[tag], launches[f"staged_mixed_{tag}"] = \
+                count_launches(lambda: tr.train_from_files([mix]), n_mix,
+                               f"staged feed (4o) mixed {tag}")
+    f = cap._feed
+    require(f.buffers == 2 and f.ring.held == 0 and not f.producing and
+            f.ring.reshaped >= 1,
+            f"staged feed (4o) mixed: {f.buffers} buffers, "
+            f"{f.ring.held} slots held, {f.ring.reshaped} reshaped")
+    require(mix_metrics["staged"] == mix_metrics["unstaged"] and
+            mix_metrics["staged"]["ins_num"] ==
+            (n_mix - 1) * TB + STAGE_MIX_ROWS,
+            f"staged feed (4o) mixed: metrics {mix_metrics}")
+    same("a pass over two buckets vs unstaged", cap, worlds["plain"])
+    warm = sorted(k[1] for k in cap.step.run_graphs.warm)
+    reshaped = f.ring.reshaped
+    del cap, f
+    print(f"staged feed (4o) mixed: {n_mix} batches over two key buckets "
+          f"(the run graphs' npad {warm}), the last of "
+          f"{STAGE_MIX_ROWS} rows, staged at depth 1 with 2 buffers vs "
+          f"unstaged: pass metrics, rows by key, dense params and adam's "
+          f"state bit for bit; the ring reshaped {reshaped} slots at its "
+          f"cap, every slot back; launches "
+          f"{launches['staged_mixed_staged']}")
+
+    # (iv) a producer failure mid-pass: a malformed line, under the
+    # reader's budget of 0
+    bad = os.path.join(WORK, "staged-bad")
+    with open(files[1]) as f:
+        lines = f.readlines()
+    lines.insert(STAGE_BAD_AT, "1 1 x\n")
+    with open(bad, "w") as f:
+        f.writelines(lines)
+    try:
+        FastSlotReader(feed, buckets=fbuckets).parse_file(bad)
+        raise RuntimeError("staged feed (4o): the malformed file parsed")
+    except RuntimeError as e:
+        want_err = str(e)
+    fail = worlds["d1b2"]
+    with flag_env(**flags["d2"]):
+        try:
+            fail.train_from_files([files[0], bad, files[2]])
+            raise AssertionError("staged feed (4o): the failure passed")
+        except RuntimeError as e:
+            require(str(e) == want_err and type(e) is RuntimeError,
+                    f"staged feed (4o): the pass raised {e!r}")
+        f = fail._feed
+        require(f.ring.held == 0 and not f.producing and not
+                feed_threads(), f"staged feed (4o): after the failure "
+                                f"{f.ring.held} slots held, producer "
+                                f"{f.producing}, threads {feed_threads()}")
+        # the failed pass's steps stay in the AUC state, undrained
+        fail.reset_metrics()
+        reset_auc_state_(fail.auc_state)
+        _, next_metrics, launches["staged_after_failure"] = count_launches(
+            lambda: fail.train_from_files(files), n,
+            "staged feed (4o) after the failure")
+    require(next_metrics["ins_num"] == n * TB and f.ring.held == 0,
+            f"staged feed (4o): the next pass {next_metrics}")
+    print(f"staged feed (4o) failure: a malformed line in the second file "
+          f"re-raised {want_err!r} after the first file's run; no slot "
+          f"held, no producer left; the next pass trained {n} batches")
+    del worlds["d1b2"], fail
+
+    # (vi) ms/step in turns, the feed's histograms, host_share, H2D
+    tr_s, tr_u = worlds["d2"], worlds["plain"]
+    before = {k: REGISTRY.histogram(k).state() for k in FEED_HISTS}
+    turns = {"staged": [], "unstaged": []}
+    shares = {"staged": [], "unstaged": []}
+    for who in ("unstaged", "staged", "staged", "unstaged") * 2:
+        tr = tr_s if who == "staged" else tr_u
+        tr.reset_metrics()
+        with flag_env(**(flags["d2"] if who == "staged" else {})):
+            t, _ = timed_secs(lambda: tr.train_from_files(files))
+        turns[who].append(t / n * 1e3)
+        shares[who].append(tr.last_heartbeat.get("host_share"))
+    hists = hist_window(before)
+    h2d = h2d_turns(tr_s.step, TNPAD)
+    print(f"timing staged feed (4o): train_from_files ms/step over {n} "
+          f"batches, in turns: staged (depth {STAGE_DEPTH}) "
+          f"{turns['staged']}; unstaged {turns['unstaged']}; host_share "
+          f"staged {shares['staged']}, unstaged {shares['unstaged']}; feed "
+          f"histograms over the staged turns (ms) "
+          f"{ {k: {q: round(v, 5) for q, v in d.items()} for k, d in hists.items()} }; "
+          f"one run's upload ({h2d['bytes']['pinned']} B staged from "
+          f"pinned, {h2d['bytes']['pageable']} B unstaged from pageable) "
+          f"GB/s in turns {h2d['gb_s']} [{card}]")
+
+    # (vii) one PassManager pass under the trace and the heartbeat; the
+    # pass's keys are fed to the table at once, so its uniques' buckets go
+    # past the batch's
+    tdir = os.path.join(WORK, "staged-trace")
+    hb = os.path.join(WORK, "staged-hb.jsonl")
+    pm_table = DeviceTable(conf, capacity=1, uniq_buckets=BucketSpec(
+        min_size=TNPAD), device="cuda", backend="native", index_threads=1)
+    pm_table.load_arena(*init)
+    with flag_env(obs_trace_dir=tdir, obs_heartbeat_path=hb, **flags["d2"]):
+        pm_tr = world(tbl=pm_table)
+        pm = PassManager(SparsePS({"embedding": pm_table}),
+                         os.path.join(WORK, "staged-pm"),
+                         [SlotDataset(feed, buckets=fbuckets)])
+        pm.set_date("20260104")
+        try:
+            pm.begin_pass([files[0]])
+            pm_tr.train_from_files([files[0]])
+            pm.end_pass()
+            pm.barrier()
+        finally:
+            pm.close()
+            obs_trace.disable()
+    dumps = os.listdir(tdir)
+    require(len(dumps) == 1, f"staged feed (4o): trace dumps {dumps}")
+    with open(os.path.join(tdir, dumps[0])) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events if e["ph"] == "X"}
+    with open(hb) as f:
+        kinds = [json.loads(line)["hb"] for line in f]
+    require({"feed.pack", "feed.h2d", "main", "ingest.fast_parse",
+             "end_pass"} <= names and sorted(kinds) == ["end_pass", "pass"],
+            f"staged feed (4o): trace spans {sorted(names)}, heartbeat "
+            f"records {kinds}")
+    print(f"staged feed (4o) obs: a PassManager pass (begin_pass, staged "
+          f"train_from_files, end_pass) under obs_trace_dir and "
+          f"obs_heartbeat_path: {len(events)} trace events, spans "
+          f"{sorted(names)}; heartbeat records {kinds}")
+    for tr in worlds.values():
+        reset_auc_state_(tr.auc_state)
+    result = {"launches": launches, "turns_ms": turns,
+              "host_share": shares, "hists": hists, "h2d": h2d,
+              "phase_s": time.perf_counter() - t_phase}
+    print(f"staged feed (4o): {result['phase_s']:.1f} s")
+    del worlds, tr_s, tr_u, table, init, pm_tr, pm_table, pm
     gc.collect()
     torch.cuda.empty_cache()
     return result
@@ -5947,6 +6349,8 @@ def main() -> int:
                                 tiered_lp.pop("int8_backing"),
                                 tiered_lp.pop("int8_model"))
         feed = phase_data_feed(np.random.default_rng([args.seed, 59]))
+        staged = phase_staged_feed(np.random.default_rng([args.seed, 61]),
+                                   feed.pop("files"))
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
@@ -6016,7 +6420,11 @@ def main() -> int:
           f"{feed['parse_mb_s']:.1f} MB/s (one thread), "
           f"{feed['mp_mb_s']:.1f} MB/s ({FEED_WORKERS} workers), a "
           f"worker's start {feed['spawn_s']:.4f} s, "
-          f"{feed['phase_s']:.1f} s")
+          f"{feed['phase_s']:.1f} s; staged feed (4o) train_from_files "
+          f"ms/step staged {staged['turns_ms']['staged']} unstaged "
+          f"{staged['turns_ms']['unstaged']}, host_share "
+          f"{staged['host_share']}, H2D GB/s {staged['h2d']['gb_s']}, "
+          f"{staged['phase_s']:.1f} s")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
 
@@ -6041,7 +6449,8 @@ def main() -> int:
                                          **tiered_lp["launches"],
                                          **deferred["launches"],
                                          **q8["launches"],
-                                         **feed["launches"]}.items()}}
+                                         **feed["launches"],
+                                         **staged["launches"]}.items()}}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}
 

@@ -18,8 +18,9 @@ Error contract:
 - an ``InjectedCrash`` kills the worker for good (the stand-in for process
   death): the queue stops draining and every later call raises.
 
-The reference's trace span and metrics counters around each job are
-ROADMAP A.6 and have no counterpart here.
+Each job runs in a ``ckpt.commit`` span of the trace (``obs/trace.py``),
+on the writer's thread, as in the reference. The reference's metrics
+counters around each job are ROADMAP A.6 and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import queue
 import threading
 import time
 from typing import Callable, List, Optional
+
+from paddlebox_tpu_torch.obs import trace
 
 from paddlebox_tpu_torch.ckpt import faults
 from paddlebox_tpu_torch.ckpt.atomic import CheckpointError
@@ -85,7 +88,8 @@ class AsyncCheckpointWriter:
             if job is _STOP:
                 return
             try:
-                _with_retries(job.fn, self._retries, self._retry_delay)
+                with trace.span("ckpt.commit", label=job.label):
+                    _with_retries(job.fn, self._retries, self._retry_delay)
             except faults.InjectedCrash as e:
                 # process death: stop draining, leave the disk state torn
                 with self._cv:

@@ -3,8 +3,8 @@
 The port's own copy of the dataclasses the serving and training paths
 read: ``SlotConfig``, ``DataFeedConfig``, ``TableConfig``,
 ``TrainerConfig`` and ``BucketSpec``, the serving knobs'
-``ServingEconConfig`` and the shared-memory ingest fabric's
-``ingest_shm_conf``.
+``ServingEconConfig``, the shared-memory ingest fabric's
+``ingest_shm_conf`` and the staged device feed's ``feed_prefetch_conf``.
 Field names and defaults match the reference, so a bundle's ``model.json``
 written by either package loads in the other. The port has no flag
 registry: ``batch_bucket_spec`` uses the reference flag default as a
@@ -180,11 +180,12 @@ def batch_bucket_spec(min_size: int = 1024,
 
 def env_flag(flag: str, default: Any) -> Any:
     """The reference's flag ``flag`` as its environment variable
-    ``PBOX_FLAGS_<flag>`` sets it, read at each call, else ``default``;
-    parsed by the default's type as the reference parses it (a bool is on
-    for 1, true, yes or on)."""
+    ``PBOX_FLAGS_<flag>`` sets it, read at each call, else ``default``
+    (also for an empty value of a flag that is not a string); parsed by
+    the default's type as the reference parses it (a bool is on for 1,
+    true, yes or on)."""
     raw = os.environ.get("PBOX_FLAGS_" + flag)
-    if raw is None:
+    if raw is None or (not raw.strip() and not isinstance(default, str)):
         return default
     if isinstance(default, bool):
         return raw.strip().lower() in ("1", "true", "yes", "on")
@@ -203,6 +204,28 @@ def refuse_flags(refused) -> None:
             raise NotImplementedError(
                 f"PBOX_FLAGS_{flag} asks for {what}, which is not ported "
                 f"yet (ROADMAP {item})")
+
+
+def feed_prefetch_conf() -> Tuple[int, int]:
+    """Validated (depth, buffers) of the staged device feed, from the
+    ``feed_device_prefetch`` and ``feed_staging_buffers`` flags (their
+    ``PBOX_FLAGS_*`` variables, read at each call), as the reference
+    resolves them: buffers 0 means depth + 3 (depth staged, one packing,
+    the consumer's two-run dispatch window); a negative depth, or buffers
+    below depth + 1 at a depth > 0, raises ``ValueError``."""
+    depth = int(env_flag("feed_device_prefetch", 0))
+    if depth < 0:
+        raise ValueError(
+            f"feed_device_prefetch must be >= 0, got {depth}")
+    buffers = int(env_flag("feed_staging_buffers", 0))
+    if buffers == 0:
+        buffers = depth + 3
+    if depth > 0 and buffers < depth + 1:
+        raise ValueError(
+            f"feed_staging_buffers ({buffers}) must be >= "
+            f"feed_device_prefetch + 1 ({depth + 1}): one ring row packs "
+            "while `depth` are staged — fewer deadlocks the producer")
+    return depth, buffers
 
 
 def ingest_shm_conf(enabled: Optional[bool] = None

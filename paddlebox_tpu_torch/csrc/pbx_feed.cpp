@@ -4,6 +4,11 @@
 // ps/native.py parse_block (ctypes, which releases the GIL for the call);
 // ops/_build.py compiles it with g++ at first use.
 //
+// Beside it, pbx_pack_cols: the staged device feed's one pass from a
+// batch's columnar views into its wire row (data/device_feed.py
+// pack_cols_row, through ps/native.py pack_cols), a copy of the
+// reference's csrc/pbx_ps.cpp pbx_pack_cols.
+//
 // A copy of the tokenizer part of the reference's csrc/pbx_ps.cpp
 // (feed_skip_ws, feed_parse_u64, feed_parse_f32, pbx_parse_block), kept
 // byte for byte in behaviour: the same accepted syntax, the same
@@ -21,6 +26,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
+#include <cstring>
 
 namespace {
 
@@ -178,6 +184,40 @@ int64_t pbx_parse_block(const char* buf, int64_t len, const int32_t* kinds,
   out_counts[1] = nk;
   out_counts[2] = nf;
   return rows;
+}
+
+// The staged wire row of one batch: khi[npad] | klo[npad] | lengths[B*S]
+// | labels[B] | dense[B*Dd] | nrows, all 32-bit words. No segment
+// expansion and no padding arrays: the step rebuilds the segment ids, the
+// row mask and the cvm input on the device from lengths and nrows. The
+// tails are zeroed, because ring rows are reused (a stale key would alias
+// a real one).
+void pbx_pack_cols(const uint64_t* keys, int64_t num_keys,
+                   const int32_t* lengths, int64_t num_rows,
+                   const float* labels, const float* dense,
+                   int64_t batch, int64_t n_slots, int64_t dense_dim,
+                   int64_t npad, uint32_t* out) {
+  uint32_t* hi = out;
+  uint32_t* lo = out + npad;
+  for (int64_t i = 0; i < num_keys; ++i) {
+    hi[i] = static_cast<uint32_t>(keys[i] >> 32);
+    lo[i] = static_cast<uint32_t>(keys[i]);
+  }
+  std::memset(hi + num_keys, 0, sizeof(uint32_t) * (npad - num_keys));
+  std::memset(lo + num_keys, 0, sizeof(uint32_t) * (npad - num_keys));
+  uint32_t* q = out + 2 * npad;
+  std::memcpy(q, lengths, sizeof(uint32_t) * num_rows * n_slots);
+  std::memset(q + num_rows * n_slots, 0,
+              sizeof(uint32_t) * (batch - num_rows) * n_slots);
+  q += batch * n_slots;
+  std::memcpy(q, labels, sizeof(float) * num_rows);
+  std::memset(q + num_rows, 0, sizeof(float) * (batch - num_rows));
+  q += batch;
+  std::memcpy(q, dense, sizeof(float) * num_rows * dense_dim);
+  std::memset(q + num_rows * dense_dim, 0,
+              sizeof(float) * (batch - num_rows) * dense_dim);
+  q += batch * dense_dim;
+  *q = static_cast<uint32_t>(num_rows);
 }
 
 }  // extern "C"

@@ -20,14 +20,21 @@ and hands the blocks over through shared memory (``data/shm_fabric.py``)
 or, with ``use_shm=False``, as pickles on the workers' stdout; either way
 the batch stream is the single reader's, for any worker count.
 
+``stream_columnar`` yields the batches as ``ColumnarSlice`` views of the
+parsed columns, with no padding and no segment expansion: the staged
+device feed (``data/device_feed.py``) packs them into its ring and the
+step rebuilds the rest on the device. Under the shared-memory fabric a
+slice's ``owner`` is its block's lease, which the feed pins in
+defer-recycle mode (``ingest_shm_defer_recycle``).
+
 The reader refuses what the record pipeline owns (logkeys, instance ids,
 ``sample_rate`` < 1) with the reference's ``ValueError``s, and string
 slots with one of its own (the reference's reader takes them and writes
-past the tokenizer's float buffers). Not ported,
-and refused with ``NotImplementedError``: ``stream_columnar`` with its
-``ColumnarSlice`` views, which only the staged device feed reads (ROADMAP
-A.4). The reference's trace spans and ingest metrics are not ported
-(A.6).
+past the tokenizer's float buffers). As the reference does, each
+``parse_file`` is an ``ingest.fast_parse`` span of the trace and an
+observation of the ``ingest.fast_parse_ms`` histogram, and a worker's
+wait for a free shared-memory block one of ``ingest.shm.ring_wait_ms``
+(``obs/``, which imports no torch either).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import concurrent.futures as futures
 import dataclasses
 import os
 import subprocess
+import time
 from collections import deque
 from typing import Iterator, List, Optional, Sequence, Tuple
 
@@ -45,7 +53,10 @@ from paddlebox_tpu_torch.config import (BucketSpec, DataFeedConfig,
                                         batch_bucket_spec, ingest_shm_conf)
 from paddlebox_tpu_torch.data import ingest
 from paddlebox_tpu_torch.data.batch import CsrBatch, pad_batch
+from paddlebox_tpu_torch.obs import trace
+from paddlebox_tpu_torch.obs.metrics import REGISTRY
 from paddlebox_tpu_torch.ps import native
+
 
 class _FrameStall(TimeoutError):
     """A worker produced no frame bytes within the watchdog deadline."""
@@ -149,6 +160,28 @@ def _concat_blocks(blocks: Sequence[ColumnarBlock],
     return out
 
 
+@dataclasses.dataclass
+class ColumnarSlice:
+    """One batch as views of the parsed (or concatenated) block, with no
+    padding, no segment expansion and no allocation: what the staged
+    device feed packs (``data/device_feed.py``). The padded shapes
+    (``npad`` keys, the batch's rows) and the segment ids, row mask and
+    cvm input are made on the device from ``lengths`` and ``num_rows``
+    (``FusedTrainStep.step_cols_tensors``). The views are valid only
+    until the iterator advances."""
+
+    keys: np.ndarray      # [num_keys] uint64 view
+    lengths: np.ndarray   # [num_rows, S] int32 view
+    labels: np.ndarray    # [num_rows] float32 view
+    dense: np.ndarray     # [num_rows, Dd] float32 view
+    num_rows: int
+    num_keys: int
+    npad: int             # the key bucket the staged row pads to
+    #: the shared-memory block's lease behind the views (None elsewhere);
+    #: a consumer that keeps the bytes past the iterator's advance pins it
+    owner: object = None
+
+
 class FastSlotReader:
     def __init__(self, conf: DataFeedConfig,
                  buckets: Optional[BucketSpec] = None):
@@ -235,9 +268,13 @@ class FastSlotReader:
     def parse_file(self, path: str) -> ColumnarBlock:
         """One file's columns: read (with retries, or through
         ``pipe_command``) and tokenized in one C++ pass."""
-        data = self._read_bytes(path)
-        keys, lengths, floats, flengths, labels = native.parse_block(
-            data, self.kinds, self.num_slots, len(self.dense_dims))
+        t0 = time.perf_counter()
+        with trace.span("ingest.fast_parse", path=path):
+            data = self._read_bytes(path)
+            keys, lengths, floats, flengths, labels = native.parse_block(
+                data, self.kinds, self.num_slots, len(self.dense_dims))
+        REGISTRY.observe("ingest.fast_parse_ms",
+                         (time.perf_counter() - t0) * 1e3)
         rows = lengths.shape[0]
         if self.total_dense:
             dims = np.array(self.dense_dims, dtype=np.int32)
@@ -395,10 +432,21 @@ class FastSlotReader:
             yield self._make_batch(blk, lo, hi, k0, k1, scratch=sc)
 
     def stream_columnar(self, files: Sequence[str],
-                        drop_remainder: bool = False, prefetch: int = 0):
-        raise NotImplementedError(
-            "stream_columnar (ColumnarSlice views for the staged device "
-            "feed, data/device_feed.py) is not ported yet (ROADMAP A.4)")
+                        drop_remainder: bool = False,
+                        prefetch: int = 0) -> Iterator[ColumnarSlice]:
+        """The batches of ``batches`` as ``ColumnarSlice`` views for the
+        staged device feed: no padding, no segment expansion, no
+        allocation a batch. Each slice is valid only until the iterator
+        advances; its ``owner`` is the block's lease under the
+        shared-memory fabric."""
+        for blk, lo, hi, k0, k1 in self._batch_slices(
+                files, drop_remainder, prefetch):
+            yield ColumnarSlice(
+                keys=blk.keys[k0:k1], lengths=blk.lengths[lo:hi],
+                labels=blk.labels[lo:hi], dense=blk.dense[lo:hi],
+                num_rows=hi - lo, num_keys=k1 - k0,
+                npad=self.buckets.bucket(max(k1 - k0, 1)),
+                owner=blk.owner)
 
     def close(self) -> None:
         """Release background resources (none for the thread reader)."""
@@ -547,7 +595,9 @@ class MultiProcessReader(FastSlotReader):
     ``copies_elided``, ``crc_failures``, ``leaked_segments``: the
     segments still named after ``close()`` unlinked them, 0 on every
     clean path; ``ring_wait_ms``: the workers' waits for a free
-    block)."""
+    block). Under ``ingest_shm_defer_recycle`` a block stays with the
+    parent until the staged device feed's run that read it has retired
+    (``data/shm_fabric.py`` ``BlockLease.pin``)."""
 
     def __init__(self, conf: DataFeedConfig, workers: int = 2,
                  buckets: Optional[BucketSpec] = None,
@@ -555,12 +605,13 @@ class MultiProcessReader(FastSlotReader):
         super().__init__(conf, buckets)
         if workers < 1:
             raise ValueError("workers must be >= 1")
-        enabled, blocks, block_bytes, crc, _ = ingest_shm_conf(use_shm)
+        enabled, blocks, block_bytes, crc, defer = ingest_shm_conf(use_shm)
         self.workers = workers
         self.use_shm = enabled
         self._shm_blocks = blocks
         self._shm_block_bytes = block_bytes
         self._shm_crc = crc
+        self._shm_defer = defer
         self._fabric = None
         self._worker_fault: Optional[dict] = None   # test hook
         self.shm_counters: dict = {}
@@ -746,7 +797,8 @@ class MultiProcessReader(FastSlotReader):
         W = min(self.workers, max(len(files), 1))
         shards = [files[w::W] for w in range(W)]
         self._fabric = shm_fabric.ShmFabric(
-            W, self._shm_blocks, self._shm_block_bytes)
+            W, self._shm_blocks, self._shm_block_bytes,
+            defer_recycle=self._shm_defer)
         self._spawn_workers(W)
         try:
             for w, p in enumerate(self._procs):
@@ -786,6 +838,9 @@ class MultiProcessReader(FastSlotReader):
                                f"expected {expect_seq[w]})")
                     expect_seq[w] += 1
                     self._count_shm({"ring_wait_ms": wait_ms})
+                    if wait_ms > 0:
+                        REGISTRY.observe("ingest.shm.ring_wait_ms",
+                                         wait_ms)
                     try:
                         views, lease = self._fabric.lease(
                             w, int(bid), int(nrows), int(nkeys), S, Dd,

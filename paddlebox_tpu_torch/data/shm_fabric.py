@@ -32,6 +32,11 @@ Ownership and cleanup:
 - A descriptor is written only after its block's body, so a worker killed
   mid-block just closes the pipe; each descriptor also carries a crc32 of
   the body (``ingest_shm_crc``), and a mismatch is a torn block.
+- A block recycles when the last holder of its ``BlockLease`` releases
+  it. The batch slicer is the only holder unless
+  ``ingest_shm_defer_recycle`` is on; then the staged device feed pins
+  each lease to the ring slot its rows were packed into, and the block
+  recycles once the run that read that slot has retired.
 
 Imported by the parse workers: it imports neither torch nor jax.
 """
@@ -213,25 +218,44 @@ def probe_leaks(names: Sequence[str]) -> List[str]:
 # -- parent-side fabric -------------------------------------------------------
 
 class BlockLease:
-    """Parent-side handle of one block in flight. The batch slicer
-    releases it once the block's rows are consumed (sliced, or copied to
-    the carry); the first release sends the free frame to the worker.
-    (The reference's defer-recycle mode, which pins a lease to the staged
-    device feed's ring slot, rides that feed: ROADMAP A.4.)"""
+    """Refcounted parent-side handle of one block in flight. The batch
+    slicer holds the first reference and releases it once the block's
+    rows are consumed (sliced, or copied to the carry). In defer-recycle
+    mode the staged device feed ``pin()``s the lease onto the ring slot
+    its slices were packed into (``data/device_feed.py``), so the block
+    goes back to its worker only once the run that read the slot has
+    retired. The last reference out sends the free frame; a release past
+    it does nothing."""
 
-    __slots__ = ("_fabric", "worker", "block", "_released", "_lock")
+    __slots__ = ("_fabric", "worker", "block", "_refs", "_lock")
 
     def __init__(self, fabric: "ShmFabric", worker: int, block: int):
         self._fabric = fabric
         self.worker = worker
         self.block = block
-        self._released = False
+        self._refs = 1
         self._lock = threading.Lock()
+
+    def pin(self) -> bool:
+        """One more holder, in defer-recycle mode only (otherwise the
+        block recycles at the slicer's release: every consumer copies out
+        of it before advancing). Returns whether a matching
+        :meth:`release` is owed."""
+        if not self._fabric.defer_recycle:
+            return False
+        with self._lock:
+            if self._refs <= 0:
+                return False  # already recycled: nothing to extend
+            self._refs += 1
+        return True
 
     def release(self) -> None:
         with self._lock:
-            first, self._released = not self._released, True
-        if first:
+            if self._refs <= 0:
+                return
+            self._refs -= 1
+            done = self._refs == 0
+        if done:
             self._fabric._recycle(self.worker, self.block)
 
 
@@ -239,9 +263,12 @@ class ShmFabric:
     """Parent-owned segment pool: ``blocks`` segments of ``block_bytes``
     a worker, created before the workers spawn and unlinked on close.
     ``counters`` holds the reference's ``ingest.shm.*`` counts (blocks,
-    bytes, copies_elided, crc_failures, leaked_segments)."""
+    bytes, copies_elided, crc_failures, leaked_segments).
+    ``defer_recycle`` (the ``ingest_shm_defer_recycle`` flag) lets a
+    lease be pinned past the slicer's release (``BlockLease.pin``)."""
 
-    def __init__(self, workers: int, blocks: int, block_bytes: int):
+    def __init__(self, workers: int, blocks: int, block_bytes: int,
+                 defer_recycle: bool = False):
         if workers < 1:
             raise ValueError("fabric needs >= 1 worker")
         if blocks < 2:
@@ -251,6 +278,7 @@ class ShmFabric:
         self.workers = workers
         self.blocks = blocks
         self.block_bytes = int(block_bytes)
+        self.defer_recycle = bool(defer_recycle)
         self._lock = threading.Lock()
         self._closed = False               # guarded-by: _lock
         self._stdin: Dict[int, object] = {}  # worker -> stdin, guarded

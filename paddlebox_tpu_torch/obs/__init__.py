@@ -1,0 +1,33 @@
+"""Observability of the port (counterpart of the first half of
+``paddlebox_tpu/obs/``): ``metrics`` (the typed registry ``REGISTRY``),
+``trace`` (the Chrome-trace span tracer) and ``heartbeat`` (the per-pass
+JSONL records). The serving exports of the reference's ``obs`` package
+(``http``, ``prometheus``, ``slo``, ``fleet``, ``collector``) and its
+``postmortem`` are not ported (ROADMAP A.5, A.6).
+
+The modules import neither torch nor numpy, and the package imports none
+of them until asked: the data feed's parse workers import ``obs.metrics``
+and ``obs.trace``.
+"""
+
+import importlib
+
+_LAZY = {"REGISTRY": "paddlebox_tpu_torch.obs.metrics",
+         "MetricsRegistry": "paddlebox_tpu_torch.obs.metrics",
+         "Counter": "paddlebox_tpu_torch.obs.metrics",
+         "Gauge": "paddlebox_tpu_torch.obs.metrics",
+         "Histogram": "paddlebox_tpu_torch.obs.metrics",
+         "delta": "paddlebox_tpu_torch.obs.metrics",
+         "TraceContext": "paddlebox_tpu_torch.obs.trace"}
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name: str):
+    module = _LAZY.get(name)
+    if module is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value
+    return value

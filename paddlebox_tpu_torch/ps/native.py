@@ -3,7 +3,7 @@ the key index (counterpart of ``paddlebox_tpu/ps/native.py``'s
 ``NativeIndex`` and ``MtIndex``) and the host table's row helpers
 (``unique_inverse``, ``merge_add``, ``gather_rows``, ``scatter_rows``,
 ``expand_rows``), and of ``csrc/pbx_feed.cpp``, the file tokenizer
-(``parse_block``).
+(``parse_block``) and the staged feed's row pack (``pack_cols``).
 
 ``NativeIndex`` is one open-addressing map (``Map64``) from uint64 keys to
 arena rows; ``MtIndex`` shards keys over T maps and prepares a batch with T
@@ -119,6 +119,11 @@ def _load_feed() -> ctypes.CDLL:
                 ctypes.c_char_p, ctypes.c_int64, _i32p, ctypes.c_int32,
                 ctypes.c_int64, _u64p, ctypes.c_int64, _i32p, _f32p,
                 ctypes.c_int64, _i32p, _f32p, _i64p]
+            lib.pbx_pack_cols.restype = None
+            lib.pbx_pack_cols.argtypes = [
+                _u64p, ctypes.c_int64, _i32p, ctypes.c_int64, _f32p, _f32p,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, _u32p]
             _feed_lib = lib
         return _feed_lib
 
@@ -153,6 +158,58 @@ def parse_block(data: bytes, kinds: np.ndarray, n_sparse: int,
     rows, nk, nf = (int(c) for c in counts)
     return (keys[:nk].copy(), lengths[:rows], floats[:nf].copy(),
             flengths[:rows], labels[:rows])
+
+
+def wire_offsets(npad: int, batch: int, n_slots: int,
+                 dense_dim: int) -> Tuple[int, int, int, int]:
+    """Word offsets of a staged wire row's lengths, labels, dense and
+    nrows: ``khi | klo [2*npad] + lengths [B*S] + labels [B] + dense
+    [B*Dd] + nrows``, 32-bit words. The layout's one statement in Python
+    (``pbx_pack_cols`` writes the same in C)."""
+    o_len = 2 * npad
+    o_lab = o_len + batch * n_slots
+    o_den = o_lab + batch
+    return o_len, o_lab, o_den, o_den + batch * dense_dim
+
+
+def wire_len(npad: int, batch: int, n_slots: int, dense_dim: int) -> int:
+    """32-bit words of a staged batch's wire row (``wire_offsets``)."""
+    return wire_offsets(npad, batch, n_slots, dense_dim)[3] + 1
+
+
+def pack_cols(keys: np.ndarray, lengths: np.ndarray, labels: np.ndarray,
+              dense: np.ndarray, batch: int, n_slots: int, dense_dim: int,
+              npad: int, out: np.ndarray) -> None:
+    """One C pass from a batch's columnar views into its staged wire row
+    (counterpart of ``paddlebox_tpu/ps/native.py::pack_cols``):
+    khi | klo | lengths | labels | dense | nrows, the tails zeroed (ring
+    rows are reused). ``out`` is a C-contiguous uint32 row of
+    ``wire_len(npad, batch, n_slots, dense_dim)`` words. Raises
+    ``ValueError`` on any shape the C side would write past, and the build
+    error where the library cannot build."""
+    lib = _load_feed()
+    k = np.ascontiguousarray(keys, np.uint64)
+    ln = np.ascontiguousarray(lengths, np.int32)
+    lb = np.ascontiguousarray(labels, np.float32)
+    d = np.ascontiguousarray(dense, np.float32)
+    num_rows = int(ln.shape[0])
+    # checks, not asserts: a wrong buffer would have the C side write past
+    # its end
+    if out.dtype != np.uint32 or not out.flags.c_contiguous:
+        raise ValueError("pack_cols out must be C-contiguous uint32")
+    want = wire_len(npad, batch, n_slots, dense_dim)
+    if out.size != want:
+        raise ValueError(f"pack_cols out size {out.size} != {want}")
+    if k.size > npad or num_rows > batch:
+        raise ValueError(
+            f"pack_cols slice ({k.size} keys, {num_rows} rows) exceeds "
+            f"wire shape (npad {npad}, batch {batch})")
+    if ln.ndim != 2 or ln.shape[1] != n_slots or lb.size != num_rows \
+            or d.size != num_rows * dense_dim:
+        raise ValueError("pack_cols column shapes disagree")
+    lib.pbx_pack_cols(_ptr(k, _u64p), k.size, _ptr(ln, _i32p), num_rows,
+                      _ptr(lb, _f32p), _ptr(d, _f32p), batch, n_slots,
+                      dense_dim, npad, _ptr(out, _u32p))
 
 
 # -- host-table row helpers (ps/table.py, native backend) --------------------

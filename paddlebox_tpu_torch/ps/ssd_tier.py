@@ -52,9 +52,11 @@ allocation, bloom+index registration, spill-journal mark — nest strictly
 after it and never nest inside the chunk guards' internal lock.
 
 ``io_point`` (``utils/faults.py``) fronts the three filesystem touches:
-``ssd.spill``, ``ssd.read`` and ``ssd.compact``. The reference's
-``ps.disk.*``/``ps.ssd.*`` registry counters and its trace spans ride
-ROADMAP A.6; the tier keeps its own ``io_stats``.
+``ssd.spill``, ``ssd.read`` and ``ssd.compact``. ``read_rows`` and
+``compact`` are ``ps.ssd.read_rows`` and ``ps.ssd.compact`` spans of the
+trace (``obs/trace.py``). The reference's ``ps.disk.*``/``ps.ssd.*``
+registry counters ride ROADMAP A.6; the tier keeps its own
+``io_stats``.
 """
 
 from __future__ import annotations
@@ -69,6 +71,7 @@ import numpy as np
 
 from paddlebox_tpu_torch.ckpt import atomic as ckpt_atomic
 from paddlebox_tpu_torch.config import env_flag
+from paddlebox_tpu_torch.obs import trace
 from paddlebox_tpu_torch.ps import native
 from paddlebox_tpu_torch.ps.bloom import BlockedBloom
 from paddlebox_tpu_torch.ps.table import EmbeddingTable
@@ -663,7 +666,8 @@ class DiskTier:
             keys = keys[self._bloom_probe(keys)]
         if not keys.size:
             return self._no_rows()
-        return self._read_resolved(keys)
+        with trace.span("ps.ssd.read_rows", n=int(keys.size)):
+            return self._read_resolved(keys)
 
     def _no_rows(self):
         d = self.table.dim
@@ -815,7 +819,7 @@ class DiskTier:
         finishes against the old file, which is deleted at its last
         release.  ``evict_cold`` spills land in fresh chunks above the
         compaction's allocation watermark and are never touched."""
-        with self._compact_lock:
+        with self._compact_lock, trace.span("ps.ssd.compact"):
             self._compact_impl()
 
     def _compact_impl(self) -> None:

@@ -48,6 +48,7 @@ import numpy as np
 
 from paddlebox_tpu_torch.ckpt.atomic import write_npz
 from paddlebox_tpu_torch.config import TableConfig, env_flag
+from paddlebox_tpu_torch.obs.metrics import REGISTRY
 from paddlebox_tpu_torch.ops import sparse_optim
 from paddlebox_tpu_torch.ps import native
 from paddlebox_tpu_torch.ps.optimizer import make_sparse_optimizer
@@ -327,6 +328,7 @@ class EmbeddingTable:
                 raise FloatingPointError(
                     f"non-finite grads for {n_bad} keys")
             self.nonfinite_grad_rows += n_bad
+            REGISTRY.add("ps.nonfinite_grad_rows", n_bad)
             merged[bad] = 0.0
         with self._lock:
             rows = self._lookup(uniq, create=True)

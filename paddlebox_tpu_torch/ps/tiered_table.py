@@ -87,6 +87,7 @@ import torch
 
 from paddlebox_tpu_torch._device import DeviceLike
 from paddlebox_tpu_torch.config import BucketSpec, TableConfig, env_flag
+from paddlebox_tpu_torch.obs import trace
 from paddlebox_tpu_torch.ps import admission
 from paddlebox_tpu_torch.ps.device_table import _NULL_SENTINEL, DeviceTable
 from paddlebox_tpu_torch.ps.ssd_tier import DiskTier
@@ -438,9 +439,14 @@ class TieredDeviceTable(DeviceTable):
     def begin_feed_pass(self, pass_keys: np.ndarray) -> int:
         """Stage the pass's working set into the arena; returns W, the
         staged rows. The previous pass must have ended. Consumes a
-        matching ``prefetch_feed_pass``."""
+        matching ``prefetch_feed_pass``. A ``ps.stage_pass`` span of the
+        trace."""
         if self.in_pass:
             raise RuntimeError("previous pass not ended (call end_pass)")
+        with trace.span("ps.stage_pass", n=int(pass_keys.size)):
+            return self._begin_feed_pass(pass_keys)
+
+    def _begin_feed_pass(self, pass_keys: np.ndarray) -> int:
         raw_uniq, counts = self._pass_uniq(pass_keys)
         # join the previous end_pass's deferred demote (and raise its
         # failure) before any membership read or staging
@@ -512,8 +518,10 @@ class TieredDeviceTable(DeviceTable):
         rows = self.fetch_dirty_rows()
         if not rows.size:
             return None, None, None
-        keys = self._index.dump_keys(n)[rows]
-        vals, state = self._canonical(torch.from_numpy(rows).to(self.device))
+        with trace.span("ps.writeback", rows=int(rows.size)):
+            keys = self._index.dump_keys(n)[rows]
+            vals, state = self._canonical(
+                torch.from_numpy(rows).to(self.device))
         return keys, vals, state
 
     def _record_wb_keys(self, keys: np.ndarray) -> None:

@@ -97,14 +97,31 @@ rejected keys miss; "ensure" over a table that admits every key misses
 none, and skips the append (its ring stays empty, as the reference's
 does).
 
-Not ported yet: the staged device feed of ``train_stream`` (``feed=``,
-ROADMAP A.4).
+``train_stream(feed=DeviceFeed(...))`` runs the staged device feed
+(``data/device_feed.py``), the reference's ``_train_stream_staged``:
+``batch_iter`` then yields ``ColumnarSlice`` views, the feed's producer
+thread packs runs of ``DEV_CHUNK`` batches into pinned ring slots and
+uploads them on a copy stream ahead of the step, and each run is
+``step_cols_tensors`` over the rows of its wire: the segment ids, the
+row mask and the cvm input rebuilt on the device from the lengths and
+the row count, as the reference's ``_step_cols`` does. On the card a run
+shape's first run goes eagerly over the staged chunk, and each later one
+is one device-to-device copy into its graph's static buffer and one
+replay. A short run arrives decoded and goes through ``step_device``.
+
+The streams add their host feed work (collecting batches, key work,
+packing and uploading, or waiting for the staged feed) to the global
+registry's ``feed.host_ms`` counter, which ``CTRTrainer`` turns into the
+pass heartbeat's ``host_share`` (``obs/heartbeat.py``).
 """
 
 from __future__ import annotations
 
 import concurrent.futures as futures
+import contextlib
 import threading
+import time
+from collections import deque
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -114,8 +131,10 @@ from torch.profiler import record_function
 
 from paddlebox_tpu_torch.config import TrainerConfig
 from paddlebox_tpu_torch.metrics.auc import auc_update, new_auc_state
+from paddlebox_tpu_torch.obs.metrics import REGISTRY
 from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
+from paddlebox_tpu_torch.ps.native import wire_len, wire_offsets
 from paddlebox_tpu_torch.trainer.step_graph import RunGraphs
 from paddlebox_tpu_torch.trainer.train_step import (apply_model,
                                                     compute_dtype,
@@ -427,6 +446,43 @@ class FusedTrainStep:
                 t.record_misses(dd.uniq_keys, found, dd.n_uniq)
         return out
 
+    def wire_len(self, npad: int) -> int:
+        """32-bit words of a staged batch's wire row at ``npad`` keys
+        (``ps/native.py`` ``wire_len``)."""
+        return wire_len(npad, self.batch_size, self.num_slots,
+                        self.dense_dim)
+
+    def step_cols_tensors(self, params: nn.Module,
+                          opt_state: Dict[str, Any],
+                          auc_state: Dict[str, torch.Tensor],
+                          row: torch.Tensor, npad: int):
+        """The staged feed's step over one wire row (int32, on the
+        table's device; ``data/device_feed.py``): the keys from their
+        halves, the segment ids expanded from the lengths (the padding
+        positions on the discard segment B*S, their keys 0), the row mask
+        from the row count and the cvm input (1, label), all on the device
+        and read back by nothing, then ``step_device_tensors``. The
+        counterpart of the reference's ``_step_cols``; the inputs equal
+        the unstaged stream's bit for bit. Result as ``step_device``'s."""
+        B, Dd = self.batch_size, self.dense_dim
+        o_len, o_lab, o_den, o_n = wire_offsets(npad, B, self.num_slots, Dd)
+        with record_function("train_step.unpack_cols"):
+            keys = ((row[:npad].long() << 32)
+                    | (row[npad:o_len].long() & 0xFFFFFFFF))
+            lengths = row[o_len:o_lab]
+            labels = row[o_lab:o_den].view(torch.float32)
+            dense = row[o_den:o_n].view(torch.float32).reshape(B, Dd)
+            nrows = row[o_n]
+            # a position's segment: how many segments end at or before it
+            segs = torch.searchsorted(
+                torch.cumsum(lengths, 0),
+                torch.arange(npad, device=row.device),
+                right=True).to(torch.int32)
+            mask = (torch.arange(B, device=row.device) < nrows).float()
+            cvm = torch.stack([torch.ones_like(labels), labels], dim=1)
+        return self.step_device_tensors(params, opt_state, auc_state, keys,
+                                        segs, cvm, labels, dense, mask)
+
     def _insert_before(self, keys_list: List[np.ndarray]) -> None:
         """The host's key work before a device-prep dispatch over the
         batches of ``keys_list``: one ``ensure_keys`` over their keys, or
@@ -481,7 +537,9 @@ class FusedTrainStep:
                      auc_state: Dict[str, torch.Tensor], batch_iter,
                      on_step=None, final_poll: bool = True, feed=None):
         """Train every batch of ``batch_iter``, which yields (keys,
-        segment_ids, cvm_in, labels, dense, row_mask); calls
+        segment_ids, cvm_in, labels, dense, row_mask), or with ``feed``
+        (a ``data/device_feed.py`` ``DeviceFeed``, device prep only)
+        ``ColumnarSlice`` views for the staged feed; calls
         ``on_step(steps, loss)`` after each step, ``loss`` a device scalar
         (nothing is read back). Device prep runs same-shape runs of
         ``DEV_CHUNK`` batches an upload, on the card as CUDA graph
@@ -491,15 +549,20 @@ class FusedTrainStep:
         (``poll_misses``, one blocking read), as the reference does in
         either mode; host prep has no ring. Returns ``(params, opt_state,
         auc_state, last_loss, steps)``."""
-        if feed is not None:
-            raise NotImplementedError(
-                "train_stream(feed=...), the staged device feed "
-                "(data/device_feed.py), is not ported yet (ROADMAP A.4)")
+        if feed is not None and not self.device_prep:
+            raise ValueError(
+                "the device feed needs the device-prep fused engine "
+                "(feed_device_prefetch > 0 with host-side prep is a "
+                "config error)")
         if not self.device_prep:
             return self._train_stream_host(params, opt_state, auc_state,
                                            batch_iter, on_step)
-        out = self._train_stream_dev(params, opt_state, auc_state,
-                                     batch_iter, on_step)
+        if feed is not None:
+            out = self._train_stream_staged(params, opt_state, auc_state,
+                                            batch_iter, feed, on_step)
+        else:
+            out = self._train_stream_dev(params, opt_state, auc_state,
+                                         batch_iter, on_step)
         if final_poll:
             with record_function("train_step.poll_misses"):
                 self.table.poll_misses()
@@ -523,13 +586,17 @@ class FusedTrainStep:
 
         it = iter(batch_iter)
         loss, steps = None, 0
+        host_c = REGISTRY.counter("feed.host_ms")
         ex = futures.ThreadPoolExecutor(1, thread_name_prefix="fused-prep")
         try:
             nxt = next(it, None)
             fut = None if nxt is None else ex.submit(prep, nxt)
             while fut is not None:
+                t_h = time.perf_counter()
                 (segs, inverse, uniq_rows), cvm, labels, dense, mask = \
                     fut.result()
+                # the wait for the prep thread is host-bound time
+                host_c.add((time.perf_counter() - t_h) * 1e3)
                 nxt = next(it, None)
                 fut = None if nxt is None else ex.submit(prep, nxt)
                 with lock:
@@ -558,18 +625,24 @@ class FusedTrainStep:
         graphs = self.run_graphs
         it = iter(batch_iter)
         pending, loss, steps = None, None, 0
+        host_c = REGISTRY.counter("feed.host_ms")
         while True:
+            t_h = time.perf_counter()
             run, pending = collect_same_shape_run(it, pending, K)
+            host_c.add((time.perf_counter() - t_h) * 1e3)
             if not run:
                 break
             if len(run) < K:
                 for args in run:
+                    t_h = time.perf_counter()
                     params, opt_state, auc_state, loss, _ = \
                         self.step_device(params, opt_state, auc_state, *args)
+                    host_c.add((time.perf_counter() - t_h) * 1e3)
                     steps += 1
                     if on_step is not None:
                         on_step(steps, loss)
                 continue
+            t_h = time.perf_counter()
             self._insert_before([a[0] for a in run])
             with record_function("train_step.pack"):
                 floats = [self._float_block(*a[2:]) for a in run]
@@ -577,11 +650,15 @@ class FusedTrainStep:
                     [_keys_i64(a[0]) for a in run],
                     [np.asarray(a[1], np.int32) for a in run],
                     [f for f, _ in floats]])
+            host_c.add((time.perf_counter() - t_h) * 1e3)
             shape = (layout, floats[0][1])
             if graphs is not None and shape in graphs.warm:
+                # the replay's own host time is its synchronous upload
+                t_h = time.perf_counter()
                 with record_function("train_step.replay"):
                     losses, bads = graphs.replay(
                         params, opt_state, auc_state, host, shape)
+                host_c.add((time.perf_counter() - t_h) * 1e3)
                 self.bad_flag = bads[-1]
                 self._emit_sentinel(K, bads, losses)
                 for j in range(K):
@@ -590,9 +667,11 @@ class FusedTrainStep:
                         on_step(steps, losses[j])
                 loss = losses[-1]
                 continue
+            t_h = time.perf_counter()
             with record_function("train_step.upload"):
                 keys, segs, pf = self._views(
                     torch.from_numpy(host).to(self.device), layout)
+            host_c.add((time.perf_counter() - t_h) * 1e3)
             losses, bads = [], []
             for j in range(K):
                 params, opt_state, auc_state, loss, _ = \
@@ -608,6 +687,139 @@ class FusedTrainStep:
             if graphs is not None:
                 graphs.warm.add(shape)
         return params, opt_state, auc_state, loss, steps
+
+    def _train_stream_staged(self, params, opt_state, auc_state, col_iter,
+                             feed, on_step):
+        """The consumer half of the staged feed (``data/device_feed.py``):
+        the feed's producer packs ``col_iter``'s slices into ring slots
+        and uploads them on its copy stream while this loop runs the
+        staged runs, the counterpart of the reference's
+        ``_train_stream_staged``. Each run: its key work ("ensure": one
+        ``ensure_keys`` over its keys; "deferred": one lagged poll), then
+        on the step's stream a wait on the upload's event, and the run:
+        eagerly over the staged chunk when its shape is new, else one copy
+        into its graph's static buffer and one replay. An event recorded
+        after the run retires the slot once it has completed; at most
+        ``min(2, buffers - 1)`` slots are in runs, so one always serves
+        the producer. A short run arrives decoded (``TailBatches``) and
+        goes through ``step_device``. Every exit retires every slot and
+        stops the feed; a producer's failure re-raises here, after the
+        runs staged before it."""
+        from paddlebox_tpu_torch.data.device_feed import TailBatches
+
+        K = self.DEV_CHUNK
+        cuda = self.device.type == "cuda"
+        graphs = self.run_graphs
+        host_c = REGISTRY.counter("feed.host_ms")
+        ch = feed.start(col_iter)
+        inflight = deque()    # (event after the run or None, chunk)
+        win = min(2, feed.buffers - 1)
+        loss, steps = None, 0
+        cur = None            # the chunk taken and not yet in flight
+
+        def retire_one():
+            done, item = inflight.popleft()
+            try:
+                if done is not None:
+                    done.synchronize()
+            finally:
+                # the slot returns even when its run failed: a slot left
+                # out would wedge the producer
+                feed.retire(item)
+
+        try:
+            while True:
+                t_h = time.perf_counter()
+                item = ch.get()
+                waited = (time.perf_counter() - t_h) * 1e3
+                REGISTRY.observe("feed.stage_wait_ms", waited)
+                host_c.add(waited)
+                if item is None:
+                    break
+                if isinstance(item, TailBatches):
+                    for args in item.batches:
+                        t_h = time.perf_counter()
+                        params, opt_state, auc_state, loss, _ = \
+                            self.step_device(params, opt_state, auc_state,
+                                             *args)
+                        host_c.add((time.perf_counter() - t_h) * 1e3)
+                        steps += 1
+                        if on_step is not None:
+                            on_step(steps, loss)
+                    continue
+                cur = item
+                t_h = time.perf_counter()
+                if self.insert_mode == "deferred":
+                    with record_function("train_step.poll_misses"):
+                        self.table.poll_misses_async()
+                else:
+                    with record_function("train_step.ensure_keys"):
+                        self.table.ensure_keys(item.keys)
+                host_c.add((time.perf_counter() - t_h) * 1e3)
+                while len(inflight) >= win:
+                    retire_one()
+                if cuda:
+                    torch.cuda.current_stream().wait_event(item.event)
+                shape = ("cols", item.npad)
+                if graphs is not None and shape in graphs.warm:
+                    before = graphs.captures
+                    with record_function("train_step.replay"):
+                        losses, bads = graphs.replay(
+                            params, opt_state, auc_state, item.dev, shape,
+                            gate=feed.gate)
+                    if graphs.captures != before:
+                        feed.captures.append(
+                            {"staged": feed.staged(),
+                             "producing": feed.producing})
+                    self.bad_flag = bads[-1]
+                    self._emit_sentinel(K, bads, losses)
+                    losses = list(losses)
+                else:
+                    losses, bads = [], []
+                    for j in range(item.k):
+                        params, opt_state, auc_state, l, _ = \
+                            self.step_cols_tensors(params, opt_state,
+                                                   auc_state, item.dev[j],
+                                                   item.npad)
+                        losses.append(l)
+                        bads.append(self.bad_flag)
+                    self._emit_sentinel(item.k, bads, losses)
+                    if graphs is not None:
+                        graphs.warm.add(shape)
+                inflight.append((self._stream_event() if cuda else None,
+                                 item))
+                cur = None
+                for j in range(item.k):
+                    steps += 1
+                    if on_step is not None:
+                        on_step(steps, losses[j])
+                loss = losses[-1]
+        finally:
+            # every slot back to the ring and the producer gone, on every
+            # exit
+            if cur is not None:
+                # a run that failed part-way: what it queued on the card
+                # may still read the chunk
+                done = None
+                if cuda:
+                    with contextlib.suppress(Exception):
+                        done = self._stream_event()
+                inflight.append((done, cur))
+            while inflight:
+                try:
+                    retire_one()
+                except Exception:  # noqa: BLE001 - the unwind goes on
+                    pass
+            feed.stop()
+        return params, opt_state, auc_state, loss, steps
+
+    @staticmethod
+    def _stream_event() -> torch.cuda.Event:
+        """An event recorded now on the current stream: done once the
+        work queued before it is."""
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
 
     @torch.inference_mode()
     def predict(self, params: nn.Module, keys: np.ndarray, segment_ids,

@@ -33,13 +33,22 @@ retention prunes it with its parent, ``ckpt/discovery.py``
 ``quantized_sibling`` finds it. A table whose layout the quantizer cannot
 take (``variable_embedding``) is skipped with a warning.
 
+Each ``end_pass`` emits the reference's ``end_pass`` heartbeat record
+(``obs/heartbeat.py``; to a file under ``PBOX_FLAGS_obs_heartbeat_path``):
+day and pass, the ingest counters' delta (``data/ingest.py``
+``INGEST_STATS``), the writer's queued jobs and whether its thread is
+alive, the rows of each table, the pass's ``ps.nonfinite_grad_rows``,
+``ps.disk.*`` and ``ps.remote.*`` deltas from the global registry, and the
+pass timer's spans; then, with the trace on (``obs_trace_dir``, turned on
+at construction), it rewrites the Chrome trace's dump. The disk tier and
+the remote client do not add to their counters yet, so their deltas are
+zeros (ROADMAP A.6).
+
 The reference reads its queue depth, retries and kept bases from its flag
 registry; the port has none, and takes the flags' defaults as constants.
 Not ported, and refused with ``NotImplementedError`` when its
 ``PBOX_FLAGS_<name>`` variable is set: ``fix_dayid`` (ROADMAP A.6). The
-reference's
-per-pass heartbeat, trace and postmortem dump are A.6 and have no
-counterpart here.
+reference's postmortem dump is A.6 and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -52,8 +61,11 @@ from typing import Any, Optional, Sequence, Tuple
 from paddlebox_tpu_torch.ckpt import atomic, discovery, faults, retention
 from paddlebox_tpu_torch.ckpt.writer import AsyncCheckpointWriter
 from paddlebox_tpu_torch.config import env_flag, refuse_flags
+from paddlebox_tpu_torch.data import ingest
 from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.data.parser import IngestError
+from paddlebox_tpu_torch.obs import heartbeat, trace
+from paddlebox_tpu_torch.obs.metrics import REGISTRY
 from paddlebox_tpu_torch.ps.quant_table import quantize_snapshot
 from paddlebox_tpu_torch.ps.server import SparsePS
 from paddlebox_tpu_torch.trainer import donefile
@@ -70,6 +82,17 @@ CKPT_KEEP_BASES = 3
 _REFUSED_FLAGS = (
     ("fix_dayid", "A.6", "a fixed day id for replays"),
 )
+
+#: ps.disk.* counters surfaced as per-pass deltas in the heartbeat
+_DISK_COUNTERS = ("ps.disk.bloom_hit", "ps.disk.bloom_miss",
+                  "ps.disk.admit_admitted", "ps.disk.admit_rejected")
+
+#: ps.remote.* counters surfaced as per-pass deltas in the heartbeat
+#: (zeros: training is in-process)
+_REMOTE_COUNTERS = ("ps.remote.bytes_in", "ps.remote.bytes_out",
+                    "ps.remote.retries", "ps.remote.shard_unavailable",
+                    "ps.remote.shard_restarts", "ps.remote.cache_hit",
+                    "ps.remote.cache_miss")
 
 
 class PassManager:
@@ -92,6 +115,7 @@ class PassManager:
         self.table_name = table_for_dataset or next(iter(ps.tables))
         self.day: str = "19700101"
         self.pass_id = 0
+        trace.maybe_enable()
         self.timer = SpanTimer(metric_prefix="pass")
         self._buf = 0  # which dataset holds the current pass
         self._prefetch_thread: Optional[threading.Thread] = None
@@ -105,6 +129,18 @@ class PassManager:
         # another manager may be committing under this root
         if writer is None:
             retention.prune_tmp(save_root)
+        # the registry counters the end_pass record reports by pass
+        self._marks = {name: REGISTRY.counter(name).get()
+                       for name in ("ps.nonfinite_grad_rows",
+                                    *_DISK_COUNTERS, *_REMOTE_COUNTERS)}
+        # the last end_pass heartbeat record
+        self.last_heartbeat: Optional[dict] = None
+
+    def _counter_delta(self, name: str) -> float:
+        """``name``'s change since the previous call (or construction)."""
+        cur = REGISTRY.counter(name).get()
+        d, self._marks[name] = cur - self._marks[name], cur
+        return d
 
     # -- day/pass ------------------------------------------------------------
 
@@ -192,6 +228,34 @@ class PassManager:
                 self._submit_save("delta")
             self.current.release_memory()
         self._buf = (self._buf + 1) % len(self.datasets)
+        self._end_pass_heartbeat()
+
+    def _end_pass_heartbeat(self) -> None:
+        """The pass's ``end_pass`` heartbeat record, then the trace's
+        dump when tracing is on."""
+        occupancy = {}
+        for name, t in self.ps.tables.items():
+            try:
+                occupancy[name] = len(t)
+            except TypeError:
+                pass                 # a table without a row count
+        REGISTRY.gauge("ckpt.lag_jobs").set(self._writer.pending())
+        disk = {name.rsplit(".", 1)[-1]: self._counter_delta(name)
+                for name in _DISK_COUNTERS}
+        disk["worker_queue"] = REGISTRY.gauge("ps.disk.worker_queue").get()
+        self.last_heartbeat = heartbeat.emit(
+            "end_pass", day=self.day, pass_id=self.pass_id,
+            ingest=ingest.INGEST_STATS.consume_delta(),
+            ckpt_lag_jobs=self._writer.pending(),
+            ckpt_writer_alive=self._writer.alive(),
+            nonfinite_grad_rows=self._counter_delta(
+                "ps.nonfinite_grad_rows"),
+            table_rows=occupancy, disk=disk,
+            remote={name.split(".", 2)[-1]: self._counter_delta(name)
+                    for name in _REMOTE_COUNTERS},
+            spans=self.timer.snapshot())
+        if trace.enabled():
+            trace.dump()
 
     # -- persistence ---------------------------------------------------------
 

@@ -12,6 +12,13 @@ host->device copy into that buffer, on the stream that replays, and one
 ``replay()``: none of the step's ~100 small ops is dispatched from Python,
 and nothing is read back to the host.
 
+A staged run (the device feed, ``data/device_feed.py``; its shape is
+``("cols", npad)``) captures ``FusedTrainStep.step_cols_tensors`` over the
+K rows of a static int32 wire [K, L] (the reference's
+``_step_cols_chunk``); its replay copies the staged chunk into that
+buffer on the device. Its capture holds the feed's ``gate``, so the
+feed's producer thread makes no CUDA call while it lasts.
+
 A capture bakes in device addresses: the arenas, the table's dirty bitmap,
 the mirror table (and its mask, an argument of the dedup-and-probe
 launch), the miss ring and its count (each step appends its misses), the
@@ -29,7 +36,7 @@ A shape's first full run goes eagerly and is the warm-up (the kernels'
 libraries load, cuBLAS picks its kernels); capture executes nothing, so no
 step runs twice. Capture is in torch's global mode, in which no other
 thread may call CUDA: the file reader's prefetch thread parses on the host
-only. Graphs share their pool on the understanding that they
+only, and the staged feed's producer waits on the feed's gate. Graphs share their pool on the understanding that they
 run one at a time on one stream and that a replay's outputs are cloned
 before the next replay: a later graph may place its scratch where an
 earlier one keeps its outputs.
@@ -133,18 +140,31 @@ class RunGraph:
         fs = owner.fs
         self.owner = owner
         self.key = key
-        layout, labels_t = shape
-        self.buf = torch.empty(nbytes, dtype=torch.uint8, device=fs.device)
-        keys, segs, pf = fs._views(self.buf, layout)
+        if shape[0] == "cols":
+            npad = shape[1]
+            self.buf = torch.empty((fs.DEV_CHUNK, fs.wire_len(npad)),
+                                   dtype=torch.int32, device=fs.device)
+
+            def step(j, params, opt_state, auc_state):
+                return fs.step_cols_tensors(params, opt_state, auc_state,
+                                            self.buf[j], npad)
+        else:
+            layout, labels_t = shape
+            self.buf = torch.empty(nbytes, dtype=torch.uint8,
+                                   device=fs.device)
+            keys, segs, pf = fs._views(self.buf, layout)
+
+            def step(j, params, opt_state, auc_state):
+                return fs.step_device_tensors(
+                    params, opt_state, auc_state, keys[j], segs[j],
+                    *fs._split_floats(pf[j], labels_t))
 
         def body():
             nonlocal params, opt_state, auc_state
             losses, bads = [], []
-            for j in range(keys.shape[0]):
-                params, opt_state, auc_state, loss, _ = \
-                    fs.step_device_tensors(
-                        params, opt_state, auc_state, keys[j], segs[j],
-                        *fs._split_floats(pf[j], labels_t))
+            for j in range(fs.DEV_CHUNK):
+                params, opt_state, auc_state, loss, _ = step(
+                    j, params, opt_state, auc_state)
                 losses.append(loss)
                 bads.append(fs.bad_flag)
             return torch.stack(losses), torch.stack(bads)
@@ -165,12 +185,14 @@ class RunGraph:
     def _launch(self) -> None:
         self.graph.replay()
 
-    def replay(self, host: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The run over ``host``, a packed upload of the graph's layout:
-        one stream-ordered copy into the static buffer, one replay.
-        Returns the K losses and the K numeric sentinels, cloned out of the
-        static outputs."""
-        self.buf.copy_(torch.from_numpy(host))
+    def replay(self, src) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The run over ``src``: a packed upload of the graph's layout (a
+        host array, copied synchronously) or a staged wire chunk (a
+        device tensor, copied on the device, in stream order); then one
+        replay. Returns the K losses and the K numeric sentinels, cloned
+        out of the static outputs."""
+        self.buf.copy_(torch.from_numpy(src) if isinstance(src, np.ndarray)
+                       else src)
         self._launch()
         self.launches.replayed()
         losses, bads = self.out
@@ -203,11 +225,12 @@ class RunGraphs:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
 
-    def replay(self, params, opt_state, auc_state, host: np.ndarray, shape
+    def replay(self, params, opt_state, auc_state, host, shape, gate=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The run over ``host`` through its shape's graph, captured first
-        when it is missing or baked in other addresses. A capture that
-        fails raises."""
+        """The run over ``host`` (``RunGraph.replay``'s ``src``) through its
+        shape's graph, captured first when it is missing or baked in other
+        addresses, holding ``gate`` (a lock) across the capture. A capture
+        that fails raises."""
         key = run_key(self.fs, params, opt_state, auc_state, shape)
         for s in [s for s, g in self.graphs.items() if g.key[1:] != key[1:]]:
             self.graphs.pop(s).reset()
@@ -217,8 +240,9 @@ class RunGraphs:
             self._pool = None
         graph = self.graphs.get(shape)
         if graph is None:
-            graph = RunGraph(self, params, opt_state, auc_state, shape, key,
-                             host.nbytes)
+            with gate if gate is not None else contextlib.nullcontext():
+                graph = RunGraph(self, params, opt_state, auc_state, shape,
+                                 key, host.nbytes)
             self.graphs[shape] = graph
             self.captures += 1
             self.capture_ms.append(graph.capture_ms)

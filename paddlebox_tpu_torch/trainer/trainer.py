@@ -43,14 +43,30 @@ JSON line per instance (search_id, label, pred; task 0's of a multi-task
 model). ``metrics`` is the named ``MetricRegistry`` the reference's
 trainer carries, for the caller to fill.
 
+The reference's flags, read from their ``PBOX_FLAGS_<name>`` variables:
+
+- ``feed_device_prefetch`` > 0 (with ``feed_staging_buffers``,
+  ``config.feed_prefetch_conf``) stages ``train_from_files`` through the
+  device feed (``data/device_feed.py``): the reader's
+  ``stream_columnar`` views -> ``DeviceFeed`` (one a trainer, its ring
+  reused by every pass at that depth) ->
+  ``FusedTrainStep.train_stream(feed=)``. It needs the fused engine
+  (else ``ValueError`` at construction) with device prep (else at
+  ``train_from_files``), as in the reference.
+- ``obs_trace_dir`` turns the Chrome trace on at construction
+  (``obs/trace.py``), whose spans include ``SpanTimer``'s.
+- ``obs_heartbeat_path``: each pass ends with a ``pass`` heartbeat record
+  (``obs/heartbeat.py``): steps, wall seconds, examples/s, batch size,
+  AUC, ``ins_num``, the timer's spans and ``host_share``, the share of
+  the pass the training thread spent on host feed work (the
+  ``feed.host_ms`` counter the streams add to). The record goes to the
+  logger whether or not the flag names a file.
+
 Not ported, and refused with ``NotImplementedError``: ``mesh=`` and
-``dense_sync_hook`` (ROADMAP A.9), and, set through
-the reference's ``PBOX_FLAGS_<name>`` environment variables, the device
-feed (``feed_device_prefetch``, A.4), the train guard (``check_nan_inf``),
-the trace, the postmortem dump and the pass heartbeat (A.6). The
-reference's per-pass heartbeat record and its ``sections[...]``
-device-time table (``trainer/profiler.py``) have no counterpart here
-(A.6).
+``dense_sync_hook`` (ROADMAP A.9), and the flags of the train guard
+(``check_nan_inf``) and the postmortem dump (``obs_postmortem_dir``)
+(A.6). The reference's ``sections[...]`` device-time table
+(``trainer/profiler.py``) has no counterpart here (A.6).
 """
 
 from __future__ import annotations
@@ -59,6 +75,7 @@ import itertools
 import json
 import os
 import sys
+import time
 import warnings
 from typing import Callable, Dict, Optional, Sequence, Union
 
@@ -68,7 +85,7 @@ from torch import nn
 from paddlebox_tpu_torch._device import DeviceLike
 from paddlebox_tpu_torch.config import (BucketSpec, DataFeedConfig,
                                         TableConfig, TrainerConfig,
-                                        refuse_flags)
+                                        feed_prefetch_conf, refuse_flags)
 from paddlebox_tpu_torch.data.batch import CsrBatch
 from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.data import ingest
@@ -76,6 +93,8 @@ from paddlebox_tpu_torch.data.fast_feed import (FastSlotReader,
                                                 MultiProcessReader)
 from paddlebox_tpu_torch.metrics.auc import AucCalculator, reset_auc_state_
 from paddlebox_tpu_torch.metrics.registry import MetricRegistry
+from paddlebox_tpu_torch.obs import heartbeat, trace
+from paddlebox_tpu_torch.obs.metrics import REGISTRY
 from paddlebox_tpu_torch.ps import native
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.ps.table import EmbeddingTable
@@ -90,11 +109,8 @@ AUC_DRAIN_STEPS = 512
 # the reference's flags of features not ported here: (flag, ROADMAP item,
 # feature)
 _REFUSED_FLAGS = (
-    ("feed_device_prefetch", "A.4", "the staged device feed"),
     ("check_nan_inf", "A.6", "the train guard (trainer/guard.py)"),
-    ("obs_trace_dir", "A.6", "the Chrome trace (obs/trace.py)"),
     ("obs_postmortem_dir", "A.6", "the postmortem dump (obs/postmortem.py)"),
-    ("obs_heartbeat_path", "A.6", "the pass heartbeat (obs/heartbeat.py)"),
 )
 
 
@@ -154,6 +170,7 @@ class CTRTrainer:
         # trainer_conf.dense_sync_steps is read only with a mesh and
         # trainer_conf.metrics not at all on one device, as in the
         # reference
+        trace.maybe_enable()
         self.model = model
         self.feed_conf = feed_conf
         self.table_conf = table_conf
@@ -187,6 +204,16 @@ class CTRTrainer:
                 model, table_conf, trainer_conf,
                 batch_size=feed_conf.batch_size, num_slots=self.num_slots,
                 dense_dim=self.dense_dim, use_cvm=use_cvm, device=device)
+        # a device-feed request the engine cannot honor fails here, not
+        # as a prefetch flag silently ignored
+        if feed_prefetch_conf()[0] > 0 and not self.fused:
+            raise ValueError(
+                "feed_device_prefetch > 0 needs the fused engine "
+                "(use_device_table=True); the host-table TrainStep has "
+                "no staged wire to prefetch into")
+        self._feed = None
+        # the last pass heartbeat record
+        self.last_heartbeat: Optional[dict] = None
         self.params, self.opt_state = self.step.init()
         self.auc_state = self.step.init_auc_state()
 
@@ -285,26 +312,34 @@ class CTRTrainer:
         AUC drained after each. A short last batch is masked, so every
         row trains and counts. Every exit closes the reader (its workers
         and segments). Returns the pass metrics. The fused engine
-        only."""
+        only. Under ``feed_device_prefetch`` > 0 the batches go through
+        the staged device feed (device prep only)."""
         if not self.fused:
             raise ValueError(
                 "train_from_files rides the single-chip fused engine; "
                 "use train_from_dataset for host-table training")
+        feed = self._device_feed()
         if workers > 1:
             reader = MultiProcessReader(self.feed_conf, workers=workers,
                                         buckets=buckets or self.buckets)
         else:
             reader = FastSlotReader(self.feed_conf,
                                     buckets=buckets or self.buckets)
-        stream = reader.stream(files, drop_remainder=False,
-                               prefetch=prefetch)
+        self._pass_begin()
+        if feed is not None:
+            stream = reader.stream_columnar(files, drop_remainder=False,
+                                            prefetch=prefetch)
+        else:
+            stream = reader.stream(files, drop_remainder=False,
+                                   prefetch=prefetch)
         try:
             while True:
                 seg = itertools.islice(stream, AUC_DRAIN_STEPS)
                 with self.timer.span("main"):
                     (self.params, self.opt_state, self.auc_state, _loss,
                      steps) = self.step.train_stream(
-                        self.params, self.opt_state, self.auc_state, seg)
+                        self.params, self.opt_state, self.auc_state, seg,
+                        feed=feed)
                 self._step_count += steps
                 self._drain_auc()
                 if steps < AUC_DRAIN_STEPS:
@@ -323,6 +358,7 @@ class CTRTrainer:
         """One pass over the dataset's in-memory records. Calls
         ``fetch_handler(step, loss, preds)`` after each batch (``preds`` a
         host array). Returns the pass metrics."""
+        self._pass_begin()
         for batch in dataset.batches():
             with self.timer.span("main"):
                 loss, preds = self._train_one(batch)
@@ -338,13 +374,71 @@ class CTRTrainer:
         self._drain_auc()
         return self._pass_end()
 
+    def _device_feed(self):
+        """The staged device feed of ``train_from_files`` under
+        ``feed_device_prefetch`` > 0 (None at 0): one a trainer, kept
+        while the flags keep their depth and buffers, so its ring's
+        pinned slots serve every pass."""
+        depth, buffers = feed_prefetch_conf()
+        if depth == 0:
+            return None
+        if not self.step.device_prep:
+            raise ValueError(
+                "feed_device_prefetch > 0 needs the device-prep fused "
+                "engine (native single-map index); this trainer resolved "
+                "device_prep=False")
+        feed = self._feed
+        if feed is None or (feed.depth, feed.buffers) != (depth, buffers):
+            from paddlebox_tpu_torch.data.device_feed import DeviceFeed
+            feed = self._feed = DeviceFeed(self.step, depth=depth,
+                                           buffers=buffers)
+        return feed
+
+    def _pass_begin(self) -> None:
+        """Marks of the pass heartbeat: the clock, the step count and the
+        ``feed.host_ms`` counter at the pass start."""
+        self._pass_marks = (time.perf_counter(), self._step_count,
+                            REGISTRY.counter("feed.host_ms").get())
+
     def _pass_end(self) -> Dict[str, float]:
-        """The pass metrics, and the profile line when asked for."""
+        """The pass metrics, the profile line when asked for, and the
+        pass heartbeat."""
         out = self.calc.compute()
         if self.trainer_conf.profile:
             print(f"log_for_profile pass_steps={self._step_count} "
                   f"{self.timer.report()}", file=sys.stderr)
+        self._pass_heartbeat(out)
         return out
+
+    def _pass_heartbeat(self, out: Dict[str, float]) -> None:
+        """One ``pass`` heartbeat record (``obs/heartbeat.py``), as the
+        reference's trainer writes it: steps, wall seconds, examples/s,
+        batch size, AUC, ``ins_num``, the span timer's snapshot, and
+        ``host_share``, the share of the pass's wall time the training
+        thread spent on host feed work (the streams' ``feed.host_ms``);
+        an engine that adds nothing to that counter gets no
+        ``host_share``. Also the ``trainer.steps`` counter and the
+        ``trainer.examples_per_s``, ``trainer.auc`` and
+        ``trainer.host_share`` gauges."""
+        t0, steps0, host0 = self._pass_marks
+        steps = self._step_count - steps0
+        wall = time.perf_counter() - t0
+        eps = steps * self.feed_conf.batch_size / wall if wall > 0 else 0.0
+        REGISTRY.counter("trainer.steps").add(steps)
+        REGISTRY.gauge("trainer.examples_per_s").set(eps)
+        if "auc" in out:
+            REGISTRY.gauge("trainer.auc").set(out["auc"])
+        rec = dict(steps=steps, wall_s=round(wall, 3),
+                   examples_per_s=round(eps, 1),
+                   batch_size=self.feed_conf.batch_size,
+                   auc=out.get("auc"), ins_num=out.get("ins_num"),
+                   spans=self.timer.snapshot())
+        host_ms = REGISTRY.counter("feed.host_ms").get() - host0
+        if host_ms > 0.0 and wall > 0:
+            share = min(1.0, host_ms / 1e3 / wall)
+            rec["host_share"] = round(share, 4)
+            REGISTRY.gauge("trainer.host_share").set(share)
+        self.last_heartbeat = heartbeat.emit("pass", **rec)
 
     def evaluate(self, dataset: SlotDataset) -> Dict[str, float]:
         """Forward-only pass (no table change) with its own calculator,

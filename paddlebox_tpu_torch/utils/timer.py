@@ -3,14 +3,13 @@
 
 ``with timer.span("step"): ...`` accumulates the span's wall-clock time
 and count under one lock, so the trainer thread and background threads
-may share a timer. Each span also opens
-``torch.profiler.record_function(f"trainer.{name}")``, so a torch profile
-shows the trainer's spans beside the step's ``train_step.*`` spans (the
-reference records a Chrome-trace event through its obs layer instead).
-
-``metric_prefix`` is accepted as the reference's constructor takes it; the
-reference's per-span histogram in its global metrics registry is not
-ported (ROADMAP A.6).
+may share a timer. Each span is also one event of the Chrome trace
+(``obs/trace.py``, when ``obs_trace_dir`` turns it on), and with
+``metric_prefix`` one observation of the ``<prefix>.<name>_ms`` histogram
+in the global registry (``obs/metrics.py``), as in the reference. It also
+opens ``torch.profiler.record_function(f"trainer.{name}")``, so a torch
+profile shows the trainer's spans beside the step's ``train_step.*``
+spans.
 """
 
 from __future__ import annotations
@@ -22,6 +21,9 @@ from collections import defaultdict
 from typing import Dict, Optional
 
 from torch.profiler import record_function
+
+from paddlebox_tpu_torch.obs import trace
+from paddlebox_tpu_torch.obs.metrics import REGISTRY
 
 
 class SpanTimer:
@@ -35,7 +37,7 @@ class SpanTimer:
 
     @contextlib.contextmanager
     def span(self, name: str):
-        with record_function(f"trainer.{name}"):
+        with trace.span(name), record_function(f"trainer.{name}"):
             t0 = time.perf_counter()
             try:
                 yield
@@ -44,6 +46,9 @@ class SpanTimer:
                 with self._lock:
                     self.total[name] += dt
                     self.count[name] += 1
+                if self.metric_prefix is not None:
+                    REGISTRY.observe(f"{self.metric_prefix}.{name}_ms",
+                                     dt * 1e3)
 
     def mean_ms(self, name: str) -> float:
         with self._lock:

@@ -4,7 +4,8 @@ the JAX package's on the same bytes and files: the tokenizer's outputs,
 the batches (remainder carried across files, prefetch 0 and 2, scratch
 buffers on and off) and the stream's tuples, all exact; the reference's
 error cases (``tests/test_fast_feed.py::TestErrors``) with the same
-exception types and messages; and the port's refusals."""
+exception types and messages; and the options once refused, among them
+``stream_columnar``'s views against the reference's."""
 
 import dataclasses
 
@@ -338,24 +339,36 @@ def _multi_process_reader(files):
     assert reader.shm_counters["leaked_segments"] == 0
 
 
-# options once refused here (ROADMAP A.2d, ported): each case holds the
-# feature against the reference; stream_columnar still refuses (A.4)
+def _stream_columnar(files):
+    """``ColumnarSlice`` views equal the reference's, slice for slice (a
+    remainder carried across files, the last batch short), with prefetch
+    0 and 2; on the single reader ``owner`` is None."""
+    for prefetch in (0, 2):
+        got = FastSlotReader(port_conf(mixed_conf())).stream_columnar(
+            files, prefetch=prefetch)
+        want = JaxReader(mixed_conf()).stream_columnar(files,
+                                                       prefetch=prefetch)
+        n = 0
+        for g, w in zip(got, want, strict=True):
+            for f in ("keys", "lengths", "labels", "dense"):
+                a, b = getattr(g, f), getattr(w, f)
+                assert a.dtype == b.dtype and np.array_equal(a, b), f
+            assert (g.num_rows, g.num_keys, g.npad, g.owner) == \
+                (w.num_rows, w.num_keys, w.npad, None)
+            n += 1
+        assert n > 1
+
+
+# options once refused here, each held against the reference: A.2d's, and
+# stream_columnar (A.4); the reader refuses none now
 PORTED = {"pipe_command": _pipe_command, "string_slot": _string_slot,
-          "multi_process_reader": _multi_process_reader}
-UNPORTED = {
-    "stream_columnar": (lambda f: FastSlotReader(port_conf(
-        mixed_conf())).stream_columnar(f), "A.4"),
-}
+          "multi_process_reader": _multi_process_reader,
+          "stream_columnar": _stream_columnar}
 
 
-@pytest.mark.parametrize("what", sorted(UNPORTED) + sorted(PORTED))
+@pytest.mark.parametrize("what", sorted(PORTED))
 def test_unported_refused(files, what):
-    if what in PORTED:
-        PORTED[what](files)
-        return
-    fn, item = UNPORTED[what]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        fn(files)
+    PORTED[what](files)
 
 
 def test_tokenizer_raises_its_build_error(monkeypatch):

@@ -308,8 +308,9 @@ def test_unported_options_raise():
     """The options once refused here build now: lars, lamb, gradient
     merging, recompute (``tests/test_torch_dense_optim.py`` holds them to
     the reference) and the deferred insert mode, which makes the table's
-    miss ring (``tests/test_torch_deferred_insert.py``). The staged device
-    feed (``train_stream(feed=...)``) stays refused (A.4). The four fields
+    miss ring (``tests/test_torch_deferred_insert.py``), and the staged
+    device feed (``train_stream(feed=...)``, device prep only;
+    ``tests/test_torch_device_feed.py``). The four fields
     of the trainer loop (dense_sync_steps, metrics, num_devices, profile)
     are CTRTrainer's: tests/test_torch_trainer.py::
     test_trainer_config_fields holds them."""
@@ -329,8 +330,14 @@ def test_unported_options_raise():
     assert fs.insert_mode == "deferred"
     assert native_table.miss_ring.shape == (DeviceTable.MISS_RING + 1,)
     assert native_table.miss_cnt.tolist() == [0]
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        fs.train_stream(None, None, None, iter(()), feed=object())
+    from paddlebox_tpu_torch.data.device_feed import DeviceFeed
+    feed = DeviceFeed(fs, depth=2)
+    *_, loss, steps = fs.train_stream(*fs.init(), fs.init_auc_state(),
+                                      iter(()), feed=feed)
+    assert (loss, steps) == (None, 0) and feed.ring.held == 0
+    with pytest.raises(ValueError, match="device-prep"):
+        FusedTrainStep(model, table, TrainerConfig(), B, S).train_stream(
+            None, None, None, iter(()), feed=object())
 
 
 def test_widedeep_converter_round_trips_flax():

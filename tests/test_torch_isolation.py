@@ -6,7 +6,8 @@ a tiered table with its host backing and prefetched feed pass, and the
 host-table engine with an MMoE step, a step over an int8 arena, the
 disk ladder with the dense lars, lamb and gradient merging and the cvm
 ops, and the multi-process reader over both protocols with the error
-budget and the archive, with them blocked; its entry points
+budget and the archive, and a staged device-feed pass with its trace and
+heartbeat, with them blocked; its entry points
 default to the card and raise without one (the trainer too); its kernel
 modules import without a CUDA toolkit."""
 
@@ -478,6 +479,63 @@ def test_train_from_files_with_jax_blocked(tmp_path):
     """)
     assert res.returncode == 0, res.stderr
     assert "FILES_PASS" in res.stdout
+
+
+def test_staged_feed_and_obs_with_jax_blocked(tmp_path):
+    """The staged device feed (``PBOX_FLAGS_feed_device_prefetch=2``), the
+    trace and the heartbeat, with jax and paddlebox_tpu blocked: a staged
+    ``train_from_files`` pass gives the unstaged pass's metrics, writes a
+    ``pass`` heartbeat record with ``host_share`` and a Chrome trace with
+    the feed's spans."""
+    from conftest import make_slot_file
+    from paddlebox_tpu.config import DataFeedConfig, SlotConfig
+    conf = DataFeedConfig(slots=[
+        SlotConfig("label", type="float", is_dense=True, dim=1),
+        SlotConfig("a"), SlotConfig("b")], batch_size=4, thread_num=2)
+    data = [make_slot_file(str(tmp_path / f"part-{i}"), conf, rows, seed=i)
+            for i, rows in enumerate((40, 30))]
+    res = _run(f"""
+        import json, os, sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import torch
+        from paddlebox_tpu_torch.config import (DataFeedConfig, SlotConfig,
+                                                TableConfig, TrainerConfig)
+        from paddlebox_tpu_torch.models import DeepFM
+        from paddlebox_tpu_torch.obs import trace
+        from paddlebox_tpu_torch.ps.device_table import DeviceTable
+        from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
+        conf = DataFeedConfig(slots=[
+            SlotConfig("label", type="float", is_dense=True, dim=1),
+            SlotConfig("a"), SlotConfig("b")], batch_size=4, thread_num=2)
+        tconf = TableConfig(embedx_dim=4, embedx_threshold=0.0)
+        out = []
+        for staged in (False, True):
+            if staged:
+                os.environ.update(
+                    PBOX_FLAGS_feed_device_prefetch="2",
+                    PBOX_FLAGS_obs_trace_dir={str(tmp_path / 'tr')!r},
+                    PBOX_FLAGS_obs_heartbeat_path={str(tmp_path / 'hb')!r})
+            torch.manual_seed(0)
+            table = DeviceTable(tconf, capacity=256, device="cpu",
+                                index_threads=1)
+            tr = CTRTrainer(DeepFM(2 * 7, (8,)), conf, tconf,
+                            TrainerConfig(), table=table)
+            out.append(tr.train_from_files({data!r}))
+        assert out[0] == out[1] and out[1]["ins_num"] == 70
+        assert tr._feed.ring.held == 0
+        (rec,) = [json.loads(x) for x in open({str(tmp_path / 'hb')!r})]
+        assert rec["hb"] == "pass" and 0 < rec["host_share"] <= 1
+        names = {{e["name"] for e in json.load(open(trace.dump()))
+                 ["traceEvents"]}}
+        assert {{"feed.pack", "feed.h2d", "main"}} <= names, names
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("STAGED_PASS", out[1]["auc"])
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "STAGED_PASS" in res.stdout
 
 
 def test_pass_loop_with_jax_blocked(tmp_path):

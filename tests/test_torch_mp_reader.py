@@ -291,12 +291,18 @@ def test_shm_conf_validated_like_reference(set_flag, flag, value):
 
 def test_worker_imports_no_torch():
     """The parse worker's import chain (``data.fast_feed`` with the
-    tokenizer's loader and the fabric) imports no torch, so a worker
-    never pays torch's import nor touches a card; the package's
-    top-level names still resolve lazily."""
+    tokenizer's loader, the fabric, and the trace and registry it reports
+    to) imports no torch, so a worker never pays torch's import nor
+    touches a card; the package's top-level names still resolve
+    lazily."""
     code = ("import sys\n"
             "import paddlebox_tpu_torch.data.fast_feed\n"
             "import paddlebox_tpu_torch.data.shm_fabric\n"
+            "import paddlebox_tpu_torch.data.channel\n"
+            "import paddlebox_tpu_torch.obs.heartbeat\n"
+            "import paddlebox_tpu_torch.utils.monitor\n"
+            "from paddlebox_tpu_torch.obs import REGISTRY, trace\n"
+            "assert REGISTRY is paddlebox_tpu_torch.utils.monitor.STATS\n"
             "from paddlebox_tpu_torch.ps import native\n"
             "native._load_feed()\n"
             "assert 'torch' not in sys.modules, 'torch imported'\n"
@@ -309,6 +315,47 @@ def test_worker_imports_no_torch():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_defer_recycle_holds_a_pinned_block(tmp_path, set_flag,
+                                            monkeypatch):
+    """``PBOX_FLAGS_ingest_shm_defer_recycle=1`` reaches the fabric: a
+    pinned lease's block does not go back to its worker when the slicer
+    advances past it, only when the pin is released; without the flag a
+    pin is refused and the block recycles at the slicer's release. One
+    worker, files of exactly one batch, so each block is one slice."""
+    conf = mixed_conf()
+    paths = [write_file(str(tmp_path / f"b{i}"), conf, conf.batch_size,
+                        seed=40 + i) for i in range(4)]
+    recycled = []
+    recycle = shm_fabric.ShmFabric._recycle
+
+    def spy(self, worker, block):
+        recycled.append((worker, block))
+        recycle(self, worker, block)
+
+    monkeypatch.setattr(shm_fabric.ShmFabric, "_recycle", spy)
+    for defer in (True, False):
+        set_flag("ingest_shm_defer_recycle", defer)
+        recycled.clear()
+        reader = MultiProcessReader(port_conf(conf), workers=1)
+        it = reader.stream_columnar(paths)
+        first = next(it)
+        lease = first.owner
+        assert isinstance(lease, shm_fabric.BlockLease)
+        assert reader._fabric.defer_recycle is defer
+        assert lease.pin() is defer
+        second = next(it)            # the slicer released the first
+        assert second.owner is not lease
+        held = (lease.worker, lease.block)
+        assert (held in recycled) is not defer
+        if defer:
+            lease.release()          # the pin, the last holder
+            assert recycled.count(held) == 1
+        rest = list(it)
+        assert len(rest) == 2 and recycled.count(held) >= 1
+        assert reader.shm_counters["leaked_segments"] == 0
+    assert not shm_names()
 
 
 # -- train_from_files(workers=2) ---------------------------------------------

@@ -43,6 +43,7 @@ from paddlebox_tpu.trainer.fused_step import FusedTrainStep as JaxStep
 from paddlebox_tpu_torch.config import (BucketSpec, DataFeedConfig,
                                         TableConfig, TrainerConfig)
 from paddlebox_tpu_torch.data.dataset import SlotDataset
+from paddlebox_tpu_torch.data.device_feed import DeviceFeed
 from paddlebox_tpu_torch.data.fast_feed import FastSlotReader
 from paddlebox_tpu_torch.models.convert import (deepfm_from_flax_leaves,
                                                 flax_leaves_from_deepfm)
@@ -301,13 +302,18 @@ def assert_same_rows_by_key(a, b):
 
 
 def test_train_stream_refusals():
-    """``feed=`` (the staged device feed) is refused; ``final_poll`` is
-    accepted and does nothing; an empty stream takes no step."""
+    """``feed=`` (the staged device feed) on host prep raises the
+    reference's ``ValueError``; ``final_poll`` is accepted and does
+    nothing; an empty stream takes no step, staged or not."""
+    _, (hfs, _, hs) = worlds(False)
+    with pytest.raises(ValueError, match="device-prep fused engine"):
+        hfs.train_stream(*hs, iter([]), feed=object())
     _, (pfs, _, ps) = worlds(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        pfs.train_stream(*ps, iter([]), feed=object())
     *_, loss, steps = pfs.train_stream(*ps, iter([]), final_poll=False)
     assert loss is None and steps == 0
+    feed = DeviceFeed(pfs, depth=2)
+    *_, loss, steps = pfs.train_stream(*ps, iter([]), feed=feed)
+    assert loss is None and steps == 0 and feed.ring.held == 0
     with pytest.raises(RuntimeError, match="device_prep=True"):
         worlds(False)[1][0].step_device_tensors(*ps, *([None] * 6))
 

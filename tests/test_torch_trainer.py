@@ -36,8 +36,10 @@ from paddlebox_tpu.ps.table import EmbeddingTable as JaxTable
 from paddlebox_tpu.trainer import trainer as ref_trainer
 from paddlebox_tpu.utils.timer import SpanTimer as JaxSpanTimer
 from paddlebox_tpu_torch.config import (DataFeedConfig, TableConfig,
-                                        TrainerConfig)
+                                        TrainerConfig, feed_prefetch_conf)
 from paddlebox_tpu_torch.data.dataset import SlotDataset
+from paddlebox_tpu_torch.obs import heartbeat as port_heartbeat
+from paddlebox_tpu_torch.obs import trace as port_trace
 from paddlebox_tpu_torch.models.convert import (deepfm_from_flax_leaves,
                                                 flax_leaves_from_deepfm,
                                                 flax_leaves_from_widedeep,
@@ -366,16 +368,51 @@ REFUSED = {
 # test_torch_stream.py train_from_files(workers=2))
 PORTED = {"deferred": lambda: _trainer(insert_mode="deferred"),
           "train_from_files": lambda: _trainer()}
-REFUSED_FLAGS = {"feed_device_prefetch": ("2", "A.4"),
-                 "check_nan_inf": ("true", "A.6"),
-                 "obs_trace_dir": ("/tmp/trace", "A.6"),
-                 "obs_postmortem_dir": ("/tmp/pm", "A.6"),
-                 "obs_heartbeat_path": ("/tmp/hb.jsonl", "A.6")}
+REFUSED_FLAGS = {"check_nan_inf": ("true", "A.6"),
+                 "obs_postmortem_dir": ("/tmp/pm", "A.6")}
+
+
+def _feed_flag(tmp_path):
+    """The staged feed's flag builds the trainer (depth 2, 5 buffers) and
+    refuses the host-table engine, as the reference does."""
+    assert feed_prefetch_conf() == (2, 5)
+    assert _trainer().step.device_prep
+    with pytest.raises(ValueError, match="fused engine"):
+        _trainer(table=EmbeddingTable(TableConfig(**TABLE)), device="cpu")
+
+
+def _trace_flag(tmp_path):
+    was = port_trace.TRACE.enabled
+    try:
+        _trainer()
+        assert port_trace.enabled()
+    finally:
+        if not was:
+            port_trace.disable()
+
+
+def _heartbeat_flag(tmp_path):
+    _trainer()
+    assert port_heartbeat.sink_path() == str(tmp_path / "hb.jsonl")
+
+
+# the reference's flags once refused here, now ported (A.4 and A.6's
+# trace and heartbeat; test_torch_device_feed.py and test_torch_obs.py
+# hold them to the reference)
+PORTED_FLAGS = {"feed_device_prefetch": ("2", _feed_flag),
+                "obs_trace_dir": ("{tmp}/trace", _trace_flag),
+                "obs_heartbeat_path": ("{tmp}/hb.jsonl", _heartbeat_flag)}
 
 
 @pytest.mark.parametrize("what", sorted(REFUSED) + sorted(PORTED)
-                         + sorted(REFUSED_FLAGS))
-def test_unported_options_refused(what, monkeypatch):
+                         + sorted(REFUSED_FLAGS) + sorted(PORTED_FLAGS))
+def test_unported_options_refused(what, monkeypatch, tmp_path):
+    if what in PORTED_FLAGS:
+        value, check = PORTED_FLAGS[what]
+        monkeypatch.setenv(f"PBOX_FLAGS_{what}",
+                           value.format(tmp=tmp_path))
+        check(tmp_path)
+        return
     if what == "train_from_files":
         # workers > 1 builds the multi-process reader: a file it cannot
         # read fails in its worker, named, and no step is taken
