@@ -344,6 +344,24 @@ Phases, each fatal on failure:
    heartbeat's ``host_share`` of both, and a run's upload GB/s from
    pinned memory against the unstaged pageable copy, in turns, each beside
    the card's name and power limit.
+4p. guard  — the lifecycle layer over 4n's first two files at the
+             flagship's width: (a) ``train_from_files`` with a
+             ``TrainGuard`` attached against a guard-less twin, bit for
+             bit; (b) a committed base, then ``TrainGuard.run_pass`` with
+             NaN labels in one batch: one ``nan`` trip at its step and
+             window, one rollback, every dense leaf and row finite, bit
+             for bit with a twin restored from the base and trained
+             without the window; (c) under ``check_nan_inf`` and
+             ``obs_postmortem_dir`` a new trainer's guard raises
+             ``GuardAbort`` and one bundle commits (six files, a manifest
+             whose crcs verify); (d) ``profile=True``: the
+             ``log_for_profile`` line with every section, printed, the
+             pass bit for bit with a ``profile=False`` twin; (e) three
+             disk-tier passes whose ``end_pass`` disk deltas equal the
+             registry's, ``ps.ssd.*``, ``ingest.*`` and ``ckpt.*`` grown.
+   ms/step with the guard on and off in turns, the poller's lag in steps,
+   the rollback's seconds and the profile's sections, each beside the
+   card's name and power limit.
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -366,6 +384,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import io
 import dataclasses
 import gc
 import json
@@ -4754,6 +4773,398 @@ def phase_staged_feed(rng, files) -> dict:
     return result
 
 
+# -- phase 4p: the train guard, the postmortem and the section profiler -------
+
+GUARD_FILES = 2              # 4n's first two files: 32 batches
+GUARD_POISON = 9             # (b): source batch of the run_pass with NaNs
+GUARD_WINDOW = 2             # (b): its quarantine window
+ABORT_BATCHES = 6            # (c): batches of the aborted pass
+ABORT_POISON = 2             # (c): the poisoned one among them
+MIRROR_ROWS = 2 * TB         # (e): rows of the disk-tier pass's file
+MIRROR_VOCAB = 1 << 19       # (e): its keys, within the tiered arena
+MIRROR_PASSES = 3            # (e): reject, admit and spill, restage
+BUNDLE_FILES = ["alerts.json", "crash.json", "flags.json",
+                "heartbeat_tail.jsonl", "manifest.json", "metrics.json",
+                "trace.json"]
+
+
+class GuardBatches:
+    """A fixed batch list as a dataset (``batches()``), the guard's replay
+    source; ``poison`` gives the listed batches NaN labels."""
+
+    def __init__(self, batches, poison=()):
+        self._batches = [dataclasses.replace(
+            b, labels=np.full_like(b.labels, np.nan)) if i in poison else b
+            for i, b in enumerate(batches)]
+
+    def batches(self):
+        return iter(self._batches)
+
+
+def count_path(fn, n_batches: int, tag: str, extra=()):
+    """``fn()`` with every device-prep wrapper's count set to 0 just
+    before it and read just after: forward, backward, push, K5's sort and
+    the fused dedup and probe each launched the same count, at least once
+    a batch, and the idle ones never (but ``extra``, which a profile's
+    host-prep push launches). Returns (seconds, result, launches)."""
+    for w in DEVICE_PREP_WRAPPERS:
+        w.launches = 0
+    secs, out = timed_secs(fn)
+    launches = {w.__name__: w.launches for w in DEVICE_PREP_WRAPPERS}
+    idle = {w.__name__ for w in DEVICE_PREP_IDLE} - set(extra)
+    busy = [launches[w.__name__] for w in DEVICE_PREP_WRAPPERS
+            if w.__name__ not in idle and w.__name__ not in extra]
+    require(min(busy) >= n_batches and all(launches[k] == 0 for k in idle)
+            and all(launches[k] > 0 for k in extra),
+            f"{tag}: launches {launches}")
+    return secs, out, launches
+
+
+def guard_records(path: str) -> list:
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r["hb"] == "guard"]
+
+
+def registry_counts(prefixes) -> dict:
+    return {k: v for k, v in REGISTRY.snapshot().items()
+            if k.startswith(prefixes)}
+
+
+def phase_guard(rng, files) -> dict:
+    """(4p) The lifecycle layer at the flagship's width over phase 4n's
+    first two files (32 batches of B=2048, 5% new keys in the second):
+    (a) ``train_from_files`` with a ``TrainGuard`` attached (default
+    policy, lag 8) against a guard-less twin: bit for bit, ms/step in
+    turns, the poller's lag in steps; (b) a committed base of the
+    flagship's 4,194,304-row table after one batch, then
+    ``TrainGuard.run_pass`` over the 31 other batches with NaN labels in
+    one (the flagship has no dense slot to poison): one ``nan`` trip at
+    its source step and window, one rollback (timed), every dense leaf and
+    touched row finite, and the model bit for bit with a twin restored
+    from the same base and trained without the window; also (a) over
+    ``train_from_dataset``, a hook call a step; (c) under ``PBOX_FLAGS_check_nan_inf`` and
+    ``obs_postmortem_dir`` a new trainer's guard aborts a poisoned pass
+    with ``GuardAbort`` and one bundle commits, six files and a manifest
+    whose crcs verify; (d) ``profile=True`` on (a)'s twins'
+    ``train_from_dataset`` over the files' batches: the
+    ``log_for_profile`` line with every section (printed), the pass bit
+    for bit with a ``profile=False`` twin; (e) on three short passes of a
+    tiered table over a disk tier with admission, ``ps.disk.*`` and
+    ``ps.ssd.*``, each ``end_pass`` record's disk deltas equal to the
+    registry's, then nonzero ``ingest.*`` and ``ckpt.*`` in the registry
+    since the phase began."""
+    from paddlebox_tpu_torch.ckpt import atomic, discovery
+    from paddlebox_tpu_torch.obs import postmortem
+    from paddlebox_tpu_torch.trainer.guard import (GuardAbort, GuardPolicy,
+                                                   TrainGuard)
+    card = card_line()
+    conf, tconf, buckets = train_confs()
+    feed = trainer_feed_conf()
+    fbuckets = BucketSpec(min_size=TNPAD, max_size=1 << 18)
+    t_phase = time.perf_counter()
+    files = files[:GUARD_FILES]
+    n = GUARD_FILES * TRAINER_FILE_BATCHES
+    marks = registry_counts(("ingest.", "ckpt."))
+    table = DeviceTable(conf, capacity=HOT_VOCAB + 1 + FEED_HEADROOM,
+                        uniq_buckets=buckets, device="cuda",
+                        backend="native", index_threads=1)
+    table.prepopulate(HOT_VOCAB)
+    init = arena_of(table)
+    model = random_deepfm(rng, TS * conf.pull_dim)
+
+    def world(tbl=None):
+        return CTRTrainer(copy.deepcopy(model), feed, conf, tconf,
+                          table=tbl if tbl is not None else arena_twin(
+                              table, "cuda", "native", init),
+                          buckets=fbuckets)
+
+    def same(tag, a, b):
+        require_same_training(f"guard (4p) {tag}",
+                              (a.table, a.params, a.opt_state, None),
+                              (b.table, b.params, b.opt_state, None))
+
+    # (a) guard on against guard off
+    plain, guarded = world(tbl=table), world()
+    trips0 = REGISTRY.counter("guard.trips").get()
+    guard = TrainGuard(guarded, policy=GuardPolicy()).attach()
+    launches, metrics = {}, {}
+    for tag, tr in (("guard_off", plain), ("guard_on", guarded)):
+        _, metrics[tag], launches[f"guard_{tag}_files"] = count_launches(
+            lambda: tr.train_from_files(files), n, f"guard (4p) {tag}")
+    require(metrics["guard_on"] == metrics["guard_off"],
+            f"guard (4p): metrics {metrics}")
+    same("files guard on vs off", guarded, plain)
+    # the cost on one world: the guard attached and detached in turns,
+    # its hook's host time taken around each call
+    turns = {"guard_on": [], "guard_off": []}
+    guard.lags.clear()
+    hook_us = {"files": [], "dataset": [], "run_pass": []}
+
+    def timed_hook(guard, where):
+        def hook(k, bad, loss, hook=guard._on_step_outputs):
+            t0 = time.perf_counter()
+            hook(k, bad, loss)
+            hook_us[where].append((time.perf_counter() - t0) * 1e6)
+        return hook
+    guard.detach()
+    for who in ("guard_off", "guard_on", "guard_on", "guard_off") * 2:
+        if who == "guard_on":
+            guard.attach()
+            guarded.step.set_sentinel(timed_hook(guard, "files"))
+        guarded.reset_metrics()
+        t, _ = timed_secs(lambda: guarded.train_from_files(files))
+        turns[who].append(t / n * 1e3)
+        guard.detach()
+    lags = sorted(guard.lags)
+    guard.lags.clear()
+    # the eager entry, where the hook runs every step
+    batches = list(FastSlotReader(feed, buckets=fbuckets).batches(files))
+    require(len(batches) == n, f"guard (4p): {len(batches)} batches")
+    eager = {"guard_on": [], "guard_off": []}
+    for who in ("guard_off", "guard_on", "guard_on", "guard_off"):
+        if who == "guard_on":
+            guard.attach()
+            guarded.step.set_sentinel(timed_hook(guard, "dataset"))
+        guarded.reset_metrics()
+        t, _ = timed_secs(lambda: guarded.train_from_dataset(
+            GuardBatches(batches)))
+        eager[who].append(t / n * 1e3)
+        guard.detach()
+    plain.reset_metrics()
+    for _ in range(len(turns["guard_on"]) + len(turns["guard_off"])):
+        plain.train_from_files(files)
+    for _ in range(len(eager["guard_on"]) + len(eager["guard_off"])):
+        plain.train_from_dataset(GuardBatches(batches))
+    same("guard on vs off, after the turns", guarded, plain)
+    eager_lags = sorted(guard.lags)
+    trips = REGISTRY.counter("guard.trips").get() - trips0
+    require(len(lags) == 4 * (n // FusedTrainStep.DEV_CHUNK) and
+            len(eager_lags) == 2 * n and
+            trips == 0, f"guard (4p): lags {lags}, trips {trips}")
+    print(f"guard (4p) overhead: train_from_files over {n} batches with a "
+          f"TrainGuard attached (lag {guard.policy.lag}) vs a guard-less "
+          f"twin: metrics, rows by key, dense params and adam's state bit "
+          f"for bit; ms/step of one world in turns, the guard attached and "
+          f"detached: on {turns['guard_on']}, off "
+          f"{turns['guard_off']}; the poller read {len(lags)} entries (a "
+          f"run of 16 each) at a lag of {lags[0]}-{lags[-1]} steps "
+          f"(median {lags[len(lags) // 2]}); launches "
+          f"{launches['guard_guard_on_files']}; on the dataset passes "
+          f"{len(eager_lags)} entries (a step each) at a lag of "
+          f"{eager_lags[0]}-{eager_lags[-1]} (median "
+          f"{eager_lags[len(eager_lags) // 2]}); the hook's host time "
+          f"(us, a run of 16 each) p50 "
+          f"{np.percentile(hook_us['files'], 50):.1f}, max "
+          f"{max(hook_us['files']):.1f} over {len(hook_us['files'])} calls; "
+          f"train_from_dataset ms/step in turns (a hook call a step): on "
+          f"{eager['guard_on']}, off {eager['guard_off']}, the hook p50 "
+          f"{np.percentile(hook_us['dataset'], 50):.1f} us, p90 "
+          f"{np.percentile(hook_us['dataset'], 90):.1f} [{card}]")
+
+    # (b) a rollback: a base after one batch, then a poisoned run_pass
+
+    rb, twin = world(), world()
+    root = os.path.join(WORK, "guard-model")
+    pm = PassManager(SparsePS({"embedding": rb.table}), root,
+                     [SlotDataset(feed, buckets=fbuckets)])
+    pm.set_date("20260105")
+    for tr in (rb, twin):
+        tr.train_from_dataset(GuardBatches(batches[:1]))
+    pm.pass_id = 1
+    pm.save_base(dense_state=(rb.params, rb.opt_state), wait=True)
+    base_rows = len(rb.table)
+    hb = os.path.join(WORK, "guard-hb.jsonl")
+    guard = TrainGuard(rb, pass_manager=pm, policy=GuardPolicy(
+        on_nan="rollback", quarantine_window=GUARD_WINDOW)).attach()
+    rb.step.set_sentinel(timed_hook(guard, "run_pass"))
+    rollback_s = []
+    rollback = guard._rollback
+
+    def timed_rollback(trip):
+        s, _ = timed_secs(lambda: rollback(trip))
+        rollback_s.append(s)
+    guard._rollback = timed_rollback
+    r0 = {k: REGISTRY.counter(k).get() for k in
+          ("guard.trips_nan", "guard.rollbacks")}
+    with flag_env(obs_heartbeat_path=hb):
+        pass_s, out, launches["guard_rollback"] = count_path(
+            lambda: guard.run_pass(GuardBatches(batches[1:],
+                                                (GUARD_POISON,))),
+            n - 1, "guard (4p) rollback")
+    guard.detach()
+    pm.close()
+    recs = guard_records(hb)
+    trip = recs[0]
+    require([r["event"] for r in recs] == ["trip", "rollback", "pass"] and
+            (trip["detector"], trip["step"], trip["window"]) ==
+            ("nan", GUARD_POISON, [GUARD_POISON,
+                                   GUARD_POISON + GUARD_WINDOW]) and
+            {k: REGISTRY.counter(k).get() - v for k, v in r0.items()} ==
+            {"guard.trips_nan": 1, "guard.rollbacks": 1} and
+            len(rollback_s) == 1,
+            f"guard (4p) rollback: records {recs}")
+    # the batches the model trained: the base's, then all but the window
+    rest = [b for i, b in enumerate(batches[1:])
+            if not GUARD_POISON <= i < GUARD_POISON + GUARD_WINDOW]
+    touched = key_rows(rb.table, np.unique(np.concatenate(
+        [b.keys[:b.num_keys] for b in batches[:1] + rest])))
+    require(all(bool(torch.isfinite(p).all())
+                for p in rb.params.parameters()) and
+            bool(torch.isfinite(rb.table.values[touched.cuda()]).all()) and
+            bool(torch.isfinite(rb.table.state[touched.cuda()]).all()),
+            "guard (4p) rollback: a non-finite value")
+    plan = discovery.latest_committed(root)
+    discovery.apply_plan(SparsePS({"embedding": twin.table}), plan)
+    discovery.load_dense(plan, (twin.params, twin.opt_state))
+    reset_auc_state_(twin.auc_state)
+    twin.reset_metrics()
+    twin_out = twin.train_from_dataset(GuardBatches(rest))
+    same("rollback vs a twin restored from the base", rb, twin)
+    require(out == twin_out, f"guard (4p) rollback: metrics {out} vs "
+                             f"{twin_out}")
+    print(f"guard (4p) rollback: a base of {base_rows} rows after one "
+          f"batch, then TrainGuard.run_pass over {n - 1} batches with NaN "
+          f"labels in source batch {GUARD_POISON}: one nan trip at step "
+          f"{trip['step']} window {trip['window']}, one rollback in "
+          f"{rollback_s[0]:.4f} s, the pass in {pass_s:.3f} s; every dense "
+          f"leaf and the {touched.numel()} rows the batches touch finite; "
+          f"all {len(rb.table)} rows by key, dense "
+          f"params and adam's state bit for bit with a twin restored from "
+          f"the base and trained on the {len(rest)} batches outside the "
+          f"window; launches {launches['guard_rollback']}; the hook's host "
+          f"time (us, a step each) p50 "
+          f"{np.percentile(hook_us['run_pass'], 50):.1f}, p90 "
+          f"{np.percentile(hook_us['run_pass'], 90):.1f}, max "
+          f"{max(hook_us['run_pass']):.1f} over "
+          f"{len(hook_us['run_pass'])} calls [{card}]")
+
+    # (c) check_nan_inf: the trainer's own guard aborts, one bundle
+    pmdir = os.path.join(WORK, "guard-postmortem")
+    with flag_env(check_nan_inf="1", obs_postmortem_dir=pmdir):
+        ab = world(tbl=rb.table)
+        require(ab._guard is not None and
+                ab._guard.policy.action_for("nan") == "abort",
+                "guard (4p): no abort guard under check_nan_inf")
+        try:
+            ab.train_from_dataset(GuardBatches(batches[:ABORT_BATCHES],
+                                               (ABORT_POISON,)))
+            raise AssertionError("guard (4p): the poisoned pass finished")
+        except GuardAbort as e:
+            abort = e
+        finally:
+            ab._guard.detach()
+    bundles = os.listdir(pmdir)
+    require(len(bundles) == 1, f"guard (4p): bundles {bundles}")
+    bundle = os.path.join(pmdir, bundles[0])
+    atomic.verify(bundle, require_manifest=True)
+    with open(os.path.join(bundle, "crash.json")) as f:
+        crash = json.load(f)
+    require(sorted(os.listdir(bundle)) == BUNDLE_FILES and
+            crash["exception"]["type"] == "GuardAbort" and
+            abort.trip.step == ABORT_POISON,
+            f"guard (4p) abort: {os.listdir(bundle)}, {crash['reason']}")
+    del ab, rb, twin
+    print(f"guard (4p) abort: under check_nan_inf a new trainer's guard "
+          f"raised GuardAbort at step {abort.trip.step} of "
+          f"{ABORT_BATCHES}; one postmortem bundle ({crash['reason']}): "
+          f"{sorted(os.listdir(bundle))}, its manifest's crcs verified")
+
+    # (d) the section profile on (a)'s twins
+    err = io.StringIO()
+    for tr in (plain, guarded):
+        tr.reset_metrics()
+    with flag_env(profile_trainer="1"), contextlib.redirect_stderr(err):
+        _, prof_out, launches["guard_profile"] = count_path(
+            lambda: guarded.train_from_dataset(GuardBatches(batches)), n,
+            "guard (4p) profile", extra=(merge_offsets.__name__,))
+    plain_out = plain.train_from_dataset(GuardBatches(batches))
+    (line,) = [x for x in err.getvalue().splitlines()
+               if x.startswith("log_for_profile")]
+    sections = guarded.last_heartbeat["sections"]
+    require(all(f"{k[:-3]}=" in line for k in sections) and
+            len(sections) == 9 and sections["step_total_ms"] > 0,
+            f"guard (4p) profile: {line}")
+    require(prof_out == plain_out, f"guard (4p) profile: metrics "
+                                   f"{prof_out} vs {plain_out}")
+    same("profile=True vs profile=False", guarded, plain)
+    print(line)
+    print(f"guard (4p) profile: train_from_dataset over {n} batches with "
+          f"profile=True (sections of the first batch, ms: {sections}) vs "
+          f"profile=False: metrics, rows by key, dense params and adam's "
+          f"state bit for bit; launches {launches['guard_profile']} "
+          f"[{card}]")
+    del plain, guarded, table, init
+
+    # (e) the mirrors: three short disk-tier passes (a pass admits a key
+    # at its second show: the first rejects, the second admits and
+    # spills, the third restages from disk), then the ingest and
+    # checkpoint counts since the phase began
+    small = os.path.join(WORK, "guard-disk-part")
+    lengths = rng.integers(1, 4, size=(MIRROR_ROWS, TS))
+    write_slot_lines(small, lengths,
+                     rng.integers(1, MIRROR_VOCAB, size=int(lengths.sum()),
+                                  dtype=np.uint64),
+                     rng.integers(0, 2, size=MIRROR_ROWS))
+    with flag_env(ps_admit_shows="2"):
+        dw = tiered_world(conf, tconf, copy.deepcopy(model),
+                          os.path.join(WORK, "guard-disk-model"),
+                          saves=False,
+                          disk_root=os.path.join(WORK, "guard-disk-ssd"))
+    names = [f"ps.disk.{k}" for k in ("bloom_hit", "bloom_miss",
+                                      "admit_admitted", "admit_rejected")]
+    ssd0 = registry_counts(("ps.ssd.",))
+    disk_recs = []
+    for p in range(MIRROR_PASSES):
+        before = {k: REGISTRY.counter(k).get() for k in names}
+        ds = dw["pm"].begin_pass([small])
+        _, _, launches[f"guard_disk_{p}"] = count_path(
+            lambda: dw["tr"].train_from_dataset(ds), MIRROR_ROWS // TB,
+            f"guard (4p) disk pass {p}")
+        dw["pm"].end_pass()
+        quiesce(dw)
+        dw["disk"].evict_cold(show_threshold=float("inf"))
+        dw["disk"].compact()
+        got = dw["pm"].last_heartbeat["disk"]
+        want = {k.rsplit(".", 1)[-1]: REGISTRY.counter(k).get() - before[k]
+                for k in names}
+        require({k: got[k] for k in want} == want,
+                f"guard (4p) end_pass disk {got} vs registry {want}")
+        disk_recs.append(want)
+    dw["pm"].close()
+    ssd = {k: v - ssd0.get(k, 0)
+           for k, v in registry_counts(("ps.ssd.",)).items()
+           if not k.endswith((".sum", ".p50", ".p95", ".p99", ".max"))}
+    require(all(ssd.get(k, 0) > 0 for k in (
+        "ps.ssd.spill_bytes", "ps.ssd.spill_rows", "ps.ssd.stage_bytes",
+        "ps.ssd.compactions")) and disk_recs[0]["admit_rejected"] > 0 and
+            disk_recs[1]["admit_admitted"] > 0 and
+            disk_recs[2]["bloom_hit"] > 0,
+            f"guard (4p) disk mirrors: {ssd}, {disk_recs}")
+    now = registry_counts(("ingest.", "ckpt."))
+    grown = {k: v - marks.get(k, 0) for k, v in now.items()
+             if v != marks.get(k, 0) and not k.endswith(
+                 (".sum", ".p50", ".p95", ".p99", ".max"))
+             and k not in ("ingest.records_in_memory", "ckpt.queue_depth")}
+    require(grown.get("ingest.lines_ok", 0) > 0 and
+            grown.get("ingest.files_ok", 0) > 0 and
+            grown.get("ckpt.jobs_ok", 0) >= 1,
+            f"guard (4p) mirrors: {grown}")
+    print(f"guard (4p) mirrors: {MIRROR_PASSES} disk-tier passes of "
+          f"{MIRROR_ROWS} rows (admission at 2 shows): end_pass disk "
+          f"deltas = the registry's {disk_recs}; ps.ssd.* {ssd}; ingest "
+          f"and ckpt since the phase began {dict(sorted(grown.items()))}")
+    del dw
+    result = {"launches": launches, "turns_ms": turns, "eager_ms": eager,
+              "lags": lags, "eager_lags": eager_lags,
+              "hook_us": hook_us,
+              "rollback_s": rollback_s[0], "sections": sections,
+              "phase_s": time.perf_counter() - t_phase}
+    print(f"guard (4p): {result['phase_s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 # -- phase 4f: the host-table engine and the models ---------------------------
 
 HE_BATCHES = 16              # batches of each path of the phase
@@ -6349,8 +6760,11 @@ def main() -> int:
                                 tiered_lp.pop("int8_backing"),
                                 tiered_lp.pop("int8_model"))
         feed = phase_data_feed(np.random.default_rng([args.seed, 59]))
+        feed_files = feed.pop("files")
         staged = phase_staged_feed(np.random.default_rng([args.seed, 61]),
-                                   feed.pop("files"))
+                                   feed_files)
+        guard = phase_guard(np.random.default_rng([args.seed, 67]),
+                            feed_files)
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
@@ -6424,7 +6838,11 @@ def main() -> int:
           f"ms/step staged {staged['turns_ms']['staged']} unstaged "
           f"{staged['turns_ms']['unstaged']}, host_share "
           f"{staged['host_share']}, H2D GB/s {staged['h2d']['gb_s']}, "
-          f"{staged['phase_s']:.1f} s")
+          f"{staged['phase_s']:.1f} s; guard (4p) train_from_files "
+          f"ms/step guard on {guard['turns_ms']['guard_on']} off "
+          f"{guard['turns_ms']['guard_off']}, poll lag {guard['lags'][0]}-"
+          f"{guard['lags'][-1]} steps, rollback {guard['rollback_s']:.4f} "
+          f"s, {guard['phase_s']:.1f} s")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
 
@@ -6450,7 +6868,8 @@ def main() -> int:
                                          **deferred["launches"],
                                          **q8["launches"],
                                          **feed["launches"],
-                                         **staged["launches"]}.items()}}
+                                         **staged["launches"],
+                                         **guard["launches"]}.items()}}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}
 

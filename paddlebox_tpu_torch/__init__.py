@@ -37,7 +37,12 @@ Ported so far:
   their quarantine, the multi-process reader ``data.fast_feed.
   MultiProcessReader`` over the shared-memory fabric (``data.
   shm_fabric``), merge by instance id, the in-process shuffles, the
-  record archive and ``InputTableDataset``.
+  record archive and ``InputTableDataset``;
+- lifecycle and observability: the metrics registry, the Chrome trace and
+  the heartbeat (``obs``), the train guard with its rollback
+  (``trainer.guard``), the postmortem bundle (``obs.postmortem``), the
+  section profiler (``trainer.profiler``), the reference user's
+  ``compat.BoxPSDataset`` and ``utils.fs.FileMgr``.
 
 The package's top-level names resolve at first use, so a module that
 needs no torch (the data feed's parse workers import ``data.fast_feed``)

@@ -103,7 +103,9 @@ def fsync_dir(path: str) -> None:
 def atomic_file(path: str, mode: str = "wb") -> Iterator:
     """Yield a file object on ``<path>.tmp-*``; commit (fsync, rename, dir
     fsync) on a clean exit. On an ``Exception`` the tmp file is removed;
-    an ``InjectedCrash`` leaves it on disk, as a real crash would."""
+    an ``InjectedCrash`` leaves it on disk, as a real crash would. The
+    ``open`` and ``rename`` io_points front the two filesystem touches."""
+    faults.io_point("open")
     parent = os.path.dirname(path)
     if parent:
         os.makedirs(parent, exist_ok=True)
@@ -122,6 +124,7 @@ def atomic_file(path: str, mode: str = "wb") -> Iterator:
     f.flush()
     os.fsync(f.fileno())
     f.close()
+    faults.io_point("rename")
     os.replace(tmp, path)
     fsync_dir(parent)
 
@@ -184,7 +187,9 @@ def commit_dir(staging: str, final: str,
     ``scope`` names the crash-point family (``base``/``delta``). If
     ``final`` exists it is moved aside first and removed only after the new
     dir is committed, so a crash anywhere in between leaves at least one
-    complete dir (and prunable ``.tmp-*`` spill)."""
+    complete dir (and prunable ``.tmp-*`` spill). The ``commit_dir``
+    io_point fronts it."""
+    faults.io_point("commit_dir")
     if scope:
         faults.crash_point(f"{scope}.before_manifest")
     write_manifest(staging)

@@ -8,15 +8,28 @@ instant. ``InjectedCrash`` derives from ``BaseException`` so that cleanup
 handlers written as ``except Exception`` (tmp-file unlink, retries) do not
 catch it: a real crash cleans nothing up.
 
-Not ported: the point hooks, the seeded ``OSError`` injector with its
-``io_point`` call sites and ``with_retries``'s shared home
-(``paddlebox_tpu/utils/faults.py``; the writer keeps its own retry loop).
+The seeded ``OSError`` injector, ``io_point`` and ``with_retries`` live in
+``utils/faults.py`` and are re-exported here, as in the reference: there
+is one process-global injector, and the commit pipeline's ``io_point``
+call sites (``open``, ``rename``, ``commit_dir``, ``donefile.append``) and
+the writer's retries go through it. Not ported: the point hooks
+(``set_point_hook``), which only the reference's tests use.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Dict, Tuple
+
+from paddlebox_tpu_torch.utils.faults import (FaultInjector,
+                                              install_injector, io_point,
+                                              with_retries)
+
+__all__ = [
+    "InjectedCrash", "CRASH_POINTS", "arm", "disarm_all", "crash_point",
+    # the shared core, re-exported from utils.faults
+    "FaultInjector", "install_injector", "io_point", "with_retries",
+]
 
 
 class InjectedCrash(BaseException):

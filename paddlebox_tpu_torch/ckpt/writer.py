@@ -10,17 +10,21 @@ is always a prefix of what is durable.
 Error contract:
 
 - a transient ``OSError`` inside a job is retried with exponential
-  backoff, ``retries`` attempts in all;
+  backoff (``utils/faults.py`` ``with_retries``), ``retries`` attempts in
+  all, each retry counted in ``ckpt.retries``;
 - a job that still fails runs its ``on_fail`` hook, is recorded and is
   re-raised by the next ``submit``, ``barrier`` or ``raise_pending``, so
   callers (``PassManager.end_pass``) see a persistence failure before they
   advance the pass;
 - an ``InjectedCrash`` kills the worker for good (the stand-in for process
-  death): the queue stops draining and every later call raises.
+  death): the queue stops draining, every later call raises, and a
+  postmortem bundle names the job (``obs/postmortem.py``, when
+  ``obs_postmortem_dir`` arms it).
 
 Each job runs in a ``ckpt.commit`` span of the trace (``obs/trace.py``),
-on the writer's thread, as in the reference. The reference's metrics
-counters around each job are ROADMAP A.6 and have no counterpart here.
+on the writer's thread, and counts into the global registry under the
+reference's names: ``ckpt.jobs_ok`` and ``ckpt.jobs_failed``, the
+``ckpt.commit_ms`` histogram and the ``ckpt.queue_depth`` gauge.
 """
 
 from __future__ import annotations
@@ -30,10 +34,10 @@ import threading
 import time
 from typing import Callable, List, Optional
 
-from paddlebox_tpu_torch.obs import trace
-
 from paddlebox_tpu_torch.ckpt import faults
 from paddlebox_tpu_torch.ckpt.atomic import CheckpointError
+from paddlebox_tpu_torch.obs import trace
+from paddlebox_tpu_torch.obs.metrics import REGISTRY
 
 
 class _Job:
@@ -47,20 +51,6 @@ class _Job:
 
 
 _STOP = _Job("<stop>", lambda: None)
-
-
-def _with_retries(fn: Callable[[], None], attempts: int,
-                  base_delay: float, max_delay: float = 1.0) -> None:
-    """``fn()``, retried on ``OSError`` with exponential backoff. An
-    ``InjectedCrash`` is a ``BaseException`` and is never retried."""
-    for attempt in range(attempts):
-        try:
-            fn()
-            return
-        except OSError:
-            if attempt == attempts - 1:
-                raise
-            time.sleep(min(max_delay, base_delay * (2 ** attempt)))
 
 
 class AsyncCheckpointWriter:
@@ -87,11 +77,20 @@ class AsyncCheckpointWriter:
             job = self._q.get()
             if job is _STOP:
                 return
+            t0 = time.perf_counter()
             try:
                 with trace.span("ckpt.commit", label=job.label):
-                    _with_retries(job.fn, self._retries, self._retry_delay)
+                    faults.with_retries(
+                        job.fn, attempts=self._retries,
+                        base_delay=self._retry_delay,
+                        on_retry=lambda _a, _e: REGISTRY.add("ckpt.retries"))
             except faults.InjectedCrash as e:
-                # process death: stop draining, leave the disk state torn
+                # process death: stop draining, leave the disk state torn,
+                # and leave the bundle naming the job that was in flight
+                # (imported here: the postmortem commits through ckpt)
+                from paddlebox_tpu_torch.obs import postmortem
+                postmortem.maybe_dump(
+                    f"ckpt writer died in job '{job.label}'", exc=e)
                 with self._cv:
                     self._errors.append(e)
                     self._dead = True
@@ -106,16 +105,23 @@ class AsyncCheckpointWriter:
                         job.on_fail()
                     except Exception:  # noqa: BLE001 - the job's error wins
                         pass
+                REGISTRY.add("ckpt.jobs_failed")
                 with self._cv:
                     self._errors.append(
                         CheckpointError(f"checkpoint job '{job.label}' "
                                         f"failed: {e!r}"))
                     self._pending -= 1
+                    depth = self._pending
                     self._cv.notify_all()
             else:
+                REGISTRY.add("ckpt.jobs_ok")
+                REGISTRY.observe("ckpt.commit_ms",
+                                 (time.perf_counter() - t0) * 1e3)
                 with self._cv:
                     self._pending -= 1
+                    depth = self._pending
                     self._cv.notify_all()
+            REGISTRY.gauge("ckpt.queue_depth").set(depth)
 
     # -- caller surface ------------------------------------------------------
 
@@ -135,6 +141,7 @@ class AsyncCheckpointWriter:
             if self._closed:
                 raise CheckpointError("checkpoint writer is closed")
             self._pending += 1
+            REGISTRY.gauge("ckpt.queue_depth").set(self._pending)
         try:
             self._put(_Job(label, fn, on_fail))
         except BaseException:

@@ -9,7 +9,9 @@ Field names and defaults match the reference, so a bundle's ``model.json``
 written by either package loads in the other. The port has no flag
 registry: ``batch_bucket_spec`` uses the reference flag default as a
 constant, ``env_flag`` reads a reference flag's environment variable at
-each call, and ``refuse_flags`` refuses the flags of unported features.
+each call, ``FLAG_DEFAULTS`` names every flag the port reads with the
+reference's default (``all_flags`` gives their values, the postmortem
+bundle's ``flags.json``), and ``resolve_day`` applies ``fix_dayid``.
 """
 
 from __future__ import annotations
@@ -192,18 +194,84 @@ def env_flag(flag: str, default: Any) -> Any:
     return type(default)(raw)
 
 
-def refuse_flags(refused) -> None:
-    """Raise ``NotImplementedError`` for the first of ``refused``, (flag,
-    ROADMAP item, feature) triples, that is turned on through the
-    reference's environment variable ``PBOX_FLAGS_<flag>`` (set unless
-    empty, 0 or false). The port keeps no flag registry; its entry points
-    refuse the flags of features it has not ported."""
-    for flag, item, what in refused:
-        value = os.environ.get("PBOX_FLAGS_" + flag, "").strip().lower()
-        if value not in ("", "0", "0.0", "false", "no", "off"):
-            raise NotImplementedError(
-                f"PBOX_FLAGS_{flag} asks for {what}, which is not ported "
-                f"yet (ROADMAP {item})")
+#: Every reference flag the port reads through ``env_flag``, with the
+#: reference's default (``paddlebox_tpu/flags.py``). A test holds it to
+#: the package's ``env_flag`` calls.
+FLAG_DEFAULTS: Dict[str, Any] = {
+    "enable_pullpush_dedup_keys": True,
+    "record_pool_max_size": 2_000_000,
+    "dataset_shuffle_thread_num": 4,
+    "dataset_merge_thread_num": 4,
+    "slotpool_auto_clear": False,
+    "enable_pull_padding_zero": True,
+    "check_nan_inf": False,
+    "embedding_backend": "auto",
+    "fix_dayid": 0,
+    "profile_trainer": False,
+    "ingest_max_bad_lines": 0,
+    "ingest_max_bad_frac": 0.0,
+    "ingest_max_bad_files": 0,
+    "ingest_retries": 3,
+    "ingest_stall_timeout": 300.0,
+    "ingest_shm": True,
+    "ingest_shm_blocks": 4,
+    "ingest_shm_block_bytes": 16 << 20,
+    "ingest_shm_crc": True,
+    "ingest_shm_defer_recycle": False,
+    "ingest_quarantine_dir": "",
+    "obs_trace_dir": "",
+    "obs_trace_ring": 65536,
+    "obs_heartbeat_path": "",
+    "obs_heartbeat_max_bytes": 0,
+    "obs_heartbeat_keep": 3,
+    "obs_postmortem_dir": "",
+    "obs_postmortem_hb_tail": 200,
+    "obs_role": "",
+    "feed_device_prefetch": 0,
+    "feed_staging_buffers": 0,
+    "guard_sentinel_lag": 8,
+    "guard_max_rollbacks": 2,
+    "guard_step_retries": 3,
+    "guard_quarantine_window": 16,
+    "guard_on_nan": "rollback",
+    "guard_on_loss_spike": "skip",
+    "guard_on_auc_collapse": "rollback",
+    "guard_on_emb_blowup": "skip",
+    "guard_loss_z": 6.0,
+    "guard_loss_warmup": 32,
+    "guard_auc_window": 5,
+    "guard_auc_drop": 0.05,
+    "guard_nonfinite_rows": 0,
+    "ps_bloom_bits_per_key": 10,
+    "ps_admit_shows": 0.0,
+    "ps_admit_decay": 1.0,
+    "ps_admit_width": 1 << 18,
+    "ps_tier_demote": False,
+    "serve_quantized": False,
+    "serve_cache_rows": 0,
+    "serve_coalesce": False,
+}
+
+
+def flag(name: str) -> Any:
+    """``env_flag(name, FLAG_DEFAULTS[name])``: a flag the port reads,
+    with the reference's default."""
+    return env_flag(name, FLAG_DEFAULTS[name])
+
+
+def all_flags() -> Dict[str, Any]:
+    """Every flag the port reads with its value now (the counterpart of
+    the reference's ``flags.all_flags``)."""
+    return {name: flag(name) for name in FLAG_DEFAULTS}
+
+
+def resolve_day(day: Any) -> str:
+    """The day id with the ``fix_dayid`` replay override applied
+    (``PBOX_FLAGS_fix_dayid`` nonzero pins it): the one resolution that
+    ``PassManager.set_date`` and ``compat.BoxPSDataset.set_date`` share,
+    as in the reference."""
+    fixed = int(flag("fix_dayid"))
+    return str(fixed) if fixed else str(day)
 
 
 def feed_prefetch_conf() -> Tuple[int, int]:

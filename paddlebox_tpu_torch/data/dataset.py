@@ -10,7 +10,8 @@ batched by ``BatchAssembler``. Also: merge by instance id
 (``set_merge_by_insid``, ``global_merge_by_insid``), the in-process
 global shuffle (``shuffle_partition``, ``global_shuffle``),
 ``slots_shuffle`` / ``unshuffle``, the archive spill (``spill_to_disk``
-/ ``load_from_archive``) and ``InputTableDataset``'s string slots.
+/ ``load_from_archive``) and ``InputTableDataset``'s string slots. A
+load sets the registry's ``ingest.records_in_memory`` gauge.
 
 Not ported, and refused: the cross-host shuffle and merge over a
 coordinator (``coordinator_global_shuffle``,
@@ -35,6 +36,7 @@ from paddlebox_tpu_torch.data.parser import SlotParser
 from paddlebox_tpu_torch.data.record import (GLOBAL_POOL, SlotRecord,
                                              merge_by_insid,
                                              replace_sparse_slots)
+from paddlebox_tpu_torch.obs.metrics import REGISTRY
 
 
 class SlotDataset:
@@ -150,6 +152,7 @@ class SlotDataset:
 
     def load_into_memory(self) -> None:
         self.records = self._post_load(self._load(self.filelist))
+        REGISTRY.gauge("ingest.records_in_memory").set(len(self.records))
 
     def preload_into_memory(self) -> None:
         """Start loading the file list in the background."""
@@ -177,6 +180,8 @@ class SlotDataset:
             # pass's records
             self._preload = None
             self.records = self._post_load(records)
+            REGISTRY.gauge("ingest.records_in_memory").set(
+                len(self.records))
 
     def release_memory(self) -> None:
         # slotpool_auto_clear drops the free list at the pass end (the

@@ -13,8 +13,9 @@
   A missing file or a permission error is never retried.
 - :class:`IngestStats`: thread-safe health counters (lines ok and
   quarantined, files ok and failed, retries, watchdog kills, ...), with
-  the reference's names. The reference mirrors them into its monitor
-  (ROADMAP A.6); the port keeps the counters alone.
+  the reference's names. Every ``add`` mirrors into ``utils/monitor.py``'s
+  ``STATS`` (the global ``obs.metrics.REGISTRY``) as ``ingest.<name>``,
+  as the reference's does.
 - ``pipe_command`` helpers: the subprocess in its own process group, its
   captured stderr, the watchdog's kill and its error.
 
@@ -38,6 +39,7 @@ from typing import Callable, Dict, List, Optional, TypeVar
 
 from paddlebox_tpu_torch.config import env_flag
 from paddlebox_tpu_torch.utils import faults
+from paddlebox_tpu_torch.utils.monitor import STATS
 
 LOG = logging.getLogger("paddlebox_tpu_torch.ingest")
 
@@ -90,7 +92,9 @@ class IngestBudgetError(IngestError):
 
 class IngestStats:
     """Thread-safe ingestion health counters; ``consume_delta`` reads the
-    change since its last call (the pass-end report)."""
+    change since its last call (the pass-end report). Every ``add``
+    mirrors into the global ``STATS`` as ``ingest.<name>`` (monotonic,
+    for the process's life); the instance's counts reset."""
 
     FIELDS = ("lines_ok", "lines_quarantined", "files_ok", "files_failed",
               "io_retries", "watchdog_kills", "producer_failures",
@@ -106,6 +110,7 @@ class IngestStats:
             return
         with self._lock:
             self._counts[name] = self._counts.get(name, 0) + n
+        STATS.add(f"ingest.{name}", n)
 
     def get(self, name: str) -> int:
         with self._lock:

@@ -10,7 +10,10 @@ through ``string_lookup`` (``InputTableDataset``).
 Files can first go through a shell ``pipe_command`` (the file on its
 stdin) under the no-progress watchdog of ``data/ingest.py``; a file
 parses under an ``ErrorBudget`` (the default fails fast on the first bad
-line, naming path and line) and opens with the transient-I/O retries.
+line, naming path and line) and opens with the transient-I/O retries. A
+file's parse is an ``ingest.parse_file`` span of the trace and an
+observation of the registry's ``ingest.parse_file_ms``, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from paddlebox_tpu_torch.data.ingest import (ErrorBudget, IngestError,
                                              IngestStats)
 from paddlebox_tpu_torch.data.record import (GLOBAL_POOL, SlotRecord,
                                              SlotRecordPool)
+from paddlebox_tpu_torch.obs import trace
+from paddlebox_tpu_torch.obs.metrics import REGISTRY
 
 __all__ = ["IngestError", "SlotParser", "pack_logkey", "unpack_logkey"]
 
@@ -252,31 +257,33 @@ class SlotParser:
         i = 0
         lineno = 0
         seen_unflushed = 0
+        t_parse0 = time.perf_counter()
         try:
-            for line in self._open_lines(path, stats):
-                lineno += 1
-                line = line.strip()
-                if not line:
-                    continue
-                if rate < 1.0:
-                    h = (hash((sample_hash_seed, path, i))
-                         & 0xFFFF) / 65536.0
-                    i += 1
-                    if h >= rate:
+            with trace.span("ingest.parse_file", path=path):
+                for line in self._open_lines(path, stats):
+                    lineno += 1
+                    line = line.strip()
+                    if not line:
                         continue
-                if not recs:
-                    recs = self.pool.get(256)
-                rec = recs.pop()
-                seen_unflushed += 1
-                try:
-                    out.append(self.parse_line(line, rec))
-                except Exception as e:  # noqa: BLE001 - budgeted per line
-                    recs.append(rec)  # pool.put resets the partial write
-                    # hand the unflushed count over before the call: if
-                    # spend_line raises, the finally must not add it again
-                    delta, seen_unflushed = seen_unflushed, 0
-                    budget.spend_line(path, lineno, line, e,
-                                      seen_delta=delta)
+                    if rate < 1.0:
+                        h = (hash((sample_hash_seed, path, i))
+                             & 0xFFFF) / 65536.0
+                        i += 1
+                        if h >= rate:
+                            continue
+                    if not recs:
+                        recs = self.pool.get(256)
+                    rec = recs.pop()
+                    seen_unflushed += 1
+                    try:
+                        out.append(self.parse_line(line, rec))
+                    except Exception as e:  # noqa: BLE001 - budgeted per line
+                        recs.append(rec)  # pool.put resets the partial write
+                        # hand the unflushed count over before the call: if
+                        # spend_line raises, the finally must not add it again
+                        delta, seen_unflushed = seen_unflushed, 0
+                        budget.spend_line(path, lineno, line, e,
+                                          seen_delta=delta)
         except BaseException:
             # abort: the partially-parsed pass must not leak its records
             self.pool.put(out)
@@ -287,6 +294,8 @@ class SlotParser:
                 self.pool.put(recs)
             if owns_budget:
                 budget.close()
+        REGISTRY.observe("ingest.parse_file_ms",
+                         (time.perf_counter() - t_parse0) * 1e3)
         stats.add("lines_ok", len(out))
         stats.add("files_ok")
         return out

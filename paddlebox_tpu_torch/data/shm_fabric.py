@@ -29,6 +29,8 @@ Ownership and cleanup:
 - ``ShmFabric.close()`` runs after the caller has killed the worker
   process groups: every segment is unlinked, then probed by name; a name
   that still resolves counts into ``counters["leaked_segments"]``.
+- Each count of ``counters`` also goes to the global registry as
+  ``ingest.shm.<name>``, as the reference counts it.
 - A descriptor is written only after its block's body, so a worker killed
   mid-block just closes the pipe; each descriptor also carries a crc32 of
   the body (``ingest_shm_crc``), and a mismatch is a torn block.
@@ -51,6 +53,8 @@ import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from paddlebox_tpu_torch.obs.metrics import REGISTRY
 
 #: wire-format version stamped into descriptors (protocol integrity).
 WIRE_VERSION = 1
@@ -308,6 +312,8 @@ class ShmFabric:
     def _count(self, name: str, n: int = 1) -> None:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + n
+        if n:
+            REGISTRY.add(f"ingest.shm.{name}", n)
 
     # -- wiring ---------------------------------------------------------------
 

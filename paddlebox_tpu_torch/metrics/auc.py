@@ -65,7 +65,10 @@ def auc_update(state: Dict[str, torch.Tensor], preds: torch.Tensor,
     into an ``AucCalculator`` before counts approach 2^24."""
     n = state["pos"].shape[0]
     p = torch.clamp(preds, 0.0, 1.0)
-    idx = torch.clamp((p * n).int(), max=n - 1).long()
+    # a NaN prediction counts in bucket 0, as XLA converts NaN to 0 in the
+    # reference (cast as it is, it indexes out of bounds)
+    idx = torch.clamp((torch.nan_to_num(p, nan=0.0) * n).int(),
+                      max=n - 1).long()
     err = (p - labels) * mask
     state["pos"].index_put_((idx,), labels * mask, accumulate=True)
     state["neg"].index_put_((idx,), (1.0 - labels) * mask, accumulate=True)

@@ -1,9 +1,9 @@
 """Observability of the port (counterpart of the first half of
 ``paddlebox_tpu/obs/``): ``metrics`` (the typed registry ``REGISTRY``),
-``trace`` (the Chrome-trace span tracer) and ``heartbeat`` (the per-pass
-JSONL records). The serving exports of the reference's ``obs`` package
-(``http``, ``prometheus``, ``slo``, ``fleet``, ``collector``) and its
-``postmortem`` are not ported (ROADMAP A.5, A.6).
+``trace`` (the Chrome-trace span tracer), ``heartbeat`` (the per-pass
+JSONL records) and ``postmortem`` (the crash bundle). The serving exports
+of the reference's ``obs`` package (``http``, ``prometheus``, ``slo``,
+``fleet``, ``collector``) are not ported (ROADMAP A.5).
 
 The modules import neither torch nor numpy, and the package imports none
 of them until asked: the data feed's parse workers import ``obs.metrics``

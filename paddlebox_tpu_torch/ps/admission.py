@@ -42,8 +42,9 @@ Admission is OFF by default (``ps_admit_shows=0``): every key is
 admitted immediately, which is bit-for-bit the pre-admission behavior.
 The flags are the reference's environment variables
 (``PBOX_FLAGS_ps_admit_shows``, ``_decay``, ``_width``), read at each
-``from_flags``. The reference's ``ps.disk.admit_*`` counters ride ROADMAP
-A.6.
+``from_flags``. ``admit_pass_keys`` counts its decisions into the global
+registry as ``ps.disk.admit_admitted`` and ``ps.disk.admit_rejected``, as
+the reference's does.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from paddlebox_tpu_torch.config import env_flag
+from paddlebox_tpu_torch.obs.metrics import REGISTRY
 from paddlebox_tpu_torch.ps.bloom import _mix
 
 # the reference's flag defaults
@@ -267,6 +269,8 @@ def admit_pass_keys(uniq: np.ndarray, counts: np.ndarray, backing,
     ok = sketch.observe_and_admit(uniq[fresh], counts[fresh],
                                   at_epoch=at_epoch)
     n_adm, n_rej = int(ok.sum()), int((~ok).sum())
+    REGISTRY.add("ps.disk.admit_admitted", n_adm)
+    REGISTRY.add("ps.disk.admit_rejected", n_rej)
     if n_rej == 0:
         return uniq, n_adm, 0
     keep = known.copy()

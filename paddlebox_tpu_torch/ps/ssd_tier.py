@@ -54,9 +54,12 @@ after it and never nest inside the chunk guards' internal lock.
 ``io_point`` (``utils/faults.py``) fronts the three filesystem touches:
 ``ssd.spill``, ``ssd.read`` and ``ssd.compact``. ``read_rows`` and
 ``compact`` are ``ps.ssd.read_rows`` and ``ps.ssd.compact`` spans of the
-trace (``obs/trace.py``). The reference's ``ps.disk.*``/``ps.ssd.*``
-registry counters ride ROADMAP A.6; the tier keeps its own
-``io_stats``.
+trace (``obs/trace.py``). Beside its own ``io_stats`` the tier counts into
+the global registry under the reference's names: ``ps.disk.bloom_hit``
+and ``bloom_miss``, the ``ps.disk.stage_ms`` and ``compact_stall_ms``
+histograms, ``ps.ssd.spill_bytes``, ``spill_rows``, ``stage_bytes`` and
+``compactions``, and the ``ps.ssd.spill_chunk_ms`` and
+``stage_chunk_ms`` histograms.
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ import numpy as np
 from paddlebox_tpu_torch.ckpt import atomic as ckpt_atomic
 from paddlebox_tpu_torch.config import env_flag
 from paddlebox_tpu_torch.obs import trace
+from paddlebox_tpu_torch.obs.metrics import REGISTRY
 from paddlebox_tpu_torch.ps import native
 from paddlebox_tpu_torch.ps.bloom import BlockedBloom
 from paddlebox_tpu_torch.ps.table import EmbeddingTable
@@ -459,11 +463,15 @@ class DiskTier:
 
     def _bloom_probe(self, keys: np.ndarray) -> np.ndarray:
         """bool[N] "possibly on disk" mask (all-True when the filter is
-        disabled)."""
+        disabled); counts hits and misses."""
         with self._bloom_lock:
             if self._bloom is None:
                 return np.ones(keys.size, bool)
-            return self._bloom.contains_bulk(keys)
+            hit = self._bloom.contains_bulk(keys)
+        n_hit = int(hit.sum())
+        REGISTRY.add("ps.disk.bloom_hit", n_hit)
+        REGISTRY.add("ps.disk.bloom_miss", int(keys.size) - n_hit)
+        return hit
 
     def _write_chunk_file(self, cid: int, keys: np.ndarray,
                           values: np.ndarray, state: np.ndarray,
@@ -496,6 +504,9 @@ class DiskTier:
         with self._stats_lock:
             self.io_stats["spill_seconds"] += spill_s
             self.io_stats["spill_bytes"] += spill_b
+        REGISTRY.add("ps.ssd.spill_bytes", spill_b)
+        REGISTRY.add("ps.ssd.spill_rows", n)
+        REGISTRY.observe("ps.ssd.spill_chunk_ms", spill_s * 1e3)
 
     def _write_chunk(self, keys: np.ndarray, values: np.ndarray,
                      state: np.ndarray, embedx_ok: np.ndarray) -> int:
@@ -638,11 +649,16 @@ class DiskTier:
         pull(create=True) random init); once a push has trained the row
         (show > 0) memory is fresher and the stale disk snapshot is dropped
         instead of clobbering it."""
-        ks, vals, st, ok, meta = self.read_rows(keys)
-        if not ks.size:
-            return 0
-        stale = self.consume_read(ks, vals, st, ok, meta)
-        return int(ks.size - stale.size)
+        t0 = time.perf_counter()
+        try:
+            ks, vals, st, ok, meta = self.read_rows(keys)
+            if not ks.size:
+                return 0
+            stale = self.consume_read(ks, vals, st, ok, meta)
+            return int(ks.size - stale.size)
+        finally:
+            REGISTRY.observe("ps.disk.stage_ms",
+                             (time.perf_counter() - t0) * 1e3)
 
     def read_rows(self, keys: np.ndarray
                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
@@ -679,6 +695,7 @@ class DiskTier:
     def _read_resolved(self, keys: np.ndarray):
         ks_l, vals_l, st_l, ok_l, meta_l = [], [], [], [], []
         pending = keys
+        stall_t0 = None
         for attempt in range(16):
             if not pending.size:
                 break
@@ -698,6 +715,8 @@ class DiskTier:
                     # chunk retired mid-resolution: the compaction that
                     # retired it already swapped the index — re-resolve
                     retry.append(fk[sl])
+                    if stall_t0 is None:
+                        stall_t0 = time.perf_counter()
                     continue
                 try:
                     rs = fr[sl]
@@ -718,6 +737,8 @@ class DiskTier:
                 with self._stats_lock:
                     self.io_stats["stage_seconds"] += stage_s
                     self.io_stats["stage_bytes"] += stage_b
+                REGISTRY.add("ps.ssd.stage_bytes", stage_b)
+                REGISTRY.observe("ps.ssd.stage_chunk_ms", stage_s * 1e3)
                 ks_l.append(fk[sl])
                 vals_l.append(vals)
                 st_l.append(st)
@@ -735,6 +756,9 @@ class DiskTier:
                     "read_rows could not pin chunks after "
                     f"{attempt + 1} compactions "
                     f"({pending.size} keys left)")
+        if stall_t0 is not None:
+            REGISTRY.observe("ps.disk.compact_stall_ms",
+                             (time.perf_counter() - stall_t0) * 1e3)
         if not ks_l:
             return self._no_rows()
         ks = np.concatenate(ks_l)
@@ -821,6 +845,7 @@ class DiskTier:
         compaction's allocation watermark and are never touched."""
         with self._compact_lock, trace.span("ps.ssd.compact"):
             self._compact_impl()
+        REGISTRY.add("ps.ssd.compactions")
 
     def _compact_impl(self) -> None:
         io_point("ssd.compact")

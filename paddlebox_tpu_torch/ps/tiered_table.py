@@ -70,6 +70,10 @@ refuses: without a backing the constructor raises its ``ValueError``, as
 the reference's does. Not ported, and refused with ``NotImplementedError``:
 the mesh-sharded tiered table (ROADMAP A.9).
 
+The tier worker's queue length is the registry's ``ps.disk.worker_queue``
+gauge, and the mid-pass admission gate counts the keys it turns away in
+``ps.disk.admit_rejected``, under the reference's names.
+
 In deferred insert mode a pass's misses go to the device miss ring
 (``DeviceTable.record_misses``): ``begin_feed_pass`` zeroes its count in
 place and drops the lagged snapshot, so a pass never inserts the previous
@@ -88,6 +92,7 @@ import torch
 from paddlebox_tpu_torch._device import DeviceLike
 from paddlebox_tpu_torch.config import BucketSpec, TableConfig, env_flag
 from paddlebox_tpu_torch.obs import trace
+from paddlebox_tpu_torch.obs.metrics import REGISTRY
 from paddlebox_tpu_torch.ps import admission
 from paddlebox_tpu_torch.ps.device_table import _NULL_SENTINEL, DeviceTable
 from paddlebox_tpu_torch.ps.ssd_tier import DiskTier
@@ -149,6 +154,7 @@ class _TierWorker:
                 self._thread = th
             self._jobs.append(job)
             self._tail = job
+            REGISTRY.gauge("ps.disk.worker_queue").set(len(self._jobs))
             self._cv.notify()
         return job
 
@@ -158,6 +164,7 @@ class _TierWorker:
                 while not self._jobs:
                     self._cv.wait()
                 job = self._jobs.popleft()
+                REGISTRY.gauge("ps.disk.worker_queue").set(len(self._jobs))
             job.run(self._on_job_error)
 
     def _on_job_error(self, job: _TierJob) -> None:
@@ -287,6 +294,7 @@ class TieredDeviceTable(DeviceTable):
         rejected = cand[~ok]
         if not rejected.size:
             return keys
+        REGISTRY.add("ps.disk.admit_rejected", int(rejected.size))
         out = keys.copy()
         out[np.isin(keys, rejected)] = 0
         return out

@@ -75,6 +75,7 @@ def write_done(root: str, day: str, pass_id: int, kind: str,
         rec.update(extra)
     os.makedirs(root, exist_ok=True)
     line = json.dumps(rec) + "\n"
+    faults.io_point("donefile.append")
     _truncate_torn_tail(os.path.join(root, DONEFILE))
     with open(os.path.join(root, DONEFILE), "a") as f:
         # two writes with a crash point between: the drill's torn line

@@ -38,17 +38,20 @@ Each ``end_pass`` emits the reference's ``end_pass`` heartbeat record
 day and pass, the ingest counters' delta (``data/ingest.py``
 ``INGEST_STATS``), the writer's queued jobs and whether its thread is
 alive, the rows of each table, the pass's ``ps.nonfinite_grad_rows``,
-``ps.disk.*`` and ``ps.remote.*`` deltas from the global registry, and the
-pass timer's spans; then, with the trace on (``obs_trace_dir``, turned on
-at construction), it rewrites the Chrome trace's dump. The disk tier and
-the remote client do not add to their counters yet, so their deltas are
-zeros (ROADMAP A.6).
+``ps.disk.*`` and ``ps.remote.*`` deltas from the global registry (the
+disk tier and admission count into ``ps.disk.*``; the remote client,
+ROADMAP A.9, is not ported, so its deltas are zeros), and the pass
+timer's spans; then, with the trace on (``obs_trace_dir``, turned on at
+construction), it rewrites the Chrome trace's dump.
+
+``set_date`` resolves the day through ``config.resolve_day``: a nonzero
+``PBOX_FLAGS_fix_dayid`` pins it, as in the reference. Under
+``obs_postmortem_dir`` the manager installs the crash hooks at
+construction, and a failed ``begin_pass`` or ``end_pass`` leaves a
+postmortem bundle before it raises (``obs/postmortem.py``).
 
 The reference reads its queue depth, retries and kept bases from its flag
 registry; the port has none, and takes the flags' defaults as constants.
-Not ported, and refused with ``NotImplementedError`` when its
-``PBOX_FLAGS_<name>`` variable is set: ``fix_dayid`` (ROADMAP A.6). The
-reference's postmortem dump is A.6 and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -60,11 +63,11 @@ from typing import Any, Optional, Sequence, Tuple
 
 from paddlebox_tpu_torch.ckpt import atomic, discovery, faults, retention
 from paddlebox_tpu_torch.ckpt.writer import AsyncCheckpointWriter
-from paddlebox_tpu_torch.config import env_flag, refuse_flags
+from paddlebox_tpu_torch.config import env_flag, resolve_day
 from paddlebox_tpu_torch.data import ingest
 from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.data.parser import IngestError
-from paddlebox_tpu_torch.obs import heartbeat, trace
+from paddlebox_tpu_torch.obs import heartbeat, postmortem, trace
 from paddlebox_tpu_torch.obs.metrics import REGISTRY
 from paddlebox_tpu_torch.ps.quant_table import quantize_snapshot
 from paddlebox_tpu_torch.ps.server import SparsePS
@@ -76,12 +79,6 @@ from paddlebox_tpu_torch.utils.timer import SpanTimer
 CKPT_QUEUE_DEPTH = 2
 CKPT_RETRIES = 3
 CKPT_KEEP_BASES = 3
-
-# the reference's flags of features not ported here: (flag, ROADMAP item,
-# feature)
-_REFUSED_FLAGS = (
-    ("fix_dayid", "A.6", "a fixed day id for replays"),
-)
 
 #: ps.disk.* counters surfaced as per-pass deltas in the heartbeat
 _DISK_COUNTERS = ("ps.disk.bloom_hit", "ps.disk.bloom_miss",
@@ -106,7 +103,6 @@ class PassManager:
         the PS's first). ``writer``: one writer shared across managers;
         by default the manager builds its own and sweeps the staging spill
         a crashed predecessor left under ``save_root``."""
-        refuse_flags(_REFUSED_FLAGS)
         self.ps = ps
         self.save_root = save_root
         self.datasets = list(datasets)
@@ -116,6 +112,7 @@ class PassManager:
         self.day: str = "19700101"
         self.pass_id = 0
         trace.maybe_enable()
+        postmortem.maybe_install()
         self.timer = SpanTimer(metric_prefix="pass")
         self._buf = 0  # which dataset holds the current pass
         self._prefetch_thread: Optional[threading.Thread] = None
@@ -145,7 +142,9 @@ class PassManager:
     # -- day/pass ------------------------------------------------------------
 
     def set_date(self, day: str) -> None:
-        self.day = str(day)
+        """The day of the next passes; ``PBOX_FLAGS_fix_dayid`` pins it
+        (the reference's replay knob)."""
+        self.day = resolve_day(day)
 
     @property
     def current(self) -> SlotDataset:
@@ -181,8 +180,12 @@ class PassManager:
                 # load replaced
                 self._prefetch_keys = None
         except IngestError as e:
-            raise IngestError(
-                f"pass {self.pass_id} (day {self.day}): {e}") from e
+            # the error names its pass; the pass is dead, so the bundle
+            # is written while the ingest counters are hot
+            err = type(e)(f"pass {self.pass_id} (day {self.day}): {e}",
+                          e.bad_lines)
+            postmortem.maybe_dump("pass_manager.begin_pass", exc=err)
+            raise err from e
         with self.timer.span("feed_pass"):
             keys = self._prefetch_keys
             if keys is None:
@@ -219,7 +222,14 @@ class PassManager:
         """Close the pass: surface a failed save of an earlier pass, decay
         show/clk, then (``save_delta``) take the delta snapshot and queue
         its commit, and rotate the datasets. A failure raises before the
-        datasets rotate."""
+        datasets rotate (after the postmortem bundle, when armed)."""
+        try:
+            self._end_pass(save_delta)
+        except Exception as e:
+            postmortem.maybe_dump("pass_manager.end_pass", exc=e)
+            raise
+
+    def _end_pass(self, save_delta: bool) -> None:
         self._join_prefetch()
         self._writer.raise_pending()
         with self.timer.span("end_pass"):

@@ -17,7 +17,9 @@ A staged run (the device feed, ``data/device_feed.py``; its shape is
 K rows of a static int32 wire [K, L] (the reference's
 ``_step_cols_chunk``); its replay copies the staged chunk into that
 buffer on the device. Its capture holds the feed's ``gate``, so the
-feed's producer thread makes no CUDA call while it lasts.
+feed's producer thread makes no CUDA call while it lasts. Every capture
+holds ``RunGraphs.capture_lock``, under which the train guard's poller
+(``trainer/guard.py``) makes its CUDA calls.
 
 A capture bakes in device addresses: the arenas, the table's dirty bitmap,
 the mirror table (and its mask, an argument of the dedup-and-probe
@@ -50,6 +52,7 @@ count kernel launches that ran on the card.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Any, Dict, Iterable, Iterator, Tuple
 
@@ -209,7 +212,9 @@ class RunGraphs:
     """The run graphs of one ``FusedTrainStep``: one a run shape, sharing
     one memory pool (a fresh one once every graph has been dropped).
     ``warm`` holds the shapes whose first full run has gone
-    eagerly; ``captures`` and ``replays`` count since construction."""
+    eagerly; ``captures`` and ``replays`` count since construction.
+    ``capture_lock`` is held across each capture: another thread that
+    calls CUDA while the step runs takes it."""
 
     def __init__(self, fs):
         self.fs = fs
@@ -219,6 +224,7 @@ class RunGraphs:
         self.replays = 0
         self.capture_ms = []
         self._pool = None
+        self.capture_lock = threading.Lock()
 
     def pool(self):
         if self._pool is None:
@@ -240,7 +246,8 @@ class RunGraphs:
             self._pool = None
         graph = self.graphs.get(shape)
         if graph is None:
-            with gate if gate is not None else contextlib.nullcontext():
+            with self.capture_lock, (gate if gate is not None
+                                     else contextlib.nullcontext()):
                 graph = RunGraph(self, params, opt_state, auc_state, shape,
                                  key, host.nbytes)
             self.graphs[shape] = graph

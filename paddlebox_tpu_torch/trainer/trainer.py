@@ -37,8 +37,11 @@ and is zeroed in place (a captured run writes into its tensors).
 ``SpanTimer`` times each batch ("main") and its step ("step"; and "pull"
 and "push" on the host-table engine) in ``train_from_dataset``, each
 segment ("main") in ``train_from_files``;
-``TrainerConfig(profile=True)`` prints the reference's ``log_for_profile``
-line on stderr at the end of either pass. The dump subsystem writes one
+``TrainerConfig(profile=True)`` (or ``PBOX_FLAGS_profile_trainer``) prints
+the reference's ``log_for_profile`` line on stderr at the end of either
+pass; in ``train_from_dataset`` on the fused engine the line and the
+pass heartbeat also carry the first batch's ``sections[...]`` table
+(``trainer/profiler.py``). The dump subsystem writes one
 JSON line per instance (search_id, label, pred; task 0's of a multi-task
 model). ``metrics`` is the named ``MetricRegistry`` the reference's
 trainer carries, for the caller to fill.
@@ -61,12 +64,20 @@ The reference's flags, read from their ``PBOX_FLAGS_<name>`` variables:
   the pass the training thread spent on host feed work (the
   ``feed.host_ms`` counter the streams add to). The record goes to the
   logger whether or not the flag names a file.
+- ``obs_postmortem_dir`` installs the crash hooks at construction and
+  arms the fatal-site dump of either entry (``obs/postmortem.py``).
+- ``check_nan_inf`` attaches an abort-policy train guard to a fused
+  trainer (``trainer/guard.py`` ``maybe_auto_guard``).
+
+The train guard: a ``TrainGuard`` attached to the trainer (``_guard``)
+is asked for a pending trip at each ``AUC_DRAIN_STEPS`` segment of
+``train_from_files`` and before each batch of ``train_from_dataset``
+(``guarded_train_one``, which also retries a transient step error), and
+each pass ends with its ``finalize_pass``; ``TrainGuard.run_pass`` drives
+``train_from_dataset`` with rollback and skip.
 
 Not ported, and refused with ``NotImplementedError``: ``mesh=`` and
-``dense_sync_hook`` (ROADMAP A.9), and the flags of the train guard
-(``check_nan_inf``) and the postmortem dump (``obs_postmortem_dir``)
-(A.6). The reference's ``sections[...]`` device-time table
-(``trainer/profiler.py``) has no counterpart here (A.6).
+``dense_sync_hook`` (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -85,7 +96,7 @@ from torch import nn
 from paddlebox_tpu_torch._device import DeviceLike
 from paddlebox_tpu_torch.config import (BucketSpec, DataFeedConfig,
                                         TableConfig, TrainerConfig,
-                                        feed_prefetch_conf, refuse_flags)
+                                        feed_prefetch_conf, flag)
 from paddlebox_tpu_torch.data.batch import CsrBatch
 from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.data import ingest
@@ -93,7 +104,7 @@ from paddlebox_tpu_torch.data.fast_feed import (FastSlotReader,
                                                 MultiProcessReader)
 from paddlebox_tpu_torch.metrics.auc import AucCalculator, reset_auc_state_
 from paddlebox_tpu_torch.metrics.registry import MetricRegistry
-from paddlebox_tpu_torch.obs import heartbeat, trace
+from paddlebox_tpu_torch.obs import heartbeat, postmortem, trace
 from paddlebox_tpu_torch.obs.metrics import REGISTRY
 from paddlebox_tpu_torch.ps import native
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
@@ -105,13 +116,6 @@ from paddlebox_tpu_torch.utils.timer import SpanTimer
 # drain the on-device f32 AUC accumulator into float64 well before any
 # bucket count approaches 2^24 (metrics/auc.py); read at run time
 AUC_DRAIN_STEPS = 512
-
-# the reference's flags of features not ported here: (flag, ROADMAP item,
-# feature)
-_REFUSED_FLAGS = (
-    ("check_nan_inf", "A.6", "the train guard (trainer/guard.py)"),
-    ("obs_postmortem_dir", "A.6", "the postmortem dump (obs/postmortem.py)"),
-)
 
 
 def _resolve_device_prep(table: DeviceTable,
@@ -166,11 +170,11 @@ class CTRTrainer:
                 f"table is a {type(table).__name__}: the port trains a "
                 "DeviceTable (fused engine) or a host EmbeddingTable "
                 "(host-table engine)")
-        refuse_flags(_REFUSED_FLAGS)
         # trainer_conf.dense_sync_steps is read only with a mesh and
         # trainer_conf.metrics not at all on one device, as in the
         # reference
         trace.maybe_enable()
+        postmortem.maybe_install()
         self.model = model
         self.feed_conf = feed_conf
         self.table_conf = table_conf
@@ -216,6 +220,11 @@ class CTRTrainer:
         self.last_heartbeat: Optional[dict] = None
         self.params, self.opt_state = self.step.init()
         self.auc_state = self.step.init_auc_state()
+        # a TrainGuard registers itself here (attach); check_nan_inf
+        # attaches an abort-policy one
+        self._guard = None
+        from paddlebox_tpu_torch.trainer.guard import maybe_auto_guard
+        maybe_auto_guard(self)
 
     # -- dump subsystem ------------------------------------------------------
 
@@ -342,8 +351,18 @@ class CTRTrainer:
                         feed=feed)
                 self._step_count += steps
                 self._drain_auc()
+                if self._guard is not None:
+                    # a segment's end is a consistent point: a trip stops
+                    # the pass within one segment
+                    self._guard.check_trip()
                 if steps < AUC_DRAIN_STEPS:
                     break
+            if self._guard is not None:
+                self._guard.finalize_pass()   # the lagged sentinel tail
+        except Exception as e:
+            # the pass dies: the evidence bundle first
+            postmortem.maybe_dump("trainer.train_from_files", exc=e)
+            raise
         finally:
             # a failed pass must not leave the parse thread or the
             # workers working ahead
@@ -358,10 +377,28 @@ class CTRTrainer:
         """One pass over the dataset's in-memory records. Calls
         ``fetch_handler(step, loss, preds)`` after each batch (``preds`` a
         host array). Returns the pass metrics."""
+        try:
+            return self._train_from_dataset(dataset, fetch_handler)
+        except Exception as e:
+            postmortem.maybe_dump("trainer.train_from_dataset", exc=e)
+            raise
+
+    def _train_from_dataset(self, dataset, fetch_handler):
         self._pass_begin()
+        profile = self._profiling()
+        sections = None
+        guard = self._guard
         for batch in dataset.batches():
+            if profile and sections is None:
+                # () where the engine has no section profiler: tried once
+                sections = self._profile_sections(batch) or ()
             with self.timer.span("main"):
-                loss, preds = self._train_one(batch)
+                # a guard's step: a transient error retried and a trip
+                # surfaced before the batch steps (the same numbers as
+                # the bare step on a clean pass)
+                loss, preds = (guard.guarded_train_one(self, batch)
+                               if guard is not None
+                               else self._train_one(batch))
             self._step_count += 1
             if self._step_count % AUC_DRAIN_STEPS == 0:
                 self._drain_auc()
@@ -372,7 +409,11 @@ class CTRTrainer:
                     fetch_handler(self._step_count, float(loss), p)
         self._drain_miss_ring()
         self._drain_auc()
-        return self._pass_end()
+        if guard is not None:
+            # the last guard_sentinel_lag steps are read here, so a NaN
+            # at the pass's end still trips
+            guard.finalize_pass()
+        return self._pass_end(sections)
 
     def _device_feed(self):
         """The staged device feed of ``train_from_files`` under
@@ -400,26 +441,49 @@ class CTRTrainer:
         self._pass_marks = (time.perf_counter(), self._step_count,
                             REGISTRY.counter("feed.host_ms").get())
 
-    def _pass_end(self) -> Dict[str, float]:
-        """The pass metrics, the profile line when asked for, and the
-        pass heartbeat."""
+    def _profiling(self) -> bool:
+        return bool(self.trainer_conf.profile or flag("profile_trainer"))
+
+    def _profile_sections(self, batch: CsrBatch):
+        """The batch's section table (``trainer/profiler.py``), on the
+        fused engine; None on the host-table engine, which keeps its
+        span timers."""
+        if not self.fused:
+            return None
+        from paddlebox_tpu_torch.trainer.profiler import profile_sections
+        return profile_sections(
+            self.step, self.params, self.opt_state, self.auc_state,
+            batch.keys, batch.segment_ids, self._cvm(batch), batch.labels,
+            batch.dense, batch.row_mask(), iters=4)
+
+    def _pass_end(self, sections: Optional[Dict[str, float]] = None
+                  ) -> Dict[str, float]:
+        """The pass metrics, the profile line when asked for (with the
+        section table when there is one), and the pass heartbeat."""
         out = self.calc.compute()
-        if self.trainer_conf.profile:
-            print(f"log_for_profile pass_steps={self._step_count} "
-                  f"{self.timer.report()}", file=sys.stderr)
-        self._pass_heartbeat(out)
+        if self._profiling():
+            line = (f"log_for_profile pass_steps={self._step_count} "
+                    f"{self.timer.report()}")
+            if sections:
+                from paddlebox_tpu_torch.trainer.profiler import \
+                    format_sections
+                line += f"  sections[{format_sections(sections)}]"
+            print(line, file=sys.stderr)
+        self._pass_heartbeat(out, sections)
         return out
 
-    def _pass_heartbeat(self, out: Dict[str, float]) -> None:
+    def _pass_heartbeat(self, out: Dict[str, float],
+                        sections: Optional[Dict[str, float]] = None
+                        ) -> None:
         """One ``pass`` heartbeat record (``obs/heartbeat.py``), as the
         reference's trainer writes it: steps, wall seconds, examples/s,
         batch size, AUC, ``ins_num``, the span timer's snapshot, and
         ``host_share``, the share of the pass's wall time the training
         thread spent on host feed work (the streams' ``feed.host_ms``);
         an engine that adds nothing to that counter gets no
-        ``host_share``. Also the ``trainer.steps`` counter and the
-        ``trainer.examples_per_s``, ``trainer.auc`` and
-        ``trainer.host_share`` gauges."""
+        ``host_share``; under a profile, the ``sections`` table. Also
+        the ``trainer.steps`` counter and the ``trainer.examples_per_s``,
+        ``trainer.auc`` and ``trainer.host_share`` gauges."""
         t0, steps0, host0 = self._pass_marks
         steps = self._step_count - steps0
         wall = time.perf_counter() - t0
@@ -438,6 +502,8 @@ class CTRTrainer:
             share = min(1.0, host_ms / 1e3 / wall)
             rec["host_share"] = round(share, 4)
             REGISTRY.gauge("trainer.host_share").set(share)
+        if sections:
+            rec["sections"] = sections
         self.last_heartbeat = heartbeat.emit("pass", **rec)
 
     def evaluate(self, dataset: SlotDataset) -> Dict[str, float]:

@@ -8,10 +8,19 @@ reproducibly with ``OSError``. One process-global injector serves every
 call site. :func:`with_retries` wraps a callable in exponential backoff;
 ``giveup`` exempts permanent errors that retrying cannot fix.
 
-The call sites in the port are the disk tier's (``ps/ssd_tier.py``):
-``ssd.spill`` (a chunk write), ``ssd.read`` (a chunk gather) and
-``ssd.compact``. The checkpoint and serving points of the reference ride
-ROADMAP A.6; the checkpoint pipeline's named crash points are
+The call sites in the port, under the reference's names:
+
+- the disk tier's (``ps/ssd_tier.py``): ``ssd.spill`` (a chunk write),
+  ``ssd.read`` (a chunk gather) and ``ssd.compact``;
+- the checkpoint commit's (``ckpt/atomic.py``): ``open`` (a tmp file),
+  ``rename`` (its commit) and ``commit_dir``; the donefile's
+  ``donefile.append`` (``trainer/donefile.py``);
+- the data feed's file opens and reads (``data/ingest.py``
+  ``with_io_retries``, the operation its caller names);
+- the train guard's ``trainer.step`` (``trainer/guard.py``).
+
+The serving tier's points and ``ps.shard_spawn`` come with their modules
+(ROADMAP A.5, A.9). The checkpoint pipeline's named crash points are
 ``ckpt/faults.py``.
 """
 

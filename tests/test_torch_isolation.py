@@ -1,15 +1,16 @@
-"""The port stands alone: no jax, flax, optax or paddlebox_tpu import, in
-the package, in chip_smoke.py, kernel_versions.py or pass_versions.py; it
-serves, trains and runs a trainer pass, from a dataset and straight off
-files, a day/pass loop with its checkpoints and resume, and that loop over
-a tiered table with its host backing and prefetched feed pass, and the
-host-table engine with an MMoE step, a step over an int8 arena, the
-disk ladder with the dense lars, lamb and gradient merging and the cvm
-ops, and the multi-process reader over both protocols with the error
-budget and the archive, and a staged device-feed pass with its trace and
-heartbeat, with them blocked; its entry points
-default to the card and raise without one (the trainer too); its kernel
-modules import without a CUDA toolkit."""
+"""The port stands alone: no jax, flax, optax or paddlebox_tpu import, in the
+package, in chip_smoke.py, kernel_versions.py, pass_versions.py or
+guard_cost.py; it serves, trains and runs a trainer pass, from a dataset
+and straight off files, a day/pass loop with its checkpoints and resume,
+and that loop over a tiered table with its host backing and prefetched feed
+pass, and the host-table engine with an MMoE step, a step over an int8
+arena, the disk ladder with the dense lars, lamb and gradient merging and
+the cvm ops, and the multi-process reader over both protocols with the
+error budget and the archive, and a staged device-feed pass with its trace
+and heartbeat, and a guarded pass with a rollback, a profiled pass and a
+postmortem bundle, with them blocked; its entry points default to the card
+and raise without one (the trainer too); its kernel modules import without
+a CUDA toolkit."""
 
 import ast
 import os
@@ -28,7 +29,8 @@ FORBIDDEN = {"jax", "flax", "optax", "paddlebox_tpu"}
 def _port_files():
     out = [os.path.join(ROOT, f) for f in ("chip_smoke.py",
                                            "kernel_versions.py",
-                                           "pass_versions.py")]
+                                           "pass_versions.py",
+                                           "guard_cost.py")]
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -923,3 +925,80 @@ def test_deferred_tiered_low_precision_and_q8_serving_with_jax_blocked(
     """)
     assert res.returncode == 0, res.stderr
     assert "DEFERRED_Q8_OK" in res.stdout
+
+
+def test_guard_profiler_postmortem_with_jax_blocked(tmp_path):
+    """The train guard rolls a poisoned pass back to a committed base
+    (``TrainGuard.run_pass`` over ``train_from_dataset``), a profiled pass
+    prints its section table, and a postmortem bundle commits, with jax
+    and paddlebox_tpu blocked."""
+    from conftest import make_slot_file
+    from paddlebox_tpu.config import DataFeedConfig, SlotConfig
+    conf = DataFeedConfig(slots=[
+        SlotConfig("label", type="float", is_dense=True, dim=1),
+        SlotConfig("a"), SlotConfig("b")], batch_size=8, thread_num=2)
+    data = make_slot_file(str(tmp_path / "part-0"), conf, 48, seed=0)
+    res = _run(f"""
+        import dataclasses, os, sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        import torch
+        from paddlebox_tpu_torch.ckpt import atomic
+        from paddlebox_tpu_torch.config import (DataFeedConfig, SlotConfig,
+                                                TableConfig, TrainerConfig)
+        from paddlebox_tpu_torch.data.dataset import SlotDataset
+        from paddlebox_tpu_torch.models import DeepFM
+        from paddlebox_tpu_torch.obs import postmortem
+        from paddlebox_tpu_torch.obs.metrics import REGISTRY
+        from paddlebox_tpu_torch.ps.device_table import DeviceTable
+        from paddlebox_tpu_torch.ps.server import SparsePS
+        from paddlebox_tpu_torch.trainer.guard import GuardPolicy, TrainGuard
+        from paddlebox_tpu_torch.trainer.pass_manager import PassManager
+        from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
+        conf = DataFeedConfig(slots=[
+            SlotConfig("label", type="float", is_dense=True, dim=1),
+            SlotConfig("a"), SlotConfig("b")], batch_size=8, thread_num=2)
+        tconf = TableConfig(embedx_dim=4, embedx_threshold=0.0)
+        table = DeviceTable(tconf, capacity=256, device="cpu",
+                            index_threads=1)
+        tr = CTRTrainer(DeepFM(2 * 7, (8,)), conf, tconf, TrainerConfig(),
+                        table=table)
+        pm = PassManager(SparsePS({{"embedding": table}}),
+                         {str(tmp_path / "model")!r}, [SlotDataset(conf)])
+        pm.set_date("20260101")
+        ds = pm.begin_pass([{data!r}])
+        tr.train_from_dataset(ds)
+        pm.save_base(dense_state=(tr.params, tr.opt_state), wait=True)
+        batches = list(ds.batches())
+        batches[2] = dataclasses.replace(
+            batches[2], labels=np.full_like(batches[2].labels, np.nan))
+
+        class View:
+            def batches(self):
+                return iter(batches)
+
+        g = TrainGuard(tr, pass_manager=pm, policy=GuardPolicy(
+            on_nan="rollback", lag=1, quarantine_window=2)).attach()
+        r0 = REGISTRY.counter("guard.rollbacks").get()
+        out = g.run_pass(View())
+        g.detach()
+        assert REGISTRY.counter("guard.rollbacks").get() - r0 == 1
+        assert all(torch.isfinite(p).all() for p in tr.params.parameters())
+        assert np.isfinite(out["auc"])
+        os.environ["PBOX_FLAGS_profile_trainer"] = "1"
+        tr.train_from_dataset(ds)
+        assert "step_total_ms" in tr.last_heartbeat["sections"]
+        os.environ["PBOX_FLAGS_obs_postmortem_dir"] = \
+            {str(tmp_path / "pm")!r}
+        bundle = postmortem.maybe_dump("drill", exc=RuntimeError("x"))
+        atomic.verify(bundle, require_manifest=True)
+        assert len(os.listdir(bundle)) == 7
+        pm.close()
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("GUARDED", REGISTRY.counter("guard.rollbacks").get())
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "GUARDED" in res.stdout

@@ -478,9 +478,13 @@ def test_refusals(tmp_path, monkeypatch):
     t = DeviceTable(TableConfig(**TABLE), capacity=8, device="cpu",
                     backend="numpy")
     ps = SparsePS({"e": t})
-    monkeypatch.setenv("PBOX_FLAGS_fix_dayid", "1")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        PassManager(ps, str(tmp_path), [SlotDataset(port_feed_conf())])
+    # fix_dayid, once refused, pins the day
+    # (tests/test_torch_compat.py holds it to the reference)
+    monkeypatch.setenv("PBOX_FLAGS_fix_dayid", "20260101")
+    pm = PassManager(ps, str(tmp_path), [SlotDataset(port_feed_conf())])
+    pm.set_date("20990909")
+    assert pm.day == "20260101"
+    pm.close()
     monkeypatch.delenv("PBOX_FLAGS_fix_dayid")
     # the int8 serving export, once refused, builds
     # (tests/test_torch_serving_econ.py holds it to the reference)

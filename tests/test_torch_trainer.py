@@ -39,6 +39,7 @@ from paddlebox_tpu_torch.config import (DataFeedConfig, TableConfig,
                                         TrainerConfig, feed_prefetch_conf)
 from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.obs import heartbeat as port_heartbeat
+from paddlebox_tpu_torch.obs import postmortem as port_postmortem
 from paddlebox_tpu_torch.obs import trace as port_trace
 from paddlebox_tpu_torch.models.convert import (deepfm_from_flax_leaves,
                                                 flax_leaves_from_deepfm,
@@ -321,9 +322,13 @@ def test_profile_line(files, reference, capfd):
                          trainer_conf=TrainerConfig(profile=True))
     tr.train_from_dataset(port_dataset(files))
     err = capfd.readouterr().err.strip().splitlines()
-    assert err[-1] == (f"log_for_profile pass_steps={STEPS} "
-                       f"{tr.timer.report()}")
-    assert "main: " in err[-1] and "step: " in err[-1]
+    # the line, then (fused engine, as the reference's) the first batch's
+    # section table (test_torch_profiler.py)
+    line, sections = err[-1].split("  sections[")
+    assert line == (f"log_for_profile pass_steps={STEPS} "
+                    f"{tr.timer.report()}")
+    assert "main: " in line and "step: " in line
+    assert sections.endswith("]") and "step_total=" in sections
 
 
 # the four TrainerConfig fields of the trainer loop (FusedTrainStep reads
@@ -368,8 +373,7 @@ REFUSED = {
 # test_torch_stream.py train_from_files(workers=2))
 PORTED = {"deferred": lambda: _trainer(insert_mode="deferred"),
           "train_from_files": lambda: _trainer()}
-REFUSED_FLAGS = {"check_nan_inf": ("true", "A.6"),
-                 "obs_postmortem_dir": ("/tmp/pm", "A.6")}
+REFUSED_FLAGS = {}
 
 
 def _feed_flag(tmp_path):
@@ -396,12 +400,30 @@ def _heartbeat_flag(tmp_path):
     assert port_heartbeat.sink_path() == str(tmp_path / "hb.jsonl")
 
 
-# the reference's flags once refused here, now ported (A.4 and A.6's
-# trace and heartbeat; test_torch_device_feed.py and test_torch_obs.py
-# hold them to the reference)
+def _nan_inf_flag(tmp_path):
+    """The flag attaches an abort-policy guard to a fused trainer."""
+    tr = _trainer()
+    try:
+        assert tr._guard is not None and \
+            tr._guard.policy.action_for("nan") == "abort"
+    finally:
+        tr._guard.detach()
+
+
+def _postmortem_flag(tmp_path):
+    """The flag installs the crash hooks at construction."""
+    _trainer()
+    assert port_postmortem._installed
+
+
+# the reference's flags once refused here, now ported (A.4 and A.6;
+# test_torch_device_feed.py, test_torch_obs.py, test_torch_guard.py and
+# test_torch_postmortem.py hold them to the reference)
 PORTED_FLAGS = {"feed_device_prefetch": ("2", _feed_flag),
                 "obs_trace_dir": ("{tmp}/trace", _trace_flag),
-                "obs_heartbeat_path": ("{tmp}/hb.jsonl", _heartbeat_flag)}
+                "obs_heartbeat_path": ("{tmp}/hb.jsonl", _heartbeat_flag),
+                "check_nan_inf": ("true", _nan_inf_flag),
+                "obs_postmortem_dir": ("{tmp}/pm", _postmortem_flag)}
 
 
 @pytest.mark.parametrize("what", sorted(REFUSED) + sorted(PORTED)
