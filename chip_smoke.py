@@ -362,6 +362,36 @@ Phases, each fatal on failure:
    ms/step with the guard on and off in turns, the poller's lag in steps,
    the rollback's seconds and the profile's sections, each beside the
    card's name and power limit.
+4q. serving tier — phase 3's flagship bundle (DeepFM 512-256-128, 26
+             Criteo slots + 13 dense, B=512, 4,194,304 table rows) behind
+             the port's serving tier, 16 requests of 512 of its lines from
+             4 connections at once for each of: (a) ``PredictServer``; (b)
+             a thread-scope ``ReplicaSet`` of 2 behind a ``FrontDoor``; (c)
+             a process-scope ``ReplicaSet`` of 2 spawned children, each
+             with its own CUDA context and table, behind a ``FrontDoor``.
+             Each: the seqpool kernel once a request (the children's counts
+             carried back on their side channels), the scores within 1e-6
+             of a direct ``CTRPredictor`` on the card (bits equal or not
+             printed). (b) then a ``ReloadWatcher`` over a trail the port's
+             ``PassManager`` commits (a base of the whole table with new
+             dense weights, a delta rewriting 5% of the rows and adding
+             10,000 keys) swaps to the base, then to the delta under
+             traffic: no request fails, no ``serving.reload_recompiled``,
+             both replicas at the new version, their scores bit for bit a
+             fresh ``load_predictor_from_plan``'s. (c) then a SIGKILL of a
+             child under traffic: every request answered, the child's
+             memory released, the monitor's tick restarts it under the
+             supervisor; a reload in the children, bit for bit the same.
+             (d) on (c)'s fleet a p99 rule labelled ``action=shed`` makes
+             it shed (``SheddingLoad``, ``/healthz`` 503) and a quiet window
+             clears it; ``/metrics`` parses and carries the children's
+             ``serve.*`` series.
+   p50 and p99 ms a request and examples/s of each tier in turns with a
+   direct ``predict_records`` of the same records, a child's spawn seconds
+   split (start, CUDA context, build, handshake), its device memory, the
+   reload's ``serving.reload_ms`` in both scopes and the card's peak
+   memory during a thread-scope swap, each beside the card's name and
+   power limit.
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -395,6 +425,8 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from typing import Tuple
 
@@ -415,6 +447,7 @@ from paddlebox_tpu_torch.data.parser import SlotParser
 from paddlebox_tpu_torch.ckpt.writer import AsyncCheckpointWriter
 from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
                                                      save_inference_model)
+from paddlebox_tpu_torch.inference.server import PredictServer, predict_lines
 from paddlebox_tpu_torch.models import DeepFM, FeedDNN, MMoE, WideDeep
 from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
 from paddlebox_tpu_torch.ops import _build
@@ -1468,7 +1501,7 @@ def reference_scores(pred: CTRPredictor, batch) -> np.ndarray:
     return p.cpu().numpy()[:batch.num_rows]
 
 
-def phase_serve(rng, seed: int) -> int:
+def phase_serve(rng, seed: int):
     os.makedirs(WORK, exist_ok=True)
     data = os.path.join(WORK, "criteo.txt")
     t0 = time.perf_counter()
@@ -1532,7 +1565,7 @@ def phase_serve(rng, seed: int) -> int:
           f"{n_rows / secs:.1f} examples/s (B={B}, predict_batch incl. pull, "
           "host copies)")
     device_profile("serve", lambda: [pred.predict_batch(b) for b in batches])
-    return launches
+    return launches, bundle, batches
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -5165,6 +5198,551 @@ def phase_guard(rng, files) -> dict:
     return result
 
 
+# -- phase 4q: the single-host serving tier -----------------------------------
+
+SRV_CLIENTS = 4             # concurrent connections of 4q's traffic
+SRV_DAY = "20260901"        # the day of 4q's checkpoint trail
+SRV_REWRITE = 0.05          # share of the table's rows the delta rewrites
+SRV_NEW = 10_000            # new keys of the delta
+SRV_SHED_MS = 1.0           # the shed rule's p99 threshold: a request of
+#                              512 lines takes longer (its parse alone)
+
+
+def criteo_lines(batch) -> list:
+    """The MultiSlot text lines of a Criteo batch's rows, in the slot order
+    of ``criteo_feed_config`` (label, the 13 dense values, then one key
+    group a categorical slot)."""
+    offs = np.concatenate([[0], np.cumsum(batch.lengths.reshape(-1))])
+    keys = batch.keys.tolist()
+    out = []
+    for r in range(batch.num_rows):
+        parts = [f"1 {float(batch.labels[r])!r}",
+                 f"{batch.dense.shape[1]} " + " ".join(
+                     repr(float(x)) for x in batch.dense[r])]
+        for s in range(batch.num_slots):
+            i = r * batch.num_slots + s
+            ks = keys[offs[i]:offs[i + 1]]
+            parts.append(" ".join(map(str, [len(ks), *ks])))
+        out.append(" ".join(parts))
+    return out
+
+
+def traffic(address, chunks, clients: int = SRV_CLIENTS,
+            deadline_ms: float = 60000.0):
+    """Each chunk one ``predict_lines`` request, from ``clients``
+    connections at once (client c sends chunks c, c + clients, ...).
+    Returns the scores in chunk order, each request's ms, the wall seconds
+    and the failures."""
+    scores = [None] * len(chunks)
+    lat, failures = [], []
+    lock = threading.Lock()
+
+    def client(c):
+        for i in range(c, len(chunks), clients):
+            t0 = time.perf_counter()
+            try:
+                s = predict_lines(*address, chunks[i],
+                                  deadline_ms=deadline_ms)
+            except Exception as e:  # noqa: BLE001 - reported, then required
+                with lock:
+                    failures.append(f"{type(e).__name__}: {e}")
+                continue
+            with lock:
+                lat.append((time.perf_counter() - t0) * 1e3)
+            scores[i] = s
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return scores, lat, time.perf_counter() - t0, failures
+
+
+def direct_turn(pred, chunks):
+    """``predict_records`` of each chunk in turn, as one caller would:
+    (scores, each call's ms, wall seconds)."""
+    out, lat = [], []
+    t0 = time.perf_counter()
+    for recs in chunks:
+        t1 = time.perf_counter()
+        out.append(pred.predict_records(recs))
+        lat.append((time.perf_counter() - t1) * 1e3)
+    return out, lat, time.perf_counter() - t0
+
+
+def lat_summary(lat, rows: int, secs: float) -> dict:
+    return {"p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "examples_per_s": rows / secs}
+
+
+def served_in_turns(tag: str, first: dict, address, line_chunks, pred,
+                    rec_chunks, card: str) -> dict:
+    """The served path and a direct ``predict_records`` of the same
+    records, in turns: ``first`` (the counted served run), direct, direct,
+    served."""
+    rows = sum(len(c) for c in line_chunks)
+    runs = {"served": [first], "direct": []}
+    for which in ("direct", "direct", "served"):
+        if which == "served":
+            _s, lat, secs, failures = traffic(address, line_chunks)
+            require(not failures, f"{tag}: {failures[:3]}")
+        else:
+            _s, lat, secs = direct_turn(pred, rec_chunks)
+        runs[which].append(lat_summary(lat, rows, secs))
+    shown = {w: [{k: round(v, 4) for k, v in r.items()} for r in rs]
+             for w, rs in runs.items()}
+    print(f"timing {tag}: {len(line_chunks)} requests of {B} lines from "
+          f"{SRV_CLIENTS} connections, in turns with a direct "
+          f"predict_records of each {B} records: served {shown['served']}; "
+          f"direct {shown['direct']} [{card}]")
+    return runs
+
+
+def child_launches(fleet) -> float:
+    """The children's seqpool launches, as their side channels last
+    reported them."""
+    return sum(REGISTRY.gauge(
+        f"serving.replica.{r.name}.child.serve.launches.seqpool_cvm_cuda"
+    ).get() for r in fleet.replicas)
+
+
+def wait_until(cond, timeout: float = 20.0) -> bool:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.02)
+    return cond()
+
+
+def same_scores(tag: str, got, want) -> Tuple[float, bool]:
+    got, want = np.concatenate(got), np.concatenate(want)
+    require(got.shape == want.shape and bool(np.isfinite(got).all()),
+            f"{tag}: scores {got.shape} vs {want.shape}")
+    err = float(np.abs(got - want).max())
+    require(err <= 1e-6, f"{tag}: |served - direct CTRPredictor| = {err}")
+    return err, bool(np.array_equal(got.view(np.uint32),
+                                    want.view(np.uint32)))
+
+
+def per_replica_scores(fleet, records) -> list:
+    """``records`` scored once on each replica (its batcher directly)."""
+    return [r.submit(records, time.monotonic() + 60.0).result(60.0)
+            for r in fleet.replicas]
+
+
+def parse_prometheus(text: str) -> dict:
+    """``name{labels} value`` samples of a Prometheus text page; raises on
+    a line that is neither a sample nor a comment."""
+    out = {}
+    for ln in text.splitlines():
+        if not ln or ln.startswith("#"):
+            continue
+        name, value = ln.rsplit(" ", 1)
+        require(re.fullmatch(r'[a-zA-Z_:][a-zA-Z0-9_:]*(\{le="[^"]+"\})?',
+                             name) is not None, f"prometheus line {ln!r}")
+        out[name] = float(value)
+    return out
+
+
+def http_status(address, path: str) -> Tuple[int, dict]:
+    url = f"http://{address[0]}:{address[1]}{path}"
+    try:
+        rep = urllib.request.urlopen(url, timeout=10)
+        return rep.status, json.loads(rep.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def phase_serving_tier(rng, bundle: str, batches) -> dict:
+    """(4q) The single-host serving tier over phase 3's flagship bundle
+    (DeepFM 512-256-128, 26 Criteo slots + 13 dense, B=512, a table of
+    4,194,304 rows) on the card: (a) ``PredictServer``; (b) a thread-scope
+    ``ReplicaSet`` of 2 behind a ``FrontDoor``, then a ``ReloadWatcher``
+    over a trail the port's ``PassManager`` commits (a base of the whole
+    table with new dense weights, then a delta rewriting 5% of the rows
+    and adding new keys) swapping to the next pass under traffic; (c) a
+    process-scope ``ReplicaSet`` of 2 children, a SIGKILL under traffic,
+    the monitor's restart, a reload in the children; (d) a shed rule on
+    the process fleet's p99, its 503, and ``/metrics``. Each tier serves
+    16 requests of 512 lines from 4 connections, counted: the seqpool
+    kernel once a request (in the children by their side channels), the
+    scores within 1e-6 of a direct ``CTRPredictor``."""
+    from paddlebox_tpu_torch.ckpt import discovery
+    from paddlebox_tpu_torch.obs.slo import Rule, SloEngine
+    from paddlebox_tpu_torch.serving import (FrontDoor, ReloadWatcher,
+                                             ReplicaSet, SheddingLoad)
+    from paddlebox_tpu_torch.serving.reload import load_predictor_from_plan
+    card = card_line()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    line_chunks = [criteo_lines(b) for b in batches]
+    direct = CTRPredictor(bundle, device="cuda")
+    parser = SlotParser(direct.feed_conf)
+    rec_chunks = [[parser.parse_line(ln) for ln in c] for c in line_chunks]
+    want = [direct.predict_records(c) for c in rec_chunks]
+    conf = direct.table_conf
+    print(f"serving tier (4q): {len(line_chunks)} requests of {B} lines, a "
+          f"direct CTRPredictor's scores {time.perf_counter() - t0:.2f} s")
+
+    # the checkpoint trail: a base of the whole table with new dense
+    # weights, committed in the background while (a) runs
+    t0 = time.perf_counter()
+    root = os.path.join(WORK, "tier_ckpt")
+    table = EmbeddingTable(conf)
+    with np.load(os.path.join(bundle, "table.npz")) as snap:
+        table_keys = snap["keys"]
+        table.import_rows(table_keys, snap["values"], snap["state"])
+    base_model = random_deepfm(rng, S * conf.pull_dim + 13)
+    pm = PassManager(SparsePS({"embedding": table}), root,
+                     [SlotDataset(direct.feed_conf)])
+    pm.set_date(SRV_DAY)
+    pm.pass_id = 1
+    pm.save_base(dense_state=(base_model, {}))
+    print(f"serving tier (4q): trail base of {len(table)} rows queued "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # (a) PredictServer
+    srv = PredictServer(bundle, device="cuda")
+    with srv:
+        _s, _l, _t, failures = traffic((srv.host, srv.port),
+                                       line_chunks[:1])         # warm-up
+        require(not failures, f"(a) warm-up failures {failures[:3]}")
+        seqpool_cvm_cuda.launches = 0
+        got, lat, secs, failures = traffic((srv.host, srv.port), line_chunks)
+        launches_a = seqpool_cvm_cuda.launches
+        require(not failures, f"(a) failures {failures[:3]}")
+        require(launches_a == len(line_chunks),
+                f"(a) seqpool launched {launches_a} times for "
+                f"{len(line_chunks)} requests of {B}")
+        err_a, bits_a = same_scores("(a)", got, want)
+        first = lat_summary(lat, B * len(line_chunks), secs)
+        print(f"serving tier (4q) (a) PredictServer: {len(line_chunks)} "
+              f"requests, seqpool launches {launches_a}, max |served - "
+              f"direct| {err_a:.3e}, bits equal {bits_a} [{card}]")
+        turns_a = served_in_turns("serving tier (4q) (a) PredictServer",
+                                  first, (srv.host, srv.port), line_chunks,
+                                  direct, rec_chunks, card)
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) a process-scope fleet: two children on the card (the
+    # base's commit goes on meanwhile)
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    pfleet = ReplicaSet.from_bundle(bundle, replicas=2, scope="process",
+                                    device="cuda", probe_interval=3600.0)
+    spawn_s = time.perf_counter() - t0
+    free1 = torch.cuda.mem_get_info()[0]
+    per_child = (free0 - free1) / 2
+    spawns = [r.spawn_timing for r in pfleet.replicas]
+    print(f"serving tier (4q) (c) process fleet of 2: spawned at once in "
+          f"{spawn_s:.3f} s; a child's split "
+          f"{[{k: round(v, 3) for k, v in t.items()} for t in spawns]} "
+          f"(start: interpreter and imports to the child's main; context: "
+          f"its CUDA context; build: the bundle's load and upload); device "
+          f"memory a child {per_child:.0f} B (free memory before and after "
+          f"the spawn) [{card}]")
+    engine = SloEngine(registry=REGISTRY, interval=3600.0)
+    pfleet.start(metrics_port=0)
+    try:
+        door = FrontDoor(pfleet)
+        door.start()
+        pfleet.warm(line_chunks[0])
+        # each child's count to 0 just before the run, read just after
+        for r in pfleet.replicas:
+            r.launch_counts(reset=True)
+        require(wait_until(lambda: child_launches(pfleet) == 0),
+                "(c) the children's reset counts never reached the parent")
+        got, lat, secs, failures = traffic(door.address, line_chunks)
+        require(not failures, f"(c) failures {failures[:3]}")
+        launches_c = sum(r.launch_counts()["seqpool_cvm_cuda"]
+                         for r in pfleet.replicas)
+        require(launches_c == len(line_chunks),
+                f"(c) the children launched seqpool {launches_c} times for "
+                f"{len(line_chunks)} requests")
+        require(wait_until(lambda: child_launches(pfleet) == launches_c),
+                f"(c) the side channels carried {child_launches(pfleet)} "
+                f"launches, the children counted {launches_c}")
+        err_c, bits_c = same_scores("(c)", got, want)
+        first = lat_summary(lat, B * len(line_chunks), secs)
+        print(f"serving tier (4q) (c) process fleet behind a FrontDoor: "
+              f"seqpool launches in the children {launches_c}, max |served "
+              f"- direct| {err_c:.3e}, bits equal {bits_c} [{card}]")
+        turns_c = served_in_turns("serving tier (4q) (c) process fleet",
+                                  first, door.address, line_chunks, direct,
+                                  rec_chunks, card)
+        # SIGKILL a child under traffic
+        deaths = REGISTRY.counter("serving.proc_child_deaths").get()
+        victim = pfleet.replicas[0]
+        box = {}
+        th = threading.Thread(target=lambda: box.update(zip(
+            ("scores", "lat", "secs", "failures"),
+            traffic(door.address, line_chunks))))
+        th.start()
+        require(wait_until(lambda: victim.outstanding() > 0, 10.0),
+                "(c) no request reached the victim")
+        free_live = torch.cuda.mem_get_info()[0]
+        victim.kill()
+        th.join()
+        require(not box["failures"],
+                f"(c) failures with a child killed {box['failures'][:3]}")
+        err_k, _ = same_scores("(c) kill", box["scores"], want)
+        require(REGISTRY.counter("serving.proc_child_deaths").get()
+                == deaths + 1, "(c) the death was not counted")
+        require(wait_until(lambda: not victim._proc.is_alive()),
+                "(c) the killed child was not reaped")
+        require(wait_until(lambda: torch.cuda.mem_get_info()[0] - free_live
+                           >= 0.5 * per_child),
+                "(c) the killed child's memory was not released")
+        freed = torch.cuda.mem_get_info()[0] - free_live
+        t0 = time.perf_counter()
+        require(pfleet._probe_once() == 1, "(c) the monitor restarted none")
+        restart_s = time.perf_counter() - t0
+        require(pfleet.healthy_count() == 2 and
+                pfleet.replicas[0].child_pid != victim.child_pid,
+                "(c) the slot did not come back")
+        require(pfleet.supervisor.state("r0")["circuit"] == "closed",
+                "(c) the supervisor opened the circuit")
+        restarted = pfleet.replicas[0].spawn_timing
+        print(f"serving tier (4q) (c) SIGKILL of child {victim.child_pid} "
+              f"under traffic: {len(box['lat'])} requests answered, 0 "
+              f"failed, max |served - direct| {err_k:.3e}, "
+              f"serving.rerouted {REGISTRY.counter('serving.rerouted').get()}"
+              f"; its memory released ({freed} B back); the monitor's tick "
+              f"restarted it in {restart_s:.3f} s (split "
+              f"{ {k: round(v, 3) for k, v in restarted.items()} }) "
+              f"[{card}]")
+        t_b = time.perf_counter()
+        pm.barrier()
+        print(f"serving tier (4q): the base committed (the training thread "
+              f"waited {time.perf_counter() - t_b:.2f} s in barrier())")
+
+        # (b) a thread-scope fleet behind a front door, and its reload
+        fleet = ReplicaSet.from_bundle(bundle, replicas=2, scope="thread",
+                                       device="cuda")
+        with fleet, FrontDoor(fleet) as tdoor:
+            fleet.warm(line_chunks[0])
+            seqpool_cvm_cuda.launches = 0
+            got, lat, secs, failures = traffic(tdoor.address, line_chunks)
+            launches_b = seqpool_cvm_cuda.launches
+            require(not failures, f"(b) failures {failures[:3]}")
+            require(launches_b == len(line_chunks),
+                    f"(b) seqpool launched {launches_b} times for "
+                    f"{len(line_chunks)} requests")
+            err_b, bits_b = same_scores("(b)", got, want)
+            first = lat_summary(lat, B * len(line_chunks), secs)
+            print(f"serving tier (4q) (b) thread fleet of 2 behind a "
+                  f"FrontDoor: seqpool launches {launches_b}, max |served - "
+                  f"direct| {err_b:.3e}, bits equal {bits_b} [{card}]")
+            turns_b = served_in_turns("serving tier (4q) (b) thread fleet",
+                                      first, tdoor.address, line_chunks,
+                                      direct, rec_chunks, card)
+            # the two scopes in turns, both fleets of 2 up at once
+            scopes = {"thread": [], "process": []}
+            for which in ("thread", "process", "process", "thread"):
+                _s, lat, secs, failures = traffic(
+                    tdoor.address if which == "thread" else door.address,
+                    line_chunks)
+                require(not failures, f"(b) {which}: {failures[:3]}")
+                scopes[which].append(round(B * len(line_chunks) / secs, 1))
+            print(f"timing serving tier (4q) thread against process fleet "
+                  f"of 2, in turns: examples/s {scopes} [{card}]")
+            watcher = ReloadWatcher(fleet, bundle, root, poll_s=3600.0)
+            t0 = time.perf_counter()
+            require(watcher.poll_once(), "(b) no reload to the base")
+            first_s = time.perf_counter() - t0
+            require(fleet.versions() == [f"{SRV_DAY}/00001"] * 2,
+                    f"(b) versions {fleet.versions()}")
+            # the next pass: 5% of the rows rewritten (the traffic's keys among
+            # them), new keys added
+            t0 = time.perf_counter()
+            file_keys = np.unique(np.concatenate(
+                [b.keys[:b.num_keys] for b in batches]))
+            others = rng.choice(table_keys, size=int(SRV_REWRITE
+                                                     * table_keys.size),
+                                replace=False)
+            fresh = rng.integers(1 << 40, 1 << 62, size=SRV_NEW,
+                                 dtype=np.uint64)
+            keys = np.unique(np.concatenate([file_keys, others, fresh]))
+            values = (rng.normal(size=(keys.size, conf.pull_dim)) * 0.05
+                      ).astype(np.float32)
+            values[:, 0] = rng.integers(0, 40, size=keys.size)
+            values[:, 1] = np.floor(values[:, 0] * 0.2)
+            table.import_rows(keys, values,
+                              np.zeros((keys.size, state_dim(conf)),
+                                       np.float32))
+            pm.pass_id = 2
+            pm.save_delta(wait=True)
+            delta_s = time.perf_counter() - t0
+            # the swap under traffic
+            stop = threading.Event()
+            under = {"requests": 0, "failures": []}
+
+            def hammer(c):
+                i = c
+                while not stop.is_set():
+                    try:
+                        predict_lines(*tdoor.address, line_chunks[i % 16],
+                                      deadline_ms=60000.0)
+                        under["requests"] += 1
+                    except Exception as e:  # noqa: BLE001 - required below
+                        under["failures"].append(f"{type(e).__name__}: {e}")
+                    i += SRV_CLIENTS
+
+            recompiled = REGISTRY.counter("serving.reload_recompiled").get()
+            hist = REGISTRY.histogram("serving.reload_ms")
+            hist0 = (hist.count, hist.sum)
+            threads = [threading.Thread(target=hammer, args=(c,))
+                       for c in range(SRV_CLIENTS)]
+            for t in threads:
+                t.start()
+            time.sleep(0.5)
+            torch.cuda.synchronize()
+            mem_before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            require(watcher.poll_once(), "(b) no reload to the delta")
+            swap_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            time.sleep(0.5)
+            stop.set()
+            for t in threads:
+                t.join()
+            v2 = f"{SRV_DAY}/00002"
+            require(not under["failures"], f"(b) failures under the swap "
+                    f"{under['failures'][:3]}")
+            require(fleet.versions() == [v2] * 2,
+                    f"(b) versions {fleet.versions()}")
+            require(REGISTRY.counter("serving.reload_recompiled").get()
+                    == recompiled, "(b) the swap counted a recompile")
+            plan = discovery.latest_committed(root)
+            fresh_pred = load_predictor_from_plan(bundle, plan, device="cuda")
+            want2 = fresh_pred.predict_records(rec_chunks[0])
+            for s in per_replica_scores(fleet, rec_chunks[0]):
+                require(np.array_equal(s.view(np.uint32),
+                                       want2.view(np.uint32)),
+                        "(b) a swapped replica's scores differ from a fresh "
+                        "load_predictor_from_plan's")
+            require(float(np.abs(want2 - want[0]).max()) > 0,
+                    "(b) the reload changed no score")
+            thread_reload_ms = (hist.sum - hist0[1]) / (hist.count - hist0[0])
+            print(f"serving tier (4q) (b) reload: base of {len(table)} "
+                  f"rows (pass 1) swapped in {first_s:.3f} s before "
+                  f"traffic; a delta of {keys.size} rows (pass 2) committed "
+                  f"in {delta_s:.3f} s and swapped under traffic from "
+                  f"{SRV_CLIENTS} connections in {swap_s:.3f} s "
+                  f"({under['requests']} requests, 0 failed, "
+                  f"serving.reload_recompiled unchanged), both replicas at "
+                  f"{v2}, scores bit for bit a fresh "
+                  f"load_predictor_from_plan's; "
+                  f"serving.reload_ms {thread_reload_ms:.3f} a replica "
+                  f"({hist.count - hist0[0]} swaps); device memory during the "
+                  f"swap: {mem_before} B before, peak {peak} B [{card}]")
+            del fresh_pred
+        del fleet, tdoor
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one reload in the children
+        hist0 = (hist.count, hist.sum)
+        t0 = time.perf_counter()
+        require(ReloadWatcher(pfleet, bundle, root,
+                              poll_s=3600.0).poll_once(),
+                "(c) no reload")
+        proc_swap_s = time.perf_counter() - t0
+        require(pfleet.versions() == [v2] * 2,
+                f"(c) versions {pfleet.versions()}")
+        for s in per_replica_scores(pfleet, rec_chunks[0]):
+            require(np.array_equal(s.view(np.uint32), want2.view(np.uint32)),
+                    "(c) a reloaded child's scores differ from a fresh "
+                    "load_predictor_from_plan's")
+        proc_reload_ms = (hist.sum - hist0[1]) / (hist.count - hist0[0])
+        print(f"serving tier (4q) (c) reload in the children to {v2}: "
+              f"{proc_swap_s:.3f} s for both, serving.reload_ms "
+              f"{proc_reload_ms:.3f} a replica ({hist.count - hist0[0]} "
+              f"swaps), scores bit for bit the fresh predictor's [{card}]")
+
+        # (d) the SLO rule, /healthz and /metrics
+        rule = Rule("tier_p99_ms", metric="serve.request_ms", agg="p99",
+                    op=">", threshold=SRV_SHED_MS,
+                    labels={"action": "shed"})
+        pfleet.attach_slo(engine, rules=[rule])
+        engine.evaluate()
+        _s, _l, _t, failures = traffic(door.address, line_chunks[:4])
+        require(not failures, f"(d) failures before the shed {failures[:3]}")
+        engine.evaluate()
+        require(pfleet.admission.shedding, "(d) the fleet does not shed")
+        try:
+            predict_lines(*door.address, line_chunks[0])
+        except RuntimeError as e:
+            require("shedding" in str(e), f"(d) {e}")
+        else:
+            raise AssertionError("(d) a request passed while shedding")
+        try:
+            pfleet.predict_records(rec_chunks[0])
+        except SheddingLoad:
+            pass
+        else:
+            raise AssertionError("(d) predict_records passed while shedding")
+        code, doc = http_status(pfleet.metrics_address, "/healthz")
+        require(code == 503 and doc["shedding"], f"(d) /healthz {code}")
+        fired = engine.alerts()[0]
+        engine.evaluate()                   # a window without traffic
+        require(not pfleet.admission.shedding, "(d) shedding did not clear")
+        code2, _ = http_status(pfleet.metrics_address, "/healthz")
+        require(code2 == 200, f"(d) /healthz after {code2}")
+        got, _l, _t, failures = traffic(door.address, line_chunks[:1])
+        require(not failures, f"(d) failures after the clear {failures[:3]}")
+        err_d, _ = same_scores("(d) after the clear", got, [want2])
+        url = (f"http://{pfleet.metrics_address[0]}:"
+               f"{pfleet.metrics_address[1]}/metrics")
+        page = parse_prometheus(urllib.request.urlopen(
+            url, timeout=10).read().decode())
+        for name in ("pbx_serve_request_ms_count", "pbx_serving_requests",
+                     "pbx_serving_replica_r0_child_serve_predict_ms_count",
+                     "pbx_serving_replica_r1_child_serve_launches_"
+                     "seqpool_cvm_cuda", "pbx_serving_shed",
+                     "pbx_alert_firing_tier_p99_ms"):
+            require(name in page, f"(d) /metrics lacks {name}")
+        print(f"serving tier (4q) (d) SLO: rule p99(serve.request_ms) > "
+              f"{SRV_SHED_MS} ms action=shed fired at {fired['value']:.3f} "
+              f"ms, the fleet shed (SheddingLoad, /healthz {code}), a quiet "
+              f"window resolved it (/healthz {code2}, a request then served, "
+              f"max |served - fresh| {err_d:.3e}); /metrics parses "
+              f"({len(page)} samples, the children's serve.* included) "
+              f"[{card}]")
+    finally:
+        engine.stop()
+        door.stop()
+        pfleet.stop()
+    require(all(not r._proc.is_alive() for r in pfleet.replicas),
+            "(c) a child outlived the fleet")
+    pm.close()
+    del table, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = {"launches": {"serve_server": {"seqpool_cvm_cuda": launches_a},
+                           "serve_fleet_thread": {
+                               "seqpool_cvm_cuda": launches_b},
+                           "serve_fleet_proc": {
+                               "seqpool_cvm_cuda": launches_c}},
+              "turns": {"server": turns_a, "thread": turns_b,
+                        "proc": turns_c}, "scopes": scopes,
+              "spawn": spawns, "per_child_bytes": per_child,
+              "thread_reload_ms": thread_reload_ms,
+              "proc_reload_ms": proc_reload_ms,
+              "phase_s": time.perf_counter() - t_phase}
+    print(f"serving tier (4q): {result['phase_s']:.1f} s")
+    return result
+
+
 # -- phase 4f: the host-table engine and the models ---------------------------
 
 HE_BATCHES = 16              # batches of each path of the phase
@@ -6735,7 +7313,8 @@ def main() -> int:
         index_err, index_inputs = phase_kernel_index(
             index_rng, make_train_batches(index_rng, 1)[0][0],
             np.random.default_rng([args.seed, 9]))
-        serve_launches = phase_serve(rng, args.seed)
+        serve_launches, serve_bundle, serve_batches = phase_serve(
+            rng, args.seed)
         train, train_init = phase_train(rng)
         train_dev = phase_train_device(np.random.default_rng([args.seed, 8]),
                                        train_init)
@@ -6765,6 +7344,8 @@ def main() -> int:
                                    feed_files)
         guard = phase_guard(np.random.default_rng([args.seed, 67]),
                             feed_files)
+        tier = phase_serving_tier(np.random.default_rng([args.seed, 71]),
+                                  serve_bundle, serve_batches)
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
@@ -6784,6 +7365,8 @@ def main() -> int:
                 for k, v in dense["ms_per_step"].items()}
     lp_ms = {k: [round(r["train_ms"], 4) for r in v]
              for k, v in tiered_lp["passes"].items()}
+    tier_p99 = {k: [round(r["p99_ms"], 3) for r in v["served"]]
+                for k, v in tier["turns"].items()}
     print(f"chip_smoke: all phases {time.perf_counter() - t_start:.1f} s; "
           f"train host-prep (numpy index) {train['ms_per_step']:.4f} "
           f"ms/step, {train['examples_per_s']:.1f} examples/s; host-prep "
@@ -6842,7 +7425,11 @@ def main() -> int:
           f"ms/step guard on {guard['turns_ms']['guard_on']} off "
           f"{guard['turns_ms']['guard_off']}, poll lag {guard['lags'][0]}-"
           f"{guard['lags'][-1]} steps, rollback {guard['rollback_s']:.4f} "
-          f"s, {guard['phase_s']:.1f} s")
+          f"s, {guard['phase_s']:.1f} s; serving tier (4q) p99 ms "
+          f"{tier_p99}, examples/s thread against process fleet "
+          f"{tier['scopes']}, reload ms a replica thread "
+          f"{tier['thread_reload_ms']:.1f} process "
+          f"{tier['proc_reload_ms']:.1f}, {tier['phase_s']:.1f} s")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
 
@@ -6869,7 +7456,8 @@ def main() -> int:
                                          **q8["launches"],
                                          **feed["launches"],
                                          **staged["launches"],
-                                         **guard["launches"]}.items()}}
+                                         **guard["launches"],
+                                         **tier["launches"]}.items()}}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}
 

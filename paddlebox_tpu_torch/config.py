@@ -250,6 +250,25 @@ FLAG_DEFAULTS: Dict[str, Any] = {
     "serve_quantized": False,
     "serve_cache_rows": 0,
     "serve_coalesce": False,
+    "obs_slo_interval": 1.0,
+    "obs_exemplar_ms": 0.0,
+    "serve_replicas": 2,
+    "serve_deadline_ms": 200.0,
+    "serve_batch_margin_ms": 5.0,
+    "serve_batch_wait_ms": 2.0,
+    "serve_probe_interval": 0.25,
+    "serve_drain_timeout": 5.0,
+    "serve_max_pending": 64,
+    "serve_reload_poll": 1.0,
+    "serve_replica_scope": "thread",
+    "serve_retry_budget": 3,
+    "serve_restart_budget": 3,
+    "serve_restart_window": 30.0,
+    "serve_restart_backoff": 0.5,
+    "serve_circuit_reset": 0.0,
+    "serve_request_timeout": 30.0,
+    "serve_spawn_timeout": 60.0,
+    "serve_heartbeat_timeout": 10.0,
 }
 
 

@@ -29,9 +29,10 @@ the reference:
 - ``serve_coalesce``: ``predict_records`` pulls each distinct key of all
   its batches once and scores each batch from that pull.
 
-Scores are the same bits with the cache and coalescing on or off. Not
-ported: a remote PS (``ps_endpoints``, ROADMAP A.9) and the reload
-fingerprint (``reload_of``, ``fwd_fingerprint``, A.5).
+Scores are the same bits with the cache and coalescing on or off.
+``fwd_fingerprint`` and ``reload_of`` are the hot reload's ledger
+(``serving/reload.py``). Not ported: a remote PS (``ps_endpoints``,
+ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -54,9 +55,10 @@ from paddlebox_tpu_torch.data.batch import BatchAssembler, CsrBatch
 from paddlebox_tpu_torch.data.record import SlotRecord
 from paddlebox_tpu_torch.models.convert import (MODEL_CLASSES, build_model,
                                                 flax_leaves_from_model,
-                                                load_flax_leaves,
+                                                flax_order, load_flax_leaves,
                                                 model_config,
                                                 register_model_class)
+from paddlebox_tpu_torch.obs.metrics import REGISTRY
 from paddlebox_tpu_torch.ps.quant_table import (QuantServingTable,
                                                 quantize_snapshot)
 from paddlebox_tpu_torch.ps.replica_cache import HotKeyCache
@@ -129,23 +131,25 @@ class CTRPredictor:
     """Batch predictor over an exported bundle, on ``device`` (default
     ``cuda``; raises without a card unless ``device="cpu"``).
     ``coalesced_keys`` counts the pulls coalescing saved (the reference's
-    ``serve.coalesced_keys`` counter). ``ps_endpoints`` (with
-    ``ps_table``) and ``reload_of`` are the reference's and refused."""
+    ``serve.coalesced_keys`` counter).
+
+    ``reload_of``, the predictor this one replaces in a hot reload: when
+    their ``fwd_fingerprint``s differ, ``serving.reload_recompiled`` counts
+    one (the reference's compile ledger; a same-shape swap counts none).
+    ``load_table=False`` leaves the table empty for the caller to load (a
+    reload's checkpoint rows replace the bundle's). ``ps_endpoints`` (with
+    ``ps_table``) is the reference's and refused."""
 
     def __init__(self, path: str, device: DeviceLike = None,
                  batch_size: Optional[int] = None,
                  buckets: Optional[BucketSpec] = None,
                  reload_of: Optional["CTRPredictor"] = None,
                  ps_endpoints: Optional[Sequence[str]] = None,
-                 ps_table: str = "embedding"):
+                 ps_table: str = "embedding", load_table: bool = True):
         if ps_endpoints:
             raise NotImplementedError(
                 "ps_endpoints: serving from a remote PS service is not "
                 "ported yet (ROADMAP A.9)")
-        if reload_of is not None:
-            raise NotImplementedError(
-                "reload_of: the reload fingerprint (fwd_fingerprint) is not "
-                "ported yet (ROADMAP A.5)")
         self.device = resolve_device(device)
         with open(os.path.join(path, "model.json")) as f:
             meta = json.load(f)
@@ -154,6 +158,7 @@ class CTRPredictor:
             self.feed_conf.batch_size = batch_size
         self.table_conf = TableConfig(**meta["table"])
         self.model_version = meta.get("version")
+        self.use_cvm = bool(meta["use_cvm"])
         econ = serving_econ_conf()
         self.serves_quantized = econ.quantized
         if econ.quantized:
@@ -161,13 +166,14 @@ class CTRPredictor:
             # on load (the same scheme and footprint)
             self.table = QuantServingTable(self.table_conf, self.device)
             qpath = os.path.join(path, "table.q8.npz")
-            if os.path.exists(qpath):
+            if load_table and os.path.exists(qpath):
                 self.table.load(qpath)
-            else:
+            elif load_table:
                 self.table.load_f32(os.path.join(path, "table.npz"))
         else:
             self.table = ServingTable(self.table_conf, self.device)
-            self.table.load(os.path.join(path, "table.npz"))
+            if load_table:
+                self.table.load(os.path.join(path, "table.npz"))
         self._cache = (HotKeyCache(econ.cache_rows, self.table_conf.pull_dim)
                        if econ.cache_rows else None)
         self._coalesce = econ.coalesce
@@ -191,11 +197,28 @@ class CTRPredictor:
             dense_dim=self.dense_dim, use_cvm=meta["use_cvm"],
             device=self.device)
         self.assembler = BatchAssembler(self.feed_conf, buckets)
+        if reload_of is not None and \
+                reload_of.fwd_fingerprint() != self.fwd_fingerprint():
+            # the swap lands on a forward of another shape or class
+            REGISTRY.add("serving.reload_recompiled")
 
     def fwd_fingerprint(self) -> tuple:
-        raise NotImplementedError(
-            "fwd_fingerprint, the reload fingerprint, is not ported yet "
-            "(ROADMAP A.5)")
+        """What would force another forward, where the reference keys its
+        compiled forward: the model class and kwargs, ``use_cvm``, each
+        flax leaf's shape and dtype in the leaf order, the batch geometry,
+        ``pull_dim`` and the device. Equal fingerprints: a swap between
+        the two predictors runs the same forward. Reads metadata only."""
+        params = list(self.model.parameters())
+        leaves = []
+        for j, kernel in flax_order(self.model):
+            shape = tuple(params[j].shape)
+            leaves.append((shape[::-1] if kernel else shape,
+                           str(params[j].dtype)))
+        cfg = model_config(self.model)
+        return (cfg["class"], json.dumps(cfg["kwargs"], sort_keys=True),
+                self.use_cvm, tuple(leaves), self.feed_conf.batch_size,
+                self.num_slots, self.dense_dim, self.table_conf.pull_dim,
+                str(self.device))
 
     # -- the pull: hot-key cache and coalescing -------------------------------
 

@@ -1,9 +1,10 @@
-"""Observability of the port (counterpart of the first half of
-``paddlebox_tpu/obs/``): ``metrics`` (the typed registry ``REGISTRY``),
-``trace`` (the Chrome-trace span tracer), ``heartbeat`` (the per-pass
-JSONL records) and ``postmortem`` (the crash bundle). The serving exports
-of the reference's ``obs`` package (``http``, ``prometheus``, ``slo``,
-``fleet``, ``collector``) are not ported (ROADMAP A.5).
+"""Observability of the port (counterpart of ``paddlebox_tpu/obs/``):
+``metrics`` (the typed registry ``REGISTRY``), ``trace`` (the Chrome-trace
+span tracer), ``heartbeat`` (the per-pass JSONL records), ``postmortem``
+(the crash bundle), ``slo`` (rules and alerts), ``prometheus`` and
+``http`` (``/metrics`` and ``/healthz``) and ``collector`` (one timeline
+of many processes' trace dumps). The host tier's ``fleet`` view is not
+ported yet (ROADMAP A.5b).
 
 The modules import neither torch nor numpy, and the package imports none
 of them until asked: the data feed's parse workers import ``obs.metrics``

@@ -9,8 +9,8 @@ so a crash during the dump never leaves a half bundle that looks whole:
 - ``crash.json``: reason, exception and traceback, every thread's stack,
   pid and time;
 - ``metrics.json``: the registry's snapshot (``obs/metrics.py``);
-- ``alerts.json``: the SLO engines' alerts, an empty list until the
-  serving tier's ``obs/slo.py`` is ported (ROADMAP A.5);
+- ``alerts.json``: the alert state of every live SLO engine
+  (``obs/slo.py``, ``all_alerts``), firing ones included;
 - ``trace.json``: the tracer's ring buffers as Chrome trace JSON;
 - ``heartbeat_tail.jsonl``: the last ``obs_postmortem_hb_tail`` lines of
   the heartbeat file, its rotated segments and its role sidecars;
@@ -167,7 +167,7 @@ def dump_postmortem(reason: str, exc: Optional[BaseException] = None,
         # imported here: the checkpoint writer imports this module at its
         # fatal site, and ckpt/ imports obs/ at import time
         from paddlebox_tpu_torch.ckpt import atomic as ckpt_atomic
-        from paddlebox_tpu_torch.obs import trace
+        from paddlebox_tpu_torch.obs import slo, trace
 
         stamp = time.strftime("%Y%m%d-%H%M%S")
         final = os.path.join(
@@ -190,7 +190,7 @@ def dump_postmortem(reason: str, exc: Optional[BaseException] = None,
             "extra": extra or {},
         })
         _write("metrics.json", REGISTRY.snapshot())
-        _write("alerts.json", [])
+        _write("alerts.json", slo.all_alerts())
         _write("trace.json", {"traceEvents": trace.TRACE.events(),
                               "displayTimeUnit": "ms"})
         _write("heartbeat_tail.jsonl", _heartbeat_tail(tail_n))

@@ -21,8 +21,10 @@ window and counts what it drops in ``obs.trace.dropped_events``. An
 enabled tracer also dumps at interpreter exit.
 
 ``TraceContext``, ``mint``, ``current``, ``from_wire`` and ``activate``
-carry a request's trace identity as the reference's do; nothing in the
-port's serving uses them yet (ROADMAP A.5).
+carry a request's trace identity as the reference's do: the serving tier
+stamps it on its spans and carries it across the front door, the batcher
+and a replica child's wire (``serving/``), and ``obs/collector.py`` links
+the hops of one request across processes.
 
 Imports neither torch nor numpy: the data feed's parse workers import it.
 """

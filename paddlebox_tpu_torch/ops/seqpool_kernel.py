@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -120,11 +121,13 @@ def seqpool_cvm_cuda(emb: torch.Tensor, segment_ids: torch.Tensor,
     if rc != 0:
         raise RuntimeError("seqpool_cvm kernel launch failed: "
                            f"{lib.pbx_cuda_error_string(rc).decode()}")
-    seqpool_cvm_cuda.launches += 1
+    with _count_lock:            # thread-scope replicas launch at once
+        seqpool_cvm_cuda.launches += 1
     return out.view(batch_size, num_slots, out_dim)
 
 
 seqpool_cvm_cuda.launches = 0
+_count_lock = threading.Lock()
 
 
 def seqpool_cvm(emb: torch.Tensor, segment_ids: torch.Tensor,

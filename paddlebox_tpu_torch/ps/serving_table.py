@@ -1,7 +1,7 @@
 """The serving table: a ``table.npz`` snapshot on the serving device,
 looked up read-only (the serving half of
-``paddlebox_tpu/ps/table.py::EmbeddingTable``: ``load`` and
-``pull(create=False)``).
+``paddlebox_tpu/ps/table.py::EmbeddingTable``: ``load``, ``load_delta``
+and ``pull(create=False)``).
 
 A ``table.npz`` snapshot holds ``keys`` [n] uint64, ``values``
 [n, pull_dim] float32, ``state`` [n, state_dim] float32 and ``embedx_ok``
@@ -15,6 +15,12 @@ Pull reproduces the reference bit for bit:
 - key 0 (the padding feasign) pulls zeros;
 - the embedx and expand columns of a row whose ``embedx_ok`` is False pull
   zeros. Those columns are zeroed once, at load.
+
+``load_delta`` upserts a delta snapshot (a hot reload's chain, after its
+base): a key the table holds takes the delta's row in place, a new key is
+merged into the sorted keys, each delta row gated by its own
+``embedx_ok``. It runs on the table's device: one sort and one
+``searchsorted`` over the whole delta, no per-key host work.
 
 Creating rows, push and the pass lifecycle belong to the host training
 table, ``ps/table.py::EmbeddingTable``.
@@ -53,7 +59,9 @@ class ServingTable:
             self.load_snapshot({k: data[k] for k in
                                 ("keys", "values", "embedx_ok")})
 
-    def load_snapshot(self, snap: Dict[str, np.ndarray]) -> None:
+    def _upload(self, snap: Dict[str, np.ndarray]):
+        """A snapshot's keys (sorted, int64 view) and gated values on the
+        device."""
         keys = np.ascontiguousarray(snap["keys"], dtype=np.uint64)
         values = np.asarray(snap["values"], dtype=np.float32)
         ok = np.asarray(snap["embedx_ok"], dtype=bool)
@@ -70,7 +78,33 @@ class ServingTable:
         gated = ~torch.from_numpy(ok).to(self.device)[order]
         # embedx + expand columns are served only once a row has earned them
         vals[:, self.conf.cvm_offset:].masked_fill_(gated[:, None], 0.0)
-        self._keys, self._values = skeys, vals
+        return skeys, vals
+
+    def load_snapshot(self, snap: Dict[str, np.ndarray]) -> None:
+        self._keys, self._values = self._upload(snap)
+
+    def load_delta(self, path: str) -> None:
+        """Upsert a delta snapshot file over the table."""
+        with np.load(path) as data:
+            dkeys, dvals = self._upload({k: data[k] for k in
+                                         ("keys", "values", "embedx_ok")})
+        n = self._keys.shape[0]
+        if dkeys.shape[0] == 0:
+            return
+        if n == 0:
+            self._keys, self._values = dkeys, dvals
+            return
+        pos = torch.searchsorted(self._keys, dkeys).clamp_(max=n - 1)
+        found = self._keys[pos] == dkeys
+        self._values[pos[found]] = dvals[found]
+        new = ~found
+        if not bool(new.any()):
+            return
+        # the merged keys stay sorted in their int64 view, as pull's
+        # searchsorted needs
+        self._keys, order = torch.sort(torch.cat([self._keys, dkeys[new]]),
+                                       stable=True)
+        self._values = torch.cat([self._values, dvals[new]])[order]
 
     def pull(self, keys: np.ndarray, create: bool = False) -> torch.Tensor:
         """``keys`` [N] uint64 -> [N, pull_dim] float32 on the table's

@@ -17,11 +17,13 @@ The call sites in the port, under the reference's names:
   ``donefile.append`` (``trainer/donefile.py``);
 - the data feed's file opens and reads (``data/ingest.py``
   ``with_io_retries``, the operation its caller names);
-- the train guard's ``trainer.step`` (``trainer/guard.py``).
+- the train guard's ``trainer.step`` (``trainer/guard.py``);
+- the serving tier's, :data:`SERVE_FAULT_OPS` (``serving/proc.py`` and
+  ``serving/transport.py``).
 
-The serving tier's points and ``ps.shard_spawn`` come with their modules
-(ROADMAP A.5, A.9). The checkpoint pipeline's named crash points are
-``ckpt/faults.py``.
+``ps.shard_spawn`` comes with the PS service (ROADMAP A.9) and the host
+tier's ``serve.host_spawn`` with ``serving/host.py`` (A.5b). The
+checkpoint pipeline's named crash points are ``ckpt/faults.py``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,24 @@ import random
 import threading
 import time
 from typing import Callable, Iterable, Optional, Tuple
+
+#: The serving tier's operations, in wire order (the reference's names):
+#:
+#:   serve.spawn       the parent's spawn of a process-scope replica
+#:   serve.frame_send  before a frame's header goes out
+#:   serve.frame_mid   between header and payload: the peer reads a torn
+#:                     frame
+#:   serve.side_write  the child's health and metrics snapshot (the child
+#:                     counts serve.side_write_failures and keeps serving)
+#:
+#: A replica child is a fault domain of its own and installs its own
+#: injector from its worker spec.
+SERVE_FAULT_OPS: Tuple[str, ...] = (
+    "serve.spawn",
+    "serve.frame_send",
+    "serve.frame_mid",
+    "serve.side_write",
+)
 
 
 class FaultInjector:

@@ -8,9 +8,11 @@ arena, the disk ladder with the dense lars, lamb and gradient merging and
 the cvm ops, and the multi-process reader over both protocols with the
 error budget and the archive, and a staged device-feed pass with its trace
 and heartbeat, and a guarded pass with a rollback, a profiled pass and a
-postmortem bundle, with them blocked; its entry points default to the card
-and raise without one (the trainer too); its kernel modules import without
-a CUDA toolkit."""
+postmortem bundle, and a process-scope serving fleet whose spawned child
+builds its own predictor, with them blocked (in the child too); its entry
+points default to the card and raise without one (the trainer and the
+serving tier too); its kernel modules import without a CUDA toolkit; the
+serving tier's batcher and transport import neither torch nor numpy."""
 
 import ast
 import os
@@ -1002,3 +1004,91 @@ def test_guard_profiler_postmortem_with_jax_blocked(tmp_path):
     """)
     assert res.returncode == 0, res.stderr
     assert "GUARDED" in res.stdout
+
+
+def test_serving_fleet_with_jax_blocked(tmp_path):
+    """A process-scope ``ReplicaSet`` over a port bundle serves on the CPU
+    with jax and paddlebox_tpu blocked in the parent (``sys.modules``) and
+    in its spawned child (importable stand-ins that record the attempt and
+    raise); behind a ``FrontDoor``, after a child is killed too. Without
+    ``device`` the server and the fleets raise (no card here), the process
+    child failing its spawn; batcher and transport load with torch and
+    numpy blocked."""
+    block = tmp_path / "blocked"
+    marker = tmp_path / "imported.txt"
+    for name in sorted(FORBIDDEN):
+        (block / name).mkdir(parents=True)
+        (block / name / "__init__.py").write_text(
+            f"open({str(marker)!r}, 'a').write({name!r} + '\\n')\n"
+            f"raise ImportError('blocked: {name}')\n")
+    res = _run(f"""
+        import sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {str(block)!r})
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        from paddlebox_tpu_torch.config import (DataFeedConfig, SlotConfig,
+                                                TableConfig)
+        from paddlebox_tpu_torch.inference.predictor import \\
+            save_inference_model
+        from paddlebox_tpu_torch.inference.server import (PredictServer,
+                                                          predict_lines)
+        from paddlebox_tpu_torch.models import DeepFM
+        from paddlebox_tpu_torch.serving import FrontDoor, ReplicaSet
+        from paddlebox_tpu_torch.serving.proc import SpawnError
+        conf = DataFeedConfig(slots=[
+            SlotConfig("label", type="float", is_dense=True, dim=1),
+            SlotConfig("a"), SlotConfig("b")], batch_size=8)
+        tconf = TableConfig(embedx_dim=4)
+        keys = np.arange(1, 60, dtype=np.uint64)
+        rng = np.random.default_rng(0)
+        snap = dict(keys=keys, values=rng.uniform(size=(59, 7)).astype('f4'),
+                    state=np.zeros((59, 2), 'f4'),
+                    embedx_ok=rng.uniform(size=59) < 0.5)
+        path = save_inference_model({str(tmp_path / 'b')!r},
+                                    DeepFM(2 * 7, (8,)), snap, conf, tconf,
+                                    version="20260101/00001")
+        lines = [f"1 0 1 {{k}} 1 {{k + 1}}" for k in range(1, 11)]
+        fleet = ReplicaSet.from_bundle(path, replicas=2, scope="process",
+                                       device="cpu", probe_interval=60.0)
+        with fleet, FrontDoor(fleet) as door:
+            s = predict_lines(*door.address, lines, deadline_ms=60000.0)
+            assert s.shape == (10,) and np.isfinite(s).all()
+            fleet.replicas[0].kill()
+            again = predict_lines(*door.address, lines, deadline_ms=60000.0)
+            assert np.array_equal(again, s)
+            assert fleet.versions()[1] == "20260101/00001"
+        for make in (lambda: PredictServer(path),
+                     lambda: ReplicaSet.from_bundle(path, replicas=1,
+                                                    scope="thread")):
+            try:
+                make()
+            except RuntimeError as e:
+                assert "CUDA is not available" in str(e)
+            else:
+                raise AssertionError("served without a card")
+        try:
+            ReplicaSet.from_bundle(path, replicas=1, scope="process")
+        except SpawnError as e:
+            assert "before handshake" in str(e)
+        else:
+            raise AssertionError("a child served without a card")
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("FLEET", s.shape[0])
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "FLEET 10" in res.stdout
+    assert not marker.exists(), marker.read_text()
+    res = _run("""
+        import sys
+        sys.modules["torch"] = None
+        sys.modules["numpy"] = None
+        from paddlebox_tpu_torch.serving import batcher, transport
+        import paddlebox_tpu_torch.serving as s
+        assert s.DeadlineBatcher and s.TornFrame
+        print("LIGHT")
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "LIGHT" in res.stdout

@@ -635,8 +635,11 @@ def test_cache_and_coalesce_bit_identical(bundle, econ_flags):
 
 
 def test_predictor_validates_and_refuses(bundle, econ_flags):
-    """A bad knob fails at construction; the remote PS and the reload
-    fingerprint stay refused (ROADMAP A.9, A.5)."""
+    """A bad knob fails at construction; the remote PS stays refused
+    (ROADMAP A.9); the reload fingerprint is ported: a reload of the same
+    bundle, quantized or not, lands on the same forward and counts no
+    ``serving.reload_recompiled``."""
+    from paddlebox_tpu_torch.obs.metrics import REGISTRY
     path = bundle[0]
     econ_flags("serve_cache_rows", 3)
     with pytest.raises(ValueError):
@@ -645,7 +648,8 @@ def test_predictor_validates_and_refuses(bundle, econ_flags):
     with pytest.raises(NotImplementedError, match="A.9"):
         CTRPredictor(path, device="cpu", ps_endpoints=["localhost:1"])
     pred = CTRPredictor(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        CTRPredictor(path, device="cpu", reload_of=pred)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        pred.fwd_fingerprint()
+    before = REGISTRY.counter("serving.reload_recompiled").get()
+    econ_flags("serve_quantized", True)
+    again = CTRPredictor(path, device="cpu", reload_of=pred)
+    assert again.fwd_fingerprint() == pred.fwd_fingerprint()
+    assert REGISTRY.counter("serving.reload_recompiled").get() == before
