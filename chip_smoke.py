@@ -14,7 +14,9 @@ Phases, each fatal on failure:
              alone and fused (``csrc/device_index.cu``); with ``g++`` the
              host key index (``csrc/pbx_index.cpp``) and the file
              tokenizer (``csrc/pbx_feed.cpp``). Print each kernel's ptxas
-             report (registers, spills, shared memory).
+             report (registers, spills, shared memory). Then the embedded
+             loader (``csrc/pbx_serve.cpp``) starts building on a thread
+             of its own, for phase 4s.
 2. kernel  — hold each kernel, launched on the card, against its plain
              PyTorch version (the forward's on the host, which sums in the
              kernel's key order). Forward: the serving shape (B=512, S=26,
@@ -241,8 +243,9 @@ Phases, each fatal on failure:
 4i. disk ladder — ``bench.py:735-860``'s tiered cell with its disk
              tier: the flagship (``show_clk_decay=0.5``) over a
              ``TieredDeviceTable`` of 2^20 rows (device prep) over a
-             native ``EmbeddingTable`` over a ``DiskTier``, phase 4e's four
-             files through ``PassManager`` with ``prefetch_feed_next`` and
+             native ``EmbeddingTable`` over a ``DiskTier``, phase 4e's
+             first two files (one day: two passes, cut from two days)
+             through ``PassManager`` with ``prefetch_feed_next`` and
              ``train_from_files``; after each ``end_pass`` every row spills
              (``evict_cold(show_threshold=inf)``) and the disk compacts,
              so each pass restages from disk. In turns: a synchronous
@@ -392,6 +395,34 @@ Phases, each fatal on failure:
    reload's ``serving.reload_ms`` in both scopes and the card's peak
    memory during a thread-scope swap, each beside the card's name and
    power limit.
+4r. host tier — phase 3's bundle served by a ``HostFleet`` of 2 spawned
+             hosts (each a process group: a thread-scope ``ReplicaSet`` of
+             1 ``CTRPredictor`` on the card, a ``FrontDoor``, a
+             ``/metrics``) under a ``FileResolver`` and an ``LBClient``:
+             (a) 4 clients x 16 requests of 512 lines, the scores within
+             1e-6 of a direct ``CTRPredictor``, each host's seqpool
+             launches (counted from 0 on its control channel) equal to the
+             requests it served, on both hosts, and equal to its
+             ``/metrics`` through ``FleetMetrics``; (b) the reference
+             drill's ``host_sigkill``: a killpg of one host under traffic,
+             no client failure, a newer generation published, the host
+             restarted and its group gone, then both hosts serving; (c)
+             ``rolling_drain``: a decommission under traffic, no failure,
+             then ``add_host``. ``host_failover``'s numbers: steady
+             examples/s, examples/s in the kill window, the MTTR.
+4s. embedded — ``export_embedded_bundle`` of phase 3's bundle (4,194,304
+             rows: key and value files, manifest, layout, the exported
+             dense program and its AOTInductor package; on a process of
+             its own from phase 3 on, beside phases 4-4p), then the C++
+             loader ``pbx_serve`` (``csrc/pbx_serve.cpp``, built by
+             ``ops/_build.py`` on a thread since phase 1) scores 16 batches
+             of 512 of phase 3's lines with no Python: the key index's
+             lookup, the seqpool+CVM kernel, the AOTI dense forward; its
+             scores within rtol 2e-5, atol 1e-6 of ``CTRPredictor``, its
+             launches equal to its batches, and it exits nonzero on a
+             truncated bundle, without a CUDA device and without its
+             kernel library. Its ms a batch of lookup, H2D, pool, dense,
+             D2H.
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -2978,8 +3009,8 @@ def time_calls(obj, name: str, log: list, sync: bool) -> None:
 
 
 def tiered_passes(world, files, prefetch: bool, entry: str, tag: str,
-                  counted: bool = False, stop: int = 0):
-    """The day/pass loop over ``files`` (one a pass, TIER_DAYS), one pass
+                  counted: bool = False, stop: int = 0, days=TIER_DAYS):
+    """The day/pass loop over ``files`` (one a pass, ``days``), one pass
     per ``next()``: ``begin_pass`` stages the pass's keys, the next file
     preloads and, with ``prefetch``, starts staging
     (``prefetch_feed_next``); ``entry`` ("files": ``train_from_files``, its
@@ -2991,7 +3022,7 @@ def tiered_passes(world, files, prefetch: bool, entry: str, tag: str,
     graphs = tr.step.run_graphs
     world.setdefault("launches", {})
     p = 0
-    for day, n_day in TIER_DAYS:
+    for day, n_day in days:
         pm.set_date(day)
         for _ in range(n_day):
             caps = graphs.captures if graphs is not None else 0
@@ -3328,6 +3359,10 @@ def phase_tiered_loop(rng) -> dict:
 # -- phase 4i: the disk ladder ------------------------------------------------
 
 DISK_WORLDS = ("main", "sync", "demote", "admit")
+#: the disk ladder's passes: the tiered loop's first day (two passes, a
+#: delta each and the day's base), cut from its two days so that the whole
+#: script stays near 1000 s of its 1200 with phases 4r and 4s
+DISK_DAYS = TIER_DAYS[:1]
 DISK_ADMIT_SHOWS = "2"        # PBOX_FLAGS_ps_admit_shows of the admission run
 
 
@@ -3362,13 +3397,15 @@ def phase_disk_ladder(rng, files) -> dict:
     flagship (``show_clk_decay=0.5``) over a ``TieredDeviceTable`` of 2^20
     rows on device prep over a native ``EmbeddingTable`` over a
     ``DiskTier``, through ``PassManager`` with ``prefetch_feed_next`` and
-    ``CTRTrainer.train_from_files`` (run graphs), the four passes of phase
-    4e's files; after each ``end_pass`` every row spills
+    ``CTRTrainer.train_from_files`` (run graphs), the passes of
+    ``DISK_DAYS`` over phase 4e's first files; after each ``end_pass`` every
+    row spills
     (``evict_cold(show_threshold=inf)``) and the disk compacts, so each
     pass restages from disk. In turns with it: a synchronous twin, a
     ``PBOX_FLAGS_ps_tier_demote=1`` twin and an admission run
     (``PBOX_FLAGS_ps_admit_shows=2``)."""
     card = card_line()
+    files = files[:sum(n for _, n in DISK_DAYS)]
     conf, tconf, _ = train_confs()
     conf = dataclasses.replace(conf, show_clk_decay=0.5)
     model = random_deepfm(rng, TS * conf.pull_dim)
@@ -3389,7 +3426,8 @@ def phase_disk_ladder(rng, files) -> dict:
     worlds["admit"]["admitted"] = []
     gens = {who: tiered_passes(w, files, who != "sync", "files",
                                f"disk ladder {who}",
-                               counted=who in ("main", "admit"))
+                               counted=who in ("main", "admit"),
+                               days=DISK_DAYS)
             for who, w in worlds.items()}
     recs = {who: [] for who in worlds}
     t0 = time.perf_counter()
@@ -3452,7 +3490,7 @@ def phase_disk_ladder(rng, files) -> dict:
     mroot = os.path.join(WORK, "disk-main", "model")
     droot = os.path.join(WORK, "disk-demote", "model")
     require(trail_kinds(mroot) == trail_kinds(droot) and
-            len(trail_kinds(mroot)) == len(files) + len(TIER_DAYS),
+            len(trail_kinds(mroot)) == len(files) + len(DISK_DAYS),
             f"disk ladder: trails {trail_kinds(mroot)} vs "
             f"{trail_kinds(droot)}")
     for r in donefile.read_done(mroot):
@@ -5743,6 +5781,456 @@ def phase_serving_tier(rng, bundle: str, batches) -> dict:
     return result
 
 
+# -- phase 4r: the multi-host serving tier ------------------------------------
+
+HOSTS = 2                   # serving hosts of 4r's fleet
+HT_CLIENTS = 4              # client threads of 4r's traffic, through the LB
+HT_DEADLINE_MS = 60000.0    # a request's deadline through failover
+
+
+def host_counts(hf, reset: bool = False) -> dict:
+    """Each live host's seqpool launches, read on its control channel."""
+    return {h.name: h.launch_counts(reset=reset).get("seqpool_cvm_cuda", 0)
+            for h in hf.hosts if h is not None}
+
+
+def fleet_gauges(fm, hf, metric: str) -> dict:
+    """A metric of each live host, scraped from its ``/metrics`` through
+    the fleet view."""
+    fm.scrape_once()
+    return {h.name: fm.registry.gauge(f"fleet.hosts.{h.name}.{metric}").get()
+            for h in hf.hosts if h is not None}
+
+
+class LBLoad:
+    """``HT_CLIENTS`` threads sending the chunks through an ``LBClient``:
+    client c sends chunk (c + i) % n on its i-th request, ``per_client``
+    requests, or until ``stop`` is set (``per_client=None``). Each answer
+    is held to ``want`` of its chunk."""
+
+    def __init__(self, lb, chunks, want, per_client=None):
+        self.lb, self.chunks, self.want = lb, chunks, want
+        self.per_client = per_client
+        self.stop = threading.Event()
+        self.failures, self.lat = [], []
+        self.worst = 0.0
+        self.rows = 0
+        self._lock = threading.Lock()
+        self.threads = [threading.Thread(target=self._client, args=(c,))
+                        for c in range(HT_CLIENTS)]
+
+    def _client(self, c: int) -> None:
+        i = 0
+        while (i < self.per_client if self.per_client is not None
+               else not self.stop.is_set()):
+            k = (c + i) % len(self.chunks)
+            i += 1
+            t0 = time.perf_counter()
+            try:
+                s = np.asarray(self.lb.predict_lines(
+                    self.chunks[k], deadline_ms=HT_DEADLINE_MS), np.float32)
+            except Exception as e:  # noqa: BLE001 - reported, then required
+                with self._lock:
+                    self.failures.append(f"{type(e).__name__}: {e}")
+                continue
+            ms = (time.perf_counter() - t0) * 1e3
+            err = (float(np.abs(s - self.want[k]).max())
+                   if s.shape == self.want[k].shape else float("inf"))
+            with self._lock:
+                self.lat.append(ms)
+                self.worst = max(self.worst, err)
+                self.rows += s.shape[0]
+
+    def start(self) -> "LBLoad":
+        self.t0 = time.perf_counter()
+        for t in self.threads:
+            t.start()
+        return self
+
+    def join(self) -> "LBLoad":
+        self.stop.set()
+        for t in self.threads:
+            t.join()
+        self.secs = time.perf_counter() - self.t0
+        return self
+
+    def check(self, tag: str) -> None:
+        require(not self.failures, f"{tag}: {len(self.failures)} client "
+                f"failures, {self.failures[:3]}")
+        require(self.worst <= 1e-6, f"{tag}: |LB - direct CTRPredictor| = "
+                f"{self.worst}")
+
+    def summary(self) -> dict:
+        return {"requests": len(self.lat), "rows": self.rows,
+                "secs": self.secs, "examples_per_s": self.rows / self.secs,
+                "p50_ms": float(np.percentile(self.lat, 50)),
+                "p99_ms": float(np.percentile(self.lat, 99)),
+                "max_err": self.worst}
+
+
+def phase_host_tier(bundle: str, batches) -> dict:
+    """(4r) The multi-host serving tier over phase 3's flagship bundle
+    (DeepFM 512-256-128, 26 Criteo slots + 13 dense, B=512, 4,194,304
+    rows): a ``HostFleet`` of 2 spawned hosts, each a process group with a
+    thread-scope ``ReplicaSet`` of 1 ``CTRPredictor`` on the card (its own
+    CUDA context and table), a ``FrontDoor`` and a ``/metrics``, publishing
+    to an endpoints file a ``FileResolver`` watches for an ``LBClient``.
+    (a) 4 client threads x 16 requests of 512 lines through the LB, each
+    host's launch counts set to 0 first: the scores within 1e-6 of a direct
+    ``CTRPredictor``, each host's seqpool launches equal to the requests it
+    served, on both hosts, the same counts scraped from each host's
+    ``/metrics`` through ``FleetMetrics``. (b) the reference drill's
+    ``host_sigkill``: a killpg of one host under closed-loop traffic, no
+    client failure, a newer generation published, the host restarted, its
+    group gone; the MTTR (the kill to the restored set published), then 16
+    more requests served by both hosts. (c) ``rolling_drain``: a
+    decommission under traffic, no failure, then ``add_host``. Prints
+    ``host_failover``'s numbers: steady examples/s, examples/s in the kill
+    window, MTTR."""
+    from paddlebox_tpu_torch.obs.fleet import FleetMetrics
+    from paddlebox_tpu_torch.obs.metrics import MetricsRegistry
+    from paddlebox_tpu_torch.serving import FileResolver, HostFleet, LBClient
+    card = card_line()
+    t_phase = time.perf_counter()
+    chunks = [criteo_lines(b) for b in batches]
+    direct = CTRPredictor(bundle, device="cuda")
+    parser = SlotParser(direct.feed_conf)
+    want = [direct.predict_records([parser.parse_line(ln) for ln in c])
+            for c in chunks]
+    del direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.join(WORK, "host_tier")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "endpoints.json")
+    reg = MetricsRegistry()
+    spec = {"scope": "thread", "replicas": 1,
+            "worker_spec": {"bundle": bundle, "device": "cuda"}}
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    hf = HostFleet(spec, hosts=HOSTS, resolver_path=path, registry=reg,
+                   probe_interval=0.25)
+    spawn_s = time.perf_counter() - t0
+    per_host = (free0 - torch.cuda.mem_get_info()[0]) / HOSTS
+    pgids = {h.pgid for h in hf.hosts}
+    print(f"host tier (4r): {HOSTS} hosts spawned at once in {spawn_s:.3f} s "
+          f"(each {[round(h.spawn_s, 3) for h in hf.hosts]} s to its ready "
+          f"document), device memory a host {per_host:.0f} B, generation "
+          f"{hf.generation} [{card}]")
+    require(all(g != os.getpgrp() for g in pgids),
+            "(4r) a host shares the parent's process group")
+    hf.start()
+    res = FileResolver(path, poll_s=0.1, registry=reg)
+    lb = LBClient(res, registry=reg, probe_interval=0.25).start()
+    fm = FleetMetrics(interval=3600.0)
+    fm.add_host_fleet(hf)
+    try:
+        # warm each host on its own front door, then the counts to 0
+        for h in hf.hosts:
+            predict_lines("127.0.0.1", h.port, chunks[0],
+                          deadline_ms=HT_DEADLINE_MS)
+        host_counts(hf, reset=True)
+        served0 = fleet_gauges(fm, hf, "pbx_serving_requests")
+        # (a) steady traffic, counted
+        steady = LBLoad(lb, chunks, want, per_client=len(chunks)).start()
+        steady.join().check("(a)")
+        counts = host_counts(hf)
+        scraped = fleet_gauges(fm, hf, "pbx_serve_launches_seqpool_cvm_cuda")
+        served = fleet_gauges(fm, hf, "pbx_serving_requests")
+        share = {n: served[n] - served0[n] for n in served}
+        require(sum(counts.values()) == HT_CLIENTS * len(chunks),
+                f"(a) seqpool launched {counts} for "
+                f"{HT_CLIENTS * len(chunks)} requests")
+        require(counts == share and min(counts.values()) > 0,
+                f"(a) launches {counts} against each host's requests {share}")
+        require(scraped == {n: float(v) for n, v in counts.items()},
+                f"(a) /metrics carried {scraped}, the hosts counted {counts}")
+        a = steady.summary()
+        print(f"host tier (4r) (a) {HT_CLIENTS} clients x {len(chunks)} "
+              f"requests of {B} lines through the LB: seqpool launches by "
+              f"host {counts} (each host's share of requests {share}, its "
+              f"/metrics {scraped}), max |LB - direct| {a['max_err']:.3e}, "
+              f"p50 {a['p50_ms']:.1f} ms, p99 {a['p99_ms']:.1f} ms, "
+              f"{a['examples_per_s']:.1f} examples/s [{card}]")
+
+        # (b) host_sigkill under closed-loop traffic
+        victim = hf.hosts[0]
+        gen0 = hf.generation
+        restarts0 = reg.counter("serving.host_restarts").get()
+        load = LBLoad(lb, chunks, want).start()
+        require(wait_until(lambda: len(load.lat) >= HT_CLIENTS, 60.0),
+                "(b) no request answered before the kill")
+        t_kill = time.monotonic()
+        hf.kill_host(0)
+        restored = wait_until(
+            lambda: reg.counter("serving.host_restarts").get() > restarts0
+            and len(hf.endpoints()) == HOSTS, 120.0)
+        mttr = time.monotonic() - t_kill
+        load.join().check("(b) through the kill")
+        require(restored, "(b) the host was not restarted")
+        require(hf.generation > gen0 + 1,
+                f"(b) generations {gen0} -> {hf.generation}")
+        require(wait_until(lambda: res.generation == hf.generation, 10.0),
+                f"(b) the resolver holds generation {res.generation}, the "
+                f"fleet published {hf.generation}")
+        require(wait_until(lambda: not pgid_alive(victim.pgid), 20.0),
+                "(b) the killed host's group outlived it")
+        kill = load.summary()
+        pgids.add(hf.hosts[0].pgid)
+        host_counts(hf, reset=True)
+        after = LBLoad(lb, chunks, want, per_client=len(chunks) // HT_CLIENTS)
+        after.start().join().check("(b) after the restart")
+        counts_b = host_counts(hf)
+        require(sum(counts_b.values()) == len(chunks) and
+                min(counts_b.values()) > 0,
+                f"(b) after the restart seqpool launched {counts_b} for "
+                f"{len(chunks)} requests")
+        print(f"host tier (4r) (b) host_sigkill: killpg of {victim.name} "
+              f"(pgid {victim.pgid}) under traffic from {HT_CLIENTS} "
+              f"clients: {kill['requests']} requests answered, 0 failed, max "
+              f"|LB - direct| {kill['max_err']:.3e}, "
+              f"serving.failover_retries "
+              f"{reg.counter('serving.failover_retries').get()}, "
+              f"serving.lb.ejections "
+              f"{reg.counter('serving.lb.ejections').get()}; generation "
+              f"{gen0} -> {hf.generation}; MTTR {mttr:.3f} s (the new host's "
+              f"spawn {hf.hosts[0].spawn_s:.3f} s); then {len(chunks)} "
+              f"requests, seqpool launches by host {counts_b} [{card}]")
+
+        # (c) rolling_drain: decommission under traffic, then add_host
+        load = LBLoad(lb, chunks, want).start()
+        require(wait_until(lambda: len(load.lat) >= HT_CLIENTS, 60.0),
+                "(c) no request answered before the drain")
+        gen1 = hf.generation
+        t0 = time.perf_counter()
+        hf.decommission(0, grace=0.5)
+        drain_s = time.perf_counter() - t0
+        require(wait_until(lambda: len(lb.hosts()) == HOSTS - 1, 10.0),
+                f"(c) the LB still holds {lb.hosts()}")
+        t0 = time.perf_counter()
+        slot = hf.add_host()
+        add_s = time.perf_counter() - t0
+        pgids.add(hf.hosts[slot].pgid)
+        require(wait_until(lambda: len(lb.hosts()) == HOSTS, 10.0),
+                f"(c) the LB holds {lb.hosts()} after add_host")
+        require(wait_until(lambda: len(load.lat) >= HT_CLIENTS * 4, 60.0),
+                "(c) traffic stalled")
+        load.join().check("(c) through the drain")
+        drain = load.summary()
+        print(f"host tier (4r) (c) rolling_drain: decommission of h0 under "
+              f"traffic in {drain_s:.3f} s (grace 0.5 s), add_host slot "
+              f"{slot} in {add_s:.3f} s, generation {gen1} -> "
+              f"{hf.generation}; {drain['requests']} requests answered, 0 "
+              f"failed, max |LB - direct| {drain['max_err']:.3e} [{card}]")
+        print(f"timing host tier (4r) host_failover: steady "
+              f"{a['examples_per_s']:.1f} examples/s ({a['requests']} "
+              f"requests), kill window {kill['examples_per_s']:.1f} "
+              f"examples/s ({kill['requests']} requests over "
+              f"{kill['secs']:.3f} s), MTTR {mttr:.3f} s; drain window "
+              f"{drain['examples_per_s']:.1f} examples/s [{card}]")
+    finally:
+        fm.stop()
+        lb.stop()
+        res.stop()
+        hf.stop()
+    for g in sorted(pgids):
+        require(wait_until(lambda: not pgid_alive(g), 20.0),
+                f"(4r) host group {g} outlived the fleet")
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = {"launches": {"serve_hosts": {"seqpool_cvm_cuda": sum(
+                  counts.values()) + sum(counts_b.values())}},
+              "steady": a, "kill": kill, "drain": drain, "mttr_s": mttr,
+              "spawn_s": spawn_s, "per_host_bytes": per_host,
+              "phase_s": time.perf_counter() - t_phase}
+    print(f"host tier (4r): {result['phase_s']:.1f} s")
+    return result
+
+
+def pgid_alive(pgid: int) -> bool:
+    try:
+        os.killpg(pgid, 0)
+        return True
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+
+
+# -- phase 4s: the embedded serving export and its C++ loader -----------------
+
+def start_loader_build():
+    """The loader's build (``csrc/pbx_serve.cpp`` against PyTorch's C++
+    library, minutes with its headers) on a thread of its own, started
+    once phase 1's libraries exist; 4s waits for it."""
+    pool = ThreadPoolExecutor(1)
+
+    def run():
+        t0 = time.perf_counter()
+        res = _build.build("pbx_serve")
+        return (time.perf_counter() - t0, res is not None,
+                str(_build.library_path("pbx_serve")))
+
+    fut = pool.submit(run)
+    pool.shutdown(wait=False)
+    return fut
+
+
+#: processes the script starts beside its phases (stopped at its end)
+BACKGROUND = []
+
+
+def start_export(bundle: str, batches) -> dict:
+    """Phase 4s's export of phase 3's bundle (``export_embedded_bundle`` on
+    the card; AOTInductor's compile takes most of two minutes) on a process
+    of its own, started once phase 3 wrote the bundle: it runs beside
+    phases 4-4p and ends before 4q, whose device-memory readings it would
+    disturb; at the lowest CPU priority and with one inductor compile
+    thread, so that it takes the cores those phases leave idle. Its key
+    padding is the largest of phase 3's batches'."""
+    out = os.path.join(WORK, "embedded")
+    npad = max(int(b.keys.shape[0]) for b in batches)
+    log_path = os.path.join(WORK, "export.log")
+    code = (f"import os, sys, time; os.nice(19); "
+            f"sys.path.insert(0, {ROOT!r}); "
+            "from paddlebox_tpu_torch.inference.export_embedded import "
+            "export_embedded_bundle; t0 = time.perf_counter(); "
+            f"export_embedded_bundle({bundle!r}, {out!r}, npad={npad}, "
+            "device='cuda'); "
+            "print(f'export {time.perf_counter() - t0:.3f} s')")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code], stdout=log,
+            stderr=subprocess.STDOUT, cwd=ROOT,
+            env=dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS="1"))
+    BACKGROUND.append(proc)
+    return {"proc": proc, "t0": time.perf_counter(), "out": out,
+            "npad": npad, "log": log_path}
+
+
+def run_loader(exe: str, *args, env=None):
+    return subprocess.run([exe, *args], capture_output=True, text=True,
+                          timeout=600, env=env)
+
+
+def phase_embedded(bundle: str, batches, loader_build, export) -> dict:
+    """(4s) The embedded serving export of phase 3's flagship bundle
+    (4,194,304 rows) and its C++ loader: ``export_embedded_bundle`` (on its
+    process since phase 3, ``start_export``) writes the key and value
+    files, the manifest, the layout, the exported dense program and its
+    AOTInductor package; ``pbx_serve`` (built by
+    ``ops/_build.py`` from the checkout) scores 16 batches of 512 of phase
+    3's lines with no Python: the key index's lookup, the seqpool+CVM
+    kernel, the AOTI dense forward. Its scores within rtol 2e-5, atol 1e-6
+    of ``CTRPredictor`` on the card, its printed launches equal to its
+    batches; a truncated bundle, no CUDA device and no kernel library each
+    make it exit nonzero."""
+    from paddlebox_tpu_torch.inference.export_embedded import (AOTI_FILE,
+                                                               EP_FILE)
+    card = card_line()
+    t_phase = time.perf_counter()
+    proc, out = export["proc"], export["out"]
+    rc = proc.wait(timeout=900)
+    waited_s = time.perf_counter() - t_phase
+    with open(export["log"]) as f:
+        log = f.read()
+    require(rc == 0, f"(4s) the export exited {rc}: {log[-3000:]}")
+    m = re.search(r"export ([\d.]+) s", log)
+    require(m is not None, f"(4s) the export printed no time: {log[-500:]}")
+    export_s = float(m.group(1))
+    sizes = {f: os.path.getsize(os.path.join(out, f)) for f in (
+        "table.keys.u64", "table.vals.f32", EP_FILE, AOTI_FILE)}
+    require(sizes["table.keys.u64"] == TABLE_ROWS * 8,
+            f"(4s) key file {sizes['table.keys.u64']} B")
+    print(f"embedded (4s): export of {TABLE_ROWS} rows, npad "
+          f"{export['npad']}, in {export_s:.3f} s on its own process "
+          f"(AOTInductor included; 4s waited {waited_s:.3f} s for it); file "
+          f"bytes {sizes} [{card}]")
+    direct = CTRPredictor(bundle, device="cuda")
+    want = np.concatenate([direct.predict_batch(b) for b in batches])
+    del direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    data = os.path.join(out, "input.txt")
+    with open(data, "w") as f:
+        for b in batches:
+            f.write("\n".join(criteo_lines(b)) + "\n")
+    build_s, built, exe = loader_build.result()
+    print(f"embedded (4s): loader {os.path.basename(exe)} "
+          f"{'built' if built else 'already built'} in {build_s:.2f} s "
+          f"(g++ against libtorch, on its own thread since phase 1)")
+    t0 = time.perf_counter()
+    run = run_loader(exe, out, data)
+    run_s = time.perf_counter() - t0
+    require(run.returncode == 0,
+            f"(4s) pbx_serve exited {run.returncode}: {run.stderr[-2000:]}")
+    got = np.array(run.stdout.split(), dtype=np.float64).astype(np.float32)
+    require(got.shape == want.shape, f"(4s) {got.shape} scores for "
+            f"{want.shape[0]} rows")
+    err = np.abs(got.astype(np.float64) - want)
+    tol = 1e-6 + 2e-5 * np.abs(want)
+    require(bool((err <= tol).all()) and bool(np.isfinite(got).all()),
+            f"(4s) loader vs CTRPredictor: max error {err.max()}, "
+            f"{int((err > tol).sum())} rows over rtol 2e-5, atol 1e-6")
+    m = re.search(r"pbx_serve: launches (\d+) batches (\d+)", run.stderr)
+    require(m is not None, f"(4s) no launch line: {run.stderr[-500:]}")
+    launches, n_batches = int(m.group(1)), int(m.group(2))
+    require(launches == n_batches == len(batches),
+            f"(4s) {launches} launches over {n_batches} batches for "
+            f"{len(batches)}")
+    split = re.search(r"pbx_serve: load ([\d.]+) ms; first batch ([\d.]+) "
+                      r"ms; ms a batch after it: (.*)", run.stderr)
+    require(split is not None, f"(4s) no time line: {run.stderr[-500:]}")
+    steps = dict(zip(split.group(3).split()[::2],
+                     map(float, split.group(3).split()[1::2])))
+    print(f"embedded (4s): pbx_serve scored {got.shape[0]} rows in "
+          f"{n_batches} batches, seqpool launches {launches}, max |loader - "
+          f"CTRPredictor| {float(err.max()):.3e}; process {run_s:.3f} s, "
+          f"bundle load {float(split.group(1)):.1f} ms, first batch "
+          f"{float(split.group(2)):.1f} ms; ms a batch after it {steps} "
+          f"[{card}]")
+
+    # no fallback: a truncated bundle, no card, no kernel library
+    bad = os.path.join(out, "truncated")
+    os.makedirs(bad, exist_ok=True)
+    for f in os.listdir(out):
+        if os.path.isfile(os.path.join(out, f)) and f != "table.keys.u64":
+            dst = os.path.join(bad, f)
+            if not os.path.exists(dst):
+                os.symlink(os.path.join(out, f), dst)
+    with open(os.path.join(bad, "table.keys.u64"), "wb") as f:
+        f.write(b"\x00" * 8)
+    refusals = {}
+    # the loader beside its key index but not its kernel library
+    lonely = os.path.join(out, "alone")
+    os.makedirs(lonely, exist_ok=True)
+    shutil.copy(exe, lonely)
+    index_lib = _build.library_path(HOST_INDEX)
+    if not os.path.exists(os.path.join(lonely, index_lib.name)):
+        os.symlink(index_lib, os.path.join(lonely, index_lib.name))
+    for tag, cmd, env in (
+            ("truncated", (exe, bad, data), None),
+            ("no CUDA device", (exe, out, data),
+             dict(os.environ, CUDA_VISIBLE_DEVICES="")),
+            ("no kernel library",
+             (os.path.join(lonely, os.path.basename(exe)), out, data), None)):
+        r = run_loader(*cmd, env=env)
+        require(r.returncode != 0 and not r.stdout.strip(),
+                f"(4s) {tag}: exit {r.returncode}, stdout "
+                f"{r.stdout[:200]!r}")
+        refusals[tag] = (r.returncode, r.stderr.strip().splitlines()[-1]
+                         if r.stderr.strip() else "")
+    print(f"embedded (4s): refusals (exit code, last stderr line) "
+          f"{refusals}")
+    result = {"launches": {"embedded_loader": {"seqpool_cvm_cuda": launches}},
+              "steps_ms": steps, "export_s": export_s, "build_s": build_s,
+              "run_s": run_s, "max_err": float(err.max()),
+              "phase_s": time.perf_counter() - t_phase}
+    print(f"embedded (4s): {result['phase_s']:.1f} s")
+    return result
+
+
 # -- phase 4f: the host-table engine and the models ---------------------------
 
 HE_BATCHES = 16              # batches of each path of the phase
@@ -7301,6 +7789,7 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         ptxas = phase_build()
+        loader_build = start_loader_build()
         err, shapes = phase_kernel(rng)
         grad_err, grad_inputs = phase_kernel_grad(rng)
         push_err, push_inputs = phase_kernel_push(rng)
@@ -7315,6 +7804,7 @@ def main() -> int:
             np.random.default_rng([args.seed, 9]))
         serve_launches, serve_bundle, serve_batches = phase_serve(
             rng, args.seed)
+        export = start_export(serve_bundle, serve_batches)
         train, train_init = phase_train(rng)
         train_dev = phase_train_device(np.random.default_rng([args.seed, 8]),
                                        train_init)
@@ -7346,6 +7836,9 @@ def main() -> int:
                             feed_files)
         tier = phase_serving_tier(np.random.default_rng([args.seed, 71]),
                                   serve_bundle, serve_batches)
+        hosts = phase_host_tier(serve_bundle, serve_batches)
+        embedded = phase_embedded(serve_bundle, serve_batches, loader_build,
+                                  export)
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
@@ -7355,6 +7848,10 @@ def main() -> int:
         arena_timing = time_arena_push(arena_train)
         del arena_train
     finally:
+        for proc in BACKGROUND:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(WORK, ignore_errors=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7404,7 +7901,8 @@ def main() -> int:
           f"(train_stream run graphs, f32 dense) ms/step {arena_ms}, "
           f"serving the int8 table {arenas['serve_int8_ms']:.4f} ms/batch; "
           f"dense optimizers (run graphs) ms/step {dense_ms}; "
-          f"disk ladder {disk['loop_s']:.2f} s for 4 worlds of 4 passes; "
+          f"disk ladder {disk['loop_s']:.2f} s for 4 worlds of "
+          f"{sum(n for _, n in DISK_DAYS)} passes; "
           f"tiered int8 and bf16 (4k) train ms/step {lp_ms}, "
           f"bytes a row {tiered_lp['row_bytes']}, "
           f"{tiered_lp['phase_s']:.1f} s; deferred run graphs (4l) "
@@ -7429,7 +7927,13 @@ def main() -> int:
           f"{tier_p99}, examples/s thread against process fleet "
           f"{tier['scopes']}, reload ms a replica thread "
           f"{tier['thread_reload_ms']:.1f} process "
-          f"{tier['proc_reload_ms']:.1f}, {tier['phase_s']:.1f} s")
+          f"{tier['proc_reload_ms']:.1f}, {tier['phase_s']:.1f} s; host "
+          f"tier (4r) examples/s steady "
+          f"{hosts['steady']['examples_per_s']:.1f}, kill window "
+          f"{hosts['kill']['examples_per_s']:.1f}, MTTR "
+          f"{hosts['mttr_s']:.3f} s, {hosts['phase_s']:.1f} s; embedded "
+          f"(4s) loader ms a batch {embedded['steps_ms']}, "
+          f"{embedded['phase_s']:.1f} s")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
 
@@ -7457,7 +7961,9 @@ def main() -> int:
                                          **feed["launches"],
                                          **staged["launches"],
                                          **guard["launches"],
-                                         **tier["launches"]}.items()}}
+                                         **tier["launches"],
+                                         **hosts["launches"],
+                                         **embedded["launches"]}.items()}}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}
 

@@ -269,6 +269,11 @@ FLAG_DEFAULTS: Dict[str, Any] = {
     "serve_request_timeout": 30.0,
     "serve_spawn_timeout": 60.0,
     "serve_heartbeat_timeout": 10.0,
+    "serve_hosts": 2,
+    "serve_resolver_poll": 0.5,
+    "serve_lb_probe_interval": 0.5,
+    "serve_lb_eject_reset": 2.0,
+    "obs_fleet_interval": 1.0,
 }
 
 

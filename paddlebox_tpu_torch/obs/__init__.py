@@ -2,9 +2,9 @@
 ``metrics`` (the typed registry ``REGISTRY``), ``trace`` (the Chrome-trace
 span tracer), ``heartbeat`` (the per-pass JSONL records), ``postmortem``
 (the crash bundle), ``slo`` (rules and alerts), ``prometheus`` and
-``http`` (``/metrics`` and ``/healthz``) and ``collector`` (one timeline
-of many processes' trace dumps). The host tier's ``fleet`` view is not
-ported yet (ROADMAP A.5b).
+``http`` (``/metrics`` and ``/healthz``), ``collector`` (one timeline
+of many processes' trace dumps) and ``fleet`` (the host tier's metrics,
+scraped into one ``/metrics``).
 
 The modules import neither torch nor numpy, and the package imports none
 of them until asked: the data feed's parse workers import ``obs.metrics``

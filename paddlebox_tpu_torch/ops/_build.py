@@ -1,21 +1,28 @@
-"""Build and load the port's native libraries.
+"""Build and load the port's native libraries and its one executable.
 
-Two routes, picked by the source's suffix:
+Three routes:
 
 - ``paddlebox_tpu_torch/csrc/<name>.cu``, a CUDA kernel, compiles with
   ``nvcc`` for ``sm_90a``;
 - ``paddlebox_tpu_torch/csrc/<name>.cpp``, host code (the key index, the
-  file tokenizer), compiles with ``g++ -march=native``.
+  file tokenizer), compiles with ``g++ -march=native``;
+- the names in :data:`EXECUTABLES` (``pbx_serve``, the embedded serving
+  loader) compile with ``g++`` into ``build/<name>-<digest>``, a program
+  against PyTorch's C++ library and the CUDA toolkit's headers
+  (``torch.utils.cpp_extension``'s include and library paths, torch's
+  ``_GLIBCXX_USE_CXX11_ABI``, an rpath to torch's ``lib/``), beside the
+  libraries it loads, whose file names are compiled in.
 
-Each becomes a shared library with a plain C interface,
-``build/lib<name>-<digest>.so`` at the root of the checkout, which its
-wrapper loads with ``ctypes``. The digest covers the source and the flags,
-and for ``g++`` also the compiler's version and the machine, so an edited
-source, or a ``-march=native`` binary from another machine, never loads
-stale. A build writes a temporary file and renames it into place, so
-processes that build one library at once are safe. Building happens at
-first use (or up front through ``build``) and needs only the sources in
-the repository and the compiler.
+Each library has a plain C interface, ``build/lib<name>-<digest>.so`` at
+the root of the checkout, which its wrapper loads with ``ctypes``. The
+digest covers the source and the flags, and for ``g++`` also the
+compiler's version and the machine (for the executable also torch's
+version and its libraries' names), so an edited source, or a
+``-march=native`` binary from another machine, never loads stale. A build
+writes a temporary file and renames it into place, so processes that build
+one target at once are safe. Building happens at first use (or up front
+through ``build``) and needs only the sources in the repository and the
+compilers.
 """
 
 from __future__ import annotations
@@ -38,6 +45,14 @@ BUILD_DIR = _PKG.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-march=native")
+EXE_FLAGS = ("-O2", "-std=c++17", "-pthread")
+
+#: executables and the libraries each loads from beside itself, in the
+#: order of its ``-D`` names
+EXECUTABLES: Dict[str, Tuple[Tuple[str, str], ...]] = {
+    "pbx_serve": (("PBX_INDEX_LIB", "pbx_index"),
+                  ("PBX_KERNEL_LIB", "seqpool_cvm")),
+}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -84,32 +99,72 @@ def source(name: str) -> Path:
     raise FileNotFoundError(f"no source {name}.cu or {name}.cpp in {CSRC}")
 
 
-def _command(src: Path, out: Path) -> List[str]:
+@functools.lru_cache(maxsize=None)
+def _torch_flags() -> Tuple[str, ...]:
+    """The executable route's compile and link flags: PyTorch's headers
+    and libraries and the CUDA toolkit's headers (``cpp_extension``'s
+    paths for ``cuda``), the C++ ABI torch was built with, an rpath to
+    torch's ``lib/``."""
+    import torch
+    from torch.utils import cpp_extension
+    torch_lib = os.path.join(os.path.dirname(torch.__file__), "lib")
+    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    return (*(f"-I{p}" for p in cpp_extension.include_paths("cuda")),
+            f"-D_GLIBCXX_USE_CXX11_ABI={abi}",
+            *(f"-L{p}" for p in cpp_extension.library_paths("cuda")),
+            f"-Wl,-rpath,{torch_lib}",
+            # the CUDA backend registers itself when libtorch_cuda loads:
+            # keep the libraries whose symbols the loader does not name
+            "-Wl,--no-as-needed", "-ltorch", "-ltorch_cpu", "-ltorch_cuda",
+            "-lc10", "-lc10_cuda", "-Wl,--as-needed", "-ldl")
+
+
+def _exe_defines(name: str) -> Tuple[str, ...]:
+    return tuple(f'-D{macro}="{library_path(lib).name}"'
+                 for macro, lib in EXECUTABLES[name])
+
+
+def _command(name: str, src: Path, out: Path) -> List[str]:
+    if name in EXECUTABLES:
+        return [_gxx(), *EXE_FLAGS, *_exe_defines(name), str(src), "-o",
+                str(out), *_torch_flags()]
     if src.suffix == ".cu":
         return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
     return [_gxx(), *GXX_FLAGS, str(src), "-o", str(out)]
 
 
 def library_path(name: str) -> Path:
+    """Where ``csrc/<name>`` builds: ``build/lib<name>-<digest>.so``, or
+    ``build/<name>-<digest>`` for an executable."""
     src = source(name)
-    if src.suffix == ".cu":
+    if name in EXECUTABLES:
+        import torch
+        key = " ".join((*EXE_FLAGS, *_exe_defines(name))) + _gxx_id() + \
+            torch.__version__
+    elif src.suffix == ".cu":
         key = " ".join(NVCC_FLAGS)
     else:
         key = " ".join(GXX_FLAGS) + _gxx_id()
     digest = hashlib.sha256(src.read_bytes() + key.encode()).hexdigest()
+    if name in EXECUTABLES:
+        return BUILD_DIR / f"{name}-{digest[:12]}"
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
 def build(name: str) -> Optional[Tuple[float, str]]:
-    """Compile ``csrc/<name>.cu`` or ``.cpp`` unless it is built already.
-    Returns ``(seconds, compiler log)`` when it compiled, else None."""
+    """Compile ``csrc/<name>.cu`` or ``.cpp`` unless it is built already
+    (an executable's libraries first). Returns ``(seconds, compiler
+    log)`` when it compiled, else None."""
+    for _macro, lib in EXECUTABLES.get(name, ()):
+        build(lib)
     src = source(name)
     dst = library_path(name)
     if dst.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = dst.with_suffix(f".tmp{os.getpid()}.{threading.get_ident()}.so")
-    cmd = _command(src, tmp)
+    tmp = dst.with_name(
+        f"{dst.name}.tmp{os.getpid()}.{threading.get_ident()}")
+    cmd = _command(name, src, tmp)
     t0 = time.perf_counter()
     res = subprocess.run(cmd, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True)

@@ -1,5 +1,6 @@
 """The serving tier: replica fleet, deadline batching, checkpoint hot
-reload (counterpart of ``paddlebox_tpu/serving/``, its single-host half).
+reload, and the host tier above them (counterpart of
+``paddlebox_tpu/serving/``).
 
 :class:`~paddlebox_tpu_torch.serving.fleet.ReplicaSet` runs N
 shared-nothing replicas behind a least-outstanding router with health
@@ -16,9 +17,15 @@ length-prefixed :mod:`~paddlebox_tpu_torch.serving.transport`, under a
 the ``PredictServer`` line protocol. On the card every replica serves
 through ``CTRPredictor`` and its seqpool+CVM kernel.
 
-Not ported yet (ROADMAP A.5b): the host tier (``ServingHost``,
-``HostFleet``, the endpoint resolvers, ``LBClient``); its names raise
-naming it.
+The host tier completes the fault-domain ladder:
+:class:`~paddlebox_tpu_torch.serving.host.HostFleet` supervises N spawned
+:class:`~paddlebox_tpu_torch.serving.host.ServingHost` process groups (a
+front door, a replica fleet and a ``/metrics`` each) and publishes their
+endpoints through :mod:`~paddlebox_tpu_torch.serving.resolver`'s
+generation-stamped file, which
+:class:`~paddlebox_tpu_torch.serving.lb_client.LBClient` reads to balance
+requests across the hosts, with the deadline carried through failover and
+outlier ejection.
 
 ``batcher`` and ``transport`` load eagerly and import neither torch nor
 numpy; the other modules load at first use.
@@ -47,20 +54,19 @@ _LAZY = {
     "ReloadWatcher": "paddlebox_tpu_torch.serving.reload",
     "load_predictor_from_plan": "paddlebox_tpu_torch.serving.reload",
     "RestartSupervisor": "paddlebox_tpu_torch.serving.supervisor",
+    "EndpointResolver": "paddlebox_tpu_torch.serving.resolver",
+    "FileResolver": "paddlebox_tpu_torch.serving.resolver",
+    "StaticResolver": "paddlebox_tpu_torch.serving.resolver",
+    "write_endpoints": "paddlebox_tpu_torch.serving.resolver",
+    "HostUnavailable": "paddlebox_tpu_torch.serving.lb_client",
+    "LBClient": "paddlebox_tpu_torch.serving.lb_client",
+    "HostFleet": "paddlebox_tpu_torch.serving.host",
+    "HostSpawnError": "paddlebox_tpu_torch.serving.host",
+    "ServingHost": "paddlebox_tpu_torch.serving.host",
 }
-
-#: the reference's host-tier names (``serving/host.py``, ``resolver.py``,
-#: ``lb_client.py``), not ported yet
-HOST_TIER = ("EndpointResolver", "FileResolver", "StaticResolver",
-             "write_endpoints", "HostUnavailable", "LBClient", "HostFleet",
-             "HostSpawnError", "ServingHost")
 
 
 def __getattr__(name):
-    if name in HOST_TIER:
-        raise NotImplementedError(
-            f"{name}: the multi-host serving tier (serving/host.py, "
-            "resolver.py, lb_client.py) is not ported yet (ROADMAP A.5b)")
     mod = _LAZY.get(name)
     if mod is None:
         raise AttributeError(
@@ -82,4 +88,7 @@ __all__ = [
     "FrontDoor", "ProcReplica", "SpawnError", "RestartSupervisor",
     "TornFrame", "TransportError", "WireVersionMismatch",
     "ReloadError", "ReloadWatcher", "load_predictor_from_plan",
+    "EndpointResolver", "FileResolver", "StaticResolver",
+    "write_endpoints", "LBClient", "HostUnavailable",
+    "ServingHost", "HostFleet", "HostSpawnError",
 ]

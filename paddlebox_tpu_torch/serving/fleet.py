@@ -51,7 +51,7 @@ from paddlebox_tpu_torch.serving.batcher import (AdmissionController,
                                                  DeadlineBatcher, Overloaded,
                                                  ReplicaDead, RequestExpired,
                                                  ServingError)
-from paddlebox_tpu_torch.serving.proc import ProcReplica
+from paddlebox_tpu_torch.serving.proc import ProcReplica, _mirror_launches
 from paddlebox_tpu_torch.serving.supervisor import RestartSupervisor
 
 #: () -> predictor. Each call returns a fresh predictor (``CTRPredictor``,
@@ -121,6 +121,9 @@ class Replica:
         scores = pred.predict_records(records)
         self.registry.observe(f"serving.replica.{self.name}.dispatch_ms",
                               (time.perf_counter() - t0) * 1e3)
+        # the process's kernel launches as serve.launches.* gauges, as a
+        # process child reports them (a serving host's /metrics reads them)
+        _mirror_launches()
         return scores
 
     # -- lifecycle / health --------------------------------------------------

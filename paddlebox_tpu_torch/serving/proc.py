@@ -158,6 +158,17 @@ def _mirror_launches() -> None:
         REGISTRY.gauge(f"serve.launches.{fn_name}").set(fn.launches)
 
 
+def read_launches(reset: bool) -> Dict[str, int]:
+    """This process's counted wrappers' launches as read now; ``reset``
+    then sets them (and their mirrored gauges) to 0."""
+    counts = {n: fn.launches for n, fn in _counted_wrappers()}
+    if reset:
+        for _n, fn in _counted_wrappers():
+            fn.launches = 0
+        _mirror_launches()
+    return counts
+
+
 class _WorkerState:
     """What the child's request loop and side thread share."""
 
@@ -271,13 +282,7 @@ def _serve_requests(state: _WorkerState, req: socket.socket) -> None:
                 reply = ("ok", gen)
             _send_reply(req, reply)
         elif op == "launches":
-            # the wrappers' counts as read now; then 0 where asked
-            counts = {n: fn.launches for n, fn in _counted_wrappers()}
-            if msg[1]:
-                for _n, fn in _counted_wrappers():
-                    fn.launches = 0
-                _mirror_launches()
-            _send_reply(req, ("ok", counts))
+            _send_reply(req, ("ok", read_launches(bool(msg[1]))))
         elif op == "crash":
             # drill hooks: die exactly as the failure drilled
             if msg[1] == "segv":

@@ -19,10 +19,10 @@ The call sites in the port, under the reference's names:
   ``with_io_retries``, the operation its caller names);
 - the train guard's ``trainer.step`` (``trainer/guard.py``);
 - the serving tier's, :data:`SERVE_FAULT_OPS` (``serving/proc.py`` and
-  ``serving/transport.py``).
+  ``serving/transport.py``), and the host tier's ``serve.host_spawn``
+  (``serving/host.py``: the parent's spawn of a serving host).
 
-``ps.shard_spawn`` comes with the PS service (ROADMAP A.9) and the host
-tier's ``serve.host_spawn`` with ``serving/host.py`` (A.5b). The
+``ps.shard_spawn`` comes with the PS service (ROADMAP A.9). The
 checkpoint pipeline's named crash points are ``ckpt/faults.py``.
 """
 

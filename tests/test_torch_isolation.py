@@ -9,7 +9,8 @@ the cvm ops, and the multi-process reader over both protocols with the
 error budget and the archive, and a staged device-feed pass with its trace
 and heartbeat, and a guarded pass with a rollback, a profiled pass and a
 postmortem bundle, and a process-scope serving fleet whose spawned child
-builds its own predictor, with them blocked (in the child too); its entry
+builds its own predictor, and the host tier's resolver and LB over a
+scripted host, with them blocked (in the child too); its entry
 points default to the card and raise without one (the trainer and the
 serving tier too); its kernel modules import without a CUDA toolkit; the
 serving tier's batcher and transport import neither torch nor numpy."""
@@ -1092,3 +1093,53 @@ def test_serving_fleet_with_jax_blocked(tmp_path):
     """)
     assert res.returncode == 0, res.stderr
     assert "LIGHT" in res.stdout
+
+
+def test_host_tier_with_jax_blocked(tmp_path):
+    """The host tier's modules and the embedded export import with jax and
+    paddlebox_tpu blocked, the package names the host tier (no refusal),
+    and a ``FileResolver`` over an endpoints file feeds an ``LBClient``
+    that scores on a scripted line-protocol host after failing over from
+    a dead endpoint."""
+    res = _run(f"""
+        import sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import json, socket, threading
+        import paddlebox_tpu_torch.serving as serving
+        from paddlebox_tpu_torch.inference import export_embedded
+        from paddlebox_tpu_torch.obs.fleet import FleetMetrics
+        from paddlebox_tpu_torch.obs.metrics import MetricsRegistry
+        from paddlebox_tpu_torch.serving import (FileResolver, HostFleet,
+                                                 LBClient, ServingHost,
+                                                 write_endpoints)
+        assert serving.HostSpawnError and serving.HostUnavailable
+        srv = socket.create_server(("127.0.0.1", 0))
+        port = srv.getsockname()[1]
+
+        def serve():
+            conn, _ = srv.accept()
+            f = conn.makefile("rwb")
+            for raw in f:
+                n = len(json.loads(raw)["lines"])
+                f.write((json.dumps({{"scores": [0.25] * n}}) + "\\n")
+                        .encode())
+                f.flush()
+
+        threading.Thread(target=serve, daemon=True).start()
+        path = {str(tmp_path / "eps.json")!r}
+        write_endpoints(path, ["127.0.0.1:1", f"127.0.0.1:{{port}}"], 3)
+        reg = MetricsRegistry()
+        lb = LBClient(FileResolver(path, registry=reg), registry=reg)
+        assert lb.predict_lines(["a", "b"], deadline_ms=5000.0) == [0.25] * 2
+        assert reg.counter("serving.failover_retries").get() == 1
+        fm = FleetMetrics(interval=60.0).add_registry("lb", reg)
+        assert fm.scrape_once() > 0
+        lb.stop()
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("HOST TIER")
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "HOST TIER" in res.stdout
