@@ -423,6 +423,33 @@ Phases, each fatal on failure:
              truncated bundle, without a CUDA device and without its
              kernel library. Its ms a batch of lookup, H2D, pool, dense,
              D2H.
+4t. ctr ops — every CTR dense op (``ops/ctr_ops.py``: data_norm, its
+             stats and summary update, rank_attention, batch_fc, scaled_fc,
+             cross_norm_raw and cross_norm_hadamard) on the card against
+             the same code on the CPU, outputs and gradients, at the
+             flagship's training batch (the pooled input [2048, 24*11]),
+             rank_attention's offsets from ``PvBatchAssembler`` over
+             seeded PV groups of 1-5 ads (max_rank 3): within 1e-5 of each
+             op's largest entry, scaled_fc's bf16 product within 0.05.
+             Then ``AucRunner`` over the flagship DeepFM after one trainer
+             file: ``slot_importance`` over 4 slots and
+             ``slot_importance_pool`` over 2 phases (pool 2048), the
+             dataset restored bit for bit, the forward kernel launched
+             once a batch of each of the 8 evaluations.
+4u. ps service — the networked PS (``ps/service/``, 2 shard servers):
+             (a) the flagship DeepFM at B=2048 on the host-table engine
+             over a ``RemoteTable``, one trainer file, bit for bit against
+             the same over a local ``EmbeddingTable`` (losses, metrics,
+             rows by key, dense weights; again after 2 more passes each,
+             timed in turns), the wire's bytes and pull and push ms; (b)
+             phase 3's 4,194,304-row bundle imported into the service and
+             ``CTRPredictor(ps_endpoints=)`` scoring phase 3's 16 batches
+             bit for bit against the bundle's predictor, both timed in
+             turns, with the device bytes each holds; (c) the drill's
+             ``shard_kill`` over one trainer file's keys, a training
+             batch's keys a step: no update lost against the never-killed
+             oracle; (d) the drill's ``cache_wall``: hit rate, mean pull
+             ms with the cache off and on.
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -475,13 +502,15 @@ from paddlebox_tpu_torch.data.dataset import SlotDataset, global_shuffle
 from paddlebox_tpu_torch.data.fast_feed import (FastSlotReader,
                                                 MultiProcessReader)
 from paddlebox_tpu_torch.data.parser import SlotParser
+from paddlebox_tpu_torch.data.pv import PvBatchAssembler
 from paddlebox_tpu_torch.ckpt.writer import AsyncCheckpointWriter
 from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
                                                      save_inference_model)
 from paddlebox_tpu_torch.inference.server import PredictServer, predict_lines
 from paddlebox_tpu_torch.models import DeepFM, FeedDNN, MMoE, WideDeep
 from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
-from paddlebox_tpu_torch.ops import _build
+from paddlebox_tpu_torch.ops import _build, ctr_ops
+from paddlebox_tpu_torch.ops.ctr_ops import build_rank_offset
 from paddlebox_tpu_torch.ops import cvm as ops_cvm
 from paddlebox_tpu_torch.ops import \
     fused_seqpool_cvm_with_conv as ops_fused_conv
@@ -518,14 +547,17 @@ from paddlebox_tpu_torch.ps.quant_table import QuantServingTable
 from paddlebox_tpu_torch.ps.serving_table import ServingTable
 from paddlebox_tpu_torch.ps.admission import CountMinAdmission
 from paddlebox_tpu_torch.ps.server import SparsePS
+from paddlebox_tpu_torch.ps.service import RemoteTable, ShardService
 from paddlebox_tpu_torch.ps.ssd_tier import DiskTier
 from paddlebox_tpu_torch.ps.table import (EmbeddingTable, key_init_uniform,
                                          state_dim)
 from paddlebox_tpu_torch.ps.tiered_table import TieredDeviceTable
 from paddlebox_tpu_torch.metrics import AucCalculator, MetricRegistry
 from paddlebox_tpu_torch.metrics.auc import reset_auc_state_
+from paddlebox_tpu_torch.metrics.auc_runner import AucRunner
 from paddlebox_tpu_torch.obs import trace as obs_trace
-from paddlebox_tpu_torch.obs.metrics import REGISTRY, percentile_from_counts
+from paddlebox_tpu_torch.obs.metrics import (REGISTRY, MetricsRegistry,
+                                             percentile_from_counts)
 from paddlebox_tpu_torch.trainer.fused_step import (FusedTrainStep,
                                                     collect_same_shape_run)
 from paddlebox_tpu_torch.trainer import donefile
@@ -535,6 +567,7 @@ from paddlebox_tpu_torch.trainer.pass_manager import (CKPT_QUEUE_DEPTH,
                                                       PassManager)
 from paddlebox_tpu_torch.trainer.train_step import TrainStep
 from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
+from paddlebox_tpu_torch.tools import ps_drill
 from paddlebox_tpu_torch.utils.timer import SpanTimer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -6231,6 +6264,414 @@ def phase_embedded(bundle: str, batches, loader_build, export) -> dict:
     return result
 
 
+# -- phase 4t: the CTR dense ops and AucRunner ---------------------------------
+
+CTR_MAX_RANK = 3             # rank_attention's ranks (the reference default)
+CTR_PARA_COL = 16            # rank_attention's output columns
+CTR_OUT = 128                # scaled_fc's output columns
+CTR_BLOCKS = TS              # batch_fc's column blocks: a slot's D columns each
+CTR_FIELDS = TS // 2         # cross_norm's (a, b) pairs of D columns each
+CTR_F32_TOL = 1e-5           # card vs CPU, relative to the op's largest entry
+CTR_BF16_TOL = 0.05          # scaled_fc's bf16 product: the reference tests'
+AUC_SLOTS = 4                # slots slot_importance permutes
+AUC_PHASES = ([0, 1], [2, 3])    # slot_importance_pool's phases
+AUC_POOL = 2048              # its candidate pool
+
+
+def pv_groups(rng, n: int):
+    """Ranks and PV offsets of ``n`` instances in PV groups of 1-5 ads (5%
+    of the ranks unknown)."""
+    sizes = []
+    while sum(sizes) < n:
+        sizes.append(min(int(rng.integers(1, 6)), n - sum(sizes)))
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    ranks = np.concatenate([np.arange(1, s + 1) for s in sizes])
+    ranks[rng.random(n) < 0.05] = 0
+    return ranks, offsets
+
+
+def ctr_case(tag: str, fn, arrays, grad_of=(), bf16: bool = False) -> float:
+    """``fn`` over ``arrays`` on the card and on the CPU, the output and the
+    gradients of the inputs in ``grad_of`` (of a seeded cotangent); each
+    held within the tolerance relative to the CPU's largest entry. Returns
+    the worst relative error."""
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        ts = [torch.from_numpy(a).to(dev) for a in arrays]
+        for i in grad_of:
+            ts[i].requires_grad_(True)
+        out = fn(*ts)
+        if grad_of:
+            cot = torch.from_numpy(np.random.default_rng(1).normal(
+                size=tuple(out.shape)).astype(np.float32)).to(dev)
+            (out * cot).sum().backward()
+        outs[dev] = [out.detach().cpu().numpy()] + [
+            ts[i].grad.cpu().numpy() for i in grad_of]
+    worst = 0.0
+    for j, (got, want) in enumerate(zip(outs["cuda"], outs["cpu"])):
+        scale = max(float(np.abs(want).max()), 1.0)
+        err = float(np.abs(got - want).max())
+        tol = CTR_BF16_TOL * scale if bf16 and j == 0 else CTR_F32_TOL * scale
+        require(np.isfinite(got).all() and err <= tol,
+                f"ctr ops (4t) {tag}[{j}]: card vs CPU {err:.3e} > {tol:.3e}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def phase_ctr_ops(rng, files) -> dict:
+    """(4t) Every CTR dense op on the card against the same code on the CPU
+    at the flagship's training batch (the pooled input [B, TS*D]), with
+    rank_attention over seeded PV groups of 1-5 ads through
+    ``PvBatchAssembler``'s rank offsets; then ``AucRunner`` over the
+    flagship DeepFM after one trainer-cell file: AUC_SLOTS slots by
+    permutation and the pool's phases, the dataset restored bit for bit,
+    the forward kernel launched once a batch of each evaluation."""
+    t_phase = time.perf_counter()
+    width = TS * D
+    x = rng.normal(size=(TB, width)).astype(np.float32)
+    col = lambda: rng.normal(size=width).astype(np.float32)
+    summ = (np.full(width, 1e4, np.float32), col() * 100,
+            np.abs(col()) * 1e4 + 1e3)
+    mask = (rng.random(TB) < 0.9).astype(np.float32)
+    ranks, offsets = pv_groups(rng, TB)
+    # the rank offsets as the PV assembler builds them, over records
+    # carrying these PV ids and ranks
+    feed = slot_feed_conf(1, TB)
+    recs = [SlotParser(feed).parse_line(f"1 0 1 {i + 1}") for i in range(TB)]
+    pv_id = np.repeat(np.arange(offsets.size - 1), np.diff(offsets))
+    for r, sid, rank in zip(recs, pv_id, ranks):
+        r.search_id, r.rank = int(sid) + 1, int(rank)
+    pvb = next(PvBatchAssembler(feed, offsets.size - 1,
+                                CTR_MAX_RANK).batches(recs))
+    ro = pvb.rank_offset
+    require(np.array_equal(ro, build_rank_offset(ranks, offsets,
+                                                 CTR_MAX_RANK))
+            and pvb.pv_num == offsets.size - 1,
+            "ctr ops (4t): PvBatchAssembler's rank offsets")
+    param = (rng.normal(size=(CTR_MAX_RANK ** 2 * width, CTR_PARA_COL))
+             * 0.05).astype(np.float32)
+    w_fc = (rng.normal(size=(D, CTR_BLOCKS * 8)) * 0.3).astype(np.float32)
+    b_fc = rng.normal(size=CTR_BLOCKS * 8).astype(np.float32)
+    w_sc = (rng.normal(size=(width, CTR_OUT)) * 0.06).astype(np.float32)
+    b_sc = rng.normal(size=CTR_OUT).astype(np.float32)
+    cw = CTR_FIELDS * (3 * D + 1)
+    c_mean = (rng.normal(size=cw) * 0.1).astype(np.float32)
+    c_scale = (np.abs(rng.normal(size=cw)) + 0.5).astype(np.float32)
+    errs = {
+        "data_norm": ctr_case(
+            "data_norm", lambda a, s, q, n, w, b: ctr_ops.data_norm(
+                a, s, q, n, w, b),
+            [x, summ[0], summ[1], summ[2], col(), col()], (0, 4, 5)),
+        "data_norm_stats": max(ctr_case(
+            f"data_norm_stats[{i}]",
+            lambda a, m, i=i: ctr_ops.data_norm_stats(a, m)[i], [x, mask])
+            for i in range(3)),
+        "data_norm_update_summary": ctr_case(
+            "data_norm_update_summary",
+            lambda a, m, n, s, q: torch.stack(
+                ctr_ops.data_norm_update_summary(
+                    n, s, q, ctr_ops.data_norm_stats(a, m))),
+            [x, mask, *summ]),
+        "rank_attention": ctr_case(
+            "rank_attention", lambda a, r, p: ctr_ops.rank_attention(
+                a, r, p, CTR_MAX_RANK), [x, ro, param], (2,)),
+        "batch_fc": ctr_case(
+            "batch_fc", lambda a, w, b: ctr_ops.batch_fc(a, w, b,
+                                                         CTR_BLOCKS),
+            [x, w_fc, b_fc], (0, 1, 2)),
+        "scaled_fc": ctr_case(
+            "scaled_fc", lambda a, w, b: ctr_ops.scaled_fc(a, w, b, 0.5, 2.0),
+            [x, w_sc, b_sc], bf16=True),
+        "cross_norm_raw": ctr_case(
+            "cross_norm_raw", lambda a: ctr_ops.cross_norm_raw(
+                a[:, :2 * CTR_FIELDS * D], CTR_FIELDS, D), [x]),
+        "cross_norm_hadamard": ctr_case(
+            "cross_norm_hadamard",
+            lambda a, m, s: ctr_ops.cross_norm_hadamard(
+                a[:, :2 * CTR_FIELDS * D], m, s, CTR_FIELDS, D),
+            [x, c_mean, c_scale], (0,)),
+    }
+    print(f"ctr ops (4t): card vs CPU at B={TB}, input [{TB}, {width}], "
+          f"max_rank {CTR_MAX_RANK} over {offsets.size - 1} PV groups of "
+          f"1-5 ads; worst error relative to each op's largest entry "
+          f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} }")
+
+    # AucRunner over the flagship DeepFM after one trainer-cell file
+    conf, tconf, buckets = train_confs()
+    tfeed = trainer_feed_conf()
+    ds = SlotDataset(tfeed, buckets=BucketSpec(min_size=TNPAD,
+                                               max_size=1 << 18))
+    ds.set_filelist(files[:1])
+    ds.load_into_memory()
+    n_batches = ds.num_instances() // TB
+    table = DeviceTable(conf, capacity=HOT_VOCAB + 1 + TRAINER_HEADROOM,
+                        uniq_buckets=buckets, device="cuda",
+                        backend="native", index_threads=1)
+    table.prepopulate(HOT_VOCAB)
+    trainer = CTRTrainer(random_deepfm(rng, TS * conf.pull_dim), tfeed,
+                         conf, tconf, table=table)
+    train_s, metrics, _ = count_launches(
+        lambda: trainer.train_from_dataset(ds), n_batches, "auc runner's "
+        "training file")
+    before = [(r.uint64_feas.copy(), r.uint64_offsets.copy())
+              for r in ds.records]
+    runner = AucRunner(trainer, seed=7)
+    evals = (1 + AUC_SLOTS) + (1 + len(AUC_PHASES))
+
+    def both():
+        t0 = time.perf_counter()
+        perm = runner.slot_importance(ds, range(AUC_SLOTS))
+        t1 = time.perf_counter()
+        pool = runner.slot_importance_pool(ds, AUC_PHASES,
+                                           pool_size=AUC_POOL)
+        return perm, pool, t1 - t0, time.perf_counter() - t1
+
+    auc_s, (perm, pool, perm_s, pool_s), launches = counted(
+        both, {"seqpool_cvm_cuda": evals * n_batches}, "auc runner (4t)")
+    restored = all(np.array_equal(f, r.uint64_feas) and
+                   np.array_equal(o, r.uint64_offsets)
+                   for (f, o), r in zip(before, ds.records))
+    require(restored and len(before) == ds.num_instances(),
+            "auc runner (4t): the dataset was not restored bit for bit")
+    require(sorted(perm) == list(range(AUC_SLOTS)) and sorted(pool) ==
+            sorted(s for ph in AUC_PHASES for s in ph) and all(
+                np.isfinite(v) for v in [*perm.values(), *pool.values()]),
+            f"auc runner (4t): importances {perm} {pool}")
+    print(f"auc runner (4t): one trainer file ({n_batches} batches of "
+          f"B={TB}, {train_s:.2f} s, auc {metrics['auc']:.6f}); "
+          f"slot_importance over {AUC_SLOTS} slots {perm_s:.2f} s "
+          f"{ {k: float(f'{v:.6f}') for k, v in perm.items()} }; "
+          f"slot_importance_pool phases {list(AUC_PHASES)} pool "
+          f"{AUC_POOL} {pool_s:.2f} s "
+          f"{ {k: float(f'{v:.6f}') for k, v in pool.items()} }; "
+          f"{evals} evaluations, launches {launches}; dataset restored bit "
+          f"for bit")
+    result = {"launches": {"auc_runner": launches}, "ctr_errs": errs,
+              "perm_s": perm_s, "pool_s": pool_s,
+              "phase_s": time.perf_counter() - t_phase}
+    print(f"ctr ops and auc runner (4t): {result['phase_s']:.1f} s")
+    return result
+
+
+# -- phase 4u: the networked PS service ----------------------------------------
+
+PS_SHARDS = 2                # shard servers of the service
+PS_IMPORT_CHUNK = 1 << 20    # rows an import_rows call carries
+PS_KILL_BATCH = TNPAD        # keys a step of (c), a training batch's
+
+
+def hist_mean(reg, name: str, since=(0, 0.0)) -> Tuple[float, int]:
+    """(mean, count) of a histogram's observations after ``since``, an
+    earlier (count, sum) of it."""
+    h = reg.histogram(name)
+    n, total = h.count - since[0], h.sum - since[1]
+    return (total / n if n else 0.0), n
+
+
+def hist_mark(reg, name: str) -> Tuple[int, float]:
+    h = reg.histogram(name)
+    return h.count, h.sum
+
+
+def host_engine_pass(tr, ds) -> Tuple[float, list, dict]:
+    """One ``train_from_dataset`` pass: (seconds, losses, metrics)."""
+    losses = []
+    secs, metrics = timed_secs(lambda: tr.train_from_dataset(
+        ds, fetch_handler=lambda s, loss, p: losses.append(loss)))
+    return secs, losses, metrics
+
+
+def phase_ps_service(rng, files, bundle: str, batches) -> dict:
+    """(4u) The networked PS service on the card's host: (a) the flagship
+    DeepFM at B=2048 on the host-table engine over a 2-shard service, one
+    trainer-cell file, bit for bit against the same over a local
+    ``EmbeddingTable``, then both timed in turns; (b) phase 3's bundle
+    loaded into a 2-shard service by ``import_rows``, ``CTRPredictor(
+    ps_endpoints=)`` scoring phase 3's batches bit for bit against the
+    bundle's predictor, both timed in turns with their device bytes; (c)
+    the drill's ``shard_kill`` at the flagship width; (d) its
+    ``cache_wall``."""
+    t_phase = time.perf_counter()
+    conf, tconf, _buckets = train_confs()
+    feed = trainer_feed_conf()
+    ds = SlotDataset(feed, buckets=BucketSpec(min_size=TNPAD,
+                                              max_size=1 << 18))
+    ds.set_filelist(files[:1])
+    ds.load_into_memory()
+    n_batches = ds.num_instances() // TB
+    expect = {"seqpool_cvm_cuda": n_batches,
+              "seqpool_cvm_grad_cuda": n_batches}
+    reg = MetricsRegistry()
+    t0 = time.perf_counter()
+    svc = ShardService({"embedding": conf}, num_shards=PS_SHARDS,
+                       registry=reg)
+    spawn_s = time.perf_counter() - t0
+    launches = {}
+    try:
+        # (a) training through the service
+        model = random_deepfm(rng, TS * conf.pull_dim)
+        local = CTRTrainer(copy.deepcopy(model), feed, conf, tconf,
+                           table=EmbeddingTable(conf),
+                           use_device_table=False)
+        remote_table = RemoteTable(conf, svc.client(), cache_rows=0)
+        remote = CTRTrainer(model, feed, conf, tconf, table=remote_table,
+                            use_device_table=False)
+        require(not local.fused and not remote.fused,
+                "ps service (4u): not the host-table engine")
+        _, want, launches["ps_local_train"] = counted(
+            lambda: host_engine_pass(local, ds), expect,
+            "ps service (4u) local table")
+        bytes0 = {k: reg.counter(f"ps.remote.bytes_{k}").get()
+                  for k in ("in", "out")}
+        pull0 = hist_mark(reg, "ps.remote.pull_ms")
+        push0 = hist_mark(reg, "ps.remote.push_ms")
+        _, got, launches["ps_service_train"] = counted(
+            lambda: host_engine_pass(remote, ds), expect,
+            "ps service (4u) remote table")
+        wire = {k: (reg.counter(f"ps.remote.bytes_{k}").get() - v)
+                / n_batches for k, v in bytes0.items()}
+        pull_ms, n_pulls = hist_mean(reg, "ps.remote.pull_ms", pull0)
+        push_ms, _ = hist_mean(reg, "ps.remote.push_ms", push0)
+
+        def same_training(tag: str) -> None:
+            snap = local.table.snapshot(reset_dirty=False)
+            order = np.argsort(snap["keys"], kind="stable")
+            rows = {k: v[order] for k, v in snap.items()}
+            merged = remote_table.merged_snapshot()
+            require(set(rows) == set(merged) and all(
+                np.array_equal(rows[k], merged[k]) for k in rows),
+                f"ps service (4u) {tag}: rows differ from the local table")
+            require(all(torch.equal(a, b) for a, b in zip(
+                local.model.state_dict().values(),
+                remote.model.state_dict().values())),
+                f"ps service (4u) {tag}: dense weights differ")
+
+        require(got[1] == want[1] and got[2] == want[2],
+                "ps service (4u) (a): losses or metrics differ from the "
+                "local table's")
+        same_training("(a)")
+        turns = {"local": [], "remote": []}
+        for name in ("local", "remote", "remote", "local"):
+            tr = local if name == "local" else remote
+            turns[name].append(host_engine_pass(tr, ds)[0] / n_batches * 1e3)
+        same_training("(a) after the turns")
+        rows_a = len(local.table)
+        print(f"ps service (4u) (a): {PS_SHARDS} shards spawned in "
+              f"{spawn_s:.3f} s; CTRTrainer host-table engine, DeepFM "
+              f"B={TB}, {n_batches} steps: remote bit for bit with the "
+              f"local table (losses, metrics, {rows_a} rows by key, dense "
+              f"weights), also after 2 more passes each; launches local "
+              f"{launches['ps_local_train']} remote "
+              f"{launches['ps_service_train']}; ms/step in turns local "
+              f"{[round(v, 3) for v in turns['local']]} remote "
+              f"{[round(v, 3) for v in turns['remote']]}; a step's wire "
+              f"bytes out {wire['out']:.0f} in {wire['in']:.0f}, pull "
+              f"{pull_ms:.3f} ms ({n_pulls} pulls) push {push_ms:.3f} ms "
+              f"[{card_line()}]")
+
+        # (b) serving through the service
+        with open(os.path.join(bundle, "model.json")) as f:
+            sconf = TableConfig(**json.load(f)["table"])
+        ssvc = ShardService({"embedding": sconf}, num_shards=PS_SHARDS,
+                            registry=reg)
+        try:
+            t0 = time.perf_counter()
+            with np.load(os.path.join(bundle, "table.npz")) as z:
+                snap = {k: z[k] for k in ("keys", "values", "state")}
+            loader = RemoteTable(sconf, ssvc.client(), cache_rows=0)
+            for i in range(0, snap["keys"].size, PS_IMPORT_CHUNK):
+                sl = slice(i, i + PS_IMPORT_CHUNK)
+                loader.import_rows(snap["keys"][sl], snap["values"][sl],
+                                   snap["state"][sl])
+            import_s = time.perf_counter() - t0
+            require(len(loader) == TABLE_ROWS,
+                    f"ps service (4u) (b): {len(loader)} rows imported")
+
+            def built(fn):
+                gc.collect()
+                torch.cuda.synchronize()
+                m0 = torch.cuda.memory_allocated()
+                pred = fn()
+                pred.predict_batch(batches[0])      # warm-up
+                torch.cuda.synchronize()
+                return pred, torch.cuda.memory_allocated() - m0
+
+            bundle_pred, bundle_bytes = built(lambda: CTRPredictor(bundle))
+            ps_pred, ps_bytes = built(lambda: CTRPredictor(
+                bundle, ps_endpoints=ssvc.endpoints()))
+            require(isinstance(ps_pred.table, RemoteTable) and
+                    ps_pred.table._cache is None, "ps service (4u) (b): "
+                    "the predictor does not pull through the service")
+            serve_expect = {"seqpool_cvm_cuda": len(batches)}
+            _, want_s, launches["ps_bundle_serve"] = counted(
+                lambda: [bundle_pred.predict_batch(b) for b in batches],
+                serve_expect, "ps service (4u) bundle predictor")
+            _, got_s, launches["ps_service_serve"] = counted(
+                lambda: [ps_pred.predict_batch(b) for b in batches],
+                serve_expect, "ps service (4u) service predictor")
+            require(all(np.array_equal(g, w) for g, w in zip(got_s, want_s)),
+                    "ps service (4u) (b): scores through the service differ "
+                    "from the bundle's")
+            serve_turns = {"bundle": [], "service": []}
+            # the predictor's client reports to the global registry
+            sreg = ps_pred.table.registry
+            pull1 = hist_mark(sreg, "ps.remote.pull_ms")
+            in1 = sreg.counter("ps.remote.bytes_in").get()
+            for name in ("bundle", "service", "service", "bundle"):
+                pred = bundle_pred if name == "bundle" else ps_pred
+                secs, _ = timed_secs(lambda: [pred.predict_batch(b)
+                                              for b in batches])
+                serve_turns[name].append(secs / len(batches) * 1e3)
+            serve_pull_ms, serve_pulls = hist_mean(sreg, "ps.remote.pull_ms",
+                                                   pull1)
+            serve_in = (sreg.counter("ps.remote.bytes_in").get() - in1) / \
+                max(serve_pulls, 1)
+            print(f"ps service (4u) (b): {TABLE_ROWS} rows imported into "
+                  f"{PS_SHARDS} shards in {import_s:.2f} s; "
+                  f"CTRPredictor(ps_endpoints=) over {len(batches)} batches "
+                  f"of B={B} bit for bit with the bundle's predictor; "
+                  f"launches bundle {launches['ps_bundle_serve']} service "
+                  f"{launches['ps_service_serve']}; ms/batch in turns "
+                  f"bundle {[round(v, 3) for v in serve_turns['bundle']]} "
+                  f"service {[round(v, 3) for v in serve_turns['service']]};"
+                  f" a pull {serve_pull_ms:.3f} ms, {serve_in:.0f} bytes in; "
+                  f"device bytes bundle {bundle_bytes} service {ps_bytes} "
+                  f"[{card_line()}]")
+            del bundle_pred, ps_pred, snap
+        finally:
+            ssvc.stop()
+    finally:
+        svc.stop()
+
+    # (c) shard_kill at the flagship width; (d) cache_wall
+    pool = ds.extract_keys()
+    t0 = time.perf_counter()
+    kill = ps_drill.scenario_shard_kill(
+        int(rng.integers(1 << 30)), os.path.join(WORK, "ps_kill"),
+        conf=conf, pool=pool, batch=PS_KILL_BATCH)
+    kill_s = time.perf_counter() - t0
+    require(kill["ok"], f"ps service (4u) (c): {kill['detail']}")
+    print(f"ps service (4u) (c): shard_kill over {pool.size} keys, "
+          f"{PS_KILL_BATCH} keys a step, {kill_s:.2f} s: {kill['detail']}")
+    t0 = time.perf_counter()
+    wall = ps_drill.scenario_cache_wall(int(rng.integers(1 << 30)),
+                                        os.path.join(WORK, "ps_wall"))
+    wall_s = time.perf_counter() - t0
+    require(wall["ok"], f"ps service (4u) (d): {wall['detail']}")
+    print(f"ps service (4u) (d): cache_wall {wall_s:.2f} s: "
+          f"{wall['detail']} [{card_line()}]")
+    result = {"launches": launches, "spawn_s": spawn_s,
+              "train_turns_ms": turns, "wire_bytes": wire,
+              "pull_ms": pull_ms, "push_ms": push_ms,
+              "import_s": import_s, "serve_turns_ms": serve_turns,
+              "serve_pull_ms": serve_pull_ms,
+              "device_bytes": {"bundle": bundle_bytes, "service": ps_bytes},
+              "kill": kill["numbers"], "cache_wall": wall["numbers"],
+              "phase_s": time.perf_counter() - t_phase}
+    print(f"ps service (4u): {result['phase_s']:.1f} s")
+    return result
+
+
 # -- phase 4f: the host-table engine and the models ---------------------------
 
 HE_BATCHES = 16              # batches of each path of the phase
@@ -7839,6 +8280,10 @@ def main() -> int:
         hosts = phase_host_tier(serve_bundle, serve_batches)
         embedded = phase_embedded(serve_bundle, serve_batches, loader_build,
                                   export)
+        ctr = phase_ctr_ops(np.random.default_rng([args.seed, 73]),
+                            trainer["files"])
+        ps = phase_ps_service(np.random.default_rng([args.seed, 79]),
+                              trainer["files"], serve_bundle, serve_batches)
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
@@ -7933,7 +8378,18 @@ def main() -> int:
           f"{hosts['kill']['examples_per_s']:.1f}, MTTR "
           f"{hosts['mttr_s']:.3f} s, {hosts['phase_s']:.1f} s; embedded "
           f"(4s) loader ms a batch {embedded['steps_ms']}, "
-          f"{embedded['phase_s']:.1f} s")
+          f"{embedded['phase_s']:.1f} s; ctr ops and auc runner (4t) "
+          f"slot_importance {ctr['perm_s']:.2f} s, pool "
+          f"{ctr['pool_s']:.2f} s, {ctr['phase_s']:.1f} s; ps service (4u) "
+          f"spawn {ps['spawn_s']:.3f} s, host engine ms/step local "
+          f"{[round(v, 3) for v in ps['train_turns_ms']['local']]} remote "
+          f"{[round(v, 3) for v in ps['train_turns_ms']['remote']]}, "
+          f"serving ms/batch bundle "
+          f"{[round(v, 3) for v in ps['serve_turns_ms']['bundle']]} "
+          f"service "
+          f"{[round(v, 3) for v in ps['serve_turns_ms']['service']]}, "
+          f"device bytes {ps['device_bytes']}, cache_wall "
+          f"{ps['cache_wall']}, {ps['phase_s']:.1f} s")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
 
@@ -7963,7 +8419,9 @@ def main() -> int:
                                          **guard["launches"],
                                          **tier["launches"],
                                          **hosts["launches"],
-                                         **embedded["launches"]}.items()}}
+                                         **embedded["launches"],
+                                         **ctr["launches"],
+                                         **ps["launches"]}.items()}}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}
 

@@ -19,7 +19,6 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 from paddlebox_tpu_torch.ckpt import atomic
 from paddlebox_tpu_torch.trainer import donefile
-from paddlebox_tpu_torch.utils.checkpoint import load_dense as _load_dense
 
 #: A restore plan: (base donefile record, verified delta records in apply
 #: order). ``record["path"]`` is the committed artifact dir.
@@ -76,6 +75,9 @@ def load_dense(plan: Plan, template: Any) -> Optional[Any]:
     path = os.path.join(base["path"], "dense.npz")
     if not os.path.exists(path):
         return None
+    # the dense loader imports torch; a PS shard server resumes its
+    # tables through this module without it
+    from paddlebox_tpu_torch.utils.checkpoint import load_dense as _load_dense
     return _load_dense(path, template)
 
 

@@ -247,6 +247,11 @@ FLAG_DEFAULTS: Dict[str, Any] = {
     "ps_admit_decay": 1.0,
     "ps_admit_width": 1 << 18,
     "ps_tier_demote": False,
+    "ps_service_shards": 2,
+    "ps_service_deadline": 5.0,
+    "ps_service_retries": 3,
+    "ps_service_cache_rows": 0,
+    "ps_service_spawn_timeout": 60.0,
     "serve_quantized": False,
     "serve_cache_rows": 0,
     "serve_coalesce": False,
@@ -390,3 +395,58 @@ def serving_econ_conf() -> ServingEconConfig:
             "side of that dedup")
     return ServingEconConfig(quantized=quantized, cache_rows=cache_rows,
                              coalesce=coalesce)
+
+
+@dataclasses.dataclass(frozen=True)
+class PsServiceConfig:
+    """Validated knobs of the networked PS service (``ps/service/``)."""
+
+    shards: int
+    deadline_s: float
+    retries: int
+    cache_rows: int
+    spawn_timeout_s: float
+
+
+def ps_service_conf() -> PsServiceConfig:
+    """The ``ps_service_shards``, ``ps_service_deadline``,
+    ``ps_service_retries``, ``ps_service_cache_rows`` and
+    ``ps_service_spawn_timeout`` flags (their ``PBOX_FLAGS_*`` variables,
+    read at each call), validated as the reference validates them: the one
+    resolution ``ShardService``, ``ServiceClient`` and ``RemoteTable``
+    share, so a bad value fails at construction."""
+    shards = int(env_flag("ps_service_shards", 2))
+    deadline = float(env_flag("ps_service_deadline", 5.0))
+    retries = int(env_flag("ps_service_retries", 3))
+    cache_rows = int(env_flag("ps_service_cache_rows", 0))
+    spawn_timeout = float(env_flag("ps_service_spawn_timeout", 60.0))
+    if shards < 1:
+        raise ValueError(
+            f"ps_service_shards must be >= 1, got {shards}")
+    if deadline <= 0:
+        raise ValueError(
+            f"ps_service_deadline must be > 0, got {deadline} "
+            "(0 would expire every request before it is sent)")
+    if retries < 0:
+        raise ValueError(
+            f"ps_service_retries must be >= 0, got {retries}")
+    if cache_rows < 0:
+        raise ValueError(
+            f"ps_service_cache_rows must be >= 0, got {cache_rows}")
+    if 0 < cache_rows < 16:
+        raise ValueError(
+            f"ps_service_cache_rows ({cache_rows}) is smaller than one "
+            "batch's working set; a sub-16-row cache evicts its own "
+            "entries every lookup (0 disables the cache)")
+    if cache_rows and not env_flag("enable_pull_padding_zero", True):
+        # the cache keys rows by feasign and caches the zero row of the
+        # padding key 0
+        raise ValueError(
+            "ps_service_cache_rows requires enable_pull_padding_zero "
+            "(the cache treats feasign 0 as the padding row)")
+    if spawn_timeout <= 0:
+        raise ValueError(
+            f"ps_service_spawn_timeout must be > 0, got {spawn_timeout}")
+    return PsServiceConfig(shards=shards, deadline_s=deadline,
+                           retries=retries, cache_rows=cache_rows,
+                           spawn_timeout_s=spawn_timeout)

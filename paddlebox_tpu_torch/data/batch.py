@@ -34,6 +34,8 @@ class CsrBatch:
     num_slots: int
     num_keys: int             # valid prefix length of keys/segment_ids
     num_rows: int             # real instances (<= batch_size; rest is padding)
+    # [B, 2*max_rank+1] int32 of a page-view batch (data/pv.py), else None
+    rank_offset: Optional[np.ndarray] = None
     search_ids: Optional[np.ndarray] = None
 
     @property

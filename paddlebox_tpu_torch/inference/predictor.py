@@ -31,8 +31,13 @@ the reference:
 
 Scores are the same bits with the cache and coalescing on or off.
 ``fwd_fingerprint`` and ``reload_of`` are the hot reload's ledger
-(``serving/reload.py``). Not ported: a remote PS (``ps_endpoints``,
-ROADMAP A.9).
+(``serving/reload.py``).
+
+``ps_endpoints`` (the shard-ordered ``host:port`` list of a PS service,
+``ps/service/``) serves through the service instead of the bundle's
+table: no table artifact is loaded, a ``RemoteTable`` (its own cache off,
+the predictor's hot-key cache in front) pulls each batch's rows on the
+host, and they reach the device in one host-to-device copy.
 """
 
 from __future__ import annotations
@@ -137,8 +142,9 @@ class CTRPredictor:
     their ``fwd_fingerprint``s differ, ``serving.reload_recompiled`` counts
     one (the reference's compile ledger; a same-shape swap counts none).
     ``load_table=False`` leaves the table empty for the caller to load (a
-    reload's checkpoint rows replace the bundle's). ``ps_endpoints`` (with
-    ``ps_table``) is the reference's and refused."""
+    reload's checkpoint rows replace the bundle's). ``ps_endpoints``
+    serves the rows of the service's table ``ps_table`` instead of the
+    bundle's (``serves_quantized`` is then false)."""
 
     def __init__(self, path: str, device: DeviceLike = None,
                  batch_size: Optional[int] = None,
@@ -146,10 +152,6 @@ class CTRPredictor:
                  reload_of: Optional["CTRPredictor"] = None,
                  ps_endpoints: Optional[Sequence[str]] = None,
                  ps_table: str = "embedding", load_table: bool = True):
-        if ps_endpoints:
-            raise NotImplementedError(
-                "ps_endpoints: serving from a remote PS service is not "
-                "ported yet (ROADMAP A.9)")
         self.device = resolve_device(device)
         with open(os.path.join(path, "model.json")) as f:
             meta = json.load(f)
@@ -160,8 +162,19 @@ class CTRPredictor:
         self.model_version = meta.get("version")
         self.use_cvm = bool(meta["use_cvm"])
         econ = serving_econ_conf()
-        self.serves_quantized = econ.quantized
-        if econ.quantized:
+        self.ps_endpoints = list(ps_endpoints) if ps_endpoints else None
+        self.ps_table = ps_table
+        self.serves_quantized = econ.quantized and not self.ps_endpoints
+        if self.ps_endpoints:
+            # the rows live on the service: no artifact to load or
+            # quantize; one cache a replica (the predictor's, below), not
+            # two stacked ones
+            from paddlebox_tpu_torch.ps.service import (RemoteTable,
+                                                        ServiceClient)
+            self.table = RemoteTable(self.table_conf,
+                                     ServiceClient(self.ps_endpoints),
+                                     name=ps_table, cache_rows=0)
+        elif econ.quantized:
             # the bundle's int8 artifact, else the float32 table quantized
             # on load (the same scheme and footprint)
             self.table = QuantServingTable(self.table_conf, self.device)
@@ -230,6 +243,9 @@ class CTRPredictor:
         and the cache is cleared when the version changes."""
         cache = self._cache
         if cache is None:
+            if self.ps_endpoints:
+                return torch.from_numpy(self._host_rows(keys)).to(
+                    self.device)
             return self.table.pull(keys, create=False)
         cache.set_version(self.model_version)
         vals, hit = cache.lookup(keys)
@@ -240,10 +256,16 @@ class CTRPredictor:
             uniq, inverse = np.unique(
                 np.ascontiguousarray(keys[miss], dtype=np.uint64),
                 return_inverse=True)
-            uniq_vals = self.table.pull(uniq, create=False).cpu().numpy()
+            uniq_vals = self._host_rows(uniq)
             cache.insert(uniq, uniq_vals)
             vals[miss] = uniq_vals[inverse]
         return torch.from_numpy(vals).to(self.device)
+
+    def _host_rows(self, keys: np.ndarray) -> np.ndarray:
+        """The table's rows of ``keys`` as host float32: the service's
+        pull, or a device table's pull read back."""
+        rows = self.table.pull(keys, create=False)
+        return rows if self.ps_endpoints else rows.cpu().numpy()
 
     def cache_stats(self) -> Optional[Dict[str, int]]:
         """The hot-key cache's counters; None when it is off."""

@@ -2,9 +2,10 @@
 lifecycle (counterpart of ``paddlebox_tpu/ps/server.py::SparsePS``).
 
 A ``SparsePS`` owns one table per feature space, any mix of the port's
-three kinds: the host ``EmbeddingTable`` (``ps/table.py``), the
-device-resident ``DeviceTable`` and the ``TieredDeviceTable`` over a host
-backing (``ps/tiered_table.py``). It drives their shared lifecycle:
+kinds: the host ``EmbeddingTable`` (``ps/table.py``) and its hash-sharded
+``ShardedTable`` (``ps/sharded.py``), the device-resident ``DeviceTable``
+and the ``TieredDeviceTable`` over a host backing
+(``ps/tiered_table.py``). It drives their shared lifecycle:
 
     begin_pass -> feed_pass(keys)   stage the pass's working set
     prefetch_pass(keys)             start the next pass's staging early
@@ -21,21 +22,33 @@ Snapshot layout under ``root`` (the donefile protocol is
 Dirs commit atomically (``ckpt/atomic.py``: a staging dir, a manifest,
 fsyncs, a rename) and loads verify the manifest first.
 
-The reference's host ``ShardedTable`` is not ported (ROADMAP A.9).
+A ``SparsePS`` of host tables imports no torch (the device table's module
+loads only for a table that is not a host one): a PS shard server
+(``ps/service/shard_server.py``) holds one.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping, Optional, Union
+from typing import TYPE_CHECKING, Dict, Mapping, Optional, Union
 
 import numpy as np
 
 from paddlebox_tpu_torch.ckpt import atomic
-from paddlebox_tpu_torch.ps.device_table import DeviceTable
+from paddlebox_tpu_torch.ps.sharded import ShardedTable
 from paddlebox_tpu_torch.ps.table import EmbeddingTable
 
-Table = Union[EmbeddingTable, DeviceTable]
+if TYPE_CHECKING:
+    from paddlebox_tpu_torch.ps.device_table import DeviceTable
+
+Table = Union[EmbeddingTable, ShardedTable, "DeviceTable"]
+
+
+def _is_table(t) -> bool:
+    if isinstance(t, (EmbeddingTable, ShardedTable)):
+        return True
+    from paddlebox_tpu_torch.ps.device_table import DeviceTable
+    return isinstance(t, DeviceTable)
 
 
 class SparsePS:
@@ -43,10 +56,11 @@ class SparsePS:
         if not tables:
             raise ValueError("SparsePS needs at least one table")
         for name, t in tables.items():
-            if not isinstance(t, (EmbeddingTable, DeviceTable)):
+            if not _is_table(t):
                 raise TypeError(
                     f"table {name!r} is a {type(t).__name__}: SparsePS takes "
-                    "EmbeddingTable, DeviceTable and TieredDeviceTable")
+                    "EmbeddingTable, ShardedTable, DeviceTable and "
+                    "TieredDeviceTable")
         self.tables: Dict[str, Table] = dict(tables)
         self.current_pass: Optional[int] = None
 

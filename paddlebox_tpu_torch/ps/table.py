@@ -49,7 +49,6 @@ import numpy as np
 from paddlebox_tpu_torch.ckpt.atomic import write_npz
 from paddlebox_tpu_torch.config import TableConfig, env_flag
 from paddlebox_tpu_torch.obs.metrics import REGISTRY
-from paddlebox_tpu_torch.ops import sparse_optim
 from paddlebox_tpu_torch.ps import native
 from paddlebox_tpu_torch.ps.optimizer import make_sparse_optimizer
 
@@ -59,7 +58,7 @@ def state_dim(conf: TableConfig) -> int:
     each trainable group (embed_w, embedx, expand)."""
     widths = [w for w in (conf.cvm_offset - 2, conf.embedx_dim,
                           conf.expand_dim) if w]
-    return sum(sparse_optim.state_width(conf, w) for w in widths)
+    return sum(make_sparse_optimizer(conf, w).state_width for w in widths)
 
 
 class _PyIndex:

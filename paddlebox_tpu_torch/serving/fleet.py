@@ -260,23 +260,26 @@ class ReplicaSet:
                     **kw) -> "ReplicaSet":
         """Each replica loads its own ``CTRPredictor`` over one bundle on
         ``device`` (default ``cuda``): in this process (``scope='thread'``)
-        or in its own child (``scope='process'``). ``ps_endpoints`` is the
-        reference's and refused (ROADMAP A.9)."""
-        if ps_endpoints:
-            raise NotImplementedError(
-                "ps_endpoints: serving from a remote PS service is not "
-                "ported yet (ROADMAP A.9)")
+        or in its own child (``scope='process'``). ``ps_endpoints`` points
+        every replica at a PS service (``ps/service/``) instead of the
+        bundle's table: the replicas pull rows on demand and load no table
+        each."""
         scope = str(flag("serve_replica_scope")) if scope is None \
             else str(scope)
         if scope == "process":
             spec = {"bundle": bundle_path}
             if device is not None:
                 spec["device"] = str(device)
+            if ps_endpoints:
+                spec["ps_endpoints"] = list(ps_endpoints)
+                spec["ps_table"] = ps_table
             return cls(None, replicas=replicas, scope="process",
                        worker_spec=spec, **kw)
         from paddlebox_tpu_torch.inference.predictor import CTRPredictor
 
-        return cls(lambda: CTRPredictor(bundle_path, device=device),
+        return cls(lambda: CTRPredictor(bundle_path, device=device,
+                                        ps_endpoints=ps_endpoints,
+                                        ps_table=ps_table),
                    replicas=replicas, scope=scope, **kw)
 
     @property

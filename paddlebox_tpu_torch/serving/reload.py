@@ -79,19 +79,24 @@ def load_predictor_from_plan(bundle_path: str, plan: discovery.Plan,
     ``models/convert.py``), else the bundle's. ``reload_of`` is the
     predictor it replaces (the fingerprint ledger); ``device`` defaults to
     its device, else ``cuda``. The uploads have finished when it returns,
-    so another thread's stream may pull at once. ``ps_endpoints`` is the
-    reference's and refused (ROADMAP A.9)."""
+    so another thread's stream may pull at once. ``ps_endpoints`` (with
+    ``ps_table``), or else ``reload_of``'s, keeps the wiring of a predictor
+    that serves through the PS service: the reload refreshes the dense
+    leaves and the version, and the rows stay on the service."""
     from paddlebox_tpu_torch.inference.predictor import CTRPredictor
 
     if ps_endpoints is None and reload_of is not None:
         ps_endpoints = getattr(reload_of, "ps_endpoints", None)
-    if ps_endpoints:
-        raise NotImplementedError(
-            "ps_endpoints: serving from a remote PS service is not "
-            "ported yet (ROADMAP A.9)")
+        if ps_table is None:
+            ps_table = getattr(reload_of, "ps_table", None)
     if device is None and reload_of is not None:
         device = getattr(reload_of, "device", None)
     base, deltas = plan
+    if ps_endpoints:
+        pred = CTRPredictor(bundle_path, device=device, reload_of=reload_of,
+                            ps_endpoints=ps_endpoints,
+                            ps_table=ps_table or "embedding")
+        return _finish(pred, plan)
     # the checkpoint's rows replace the bundle's: its table is not loaded
     pred = CTRPredictor(bundle_path, device=device, reload_of=reload_of,
                         load_table=False)
@@ -112,6 +117,13 @@ def load_predictor_from_plan(bundle_path: str, plan: discovery.Plan,
         pred.table.load(os.path.join(base["path"], tf))
         for d in deltas:
             pred.table.load_delta(os.path.join(d["path"], tf))
+    return _finish(pred, plan)
+
+
+def _finish(pred, plan: discovery.Plan):
+    """The plan's dense leaves (when the base has them) and version into
+    ``pred``, its uploads finished."""
+    base, _deltas = plan
     dense_path = os.path.join(base["path"], "dense.npz")
     if os.path.exists(dense_path):
         load_flax_leaves(pred.model, load_leaves(

@@ -7,8 +7,9 @@ Two step engines, as in the reference:
 - ``FusedTrainStep`` over a ``DeviceTable`` (``use_device_table=True``,
   the default), or a ``TieredDeviceTable`` whose pass working set
   ``PassManager`` stages from its host backing (``ps/tiered_table.py``);
-- ``TrainStep`` over a host ``EmbeddingTable`` (``use_device_table=False``
-  or an ``EmbeddingTable`` as ``table``): the host pulls the batch's rows,
+- ``TrainStep`` over a host table (``use_device_table=False``, or as
+  ``table`` an ``EmbeddingTable``, a ``ShardedTable`` or a ``RemoteTable``
+  of the PS service, ``ps/service/``): the host pulls the batch's rows,
   the step runs on ``device`` and hands back the embedding grads, the
   host pushes them, each a span (``pull``, ``step``, ``push``).
 
@@ -88,7 +89,7 @@ import os
 import sys
 import time
 import warnings
-from typing import Callable, Dict, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 from torch import nn
@@ -131,7 +132,7 @@ def _resolve_device_prep(table: DeviceTable,
 class CTRTrainer:
     def __init__(self, model: nn.Module, feed_conf: DataFeedConfig,
                  table_conf: TableConfig, trainer_conf: TrainerConfig,
-                 table: Optional[Union[DeviceTable, EmbeddingTable]] = None,
+                 table: Optional[Any] = None,
                  use_device_table: bool = True,
                  device_capacity: int = 1 << 20,
                  buckets: Optional[BucketSpec] = None,
@@ -145,8 +146,10 @@ class CTRTrainer:
         """``model`` is an ``nn.Module`` holding its dense weights (for a
         parity run: converted from the reference trainer's flax params by
         ``models/convert.py``); the trainer moves it to the step's device.
-        ``table`` picks the engine: a ``DeviceTable`` the fused one, an
-        ``EmbeddingTable`` the host-table one. Without ``table``, a
+        ``table`` picks the engine: a ``DeviceTable`` the fused one, any
+        other table with ``pull`` and ``push`` (an ``EmbeddingTable``, a
+        ``ShardedTable``, the PS service's ``RemoteTable``) the host-table
+        one. Without ``table``, a
         ``DeviceTable(table_conf, capacity=device_capacity,
         device=device)`` is built, or with ``use_device_table=False`` an
         ``EmbeddingTable(table_conf)`` (``device`` None = the card: the
@@ -164,12 +167,13 @@ class CTRTrainer:
             raise NotImplementedError(
                 f"TrainerConfig.num_devices={trainer_conf.num_devices}: "
                 "multi-device training is not ported yet (ROADMAP A.9)")
-        if table is not None and not isinstance(table, (DeviceTable,
-                                                        EmbeddingTable)):
+        if table is not None and not isinstance(table, DeviceTable) and \
+                not (callable(getattr(table, "pull", None))
+                     and callable(getattr(table, "push", None))):
             raise TypeError(
                 f"table is a {type(table).__name__}: the port trains a "
-                "DeviceTable (fused engine) or a host EmbeddingTable "
-                "(host-table engine)")
+                "DeviceTable (fused engine) or a host table with pull and "
+                "push (host-table engine)")
         # trainer_conf.dense_sync_steps is read only with a mesh and
         # trainer_conf.metrics not at all on one device, as in the
         # reference

@@ -22,8 +22,11 @@ The call sites in the port, under the reference's names:
   ``serving/transport.py``), and the host tier's ``serve.host_spawn``
   (``serving/host.py``: the parent's spawn of a serving host).
 
-``ps.shard_spawn`` comes with the PS service (ROADMAP A.9). The
-checkpoint pipeline's named crash points are ``ckpt/faults.py``.
+- the PS service's, :data:`PS_FAULT_OPS` (``ps/service/shard_server.py``:
+  the parent's spawn of a shard server; a shard child installs its own
+  injector from its spec).
+
+The checkpoint pipeline's named crash points are ``ckpt/faults.py``.
 """
 
 from __future__ import annotations
@@ -49,6 +52,12 @@ SERVE_FAULT_OPS: Tuple[str, ...] = (
     "serve.frame_send",
     "serve.frame_mid",
     "serve.side_write",
+)
+
+#: The PS service's operations: ``ps.shard_spawn``, the parent's spawn of
+#: a shard server child.
+PS_FAULT_OPS: Tuple[str, ...] = (
+    "ps.shard_spawn",
 )
 
 

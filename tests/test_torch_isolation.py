@@ -10,7 +10,9 @@ error budget and the archive, and a staged device-feed pass with its trace
 and heartbeat, and a guarded pass with a rollback, a profiled pass and a
 postmortem bundle, and a process-scope serving fleet whose spawned child
 builds its own predictor, and the host tier's resolver and LB over a
-scripted host, with them blocked (in the child too); its entry
+scripted host, and the CTR dense ops with a page-view batch and an
+AucRunner, and a trainer pass and a predictor through a 2-shard PS
+service, with them blocked (in the child too); its entry
 points default to the card and raise without one (the trainer and the
 serving tier too); its kernel modules import without a CUDA toolkit; the
 serving tier's batcher and transport import neither torch nor numpy."""
@@ -1143,3 +1145,118 @@ def test_host_tier_with_jax_blocked(tmp_path):
     """)
     assert res.returncode == 0, res.stderr
     assert "HOST TIER" in res.stdout
+
+
+def test_ctr_ops_pv_and_auc_runner_with_jax_blocked(tmp_path):
+    """The CTR dense ops (forward and rank_attention's gradient), a page-
+    view batch and an ``AucRunner`` over a host-table trainer run with jax
+    and paddlebox_tpu blocked."""
+    from conftest import make_slot_file
+    from paddlebox_tpu.config import DataFeedConfig, SlotConfig
+    conf = DataFeedConfig(slots=[
+        SlotConfig("label", type="float", is_dense=True, dim=1),
+        SlotConfig("a"), SlotConfig("b")], batch_size=8, thread_num=2)
+    data = make_slot_file(str(tmp_path / "part-0"), conf, 24, seed=5)
+    res = _run(f"""
+        import sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        import torch
+        from paddlebox_tpu_torch import ops
+        from paddlebox_tpu_torch.config import (DataFeedConfig, SlotConfig,
+                                                TableConfig, TrainerConfig)
+        from paddlebox_tpu_torch.data.dataset import SlotDataset
+        from paddlebox_tpu_torch.data.pv import PvBatchAssembler
+        from paddlebox_tpu_torch.metrics.auc_runner import AucRunner
+        from paddlebox_tpu_torch.models import DeepFM
+        from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
+        conf = DataFeedConfig(slots=[
+            SlotConfig("label", type="float", is_dense=True, dim=1),
+            SlotConfig("a"), SlotConfig("b")], batch_size=8, thread_num=2)
+        ds = SlotDataset(conf)
+        ds.set_filelist([{data!r}])
+        ds.load_into_memory()
+        for i, r in enumerate(ds.records):
+            r.search_id, r.rank = i // 3, i % 3 + 1
+        pb = next(PvBatchAssembler(conf, 2).batches(ds.records))
+        assert pb.batch.rank_offset.shape == (8, 7) and pb.pv_num == 2
+        x = torch.randn(8, 4)
+        p = torch.randn(9 * 4, 5, requires_grad=True)
+        ops.rank_attention(x, torch.from_numpy(pb.rank_offset), p,
+                           3).sum().backward()
+        assert p.grad.abs().sum() > 0
+        assert ops.scaled_fc(x, torch.randn(4, 3), torch.zeros(3), 1.0,
+                             1.0).dtype == torch.float32
+        tconf = TableConfig(embedx_dim=4, embedx_threshold=0.0)
+        tr = CTRTrainer(DeepFM(2 * 7, (8,)), conf, tconf, TrainerConfig(),
+                        use_device_table=False, device="cpu")
+        tr.train_from_dataset(ds)
+        imp = AucRunner(tr).slot_importance(ds)
+        pool = AucRunner(tr).slot_importance_pool(ds, pool_size=8)
+        assert sorted(imp) == sorted(pool) == [0, 1]
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("CTR_OPS", imp)
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "CTR_OPS" in res.stdout
+
+
+def test_ps_service_with_jax_blocked(tmp_path):
+    """A 2-shard PS service spawns, a ``CTRTrainer`` trains a pass over its
+    ``RemoteTable``, and a ``CTRPredictor`` scores through
+    ``ps_endpoints``, with jax and paddlebox_tpu blocked; the shard
+    children import no torch (their spawn takes well under the spawn
+    timeout)."""
+    from conftest import make_slot_file
+    from paddlebox_tpu.config import DataFeedConfig, SlotConfig
+    conf = DataFeedConfig(slots=[
+        SlotConfig("label", type="float", is_dense=True, dim=1),
+        SlotConfig("a"), SlotConfig("b")], batch_size=8, thread_num=2)
+    data = make_slot_file(str(tmp_path / "part-0"), conf, 24, seed=6)
+    res = _run(f"""
+        import sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        from paddlebox_tpu_torch.config import (DataFeedConfig, SlotConfig,
+                                                TableConfig, TrainerConfig)
+        from paddlebox_tpu_torch.data.dataset import SlotDataset
+        from paddlebox_tpu_torch.inference.predictor import (
+            CTRPredictor, save_inference_model)
+        from paddlebox_tpu_torch.models import DeepFM
+        from paddlebox_tpu_torch.obs.metrics import MetricsRegistry
+        from paddlebox_tpu_torch.ps.service import RemoteTable, ShardService
+        from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
+        conf = DataFeedConfig(slots=[
+            SlotConfig("label", type="float", is_dense=True, dim=1),
+            SlotConfig("a"), SlotConfig("b")], batch_size=8, thread_num=2)
+        ds = SlotDataset(conf)
+        ds.set_filelist([{data!r}])
+        ds.load_into_memory()
+        tconf = TableConfig(embedx_dim=4, embedx_threshold=0.0)
+        with ShardService({{"embedding": tconf}}, num_shards=2,
+                          registry=MetricsRegistry()) as svc:
+            remote = RemoteTable(tconf, svc.client(), cache_rows=0)
+            tr = CTRTrainer(DeepFM(2 * 7, (8,)), conf, tconf,
+                            TrainerConfig(), table=remote,
+                            use_device_table=False, device="cpu")
+            m = tr.train_from_dataset(ds)
+            assert m["ins_num"] == 24 and len(remote) > 0
+            bundle = save_inference_model({str(tmp_path / "b")!r}, tr.model,
+                                          remote.merged_snapshot(), conf,
+                                          tconf)
+            pred = CTRPredictor(bundle, device="cpu",
+                                ps_endpoints=svc.endpoints())
+            local = CTRPredictor(bundle, device="cpu")
+            assert np.array_equal(pred.predict_records(ds.records),
+                                  local.predict_records(ds.records))
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("PS_SERVICE", m["auc"])
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "PS_SERVICE" in res.stdout

@@ -635,21 +635,24 @@ def test_cache_and_coalesce_bit_identical(bundle, econ_flags):
 
 
 def test_predictor_validates_and_refuses(bundle, econ_flags):
-    """A bad knob fails at construction; the remote PS stays refused
-    (ROADMAP A.9); the reload fingerprint is ported: a reload of the same
-    bundle, quantized or not, lands on the same forward and counts no
-    ``serving.reload_recompiled``."""
+    """A bad knob fails at construction; a predictor over a remote PS
+    loads no table and serves no quantized one; the reload fingerprint is
+    ported: a reload of the same bundle, quantized or not, lands on the
+    same forward and counts no ``serving.reload_recompiled``."""
     from paddlebox_tpu_torch.obs.metrics import REGISTRY
     path = bundle[0]
     econ_flags("serve_cache_rows", 3)
     with pytest.raises(ValueError):
         CTRPredictor(path, device="cpu")
     econ_flags("serve_cache_rows", 0)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        CTRPredictor(path, device="cpu", ps_endpoints=["localhost:1"])
+    remote = CTRPredictor(path, device="cpu", ps_endpoints=["localhost:1"])
+    assert remote.ps_endpoints == ["localhost:1"]
+    assert type(remote.table).__name__ == "RemoteTable"
     pred = CTRPredictor(path, device="cpu")
     before = REGISTRY.counter("serving.reload_recompiled").get()
     econ_flags("serve_quantized", True)
+    assert not CTRPredictor(path, device="cpu",
+                            ps_endpoints=["localhost:1"]).serves_quantized
     again = CTRPredictor(path, device="cpu", reload_of=pred)
     assert again.fwd_fingerprint() == pred.fwd_fingerprint()
     assert REGISTRY.counter("serving.reload_recompiled").get() == before

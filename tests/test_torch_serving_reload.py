@@ -29,6 +29,7 @@ from paddlebox_tpu_torch.config import TableConfig
 from paddlebox_tpu_torch.data.parser import SlotParser
 from paddlebox_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
 from paddlebox_tpu_torch.ps.quant_table import QuantServingTable
+from paddlebox_tpu_torch.ps.service import RemoteTable, ShardUnavailable
 from paddlebox_tpu_torch.ps.serving_table import ServingTable
 from paddlebox_tpu_torch.serving import (ReloadError, ReloadWatcher,
                                          ReplicaSet)
@@ -187,9 +188,18 @@ def test_plan_errors(world, tmp_path):
         load_predictor_from_plan(world["bundle"],
                                  (dict(base, path=str(empty)), []),
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        load_predictor_from_plan(world["bundle"], (base, deltas),
-                                 ps_endpoints=["localhost:1"], device="cpu")
+    # through a PS service the reload loads no table: a dead service
+    # surfaces at the first pull, naming its shard
+    pred = load_predictor_from_plan(world["bundle"], (base, deltas),
+                                    ps_endpoints=["127.0.0.1:1"],
+                                    device="cpu")
+    assert isinstance(pred.table, RemoteTable)
+    assert pred.model_version == "%s/%05d" % discovery.plan_version(
+        (base, deltas))
+    pred.table.client.retries = 0
+    with pytest.raises(ShardUnavailable, match="shard 0"):
+        pred.predict_records([SlotParser(pred.feed_conf).parse_line(ln)
+                              for ln in world["lines"]])
 
 
 # -- the watcher over a thread fleet -----------------------------------------
