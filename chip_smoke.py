@@ -8,9 +8,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each fatal on failure:
 
 1. build   — compile the port's native sources from the repository, one
-             process each, all at once: with ``nvcc`` the seqpool+CVM
-             forward, its backward (the gather), the push (with its
-             boundary kernel) and the in-step key dedup and mirror probe,
+             process each (the push's source in seven parts, one process
+             a part: ``ops/_build.py`` ``SPLIT``), all at once: with
+             ``nvcc`` the seqpool+CVM forward, its backward (the gather),
+             the push (with its boundary kernel and the mesh step's merge)
+             and the in-step key dedup and mirror probe,
              alone and fused (``csrc/device_index.cu``); with ``g++`` the
              host key index (``csrc/pbx_index.cpp``) and the file
              tokenizer (``csrc/pbx_feed.cpp``). Print each kernel's ptxas
@@ -141,7 +143,8 @@ Phases, each fatal on failure:
              ``bench.py:735-802`` measures them: the flagship DeepFM over a
              ``TieredDeviceTable`` of 2^20 arena rows (device prep, a
              one-thread native index) over a native host
-             ``EmbeddingTable``, four passes of one seeded MultiSlot file
+             ``EmbeddingTable``, three passes (two days: two, then one,
+             ``TIER_DAYS``) of one seeded MultiSlot file
              of 16 batches of B=2048 (the first drawing from 450,000 new
              keys out of a 2^33 space, each later one from 450,000 new and
              150,000 of earlier passes' keys; the backing ends larger than
@@ -161,7 +164,7 @@ Phases, each fatal on failure:
    ms/step, ``end_pass`` s, delta snapshot ms, captures; the peak device
    memory, the arena's and mirror's bytes beside the backing's, the run
    graphs on the tiered table beside an untiered ``DeviceTable`` of every
-   row, and the step beside a dataset preload and idle, in turns, each
+   row, and the step idle, then beside a dataset preload, each
    beside the card's name and power limit.
 4f. host engine and models — the reference's other engine and the
              models of ``examples/01``, ``03`` and ``04`` at their widths:
@@ -450,6 +453,29 @@ Phases, each fatal on failure:
              batch's keys a step: no update lost against the never-killed
              oracle; (d) the drill's ``cache_wall``: hit rate, mean pull
              ms with the cache off and on.
+4v. mesh   — the device-sharded mesh engine at ``bench.py:280-350``'s
+             width (DeepFM 512-256-128, adam 1e-3, B=2048, 24 slots,
+             Npad=102,400, ``capacity_per_shard=1 << 22``, native): (a) a
+             one-shard mesh on cuda:0 through ``train_stream``, device
+             prep and host plan, 32 steps each, losses and the touched
+             rows by key within 1e-5 of ``FusedTrainStep`` over the same
+             arena and weights, 2 steps against the CPU; then both timed
+             in turns with ``FusedTrainStep``'s run graphs and eager run
+             loop; (b) a 4-shard mesh on cuda:0 (512 rows a shard, device
+             prep), 8 steps against the same mesh on the CPU; (c)
+             ``CTRTrainer(mesh=make_mesh(1))`` over a trainer file,
+             ``evaluate``, save, load (bit for bit), a step's delta into a
+             ``DeviceTable``; (d) the requester's merge kernel
+             (``segment_merge``) against its plain version bit for bit at
+             (a)'s shape in both engines' forms (device prep by unique over
+             K5's order, host plan by position), at (b)'s, at (a)'s under
+             a Zipf(1.2) key mix (segments past the short kernel's 32 keys,
+             the long kernel's device time) and at edge segments, timed
+             beside its bound and ``index_add_``. Every mesh path counted:
+             each shard's forward, backward, push and merge once a step,
+             device prep's two K5 sorts (requester K5, owner K5+K6), host
+             plan's two boundary kernels (the requester's merge order, the
+             push's).
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -474,6 +500,7 @@ import contextlib
 import copy
 import io
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -528,8 +555,13 @@ from paddlebox_tpu_torch.ops.sparse_push import (PUSH_VARIANTS,
                                                  merge_order,
                                                  merge_order_plain,
                                                  push_geometry, push_rows,
+                                                 segment_merge_cuda,
+                                                 segment_merge_plain,
                                                  sparse_push_cuda,
                                                  sparse_push_plain)
+from paddlebox_tpu_torch.parallel.dp_step import split_batch
+from paddlebox_tpu_torch.parallel.fused_dp_step import FusedShardedTrainStep
+from paddlebox_tpu_torch.parallel.mesh import make_mesh
 from paddlebox_tpu_torch.ops.device_index_kernel import (
     DIGITS, SIGN, dedup_number_cuda, dedup_number_probe_cuda,
     dedup_sort_cuda, device_dedup_cuda, device_dedup_probe_cuda,
@@ -545,6 +577,7 @@ from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.ps.native import NativeIndex
 from paddlebox_tpu_torch.ps.quant_table import QuantServingTable
 from paddlebox_tpu_torch.ps.serving_table import ServingTable
+from paddlebox_tpu_torch.ps.sharded_device_table import ShardedDeviceTable
 from paddlebox_tpu_torch.ps.admission import CountMinAdmission
 from paddlebox_tpu_torch.ps.server import SparsePS
 from paddlebox_tpu_torch.ps.service import RemoteTable, ShardService
@@ -771,7 +804,8 @@ def ptxas_report(log: str) -> list:
 
 
 def phase_build() -> dict:
-    """One nvcc process per source, all started together. Returns each
+    """One compiler process per source (per part of a source that
+    ``_build.SPLIT`` names), all started together. Returns each
     source's ptxas report (empty for a library built by an earlier run)."""
     names = (KERNEL, GRAD, PUSH, INDEX, HOST_INDEX, HOST_FEED)
     t0 = time.perf_counter()
@@ -2246,14 +2280,16 @@ def dirty_keys(table: DeviceTable) -> np.ndarray:
     return np.sort(table.row_keys()[table.fetch_dirty_rows()])
 
 
-def counted(fn, expect: dict, tag: str):
-    """``fn()`` with every wrapper's count set to 0 just before it and read
-    just after; each count must equal ``expect``'s (0 where it has none).
+def counted(fn, expect: dict, tag: str, wrappers=None):
+    """``fn()`` with every wrapper's count (``DEVICE_PREP_WRAPPERS``'
+    unless ``wrappers`` is given) set to 0 just before it and read just
+    after; each count must equal ``expect``'s (0 where it has none).
     Returns (seconds, result, launches)."""
-    for w in DEVICE_PREP_WRAPPERS:
+    wrappers = wrappers or DEVICE_PREP_WRAPPERS
+    for w in wrappers:
         w.launches = 0
     secs, out = timed_secs(fn)
-    launches = {w.__name__: w.launches for w in DEVICE_PREP_WRAPPERS}
+    launches = {w.__name__: w.launches for w in wrappers}
     for name, n in launches.items():
         require(n == expect.get(name, 0),
                 f"{tag}: {name} launched {n} times, expected "
@@ -2955,7 +2991,9 @@ TIER_ARENA = 1 << 20          # rows of the tiered table's device arena
 TIER_KEY_SPACE = 1 << 33      # a pass's new keys come from [1, 2^33)
 TIER_NEW = 450_000            # new keys a pass draws from (bench.py:751)
 TIER_HOT = 150_000            # keys of earlier passes a later pass draws from
-TIER_DAYS = (("20260301", 2), ("20260302", 2))   # (day, passes)
+# (day, passes): day 2 cut from two passes to one when the mesh phase
+# (4v) took the script near its time limit
+TIER_DAYS = (("20260301", 2), ("20260302", 1))
 
 
 def write_pool_file(rng, path: str, pool: np.ndarray) -> np.ndarray:
@@ -3156,7 +3194,7 @@ def phase_tiered_loop(rng) -> dict:
     """Tables larger than device memory (``bench.py:735-802``'s
     configuration): the flagship over a ``TieredDeviceTable`` of 2^20 rows
     on device prep, over a native host ``EmbeddingTable``, through
-    ``PassManager`` with the prefetched feed pass, four passes of one
+    ``PassManager`` with the prefetched feed pass, three passes of one
     seeded MultiSlot file of 16 batches (450,000 new keys from a 2^33
     space a pass, and 150,000 of earlier passes' keys from pass 2 on),
     trained by ``CTRTrainer.train_from_files`` (run graphs), delta saves,
@@ -3315,9 +3353,9 @@ def phase_tiered_loop(rng) -> dict:
           f"{[round(r['train_ms'], 4) for r in hrecs]} [{card}]")
     del host
 
-    # the run graphs on the tiered table (pass 4's keys staged again)
+    # the run graphs on the tiered table (the last pass's keys staged again)
     # beside an untiered DeviceTable holding the whole table (the last
-    # base), over pass 4's batches, in turns
+    # base), over the last pass's batches, in turns
     ds = SlotDataset(trainer_feed_conf(),
                      buckets=BucketSpec(min_size=TNPAD, max_size=1 << 18))
     ds.set_filelist(files[-1:])
@@ -3363,7 +3401,7 @@ def phase_tiered_loop(rng) -> dict:
     beside = {f"{k} {m}": [] for k in ("eager", "graphs")
               for m in ("idle", "preload")}
     parsing = []
-    for mode in ("idle", "preload", "preload", "idle"):
+    for mode in ("idle", "preload"):
         if mode == "preload":
             pre.preload_into_memory()
         secs, out = timed_secs(lambda: fs.train_stream(*st, iter(stream)))
@@ -3380,8 +3418,7 @@ def phase_tiered_loop(rng) -> dict:
     print(f"timing tiered loop: ms/step over the same {len(stream)} "
           f"batches beside a dataset preload of one pass's file (the parse "
           f"still running after the graphs' and the eager run: {parsing}) "
-          f"and "
-          f"idle, in turns: {beside} [{card}]")
+          f"and idle (idle first): {beside} [{card}]")
     table.end_pass()
     return {"launches": main["launches"], "loop_s": loop_s, "files": files,
             "passes": recs["main"], "sync_passes": recs["sync"],
@@ -6672,6 +6709,499 @@ def phase_ps_service(rng, files, bundle: str, batches) -> dict:
     return result
 
 
+# -- phase 4v: the device-sharded mesh engine ----------------------------------
+
+MESH_STEPS = 32              # (a): steps of each engine's stream
+MESH_CAPACITY = 1 << 22      # (a): arena rows a shard (bench.py:294-330)
+MESH_CPU_ROWS = 1 << 18      # (a): the CPU twins' rows: 2 steps' keys
+MESH_SHARDS = 4              # (b): shards of the mesh, all on cuda:0
+MESH_B_STEPS = 8             # (b): its steps, in runs of MESH_B_CHUNK
+MESH_B_CHUNK = 4
+MESH_B_CAPACITY = 1 << 19    # (b): rows a shard (8 steps' keys)
+MESH_C_CAPACITY = 1 << 21    # (c): the trainer's rows a shard
+MERGE = "segment_merge"
+SHORT_MERGE_KEYS = 32        # the short merge kernel's longest segment
+MESH_WRAPPERS = DEVICE_PREP_WRAPPERS + (segment_merge_cuda,)
+
+
+def mesh_expect(steps: int, ndev: int, device_prep: bool) -> dict:
+    """Launches of ``steps`` mesh steps over ``ndev`` shards: each shard's
+    forward, backward, push and requester merge; device prep: the
+    requester's K5 (whose order the merge takes) and the owner's K5 with
+    K6 folded in (two sorts); host plan: the merge order's boundary kernel
+    of the requester's merge and of the push."""
+    n = steps * ndev
+    out = {"seqpool_cvm_cuda": n, "seqpool_cvm_grad_cuda": n,
+           "sparse_push_cuda": n, "segment_merge_cuda": n}
+    if device_prep:
+        out.update(dedup_sort_cuda=2 * n, device_dedup_cuda=n,
+                   device_dedup_probe_cuda=n)
+    else:
+        out["merge_offsets"] = 2 * n
+    return out
+
+
+def mesh_tuples(batches):
+    """(keys, segs, labels) batches of the training shape as one-shard
+    ``train_stream`` tuples ([1, ...] each) and as ``FusedTrainStep``'s."""
+    flat, sharded = [], []
+    for keys, segs, labels in batches:
+        args = (keys, segs, np.stack([np.ones(TB, np.float32), labels], 1),
+                labels, np.zeros((TB, 0), np.float32),
+                np.ones(TB, np.float32))
+        flat.append(args)
+        sharded.append(tuple(a[None] for a in args))
+    return flat, sharded
+
+
+def split_batches(rng, n: int, ndev: int):
+    """``n`` batches of the training shape (global B=TB) split row-wise
+    over ``ndev`` shards (``split_batch``), as ``train_stream`` tuples."""
+    out = []
+    while len(out) < n:
+        lengths = rng.integers(1, 4, size=(TB, TS)).astype(np.int32)
+        nk = int(lengths.sum())
+        if nk > TNPAD:
+            continue
+        segs, _ = segment_layout(TB, TS, lengths.reshape(-1), TNPAD)
+        keys = np.zeros(TNPAD, np.uint64)
+        keys[:nk] = rng.integers(1, HOT_VOCAB, size=nk)
+        labels = rng.integers(0, 2, size=TB).astype(np.float32)
+        sb = split_batch(CsrBatch(keys, segs, lengths, labels,
+                                  np.zeros((TB, 0), np.float32), TB, TS, nk,
+                                  TB), ndev)
+        out.append((sb.keys, sb.segment_ids,
+                    np.stack([np.ones_like(sb.labels), sb.labels], -1),
+                    sb.labels, sb.dense, sb.row_mask))
+    return out
+
+
+def mesh_world(model, device, ndev: int, capacity: int, device_prep: bool):
+    conf, tconf, _ = train_confs()
+    table = ShardedDeviceTable(conf, make_mesh(ndev, device=device),
+                               capacity_per_shard=capacity, backend="native")
+    step = FusedShardedTrainStep(model, table, tconf, TB // ndev, TS,
+                                 device_prep=device_prep)
+    return step, table, [*step.init(), step.init_auc_state()]
+
+
+def carry_shards(src: ShardedDeviceTable, dst, rows: int) -> None:
+    """``src``'s first ``rows`` arena rows of each shard into ``dst``'s
+    (a ``ShardedDeviceTable`` or a ``DeviceTable``)."""
+    vals = dst.values if isinstance(dst.values, list) else [dst.values]
+    state = dst.state if isinstance(dst.state, list) else [dst.state]
+    for s in range(len(vals)):
+        vals[s][:rows].copy_(src.values[s][:rows])
+        state[s][:rows].copy_(src.state[s][:rows])
+
+
+def mesh_stream(world, tuples, chunk=None, snap=None):
+    """``train_stream`` over ``tuples``; returns the per-step losses (host
+    floats). ``snap(steps)`` runs after each step."""
+    step, _, st = world
+    losses = []
+
+    def on_step(i, loss):
+        losses.append(loss)
+        if snap is not None:
+            snap(i)
+
+    *st[:], _, n = step.train_stream(*st, iter(tuples), chunk=chunk,
+                                     on_step=on_step)
+    require(n == len(tuples), f"mesh: {n} steps of {len(tuples)}")
+    return [float(x) for x in losses]
+
+
+def shard_rows(table, keys: np.ndarray, model=None):
+    """The rows of ``keys`` (each in shard 0's index) on a one-shard
+    table: (values, state, dense params) on the host."""
+    rows, _ = table._indexes[0].lookup(keys, False, True, 0)
+    require(bool((rows > 0).all()), "mesh: a touched key has no row")
+    idx = torch.from_numpy(rows.astype(np.int64)).to(table.devices[0])
+    return (table.values[0][idx].cpu(), table.state[0][idx].cpu(),
+            None if model is None else
+            [p.detach().cpu().clone() for p in model.parameters()])
+
+
+def snapshot_by_key(table):
+    snap = table.snapshot()
+    order = np.argsort(snap["keys"])
+    return tuple(snap[k][order] for k in ("keys", "values", "state"))
+
+
+def require_close_tables(tag: str, a, b) -> float:
+    """Two tables' snapshots by key: the same keys, show/clk exact, the
+    rest within TRAIN_ATOL. Returns the largest difference."""
+    (ka, va, sa), (kb, vb, sb) = snapshot_by_key(a), snapshot_by_key(b)
+    require(np.array_equal(ka, kb), f"{tag}: the tables hold other keys")
+    require(np.array_equal(va[:, :2], vb[:, :2]), f"{tag}: show/clk differ")
+    err = max(float(np.abs(va - vb).max()), float(np.abs(sa - sb).max()))
+    require(err <= TRAIN_ATOL, f"{tag}: rows by key differ by {err}")
+    return err
+
+
+MERGE_PROFILE_CALLS = 20     # (d): merge calls in a profiled run
+
+
+def zipf_keys(rng, like: np.ndarray) -> np.ndarray:
+    """``like``'s layout (its real keys first, then padding) with the real
+    keys drawn by a Zipf law (exponent 1.2, phase 4m's mix) over
+    HOT_VOCAB - 1 keys in a random rank order: a skewed head that repeats
+    hundreds of times in a batch."""
+    nk = int((like > 0).sum())
+    ranked = rng.permutation(np.arange(1, HOT_VOCAB, dtype=np.uint64))
+    keys = np.zeros_like(like)
+    keys[:nk] = ranked[np.minimum(rng.zipf(1.2, size=nk) - 1,
+                                  ranked.size - 1)]
+    return keys
+
+
+def merge_case(tag: str, step, keys: np.ndarray, R: int, rng,
+               by_unique: bool = True) -> dict:
+    """(d) The merge kernel against its plain version on the card at one
+    shape, on the inputs the step gives it for ``keys`` (``_route``):
+    device prep merges by unique over K5's order with key 0's segment
+    emptied (``_unique_merge_order``), the host plan by request position
+    (``merge_order`` of the positions, the null position's keys at the
+    dropped segment M); random grads. Then its times per call and in a
+    CUDA graph beside the bound and ``index_add_`` (the merge only, by
+    position), and the segments past the short kernel's 32 keys with the
+    long kernel's device time from a profiled run."""
+    M = step.ndev * R
+    _, seg, _, dd, _ = step._route(
+        torch.from_numpy(keys.view(np.int64)).cuda(), R)
+    seg = torch.where(seg > 0, seg, M).to(torch.int32)
+    if by_unique:
+        order, offsets = step._unique_merge_order(dd)
+    else:
+        order, offsets = merge_order(seg, M + 1)
+        offsets = offsets[:M + 1]
+    demb = torch.from_numpy(rng.normal(size=(keys.size, D)).astype(
+        np.float32)).cuda()
+    n_seg = offsets.numel() - 1
+    n_live = int(offsets[-1] - offsets[0])
+    got = segment_merge_cuda(demb, order, offsets)
+    # the plain version reads the longest segment back (no graph) and
+    # makes a pass a key rank (1.6 s under the Zipf mix): the check's call
+    # is its time
+    plain_s, want = timed_secs(lambda: segment_merge_plain(demb, order,
+                                                           offsets))
+    err = float((got - want).abs().max())
+    require(torch.equal(got, want), f"{MERGE} {tag}: kernel vs plain max "
+                                    f"abs err {err}, not bit for bit")
+    seg_l = seg.long()
+    g = torch.empty((M + 1, D), dtype=torch.float32, device="cuda")
+    kernel = lambda: segment_merge_cuda(demb, order, offsets)  # noqa: E731
+    library = lambda: g.zero_().index_add_(0, seg_l, demb)  # noqa: E731
+    t = {"ms": cuda_ms(kernel, ITERS), "plain_ms": plain_s * 1e3,
+         "library_ms": cuda_ms(library, ITERS), "graph_ms": graph_ms(kernel),
+         "plain_graph_ms": None, "library_graph_ms": graph_ms(library),
+         "max_abs_err": err, "keys": keys.size, "merged_keys": n_live,
+         "segments": n_seg, "by": "unique" if by_unique else "position"}
+    lens = offsets[1:] - offsets[:-1]
+    longest = int(lens.max())
+    t["long_segments"] = int((lens > SHORT_MERGE_KEYS).sum())
+    t["long_segment_keys"] = int(lens[lens > SHORT_MERGE_KEYS].sum())
+    by_name = device_profile(f"{MERGE} {tag}", lambda: [
+        kernel() for _ in range(MERGE_PROFILE_CALLS)], kernels=(MERGE,))
+    long_us = [us for name, us in by_name.items()
+               if "segment_merge_long" in name]
+    short_us = [us for name, us in by_name.items()
+                if "segment_merge_short" in name]
+    t["long_kernel_ms"] = (sum(long_us) / MERGE_PROFILE_CALLS / 1e3
+                           if long_us else None)
+    t["short_kernel_ms"] = (sum(short_us) / MERGE_PROFILE_CALLS / 1e3
+                            if short_us else None)
+    # the merged keys' grads and order entries read once, the offsets
+    # read, g written once
+    with_bound(t, n_live * D * 4 + n_live * 8 + offsets.numel() * 4 +
+               n_seg * D * 4, n_live * D)
+    fmt = (lambda x: "not measured" if x is None else f"{x:.5f} ms")
+    print(f"timing {MERGE} {tag} (keys {keys.size}, {n_live} of them "
+          f"merged, by {t['by']}, key 0's dropped; segments {n_seg}, D={D}, "
+          f"longest segment {longest} keys, {t['long_segments']} segments "
+          f"of more than {SHORT_MERGE_KEYS} keys holding "
+          f"{t['long_segment_keys']} keys): kernel vs plain bit for bit; "
+          f"per call: kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms "
+          f"(a pass a key rank, {longest} of them), index_add_ "
+          f"{t['library_ms']:.5f} ms; bound {t['bound_ms']:.6f} ms "
+          f"({t['bound_bytes']} bytes); in a CUDA graph: kernel "
+          f"{t['graph_ms']:.5f} ms ({100 * t['bound_ms'] / t['graph_ms']:.1f}"
+          f"% of bound), index_add_ {t['library_graph_ms']:.5f} ms (plain: "
+          f"not capturable); device time a call (profiler): short kernel "
+          f"{fmt(t['short_kernel_ms'])}, long kernel "
+          f"{fmt(t['long_kernel_ms'])}")
+    return t
+
+
+def merge_edges(rng) -> float:
+    """(d) The merge kernel against its plain version, bit for bit, on
+    segments of 0, 1, 31, 32 and 33 keys (the short kernel's limit) and
+    one of 2,600 (the long kernel: 3 tiles at D=11, 55 at D=256), at D =
+    1, 11, 64, 256, grads of mixed sign and scale. Returns the largest
+    error (0)."""
+    lengths = [0, 1, 31, 32, 33, 0, 2600, 1, 0]
+    seg = np.repeat(np.arange(len(lengths), dtype=np.int32), lengths)
+    seg = seg[rng.permutation(seg.size)]
+    err = 0.0
+    for dim in (1, 11, 64, 256):
+        demb = torch.from_numpy((rng.normal(size=(seg.size, dim)) *
+                                 10.0 ** rng.integers(-3, 3, size=(
+                                     seg.size, 1))).astype(np.float32))
+        order, offsets = merge_order(torch.from_numpy(seg).cuda(),
+                                     len(lengths))
+        got = segment_merge_cuda(demb.cuda(), order, offsets)
+        want = segment_merge_plain(demb.cuda(), order, offsets)
+        e = float((got - want).abs().max())
+        require(torch.equal(got, want),
+                f"{MERGE} edges D={dim}: kernel vs plain max abs err {e}")
+        err = max(err, e)
+    print(f"{MERGE} edges: segments of {lengths} keys at D = 1, 11, 64, "
+          "256: kernel and plain bit for bit")
+    return err
+
+
+def phase_mesh(rng, files) -> dict:
+    """(4v) The device-sharded mesh engine at the reference bench's width
+    (``bench.py:280-350``, ``_mesh_child``): (a) a one-shard mesh on
+    cuda:0, device prep and host plan through ``train_stream``, against
+    ``FusedTrainStep`` on the same batches and weights and, 2 steps, the
+    CPU; timed in turns beside ``FusedTrainStep``'s run graphs and eager
+    run loop; (b) a 4-shard mesh on cuda:0 (device prep) against the same
+    mesh on the CPU; (c) ``CTRTrainer(mesh=make_mesh(1))`` over a trainer
+    file, ``evaluate``, save, load and a delta into a ``DeviceTable``; (d)
+    the requester's merge kernel against its plain version at (a)'s and
+    (b)'s shapes, timed."""
+    t_phase = time.perf_counter()
+    conf, tconf, _ = train_confs()
+    model = random_deepfm(rng, TS * conf.pull_dim)
+    flat, tuples = mesh_tuples(make_train_batches(rng, MESH_STEPS))
+    two_keys = np.unique(np.concatenate([a[0] for a in flat[:CPU_STEPS]]))
+    two_keys = two_keys[two_keys > 0]
+    all_keys = np.unique(np.concatenate([a[0] for a in flat]))
+    all_keys = all_keys[all_keys > 0]
+    launches, worlds, out = {}, {}, {"ms_per_step": {}}
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name: str) -> None:
+        """Wall seconds of the part of the phase that just ended."""
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[name] = round(now - t_part, 2)
+        t_part = now
+
+    # (a) each engine: the card's stream counted, against FusedTrainStep
+    # from the same arena and weights, its first 2 steps against the CPU
+    for engine, dp in (("device_prep", True), ("host_plan", False)):
+        tag = f"mesh (4v) (a) {engine}"
+        world = mesh_world(copy.deepcopy(model), "cuda", 1, MESH_CAPACITY,
+                           dp)
+        table = world[1]
+        cpu = mesh_world(copy.deepcopy(model), "cpu", 1, MESH_CPU_ROWS, dp)
+        carry_shards(table, cpu[1], MESH_CPU_ROWS)
+        single = DeviceTable(conf, capacity=MESH_CAPACITY, device="cuda",
+                             backend="native", index_threads=1)
+        carry_shards(table, single, MESH_CAPACITY)
+        fs = FusedTrainStep(copy.deepcopy(model), single, tconf, TB, TS,
+                            device_prep=dp)
+        fst = [*fs.init(), fs.init_auc_state()]
+        at_two = {}
+
+        def snap(i, table=table, at_two=at_two, params=world[2][0]):
+            if i == CPU_STEPS:
+                at_two["after"] = shard_rows(table, two_keys, params)
+
+        secs, losses, launches[f"mesh_{engine}"] = counted(
+            lambda: mesh_stream(world, tuples, snap=snap),
+            mesh_expect(MESH_STEPS, 1, dp), tag, MESH_WRAPPERS)
+        require(all(np.isfinite(losses)), f"{tag}: non-finite loss")
+        want = []
+        # each step's loss read at once: a replayed run's are its graph's
+        # outputs, which the next replay overwrites
+        fs.train_stream(*fst, iter(flat),
+                        on_step=lambda i, loss: want.append(float(loss)))
+        require(np.allclose(losses, want, rtol=TRAIN_RTOL, atol=0),
+                f"{tag}: losses {losses[:4]}... vs FusedTrainStep's "
+                f"{want[:4]}...")
+        mv, mst, mp = shard_rows(table, all_keys, world[2][0])
+        rows, _ = single._index.lookup(all_keys, False, True, 0)
+        idx = torch.from_numpy(rows.astype(np.int64)).cuda()
+        fv, fst_rows = single.values[idx].cpu(), single.state[idx].cpu()
+        require(torch.equal(mv[:, :2], fv[:, :2]), f"{tag}: show/clk differ "
+                                                   "from FusedTrainStep's")
+        row_err = max(float((mv - fv).abs().max()),
+                      float((mst - fst_rows).abs().max()))
+        dense_err = max(float((a - b.detach().cpu()).abs().max())
+                        for a, b in zip(mp, fst[0].parameters()))
+        require(row_err <= TRAIN_ATOL and dense_err <= TRAIN_ATOL,
+                f"{tag}: rows {row_err}, dense {dense_err} from "
+                "FusedTrainStep's")
+        init_vals, init_state = (cpu[1].values[0].clone(),
+                                 cpu[1].state[0].clone())
+        twin = mesh_stream(cpu, tuples[:CPU_STEPS])
+        rows2, _ = cpu[1]._indexes[0].lookup(two_keys, False, True, 0)
+        r2 = torch.from_numpy(rows2.astype(np.int64))
+        before = (init_vals[r2], init_state[r2], None)
+        compare_twin(f"{tag}: card vs CPU", losses, at_two["after"], twin,
+                     shard_rows(cpu[1], two_keys, cpu[2][0]), before)
+        del cpu, init_vals, init_state
+        print(f"{tag}: {MESH_STEPS} steps through train_stream in "
+              f"{secs:.2f} s (new keys every step), launches "
+              f"{launches[f'mesh_{engine}']}, losses {losses[0]:.6f} -> "
+              f"{losses[-1]:.6f}, against FusedTrainStep: losses within "
+              f"rtol {TRAIN_RTOL}, {all_keys.size} rows by key max abs err "
+              f"{row_err:.3e}, dense {dense_err:.3e}")
+        worlds[engine] = world
+        worlds[f"fts_{engine}"] = (fs, single, fst)
+        part(f"a_{engine}")
+
+    # timed in turns over the same batches, every key now in the tables
+    fs, _, fst = worlds["fts_device_prep"]
+    runs = {
+        "run_graphs": lambda: fs.train_stream(*fst, iter(flat)),
+        "eager_run_loop": lambda: eager_run_loop(fs, tuple(fst), flat),
+        "mesh_device_prep": lambda: mesh_stream(worlds["device_prep"],
+                                                tuples),
+        "mesh_host_plan": lambda: mesh_stream(worlds["host_plan"], tuples)}
+    turns = {k: [] for k in runs}
+    order = list(runs)
+    for name in order + order[::-1]:
+        secs, _ = timed_secs(runs[name])
+        turns[name].append(secs / MESH_STEPS * 1e3)
+    for name, ms in turns.items():
+        print(f"timing mesh (4v) (a) {name}: ms/step {[round(x, 4) for x in ms]}"
+              f", examples/s {[round(TB / x * 1e3, 1) for x in ms]} (B={TB}, "
+              f"{MESH_STEPS} steps a turn, in turns; {card_line()})")
+    out["ms_per_step"] = turns
+    del runs, fs, fst
+    worlds.clear()
+    torch.cuda.empty_cache()
+    part("a_turns")
+
+    # (b) four shards on cuda:0 against four on the CPU
+    tag = "mesh (4v) (b) 4 shards"
+    b_batches = split_batches(rng, MESH_B_STEPS, MESH_SHARDS)
+    card = mesh_world(copy.deepcopy(model), "cuda", MESH_SHARDS,
+                      MESH_B_CAPACITY, True)
+    cpu = mesh_world(copy.deepcopy(model), "cpu", MESH_SHARDS,
+                     MESH_B_CAPACITY, True)
+    carry_shards(card[1], cpu[1], MESH_B_CAPACITY)
+    secs, losses, launches["mesh_4_shards"] = counted(
+        lambda: mesh_stream(card, b_batches, chunk=MESH_B_CHUNK),
+        mesh_expect(MESH_B_STEPS, MESH_SHARDS, True), tag, MESH_WRAPPERS)
+    t0 = time.perf_counter()
+    twin = mesh_stream(cpu, b_batches, chunk=MESH_B_CHUNK)
+    cpu_s = time.perf_counter() - t0
+    require(np.allclose(losses, twin, rtol=TRAIN_RTOL, atol=0),
+            f"{tag}: losses {losses} vs the CPU's {twin}")
+    err = require_close_tables(tag, card[1], cpu[1])
+    dense_err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                    for a, b in zip(card[2][0].parameters(),
+                                    cpu[2][0].parameters()))
+    require(dense_err <= TRAIN_ATOL, f"{tag}: dense params {dense_err}")
+    R4 = card[0]._req_cap(b_batches[0][0].shape[1])
+    print(f"{tag}: {MESH_B_STEPS} steps of B={TB} ({TB // MESH_SHARDS} a "
+          f"shard, Npad {b_batches[0][0].shape[1]} a shard, R {R4}) in "
+          f"{secs:.2f} s, launches {launches['mesh_4_shards']}, against the "
+          f"CPU ({cpu_s:.2f} s): losses within rtol {TRAIN_RTOL}, "
+          f"{len(card[1])} rows by key max abs err {err:.3e}, dense "
+          f"{dense_err:.3e}, shard fill {card[1].shard_sizes()}")
+    b_keys = b_batches[0][0][0]
+    b_step = card[0]
+    del cpu
+    part("b")
+
+    # (c) the trainer entry over one trainer file
+    tag = "mesh (4v) (c) CTRTrainer(mesh=make_mesh(1))"
+    feed = trainer_feed_conf()
+    ds = SlotDataset(feed, buckets=BucketSpec(min_size=TNPAD,
+                                              max_size=1 << 18))
+    ds.set_filelist(files[:1])
+    ds.load_into_memory()
+    n_rows = ds.num_instances()
+    n_batches = n_rows // TB
+    tr = CTRTrainer(copy.deepcopy(model), feed, conf, tconf,
+                    mesh=make_mesh(1), device_capacity=MESH_C_CAPACITY)
+    require(isinstance(tr.table, ShardedDeviceTable) and
+            tr.step.device_prep, f"{tag}: not the device-prep mesh engine")
+    secs, metrics, launches["mesh_trainer"] = counted(
+        lambda: tr.train_from_dataset(ds),
+        mesh_expect(n_batches, 1, True), tag, MESH_WRAPPERS)
+    require(metrics["ins_num"] == n_rows and 0.0 <= metrics["auc"] <= 1.0,
+            f"{tag}: pass metrics {metrics}")
+    _, ev, launches["mesh_trainer_evaluate"] = counted(
+        lambda: tr.evaluate(ds), {"seqpool_cvm_cuda": n_batches},
+        f"{tag} evaluate", MESH_WRAPPERS)
+    require(ev["ins_num"] == n_rows and 0.0 <= ev["auc"] <= 1.0,
+            f"{tag}: evaluate {ev}")
+    os.makedirs(WORK, exist_ok=True)
+    base = os.path.join(WORK, "mesh_base.npz")
+    delta = os.path.join(WORK, "mesh_delta.npz")
+    t0 = time.perf_counter()
+    tr.table.save(base)
+    save_s = time.perf_counter() - t0
+    fresh = ShardedDeviceTable(conf, make_mesh(1),
+                               capacity_per_shard=MESH_C_CAPACITY,
+                               backend="native")
+    t0 = time.perf_counter()
+    fresh.load(base)
+    load_s = time.perf_counter() - t0
+    kb, vb, sb = snapshot_by_key(tr.table)
+    kf, vf, sf = snapshot_by_key(fresh)
+    require(np.array_equal(kb, kf) and np.array_equal(vb, vf) and
+            np.array_equal(sb, sf), f"{tag}: the loaded table differs")
+    del fresh
+    # one more step (the first batch again): its rows are the delta
+    sb = split_batch(next(iter(ds.batches())), 1)
+    tr.params, tr.opt_state, tr.auc_state = tr.step.step_device(
+        tr.params, tr.opt_state, tr.auc_state, sb.keys, sb.segment_ids,
+        np.stack([np.ones_like(sb.labels), sb.labels], -1), sb.labels,
+        sb.dense, sb.row_mask)[:3]
+    n_touched = np.unique(sb.keys[sb.keys > 0]).size
+    n_delta = tr.table.save_delta(delta)
+    require(n_delta == n_touched, f"{tag}: a delta of {n_delta} rows after "
+                                  f"a step over {n_touched} keys")
+    single = DeviceTable(conf, capacity=MESH_C_CAPACITY, device="cuda")
+    single.load_delta(delta)
+    require(n_delta == len(single) and 0 < n_delta <= len(tr.table),
+            f"{tag}: a delta of {n_delta} rows loaded {len(single)} into a "
+            "DeviceTable")
+    dk, dv, _ = snapshot_by_key(single)
+    ok = np.isin(dk, kb)
+    require(bool(ok.all()), f"{tag}: the delta holds keys the table lacks")
+    print(f"{tag}: {n_batches} batches of B={TB} ({n_rows} rows, "
+          f"{len(tr.table)} keys) in {secs:.2f} s, launches "
+          f"{launches['mesh_trainer']}, metrics auc {metrics['auc']:.6f} "
+          f"ins_num {metrics['ins_num']}; evaluate auc {ev['auc']:.6f} "
+          f"ins_num {ev['ins_num']}; save {save_s:.2f} s, load {load_s:.2f} "
+          f"s (bit for bit), a step's delta of {n_delta} rows into a "
+          "DeviceTable")
+    del tr, single, ds
+    part("c")
+
+    # (d) the merge kernel at (a)'s and (b)'s shapes, each engine's form,
+    # and (a)'s shape under a skewed head
+    one = mesh_world(copy.deepcopy(model), "cuda", 1, 1 << 10, True)
+    R1 = one[0]._req_cap(TNPAD)
+    merge = {"training": merge_case("(a) one shard", one[0], flat[0][0],
+                                    R1, rng),
+             "training_host_plan": merge_case(
+                 "(a) one shard, host plan", one[0], flat[0][0], R1, rng,
+                 by_unique=False),
+             "four_shards": merge_case("(b) shard 0 of 4", b_step, b_keys,
+                                       R4, rng),
+             "zipf": merge_case("(a) one shard, Zipf(1.2) keys", one[0],
+                                zipf_keys(rng, flat[0][0]), R1, rng),
+             "edges_max_abs_err": merge_edges(rng)}
+    del one, card, b_step
+    torch.cuda.empty_cache()
+    part("d")
+    out.update(launches=launches, merge=merge, parts_s=parts,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"mesh (4v): {out['phase_s']:.1f} s; by part s {parts}")
+    return out
+
+
 # -- phase 4f: the host-table engine and the models ---------------------------
 
 HE_BATCHES = 16              # batches of each path of the phase
@@ -8217,6 +8747,29 @@ def time_index(inputs) -> Tuple[dict, dict, dict]:
     return k5, k6, time_dedup_probe(inputs, quads)
 
 
+PHASE_S: dict = {}            # wall seconds of each phase_* call, in order
+
+
+def time_phases() -> None:
+    """Wrap every ``phase_*`` function of this module so that each call
+    adds its wall seconds to ``PHASE_S`` under its name."""
+    def wrap(fn):
+        key = fn.__name__[len("phase_"):]
+
+        @functools.wraps(fn)
+        def timed_phase(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                PHASE_S[key] = round(PHASE_S.get(key, 0.0) +
+                                     time.perf_counter() - t0, 2)
+        return timed_phase
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = wrap(fn)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8228,6 +8781,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
+    time_phases()
     try:
         ptxas = phase_build()
         loader_build = start_loader_build()
@@ -8284,6 +8838,8 @@ def main() -> int:
                             trainer["files"])
         ps = phase_ps_service(np.random.default_rng([args.seed, 79]),
                               trainer["files"], serve_bundle, serve_batches)
+        mesh = phase_mesh(np.random.default_rng([args.seed, 83]),
+                          trainer["files"])
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
@@ -8327,7 +8883,8 @@ def main() -> int:
           f"{trainer['path_ms']['hand']:.4f} ms/step; pass loop "
           f"{loop['loop_s']:.2f} s for 4 passes, barrier wait "
           f"{loop['barrier_s']:.4f} s, resume {loop['resume_s']:.4f} s; "
-          f"tiered loop {tiered['loop_s']:.2f} s for 4 passes and their "
+          f"tiered loop {tiered['loop_s']:.2f} s for "
+          f"{sum(n for _, n in TIER_DAYS)} passes and their "
           f"sync twin's, train ms/step "
           f"{[round(r['train_ms'], 4) for r in tiered['passes']]}, a "
           f"backing of {tiered['backing_rows']} rows over an arena of "
@@ -8389,7 +8946,10 @@ def main() -> int:
           f"service "
           f"{[round(v, 3) for v in ps['serve_turns_ms']['service']]}, "
           f"device bytes {ps['device_bytes']}, cache_wall "
-          f"{ps['cache_wall']}, {ps['phase_s']:.1f} s")
+          f"{ps['cache_wall']}, {ps['phase_s']:.1f} s; mesh (4v) ms/step "
+          f"{ {k: [round(x, 4) for x in v] for k, v in mesh['ms_per_step'].items()} }, "
+          f"{mesh['phase_s']:.1f} s")
+    print(f"chip_smoke: wall s by phase {PHASE_S} [{card_line()}]")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
 
@@ -8421,7 +8981,8 @@ def main() -> int:
                                          **hosts["launches"],
                                          **embedded["launches"],
                                          **ctr["launches"],
-                                         **ps["launches"]}.items()}}
+                                         **ps["launches"],
+                                         **mesh["launches"]}.items()}}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}
 
@@ -8475,6 +9036,27 @@ def main() -> int:
          "ptxas": [r for r in ptxas[INDEX]
                    if r["name"] == "dedup_write_probe_kernel"]},
     ]
+    # the mesh step's requester merge (phase 4v): launches on its paths;
+    # its numbers at (a)'s shape, (b)'s beside them
+    mesh_paths = {path: counts[segment_merge_cuda.__name__]
+                  for path, counts in mesh["launches"].items()}
+    merge_a, merge_b = mesh["merge"]["training"], mesh["merge"]["four_shards"]
+    rows.append({
+        "name": MERGE, "route": "cuda",
+        "source": "paddlebox_tpu_torch/csrc/sparse_push.cu",
+        # the reference's requester segment_sum (an XLA scatter-add), in
+        # the device-prep body and in _exchange_push
+        "replaces": "paddlebox_tpu/parallel/fused_dp_step.py:321",
+        "also_replaces": "paddlebox_tpu/parallel/fused_dp_step.py:645",
+        "launches": sum(mesh_paths.values()), "launches_by_path": mesh_paths,
+        "counted_by": segment_merge_cuda.__name__, **merge_a,
+        "max_abs_err": max(merge_a["max_abs_err"], merge_b["max_abs_err"],
+                           mesh["merge"]["training_host_plan"]["max_abs_err"],
+                           mesh["merge"]["zipf"]["max_abs_err"],
+                           mesh["merge"]["edges_max_abs_err"]),
+        "four_shards": merge_b,
+        "host_plan": mesh["merge"]["training_host_plan"],
+        "zipf": mesh["merge"]["zipf"]})
     # the push's storage variants: launches on phase 4g's paths, counted
     # by each variant's counter
     for variant, kind in zip(ARENA_ROWS, ("2,0", "1,0", "0,1", "2,1")):

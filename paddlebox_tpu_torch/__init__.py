@@ -42,7 +42,12 @@ Ported so far:
   the heartbeat (``obs``), the train guard with its rollback
   (``trainer.guard``), the postmortem bundle (``obs.postmortem``), the
   section profiler (``trainer.profiler``), the reference user's
-  ``compat.BoxPSDataset`` and ``utils.fs.FileMgr``.
+  ``compat.BoxPSDataset`` and ``utils.fs.FileMgr``;
+- the device-sharded mesh engine: ``CTRTrainer(mesh=...)`` over a
+  ``parallel.mesh.Mesh`` (one controller, a shard a device) ->
+  ``parallel.fused_dp_step.FusedShardedTrainStep`` over a
+  ``ps.sharded_device_table.ShardedDeviceTable``, host plan or device
+  prep, the requester's gradient merge a CUDA kernel.
 
 The package's top-level names resolve at first use, so a module that
 needs no torch (the data feed's parse workers import ``data.fast_feed``)

@@ -128,10 +128,12 @@ class TrainerConfig:
     ``dense_sync_steps``, ``metrics``, ``num_devices`` and ``profile`` are
     the trainer loop's (``trainer/trainer.py::CTRTrainer``): on one device
     it ignores ``dense_sync_steps`` and ``metrics`` as the reference does,
-    refuses ``num_devices`` > 1 and prints the profile line."""
+    refuses ``num_devices`` > 1 without a mesh and prints the profile
+    line; over a mesh it refuses ``dense_sync_steps`` > 0 (the reference's
+    host-table LocalSGD engine)."""
 
-    # dense optimizer, in optax's math: "adam" | "adamw" | "sgd" | "adagrad"
-    # ("lars" and "lamb" are not ported yet)
+    # dense optimizer, in optax's math: "adam" | "adamw" | "sgd" |
+    # "adagrad" | "lars" | "lamb" (trainer/train_step.py)
     dense_optimizer: str = "adam"
     dense_learning_rate: float = 1e-3
     # weight decay for lars/lamb/adamw (others ignore it)

@@ -9,8 +9,9 @@
 // take next_row + i) and the [capacity + guard, 4] u32 export layout. The
 // device mirror (ps/device_index.py) and its CUDA probe
 // (csrc/device_index.cu) recompute Map64::hash and walk the same slots.
-// Nothing else of pbx_ps.cpp comes along: no wire packing, parser or mesh
-// planner.
+// At the end, the mesh routing-plan builder of the device-sharded table
+// (pbx_mesh_*). Nothing else of pbx_ps.cpp comes along: no wire packing or
+// parser.
 //
 // No external dependencies; thread-safety is the caller's job.
 
@@ -787,6 +788,453 @@ void pbx_expand_rows(const float* uniq_vals, const int64_t* inverse,
                      int64_t n, int64_t d, float* out) {
   for (int64_t i = 0; i < n; ++i) {
     std::memcpy(out + i * d, uniq_vals + inverse[i] * d, sizeof(float) * d);
+  }
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The mesh routing-plan builder of the device-sharded table
+// (ps/sharded_device_table.py prepare_batch, ps/native.py MeshPlanner): a
+// copy of the reference's csrc/pbx_ps.cpp pbx_mesh_* and mesh_owner_hash,
+// kept bit for bit: the owner hash (ps/device_index.py host_owner_hash and
+// device_owner_hash recompute it), the per-shard row numbering (each
+// owner's uniques in requester order, first occurrence within each) and
+// the first-occurrence serve lists.
+//
+// The host builds one batch's routing plan (request buckets, the inverse
+// scatter, the per-owner serve lists) against a context that persists per
+// table (epoch-tagged dedup scratch, buffers that keep their capacity), so
+// the steady state allocates nothing:
+//
+//   pbx_mesh_ctx_create  once a table
+//   pbx_mesh_begin       per requester: dedup and owner split
+//                        (mesh_owner_hash); per owner: the batched row
+//                        lookup or insert into its shard's Map64, then the
+//                        serve dedup. Returns the bucket drivers (the
+//                        largest request count, the largest serve count),
+//                        from which Python picks the padded R and Upad.
+//   pbx_mesh_fill        writes the six plan arrays at that padding.
+//
+// The stages stride requesters and owners over min(ndev, hw threads)
+// std::threads. Every dedup structure is one 16-byte entry a key (one cache
+// line a probe, like Map64), and every probe loop is block-prefetched, so
+// ~kBlock misses are in flight instead of one.
+//
+// Serve lists are in first-occurrence order (row 0, the null row, first),
+// not sorted: the plan is only read by gathers.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// Owner hash of the device-sharded table: murmur fmix32 over the key's u32
+// halves with a seed folded into the lo half, so the step's router on the
+// device recomputes the same owner (ps/device_index.py device_owner_hash,
+// bit for bit), while it stays independent of Map64::hash's slot
+// placement.
+inline uint32_t mesh_owner_hash(uint64_t k) {
+  const uint32_t lo = static_cast<uint32_t>(k);
+  const uint32_t hi = static_cast<uint32_t>(k >> 32);
+  return Map64::fmix32(hi ^ Map64::fmix32(lo ^ 0x9e3779b9u));
+}
+
+inline uint64_t splitmix_fin(uint64_t k) {
+  k = (k ^ (k >> 33)) * 0xFF51AFD7ED558CCDULL;
+  k = (k ^ (k >> 33)) * 0xC4CEB9FE1A85EC53ULL;
+  return k ^ (k >> 33);
+}
+
+// epoch-tagged open-addressing dedup scratch: reset is O(1) (bump the
+// epoch), capacity is retained across batches, one 16-byte entry per slot
+// (the mesh-side sibling of Map64's SEntry scratch, which stays separate
+// because it lives inside the map and shares its allocation policy)
+template <typename K>
+struct Dedup {
+  struct E {
+    K key;
+    uint32_t ep;
+    int32_t v;
+  };
+  static_assert(sizeof(E) <= 16, "at most one cache line / 4 entries");
+  std::vector<E> t;
+  uint32_t epoch = 0;
+  size_t mask = 0;
+  void next(size_t n) {
+    size_t cap = 64;
+    while (cap < n * 2) cap <<= 1;
+    if (cap > t.size()) {
+      t.assign(cap, E{K(0), 0, 0});
+      mask = cap - 1;
+      epoch = 0;
+    }
+    ++epoch;
+    if (epoch == 0) {
+      // uint32 wrap: stale tags (and the ep==0 of never-touched slots)
+      // would alias the new epoch -> clear and restart at 1
+      std::fill(t.begin(), t.end(), E{K(0), 0, 0});
+      epoch = 1;
+    }
+  }
+};
+
+using DedupU64 = Dedup<uint64_t>;  // requester-side key dedup
+using DedupI32 = Dedup<int32_t>;   // owner-side serve-row dedup
+
+struct MeshCtx {
+  int64_t ndev = 0, npad = 0;
+  // per requester d, per uniq key uid (vectors retain capacity):
+  std::vector<DedupU64> seen;
+  std::vector<std::vector<uint64_t>> uniq;
+  std::vector<std::vector<int32_t>> owner, pos, row, spos, inv;
+  std::vector<std::vector<std::vector<int32_t>>> by_owner;
+  std::vector<std::vector<int32_t>> next_pos;
+  // per owner s:
+  std::vector<DedupI32> sdedup;
+  std::vector<std::vector<int32_t>> serve;
+  std::vector<int64_t> counts;  // [d*ndev+s] incl the null-slot base
+  // ndev == 1 fast path: the plan degenerates to the single-table fused
+  // prepare (map_prepare_impl) — same probes, no routing bookkeeping
+  bool single = false;
+  int64_t n_uniq_single = 0;
+  std::vector<int32_t> s_rows, s_inv, s_uniq_rows;
+
+  explicit MeshCtx(int64_t n)
+      : ndev(n), seen(n), uniq(n), owner(n), pos(n), row(n), spos(n),
+        inv(n), by_owner(n), next_pos(n), sdedup(n), serve(n),
+        counts(n * n, 0) {
+    for (auto& b : by_owner) b.resize(n);
+    for (auto& p : next_pos) p.resize(n);
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+void* pbx_mesh_ctx_create(int64_t ndev) try {
+  return new MeshCtx(ndev);
+} catch (const std::bad_alloc&) {
+  return nullptr;
+}
+
+void pbx_mesh_ctx_destroy(void* ctx) { delete static_cast<MeshCtx*>(ctx); }
+
+// Stage 1. keys is [ndev, npad] row-major; sizes[s] is the shard's next free
+// arena row (in/out). out3 = {max request-bucket count (incl the reserved
+// null slot of shard 0), max serve-list length, total new inserts}.
+// Returns 0, or -1 on host OOM.
+int64_t pbx_mesh_begin(void* ctx, void** maps, const uint64_t* keys,
+                       int64_t npad, int create, int64_t* sizes,
+                       int64_t* out3) try {
+  MeshCtx* c = static_cast<MeshCtx*>(ctx);
+  const int64_t ndev = c->ndev;
+  c->npad = npad;
+
+  if (ndev == 1) {
+    // 1-device mesh: the routing plan degenerates to the single-table
+    // fused prepare; run exactly that (the same block-prefetched probes as
+    // pbx_map_prepare) and let fill() reshape its outputs, so a one-shard
+    // mesh prepares as fast as the single-device table.
+    c->single = true;
+    Map64* m = static_cast<Map64*>(maps[0]);
+    c->s_rows.resize(npad);
+    c->s_inv.resize(npad);
+    c->s_uniq_rows.resize(npad);
+    int64_t n_new = 0;
+    const int64_t nu = map_prepare_impl(
+        m, keys, npad, create, 1, 0, sizes[0], c->s_rows.data(),
+        c->s_inv.data(), c->s_uniq_rows.data(), &n_new, nullptr, nullptr,
+        nullptr, nullptr);
+    c->n_uniq_single = nu;
+    sizes[0] += n_new;
+    int64_t nz = 0;
+    for (int64_t u = 0; u < nu; ++u) nz += c->s_uniq_rows[u] > 0;
+    out3[0] = nu + 1;   // every uniq key gets a request slot, +1 null
+    out3[1] = nz + 1;   // served rows + the null row
+    out3[2] = n_new;
+    return 0;
+  }
+  c->single = false;
+
+  const unsigned hw = std::max(1u, std::thread::hardware_concurrency());
+  const int nt = static_cast<int>(
+      std::min<int64_t>(ndev, static_cast<int64_t>(hw)));
+  std::atomic<int64_t> fail{0};
+
+  // stage A: per-requester dedup + owner split (threads stride over d)
+  auto stage_a = [&](int t) {
+    try {
+      for (int64_t d = t; d < ndev; d += nt) {
+        const uint64_t* kd = keys + d * npad;
+        DedupU64& seen = c->seen[d];
+        seen.next(static_cast<size_t>(npad));
+        const uint32_t ep = seen.epoch;
+        auto& uniq = c->uniq[d];
+        auto& owner = c->owner[d];
+        auto& pos = c->pos[d];
+        auto& inv = c->inv[d];
+        auto& byo = c->by_owner[d];
+        uniq.clear();
+        owner.clear();
+        pos.clear();
+        inv.resize(npad);
+        for (auto& b : byo) b.clear();
+        auto& next_pos = c->next_pos[d];
+        std::fill(next_pos.begin(), next_pos.end(), 0);
+        next_pos[0] = 1;  // (s=0, i=0) reserved for the null row
+        // hv % ndev == hv & (ndev-1) for power-of-two meshes (the common
+        // case) — saves a ~30-cycle integer division per key
+        const bool pow2 = (ndev & (ndev - 1)) == 0;
+        const uint64_t smask = static_cast<uint64_t>(ndev - 1);
+        uint64_t hv[kBlock];
+        for (int64_t base = 0; base < npad; base += kBlock) {
+          const int nb = static_cast<int>(
+              std::min<int64_t>(kBlock, npad - base));
+          for (int j = 0; j < nb; ++j) {
+            hv[j] = splitmix_fin(kd[base + j]);
+            __builtin_prefetch(
+                &seen.t[static_cast<size_t>(hv[j]) & seen.mask], 1);
+          }
+          for (int j = 0; j < nb; ++j) {
+            const uint64_t key = kd[base + j];
+            if (key == 0) {
+              inv[base + j] = -1;
+              continue;
+            }
+            size_t p = static_cast<size_t>(hv[j]) & seen.mask;
+            while (seen.t[p].ep == ep && seen.t[p].key != key) {
+              p = (p + 1) & seen.mask;
+            }
+            if (seen.t[p].ep != ep) {
+              const int32_t uid = static_cast<int32_t>(uniq.size());
+              seen.t[p].ep = ep;
+              seen.t[p].key = key;
+              seen.t[p].v = uid;
+              const uint32_t oh = mesh_owner_hash(key);
+              const int32_t s = static_cast<int32_t>(
+                  pow2 ? (oh & static_cast<uint32_t>(smask))
+                       : (oh % static_cast<uint32_t>(ndev)));
+              uniq.push_back(key);
+              owner.push_back(s);
+              pos.push_back(next_pos[s]++);
+              byo[s].push_back(uid);
+              inv[base + j] = uid;
+            } else {
+              inv[base + j] = seen.t[p].v;
+            }
+          }
+        }
+        for (int64_t s = 0; s < ndev; ++s) {
+          c->counts[d * ndev + s] = next_pos[s];
+        }
+        c->row[d].resize(uniq.size());
+        c->spos[d].resize(uniq.size());
+      }
+    } catch (const std::bad_alloc&) {
+      fail.store(1);
+    }
+  };
+  if (nt == 1) {
+    stage_a(0);
+  } else {
+    std::vector<std::thread> ths;
+    for (int t = 0; t < nt; ++t) ths.emplace_back(stage_a, t);
+    for (auto& th : ths) th.join();
+  }
+  if (fail.load()) return -1;
+
+  // stage B: per-owner batched lookup + serve dedup (threads stride over
+  // s). No staging copies: both passes run block-prefetched straight off
+  // the by_owner uid lists (uids ascend, so uniq[]/row[] reads stream).
+  std::vector<int64_t> n_new(ndev, 0);
+  auto stage_b = [&](int t) {
+    try {
+      for (int64_t s = t; s < ndev; s += nt) {
+        Map64* m = static_cast<Map64*>(maps[s]);
+        int64_t total = 0;
+        for (int64_t d = 0; d < ndev; ++d) {
+          total += static_cast<int64_t>(c->by_owner[d][s].size());
+        }
+        // pass 1: resolve arena rows (find / find_or_insert)
+        int64_t inserted = 0;
+        const int64_t next0 = sizes[s];
+        size_t hs[kBlock];
+        for (int64_t d = 0; d < ndev; ++d) {
+          const auto& byo = c->by_owner[d][s];
+          const auto& uniq = c->uniq[d];
+          auto& row = c->row[d];
+          const int64_t nn = static_cast<int64_t>(byo.size());
+          for (int64_t base = 0; base < nn; base += kBlock) {
+            const int nb = static_cast<int>(
+                std::min<int64_t>(kBlock, nn - base));
+            if (create) {
+              for (int j = 0; j < nb; ++j) {
+                hs[j] = Map64::hash(uniq[byo[base + j]]) & m->mask;
+                __builtin_prefetch(&m->tab[hs[j]], 1);
+              }
+            } else {
+              for (int j = 0; j < nb; ++j) {
+                hs[j] = Map64::hash(uniq[byo[base + j]]) & m->mask;
+                __builtin_prefetch(&m->tab[hs[j]], 0);
+              }
+            }
+            for (int j = 0; j < nb; ++j) {
+              int64_t r;
+              if (create) {
+                bool ins = false;
+                r = m->find_or_insert(uniq[byo[base + j]],
+                                      next0 + inserted, &ins);
+                if (ins) ++inserted;
+              } else {
+                r = m->find(uniq[byo[base + j]]);
+              }
+              row[byo[base + j]] = r < 0 ? 0 : static_cast<int32_t>(r);
+            }
+          }
+        }
+        n_new[s] = inserted;
+        sizes[s] = next0 + inserted;
+        // pass 2: serve dedup over the resolved rows (first-occurrence
+        // order, row 0 = null always pos 0)
+        auto& serve = c->serve[s];
+        serve.clear();
+        serve.push_back(0);
+        DedupI32& sd = c->sdedup[s];
+        sd.next(static_cast<size_t>(total + 1));
+        const uint32_t sep = sd.epoch;
+        {  // pre-seed row 0 -> pos 0
+          size_t p = static_cast<size_t>(Map64::fmix32(0)) & sd.mask;
+          sd.t[p].ep = sep;
+          sd.t[p].key = 0;
+          sd.t[p].v = 0;
+        }
+        for (int64_t d = 0; d < ndev; ++d) {
+          const auto& byo = c->by_owner[d][s];
+          const auto& row = c->row[d];
+          auto& spos = c->spos[d];
+          const int64_t nn = static_cast<int64_t>(byo.size());
+          for (int64_t base = 0; base < nn; base += kBlock) {
+            const int nb = static_cast<int>(
+                std::min<int64_t>(kBlock, nn - base));
+            for (int j = 0; j < nb; ++j) {
+              hs[j] = static_cast<size_t>(Map64::fmix32(
+                          static_cast<uint32_t>(row[byo[base + j]]))) &
+                      sd.mask;
+              __builtin_prefetch(&sd.t[hs[j]], 1);
+            }
+            for (int j = 0; j < nb; ++j) {
+              const int32_t r = row[byo[base + j]];
+              size_t p = hs[j];
+              while (sd.t[p].ep == sep && sd.t[p].key != r) {
+                p = (p + 1) & sd.mask;
+              }
+              if (sd.t[p].ep != sep) {
+                sd.t[p].ep = sep;
+                sd.t[p].key = r;
+                sd.t[p].v = static_cast<int32_t>(serve.size());
+                serve.push_back(r);
+              }
+              spos[byo[base + j]] = sd.t[p].v;
+            }
+          }
+        }
+      }
+    } catch (const std::bad_alloc&) {
+      fail.store(1);
+    }
+  };
+  if (nt == 1) {
+    stage_b(0);
+  } else {
+    std::vector<std::thread> ths;
+    for (int t = 0; t < nt; ++t) ths.emplace_back(stage_b, t);
+    for (auto& th : ths) th.join();
+  }
+  if (fail.load()) return -1;
+
+  int64_t max_count = 1, max_serve = 1, total_new = 0;
+  for (int64_t i = 0; i < ndev * ndev; ++i) {
+    max_count = std::max(max_count, c->counts[i]);
+  }
+  for (int64_t s = 0; s < ndev; ++s) {
+    max_serve = std::max(max_serve,
+                         static_cast<int64_t>(c->serve[s].size()));
+    total_new += n_new[s];
+  }
+  out3[0] = max_count;
+  out3[1] = max_serve;
+  out3[2] = total_new;
+  return 0;
+} catch (const std::bad_alloc&) {
+  return -1;
+}
+
+// Stage 2: write the plan arrays at padding R / Upad (chosen by the caller
+// from out3's maxima via its BucketSpec). All arrays are fully overwritten.
+void pbx_mesh_fill(void* ctx, int64_t R, int64_t Upad, int32_t* req_rows,
+                   int32_t* inverse, int32_t* serve_uniq, float* serve_mask,
+                   int32_t* serve_inverse, int64_t* num_uniq) {
+  MeshCtx* c = static_cast<MeshCtx*>(ctx);
+  const int64_t ndev = c->ndev, npad = c->npad;
+  if (c->single) {
+    // reshape the fused-prepare outputs: uid u -> request slot u+1 on the
+    // only shard; absent rows (0) and key 0 land on the null slot
+    const int64_t nu = c->n_uniq_single;
+    std::memset(req_rows, 0, sizeof(int32_t) * R);
+    std::memset(serve_inverse, 0, sizeof(int32_t) * R);
+    std::memset(serve_uniq, 0, sizeof(int32_t) * Upad);
+    std::memset(serve_mask, 0, sizeof(float) * Upad);
+    int64_t cnt = 1;  // serve pos 0 = the null row
+    for (int64_t u = 0; u < nu; ++u) {
+      const int32_t r = c->s_uniq_rows[u];
+      req_rows[u + 1] = r;
+      if (r > 0) {
+        serve_uniq[cnt] = r;
+        serve_mask[cnt] = 1.0f;
+        serve_inverse[u + 1] = static_cast<int32_t>(cnt);
+        ++cnt;
+      }
+    }
+    num_uniq[0] = cnt;
+    for (int64_t j = 0; j < npad; ++j) {
+      const int32_t u = c->s_inv[j];
+      inverse[j] = c->s_uniq_rows[u] > 0 ? u + 1 : 0;
+    }
+    return;
+  }
+  std::memset(req_rows, 0, sizeof(int32_t) * ndev * ndev * R);
+  std::memset(serve_inverse, 0, sizeof(int32_t) * ndev * ndev * R);
+  std::memset(serve_uniq, 0, sizeof(int32_t) * ndev * Upad);
+  std::memset(serve_mask, 0, sizeof(float) * ndev * Upad);
+  for (int64_t d = 0; d < ndev; ++d) {
+    const auto& owner = c->owner[d];
+    const auto& pos = c->pos[d];
+    const auto& row = c->row[d];
+    const auto& spos = c->spos[d];
+    const int64_t nu = static_cast<int64_t>(owner.size());
+    for (int64_t u = 0; u < nu; ++u) {
+      const int64_t s = owner[u], p = pos[u];
+      req_rows[(d * ndev + s) * R + p] = row[u];
+      serve_inverse[(s * ndev + d) * R + p] = spos[u];
+    }
+    const auto& inv = c->inv[d];
+    for (int64_t j = 0; j < npad; ++j) {
+      const int32_t u = inv[j];
+      // key 0 and absent keys (row 0) land on the null slot, flat pos 0
+      inverse[d * npad + j] =
+          (u < 0 || row[u] == 0)
+              ? 0
+              : static_cast<int32_t>(owner[u] * R + pos[u]);
+    }
+  }
+  for (int64_t s = 0; s < ndev; ++s) {
+    const auto& serve = c->serve[s];
+    const int64_t cnt = static_cast<int64_t>(serve.size());
+    num_uniq[s] = cnt;
+    for (int64_t i = 0; i < cnt; ++i) {
+      serve_uniq[s * Upad + i] = serve[i];
+      serve_mask[s * Upad + i] = serve[i] > 0 ? 1.0f : 0.0f;
+    }
   }
 }
 

@@ -1,5 +1,8 @@
 // Sparse push: merge per-key grads by unique row and apply the in-table
-// optimizer, for Hopper (sm_90a).
+// optimizer, for Hopper (sm_90a). Beside it, its boundary kernel
+// (merge_offsets_kernel) and the mesh step's merge alone
+// (segment_merge_short_kernel and segment_merge_long_kernel, which say
+// what they replace).
 //
 // Replaces the XLA function paddlebox_tpu/ps/device_table.py::ArenaLayout.push
 // with ops/sparse_optim.py::apply_update, for every storage type of the
@@ -97,6 +100,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The split build (ops/_build.py SPLIT): nvcc spends nearly all of this
+// file's build on the push kernel's 126 instances (3 storage kinds x 2
+// layouts x 7 column counts x 3 optimizers), one after another. Built with
+// -DPBX_PUSH_PART=p, p in 0..5, a translation unit holds only the instances
+// of kind p / 2 and layout p % 2 and their launcher pbx_push_launch_<p>;
+// part 6 holds the rest (the other kernels and the C interface, which calls
+// the six launchers). The seven compile at once and link into one library.
+// Without PBX_PUSH_PART the file is one translation unit holding every part.
+#ifndef PBX_PUSH_PART
+#define PBX_PUSH_PART -1
+#endif
+#define PBX_REST_PART 6
+#define PBX_IN_PART(p) (PBX_PUSH_PART < 0 || PBX_PUSH_PART == (p))
+
 namespace {
 
 constexpr int kThreads = 256;  // a block: 256 / G uniques
@@ -163,6 +180,7 @@ struct PushArgs {
   Groups groups;
 };
 
+#if PBX_IN_PART(PBX_REST_PART)
 // Thread t of the sorted inverse s writes offsets[u] = t for every u in
 // (s[t-1], s[t]]; thread t <= upad writes offsets[t] = n_keys when t is past
 // the last unique that has keys. Every u in [0, upad] is written once; a
@@ -186,6 +204,146 @@ __global__ void merge_offsets_kernel(const int* __restrict__ sorted_inv,
     }
   }
 }
+
+// The requester's gradient merge of the mesh step
+// (ops/sparse_push.py::merge_segments, parallel/fused_dp_step.py): g[s, c] =
+// the sum of demb[k, c] over the keys k of segment s, in ascending k, the
+// keys grouped by segment in `order` and segment s's keys at
+// order[offsets[s] .. offsets[s+1]). Device prep's segments are its
+// uniques, in K5's order; the host plan's are request positions, in a
+// stable sort of them (merge_order).
+// Every row of g is written, a segment with no keys as zeros. Each sum
+// starts from 0 and adds the keys one by one in that order, in float32,
+// so the result is the plain version's bit for bit and does not depend on
+// scheduling.
+//
+// Replaces no TPU kernel: the reference's jax.ops.segment_sum (an XLA
+// scatter-add, paddlebox_tpu/parallel/fused_dp_step.py:321 and :645), which
+// the port keeps off the atomics of index_add_ so that the sums are
+// deterministic. On an H100 it is bound by the latency of its dependent
+// loads (offsets, then order, then the grads), not by its bytes (demb read
+// once, g written once: ~10 MB at the training shape, 3.1 us).
+//
+// Version 1 gave every (segment, column) a thread summing kKeys keys a
+// trip. Nearly every segment of a step holds one to three keys, but the
+// null slot held every padding key (~4,200 at the training shape), and
+// that one chain of ~530 round trips took 0.35 ms.
+//
+// Version 2, two kernels:
+// - segment_merge_short_kernel: a thread a (segment, column) as version 1,
+//   for segments of at most kLongKeys keys. The column-0 thread of a longer
+//   segment appends it to a list (an atomic counter: the list's order
+//   varies, not what a segment sums).
+// - segment_merge_long_kernel: kLongBlocks blocks walk the list, a block a
+//   segment. The block stages a tile of the segment's grads in shared
+//   memory with all its threads at once (kKeys loads of a thread in
+//   flight), then thread c adds column c of the tile's keys in key order
+//   from shared memory; tile after tile. A segment's chain is so its adds,
+//   not its round trips.
+// The mesh step drops its null slot's keys before the merge (their grads
+// are dropped by the owner anyway), so the long kernel runs for a key
+// repeated more than kLongKeys times in a requester's batch: never under
+// uniform keys at the training shape, but under a Zipf(1.2) key mix 192
+// segments hold 71,609 of its 98,185 keys, the longest 17,612, and the long
+// kernel takes 0.32 ms on an H100 (chip_smoke.py phase 4v (d)): the
+// longest segment's staging round trips and its chain of adds, one block.
+constexpr int kLongKeys = 32;     // a longer segment goes to the long kernel
+constexpr int kLongBlocks = 132;  // one a streaming multiprocessor
+constexpr int kTileFloats = 12288;  // 48 KB of staged grads a block
+
+__global__ void segment_merge_short_kernel(const float* __restrict__ demb,
+                                           const int64_t* __restrict__ order,
+                                           const int* __restrict__ offsets,
+                                           float* __restrict__ g, int n_seg,
+                                           int dim, int* __restrict__ work) {
+  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  if (t >= static_cast<int64_t>(n_seg) * dim) {
+    return;
+  }
+  const int seg = static_cast<int>(t / dim);
+  const int col = static_cast<int>(t - static_cast<int64_t>(seg) * dim);
+  const int lo = __ldg(offsets + seg);
+  const int hi = __ldg(offsets + seg + 1);
+  if (hi - lo > kLongKeys) {
+    if (col == 0) {
+      work[1 + atomicAdd(work, 1)] = seg;  // work[0]: the list's length
+    }
+    return;
+  }
+  float acc = 0.0f;
+  for (int j = lo; j < hi; j += kKeys) {
+    const int n = min(kKeys, hi - j);
+    float v[kKeys];
+#pragma unroll
+    for (int i = 0; i < kKeys; ++i) {
+      if (i < n) {
+        v[i] = __ldg(demb + __ldg(order + j + i) * dim + col);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kKeys; ++i) {
+      if (i < n) {
+        acc += v[i];
+      }
+    }
+  }
+  g[t] = acc;
+}
+
+// Blocks of kThreads (>= dim: thread c owns column c); `work` as the short
+// kernel left it.
+__global__ void __launch_bounds__(kThreads)
+    segment_merge_long_kernel(const float* __restrict__ demb,
+                              const int64_t* __restrict__ order,
+                              const int* __restrict__ offsets,
+                              float* __restrict__ g, int dim,
+                              const int* __restrict__ work) {
+  __shared__ float tile[kTileFloats];
+  const int n_long = work[0];
+  const int tile_keys = kTileFloats / dim;
+  for (int li = blockIdx.x; li < n_long; li += gridDim.x) {
+    const int seg = work[1 + li];
+    const int lo = __ldg(offsets + seg);
+    const int hi = __ldg(offsets + seg + 1);
+    float acc = 0.0f;
+    for (int base = lo; base < hi; base += tile_keys) {
+      const int n = min(tile_keys, hi - base) * dim;
+      // kKeys loads of a thread in flight at once
+      for (int idx0 = threadIdx.x; idx0 < n; idx0 += kKeys * blockDim.x) {
+        float v[kKeys];
+#pragma unroll
+        for (int u = 0; u < kKeys; ++u) {
+          const int idx = idx0 + u * blockDim.x;
+          if (idx < n) {
+            const int i = idx / dim;
+            v[u] = __ldg(demb + __ldg(order + base + i) * dim + idx - i * dim);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kKeys; ++u) {
+          const int idx = idx0 + u * blockDim.x;
+          if (idx < n) {
+            tile[idx] = v[u];
+          }
+        }
+      }
+      __syncthreads();
+      if (threadIdx.x < dim) {
+#pragma unroll 8
+        for (int idx = threadIdx.x; idx < n; idx += dim) {
+          acc += tile[idx];
+        }
+      }
+      __syncthreads();
+    }
+    if (threadIdx.x < dim) {
+      g[static_cast<int64_t>(seg) * dim + threadIdx.x] = acc;
+    }
+  }
+}
+
+#endif  // PBX_IN_PART(PBX_REST_PART)
 
 __device__ __forceinline__ int pick(int gi, int a0, int a1, int a2) {
   return gi == 0 ? a0 : (gi == 1 ? a1 : a2);
@@ -564,19 +722,44 @@ void launch_cols(const PushArgs& a, int cols, int opt, int blocks,
   }
 }
 
-template <int KIND>
-void launch_kind(const PushArgs& a, bool var, int cols, int opt, int blocks,
-                 cudaStream_t s) {
-  if (var) {
-    launch_cols<KIND, 1>(a, cols, opt, blocks, s);
-  } else {
-    launch_cols<KIND, 0>(a, cols, opt, blocks, s);
-  }
-}
-
 }  // namespace
 
+// pbx_push_launch_<p>: the push of storage kind p / 2 and layout p % 2;
+// `a` points at the PushArgs that pbx_sparse_push filled
+#define PBX_PUSH_LAUNCHER(P, KIND, VAR)                                     \
+  extern "C" void pbx_push_launch_##P(const void* a, int cols, int opt,     \
+                                      int blocks, cudaStream_t s) {         \
+    launch_cols<KIND, VAR>(*static_cast<const PushArgs*>(a), cols, opt,     \
+                           blocks, s);                                      \
+  }
+#if PBX_IN_PART(0)
+PBX_PUSH_LAUNCHER(0, kF32, 0)
+#endif
+#if PBX_IN_PART(1)
+PBX_PUSH_LAUNCHER(1, kF32, 1)
+#endif
+#if PBX_IN_PART(2)
+PBX_PUSH_LAUNCHER(2, kBf16, 0)
+#endif
+#if PBX_IN_PART(3)
+PBX_PUSH_LAUNCHER(3, kBf16, 1)
+#endif
+#if PBX_IN_PART(4)
+PBX_PUSH_LAUNCHER(4, kInt8, 0)
+#endif
+#if PBX_IN_PART(5)
+PBX_PUSH_LAUNCHER(5, kInt8, 1)
+#endif
+
+#if PBX_IN_PART(PBX_REST_PART)
 extern "C" {
+
+void pbx_push_launch_0(const void*, int, int, int, cudaStream_t);
+void pbx_push_launch_1(const void*, int, int, int, cudaStream_t);
+void pbx_push_launch_2(const void*, int, int, int, cudaStream_t);
+void pbx_push_launch_3(const void*, int, int, int, cudaStream_t);
+void pbx_push_launch_4(const void*, int, int, int, cudaStream_t);
+void pbx_push_launch_5(const void*, int, int, int, cudaStream_t);
 
 // sorted_inv [n_keys] int32 (inverse sorted), offsets [upad + 1] int32.
 // Returns a cudaError_t (0 = launched).
@@ -592,6 +775,37 @@ int pbx_merge_offsets(const void* sorted_inv, void* offsets, int64_t n_keys,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(sorted_inv), static_cast<int*>(offsets),
       static_cast<int>(n_keys), static_cast<int>(upad));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// demb [n_keys, dim] float32, order [n_keys] int64, offsets [n_seg + 1]
+// int32, g [n_seg, dim] float32 (every row written), work [n_seg + 1]
+// int32 scratch (the long segments' list). Returns a cudaError_t (0 =
+// launched).
+int pbx_segment_merge(const void* demb, const void* order,
+                      const void* offsets, void* g, void* work,
+                      int64_t n_seg, int dim, void* stream) {
+  if (n_seg < 0 || dim < 1 || dim > kThreads || n_seg * dim > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_seg == 0) {
+    return 0;
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  int* w = static_cast<int*>(work);
+  const cudaError_t rc = cudaMemsetAsync(w, 0, sizeof(int), s);
+  if (rc != cudaSuccess) {
+    return static_cast<int>(rc);
+  }
+  const int blocks = static_cast<int>((n_seg * dim + kThreads - 1) /
+                                      kThreads);
+  segment_merge_short_kernel<<<blocks, kThreads, 0, s>>>(
+      static_cast<const float*>(demb), static_cast<const int64_t*>(order),
+      static_cast<const int*>(offsets), static_cast<float*>(g),
+      static_cast<int>(n_seg), dim, w);
+  segment_merge_long_kernel<<<kLongBlocks, kThreads, 0, s>>>(
+      static_cast<const float*>(demb), static_cast<const int64_t*>(order),
+      static_cast<const int*>(offsets), static_cast<float*>(g), dim, w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -695,13 +909,12 @@ int pbx_sparse_push(void* values, void* state, const void* demb,
   const int blocks = static_cast<int>(
       (n_uniq * group_lanes + kThreads - 1) / kThreads);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (kind == kF32) {
-    launch_kind<kF32>(a, var, cols, opt, blocks, s);
-  } else if (kind == kBf16) {
-    launch_kind<kBf16>(a, var, cols, opt, blocks, s);
-  } else {
-    launch_kind<kInt8>(a, var, cols, opt, blocks, s);
-  }
+  using Launch = void (*)(const void*, int, int, int, cudaStream_t);
+  static const Launch kLaunch[3][2] = {
+      {pbx_push_launch_0, pbx_push_launch_1},
+      {pbx_push_launch_2, pbx_push_launch_3},
+      {pbx_push_launch_4, pbx_push_launch_5}};
+  kLaunch[kind][var](&a, cols, opt, blocks, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -710,3 +923,4 @@ const char* pbx_cuda_error_string(int code) {
 }
 
 }  // extern "C"
+#endif  // PBX_IN_PART(PBX_REST_PART)

@@ -13,6 +13,10 @@ Three routes:
   ``_GLIBCXX_USE_CXX11_ABI``, an rpath to torch's ``lib/``), beside the
   libraries it loads, whose file names are compiled in.
 
+A source named in :data:`SPLIT` compiles as several translation units at
+once, one ``nvcc -c`` a part (the source's part macro set to each part in
+turn), whose objects link into its one library.
+
 Each library has a plain C interface, ``build/lib<name>-<digest>.so`` at
 the root of the checkout, which its wrapper loads with ``ctypes``. The
 digest covers the source and the flags, and for ``g++`` also the
@@ -36,6 +40,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -53,6 +58,9 @@ EXECUTABLES: Dict[str, Tuple[Tuple[str, str], ...]] = {
     "pbx_serve": (("PBX_INDEX_LIB", "pbx_index"),
                   ("PBX_KERNEL_LIB", "seqpool_cvm")),
 }
+
+#: CUDA sources built in parts: the macro that picks a part, the count
+SPLIT: Dict[str, Tuple[str, int]] = {"sparse_push": ("PBX_PUSH_PART", 7)}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -133,6 +141,34 @@ def _command(name: str, src: Path, out: Path) -> List[str]:
     return [_gxx(), *GXX_FLAGS, str(src), "-o", str(out)]
 
 
+def _run(cmd: List[str], name: str) -> str:
+    res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"build failed: {name}: {Path(cmd[0]).name} "
+                           f"exited {res.returncode}\n{res.stdout}")
+    return res.stdout
+
+
+def _build_split(name: str, src: Path, out: Path) -> str:
+    """Compile the parts of ``src`` at once, one ``nvcc -c`` a part, and
+    link their objects into ``out``. Returns the compilers' logs."""
+    macro, parts = SPLIT[name]
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [out.with_name(f"{out.name}.part{p}.o") for p in range(parts)]
+    cmds = [[_nvcc(), *flags, f"-D{macro}={p}", "-c", "-o", str(obj),
+             str(src)] for p, obj in enumerate(objs)]
+    try:
+        with ThreadPoolExecutor(parts) as pool:
+            logs = list(pool.map(lambda c: _run(c, name), cmds))
+        logs.append(_run([_nvcc(), *NVCC_FLAGS, "-o", str(out),
+                          *map(str, objs)], name))
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return "".join(logs)
+
+
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>`` builds: ``build/lib<name>-<digest>.so``, or
     ``build/<name>-<digest>`` for an executable."""
@@ -142,7 +178,7 @@ def library_path(name: str) -> Path:
         key = " ".join((*EXE_FLAGS, *_exe_defines(name))) + _gxx_id() + \
             torch.__version__
     elif src.suffix == ".cu":
-        key = " ".join(NVCC_FLAGS)
+        key = " ".join(NVCC_FLAGS) + repr(SPLIT.get(name))
     else:
         key = " ".join(GXX_FLAGS) + _gxx_id()
     digest = hashlib.sha256(src.read_bytes() + key.encode()).hexdigest()
@@ -164,16 +200,17 @@ def build(name: str) -> Optional[Tuple[float, str]]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = dst.with_name(
         f"{dst.name}.tmp{os.getpid()}.{threading.get_ident()}")
-    cmd = _command(name, src, tmp)
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, stdout=subprocess.PIPE,
-                         stderr=subprocess.STDOUT, text=True)
-    if res.returncode != 0:
+    try:
+        if name in SPLIT:
+            log = _build_split(name, src, tmp)
+        else:
+            log = _run(_command(name, src, tmp), name)
+    except BaseException:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"build failed: {name}: {Path(cmd[0]).name} "
-                           f"exited {res.returncode}\n{res.stdout}")
+        raise
     os.replace(tmp, dst)
-    return time.perf_counter() - t0, res.stdout
+    return time.perf_counter() - t0, log
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -20,6 +20,13 @@ boundary kernel (``merge_order``; ``merge_order_plain`` is its plain
 version), or from the caller: device-prep's dedup gives it.
 ``push_geometry`` fixes how the kernel spreads a row over lanes.
 
+The mesh step's requester merges its per-key grads before the exchange:
+``merge_segments`` over a merge order it has (device prep: K5's, by
+unique), or ``segment_merge`` by request position (the merge order as
+above first). The merge alone is kernels of its own in
+``csrc/sparse_push.cu``, counted in ``segment_merge_cuda.launches``;
+``segment_merge_plain`` is its plain version, summing in the same order.
+
 The kernel also marks the step's rows dirty: given ``dirty``, a bool
 bitmap [cap] (``DeviceTable.dirty_dev``), each unique's owner stores
 ``dirty[uniq_rows[u]] = True``, padding uniques' row 0 included. That is
@@ -215,6 +222,9 @@ def _lib() -> ctypes.CDLL:
                                       ctypes.c_int64, ctypes.c_int64,
                                       ctypes.c_void_p]
     lib.pbx_merge_offsets.restype = ctypes.c_int
+    lib.pbx_segment_merge.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    lib.pbx_segment_merge.restype = ctypes.c_int
     lib.pbx_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pbx_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -277,6 +287,97 @@ def merge_order(inverse: torch.Tensor, upad: int
         return merge_order_plain(inverse, upad)
     sorted_inv, order = torch.sort(inverse, stable=True)
     return order, merge_offsets(sorted_inv, upad)
+
+
+def segment_merge_plain(demb: torch.Tensor, order: torch.Tensor,
+                        offsets: torch.Tensor) -> torch.Tensor:
+    """Plain version of the segment merge: ``g`` [n_seg, D] float32, row s
+    the sum of ``demb``'s rows ``order[offsets[s]:offsets[s + 1]]`` added
+    in that order from 0 (a sorted segment sum, no ``index_add_``); a
+    segment with no keys is zeros; keys past ``offsets[n_seg]`` are not
+    read. One pass a key rank over all segments at once, so its passes
+    are the longest segment's key count."""
+    n_seg = offsets.shape[0] - 1
+    g = torch.zeros((n_seg, demb.shape[1]), dtype=torch.float32,
+                    device=demb.device)
+    if n_seg == 0 or demb.shape[0] == 0:
+        return g
+    starts = offsets[:-1].long()
+    lens = offsets[1:].long() - starts
+    # segments by length, longest first: the ones still adding at rank j
+    # are a prefix
+    lens_sorted, by_len = torch.sort(lens, descending=True, stable=True)
+    longest = int(lens_sorted[0])
+    # segments with more than j keys, for each rank j
+    live_counts = n_seg - torch.searchsorted(
+        lens_sorted.flip(0), torch.arange(longest, device=lens.device),
+        right=True)
+    acc = torch.zeros((n_seg, demb.shape[1]), dtype=torch.float32,
+                      device=demb.device)
+    for j, n in enumerate(live_counts.tolist()):
+        segs = by_len[:n]
+        acc[:n] += demb[order[starts[segs] + j]]
+    g[by_len] = acc
+    return g
+
+
+def segment_merge_cuda(demb: torch.Tensor, order: torch.Tensor,
+                       offsets: torch.Tensor) -> torch.Tensor:
+    """``segment_merge_plain`` on the card (``csrc/sparse_push.cu``: a
+    thread a segment's column where it holds at most 32 keys, a block a
+    longer segment), on the current stream, bit for bit. Counts each call
+    in ``segment_merge_cuda.launches``."""
+    dev = demb.device
+    if demb.dtype != torch.float32 or demb.dim() != 2 or \
+            not 1 <= demb.shape[1] <= MAX_DIM or \
+            order.dtype != torch.int64 or order.shape != (demb.shape[0],) \
+            or offsets.dtype != torch.int32 or offsets.dim() != 1 or \
+            offsets.shape[0] < 1:
+        raise ValueError("segment_merge_cuda: demb must be float32 [N, D] "
+                         f"(D <= {MAX_DIM}), order int64 [N] and offsets "
+                         "int32 [n_seg + 1]")
+    for name, t in (("demb", demb), ("order", order), ("offsets", offsets)):
+        if not t.is_cuda or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"segment_merge_cuda: {name} must be a "
+                             f"contiguous CUDA tensor on {dev}")
+    n_seg = offsets.shape[0] - 1
+    g = torch.empty((n_seg, demb.shape[1]), dtype=torch.float32, device=dev)
+    # the long segments' list: its length, then their ids
+    work = torch.empty(n_seg + 1, dtype=torch.int32, device=dev)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(lib, lib.pbx_segment_merge(
+        demb.data_ptr(), order.data_ptr(), offsets.data_ptr(), g.data_ptr(),
+        work.data_ptr(), n_seg, demb.shape[1], stream), "segment_merge")
+    segment_merge_cuda.launches += 1
+    return g
+
+
+segment_merge_cuda.launches = 0
+
+
+def merge_segments(demb: torch.Tensor, order: torch.Tensor,
+                   offsets: torch.Tensor) -> torch.Tensor:
+    """``segment_merge_plain``'s ``g``: the kernel on the card, the plain
+    version on the CPU."""
+    if demb.is_cuda:
+        return segment_merge_cuda(demb.contiguous(), order, offsets)
+    if demb.device.type != "cpu":
+        raise ValueError(f"merge_segments: unsupported device {demb.device}")
+    return segment_merge_plain(demb, order, offsets)
+
+
+def segment_merge(demb: torch.Tensor, seg: torch.Tensor,
+                  n_seg: int) -> torch.Tensor:
+    """``g`` [n_seg, D]: row s the sum of the rows of ``demb`` [N, D] whose
+    ``seg`` (int32 [N], in [0, n_seg]) is s, in ascending key order; a key
+    whose ``seg`` is ``n_seg`` is dropped (the reference's
+    ``jax.ops.segment_sum`` drops ids outside [0, num_segments)).
+    ``merge_order`` of ``seg`` over n_seg + 1 segments, then the kernel on
+    the card over the first n_seg of them, the plain version on the
+    CPU."""
+    order, offsets = merge_order(seg, n_seg + 1)
+    return merge_segments(demb, order, offsets[:n_seg + 1])
 
 
 def push_rows(layout: "ArenaLayout", values: torch.Tensor,

@@ -97,6 +97,28 @@ def device_hash(khi: torch.Tensor, klo: torch.Tensor) -> torch.Tensor:
     return _fmix32(khi ^ _fmix32(klo))
 
 
+# The owner (shard-of) hash of the device-sharded table: the same fmix32
+# mix with a seeded lo half, so it stays independent of the slot hash above.
+# Three implementations agree bit for bit: torch on the device
+# (device_owner_hash), numpy on the host (host_owner_hash, under
+# ps/sharded_device_table.py shard_of) and the C++ planner
+# (csrc/pbx_index.cpp mesh_owner_hash); a key routed by one to a shard
+# whose index another never gave it would be lost.
+_OWNER_SEED = 0x9E3779B9
+
+
+def host_owner_hash(keys: np.ndarray) -> np.ndarray:
+    """The owner hash of uint64 host keys, as uint32."""
+    khi, klo = split_keys(keys)
+    return _np_fmix32(khi ^ _np_fmix32(klo ^ np.uint32(_OWNER_SEED)))
+
+
+def device_owner_hash(khi: torch.Tensor, klo: torch.Tensor) -> torch.Tensor:
+    """``host_owner_hash`` of keys given as their halves (``key_halves``)
+    in int64 arithmetic: int64 in [0, 2^32)."""
+    return _fmix32(khi ^ _fmix32(klo ^ _OWNER_SEED))
+
+
 def device_dedup_plain(keys: torch.Tensor) -> Dedup:
     """Plain version of K5: a stable sort of the packed keys,
     first-occurrence flags, ``cumsum`` and scatters."""

@@ -2,7 +2,8 @@
 the key index (counterpart of ``paddlebox_tpu/ps/native.py``'s
 ``NativeIndex`` and ``MtIndex``) and the host table's row helpers
 (``unique_inverse``, ``merge_add``, ``gather_rows``, ``scatter_rows``,
-``expand_rows``), and of ``csrc/pbx_feed.cpp``, the file tokenizer
+``expand_rows``), the device-sharded table's routing-plan builder
+(``MeshPlanner``), and of ``csrc/pbx_feed.cpp``, the file tokenizer
 (``parse_block``) and the staged feed's row pack (``pack_cols``).
 
 ``NativeIndex`` is one open-addressing map (``Map64``) from uint64 keys to
@@ -77,6 +78,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "pbx_gather_rows": (None, [_f32p, _i64p, i64, i64, _f32p]),
         "pbx_scatter_rows": (None, [_f32p, _i64p, i64, i64, _f32p]),
         "pbx_expand_rows": (None, [_f32p, _i64p, i64, i64, _f32p]),
+        "pbx_mesh_ctx_create": (vp, [i64]),
+        "pbx_mesh_ctx_destroy": (None, [vp]),
+        "pbx_mesh_begin": (i64, [vp, ctypes.POINTER(vp), _u64p, i64, c_int,
+                                 _i64p, _i64p]),
+        "pbx_mesh_fill": (None, [vp, i64, i64, _i32p, _i32p, _i32p, _f32p,
+                                 _i32p, _i64p]),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)
@@ -500,3 +507,57 @@ class MtIndex:
     def rebuild(self, keys: np.ndarray) -> None:
         keys = _u64(keys)
         _ck(self._lib.pbx_mt_rebuild(self._h, _ptr(keys, _u64p), keys.size))
+
+
+class MeshPlanner:
+    """The native routing-plan builder of the device-sharded table
+    (``ps/sharded_device_table.py``; the reference's ``MeshPlanner`` over
+    ``pbx_mesh_*``). One a table: its context keeps the dedup scratch and
+    buffers, so the steady state allocates nothing on the C side."""
+
+    def __init__(self, ndev: int):
+        self._lib = _lib_or_raise()
+        self.ndev = int(ndev)
+        self._h = self._lib.pbx_mesh_ctx_create(self.ndev)
+        if not self._h:
+            raise MemoryError("native mesh context allocation failed")
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.pbx_mesh_ctx_destroy(self._h)
+            self._h = None
+
+    def plan(self, indexes, keys: np.ndarray, create: bool,
+             sizes: np.ndarray, req_bucket, uniq_bucket):
+        """One batch's plan. ``indexes``, the shards' ``NativeIndex``es;
+        ``keys`` [ndev, npad] uint64; ``sizes`` the shards' next free rows
+        (int64, updated in place); ``req_bucket`` and ``uniq_bucket`` map a
+        raw largest count to its padded size. Returns (req_rows, inverse,
+        serve_uniq, serve_mask, serve_inverse, num_uniq, sizes, n_new
+        total) with ``MeshBatchIndex``'s dtypes and shapes."""
+        lib = self._lib
+        keys = _u64(keys)
+        ndev, npad = keys.shape
+        if ndev != self.ndev:
+            raise ValueError(f"planner built for ndev={self.ndev}, "
+                             f"got keys for {ndev}")
+        handles = (ctypes.c_void_p * ndev)(*[ix._h for ix in indexes])
+        sizes = np.ascontiguousarray(sizes, dtype=np.int64)
+        out3 = np.zeros(3, dtype=np.int64)
+        _ck(lib.pbx_mesh_begin(self._h, handles, _ptr(keys, _u64p), npad,
+                               1 if create else 0, _ptr(sizes, _i64p),
+                               _ptr(out3, _i64p)))
+        R = int(req_bucket(max(int(out3[0]), 1)))
+        upad = int(uniq_bucket(max(int(out3[1]), 1)))
+        req_rows = np.empty((ndev, ndev, R), dtype=np.int32)
+        inverse = np.empty((ndev, npad), dtype=np.int32)
+        serve_uniq = np.empty((ndev, upad), dtype=np.int32)
+        serve_mask = np.empty((ndev, upad), dtype=np.float32)
+        serve_inverse = np.empty((ndev, ndev, R), dtype=np.int32)
+        num_uniq = np.empty(ndev, dtype=np.int64)
+        lib.pbx_mesh_fill(
+            self._h, R, upad, _ptr(req_rows, _i32p), _ptr(inverse, _i32p),
+            _ptr(serve_uniq, _i32p), _ptr(serve_mask, _f32p),
+            _ptr(serve_inverse, _i32p), _ptr(num_uniq, _i64p))
+        return (req_rows, inverse, serve_uniq, serve_mask, serve_inverse,
+                num_uniq, sizes, int(out3[2]))

@@ -39,8 +39,8 @@ day and pass, the ingest counters' delta (``data/ingest.py``
 ``INGEST_STATS``), the writer's queued jobs and whether its thread is
 alive, the rows of each table, the pass's ``ps.nonfinite_grad_rows``,
 ``ps.disk.*`` and ``ps.remote.*`` deltas from the global registry (the
-disk tier and admission count into ``ps.disk.*``; the remote client,
-ROADMAP A.9, is not ported, so its deltas are zeros), and the pass
+disk tier and admission count into ``ps.disk.*``, the PS service's client
+``ps/service/`` ``RemoteTable`` into ``ps.remote.*``), and the pass
 timer's spans; then, with the trace on (``obs_trace_dir``, turned on at
 construction), it rewrites the Chrome trace's dump.
 

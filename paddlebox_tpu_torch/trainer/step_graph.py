@@ -65,13 +65,14 @@ from paddlebox_tpu_torch.ops.device_index_kernel import (
 from paddlebox_tpu_torch.ops.seqpool_kernel import (seqpool_cvm_cuda,
                                                     seqpool_cvm_grad_cuda)
 from paddlebox_tpu_torch.ops.sparse_push import (PUSH_VARIANTS, merge_offsets,
+                                                 segment_merge_cuda,
                                                  sparse_push_cuda)
 
 # every wrapper that counts its launches
 COUNTED_WRAPPERS = (seqpool_cvm_cuda, seqpool_cvm_grad_cuda,
                     sparse_push_cuda, merge_offsets, dedup_sort_cuda,
                     device_dedup_cuda, device_dedup_probe_cuda,
-                    device_probe_cuda)
+                    device_probe_cuda, segment_merge_cuda)
 # and beside them the push's counts by variant
 COUNTERS = COUNTED_WRAPPERS + tuple(PUSH_VARIANTS.values())
 

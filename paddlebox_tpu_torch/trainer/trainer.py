@@ -77,8 +77,22 @@ is asked for a pending trip at each ``AUC_DRAIN_STEPS`` segment of
 each pass ends with its ``finalize_pass``; ``TrainGuard.run_pass`` drives
 ``train_from_dataset`` with rollback and skip.
 
-Not ported, and refused with ``NotImplementedError``: ``mesh=`` and
-``dense_sync_hook`` (ROADMAP A.9).
+The mesh engine (``mesh=``, a ``parallel/mesh.py`` ``Mesh``; the
+reference's ``mesh=`` with ``use_device_table=True``): a
+``ShardedDeviceTable`` (``device_capacity`` rows a shard) and a
+``FusedShardedTrainStep`` over it (``parallel/fused_dp_step.py``), device
+prep where a native index backs the table, each batch split row-wise over
+the shards (``parallel/dp_step.py`` ``split_batch``, ``feed_conf.batch_size``
+divisible by the shards). ``train_from_dataset`` runs the step's chunked
+stream in ``AUC_DRAIN_STEPS`` segments (``_train_pass_mesh_stream``), or
+batch by batch under a dump, a ``fetch_handler`` or a profile;
+``evaluate`` predicts through the host plan (``prepare_batch(create=
+False)``); ``train_from_files`` refuses a mesh, as the reference does.
+Refused with ``NotImplementedError``, each naming its ROADMAP item:
+``mesh=`` with a host table (``use_device_table=False``, a host table as
+``table``, or ``dense_sync_steps`` > 0, which the reference trains on the
+host-table engine): A.9b2; ``dense_sync_hook``, and ``num_devices`` > 1
+without a mesh: A.9b3.
 """
 
 from __future__ import annotations
@@ -109,6 +123,7 @@ from paddlebox_tpu_torch.obs import heartbeat, postmortem, trace
 from paddlebox_tpu_torch.obs.metrics import REGISTRY
 from paddlebox_tpu_torch.ps import native
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
+from paddlebox_tpu_torch.ps.sharded_device_table import ShardedDeviceTable
 from paddlebox_tpu_torch.ps.table import EmbeddingTable
 from paddlebox_tpu_torch.trainer.fused_step import FusedTrainStep
 from paddlebox_tpu_torch.trainer.train_step import TrainStep
@@ -119,14 +134,16 @@ from paddlebox_tpu_torch.utils.timer import SpanTimer
 AUC_DRAIN_STEPS = 512
 
 
-def _resolve_device_prep(table: DeviceTable,
-                         device_prep: Optional[bool]) -> bool:
-    """On when the native single-map index backs the table (the sharded
-    ``MtIndex`` has no slot export for the device mirror)."""
+def _resolve_device_prep(table, device_prep: Optional[bool]) -> bool:
+    """On when the native single-map index backs the table (for a sharded
+    table, each shard's; the sharded ``MtIndex`` has no slot export for
+    the device mirror)."""
     if device_prep is not None:
         return device_prep
-    return native.available() and isinstance(table._index,
-                                             native.NativeIndex)
+    idx = getattr(table, "_index", None)
+    if idx is None:
+        idx = table._indexes[0]
+    return native.available() and isinstance(idx, native.NativeIndex)
 
 
 class CTRTrainer:
@@ -153,23 +170,37 @@ class CTRTrainer:
         ``DeviceTable(table_conf, capacity=device_capacity,
         device=device)`` is built, or with ``use_device_table=False`` an
         ``EmbeddingTable(table_conf)`` (``device`` None = the card: the
-        host-table engine's step runs there). ``device_prep`` None = on
+        host-table engine's step runs there). With ``mesh`` (a
+        ``parallel/mesh.py`` ``Mesh``), the mesh engine over ``table`` (a
+        ``ShardedDeviceTable``) or, without it, over
+        ``ShardedDeviceTable(table_conf, mesh,
+        capacity_per_shard=device_capacity)``. ``device_prep`` None = on
         when a native single-map index backs the device table
-        (``index_threads=1``); the host-table engine ignores it and
-        ``insert_mode``, as the reference's does."""
+        (``index_threads=1``; a sharded table's native shards); the
+        host-table engine ignores it and ``insert_mode``, as the
+        reference's does."""
         if insert_mode not in ("ensure", "deferred"):
             raise ValueError(f"unknown insert_mode {insert_mode!r}")
-        if mesh is not None or dense_sync_hook is not None:
+        if dense_sync_hook is not None:
             raise NotImplementedError(
-                "multi-device training (mesh=, dense_sync_hook) is not "
-                "ported yet (ROADMAP A.9)")
-        if trainer_conf.num_devices > 1:
+                "dense_sync_hook (cross-host dense sync) is not ported yet "
+                "(ROADMAP A.9b3)")
+        if mesh is None and trainer_conf.num_devices > 1:
             raise NotImplementedError(
-                f"TrainerConfig.num_devices={trainer_conf.num_devices}: "
-                "multi-device training is not ported yet (ROADMAP A.9)")
-        if table is not None and not isinstance(table, DeviceTable) and \
-                not (callable(getattr(table, "pull", None))
-                     and callable(getattr(table, "push", None))):
+                f"TrainerConfig.num_devices={trainer_conf.num_devices} "
+                "without a mesh (multi-host training) is not ported yet "
+                "(ROADMAP A.9b3); pass mesh= for the device-sharded engine")
+        if mesh is not None:
+            self._check_mesh_engine(mesh, table, use_device_table,
+                                    trainer_conf)
+        elif isinstance(table, ShardedDeviceTable):
+            raise ValueError(
+                "ShardedDeviceTable needs its mesh; pass mesh= (or a "
+                "DeviceTable for single-chip training)")
+        if table is not None and \
+                not isinstance(table, (DeviceTable, ShardedDeviceTable)) \
+                and not (callable(getattr(table, "pull", None))
+                         and callable(getattr(table, "push", None))):
             raise TypeError(
                 f"table is a {type(table).__name__}: the port trains a "
                 "DeviceTable (fused engine) or a host table with pull and "
@@ -192,15 +223,34 @@ class CTRTrainer:
         self.dump_path = dump_path
         self._dump_f = None
         self._step_count = 0
+        self.mesh = mesh
+        self.ndev = 1 if mesh is None else mesh.size
+        if feed_conf.batch_size % self.ndev:
+            raise ValueError(f"batch_size {feed_conf.batch_size} not "
+                             f"divisible by {self.ndev} devices")
         if table is not None:
             self.table = table
+        elif mesh is not None:
+            self.table = ShardedDeviceTable(
+                table_conf, mesh, capacity_per_shard=device_capacity)
         elif use_device_table:
             self.table = DeviceTable(table_conf, capacity=device_capacity,
                                      device=device)
         else:
             self.table = EmbeddingTable(table_conf)
-        self.fused = isinstance(self.table, DeviceTable)
-        if self.fused:
+        self.fused = isinstance(self.table, (DeviceTable,
+                                             ShardedDeviceTable))
+        if mesh is not None:
+            from paddlebox_tpu_torch.parallel.fused_dp_step import \
+                FusedShardedTrainStep
+            dp = _resolve_device_prep(self.table, device_prep)
+            self.step = FusedShardedTrainStep(
+                model, self.table, trainer_conf,
+                batch_size=feed_conf.batch_size // self.ndev,
+                num_slots=self.num_slots, dense_dim=self.dense_dim,
+                use_cvm=use_cvm, device_prep=dp,
+                insert_mode=self._gate_insert_mode(insert_mode, dp))
+        elif self.fused:
             dp = _resolve_device_prep(self.table, device_prep)
             self.step = FusedTrainStep(
                 model, self.table, trainer_conf,
@@ -229,6 +279,25 @@ class CTRTrainer:
         self._guard = None
         from paddlebox_tpu_torch.trainer.guard import maybe_auto_guard
         maybe_auto_guard(self)
+
+    @staticmethod
+    def _check_mesh_engine(mesh, table, use_device_table: bool,
+                           trainer_conf: TrainerConfig) -> None:
+        """The mesh engines the port has: the device-sharded one. A host
+        table over a mesh (the reference's ``ShardedTrainStep``, also
+        what it trains ``dense_sync_steps`` > 0 on) is A.9b2."""
+        if isinstance(table, DeviceTable):
+            raise ValueError(
+                "DeviceTable is single-chip; pass a ShardedDeviceTable "
+                "(or no table) when training with mesh=")
+        host_table = (table is not None
+                      and not isinstance(table, ShardedDeviceTable))
+        if host_table or (table is None and not use_device_table) or \
+                trainer_conf.dense_sync_steps > 0:
+            raise NotImplementedError(
+                "mesh= over a host table (use_device_table=False, a host "
+                "table, or dense_sync_steps > 0: the reference's "
+                "ShardedTrainStep) is not ported yet (ROADMAP A.9b2)")
 
     # -- dump subsystem ------------------------------------------------------
 
@@ -276,6 +345,41 @@ class CTRTrainer:
             return "ensure"
         return insert_mode
 
+    @staticmethod
+    def _cvm_sharded(sb) -> np.ndarray:
+        """The per-instance CVM input of a ``ShardedBatch``, [ndev, Bl,
+        2]."""
+        return np.stack([np.ones_like(sb.labels), sb.labels], axis=-1)
+
+    def _train_pass_mesh_stream(self, dataset: SlotDataset):
+        """One pass through ``FusedShardedTrainStep.train_stream`` (the
+        chunked mesh stream), in segments of ``AUC_DRAIN_STEPS`` batches
+        with the AUC drained after each."""
+        from paddlebox_tpu_torch.parallel.dp_step import split_batch
+
+        def args_iter(batches):
+            for batch in batches:
+                sb = split_batch(batch, self.ndev)
+                yield (sb.keys, sb.segment_ids, self._cvm_sharded(sb),
+                       sb.labels, sb.dense, sb.row_mask)
+                self._step_count += 1
+
+        it = dataset.batches()
+        while True:
+            seg = itertools.islice(it, AUC_DRAIN_STEPS)
+            with self.timer.span("main"):
+                (self.params, self.opt_state, self.auc_state, _loss,
+                 steps) = self.step.train_stream(
+                    self.params, self.opt_state, self.auc_state,
+                    args_iter(seg))
+            self._drain_auc()
+            if self._guard is not None:
+                self._guard.check_trip()
+            if steps < AUC_DRAIN_STEPS:
+                break
+        if self._guard is not None:
+            self._guard.finalize_pass()
+
     def _drain_miss_ring(self) -> None:
         """The pass end's drain of the miss ring on the batch-at-a-time
         device-prep path: deferred keys first seen in the last lagged poll
@@ -287,6 +391,25 @@ class CTRTrainer:
 
     def _train_one(self, batch: CsrBatch):
         cvm = self._cvm(batch)
+        if self.mesh is not None:
+            from paddlebox_tpu_torch.parallel.dp_step import split_batch
+            sb = split_batch(batch, self.ndev)
+            args = (sb.segment_ids, self._cvm_sharded(sb), sb.labels,
+                    sb.dense, sb.row_mask)
+            if self.step.device_prep:
+                with self.timer.span("step"):
+                    (self.params, self.opt_state, self.auc_state, loss,
+                     preds) = self.step.step_device(
+                        self.params, self.opt_state, self.auc_state,
+                        sb.keys, *args)
+            else:
+                with self.timer.span("prep"):
+                    idx = self.table.prepare_batch(sb.keys)
+                with self.timer.span("step"):
+                    (self.params, self.opt_state, self.auc_state, loss,
+                     preds) = self.step(self.params, self.opt_state,
+                                        self.auc_state, idx, *args)
+            return loss, preds.reshape(batch.batch_size, -1)
         if not self.fused:
             with self.timer.span("pull"):
                 emb = self.table.pull(batch.keys)
@@ -327,10 +450,10 @@ class CTRTrainer:
         and segments). Returns the pass metrics. The fused engine
         only. Under ``feed_device_prefetch`` > 0 the batches go through
         the staged device feed (device prep only)."""
-        if not self.fused:
+        if not self.fused or self.mesh is not None:
             raise ValueError(
                 "train_from_files rides the single-chip fused engine; "
-                "use train_from_dataset for host-table training")
+                "use train_from_dataset for mesh or host-table training")
         feed = self._device_feed()
         if workers > 1:
             reader = MultiProcessReader(self.feed_conf, workers=workers,
@@ -390,6 +513,11 @@ class CTRTrainer:
     def _train_from_dataset(self, dataset, fetch_handler):
         self._pass_begin()
         profile = self._profiling()
+        if self.mesh is not None and self.dump_path is None and \
+                fetch_handler is None and not profile:
+            # no per-batch consumer: the mesh engine's chunked stream
+            self._train_pass_mesh_stream(dataset)
+            return self._pass_end()
         sections = None
         guard = self._guard
         for batch in dataset.batches():
@@ -452,7 +580,7 @@ class CTRTrainer:
         """The batch's section table (``trainer/profiler.py``), on the
         fused engine; None on the host-table engine, which keeps its
         span timers."""
-        if not self.fused:
+        if not self.fused or self.mesh is not None:
             return None
         from paddlebox_tpu_torch.trainer.profiler import profile_sections
         return profile_sections(
@@ -515,6 +643,15 @@ class CTRTrainer:
         on task 0."""
         calc = AucCalculator()
         for batch in dataset.batches():
+            if self.mesh is not None:
+                from paddlebox_tpu_torch.parallel.dp_step import split_batch
+                sb = split_batch(batch, self.ndev)
+                idx = self.table.prepare_batch(sb.keys, create=False)
+                preds = self.step.predict(self.params, idx, sb.segment_ids,
+                                          self._cvm_sharded(sb), sb.dense)
+                p = preds.cpu().numpy().reshape(batch.batch_size, -1)
+                calc.add_batch(p[:, 0], batch.labels, batch.row_mask())
+                continue
             # the fused step pulls on the device from the keys; the host
             # table pulls the rows here
             rows = (batch.keys if self.fused else

@@ -12,7 +12,8 @@ postmortem bundle, and a process-scope serving fleet whose spawned child
 builds its own predictor, and the host tier's resolver and LB over a
 scripted host, and the CTR dense ops with a page-view batch and an
 AucRunner, and a trainer pass and a predictor through a 2-shard PS
-service, with them blocked (in the child too); its entry
+service, and the steps and the trainer of a 2-shard CPU mesh, with them
+blocked (in the child too); its entry
 points default to the card and raise without one (the trainer and the
 serving tier too); its kernel modules import without a CUDA toolkit; the
 serving tier's batcher and transport import neither torch nor numpy."""
@@ -1260,3 +1261,93 @@ def test_ps_service_with_jax_blocked(tmp_path):
     """)
     assert res.returncode == 0, res.stderr
     assert "PS_SERVICE" in res.stdout
+
+
+def test_mesh_engine_with_jax_blocked(tmp_path):
+    """The mesh modules (``parallel/``, ``ps/sharded_device_table.py``,
+    ``ps/sharded_device_index.py``) import with jax and paddlebox_tpu
+    blocked, and a 2-shard CPU mesh trains: the host-plan step, the
+    device-prep step and ``CTRTrainer(mesh=)``; a parse worker's and a PS
+    shard child's imports (with the ``parallel`` package's lazy names
+    beside them) still load no torch."""
+    from conftest import make_slot_file
+    from paddlebox_tpu.config import DataFeedConfig, SlotConfig
+    conf = DataFeedConfig(slots=[
+        SlotConfig("label", type="float", is_dense=True, dim=1),
+        SlotConfig("a"), SlotConfig("b")], batch_size=8, thread_num=2)
+    data = make_slot_file(str(tmp_path / "part-0"), conf, 24, seed=5)
+    res = _run(f"""
+        import sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        import paddlebox_tpu_torch.parallel.dp_step
+        import paddlebox_tpu_torch.parallel.plan
+        import paddlebox_tpu_torch.ps.sharded_device_index
+        from paddlebox_tpu_torch.config import (DataFeedConfig, SlotConfig,
+                                                TableConfig, TrainerConfig)
+        from paddlebox_tpu_torch.data.dataset import SlotDataset
+        from paddlebox_tpu_torch.models import DeepFM
+        from paddlebox_tpu_torch.parallel import (FusedShardedTrainStep,
+                                                  make_mesh)
+        from paddlebox_tpu_torch.ps import native
+        from paddlebox_tpu_torch.ps.sharded_device_table import (
+            ShardedDeviceTable)
+        from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
+        B, S, ndev = 4, 2, 2
+        rng = np.random.default_rng(0)
+        keys = np.zeros((ndev, 64), np.uint64)
+        keys[:, :B * S] = rng.integers(1, 50, size=(ndev, B * S))
+        segs = np.full((ndev, 64), B * S, np.int32)
+        segs[:, :B * S] = np.arange(B * S)
+        labels = (rng.uniform(size=(ndev, B)) < 0.5).astype(np.float32)
+        cvm = np.stack([np.ones_like(labels), labels], -1)
+        batch = (segs, cvm, labels, np.zeros((ndev, B, 0), np.float32),
+                 np.ones((ndev, B), np.float32))
+        engines = ["numpy"] + (["native"] if native.available() else [])
+        for backend in engines:
+            t = ShardedDeviceTable(TableConfig(embedx_dim=4),
+                                   make_mesh(ndev, device="cpu"),
+                                   capacity_per_shard=64, backend=backend)
+            st = FusedShardedTrainStep(DeepFM(S * 7, (8,)), t,
+                                       TrainerConfig(), B, S,
+                                       device_prep=backend == "native")
+            p, o = st.init()
+            a = st.init_auc_state()
+            if st.device_prep:
+                p, o, a, loss, preds = st.step_device(p, o, a, keys, *batch)
+            else:
+                p, o, a, loss, preds = st(p, o, a, t.prepare_batch(keys),
+                                          *batch)
+            assert np.isfinite(float(loss)) and preds.shape == (ndev, B)
+            assert len(t) > 0
+        conf = DataFeedConfig(slots=[
+            SlotConfig("label", type="float", is_dense=True, dim=1),
+            SlotConfig("a"), SlotConfig("b")], batch_size=8, thread_num=2)
+        ds = SlotDataset(conf)
+        ds.set_filelist([{data!r}])
+        ds.load_into_memory()
+        tr = CTRTrainer(DeepFM(2 * 7, (8,)), conf, TableConfig(embedx_dim=4),
+                        TrainerConfig(), mesh=make_mesh(ndev, device="cpu"),
+                        device_capacity=64)
+        m = tr.train_from_dataset(ds)
+        assert m["ins_num"] == 24 and tr.evaluate(ds)["ins_num"] == 24
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("MESH", m["auc"])
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "MESH" in res.stdout
+    res = _run(f"""
+        import sys
+        sys.path.insert(0, {ROOT!r})
+        import paddlebox_tpu_torch.data.fast_feed
+        import paddlebox_tpu_torch.ps.service.shard_server
+        import paddlebox_tpu_torch.parallel as parallel
+        assert "FusedShardedTrainStep" in dir(parallel)
+        assert 'torch' not in sys.modules, 'torch imported'
+        print("NO_TORCH")
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "NO_TORCH" in res.stdout

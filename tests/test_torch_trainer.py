@@ -47,6 +47,7 @@ from paddlebox_tpu_torch.models.convert import (deepfm_from_flax_leaves,
                                                 widedeep_from_flax_leaves)
 from paddlebox_tpu_torch.ops import (device_index_kernel, seqpool_kernel,
                                      sparse_push)
+from paddlebox_tpu_torch.parallel.mesh import make_mesh
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.ps.table import EmbeddingTable
 from paddlebox_tpu_torch.trainer import trainer as port_trainer
@@ -333,8 +334,8 @@ def test_profile_line(files, reference, capfd):
 
 # the four TrainerConfig fields of the trainer loop (FusedTrainStep reads
 # none of them): on one device the trainer ignores dense_sync_steps and
-# metrics, as the reference does, refuses num_devices > 1 and prints the
-# profile line
+# metrics, as the reference does, refuses num_devices > 1 without a mesh
+# (A.9b3) and prints the profile line
 @pytest.mark.parametrize("field,value", [
     ("dense_sync_steps", 4), ("metrics", ["auc", "mae"]),
     ("num_devices", 4), ("profile", True)])
@@ -363,10 +364,13 @@ def _trainer(**kw):
                       TableConfig(**TABLE), TrainerConfig(), **kw)
 
 
+# a mesh over a device table is ported (test_torch_fused_sharded.py holds
+# it to the reference); a mesh over a host table is A.9b2
 REFUSED = {
-    "mesh": (lambda: _trainer(mesh=object()), "A.9"),
+    "mesh": (lambda: _trainer(mesh=make_mesh(2, device="cpu"), table=None,
+                              use_device_table=False), "A.9b2"),
     "dense_sync_hook": (lambda: _trainer(dense_sync_hook=lambda p: p),
-                        "A.9"),
+                        "A.9b3"),
 }
 # options once refused here, which now build (test_torch_deferred_insert.py
 # holds "deferred" to the reference; test_torch_mp_reader.py and
