@@ -466,12 +466,18 @@ Phases, each fatal on failure:
              ``CTRTrainer(mesh=make_mesh(1))`` over a trainer file,
              ``evaluate``, save, load (bit for bit), a step's delta into a
              ``DeviceTable``; (d) the requester's merge kernel
-             (``segment_merge``) against its plain version bit for bit at
-             (a)'s shape in both engines' forms (device prep by unique over
-             K5's order, host plan by position), at (b)'s, at (a)'s under
-             a Zipf(1.2) key mix (segments past the short kernel's 32 keys,
-             the long kernel's device time) and at edge segments, timed
-             beside its bound and ``index_add_``. Every mesh path counted:
+             (``segment_merge``) against its plain version bit for bit
+             (after the timings twice and after CUDA graph replays) at
+             (a)'s shape in both engines' forms (device prep by
+             unique over K5's order, host plan by position), at (b)'s, at
+             (a)'s and (b)'s under a Zipf(1.2) key mix, at (a)'s under
+             slot-keyed Criteo traffic with a slot of 3 values (segments
+             past the short kernel's 32 keys and past a chunk, the long
+             kernel's work items, each kernel's device time) and at edge
+             segments (0-33 keys, a
+             chunk's C - 1, C, C + 1, 2C + 1, 17,612; D = 1, 11, 64, 256),
+             timed beside its bound and ``index_add_``. Every mesh path
+             counted:
              each shard's forward, backward, push and merge once a step,
              device prep's two K5 sorts (requester K5, owner K5+K6), host
              plan's two boundary kernels (the requester's merge order, the
@@ -521,7 +527,8 @@ import torch
 from paddlebox_tpu_torch.config import (BucketSpec, DataFeedConfig,
                                         SlotConfig, TableConfig,
                                         TrainerConfig, batch_bucket_spec)
-from paddlebox_tpu_torch.data.criteo import (CriteoReader, criteo_feed_config,
+from paddlebox_tpu_torch.data.criteo import (CriteoReader, _parse_lines,
+                                             criteo_feed_config,
                                              make_synthetic_criteo)
 from paddlebox_tpu_torch.data.batch import CsrBatch
 from paddlebox_tpu_torch.data import ingest, shm_fabric
@@ -555,6 +562,7 @@ from paddlebox_tpu_torch.ops.sparse_push import (PUSH_VARIANTS,
                                                  merge_order,
                                                  merge_order_plain,
                                                  push_geometry, push_rows,
+                                                 SEGMENT_CHUNK,
                                                  segment_merge_cuda,
                                                  segment_merge_plain,
                                                  sparse_push_cuda,
@@ -6721,6 +6729,7 @@ MESH_B_CAPACITY = 1 << 19    # (b): rows a shard (8 steps' keys)
 MESH_C_CAPACITY = 1 << 21    # (c): the trainer's rows a shard
 MERGE = "segment_merge"
 SHORT_MERGE_KEYS = 32        # the short merge kernel's longest segment
+MERGE_REPLAYS = 3            # (d): replays of a captured merge, each checked
 MESH_WRAPPERS = DEVICE_PREP_WRAPPERS + (segment_merge_cuda,)
 
 
@@ -6856,17 +6865,81 @@ def zipf_keys(rng, like: np.ndarray) -> np.ndarray:
     return keys
 
 
-def merge_case(tag: str, step, keys: np.ndarray, R: int, rng,
-               by_unique: bool = True) -> dict:
-    """(d) The merge kernel against its plain version on the card at one
-    shape, on the inputs the step gives it for ``keys`` (``_route``):
+CRITEO_FEW_SLOT = 8          # (d): Criteo's C9, a slot of a few values
+CRITEO_FEW_VALUES = 3
+
+
+def criteo_keys(rng, like: np.ndarray) -> np.ndarray:
+    """``like``'s length, holding one batch of TB rows of slot-keyed Criteo
+    traffic, row by row, then padding: the package's generator
+    (``make_synthetic_criteo``: a key ``(slot + 1) << 32 | value``, at most
+    one a slot a row, each slot Zipf(1.3) over 1,000 values, 5% missing),
+    with slot C9 drawn by the same generator over CRITEO_FEW_VALUES values
+    (a slot of a few values, as Criteo's C9 and C20: its hottest value
+    repeats past a chunk)."""
+    seed = int(rng.integers(1 << 31))
+    os.makedirs(WORK, exist_ok=True)
+    mats = []
+    for values in (1000, CRITEO_FEW_VALUES):
+        path = os.path.join(WORK, f"merge_criteo_{values}.txt")
+        make_synthetic_criteo(path, TB, seed=seed + values,
+                              vocab_per_slot=values)
+        with open(path, "rb") as f:
+            _, _, keys, lengths = _parse_lines(f.readlines())
+        mat = np.zeros(lengths.shape, dtype=np.uint64)
+        mat[lengths > 0] = keys  # row by row, as the parser read them
+        mats.append(mat)
+    mats[0][:, CRITEO_FEW_SLOT] = mats[1][:, CRITEO_FEW_SLOT]
+    flat = mats[0][mats[0] > 0]
+    out = np.zeros_like(like)
+    out[:flat.size] = flat
+    return out
+
+
+def merge_work(offsets: torch.Tensor) -> Tuple[int, int, int]:
+    """The long merge kernel's work of these segments: (its work items, a
+    chunk of ``SEGMENT_CHUNK`` keys of each segment past
+    ``SHORT_MERGE_KEYS``; the longest segment's keys; its chunks)."""
+    lens = (offsets[1:] - offsets[:-1]).long()
+    chunks = -(-lens // SEGMENT_CHUNK)
+    longest = int(lens.max()) if lens.numel() else 0
+    return (int(chunks[lens > SHORT_MERGE_KEYS].sum()), longest,
+            -(-longest // SEGMENT_CHUNK))
+
+
+def check_merge(tag: str, demb, order, offsets, want) -> None:
+    """The merge kernel equals ``want`` (its plain version's ``g``) bit for
+    bit: two launches on the same inputs, and a launch captured in a CUDA
+    graph after each of MERGE_REPLAYS replays (the counters are zeroed
+    inside the captured sequence)."""
+    for i in range(2):
+        got = segment_merge_cuda(demb, order, offsets)
+        require(torch.equal(got, want), f"{MERGE} {tag}: launch {i} differs "
+                                        "from plain")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        segment_merge_cuda(demb, order, offsets)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = segment_merge_cuda(demb, order, offsets)
+    for i in range(MERGE_REPLAYS):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        require(torch.equal(out, want), f"{MERGE} {tag}: graph replay {i} "
+                                        "differs from plain")
+
+
+def merge_inputs(step, keys: np.ndarray, R: int, rng,
+                 by_unique: bool = True):
+    """The merge's inputs that the step gives it for ``keys`` (``_route``):
     device prep merges by unique over K5's order with key 0's segment
     emptied (``_unique_merge_order``), the host plan by request position
     (``merge_order`` of the positions, the null position's keys at the
-    dropped segment M); random grads. Then its times per call and in a
-    CUDA graph beside the bound and ``index_add_`` (the merge only, by
-    position), and the segments past the short kernel's 32 keys with the
-    long kernel's device time from a profiled run."""
+    dropped segment M); random grads. Returns (demb, order, offsets, the
+    request positions with M at null: ``index_add_``'s index)."""
     M = step.ndev * R
     _, seg, _, dd, _ = step._route(
         torch.from_numpy(keys.view(np.int64)).cuda(), R)
@@ -6878,12 +6951,33 @@ def merge_case(tag: str, step, keys: np.ndarray, R: int, rng,
         offsets = offsets[:M + 1]
     demb = torch.from_numpy(rng.normal(size=(keys.size, D)).astype(
         np.float32)).cuda()
+    return demb, order, offsets, seg
+
+
+def merge_bytes(offsets: torch.Tensor) -> int:
+    """The merge's bytes at D: the merged keys' grads and order entries
+    read once, the offsets read, g written once."""
+    n_live = int(offsets[-1] - offsets[0])
+    return n_live * D * 4 + n_live * 8 + offsets.numel() * 4 + \
+        (offsets.numel() - 1) * D * 4
+
+
+def merge_case(tag: str, step, keys: np.ndarray, R: int, rng,
+               by_unique: bool = True) -> dict:
+    """(d) The merge kernel against its plain version on the card at one
+    shape, on ``merge_inputs``, bit for bit; its times per call and in a
+    CUDA graph beside the bound and ``index_add_`` (the merge only, by
+    position); after them, bit for bit again (``check_merge``: two
+    launches, graph replays). Then the long kernel's work items and the
+    segments past the short kernel's 32 keys, with each kernel's device
+    time from a profiled run."""
+    M = step.ndev * R
+    demb, order, offsets, seg = merge_inputs(step, keys, R, rng, by_unique)
     n_seg = offsets.numel() - 1
     n_live = int(offsets[-1] - offsets[0])
     got = segment_merge_cuda(demb, order, offsets)
-    # the plain version reads the longest segment back (no graph) and
-    # makes a pass a key rank (1.6 s under the Zipf mix): the check's call
-    # is its time
+    # the plain version reads the longest chunk back (no graph) and makes a
+    # pass a key rank of a chunk: the check's call is its time
     plain_s, want = timed_secs(lambda: segment_merge_plain(demb, order,
                                                            offsets))
     err = float((got - want).abs().max())
@@ -6898,10 +6992,15 @@ def merge_case(tag: str, step, keys: np.ndarray, R: int, rng,
          "plain_graph_ms": None, "library_graph_ms": graph_ms(library),
          "max_abs_err": err, "keys": keys.size, "merged_keys": n_live,
          "segments": n_seg, "by": "unique" if by_unique else "position"}
+    check_merge(f"{tag} after the timings", demb, order, offsets, want)
     lens = offsets[1:] - offsets[:-1]
-    longest = int(lens.max())
+    t["work_items"], longest, t["longest_chunks"] = merge_work(offsets)
     t["long_segments"] = int((lens > SHORT_MERGE_KEYS).sum())
     t["long_segment_keys"] = int(lens[lens > SHORT_MERGE_KEYS].sum())
+    t["chunked_segments"] = int((lens > SEGMENT_CHUNK).sum())
+    t["chunked_segment_keys"] = int(lens[lens > SEGMENT_CHUNK].sum())
+    n_full = max(int((lens > 0).sum()), 1)
+    key_share = (lambda n: 100 * n / max(n_live, 1))  # noqa: E731
     by_name = device_profile(f"{MERGE} {tag}", lambda: [
         kernel() for _ in range(MERGE_PROFILE_CALLS)], kernels=(MERGE,))
     long_us = [us for name, us in by_name.items()
@@ -6912,52 +7011,63 @@ def merge_case(tag: str, step, keys: np.ndarray, R: int, rng,
                            if long_us else None)
     t["short_kernel_ms"] = (sum(short_us) / MERGE_PROFILE_CALLS / 1e3
                             if short_us else None)
-    # the merged keys' grads and order entries read once, the offsets
-    # read, g written once
-    with_bound(t, n_live * D * 4 + n_live * 8 + offsets.numel() * 4 +
-               n_seg * D * 4, n_live * D)
+    with_bound(t, merge_bytes(offsets), n_live * D)
     fmt = (lambda x: "not measured" if x is None else f"{x:.5f} ms")
     print(f"timing {MERGE} {tag} (keys {keys.size}, {n_live} of them "
           f"merged, by {t['by']}, key 0's dropped; segments {n_seg}, D={D}, "
-          f"longest segment {longest} keys, {t['long_segments']} segments "
-          f"of more than {SHORT_MERGE_KEYS} keys holding "
-          f"{t['long_segment_keys']} keys): kernel vs plain bit for bit; "
-          f"per call: kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms "
-          f"(a pass a key rank, {longest} of them), index_add_ "
+          f"longest segment {longest} keys ({t['longest_chunks']} chunks of "
+          f"{SEGMENT_CHUNK}), {t['long_segments']} segments of more than "
+          f"{SHORT_MERGE_KEYS} keys holding {t['long_segment_keys']} keys "
+          f"({100 * t['long_segments'] / n_full:.2f}% of the {n_full} "
+          f"segments with keys, {key_share(t['long_segment_keys']):.2f}% "
+          f"of the keys), {t['chunked_segments']} of more than "
+          f"{SEGMENT_CHUNK} holding {t['chunked_segment_keys']} "
+          f"({100 * t['chunked_segments'] / n_full:.3f}%, "
+          f"{key_share(t['chunked_segment_keys']):.2f}%): "
+          f"{t['work_items']} work items): kernel vs plain bit for bit, "
+          f"and after the timings twice and after {MERGE_REPLAYS} graph "
+          f"replays; per call: kernel {t['ms']:.5f} ms, plain "
+          f"{t['plain_ms']:.5f} ms (a pass a key rank of a chunk), index_add_ "
           f"{t['library_ms']:.5f} ms; bound {t['bound_ms']:.6f} ms "
           f"({t['bound_bytes']} bytes); in a CUDA graph: kernel "
           f"{t['graph_ms']:.5f} ms ({100 * t['bound_ms'] / t['graph_ms']:.1f}"
           f"% of bound), index_add_ {t['library_graph_ms']:.5f} ms (plain: "
           f"not capturable); device time a call (profiler): short kernel "
           f"{fmt(t['short_kernel_ms'])}, long kernel "
-          f"{fmt(t['long_kernel_ms'])}")
+          f"{fmt(t['long_kernel_ms'])}; {card_line()}")
     return t
 
 
 def merge_edges(rng) -> float:
-    """(d) The merge kernel against its plain version, bit for bit, on
-    segments of 0, 1, 31, 32 and 33 keys (the short kernel's limit) and
-    one of 2,600 (the long kernel: 3 tiles at D=11, 55 at D=256), at D =
-    1, 11, 64, 256, grads of mixed sign and scale. Returns the largest
-    error (0)."""
-    lengths = [0, 1, 31, 32, 33, 0, 2600, 1, 0]
+    """(d) The merge kernel against its plain version, bit for bit
+    (``check_merge``), on segments of 0, 1, 31, 32 and 33 keys (the short
+    kernel's limit), 2,600 (three chunk-sized stages at D=1, 650 at
+    D=256), C - 1, C, C + 1 and 2C + 1 keys (C = SEGMENT_CHUNK: a chunk's
+    edges) and 17,612 (the Zipf mix's hot key: 18 chunks), at D = 1, 11,
+    64, 256, grads of mixed sign and scale. Returns the largest error
+    (0)."""
+    C = SEGMENT_CHUNK
+    lengths = [0, 1, 31, 32, 33, 0, 2600, 1, 0, C - 1, C, C + 1, 2 * C + 1,
+               17612, 0]
     seg = np.repeat(np.arange(len(lengths), dtype=np.int32), lengths)
     seg = seg[rng.permutation(seg.size)]
     err = 0.0
     for dim in (1, 11, 64, 256):
         demb = torch.from_numpy((rng.normal(size=(seg.size, dim)) *
                                  10.0 ** rng.integers(-3, 3, size=(
-                                     seg.size, 1))).astype(np.float32))
+                                     seg.size, 1))).astype(np.float32)).cuda()
         order, offsets = merge_order(torch.from_numpy(seg).cuda(),
                                      len(lengths))
-        got = segment_merge_cuda(demb.cuda(), order, offsets)
-        want = segment_merge_plain(demb.cuda(), order, offsets)
+        got = segment_merge_cuda(demb, order, offsets)
+        want = segment_merge_plain(demb, order, offsets)
         e = float((got - want).abs().max())
         require(torch.equal(got, want),
                 f"{MERGE} edges D={dim}: kernel vs plain max abs err {e}")
+        check_merge(f"edges D={dim}", demb, order, offsets, want)
         err = max(err, e)
     print(f"{MERGE} edges: segments of {lengths} keys at D = 1, 11, 64, "
-          "256: kernel and plain bit for bit")
+          f"256 ({merge_work(offsets)[0]} work items): kernel and plain bit "
+          f"for bit, twice, and after {MERGE_REPLAYS} graph replays")
     return err
 
 
@@ -6971,7 +7081,8 @@ def phase_mesh(rng, files) -> dict:
     mesh on the CPU; (c) ``CTRTrainer(mesh=make_mesh(1))`` over a trainer
     file, ``evaluate``, save, load and a delta into a ``DeviceTable``; (d)
     the requester's merge kernel against its plain version at (a)'s and
-    (b)'s shapes, timed."""
+    (b)'s shapes, each also under a Zipf(1.2) key mix, at (a)'s under
+    slot-keyed Criteo traffic, and at edge segments, timed."""
     t_phase = time.perf_counter()
     conf, tconf, _ = train_confs()
     model = random_deepfm(rng, TS * conf.pull_dim)
@@ -7180,7 +7291,7 @@ def phase_mesh(rng, files) -> dict:
     part("c")
 
     # (d) the merge kernel at (a)'s and (b)'s shapes, each engine's form,
-    # and (a)'s shape under a skewed head
+    # and under a skewed head: Zipf(1.2) and slot-keyed Criteo traffic
     one = mesh_world(copy.deepcopy(model), "cuda", 1, 1 << 10, True)
     R1 = one[0]._req_cap(TNPAD)
     merge = {"training": merge_case("(a) one shard", one[0], flat[0][0],
@@ -7192,6 +7303,13 @@ def phase_mesh(rng, files) -> dict:
                                        R4, rng),
              "zipf": merge_case("(a) one shard, Zipf(1.2) keys", one[0],
                                 zipf_keys(rng, flat[0][0]), R1, rng),
+             "four_shards_zipf": merge_case(
+                 "(b) shard 0 of 4, Zipf(1.2) keys", b_step,
+                 zipf_keys(rng, b_keys), R4, rng),
+             "criteo": merge_case(
+                 "(a) one shard, Criteo slot keys with a slot of "
+                 f"{CRITEO_FEW_VALUES} values", one[0],
+                 criteo_keys(rng, flat[0][0]), R1, rng),
              "edges_max_abs_err": merge_edges(rng)}
     del one, card, b_step
     torch.cuda.empty_cache()
@@ -9053,10 +9171,14 @@ def main() -> int:
         "max_abs_err": max(merge_a["max_abs_err"], merge_b["max_abs_err"],
                            mesh["merge"]["training_host_plan"]["max_abs_err"],
                            mesh["merge"]["zipf"]["max_abs_err"],
+                           mesh["merge"]["four_shards_zipf"]["max_abs_err"],
+                           mesh["merge"]["criteo"]["max_abs_err"],
                            mesh["merge"]["edges_max_abs_err"]),
         "four_shards": merge_b,
         "host_plan": mesh["merge"]["training_host_plan"],
-        "zipf": mesh["merge"]["zipf"]})
+        "zipf": mesh["merge"]["zipf"],
+        "four_shards_zipf": mesh["merge"]["four_shards_zipf"],
+        "criteo": mesh["merge"]["criteo"]})
     # the push's storage variants: launches on phase 4g's paths, counted
     # by each variant's counter
     for variant, kind in zip(ARENA_ROWS, ("2,0", "1,0", "0,1", "2,1")):

@@ -13,6 +13,9 @@ its source, on the card. Not part of the package or of ``chip_smoke.py``.
         > build/old/push_parent.cu
     python3 kernel_versions.py push --old build/old/push_parent.cu \\
         --ptxas-only
+    git show b8ceb62:paddlebox_tpu_torch/csrc/sparse_push.cu \\
+        > build/old/merge_v2.cu
+    python3 kernel_versions.py merge --old build/old/merge_v2.cu
 
 The script builds the earlier sources and the package's kernel, one
 ``nvcc`` each, all at once, and prints each one's ptxas report (registers,
@@ -54,11 +57,33 @@ turn reads the fused numbering (count pass and fused write pass, on a
 sort made beforehand) and the whole fused dedup and probe in a CUDA graph,
 the numbering with cold caches (``chip_smoke.cold_graph_ms``), and the
 whole per call, beside the byte bound ``chip_smoke.py`` counts.
+
+``merge``: the mesh step's requester merge (``segment_merge_cuda``). Each
+earlier source is a whole ``csrc/sparse_push.cu``, built as its merge
+part alone (``-DPBX_PUSH_PART=6``, the push's launchers stubbed), with
+version 2's C interface, ``pbx_segment_merge(demb, order, offsets, g,
+work, n_seg, dim, stream)`` and ``work`` [n_seg + 1] int32 (the kernels of
+commit b8ceb62, summing every segment in key order), or this version's
+(``pbx_segment_merge_scratch`` and ``work_words, n_keys`` before
+``n_seg``, summing by chunks of ``SEGMENT_CHUNK`` keys past that many);
+the script reads which from the source. Inputs: ``chip_smoke.py`` phase
+4v (d)'s (``merge_inputs``): (a) one shard by unique and by position,
+(b) shard 0 of 4, (a) and (b) under the Zipf(1.2) key mix, and (a) under
+slot-keyed Criteo traffic with a slot of 3 values (``criteo_keys``). Checks:
+each version bit for bit against the plain version of its own order
+(``segment_merge_plain``, or the key-order sum), two launches each. Each
+turn reads every shape in a CUDA graph and per call, beside the byte
+bound and ``index_add_``'s time (the merge only, by position), read before
+and after the turns. Then the push (``sparse_push_cuda`` with its merge
+order, adagrad) at the training shape, its keys uniform and under the Zipf
+mix, in turns (uniform, Zipf, Zipf, uniform), checked against
+``sparse_push_plain``: whether the push's own merge pays for a hot key.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import ctypes
 import re
 import subprocess
@@ -77,14 +102,23 @@ from paddlebox_tpu_torch.ops import device_index_kernel as dik
 from paddlebox_tpu_torch.ops.seqpool_kernel import (grad_lanes,
                                                     seqpool_cvm_grad_cuda,
                                                     seqpool_cvm_grad_plain)
-from paddlebox_tpu_torch.ops.sparse_push import (_OPTIMIZERS, merge_order,
-                                                 push_rows, sparse_push_cuda,
+from paddlebox_tpu_torch.ops.sparse_push import (_OPTIMIZERS, _sum_in_order,
+                                                 merge_order, push_rows,
+                                                 segment_merge_cuda,
+                                                 segment_merge_plain,
+                                                 sparse_push_cuda,
                                                  sparse_push_plain)
 from paddlebox_tpu_torch.ps.device_index import device_dedup_probe_plain
 
 # the package's source of each kernel
 SOURCES = {"push": "sparse_push", "grad": "seqpool_cvm_grad",
-           "index": "device_index"}
+           "index": "device_index", "merge": "sparse_push"}
+
+# merge: the push's launchers, which an earlier source's merge part calls
+# and never reaches here
+PUSH_STUBS = "".join(
+    f"extern \"C\" void pbx_push_launch_{p}(const void*, int, int, int, "
+    "void*) {}\n" for p in range(6))
 
 
 def build_old(kernel: str, src: Path) -> Tuple[ctypes.CDLL, str]:
@@ -92,8 +126,13 @@ def build_old(kernel: str, src: Path) -> Tuple[ctypes.CDLL, str]:
     work = _build.BUILD_DIR / "kernel_versions" / kernel
     work.mkdir(parents=True, exist_ok=True)
     out = work / f"lib{src.stem}.so"
+    extra = []
+    if kernel == "merge":
+        stubs = work / "push_stubs.cu"
+        stubs.write_text(PUSH_STUBS)
+        extra = ["-DPBX_PUSH_PART=6", str(stubs)]
     res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                          str(src)], capture_output=True, text=True)
+                          str(src), *extra], capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"{src} build failed:\n{res.stderr}")
     return ctypes.CDLL(str(out)), res.stdout + res.stderr
@@ -362,6 +401,177 @@ def run_index(olds: Dict[str, ctypes.CDLL], seed: int, smi: str) -> None:
               f"whole per call {call:.5f} ms")
 
 
+# -- merge --------------------------------------------------------------------
+
+
+class OldMerge:
+    """An earlier merge, through version 2's C interface or this
+    version's, with the plain version of its own order."""
+
+    def __init__(self, lib: ctypes.CDLL, src: Path):
+        self.chunked = "pbx_segment_merge_scratch" in src.read_text()
+        if self.chunked:
+            lib.pbx_segment_merge_scratch.argtypes = [ctypes.c_int64,
+                                                      ctypes.c_int]
+            lib.pbx_segment_merge_scratch.restype = ctypes.c_int64
+            lib.pbx_segment_merge.argtypes = [ctypes.c_void_p] * 5 + [
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                ctypes.c_void_p]
+        else:
+            lib.pbx_segment_merge.argtypes = [ctypes.c_void_p] * 5 + [
+                ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+        lib.pbx_segment_merge.restype = ctypes.c_int
+        self.lib, self.tag = lib, src.stem
+
+    def __call__(self, demb, order, offsets):
+        n_keys, dim = demb.shape
+        n_seg = offsets.shape[0] - 1
+        g = torch.empty((n_seg, dim), device=demb.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        if self.chunked:
+            words = self.lib.pbx_segment_merge_scratch(n_keys, dim)
+            work = torch.empty(words, dtype=torch.int32, device=demb.device)
+            args = (words, n_keys, n_seg, dim, stream)
+        else:
+            work = torch.empty(n_seg + 1, dtype=torch.int32,
+                               device=demb.device)
+            args = (n_seg, dim, stream)
+        rc = self.lib.pbx_segment_merge(demb.data_ptr(), order.data_ptr(),
+                                        offsets.data_ptr(), g.data_ptr(),
+                                        work.data_ptr(), *args)
+        if rc != 0:
+            raise RuntimeError(f"{self.tag} launch failed: {rc}")
+        return g
+
+    def plain(self, demb, order, offsets):
+        if self.chunked:
+            return segment_merge_plain(demb, order, offsets)
+        starts = offsets[:-1].long()
+        return _sum_in_order(demb, order, starts, offsets[1:].long() - starts)
+
+
+class NewMerge:
+    """The package's merge, through its wrapper."""
+
+    __call__ = staticmethod(segment_merge_cuda)
+    plain = staticmethod(segment_merge_plain)
+
+
+def merge_cases(rng) -> Dict[str, tuple]:
+    """chip_smoke.py phase 4v (d)'s shapes: name -> (demb, order, offsets,
+    index_add_'s positions, its M)."""
+    conf, _, _ = cs.train_confs()
+    model = cs.random_deepfm(rng, cs.TS * conf.pull_dim)
+    one = cs.mesh_world(copy.deepcopy(model), "cuda", 1, 1 << 10, True)[0]
+    four = cs.mesh_world(model, "cuda", cs.MESH_SHARDS, 1 << 10, True)[0]
+    keys = cs.make_train_batches(rng, 1)[0][0]
+    b_keys = cs.split_batches(rng, 1, cs.MESH_SHARDS)[0][0][0]
+    R1, R4 = one._req_cap(keys.size), four._req_cap(b_keys.size)
+    shapes = {"a": (one, keys, R1, True), "a_position": (one, keys, R1, False),
+              "b": (four, b_keys, R4, True),
+              "zipf": (one, cs.zipf_keys(rng, keys), R1, True),
+              "b_zipf": (four, cs.zipf_keys(rng, b_keys), R4, True),
+              "criteo": (one, cs.criteo_keys(rng, keys), R1, True)}
+    return {name: (*cs.merge_inputs(step, k, R, rng, by), step.ndev * R)
+            for name, (step, k, R, by) in shapes.items()}
+
+
+def zipf_push_batch(rng, conf: TableConfig):
+    """A push table over HOT_VOCAB keys and two batches of the training
+    shape through it, numpy inputs: chip_smoke.py's training keys
+    (uniform) and the same layout under phase 4v (d)'s Zipf(1.2) mix."""
+    table = cs.push_table(rng, conf, cs.HOT_VOCAB, cs.TNPAD)
+    keys = cs.make_train_batches(rng, 1)[0][0]
+    nk = int((keys > 0).sum())
+    out = {}
+    for name, k in (("uniform", keys), ("zipf", cs.zipf_keys(rng, keys))):
+        idx = table.prepare_batch(k, create=False)
+        out[name] = (cs.push_grads(rng, cs.TNPAD, table.dim, nk),
+                     idx.inverse, idx.uniq_rows, idx.uniq_mask)
+    return table, out
+
+
+def run_merge(olds: Dict[str, ctypes.CDLL], srcs: List[Path], rng,
+              smi: str) -> None:
+    versions = {src.stem: OldMerge(olds[src.stem], src) for src in srcs}
+    versions["new"] = NewMerge()
+    cases = merge_cases(rng)
+    libs = {}
+    for name, (demb, order, offsets, seg, M) in cases.items():
+        lens = (offsets[1:] - offsets[:-1]).long()
+        items, longest, chunks = cs.merge_work(offsets)
+        for tag, ver in versions.items():
+            want = ver.plain(demb, order, offsets)
+            for _ in range(2):
+                got = ver(demb, order, offsets)
+                cs.require(torch.equal(got, want),
+                           f"{tag} {name}: differs from its plain version")
+        g = torch.empty((M + 1, cs.D), device="cuda")
+        seg_l = seg.long()
+        libs[name] = (lambda g=g, seg_l=seg_l, demb=demb:  # noqa: E731
+                      g.zero_().index_add_(0, seg_l, demb))
+        nbytes = cs.merge_bytes(offsets)
+        print(f"check {name}: every version bit for bit against the plain "
+              f"version of its order, 2 launches; {offsets.numel() - 1} "
+              f"segments, {int(lens.sum())} merged keys, longest {longest} "
+              f"({chunks} chunks), {int((lens > cs.SHORT_MERGE_KEYS).sum())} "
+              f"past {cs.SHORT_MERGE_KEYS} keys, {items} work items; bound "
+              f"{cs.with_bound({}, nbytes, 0)['bound_ms']:.6f} ms ({nbytes} "
+              f"bytes) on {smi}")
+
+    def library(when: str) -> None:
+        for name, fn in libs.items():
+            print(f"index_add_ {when} {name}: {cs.graph_ms(fn):.5f} ms (CUDA "
+                  f"graph); per call {cs.cuda_ms(fn, cs.ITERS):.5f} ms")
+
+    library("before")
+    for turn, tag in enumerate(turns(list(olds))):
+        ver = versions[tag]
+        for name, (demb, order, offsets, _, _) in cases.items():
+            bound = cs.with_bound({}, cs.merge_bytes(offsets), 0)["bound_ms"]
+            graph = cs.graph_ms(lambda: ver(demb, order, offsets))
+            call = cs.cuda_ms(lambda: ver(demb, order, offsets), cs.ITERS)
+            print(f"turn {turn} {tag} {name}: {graph:.5f} ms "
+                  f"({100 * bound / graph:.1f}% of bound) (CUDA graph); per "
+                  f"call {call:.5f} ms")
+    library("after")
+    run_push_zipf(rng, smi)
+
+
+def run_push_zipf(rng, smi: str) -> None:
+    conf = TableConfig(embedx_dim=8, cvm_offset=3, embedx_threshold=10.0,
+                       optimizer="adagrad", seed=7)
+    table, batches = zipf_push_batch(rng, conf)
+    inputs = {}
+    for name, batch in batches.items():
+        demb, inv, urows, umask = (torch.from_numpy(x).cuda() for x in batch)
+        inputs[name] = (table.layout, table.values.clone(),
+                        table.state.clone(), demb, inv, urows, umask)
+        got = (inputs[name][1].clone(), inputs[name][2].clone())
+        want = (inputs[name][1].clone(), inputs[name][2].clone())
+        sparse_push_cuda(table.layout, *got, demb, inv, urows, umask)
+        sparse_push_plain(table.layout, *want, demb, inv, urows, umask)
+        cs.require(torch.equal(got[0][:, :2], want[0][:, :2]),
+                   f"push {name}: show/clk differ from plain")
+        # the plain version's merge is index_add_'s atomics: a hot key's
+        # sum in another order
+        err = max(float((got[0] - want[0]).abs().max()),
+                  float((got[1] - want[1]).abs().max()))
+        nbytes, ops = cs.push_bound(table.layout, demb, inv, urows, umask)
+        counts = torch.bincount(inv.long()[umask[inv.long()] > 0])
+        print(f"check push {name}: show/clk exact, max abs err {err:.3e} "
+              f"(PUSH_ATOL {cs.PUSH_ATOL}); "
+              f"live uniques {int((umask > 0).sum())}, the hottest "
+              f"{int(counts.max())} keys; bound "
+              f"{cs.with_bound({}, nbytes, ops)['bound_ms']:.6f} ms "
+              f"({nbytes} bytes) on {smi}")
+    for turn, name in enumerate(["uniform", "zipf", "zipf", "uniform"]):
+        alone, full, call = push_readings(NewPush, inputs[name])
+        print(f"turn {turn} push {name}: kernel alone {alone:.5f} ms, with "
+              f"merge order {full:.5f} ms (CUDA graph); per call {call:.5f} "
+              "ms")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("kernel", choices=sorted(SOURCES))
@@ -388,8 +598,9 @@ def main() -> int:
     logs = {tag: log for tag, (_, log) in zip(tags, built)}
     logs["new"] = new[1] if new else ""
     for tag, log in logs.items():
-        for r in cs.ptxas_report(log) or [{"name": "already built, no "
-                                                   "report"}]:
+        reports = [r for r in cs.ptxas_report(log)
+                   if args.kernel != "merge" or "segment_merge" in r["name"]]
+        for r in reports or [{"name": "already built, no report"}]:
             print(f"ptxas {tag}: {r['name']}: {r.get('registers')} "
                   f"registers, spill stores {r.get('spill_stores')} B, "
                   f"spill loads {r.get('spill_loads')} B, stack "
@@ -405,8 +616,10 @@ def main() -> int:
         run_push(olds, rng, smi)
     elif args.kernel == "grad":
         run_grad(olds, args.old, rng, smi)
-    else:
+    elif args.kernel == "index":
         run_index(olds, args.seed, smi)
+    else:
+        run_merge(olds, args.old, rng, smi)
     return 0
 
 

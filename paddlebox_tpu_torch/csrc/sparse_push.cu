@@ -207,67 +207,150 @@ __global__ void merge_offsets_kernel(const int* __restrict__ sorted_inv,
 
 // The requester's gradient merge of the mesh step
 // (ops/sparse_push.py::merge_segments, parallel/fused_dp_step.py): g[s, c] =
-// the sum of demb[k, c] over the keys k of segment s, in ascending k, the
-// keys grouped by segment in `order` and segment s's keys at
-// order[offsets[s] .. offsets[s+1]). Device prep's segments are its
-// uniques, in K5's order; the host plan's are request positions, in a
-// stable sort of them (merge_order).
-// Every row of g is written, a segment with no keys as zeros. Each sum
-// starts from 0 and adds the keys one by one in that order, in float32,
-// so the result is the plain version's bit for bit and does not depend on
-// scheduling.
+// the sum of demb[k, c] over the keys k of segment s, the keys grouped by
+// segment in `order` and segment s's keys at order[offsets[s] ..
+// offsets[s+1]). Device prep's segments are its uniques, in K5's order; the
+// host plan's are request positions, in a stable sort of them
+// (merge_order). Every row of g is written, a segment with no keys as zeros.
+//
+// The order of the adds is fixed, in float32, and the same on the CPU
+// (ops/sparse_push.py::segment_merge_plain, whose SEGMENT_CHUNK mirrors
+// kChunk), so the result is the plain version's bit for bit and does not
+// depend on scheduling:
+// - a segment of at most kChunk keys sums from 0, its keys one by one in
+//   key order;
+// - a longer one sums each chunk [lo + j kChunk, lo + (j + 1) kChunk) so,
+//   then from 0 the chunks' partial sums in chunk order.
+// kChunk is a constant of the function, never derived from the card or the
+// grid. At 1,024 or more, every segment of the earlier checks (the longest
+// ~1,003 keys) keeps key order, so they hold bit for bit. The reference's
+// segment_sum fixes no order either.
 //
 // Replaces no TPU kernel: the reference's jax.ops.segment_sum (an XLA
 // scatter-add, paddlebox_tpu/parallel/fused_dp_step.py:321 and :645), which
 // the port keeps off the atomics of index_add_ so that the sums are
 // deterministic. On an H100 it is bound by the latency of its dependent
-// loads (offsets, then order, then the grads), not by its bytes (demb read
-// once, g written once: ~10 MB at the training shape, 3.1 us).
+// loads (offsets, then order, then the grads) and, for a hot key, by the
+// gather of its scattered rows and its chain of dependent adds, not by its
+// bytes (demb read once, g written once: ~10 MB at the training shape,
+// 3.0 us).
 //
-// Version 1 gave every (segment, column) a thread summing kKeys keys a
-// trip. Nearly every segment of a step holds one to three keys, but the
-// null slot held every padding key (~4,200 at the training shape), and
-// that one chain of ~530 round trips took 0.35 ms.
-//
-// Version 2, two kernels:
-// - segment_merge_short_kernel: a thread a (segment, column) as version 1,
-//   for segments of at most kLongKeys keys. The column-0 thread of a longer
-//   segment appends it to a list (an atomic counter: the list's order
-//   varies, not what a segment sums).
-// - segment_merge_long_kernel: kLongBlocks blocks walk the list, a block a
-//   segment. The block stages a tile of the segment's grads in shared
-//   memory with all its threads at once (kKeys loads of a thread in
-//   flight), then thread c adds column c of the tile's keys in key order
-//   from shared memory; tile after tile. A segment's chain is so its adds,
-//   not its round trips.
-// The mesh step drops its null slot's keys before the merge (their grads
-// are dropped by the owner anyway), so the long kernel runs for a key
-// repeated more than kLongKeys times in a requester's batch: never under
-// uniform keys at the training shape, but under a Zipf(1.2) key mix 192
-// segments hold 71,609 of its 98,185 keys, the longest 17,612, and the long
-// kernel takes 0.32 ms on an H100 (chip_smoke.py phase 4v (d)): the
-// longest segment's staging round trips and its chain of adds, one block.
-constexpr int kLongKeys = 32;     // a longer segment goes to the long kernel
-constexpr int kLongBlocks = 132;  // one a streaming multiprocessor
-constexpr int kTileFloats = 12288;  // 48 KB of staged grads a block
+// One memset (the counters), two kernels:
+// - segment_merge_short_kernel: a thread a (segment, column) output, summing
+//   up to kKeys grads a trip in key order. A segment of more than kLongKeys
+//   keys is the long kernel's: its column-0 thread reserves all its chunks
+//   in the work list with one atomicAdd (the list's order varies, not what
+//   an item sums), and a segment of several chunks its partial slots with
+//   another.
+// - segment_merge_long_kernel: kLongBlocks persistent blocks, a block a work
+//   item (a chunk) at a time. It loads the chunk's `order` entries into
+//   shared memory, then, tile by tile, every thread gathers grads into the
+//   tile by 4-byte cp.async copies, column-major, and thread c adds column
+//   c (and c + kLongThreads) in key order, four keys a 16-byte read. A
+//   segment of one chunk writes g; a chunk of a longer one writes its
+//   partial, and the last of its segment's chunks to finish (a
+//   __threadfence, then an arrival counter: the threadFenceReduction
+//   pattern) adds the partials in chunk order and writes g. With no long
+//   segment it returns at its first instruction. TMA's tiled copies do not
+//   fit the gather: a row is 44 B at D=11, no 16-byte multiple, and the
+//   rows are gathered by index.
+// The designs tried before this one, and their times, are in PERF.md §6
+// (the requester merge's rows). The counters (the work list's and the
+// slots' lengths, the arrival counters) are zeroed by the memset of each
+// call, so a CUDA graph's replays stay right. Scratch (`work`):
+// pbx_segment_merge_scratch words, allocated by the wrapper at the worst
+// case for n_keys.
+constexpr int kLongKeys = 32;        // a longer segment goes to the long kernel
+constexpr int kChunk = 1024;         // keys a chunk (SEGMENT_CHUNK)
+constexpr int kLongThreads = 128;    // a long block
+constexpr int kLongCols = kMaxDim / kLongThreads;  // columns an adder adds
+constexpr int kLongBlocks = 264;     // long blocks: two an H100 SM
+constexpr int kTileFloats = 5104;    // a tile of gathered grads (~20 KB)
+constexpr int kBatch = 8;            // a thread's copies issued at once
+constexpr int kAdds = 32;            // an adder's values loaded at once
+constexpr int kHeadWords = 4;        // scratch: items, slots reserved
 
-__global__ void segment_merge_short_kernel(const float* __restrict__ demb,
-                                           const int64_t* __restrict__ order,
-                                           const int* __restrict__ offsets,
-                                           float* __restrict__ g, int n_seg,
-                                           int dim, int* __restrict__ work) {
-  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  if (t >= static_cast<int64_t>(n_seg) * dim) {
+struct __align__(16) MergeItem {
+  int seg;    // its segment
+  int start;  // its first key's position in `order`
+  int n;      // its keys, 1 to kChunk
+  int slot;   // its partial's slot, -1 for a segment of one chunk
+};
+
+// The scratch words: the head, the arrival counters (one at each segment's
+// first slot), the work items (16-byte aligned) and the partials [slots,
+// dim]. A segment of L > kLongKeys keys is ceil(L / kChunk) <= 1 + (L - 1)
+// / kChunk items, one of L > kChunk keys as many slots, <= 2 L / kChunk.
+struct MergeScratch {
+  int64_t slot_cap, item_cap, items_at, partials_at, words;
+};
+
+__host__ __device__ inline MergeScratch merge_scratch(int64_t n_keys,
+                                                      int dim) {
+  MergeScratch s;
+  s.slot_cap = 2 * (n_keys / kChunk) + 1;
+  s.item_cap = n_keys / (kLongKeys + 1) + n_keys / kChunk + 1;
+  s.items_at = (kHeadWords + s.slot_cap + 3) / 4 * 4;
+  s.partials_at = s.items_at + 4 * s.item_cap;
+  s.words = s.partials_at + s.slot_cap * dim;
+  return s;
+}
+
+struct MergeWork {
+  int* head;          // [0]: items reserved, [1]: slots reserved
+  int* arrive;        // [slot_cap]: chunks finished, at a segment's 1st slot
+  MergeItem* items;   // [item_cap]
+  float* partials;    // [slot_cap, dim]
+  int item_cap, slot_cap;
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The work items of segment seg (keys lo..hi), reserved by one thread.
+// Beyond the caps (offsets outside [0, n_keys]: a broken precondition)
+// nothing is written.
+__device__ void reserve_chunks(const MergeWork& w, int seg, int lo, int hi) {
+  const int n = hi - lo;
+  const int chunks = (n + kChunk - 1) / kChunk;
+  const int it = atomicAdd(w.head, chunks);
+  const int slot = chunks > 1 ? atomicAdd(w.head + 1, chunks) : -1;
+  if (it + chunks > w.item_cap || slot + chunks > w.slot_cap) {
     return;
   }
-  const int seg = static_cast<int>(t / dim);
-  const int col = static_cast<int>(t - static_cast<int64_t>(seg) * dim);
+  for (int j = 0; j < chunks; ++j) {
+    w.items[it + j] = MergeItem{seg, lo + j * kChunk,
+                                min(kChunk, n - j * kChunk),
+                                slot < 0 ? -1 : slot + j};
+  }
+}
+
+// A thread a (segment, column) output; a segment's column-0 thread
+// reserves its chunks when it is long.
+__global__ void __launch_bounds__(kThreads)
+    segment_merge_short_kernel(const float* __restrict__ demb,
+                               const int64_t* __restrict__ order,
+                               const int* __restrict__ offsets,
+                               float* __restrict__ g, int n_seg, int dim,
+                               const MergeWork w) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n_seg * dim) {
+    return;
+  }
+  const int seg = t / dim;
+  const int col = t - seg * dim;
   const int lo = __ldg(offsets + seg);
   const int hi = __ldg(offsets + seg + 1);
   if (hi - lo > kLongKeys) {
     if (col == 0) {
-      work[1 + atomicAdd(work, 1)] = seg;  // work[0]: the list's length
+      reserve_chunks(w, seg, lo, hi);
     }
     return;
   }
@@ -291,54 +374,155 @@ __global__ void segment_merge_short_kernel(const float* __restrict__ demb,
   g[t] = acc;
 }
 
-// Blocks of kThreads (>= dim: thread c owns column c); `work` as the short
-// kernel left it.
-__global__ void __launch_bounds__(kThreads)
+// kLongBlocks blocks of kLongThreads threads (thread c adds columns c,
+// c + kLongThreads); `w` as the short kernel left it.
+__global__ void __launch_bounds__(kLongThreads)
     segment_merge_long_kernel(const float* __restrict__ demb,
                               const int64_t* __restrict__ order,
                               const int* __restrict__ offsets,
                               float* __restrict__ g, int dim,
-                              const int* __restrict__ work) {
-  __shared__ float tile[kTileFloats];
-  const int n_long = work[0];
-  const int tile_keys = kTileFloats / dim;
-  for (int li = blockIdx.x; li < n_long; li += gridDim.x) {
-    const int seg = work[1 + li];
-    const int lo = __ldg(offsets + seg);
-    const int hi = __ldg(offsets + seg + 1);
-    float acc = 0.0f;
-    for (int base = lo; base < hi; base += tile_keys) {
-      const int n = min(tile_keys, hi - base) * dim;
-      // kKeys loads of a thread in flight at once
-      for (int idx0 = threadIdx.x; idx0 < n; idx0 += kKeys * blockDim.x) {
-        float v[kKeys];
-#pragma unroll
-        for (int u = 0; u < kKeys; ++u) {
-          const int idx = idx0 + u * blockDim.x;
-          if (idx < n) {
-            const int i = idx / dim;
-            v[u] = __ldg(demb + __ldg(order + base + i) * dim + idx - i * dim);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kKeys; ++u) {
-          const int idx = idx0 + u * blockDim.x;
-          if (idx < n) {
-            tile[idx] = v[u];
-          }
-        }
-      }
-      __syncthreads();
-      if (threadIdx.x < dim) {
-#pragma unroll 8
-        for (int idx = threadIdx.x; idx < n; idx += dim) {
-          acc += tile[idx];
-        }
-      }
-      __syncthreads();
+                              const MergeWork w) {
+  __shared__ int s_row[kChunk];
+  __shared__ __align__(16) float s_tile[kTileFloats];
+  __shared__ int s_last[2];  // chunks to combine (0: not last), first slot
+  if (*w.head == 0) {
+    return;  // no long segment: first, before any set-up
+  }
+  const int tid = threadIdx.x;
+  const int n_items = min(*w.head, w.item_cap);
+  // 4 more than a multiple of 32: a column starts 16-byte aligned, and
+  // the 16-byte reads of one key by eight adders, a column apart, take
+  // distinct banks
+  const int tile_keys = (min(kChunk, kTileFloats / dim) - 4) / 32 * 32 + 4;
+  const int dkey = kLongThreads / dim;  // a thread's copies step so
+  const int dcol = kLongThreads - dkey * dim;
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const MergeItem item = w.items[it];
+    for (int i = tid; i < item.n; i += kLongThreads) {
+      s_row[i] = static_cast<int>(__ldg(order + item.start + i));
     }
-    if (threadIdx.x < dim) {
-      g[static_cast<int64_t>(seg) * dim + threadIdx.x] = acc;
+    __syncthreads();
+    float acc[kLongCols];
+#pragma unroll
+    for (int cc = 0; cc < kLongCols; ++cc) {
+      acc[cc] = 0.0f;
+    }
+    for (int first = 0; first < item.n; first += tile_keys) {
+      // the gather, column-major (column c's keys at c tile_keys on):
+      // element e of the tile's rows is key first + e / dim, column e %
+      // dim; kBatch rows' indices read, then their copies issued (the
+      // reads clamped into s_row and not branched around, so they
+      // pipeline)
+      const int nk = min(tile_keys, item.n - first);
+      const int ne = nk * dim;
+      int key = first + tid / dim;
+      int col = tid - (tid / dim) * dim;
+      for (int e = tid; e < ne; e += kLongThreads * kBatch) {
+        int64_t src[kBatch];
+        int at[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          src[u] = static_cast<int64_t>(s_row[min(key, kChunk - 1)]) * dim +
+                   col;
+          at[u] = col * tile_keys + key - first;
+          key += dkey;
+          col += dcol;
+          if (col >= dim) {
+            col -= dim;
+            ++key;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (e + kLongThreads * u < ne) {
+            cp_async4(s_tile + at[u], demb + src[u]);
+          }
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();
+#pragma unroll
+      for (int cc = 0; cc < kLongCols; ++cc) {
+        const int c = tid + cc * kLongThreads;
+        if (c >= dim) {
+          break;
+        }
+        // the column's keys, contiguous: kAdds values loaded, four a
+        // 16-byte read, then added in key order
+        const float* q = s_tile + c * tile_keys;
+        float a = acc[cc];
+        int i = 0;
+        for (; i + kAdds <= nk; i += kAdds) {
+          float4 v[kAdds / 4];
+#pragma unroll
+          for (int u = 0; u < kAdds / 4; ++u) {
+            v[u] = reinterpret_cast<const float4*>(q + i)[u];
+          }
+#pragma unroll
+          for (int u = 0; u < kAdds / 4; ++u) {
+            a += v[u].x;
+            a += v[u].y;
+            a += v[u].z;
+            a += v[u].w;
+          }
+        }
+        for (; i < nk; ++i) {
+          a += q[i];
+        }
+        acc[cc] = a;
+      }
+      __syncthreads();  // the tile is refilled next
+    }
+    // a segment of one chunk: g; else the chunk's partial
+    float* out = item.slot < 0
+                     ? g + static_cast<int64_t>(item.seg) * dim
+                     : w.partials + static_cast<int64_t>(item.slot) * dim;
+#pragma unroll
+    for (int cc = 0; cc < kLongCols; ++cc) {
+      if (tid + cc * kLongThreads < dim) {
+        out[tid + cc * kLongThreads] = acc[cc];
+      }
+    }
+    if (item.slot < 0) {
+      continue;  // s_row is rewritten after the tile loop's last sync
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      const int lo = __ldg(offsets + item.seg);
+      const int n = __ldg(offsets + item.seg + 1) - lo;
+      const int all = (n + kChunk - 1) / kChunk;
+      const int first = item.slot - (item.start - lo) / kChunk;
+      s_last[0] = atomicAdd(w.arrive + first, 1) == all - 1 ? all : 0;
+      s_last[1] = first;
+    }
+    __syncthreads();
+    const int chunks = s_last[0];
+    const int first = s_last[1];
+    __syncthreads();  // s_last is rewritten by the next item
+    if (chunks == 0) {
+      continue;
+    }
+    __threadfence();
+    for (int col = tid; col < dim; col += kLongThreads) {
+      // kBatch partials loaded, then added in chunk order
+      const float* p = w.partials + static_cast<int64_t>(first) * dim + col;
+      float sum = 0.0f;
+      for (int j0 = 0; j0 < chunks; j0 += kBatch) {
+        float v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          v[u] = __ldcg(p + static_cast<int64_t>(min(j0 + u, chunks - 1)) *
+                                dim);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (j0 + u < chunks) {
+            sum += v[u];
+          }
+        }
+      }
+      g[static_cast<int64_t>(item.seg) * dim + col] = sum;
     }
   }
 }
@@ -778,34 +962,55 @@ int pbx_merge_offsets(const void* sorted_inv, void* offsets, int64_t n_keys,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The int32 words of scratch pbx_segment_merge takes for n_keys keys of
+// dim columns (its worst case, whatever the segments).
+int64_t pbx_segment_merge_scratch(int64_t n_keys, int dim) {
+  return merge_scratch(n_keys < 0 ? 0 : n_keys, dim).words;
+}
+
 // demb [n_keys, dim] float32, order [n_keys] int64, offsets [n_seg + 1]
-// int32, g [n_seg, dim] float32 (every row written), work [n_seg + 1]
-// int32 scratch (the long segments' list). Returns a cudaError_t (0 =
-// launched).
+// int32 (non-decreasing, within [0, n_keys]: a precondition, not checked),
+// g [n_seg, dim] float32 (every row written), work [work_words] int32
+// scratch, 16-byte aligned, at least pbx_segment_merge_scratch(n_keys,
+// dim) words. Returns a cudaError_t (0 = launched).
 int pbx_segment_merge(const void* demb, const void* order,
                       const void* offsets, void* g, void* work,
-                      int64_t n_seg, int dim, void* stream) {
-  if (n_seg < 0 || dim < 1 || dim > kThreads || n_seg * dim > INT32_MAX) {
+                      int64_t work_words, int64_t n_keys, int64_t n_seg,
+                      int dim, void* stream) {
+  if (n_seg < 0 || n_keys < 0 || n_keys > INT32_MAX || dim < 1 ||
+      dim > kMaxDim || n_seg * dim > INT32_MAX - kThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const MergeScratch sc = merge_scratch(n_keys, dim);
+  if (work_words < sc.words ||
+      reinterpret_cast<uintptr_t>(work) % alignof(MergeItem) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_seg == 0) {
     return 0;
   }
   const auto s = static_cast<cudaStream_t>(stream);
-  int* w = static_cast<int*>(work);
-  const cudaError_t rc = cudaMemsetAsync(w, 0, sizeof(int), s);
+  int* base = static_cast<int*>(work);
+  const MergeWork w{base, base + kHeadWords,
+                    reinterpret_cast<MergeItem*>(base + sc.items_at),
+                    reinterpret_cast<float*>(base + sc.partials_at),
+                    static_cast<int>(sc.item_cap),
+                    static_cast<int>(sc.slot_cap)};
+  const cudaError_t rc = cudaMemsetAsync(
+      base, 0, (kHeadWords + sc.slot_cap) * sizeof(int), s);
   if (rc != cudaSuccess) {
     return static_cast<int>(rc);
   }
   const int blocks = static_cast<int>((n_seg * dim + kThreads - 1) /
                                       kThreads);
+  const auto* d = static_cast<const float*>(demb);
+  const auto* o = static_cast<const int64_t*>(order);
+  const auto* off = static_cast<const int*>(offsets);
+  auto* out = static_cast<float*>(g);
   segment_merge_short_kernel<<<blocks, kThreads, 0, s>>>(
-      static_cast<const float*>(demb), static_cast<const int64_t*>(order),
-      static_cast<const int*>(offsets), static_cast<float*>(g),
-      static_cast<int>(n_seg), dim, w);
-  segment_merge_long_kernel<<<kLongBlocks, kThreads, 0, s>>>(
-      static_cast<const float*>(demb), static_cast<const int64_t*>(order),
-      static_cast<const int*>(offsets), static_cast<float*>(g), dim, w);
+      d, o, off, out, static_cast<int>(n_seg), dim, w);
+  segment_merge_long_kernel<<<kLongBlocks, kLongThreads, 0, s>>>(
+      d, o, off, out, dim, w);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,7 +25,9 @@ The mesh step's requester merges its per-key grads before the exchange:
 unique), or ``segment_merge`` by request position (the merge order as
 above first). The merge alone is kernels of its own in
 ``csrc/sparse_push.cu``, counted in ``segment_merge_cuda.launches``;
-``segment_merge_plain`` is its plain version, summing in the same order.
+``segment_merge_plain`` is its plain version, summing in the same fixed
+order: key order, and past ``SEGMENT_CHUNK`` keys by chunks of that many,
+whose sums add in chunk order.
 
 The kernel also marks the step's rows dirty: given ``dirty``, a bool
 bitmap [cap] (``DeviceTable.dirty_dev``), each unique's owner stores
@@ -222,8 +224,11 @@ def _lib() -> ctypes.CDLL:
                                       ctypes.c_int64, ctypes.c_int64,
                                       ctypes.c_void_p]
     lib.pbx_merge_offsets.restype = ctypes.c_int
+    lib.pbx_segment_merge_scratch.argtypes = [ctypes.c_int64, ctypes.c_int]
+    lib.pbx_segment_merge_scratch.restype = ctypes.c_int64
     lib.pbx_segment_merge.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_void_p]
     lib.pbx_segment_merge.restype = ctypes.c_int
     lib.pbx_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pbx_cuda_error_string.restype = ctypes.c_char_p
@@ -289,44 +294,77 @@ def merge_order(inverse: torch.Tensor, upad: int
     return order, merge_offsets(sorted_inv, upad)
 
 
+# csrc/sparse_push.cu kChunk: a segment of more keys sums by chunks of this
+# many (a constant of the merge, never derived from the card)
+SEGMENT_CHUNK = 1024
+
+
+def _sum_in_order(src: torch.Tensor, order: Optional[torch.Tensor],
+                  starts: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """[n, D] float32, row s the sum of the rows of ``src`` at
+    ``order[starts[s]:starts[s] + lens[s]]`` (``order`` None: those
+    positions themselves), added in that order from 0; zeros where
+    ``lens[s]`` is 0. One pass a key rank over all rows at once."""
+    out = torch.zeros((starts.shape[0], src.shape[1]), dtype=torch.float32,
+                      device=src.device)
+    if starts.shape[0] == 0:
+        return out
+    # rows by length, longest first: the ones still adding at rank j are a
+    # prefix
+    lens_sorted, by_len = torch.sort(lens, descending=True, stable=True)
+    longest = int(lens_sorted[0])
+    # rows with more than j keys, for each rank j
+    live_counts = starts.shape[0] - torch.searchsorted(
+        lens_sorted.flip(0), torch.arange(longest, device=lens.device),
+        right=True)
+    acc = torch.zeros_like(out)
+    for j, n in enumerate(live_counts.tolist()):
+        at = starts[by_len[:n]] + j
+        acc[:n] += src[at if order is None else order[at]]
+    out[by_len] = acc
+    return out
+
+
 def segment_merge_plain(demb: torch.Tensor, order: torch.Tensor,
                         offsets: torch.Tensor) -> torch.Tensor:
     """Plain version of the segment merge: ``g`` [n_seg, D] float32, row s
-    the sum of ``demb``'s rows ``order[offsets[s]:offsets[s + 1]]`` added
-    in that order from 0 (a sorted segment sum, no ``index_add_``); a
-    segment with no keys is zeros; keys past ``offsets[n_seg]`` are not
-    read. One pass a key rank over all segments at once, so its passes
-    are the longest segment's key count."""
+    the sum of ``demb``'s rows ``order[offsets[s]:offsets[s + 1]]``, in the
+    kernel's fixed order (no ``index_add_``): a segment of at most
+    ``SEGMENT_CHUNK`` keys from 0, its keys in that order; a longer one each
+    chunk of ``SEGMENT_CHUNK`` keys so, then from 0 the chunks' sums in
+    chunk order. A segment with no keys is zeros; keys past
+    ``offsets[n_seg]`` are not read. One pass a key rank over all chunks at
+    once, then one a chunk rank: at most ``SEGMENT_CHUNK`` passes plus the
+    most chunks of a segment."""
     n_seg = offsets.shape[0] - 1
-    g = torch.zeros((n_seg, demb.shape[1]), dtype=torch.float32,
-                    device=demb.device)
     if n_seg == 0 or demb.shape[0] == 0:
-        return g
+        return torch.zeros((n_seg, demb.shape[1]), dtype=torch.float32,
+                           device=demb.device)
     starts = offsets[:-1].long()
     lens = offsets[1:].long() - starts
-    # segments by length, longest first: the ones still adding at rank j
-    # are a prefix
-    lens_sorted, by_len = torch.sort(lens, descending=True, stable=True)
-    longest = int(lens_sorted[0])
-    # segments with more than j keys, for each rank j
-    live_counts = n_seg - torch.searchsorted(
-        lens_sorted.flip(0), torch.arange(longest, device=lens.device),
-        right=True)
-    acc = torch.zeros((n_seg, demb.shape[1]), dtype=torch.float32,
-                      device=demb.device)
-    for j, n in enumerate(live_counts.tolist()):
-        segs = by_len[:n]
-        acc[:n] += demb[order[starts[segs] + j]]
-    g[by_len] = acc
+    C = SEGMENT_CHUNK
+    # every segment is one chunk or more (an empty one is one empty chunk)
+    chunks = torch.clamp_min(-(-lens // C), 1)
+    first = torch.cumsum(chunks, 0) - chunks
+    seg_of = torch.repeat_interleave(
+        torch.arange(n_seg, device=lens.device), chunks)
+    j = torch.arange(seg_of.shape[0], device=lens.device) - first[seg_of]
+    partial = _sum_in_order(demb, order, starts[seg_of] + j * C,
+                            torch.clamp_max(lens[seg_of] - j * C, C))
+    g = partial[first]
+    multi = (chunks > 1).nonzero().squeeze(1)
+    if multi.shape[0]:
+        g[multi] = _sum_in_order(partial, None, first[multi], chunks[multi])
     return g
 
 
 def segment_merge_cuda(demb: torch.Tensor, order: torch.Tensor,
                        offsets: torch.Tensor) -> torch.Tensor:
     """``segment_merge_plain`` on the card (``csrc/sparse_push.cu``: a
-    thread a segment's column where it holds at most 32 keys, a block a
-    longer segment), on the current stream, bit for bit. Counts each call
-    in ``segment_merge_cuda.launches``."""
+    thread a (segment, column) output of a segment of at most 32 keys; a
+    block of 128 threads a chunk of a longer one, the chunks' sums combined
+    by the last of them to finish), on the current stream, bit for bit: the
+    same fixed order. Counts each call in ``segment_merge_cuda.launches``."""
     dev = demb.device
     if demb.dtype != torch.float32 or demb.dim() != 2 or \
             not 1 <= demb.shape[1] <= MAX_DIM or \
@@ -341,14 +379,17 @@ def segment_merge_cuda(demb: torch.Tensor, order: torch.Tensor,
             raise ValueError(f"segment_merge_cuda: {name} must be a "
                              f"contiguous CUDA tensor on {dev}")
     n_seg = offsets.shape[0] - 1
-    g = torch.empty((n_seg, demb.shape[1]), dtype=torch.float32, device=dev)
-    # the long segments' list: its length, then their ids
-    work = torch.empty(n_seg + 1, dtype=torch.int32, device=dev)
+    n_keys, dim = demb.shape
+    g = torch.empty((n_seg, dim), dtype=torch.float32, device=dev)
     lib = _lib()
+    # the counters, the long kernel's work items and the chunks' sums, at
+    # their worst case for n_keys
+    words = lib.pbx_segment_merge_scratch(n_keys, dim)
+    work = torch.empty(words, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _raise_on(lib, lib.pbx_segment_merge(
         demb.data_ptr(), order.data_ptr(), offsets.data_ptr(), g.data_ptr(),
-        work.data_ptr(), n_seg, demb.shape[1], stream), "segment_merge")
+        work.data_ptr(), words, n_keys, n_seg, dim, stream), "segment_merge")
     segment_merge_cuda.launches += 1
     return g
 
@@ -358,8 +399,9 @@ segment_merge_cuda.launches = 0
 
 def merge_segments(demb: torch.Tensor, order: torch.Tensor,
                    offsets: torch.Tensor) -> torch.Tensor:
-    """``segment_merge_plain``'s ``g``: the kernel on the card, the plain
-    version on the CPU."""
+    """``segment_merge_plain``'s ``g``, in its fixed order (key order, by
+    chunks of ``SEGMENT_CHUNK`` keys past that many): the kernel on the
+    card, the plain version on the CPU."""
     if demb.is_cuda:
         return segment_merge_cuda(demb.contiguous(), order, offsets)
     if demb.device.type != "cpu":
@@ -370,7 +412,9 @@ def merge_segments(demb: torch.Tensor, order: torch.Tensor,
 def segment_merge(demb: torch.Tensor, seg: torch.Tensor,
                   n_seg: int) -> torch.Tensor:
     """``g`` [n_seg, D]: row s the sum of the rows of ``demb`` [N, D] whose
-    ``seg`` (int32 [N], in [0, n_seg]) is s, in ascending key order; a key
+    ``seg`` (int32 [N], in [0, n_seg]) is s, in ascending key order (by
+    chunks of ``SEGMENT_CHUNK`` keys past that many, as
+    ``segment_merge_plain`` says); a key
     whose ``seg`` is ``n_seg`` is dropped (the reference's
     ``jax.ops.segment_sum`` drops ids outside [0, num_segments)).
     ``merge_order`` of ``seg`` over n_seg + 1 segments, then the kernel on

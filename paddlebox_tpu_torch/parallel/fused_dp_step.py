@@ -43,7 +43,10 @@ Two ways to get the routing, as in the reference:
 
 The requester's merge of its per-key grads by request position (the
 reference's ``jax.ops.segment_sum``) is a merge kernel of its own on the
-card (``ops/sparse_push.py`` ``merge_segments``), summing in key order.
+card (``ops/sparse_push.py`` ``merge_segments``), summing in key order,
+and a segment of more than ``SEGMENT_CHUNK`` keys (a hot key) by chunks of
+that many, whose sums add in chunk order: a fixed order, the same on the
+card and the CPU.
 Device prep merges by unique over the order its K5 already gave (a routed
 unique has one request position) and copies each routed unique's sum to
 its position; the host plan merges by position (``segment_merge``: a
@@ -371,11 +374,11 @@ class FusedShardedTrainStep:
     def _merge_routed(self, demb: torch.Tensor, dd, flat: torch.Tensor,
                       R: int) -> torch.Tensor:
         """Device prep's requester merge into its send buffer [ndev, R,
-        D]: each unique's grads summed in key order over K5's merge order
-        (``_unique_merge_order``), then each routed unique's sum copied to
-        its request position ``flat`` (distinct; ``M`` for a unique not
-        routed, a sink dropped here). The same sums as ``_merge_requests``
-        over the positions, bit for bit."""
+        D]: each unique's grads summed in the merge's fixed order over
+        K5's order (``_unique_merge_order``), then each routed unique's sum
+        copied to its request position ``flat`` (distinct; ``M`` for a
+        unique not routed, a sink dropped here). The same sums as
+        ``_merge_requests`` over the positions, bit for bit."""
         M = self.ndev * R
         g = merge_segments(demb, *self._unique_merge_order(dd))
         send = torch.zeros((M + 1, g.shape[1]), dtype=g.dtype,
