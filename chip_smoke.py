@@ -462,7 +462,13 @@ Phases, each fatal on failure:
              arena and weights, 2 steps against the CPU; then both timed
              in turns with ``FusedTrainStep``'s run graphs and eager run
              loop; (b) a 4-shard mesh on cuda:0 (512 rows a shard, device
-             prep), 8 steps against the same mesh on the CPU; (c)
+             prep), 8 steps against the same mesh on the CPU, which
+             takes each step from the card's dense params and adam state
+             (the re-synced twin: the summed dense grads equal the
+             shards' added in shard order bit for bit, within 1e-5 of the
+             twin's in norm, the params within 1e-5 after every step, a
+             ReLU pre-activation that rounding alone put across 0 taking
+             the card's value); (c)
              ``CTRTrainer(mesh=make_mesh(1))`` over a trainer file,
              ``evaluate``, save, load (bit for bit), a step's delta into a
              ``DeviceTable``; (d) the requester's merge kernel
@@ -482,6 +488,28 @@ Phases, each fatal on failure:
              device prep's two K5 sorts (requester K5, owner K5+K6), host
              plan's two boundary kernels (the requester's merge order, the
              push's).
+4w. mesh host — the host-table and dense-sharding mesh engines
+             (``parallel/dp_step.py``, ``zero.py``, ``sharding.py``,
+             ``pipeline.py``, ``ring_attention.py``), the flagship DeepFM
+             over a native ``EmbeddingTable``, one trainer-cell file: (a)
+             ``CTRTrainer(mesh=make_mesh(1, device="cuda"),
+             use_device_table=False)`` bit for bit with
+             ``CTRTrainer(use_device_table=False)`` over 16 steps, timed
+             in turns; (b) sync DP over 4 shards on cuda:0, 8 steps,
+             against the same mesh on the CPU and the card's
+             single-device step on the merged batch, both re-synced as
+             4v (b)'s twin; (c) LocalSGD every 4 steps, the replicas
+             equal after steps 4 and 8, against the CPU re-synced; (d)
+             ZeRO (adam) from (b)'s dense state, each shard's bytes; (e)
+             phase 4f's MMoE with its experts over an ``ep`` mesh of 4,
+             the forward and 4 host-table steps against the unsharded
+             MMoE; (f) a ``PipelinedTower`` (4 stages x 2 blocks) under
+             ``FusedTrainStep``, 32 steps through ``train_stream``, the
+             second run a captured graph, its forward against
+             ``sequential_reference``; (g) ``ring_self_attention`` at
+             B=2, T=8192, H=8, D=64 over 4 shards, causal and not, the
+             forward and grads against ``dense_attention``. The forward
+             and backward kernels' launches counted in every part.
 5. timing  — forward at the serving, the multi-key and the training
              shape; backward, push, boundary kernel, dedup and probe at the
              training shape: kernel, plain and library times, per call and
@@ -541,7 +569,7 @@ from paddlebox_tpu_torch.ckpt.writer import AsyncCheckpointWriter
 from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
                                                      save_inference_model)
 from paddlebox_tpu_torch.inference.server import PredictServer, predict_lines
-from paddlebox_tpu_torch.models import DeepFM, FeedDNN, MMoE, WideDeep
+from paddlebox_tpu_torch.models import MLP, DeepFM, FeedDNN, MMoE, WideDeep
 from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
 from paddlebox_tpu_torch.ops import _build, ctr_ops
 from paddlebox_tpu_torch.ops.ctr_ops import build_rank_offset
@@ -567,9 +595,18 @@ from paddlebox_tpu_torch.ops.sparse_push import (PUSH_VARIANTS,
                                                  segment_merge_plain,
                                                  sparse_push_cuda,
                                                  sparse_push_plain)
-from paddlebox_tpu_torch.parallel.dp_step import split_batch
+from paddlebox_tpu_torch.parallel.dp_step import (ShardedTrainStep,
+                                                  split_batch)
 from paddlebox_tpu_torch.parallel.fused_dp_step import FusedShardedTrainStep
-from paddlebox_tpu_torch.parallel.mesh import make_mesh
+from paddlebox_tpu_torch.parallel.mesh import (AXIS_EP, AXIS_PP, AXIS_SP,
+                                               make_mesh)
+from paddlebox_tpu_torch.parallel.pipeline import (PipelinedTower,
+                                                   sequential_reference)
+from paddlebox_tpu_torch.parallel.ring_attention import (dense_attention,
+                                                         ring_self_attention)
+from paddlebox_tpu_torch.parallel.sharding import (expert_shardings,
+                                                   unshard_experts)
+from paddlebox_tpu_torch.parallel.zero import ZeroShardedTrainStep
 from paddlebox_tpu_torch.ops.device_index_kernel import (
     DIGITS, SIGN, dedup_number_cuda, dedup_number_probe_cuda,
     dedup_sort_cuda, device_dedup_cuda, device_dedup_probe_cuda,
@@ -6849,6 +6886,258 @@ def require_close_tables(tag: str, a, b) -> float:
     return err
 
 
+F32_UNIT = 2.0 ** -24        # float32's unit roundoff
+
+
+def adam_host(state) -> dict:
+    return {"count": state["count"].cpu().clone(),
+            "mu": [m.cpu().clone() for m in state["mu"]],
+            "nu": [v.cpu().clone() for v in state["nu"]]}
+
+
+def host_grads(grads) -> list:
+    return [None if g is None else g.detach().cpu().clone() for g in grads]
+
+
+class DenseRecorder:
+    """A mesh step's dense state around each of its updates, as host
+    copies: the params and adam's state before the step (``pre``), each
+    shard's dense gradients (``shard_grads``), the summed ones the update
+    took (``grads``), the params and state after it (``post``).
+    ``replay``: before each step, the world's params and adam state are
+    overwritten in place by ``replay.pre`` of that step (a re-synced
+    twin)."""
+
+    def __init__(self, step, replay=None):
+        self.step, self.replay = step, replay
+        self.pre, self.grads, self.post, self.shard_grads = [], [], [], []
+        dense_step, update = step._dense_step, step.optimizer.update
+        shard_grads = step._shard_grads
+
+        def rec_dense_step(params, opt_state, *args):
+            if self.replay is not None:
+                load_dense_state(params, opt_state,
+                                 self.replay.pre[len(self.pre)])
+            self.pre.append({"params": [p.detach().cpu().clone()
+                                        for p in params.parameters()],
+                             "adam": adam_host(opt_state)})
+            return dense_step(params, opt_state, *args)
+
+        def rec_shard_grads(models, embs, inputs):
+            out = shard_grads(models, embs, inputs)
+            self.shard_grads.append([host_grads(g) for g in out[3]])
+            return out
+
+        def rec_update(model, state):
+            self.grads.append(host_grads(p.grad for p in model.parameters()))
+            out = update(model, state)
+            self.post.append({"params": [p.detach().cpu().clone()
+                                         for p in model.parameters()],
+                              "adam": adam_host(state)})
+            return out
+
+        step._dense_step = rec_dense_step
+        step._shard_grads = rec_shard_grads
+        step.optimizer.update = rec_update
+
+    def detach(self) -> None:
+        for name in ("_dense_step", "_shard_grads"):
+            self.step.__dict__.pop(name, None)
+        self.step.optimizer.__dict__.pop("update", None)
+
+
+def relu_linears(model) -> list:
+    """The ``nn.Linear`` layers of a model's MLP that a ReLU follows."""
+    return [lin for mlp in model.modules() if isinstance(mlp, MLP)
+            for lin in mlp.layers[:-1]]
+
+
+class KinkAligner:
+    """The card's pre-activations of every ReLU layer of every forward
+    (``record`` on the card's models), and a twin's (``follow`` on its
+    models, their forwards in the same order) set to the card's value
+    where the two lie on opposite sides of 0 within the float32 rounding
+    bound of the layer's product, (fan_in + 1) * 2^-24 * (|x| |W|^T +
+    |b|): one ReLU, flipped by rounding alone, would otherwise switch a
+    whole row's term into or out of the layer's gradient. The value
+    moves; the gradient still flows through the twin's own product."""
+
+    def __init__(self):
+        self.z, self.at, self.aligned, self._hooks = {}, {}, 0, []
+
+    def record(self, *models) -> "KinkAligner":
+        for m in models:
+            for li, lin in enumerate(relu_linears(m)):
+                self._hooks.append(lin.register_forward_hook(
+                    self._recorder(li)))
+        return self
+
+    def _recorder(self, li: int):
+        def hook(mod, inp, out):
+            self.z.setdefault(li, []).append(out.detach().cpu())
+        return hook
+
+    def follow(self, *models, group: int = 1) -> "KinkAligner":
+        """A twin's hooks: each of its forwards of layer ``li`` takes the
+        next ``group`` recorded ones of that layer, joined by rows (a twin
+        on the merged batch follows the shards' forwards). ``aligned``
+        counts this twin's."""
+        self.at, self.aligned = {}, 0
+        for m in models:
+            for li, lin in enumerate(relu_linears(m)):
+                self._hooks.append(lin.register_forward_hook(
+                    self._follower(li, group)))
+        return self
+
+    def _follower(self, li: int, group: int):
+        def hook(mod, inp, out):
+            i = self.at.get(li, 0)
+            self.at[li] = i + group
+            zc = torch.cat(self.z[li][i:i + group]).to(out.device)
+            x = inp[0].detach()
+            bound = (x.shape[-1] + 1) * F32_UNIT * (
+                x.abs() @ mod.weight.detach().abs().t()
+                + mod.bias.detach().abs())
+            flip = ((zc > 0) != (out > 0)) & ((zc - out).abs() <= bound)
+            n = int(flip.sum())
+            if not n:
+                return None
+            self.aligned += n
+            return out + torch.where(flip, zc - out,
+                                     torch.zeros_like(out)).detach()
+        return hook
+
+    def remove(self) -> None:
+        for h in self._hooks:
+            h.remove()
+        self._hooks = []
+
+
+def shard_order_sum(parts) -> torch.Tensor:
+    """Host float32 ``parts[0] + parts[1] + ...`` in that order (None a
+    zero), as ``Mesh.psum`` adds them."""
+    ref = next(p for p in parts if p is not None)
+    out = None
+    for p in parts:
+        p = torch.zeros_like(ref) if p is None else p
+        out = p.clone() if out is None else out + p
+    return out
+
+
+def compare_dense_steps(rec, twin, fails: list,
+                        exact_sums: bool = True) -> dict:
+    """Step by step, a recorded step's (``rec``: a ``DenseRecorder``) dense
+    update against its re-synced twin's (``twin``: one with ``grads`` and
+    ``post``): adam's count equal; with ``exact_sums`` the summed dense
+    gradients equal the shards' added in shard order, bit for bit; each
+    parameter's summed gradient within TRAIN_RTOL of the twin's in norm;
+    the params after the step within TRAIN_ATOL. Failures go to
+    ``fails``; returns the largest differences."""
+    worst = {"dense": 0.0, "grad_rel": 0.0}
+    for t in range(len(rec.grads)):
+        if int(rec.post[t]["adam"]["count"]) != \
+                int(twin.post[t]["adam"]["count"]):
+            fails.append(f"step {t + 1}: adam counts differ")
+        for i, (g, gp) in enumerate(zip(rec.grads[t], twin.grads[t])):
+            if exact_sums and (g is None or not torch.equal(
+                    g, shard_order_sum([sg[i] for sg in
+                                        rec.shard_grads[t]]))):
+                fails.append(f"step {t + 1}, param {i}: the summed dense "
+                             "gradients are not the shards' added in "
+                             "shard order")
+                continue
+            rel = float((g - gp).norm() / gp.norm().clamp(min=1e-30))
+            worst["grad_rel"] = max(worst["grad_rel"], rel)
+            if rel > TRAIN_RTOL:
+                fails.append(f"step {t + 1}, param {i}: summed dense "
+                             f"gradients {rel:.3g} from the twin's in norm")
+            dp = float((rec.post[t]["params"][i] -
+                        twin.post[t]["params"][i]).abs().max())
+            worst["dense"] = max(worst["dense"], dp)
+            if dp > TRAIN_ATOL:
+                fails.append(f"step {t + 1}, param {i}: dense params {dp} "
+                             "from the re-synced twin's")
+    return worst
+
+
+class UpdateRecorder:
+    """A dense optimizer's updates: the grads each took (``grads``) and the
+    params and adam state after it (``post``), as host copies."""
+
+    def __init__(self, optimizer):
+        self.optimizer, self.grads, self.post = optimizer, [], []
+        update = optimizer.update
+
+        def rec_update(model, state):
+            self.grads.append(host_grads(p.grad for p in model.parameters()))
+            out = update(model, state)
+            self.post.append({"params": [p.detach().cpu().clone()
+                                         for p in model.parameters()],
+                              "adam": adam_host(state)})
+            return out
+        optimizer.update = rec_update
+
+    def detach(self) -> None:
+        self.optimizer.__dict__.pop("update", None)
+
+
+def load_dense_state(model, state, src) -> None:
+    """``src`` (a recorded ``pre``: params and adam state, host copies)
+    into ``model`` and ``state`` in place."""
+    with torch.no_grad():
+        for p, q in zip(model.parameters(), src["params"]):
+            p.copy_(q)
+        state["count"].copy_(src["adam"]["count"])
+        for name in ("mu", "nu"):
+            for a, b in zip(state[name], src["adam"][name]):
+                a.copy_(b)
+
+
+def check_mesh_dense(tag: str, card, cpu, batches, rec: DenseRecorder,
+                     kinks: KinkAligner, losses) -> dict:
+    """4v (b)'s dense check, a re-synced twin: ``cpu`` (the same mesh on
+    the CPU, the same arena) takes each step from the card's dense params
+    and adam state before it (``rec``, recorded on the card), so that no
+    rounding builds up over the steps; its ReLU pre-activations take the
+    card's where rounding alone put them on the other side of 0
+    (``kinks``, recorded on the card). Each step:
+
+    - the summed dense gradients the card's update took equal its shards'
+      gradients added in shard order, bit for bit (float32 adds in one
+      order round alike on the card and the host);
+    - each parameter's summed gradient within TRAIN_RTOL of the twin's,
+      in norm;
+    - the params after the step within TRAIN_ATOL of the twin's, adam's
+      count equal.
+
+    Then the 8-step losses (rtol) and the tables' rows by key, as before.
+    Every failure is gathered before the one ``require``. Returns the
+    largest differences."""
+    cpu_rec = DenseRecorder(cpu[0], replay=rec)
+    kinks.follow(cpu[2][0])
+    try:
+        twin = mesh_stream(cpu, batches, chunk=MESH_B_CHUNK)
+    finally:
+        cpu_rec.detach()
+        kinks.remove()
+    require(len(rec.grads) == len(cpu_rec.grads) == len(batches),
+            f"{tag}: {len(rec.grads)} card and {len(cpu_rec.grads)} CPU "
+            f"updates over {len(batches)} steps")
+    fails = []
+    if not np.allclose(losses, twin, rtol=TRAIN_RTOL, atol=0):
+        fails.append(f"losses {losses} vs the re-synced CPU's {twin}")
+    try:
+        rows_err = require_close_tables(tag, card[1], cpu[1])
+    except RuntimeError as e:
+        fails.append(str(e))
+        rows_err = float("nan")
+    worst = compare_dense_steps(rec, cpu_rec, fails)
+    worst["kinks_aligned"] = kinks.aligned
+    worst["rows"] = rows_err
+    require(not fails, f"{tag}: {len(fails)} failures: {fails[:4]}")
+    return worst
+
+
 MERGE_PROFILE_CALLS = 20     # (d): merge calls in a profiled run
 
 
@@ -7197,26 +7486,30 @@ def phase_mesh(rng, files) -> dict:
     cpu = mesh_world(copy.deepcopy(model), "cpu", MESH_SHARDS,
                      MESH_B_CAPACITY, True)
     carry_shards(card[1], cpu[1], MESH_B_CAPACITY)
-    secs, losses, launches["mesh_4_shards"] = counted(
-        lambda: mesh_stream(card, b_batches, chunk=MESH_B_CHUNK),
-        mesh_expect(MESH_B_STEPS, MESH_SHARDS, True), tag, MESH_WRAPPERS)
+    rec = DenseRecorder(card[0])
+    kinks = KinkAligner().record(card[2][0])
+    try:
+        secs, losses, launches["mesh_4_shards"] = counted(
+            lambda: mesh_stream(card, b_batches, chunk=MESH_B_CHUNK),
+            mesh_expect(MESH_B_STEPS, MESH_SHARDS, True), tag,
+            MESH_WRAPPERS)
+    finally:
+        rec.detach()
+        kinks.remove()
     t0 = time.perf_counter()
-    twin = mesh_stream(cpu, b_batches, chunk=MESH_B_CHUNK)
+    dense = check_mesh_dense(tag, card, cpu, b_batches, rec, kinks, losses)
     cpu_s = time.perf_counter() - t0
-    require(np.allclose(losses, twin, rtol=TRAIN_RTOL, atol=0),
-            f"{tag}: losses {losses} vs the CPU's {twin}")
-    err = require_close_tables(tag, card[1], cpu[1])
-    dense_err = max(float((a.detach().cpu() - b.detach()).abs().max())
-                    for a, b in zip(card[2][0].parameters(),
-                                    cpu[2][0].parameters()))
-    require(dense_err <= TRAIN_ATOL, f"{tag}: dense params {dense_err}")
     R4 = card[0]._req_cap(b_batches[0][0].shape[1])
     print(f"{tag}: {MESH_B_STEPS} steps of B={TB} ({TB // MESH_SHARDS} a "
           f"shard, Npad {b_batches[0][0].shape[1]} a shard, R {R4}) in "
           f"{secs:.2f} s, launches {launches['mesh_4_shards']}, against the "
-          f"CPU ({cpu_s:.2f} s): losses within rtol {TRAIN_RTOL}, "
-          f"{len(card[1])} rows by key max abs err {err:.3e}, dense "
-          f"{dense_err:.3e}, shard fill {card[1].shard_sizes()}")
+          f"CPU re-synced each step ({cpu_s:.2f} s): losses within rtol "
+          f"{TRAIN_RTOL}, {len(card[1])} rows by key max abs err "
+          f"{dense['rows']:.3e}, dense sums in shard order bit for bit, "
+          f"dense grads within {dense['grad_rel']:.3e} in norm, dense "
+          f"params {dense['dense']:.3e}, ReLU pre-activations aligned "
+          f"across 0 {dense['kinks_aligned']}, shard fill "
+          f"{card[1].shard_sizes()}")
     b_keys = b_batches[0][0][0]
     b_step = card[0]
     del cpu
@@ -7317,6 +7610,527 @@ def phase_mesh(rng, files) -> dict:
     out.update(launches=launches, merge=merge, parts_s=parts,
                phase_s=time.perf_counter() - t_phase)
     print(f"mesh (4v): {out['phase_s']:.1f} s; by part s {parts}")
+    return out
+
+
+# -- phase 4w: the host-table and dense-sharding mesh engines -----------------
+
+MH_SHARDS = 4                # (b)-(g): shards of each mesh, all on cuda:0
+MH_STEPS = 8                 # (b)-(d): steps of the 4-shard engines
+MH_SYNC = 4                  # (c): LocalSGD's dense_sync_steps
+MH_MM_STEPS = 4              # (e): host-table steps of the MMoE
+MH_PIPE_STEPS = 32           # (f): two runs of 16: eager, then captured
+MH_PIPE_CAPACITY = 1 << 22   # (f): its DeviceTable's rows
+RING_SHAPE = (2, 8192, 8, 64)     # (g): B, T, H, D
+RING_RTOL, RING_ATOL = 2e-4, 2e-5       # (g): the reference test's
+RING_GRAD_RTOL, RING_GRAD_ATOL = 2e-3, 2e-4
+SEQPOOL_WRAPPERS = (seqpool_cvm_cuda, seqpool_cvm_grad_cuda)
+
+
+def seqpool_expect(n_fwd: int, n_bwd: int) -> dict:
+    return {seqpool_cvm_cuda.__name__: n_fwd,
+            seqpool_cvm_grad_cuda.__name__: n_bwd}
+
+
+def host_mesh_run(step, state, table, sbs, before=None, after=None):
+    """``step`` (a ``ShardedTrainStep`` or a ``ZeroShardedTrainStep``)
+    over ``sbs`` (``ShardedBatch``es), the table's flat pull before and
+    push after each, as the trainer's host-table mesh branch runs a batch;
+    ``before(t)`` / ``after(t)`` around step ``t``. ``state`` ([params,
+    opt, auc] and the step counter of a ``ShardedTrainStep``) is updated in
+    place. Returns the losses (floats)."""
+    D = table.conf.pull_dim
+    zero = isinstance(step, ZeroShardedTrainStep)
+    losses = []
+    for t, sb in enumerate(sbs):
+        if before is not None:
+            before(t)
+        emb = table.pull(sb.flat_keys()).reshape(sb.ndev, -1, D)
+        args = (emb, sb.segment_ids, np.stack([np.ones_like(sb.labels),
+                                               sb.labels], -1),
+                sb.labels, sb.dense, sb.row_mask)
+        if zero:
+            *state[:3], demb, loss, _ = step(*state[:3], *args)
+        else:
+            *state[:4], demb, loss, _ = step(*state[:4], *args)
+        table.push(sb.flat_keys(), demb.reshape(-1, D))
+        losses.append(float(loss))
+        if after is not None:
+            after(t)
+    return losses
+
+
+def host_snapshot(table: EmbeddingTable):
+    snap = table.snapshot(reset_dirty=False)
+    order = np.argsort(snap["keys"], kind="stable")
+    return {k: v[order] for k, v in snap.items()}
+
+
+def require_same_host_tables(tag: str, a, b) -> None:
+    sa, sb = host_snapshot(a), host_snapshot(b)
+    require(set(sa) == set(sb) and all(np.array_equal(sa[k], sb[k])
+                                       for k in sa),
+            f"{tag}: the tables' rows differ")
+
+
+def require_close_host_tables(tag: str, a, b) -> float:
+    """Two host tables by key: the same keys, show/clk exact, the rest
+    within TRAIN_ATOL. Returns the largest difference."""
+    sa, sb = host_snapshot(a), host_snapshot(b)
+    require(np.array_equal(sa["keys"], sb["keys"]),
+            f"{tag}: the tables hold other keys")
+    require(np.array_equal(sa["values"][:, :2], sb["values"][:, :2]),
+            f"{tag}: show/clk differ")
+    err = max(float(np.abs(sa[k] - sb[k]).max()) for k in ("values",
+                                                          "state"))
+    require(err <= TRAIN_ATOL, f"{tag}: rows by key differ by {err}")
+    return err
+
+
+def dense_host(model, state) -> dict:
+    return {"params": [p.detach().cpu().clone() for p in model.parameters()],
+            "adam": adam_host(state)}
+
+
+def phase_mesh_host(rng, files, device: str = "cuda") -> dict:
+    """(4w) The host-table and dense-sharding mesh engines, the flagship
+    DeepFM over a native ``EmbeddingTable`` (B=2048, 24 slots) and one
+    trainer-cell file: (a) ``CTRTrainer(mesh=make_mesh(1, device="cuda"),
+    use_device_table=False)`` against ``CTRTrainer(use_device_table=
+    False)``, 16 steps, bit for bit, then both timed in turns; (b) sync DP
+    over 4 shards on cuda:0 (512 a shard), 8 steps, against the same mesh
+    on the CPU and the card's single-device step on the merged batch, each
+    re-synced to the card mesh's dense state before every step, as 4v
+    (b); (c) LocalSGD (``dense_sync_steps=4``), the replicas equal after
+    steps 4 and 8, against the CPU twin re-synced each step; (d) ZeRO
+    (adam) replaying (b)'s dense state, against (b), its bytes a shard
+    beside the replicated layout's; (e) ``expert_shardings`` of phase 4f's
+    MMoE over an ``ep`` mesh of 4, the forward and 4 host-table steps
+    against the unsharded MMoE; (f) a ``PipelinedTower`` (4 stages x 2
+    blocks, hidden 64, 4 microbatches) under ``FusedTrainStep`` on a
+    ``DeviceTable``, 32 steps through ``train_stream`` (its second run
+    captured), its forward against ``sequential_reference``; (g)
+    ``ring_self_attention`` at B=2, T=8192, H=8, D=64 over an ``sp`` mesh
+    of 4, causal and not, forward and grads against
+    ``dense_attention``. Every part on ``device`` (the CPU only to
+    rehearse the phase's control flow at small shapes)."""
+    t_phase = time.perf_counter()
+    conf, tconf, _ = train_confs()
+    fwd, bwd = seqpool_cvm_cuda.__name__, seqpool_cvm_grad_cuda.__name__
+    feed = trainer_feed_conf()
+    ds = SlotDataset(feed, buckets=batch_bucket_spec())
+    ds.set_filelist(files[:1])
+    ds.load_into_memory()
+    n = ds.num_instances() // TB
+    model = random_deepfm(rng, TS * conf.pull_dim)
+    launches, out, parts = {}, {}, {}
+    t_part = time.perf_counter()
+
+    def part(name: str) -> None:
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[name] = round(now - t_part, 2)
+        t_part = now
+
+    # (a) one shard against the single-device host-table engine
+    tag = "mesh host (4w) (a)"
+    single = CTRTrainer(copy.deepcopy(model), feed, conf, tconf,
+                        use_device_table=False, device=device)
+    mesh1 = CTRTrainer(copy.deepcopy(model), feed, conf, tconf,
+                       mesh=make_mesh(1, device=device),
+                       use_device_table=False)
+    require(isinstance(mesh1.step, ShardedTrainStep) and not mesh1.fused
+            and not single.fused, f"{tag}: not the host-table engines")
+    fetched = {"single": [], "mesh": []}
+
+    def one_pass(name, tr):
+        return tr.train_from_dataset(ds, fetch_handler=lambda s, loss, p:
+                                     fetched[name].append((float(loss), p)))
+
+    _, want, launches["mesh_host_single"] = counted(
+        lambda: one_pass("single", single), seqpool_expect(n, n),
+        f"{tag} single device", SEQPOOL_WRAPPERS)
+    _, got, launches["mesh_host_one_shard"] = counted(
+        lambda: one_pass("mesh", mesh1), seqpool_expect(n, n),
+        f"{tag} one shard", SEQPOOL_WRAPPERS)
+
+    def same(when: str) -> None:
+        require(len(fetched["single"]) == len(fetched["mesh"]) and all(
+            a[0] == b[0] and np.array_equal(a[1].reshape(-1),
+                                            b[1].reshape(-1))
+            for a, b in zip(fetched["single"], fetched["mesh"])),
+            f"{tag} {when}: losses or preds differ")
+        require(all(torch.equal(a, b) for a, b in zip(
+            single.params.state_dict().values(),
+            mesh1.params.state_dict().values())),
+            f"{tag} {when}: dense params differ")
+        require_same_host_tables(f"{tag} {when}", single.table, mesh1.table)
+
+    require(got == want, f"{tag}: pass metrics {got} vs {want}")
+    same("")
+    turns = {"single": [], "one_shard_mesh": []}
+    for name in ("single", "one_shard_mesh", "one_shard_mesh", "single"):
+        tr = single if name == "single" else mesh1
+        turns[name].append(host_engine_pass(tr, ds)[0] / n * 1e3)
+    fetched = {"single": [], "mesh": []}
+    same("after the turns")
+    out["ms_per_step"] = turns
+    ms = {k: [round(x, 3) for x in v] for k, v in turns.items()}
+    eps = {k: [round(TB / x * 1e3, 1) for x in v] for k, v in turns.items()}
+    print(f"{tag}: CTRTrainer(mesh=make_mesh(1), use_device_table=False) "
+          f"bit for bit with CTRTrainer(use_device_table=False) over {n} "
+          f"steps of B={TB} (losses, preds, metrics, dense params, "
+          f"{len(single.table)} rows by key), also after 2 more passes "
+          f"each; launches single {launches['mesh_host_single']} one shard "
+          f"{launches['mesh_host_one_shard']}; ms/step in turns {ms}, "
+          f"examples/s {eps} [{card_line()}]")
+    del single, mesh1
+    part("a")
+
+    # (b) sync DP over 4 shards on cuda:0
+    tag = f"mesh host (4w) (b) {MH_SHARDS} shards"
+    batches = list(ds.batches())[:MH_STEPS]
+    sbs = [split_batch(b, MH_SHARDS) for b in batches]
+    Bl = TB // MH_SHARDS
+
+    def world(device, trainer_conf=tconf, cls=None):
+        step = (cls or ShardedTrainStep)(
+            copy.deepcopy(model), conf, trainer_conf,
+            make_mesh(MH_SHARDS, device=device), Bl, TS)
+        state = [*step.init(), step.init_auc_state()]
+        if isinstance(step, ShardedTrainStep):
+            state.append(step.init_step_counter())
+        return step, state, EmbeddingTable(conf)
+
+    card, cstate, ctable = world(device)
+    rec = DenseRecorder(card)
+    kinks = KinkAligner().record(cstate[0])
+    try:
+        secs, closs, launches["mesh_host_4_shards"] = counted(
+            lambda: host_mesh_run(card, cstate, ctable, sbs),
+            seqpool_expect(MH_STEPS * MH_SHARDS, MH_STEPS * MH_SHARDS), tag,
+            SEQPOOL_WRAPPERS)
+    finally:
+        rec.detach()
+        kinks.remove()
+    out["b_ms_per_step"] = secs / MH_STEPS * 1e3
+    fails = []
+    cpu, pstate, ptable = world("cpu")
+    cpu_rec = DenseRecorder(cpu, replay=rec)
+    kinks.follow(pstate[0])
+    try:
+        ploss = host_mesh_run(cpu, pstate, ptable, sbs)
+    finally:
+        cpu_rec.detach()
+        kinks.remove()
+    cpu_kinks = kinks.aligned
+    if not np.allclose(closs, ploss, rtol=TRAIN_RTOL, atol=0):
+        fails.append(f"losses {closs} vs the CPU's {ploss}")
+    vs_cpu = compare_dense_steps(rec, cpu_rec, fails)
+    vs_cpu["rows"] = require_close_host_tables(f"{tag} vs CPU", ctable,
+                                               ptable)
+    # the card's single-device step on the merged batches, re-synced
+    one = TrainStep(copy.deepcopy(model), conf, tconf, TB, TS,
+                    device=device)
+    ostate = [*one.init(), one.init_auc_state()]
+    otable = EmbeddingTable(conf)
+    orec = UpdateRecorder(one.optimizer)
+    kinks.follow(ostate[0], group=MH_SHARDS)
+    oloss = []
+    try:
+        for t, b in enumerate(batches):
+            load_dense_state(ostate[0], ostate[1], rec.pre[t])
+            ostate, losses = host_hand_loop(one, ostate, otable, [b])
+            oloss += losses
+    finally:
+        orec.detach()
+        kinks.remove()
+    if not np.allclose(closs, oloss, rtol=TRAIN_RTOL, atol=0):
+        fails.append(f"losses {closs} vs the single device's {oloss}")
+    vs_one = compare_dense_steps(rec, orec, fails, exact_sums=False)
+    vs_one["rows"] = require_close_host_tables(f"{tag} vs one device",
+                                               ctable, otable)
+    require(not fails, f"{tag}: {len(fails)} failures: {fails[:4]}")
+    print(f"{tag}: {MH_STEPS} steps of B={TB} ({Bl} a shard) in "
+          f"{secs:.2f} s ({out['b_ms_per_step']:.3f} ms/step), launches "
+          f"{launches['mesh_host_4_shards']}; each step re-synced: against "
+          f"the same mesh on the CPU: losses within rtol {TRAIN_RTOL}, "
+          f"dense sums in shard order bit for bit, grads within "
+          f"{vs_cpu['grad_rel']:.3e} in norm, params {vs_cpu['dense']:.3e},"
+          f" rows {vs_cpu['rows']:.3e}, ReLU pre-activations aligned "
+          f"{cpu_kinks}; against the card's single-device step on the "
+          f"merged batch: grads {vs_one['grad_rel']:.3e}, params "
+          f"{vs_one['dense']:.3e}, rows {vs_one['rows']:.3e}, aligned "
+          f"{kinks.aligned} [{card_line()}]")
+    del cpu, pstate, ptable, one, ostate, otable
+    part("b")
+
+    # (c) LocalSGD: dense_sync_steps=4
+    tag = f"mesh host (4w) (c) LocalSGD every {MH_SYNC}"
+    tl = dataclasses.replace(tconf, dense_sync_steps=MH_SYNC)
+    lcard, lstate, ltable = world(device, tl)
+    lcpu, lpstate, lptable = world("cpu", tl)
+    pre, post, ppost, synced = [], [], [], []
+    lk = KinkAligner().record(*lstate[0])
+
+    def card_before(t):
+        pre.append([dense_host(m, o) for m, o in zip(lstate[0],
+                                                     lstate[1])])
+
+    def card_after(t):
+        post.append([dense_host(m, o) for m, o in zip(lstate[0],
+                                                      lstate[1])])
+        if (t + 1) % MH_SYNC == 0:
+            synced.append(t + 1)
+            require(all(torch.equal(a, b) for r in post[-1][1:]
+                        for a, b in zip(r["params"], post[-1][0]["params"])),
+                    f"{tag}: the replicas differ after step {t + 1}")
+
+    try:
+        secs, lloss, launches["mesh_host_localsgd"] = counted(
+            lambda: host_mesh_run(lcard, lstate, ltable, sbs, card_before,
+                                  card_after),
+            seqpool_expect(MH_STEPS * MH_SHARDS, MH_STEPS * MH_SHARDS), tag,
+            SEQPOOL_WRAPPERS)
+    finally:
+        lk.remove()
+    out["c_ms_per_step"] = secs / MH_STEPS * 1e3
+    lk.follow(*lpstate[0])
+    lpl = host_mesh_run(
+        lcpu, lpstate, lptable, sbs,
+        lambda t: [load_dense_state(m, o, src) for m, o, src in
+                   zip(lpstate[0], lpstate[1], pre[t])],
+        lambda t: ppost.append([dense_host(m, o) for m, o in
+                                zip(lpstate[0], lpstate[1])]))
+    lk.remove()
+    require(np.allclose(lloss, lpl, rtol=TRAIN_RTOL, atol=0),
+            f"{tag}: losses {lloss} vs the CPU's {lpl}")
+    l_err = max(float((a - b).abs().max()) for t in range(MH_STEPS)
+                for r, q in zip(post[t], ppost[t])
+                for a, b in zip(r["params"], q["params"]))
+    require(l_err <= TRAIN_ATOL, f"{tag}: replicas' params {l_err} from "
+                                 "the re-synced CPU's")
+    l_rows = require_close_host_tables(tag, ltable, lptable)
+    require(synced == [MH_SYNC, 2 * MH_SYNC], f"{tag}: synced at {synced}")
+    print(f"{tag}: {MH_STEPS} steps in {secs:.2f} s "
+          f"({out['c_ms_per_step']:.3f} ms/step), launches "
+          f"{launches['mesh_host_localsgd']}; the {MH_SHARDS} replicas "
+          f"equal after steps {synced}; each step re-synced against the "
+          f"CPU: losses within rtol {TRAIN_RTOL}, replicas' params "
+          f"{l_err:.3e}, rows {l_rows:.3e}, aligned {lk.aligned} "
+          f"[{card_line()}]")
+    del lcpu, lpstate, lptable
+    part("c")
+
+    # (d) ZeRO (adam), replaying (b)'s dense state
+    tag = f"mesh host (4w) (d) ZeRO {MH_SHARDS} shards"
+    zstep, zstate, ztable = world(device, cls=ZeroShardedTrainStep)
+    spec = zstep._spec
+    C = spec.chunk
+
+    def z_before(t):
+        src = rec.pre[t]
+        flats = {"p": spec.to_flat(src["params"]),
+                 "mu": spec.to_flat(src["adam"]["mu"]),
+                 "nu": spec.to_flat(src["adam"]["nu"])}
+        with torch.no_grad():
+            for s_, (c, st) in enumerate(zip(zstate[0], zstate[1])):
+                c.flat.copy_(flats["p"][s_ * C:(s_ + 1) * C])
+                st["mu"][0].copy_(flats["mu"][s_ * C:(s_ + 1) * C])
+                st["nu"][0].copy_(flats["nu"][s_ * C:(s_ + 1) * C])
+                st["count"].copy_(src["adam"]["count"])
+
+    zpost = []
+    kinks.follow(zstep._skeleton(zstep.device))
+    try:
+        secs, zloss, launches["mesh_host_zero"] = counted(
+            lambda: host_mesh_run(zstep, zstate, ztable, sbs, z_before,
+                                  lambda t: zpost.append([
+                                      p.detach().cpu() for p in
+                                      zstep.materialize(zstate[0])
+                                      .parameters()])),
+            seqpool_expect(MH_STEPS * MH_SHARDS, MH_STEPS * MH_SHARDS), tag,
+            SEQPOOL_WRAPPERS)
+    finally:
+        kinks.remove()
+    out["d_ms_per_step"] = secs / MH_STEPS * 1e3
+    require(np.allclose(zloss, closs, rtol=TRAIN_RTOL, atol=0),
+            f"{tag}: losses {zloss} vs sync DP's {closs}")
+    z_err = max(float((a - b).abs().max()) for t in range(MH_STEPS)
+                for a, b in zip(zpost[t], rec.post[t]["params"]))
+    require(z_err <= TRAIN_ATOL, f"{tag}: params {z_err} from sync DP's")
+    z_rows = require_close_host_tables(tag, ztable, ctable)
+    zbytes = zstep.shard_bytes(zstate[0], zstate[1])
+    P = spec.total
+    rep_bytes = 4 * 3 * P + 4     # params, mu, nu and the count a device
+    out["zero_bytes"] = {"shard": zbytes, "replicated": rep_bytes}
+    print(f"{tag}: {MH_STEPS} steps in {secs:.2f} s "
+          f"({out['d_ms_per_step']:.3f} ms/step), launches "
+          f"{launches['mesh_host_zero']}; each step from sync DP's dense "
+          f"state (b): losses within rtol {TRAIN_RTOL}, params {z_err:.3e},"
+          f" rows {z_rows:.3e}, aligned {kinks.aligned}; bytes of params "
+          f"and adam state a shard {zbytes} (chunk {C} of {P} params) "
+          f"against {rep_bytes} a device replicated [{card_line()}]")
+    # (b)-(d) timed in turns, uninstrumented (the checks above copy the
+    # dense state to the host each step), over the same batches again
+    engines = {"sync": (card, cstate, ctable),
+               "localsgd": (lcard, lstate, ltable),
+               "zero": (zstep, zstate, ztable)}
+    order = list(engines)
+    bturns = {k: [] for k in order}
+    for name in order + order[::-1]:
+        secs, _ = timed_secs(lambda: host_mesh_run(*engines[name], sbs))
+        bturns[name].append(secs / MH_STEPS * 1e3)
+    out["bcd_ms_per_step"] = bturns
+    ms = {k: [round(x, 3) for x in v] for k, v in bturns.items()}
+    eps = {k: [round(TB / x * 1e3, 1) for x in v] for k, v in bturns.items()}
+    print(f"timing mesh host (4w) (b)-(d): ms/step in turns {ms}, "
+          f"examples/s {eps} (B={TB}, {MH_SHARDS} shards on one card, "
+          f"{MH_STEPS} steps a turn; {card_line()})")
+    del engines, zstep, zstate, ztable, card, cstate, ctable, rec
+    del lcard, lstate, ltable
+    part("d")
+
+    # (e) expert shards of phase 4f's MMoE
+    tag = f"mesh host (4w) (e) MMoE experts over ep {MH_SHARDS}"
+    econf, etconf = example_confs()
+    mb = csr_batches(rng, MH_MM_STEPS, MM_B, MM_S, 0, HE_VOCAB)
+    mm = MMoE(MM_S * econf.pull_dim, **MM_KW)
+    ep = make_mesh(MH_SHARDS, device=device, axis_names=(AXIS_EP,))
+    sharded = expert_shardings(copy.deepcopy(mm), ep)
+    with torch.no_grad():
+        sparse = torch.randn(MM_B, MM_S, econf.pull_dim, device=device)
+        zeros = torch.zeros(MM_B, 0, device=device)
+        f_err = float((sharded.to(device)(sparse, zeros) -
+                       copy.deepcopy(mm).to(device)(sparse, zeros))
+                      .abs().max())
+    require(f_err <= TRAIN_ATOL, f"{tag}: forward {f_err}")
+    worlds_e = {}
+    for name, m in (("unsharded", mm), ("sharded", sharded)):
+        st = TrainStep(m, econf, etconf, MM_B, MM_S, device=device)
+        state = [*st.init(), st.init_auc_state()]
+        tab = EmbeddingTable(econf)
+        _, (state, losses), launches[f"mesh_host_mmoe_{name}"] = counted(
+            lambda: host_hand_loop(st, state, tab, mb,
+                                   labels_of=mmoe_labels),
+            seqpool_expect(MH_MM_STEPS, MH_MM_STEPS), f"{tag} {name}",
+            SEQPOOL_WRAPPERS)
+        worlds_e[name] = (state[0], tab, losses)
+    require(np.allclose(worlds_e["sharded"][2], worlds_e["unsharded"][2],
+                        rtol=TRAIN_RTOL, atol=0),
+            f"{tag}: losses {worlds_e['sharded'][2]} vs "
+            f"{worlds_e['unsharded'][2]}")
+    e_err = max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(
+        unshard_experts(worlds_e["sharded"][0]).parameters(),
+        worlds_e["unsharded"][0].parameters()))
+    require(e_err <= TRAIN_ATOL, f"{tag}: params {e_err}")
+    e_rows = require_close_host_tables(tag, worlds_e["sharded"][1],
+                                       worlds_e["unsharded"][1])
+    E = MM_KW["num_experts"]
+    print(f"{tag}: E={E}, {E // MH_SHARDS} a shard on one device; "
+          f"forward (B={MM_B}) within {f_err:.3e} of the unsharded MMoE's; "
+          f"{MH_MM_STEPS} host-table steps: losses within rtol "
+          f"{TRAIN_RTOL}, params {e_err:.3e}, rows {e_rows:.3e}; launches "
+          f"{launches['mesh_host_mmoe_sharded']} (unsharded "
+          f"{launches['mesh_host_mmoe_unsharded']}) [{card_line()}]")
+    del worlds_e, sharded, mm
+    part("e")
+
+    # (f) the pipelined tower under FusedTrainStep, run graphs
+    tag = f"mesh host (4w) (f) PipelinedTower {MH_SHARDS} stages"
+    torch.manual_seed(int(rng.integers(1 << 31)))
+    pp = make_mesh(MH_SHARDS, device=device, axis_names=(AXIS_PP,))
+    tower = PipelinedTower(TS * conf.pull_dim, hidden=64,
+                           blocks_per_stage=2, microbatches=4, mesh=pp)
+    ptab = DeviceTable(conf, capacity=MH_PIPE_CAPACITY, device=device,
+                       backend="native", index_threads=1)
+    fs = FusedTrainStep(tower, ptab, tconf, TB, TS, device_prep=True)
+    fst = [*fs.init(), fs.init_auc_state()]
+    flat, _ = mesh_tuples(make_train_batches(rng, MH_PIPE_STEPS))
+    plosses = []
+    secs, _, launches["mesh_host_pipeline"] = counted(
+        lambda: fs.train_stream(*fst, iter(flat), on_step=lambda i, loss:
+                                plosses.append(float(loss))),
+        seqpool_expect(MH_PIPE_STEPS, MH_PIPE_STEPS), tag, SEQPOOL_WRAPPERS)
+    require(len(plosses) == MH_PIPE_STEPS and all(np.isfinite(plosses)),
+            f"{tag}: losses {plosses}")
+    graphs = fs.run_graphs         # None on the CPU: no graphs there
+    captures = graphs.captures if graphs is not None else 0
+    replays = graphs.replays if graphs is not None else 0
+    with torch.no_grad():
+        sparse = torch.randn(TB, TS, conf.pull_dim, device=device)
+        p_err = float((tower(sparse, None) -
+                       sequential_reference(tower, sparse)).abs().max())
+    require(p_err <= TRAIN_ATOL, f"{tag}: forward {p_err} from "
+                                 "sequential_reference")
+    out["pipeline"] = {"captures": captures, "replays": replays,
+                       "ms_per_step": secs / MH_PIPE_STEPS * 1e3}
+    print(f"{tag} x 2 blocks, hidden 64, 4 microbatches: "
+          f"{MH_PIPE_STEPS} steps of B={TB} through train_stream (device "
+          f"prep) in {secs:.2f} s, run graphs captures {captures} replays "
+          f"{replays}, launches "
+          f"{launches['mesh_host_pipeline']}, losses {plosses[0]:.6f} -> "
+          f"{plosses[-1]:.6f}; forward within {p_err:.3e} of "
+          f"sequential_reference [{card_line()}]")
+    del fs, fst, ptab, tower
+    # the run graph goes now: a graph freed by a later collection, inside
+    # another capture, would invalidate that capture
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("f")
+
+    # (g) ring attention over an sp mesh of 4
+    tag = f"mesh host (4w) (g) ring attention {MH_SHARDS} shards"
+    sp = make_mesh(MH_SHARDS, device=device, axis_names=(AXIS_SP,))
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(1 << 31)))
+    ring = {}
+
+    def ring_cases():
+        for causal in (False, True):
+            ring_case(causal)
+
+    def ring_case(causal: bool) -> None:
+        q, k, v, cot = (torch.randn(RING_SHAPE, device=device,
+                                    generator=gen) for _ in range(4))
+        res = {}
+        for name, fn in (("ring", lambda *a: ring_self_attention(
+                *a, sp, causal=causal)),
+                         ("dense", lambda *a: dense_attention(
+                             *a, causal=causal))):
+            ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            t_ms, o = timed_secs(lambda: fn(*ins))
+            (o * cot).sum().backward()
+            res[name] = (o.detach(), [x.grad for x in ins], t_ms * 1e3)
+            del ins, o
+        o_err = float((res["ring"][0] - res["dense"][0]).abs().max())
+        require(torch.allclose(res["ring"][0], res["dense"][0],
+                               rtol=RING_RTOL, atol=RING_ATOL),
+                f"{tag} causal={causal}: forward {o_err}")
+        g_err = 0.0
+        for a, b in zip(res["ring"][1], res["dense"][1]):
+            g_err = max(g_err, float((a - b).abs().max()))
+            require(torch.allclose(a, b, rtol=RING_GRAD_RTOL,
+                                   atol=RING_GRAD_ATOL),
+                    f"{tag} causal={causal}: grads {g_err}")
+        ring[f"causal={causal}"] = {"fwd_err": o_err, "grad_err": g_err,
+                                    "ring_fwd_ms": res["ring"][2],
+                                    "dense_fwd_ms": res["dense"][2]}
+        del res, q, k, v, cot
+        torch.cuda.empty_cache()
+    _, _, launches["mesh_host_ring"] = counted(
+        ring_cases, seqpool_expect(0, 0), tag, SEQPOOL_WRAPPERS)
+    out["ring"] = ring
+    print(f"{tag}: B, T, H, D = {RING_SHAPE}, forward and the grads of q, "
+          f"k, v against dense_attention within rtol {RING_RTOL} atol "
+          f"{RING_ATOL} (grads rtol {RING_GRAD_RTOL} atol {RING_GRAD_ATOL}; "
+          f"the reference test's: a streaming softmax adds the blocks in "
+          f"another order than the one-pass softmax): {ring}, launches "
+          f"{launches['mesh_host_ring']} [{card_line()}]")
+    part("g")
+    out.update(launches=launches, parts_s=parts,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"mesh host (4w): {out['phase_s']:.1f} s; by part s {parts}")
     return out
 
 
@@ -8958,6 +9772,8 @@ def main() -> int:
                               trainer["files"], serve_bundle, serve_batches)
         mesh = phase_mesh(np.random.default_rng([args.seed, 83]),
                           trainer["files"])
+        mesh_host = phase_mesh_host(np.random.default_rng([args.seed, 89]),
+                                    trainer["files"])
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
         push_timing = time_push(train_inputs)
@@ -9066,7 +9882,12 @@ def main() -> int:
           f"device bytes {ps['device_bytes']}, cache_wall "
           f"{ps['cache_wall']}, {ps['phase_s']:.1f} s; mesh (4v) ms/step "
           f"{ {k: [round(x, 4) for x in v] for k, v in mesh['ms_per_step'].items()} }, "
-          f"{mesh['phase_s']:.1f} s")
+          f"{mesh['phase_s']:.1f} s; mesh host (4w) ms/step "
+          f"{ {k: [round(x, 3) for x in v] for k, v in mesh_host['ms_per_step'].items()} }"
+          f", 4 shards "
+          f"{ {k: [round(x, 3) for x in v] for k, v in mesh_host['bcd_ms_per_step'].items()} }"
+          f", ZeRO bytes a shard {mesh_host['zero_bytes']}, "
+          f"{mesh_host['phase_s']:.1f} s")
     print(f"chip_smoke: wall s by phase {PHASE_S} [{card_line()}]")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
@@ -9100,7 +9921,8 @@ def main() -> int:
                                          **embedded["launches"],
                                          **ctr["launches"],
                                          **ps["launches"],
-                                         **mesh["launches"]}.items()}}
+                                         **mesh["launches"],
+                                         **mesh_host["launches"]}.items()}}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}
 

@@ -129,8 +129,10 @@ class TrainerConfig:
     the trainer loop's (``trainer/trainer.py::CTRTrainer``): on one device
     it ignores ``dense_sync_steps`` and ``metrics`` as the reference does,
     refuses ``num_devices`` > 1 without a mesh and prints the profile
-    line; over a mesh it refuses ``dense_sync_steps`` > 0 (the reference's
-    host-table LocalSGD engine)."""
+    line; over a mesh ``dense_sync_steps`` > 0 trains LocalSGD on the
+    host table (``parallel/dp_step.py`` ``ShardedTrainStep``: the
+    replicas' params averaged every ``dense_sync_steps`` steps), as the
+    reference does."""
 
     # dense optimizer, in optax's math: "adam" | "adamw" | "sgd" |
     # "adagrad" | "lars" | "lamb" (trainer/train_step.py)

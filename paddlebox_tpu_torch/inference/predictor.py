@@ -224,9 +224,12 @@ class CTRPredictor:
         params = list(self.model.parameters())
         leaves = []
         for j, kernel in flax_order(self.model):
-            shape = tuple(params[j].shape)
+            js = j if isinstance(j, tuple) else (j,)
+            shape = tuple(params[js[0]].shape)
+            if isinstance(j, tuple):     # a stacked leaf: a tensor a stage
+                shape = (len(j),) + shape
             leaves.append((shape[::-1] if kernel else shape,
-                           str(params[j].dtype)))
+                           str(params[js[0]].dtype)))
         cfg = model_config(self.model)
         return (cfg["class"], json.dumps(cfg["kwargs"], sort_keys=True),
                 self.use_cvm, tuple(leaves), self.feed_conf.batch_size,

@@ -18,7 +18,14 @@ flax kernels are ``[in, out]``; ``nn.Linear.weight`` is ``[out, in]``, so a
 ``Linear``'s kernel leaf is its weight transposed. ``StackedMLP`` keeps the
 flax layout, so its leaves are its tensors as they are.
 
-``flax_order`` gives that order for a module's own parameters, so that
+- ``PipelinedTower`` (``parallel/pipeline.py``): ``blocks_b``,
+  ``blocks_w`` (stacked ``[n_stages, ...]``, kept a tensor a stage:
+  ``blocks_b.<d>``, ``blocks_w.<d>``), ``head_b``, ``head_w``, ``proj_b``,
+  ``proj_w`` (kernels as flax keeps them).
+
+A stacked leaf kept as one tensor a stage is a slot of a tuple of
+tensors: the leaf is their stack. ``flax_order`` gives that order for a
+module's own parameters (a stacked leaf's indices as a tuple), so that
 tensors kept per parameter (an optimizer's ``mu``, ``nu``) follow it too
 (``utils/checkpoint.py`` ``dense_arrays``). ``build_model`` builds a
 model of a class named in a serving bundle (``model_from_flax_leaves``
@@ -30,7 +37,7 @@ transposed)`` pairs).
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,12 +48,15 @@ from paddlebox_tpu_torch.models.deepfm import DeepFM
 from paddlebox_tpu_torch.models.dnn import FeedDNN
 from paddlebox_tpu_torch.models.mmoe import MMoE
 from paddlebox_tpu_torch.models.wide_deep import WideDeep
+from paddlebox_tpu_torch.parallel.pipeline import PipelinedTower
 
 # the model classes a bundle may name, by class name
 MODEL_CLASSES: Dict[str, type] = {c.__name__: c for c in
-                                  (DeepFM, WideDeep, FeedDNN, MMoE)}
+                                  (DeepFM, WideDeep, FeedDNN, MMoE,
+                                   PipelinedTower)}
 
-Slot = Tuple[torch.Tensor, bool]
+# a leaf's tensor (or its stages' tensors) and whether flax transposes it
+Slot = Tuple[Union[torch.Tensor, Tuple[torch.Tensor, ...]], bool]
 
 
 def register_model_class(cls: type) -> None:
@@ -104,19 +114,27 @@ def _slots(model: nn.Module) -> List[Slot]:
                     "flax_slots())")
 
 
-def flax_order(model: nn.Module) -> List[Tuple[int, bool]]:
+def flax_order(model: nn.Module) -> List[Tuple[Union[int, Tuple[int, ...]],
+                                                 bool]]:
     """For each flax leaf of ``model``, in the leaf order: the index of its
-    tensor in ``model.parameters()`` and whether flax keeps it transposed
-    (a ``Linear``'s kernel)."""
+    tensor in ``model.parameters()`` (a stacked leaf's: a tuple, a stage
+    each) and whether flax keeps it transposed (a ``Linear``'s kernel)."""
     index = {id(p): j for j, p in enumerate(model.parameters())}
-    return [(index[id(p)], kernel) for p, kernel in _slots(model)]
+    return [(tuple(index[id(q)] for q in p) if isinstance(p, tuple)
+             else index[id(p)], kernel) for p, kernel in _slots(model)]
+
+
+def _host(t) -> np.ndarray:
+    if isinstance(t, tuple):
+        return np.stack([_host(q) for q in t])
+    return t.detach().cpu().numpy()
 
 
 def flax_leaves_from_model(model: nn.Module) -> List[np.ndarray]:
     """The flax leaf list (host float32 arrays) of ``model``'s weights."""
     out = []
     for t, kernel in _slots(model):
-        x = t.detach().cpu().numpy()
+        x = _host(t)
         out.append((x.T if kernel else x).copy())
     return out
 
@@ -132,14 +150,17 @@ def load_flax_leaves(model: nn.Module, leaves: Sequence[np.ndarray]):
     arrays = []
     for i, ((t, kernel), leaf) in enumerate(zip(slots, leaves)):
         leaf = np.asarray(leaf)
-        want = tuple(t.shape)[::-1] if kernel else tuple(t.shape)
+        shape = ((len(t),) + tuple(t[0].shape) if isinstance(t, tuple)
+                 else tuple(t.shape))
+        want = shape[::-1] if kernel else shape
         if leaf.shape != want:
             raise ValueError(f"{name}: leaf {i} is {leaf.shape}, expected "
                              f"{want}")
         arrays.append(np.array(leaf.T if kernel else leaf, dtype=np.float32))
     with torch.no_grad():
         for (t, _), a in zip(slots, arrays):
-            t.copy_(torch.from_numpy(a))
+            for q, x in (zip(t, a) if isinstance(t, tuple) else [(t, a)]):
+                q.copy_(torch.from_numpy(np.array(x)))
     return model
 
 
@@ -219,3 +240,18 @@ flax_leaves_from_deepfm = flax_leaves_from_model
 flax_leaves_from_widedeep = flax_leaves_from_model
 flax_leaves_from_feeddnn = flax_leaves_from_model
 flax_leaves_from_mmoe = flax_leaves_from_model
+
+
+def pipelined_tower_from_flax_leaves(leaves: Sequence[np.ndarray],
+                                     microbatches: int = 4, mesh=None
+                                     ) -> PipelinedTower:
+    """A ``PipelinedTower`` holding the weights of the reference's leaves
+    (``blocks_b``, ``blocks_w`` [n, k, H, H], ``head_b``, ``head_w``,
+    ``proj_b``, ``proj_w`` [in, H]), its stages over ``mesh`` (None: on
+    the CPU)."""
+    n, k, H, _ = np.shape(leaves[1])
+    return load_flax_leaves(
+        PipelinedTower(int(np.shape(leaves[5])[0]), hidden=int(H),
+                       blocks_per_stage=int(k), microbatches=microbatches,
+                       n_stages=None if mesh is not None else int(n),
+                       mesh=mesh), leaves)

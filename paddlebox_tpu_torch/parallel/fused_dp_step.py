@@ -79,35 +79,32 @@ counterpart (nothing compiles); ``stats()`` reports the rest.
 
 from __future__ import annotations
 
-import copy
 import warnings
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from paddlebox_tpu_torch.config import TrainerConfig
-from paddlebox_tpu_torch.metrics.auc import auc_update, new_auc_state
+from paddlebox_tpu_torch.metrics.auc import new_auc_state
 from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
 from paddlebox_tpu_torch.ops.sparse_push import (merge_segments,
                                                   segment_merge)
-from paddlebox_tpu_torch.parallel.plan import (Plan, global_denominator,
-                                               reduce_gradients, reduce_loss)
+from paddlebox_tpu_torch.parallel.dp_step import ShardBodies
+from paddlebox_tpu_torch.parallel.plan import Plan
 from paddlebox_tpu_torch.ps.device_index import (device_dedup,
                                                  device_owner_hash,
                                                  key_halves)
 from paddlebox_tpu_torch.ps.sharded_device_table import (MeshBatchIndex,
                                                          ShardedDeviceTable)
-from paddlebox_tpu_torch.trainer.fused_step import (FusedTrainStep,
-                                                    _keys_i64,
+from paddlebox_tpu_torch.trainer.fused_step import (_keys_i64,
                                                     collect_same_shape_run)
 from paddlebox_tpu_torch.trainer.train_step import (
-    apply_model, compute_dtype, full_float32_matmuls, make_dense_optimizer,
-    sigmoid_binary_cross_entropy)
+    apply_model, compute_dtype, full_float32_matmuls, make_dense_optimizer)
 
 
-class FusedShardedTrainStep:
+class FusedShardedTrainStep(ShardBodies):
     """Train step fused with a ``ShardedDeviceTable``. Sync data
     parallelism only (dense params replicated, grads summed over the
     shards)."""
@@ -252,101 +249,6 @@ class FusedShardedTrainStep:
 
     def init_auc_state(self) -> Dict[str, torch.Tensor]:
         return new_auc_state(self.num_auc_buckets, self.device)
-
-    # -- inputs ----------------------------------------------------------------
-
-    # the single-device step's packing: one host buffer, one copy a shard
-    _pack = staticmethod(FusedTrainStep._pack)
-    _views = staticmethod(FusedTrainStep._views)
-    _float_block = staticmethod(FusedTrainStep._float_block)
-    _split_floats = FusedTrainStep._split_floats
-
-    def _upload(self, arrays_of, cvm_in, labels, dense, row_mask):
-        """Each shard's inputs in one host->device copy: ``arrays_of(d)``,
-        the shard's int64, int32 or float32 arrays, then its cvm_in,
-        labels, dense and row_mask. Returns a list over the shards of
-        (arrays, cvm, labels, dense, mask) on each shard's device."""
-        out = []
-        for d, dev in enumerate(self.devices):
-            pf, labels_t = self._float_block(cvm_in[d], labels[d], dense[d],
-                                             row_mask[d])
-            buf, layout = self._pack([*arrays_of(d), pf])
-            *arrays, pf = self._views(torch.from_numpy(buf).to(dev), layout)
-            out.append((arrays, *self._split_floats(pf, labels_t)))
-        return out
-
-    def _dense_models(self, params: nn.Module) -> List[nn.Module]:
-        """The dense module each shard's body runs: ``params`` on its own
-        device, else a copy on the shard's device, refreshed from it."""
-        out = []
-        for dev in self.devices:
-            if dev == self.device:
-                out.append(params)
-                continue
-            rep = self._replicas.get(dev)
-            if rep is None:
-                rep = self._replicas[dev] = copy.deepcopy(params).to(dev)
-            else:
-                with torch.no_grad():
-                    for a, b in zip(rep.parameters(), params.parameters()):
-                        a.copy_(b)
-                    for a, b in zip(rep.buffers(), params.buffers()):
-                        a.copy_(b)
-            out.append(rep)
-        return out
-
-    # -- the shard bodies ----------------------------------------------------
-
-    def _local_loss(self, model, emb, segs, cvm, labels, dense, mask, den):
-        """A shard's loss over the global denominator ``den`` (local: no
-        cross-shard sum inside it) and its predictions."""
-        sparse = fused_seqpool_cvm(emb, segs, cvm, self.batch_size,
-                                   self.num_slots, self.use_cvm,
-                                   **self.seqpool_kwargs)
-        logits = apply_model(model, sparse.to(self.compute_dtype),
-                             dense.to(self.compute_dtype),
-                             self.recompute).float()
-        if logits.dim() == 1 and labels.dim() == 2:
-            labels = labels[:, 0]
-        m = mask if logits.dim() == 1 else mask[:, None]
-        losses = sigmoid_binary_cross_entropy(logits, labels) * m
-        loss = losses.sum() / torch.clamp(den.to(logits.device), min=1.0)
-        return loss, torch.sigmoid(logits)
-
-    def _dense_step(self, params, opt_state, auc_state, embs, inputs):
-        """Forward and backward on each shard, the dense update once, the
-        AUC. ``embs[d]``, shard d's pulled rows (a leaf that requires
-        grad); ``inputs[d]`` its (segs, cvm, labels, dense, mask). Returns
-        (opt_state, auc_state, loss, preds [ndev, ...], dembs)."""
-        den = global_denominator([inp[4].sum() for inp in inputs], self.mesh)
-        models = self._dense_models(params)
-        losses, preds, dembs, dparams = [], [], [], []
-        for d, (emb, (segs, cvm, labels, dense, mask)) in enumerate(
-                zip(embs, inputs)):
-            ps = list(models[d].parameters())
-            loss, p = self._local_loss(models[d], emb, segs, cvm, labels,
-                                       dense, mask, den)
-            grads = torch.autograd.grad(loss, [emb, *ps], allow_unused=True)
-            demb = grads[0]
-            if self.sparse_grad_scale != 1.0:
-                demb = torch.cat([demb[:, :2],
-                                  demb[:, 2:] * self.sparse_grad_scale], 1)
-            dembs.append(demb)
-            dparams.append(grads[1:])
-            losses.append(loss.detach())
-            preds.append(p.detach())
-        for p, g in zip(params.parameters(),
-                        reduce_gradients(dparams, self.mesh)):
-            p.grad = g
-        opt_state = self.optimizer.update(params, opt_state)
-        for (segs, cvm, labels, dense, mask), p in zip(inputs, preds):
-            p0 = p if p.dim() == 1 else p[:, 0]
-            l0 = labels if labels.dim() == 1 else labels[:, 0]
-            auc_state = auc_update(auc_state, p0.to(self.device),
-                                   l0.to(self.device), mask.to(self.device))
-        loss = reduce_loss(losses, self.mesh)
-        return (opt_state, auc_state, loss,
-                torch.stack([p.to(self.device) for p in preds]), dembs)
 
     def _merge_requests(self, demb: torch.Tensor, seg: torch.Tensor,
                         R: int) -> torch.Tensor:

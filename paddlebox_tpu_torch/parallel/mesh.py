@@ -1,6 +1,6 @@
 """The device mesh of the port (counterpart of
 ``paddlebox_tpu/parallel/mesh.py``): the axis constants, ``Mesh`` and
-``make_mesh``, and the two collectives the device-sharded engine uses.
+``make_mesh``, and the collectives of the mesh engines.
 
 The reference is single-controller: one process holds a ``jax.sharding.
 Mesh`` of ``ndev`` devices and XLA compiles the collectives. The port keeps
@@ -13,17 +13,28 @@ one (``tests/conftest.py``), and ``make_mesh(4, device="cuda:0")`` four
 shards on one card.
 
 The collectives are plain functions over per-shard lists, so that every
-exchange of the engine goes through these two methods (a process-group
-backend, where the engine goes multi-controller, belongs here too):
+exchange of the engines goes through these methods (a process-group
+backend, where the engines go multi-controller, belongs here too):
 
 - ``Mesh.all_to_all(blocks)``: ``blocks[d]`` is shard ``d``'s
   ``[ndev, R, ...]`` tensor; block ``[d, s]`` goes to ``[s, d]``, copied to
   shard ``s``'s device. The reference's ``lax.all_to_all(x, axis, 0, 0)``.
 - ``Mesh.psum(xs)``: the shards' tensors added in shard order 0..ndev-1, on
   shard 0's device. The fixed order keeps a cross-shard sum deterministic.
+- ``Mesh.pmean(xs)``: ``psum`` divided by ``ndev``, a copy on every
+  shard's device (LocalSGD's sync, ``lax.pmean``).
+- ``Mesh.all_gather(xs)``: the shards' tensors concatenated along dim 0 in
+  shard order, a copy on every shard's device (ZeRO's parameter gather,
+  ``lax.all_gather(x, axis, tiled=True)``).
+- ``Mesh.reduce_scatter(xs)``: ``xs[d]`` is shard ``d``'s ``[ndev * c,
+  ...]`` tensor; shard ``s`` gets chunk ``s`` of every shard's, added in
+  shard order, on its device (``lax.psum_scatter(x, axis, tiled=True)``).
+- ``Mesh.ppermute(xs, perm)``: ``(src, dst)`` pairs; shard ``dst`` gets
+  ``xs[src]`` on its device, a shard no pair names gets zeros (None stays
+  None): the pipeline's and the ring's neighbour hop (``lax.ppermute``).
 
-At ``ndev == 1`` both are the identity, as in the reference
-(``parallel/fused_dp_step.py:298, :309``).
+At ``ndev == 1`` each is the identity (``ppermute`` of the pair (0, 0)),
+as in the reference (``parallel/fused_dp_step.py:298, :309``).
 """
 
 from __future__ import annotations
@@ -100,6 +111,56 @@ class Mesh:
         out = xs[0]
         for x in xs[1:]:
             out = out + x.to(out.device)
+        return out
+
+    def pmean(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """``psum(xs) / ndev``, a copy on each shard's device."""
+        mean = self.psum(xs) / self.size
+        return [mean.to(dev) for dev in self.devices]
+
+    def all_gather(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """``cat(xs)`` along dim 0 in shard order, a copy on each shard's
+        device."""
+        if len(xs) != self.size:
+            raise ValueError(f"all_gather takes {self.size} tensors")
+        return [torch.cat([x.to(dev) for x in xs]) for dev in self.devices]
+
+    def reduce_scatter(self, xs: Sequence[torch.Tensor]
+                       ) -> List[torch.Tensor]:
+        """Shard ``s`` gets ``sum over d of chunk s of xs[d]`` (dim 0 split
+        into ``ndev`` equal chunks), added in shard order, on its
+        device."""
+        n = self.size
+        if len(xs) != n or any(x.shape[0] % n for x in xs):
+            raise ValueError(f"reduce_scatter takes {n} tensors whose dim "
+                             f"0 divides by {n}")
+        c = xs[0].shape[0] // n
+        out = []
+        for s, dev in enumerate(self.devices):
+            acc = xs[0][s * c:(s + 1) * c].to(dev)
+            for x in xs[1:]:
+                acc = acc + x[s * c:(s + 1) * c].to(dev)
+            out.append(acc)
+        return out
+
+    def ppermute(self, xs: Sequence[Optional[torch.Tensor]],
+                 perm: Sequence[Tuple[int, int]]
+                 ) -> List[Optional[torch.Tensor]]:
+        """``out[dst] = xs[src]`` on shard ``dst``'s device for each
+        ``(src, dst)`` pair; zeros where no pair sends (None where
+        ``xs`` holds None)."""
+        if len(xs) != self.size:
+            raise ValueError(f"ppermute takes {self.size} tensors")
+        dsts = [d for _, d in perm]
+        if len(set(dsts)) != len(dsts) or \
+                len({s for s, _ in perm}) != len(perm):
+            raise ValueError(f"ppermute: {list(perm)} is not a permutation")
+        out: List[Optional[torch.Tensor]] = [
+            None if x is None else torch.zeros_like(x).to(dev)
+            for x, dev in zip(xs, self.devices)]
+        for src, dst in perm:
+            x = xs[src]
+            out[dst] = None if x is None else x.to(self.devices[dst])
         return out
 
 

@@ -251,14 +251,19 @@ def sigmoid_binary_cross_entropy(logits: torch.Tensor,
 
 
 def masked_bce_loss(logits: torch.Tensor, labels: torch.Tensor,
-                    row_mask: torch.Tensor
+                    row_mask: torch.Tensor,
+                    den: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``sum(losses * mask) / max(sum(mask), 1)`` and the predictions."""
+    """``sum(losses * mask) / max(den, 1)`` and the predictions; ``den``
+    the mask's sum, or a mesh shard's global denominator (the shards'
+    mask sums summed, ``parallel/plan.py``), which makes the loss that
+    shard's share of the global mean."""
     if logits.dim() == 1 and labels.dim() == 2:
         labels = labels[:, 0]
     mask = row_mask if logits.dim() == 1 else row_mask[:, None]
     losses = sigmoid_binary_cross_entropy(logits, labels) * mask
-    loss = losses.sum() / torch.clamp(mask.sum(), min=1.0)
+    den = mask.sum() if den is None else den.to(logits.device)
+    loss = losses.sum() / torch.clamp(den, min=1.0)
     return loss, torch.sigmoid(logits)
 
 

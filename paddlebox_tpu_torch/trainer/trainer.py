@@ -77,22 +77,30 @@ is asked for a pending trip at each ``AUC_DRAIN_STEPS`` segment of
 each pass ends with its ``finalize_pass``; ``TrainGuard.run_pass`` drives
 ``train_from_dataset`` with rollback and skip.
 
-The mesh engine (``mesh=``, a ``parallel/mesh.py`` ``Mesh``; the
-reference's ``mesh=`` with ``use_device_table=True``): a
-``ShardedDeviceTable`` (``device_capacity`` rows a shard) and a
-``FusedShardedTrainStep`` over it (``parallel/fused_dp_step.py``), device
-prep where a native index backs the table, each batch split row-wise over
-the shards (``parallel/dp_step.py`` ``split_batch``, ``feed_conf.batch_size``
-divisible by the shards). ``train_from_dataset`` runs the step's chunked
-stream in ``AUC_DRAIN_STEPS`` segments (``_train_pass_mesh_stream``), or
-batch by batch under a dump, a ``fetch_handler`` or a profile;
-``evaluate`` predicts through the host plan (``prepare_batch(create=
-False)``); ``train_from_files`` refuses a mesh, as the reference does.
-Refused with ``NotImplementedError``, each naming its ROADMAP item:
-``mesh=`` with a host table (``use_device_table=False``, a host table as
-``table``, or ``dense_sync_steps`` > 0, which the reference trains on the
-host-table engine): A.9b2; ``dense_sync_hook``, and ``num_devices`` > 1
-without a mesh: A.9b3.
+The mesh engines (``mesh=``, a ``parallel/mesh.py`` ``Mesh``), each
+batch split row-wise over the shards (``parallel/dp_step.py``
+``split_batch``, ``feed_conf.batch_size`` divisible by the shards):
+
+- over a device-sharded table (the reference's ``mesh=`` with
+  ``use_device_table=True``): a ``ShardedDeviceTable`` (``device_capacity``
+  rows a shard) and a ``FusedShardedTrainStep`` over it
+  (``parallel/fused_dp_step.py``), device prep where a native index backs
+  the table. ``train_from_dataset`` runs the step's chunked stream in
+  ``AUC_DRAIN_STEPS`` segments (``_train_pass_mesh_stream``), or batch by
+  batch under a dump, a ``fetch_handler`` or a profile; ``evaluate``
+  predicts through the host plan (``prepare_batch(create=False)``);
+- over a host table (``use_device_table=False``, a host table as
+  ``table``, or ``dense_sync_steps`` > 0, which the reference trains on
+  the host table): ``ShardedTrainStep`` (``parallel/dp_step.py``), sync DP
+  or LocalSGD every ``dense_sync_steps`` steps (its step counter the
+  trainer's ``_step_counter``). A batch: one flat ``pull`` of every
+  shard's keys, the step, one flat ``push`` of the shards' grads
+  (``pull``, ``step``, ``push`` spans); ``evaluate`` pulls with
+  ``create=False``.
+
+``train_from_files`` refuses a mesh, as the reference does. Refused with
+``NotImplementedError``, naming ROADMAP A.9b3: ``dense_sync_hook``, and
+``num_devices`` > 1 without a mesh.
 """
 
 from __future__ import annotations
@@ -174,7 +182,10 @@ class CTRTrainer:
         ``parallel/mesh.py`` ``Mesh``), the mesh engine over ``table`` (a
         ``ShardedDeviceTable``) or, without it, over
         ``ShardedDeviceTable(table_conf, mesh,
-        capacity_per_shard=device_capacity)``. ``device_prep`` None = on
+        capacity_per_shard=device_capacity)``; with a host table (or
+        ``use_device_table=False``, or ``dense_sync_steps`` > 0, which
+        trains on an ``EmbeddingTable(table_conf)``) the host-table mesh
+        engine. ``device_prep`` None = on
         when a native single-map index backs the device table
         (``index_threads=1``; a sharded table's native shards); the
         host-table engine ignores it and ``insert_mode``, as the
@@ -191,8 +202,13 @@ class CTRTrainer:
                 "without a mesh (multi-host training) is not ported yet "
                 "(ROADMAP A.9b3); pass mesh= for the device-sharded engine")
         if mesh is not None:
-            self._check_mesh_engine(mesh, table, use_device_table,
-                                    trainer_conf)
+            if isinstance(table, DeviceTable):
+                raise ValueError(
+                    "DeviceTable is single-chip; pass a ShardedDeviceTable "
+                    "(or no table) when training with mesh=")
+            if trainer_conf.dense_sync_steps > 0:
+                # LocalSGD rides the host table, as in the reference
+                use_device_table = False
         elif isinstance(table, ShardedDeviceTable):
             raise ValueError(
                 "ShardedDeviceTable needs its mesh; pass mesh= (or a "
@@ -230,7 +246,7 @@ class CTRTrainer:
                              f"divisible by {self.ndev} devices")
         if table is not None:
             self.table = table
-        elif mesh is not None:
+        elif mesh is not None and use_device_table:
             self.table = ShardedDeviceTable(
                 table_conf, mesh, capacity_per_shard=device_capacity)
         elif use_device_table:
@@ -240,7 +256,16 @@ class CTRTrainer:
             self.table = EmbeddingTable(table_conf)
         self.fused = isinstance(self.table, (DeviceTable,
                                              ShardedDeviceTable))
-        if mesh is not None:
+        if mesh is not None and not self.fused:
+            from paddlebox_tpu_torch.parallel.dp_step import \
+                ShardedTrainStep
+            self.step = ShardedTrainStep(
+                model, table_conf, trainer_conf, mesh,
+                batch_size=feed_conf.batch_size // self.ndev,
+                num_slots=self.num_slots, dense_dim=self.dense_dim,
+                use_cvm=use_cvm)
+            self._step_counter = self.step.init_step_counter()
+        elif mesh is not None:
             from paddlebox_tpu_torch.parallel.fused_dp_step import \
                 FusedShardedTrainStep
             dp = _resolve_device_prep(self.table, device_prep)
@@ -279,25 +304,6 @@ class CTRTrainer:
         self._guard = None
         from paddlebox_tpu_torch.trainer.guard import maybe_auto_guard
         maybe_auto_guard(self)
-
-    @staticmethod
-    def _check_mesh_engine(mesh, table, use_device_table: bool,
-                           trainer_conf: TrainerConfig) -> None:
-        """The mesh engines the port has: the device-sharded one. A host
-        table over a mesh (the reference's ``ShardedTrainStep``, also
-        what it trains ``dense_sync_steps`` > 0 on) is A.9b2."""
-        if isinstance(table, DeviceTable):
-            raise ValueError(
-                "DeviceTable is single-chip; pass a ShardedDeviceTable "
-                "(or no table) when training with mesh=")
-        host_table = (table is not None
-                      and not isinstance(table, ShardedDeviceTable))
-        if host_table or (table is None and not use_device_table) or \
-                trainer_conf.dense_sync_steps > 0:
-            raise NotImplementedError(
-                "mesh= over a host table (use_device_table=False, a host "
-                "table, or dense_sync_steps > 0: the reference's "
-                "ShardedTrainStep) is not ported yet (ROADMAP A.9b2)")
 
     # -- dump subsystem ------------------------------------------------------
 
@@ -396,7 +402,19 @@ class CTRTrainer:
             sb = split_batch(batch, self.ndev)
             args = (sb.segment_ids, self._cvm_sharded(sb), sb.labels,
                     sb.dense, sb.row_mask)
-            if self.step.device_prep:
+            if not self.fused:
+                D = self.table_conf.pull_dim
+                with self.timer.span("pull"):
+                    emb = self.table.pull(sb.flat_keys()).reshape(
+                        self.ndev, -1, D)
+                with self.timer.span("step"):
+                    (self.params, self.opt_state, self.auc_state,
+                     self._step_counter, demb, loss, preds) = self.step(
+                        self.params, self.opt_state, self.auc_state,
+                        self._step_counter, emb, *args)
+                with self.timer.span("push"):
+                    self.table.push(sb.flat_keys(), demb.reshape(-1, D))
+            elif self.step.device_prep:
                 with self.timer.span("step"):
                     (self.params, self.opt_state, self.auc_state, loss,
                      preds) = self.step.step_device(
@@ -513,8 +531,9 @@ class CTRTrainer:
     def _train_from_dataset(self, dataset, fetch_handler):
         self._pass_begin()
         profile = self._profiling()
-        if self.mesh is not None and self.dump_path is None and \
-                fetch_handler is None and not profile:
+        if self.mesh is not None and self.fused and \
+                self.dump_path is None and fetch_handler is None and \
+                not profile:
             # no per-batch consumer: the mesh engine's chunked stream
             self._train_pass_mesh_stream(dataset)
             return self._pass_end()
@@ -646,8 +665,13 @@ class CTRTrainer:
             if self.mesh is not None:
                 from paddlebox_tpu_torch.parallel.dp_step import split_batch
                 sb = split_batch(batch, self.ndev)
-                idx = self.table.prepare_batch(sb.keys, create=False)
-                preds = self.step.predict(self.params, idx, sb.segment_ids,
+                if self.fused:
+                    rows = self.table.prepare_batch(sb.keys, create=False)
+                else:
+                    rows = self.table.pull(
+                        sb.flat_keys(), create=False).reshape(
+                        self.ndev, -1, self.table_conf.pull_dim)
+                preds = self.step.predict(self.params, rows, sb.segment_ids,
                                           self._cvm_sharded(sb), sb.dense)
                 p = preds.cpu().numpy().reshape(batch.batch_size, -1)
                 calc.add_batch(p[:, 0], batch.labels, batch.row_mask())

@@ -76,9 +76,15 @@ def _dense_tensors(dense_state: Any) -> List[Tuple[torch.Tensor, bool]]:
         raise TypeError("a dense state is the pair (model, opt_state)") \
             from None
     order = flax_order(model)
-    params = list(model.parameters())
-    return [(params[j].detach(), kernel) for j, kernel in order] + \
+    params = [p.detach() for p in model.parameters()]
+    return [(_pick(params, j), kernel) for j, kernel in order] + \
         _opt_tensors(opt_state, order)
+
+
+def _pick(tensors, j):
+    """Tensor ``j``, or a stacked leaf's stage tensors (a list) where ``j``
+    is a tuple of indices."""
+    return [tensors[i] for i in j] if isinstance(j, tuple) else tensors[j]
 
 
 def _opt_tensors(opt_state: Dict[str, Any], order
@@ -97,7 +103,7 @@ def _opt_tensors(opt_state: Dict[str, Any], order
         elif isinstance(v, dict):
             out += _opt_tensors(v, order)
         else:
-            out += [(v[j], kernel) for j, kernel in order]
+            out += [(_pick(v, j), kernel) for j, kernel in order]
     return out
 
 
@@ -107,7 +113,8 @@ def dense_arrays(dense_state: Any) -> Dict[str, np.ndarray]:
     change."""
     leaves = []
     for t, kernel in _dense_tensors(dense_state):
-        x = t.to("cpu", copy=True).numpy()
+        x = (np.stack([q.to("cpu", copy=True).numpy() for q in t])
+             if isinstance(t, list) else t.to("cpu", copy=True).numpy())
         leaves.append(np.ascontiguousarray(x.T) if kernel else x)
     return leaf_arrays(leaves)
 
@@ -119,5 +126,7 @@ def load_dense(path: str, dense_state: Any) -> Any:
     tensors = _dense_tensors(dense_state)
     template = list(dense_arrays(dense_state).values())
     for (t, kernel), a in zip(tensors, load_leaves(path, template)):
-        t.copy_(torch.from_numpy(a.T.copy() if kernel else a))
+        a = a.T.copy() if kernel else a
+        for q, x in (zip(t, a) if isinstance(t, list) else [(t, a)]):
+            q.copy_(torch.from_numpy(np.array(x)))
     return dense_state

@@ -462,8 +462,6 @@ def _trainer(**kw):
 
 
 @pytest.mark.parametrize("what,exc,match", [
-    ("host_table", NotImplementedError, "A.9b2"),
-    ("dense_sync_steps", NotImplementedError, "A.9b2"),
     ("dense_sync_hook", NotImplementedError, "A.9b3"),
     ("num_devices", NotImplementedError, "A.9b3"),
     ("device_table", ValueError, "single-chip"),
@@ -473,13 +471,9 @@ def _trainer(**kw):
 ])
 def test_trainer_refusals(what, exc, match):
     """What the mesh trainer still refuses, each naming its ROADMAP item
-    (A.9b2 the host-table mesh engines, A.9b3 multi-host), and the
-    reference's own refusals (a batch the shards cannot split evenly
-    among them)."""
+    (A.9b3 multi-host), and the reference's own refusals (a batch the
+    shards cannot split evenly among them)."""
     build = {
-        "host_table": lambda: _trainer(use_device_table=False),
-        "dense_sync_steps": lambda: _trainer(
-            trainer_conf=TrainerConfig(dense_sync_steps=4)),
         "dense_sync_hook": lambda: _trainer(dense_sync_hook=lambda p: p),
         "num_devices": lambda: _trainer(
             mesh=None, device="cpu",
@@ -496,3 +490,23 @@ def test_trainer_refusals(what, exc, match):
         warnings.simplefilter("ignore")
         with pytest.raises(exc, match=match):
             build()
+
+
+@pytest.mark.parametrize("what", ["host_table", "dense_sync_steps",
+                                  "embedding_table"])
+def test_trainer_builds_the_host_table_mesh_engine(what):
+    """A host table over a mesh (``use_device_table=False``, a host table,
+    or ``dense_sync_steps`` > 0, which the reference trains on the host
+    table) builds ``ShardedTrainStep`` (test_torch_trainer_mesh.py holds
+    it to the reference)."""
+    from paddlebox_tpu_torch.parallel.dp_step import ShardedTrainStep
+    from paddlebox_tpu_torch.ps.table import EmbeddingTable
+    tr = {"host_table": lambda: _trainer(use_device_table=False),
+          "dense_sync_steps": lambda: _trainer(
+              trainer_conf=TrainerConfig(dense_sync_steps=4)),
+          "embedding_table": lambda: _trainer(
+              table=EmbeddingTable(TableConfig(**TABLE)))}[what]()
+    assert isinstance(tr.step, ShardedTrainStep) and not tr.fused
+    assert isinstance(tr.table, EmbeddingTable)
+    assert tr.step.k_sync == (4 if what == "dense_sync_steps" else 0)
+    assert int(tr._step_counter) == 0

@@ -1,19 +1,20 @@
 """The port stands alone: no jax, flax, optax or paddlebox_tpu import, in the
-package, in chip_smoke.py, kernel_versions.py, pass_versions.py or
-guard_cost.py; it serves, trains and runs a trainer pass, from a dataset
-and straight off files, a day/pass loop with its checkpoints and resume,
-and that loop over a tiered table with its host backing and prefetched feed
-pass, and the host-table engine with an MMoE step, a step over an int8
-arena, the disk ladder with the dense lars, lamb and gradient merging and
-the cvm ops, and the multi-process reader over both protocols with the
-error budget and the archive, and a staged device-feed pass with its trace
-and heartbeat, and a guarded pass with a rollback, a profiled pass and a
-postmortem bundle, and a process-scope serving fleet whose spawned child
-builds its own predictor, and the host tier's resolver and LB over a
-scripted host, and the CTR dense ops with a page-view batch and an
-AucRunner, and a trainer pass and a predictor through a 2-shard PS
-service, and the steps and the trainer of a 2-shard CPU mesh, with them
-blocked (in the child too); its entry
+package, in chip_smoke.py, kernel_versions.py, pass_versions.py,
+guard_cost.py or mesh_drift.py; it serves, trains and runs a trainer pass,
+from a dataset and straight off files, a day/pass loop with its checkpoints
+and resume, and that loop over a tiered table with its host backing and
+prefetched feed pass, and the host-table engine with an MMoE step, a step
+over an int8 arena, the disk ladder with the dense lars, lamb and gradient
+merging and the cvm ops, and the multi-process reader over both protocols
+with the error budget and the archive, and a staged device-feed pass with
+its trace and heartbeat, and a guarded pass with a rollback, a profiled
+pass and a postmortem bundle, and a process-scope serving fleet whose
+spawned child builds its own predictor, and the host tier's resolver and LB
+over a scripted host, and the CTR dense ops with a page-view batch and an
+AucRunner, and a trainer pass and a predictor through a 2-shard PS service,
+and the steps and the trainer of a 2-shard CPU mesh, and the host-table
+mesh engines (the 1-shard step, ZeRO, the trainer, expert shards, the
+pipeline, ring attention), with them blocked (in the child too); its entry
 points default to the card and raise without one (the trainer and the
 serving tier too); its kernel modules import without a CUDA toolkit; the
 serving tier's batcher and transport import neither torch nor numpy."""
@@ -36,7 +37,8 @@ def _port_files():
     out = [os.path.join(ROOT, f) for f in ("chip_smoke.py",
                                            "kernel_versions.py",
                                            "pass_versions.py",
-                                           "guard_cost.py")]
+                                           "guard_cost.py",
+                                           "mesh_drift.py")]
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -1351,3 +1353,96 @@ def test_mesh_engine_with_jax_blocked(tmp_path):
     """)
     assert res.returncode == 0, res.stderr
     assert "NO_TORCH" in res.stdout
+
+
+def test_host_table_mesh_with_jax_blocked(tmp_path):
+    """Every module of the host-table mesh engines imports with jax and
+    paddlebox_tpu blocked, and runs on CPU meshes: the 1-shard
+    ``ShardedTrainStep`` over a host table's pull and push, a 2-shard ZeRO
+    step, ``CTRTrainer(mesh=, use_device_table=False)`` with LocalSGD, an
+    MMoE over expert shards, a ``PipelinedTower`` forward and ring
+    attention."""
+    from conftest import make_slot_file
+    from paddlebox_tpu.config import DataFeedConfig, SlotConfig
+    conf = DataFeedConfig(slots=[
+        SlotConfig("label", type="float", is_dense=True, dim=1),
+        SlotConfig("a"), SlotConfig("b")], batch_size=8, thread_num=2)
+    data = make_slot_file(str(tmp_path / "part-0"), conf, 24, seed=6)
+    res = _run(f"""
+        import sys
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        import torch
+        import paddlebox_tpu_torch.parallel as parallel
+        for name in parallel.__all__:
+            getattr(parallel, name)
+        from paddlebox_tpu_torch.config import (DataFeedConfig, SlotConfig,
+                                                TableConfig, TrainerConfig)
+        from paddlebox_tpu_torch.data.dataset import SlotDataset
+        from paddlebox_tpu_torch.models import DeepFM, MMoE
+        from paddlebox_tpu_torch.parallel import (
+            PipelinedTower, ShardedTrainStep, ZeroShardedTrainStep,
+            dense_attention, expert_shardings, make_mesh,
+            ring_self_attention, sequential_reference)
+        from paddlebox_tpu_torch.ps.table import EmbeddingTable
+        from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
+        B, S, D = 4, 2, 7
+        conf = TableConfig(embedx_dim=4)
+        rng = np.random.default_rng(0)
+        keys = np.zeros((1, 64), np.uint64)
+        keys[:, :B * S] = rng.integers(1, 50, size=(1, B * S))
+        segs = np.full((1, 64), B * S, np.int32)
+        segs[:, :B * S] = np.arange(B * S)
+        labels = (rng.uniform(size=(1, B)) < 0.5).astype(np.float32)
+        cvm = np.stack([np.ones_like(labels), labels], -1)
+        rest = (segs, cvm, labels, np.zeros((1, B, 0), np.float32),
+                np.ones((1, B), np.float32))
+        table = EmbeddingTable(conf)
+        st = ShardedTrainStep(DeepFM(S * D, (8,)), conf, TrainerConfig(),
+                              make_mesh(1, device="cpu"), B, S)
+        p, o = st.init()
+        a, ct = st.init_auc_state(), st.init_step_counter()
+        emb = table.pull(keys.reshape(-1)).reshape(1, -1, D)
+        p, o, a, ct, demb, loss, preds = st(p, o, a, ct, emb, *rest)
+        table.push(keys.reshape(-1), demb.reshape(-1, D))
+        assert np.isfinite(float(loss)) and preds.shape == (1, B)
+        z = ZeroShardedTrainStep(DeepFM(S * D, (8,)), conf, TrainerConfig(),
+                                 make_mesh(2, device="cpu"), B // 2, S)
+        c, zo = z.init()
+        zb = [x.reshape(2, B // 2, *x.shape[2:]) for x in rest[1:]]
+        zs = np.full((2, 64), B // 2 * S, np.int32)
+        zs[:, :B // 2 * S] = np.arange(B // 2 * S)
+        z(c, zo, z.init_auc_state(), np.concatenate([emb] * 2), zs, *zb)
+        fc = DataFeedConfig(slots=[
+            SlotConfig("label", type="float", is_dense=True, dim=1),
+            SlotConfig("a"), SlotConfig("b")], batch_size=8, thread_num=2)
+        ds = SlotDataset(fc)
+        ds.set_filelist([{data!r}])
+        ds.load_into_memory()
+        tr = CTRTrainer(DeepFM(2 * 7, (8,)), fc, conf,
+                        TrainerConfig(dense_sync_steps=2),
+                        mesh=make_mesh(2, device="cpu"))
+        assert isinstance(tr.step, ShardedTrainStep)
+        m = tr.train_from_dataset(ds)
+        assert m["ins_num"] == 24 and tr.evaluate(ds)["ins_num"] == 24
+        mm = expert_shardings(MMoE(12, 2, 4, (8,), 4, (4,)),
+                              make_mesh(2, device="cpu", axis_names=("ep",)))
+        x = torch.randn(4, 2, 6)
+        assert mm(x, torch.zeros(4, 0)).shape == (4, 2)
+        pt = PipelinedTower(12, hidden=8, blocks_per_stage=1, microbatches=2,
+                            mesh=make_mesh(2, device="cpu",
+                                           axis_names=("pp",)))
+        torch.testing.assert_close(pt(x, None), sequential_reference(pt, x))
+        q = torch.randn(1, 8, 2, 4)
+        torch.testing.assert_close(
+            ring_self_attention(q, q, q, make_mesh(2, device="cpu",
+                                                   axis_names=("sp",))),
+            dense_attention(q, q, q), rtol=1e-5, atol=1e-6)
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("HOST_MESH", m["auc"])
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "HOST_MESH" in res.stdout

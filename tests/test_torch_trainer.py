@@ -47,6 +47,7 @@ from paddlebox_tpu_torch.models.convert import (deepfm_from_flax_leaves,
                                                 widedeep_from_flax_leaves)
 from paddlebox_tpu_torch.ops import (device_index_kernel, seqpool_kernel,
                                      sparse_push)
+from paddlebox_tpu_torch.parallel.dp_step import ShardedTrainStep
 from paddlebox_tpu_torch.parallel.mesh import make_mesh
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
 from paddlebox_tpu_torch.ps.table import EmbeddingTable
@@ -364,19 +365,19 @@ def _trainer(**kw):
                       TableConfig(**TABLE), TrainerConfig(), **kw)
 
 
-# a mesh over a device table is ported (test_torch_fused_sharded.py holds
-# it to the reference); a mesh over a host table is A.9b2
 REFUSED = {
-    "mesh": (lambda: _trainer(mesh=make_mesh(2, device="cpu"), table=None,
-                              use_device_table=False), "A.9b2"),
     "dense_sync_hook": (lambda: _trainer(dense_sync_hook=lambda p: p),
                         "A.9b3"),
 }
 # options once refused here, which now build (test_torch_deferred_insert.py
 # holds "deferred" to the reference; test_torch_mp_reader.py and
-# test_torch_stream.py train_from_files(workers=2))
+# test_torch_stream.py train_from_files(workers=2); a mesh over a device
+# table test_torch_fused_sharded.py, over a host table
+# test_torch_trainer_mesh.py)
 PORTED = {"deferred": lambda: _trainer(insert_mode="deferred"),
-          "train_from_files": lambda: _trainer()}
+          "train_from_files": lambda: _trainer(),
+          "mesh": lambda: _trainer(mesh=make_mesh(2, device="cpu"),
+                                   table=None, use_device_table=False)}
 REFUSED_FLAGS = {}
 
 
@@ -447,6 +448,10 @@ def test_unported_options_refused(what, monkeypatch, tmp_path):
                            match="parse worker failed on shard 0"):
             tr.train_from_files(["x"], workers=2)
         assert tr._step_count == 0
+        return
+    if what == "mesh":
+        tr = PORTED[what]()
+        assert isinstance(tr.step, ShardedTrainStep) and not tr.fused
         return
     if what in PORTED:
         tr = PORTED[what]()
