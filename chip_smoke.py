@@ -536,6 +536,7 @@ import io
 import dataclasses
 import functools
 import gc
+import itertools
 import json
 import os
 import re
@@ -570,7 +571,8 @@ from paddlebox_tpu_torch.inference.predictor import (CTRPredictor,
                                                      save_inference_model)
 from paddlebox_tpu_torch.inference.server import PredictServer, predict_lines
 from paddlebox_tpu_torch.models import MLP, DeepFM, FeedDNN, MMoE, WideDeep
-from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
+from paddlebox_tpu_torch.models.convert import (deepfm_from_flax_leaves,
+                                                flax_leaves_from_model)
 from paddlebox_tpu_torch.ops import _build, ctr_ops
 from paddlebox_tpu_torch.ops.ctr_ops import build_rank_offset
 from paddlebox_tpu_torch.ops import cvm as ops_cvm
@@ -595,6 +597,10 @@ from paddlebox_tpu_torch.ops.sparse_push import (PUSH_VARIANTS,
                                                  segment_merge_plain,
                                                  sparse_push_cuda,
                                                  sparse_push_plain)
+from paddlebox_tpu_torch.parallel import fleet
+from paddlebox_tpu_torch.parallel.coordinator import (Coordinator,
+                                                      dense_mean_hook,
+                                                      local_endpoints)
 from paddlebox_tpu_torch.parallel.dp_step import (ShardedTrainStep,
                                                   split_batch)
 from paddlebox_tpu_torch.parallel.fused_dp_step import FusedShardedTrainStep
@@ -619,6 +625,7 @@ from paddlebox_tpu_torch.ps.device_index import (DeviceIndexMirror,
                                                  host_hash, key_halves,
                                                  radix_plan_plain)
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
+from paddlebox_tpu_torch.ps.distributed import DistributedTable
 from paddlebox_tpu_torch.ps.native import NativeIndex
 from paddlebox_tpu_torch.ps.quant_table import QuantServingTable
 from paddlebox_tpu_torch.ps.serving_table import ServingTable
@@ -629,7 +636,8 @@ from paddlebox_tpu_torch.ps.service import RemoteTable, ShardService
 from paddlebox_tpu_torch.ps.ssd_tier import DiskTier
 from paddlebox_tpu_torch.ps.table import (EmbeddingTable, key_init_uniform,
                                          state_dim)
-from paddlebox_tpu_torch.ps.tiered_table import TieredDeviceTable
+from paddlebox_tpu_torch.ps.tiered_table import (TieredDeviceTable,
+                                                 TieredShardedDeviceTable)
 from paddlebox_tpu_torch.metrics import AucCalculator, MetricRegistry
 from paddlebox_tpu_torch.metrics.auc import reset_auc_state_
 from paddlebox_tpu_torch.metrics.auc_runner import AucRunner
@@ -1604,15 +1612,15 @@ def phase_kernel_index(rng, train_keys: np.ndarray, radix_rng):
 
 # -- phase 3 -----------------------------------------------------------------
 
-def random_deepfm(rng, in_dim: int):
-    widths = [in_dim, *HIDDEN, 1]
+def random_deepfm(rng, in_dim: int, hidden=HIDDEN):
+    widths = [in_dim, *hidden, 1]
     leaves = []
     for a, b in zip(widths[:-1], widths[1:]):
         leaves.append((rng.normal(size=b) * 0.01).astype(np.float32))
         leaves.append((rng.normal(size=(a, b)) / np.sqrt(a)).astype(
             np.float32))
     leaves.append(np.float32(rng.normal() * 0.1).reshape(()))
-    return deepfm_from_flax_leaves(leaves, HIDDEN)
+    return deepfm_from_flax_leaves(leaves, hidden)
 
 
 def make_snapshot(rng, file_keys: np.ndarray, rows: int,
@@ -8134,6 +8142,614 @@ def phase_mesh_host(rng, files, device: str = "cuda") -> dict:
     return out
 
 
+# -- phase 4x: multi-host training ---------------------------------------------
+
+MX_WORLD = 2                 # ranks, each a process on the one card
+MX_CHECK_BATCHES = 4         # (a): a rank's steps held against the CPU
+MX_CAPACITY = 1 << 21        # arena rows a shard (a rank's pass: ~1.31M keys)
+MX_SGD = dict(dense_optimizer="sgd", dense_learning_rate=0.05)
+MX_PASSES = 2                # (a): the main path's passes of each engine
+MX_B_STEPS = 16              # (b): host-table steps a rank
+MX_BEAT_S = 0.25             # (c): the heartbeat's interval
+MX_ABORT_S = 2.0             # (c): its abort timeout
+MX_KILL_AFTER = 4            # (c): rank 1's steps before the kill
+MX_ABORT_EXIT = 17           # (c): rank 0's exit code after the abort
+MX_ENGINES = ("device_prep", "host_plan")
+
+
+class SendMeter:
+    """The bytes a coordinator sends to its peers (each frame's header,
+    tag and payload), added up under the bucket set at the time."""
+
+    def __init__(self, coord):
+        self.bucket = "other"
+        self.bytes = {}
+        send = coord.send
+
+        def metered(to, tag, payload=b"", connect_timeout=None):
+            if to != coord.rank:
+                self.bytes[self.bucket] = self.bytes.get(self.bucket, 0) + \
+                    12 + len(tag.encode()) + len(payload)
+            return send(to, tag, payload, connect_timeout)
+
+        coord.send = metered
+
+
+class FirstBatches:
+    """A dataset's first ``n`` batches, for ``train_from_dataset``."""
+
+    def __init__(self, ds, n: int):
+        self.ds, self.n = ds, n
+
+    def batches(self):
+        return itertools.islice(self.ds.batches(), self.n)
+
+    def keys(self) -> np.ndarray:
+        return np.concatenate([b.keys for b in self.batches()])
+
+
+def mx_dataset(files, rank: int, world: int, batch: int,
+               slots: int) -> SlotDataset:
+    """Rank ``rank``'s shard of ``files`` (SlotDataset's split by file) in
+    batches of ``batch`` rows of ``slots`` slots."""
+    ds = SlotDataset(slot_feed_conf(slots, batch),
+                     buckets=batch_bucket_spec(),
+                     shard_id=rank, num_shards=world)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    return ds
+
+
+def mx_keys(ds) -> np.ndarray:
+    return np.concatenate([r.uint64_feas for r in ds.records])
+
+
+def mx_trainer(coord, leaves, shape, tconf, device, device_prep: bool,
+               capacity: int, hook=None):
+    """A rank's trainer: ``CTRTrainer(mesh=make_mesh(1), table=
+    TieredShardedDeviceTable(DistributedTable))`` (writeback "delta"),
+    the dense mean through the coordinator after each sync step.
+    ``shape``: (batch, slots, hidden)."""
+    batch, slots, hidden = shape
+    conf, _, _ = train_confs()
+    mesh = make_mesh(1, device=device)
+    backing = DistributedTable(conf, coord, local_table=EmbeddingTable(
+        conf, backend="native"))
+    table = TieredShardedDeviceTable(conf, mesh, backing=backing,
+                                     capacity_per_shard=capacity,
+                                     writeback_mode="delta",
+                                     backend="native")
+    return CTRTrainer(deepfm_from_flax_leaves(leaves, hidden),
+                      slot_feed_conf(slots, batch), conf, tconf, table=table,
+                      mesh=mesh, device_prep=device_prep,
+                      dense_sync_hook=hook or dense_mean_hook(coord))
+
+
+def mx_host_trainer(coord, leaves, shape, device):
+    """(b)'s rank trainer: ``CTRTrainer(table=DistributedTable,
+    use_device_table=False)``, the host-table engine (dense SGD)."""
+    batch, slots, hidden = shape
+    conf, _, _ = train_confs()
+    return CTRTrainer(deepfm_from_flax_leaves(leaves, hidden),
+                      slot_feed_conf(slots, batch), conf,
+                      TrainerConfig(**MX_SGD),
+                      table=DistributedTable(conf, coord, local_table=(
+                          EmbeddingTable(conf, backend="native"))),
+                      use_device_table=False, device=device)
+
+
+def mx_rows(local: EmbeddingTable) -> dict:
+    """A rank's shard of the PS by key."""
+    snap = local.snapshot(reset_dirty=False)
+    order = np.argsort(snap["keys"])
+    return {k: snap[k][order] for k in ("keys", "values", "state")}
+
+
+def mx_check_pass(tr, sub) -> dict:
+    """One checked pass: stage ``sub``'s keys, train it batch by batch
+    (the per-batch mesh path: the hook after every step), write back."""
+    losses = []
+    tr.table.begin_feed_pass(sub.keys())
+    m = tr.train_from_dataset(sub, fetch_handler=lambda i, loss, p:
+                              losses.append(float(loss)))
+    tr.table.end_pass()
+    out = mx_rows(tr.table.backing.local)
+    out.update(losses=np.asarray(losses), auc=np.float64(m["auc"]),
+               ins_num=np.float64(m["ins_num"]))
+    for i, leaf in enumerate(flax_leaves_from_model(tr.params)):
+        out[f"dense{i}"] = leaf
+    return out
+
+
+def mx_host_pass(tr, ds, n: int, on_step=None) -> dict:
+    """``n`` host-table steps of a rank over ``ds``'s first batches."""
+    losses = []
+
+    def fetch(i, loss, p):
+        losses.append(float(loss))
+        if on_step is not None:
+            on_step(len(losses))
+
+    m = tr.train_from_dataset(FirstBatches(ds, n), fetch_handler=fetch)
+    out = mx_rows(tr.table.local)
+    out.update(losses=np.asarray(losses), ins_num=np.float64(m["ins_num"]))
+    return out
+
+
+def mx_save(out_dir: str, name: str, arrays: dict) -> None:
+    """``arrays`` as ``<name>.npz``, renamed into place once written (the
+    parent polls for it)."""
+    path = os.path.join(out_dir, f"{name}.npz")
+    with open(path + ".tmp", "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(path + ".tmp", path)
+
+
+def mx_json(out_dir: str, name: str, obj) -> None:
+    path = os.path.join(out_dir, f"{name}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def mx_read(out_dir: str, name: str, timeout: float, procs=()):
+    """A rank's result file, waiting up to ``timeout`` seconds; fails when
+    a rank process ends with an error first."""
+    path = os.path.join(out_dir, name)
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        for p in procs:
+            require(p.poll() in (None, 0), f"multi-host (4x): rank process "
+                    f"{p.args[-1]} exited {p.poll()} before {name}")
+        require(time.monotonic() < deadline,
+                f"multi-host (4x): no {name} after {timeout} s")
+        time.sleep(0.05)
+    if name.endswith(".json"):
+        with open(path) as f:
+            return json.load(f)
+    with np.load(path) as z:
+        return dict(z)
+
+
+def mx_launches(fn, wrappers) -> Tuple[object, dict]:
+    """``fn()`` with the wrappers' counts set to 0 just before it and read
+    just after."""
+    for w in wrappers:
+        w.launches = 0
+    out = fn()
+    return out, {w.__name__: w.launches for w in wrappers}
+
+
+def multihost_rank(spec_path: str) -> int:
+    """One rank of phase 4x, a process of its own (``chip_smoke.py
+    --mx-rank SPEC``): its role from ``PBOX_TRAINER_ID`` and
+    ``PBOX_TRAINER_ENDPOINTS``, gloo beside the coordinator; (a) the check
+    and the main path, (b) the host-table engine, (c) the heartbeat and,
+    for rank 0, the abort. Writes its results into the spec's ``out``
+    directory as it goes."""
+    import torch.distributed as dist
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev, out_dir, files = spec["device"], spec["out"], spec["files"]
+    B, world = spec["batch"], spec["world"]
+    shape = (B, spec["slots"], tuple(spec["hidden"]))
+    # NCCL puts no two ranks of one communicator on one device: gloo
+    role = fleet.init(init_torch_distributed=True, backend="gloo",
+                      device=dev, dist_endpoint=spec["dist_endpoint"])
+    r, coord = role.rank, role.coordinator
+    one = torch.ones(1) * (r + 1)
+    dist.all_reduce(one)
+    require(float(one) == world * (world + 1) / 2, "gloo all_reduce")
+    torch.zeros(1, device=dev).sum().item()      # the card's context
+    info = {"ready_t": time.time(), "pid": os.getpid(),
+            "gloo": role.dist_backend}
+    with np.load(spec["leaves"]) as z:
+        leaves = [z[f"l{i}"] for i in range(len(z.files))]
+    ds = mx_dataset(files, r, world, B, spec["slots"])
+    info["batches"] = n = ds.num_instances() // B
+    meter = SendMeter(coord)
+    wrappers = MESH_WRAPPERS
+    sync = (torch.cuda.synchronize if str(dev).startswith("cuda")
+            else (lambda: None))
+
+    # (a) the check: MX_CHECK_BATCHES steps under dense SGD, each engine
+    for engine in MX_ENGINES:
+        tr = mx_trainer(coord, leaves, shape, TrainerConfig(**MX_SGD), dev,
+                        engine == "device_prep", spec["capacity"])
+        mx_save(out_dir, f"check_{engine}_rank{r}", mx_check_pass(
+            tr, FirstBatches(ds, spec["check_batches"])))
+        del tr
+    # (a) the main path: the flagship's adam, the dense mean every step,
+    # MX_PASSES passes over the rank's file, each engine; in turns (rank
+    # pass, single-process pass twice, rank pass) with the one-process
+    # device-sharded engine over both files on a 2-shard mesh (rank 0)
+    _, adam, _ = train_confs()
+    adam = dataclasses.replace(adam, dense_sync_steps=1)
+    union = None
+    main = {}
+    for engine in MX_ENGINES:
+        dp = engine == "device_prep"
+        dense_s = []
+        hook = dense_mean_hook(coord)
+
+        def timed_hook(params, hook=hook, dense_s=dense_s):
+            sync()
+            meter.bucket = "dense"
+            t0 = time.perf_counter()
+            out = hook(params)
+            dense_s.append(time.perf_counter() - t0)
+            meter.bucket = "other"
+            return out
+
+        tr = mx_trainer(coord, leaves, shape, adam, dev, dp,
+                        spec["capacity"], hook=timed_hook)
+        keys = mx_keys(ds)
+        passes, launches, singles = [], {}, []
+        for p in range(MX_PASSES):
+            coord.barrier(f"mx-{engine}-{p}")
+            meter.bytes.clear()
+            st = {}
+
+            def one_pass(st=st):
+                meter.bucket = "stage"
+                t0 = time.perf_counter()
+                st["rows"] = tr.table.begin_feed_pass(keys)
+                st["stage_s"] = time.perf_counter() - t0
+                meter.bucket = "other"
+                sync()
+                t0 = time.perf_counter()
+                m = tr.train_from_dataset(ds)
+                sync()
+                st["train_s"] = time.perf_counter() - t0
+                st["auc"] = m["auc"]
+                meter.bucket = "writeback"
+                t0 = time.perf_counter()
+                st["written"] = tr.table.writeback()
+                st["writeback_s"] = time.perf_counter() - t0
+                meter.bucket = "other"
+                tr.table.end_pass()
+
+            _, counts = mx_launches(one_pass, wrappers)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            st["ms_per_step"] = st["train_s"] / n * 1e3
+            st["bytes"] = dict(meter.bytes)
+            passes.append(st)
+            if p == 0:
+                # the comparator's two turns, rank 0's process alone on
+                # the card while rank 1 waits
+                if r == 0:
+                    if union is None:
+                        union = mx_dataset(files, 0, 1, B * world,
+                                           spec["slots"])
+                    for _ in range(2):
+                        singles.append(mx_single_pass(
+                            union, leaves, (B * world,) + shape[1:], dev,
+                            dp, spec["capacity"], sync))
+                    coord.send(1, f"mx-single-{engine}")
+                else:
+                    coord.recv(0, f"mx-single-{engine}", timeout=900)
+        want = mesh_expect(MX_PASSES * n, 1, dp)
+        want = {k: want.get(k, 0) for k in launches}
+        require(launches == want or not str(dev).startswith("cuda"),
+                f"multi-host (4x) (a) rank {r} {engine}: launches "
+                f"{launches}, expected {want}")
+        main[engine] = {"passes": passes, "launches": launches,
+                        "single": singles,
+                        "dense_ms": [x * 1e3 for x in dense_s]}
+        del tr
+    info["main"] = main
+    mx_json(out_dir, f"main_rank{r}", info)
+    del union
+
+    # (b) the host-table engine over the DistributedTable, no dense sync
+    tr = mx_host_trainer(coord, leaves, shape, dev)
+    bout, blaunch = mx_launches(lambda: mx_host_pass(tr, ds, spec["b_steps"]),
+                                SEQPOOL_WRAPPERS)
+    bout["launches"] = np.array([blaunch[w.__name__]
+                                 for w in SEQPOOL_WRAPPERS])
+    mx_save(out_dir, f"b_rank{r}", bout)
+
+    # (c) the heartbeat; rank 1 is killed after MX_KILL_AFTER steps
+    coord.barrier("mx-c")
+    coord.start_heartbeat(interval=MX_BEAT_S, abort_timeout=MX_ABORT_S)
+
+    def marker(i):
+        if r == 1 and i == MX_KILL_AFTER:
+            mx_json(out_dir, "kill_me", {"t": time.time()})
+
+    try:
+        mx_host_pass(tr, ds, n, on_step=marker)
+    except RuntimeError as e:
+        mx_json(out_dir, f"abort_rank{r}", {
+            "raised_t": time.time(), "msg": str(e),
+            "aborted_dead": coord.aborted_dead})
+        sys.stdout.flush()
+        os._exit(MX_ABORT_EXIT)
+    mx_json(out_dir, f"abort_rank{r}", {"raised_t": None})
+    fleet.stop()
+    return 0
+
+
+def mx_single_pass(ds, leaves, shape, dev, dp: bool, capacity: int,
+                   sync) -> dict:
+    """The comparator's pass: the one-process device-sharded engine (a
+    ``TieredShardedDeviceTable`` over a host table, 2 shards on ``dev``)
+    over both files at the global batch, the flagship's adam."""
+    batch, slots, hidden = shape
+    conf, tconf, _ = train_confs()
+    mesh = make_mesh(MX_WORLD, device=dev)
+    table = TieredShardedDeviceTable(conf, mesh, capacity_per_shard=capacity,
+                                     backend="native")
+    tr = CTRTrainer(deepfm_from_flax_leaves(leaves, hidden),
+                    slot_feed_conf(slots, batch), conf, tconf,
+                    table=table, mesh=mesh, device_prep=dp)
+    t0 = time.perf_counter()
+    table.begin_feed_pass(mx_keys(ds))
+    stage_s = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    tr.train_from_dataset(ds)
+    sync()
+    train_s = time.perf_counter() - t0
+    table.end_pass()
+    steps = ds.num_instances() // batch
+    return {"stage_s": stage_s, "train_s": train_s,
+            "ms_per_step": train_s / steps * 1e3}
+
+
+def mx_twin_check(spec: dict, leaves):
+    """The ranks' CPU twins (threads in this process, plain versions):
+    (a)'s check of each engine and (b)'s host-table steps."""
+    shape = (spec["batch"], spec["slots"], tuple(spec["hidden"]))
+    dss = [mx_dataset(spec["files"], r, MX_WORLD, spec["batch"],
+                      spec["slots"]) for r in range(MX_WORLD)]
+    out = {}
+    for engine in MX_ENGINES:
+        eps = local_endpoints(MX_WORLD)
+        coords = [Coordinator(r, eps) for r in range(MX_WORLD)]
+        out[engine] = mx_threads(coords, lambda r, c: mx_check_pass(
+            mx_trainer(c, leaves, shape, TrainerConfig(**MX_SGD), "cpu",
+                       engine == "device_prep", spec["capacity"]),
+            FirstBatches(dss[r], spec["check_batches"])))
+    eps = local_endpoints(MX_WORLD)
+    coords = [Coordinator(r, eps) for r in range(MX_WORLD)]
+    out["b"] = mx_threads(coords, lambda r, c: mx_host_pass(
+        mx_host_trainer(c, leaves, shape, "cpu"), dss[r], spec["b_steps"]))
+    return out
+
+
+def mx_threads(coords, fn):
+    """``fn(rank, coord)`` on a thread a rank; the first failure
+    raised."""
+    res, errs = [None] * len(coords), [None] * len(coords)
+
+    def run(r):
+        try:
+            res[r] = fn(r, coords[r])
+        except BaseException as e:  # raised below, on the caller's thread
+            errs[r] = e
+
+    ts = [threading.Thread(target=run, args=(r,)) for r in range(len(coords))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    for c in coords:
+        c.close()
+    for e in errs:
+        if e is not None:
+            raise e
+    return res
+
+
+def mx_compare(tag: str, got: dict, want: dict, dense: bool) -> float:
+    """A rank's card result against its CPU twin: the losses within
+    TRAIN_RTOL; its shard by key, show/clk exact and the rest within
+    TRAIN_ATOL; the AUC and the dense params within TRAIN_ATOL. Returns
+    the largest difference."""
+    require(np.allclose(got["losses"], want["losses"], rtol=TRAIN_RTOL,
+                        atol=0), f"{tag}: losses {got['losses'][:4]} vs "
+            f"{want['losses'][:4]}")
+    require(float(got["ins_num"]) == float(want["ins_num"]),
+            f"{tag}: ins_num")
+    require(np.array_equal(got["keys"], want["keys"]),
+            f"{tag}: the shard holds other keys")
+    require(np.array_equal(got["values"][:, :2], want["values"][:, :2]),
+            f"{tag}: show/clk differ")
+    err = max(float(np.abs(got["values"] - want["values"]).max()),
+              float(np.abs(got["state"] - want["state"]).max()))
+    if dense:
+        require(abs(float(got["auc"]) - float(want["auc"])) <= TRAIN_ATOL,
+                f"{tag}: auc {got['auc']} vs {want['auc']}")
+        i = 0
+        while f"dense{i}" in got:
+            err = max(err, float(np.abs(got[f"dense{i}"] -
+                                        want[f"dense{i}"]).max()))
+            i += 1
+    require(err <= TRAIN_ATOL, f"{tag}: rows or dense differ by {err}")
+    return err
+
+
+def phase_multihost(rng, files, device: str = "cuda",
+                    batch: int = TB // MX_WORLD, slots: int = TS,
+                    hidden=HIDDEN, capacity: int = MX_CAPACITY) -> dict:
+    """(4x) Multi-host training, the reference's flagship deployment: two
+    rank processes on the one card (``device``), each with its role from
+    ``PBOX_TRAINER_ID``/``PBOX_TRAINER_ENDPOINTS`` (``fleet.init(
+    init_torch_distributed=True)``, gloo: NCCL puts no two ranks of one
+    communicator on one device), a ``DistributedTable`` over a native
+    ``EmbeddingTable`` (its half of the keys), a ``TieredShardedDeviceTable``
+    (writeback "delta") on a one-shard mesh, and ``CTRTrainer(mesh=,
+    table=, dense_sync_hook=)``, the dense mean through
+    ``Coordinator.allreduce_sum``; the flagship DeepFM, 24 slots, B=2048
+    global (``batch`` a rank), each rank one of the trainer cell's
+    ``files`` (``SlotDataset(shard_id=rank, num_shards=2)``). (a) both
+    engines: a check of ``MX_CHECK_BATCHES`` steps under dense SGD against
+    the same two ranks on the CPU (threads, plain versions): losses,
+    metrics, each rank's shard by key, the dense params; then the main
+    path, the flagship's adam, ``MX_PASSES`` passes, launches counted in
+    each rank, in turns with the one-process device-sharded engine over
+    both files on a 2-shard mesh (rank 0's process); (b) the host-table
+    engine over the ``DistributedTable`` (the reference's example 05),
+    ``MX_B_STEPS`` steps against the CPU twin; (c) rank 1 SIGKILLed mid
+    pass: rank 0's blocked collective raises within the heartbeat's abort
+    timeout, naming rank 1, and rank 0 exits ``MX_ABORT_EXIT``. ``device``
+    "cpu" rehearses the control flow at small shapes (``batch``,
+    ``slots``, ``hidden``, ``capacity``)."""
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(WORK, "mx")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    conf, _, _ = train_confs()
+    leaves = flax_leaves_from_model(random_deepfm(rng, slots * conf.pull_dim,
+                                                  hidden))
+    leaves_path = os.path.join(out_dir, "leaves.npz")
+    np.savez(leaves_path, **{f"l{i}": x for i, x in enumerate(leaves)})
+    eps = local_endpoints(MX_WORLD + 1)
+    spec = {"device": device, "out": out_dir, "files": list(files),
+            "batch": batch, "world": MX_WORLD, "leaves": leaves_path,
+            "dist_endpoint": eps[-1], "capacity": capacity,
+            "slots": slots, "hidden": list(hidden),
+            "check_batches": MX_CHECK_BATCHES, "b_steps": MX_B_STEPS}
+    spec_path = os.path.join(out_dir, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    procs, logs = [], []
+    t_spawn = time.time()
+    for r in range(MX_WORLD):
+        env = dict(os.environ, PBOX_TRAINER_ID=str(r),
+                   PBOX_TRAINER_ENDPOINTS=",".join(eps[:MX_WORLD]))
+        log = open(os.path.join(out_dir, f"rank{r}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--mx-rank", spec_path], env=env, cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT))
+        BACKGROUND.append(procs[-1])
+    try:
+        return mx_parent(procs, out_dir, spec, leaves, t_spawn, t_phase)
+    except BaseException:
+        for r, p in enumerate(procs):
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                print(f"multi-host (4x): rank {r}'s log (tail):\n"
+                      f"{f.read()[-4000:]}", file=sys.stderr)
+        raise
+    finally:
+        for log in logs:
+            log.close()
+
+
+def mx_parent(procs, out_dir, spec, leaves, t_spawn, t_phase) -> dict:
+    """Phase 4x's side in this process: the CPU twins, the checks against
+    the ranks' results, the report, the kill of (c)."""
+    tag = "multi-host (4x)"
+    device = spec["device"]
+    card = card_line() if device != "cpu" else "cpu"
+    twin = mx_twin_check(spec, leaves)
+    out = {"launches": {}}
+    errs = {}
+    for engine in MX_ENGINES:
+        for r in range(MX_WORLD):
+            got = mx_read(out_dir, f"check_{engine}_rank{r}.npz", 600, procs)
+            errs[f"{engine}_rank{r}"] = mx_compare(
+                f"{tag} (a) {engine} rank {r}: card vs CPU", got,
+                twin[engine][r], dense=True)
+    print(f"{tag} (a) check: {spec['check_batches']} steps a rank under "
+          f"dense SGD (lr {MX_SGD['dense_learning_rate']}), each engine, "
+          f"both ranks against their CPU twins (threads, plain versions): "
+          f"losses within rtol {TRAIN_RTOL}, metrics, shard rows by key "
+          f"(show/clk exact) and dense params within {TRAIN_ATOL}: max abs "
+          f"err {errs} [{card}]")
+    mains = [mx_read(out_dir, f"main_rank{r}.json", 900, procs)
+             for r in range(MX_WORLD)]
+    out["spawn_s"] = [m["ready_t"] - t_spawn for m in mains]
+    ms = {}
+    for engine in MX_ENGINES:
+        for r, m in enumerate(mains):
+            res = m["main"][engine]
+            out["launches"][f"multihost_rank{r}_{engine}"] = res["launches"]
+            ms[f"rank{r}_{engine}"] = [p["ms_per_step"]
+                                       for p in res["passes"]]
+        ms[f"single_{engine}"] = [s["ms_per_step"]
+                                  for s in mains[0]["main"][engine]["single"]]
+    out["ms_per_step"] = ms
+    n = mains[0]["batches"]
+    B = spec["batch"]
+    for engine in MX_ENGINES:
+        r0 = mains[0]["main"][engine]
+        single = r0["single"]
+        print(f"timing {tag} (a) {engine}: in turns (rank pass, one-process "
+              f"pass x2, rank pass), ms/step ranks "
+              f"{[round(x, 3) for x in ms[f'rank0_{engine}']]} (rank 0) "
+              f"{[round(x, 3) for x in ms[f'rank1_{engine}']]} (rank 1), "
+              f"one process (2 shards on {device}) "
+              f"{[round(x, 3) for x in ms[f'single_{engine}']]}; examples/s "
+              f"ranks {[round(B * MX_WORLD / x * 1e3, 1) for x in ms[f'rank0_{engine}']]}"
+              f", one process "
+              f"{[round(B * MX_WORLD / x * 1e3, 1) for x in ms[f'single_{engine}']]}"
+              f" (B={B * MX_WORLD} global, {n} steps a pass); pass boundary "
+              f"s: begin_feed_pass "
+              f"{[round(p['stage_s'], 3) for p in r0['passes']]}, writeback "
+              f"{[round(p['writeback_s'], 3) for p in r0['passes']]} "
+              f"({[p['written'] for p in r0['passes']]} rows), one process "
+              f"begin_feed_pass {[round(s['stage_s'], 3) for s in single]}; "
+              f"bytes each rank sends a pass "
+              f"{[[p['bytes'] for p in m['main'][engine]['passes']] for m in mains]}"
+              f"; dense sync ms a step median "
+              f"{float(np.median(r0['dense_ms'])):.3f} (p90 "
+              f"{float(np.percentile(r0['dense_ms'], 90)):.3f}), launches "
+              f"each rank {[m['main'][engine]['launches'] for m in mains]} "
+              f"[{card}]")
+    out["dense_ms"] = {e: float(np.median(mains[0]["main"][e]["dense_ms"]))
+                       for e in MX_ENGINES}
+    print(f"{tag}: a rank's spawn to ready (the interpreter, imports, "
+          f"fleet.init with {mains[0]['gloo']}, the card's context) s "
+          f"{[round(x, 3) for x in out['spawn_s']]} [{card}]")
+
+    # (b) the host-table engine against its twin
+    b_err = []
+    for r in range(MX_WORLD):
+        got = mx_read(out_dir, f"b_rank{r}.npz", 600, procs)
+        want_n = spec["b_steps"] if device != "cpu" else 0
+        require(list(got["launches"]) == [want_n, want_n],
+                f"{tag} (b) rank {r}: seqpool launches {got['launches']}")
+        out["launches"][f"multihost_b_rank{r}"] = dict(zip(
+            [w.__name__ for w in SEQPOOL_WRAPPERS],
+            [int(x) for x in got["launches"]]))
+        b_err.append(mx_compare(f"{tag} (b) rank {r}", got, twin["b"][r],
+                                dense=False))
+    print(f"{tag} (b) CTRTrainer(table=DistributedTable, "
+          f"use_device_table=False): {spec['b_steps']} steps a rank, losses "
+          f"and each rank's shard by key against the CPU twin, max abs err "
+          f"{b_err}")
+
+    # (c) rank 1 killed mid pass
+    mx_read(out_dir, "kill_me.json", 300, procs)
+    procs[1].kill()
+    t_kill = time.time()
+    procs[1].wait()
+    rc = procs[0].wait(timeout=60)
+    ab = mx_read(out_dir, "abort_rank0.json", 5)
+    require(rc == MX_ABORT_EXIT, f"{tag} (c): rank 0 exited {rc}")
+    require(ab["aborted_dead"] == [1] and "dead ranks: [1]" in ab["msg"],
+            f"{tag} (c): {ab}")
+    lat = ab["raised_t"] - t_kill
+    require(lat <= MX_ABORT_S + 3 * MX_BEAT_S,
+            f"{tag} (c): rank 0 raised {lat:.3f} s after the kill")
+    out["abort_s"] = lat
+    print(f"{tag} (c): rank 1 SIGKILLed after {MX_KILL_AFTER} steps of a "
+          f"pass; rank 0's blocked collective raised {lat:.3f} s later "
+          f"(abort timeout {MX_ABORT_S} s, beat {MX_BEAT_S} s): "
+          f"{ab['msg']!r}; rank 0 exited {rc} [{card}]")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{tag}: {out['phase_s']:.1f} s")
+    return out
+
+
 # -- phase 4f: the host-table engine and the models ---------------------------
 
 HE_BATCHES = 16              # batches of each path of the phase
@@ -9705,7 +10321,12 @@ def time_phases() -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mx-rank", metavar="SPEC",
+                    help="run one rank of phase 4x from its spec file "
+                         "(the phase starts these processes itself)")
     args = ap.parse_args()
+    if args.mx_rank:
+        return multihost_rank(args.mx_rank)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -9773,6 +10394,8 @@ def main() -> int:
         mesh = phase_mesh(np.random.default_rng([args.seed, 83]),
                           trainer["files"])
         mesh_host = phase_mesh_host(np.random.default_rng([args.seed, 89]),
+                                    trainer["files"])
+        multihost = phase_multihost(np.random.default_rng([args.seed, 97]),
                                     trainer["files"])
         timing = phase_timing(shapes)
         grad_timing = time_grad(grad_inputs)
@@ -9887,7 +10510,11 @@ def main() -> int:
           f", 4 shards "
           f"{ {k: [round(x, 3) for x in v] for k, v in mesh_host['bcd_ms_per_step'].items()} }"
           f", ZeRO bytes a shard {mesh_host['zero_bytes']}, "
-          f"{mesh_host['phase_s']:.1f} s")
+          f"{mesh_host['phase_s']:.1f} s; multi-host (4x) ms/step "
+          f"{ {k: [round(x, 3) for x in v] for k, v in multihost['ms_per_step'].items()} }"
+          f", dense sync ms a step {multihost['dense_ms']}, rank spawn s "
+          f"{[round(x, 3) for x in multihost['spawn_s']]}, abort "
+          f"{multihost['abort_s']:.3f} s, {multihost['phase_s']:.1f} s")
     print(f"chip_smoke: wall s by phase {PHASE_S} [{card_line()}]")
     print(smi.stdout.strip())
     host, dev = train["launches"], train_dev["launches"]
@@ -9922,7 +10549,8 @@ def main() -> int:
                                          **ctr["launches"],
                                          **ps["launches"],
                                          **mesh["launches"],
-                                         **mesh_host["launches"]}.items()}}
+                                         **mesh_host["launches"],
+                                         **multihost["launches"]}.items()}}
         return {"launches": sum(paths.values()), "launches_by_path": paths,
                 "counted_by": wrapper.__name__}
 
@@ -9978,8 +10606,9 @@ def main() -> int:
     ]
     # the mesh step's requester merge (phase 4v): launches on its paths;
     # its numbers at (a)'s shape, (b)'s beside them
-    mesh_paths = {path: counts[segment_merge_cuda.__name__]
-                  for path, counts in mesh["launches"].items()}
+    mesh_paths = {path: counts.get(segment_merge_cuda.__name__, 0)
+                  for path, counts in {**mesh["launches"],
+                                       **multihost["launches"]}.items()}
     merge_a, merge_b = mesh["merge"]["training"], mesh["merge"]["four_shards"]
     rows.append({
         "name": MERGE, "route": "cuda",

@@ -8,14 +8,13 @@ file order; a pass can be preloaded in the background
 trains. Records are shuffled in memory with the reference's seed, and
 batched by ``BatchAssembler``. Also: merge by instance id
 (``set_merge_by_insid``, ``global_merge_by_insid``), the in-process
-global shuffle (``shuffle_partition``, ``global_shuffle``),
-``slots_shuffle`` / ``unshuffle``, the archive spill (``spill_to_disk``
-/ ``load_from_archive``) and ``InputTableDataset``'s string slots. A
-load sets the registry's ``ingest.records_in_memory`` gauge.
-
-Not ported, and refused: the cross-host shuffle and merge over a
-coordinator (``coordinator_global_shuffle``,
-``coordinator_global_merge_by_insid``; ROADMAP A.9).
+global shuffle (``shuffle_partition``, ``global_shuffle``), its
+cross-host form and the cross-host merge over a coordinator
+(``coordinator_global_shuffle``, ``coordinator_global_merge_by_insid``:
+one ``alltoall`` of archive blobs a call), ``slots_shuffle`` /
+``unshuffle``, the archive spill (``spill_to_disk`` /
+``load_from_archive``) and ``InputTableDataset``'s string slots. A load
+sets the registry's ``ingest.records_in_memory`` gauge.
 """
 
 from __future__ import annotations
@@ -364,22 +363,61 @@ def global_shuffle(datasets: Sequence["SlotDataset"]) -> None:
         ds.receive_shuffled(merged)
 
 
+def _exchange_buckets(parts: List[List[SlotRecord]], coord, name: str,
+                      timeout: Optional[float]) -> List[SlotRecord]:
+    """One ``Coordinator.alltoall`` of the rank's record buckets
+    (``parts[j]`` goes to rank ``j``), each an archive blob
+    (``data/archive.py`` ``records_to_bytes``); returns what came, in
+    rank order. The rank's own bucket never serializes (it joins as it
+    is); the sent records go back to the pool, the received ones are
+    decoded from it."""
+    from paddlebox_tpu_torch.data.archive import (records_from_bytes,
+                                                  records_to_bytes)
+    blobs = [b"" if j == coord.rank else records_to_bytes(p)
+             for j, p in enumerate(parts)]
+    recv = coord.alltoall(blobs, name=name, timeout=timeout)
+    out: List[SlotRecord] = []
+    for j, blob in enumerate(recv):
+        if j == coord.rank:
+            out.extend(parts[j])
+        else:
+            out.extend(records_from_bytes(blob, pool=GLOBAL_POOL))
+    GLOBAL_POOL.put([r for j, p in enumerate(parts)
+                     if j != coord.rank for r in p])
+    return out
+
+
 def coordinator_global_shuffle(ds: "SlotDataset", coord,
                                timeout: Optional[float] = 600.0) -> None:
-    """The cross-host shuffle over a coordinator: not ported."""
-    raise NotImplementedError(
-        "coordinator_global_shuffle (the cross-host shuffle over the "
-        "coordinator) is not ported yet (ROADMAP A.9)")
+    """The cross-host shuffle: each rank holds one shard of the dataset,
+    partitions its records by hash into ``coord.world`` buckets
+    (``shuffle_partition``) and keeps what the ranks' one ``alltoall``
+    brings it, so instances of one hash meet on one rank and a skewed
+    load evens out. A collective; ``timeout`` bounds each receive."""
+    parts = ds.shuffle_partition(coord.world)
+    ds.receive_shuffled(_exchange_buckets(parts, coord, "gshuffle",
+                                          timeout))
 
 
 def coordinator_global_merge_by_insid(ds: "SlotDataset", coord,
                                       merge_size: int = 2,
                                       timeout: Optional[float] = 600.0
                                       ) -> int:
-    """The cross-host merge by instance id: not ported."""
-    raise NotImplementedError(
-        "coordinator_global_merge_by_insid (the cross-host merge over the "
-        "coordinator) is not ported yet (ROADMAP A.9)")
+    """The cross-host merge by instance id: each record goes to rank
+    ``crc32(ins_id) % world`` in one ``alltoall``, so an instance's parts
+    meet on one rank, which merges them (``merge_by_insid``). A
+    collective. Returns this rank's dropped count."""
+    buckets: List[List[SlotRecord]] = [[] for _ in range(coord.world)]
+    for r in ds.records:
+        buckets[zlib.crc32(r.ins_id.encode()) % coord.world].append(r)
+    recs = _exchange_buckets(buckets, coord, "gmerge", timeout)
+    merged, dropped = merge_by_insid(
+        recs, len(ds.parser.sparse_slots), len(ds.parser.float_slots),
+        merge_size, pool=GLOBAL_POOL,
+        float_is_dense=[s.is_dense for s in ds.parser.float_slots])
+    ds.records = merged
+    ds.merge_dropped = dropped
+    return dropped
 
 
 def global_merge_by_insid(datasets: Sequence["SlotDataset"],

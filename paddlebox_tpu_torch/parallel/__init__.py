@@ -3,8 +3,11 @@
 sharding plan and the gradient helpers (``plan``), the data-parallel step
 over a host table and the batch split (``dp_step``), the fused train step
 over a device-sharded table (``fused_dp_step``), ZeRO (``zero``), expert
-parallelism (``sharding``), the GPipe pipeline (``pipeline``) and ring
-attention (``ring_attention``).
+parallelism (``sharding``), the GPipe pipeline (``pipeline``), ring
+attention (``ring_attention``), and the multi-host layer: the TCP
+transport between processes (``coordinator``) and the role and start of a
+process of a job (``fleet``, a module: ``from paddlebox_tpu_torch.parallel
+import fleet``).
 
 Every name resolves at first use (PEP 562), so importing the package
 imports none of its modules, and no torch through them. The function
@@ -41,6 +44,11 @@ _LAZY = {
     "pipeline_apply": "paddlebox_tpu_torch.parallel.pipeline",
     "sequential_reference": "paddlebox_tpu_torch.parallel.pipeline",
     "dense_attention": "paddlebox_tpu_torch.parallel.ring_attention",
+    "Coordinator": "paddlebox_tpu_torch.parallel.coordinator",
+    "local_endpoints": "paddlebox_tpu_torch.parallel.coordinator",
+    "np_from_bytes": "paddlebox_tpu_torch.parallel.coordinator",
+    "np_to_bytes": "paddlebox_tpu_torch.parallel.coordinator",
+    "Role": "paddlebox_tpu_torch.parallel.fleet",
     "ring_self_attention": "paddlebox_tpu_torch.parallel.ring_attention",
 }
 

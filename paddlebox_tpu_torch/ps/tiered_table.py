@@ -1,10 +1,13 @@
 """A bounded device arena over a host table, over an optional disk tier:
 tables larger than device memory, and larger than host memory too
 (counterpart of ``paddlebox_tpu/ps/tiered_table.py``: ``_TierJob``,
-``_TierWorker`` and the single-device ``TieredDeviceTable``).
+``_TierWorker``, the single-device ``TieredDeviceTable`` and the mesh's
+``TieredShardedDeviceTable``).
 
     TieredDeviceTable (device arena, fixed capacity)   <- trains here
+    | or TieredShardedDeviceTable (one arena a shard)
       └─ backing: EmbeddingTable (host DRAM)           <- holds the features
+      |  or DistributedTable (ps/distributed.py: a shard a rank, over TCP)
            └─ optional DiskTier (ps/ssd_tier.py)       <- the cold ones
 
 Each pass's working set is staged from the backing into the arena, trained
@@ -67,8 +70,14 @@ int8 scale columns included. The prefetch, the disk tier and the deferred
 demote carry canonical float32 rows on the host. ``variable_embedding``
 needs a backing that stores its layout, which the host ``EmbeddingTable``
 refuses: without a backing the constructor raises its ``ValueError``, as
-the reference's does. Not ported, and refused with ``NotImplementedError``:
-the mesh-sharded tiered table (ROADMAP A.9).
+the reference's does.
+
+Over a ``DistributedTable`` backing the staging export, the writeback's
+import (sent empty when the pass touched nothing) and the backing's pass
+end are collectives: every rank's table calls them together. Its prefetch
+and ``ps_tier_demote`` would run them on the tier worker, beside the
+training thread's own collectives, which the reference does not order
+either: use neither over a ``DistributedTable``.
 
 The tier worker's queue length is the registry's ``ps.disk.worker_queue``
 gauge, and the mid-pass admission gate counts the keys it turns away in
@@ -94,7 +103,13 @@ from paddlebox_tpu_torch.config import BucketSpec, TableConfig, env_flag
 from paddlebox_tpu_torch.obs import trace
 from paddlebox_tpu_torch.obs.metrics import REGISTRY
 from paddlebox_tpu_torch.ps import admission
+from paddlebox_tpu_torch.parallel.mesh import AXIS_DP
 from paddlebox_tpu_torch.ps.device_table import _NULL_SENTINEL, DeviceTable
+from paddlebox_tpu_torch.ps.sharded_device_index import \
+    ShardedDeviceIndexMirror
+from paddlebox_tpu_torch.ps.sharded_device_table import ShardedDeviceTable
+from paddlebox_tpu_torch.ps.sharded_device_table import \
+    shard_of as device_shard_of
 from paddlebox_tpu_torch.ps.ssd_tier import DiskTier
 from paddlebox_tpu_torch.ps.table import EmbeddingTable
 
@@ -207,11 +222,6 @@ class TieredDeviceTable(DeviceTable):
                  admit=None,
                  stage_buckets: Optional[BucketSpec] = None,
                  device: DeviceLike = None):
-        if backing is not None and not isinstance(backing, EmbeddingTable):
-            raise NotImplementedError(
-                f"backing {type(backing).__name__}: only the host "
-                "EmbeddingTable backs a tiered table in the port (the "
-                "cross-host DistributedTable is ROADMAP A.9)")
         self.backing = backing if backing is not None else \
             EmbeddingTable(conf, backend=backend)
         # staging-width buckets: admission makes W swing from pass to
@@ -511,6 +521,11 @@ class TieredDeviceTable(DeviceTable):
         Returns the rows written back."""
         keys, vals, state = self._download_dirty()
         if keys is None:
+            # a collective over a DistributedTable: every rank enters
+            self.backing.import_rows(
+                np.empty(0, np.uint64),
+                np.zeros((0, self.layout.dim), np.float32),
+                np.zeros((0, self.layout.canonical_state_dim), np.float32))
             return 0
         self.backing.import_rows(keys, vals, state)
         self._record_wb_keys(keys)
@@ -647,11 +662,219 @@ class TieredDeviceTable(DeviceTable):
         return int(self.backing.memory_bytes())
 
 
-class TieredShardedDeviceTable:
-    """The tiered table over a mesh of devices (the reference's
-    ``TieredShardedDeviceTable``): not ported."""
+class TieredShardedDeviceTable(ShardedDeviceTable):
+    """The tiered table over a mesh: a ``ShardedDeviceTable`` whose shards
+    hold a pass's working set staged from ``backing`` (a host
+    ``EmbeddingTable``, or a ``ps/distributed.py`` ``DistributedTable``
+    spread over the ranks of a multi-host job), the device caches over a
+    PS sharded across hosts of the reference's flagship deployment.
+    ``begin_feed_pass`` stages this process's pass keys into the shards,
+    ``FusedShardedTrainStep`` trains them, ``end_pass`` writes the rows
+    the pass touched back.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TieredShardedDeviceTable, the tiered table over a mesh, is not "
-            "ported yet (ROADMAP A.9)")
+    Over a ``DistributedTable`` ``begin_feed_pass``, ``writeback``,
+    ``end_pass``, the saves and ``len`` are collectives: every rank calls
+    them together, and each calls the backing's collectives the same
+    number of times whatever its own rows (an empty export or import
+    where it has none). There is no ``prefetch_feed_pass`` here, as in
+    the reference: its export would be a collective on a second thread
+    beside the training loop's own coordinator traffic.
+
+    Admission (``admit``) decides at ``begin_feed_pass`` only (no
+    mid-pass re-check on the sharded prepare path).
+
+    ``writeback_mode``: ``"set"`` (the staged rows are the only copies:
+    overwrite the backing) or ``"delta"`` (send ``trained - staged`` and
+    let the owners add the ranks' contributions up: ranks whose working
+    sets overlap in a pass; with disjoint keys it gives what "set" gives,
+    up to rounding). A key that came mid-pass has no staged base; its
+    base is the backing's fresh row (the key's deterministic init)."""
+
+    def __init__(self, conf: TableConfig, mesh, backing=None,
+                 axis: str = AXIS_DP, capacity_per_shard: int = 1 << 18,
+                 disk: Optional[DiskTier] = None,
+                 writeback_mode: str = "set",
+                 req_buckets: Optional[BucketSpec] = None,
+                 uniq_buckets: Optional[BucketSpec] = None,
+                 backend: Optional[str] = None,
+                 value_dtype: torch.dtype = torch.float32,
+                 admit=None):
+        self.backing = backing if backing is not None else \
+            EmbeddingTable(conf, backend=backend)
+        self.disk = disk
+        self.writeback_mode = writeback_mode
+        self.in_pass = False
+        self.staged_keys: Optional[np.ndarray] = None
+        self._admit = admission.resolve(admit)
+        if disk is not None:
+            disk.live_keys_fn = self._live_pass_keys
+        # "delta": the staged (keys, values, state), float32 canonical
+        self._staged: Optional[Tuple] = None
+        super().__init__(conf, mesh, axis=axis,
+                         capacity_per_shard=capacity_per_shard,
+                         req_buckets=req_buckets, uniq_buckets=uniq_buckets,
+                         backend=backend, value_dtype=value_dtype)
+
+    def _live_pass_keys(self) -> Optional[np.ndarray]:
+        return self.staged_keys if self.in_pass else None
+
+    def _reset_arena(self, rebuild_mirror: bool = True) -> None:
+        """Fresh indexes and arenas on every shard (rows past a pass's
+        staged ones must not hold the last pass's trained values), no
+        dirty marks. The mirrors wrap the old indexes: rebuilt over the
+        new ones unless ``rebuild_mirror`` is False (``end_pass``: the
+        next ``begin_feed_pass`` resets again, and no step may run
+        between the two)."""
+        for s in range(self.ndev):
+            self._indexes[s] = self._new_index()
+            self._indexes[s].rebuild(
+                np.array([_NULL_SENTINEL], dtype=np.uint64))
+            self._sizes[s] = 1
+        self.values = self.state = None
+        self.values, self.state = self._alloc(self.capacity)
+        self._clear_dirty()
+        if self.mirror is not None and rebuild_mirror:
+            self.mirror = ShardedDeviceIndexMirror(self._indexes, self.mesh)
+
+    def begin_feed_pass(self, pass_keys: np.ndarray) -> int:
+        """Stage this process's pass working set into the shards (a
+        collective over a ``DistributedTable``); returns W, the staged
+        rows. Raises when one shard's share (by the device-shard hash)
+        does not fit ``capacity_per_shard``."""
+        if self.in_pass:
+            raise RuntimeError("previous pass not ended (call end_pass)")
+        keys = np.ascontiguousarray(pass_keys, dtype=np.uint64).ravel()
+        uniq, counts = np.unique(keys, return_counts=True)
+        live = uniq != 0
+        uniq, counts = uniq[live], counts[live]
+        if self._admit is not None:
+            uniq, _a, _r = admission.admit_pass_keys(
+                uniq, counts, self.backing, self.disk, self._admit)
+        w = int(uniq.size)
+        per = np.bincount(device_shard_of(uniq, self.ndev),
+                          minlength=self.ndev)
+        if per.size and int(per.max()) + 1 > self.capacity:
+            raise RuntimeError(
+                f"pass working set puts {int(per.max())} rows on one "
+                f"shard but capacity_per_shard={self.capacity}; split the "
+                "pass or raise capacity_per_shard=")
+        with trace.span("ps.stage_pass", n=w):
+            if self.disk is not None:
+                self.disk.stage(uniq)
+            vals, state = self.backing.export_rows(uniq, create=True)
+        self._reset_arena()
+        if w:
+            self._ingest(uniq, vals, state)
+            self._dirty[:] = False      # staging, not training
+        if self.mirror is not None:
+            # the previous pass's ring entries and snapshot must not
+            # insert its keys into this pass's indexes
+            for cnt in self.miss_cnt:
+                cnt.zero_()
+            self._miss_snapshot = None
+        if self.writeback_mode == "delta":
+            self._staged = (uniq, vals.copy(), state.copy())
+        self.in_pass = True
+        self.staged_keys = uniq
+        return w
+
+    def _trained_rows(self):
+        """(keys, values, state) host copies of the rows the pass touched
+        on every shard (the host marks OR each shard's device bitmap)."""
+        keys_l, vals_l, st_l = [], [], []
+        for s in range(self.ndev):
+            n = self._sizes[s]
+            rows = self._dirty_rows(s, n)
+            if not rows.size:
+                continue
+            keys_l.append(self._indexes[s].dump_keys(n)[rows])
+            v, st = self._canonical(s, rows)
+            vals_l.append(v)
+            st_l.append(st)
+        snap = self._assemble_snapshot(keys_l, vals_l, st_l)
+        return snap["keys"], snap["values"], snap["state"]
+
+    def writeback(self) -> int:
+        """Store the touched rows back ("set") or their change since
+        staging ("delta"); a collective over a ``DistributedTable``, which
+        every rank enters with or without rows. Returns the rows written
+        back."""
+        keys, vals, st = self._trained_rows()
+        if self.writeback_mode == "delta":
+            skeys, svals, sstate = self._staged
+            # skeys is sorted (np.unique)
+            if skeys.size:
+                j = np.minimum(np.searchsorted(skeys, keys), skeys.size - 1)
+                hit = skeys[j] == keys
+            else:
+                j = np.zeros(keys.size, dtype=np.int64)
+                hit = np.zeros(keys.size, dtype=bool)
+            base_v = np.zeros_like(vals)
+            base_s = np.zeros_like(st)
+            base_v[hit] = svals[j[hit]]
+            base_s[hit] = sstate[j[hit]]
+            # mid-pass keys: the backing's fresh rows; called on every
+            # rank (a collective), with or without such keys
+            missing = ~hit
+            mv, ms = self.backing.export_rows(keys[missing], create=True)
+            if missing.any():
+                base_v[missing] = mv
+                base_s[missing] = ms
+            self.backing.import_rows(keys, vals - base_v, st - base_s,
+                                     mode="add")
+        else:
+            self.backing.import_rows(keys, vals, st)
+        self._clear_dirty()
+        return int(keys.size)
+
+    def end_pass(self) -> None:
+        """Write back and reset the shards (an open pass), then the
+        backing's pass end (its decay; a barrier over a
+        ``DistributedTable``)."""
+        if self.in_pass:
+            self.writeback()
+            self.in_pass = False
+            self._staged = None
+            self.staged_keys = None
+            self._reset_arena(rebuild_mirror=False)
+        self.backing.end_pass()
+        if self._admit is not None:
+            self._admit.advance_epoch()
+
+    # -- persistence: the backing is the durable tier ------------------------
+
+    def _flush_and_rebaseline(self) -> None:
+        """A save mid-pass: write the shards back, then ("delta") take the
+        backing's rows as the new staged base, so that ``end_pass`` does
+        not add the same change twice."""
+        if not self.in_pass:
+            return
+        self.writeback()
+        if self.writeback_mode == "delta":
+            keys = self._staged[0]
+            nv, ns = self.backing.export_rows(keys, create=True)
+            self._staged = (keys, nv, ns)
+
+    def save(self, path: str) -> None:
+        self._flush_and_rebaseline()
+        self.backing.save(path)
+
+    def save_delta(self, path: str) -> int:
+        self._flush_and_rebaseline()
+        return self.backing.save_delta(path)
+
+    def snapshot_parts(self, delta: bool = False):
+        """Flush the shards, then the backing's snapshot files."""
+        self._flush_and_rebaseline()
+        return self.backing.snapshot_parts(delta=delta)
+
+    def mark_dirty(self, keys) -> None:
+        self.backing.mark_dirty(keys)
+
+    def load(self, path: str) -> None:
+        if self.in_pass:
+            raise RuntimeError("load during an open pass")
+        self.backing.load(path)
+
+    def __len__(self) -> int:
+        return len(self.backing)

@@ -98,9 +98,21 @@ batch split row-wise over the shards (``parallel/dp_step.py``
   (``pull``, ``step``, ``push`` spans); ``evaluate`` pulls with
   ``create=False``.
 
-``train_from_files`` refuses a mesh, as the reference does. Refused with
-``NotImplementedError``, naming ROADMAP A.9b3: ``dense_sync_hook``, and
-``num_devices`` > 1 without a mesh.
+``dense_sync_hook(params) -> params`` syncs the dense params across the
+hosts of a multi-host job (say, a mean through
+``parallel/coordinator.py`` ``Coordinator.allreduce_sum``) on the mesh
+engines: the chunked stream calls it every ``dense_sync_steps`` steps (0:
+at the engine's chunk, ``FusedShardedTrainStep.train_stream(chunk=,
+sync_hook=)``), the per-batch mesh path after every step (the reference's
+``_sync_dense``). ``dense_sync_steps`` > 0 with a hook stays on the
+device-sharded engine, as in the reference. A ``TieredShardedDeviceTable``
+over a ``DistributedTable`` (``ps/distributed.py``) is the multi-host
+table: the caller stages each pass (``begin_feed_pass``) and ends it
+(``end_pass``) around ``train_from_dataset``, on every rank.
+
+``train_from_files`` refuses a mesh, as the reference does.
+``TrainerConfig.num_devices`` is read by no engine, as in the reference:
+without a mesh the trainer trains on one device whatever its value.
 """
 
 from __future__ import annotations
@@ -189,25 +201,18 @@ class CTRTrainer:
         when a native single-map index backs the device table
         (``index_threads=1``; a sharded table's native shards); the
         host-table engine ignores it and ``insert_mode``, as the
-        reference's does."""
+        reference's does. ``dense_sync_hook(params) -> params``: the
+        cross-host dense sync of the mesh engines (module docstring)."""
         if insert_mode not in ("ensure", "deferred"):
             raise ValueError(f"unknown insert_mode {insert_mode!r}")
-        if dense_sync_hook is not None:
-            raise NotImplementedError(
-                "dense_sync_hook (cross-host dense sync) is not ported yet "
-                "(ROADMAP A.9b3)")
-        if mesh is None and trainer_conf.num_devices > 1:
-            raise NotImplementedError(
-                f"TrainerConfig.num_devices={trainer_conf.num_devices} "
-                "without a mesh (multi-host training) is not ported yet "
-                "(ROADMAP A.9b3); pass mesh= for the device-sharded engine")
         if mesh is not None:
             if isinstance(table, DeviceTable):
                 raise ValueError(
                     "DeviceTable is single-chip; pass a ShardedDeviceTable "
                     "(or no table) when training with mesh=")
-            if trainer_conf.dense_sync_steps > 0:
-                # LocalSGD rides the host table, as in the reference
+            if trainer_conf.dense_sync_steps > 0 and dense_sync_hook is None:
+                # LocalSGD rides the host table unless a cross-host hook
+                # is given, as in the reference
                 use_device_table = False
         elif isinstance(table, ShardedDeviceTable):
             raise ValueError(
@@ -221,9 +226,9 @@ class CTRTrainer:
                 f"table is a {type(table).__name__}: the port trains a "
                 "DeviceTable (fused engine) or a host table with pull and "
                 "push (host-table engine)")
-        # trainer_conf.dense_sync_steps is read only with a mesh and
-        # trainer_conf.metrics not at all on one device, as in the
-        # reference
+        # trainer_conf.dense_sync_steps is read only with a mesh, and
+        # trainer_conf.metrics and num_devices not at all on one device, as
+        # in the reference
         trace.maybe_enable()
         postmortem.maybe_install()
         self.model = model
@@ -237,6 +242,7 @@ class CTRTrainer:
         self.calc = AucCalculator()
         self.buckets = buckets
         self.dump_path = dump_path
+        self.dense_sync_hook = dense_sync_hook
         self._dump_f = None
         self._step_count = 0
         self.mesh = mesh
@@ -360,7 +366,8 @@ class CTRTrainer:
     def _train_pass_mesh_stream(self, dataset: SlotDataset):
         """One pass through ``FusedShardedTrainStep.train_stream`` (the
         chunked mesh stream), in segments of ``AUC_DRAIN_STEPS`` batches
-        with the AUC drained after each."""
+        with the AUC drained after each; the dense sync hook at the
+        stream's cadence."""
         from paddlebox_tpu_torch.parallel.dp_step import split_batch
 
         def args_iter(batches):
@@ -370,6 +377,8 @@ class CTRTrainer:
                        sb.labels, sb.dense, sb.row_mask)
                 self._step_count += 1
 
+        # dense_sync_steps > 0 is the hook's period; else the engine's chunk
+        k = int(self.trainer_conf.dense_sync_steps) or None
         it = dataset.batches()
         while True:
             seg = itertools.islice(it, AUC_DRAIN_STEPS)
@@ -377,7 +386,7 @@ class CTRTrainer:
                 (self.params, self.opt_state, self.auc_state, _loss,
                  steps) = self.step.train_stream(
                     self.params, self.opt_state, self.auc_state,
-                    args_iter(seg))
+                    args_iter(seg), chunk=k, sync_hook=self.dense_sync_hook)
             self._drain_auc()
             if self._guard is not None:
                 self._guard.check_trip()
@@ -394,6 +403,11 @@ class CTRTrainer:
         if self.fused and self.step.device_prep and \
                 self.step.insert_mode == "deferred":
             self.table.poll_misses()
+
+    def _sync_dense(self) -> None:
+        """The dense sync hook after a step of the per-batch mesh path."""
+        if self.dense_sync_hook is not None:
+            self.params = self.dense_sync_hook(self.params)
 
     def _train_one(self, batch: CsrBatch):
         cvm = self._cvm(batch)
@@ -427,6 +441,7 @@ class CTRTrainer:
                     (self.params, self.opt_state, self.auc_state, loss,
                      preds) = self.step(self.params, self.opt_state,
                                         self.auc_state, idx, *args)
+            self._sync_dense()
             return loss, preds.reshape(batch.batch_size, -1)
         if not self.fused:
             with self.timer.span("pull"):

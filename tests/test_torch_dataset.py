@@ -25,6 +25,7 @@ from paddlebox_tpu_torch.data.batch import BatchAssembler
 from paddlebox_tpu_torch.data.dataset import SlotDataset
 from paddlebox_tpu_torch.data.parser import (IngestError, SlotParser,
                                              pack_logkey, unpack_logkey)
+from torch_coord_world import exchange
 
 BATCH_FIELDS = ("keys", "segment_ids", "lengths", "labels", "dense",
                 "search_ids")
@@ -417,8 +418,30 @@ def _load_from_archive(files, tmp_path):
         np.testing.assert_array_equal(r.float_feas, f)
 
 
-# options once refused here (ROADMAP A.2d, ported): each case holds the
-# feature against the reference; the cross-host forms still refuse (A.9)
+def _coordinator_global_shuffle(files, tmp_path):
+    """Two ranks (threads over coordinators), a shard each: the cross-host
+    shuffle's records on each rank, in order."""
+    jshards, pshards = both_datasets(files, n=2)
+    exchange("ref", "shuffle", jshards)
+    exchange("port", "shuffle", pshards)
+    for g, w in zip(pshards, jshards):
+        assert_records_equal(g.records, w.records)
+    assert min(len(g.records) for g in pshards) > 0
+
+
+def _coordinator_global_merge_by_insid(files, tmp_path):
+    """Two ranks, a shard each: the cross-host merge's records on each
+    rank and its dropped count."""
+    jshards, pshards = both_datasets(ins_id_files(files, tmp_path),
+                                     jax_conf(parse_ins_id=True), n=2)
+    assert exchange("port", "merge", pshards) == \
+        exchange("ref", "merge", jshards) == [0, 0]
+    for g, w in zip(pshards, jshards):
+        assert_records_equal(g.records, w.records)
+
+
+# options once refused here (ROADMAP A.2d and A.9b3, ported): each case
+# holds the feature against the reference
 PORTED = {"pipe_command": _pipe_command, "string_slot": _string_slot,
           "error_budget": _error_budget,
           "set_merge_by_insid": _set_merge_by_insid,
@@ -427,22 +450,19 @@ PORTED = {"pipe_command": _pipe_command, "string_slot": _string_slot,
           "global_merge_by_insid": _global_merge_by_insid,
           "slots_shuffle": _slots_shuffle, "unshuffle": _unshuffle,
           "spill_to_disk": _spill_to_disk,
-          "load_from_archive": _load_from_archive}
-REFUSED = {
-    "coordinator_global_shuffle":
-        lambda: port_dataset.coordinator_global_shuffle(None, None),
-    "coordinator_global_merge_by_insid":
-        lambda: port_dataset.coordinator_global_merge_by_insid(None, None),
-}
+          "load_from_archive": _load_from_archive,
+          "coordinator_global_shuffle": _coordinator_global_shuffle,
+          "coordinator_global_merge_by_insid":
+              _coordinator_global_merge_by_insid}
+# none is refused now; the ids keep the order they had
+ONCE_REFUSED = ("coordinator_global_merge_by_insid",
+                "coordinator_global_shuffle")
 
 
-@pytest.mark.parametrize("what", sorted(REFUSED) + sorted(PORTED))
+@pytest.mark.parametrize("what", list(ONCE_REFUSED) + sorted(
+    set(PORTED) - set(ONCE_REFUSED)))
 def test_unported_options_refused(files, tmp_path, what):
-    if what in PORTED:
-        PORTED[what](files, tmp_path)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        REFUSED[what]()
+    PORTED[what](files, tmp_path)
 
 
 # label | slot_a | slot_b | slot_c | dense_x (dim 3), one line a record

@@ -1,8 +1,8 @@
 """Port's record operations and dataset features (``data/record.py``
 ``merge_by_insid``, ``replace_sparse_slots``, ``SlotRecordPool``;
 ``data/archive.py``; ``data/dataset.py`` ``set_merge_by_insid``, the
-in-process ``global_shuffle`` and ``global_merge_by_insid``,
-``slots_shuffle`` / ``unshuffle``, ``spill_to_disk`` /
+in-process ``global_shuffle`` and ``global_merge_by_insid`` and their
+cross-host forms over two coordinator ranks, ``slots_shuffle`` / ``unshuffle``, ``spill_to_disk`` /
 ``load_from_archive``, ``InputTableDataset``) against the JAX package's,
 on the same seeded records and files.
 
@@ -27,6 +27,7 @@ from paddlebox_tpu.data import record as ref_record
 from paddlebox_tpu_torch.config import DataFeedConfig
 from paddlebox_tpu_torch.data import archive, dataset, record
 from paddlebox_tpu_torch.data.parser import SlotParser
+from torch_coord_world import exchange
 
 RECORD_FIELDS = ("uint64_feas", "uint64_offsets", "float_feas",
                  "float_offsets")
@@ -59,6 +60,12 @@ def assert_records_equal(got, want):
             np.testing.assert_array_equal(a, b, err_msg=f)
         for f in RECORD_SCALARS:
             assert getattr(g, f) == getattr(w, f), f
+
+
+def record_fields(r):
+    """Copies of a record's arrays and scalars (``ins_id`` last)."""
+    return tuple([getattr(r, f).copy() for f in RECORD_FIELDS]
+                 + [getattr(r, f) for f in RECORD_SCALARS])
 
 
 def make_record(mod, slots, dense=None, label=0.0, ins_id="", search_id=0,
@@ -338,11 +345,46 @@ def test_slots_shuffle_and_unshuffle_match_reference():
         np.testing.assert_array_equal(r.uint64_offsets, offs)
 
 
-def test_coordinator_shuffles_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        dataset.coordinator_global_shuffle(None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        dataset.coordinator_global_merge_by_insid(None, None)
+def coordinator_exchanges(ins_files, pkg):
+    """Two ranks as threads, each holding one of the instance files (an
+    instance's parts on both): ``coordinator_global_merge_by_insid``
+    (merge size 2), then ``coordinator_global_shuffle`` of the merged
+    records. Returns (the ranks' datasets, merged records, dropped)."""
+    ds_mod = PKGS[pkg][2]
+    conf = jax_conf(ins_id=True)
+    conf = conf if pkg == "ref" else port_conf(conf)
+    shards = []
+    for path in ins_files:
+        ds = ds_mod.SlotDataset(conf)
+        ds.set_filelist([path])
+        ds.load_into_memory()
+        shards.append(ds)
+    dropped = exchange(pkg, "merge", shards)
+    # the shuffle recycles the records it sends: copies of the merge's
+    merged = [[record_fields(x) for x in d.records] for d in shards]
+    exchange(pkg, "shuffle", shards)
+    return shards, merged, dropped
+
+
+def test_coordinator_shuffles_refused(ins_files):
+    """The cross-host merge and shuffle (once refused here) at 2 ranks
+    against the reference's (``tests/test_data_pipeline.py``): each rank's
+    merged records in order and its dropped count, then its shuffled
+    records in order; each merged instance lands on rank ``crc32(ins_id)
+    % 2``, and the shuffle loses nothing."""
+    (ws, wm, wd), (gs, gm, gd) = (coordinator_exchanges(ins_files, pkg)
+                                  for pkg in ("ref", "port"))
+    assert gd == wd and sum(gd) > 0
+    for r in range(2):
+        assert len(gm[r]) == len(wm[r])
+        for g, w in zip(gm[r], wm[r]):
+            for a, b in zip(g, w):
+                np.testing.assert_array_equal(a, b)
+        assert gs[r].merge_dropped == ws[r].merge_dropped == gd[r]
+        assert all(zlib.crc32(x[-1].encode()) % 2 == r for x in gm[r])
+        assert_records_equal(gs[r].records, ws[r].records)
+    assert sorted(x.ins_id for d in gs for x in d.records) == \
+        sorted(x[-1] for m in gm for x in m)
 
 
 # -- archives ------------------------------------------------------------------

@@ -7,7 +7,7 @@ the chunked stream against the per-batch entries (a short tail, mixed key
 buckets); request-bucket overflow to null and the req_cap actuator's
 recovery; the miss ring and deferred insert; ``CTRTrainer(mesh=)`` against
 the reference trainer; the segment merge's plain version against
-``np.add.at``; the trainer's remaining refusals.
+``np.add.at``; the trainer's refusals, the reference's own.
 
 Tolerances: per-step loss rtol 1e-5; rows by key show/clk exact, the rest
 atol 1e-5 (float32 sums in another order: the reference's psum over eight
@@ -462,22 +462,17 @@ def _trainer(**kw):
 
 
 @pytest.mark.parametrize("what,exc,match", [
-    ("dense_sync_hook", NotImplementedError, "A.9b3"),
-    ("num_devices", NotImplementedError, "A.9b3"),
     ("device_table", ValueError, "single-chip"),
     ("sharded_without_mesh", ValueError, "needs its mesh"),
     ("train_from_files", ValueError, "mesh"),
     ("batch_size", ValueError, "not divisible"),
 ])
 def test_trainer_refusals(what, exc, match):
-    """What the mesh trainer still refuses, each naming its ROADMAP item
-    (A.9b3 multi-host), and the reference's own refusals (a batch the
-    shards cannot split evenly among them)."""
+    """The reference's own refusals of the mesh trainer (a single-chip
+    table, a sharded table without its mesh, files, a batch the shards
+    cannot split evenly among them). The multi-host options once refused
+    here train (tests/test_torch_multihost.py)."""
     build = {
-        "dense_sync_hook": lambda: _trainer(dense_sync_hook=lambda p: p),
-        "num_devices": lambda: _trainer(
-            mesh=None, device="cpu",
-            trainer_conf=TrainerConfig(num_devices=2)),
         "device_table": lambda: _trainer(table=DeviceTable(
             TableConfig(**TABLE), capacity=64, device="cpu")),
         "sharded_without_mesh": lambda: _trainer(

@@ -14,7 +14,9 @@ over a scripted host, and the CTR dense ops with a page-view batch and an
 AucRunner, and a trainer pass and a predictor through a 2-shard PS service,
 and the steps and the trainer of a 2-shard CPU mesh, and the host-table
 mesh engines (the 1-shard step, ZeRO, the trainer, expert shards, the
-pipeline, ring attention), with them blocked (in the child too); its entry
+pipeline, ring attention), and two ranks of the multi-host layer (the
+coordinator, the cross-host table and shuffle, the tiered mesh table under
+a dense-synced trainer), with them blocked (in the child too); its entry
 points default to the card and raise without one (the trainer and the
 serving tier too); its kernel modules import without a CUDA toolkit; the
 serving tier's batcher and transport import neither torch nor numpy."""
@@ -1446,3 +1448,101 @@ def test_host_table_mesh_with_jax_blocked(tmp_path):
     """)
     assert res.returncode == 0, res.stderr
     assert "HOST_MESH" in res.stdout
+
+
+def test_multihost_with_jax_blocked(tmp_path):
+    """The multi-host modules (``parallel/coordinator.py``,
+    ``parallel/fleet.py``, ``ps/distributed.py``, the coordinator dataset
+    exchange, ``TieredShardedDeviceTable``) import with jax and
+    paddlebox_tpu blocked and run two ranks as threads: the cross-host
+    shuffle, and a pass of ``CTRTrainer(mesh=, table=
+    TieredShardedDeviceTable(DistributedTable), dense_sync_hook=)`` a
+    rank; the transport, the fleet surface and the cross-host table
+    import no torch (a PS shard child's chain)."""
+    from conftest import make_slot_file
+    from paddlebox_tpu.config import DataFeedConfig, SlotConfig
+    conf = DataFeedConfig(slots=[
+        SlotConfig("label", type="float", is_dense=True, dim=1),
+        SlotConfig("a"), SlotConfig("b")], batch_size=8, thread_num=1)
+    files = [make_slot_file(str(tmp_path / f"part-{i}"), conf, 24,
+                            seed=7 + i) for i in range(2)]
+    res = _run(f"""
+        import sys, threading
+        for name in {sorted(FORBIDDEN)!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        from paddlebox_tpu_torch.config import (DataFeedConfig, SlotConfig,
+                                                TableConfig, TrainerConfig)
+        from paddlebox_tpu_torch.data.dataset import (
+            SlotDataset, coordinator_global_shuffle)
+        from paddlebox_tpu_torch.models import DeepFM
+        from paddlebox_tpu_torch.parallel import (Coordinator, fleet,
+                                                  local_endpoints,
+                                                  make_mesh)
+        from paddlebox_tpu_torch.parallel.coordinator import dense_mean_hook
+        from paddlebox_tpu_torch.ps import (DistributedTable,
+                                            TieredShardedDeviceTable)
+        from paddlebox_tpu_torch.trainer.trainer import CTRTrainer
+        assert fleet.init(rank=0, endpoints=["127.0.0.1:0"]).world == 1
+        fleet.stop()
+        fc = DataFeedConfig(slots=[
+            SlotConfig("label", type="float", is_dense=True, dim=1),
+            SlotConfig("a"), SlotConfig("b")], batch_size=8, thread_num=1)
+        tconf = TableConfig(embedx_dim=4)
+        eps = local_endpoints(2)
+        coords = [Coordinator(r, eps) for r in range(2)]
+        out, errs = [None, None], [None, None]
+
+        def rank(r):
+            try:
+                c = coords[r]
+                sh, ds = (SlotDataset(fc, shard_id=r, num_shards=2)
+                          for _ in range(2))
+                for d in (sh, ds):
+                    d.set_filelist({files!r})
+                    d.load_into_memory()
+                coordinator_global_shuffle(sh, c)
+                mesh = make_mesh(2, device="cpu")
+                table = TieredShardedDeviceTable(
+                    tconf, mesh, backing=DistributedTable(tconf, c),
+                    capacity_per_shard=256, writeback_mode="delta")
+                tr = CTRTrainer(DeepFM(2 * 7, (8,)), fc, tconf,
+                                TrainerConfig(dense_sync_steps=2), table=table,
+                                mesh=mesh, dense_sync_hook=dense_mean_hook(c))
+                table.begin_feed_pass(np.concatenate(
+                    [x.uint64_feas for x in ds.records]))
+                m = tr.train_from_dataset(ds)
+                table.end_pass()
+                out[r] = (len(sh.records), m["ins_num"], len(table))
+            except Exception as e:
+                errs[r] = e
+
+        ts = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(120)
+        for c in coords:
+            c.close()
+        assert errs == [None, None], errs
+        assert sum(o[0] for o in out) == 48 and out[0][2] == out[1][2] > 0
+        assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r}
+                       for k, v in sys.modules.items() if v is not None)
+        print("MULTIHOST", out)
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "MULTIHOST" in res.stdout
+    res = _run(f"""
+        import sys
+        sys.path.insert(0, {ROOT!r})
+        import paddlebox_tpu_torch.ps.service.shard_server
+        from paddlebox_tpu_torch.parallel import Coordinator, fleet
+        from paddlebox_tpu_torch.ps import DistributedTable
+        from paddlebox_tpu_torch.data.dataset import coordinator_global_shuffle
+        assert fleet.init(rank=0, endpoints=["127.0.0.1:0"]).world == 1
+        assert 'torch' not in sys.modules, 'torch imported'
+        print("NO_TORCH")
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "NO_TORCH" in res.stdout

@@ -35,7 +35,9 @@ from paddlebox_tpu.trainer.fused_step import FusedTrainStep as JaxStep
 from paddlebox_tpu_torch.config import BucketSpec, TableConfig, TrainerConfig
 from paddlebox_tpu_torch.models import DeepFM
 from paddlebox_tpu_torch.models.convert import deepfm_from_flax_leaves
+from paddlebox_tpu_torch.parallel.mesh import make_mesh
 from paddlebox_tpu_torch.ps.device_table import DeviceTable
+from paddlebox_tpu_torch.ps.sharded_device_table import ShardedDeviceTable
 from paddlebox_tpu_torch.ps.table import EmbeddingTable
 from paddlebox_tpu_torch.ps.tiered_table import (TieredDeviceTable,
                                                 TieredShardedDeviceTable)
@@ -344,8 +346,8 @@ def test_failed_prefetch_stages_synchronously(monkeypatch, tmp_path):
 
 
 def test_refusals(monkeypatch):
-    """Only the mesh-sharded tiered table stays refused (ROADMAP A.9). The
-    low-precision arenas, once refused here, build
+    """Nothing is refused now. The mesh-sharded tiered table (ROADMAP
+    A.9b3) builds; the low-precision arenas, once refused here, build
     (``tests/test_torch_tiered_arenas.py`` holds them to the reference); a
     variable arena without a backing raises the host table's
     ``ValueError``, as the reference's does. The disk tier, admission,
@@ -369,8 +371,13 @@ def test_refusals(monkeypatch):
         t = TieredDeviceTable(conf, capacity=64, device="cpu")
         assert (t._admit is not None) == (flag == "ps_admit_shows")
         monkeypatch.delenv(f"PBOX_FLAGS_{flag}")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        TieredShardedDeviceTable(conf, mesh=None)
+    # the tiered table over a mesh builds (tests/test_torch_multihost.py
+    # holds it to the reference), its shards empty until a pass stages
+    sharded = TieredShardedDeviceTable(conf, make_mesh(2, device="cpu"),
+                                       capacity_per_shard=64,
+                                       backend="numpy")
+    assert isinstance(sharded, ShardedDeviceTable) and not sharded.in_pass
+    assert sharded.shard_sizes() == [0, 0] and len(sharded) == 0
     monkeypatch.setenv("PBOX_FLAGS_ps_admit_shows", "0.0")
     t = TieredDeviceTable(conf, capacity=64, device="cpu",
                           backing=EmbeddingTable(conf, backend="numpy"))

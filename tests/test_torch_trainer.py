@@ -121,11 +121,12 @@ def table_state(table_values, table_state_, keys, size):
                 keys=np.asarray(keys).copy(), size=size)
 
 
-def run_reference(kind, files, dump_path, device_prep):
+def run_reference(kind, files, dump_path, device_prep, num_devices=1):
     """The reference trainer over a native one-thread table: pass 1 (the
     default AUC drain, with a dump and a fetch handler), its evaluation,
     then pass 2 with ``AUC_DRAIN_STEPS`` = 4. Returns the initial weights
-    and arena and what each phase gave."""
+    and arena and what each phase gave. ``num_devices``: its
+    ``TrainerConfig``'s."""
     flax_cls = MODELS[kind][0]
     jt = JaxDeviceTable(JaxTableConfig(**TABLE), capacity=CAPACITY,
                         backend="native", index_threads=1)
@@ -133,8 +134,8 @@ def run_reference(kind, files, dump_path, device_prep):
              jt._index.dump_keys(jt._size))
     tr = ref_trainer.CTRTrainer(
         flax_cls(hidden=HIDDEN), jax_feed_conf(), JaxTableConfig(**TABLE),
-        JaxTrainerConfig(), table=jt, dump_path=dump_path,
-        device_prep=device_prep)
+        JaxTrainerConfig(num_devices=num_devices), table=jt,
+        dump_path=dump_path, device_prep=device_prep)
     assert tr.step.device_prep == (device_prep is not False)
     out = dict(init=leaves_of(tr.params), arena=arena)
     ds = JaxSlotDataset(jax_feed_conf())
@@ -166,15 +167,16 @@ def run_reference(kind, files, dump_path, device_prep):
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory, files):
-    """Reference runs, each built on first use: (model, device_prep)."""
+    """Reference runs, each built on first use: (model, device_prep,
+    num_devices)."""
     runs = {}
 
-    def get(kind, device_prep=None):
-        key = (kind, device_prep)
+    def get(kind, device_prep=None, num_devices=1):
+        key = (kind, device_prep, num_devices)
         if key not in runs:
             d = tmp_path_factory.mktemp(f"ref_{kind}_{device_prep}")
-            runs[key] = run_reference(kind, files,
-                                      str(d / "dump.jsonl"), device_prep)
+            runs[key] = run_reference(kind, files, str(d / "dump.jsonl"),
+                                      device_prep, num_devices)
         return runs[key]
     return get
 
@@ -334,20 +336,20 @@ def test_profile_line(files, reference, capfd):
 
 
 # the four TrainerConfig fields of the trainer loop (FusedTrainStep reads
-# none of them): on one device the trainer ignores dense_sync_steps and
-# metrics, as the reference does, refuses num_devices > 1 without a mesh
-# (A.9b3) and prints the profile line
+# none of them): on one device the trainer ignores dense_sync_steps,
+# metrics and num_devices, as the reference does (num_devices > 1 without a
+# mesh trains on one device in both packages: held against the reference
+# run at the same value), and prints the profile line
 @pytest.mark.parametrize("field,value", [
     ("dense_sync_steps", 4), ("metrics", ["auc", "mae"]),
-    ("num_devices", 4), ("profile", True)])
+    ("num_devices", 4), ("num_devices", 2), ("profile", True)])
 def test_trainer_config_fields(files, reference, capfd, field, value):
-    ref = reference("deepfm")
+    ref = reference("deepfm", num_devices=value if field == "num_devices"
+                    else 1)
     conf = TrainerConfig(**{field: value})
-    if field == "num_devices":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-            port_trainer_of("deepfm", ref, trainer_conf=conf)
-        return
     tr = port_trainer_of("deepfm", ref, trainer_conf=conf)
+    if field == "num_devices":
+        assert tr.mesh is None and tr.ndev == 1
     assert_pass_matches("deepfm", tr, train_pass(tr, port_dataset(files)),
                         ref["pass1"])
     assert ("log_for_profile" in capfd.readouterr().err) == \
@@ -365,16 +367,14 @@ def _trainer(**kw):
                       TableConfig(**TABLE), TrainerConfig(), **kw)
 
 
-REFUSED = {
-    "dense_sync_hook": (lambda: _trainer(dense_sync_hook=lambda p: p),
-                        "A.9b3"),
-}
+REFUSED = {}
 # options once refused here, which now build (test_torch_deferred_insert.py
 # holds "deferred" to the reference; test_torch_mp_reader.py and
 # test_torch_stream.py train_from_files(workers=2); a mesh over a device
 # table test_torch_fused_sharded.py, over a host table
-# test_torch_trainer_mesh.py)
-PORTED = {"deferred": lambda: _trainer(insert_mode="deferred"),
+# test_torch_trainer_mesh.py; the dense sync hook test_torch_multihost.py)
+PORTED = {"dense_sync_hook": lambda: _trainer(dense_sync_hook=lambda p: p),
+          "deferred": lambda: _trainer(insert_mode="deferred"),
           "train_from_files": lambda: _trainer(),
           "mesh": lambda: _trainer(mesh=make_mesh(2, device="cpu"),
                                    table=None, use_device_table=False)}
@@ -452,6 +452,11 @@ def test_unported_options_refused(what, monkeypatch, tmp_path):
     if what == "mesh":
         tr = PORTED[what]()
         assert isinstance(tr.step, ShardedTrainStep) and not tr.fused
+        return
+    if what == "dense_sync_hook":
+        # kept, and called by the mesh paths only
+        tr = PORTED[what]()
+        assert tr.dense_sync_hook is not None and tr.mesh is None
         return
     if what in PORTED:
         tr = PORTED[what]()
